@@ -1,0 +1,293 @@
+"""Matmul-backend registry and the one dispatching entry point (port of the
+serving part of ``repro/api/registry.py``).
+
+``matmul(x, w, backend=, epilogue=, epilogue_operands=, prologue=,
+prologue_operands=, prologue_eps=)`` computes ``epilogue(prologue(x) @ W)``.
+Backends declare the weight layout they consume and what they fuse:
+
+    torch   plain ``torch.matmul`` on natural weights (the peer of ``xla``);
+            fuses nothing, so ``matmul`` decomposes every prologue/epilogue
+    ws      the CUDA kernel (``kernels/dip_matmul.py``) on natural storage,
+            ``fuse_deshear=False`` (the peer of ``ws``)
+    dip     the CUDA kernel on DiP-permutated storage (the peer of
+            ``pallas_dip``): de-shear, rmsnorm prologue and the six
+            epilogues fused in one launch
+
+The reference's names ``xla`` and ``pallas_dip`` resolve to ``torch`` and
+``dip``, so a configuration copied from the reference selects the same path.
+
+Tiled backends share one shim: x is flattened to (M, K) and its K padded to
+the weight's 64-padded storage, the gain row and bias row are padded with
+zeros, the residual is padded on N, and the output is cropped to the
+logical width.  M is not padded: the kernel masks ragged rows itself.
+Backends without a fusion get the decomposition rule: the prologue runs as
+the same f32 normalize-and-cast ahead of the product, the epilogue as the
+same f32 arithmetic after it, so results agree across backends.
+
+Not ported in this slice: quantized layouts, sharded plans, ABFT
+verification, autograd and the block-size tuning table (the kernel's tile
+is fixed at 64).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.api.weights import PERM_TILE, DipWeight, as_dip_weight
+from repro_torch.kernels import epilogue as epilogue_lib
+from repro_torch.kernels import prologue as prologue_lib
+from repro_torch.kernels.dip_matmul import dip_matmul
+
+__all__ = [
+    "MatmulBackend",
+    "DEFAULT_BACKEND",
+    "EPILOGUES",
+    "PROLOGUES",
+    "get_backend",
+    "list_backends",
+    "backend_layout",
+    "matmul",
+]
+
+DEFAULT_BACKEND = "torch"
+EPILOGUES = epilogue_lib.EPILOGUES
+PROLOGUES = prologue_lib.PROLOGUES
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulBackend:
+    """One registered matmul implementation.
+
+    Tiled backends are called as ``fn(x2, w2, *weights_and_operands,
+    epilogue=, prologue=, prologue_operands=, prologue_k=, prologue_eps=)``
+    on 2-D operands already padded by the shim; non-tiled ones as
+    ``fn(x, w_natural)`` and never fuse.
+    """
+
+    name: str
+    layout: str  # "natural" | "dip"
+    fn: Callable
+    tiled: bool = True
+    epilogues: FrozenSet[str] = frozenset({"none"})
+    prologues: FrozenSet[str] = frozenset({"none"})
+    description: str = ""
+
+
+def _torch_fn(x, wn):
+    return torch.matmul(x, wn)
+
+
+def _ws_fn(x2, w2, *eops, **kw):
+    return dip_matmul(x2, w2, *eops, fuse_deshear=False, **kw)
+
+
+def _dip_fn(x2, p2, *eops, **kw):
+    return dip_matmul(x2, p2, *eops, fuse_deshear=True, **kw)
+
+
+_ALL = frozenset(EPILOGUES)
+_REGISTRY: Dict[str, MatmulBackend] = {
+    b.name: b for b in (
+        MatmulBackend("torch", "natural", _torch_fn, tiled=False,
+                      description="plain torch.matmul (de-shears a DipWeight first)"),
+        MatmulBackend("ws", "natural", _ws_fn, epilogues=_ALL, prologues=frozenset(PROLOGUES),
+                      description="CUDA tiled kernel on natural storage (baseline)"),
+        MatmulBackend("dip", "dip", _dip_fn, epilogues=_ALL, prologues=frozenset(PROLOGUES),
+                      description="CUDA kernel: de-shear in shared memory, fused prologue/epilogue"),
+    )
+}
+# the reference's backend names, so its configurations resolve here
+_ALIASES = {"xla": "torch", "pallas_dip": "dip"}
+_NOT_PORTED = {
+    "pallas_systolic": "ROADMAP.md Queue 2 item 5 (dip_systolic)",
+    "dip_int8w": "ROADMAP.md Queue 1 item 9 (quantization)",
+    "dip_fp8": "ROADMAP.md Queue 1 item 9 (quantization)",
+    "dip_tp": "ROADMAP.md Queue 1 item 12 (distributed)",
+    "dip_fsdp": "ROADMAP.md Queue 1 item 12 (distributed)",
+    "dip_sp": "ROADMAP.md Queue 1 item 12 (distributed)",
+    "dip_ep": "ROADMAP.md Queue 1 item 12 (distributed)",
+}
+
+
+def get_backend(name: Optional[str] = None) -> MatmulBackend:
+    name = name or DEFAULT_BACKEND
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"matmul backend {name!r} is not ported yet: {_NOT_PORTED[name]}")
+    try:
+        return _REGISTRY[_ALIASES.get(name, name)]
+    except KeyError:
+        raise KeyError(f"unknown matmul backend {name!r}; registered: {sorted(_REGISTRY)}") from None
+
+
+def list_backends() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+def backend_layout(name: Optional[str] = None) -> str:
+    """Weight layout the named backend consumes ("natural" | "dip")."""
+    return get_backend(name).layout
+
+
+# ------------------------------------------------------------------ shim ---
+def _pad_last2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    pr, pc = rows - t.shape[-2], cols - t.shape[-1]
+    return F.pad(t, (0, pc, 0, pr)) if (pr or pc) else t
+
+
+def _logical_dims(w) -> Tuple[int, int]:
+    if isinstance(w, DipWeight):
+        return w.d_in, w.d_out
+    if w.dim() != 2:
+        raise ValueError(f"matmul weight must be 2-D, got shape {tuple(w.shape)}")
+    return int(w.shape[0]), int(w.shape[1])
+
+
+def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, pro_operands, eps):
+    lead = tuple(x.shape[:-1])
+    kp, np_ = ws[0].shape
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.shape[1] != kp:
+        x2 = F.pad(x2, (0, kp - x2.shape[1]))
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_k=k_true, prologue_eps=eps)
+    if prologue_lib.spec(prologue).normalize:
+        g = pro_operands[0].reshape(-1).float()
+        kw["prologue_operands"] = (F.pad(g, (0, kp - g.shape[0])).contiguous(),)
+    spec = epilogue_lib.spec(epilogue)
+    eops: Tuple[torch.Tensor, ...] = ()
+    if spec.bias:
+        b = operands[0].reshape(-1).float()
+        eops = (F.pad(b, (0, np_ - b.shape[0])).contiguous(),)
+    elif spec.residual:
+        r = operands[0].reshape(-1, out_cols)
+        eops = (_pad_last2(r, r.shape[0], np_).contiguous(),)
+    out = be.fn(x2.contiguous(), ws[0], *ws[1:], *eops, **kw)
+    if np_ != out_cols:
+        out = out[:, :out_cols]
+    return out.reshape(lead + (out_cols,))
+
+
+def _validated_dip_x(x: torch.Tensor, dw: DipWeight) -> torch.Tensor:
+    if dw.data.dim() != 2:
+        raise ValueError(
+            f"matmul weight must be 2-D (got storage {tuple(dw.data.shape)}); index the stacked axis first"
+        )
+    if dw.perm_tile != PERM_TILE:
+        raise ValueError(f"the dip kernel de-shears {PERM_TILE}-tiles, got perm_tile={dw.perm_tile}")
+    if x.shape[-1] != dw.d_in:
+        raise ValueError(
+            f"x contraction {x.shape[-1]} does not match DipWeight d_in={dw.d_in} "
+            f"(storage {tuple(dw.data.shape)})"
+        )
+    return x
+
+
+def _check_epilogue_inputs(x, weights, epilogue, operands) -> None:
+    spec = epilogue_lib.spec(epilogue)
+    if spec.dual_weight:
+        wg, wu = weights
+        if type(wg) is not type(wu):
+            raise ValueError(f"epilogue {epilogue!r} weight pair must share a type")
+        if _logical_dims(wg) != _logical_dims(wu):
+            raise ValueError(f"epilogue {epilogue!r} weight pair must share logical dims")
+    d_out = _logical_dims(weights[0])[1]
+    if spec.bias and tuple(operands[0].shape) not in ((d_out,), (1, d_out)):
+        raise ValueError(f"epilogue {epilogue!r} bias must be ({d_out},) or (1, {d_out}), "
+                         f"got {tuple(operands[0].shape)}")
+    if spec.residual:
+        want = tuple(x.shape[:-1]) + (d_out,)
+        if tuple(operands[0].shape) != want:
+            raise ValueError(f"epilogue {epilogue!r} residual must match the output shape {want}, "
+                             f"got {tuple(operands[0].shape)}")
+        if operands[0].dtype != x.dtype:
+            raise TypeError(f"residual must be {x.dtype} like x, got {operands[0].dtype}")
+
+
+def _check_prologue_inputs(weights, prologue, pro_operands) -> None:
+    spec = prologue_lib.spec(prologue)
+    if len(pro_operands) != spec.n_operands:
+        raise ValueError(f"prologue {prologue!r} takes {spec.n_operands} prologue_operands, "
+                         f"got {len(pro_operands)}")
+    if spec.normalize:
+        d_in = _logical_dims(weights[0])[0]
+        if tuple(pro_operands[0].shape) not in ((d_in,), (1, d_in)):
+            raise ValueError(f"prologue {prologue!r} gain must be ({d_in},) or (1, {d_in}), "
+                             f"got {tuple(pro_operands[0].shape)}")
+
+
+# -------------------------------------------------------------- dispatch ---
+def matmul(
+    x: torch.Tensor,
+    w,
+    *,
+    backend: Optional[str] = None,
+    epilogue: Optional[str] = None,
+    epilogue_operands: Sequence[torch.Tensor] = (),
+    prologue: Optional[str] = None,
+    prologue_operands: Sequence[torch.Tensor] = (),
+    prologue_eps: float = prologue_lib.DEFAULT_EPS,
+) -> torch.Tensor:
+    """``epilogue(prologue(x) @ w)`` through a registered backend.
+
+    ``x``: (..., d_in); ``w``: a natural (d_in, d_out) tensor or a
+    ``DipWeight`` — or a ``(w_gate, w_up)`` pair for ``swiglu``.  Returns
+    (..., d_out).  ``bias``/``bias_gelu``/``bias_silu`` take
+    ``epilogue_operands=(b,)``, ``residual`` takes ``(r,)`` of the output's
+    shape and x's dtype; ``rmsnorm`` takes ``prologue_operands=(g,)``.
+    """
+    epilogue = epilogue or "none"
+    prologue = prologue or "none"
+    spec = epilogue_lib.spec(epilogue)
+    prologue_lib.spec(prologue)
+    operands = tuple(epilogue_operands)
+    pro_operands = tuple(prologue_operands)
+    if spec.dual_weight:
+        if not (isinstance(w, (tuple, list)) and len(w) == 2):
+            raise ValueError(f"epilogue {epilogue!r} consumes a (w_gate, w_up) weight pair")
+        weights = tuple(w)
+    else:
+        if isinstance(w, (tuple, list)):
+            raise ValueError(f"a weight pair is only valid with the dual-weight 'swiglu' epilogue "
+                             f"(got epilogue={epilogue!r})")
+        weights = (w,)
+    n_expected = 0 if spec.dual_weight else spec.n_operands
+    if len(operands) != n_expected:
+        raise ValueError(f"epilogue {epilogue!r} takes {n_expected} epilogue_operands, got {len(operands)}")
+    be = get_backend(backend)
+
+    if prologue != "none":
+        _check_prologue_inputs(weights, prologue, pro_operands)
+        if prologue not in be.prologues:
+            xn = prologue_lib.apply(prologue, x, pro_operands[0].reshape(-1), eps=prologue_eps)
+            return matmul(xn, w, backend=be.name, epilogue=epilogue, epilogue_operands=operands)
+
+    if epilogue != "none":
+        _check_epilogue_inputs(x, weights, epilogue, operands)
+        if epilogue not in be.epilogues:
+            outs = [matmul(x, wi, backend=be.name, prologue=prologue, prologue_operands=pro_operands,
+                           prologue_eps=prologue_eps) for wi in weights]
+            aux = (outs[1].float(),) if spec.dual_weight else tuple(op.float() for op in operands)
+            out_dtype = outs[0].dtype if outs[0].dtype.is_floating_point else torch.float32
+            return epilogue_lib.apply(epilogue, outs[0].float(), *aux).to(out_dtype)
+
+    if be.layout == "dip":
+        dws = tuple(as_dip_weight(wi) for wi in weights)
+        xk = _validated_dip_x(x, dws[0])
+        return _tiled_dispatch(be, xk, tuple(dw.data for dw in dws), dws[0].d_out, dws[0].d_in,
+                               epilogue, operands, prologue, pro_operands, prologue_eps)
+
+    wns = tuple(wi.to_natural() if isinstance(wi, DipWeight) else wi for wi in weights)
+    for wn in wns:
+        if wn.dim() != 2:
+            raise ValueError(f"matmul weight must be 2-D, got {tuple(wn.shape)}")
+        if x.shape[-1] != wn.shape[-2]:
+            raise ValueError(f"contraction mismatch: x {tuple(x.shape)} @ w {tuple(wn.shape)}")
+    if not be.tiled:
+        return be.fn(x, wns[0])
+    k, n = wns[0].shape
+    kp, np_ = DipWeight.storage_dims(k, n, PERM_TILE)
+    return _tiled_dispatch(be, x, tuple(_pad_last2(wn, kp, np_).contiguous() for wn in wns), n, k,
+                           epilogue, operands, prologue, pro_operands, prologue_eps)

@@ -1,0 +1,92 @@
+"""``DipWeight`` — the paper's permutated weight layout (port of
+``repro/api/weights.py``).
+
+``data`` holds the storage, (..., Kp, Np), permutated per 64x64 tile and
+zero-padded to the tile grid; ``d_in`` / ``d_out`` are the logical dims;
+``perm_tile`` is the tile (64 in the paper).  Leading dims (a layer-stacking
+axis) pass through.  The reference's ``plan`` and ``checksum`` fields belong
+to the sharded backends and the reliability layer, which are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import permute
+
+__all__ = ["PERM_TILE", "DipWeight", "as_dip_weight"]
+
+PERM_TILE = 64  # the paper's systolic-array dimension
+
+
+def _pad_up(v: int, multiple: int) -> int:
+    return v + (-v) % multiple
+
+
+class DipWeight:
+    """Permutated weight storage plus logical-shape metadata."""
+
+    __slots__ = ("data", "d_in", "d_out", "perm_tile")
+
+    def __init__(self, data: torch.Tensor, d_in: int, d_out: int, perm_tile: int = PERM_TILE):
+        self.data = data
+        self.d_in = int(d_in)
+        self.d_out = int(d_out)
+        self.perm_tile = int(perm_tile)
+
+    @staticmethod
+    def storage_dims(d_in: int, d_out: int, perm_tile: int = PERM_TILE) -> Tuple[int, int]:
+        """Padded (Kp, Np) trailing dims of the permutated storage."""
+        return _pad_up(d_in, perm_tile), _pad_up(d_out, perm_tile)
+
+    @classmethod
+    def from_natural(cls, w: torch.Tensor, perm_tile: int = PERM_TILE) -> "DipWeight":
+        """Offline permutation (paper Fig. 3): pad to the tile grid and
+        permute each tile; leading dims pass through."""
+        d_in, d_out = int(w.shape[-2]), int(w.shape[-1])
+        return cls(permute.permute_tiled(w, perm_tile), d_in, d_out, perm_tile)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def storage_shape(self) -> Tuple[int, ...]:
+        return tuple(self.data.shape)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """Logical shape: leading dims + (d_in, d_out)."""
+        return tuple(self.data.shape[:-2]) + (self.d_in, self.d_out)
+
+    def to_natural(self) -> torch.Tensor:
+        """Recover the natural-layout weight (inverse permutation + crop)."""
+        wn = permute.unpermute_tiled(self.data, self.perm_tile)
+        return wn[..., : self.d_in, : self.d_out]
+
+    def astype(self, dtype: torch.dtype) -> "DipWeight":
+        """Cast the storage (elementwise, so the permutation commutes);
+        float-to-float only, as in the reference."""
+        if dtype == self.data.dtype:
+            return self
+        if not dtype.is_floating_point:
+            raise TypeError(
+                f"DipWeight.astype({dtype}) would truncate storage without scales; "
+                "quantized storage is not ported yet (ROADMAP.md Queue 1 item 9)"
+            )
+        return self.with_data(self.data.to(dtype))
+
+    def with_data(self, data: torch.Tensor) -> "DipWeight":
+        """Same metadata, different payload (a layer slice, a device copy)."""
+        return DipWeight(data, self.d_in, self.d_out, self.perm_tile)
+
+    def __repr__(self) -> str:
+        return (f"DipWeight({tuple(self.data.shape)}:{self.data.dtype}, d_in={self.d_in}, "
+                f"d_out={self.d_out}, perm_tile={self.perm_tile})")
+
+
+def as_dip_weight(w) -> DipWeight:
+    """A ``DipWeight`` passes through; a natural tensor is permutated."""
+    return w if isinstance(w, DipWeight) else DipWeight.from_natural(w)

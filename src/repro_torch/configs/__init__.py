@@ -1,0 +1,29 @@
+"""Architecture registry (port of ``repro/configs/__init__.py``).
+
+Only ``llama3-8b`` is ported; the other nine configurations come with their
+families (ROADMAP.md Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.configs.base import ArchConfig
+
+ALL_ARCHS: List[str] = ["llama3_8b"]
+
+_ALIASES: Dict[str, str] = {"llama3-8b": "llama3_8b"}
+
+
+def get_config(name: str) -> ArchConfig:
+    mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
+    if mod_name not in ALL_ARCHS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ported: {ALL_ARCHS}; "
+            "the other families come with ROADMAP.md Queue 1 item 10)"
+        )
+    return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
+
+
+__all__ = ["ALL_ARCHS", "ArchConfig", "get_config"]

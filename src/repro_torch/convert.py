@@ -1,0 +1,50 @@
+"""Load the reference's parameters into the port.
+
+``params_from_jax(np_params, cfg, device)`` takes the reference's
+``init_params`` output moved to numpy (``jax.tree_util.tree_map(np.asarray,
+params)``) and returns the port's parameter dict, so that both sides compute
+with the same weights.  Leaves are numpy arrays (``ml_dtypes.bfloat16``
+included) or DiP-stored weights: any object with ``data`` (numpy storage,
+kept permutated), ``d_in``, ``d_out`` and ``perm_tile`` — the reference's
+``DipWeight`` is read by those attributes, so nothing of the reference is
+imported.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.api import DipWeight
+from repro_torch.device import resolve_device
+
+__all__ = ["params_from_jax", "tensor_from_numpy"]
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """A numpy array (bf16 via its float32 widening, which is exact) as a
+    tensor of the same dtype on ``device``."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def params_from_jax(np_params: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
+    """Convert a (nested) reference parameter dict for ``cfg`` to the port's
+    layout on ``device`` (default ``"cuda"``)."""
+    dev = resolve_device(device)
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if all(hasattr(v, a) for a in ("data", "d_in", "d_out", "perm_tile")):
+            return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile)
+        return tensor_from_numpy(v, dev)
+
+    params = conv(np_params)
+    if cfg.uses_dip_storage != isinstance(params.get("lm_head"), DipWeight):
+        raise ValueError(f"parameter storage does not match cfg.uses_dip_storage={cfg.uses_dip_storage}")
+    return params

@@ -1,0 +1,170 @@
+"""DiP matmul: ``epilogue(prologue(x) @ deshear(P))`` from permutated storage.
+
+Port of ``repro/kernels/dip_matmul.py::dip_matmul_pallas`` (and of
+``ws_matmul.py::ws_matmul_pallas``, which is the same kernel with
+``fuse_deshear=False``).  The kernel is ``csrc/dip_matmul.cu``: one block per
+64x64 output tile loops over K, de-shears each 64x64 tile of ``P`` on its way
+into shared memory, applies the rmsnorm prologue to the x tile on load, and
+applies the epilogue to the f32 accumulator before its single write.
+
+Bound on the card: by the weight bytes at decode (M = slots), by
+tensor-core FLOPs at prefill (M = 256).  This first design does nothing
+about either yet (no TMA, no ``wgmma``, no pipelining).
+
+:func:`dip_matmul` launches the kernel for CUDA tensors and runs
+:func:`dip_matmul_plain` — ``unpermute_tiled`` then the f32 composition —
+for CPU tensors.  ``dip_matmul.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from repro_torch.core import permute
+from repro_torch.kernels import _build
+from repro_torch.kernels import epilogue as epi
+from repro_torch.kernels import prologue as pro
+
+__all__ = ["TILE", "dip_matmul", "dip_matmul_plain", "out_dtype_for"]
+
+TILE = 64  # output tile, K step and DiP permutation tile of the CUDA kernel
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def out_dtype_for(x: torch.Tensor) -> torch.dtype:
+    return x.dtype if x.dtype.is_floating_point else torch.float32
+
+
+def _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands):
+    if x.dim() != 2 or p.dim() != 2:
+        raise ValueError(f"dip_matmul takes 2-D x and p, got {tuple(x.shape)} @ {tuple(p.shape)}")
+    (m, k), (k2, n) = x.shape, p.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ {tuple(p.shape)}")
+    if k % TILE or n % TILE:
+        raise ValueError(
+            f"K={k} and N={n} must be multiples of the permutation tile {TILE}; "
+            "the registry shim pads them"
+        )
+    s = epi.spec(epilogue)
+    if len(epilogue_operands) != s.n_operands:
+        raise ValueError(f"epilogue {s.name!r} takes {s.n_operands} operand(s), got {len(epilogue_operands)}")
+    if s.dual_weight and tuple(epilogue_operands[0].shape) != (k, n):
+        raise ValueError(f"swiglu up-weight must be ({k}, {n}), got {tuple(epilogue_operands[0].shape)}")
+    if s.bias and epilogue_operands[0].numel() != n:
+        raise ValueError(f"bias must have {n} elements, got {tuple(epilogue_operands[0].shape)}")
+    if s.residual and tuple(epilogue_operands[0].shape) != (m, n):
+        raise ValueError(f"residual must be ({m}, {n}), got {tuple(epilogue_operands[0].shape)}")
+    if len(prologue_operands) != pro.n_operands(prologue):
+        raise ValueError(f"prologue {prologue!r} takes {pro.n_operands(prologue)} operand(s)")
+    if pro.spec(prologue).normalize and prologue_operands[0].numel() != k:
+        raise ValueError(f"rmsnorm gain must have {k} elements, got {tuple(prologue_operands[0].shape)}")
+
+
+def dip_matmul_plain(x, p, *epilogue_operands, epilogue="none", prologue="none",
+                     prologue_operands=(), prologue_k=None, prologue_eps=pro.DEFAULT_EPS,
+                     fuse_deshear=True) -> torch.Tensor:
+    """The kernel's function in plain torch: de-shear, prologue (f32 scale,
+    cast back), f32 product(s), f32 epilogue, one cast."""
+    _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
+    s = epi.spec(epilogue)
+
+    def natural(w):
+        return permute.unpermute_tiled(w, TILE) if fuse_deshear else w
+
+    if pro.spec(prologue).normalize:
+        inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps)
+        x = pro.kernel_load(prologue, x, (inv, prologue_operands[0]))
+    x32 = x.float()
+    z = torch.matmul(x32, natural(p).float())
+    if s.dual_weight:
+        aux = (torch.matmul(x32, natural(epilogue_operands[0]).float()),)
+    else:
+        aux = tuple(op.reshape(1, -1) if s.bias else op for op in epilogue_operands)
+    return epi.apply(epilogue, z, *aux).to(out_dtype_for(x))
+
+
+def _require(t: torch.Tensor, what: str, device, dtype=None) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if dtype is not None and t.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned")
+
+
+def _lib():
+    lib = _build.load("dip_matmul")
+    fn = lib.dip_matmul_launch
+    if fn.argtypes is None:  # declare once: untyped ints would truncate the pointers
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tensor,
+               epilogue: str = "none", prologue: str = "none",
+               prologue_operands: Sequence[torch.Tensor] = (),
+               prologue_k: Optional[int] = None, prologue_eps: float = pro.DEFAULT_EPS,
+               fuse_deshear: bool = True) -> torch.Tensor:
+    """``epilogue(prologue(x) @ unpermute_tiled(p))`` with ``x`` (M, K) and
+    ``p`` (K, N), K and N multiples of 64, M any.  ``epilogue_operands``:
+    ``(p_up,)`` for ``swiglu``, the N-element bias for the bias variants, the
+    (M, N) residual for ``residual``.  ``prologue_operands`` is the
+    K-element gain for ``rmsnorm``; ``prologue_k`` the un-padded K the mean
+    divides by.  ``fuse_deshear=False`` reads ``p`` as natural storage (the
+    ``ws`` baseline).  CPU tensors take :func:`dip_matmul_plain`; CUDA
+    tensors launch the kernel or raise."""
+    if x.device.type == "cpu":
+        return dip_matmul_plain(
+            x, p, *epilogue_operands, epilogue=epilogue, prologue=prologue,
+            prologue_operands=prologue_operands, prologue_k=prologue_k,
+            prologue_eps=prologue_eps, fuse_deshear=fuse_deshear,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"dip_matmul runs on cuda or cpu tensors, got {x.device}")
+    _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"dip_matmul kernel takes float32 or bfloat16, got {x.dtype}")
+    dev, dt = x.device, x.dtype
+    m, k = x.shape
+    n = p.shape[1]
+    if m > 65535 * TILE:
+        raise ValueError(f"M={m} exceeds the kernel's grid limit {65535 * TILE}")
+    _require(x, "x", dev, dt)
+    _require(p, "p", dev, dt)
+    s = epi.spec(epilogue)
+    p_up = bias = residual = inv = gain = None
+    if s.dual_weight:
+        p_up = epilogue_operands[0]
+        _require(p_up, "p_up", dev, dt)
+    elif s.bias:
+        bias = epilogue_operands[0]
+        _require(bias, "bias", dev, torch.float32)
+    elif s.residual:
+        residual = epilogue_operands[0]
+        _require(residual, "residual", dev, dt)
+    if pro.spec(prologue).normalize:
+        gain = prologue_operands[0]
+        _require(gain, "gain", dev, torch.float32)
+        inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
+    out = torch.empty((m, n), dtype=dt, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib()(
+            _DTYPE_CODES[dt], ptr(x), ptr(p), ptr(p_up), ptr(inv), ptr(gain), ptr(bias),
+            ptr(residual), ptr(out), m, n, k, epi.code(epilogue), int(fuse_deshear), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"dip_matmul kernel launch failed: cudaError {rc}")
+    dip_matmul.launches += 1
+    return out
+
+
+dip_matmul.launches = 0

@@ -1,0 +1,213 @@
+"""GQA attention with a dense KV cache, flash-routed chunked prefill, and
+paged decode (port of the dense-family parts of ``repro/models/attention.py``).
+
+``attention_core`` keeps the reference's GQA broadcast (KV heads expanded to
+the query heads) and its two routes: the dense f32 path, and the
+``api.attention`` route (``backend="flash"``) that serving prefill takes.
+The paged functions are plain torch, as they are plain ``jnp`` in the
+reference; they update the block pool in place.  MLA and int8 KV come with
+their families (ROADMAP.md Queue 1 items 9 and 10), and the KV-chunked
+online-softmax path with the training slice (Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch import api
+from repro_torch.models import layers
+
+__all__ = [
+    "attention_core",
+    "gqa_attention",
+    "init_gqa_cache",
+    "init_paged_gqa_cache",
+    "paged_write",
+    "paged_read",
+    "paged_gqa_attention",
+]
+
+NEG_INF = -1e30
+
+
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
+    """(..., Sq, Sk) additive mask from absolute positions."""
+    live = q_pos[..., :, None] >= k_pos[..., None, :]
+    return torch.where(live, 0.0, NEG_INF).float()
+
+
+def _expand_kv(t: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV*groups, D): each KV head repeated for its
+    query-head group, as the reference broadcasts it."""
+    if groups == 1:
+        return t
+    b, s, kv, d = t.shape
+    return t[:, :, :, None, :].expand(b, s, kv, groups, d).reshape(b, s, kv * groups, d)
+
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
+                   k_pos: torch.Tensor, *, kv_valid_len: Union[int, torch.Tensor, None] = None,
+                   backend: Optional[str] = None) -> torch.Tensor:
+    """Scaled-dot-product GQA attention: q (B, Sq, H, D), k (B, Sk, KV, D),
+    v (B, Sk, KV, Dv) -> (B, Sq, H, Dv).  ``backend`` routes through
+    ``api.attention`` (contiguous positions: the query block sits at key
+    offset ``q_pos[0] - k_pos[0]``); None takes the dense path."""
+    b, sq, h, d = q.shape
+    _, sk, kv, dv = v.shape
+    q = (q * d ** -0.5).to(q.dtype)
+    k = _expand_kv(k, h // kv)
+    v = _expand_kv(v, h // kv)
+
+    if backend is not None:
+        q_f = q.transpose(1, 2).reshape(b * h, sq, d)
+        k_f = k.transpose(1, 2).reshape(b * h, sk, d)
+        v_f = v.transpose(1, 2).reshape(b * h, sk, dv)
+        out = api.attention(q_f, k_f, v_f, backend=backend, causal=True,
+                            q_offset=(q_pos[0] - k_pos[0]), kv_len=kv_valid_len,
+                            scale=1.0)  # q pre-scaled above
+        return out.reshape(b, h, sq, dv).transpose(1, 2).to(v.dtype)
+
+    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
+    scores = scores + _causal_mask(q_pos, k_pos)[None, None]
+    if kv_valid_len is not None:
+        live = (k_pos < kv_valid_len)[None, None, None, :]
+        scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+
+
+def init_gqa_cache(batch: int, kv_heads: int, max_seq: int, head_dim: int, dtype,
+                   device) -> Dict:
+    return {
+        "k": torch.zeros((batch, max_seq, kv_heads, head_dim), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_seq, kv_heads, head_dim), dtype=dtype, device=device),
+        "pos": 0,
+    }
+
+
+def _proj_kwargs(cfg, x, norm):
+    lk = dict(backend=cfg.matmul_backend, compute_dtype=x.dtype)
+    nk = dict(lk) if norm is None else dict(lk, prologue="rmsnorm", prologue_operands=(norm,),
+                                            prologue_eps=cfg.norm_eps)
+    return lk, nk
+
+
+def _out_proj(out, p, lk, residual):
+    if residual is not None:
+        return layers.linear(out, p["wo"], epilogue="residual", epilogue_operands=(residual,), **lk)
+    return layers.linear(out, p["wo"], **lk)
+
+
+def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
+                  cache: Optional[Dict] = None, rope=None,
+                  residual: Optional[torch.Tensor] = None, norm: Optional[torch.Tensor] = None,
+                  attn_backend: Optional[str] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Projections + RoPE + cache update + attention + out projection.
+
+    ``cache`` is one layer's dense cache (``init_gqa_cache``); this chunk's
+    K/V are written into it in place at ``cache["pos"]`` and the returned
+    cache has ``pos`` advanced.  ``residual`` fuses the block's skip
+    connection into the out projection; ``norm`` is the attention-norm gain
+    when the backend fuses prologues (x then arrives un-normalized)."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    lk, nk = _proj_kwargs(cfg, x, norm)
+    q = layers.linear(x, p["wq"], p.get("bq"), **nk).reshape(b, s, h, hd)
+    k = layers.linear(x, p["wk"], p.get("bk"), **nk).reshape(b, s, kv, hd)
+    v = layers.linear(x, p["wv"], p.get("bv"), **nk).reshape(b, s, kv, hd)
+    q = layers.apply_rope(q, positions, cfg.rope_theta, tables=rope)
+    k = layers.apply_rope(k, positions, cfg.rope_theta, tables=rope)
+
+    if cache is None:
+        out = attention_core(q, k, v, positions, positions, backend=attn_backend)
+        new_cache = None
+    else:
+        pos = cache["pos"]
+        ck, cv = cache["k"], cache["v"]
+        ck[:, pos:pos + s] = k
+        cv[:, pos:pos + s] = v
+        k_pos = torch.arange(ck.shape[1], device=x.device)
+        out = attention_core(q, ck, cv, positions, k_pos, kv_valid_len=pos + s,
+                             backend=attn_backend)
+        new_cache = {"k": ck, "v": cv, "pos": pos + s}
+    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), new_cache
+
+
+# ------------------------------------------------------------------- paged --
+# K/V live in a pool of fixed-size blocks shared by every sequence; a
+# per-slot block table maps logical position t to flat physical row
+# table[t // block_size] * block_size + t % block_size.  Block 0 is the null
+# block that free slots write into (see serving/kv_cache.py).
+
+def init_paged_gqa_cache(num_blocks: int, block_size: int, kv_heads: int, head_dim: int,
+                         dtype, kv_quant: str = "none", *, device) -> Dict:
+    """GQA block pool: k/v (num_blocks, block_size, kv_heads, head_dim)."""
+    if kv_quant != "none":
+        raise NotImplementedError("int8 KV pools come with quantization (ROADMAP.md Queue 1 item 9)")
+    shape = (num_blocks, block_size, kv_heads, head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def paged_write(pool: torch.Tensor, phys: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """Write per-token rows ``vals`` (N, ...) into the block pool at flat
+    physical rows ``phys`` (N,), in place.  Every index must be in range:
+    callers drop padding rows themselves (the reference's out-of-range
+    sentinel)."""
+    nb, bs = pool.shape[:2]
+    pool.view((nb * bs,) + tuple(pool.shape[2:])).index_copy_(0, phys, vals.to(pool.dtype))
+    return pool
+
+
+def paged_read(pool: torch.Tensor, idx: torch.Tensor, *, dtype=torch.float32) -> torch.Tensor:
+    """Gather token rows at flat physical indices ``idx`` (any shape)."""
+    nb, bs = pool.shape[:2]
+    return pool.view((nb * bs,) + tuple(pool.shape[2:]))[idx].to(dtype)
+
+
+def _gather_indices(block_tables: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(B, n_blocks) block tables -> (B, n_blocks * block_size) flat rows."""
+    b, nblk = block_tables.shape
+    idx = block_tables[:, :, None] * block_size + torch.arange(
+        block_size, device=block_tables.device, dtype=block_tables.dtype)[None, None, :]
+    return idx.reshape(b, nblk * block_size)
+
+
+def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor, cache: Dict,
+                        block_tables: torch.Tensor, kv_quant: str = "none", rope=None,
+                        residual: Optional[torch.Tensor] = None,
+                        norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """GQA decode against the paged pool: x (B, 1, d), one token per slot at
+    ``positions`` (B,).  Writes this token's K/V into its slot's block (in
+    place), gathers the slot's context and attends to positions <= its own.
+    Free slots point at the null block; their rows are ignored."""
+    if kv_quant != "none":
+        raise NotImplementedError("int8 KV pools come with quantization (ROADMAP.md Queue 1 item 9)")
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    bs = cache["k"].shape[1]
+    lk, nk = _proj_kwargs(cfg, x, norm)
+    q = layers.linear(x, p["wq"], p.get("bq"), **nk).reshape(b, s, h, hd)
+    k = layers.linear(x, p["wk"], p.get("bk"), **nk).reshape(b, s, kv, hd)
+    v = layers.linear(x, p["wv"], p.get("bv"), **nk).reshape(b, s, kv, hd)
+    pos2 = positions[:, None]
+    q = layers.apply_rope(q, pos2, cfg.rope_theta, tables=rope)
+    k = layers.apply_rope(k, pos2, cfg.rope_theta, tables=rope)
+
+    rows = torch.arange(b, device=x.device)
+    phys = block_tables[rows, positions // bs] * bs + positions % bs
+    ck = paged_write(cache["k"], phys, k[:, 0])
+    cv = paged_write(cache["v"], phys, v[:, 0])
+
+    idx = _gather_indices(block_tables, bs)
+    k_all = _expand_kv(paged_read(ck, idx, dtype=x.dtype), h // kv)
+    v_all = _expand_kv(paged_read(cv, idx, dtype=x.dtype), h // kv)
+    smax = k_all.shape[1]
+    scores = torch.einsum("bqhd,bshd->bhqs", (q * hd ** -0.5).float(), k_all.float())
+    live = torch.arange(smax, device=x.device)[None, :] <= positions[:, None]
+    scores = torch.where(live[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs.to(v_all.dtype), v_all)
+    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), {"k": ck, "v": cv}

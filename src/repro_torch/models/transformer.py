@@ -1,0 +1,243 @@
+"""The dense decoder: parameters, forward, caches and the serving steps
+(port of the dense-family parts of ``repro/models/transformer.py``).
+
+Parameters are a nested dict with layer-stacked leaves (leading axis =
+n_layers), as in the reference; a Python loop over the layers takes the
+place of ``jax.lax.scan``.  Linear weights are ``api.DipWeight`` storage
+when the configured backend consumes the DiP layout.  The MoE, MLA, SSM and
+hybrid families, tied embeddings, quantization and sharding plans come with
+their ROADMAP.md items and raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from repro_torch import api
+from repro_torch.core import permute
+from repro_torch.device import dtype_of, resolve_device
+from repro_torch.models import attention, layers, moe
+
+__all__ = [
+    "param_template",
+    "init_params",
+    "forward",
+    "init_cache",
+    "init_paged_cache",
+    "decode_step_fn",
+    "paged_decode_step_fn",
+]
+
+
+def _require_dense(cfg) -> None:
+    """Raise for every configuration this slice does not serve."""
+    missing = []
+    if cfg.is_moe or cfg.use_mla or cfg.ssm_state or cfg.attn_every or cfg.family not in ("dense",):
+        missing.append(f"the {cfg.family} family (ROADMAP.md Queue 1 item 10)")
+    if cfg.tie_embeddings or cfg.frontend != "none":
+        missing.append("tied embeddings / stub frontends (ROADMAP.md Queue 1 item 10)")
+    if cfg.quantization != "none" or cfg.kv_quant != "none":
+        missing.append("quantized weights or KV (ROADMAP.md Queue 1 item 9)")
+    if cfg.sharding != "gspmd":
+        missing.append("sharding plans (ROADMAP.md Queue 1 item 12)")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
+
+
+# ------------------------------------------------------------ param layout --
+def _lin(cfg, d_in, d_out):
+    """(storage_shape, fan_in, dip_meta) for a linear under the config's
+    weight storage; ``dip_meta`` is ``(d_in, d_out, perm_tile)`` for DiP."""
+    if cfg.uses_dip_storage:
+        return api.DipWeight.storage_dims(d_in, d_out), d_in, (d_in, d_out, api.PERM_TILE)
+    return (d_in, d_out), d_in, None
+
+
+def param_template(cfg) -> Dict[str, Any]:
+    """Nested dict: leaf = (shape, dtype_str, fan_in, dip_meta); layer
+    stacked; ``shape`` is the storage shape (padded for DiP)."""
+    _require_dense(cfg)
+    d, v, L, pdt = cfg.d_model, cfg.padded_vocab, cfg.n_layers, cfg.param_dtype
+    hd = cfg.resolved_head_dim
+    shape, fan, dip = _lin(cfg, d, v)
+    t: Dict[str, Any] = {
+        "embed": ((v, d), pdt, d, None),
+        "final_norm": ((d,), pdt, None, None),
+        "lm_head": (shape, pdt, fan, dip),
+    }
+    blk: Dict[str, Any] = {
+        "attn_norm": ((L, d), pdt, None, None),
+        "ffn_norm": ((L, d), pdt, None, None),
+    }
+    for nm, (di, do) in dict(
+        wq=(d, cfg.n_heads * hd), wk=(d, cfg.n_kv_heads * hd), wv=(d, cfg.n_kv_heads * hd),
+        wo=(cfg.n_heads * hd, d), w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d),
+    ).items():
+        shape, fan, dip = _lin(cfg, di, do)
+        blk[nm] = ((L,) + tuple(shape), pdt, fan, dip)
+    if cfg.qkv_bias:
+        for nm, width in (("bq", cfg.n_heads * hd), ("bk", cfg.n_kv_heads * hd),
+                          ("bv", cfg.n_kv_heads * hd)):
+            blk[nm] = ((L, width), pdt, None, None)
+    t["layers"] = blk
+    return t
+
+
+def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+    """Materialize parameters on ``device`` from ``generator``: truncated
+    normal (-2, 2) scaled by fan_in^-1/2, norms at 1, biases at 0.  DiP
+    weights are drawn in natural layout one matrix at a time and permutated
+    on the device (the offline step of paper Fig. 3)."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator is on {generator.device}, parameters go to {dev}")
+
+    def normal(shape, scale, dt):
+        t = torch.empty(shape, dtype=torch.float32, device=dev)
+        torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return (t * scale).to(dt)
+
+    def make(name, shape, dt, fan, dip):
+        dt = dtype_of(dt)
+        if fan is None:
+            init = torch.zeros if name in ("bq", "bk", "bv") else torch.ones
+            return init(shape, dtype=dt, device=dev)
+        scale = (1.0 / max(1, fan)) ** 0.5
+        if dip is None:
+            return normal(shape, scale, dt)
+        d_in, d_out, perm_tile = dip
+        data = torch.empty(shape, dtype=dt, device=dev)
+        for mat in data.view((-1,) + tuple(shape[-2:])):
+            mat.copy_(permute.permute_tiled(normal((d_in, d_out), scale, dt), perm_tile))
+        return api.DipWeight(data, d_in, d_out, perm_tile)
+
+    def build(t):
+        return {k: build(v) if isinstance(v, dict) else make(k, *v) for k, v in t.items()}
+
+    return build(param_template(cfg))
+
+
+def _layer(layer_params: Dict[str, Any], i: int) -> Dict[str, Any]:
+    return {k: (v.with_data(v.data[i]) if isinstance(v, api.DipWeight) else v[i])
+            for k, v in layer_params.items()}
+
+
+# ---------------------------------------------------------------- forward ---
+def _fuses_rmsnorm(cfg) -> bool:
+    """Whether the backend fuses the RMSNorm prologue: then the blocks hand
+    the un-normalized stream plus the gain to the projections."""
+    return "rmsnorm" in api.get_backend(cfg.matmul_backend).prologues
+
+
+def _transformer_block(x, lp, cfg, *, positions, rope, cache, attn_backend=None):
+    fuse = _fuses_rmsnorm(cfg)
+    attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
+        layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
+    x, new_cache = attention.gqa_attention(
+        attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
+        norm=attn_g, attn_backend=attn_backend,
+    )
+    ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
+        layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
+    return moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g), new_cache
+
+
+def _head(params, cfg, x):
+    """Final norm, the lm_head through ``linear``, padded-vocab lanes masked."""
+    cd = dtype_of(cfg.compute_dtype)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend,
+                           compute_dtype=cd).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = -1e30
+    return logits
+
+
+def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optional[Dict] = None,
+            attn_backend: Optional[str] = None):
+    """Returns ``(logits, new_cache)`` for tokens (B, S).
+
+    ``cache`` (``init_cache``) is updated in place at ``cache["pos"]`` and
+    returned with ``pos`` advanced by S.  ``attn_backend="flash"`` routes
+    attention through the CUDA kernel (serving prefill; forward only).
+    """
+    _require_dense(cfg)
+    cd = dtype_of(cfg.compute_dtype)
+    x = params["embed"][tokens].to(cd)
+    b, s = x.shape[:2]
+    start = cache["pos"] if cache is not None else 0
+    positions = torch.arange(start, start + s, device=x.device)
+    rope = layers.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for i in range(cfg.n_layers):
+        lcache = None if cache is None else {
+            "k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i], "pos": start}
+        x, _ = _transformer_block(x, _layer(params["layers"], i), cfg, positions=positions,
+                                  rope=rope, cache=lcache, attn_backend=attn_backend)
+    new_cache = None if cache is None else dict(cache, pos=start + s)
+    return _head(params, cfg, x), new_cache
+
+
+# ------------------------------------------------------------------ caches --
+def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
+    """Layer-stacked dense decode cache: k/v (L, B, max_seq, KV, hd)."""
+    _require_dense(cfg)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cd = dtype_of(cfg.compute_dtype)
+    return {"layers": {"k": torch.zeros(shape, dtype=cd, device=device),
+                       "v": torch.zeros(shape, dtype=cd, device=device)}, "pos": 0}
+
+
+def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "none",
+                     device) -> Dict[str, Any]:
+    """Layer-stacked paged pools for the serving engine: k/v (L, num_blocks,
+    block_size, KV, hd).  Block 0 is the null block (serving/kv_cache.py).
+    The dense family keeps nothing per slot, so unlike the reference this
+    takes no ``slots``."""
+    _require_dense(cfg)
+    pool = attention.init_paged_gqa_cache(
+        num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim,
+        dtype_of(cfg.compute_dtype), kv_quant, device=device)
+    return {"layers": {nm: t.expand((cfg.n_layers,) + tuple(t.shape)).clone()
+                       for nm, t in pool.items()}}
+
+
+def decode_step_fn(cfg, *, attn_backend: Optional[str] = None):
+    """Returns ``step(params, cache, tokens) -> (logits, cache)``; with
+    ``attn_backend="flash"`` it is the engine's chunked-prefill step."""
+
+    def step(params, cache, tokens):
+        return forward(params, cfg, tokens=tokens, cache=cache, attn_backend=attn_backend)
+
+    return step
+
+
+def paged_decode_step_fn(cfg):
+    """Returns ``step(params, cache, tokens, positions, block_tables) ->
+    (logits, cache)``, the engine's decode step: tokens (slots, 1),
+    positions (slots,), block_tables (slots, blocks_per_seq), all integer
+    tensors on the parameters' device; the pools are updated in place."""
+    _require_dense(cfg)
+
+    def step(params, cache, tokens, positions, block_tables):
+        cd = dtype_of(cfg.compute_dtype)
+        x = params["embed"][tokens].to(cd)
+        rope = layers.rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+        fuse = _fuses_rmsnorm(cfg)
+        pools = cache["layers"]
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
+                layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
+            x, _ = attention.paged_gqa_attention(
+                attn_in, lp, cfg, positions=positions,
+                cache={"k": pools["k"][i], "v": pools["v"][i]}, block_tables=block_tables,
+                rope=rope, residual=x, norm=attn_g,
+            )
+            ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
+                layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
+            x = moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g)
+        return _head(params, cfg, x), cache
+
+    return step

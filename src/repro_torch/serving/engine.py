@@ -1,0 +1,350 @@
+"""The serving engine: continuous batching over a paged KV pool (port of
+``repro/serving/engine.py``).
+
+One ``Engine`` owns a fixed pool of decode slots, a paged KV cache, and a
+scheduler.  ``step()`` advances the whole pool by one tick:
+
+    1. **admission** — the queue head is admitted the moment a slot and its
+       prompt's KV blocks are both free (FCFS);
+    2. **chunked prefill** — the admitted prompt runs through ``forward`` in
+       fixed-size chunks with attention on the flash kernel (the chunk's
+       cache offset reaches the kernel as a device tensor), then its K/V are
+       imported into the slot's pool blocks;
+    3. **decode** — one step serves every running slot (free slots compute
+       into the null block and are ignored), each row sampled with its
+       request's own params and seeded stream.
+
+Rows are independent, so a greedy request's tokens do not depend on its
+batch-mates.  Under memory pressure the scheduler's LIFO victim is evicted
+and re-queued with its generated tokens (re-prefilled on re-admission).
+
+The reliability ladder of the reference (``verify`` screening, retries, the
+degraded ``xla`` step, request TTLs) comes with ROADMAP.md Queue 1 item 11;
+asking for it raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import api
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tf_model
+from repro_torch.serving import kv_cache as kvc
+from repro_torch.serving import sampling
+from repro_torch.serving.scheduler import (
+    DONE, PREFILL, RUNNING, FCFSScheduler, SamplingParams, ServeRequest,
+)
+
+__all__ = ["Engine", "EngineConfig"]
+
+
+@dataclasses.dataclass
+class EngineConfig:
+    slots: int = 4
+    max_seq: int = 512                   # hard per-sequence context cap
+    block_size: Optional[int] = None     # None -> cfg.kv_block_size
+    kv_quant: Optional[str] = None       # None -> cfg.kv_quant
+    num_blocks: Optional[int] = None     # None -> full occupancy, no preemption
+    prefill_chunk: int = 64
+    eos_id: int = 1
+    verify: bool = False                 # reliability ladder: not ported yet
+    ttl_s: Optional[float] = None        # request deadlines: not ported yet
+
+
+class Engine:
+    """``add_request`` / ``step`` / ``run`` over a fixed slot pool on
+    ``device`` (default ``"cuda"``; raises without a card unless
+    ``device="cpu"``).  ``params`` come from ``init_params`` or
+    ``convert.params_from_jax`` on that device."""
+
+    def __init__(self, cfg, params, *, engine_cfg: Optional[EngineConfig] = None,
+                 on_preempt: Optional[Callable] = None, device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.ecfg = ecfg = engine_cfg or EngineConfig()
+        if ecfg.verify or ecfg.ttl_s is not None:
+            raise NotImplementedError(
+                "the serving reliability ladder (verify, retries, degraded step, TTL) "
+                "is not ported yet (ROADMAP.md Queue 1 item 11)"
+            )
+        api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"parameters are on {params['embed'].device}, the engine runs on {self.device}")
+        self.params = params
+
+        self.block_size = ecfg.block_size or cfg.kv_block_size
+        self.kv_quant = ecfg.kv_quant if ecfg.kv_quant is not None else cfg.kv_quant
+        blocks_per_seq = -(-ecfg.max_seq // self.block_size)
+        num_blocks = ecfg.num_blocks or ecfg.slots * blocks_per_seq + 1
+        self.kv = kvc.PagedKVCache(
+            cfg, num_blocks=num_blocks, block_size=self.block_size, slots=ecfg.slots,
+            max_seq=ecfg.max_seq, kv_quant=self.kv_quant, device=self.device,
+        )
+        self._decode = tf_model.paged_decode_step_fn(cfg)
+        # chunked prefill runs attention on the flash kernel: the chunk's
+        # cache offset is a device tensor, so every chunk shares one kernel
+        self._prefill_fwd = tf_model.decode_step_fn(cfg, attn_backend="flash")
+        self._import = kvc.make_import_fn(self.block_size, self.kv_quant)
+        c = ecfg.prefill_chunk
+        self._prefill_buf_len = -(-ecfg.max_seq // c) * c
+
+        self.scheduler = FCFSScheduler(on_preempt=on_preempt)
+        self._slots: List[Optional[ServeRequest]] = [None] * ecfg.slots
+        self._cur = np.zeros((ecfg.slots, 1), np.int64)     # next token to feed
+        self._ctx = np.zeros((ecfg.slots,), np.int64)       # tokens in cache
+        self._prefilling: Optional[ServeRequest] = None
+        self._prefill_cache: Any = None
+        self._prefill_tokens: Optional[np.ndarray] = None
+        self._prefill_done = 0
+        self._next_rid = 0
+        self.results: Dict[int, List[int]] = {}
+        self.request_stats: Dict[int, Dict[str, Any]] = {}
+        self._decode_steps = 0
+        self._prefill_chunks = 0
+        self._preempt_count = 0
+        self._generated_total = 0
+        self._tick = 0
+        self.last_stats: Dict[str, Any] = {}
+
+    # ------------------------------------------------------------ intake ---
+    def add_request(self, prompt, sampling_params: Optional[SamplingParams] = None, *,
+                    rid: Optional[int] = None, on_token: Optional[Callable] = None) -> int:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("empty prompt")
+        if prompt.size >= self.ecfg.max_seq:
+            raise ValueError(
+                f"prompt of {prompt.size} tokens leaves no room to generate "
+                f"under max_seq={self.ecfg.max_seq}"
+            )
+        need = self.kv.blocks_needed(prompt.size)
+        usable = self.kv.num_blocks - 1     # block 0 is the null block
+        if need > usable:
+            raise ValueError(
+                f"prompt of {prompt.size} tokens needs {need} KV blocks but the entire "
+                f"pool has {usable} usable blocks of {self.block_size} — it can never be admitted"
+            )
+        if rid is None:
+            rid = self._next_rid
+        self._next_rid = max(self._next_rid, rid) + 1
+        sp = sampling_params or SamplingParams()
+        req = ServeRequest(rid=rid, prompt=prompt, sampling=sp, on_token=on_token)
+        req.rng = np.random.default_rng(sp.seed)
+        req.arrival_s = time.monotonic()
+        self.scheduler.add(req)
+        return rid
+
+    # ----------------------------------------------------------- helpers ---
+    @property
+    def _running(self) -> List[ServeRequest]:
+        return [r for r in self._slots if r is not None and r.state == RUNNING]
+
+    def _busy(self) -> bool:
+        return bool(len(self.scheduler) or self._prefilling is not None
+                    or any(s is not None for s in self._slots))
+
+    def _free_slot(self) -> Optional[int]:
+        for i, s in enumerate(self._slots):
+            if s is None:
+                return i
+        return None
+
+    def _evict(self, req: ServeRequest) -> None:
+        slot = req.slot
+        self.kv.release(slot)
+        self._slots[slot] = None
+        self._ctx[slot] = 0
+        self._preempt_count += 1
+        self.scheduler.preempt(req)
+
+    def _finish(self, req: ServeRequest) -> None:
+        slot = req.slot
+        if slot >= 0:
+            self.kv.release(slot)
+            self._slots[slot] = None
+            self._ctx[slot] = 0
+        req.state = DONE
+        req.finish_s = time.monotonic()
+        self.results[req.rid] = list(req.generated)
+        self.request_stats[req.rid] = {
+            "prompt_len": int(req.prompt.size),
+            "new_tokens": len(req.generated),
+            "ttft_s": (req.first_token_s - req.arrival_s
+                       if req.first_token_s is not None else None),
+            "latency_s": req.finish_s - req.arrival_s,
+            "preemptions": req.preemptions,
+        }
+
+    def _emit(self, req: ServeRequest, token: int, done: bool) -> None:
+        req.generated.append(token)
+        self._generated_total += 1
+        if req.first_token_s is None:
+            req.first_token_s = time.monotonic()
+        if req.on_token is not None:
+            req.on_token(req.rid, token, done)
+
+    def _append_token(self, req: ServeRequest, token: int) -> bool:
+        """Record one generated token; returns True if the request finished."""
+        slot = req.slot
+        done = (
+            token == self.ecfg.eos_id
+            or len(req.generated) + 1 >= req.sampling.max_new_tokens
+            or int(self._ctx[slot]) >= self.ecfg.max_seq
+        )
+        self._emit(req, token, done)
+        if done:
+            self._finish(req)
+            return True
+        self._cur[slot, 0] = token
+        return False
+
+    def _sample_rows(self, logits: np.ndarray, reqs: List[Optional[ServeRequest]]) -> np.ndarray:
+        """One vectorized draw over the (B, V) logits; rows without a request
+        decode greedily and are ignored by the caller."""
+        b, v = logits.shape
+        temp = np.zeros(b, np.float32)
+        top_k = np.zeros(b, np.int64)
+        top_p = np.ones(b, np.float32)
+        uniforms = np.zeros((b, v), np.float64)
+        for i, r in enumerate(reqs):
+            if r is None:
+                continue
+            sp = r.sampling
+            temp[i], top_k[i], top_p[i] = sp.temperature, sp.top_k, sp.top_p
+            if sp.temperature > 0:
+                uniforms[i] = r.rng.random(v)
+        return sampling.sample_tokens(logits, temperature=temp, top_k=top_k, top_p=top_p,
+                                      uniforms=uniforms)
+
+    def _tensor(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.int64).to(self.device)
+
+    # ---------------------------------------------------------- admission --
+    def _try_admit(self) -> None:
+        if self._prefilling is not None:
+            return
+        req = self.scheduler.next_waiting(self._tick)
+        if req is None:
+            return
+        slot = self._free_slot()
+        if slot is None:
+            return
+        plen = int(req.serve_prompt.size)
+        if not self.kv.can_allocate(plen):
+            return
+        req = self.scheduler.pop(self._tick)
+        req.state = PREFILL
+        req.slot = slot
+        self._slots[slot] = req
+        if not self.kv.ensure(slot, plen):
+            raise RuntimeError("allocator disagreed with can_allocate")
+        buf = np.zeros(self._prefill_buf_len, np.int64)
+        buf[:plen] = req.serve_prompt
+        self._prefilling = req
+        self._prefill_tokens = buf
+        self._prefill_done = 0
+        self._prefill_cache = tf_model.init_cache(self.cfg, 1, self._prefill_buf_len,
+                                                  device=self.device)
+
+    # ------------------------------------------------------------ prefill --
+    def _advance_prefill(self) -> None:
+        req = self._prefilling
+        if req is None:
+            return
+        c = self.ecfg.prefill_chunk
+        plen = int(req.serve_prompt.size)
+        done = self._prefill_done
+        # the padded tail of the final chunk writes cache rows >= plen, which
+        # the import drops and positions never reach
+        chunk = self._tensor(self._prefill_tokens[done:done + c][None])
+        last_logits, self._prefill_cache = self._prefill_fwd(self.params, self._prefill_cache, chunk)
+        self._prefill_done = done + c
+        self._prefill_chunks += 1
+        if self._prefill_done >= plen:
+            self._finish_prefill(req, plen, last_logits)
+
+    def _finish_prefill(self, req: ServeRequest, plen: int, last_logits: torch.Tensor) -> None:
+        slot = req.slot
+        self.kv.pools["layers"] = self._import(
+            self.kv.pools["layers"], self._prefill_cache["layers"], plen, self.kv.table_row(slot),
+        )
+        # first token: the logits row of the prompt's last position
+        row_idx = (plen - 1) - (self._prefill_done - last_logits.shape[1])
+        row = last_logits[0, row_idx].cpu().numpy()
+        tok = int(self._sample_rows(row[None], [req])[0])
+        self._prefilling = None
+        self._prefill_cache = None
+        self._prefill_tokens = None
+        req.state = RUNNING
+        self._ctx[slot] = plen
+        self._append_token(req, tok)
+
+    # ------------------------------------------------------------- decode --
+    def _decode_once(self) -> None:
+        # grow every running slot's table for the position it writes next;
+        # under exhaustion the LIFO victim is evicted until the rest fit
+        for req in sorted(self._running, key=lambda r: r.admit_index):
+            if req.state != RUNNING:
+                continue
+            while not self.kv.ensure(req.slot, int(self._ctx[req.slot]) + 1):
+                victims = self._running
+                victim = self.scheduler.pick_victim(victims)
+                if victim is req and len(victims) == 1:
+                    raise RuntimeError(
+                        f"KV pool too small for one sequence: "
+                        f"{self.kv.num_blocks} blocks of {self.block_size}"
+                    )
+                self._evict(victim)
+                if victim is req:
+                    break
+
+        reqs = [r if (r is not None and r.state == RUNNING) else None for r in self._slots]
+        if not any(r is not None for r in reqs):
+            return
+        logits, self.kv.pools = self._decode(
+            self.params, self.kv.pools, self._tensor(self._cur), self._tensor(self._ctx),
+            self._tensor(self.kv.block_tables),
+        )
+        self._decode_steps += 1
+        rows = logits[:, -1].cpu().numpy()
+        next_tokens = self._sample_rows(rows, reqs)
+        for i, req in enumerate(reqs):
+            if req is None:
+                continue
+            self._ctx[i] += 1   # the fed token is now in the cache
+            self._append_token(req, int(next_tokens[i]))
+
+    # -------------------------------------------------------------- drive --
+    def step(self) -> bool:
+        """One engine tick (admit -> prefill chunk -> decode step).  Returns
+        True while there is work left."""
+        self._tick += 1
+        self._try_admit()
+        self._advance_prefill()
+        self._try_admit()    # a finished prefill may free the pipeline
+        self._decode_once()
+        return self._busy()
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain the queue; returns {rid: generated tokens} and fills
+        ``last_stats`` / ``request_stats``."""
+        t0 = time.monotonic()
+        steps0, gen0 = self._decode_steps, self._generated_total
+        while self.step():
+            pass
+        wall = time.monotonic() - t0
+        self.last_stats = {
+            "decode_steps": self._decode_steps - steps0,
+            "wall_s": wall,
+            "tok_per_s": (self._generated_total - gen0) / max(wall, 1e-9),
+            "prefill_chunks": self._prefill_chunks,
+            "preemptions": self._preempt_count,
+            "requests": len(self.results),
+        }
+        return dict(self.results)

@@ -1,0 +1,104 @@
+"""The port stands alone: importing every module of ``repro_torch`` pulls in
+neither ``jax`` nor the reference package ``repro``, and the entry points
+run on the card unless the caller asks for the CPU."""
+
+import dataclasses
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_config
+from repro_torch.device import make_generator, resolve_device
+from repro_torch.models import transformer as tf_model
+from repro_torch.runtime import Server, ServerConfig
+from repro_torch.serving import Engine, EngineConfig
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def _all_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_reference():
+    mods = _all_modules()
+    assert "repro_torch.kernels.dip_matmul" in mods and "repro_torch.launch.serve" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.'))\n"
+        "print(len(bad)); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env={"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin"}, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _reduced():
+    return dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
+                               compute_dtype="float32")
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a host without a card")
+    cfg = _reduced()
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        Server(cfg, ServerConfig(), params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tf_model.init_params(cfg, make_generator(0, "cpu"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "llama3-8b", "--requests", "1"])
+
+
+def test_cpu_server_serves_when_asked():
+    cfg = _reduced()
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+    server = Server(cfg, ServerConfig(batch_slots=2, max_seq=32, max_new_tokens=3, temperature=0.0,
+                                      prefill_chunk=8), params, device="cpu")
+    from repro_torch.runtime import Request
+    out = server.serve([Request(rid=0, prompt=[5, 6, 7]), Request(rid=1, prompt=[9, 10])])
+    assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
+
+
+def test_launch_serve_on_cpu(capsys):
+    from repro_torch.launch import serve
+    results = serve.main(["--arch", "llama3-8b", "--reduced", "--dtype", "float32", "--requests", "2",
+                          "--max-new", "2", "--max-seq", "64", "--prefill-chunk", "16",
+                          "--device", "cpu"])
+    assert sorted(results) == [0, 1]
+    assert '"serve"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("what", ["verify", "ttl", "kv_int8", "moe", "backend"])
+def test_branches_outside_the_slice_raise(what):
+    cfg = _reduced()
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+    if what == "verify":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Engine(cfg, params, engine_cfg=EngineConfig(verify=True), device="cpu")
+    elif what == "ttl":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Engine(cfg, params, engine_cfg=EngineConfig(ttl_s=1.0), device="cpu")
+    elif what == "kv_int8":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Engine(cfg, params, engine_cfg=EngineConfig(kv_quant="int8"), device="cpu")
+    elif what == "moe":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tf_model.param_template(dataclasses.replace(cfg, n_experts=4, moe_top_k=2, d_ff_expert=64))
+    else:
+        from repro_torch import api
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            api.get_backend("dip_int8w")
