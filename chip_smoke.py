@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA card.
 
     python3 chip_smoke.py            # from the root of a checkout, one card
 
@@ -7,24 +7,44 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` (one nvcc per
    source, all started together);
-2. each kernel against its plain PyTorch version on the card, in float32 and
-   bfloat16, at the shapes the llama3-8b serving path gives it;
+2. each kernel against its plain PyTorch version on the card, at the shapes
+   the llama3-8b serving and training paths give it: the DiP matmul (M = 4,
+   256 and the training batch's 4096) and flash attention in float32 and
+   bfloat16, the fused lm_head +
+   cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
+   training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
+   splits and labels at -100;
 3. the reduced llama3-8b served on the card against the same weights served
    on the CPU (plain versions): identical greedy tokens, close logits;
-4. llama3-8b at full width (32 layers, d_model 4096, vocab 128256) in bf16
+4. the reduced llama3-8b trained on the card against the CPU (f32, 3
+   ``Trainer`` steps): close losses and gradient norms, and a run stopped by
+   ``fail_at_step`` that resumes from its checkpoint and repeats the
+   uninterrupted one;
+5. llama3-8b at full width (32 layers, d_model 4096, vocab 128256) in bf16
    served through ``Server``, with the kernels' launch counts checked:
    193 DiP-matmul launches per forward, 32 flash launches per prefill chunk;
-5. kernel times (CUDA events, L2 flushed between launches) beside their
+6. llama3-8b at full width cut to 4 layers trained through
+   ``launch.train`` and its ``Trainer`` (f32 parameters, bf16 compute, block
+   remat, batch 4 x seq 1024, 4 steps, the launcher's warm-up schedule):
+   finite losses, step time, tokens/s, peak memory, 48 DiP launches and 1
+   lm_head_ce launch per step, and one profiled step; before it, the first
+   step's loss and every gradient leaf through the kernels against plain
+   PyTorch (``torch.matmul``, unfused loss) on the same weights and batch,
+   in f32 and in bf16 compute; after it, the same 4 steps through plain
+   PyTorch, printed beside the kernels' losses;
+7. kernel times (CUDA events, L2 flushed between launches) beside their
    bound, the plain version's time and one library call's time.
 
-It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.  It imports nothing
-of JAX or of the JAX package.
+Each path's launch counts are set to 0 just before it runs and read just
+after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.  It imports
+nothing of JAX or of the JAX package.
 """
 
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -46,6 +66,23 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # reduced model, card against CPU, f32 logits: two layers of the above
 MODEL_TOL = 1e-4
+# reduced training, card against CPU, losses and gradient norms over 3 AdamW
+# steps: each step starts from parameters that differ by the f32 rounding of
+# the step before, which AdamW's m/(sqrt(n) + eps) amplifies where a gradient
+# is near 0 (the same bound the CPU tests hold the port to the reference with)
+TRAIN_TOL = 1e-4
+# a resumed step against the uninterrupted one: the same kernels on the same
+# bytes; held to f32 rounding, and whether it is bit-exact is printed
+RESUME_TOL = 1e-6
+# full-width first step, kernels against plain PyTorch on the same weights and
+# batch: (loss, global gradient norm) relative to max(1, |plain|), and each
+# leaf's relative L2 gradient error.  float32: the same IEEE arithmetic in
+# another order, as TRAIN_TOL.  bfloat16: the plain path rounds the logits and
+# every backward product to bf16 (a relative step of 2^-8) where the kernel
+# path keeps them in f32; on the reduced model that gives about 1e-4 in the
+# loss, 1e-3 in the norm and 1e-2 in the worst leaf (CPU), and a faulty tile
+# or dispatch gives an error of order 1 in some leaf
+FIRST_STEP_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (1e-3, 1e-2, 5e-2)}
 
 
 def log(msg):
@@ -63,6 +100,34 @@ def close(name, got, want, tol):
     return err
 
 
+def first_step_against_plain(params, cfg, batch, tree, tf_model):
+    """Loss and every leaf's gradient of one step through the kernels (the
+    configured backend and the fused loss) and through plain PyTorch (the
+    ``torch`` backend: ``torch.matmul`` on the de-sheared weights, and the
+    unfused loss), on the same weights and batch.  Returns ``(losses,
+    grad_norms, worst)``: the two losses, the two global gradient norms and
+    the largest per-leaf relative L2 gradient error with its path."""
+    import torch
+
+    named = tree.paths(params)
+    leaves = [leaf.requires_grad_(True) for _, leaf in named]
+    plain = dataclasses.replace(cfg, matmul_backend="torch")
+    losses, flat = [], []
+    for c, fused in ((cfg, None), (plain, False)):
+        loss = tf_model.loss_fn(params, c, batch, fused_ce=fused)
+        flat.append(torch.autograd.grad(loss, leaves))
+        losses.append(float(loss.detach()))
+        del loss
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    norms = [float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))) for gs in flat]
+    worst = (0.0, "")
+    for (path, _), a, b in zip(named, *flat):
+        rel = float(torch.linalg.vector_norm((a - b).float()) / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+        worst = max(worst, (rel, path))
+    return losses, norms, worst
+
+
 def main():
     import torch
 
@@ -70,16 +135,20 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch import api
+    from repro_torch import api, tree
     from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
     from repro_torch.device import make_generator
     from repro_torch.kernels import _build
+    from repro_torch.launch import train as train_cli
     from repro_torch.kernels import epilogue as epi
+    from repro_torch.kernels import lm_head_ce as ce
     from repro_torch.kernels import prologue as pro
     from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
     from repro_torch.models import transformer as tf_model
-    from repro_torch.runtime import Request, Server, ServerConfig
+    from repro_torch.optim import AdamW, cosine_schedule
+    from repro_torch.runtime import Request, Server, ServerConfig, Trainer, TrainerConfig
     import numpy as np
     import torch.nn.functional as F
 
@@ -104,7 +173,10 @@ def main():
     # ---------------------------------------------- 2. kernels vs plain -----
     log("phase 2: each kernel against its plain version on the card")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    d, d_ff, kv, vocab = 4096, 14336, 1024, 131072
+    arch = get_config("llama3-8b")
+    # vocab is the lm_head's width: 128256 padded to a multiple of 2048
+    d, d_ff, kv, vocab = arch.d_model, arch.d_ff, arch.n_kv_heads * arch.resolved_head_dim, arch.padded_vocab
+    assert (d, d_ff, kv, vocab) == (4096, 14336, 1024, 129024)
     # (label, K, N, epilogue, prologue): every projection of the main path
     proj = [
         ("q", d, d, "none", "rmsnorm"),
@@ -132,11 +204,16 @@ def main():
         pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
         return x, p, eops, dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops)
 
-    worst = {"dip_matmul": 0.0, "flash_attention": 0.0}
+    # M = 4 and 256: a serving decode step and prefill chunk; M = 4096: the
+    # training path's batch 4 x seq 1024 through every projection it sends
+    # to this kernel (its lm_head goes through lm_head_ce), so tiles past row
+    # 256 are held too; M = 4092: a ragged last row tile at that size
+    dip_cases = [(4, proj), (256, proj + extra), (4096, proj[:5]), (4092, proj[2:3])]
+    worst = {"dip_matmul": 0.0, "flash_attention": 0.0, "lm_head_ce": 0.0}
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
-        for m in (4, 256):
-            for label, k, n, e, pr in proj + (extra if m == 256 else []):
+        for m, cases in dip_cases:
+            for label, k, n, e, pr in cases:
                 x, p, eops, kw = dip_inputs(m, k, n, e, pr, dtype)
                 got = dip_matmul(x, p, *eops, **kw)
                 want = dip_matmul_plain(x, p, *eops, **kw)
@@ -193,6 +270,43 @@ def main():
                 log(f"  flash {dt_name}: {int(dead.sum())} fully masked rows are exactly 0")
     torch.cuda.synchronize()
 
+    # lm_head_ce at the training shape: T = 4 x 1023 tokens (the shifted
+    # batch), D = 4096, Vp = 129024, vocab 128256; and a ragged T = 37, whose
+    # vocab split puts one 128-column tile in each block, so six splits lie
+    # wholly in the padding
+    lm_vocab, sms = arch.vocab_size, torch.cuda.get_device_properties(dev).multi_processor_count
+    lm_pairs = [("float32", "float32"), ("bfloat16", "float32"), ("bfloat16", "bfloat16")]
+
+    def lm_inputs(t, x_name, w_name):
+        x = torch.randn(t, d, generator=g, device=dev).to(getattr(torch, x_name))
+        w = (torch.randn(d, vocab, generator=g, device=dev) * d ** -0.5).to(getattr(torch, w_name))
+        labels = torch.randint(0, lm_vocab, (t,), generator=g, device=dev, dtype=torch.int32)
+        labels[::5] = ce.IGNORE_INDEX
+        return x, w, labels
+
+    pad_splits_seen = 0
+    for t in (4092, 37):
+        tiles, splits = ce.split_plan(t, vocab, sms)
+        pad_splits = sum(1 for sp in range(splits) if sp * tiles * ce.BLOCK_V >= lm_vocab)
+        pad_splits_seen += pad_splits
+        for x_name, w_name in lm_pairs:
+            x, w, labels = lm_inputs(t, x_name, w_name)
+            with torch.no_grad():
+                got = ce.lm_head_ce(x, w, labels, vocab_size=lm_vocab)
+            want = ce.lm_head_ce_plain(x, w, labels, vocab_size=lm_vocab)
+            # f32 W: IEEE f32 products on both sides; bf16 x bf16: tensor cores
+            tol = TOL[w_name]
+            label = (f"lm_head_ce {x_name} x {w_name} T={t} D={d} Vp={vocab} vocab={lm_vocab} "
+                     f"({splits} splits, {pad_splits} all padding)")
+            err = max(close(f"{label} logz", got[0], want[0], tol), close(f"{label} label logit", got[1], want[1], tol))
+            worst["lm_head_ce"] = max(worst["lm_head_ce"], err)
+            if not bool((got[1][labels == ce.IGNORE_INDEX] == 0).all()):
+                raise AssertionError("lm_head_ce: a label at -100 matched a column")
+            del x, w, got, want
+    if not pad_splits_seen:
+        raise AssertionError("lm_head_ce: no case had a vocab split wholly in the padding")
+    torch.cuda.synchronize()
+
     # ---------------------------------------- 3. reduced model, card vs CPU --
     log("phase 3: reduced llama3-8b, f32, dip backend: card against CPU")
     rcfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
@@ -232,10 +346,63 @@ def main():
         raise AssertionError("reduced model: the engines took different steps")
     for i, ((tag, a), (_, b)) in enumerate(zip(logits["cuda"], logits["cpu"])):
         close(f"reduced {tag} call {i} logits (f32)", a, b, MODEL_TOL)
-    del cpu_params
 
-    # -------------------------------------------------- 4. full width -------
-    log("phase 4: llama3-8b full width, bf16, dip storage, through Server")
+    # ------------------------------------ 4. reduced training, card vs CPU --
+    log("phase 4: reduced llama3-8b, f32, dip backend: 3 Trainer steps, card against CPU, "
+        "with a checkpoint and a resume")
+    ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    def reduced_trainer(where, name, fail_at=None):
+        return Trainer(rcfg, TrainerConfig(steps=3, ckpt_every=2, ckpt_dir=os.path.join(ckpt_root, name),
+                                           keep=3, fail_at_step=fail_at, log_every=1),
+                       seq_len=64, global_batch=4, device=where)
+
+    def fresh(where):
+        return to_dev(cpu_params) if where == "cuda" else tree.map_tree(lambda t: t.clone(), cpu_params)
+
+    runs = {"cpu": reduced_trainer("cpu", "cpu").run(params=fresh("cpu"))}
+    dip_matmul.launches = flash_attention.launches = ce.lm_head_ce.launches = 0
+    runs["cuda"] = reduced_trainer("cuda", "cuda").run(params=fresh("cuda"))
+    got = (dip_matmul.launches, flash_attention.launches, ce.lm_head_ce.launches)
+    want = (6 * rcfg.n_layers * 3, 0, 3)  # no remat in the reduced config
+    log(f"  card launches (dip_matmul, flash_attention, lm_head_ce) {got}; expected {want}")
+    if got != want:
+        raise AssertionError("reduced training: the card run did not launch the kernels as expected")
+    for a, b in zip(runs["cuda"]["metrics"], runs["cpu"]["metrics"]):
+        for k in ("loss", "grad_norm"):
+            err = abs(a[k] - b[k])
+            log(f"  step {int(a['step'])} {k}: card {a[k]:.7f} cpu {b[k]:.7f} |err| {err:.2e} "
+                f"(limit {TRAIN_TOL:g} x {max(1.0, abs(b[k])):.3g})")
+            if err > TRAIN_TOL * max(1.0, abs(b[k])):
+                raise AssertionError(f"reduced training: step {a['step']} {k} differs between card and CPU")
+    try:
+        reduced_trainer("cuda", "resumed", fail_at=2).run(params=fresh("cuda"))
+    except RuntimeError as e:  # the injected stop is the expected outcome
+        if "injected failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("reduced training: fail_at_step did not stop the run")
+    resumed = reduced_trainer("cuda", "resumed").run()
+    whole, again = runs["cuda"]["metrics"][-1], resumed["metrics"]
+    if [int(m["step"]) for m in again] != [3]:
+        raise AssertionError(f"resume: expected to run step 3 only, ran {[m['step'] for m in again]}")
+    bit_exact = all(m1 == m2 for m1, m2 in ((again[0]["loss"], whole["loss"]), (again[0]["grad_norm"], whole["grad_norm"])))
+    for x1, x2 in zip(tree.leaves(resumed["state"]["params"]), tree.leaves(runs["cuda"]["state"]["params"])):
+        close_p = (x1 - x2).abs().max().item()
+        bit_exact = bit_exact and close_p == 0.0
+        if close_p > RESUME_TOL * max(1.0, x2.abs().max().item()):
+            raise AssertionError("resume: parameters after the resumed step differ from the uninterrupted run")
+    for k in ("loss", "grad_norm"):
+        if abs(again[0][k] - whole[k]) > RESUME_TOL * max(1.0, abs(whole[k])):
+            raise AssertionError(f"resume: step 3 {k} {again[0][k]} differs from {whole[k]}")
+    log(f"  resumed from the step-2 checkpoint: step 3 loss {again[0]['loss']:.7f} against "
+        f"{whole['loss']:.7f} uninterrupted; bit-exact: {bit_exact}")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    del cpu_params, runs, resumed
+
+    # ------------------------------------------- 5. full-width serving -----
+    log("phase 5: llama3-8b full width, bf16, dip storage, through Server")
     cfg = dataclasses.replace(get_config("llama3-8b"), matmul_backend="dip",
                               param_dtype="bfloat16", compute_dtype="bfloat16")
     assert (cfg.n_layers, cfg.d_model, cfg.vocab_size) == (32, 4096, 128256)
@@ -269,12 +436,12 @@ def main():
     reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, size=int(rng.integers(200, 601))))
             for i in range(4)]
     torch.cuda.reset_peak_memory_stats()
-    dip_matmul.launches = 0
-    flash_attention.launches = 0
+    dip_matmul.launches = flash_attention.launches = ce.lm_head_ce.launches = 0
     t0 = time.perf_counter()
     results = server.serve(reqs)
     wall = time.perf_counter() - t0
-    launches = {"dip_matmul": dip_matmul.launches, "flash_attention": flash_attention.launches}
+    launches = {"dip_matmul": dip_matmul.launches, "flash_attention": flash_attention.launches,
+                "lm_head_ce": ce.lm_head_ce.launches}
     peak = torch.cuda.max_memory_allocated()
     st = server.last_stats
     n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
@@ -287,7 +454,7 @@ def main():
         raise AssertionError("full width: not every request was served")
     if (n_prefill, n_decode) != (st["prefill_chunks"], st["decode_steps"]):
         raise AssertionError("full width: step counts disagree with the engine's stats")
-    want = {"dip_matmul": 193 * (n_prefill + n_decode), "flash_attention": 32 * n_prefill}
+    want = {"dip_matmul": 193 * (n_prefill + n_decode), "flash_attention": 32 * n_prefill, "lm_head_ce": 0}
     log(f"  launches {launches}; expected {want} "
         f"(193 DiP launches per forward, 32 flash launches per prefill chunk)")
     if launches != want:
@@ -306,9 +473,127 @@ def main():
     log("  serving " + json.dumps(serving))
     del server, eng, params
     torch.cuda.empty_cache()
+    serve_launches = launches
 
-    # --------------------------------------------------------- 5. times -----
-    log("phase 5: times (ms, median of 10 after 3 warm-ups, L2 flushed before each)")
+    # ------------------------------------------- 6. full-width training -----
+    log("phase 6: llama3-8b full width cut to 4 layers (f32 params, bf16 compute, dip, block remat) "
+        "through launch.train")
+    c = dataclasses.replace(arch, n_layers=4, matmul_backend="dip")
+    assert (c.param_dtype, c.compute_dtype, c.remat) == ("float32", "bfloat16", "block")
+    assert (c.d_model, c.n_heads, c.n_kv_heads, c.resolved_head_dim, c.d_ff, c.vocab_size, c.padded_vocab) == (
+        4096, 32, 8, 128, 14336, 128256, 129024)
+    t_batch, t_seq, t_steps, t_lr = 4, 1024, 4, 3e-4
+    data = SyntheticLM(vocab_size=c.vocab_size, seq_len=t_seq, global_batch=t_batch, seed=SEED)
+    plain = dataclasses.replace(c, matmul_backend="torch")
+    # the launcher's first step (its weights from the seed, its first batch)
+    # through the kernels and through plain PyTorch, in f32 compute and in the
+    # configuration's bf16 compute
+    params = tf_model.init_params(c, make_generator(SEED, "cuda"), "cuda")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(0).items()}
+    for cd in ("float32", "bfloat16"):
+        (lk, lp), (nk, npl), (err, path) = first_step_against_plain(
+            params, dataclasses.replace(c, compute_dtype=cd), batch, tree, tf_model)
+        tl, tn, tg = FIRST_STEP_TOL[cd]
+        log(f"  first step, {cd} compute, kernels / plain PyTorch: loss {lk:.6f} / {lp:.6f}, "
+            f"gradient norm {nk:.5f} / {npl:.5f}, worst leaf relative L2 error {err:.2e} ({path}); "
+            f"limits {tl:g}, {tn:g}, {tg:g}")
+        if abs(lk - lp) > tl * max(1.0, abs(lp)) or abs(nk - npl) > tn * max(1.0, npl) or not err <= tg:
+            raise AssertionError(f"full-width training: the first step through the kernels differs from "
+                                 f"plain PyTorch in {cd} compute")
+    del params, batch
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    dip_matmul.launches = flash_attention.launches = ce.lm_head_ce.launches = 0
+    out = train_cli.main(["--arch", "llama3-8b", "--full", "--layers", str(c.n_layers), "--steps", str(t_steps),
+                          "--batch", str(t_batch), "--seq", str(t_seq), "--lr", str(t_lr), "--seed", str(SEED),
+                          "--ckpt-dir", os.path.join(ckpt_root, "full"), "--ckpt-every", str(10 ** 9)])
+    launches = {"dip_matmul": dip_matmul.launches, "flash_attention": flash_attention.launches,
+                "lm_head_ce": ce.lm_head_ce.launches}
+    t_peak = torch.cuda.max_memory_allocated()
+    metrics = out["metrics"]
+    if len(metrics) != t_steps or not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+        raise AssertionError(f"full-width training: expected {t_steps} finite steps, got {metrics}")
+    # 6 DiP launches per layer forward (q, k, v, o, gate+up, down) and the
+    # same 6 again when block remat reruns the forward in the backward; the
+    # fused loss launches lm_head_ce once per step; no flash launch
+    want = {"dip_matmul": 2 * 6 * c.n_layers * t_steps, "flash_attention": 0, "lm_head_ce": t_steps}
+    log(f"  launches {launches}; expected {want} (per step: 2 x 6 x {c.n_layers} DiP, 1 lm_head_ce)")
+    if launches != want:
+        raise AssertionError("full-width training: launch counts differ from the expected ones")
+    n_params = sum(t.numel() for t in tree.leaves(out["state"]["params"]))
+    step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
+    training = {
+        "parameters": n_params,
+        "losses": [m["loss"] for m in metrics],
+        "grad_norms": [m["grad_norm"] for m in metrics],
+        "step_times_s": [m["step_time_s"] for m in metrics],
+        "median_step_s_steps_2_to_4": step_s,
+        "tokens_per_s": t_batch * t_seq / step_s,
+        "peak_memory_gib": t_peak / 2**30,
+        "launches_per_step": {k: v / t_steps for k, v in launches.items()},
+    }
+    log("  training " + json.dumps(training))
+    train_launches = launches
+
+    # one more step, split by CUDA events into the calls train_step_fn makes
+    # (loss forward, autograd backward, AdamW update), under the profiler for
+    # device time by kernel
+    state = out["state"]
+    opt = AdamW(lr=cosine_schedule(t_lr, 10, t_steps))  # the launcher's optimizer
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(t_steps).items()}
+    leaves = tree.leaves(state["params"])
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        loss = tf_model.loss_fn(state["params"], c, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        opt.update(tree.unflatten(state["params"], grads), state["opt_state"], state["params"])
+        ev[3].record()
+        torch.cuda.synchronize()
+    split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(("forward_ms", "backward_ms", "adamw_ms"))}
+    kernel_ms = {}  # device-side events only: the kernels and copies themselves
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            kernel_ms[e.key] = (e.count, (us if us is not None else e.self_cuda_time_total) / 1e3)
+    log(f"  step {t_steps + 1} (profiled): loss {float(loss.detach()):.4f}; " + json.dumps(split)
+        + f"; device ms of all kernels {sum(v[1] for v in kernel_ms.values()):.1f}")
+    for key, (count, ms) in sorted(kernel_ms.items(), key=lambda kv: -kv[1][1])[:16]:
+        log(f"    {ms:9.2f} ms  x{count:<5d} {key[:110]}")
+    del grads, loss, leaves
+    del out, state, batch, prof
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # the same 4 steps through plain PyTorch from the same weights: what the
+    # configuration does under the launcher's schedule without any kernel
+    opt = AdamW(lr=cosine_schedule(t_lr, 10, t_steps))
+    params = tf_model.init_params(c, make_generator(SEED, "cuda"), "cuda")
+    state = {"params": params, "opt_state": opt.init(params), "step": 0}
+    step_fn = tf_model.train_step_fn(plain, opt, fused_ce=False)
+    before = (dip_matmul.launches, flash_attention.launches, ce.lm_head_ce.launches)
+    plain_metrics = []
+    for i in range(t_steps):
+        state, m = step_fn(state, {k: torch.as_tensor(v).to(dev) for k, v in data.batch(i).items()})
+        plain_metrics.append({k: float(v) for k, v in m.items()})
+    if (dip_matmul.launches, flash_attention.launches, ce.lm_head_ce.launches) != before:
+        raise AssertionError("the plain PyTorch path launched a kernel")
+    training["plain_losses"] = [m["loss"] for m in plain_metrics]
+    training["plain_grad_norms"] = [m["grad_norm"] for m in plain_metrics]
+    log(f"  the same steps through plain PyTorch (torch.matmul, unfused loss): losses "
+        f"{training['plain_losses']}, gradient norms {training['plain_grad_norms']}; "
+        f"through the kernels: {training['losses']}, {training['grad_norms']}")
+    if not all(np.isfinite(m["loss"]) for m in plain_metrics):
+        raise AssertionError("full-width training: the plain path gave a non-finite loss")
+    del params, state, step_fn
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- 7. times -----
+    log("phase 7: times (ms, median of 10 after 3 warm-ups, L2 flushed before each)")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def time_ms(fn, iters=10, warmup=3):
@@ -357,6 +642,12 @@ def main():
                            library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
                 rows_out.append(row)
                 log("  " + json.dumps(row))
+                if label == "gate+up":  # the ws baseline: the same kernel reading natural storage
+                    ws_kw = dict(kw, fuse_deshear=False)
+                    row = dict(row, kernel="ws_matmul", ms=time_ms(lambda: dip_matmul(x, p, *eops, **ws_kw)),
+                               plain_ms=time_ms(lambda: dip_matmul_plain(x, p, *eops, **ws_kw)))
+                    rows_out.append(row)
+                    log("  " + json.dumps(row))
                 del x, p, eops, wn
         for label, dk, dvv, qo, kvl in flash_cases:
             q, k, v = flash_inputs(dk, dvv, dtype)
@@ -382,20 +673,57 @@ def main():
             log("  " + json.dumps(row))
             del q, k, v, mask
 
-    # one line per kernel: the served dtype at the prefill chunk's largest launch
-    pick = {"dip_matmul": "M=256 gate+up", "flash_attention": "q_offset 512"}
+    # lm_head_ce at the full-width training shape, in both training dtypes;
+    # the work needed is the first vocab columns only (the rest are masked)
+    t = 4 * (1024 - 1)
+    for x_name, w_name in lm_pairs[:2]:
+        x, w, labels = lm_inputs(t, x_name, w_name)
+        x32 = x.float()
+        nbytes = t * d * x.element_size() + d * lm_vocab * 4 + 4 * t + 8 * t
+        b_ms, b_by = bound_ms(nbytes, 2 * t * d * lm_vocab, "float32")
+        with torch.no_grad():
+            row = dict(kernel="lm_head_ce", dtype=f"{x_name} x {w_name}",
+                       shape=f"T={t} D={d} Vp={vocab} vocab={lm_vocab}",
+                       ms=time_ms(lambda: ce.lm_head_ce(x, w, labels, vocab_size=lm_vocab), iters=5, warmup=1),
+                       plain_ms=time_ms(lambda: ce.lm_head_ce_plain(x, w, labels, vocab_size=lm_vocab),
+                                        iters=5, warmup=1),
+                       library_ms=time_ms(lambda: torch.matmul(x32, w), iters=5, warmup=1),
+                       library="torch.matmul of the same f32 product alone (no logsumexp)",
+                       bound_ms=b_ms, bound_by=b_by)
+        rows_out.append(row)
+        log("  " + json.dumps(row))
+        if x_name == "bfloat16":  # the training step's backward of the fused loss, plain torch f32
+
+            def fwd_bwd():
+                xx, ww = x.detach().requires_grad_(), w.detach().requires_grad_()
+                logz, lab = ce.lm_head_ce(xx, ww, labels, vocab_size=lm_vocab)
+                torch.autograd.grad(logz.sum() - lab.sum(), (xx, ww))
+
+            both = time_ms(fwd_bwd, iters=5, warmup=1)
+            log("  " + json.dumps(dict(kernel="lm_head_ce backward (chunked f32 recompute, torch)",
+                                       dtype=row["dtype"], shape=row["shape"], forward_and_backward_ms=both,
+                                       backward_ms=both - row["ms"])))
+        del x, w, x32
+
+    # one line per kernel: the served dtype at the prefill chunk's largest
+    # launch; lm_head_ce in the training dtypes (bf16 x, f32 head)
+    pick = {"dip_matmul": ("bfloat16", "M=256 gate+up"), "flash_attention": ("bfloat16", "q_offset 512"),
+            "lm_head_ce": ("bfloat16 x float32", "T=4092")}
     sources = {"dip_matmul": ("src/repro_torch/kernels/csrc/dip_matmul.cu", "src/repro/kernels/dip_matmul.py:100"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:117")}
+                                   "src/repro/kernels/flash_attention.py:117"),
+               "lm_head_ce": ("src/repro_torch/kernels/csrc/lm_head_ce.cu", "src/repro/kernels/lm_head_ce.py:102")}
     kernels = []
-    for name in ("dip_matmul", "flash_attention"):
-        row = next(r for r in rows_out if r["kernel"] == name and r["dtype"] == "bfloat16"
-                   and pick[name] in r["shape"])
+    for name in ("dip_matmul", "flash_attention", "lm_head_ce"):
+        row = next(r for r in rows_out if r["kernel"] == name and r["dtype"] == pick[name][0]
+                   and pick[name][1] in r["shape"])
+        by_path = {"serve": serve_launches[name], "train": train_launches[name]}
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
-                        "replaces": sources[name][1], "launches": launches[name],
+                        "replaces": sources[name][1], "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": worst[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "shape": f"bfloat16 {row['shape']}"})
+                        "library_ms": row["library_ms"], "shape": f"{pick[name][0]} {row['shape']}"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -24,9 +24,21 @@ Backends without a fusion get the decomposition rule: the prologue runs as
 the same f32 normalize-and-cast ahead of the product, the epilogue as the
 same f32 arithmetic after it, so results agree across backends.
 
-Not ported in this slice: quantized layouts, sharded plans, ABFT
-verification, autograd and the block-size tuning table (the kernel's tile
-is fixed at 64).
+Gradients (port of the reference's ``_build_tiled_caller`` custom VJP):
+every tiled dispatch, ``dip`` and ``ws`` alike, goes through one
+``torch.autograd.Function``, :class:`FusedDispatch`.  Its forward launches
+the kernel (the plain version for CPU tensors); its backward un-permutes the
+weight storage to natural f32, recomputes ``epilogue(prologue(x) @ W)`` in
+f32 with torch autograd through :func:`fused_recompute`, and returns the x,
+gain and bias/residual cotangents and the weight cotangent re-permuted with
+``permute_tiled`` (the permutation is orthogonal, so
+``d/dP f(unperm(P)) = perm(d/dW f(W))``) and cast to the storage dtype.
+The ``torch`` backend keeps plain autograd.
+
+Not ported yet: quantized layouts (ROADMAP.md Queue 1 "Quantization"),
+sharded plans (Queue 1 "Distributed"), ABFT verification (Queue 1
+"Reliability") and the block-size tuning table (Queue 1 "Tooling"; the
+kernel's tile is fixed at 64).
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.api.weights import PERM_TILE, DipWeight, as_dip_weight
+from repro_torch.core import permute
 from repro_torch.kernels import epilogue as epilogue_lib
 from repro_torch.kernels import prologue as prologue_lib
 from repro_torch.kernels.dip_matmul import dip_matmul
@@ -51,6 +64,8 @@ __all__ = [
     "list_backends",
     "backend_layout",
     "matmul",
+    "fused_recompute",
+    "FusedDispatch",
 ]
 
 DEFAULT_BACKEND = "torch"
@@ -102,14 +117,15 @@ _REGISTRY: Dict[str, MatmulBackend] = {
 }
 # the reference's backend names, so its configurations resolve here
 _ALIASES = {"xla": "torch", "pallas_dip": "dip"}
+_QUANT, _DIST = 'ROADMAP.md Queue 1 "Quantization"', 'ROADMAP.md Queue 1 "Distributed"'
 _NOT_PORTED = {
-    "pallas_systolic": "ROADMAP.md Queue 2 item 5 (dip_systolic)",
-    "dip_int8w": "ROADMAP.md Queue 1 item 9 (quantization)",
-    "dip_fp8": "ROADMAP.md Queue 1 item 9 (quantization)",
-    "dip_tp": "ROADMAP.md Queue 1 item 12 (distributed)",
-    "dip_fsdp": "ROADMAP.md Queue 1 item 12 (distributed)",
-    "dip_sp": "ROADMAP.md Queue 1 item 12 (distributed)",
-    "dip_ep": "ROADMAP.md Queue 1 item 12 (distributed)",
+    "pallas_systolic": 'ROADMAP.md Queue 2 "dip_systolic_pallas"',
+    "dip_int8w": _QUANT,
+    "dip_fp8": _QUANT,
+    "dip_tp": _DIST,
+    "dip_fsdp": _DIST,
+    "dip_sp": _DIST,
+    "dip_ep": _DIST,
 }
 
 
@@ -146,16 +162,68 @@ def _logical_dims(w) -> Tuple[int, int]:
     return int(w.shape[0]), int(w.shape[1])
 
 
+def fused_recompute(prologue, epilogue, k_true, eps, x32, pops32, wns32, eops32) -> torch.Tensor:
+    """``epilogue(prologue(x) @ W ...)`` in f32 from natural f32 weights:
+    the one definition the backward differentiates (the reference's
+    ``_fused_recompute``), built from the same ``prologue.apply`` and
+    ``epilogue.apply`` as the plain versions (an f32 x makes the prologue's
+    cast back a no-op)."""
+    if prologue_lib.spec(prologue).normalize:
+        x32 = prologue_lib.apply(prologue, x32, pops32[0], k_true=k_true, eps=eps)
+    zs = [torch.matmul(x32, wn) for wn in wns32]
+    if epilogue_lib.spec(epilogue).dual_weight:
+        return epilogue_lib.apply(epilogue, zs[0], zs[1])
+    return epilogue_lib.apply(epilogue, zs[0], *eops32)
+
+
+class FusedDispatch(torch.autograd.Function):
+    """One padded 2-D launch of a tiled backend with the f32-recompute
+    backward.  ``tensors`` is ``(x2, *ws, *pops, *eops)``: the weight
+    storages (two for ``swiglu``), the padded gain row and the padded bias
+    row or residual block."""
+
+    @staticmethod
+    def forward(ctx, fn, layout, opts, n_w, n_p, *tensors):
+        epilogue, prologue, k_true, eps = opts
+        x2, ws = tensors[0], tensors[1:1 + n_w]
+        pops, eops = tensors[1 + n_w:1 + n_w + n_p], tensors[1 + n_w + n_p:]
+        kw = dict(epilogue=epilogue, prologue=prologue, prologue_k=k_true, prologue_eps=eps)
+        if pops:
+            kw["prologue_operands"] = pops
+        ctx.save_for_backward(*tensors)
+        ctx.meta = (layout, opts, n_w, n_p)
+        return fn(x2, ws[0], *ws[1:], *eops, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        layout, (epilogue, prologue, k_true, eps), n_w, n_p = ctx.meta
+        saved = ctx.saved_tensors
+
+        def natural(i, t):
+            return permute.unpermute_tiled(t, PERM_TILE) if layout == "dip" and 1 <= i <= n_w else t
+
+        with torch.enable_grad():
+            leaves = [natural(i, t).detach().float().requires_grad_() for i, t in enumerate(saved)]
+            x32, wns32 = leaves[0], leaves[1:1 + n_w]
+            pops32, eops32 = leaves[1 + n_w:1 + n_w + n_p], leaves[1 + n_w + n_p:]
+            out = fused_recompute(prologue, epilogue, k_true, eps, x32, pops32, wns32, eops32)
+            grads = list(torch.autograd.grad(out, leaves, g.float()))
+        for i in range(1, 1 + n_w):
+            if layout == "dip":
+                grads[i] = permute.permute_tiled(grads[i], PERM_TILE)
+        return (None,) * 5 + tuple(d.to(t.dtype) for d, t in zip(grads, saved))
+
+
 def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, pro_operands, eps):
     lead = tuple(x.shape[:-1])
     kp, np_ = ws[0].shape
     x2 = x.reshape(-1, x.shape[-1])
     if x2.shape[1] != kp:
         x2 = F.pad(x2, (0, kp - x2.shape[1]))
-    kw = dict(epilogue=epilogue, prologue=prologue, prologue_k=k_true, prologue_eps=eps)
+    pops: Tuple[torch.Tensor, ...] = ()
     if prologue_lib.spec(prologue).normalize:
         g = pro_operands[0].reshape(-1).float()
-        kw["prologue_operands"] = (F.pad(g, (0, kp - g.shape[0])).contiguous(),)
+        pops = (F.pad(g, (0, kp - g.shape[0])).contiguous(),)
     spec = epilogue_lib.spec(epilogue)
     eops: Tuple[torch.Tensor, ...] = ()
     if spec.bias:
@@ -164,7 +232,8 @@ def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, p
     elif spec.residual:
         r = operands[0].reshape(-1, out_cols)
         eops = (_pad_last2(r, r.shape[0], np_).contiguous(),)
-    out = be.fn(x2.contiguous(), ws[0], *ws[1:], *eops, **kw)
+    out = FusedDispatch.apply(be.fn, be.layout, (epilogue, prologue, k_true, eps), len(ws), len(pops),
+                              x2.contiguous(), *ws, *pops, *eops)
     if np_ != out_cols:
         out = out[:, :out_cols]
     return out.reshape(lead + (out_cols,))

@@ -5,7 +5,13 @@
 zero-padded to the tile grid; ``d_in`` / ``d_out`` are the logical dims;
 ``perm_tile`` is the tile (64 in the paper).  Leading dims (a layer-stacking
 axis) pass through.  The reference's ``plan`` and ``checksum`` fields belong
-to the sharded backends and the reliability layer, which are not ported yet.
+to the sharded backends and the reliability layer, which are not ported yet
+(ROADMAP.md Queue 1 "Distributed" and "Reliability").
+
+Gradients need nothing of this class: ``data`` is the parameter leaf, and
+the layer slice (``with_data(data[i])``), the cast of :meth:`astype` and the
+gather of :meth:`to_natural` are torch ops, so a cotangent reaches the f32
+layer-stacked storage in the permutated layout.
 """
 
 from __future__ import annotations
@@ -74,7 +80,7 @@ class DipWeight:
         if not dtype.is_floating_point:
             raise TypeError(
                 f"DipWeight.astype({dtype}) would truncate storage without scales; "
-                "quantized storage is not ported yet (ROADMAP.md Queue 1 item 9)"
+                'quantized storage is not ported yet (ROADMAP.md Queue 1 "Quantization")'
             )
         return self.with_data(self.data.to(dtype))
 

@@ -1,0 +1,241 @@
+"""Checkpointing in the reference's on-disk layout (port of
+``repro/checkpoint/manager.py``)::
+
+    <dir>/step_00000123.tmp-<nonce>/   while writing
+        leaf_00000.npy ...             one file per tree leaf
+        manifest.json                  leaf paths, dtypes, shapes, crc32, meta
+    <dir>/step_00000123/               atomically renamed when complete
+
+A checkpoint written by the reference's ``Trainer`` restores here and the
+other way round.  Leaves are named by the reference's paths
+(``jax.tree_util.tree_flatten_with_path`` joined by ``/``): dict keys as
+``['params']``, a ``DipWeight``'s storage as ``.data``.  The reference's
+``DipWeight`` also flattens an optional ABFT ``.checksum`` child, which the
+port does not carry yet (ROADMAP.md Queue 1 "Reliability"): restoring a
+checkpoint that holds one raises, as does any other leaf the target tree
+cannot place.  bf16 leaves are stored as ``uint16`` views with the manifest
+naming the real dtype, as the reference stores them.
+
+* **Atomicity** — a step directory either has a complete manifest or is a
+  ``.tmp-*`` orphan, removed when a manager opens the directory.
+* **Async** — ``save(..., blocking=False)`` copies the tree to host memory
+  at once (the trainer updates parameters in place) and writes the files on
+  a background thread; at most one save is in flight.
+* **Retention** — the newest ``keep`` steps are kept.
+* **Integrity** — every leaf's crc32 is in the manifest and is checked on
+  restore.
+
+The reference's fault-injection points (``checkpoint.save.*``) come with
+the reliability layer.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import secrets
+import shutil
+import threading
+import zlib
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+from repro_torch.api.weights import DipWeight
+
+__all__ = ["CheckpointManager", "save_pytree", "restore_pytree", "checkpoint_meta"]
+
+_NUMPY_DTYPES = {torch.float32: "float32", torch.int32: "int32", torch.int64: "int64",
+                 torch.bfloat16: "bfloat16"}
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    """A host copy of one leaf; Python ints become int32 0-d arrays, as the
+    reference's step counters are."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    if isinstance(leaf, (int, np.integer)):
+        return np.asarray(leaf, dtype=np.int32)
+    return np.asarray(leaf, dtype=np.float32)
+
+
+def _dtype_name(leaf, arr: np.ndarray) -> str:
+    if isinstance(leaf, torch.Tensor):
+        return _NUMPY_DTYPES.get(leaf.dtype, str(arr.dtype))
+    return str(arr.dtype)
+
+
+def _dip_index(t: Any, prefix: str = "") -> Dict[str, Dict]:
+    """path -> logical-shape metadata of every ``DipWeight`` node."""
+    out: Dict[str, Dict] = {}
+    if isinstance(t, dict):
+        for k in sorted(t):
+            out.update(_dip_index(t[k], f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]"))
+    elif isinstance(t, DipWeight):
+        out[prefix] = {"d_in": t.d_in, "d_out": t.d_out, "perm_tile": t.perm_tile}
+    return out
+
+
+def _snapshot(state: Any):
+    """``(path, host array, dtype name)`` of every leaf, copied now."""
+    out = []
+    for p, leaf in tree.paths(state):
+        arr = _to_numpy(leaf)
+        out.append((p, arr, _dtype_name(leaf, arr)))
+    return out
+
+
+def _write(path: str, snapshot, dip_index: Dict, meta: Optional[Dict]) -> None:
+    tmp = f"{path}.tmp-{secrets.token_hex(4)}"
+    os.makedirs(tmp, exist_ok=True)
+    index: List[Dict] = []
+    for i, (p, arr, dtype_name) in enumerate(snapshot):
+        fname = f"leaf_{i:05d}.npy"
+        np.save(os.path.join(tmp, fname), arr)
+        index.append({"path": p, "file": fname, "shape": list(arr.shape), "dtype": dtype_name,
+                      "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes())})
+    manifest = {"leaves": index, "meta": meta or {}, "dip_weights": dip_index}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path) if not os.path.exists(path) else shutil.rmtree(tmp)
+
+
+def save_pytree(path: str, state: Any, *, meta: Optional[Dict] = None) -> None:
+    """Write one complete checkpoint directory atomically (blocking)."""
+    _write(path, _snapshot(state), _dip_index(state), meta)
+
+
+def _from_numpy(arr: np.ndarray, dtype_name: str, like):
+    if dtype_name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(arr, dtype=np.dtype(dtype_name)))
+    if isinstance(like, torch.Tensor):
+        if t.dtype != like.dtype or tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"leaf is {t.dtype}{tuple(t.shape)} in the checkpoint, "
+                             f"{like.dtype}{tuple(like.shape)} in the restore target")
+        return t.to(like.device)
+    if tuple(t.shape) != ():
+        raise ValueError(f"a scalar leaf holds shape {tuple(t.shape)} in the checkpoint")
+    return type(like)(t.item())
+
+
+def restore_pytree(path: str, like: Any) -> Any:
+    """Restore into the structure of ``like`` (tensors land on the devices
+    and must have the dtypes and shapes of ``like``'s leaves; Python-number
+    leaves come back as numbers)."""
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    live_dip = _dip_index(like)
+    for p, saved in manifest.get("dip_weights", {}).items():
+        live = live_dip.get(p)
+        if live is not None and any(saved.get(k) != live[k] for k in live):
+            raise ValueError(f"DipWeight metadata mismatch at {p}: checkpoint {saved}, "
+                             f"restore target {live}")
+    pairs = tree.paths(like)
+    by_path = {e["path"]: e for e in manifest["leaves"]}
+    extra = sorted(set(by_path) - {p for p, _ in pairs})
+    checksums = [p for p in extra if "/.checksum" in p]
+    if checksums:
+        raise ValueError(f"checkpoint carries ABFT checksum leaves the port cannot place yet "
+                         f'(ROADMAP.md Queue 1 "Reliability"): {checksums[:4]}')
+    missing = sorted({p for p, _ in pairs} - set(by_path))
+    if missing or extra:
+        raise ValueError(f"checkpoint/tree mismatch; missing={missing} extra={extra}")
+    out = []
+    for p, leaf in pairs:
+        entry = by_path[p]
+        arr = np.load(os.path.join(path, entry["file"]))
+        want = entry.get("crc32")
+        if want is not None and zlib.crc32(np.ascontiguousarray(arr).tobytes()) != want:
+            raise ValueError(f"checkpoint integrity failure at leaf {p!r} ({entry['file']}): "
+                             "crc32 differs from the manifest")
+        try:
+            out.append(_from_numpy(arr, entry["dtype"], leaf))
+        except ValueError as e:
+            raise ValueError(f"{p}: {e}") from None
+    return tree.unflatten(like, out)
+
+
+def checkpoint_meta(path: str) -> Dict:
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)["meta"]
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, *, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+        self._inflight: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._gc_orphans()
+
+    def _step_path(self, step: int) -> str:
+        return os.path.join(self.dir, f"step_{step:08d}")
+
+    def steps(self) -> List[int]:
+        out = []
+        for name in os.listdir(self.dir):
+            if name.startswith("step_") and ".tmp" not in name:
+                if os.path.exists(os.path.join(self.dir, name, "manifest.json")):
+                    out.append(int(name.split("_")[1]))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def _gc_orphans(self) -> None:
+        for name in os.listdir(self.dir):
+            if ".tmp-" in name:
+                shutil.rmtree(os.path.join(self.dir, name), ignore_errors=True)
+
+    def save(self, step: int, state: Any, *, meta: Optional[Dict] = None,
+             blocking: bool = True) -> None:
+        self.wait()  # back-pressure: one in-flight save at most
+        meta = dict(meta or {}, step=step)
+        snap, dips = _snapshot(state), _dip_index(state)  # copy now: params change in place
+
+        def work():
+            try:
+                _write(self._step_path(step), snap, dips, meta)
+                self._retain()
+            except BaseException as e:  # surfaced by wait()
+                self._error = e
+
+        if blocking:
+            work()
+            self.wait()
+        else:
+            self._inflight = threading.Thread(target=work, daemon=True)
+            self._inflight.start()
+
+    def wait(self) -> None:
+        if self._inflight is not None:
+            self._inflight.join()
+            self._inflight = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("checkpoint save failed") from err
+
+    def _retain(self) -> None:
+        steps = self.steps()
+        for s in steps[: -self.keep] if self.keep else []:
+            shutil.rmtree(self._step_path(s), ignore_errors=True)
+
+    def restore(self, like: Any, *, step: Optional[int] = None):
+        """``(tree, meta)`` of ``step`` (default: the latest), or
+        ``(None, None)`` when there is none."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        path = self._step_path(step)
+        return restore_pytree(path, like), checkpoint_meta(path)

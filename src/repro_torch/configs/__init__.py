@@ -1,7 +1,7 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
 Only ``llama3-8b`` is ported; the other nine configurations come with their
-families (ROADMAP.md Queue 1 item 10).
+families (ROADMAP.md Queue 1 "Other model families").
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ def get_config(name: str) -> ArchConfig:
     if mod_name not in ALL_ARCHS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ported: {ALL_ARCHS}; "
-            "the other families come with ROADMAP.md Queue 1 item 10)"
+            'the other families come with ROADMAP.md Queue 1 "Other model families")'
         )
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 

@@ -119,7 +119,7 @@ class ArchConfig:
         if self.quantization == "none":
             return None
         raise NotImplementedError(
-            "quantized backends are not ported yet (ROADMAP.md Queue 1 item 9)"
+            'quantized backends are not ported yet (ROADMAP.md Queue 1 "Quantization")'
         )
 
     @property

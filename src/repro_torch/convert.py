@@ -8,6 +8,10 @@ included) or DiP-stored weights: any object with ``data`` (numpy storage,
 kept permutated), ``d_in``, ``d_out`` and ``perm_tile`` — the reference's
 ``DipWeight`` is read by those attributes, so nothing of the reference is
 imported.
+
+``opt_state_from_jax(np_opt_state, device)`` converts the reference's AdamW
+state the same way (moments leaf by leaf, ``count`` as an int), so that one
+optimizer step can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch
 from repro_torch.api import DipWeight
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_jax", "tensor_from_numpy"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -32,19 +36,29 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _convert(v, dev):
+    if isinstance(v, dict):
+        return {k: _convert(x, dev) for k, x in v.items()}
+    if all(hasattr(v, a) for a in ("data", "d_in", "d_out", "perm_tile")):
+        return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile)
+    return tensor_from_numpy(v, dev)
+
+
 def params_from_jax(np_params: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
     """Convert a (nested) reference parameter dict for ``cfg`` to the port's
     layout on ``device`` (default ``"cuda"``)."""
-    dev = resolve_device(device)
-
-    def conv(v):
-        if isinstance(v, dict):
-            return {k: conv(x) for k, x in v.items()}
-        if all(hasattr(v, a) for a in ("data", "d_in", "d_out", "perm_tile")):
-            return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile)
-        return tensor_from_numpy(v, dev)
-
-    params = conv(np_params)
+    params = _convert(np_params, resolve_device(device))
     if cfg.uses_dip_storage != isinstance(params.get("lm_head"), DipWeight):
         raise ValueError(f"parameter storage does not match cfg.uses_dip_storage={cfg.uses_dip_storage}")
     return params
+
+
+def opt_state_from_jax(np_opt_state: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The reference's AdamW state (``mu``, ``nu``, ``count``, ``grad_norm``
+    as numpy) as the port's ``AdamW`` state on ``device``."""
+    dev = resolve_device(device)
+    if "transform" in np_opt_state:
+        raise NotImplementedError('gradient transforms are not ported yet (ROADMAP.md Queue 1 "Distributed")')
+    return {"mu": _convert(np_opt_state["mu"], dev), "nu": _convert(np_opt_state["nu"], dev),
+            "count": int(np_opt_state["count"]),
+            "grad_norm": tensor_from_numpy(np.asarray(np_opt_state["grad_norm"], np.float32), dev)}

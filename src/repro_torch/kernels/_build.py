@@ -12,6 +12,10 @@ an unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them; :func:`load` calls it for a library
 missing at first use.  ``nvcc``'s output (registers, shared memory, spills) is kept
 beside each library as ``lib<name>-<hash>.log``.
+
+:func:`refuse_grad` is the wrappers' shared guard: a ctypes launch returns
+tensors with no ``grad_fn``, so a wrapper called where autograd would need
+one raises instead of silently cutting the gradient.
 """
 
 from __future__ import annotations
@@ -26,11 +30,13 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["SOURCES", "build", "load", "library_path", "nvcc_path"]
+import torch
+
+__all__ = ["SOURCES", "build", "load", "library_path", "nvcc_path", "refuse_grad"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("dip_matmul", "flash_attention")
+SOURCES = ("dip_matmul", "flash_attention", "lm_head_ce")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -89,3 +95,13 @@ def load(name: str) -> ctypes.CDLL:
             build((name,))
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a launch of
+    ``kernel``: grad mode is on and an input requires grad."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward here; call it under torch.no_grad() "
+            "or through the autograd path that owns it"
+        )

@@ -129,6 +129,9 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
     if x.device.type != "cuda":
         raise ValueError(f"dip_matmul runs on cuda or cpu tensors, got {x.device}")
     _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
+    # gradients go through the registry's autograd function, which launches
+    # this kernel with grad mode off
+    _build.refuse_grad("dip_matmul", x, p, *epilogue_operands, *prologue_operands)
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"dip_matmul kernel takes float32 or bfloat16, got {x.dtype}")
     dev, dt = x.device, x.dtype

@@ -13,7 +13,9 @@ CUDA cores and does nothing about that yet.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and runs
 :func:`attention_plain` — the dense form with the same masking — for CPU
-tensors.  ``flash_attention.launches`` counts kernel launches.
+tensors.  ``flash_attention.launches`` counts kernel launches.  The kernel
+has no backward (the reference's Pallas call has no jvp rule either): for
+inputs that require grad, with grad mode on, the CUDA path raises.
 
 Layout (flat): q (BH, Sq, D), k (BH, Sk, D), v (BH, Sk, Dv) -> (BH, Sq, Dv)
 in q's dtype; ``q_offset`` / ``kv_len`` are None, an int, or a (BH,) or
@@ -102,6 +104,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offs
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
     _check(q, k, v)
+    _build.refuse_grad("flash_attention", q, k, v)  # forward-only, as the reference's Pallas call
     bh, sq, d = q.shape
     sk, dv = v.shape[1], v.shape[2]
     if q.dtype not in _DTYPE_CODES:

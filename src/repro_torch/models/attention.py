@@ -2,12 +2,14 @@
 paged decode (port of the dense-family parts of ``repro/models/attention.py``).
 
 ``attention_core`` keeps the reference's GQA broadcast (KV heads expanded to
-the query heads) and its two routes: the dense f32 path, and the
-``api.attention`` route (``backend="flash"``) that serving prefill takes.
-The paged functions are plain torch, as they are plain ``jnp`` in the
-reference; they update the block pool in place.  MLA and int8 KV come with
-their families (ROADMAP.md Queue 1 items 9 and 10), and the KV-chunked
-online-softmax path with the training slice (Queue 1 item 5).
+the query heads) and its three routes: the dense f32 path (the training
+forward's), the KV-chunked online-softmax path (``kv_chunk > 0``, exact
+against the dense one), and the ``api.attention`` route
+(``backend="flash"``) that serving prefill takes; the flash kernel is
+forward-only.  The paged functions are plain torch, as they are plain
+``jnp`` in the reference; they update the block pool in place.  MLA and int8
+KV come with their families (ROADMAP.md Queue 1 "Other model families" and
+"Quantization").
 """
 
 from __future__ import annotations
@@ -49,11 +51,13 @@ def _expand_kv(t: torch.Tensor, groups: int) -> torch.Tensor:
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: torch.Tensor,
                    k_pos: torch.Tensor, *, kv_valid_len: Union[int, torch.Tensor, None] = None,
-                   backend: Optional[str] = None) -> torch.Tensor:
+                   kv_chunk: int = 0, backend: Optional[str] = None) -> torch.Tensor:
     """Scaled-dot-product GQA attention: q (B, Sq, H, D), k (B, Sk, KV, D),
     v (B, Sk, KV, Dv) -> (B, Sq, H, Dv).  ``backend`` routes through
     ``api.attention`` (contiguous positions: the query block sits at key
-    offset ``q_pos[0] - k_pos[0]``); None takes the dense path."""
+    offset ``q_pos[0] - k_pos[0]``) and subsumes ``kv_chunk``; None takes
+    the dense path, or with ``kv_chunk > 0`` (dividing Sk) streams KV in
+    chunks with an online softmax: O(Sq * chunk) live scores, exact."""
     b, sq, h, d = q.shape
     _, sk, kv, dv = v.shape
     q = (q * d ** -0.5).to(q.dtype)
@@ -69,13 +73,34 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: tor
                             scale=1.0)  # q pre-scaled above
         return out.reshape(b, h, sq, dv).transpose(1, 2).to(v.dtype)
 
-    scores = torch.einsum("bqhd,bshd->bhqs", q.float(), k.float())
-    scores = scores + _causal_mask(q_pos, k_pos)[None, None]
-    if kv_valid_len is not None:
-        live = (k_pos < kv_valid_len)[None, None, None, :]
-        scores = torch.where(live, scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+    def masked_scores(kc, kpc):
+        s = torch.einsum("bqhd,bshd->bhqs", q.float(), kc.float())
+        s = s + _causal_mask(q_pos, kpc)[None, None]
+        if kv_valid_len is not None:
+            live = (kpc < kv_valid_len)[None, None, None, :]
+            s = torch.where(live, s, torch.full_like(s, NEG_INF))
+        return s
+
+    if kv_chunk <= 0 or sk <= kv_chunk:
+        probs = torch.softmax(masked_scores(k, k_pos), dim=-1)
+        return torch.einsum("bhqs,bshd->bqhd", probs.to(v.dtype), v)
+
+    # online softmax over KV chunks (the flash-attention recurrence)
+    if sk % kv_chunk:
+        raise ValueError(f"kv_chunk={kv_chunk} must divide Sk={sk}: pad KV to a chunk multiple")
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, dv), dtype=torch.float32, device=q.device)
+    for c0 in range(0, sk, kv_chunk):
+        s = masked_scores(k[:, c0:c0 + kv_chunk], k_pos[c0:c0 + kv_chunk])
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqs,bshd->bhqd", p, v[:, c0:c0 + kv_chunk].float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.transpose(1, 2).to(v.dtype)
 
 
 def init_gqa_cache(batch: int, kv_heads: int, max_seq: int, head_dim: int, dtype,
@@ -103,6 +128,7 @@ def _out_proj(out, p, lk, residual):
 def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
                   cache: Optional[Dict] = None, rope=None,
                   residual: Optional[torch.Tensor] = None, norm: Optional[torch.Tensor] = None,
+                  kv_chunk: int = 0,
                   attn_backend: Optional[str] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Projections + RoPE + cache update + attention + out projection.
 
@@ -121,7 +147,7 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
     k = layers.apply_rope(k, positions, cfg.rope_theta, tables=rope)
 
     if cache is None:
-        out = attention_core(q, k, v, positions, positions, backend=attn_backend)
+        out = attention_core(q, k, v, positions, positions, kv_chunk=kv_chunk, backend=attn_backend)
         new_cache = None
     else:
         pos = cache["pos"]
@@ -130,7 +156,7 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
         cv[:, pos:pos + s] = v
         k_pos = torch.arange(ck.shape[1], device=x.device)
         out = attention_core(q, ck, cv, positions, k_pos, kv_valid_len=pos + s,
-                             backend=attn_backend)
+                             kv_chunk=kv_chunk, backend=attn_backend)
         new_cache = {"k": ck, "v": cv, "pos": pos + s}
     return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), new_cache
 
@@ -145,7 +171,7 @@ def init_paged_gqa_cache(num_blocks: int, block_size: int, kv_heads: int, head_d
                          dtype, kv_quant: str = "none", *, device) -> Dict:
     """GQA block pool: k/v (num_blocks, block_size, kv_heads, head_dim)."""
     if kv_quant != "none":
-        raise NotImplementedError("int8 KV pools come with quantization (ROADMAP.md Queue 1 item 9)")
+        raise NotImplementedError('int8 KV pools come with quantization (ROADMAP.md Queue 1 "Quantization")')
     shape = (num_blocks, block_size, kv_heads, head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -184,7 +210,7 @@ def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tenso
     place), gathers the slot's context and attends to positions <= its own.
     Free slots point at the null block; their rows are ignored."""
     if kv_quant != "none":
-        raise NotImplementedError("int8 KV pools come with quantization (ROADMAP.md Queue 1 item 9)")
+        raise NotImplementedError('int8 KV pools come with quantization (ROADMAP.md Queue 1 "Quantization")')
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     bs = cache["k"].shape[1]

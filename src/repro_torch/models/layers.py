@@ -3,8 +3,9 @@
 
 ``linear`` is where the paper's technique enters the model: every dense
 projection goes through ``api.matmul`` with the configured backend, and a
-``DipWeight`` carries its own logical width.  ``cross_entropy_loss`` belongs
-to the training slice and is not ported yet.
+``DipWeight`` carries its own logical width.  ``cross_entropy_loss`` is the
+unfused loss over materialized logits; ``kernels/lm_head_ce.py`` keeps its
+masking contract without them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import torch
 
 from repro_torch import api
 
-__all__ = ["linear", "rms_norm", "rope_frequencies", "rope_tables", "apply_rope"]
+__all__ = ["linear", "rms_norm", "rope_frequencies", "rope_tables", "apply_rope",
+           "cross_entropy_loss"]
 
 _BIAS_EPILOGUES = ("bias", "bias_gelu", "bias_silu")
 
@@ -74,3 +76,24 @@ def apply_rope(x: torch.Tensor, positions: Optional[torch.Tensor], theta: float,
     cos, sin = tables
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *, z_loss: float = 1e-4,
+                       mask: Optional[torch.Tensor] = None, ignore_index: int = -100) -> torch.Tensor:
+    """Valid-token-mean cross entropy with the z-loss stabilizer, in f32.
+    Tokens whose label is ``ignore_index`` and tokens zeroed by ``mask``
+    count neither in the mean nor in the gradient; the divisor is the number
+    of valid tokens."""
+    logits = logits.float()
+    labels = labels.long()
+    valid = labels != ignore_index
+    if mask is not None:
+        valid = valid & (mask != 0)
+    safe = torch.where(valid, labels, 0)  # ignore_index would be a bad gather
+    logz = torch.logsumexp(logits, dim=-1)
+    label_logits = torch.gather(logits, -1, safe[..., None])[..., 0]
+    loss = logz - label_logits
+    if z_loss:
+        loss = loss + z_loss * torch.square(logz)
+    loss = torch.where(valid, loss, 0.0)
+    return loss.sum() / torch.clamp(valid.float().sum(), min=1.0)

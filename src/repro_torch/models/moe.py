@@ -1,7 +1,7 @@
 """The dense SwiGLU MLP (port of ``repro/models/moe.py::dense_ffn``).
 
 The routed Mixture-of-Experts layer comes with the MoE family (ROADMAP.md
-Queue 1 item 10).
+Queue 1 "Other model families").
 """
 
 from __future__ import annotations

@@ -1,23 +1,32 @@
-"""The dense decoder: parameters, forward, caches and the serving steps
-(port of the dense-family parts of ``repro/models/transformer.py``).
+"""The dense decoder: parameters, forward, caches, the serving steps and the
+training objective (port of the dense-family parts of
+``repro/models/transformer.py``).
 
 Parameters are a nested dict with layer-stacked leaves (leading axis =
 n_layers), as in the reference; a Python loop over the layers takes the
-place of ``jax.lax.scan``.  Linear weights are ``api.DipWeight`` storage
-when the configured backend consumes the DiP layout.  The MoE, MLA, SSM and
-hybrid families, tied embeddings, quantization and sharding plans come with
-their ROADMAP.md items and raise ``NotImplementedError`` here.
+place of ``jax.lax.scan``, and ``cfg.remat == "block"`` wraps each block in
+``torch.utils.checkpoint`` as the reference wraps it in ``jax.checkpoint``.
+Linear weights are ``api.DipWeight`` storage when the configured backend
+consumes the DiP layout.  ``loss_fn`` takes the fused lm_head +
+cross-entropy kernel (``kernels/lm_head_ce.py``) unless told otherwise, and
+``train_step_fn`` applies one AdamW step in place.  The MoE, MLA, SSM and
+hybrid families, tied embeddings, quantization, sharding plans and the
+reliability guard come with their ROADMAP.md items and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch import api
+from repro_torch import api, tree
 from repro_torch.core import permute
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.kernels import lm_head_ce
 from repro_torch.models import attention, layers, moe
 
 __all__ = [
@@ -28,22 +37,32 @@ __all__ = [
     "init_paged_cache",
     "decode_step_fn",
     "paged_decode_step_fn",
+    "loss_fn",
+    "train_step_fn",
 ]
+
+_FAMILIES = 'ROADMAP.md Queue 1 "Other model families"'
+_DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
 
 
 def _require_dense(cfg) -> None:
     """Raise for every configuration this slice does not serve."""
     missing = []
     if cfg.is_moe or cfg.use_mla or cfg.ssm_state or cfg.attn_every or cfg.family not in ("dense",):
-        missing.append(f"the {cfg.family} family (ROADMAP.md Queue 1 item 10)")
+        missing.append(f"the {cfg.family} family ({_FAMILIES})")
     if cfg.tie_embeddings or cfg.frontend != "none":
-        missing.append("tied embeddings / stub frontends (ROADMAP.md Queue 1 item 10)")
+        missing.append(f"tied embeddings / stub frontends ({_FAMILIES})")
     if cfg.quantization != "none" or cfg.kv_quant != "none":
-        missing.append("quantized weights or KV (ROADMAP.md Queue 1 item 9)")
+        missing.append('quantized weights or KV (ROADMAP.md Queue 1 "Quantization")')
     if cfg.sharding != "gspmd":
-        missing.append("sharding plans (ROADMAP.md Queue 1 item 12)")
+        missing.append(f"sharding plans ({_DISTRIBUTED})")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
+
+
+def _no_plan(plan, constrain) -> None:
+    if plan is not None or constrain is not None:
+        raise NotImplementedError(f"sharding plans and constrain hooks are not ported yet ({_DISTRIBUTED})")
 
 
 # ------------------------------------------------------------ param layout --
@@ -119,9 +138,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
     return build(param_template(cfg))
 
 
-def _layer(layer_params: Dict[str, Any], i: int) -> Dict[str, Any]:
-    return {k: (v.with_data(v.data[i]) if isinstance(v, api.DipWeight) else v[i])
+def _layers(layer_params: Dict[str, Any], n_layers: int) -> List[Dict[str, Any]]:
+    """The per-layer views of the layer-stacked leaves (one ``unbind`` per
+    leaf, so a backward stacks the layers' gradients once)."""
+    cols = {k: (v.data if isinstance(v, api.DipWeight) else v).unbind(0)
             for k, v in layer_params.items()}
+    return [{k: (v.with_data(cols[k][i]) if isinstance(v, api.DipWeight) else cols[k][i])
+             for k, v in layer_params.items()} for i in range(n_layers)]
 
 
 # ---------------------------------------------------------------- forward ---
@@ -131,13 +154,13 @@ def _fuses_rmsnorm(cfg) -> bool:
     return "rmsnorm" in api.get_backend(cfg.matmul_backend).prologues
 
 
-def _transformer_block(x, lp, cfg, *, positions, rope, cache, attn_backend=None):
+def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_backend=None):
     fuse = _fuses_rmsnorm(cfg)
     attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
         layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
     x, new_cache = attention.gqa_attention(
         attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
-        norm=attn_g, attn_backend=attn_backend,
+        norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend,
     )
     ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
         layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
@@ -145,38 +168,51 @@ def _transformer_block(x, lp, cfg, *, positions, rope, cache, attn_backend=None)
 
 
 def _head(params, cfg, x):
-    """Final norm, the lm_head through ``linear``, padded-vocab lanes masked."""
+    """The lm_head through ``linear`` on final-normed x, padded-vocab lanes
+    masked to -1e30."""
     cd = dtype_of(cfg.compute_dtype)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend,
                            compute_dtype=cd).float()
     if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+        lane = torch.arange(logits.shape[-1], device=logits.device)
+        logits = logits.masked_fill(lane >= cfg.vocab_size, -1e30)
     return logits
 
 
 def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optional[Dict] = None,
-            attn_backend: Optional[str] = None):
+            kv_chunk: int = 0, return_hidden: bool = False, attn_backend: Optional[str] = None):
     """Returns ``(logits, new_cache)`` for tokens (B, S).
 
     ``cache`` (``init_cache``) is updated in place at ``cache["pos"]`` and
     returned with ``pos`` advanced by S.  ``attn_backend="flash"`` routes
-    attention through the CUDA kernel (serving prefill; forward only).
+    attention through the CUDA kernel (serving prefill; forward only);
+    ``kv_chunk > 0`` takes the KV-chunked online-softmax attention.
+    ``return_hidden=True`` skips the lm_head and returns the final-normed
+    hidden states (B, S, d) in the compute dtype, for the fused loss.  With
+    ``cfg.remat == "block"``, no cache and grad mode on, each block runs
+    under ``torch.utils.checkpoint`` and its forward runs again in the
+    backward.
     """
     _require_dense(cfg)
     cd = dtype_of(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cd)
+    x = F.embedding(tokens, params["embed"]).to(cd)
     b, s = x.shape[:2]
     start = cache["pos"] if cache is not None else 0
     positions = torch.arange(start, start + s, device=x.device)
     rope = layers.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    for i in range(cfg.n_layers):
+    remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         lcache = None if cache is None else {
             "k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i], "pos": start}
-        x, _ = _transformer_block(x, _layer(params["layers"], i), cfg, positions=positions,
-                                  rope=rope, cache=lcache, attn_backend=attn_backend)
+
+        def block(x, lp=lp, lcache=lcache):
+            return _transformer_block(x, lp, cfg, positions=positions, rope=rope, cache=lcache,
+                                      kv_chunk=kv_chunk, attn_backend=attn_backend)[0]
+
+        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
     new_cache = None if cache is None else dict(cache, pos=start + s)
-    return _head(params, cfg, x), new_cache
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x if return_hidden else _head(params, cfg, x)), new_cache
 
 
 # ------------------------------------------------------------------ caches --
@@ -226,8 +262,7 @@ def paged_decode_step_fn(cfg):
         rope = layers.rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
         fuse = _fuses_rmsnorm(cfg)
         pools = cache["layers"]
-        for i in range(cfg.n_layers):
-            lp = _layer(params["layers"], i)
+        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
             attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
                 layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
             x, _ = attention.paged_gqa_attention(
@@ -238,6 +273,90 @@ def paged_decode_step_fn(cfg):
             ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
                 layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
             x = moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g)
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head(params, cfg, x), cache
+
+    return step
+
+
+# ------------------------------------------------------------- objectives ---
+def _natural_head(params, cfg) -> torch.Tensor:
+    """The lm_head as a natural (d_model, padded_vocab) tensor in the
+    parameter dtype, for the fused loss (a ``DipWeight`` is de-sheared, so a
+    gradient reaches its permutated storage)."""
+    if cfg.tie_embeddings:
+        raise NotImplementedError(f"tied embeddings are not ported yet ({_FAMILIES})")
+    head = params["lm_head"]
+    return head.to_natural() if isinstance(head, api.DipWeight) else head
+
+
+def loss_fn(params, cfg, batch, *, kv_chunk: int = 0, fused_ce: Optional[bool] = None,
+            plan=None, constrain=None) -> torch.Tensor:
+    """Next-token cross entropy.  ``batch["loss_mask"]`` (optional, (B, S),
+    nonzero = train on this position) and the -100 ``ignore_index`` in
+    ``labels`` both exclude tokens from the mean and the gradient.
+
+    ``fused_ce=None`` selects the fused lm_head + cross-entropy kernel, as
+    the reference does when no sharding plan or constrain hook needs the
+    logits (neither is ported): the (B, S, V) logits are then never formed.
+    ``False`` forces the unfused path through the lm_head projection."""
+    _no_plan(plan, constrain)
+    mask = batch.get("loss_mask")
+    shift_mask = None if mask is None else mask[:, 1:]
+    if fused_ce is None or fused_ce:
+        hidden, _ = forward(params, cfg, tokens=batch["tokens"], kv_chunk=kv_chunk,
+                            return_hidden=True)
+        return lm_head_ce.fused_cross_entropy_loss(
+            hidden[:, :-1], _natural_head(params, cfg), batch["labels"][:, 1:], mask=shift_mask,
+            vocab_size=cfg.vocab_size)
+    logits, _ = forward(params, cfg, tokens=batch["tokens"], kv_chunk=kv_chunk)
+    return layers.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:], mask=shift_mask)
+
+
+def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
+                  fused_ce: Optional[bool] = None, guard: bool = False, plan=None,
+                  constrain=None):
+    """Returns ``step(state, batch) -> (state, metrics)`` for ``state =
+    {"params", "opt_state", "step"}`` and a batch of (B, S) ``tokens`` /
+    ``labels`` tensors on the parameters' device.
+
+    The gradients are taken with ``torch.autograd.grad`` over every
+    parameter leaf (a ``DipWeight``'s permutated ``data``); the optimizer
+    then updates the parameters and its moments IN PLACE, so the returned
+    state holds the same tensors.  ``microbatch > 1`` splits the batch into
+    that many slices, sums their losses and gradients and scales both by
+    1/microbatch, as the reference's scan does.  Metrics: ``loss``,
+    ``grad_norm`` (pre-clip) and ``step``, as 0-d tensors / int."""
+    if guard:
+        raise NotImplementedError(
+            'the reliability guard is not ported yet (ROADMAP.md Queue 1 "Reliability")')
+    _no_plan(plan, constrain)
+
+    def grad_of(leaves, params, batch):
+        loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def step(state, batch):
+        params = state["params"]
+        leaves = tree.leaves(params)
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        if microbatch <= 1:
+            loss, flat = grad_of(leaves, params, batch)
+        else:
+            loss, flat = 0.0, None
+            for i in range(microbatch):
+                part = {k: v.chunk(microbatch)[i] for k, v in batch.items()}
+                loss_i, g_i = grad_of(leaves, params, part)
+                loss = loss + loss_i
+                flat = [g.float() for g in g_i] if flat is None else [a + g for a, g in zip(flat, g_i)]
+            inv = 1.0 / microbatch
+            loss = loss * inv
+            flat = [g * inv for g in flat]
+        grads = tree.unflatten(params, flat)
+        params, opt_state = optimizer.update(grads, state["opt_state"], params)
+        new_state = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
+        return new_state, {"loss": loss, "grad_norm": optimizer.last_grad_norm(opt_state),
+                           "step": new_state["step"]}
 
     return step

@@ -1,0 +1,99 @@
+"""AdamW with global-norm clipping (port of ``repro/optim/adamw.py``).
+
+The state mirrors the parameter tree leaf for leaf, in f32: a ``DipWeight``
+leaf's moments stay in its permutated layout, which is exact because the
+update is elementwise.  Unlike the reference, :meth:`AdamW.update` works IN
+PLACE — it writes the new parameters into ``params`` and the new moments
+into ``state["mu"]`` / ``state["nu"]`` — so a full-width step holds one copy
+of each, and returns ``(params, state)``::
+
+    opt = AdamW(lr=...)
+    state = opt.init(params)
+    params, state = opt.update(grads, state, params)
+    opt.last_grad_norm(state) -> 0-d f32 tensor (pre-clip global norm)
+
+The arithmetic follows the reference step by step (f32 moments, bias
+corrections from ``b ** count`` in f32, decay on leaves with ndim >= 2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch import tree
+
+__all__ = ["AdamW", "clip_by_global_norm"]
+
+Schedule = Union[float, Callable[[int], float]]
+
+
+def _global_norm(leaves) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """``(grads * min(1, max_norm / norm), norm)`` with ``norm`` the f32
+    global norm; the scaled leaves are new tensors."""
+    flat = tree.leaves(grads)
+    norm = _global_norm(flat)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree.unflatten(grads, [(g * scale).to(g.dtype) for g in flat]), norm
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Schedule = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    grad_transform: Optional[Any] = None
+
+    def __post_init__(self):
+        if self.grad_transform is not None:
+            raise NotImplementedError(
+                'gradient transforms (compression) are not ported yet (ROADMAP.md Queue 1 "Distributed")')
+
+    def init(self, params) -> Dict[str, Any]:
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+        first = tree.leaves(params)[0]
+        return {
+            "mu": tree.map_tree(zeros, params),
+            "nu": tree.map_tree(zeros, params),
+            "count": 0,
+            "grad_norm": torch.zeros((), dtype=torch.float32, device=first.device),
+        }
+
+    def _lr_at(self, count: int) -> float:
+        return float(self.lr(count)) if callable(self.lr) else float(np.float32(self.lr))
+
+    @torch.no_grad()
+    def update(self, grads, state: Dict[str, Any], params):
+        """One step, in place on ``params``, ``state["mu"]`` and ``state["nu"]``."""
+        grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+        count = int(state["count"]) + 1
+        f32 = np.float32
+        b1c = float(f32(1.0) - f32(self.b1) ** f32(count))
+        b2c = float(f32(1.0) - f32(self.b2) ** f32(count))
+        lr = self._lr_at(count)
+        for g, mu, nu, p in zip(tree.leaves(grads), tree.leaves(state["mu"]),
+                                tree.leaves(state["nu"]), tree.leaves(params)):
+            g32 = g.float()
+            mu.mul_(self.b1).add_(g32 * (1 - self.b1))
+            nu.mul_(self.b2).add_(torch.square(g32) * (1 - self.b2))
+            step = (mu / b1c) / (torch.sqrt(nu / b2c) + self.eps)
+            if self.weight_decay and p.dim() >= 2:  # decay matrices only
+                step = step + self.weight_decay * p.float()
+            p.add_((-lr * step).to(p.dtype))
+        state["count"] = count
+        state["grad_norm"] = gnorm
+        return params, state
+
+    @staticmethod
+    def last_grad_norm(state) -> torch.Tensor:
+        return state["grad_norm"]

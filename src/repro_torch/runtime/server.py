@@ -4,7 +4,7 @@
 ``Server`` keeps the reference's surface — ``ServerConfig`` / ``Request`` /
 ``serve()`` / ``last_stats`` — over :class:`repro_torch.serving.Engine`.
 The static-batch ``WaveServer`` baseline comes with the benchmarks
-(ROADMAP.md Queue 1 item 13).
+(ROADMAP.md Queue 1 "Tooling").
 """
 
 from __future__ import annotations

@@ -1,0 +1,144 @@
+"""The training loop (port of ``repro/runtime/trainer.py``).
+
+* **Auto-resume** — on start the latest complete checkpoint (parameters,
+  optimizer state, step and the data cursor) is restored and the run
+  continues from it; the same data step gives the same batch, so a resumed
+  run repeats the uninterrupted one.
+* **Async checkpoints** — the host copy is taken at once, the files are
+  written on a background thread while the next steps run.
+* **Failure injection** — ``fail_at_step`` raises inside the loop, to prove
+  the restart path.
+* **Straggler signal** — a per-step wall-time EWMA; steps slower than
+  ``straggler_factor`` times it are counted in the metrics.
+
+Per-step metrics: ``loss``, ``grad_norm``, ``step``, ``step_time_s`` (host
+clock around the step, which ends by reading the loss back, so the card's
+work is inside it) and ``stragglers``.  The run happens on ``device``
+(default ``"cuda"``; pass ``"cpu"`` for the plain versions of the kernels).
+
+Not ported yet: the reliability guard and its fault recovery (``guard``;
+ROADMAP.md Queue 1 "Reliability"), sharding plans, meshes and pipeline
+stages (Queue 1 "Distributed").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+import time
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch import api
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.data import DataState, SyntheticLM
+from repro_torch.device import make_generator, resolve_device
+from repro_torch.models import transformer as tf_model
+from repro_torch.optim import AdamW
+
+__all__ = ["Trainer", "TrainerConfig"]
+
+_DIST = 'ROADMAP.md Queue 1 "Distributed"'
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    ckpt_every: int = 25
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    keep: int = 2
+    log_every: int = 10
+    async_ckpt: bool = True
+    fail_at_step: Optional[int] = None     # failure injection (tests)
+    straggler_factor: float = 3.0
+    metrics_path: Optional[str] = None     # JSONL
+    guard: bool = False                    # not ported (Queue 1 "Reliability")
+    pipeline_microbatches: int = 0         # not ported (Queue 1 "Distributed")
+
+
+class Trainer:
+    def __init__(self, cfg, tcfg: TrainerConfig, *, optimizer: Optional[AdamW] = None,
+                 data: Optional[SyntheticLM] = None, mesh=None, plan=None, policy=None,
+                 seq_len: int = 512, global_batch: int = 8,
+                 step_hook: Optional[Callable[[int, Dict[str, Any]], Dict[str, Any]]] = None,
+                 device="cuda"):
+        if tcfg.guard:
+            raise NotImplementedError(
+                'the reliability guard is not ported yet (ROADMAP.md Queue 1 "Reliability")')
+        if mesh is not None or plan is not None or policy is not None or tcfg.pipeline_microbatches:
+            raise NotImplementedError(f"meshes, sharding plans and pipeline stages are not ported yet ({_DIST})")
+        api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
+        if cfg.quantization != "none":
+            # quantized storage is a frozen inference artifact: its payload
+            # has no usable cotangent, so training would freeze every projection
+            raise ValueError(f"cfg.quantization={cfg.quantization!r} is inference-only; "
+                             "train in float and quantize the checkpoint for serving")
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.device = resolve_device(device)
+        self.opt = optimizer or AdamW(lr=3e-4)
+        self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
+                                        global_batch=global_batch)
+        self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
+        self._step_fn = tf_model.train_step_fn(cfg, self.opt)
+        self.metrics_log: list = []
+        # called as state = step_hook(step_no, state) before each step
+        self._step_hook = step_hook
+
+    def init_state(self, seed: int = 0, params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Fresh parameters drawn from ``seed`` on the trainer's device (or
+        the given ``params``, e.g. weights converted from the reference),
+        zero moments, step 0."""
+        if params is None:
+            params = tf_model.init_params(self.cfg, make_generator(seed, self.device), self.device)
+        return {"params": params, "opt_state": self.opt.init(params), "step": 0}
+
+    def run(self, seed: int = 0, params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Train to ``tcfg.steps``; returns ``{"state", "wall_s", "metrics"}``."""
+        state = self.init_state(seed, params)
+        data_state = DataState(step=0)
+        restored, meta = self.ckpt.restore(state)
+        if restored is not None:
+            state = restored
+            data_state = DataState.from_dict(meta["data"])
+            print(f"[trainer] resumed from step {meta['step']}")
+
+        self.data.start(data_state)
+        it = iter(self.data)
+        ewma = None
+        stragglers = 0
+        t_loop = time.monotonic()
+        try:
+            while state["step"] < self.tcfg.steps:
+                step_no, host_batch = next(it)
+                batch = {k: torch.as_tensor(v).to(self.device) for k, v in host_batch.items()}
+                if self.tcfg.fail_at_step is not None and step_no == self.tcfg.fail_at_step:
+                    raise RuntimeError(f"injected failure at step {step_no}")
+                if self._step_hook is not None:
+                    state = self._step_hook(step_no, state)
+                t0 = time.monotonic()
+                state, metrics = self._step_fn(state, batch)
+                metrics = {k: float(v) for k, v in metrics.items()}  # reads back: the step is done
+                dt = time.monotonic() - t0
+                ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
+                if dt > self.tcfg.straggler_factor * ewma and step_no > 3:
+                    stragglers += 1
+                metrics.update(step_time_s=dt, stragglers=stragglers)
+                self.metrics_log.append(metrics)
+                if self.tcfg.metrics_path:
+                    with open(self.tcfg.metrics_path, "a") as f:
+                        f.write(json.dumps(metrics) + "\n")
+                step = int(metrics["step"])
+                if step % self.tcfg.log_every == 0:
+                    print(f"[trainer] step {step} loss {metrics['loss']:.4f} ({dt * 1e3:.0f} ms)")
+                if step % self.tcfg.ckpt_every == 0:
+                    self.ckpt.save(step, state, meta={"data": DataState(step=step_no + 1).to_dict()},
+                                   blocking=not self.tcfg.async_ckpt)
+        finally:
+            self.data.stop()
+            self.ckpt.wait()
+        return {"state": state, "wall_s": time.monotonic() - t_loop, "metrics": self.metrics_log}
+

@@ -19,7 +19,7 @@ batch-mates.  Under memory pressure the scheduler's LIFO victim is evicted
 and re-queued with its generated tokens (re-prefilled on re-admission).
 
 The reliability ladder of the reference (``verify`` screening, retries, the
-degraded ``xla`` step, request TTLs) comes with ROADMAP.md Queue 1 item 11;
+degraded ``xla`` step, request TTLs) comes with ROADMAP.md Queue 1 "Reliability";
 asking for it raises ``NotImplementedError``.
 """
 
@@ -71,7 +71,7 @@ class Engine:
         if ecfg.verify or ecfg.ttl_s is not None:
             raise NotImplementedError(
                 "the serving reliability ladder (verify, retries, degraded step, TTL) "
-                "is not ported yet (ROADMAP.md Queue 1 item 11)"
+                'is not ported yet (ROADMAP.md Queue 1 "Reliability")'
             )
         api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
         if params["embed"].device.type != self.device.type:

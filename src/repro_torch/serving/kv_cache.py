@@ -10,9 +10,9 @@ tables point at it, so their ignored decode writes land somewhere harmless,
 and the allocator hands out blocks ``1..num_blocks-1``.
 
 Storage is the compute dtype (bf16 or f32).  The int8 pools and the
-capacity helpers come with quantization (ROADMAP.md Queue 1 item 9); the
-allocator's fault-injection points come with the reliability layer
-(Queue 1 item 11).
+capacity helpers come with quantization (ROADMAP.md Queue 1 "Quantization");
+the allocator's fault-injection points come with the reliability layer
+(Queue 1 "Reliability").
 """
 
 from __future__ import annotations
@@ -130,7 +130,7 @@ def make_import_fn(block_size: int, kv_quant: str = "none"):
     are computed on the host from the host block table, and the pools are
     written in place."""
     if kv_quant != "none":
-        raise NotImplementedError("int8 KV pools come with quantization (ROADMAP.md Queue 1 item 9)")
+        raise NotImplementedError('int8 KV pools come with quantization (ROADMAP.md Queue 1 "Quantization")')
     bs = block_size
 
     def imp(pool_layers: Dict[str, torch.Tensor], prefill_layers: Dict[str, torch.Tensor],

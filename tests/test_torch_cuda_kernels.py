@@ -24,7 +24,9 @@ from repro_torch.device import make_generator
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
 from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.kernels import lm_head_ce as ce
 from repro_torch.models import transformer as tf_model
+from repro_torch.optim import AdamW
 
 pytestmark = pytest.mark.cuda
 
@@ -144,6 +146,100 @@ def test_reduced_model_card_matches_cpu(dev):
     want, _ = tf_model.forward(params, cfg, tokens=tokens)
     got, _ = tf_model.forward(on_card, cfg, tokens=tokens.to(dev), attn_backend="flash")
     _close(got.cpu(), want, torch.float32)
+
+
+LM_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+            (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("pair", LM_PAIRS, ids=["f32xf32", "bf16xf32", "bf16xbf16"])
+@pytest.mark.parametrize("t", [37, 300])
+def test_lm_head_ce_kernel_matches_plain(dev, pair, t):
+    """Ragged T, vocab padding with whole padding-only splits, labels at
+    -100.  f32 1e-5 where W is f32 (IEEE FMAs on both sides), 8e-3 for
+    bf16 x bf16 (tensor-core accumulation), of max(1, max|plain|)."""
+    xd, wd = pair
+    g = torch.Generator(device=dev).manual_seed(t)
+    d, vp, vocab = 256, 2048, 1500
+    x = torch.randn(t, d, generator=g, device=dev).to(xd)
+    w = (torch.randn(d, vp, generator=g, device=dev) / d ** 0.5).to(wd)
+    labels = torch.randint(0, vocab, (t,), generator=g, device=dev, dtype=torch.int32)
+    labels[::7] = ce.IGNORE_INDEX
+    tiles, splits = ce.split_plan(t, vp, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (splits - 1) * tiles * ce.BLOCK_V >= vocab, "a split lies wholly in the padding"
+    before = ce.lm_head_ce.launches
+    with torch.no_grad():
+        got = ce.lm_head_ce(x, w, labels, vocab_size=vocab)
+    assert ce.lm_head_ce.launches == before + 1
+    want = ce.lm_head_ce_plain(x, w, labels, vocab_size=vocab)
+    torch.cuda.synchronize()
+    tol = torch.bfloat16 if wd == torch.bfloat16 else torch.float32
+    for a, b in zip(got, want):
+        _close(a, b, tol)
+    assert (got[1][labels == ce.IGNORE_INDEX] == 0).all()
+
+
+def test_fused_loss_gradients_card_match_cpu(dev):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(45, 128, generator=g)
+    w = torch.randn(128, 1024, generator=g) / 128 ** 0.5
+    labels = torch.randint(0, 700, (45,), generator=g, dtype=torch.int32)
+    out = {}
+    for where in ("cpu", "cuda"):
+        tx, tw = x.to(where).requires_grad_(), w.to(where).requires_grad_()
+        loss = ce.fused_cross_entropy_loss(tx, tw, labels.to(where), vocab_size=700)
+        out[where] = (loss,) + torch.autograd.grad(loss, (tx, tw))
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close(a.cpu(), b, torch.float32)
+
+
+@pytest.mark.parametrize("epilogue", ["swiglu", "residual", "bias_gelu"])
+def test_dip_dispatch_gradients_card_match_cpu(dev, epilogue):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 37, 100, generator=g)
+    ws = [api.DipWeight.from_natural(torch.randn(100, 70, generator=g) / 10) for _ in range(2)]
+    gain = torch.rand(100, generator=g) + 0.5
+    s = epi.spec(epilogue)
+    op = torch.randn(70, generator=g) if s.bias else torch.randn(2, 37, 70, generator=g)
+    out = {}
+    for where in ("cpu", "cuda"):
+        leaves = [t.to(where).requires_grad_() for t in (x, ws[0].data, ws[1].data, gain, op)]
+        wt = [w.with_data(d) for w, d in zip(ws, leaves[1:3])]
+        y = api.matmul(leaves[0], tuple(wt) if s.dual_weight else wt[0], backend="dip", epilogue=epilogue,
+                       epilogue_operands=() if s.dual_weight else (leaves[4],), prologue="rmsnorm",
+                       prologue_operands=(leaves[3],))
+        used = [t for i, t in enumerate(leaves) if not (i == 2 and not s.dual_weight)
+                and not (i == 4 and s.dual_weight)]
+        out[where] = (y,) + torch.autograd.grad(y.square().sum(), used)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        _close(a.detach().cpu(), b.detach(), torch.float32)
+
+
+def test_forward_only_kernels_refuse_a_gradient(dev):
+    q = torch.randn(2, 8, 64, device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, q.detach(), q.detach())
+    with pytest.raises(RuntimeError, match="no backward"):
+        dip_matmul(torch.randn(4, 64, device=dev, requires_grad=True), torch.randn(64, 64, device=dev))
+
+
+def test_reduced_train_step_card_matches_cpu(dev):
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
+                              compute_dtype="float32")
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(2, 512, (2, 24)))
+    metrics = {}
+    for where, p in (("cuda", _to(params, dev)), ("cpu", params)):
+        opt = AdamW(lr=1e-3)
+        state = {"params": p, "opt_state": opt.init(p), "step": 0}
+        before = (dip_matmul.launches, ce.lm_head_ce.launches)
+        _, metrics[where] = tf_model.train_step_fn(cfg, opt)(state, {"tokens": toks.to(where),
+                                                                     "labels": toks.to(where)})
+        if where == "cuda":
+            assert (dip_matmul.launches - before[0], ce.lm_head_ce.launches - before[1]) == (
+                6 * cfg.n_layers, 1)
+    for k in ("loss", "grad_norm"):
+        _close(metrics["cuda"][k].cpu(), metrics["cpu"][k], torch.float32)
 
 
 def _to(t, dev):

@@ -28,6 +28,10 @@ def _all_modules():
 def test_every_module_imports_without_jax_or_reference():
     mods = _all_modules()
     assert "repro_torch.kernels.dip_matmul" in mods and "repro_torch.launch.serve" in mods
+    # the training slice's modules are walked too
+    assert {"repro_torch.kernels.lm_head_ce", "repro_torch.optim.adamw", "repro_torch.optim.schedules",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer",
+            "repro_torch.launch.train", "repro_torch.tree"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -61,6 +65,9 @@ def test_entry_points_default_to_the_card():
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "llama3-8b", "--requests", "1"])
+    from repro_torch.runtime import Trainer, TrainerConfig
+    with pytest.raises(RuntimeError, match="cuda"):
+        Trainer(cfg, TrainerConfig())
 
 
 def test_cpu_server_serves_when_asked():

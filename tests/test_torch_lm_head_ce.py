@@ -1,0 +1,153 @@
+"""The port's fused lm_head + cross-entropy against ``repro.kernels.lm_head_ce``
+on the same numpy inputs.
+
+The reference runs ``lm_head_ce_pallas`` in interpret mode on the CPU
+(``api.default_interpret``); the port's ``lm_head_ce`` runs its plain version
+for CPU tensors and its chunked-recompute backward.  Shapes cover ragged T,
+vocab padding (``vocab_size`` < Vp, with whole padding-only chunks), labels
+at -100, a ``mask``, and x in bf16 against an f32 head (the training
+dtypes).  Tolerance: f32 1e-5 of max(1, max|reference|) — both sides form
+the same f32 products (a bf16 x widens exactly) and differ only in the
+order of the sums.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from _torch_parity import TOL, assert_close
+from repro import api as ref_api
+from repro.kernels import lm_head_ce as ref_ce
+from repro_torch.kernels import _build
+from repro_torch.kernels import lm_head_ce as ce
+
+F32 = TOL["float32"]
+T, D, VP, VOCAB = 37, 96, 1280, 300  # ragged T; chunks past 300 are all padding
+
+
+def _inputs(x_dtype, seed=0, t=T, d=D, vp=VP, vocab=VOCAB):
+    r = np.random.default_rng(seed)
+    x = r.normal(size=(t, d)).astype(np.float32)
+    w = (r.normal(size=(d, vp)) / np.sqrt(d)).astype(np.float32)
+    labels = r.integers(0, vocab, size=t).astype(np.int32)
+    labels[[1, 7, t // 2]] = ce.IGNORE_INDEX
+    mask = (r.random(t) > 0.2).astype(np.int32)
+    x = x.astype(jnp.bfloat16) if x_dtype == "bfloat16" else x
+    return x, w, labels, mask
+
+
+def _t(a, requires_grad=False):
+    a = np.asarray(a)
+    t = (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16) if a.dtype.name == "bfloat16"
+         else torch.from_numpy(np.array(a)))
+    return t.requires_grad_(requires_grad)
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_logz_and_label_match_pallas_kernel(x_dtype):
+    x, w, labels, _ = _inputs(x_dtype)
+    want_z, want_l = ref_ce.lm_head_ce_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels),
+                                              vocab_size=VOCAB, interpret=ref_api.default_interpret())
+    got_z, got_l = ce.lm_head_ce(_t(x), _t(w), _t(labels), vocab_size=VOCAB)
+    assert got_z.dtype == got_l.dtype == torch.float32 and got_z.shape == (T,)
+    assert_close(got_z, want_z, F32)
+    assert_close(got_l, want_l, F32)
+    assert (got_l[torch.from_numpy(labels == ce.IGNORE_INDEX)] == 0).all()
+
+
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_mask", [False, True])
+def test_fused_loss_and_grads_match_reference(x_dtype, use_mask):
+    x, w, labels, mask = _inputs(x_dtype, seed=1)
+    m = mask if use_mask else None
+
+    def ref_loss(xx, ww):
+        return ref_ce.fused_cross_entropy_loss(
+            xx, ww, jnp.asarray(labels), mask=None if m is None else jnp.asarray(m),
+            vocab_size=VOCAB, interpret=ref_api.default_interpret())
+
+    want, (want_dx, want_dw) = jax.value_and_grad(ref_loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w))
+    tx, tw = _t(x, True), _t(w, True)
+    got = ce.fused_cross_entropy_loss(tx, tw, _t(labels), mask=None if m is None else _t(m),
+                                      vocab_size=VOCAB)
+    dx, dw = torch.autograd.grad(got, (tx, tw))
+    assert dx.dtype == tx.dtype and dw.dtype == torch.float32
+    assert_close(got, want, F32)
+    assert_close(dx, want_dx, F32)
+    assert_close(dw, want_dw, F32)
+    assert not dw[:, VOCAB:].any(), "padding columns get no gradient"
+    # the unfused oracle on both sides agrees with the fused value
+    oracle = ref_ce.reference_lm_head_ce(jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels),
+                                         mask=None if m is None else jnp.asarray(m), vocab_size=VOCAB)
+    assert_close(ce.reference_lm_head_ce(_t(x), _t(w), _t(labels), mask=None if m is None else _t(m),
+                                         vocab_size=VOCAB), oracle, F32)
+    assert_close(got, oracle, F32)
+
+
+def test_leading_dims_and_no_valid_token():
+    x, w, labels, _ = _inputs("float32", seed=2, t=12)
+    x3, lab3 = x.reshape(2, 6, D), labels.reshape(2, 6)
+    want = ref_ce.fused_cross_entropy_loss(jnp.asarray(x3), jnp.asarray(w), jnp.asarray(lab3),
+                                           vocab_size=VOCAB, interpret=ref_api.default_interpret())
+    assert_close(ce.fused_cross_entropy_loss(_t(x3), _t(w), _t(lab3), vocab_size=VOCAB), want, F32)
+    none_valid = torch.full((2, 6), ce.IGNORE_INDEX, dtype=torch.int32)
+    assert float(ce.fused_cross_entropy_loss(_t(x3), _t(w), none_valid, vocab_size=VOCAB)) == 0.0
+
+
+def test_plain_version_chunk_size_does_not_matter():
+    x, w, labels, _ = _inputs("float32", seed=3)
+    a = ce.lm_head_ce_plain(_t(x), _t(w), _t(labels), vocab_size=VOCAB, block_v=128)
+    b = ce.lm_head_ce_plain(_t(x), _t(w), _t(labels), vocab_size=VOCAB, block_v=VP)
+    for u, v in zip(a, b):
+        torch.testing.assert_close(u, v, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("t,padding_splits", [(4092, 0), (37, 6), (1, 6)])
+def test_split_plan_covers_the_vocab_and_isolates_padding(t, padding_splits):
+    """llama3-8b's head: vocab 128256 padded to 129024.  At the training
+    shape every split holds real columns; at a short T each split is one
+    128-column tile and six lie wholly in the padding (the l = 0 case of
+    the kernel's merge)."""
+    vp, vocab = 129024, 128256
+    tiles, splits = ce.split_plan(t, vp)
+    n_tiles = vp // ce.BLOCK_V
+    assert tiles * splits >= n_tiles > tiles * (splits - 1)
+    assert splits <= 65535
+    assert sum(s * tiles * ce.BLOCK_V >= vocab for s in range(splits)) == padding_splits
+
+
+def test_wrapper_checks_shapes():
+    x, w, labels, _ = _inputs("float32")
+    with pytest.raises(ValueError, match="contraction"):
+        ce.lm_head_ce(_t(x)[:, :10], _t(w), _t(labels), vocab_size=VOCAB)
+    with pytest.raises(ValueError, match="labels"):
+        ce.lm_head_ce(_t(x), _t(w), _t(labels)[:5], vocab_size=VOCAB)
+    with pytest.raises(ValueError, match="vocab_size"):
+        ce.lm_head_ce(_t(x), _t(w), _t(labels), vocab_size=VP + 1)
+
+
+def test_card_path_refuses_a_gradient_it_cannot_give():
+    """The CUDA paths of the forward-only kernels (flash attention, a bare
+    DiP launch) call this check before they launch: with grad mode on, an
+    input that requires grad raises instead of losing its gradient."""
+    q = torch.zeros(2, 3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        _build.refuse_grad("flash_attention", q, torch.zeros(2, 3))
+    with torch.no_grad():
+        _build.refuse_grad("flash_attention", q)
+    _build.refuse_grad("flash_attention", q.detach(), None)
+
+
+@pytest.mark.parametrize("d,vp,ok", [(4096, 129024, True), (64, 2048, True), (4100, 129024, False),
+                                     (4096, 129000, False)])
+def test_card_path_refuses_shapes_the_kernel_does_not_step(d, vp, ok):
+    """The kernel steps D by 32 and the head by 128 columns; the CUDA path
+    checks that before it launches rather than padding a copy of the head."""
+    if ok:
+        ce.check_kernel_shape(d, vp)
+    else:
+        with pytest.raises(ValueError, match="lm_head_ce kernel needs"):
+            ce.check_kernel_shape(d, vp)
