@@ -6,16 +6,22 @@
 Phases (each one raises, and the script exits non-zero, if it fails):
 
 1. build the CUDA kernels of ``src/repro_torch/kernels/csrc`` (one nvcc per
-   source, all started together);
+   source, five sources, all started together);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the llama3-8b serving and training paths give it: the DiP matmul (M = 4,
    256 and the training batch's 4096) and flash attention in float32 and
    bfloat16, the fused lm_head +
    cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
    training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
-   splits and labels at -100;
+   splits and labels at -100; then the quantized serving slice's kernels:
+   the DiP matmul on int8 (exact), the quantized DiP matmul (int8 and fp8
+   weights, f32 and bf16 activations, M = 4, 37 and 256) and the wavefront
+   kernel (f32, bf16, and int8 exact, M = 4 and 256), at the q, gate+up,
+   down and lm_head shapes;
 3. the reduced llama3-8b served on the card against the same weights served
-   on the CPU (plain versions): identical greedy tokens, close logits;
+   on the CPU (plain versions): identical greedy tokens, close logits — the
+   float model on ``dip``, then ``dip_int8w`` with the int8 KV pool,
+   ``dip_fp8`` and ``pallas_systolic``;
 4. the reduced llama3-8b trained on the card against the CPU (f32, 3
    ``Trainer`` steps): close losses and gradient norms, and a run stopped by
    ``fail_at_step`` that resumes from its checkpoint and repeats the
@@ -23,6 +29,13 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 5. llama3-8b at full width (32 layers, d_model 4096, vocab 128256) in bf16
    served through ``Server``, with the kernels' launch counts checked:
    193 DiP-matmul launches per forward, 32 flash launches per prefill chunk;
+   then quantized through ``launch.serve`` (``--quantize int8 --kv-quant
+   int8``, then ``--quantize fp8_e4m3``; the same 4 requests, 16 greedy
+   tokens): 193 quantized launches per forward and no DiP launch, and the
+   first prefill chunk's and first decode step's logits held against the
+   plain versions on the card on the same inputs; then one request of 256
+   prompt tokens through ``pallas_systolic`` (the wavefront kernel), its
+   logits held against the ``dip`` backend's on the same weights;
 6. llama3-8b at full width cut to 4 layers trained through
    ``launch.train`` and its ``Trainer`` (f32 parameters, bf16 compute, block
    remat, batch 4 x seq 1024, 4 steps, the launcher's warm-up schedule):
@@ -33,7 +46,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    in f32 and in bf16 compute; after it, the same 4 steps through plain
    PyTorch, printed beside the kernels' losses;
 7. kernel times (CUDA events, L2 flushed between launches) beside their
-   bound, the plain version's time and one library call's time.
+   bound, the plain version's time and one library call's time, the
+   quantized and wavefront kernels included.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -57,7 +71,7 @@ SEED = 0
 # is the larger of its bytes over the memory rate and its operations over the
 # peak rate for its input type
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # kernel vs plain: max|err| <= TOL * max(1, max|plain|).  float32: both sides
 # multiply the same operands in IEEE f32 (no TF32) and differ only in the
@@ -66,6 +80,21 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # reduced model, card against CPU, f32 logits: two layers of the above
 MODEL_TOL = 1e-4
+# reduced fp8 model in bf16 compute, card against CPU: both sides multiply the
+# same bf16 activations by the same (exactly upcast) weights in f32, but every
+# activation and the logits themselves are rounded to bf16, and where the two
+# sides' f32 sums straddle a rounding midpoint they land one bf16 step (2^-8
+# relative) apart; two layers give a few such steps
+BF16_MODEL_TOL = 3e-2
+# full width, 32 layers in bf16: the quantized kernels against the plain
+# versions on the same card and inputs, and the wavefront against the dip
+# kernel on the same weights.  The same argument over 32 layers: each
+# kernel alone stays within TOL at these shapes (phase 2), but every layer's
+# bf16 activations round apart wherever the two sides' f32 sums straddle a
+# midpoint, and the layers carry those steps on; for int8 each logit may
+# also move by one activation-code step of every lm_head input.  The share
+# of logits within the kernel tolerance TOL alone is printed beside it
+FULL_TOL = 5e-2
 # reduced training, card against CPU, losses and gradient norms over 3 AdamW
 # steps: each step starts from parameters that differ by the f32 rounding of
 # the step before, which AdamW's m/(sqrt(n) + eps) amplifies where a gradient
@@ -128,6 +157,58 @@ def first_step_against_plain(params, cfg, batch, tree, tf_model):
     return losses, norms, worst
 
 
+def clone_tree(t):
+    """A deep copy of a cache / pool tree (dicts of tensors, ints)."""
+    if isinstance(t, dict):
+        return {k: clone_tree(v) for k, v in t.items()}
+    return t.clone() if hasattr(t, "clone") else t
+
+
+def plain_backends(capture=None):
+    """A context in which every kernel-backed matmul backend runs its plain
+    PyTorch version on the card (a reference run on the same inputs);
+    ``capture`` keeps the input of the last lm_head-wide quantized call."""
+    import contextlib
+
+    from repro_torch.api import registry
+    from repro_torch.kernels.dip_matmul import dip_matmul_plain
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q_plain
+    from repro_torch.kernels.dip_systolic import dip_systolic_plain
+
+    def q_plain(x2, q2, ws, *eops, **kw):
+        if capture is not None and q2.shape[1] == capture["vocab"]:
+            capture["head_x"] = x2
+        return dip_matmul_q_plain(x2, q2, ws, *eops, **kw)
+
+    fns = {"dip": lambda x2, p2, *e, **kw: dip_matmul_plain(x2, p2, *e, fuse_deshear=True, **kw),
+           "ws": lambda x2, p2, *e, **kw: dip_matmul_plain(x2, p2, *e, fuse_deshear=False, **kw),
+           "systolic": dip_systolic_plain, "dip_int8w": q_plain, "dip_fp8": q_plain}
+
+    @contextlib.contextmanager
+    def swap():
+        saved = dict(registry._REGISTRY)
+        for name, fn in fns.items():
+            registry._REGISTRY[name] = dataclasses.replace(saved[name], fn=fn)
+        try:
+            yield
+        finally:
+            registry._REGISTRY.clear()
+            registry._REGISTRY.update(saved)
+
+    return swap()
+
+
+def head_step(head, head_x, vocab):
+    """Per-logit change when every int8 activation code of the lm_head's
+    input row moves one step: x_scale[m] * sum_k |Q[k, n]| * w_scale[n]."""
+    from repro_torch.core import permute
+    from repro_torch.kernels.ref import quantize_acts_int8
+
+    _, x_scale = quantize_acts_int8(head_x)
+    colsum = permute.unpermute_tiled(head.data, head.perm_tile)[:, :vocab].float().abs().sum(0)
+    return x_scale * colsum * head.scale[0, :vocab]
+
+
 def main():
     import torch
 
@@ -137,6 +218,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import api, tree
     from repro_torch.configs import get_config
+    from repro_torch.core import permute
     from repro_torch.data import SyntheticLM
     from repro_torch.device import make_generator
     from repro_torch.kernels import _build
@@ -145,7 +227,12 @@ def main():
     from repro_torch.kernels import lm_head_ce as ce
     from repro_torch.kernels import prologue as pro
     from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+    from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    from repro_torch.kernels.ref import quantize_acts_int8
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import kv_cache as kvc
     from repro_torch.models import transformer as tf_model
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.runtime import Request, Server, ServerConfig, Trainer, TrainerConfig
@@ -307,8 +394,84 @@ def main():
         raise AssertionError("lm_head_ce: no case had a vocab split wholly in the padding")
     torch.cuda.synchronize()
 
+    # the quantized serving slice: (label, K, N, epilogue, prologue) of the
+    # projections the quantized path gives these kernels
+    qproj = [("q", d, d, "none", "rmsnorm"), ("gate+up", d, d_ff, "swiglu", "rmsnorm"),
+             ("down", d_ff, d, "residual", "none"), ("lm_head", d, vocab, "none", "none")]
+    worst.update({"dip_matmul_q_int8": 0.0, "dip_matmul_q_fp8": 0.0, "dip_systolic": 0.0})
+
+    def int8_operands(m, k, n, epilogue):
+        x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        p = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+        s = epi.spec(epilogue)
+        eops = ((torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8),) if s.dual_weight
+                else (torch.randint(-127, 128, (m, n), generator=g, device=dev, dtype=torch.int8),)
+                if s.residual else ())
+        return x, p, eops
+
+    # int8 x int8: no epilogue returns the exact int32 sums (held bit for
+    # bit); swiglu and residual widen them to f32 and are held to TOL
+    for m in (4, 256):
+        for label, k, n, e, _ in proj:
+            x, p, eops = int8_operands(m, k, n, e)
+            got, want = dip_matmul(x, p, *eops, epilogue=e), dip_matmul_plain(x, p, *eops, epilogue=e)
+            if e == "none":
+                if got.dtype != torch.int32 or not torch.equal(got, want):
+                    raise AssertionError(f"dip int8 M={m} {label}: not the exact int32 sums")
+                log(f"  dip int8 M={m} {label} K={k} N={n}: int32, exact")
+            else:
+                close(f"dip int8 M={m} {label} K={k} N={n} {e} (f32 out)", got, want, TOL["float32"])
+            del x, p, eops, got, want
+
+    # quantized DiP matmul: both sides multiply the same operands (for int8
+    # the same activation codes, quantized by the same wrapper code on the
+    # card, into exact int32 sums; for fp8 the same bf16 values into f32
+    # sums), so TOL of the output dtype holds
+    for scheme in ("int8", "fp8_e4m3"):
+        key = "dip_matmul_q_int8" if scheme == "int8" else "dip_matmul_q_fp8"
+        for label, k, n, e, pr in qproj:
+            s = epi.spec(e)
+            qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, scheme)
+                   for _ in range(2 if s.dual_weight else 1)]
+            for dt_name in ("float32", "bfloat16"):
+                dtype = getattr(torch, dt_name)
+                for m in (4, 37, 256):
+                    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+                    eops = ((qws[1].data, qws[1].scale) if s.dual_weight else
+                            (torch.randn(m, n, generator=g, device=dev).to(dtype),) if s.residual else ())
+                    kw = dict(epilogue=e, prologue=pr, prologue_operands=(
+                        (torch.rand(k, generator=g, device=dev) + 0.5,) if pr == "rmsnorm" else ()))
+                    err = close(f"{key} {dt_name} M={m} {label} K={k} N={n} {e}/{pr}",
+                                dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw),
+                                dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw), TOL[dt_name])
+                    worst[key] = max(worst[key], err)
+                    del x, eops
+            del qws
+
+    # the wavefront: f32 and bf16 within TOL, int8 exact without an epilogue
+    for dt_name in ("float32", "bfloat16", "int8"):
+        for m in (4, 256):
+            for label, k, n, e, pr in qproj:
+                if dt_name == "int8":
+                    x, p, eops = int8_operands(m, k, n, e)
+                    kw = dict(epilogue=e)
+                else:
+                    x, p, eops, kw = dip_inputs(m, k, n, e, pr, getattr(torch, dt_name))
+                got, want = dip_systolic(x, p, *eops, **kw), dip_systolic_plain(x, p, *eops, **kw)
+                name = f"systolic {dt_name} M={m} {label} K={k} N={n} {e}/{kw.get('prologue', 'none')}"
+                if dt_name == "int8" and e == "none":
+                    if got.dtype != torch.int32 or not torch.equal(got, want):
+                        raise AssertionError(f"{name}: not the exact int32 sums")
+                    log(f"  {name}: int32, exact")
+                else:
+                    err = close(name, got, want, TOL["float32" if dt_name == "int8" else dt_name])
+                    worst["dip_systolic"] = max(worst["dip_systolic"], err)
+                del x, p, eops, got, want
+    torch.cuda.synchronize()
+
     # ---------------------------------------- 3. reduced model, card vs CPU --
-    log("phase 3: reduced llama3-8b, f32, dip backend: card against CPU")
+    log("phase 3: reduced llama3-8b served on the card against the CPU: dip (f32), dip_int8w with the "
+        "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32)")
     rcfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
                                param_dtype="float32", compute_dtype="float32")
     cpu_params = tf_model.init_params(rcfg, make_generator(SEED, "cpu"), "cpu")
@@ -318,6 +481,8 @@ def main():
             return {k: to_dev(v) for k, v in t.items()}
         if isinstance(t, api.DipWeight):
             return t.with_data(t.data.to(dev))
+        if isinstance(t, api.QuantizedDipWeight):
+            return t.with_data(t.data.to(dev), t.scale.to(dev))
         return t.to(dev)
 
     def recorded(server):
@@ -334,18 +499,54 @@ def main():
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(2, rcfg.vocab_size, size=n) for n in (11, 19)]
     scfg = ServerConfig(batch_slots=2, max_seq=64, max_new_tokens=4, temperature=0.0, prefill_chunk=16)
-    outs, logits = {}, {}
-    for where, params in (("cuda", to_dev(cpu_params)), ("cpu", cpu_params)):
-        server = Server(rcfg, scfg, params, device=where)
-        logits[where] = recorded(server)
-        outs[where] = server.serve([Request(rid=i, prompt=p) for i, p in enumerate(prompts)])
-    log(f"  greedy tokens card {outs['cuda']} / cpu {outs['cpu']}")
-    if outs["cuda"] != outs["cpu"]:
-        raise AssertionError("reduced model: greedy tokens differ between card and CPU")
-    if [t for t, _ in logits["cuda"]] != [t for t, _ in logits["cpu"]]:
-        raise AssertionError("reduced model: the engines took different steps")
-    for i, ((tag, a), (_, b)) in enumerate(zip(logits["cuda"], logits["cpu"])):
-        close(f"reduced {tag} call {i} logits (f32)", a, b, MODEL_TOL)
+
+    # each backend on its own seeded weights: (label, config fields, bound
+    # on |card - cpu| per logit)
+    def int8_envelope(params, c):
+        """MODEL_TOL, plus one activation-code step of every lm_head input at
+        the largest x_scale an RMS-normed row allows (sqrt(d) max|gain| / 127):
+        a code flips where the card's and the CPU's f32 activations straddle
+        a rounding midpoint"""
+        head = params["lm_head"]
+        x_scale = c.d_model ** 0.5 * float(params["final_norm"].abs().max()) / 127.0
+        colsum = permute.unpermute_tiled(head.data, head.perm_tile)[:, :c.vocab_size].float().abs().sum(0)
+        return lambda want: MODEL_TOL * max(1.0, want.abs().max().item()) + x_scale * colsum * head.scale[0, :c.vocab_size]
+
+    variants = [
+        ("dip, f32", dict(matmul_backend="dip", param_dtype="float32", compute_dtype="float32"), "f32"),
+        ("dip_int8w, int8 KV, f32", dict(quantization="int8", matmul_backend="dip_int8w", kv_quant="int8",
+                                         param_dtype="float32", compute_dtype="float32"), "int8"),
+        ("dip_fp8, bf16", dict(quantization="fp8_e4m3", matmul_backend="dip_fp8",
+                               param_dtype="bfloat16", compute_dtype="bfloat16"), "bf16"),
+        ("pallas_systolic, f32", dict(matmul_backend="pallas_systolic", param_dtype="float32",
+                                      compute_dtype="float32"), "f32"),
+    ]
+    for label, fields, kind in variants:
+        vcfg = dataclasses.replace(get_config("llama3-8b").reduced(), **fields)
+        vparams = cpu_params if vcfg == rcfg else tf_model.init_params(vcfg, make_generator(SEED, "cpu"), "cpu")
+        bound = (int8_envelope(vparams, vcfg) if kind == "int8" else
+                 (lambda want: BF16_MODEL_TOL * max(1.0, want.abs().max().item())) if kind == "bf16" else
+                 (lambda want: MODEL_TOL * max(1.0, want.abs().max().item())))
+        vouts, vlogits = {}, {}
+        for where, params in (("cuda", to_dev(vparams)), ("cpu", vparams)):
+            server = Server(vcfg, scfg, params, device=where)
+            vlogits[where] = recorded(server)
+            vouts[where] = server.serve([Request(rid=i, prompt=p) for i, p in enumerate(prompts)])
+        log(f"  {label}: greedy tokens card {vouts['cuda']} / cpu {vouts['cpu']}")
+        if vouts["cuda"] != vouts["cpu"]:
+            raise AssertionError(f"reduced model, {label}: greedy tokens differ between card and CPU")
+        if [t for t, _ in vlogits["cuda"]] != [t for t, _ in vlogits["cpu"]]:
+            raise AssertionError(f"reduced model, {label}: the engines took different steps")
+        worst_err, over = 0.0, 0
+        for (tag, a), (_, b) in zip(vlogits["cuda"], vlogits["cpu"]):
+            err = (a - b).abs()
+            lim = bound(b)
+            if not bool((err <= lim).all()):
+                raise AssertionError(f"reduced model, {label}: {tag} logits outside the stated bound")
+            worst_err = max(worst_err, err.max().item())
+            over += int((err > MODEL_TOL * max(1.0, b.abs().max().item())).sum())
+        log(f"  {label}: {len(vlogits['cuda'])} steps, logits max|card - cpu| {worst_err:.3e} within the "
+            f"bound; {over} logits above {MODEL_TOL:g} x max(1, max|cpu|)")
 
     # ------------------------------------ 4. reduced training, card vs CPU --
     log("phase 4: reduced llama3-8b, f32, dip backend: 3 Trainer steps, card against CPU, "
@@ -435,6 +636,7 @@ def main():
     rng = np.random.default_rng(SEED)
     reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, size=int(rng.integers(200, 601))))
             for i in range(4)]
+    st_reqs_phase5 = reqs
     torch.cuda.reset_peak_memory_stats()
     dip_matmul.launches = flash_attention.launches = ce.lm_head_ce.launches = 0
     t0 = time.perf_counter()
@@ -474,6 +676,204 @@ def main():
     del server, eng, params
     torch.cuda.empty_cache()
     serve_launches = launches
+    counters = {"dip_matmul": dip_matmul, "dip_matmul_q": dip_matmul_q, "dip_systolic": dip_systolic,
+                "flash_attention": flash_attention, "lm_head_ce": ce.lm_head_ce}
+
+    def reset_counts():
+        for c in counters.values():
+            c.launches = 0
+
+    def read_counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    serve_launches.update(dip_matmul_q=0, dip_systolic=0)
+
+    # ------------------------------- 5b. full-width quantized serving -------
+    qserve = {}
+    for scheme, kvq in (("int8", "int8"), ("fp8_e4m3", None)):
+        log(f"phase 5b: llama3-8b full width, bf16 compute, --quantize {scheme}"
+            + (f" --kv-quant {kvq}" if kvq else "") + ", through launch.serve")
+        argv = ["--arch", "llama3-8b", "--full", "--dtype", "bfloat16", "--requests", "4", "--max-new", "16",
+                "--slots", "4", "--max-seq", "1024", "--prefill-chunk", "256", "--seed", str(SEED),
+                "--prompt-len", "200", "601", "--temperature", "0", "--quantize", scheme]
+        argv += ["--kv-quant", kvq] if kvq else []
+        st = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}}
+
+        def hook(server, reqs, st=st):
+            """Time both engine steps; on the first call of each, keep the
+            kernels' logits and run the same step on a copy of its inputs
+            through the plain versions on the card."""
+            eng = server.engine
+            torch.cuda.synchronize()
+            st.update(server=server, reqs=reqs, allocated_at_start_gib=torch.cuda.memory_allocated() / 2**30)
+            plain = {"_prefill_fwd": tf_model.decode_step_fn(eng.cfg, attn_backend="dense"),
+                     "_decode": tf_model.paged_decode_step_fn(eng.cfg)}
+            flash_kept = tf_model.decode_step_fn(eng.cfg, attn_backend="flash")
+            st["decode_fn"] = eng._decode
+            for attr in ("_prefill_fwd", "_decode"):
+                def run(*a, _f=getattr(eng, attr), _attr=attr):
+                    if _attr == "_decode":
+                        st["decode_args"] = a  # the last step's inputs, profiled after the run
+                    first = _attr not in st["checked"]
+                    inputs = clone_tree(a[1]) if first else None
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = _f(*a)
+                    torch.cuda.synchronize()
+                    st["times"][_attr].append(time.perf_counter() - t)
+                    if not bool(torch.isfinite(out[0][..., :cfg.vocab_size]).all()):
+                        raise AssertionError(f"quantized full width: non-finite logits from {_attr}")
+                    if first:
+                        if _attr == "_prefill_fwd":
+                            # the quantized kernels alone: plain matmuls with the
+                            # flash kernel kept on both sides (its launches here
+                            # are a comparison's, so the count is put back)
+                            n_flash, again = flash_attention.launches, clone_tree(inputs)
+                            with plain_backends(), torch.no_grad():
+                                ref_l = flash_kept(a[0], again, *a[2:])[0][..., :cfg.vocab_size].float()
+                            flash_attention.launches = n_flash
+                            st["flash_kept"] = (out[0][..., :cfg.vocab_size].float() - ref_l).abs().max().item()
+                            del again, ref_l
+                        cap = {"vocab": cfg.padded_vocab}
+                        with plain_backends(cap), torch.no_grad():
+                            want = plain[_attr](a[0], inputs, *a[2:])[0]
+                        st["checked"][_attr] = (out[0][..., :cfg.vocab_size].float(),
+                                                want[..., :cfg.vocab_size].float(), cap.get("head_x"))
+                        del inputs, want
+                    return out
+                setattr(eng, attr, run)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        results = serve_cli.main(argv, on_server=hook)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        server, reqs, times = st["server"], st["reqs"], st["times"]
+        n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
+        if [len(r.prompt) for r in reqs] != [len(r.prompt) for r in st_reqs_phase5]:
+            raise AssertionError("quantized full width: the launcher's requests differ from phase 5's")
+        if sorted(results) != [0, 1, 2, 3] or any(not v for v in results.values()):
+            raise AssertionError("quantized full width: not every request was served")
+        want = {"dip_matmul": 0, "dip_matmul_q": 193 * (n_prefill + n_decode), "dip_systolic": 0,
+                "flash_attention": 32 * n_prefill, "lm_head_ce": 0}
+        log(f"  launches {launches}; expected {want} (193 quantized launches per forward, no DiP launch)")
+        if launches != want:
+            raise AssertionError(f"quantized full width ({scheme}): launch counts differ from the expected ones")
+        head = server.params["lm_head"]
+        if not (isinstance(head, api.QuantizedDipWeight) and head.scheme == scheme):
+            raise AssertionError("quantized full width: the lm_head is not quantized")
+        for attr, (got, want_l, head_x) in st["checked"].items():
+            err = (got - want_l).abs()
+            scale = max(1.0, want_l.abs().max().item())
+            lim = FULL_TOL * scale
+            if scheme == "int8":
+                lim = lim + head_step(head, head_x, cfg.vocab_size).reshape(got.shape)
+            within = float((err <= TOL["bfloat16"] * scale).float().mean())
+            log(f"  {attr} first call, kernels against plain on the card: logits max|err| {err.max().item():.3e} "
+                f"(max|plain| {scale:.3g}); {100 * within:.4f}% within {TOL['bfloat16']:g} x scale; "
+                f"bound {FULL_TOL:g} x scale" + (" + one code step of every lm_head input" if scheme == "int8" else ""))
+            if not bool((err <= lim).all()):
+                raise AssertionError(f"quantized full width ({scheme}): {attr} logits outside the stated bound")
+        if set(st["checked"]) != {"_prefill_fwd", "_decode"}:
+            raise AssertionError("quantized full width: a step was never checked against plain")
+        log(f"  _prefill_fwd first call with the flash kernel on both sides (the quantized kernels against "
+            f"their plain versions alone): logits max|err| {st['flash_kept']:.3e}")
+        generated = sum(len(v) for v in results.values())
+        qserve[scheme] = {
+            "launches": launches,
+            "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
+            "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
+            "prefill_tok_per_s": sum(len(r.prompt) for r in reqs) / sum(times["_prefill_fwd"]),
+            "decode_tok_per_s": (generated - len(reqs)) / sum(times["_decode"]),
+            "peak_memory_gib": peak / 2**30,
+            "allocated_at_start_gib": st["allocated_at_start_gib"],
+            "kv_bytes_per_block": kvc.bytes_per_block(server.engine.cfg),
+            "kv_quant": server.engine.kv_quant,
+            "prefill_max_err_vs_plain_flash_kept": st["flash_kept"],
+            "wall_s": wall, "prefill_chunks": n_prefill, "decode_steps": n_decode,
+        }
+        log(f"  results: { {k: v[:6] for k, v in results.items()} }")
+        log("  serving " + json.dumps(dict(qserve[scheme], scheme=scheme)))
+        # one more decode step on the last step's inputs, under the profiler:
+        # device time by kernel name
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof, torch.no_grad():
+            st["decode_fn"](*st["decode_args"])
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                us = getattr(ev, "self_device_time_total", None)
+                by_kernel[ev.key] = (ev.count, (us if us is not None else ev.self_cuda_time_total) / 1e3)
+        log(f"  decode step (profiled): device ms of all kernels {sum(v[1] for v in by_kernel.values()):.2f} in "
+            f"{sum(v[0] for v in by_kernel.values())} launches")
+        for key, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]:
+            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+        del prof
+        st.clear()
+        del server, reqs, st, results, head, hook
+        torch.cuda.empty_cache()
+
+    # ----------------------------- 5c. full-width wavefront serving ---------
+    log("phase 5c: llama3-8b full width, bf16, pallas_systolic (the wavefront kernel): one request of "
+        "256 prompt tokens, 4 new tokens, against the dip backend on the same weights")
+    cfg_sys = dataclasses.replace(get_config("llama3-8b"), matmul_backend="pallas_systolic",
+                                  param_dtype="bfloat16", compute_dtype="bfloat16")
+    params = tf_model.init_params(cfg_sys, make_generator(SEED, "cuda"), "cuda")
+    prompt = np.random.default_rng(SEED).integers(2, cfg_sys.vocab_size, size=256)
+    sys_runs = {}
+    for backend in ("pallas_systolic", "dip"):
+        c = dataclasses.replace(cfg_sys, matmul_backend=backend)
+        server = Server(c, ServerConfig(batch_slots=1, max_seq=512, max_new_tokens=4, temperature=0.0,
+                                        prefill_chunk=256), params, device="cuda")
+        eng, seen, steps = server.engine, [], {"_prefill_fwd": [], "_decode": []}
+        for attr in ("_prefill_fwd", "_decode"):
+            def run(*a, _f=getattr(eng, attr), _attr=attr, _seen=seen, _steps=steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _f(*a)
+                torch.cuda.synchronize()
+                _steps[_attr].append(time.perf_counter() - t)
+                _seen.append((_attr, out[0][..., :c.vocab_size].float()))
+                return out
+            setattr(eng, attr, run)
+        reset_counts()
+        out = server.serve([Request(rid=0, prompt=prompt)])
+        sys_runs[backend] = (out, seen, steps, read_counts())
+        del server, eng
+    (out_s, seen_s, steps_s, launches_s), (out_d, seen_d, steps_d, launches_d) = (
+        sys_runs["pallas_systolic"], sys_runs["dip"])
+    n_fwd = len(seen_s)
+    want_s = {"dip_matmul": 0, "dip_matmul_q": 0, "dip_systolic": 193 * n_fwd,
+              "flash_attention": 32 * len(steps_s["_prefill_fwd"]), "lm_head_ce": 0}
+    log(f"  launches {launches_s}; expected {want_s}; tokens systolic {out_s[0]} / dip {out_d[0]}")
+    if launches_s != want_s or launches_d["dip_matmul"] != 193 * len(seen_d) or launches_d["dip_systolic"]:
+        raise AssertionError("full-width wavefront serving: launch counts differ from the expected ones")
+    if [t for t, _ in seen_s] != [t for t, _ in seen_d][:n_fwd] or n_fwd < 2:
+        raise AssertionError("full-width wavefront serving: the two backends took different steps")
+    # step i's logits pick token i; after a token that differs (a near tie in
+    # bf16) the two runs feed different tokens, so the comparison stops there
+    same = next((i for i, (a, b) in enumerate(zip(out_s[0], out_d[0])) if a != b), len(out_s[0]))
+    # bound: FULL_TOL, as for the quantized paths (32 layers of bf16
+    # activations whose roundings differ where the two kernels' f32 sums,
+    # taken in another order, straddle a midpoint); each kernel alone is
+    # held to TOL at these shapes in phase 2
+    sys_err = 0.0
+    for i, ((tag, a), (_, b)) in enumerate(zip(seen_s[:same + 1], seen_d)):
+        scale = max(1.0, b.abs().max().item())
+        within = float(((a - b).abs() <= TOL["bfloat16"] * scale).float().mean())
+        log(f"  {tag} call {i}: {100 * within:.4f}% of logits within {TOL['bfloat16']:g} x scale")
+        sys_err = max(sys_err, close(f"systolic vs dip {tag} call {i} logits (bf16)", a, b, FULL_TOL))
+    sys_serving = {"prefill_chunk_ms": 1e3 * statistics.median(steps_s["_prefill_fwd"]),
+                   "decode_step_ms": 1e3 * statistics.median(steps_s["_decode"]),
+                   "dip_prefill_chunk_ms": 1e3 * statistics.median(steps_d["_prefill_fwd"]),
+                   "dip_decode_step_ms": 1e3 * statistics.median(steps_d["_decode"])}
+    log("  serving " + json.dumps(sys_serving))
+    del params, sys_runs, seen_s, seen_d
+    torch.cuda.empty_cache()
 
     # ------------------------------------------- 6. full-width training -----
     log("phase 6: llama3-8b full width cut to 4 layers (f32 params, bf16 compute, dip, block remat) "
@@ -705,19 +1105,117 @@ def main():
                                        backward_ms=both - row["ms"])))
         del x, w, x32
 
+    # the quantized serving slice's kernels at the two launches that bound a
+    # forward (gate+up, the widest projection, and the lm_head), M = 4 (a
+    # decode step) and 256 (a prefill chunk): bf16 activations as served
+    def int_mm(a, b):
+        """torch._int_mm of the int8 operands (int32 accumulator only); it
+        takes more than 16 rows, so a decode step's rows are zero-padded to
+        32 (noted in the row)."""
+        if a.shape[0] <= 16:
+            a = F.pad(a, (0, 0, 0, 32 - a.shape[0]))
+        return torch._int_mm(a, b)
+
+    def int_mm_operand(b):
+        """b as torch._int_mm takes it: as it is if a probe call accepts a
+        row-major weight, else a column-major copy (made once, untimed)."""
+        try:
+            int_mm(torch.zeros(32, b.shape[0], dtype=torch.int8, device=dev), b)
+            return b
+        except RuntimeError:
+            return b.t().contiguous().t()
+
+    for m in (4, 256):
+        for label, k, n, e, pr in (qproj[1], qproj[3]):
+            s = epi.spec(e)
+            nw = 2 if s.dual_weight else 1
+            shape = f"M={m} {label} K={k} N={n} {e}/{pr}"
+            pad_note = " (torch._int_mm rows zero-padded to 32)" if m <= 16 else ""
+            kw = dict(epilogue=e, prologue=pr, prologue_operands=(
+                (torch.rand(k, generator=g, device=dev) + 0.5,) if pr == "rmsnorm" else ()))
+            gbytes = 4 * (k + m) if pr == "rmsnorm" else 0
+            # dip_matmul on int8 (the repaired route): exact int32 sums
+            xi, pi, ei = int8_operands(m, k, n, e)
+            nat_i = [int_mm_operand(permute.unpermute_tiled(w, 64).contiguous()) for w in (pi,) + ei[:nw - 1]]
+            b_ms, b_by = bound_ms(m * k + nw * k * n + 4 * m * n + (m * n if s.residual else 0),
+                                  2 * m * k * n * nw, "int8")
+            row = dict(kernel="dip_matmul", dtype="int8", shape=f"M={m} {label} K={k} N={n} {e}/none",
+                       ms=time_ms(lambda: dip_matmul(xi, pi, *ei, epilogue=e)),
+                       plain_ms=time_ms(lambda: dip_matmul_plain(xi, pi, *ei, epilogue=e)),
+                       library_ms=time_ms(lambda: [int_mm(xi, w) for w in nat_i]),
+                       library="torch._int_mm per weight" + pad_note, bound_ms=b_ms, bound_by=b_by)
+            rows_out.append(row)
+            log("  " + json.dumps(row))
+            del xi, pi, ei, nat_i
+            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+            for scheme in ("int8", "fp8_e4m3"):
+                qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, scheme)
+                       for _ in range(nw)]
+                eops = (qws[1].data, qws[1].scale) if s.dual_weight else ()
+                if scheme == "int8":
+                    xq, _ = quantize_acts_int8(pro.apply(pr, x, *kw["prologue_operands"]))
+                    nat = [int_mm_operand(permute.unpermute_tiled(q.data, 64).contiguous()) for q in qws]
+                    library = lambda: [int_mm(xq, w) for w in nat]  # noqa: E731
+                    lib_name = "torch._int_mm of the int8 codes on natural storage, per weight" + pad_note
+                else:
+                    nat = [permute.unpermute_tiled(q.data, 64).to(torch.bfloat16).contiguous() for q in qws]
+                    library = lambda: [torch.matmul(x, w) for w in nat]  # noqa: E731
+                    lib_name = "torch.matmul of bf16 x by the bf16-upcast natural weight, per weight"
+                b_ms, b_by = bound_ms(2 * m * k + nw * (k * n + 4 * n) + 2 * m * n + gbytes, 2 * m * k * n * nw,
+                                      "int8" if scheme == "int8" else "bfloat16")
+                row = dict(kernel="dip_matmul_q_int8" if scheme == "int8" else "dip_matmul_q_fp8",
+                           dtype="bfloat16", shape=shape,
+                           ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw)),
+                           plain_ms=time_ms(lambda: dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw)),
+                           library_ms=time_ms(library), library=lib_name, bound_ms=b_ms, bound_by=b_by)
+                rows_out.append(row)
+                log("  " + json.dumps(row))
+                del qws, eops, nat
+            # the wavefront on bf16 DiP storage
+            x, p, eops, kw = dip_inputs(m, k, n, e, pr, torch.bfloat16)
+            wn = [api.DipWeight(w, k, n).to_natural().contiguous() for w in (p,) + eops[:nw - 1]]
+            gain = kw["prologue_operands"][0] if pr == "rmsnorm" else None
+
+            def library():
+                xx = pro.apply("rmsnorm", x, gain) if gain is not None else x
+                z = torch.matmul(xx, wn[0])
+                return F.silu(z) * torch.matmul(xx, wn[1]) if s.dual_weight else z
+
+            b_ms, b_by = bound_ms(2 * (m * k + nw * k * n + m * n) + gbytes, 2 * m * k * n * nw, "bfloat16")
+            row = dict(kernel="dip_systolic", dtype="bfloat16", shape=shape,
+                       ms=time_ms(lambda: dip_systolic(x, p, *eops, **kw)),
+                       plain_ms=time_ms(lambda: dip_systolic_plain(x, p, *eops, **kw)),
+                       library_ms=time_ms(library), library="torch.matmul (the same products)",
+                       bound_ms=b_ms, bound_by=b_by)
+            row["f32_core_share"] = 2 * m * k * n * nw / (row["ms"] * 1e-3) / PEAK_FLOPS["float32"]
+            rows_out.append(row)
+            log("  " + json.dumps(row))
+            del x, p, eops, wn
+
     # one line per kernel: the served dtype at the prefill chunk's largest
     # launch; lm_head_ce in the training dtypes (bf16 x, f32 head)
     pick = {"dip_matmul": ("bfloat16", "M=256 gate+up"), "flash_attention": ("bfloat16", "q_offset 512"),
-            "lm_head_ce": ("bfloat16 x float32", "T=4092")}
+            "lm_head_ce": ("bfloat16 x float32", "T=4092"), "dip_matmul_q_int8": ("bfloat16", "M=256 gate+up"),
+            "dip_matmul_q_fp8": ("bfloat16", "M=256 gate+up"), "dip_systolic": ("bfloat16", "M=256 gate+up")}
+    q_src = ("src/repro_torch/kernels/csrc/dip_matmul_q.cu", "src/repro/kernels/dip_matmul_q.py:117")
     sources = {"dip_matmul": ("src/repro_torch/kernels/csrc/dip_matmul.cu", "src/repro/kernels/dip_matmul.py:100"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:117"),
-               "lm_head_ce": ("src/repro_torch/kernels/csrc/lm_head_ce.cu", "src/repro/kernels/lm_head_ce.py:102")}
+               "lm_head_ce": ("src/repro_torch/kernels/csrc/lm_head_ce.cu", "src/repro/kernels/lm_head_ce.py:102"),
+               "dip_matmul_q_int8": q_src, "dip_matmul_q_fp8": q_src,
+               "dip_systolic": ("src/repro_torch/kernels/csrc/dip_systolic.cu",
+                                "src/repro/kernels/dip_systolic.py:82")}
+    # each kernel's launches on each main path, counted from 0 around it
+    paths = {"serve": serve_launches, "train": train_launches, "serve_int8": qserve["int8"]["launches"],
+             "serve_fp8": qserve["fp8_e4m3"]["launches"], "serve_systolic": launches_s}
+    counter_of = {"dip_matmul_q_int8": "dip_matmul_q", "dip_matmul_q_fp8": "dip_matmul_q"}
+    path_of = {"dip_matmul_q_int8": ("serve_int8",), "dip_matmul_q_fp8": ("serve_fp8",)}
     kernels = []
-    for name in ("dip_matmul", "flash_attention", "lm_head_ce"):
+    for name in pick:
         row = next(r for r in rows_out if r["kernel"] == name and r["dtype"] == pick[name][0]
                    and pick[name][1] in r["shape"])
-        by_path = {"serve": serve_launches[name], "train": train_launches[name]}
+        counter = counter_of.get(name, name)
+        by_path = {pth: paths[pth].get(counter, 0) for pth in path_of.get(name, paths)}
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,

@@ -12,9 +12,27 @@ Backends declare the weight layout they consume and what they fuse:
     dip     the CUDA kernel on DiP-permutated storage (the peer of
             ``pallas_dip``): de-shear, rmsnorm prologue and the six
             epilogues fused in one launch
+    systolic  the wavefront CUDA kernel (``kernels/dip_systolic.py``, the
+            peer of ``pallas_systolic``): the dataflow-faithful validation
+            path, same layout and fusions as ``dip``
+    dip_int8w / dip_fp8   layout ``dip_q``: the quantized CUDA kernel
+            (``kernels/dip_matmul_q.py``) on a ``QuantizedDipWeight`` of the
+            backend's scheme (int8 W8A8-dynamic, fp8-e4m3 weight-only)
 
-The reference's names ``xla`` and ``pallas_dip`` resolve to ``torch`` and
-``dip``, so a configuration copied from the reference selects the same path.
+The reference's names ``xla``, ``pallas_dip`` and ``pallas_systolic``
+resolve to ``torch``, ``dip`` and ``systolic``, so a configuration copied
+from the reference selects the same path.
+
+Quantized weights (port of the reference's weight-type-aware dispatch): a
+``QuantizedDipWeight`` with ``backend=None`` goes to its scheme's backend;
+a ``dip_q`` backend given a float weight quantizes it on the fly, and given
+another scheme raises; any other backend receives the weight dequantized at
+the activation dtype (how the ``torch`` backend serves a quantized model).
+The quantized dispatch pads x's K to the storage and crops the output; the
+storage is already padded to the 64-tile grid with padding columns at scale
+1.0 (``quant.quantize``).  It is forward-only here: an input that needs a
+gradient raises, since the reference's straight-through backward is not
+ported (ROADMAP.md Queue 1 "Quantization").
 
 Tiled backends share one shim: x is flattened to (M, K) and its K padded to
 the weight's 64-padded storage, the gain row and bias row are padded with
@@ -35,10 +53,10 @@ gain and bias/residual cotangents and the weight cotangent re-permuted with
 ``d/dP f(unperm(P)) = perm(d/dW f(W))``) and cast to the storage dtype.
 The ``torch`` backend keeps plain autograd.
 
-Not ported yet: quantized layouts (ROADMAP.md Queue 1 "Quantization"),
-sharded plans (Queue 1 "Distributed"), ABFT verification (Queue 1
-"Reliability") and the block-size tuning table (Queue 1 "Tooling"; the
-kernel's tile is fixed at 64).
+Not ported yet: the quantized straight-through backward (ROADMAP.md Queue
+1 "Quantization"), sharded plans (Queue 1 "Distributed"), ABFT verification
+(Queue 1 "Reliability") and the block-size tuning table (Queue 1 "Tooling";
+the kernel's tile is fixed at 64).
 """
 
 from __future__ import annotations
@@ -49,11 +67,15 @@ from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.api import quant
+from repro_torch.api.quant import QuantizedDipWeight
 from repro_torch.api.weights import PERM_TILE, DipWeight, as_dip_weight
 from repro_torch.core import permute
 from repro_torch.kernels import epilogue as epilogue_lib
 from repro_torch.kernels import prologue as prologue_lib
 from repro_torch.kernels.dip_matmul import dip_matmul
+from repro_torch.kernels.dip_matmul_q import dip_matmul_q
+from repro_torch.kernels.dip_systolic import dip_systolic
 
 __all__ = [
     "MatmulBackend",
@@ -80,16 +102,20 @@ class MatmulBackend:
     Tiled backends are called as ``fn(x2, w2, *weights_and_operands,
     epilogue=, prologue=, prologue_operands=, prologue_k=, prologue_eps=)``
     on 2-D operands already padded by the shim; non-tiled ones as
-    ``fn(x, w_natural)`` and never fuse.
+    ``fn(x, w_natural)`` and never fuse.  ``dip_q`` backends take the scale
+    after the storage, ``fn(x2, q2, w_scale, *operands, ...)``, with
+    ``(q_up, w_scale_up)`` as the operands of ``swiglu``, and consume the
+    quantization ``scheme``.
     """
 
     name: str
-    layout: str  # "natural" | "dip"
+    layout: str  # "natural" | "dip" | "dip_q"
     fn: Callable
     tiled: bool = True
     epilogues: FrozenSet[str] = frozenset({"none"})
     prologues: FrozenSet[str] = frozenset({"none"})
     description: str = ""
+    scheme: Optional[str] = None
 
 
 def _torch_fn(x, wn):
@@ -105,23 +131,31 @@ def _dip_fn(x2, p2, *eops, **kw):
 
 
 _ALL = frozenset(EPILOGUES)
+_ALL_PRO = frozenset(PROLOGUES)
 _REGISTRY: Dict[str, MatmulBackend] = {
     b.name: b for b in (
         MatmulBackend("torch", "natural", _torch_fn, tiled=False,
                       description="plain torch.matmul (de-shears a DipWeight first)"),
-        MatmulBackend("ws", "natural", _ws_fn, epilogues=_ALL, prologues=frozenset(PROLOGUES),
+        MatmulBackend("ws", "natural", _ws_fn, epilogues=_ALL, prologues=_ALL_PRO,
                       description="CUDA tiled kernel on natural storage (baseline)"),
-        MatmulBackend("dip", "dip", _dip_fn, epilogues=_ALL, prologues=frozenset(PROLOGUES),
+        MatmulBackend("dip", "dip", _dip_fn, epilogues=_ALL, prologues=_ALL_PRO,
                       description="CUDA kernel: de-shear in shared memory, fused prologue/epilogue"),
+        MatmulBackend("systolic", "dip", dip_systolic, epilogues=_ALL, prologues=_ALL_PRO,
+                      description="CUDA wavefront kernel on the CUDA cores (validation path)"),
+        MatmulBackend("dip_int8w", "dip_q", dip_matmul_q, epilogues=_ALL, prologues=_ALL_PRO,
+                      scheme="int8",
+                      description="CUDA W8A8-dynamic kernel: per-row int8 x, per-column int8 "
+                                  "weights, int32 accumulation, fused scale on output"),
+        MatmulBackend("dip_fp8", "dip_q", dip_matmul_q, epilogues=_ALL, prologues=_ALL_PRO,
+                      scheme="fp8_e4m3",
+                      description="CUDA fp8-e4m3-weight kernel: bf16 compute on a card, f32 on "
+                                  "the CPU, fused scale on output"),
     )
 }
 # the reference's backend names, so its configurations resolve here
-_ALIASES = {"xla": "torch", "pallas_dip": "dip"}
-_QUANT, _DIST = 'ROADMAP.md Queue 1 "Quantization"', 'ROADMAP.md Queue 1 "Distributed"'
+_ALIASES = {"xla": "torch", "pallas_dip": "dip", "pallas_systolic": "systolic"}
+_DIST = 'ROADMAP.md Queue 1 "Distributed"'
 _NOT_PORTED = {
-    "pallas_systolic": 'ROADMAP.md Queue 2 "dip_systolic_pallas"',
-    "dip_int8w": _QUANT,
-    "dip_fp8": _QUANT,
     "dip_tp": _DIST,
     "dip_fsdp": _DIST,
     "dip_sp": _DIST,
@@ -144,7 +178,7 @@ def list_backends() -> List[str]:
 
 
 def backend_layout(name: Optional[str] = None) -> str:
-    """Weight layout the named backend consumes ("natural" | "dip")."""
+    """Weight layout the named backend consumes ("natural" | "dip" | "dip_q")."""
     return get_backend(name).layout
 
 
@@ -155,7 +189,7 @@ def _pad_last2(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def _logical_dims(w) -> Tuple[int, int]:
-    if isinstance(w, DipWeight):
+    if isinstance(w, (DipWeight, QuantizedDipWeight)):
         return w.d_in, w.d_out
     if w.dim() != 2:
         raise ValueError(f"matmul weight must be 2-D, got shape {tuple(w.shape)}")
@@ -214,12 +248,18 @@ class FusedDispatch(torch.autograd.Function):
         return (None,) * 5 + tuple(d.to(t.dtype) for d, t in zip(grads, saved))
 
 
-def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, pro_operands, eps):
+def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, pro_operands, eps, scales=()):
+    """One padded 2-D launch: x flattened to (M, Kp), the gain and bias rows
+    and the residual padded to the storage ``ws`` (two for ``swiglu``), the
+    output cropped to ``out_cols``.  ``dip_q`` backends take the storages'
+    ``scales`` and run forward only; the others go through
+    :class:`FusedDispatch`."""
     lead = tuple(x.shape[:-1])
     kp, np_ = ws[0].shape
     x2 = x.reshape(-1, x.shape[-1])
     if x2.shape[1] != kp:
         x2 = F.pad(x2, (0, kp - x2.shape[1]))
+    x2 = x2.contiguous()
     pops: Tuple[torch.Tensor, ...] = ()
     if prologue_lib.spec(prologue).normalize:
         g = pro_operands[0].reshape(-1).float()
@@ -232,14 +272,23 @@ def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, p
     elif spec.residual:
         r = operands[0].reshape(-1, out_cols)
         eops = (_pad_last2(r, r.shape[0], np_).contiguous(),)
-    out = FusedDispatch.apply(be.fn, be.layout, (epilogue, prologue, k_true, eps), len(ws), len(pops),
-                              x2.contiguous(), *ws, *pops, *eops)
+    if be.layout == "dip_q":
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (x2,) + pops + eops):
+            raise NotImplementedError(
+                f"backend {be.name!r} is forward-only here: the quantized straight-through backward "
+                'is not ported yet (ROADMAP.md Queue 1 "Quantization")')
+        pairs = tuple(t for w, sc in zip(ws[1:], scales[1:]) for t in (w, sc))
+        out = be.fn(x2, ws[0], scales[0], *pairs, *eops, epilogue=epilogue, prologue=prologue,
+                    prologue_operands=pops, prologue_k=k_true, prologue_eps=eps)
+    else:
+        out = FusedDispatch.apply(be.fn, be.layout, (epilogue, prologue, k_true, eps), len(ws), len(pops),
+                                  x2, *ws, *pops, *eops)
     if np_ != out_cols:
         out = out[:, :out_cols]
     return out.reshape(lead + (out_cols,))
 
 
-def _validated_dip_x(x: torch.Tensor, dw: DipWeight) -> torch.Tensor:
+def _validated_dip_x(x: torch.Tensor, dw) -> torch.Tensor:
     if dw.data.dim() != 2:
         raise ValueError(
             f"matmul weight must be 2-D (got storage {tuple(dw.data.shape)}); index the stacked axis first"
@@ -248,7 +297,7 @@ def _validated_dip_x(x: torch.Tensor, dw: DipWeight) -> torch.Tensor:
         raise ValueError(f"the dip kernel de-shears {PERM_TILE}-tiles, got perm_tile={dw.perm_tile}")
     if x.shape[-1] != dw.d_in:
         raise ValueError(
-            f"x contraction {x.shape[-1]} does not match DipWeight d_in={dw.d_in} "
+            f"x contraction {x.shape[-1]} does not match {type(dw).__name__} d_in={dw.d_in} "
             f"(storage {tuple(dw.data.shape)})"
         )
     return x
@@ -262,6 +311,9 @@ def _check_epilogue_inputs(x, weights, epilogue, operands) -> None:
             raise ValueError(f"epilogue {epilogue!r} weight pair must share a type")
         if _logical_dims(wg) != _logical_dims(wu):
             raise ValueError(f"epilogue {epilogue!r} weight pair must share logical dims")
+        if isinstance(wg, QuantizedDipWeight) and wg.scheme != wu.scheme:
+            raise ValueError(f"epilogue {epilogue!r} weight pair must share a quantization scheme, "
+                             f"got {wg.scheme!r} / {wu.scheme!r}")
     d_out = _logical_dims(weights[0])[1]
     if spec.bias and tuple(operands[0].shape) not in ((d_out,), (1, d_out)):
         raise ValueError(f"epilogue {epilogue!r} bias must be ({d_out},) or (1, {d_out}), "
@@ -301,9 +353,11 @@ def matmul(
 ) -> torch.Tensor:
     """``epilogue(prologue(x) @ w)`` through a registered backend.
 
-    ``x``: (..., d_in); ``w``: a natural (d_in, d_out) tensor or a
-    ``DipWeight`` — or a ``(w_gate, w_up)`` pair for ``swiglu``.  Returns
-    (..., d_out).  ``bias``/``bias_gelu``/``bias_silu`` take
+    ``x``: (..., d_in); ``w``: a natural (d_in, d_out) tensor, a
+    ``DipWeight`` or a ``QuantizedDipWeight`` — or a ``(w_gate, w_up)``
+    pair for ``swiglu``.  Returns (..., d_out).  A ``QuantizedDipWeight``
+    with no backend goes to its scheme's backend; other backends receive it
+    dequantized at x's dtype.  ``bias``/``bias_gelu``/``bias_silu`` take
     ``epilogue_operands=(b,)``, ``residual`` takes ``(r,)`` of the output's
     shape and x's dtype; ``rmsnorm`` takes ``prologue_operands=(g,)``.
     """
@@ -325,6 +379,8 @@ def matmul(
     n_expected = 0 if spec.dual_weight else spec.n_operands
     if len(operands) != n_expected:
         raise ValueError(f"epilogue {epilogue!r} takes {n_expected} epilogue_operands, got {len(operands)}")
+    if backend is None and isinstance(weights[0], QuantizedDipWeight):
+        backend = weights[0].default_backend
     be = get_backend(backend)
 
     if prologue != "none":
@@ -341,6 +397,29 @@ def matmul(
             aux = (outs[1].float(),) if spec.dual_weight else tuple(op.float() for op in operands)
             out_dtype = outs[0].dtype if outs[0].dtype.is_floating_point else torch.float32
             return epilogue_lib.apply(epilogue, outs[0].float(), *aux).to(out_dtype)
+
+    if be.layout == "dip_q":
+        qws = []
+        for wi in weights:
+            if isinstance(wi, QuantizedDipWeight):
+                if wi.scheme != be.scheme:
+                    raise ValueError(
+                        f"backend {be.name!r} consumes scheme {be.scheme!r} but the weight is quantized "
+                        f"as {wi.scheme!r} — requantize from the float weight (api.quant.quantize)")
+                qws.append(wi)
+            else:  # one-off convenience: models quantize once at init
+                qws.append(quant.quantize(wi, be.scheme))
+        xk = _validated_dip_x(x, qws[0])
+        return _tiled_dispatch(be, xk, tuple(q.data for q in qws), qws[0].d_out, qws[0].d_in, epilogue,
+                               operands, prologue, pro_operands, prologue_eps,
+                               scales=tuple(q.scale for q in qws))
+
+    if any(isinstance(wi, QuantizedDipWeight) for wi in weights):
+        # another backend: fold the scales back in once, at the activation
+        # dtype (an f32 weight would promote every output to f32)
+        deq = x.dtype if x.dtype.is_floating_point else torch.float32
+        weights = tuple(quant.dequantize(wi, deq) if isinstance(wi, QuantizedDipWeight) else wi
+                        for wi in weights)
 
     if be.layout == "dip":
         dws = tuple(as_dip_weight(wi) for wi in weights)

@@ -80,7 +80,7 @@ class DipWeight:
         if not dtype.is_floating_point:
             raise TypeError(
                 f"DipWeight.astype({dtype}) would truncate storage without scales; "
-                'quantized storage is not ported yet (ROADMAP.md Queue 1 "Quantization")'
+                "quantize it with api.quant.quantize"
             )
         return self.with_data(self.data.to(dtype))
 

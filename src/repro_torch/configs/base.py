@@ -2,12 +2,11 @@
 
 The ``ArchConfig`` dataclass is copied from the reference with the same
 field names and defaults, so a configuration means the same thing on both
-sides.  Two properties differ: ``quant_scheme`` raises for a quantized
-configuration (quantized backends are not ported yet) and
-``uses_dip_storage`` asks the port's matmul registry for the backend's
-layout.  ``matmul_backend`` keeps the reference's names: the port's
-registry resolves ``xla`` to its ``torch`` backend and ``pallas_dip`` to
-its ``dip`` backend.
+sides.  ``quant_scheme`` and ``uses_dip_storage`` ask the port's
+``api.quant`` and matmul registry instead of the reference's.
+``matmul_backend`` keeps the reference's names: the port's registry
+resolves ``xla``, ``pallas_dip`` and ``pallas_systolic`` to its ``torch``,
+``dip`` and ``systolic`` backends.
 """
 
 from __future__ import annotations
@@ -118,9 +117,9 @@ class ArchConfig:
         """Validated quantization scheme name, or None when unquantized."""
         if self.quantization == "none":
             return None
-        raise NotImplementedError(
-            'quantized backends are not ported yet (ROADMAP.md Queue 1 "Quantization")'
-        )
+        from repro_torch.api import quant  # deferred: keep config import light
+
+        return quant.scheme_info(self.quantization).name
 
     @property
     def uses_dip_storage(self) -> bool:
@@ -133,7 +132,7 @@ class ArchConfig:
             return True
         from repro_torch import api  # deferred: keep config import light
 
-        return api.backend_layout(self.matmul_backend) == "dip"
+        return api.backend_layout(self.matmul_backend) in ("dip", "dip_q")
 
     @property
     def is_moe(self) -> bool:

@@ -4,10 +4,12 @@
 ``init_params`` output moved to numpy (``jax.tree_util.tree_map(np.asarray,
 params)``) and returns the port's parameter dict, so that both sides compute
 with the same weights.  Leaves are numpy arrays (``ml_dtypes.bfloat16``
-included) or DiP-stored weights: any object with ``data`` (numpy storage,
-kept permutated), ``d_in``, ``d_out`` and ``perm_tile`` — the reference's
-``DipWeight`` is read by those attributes, so nothing of the reference is
-imported.
+included, ``ml_dtypes.float8_e4m3fn`` read through a ``uint8`` view) or
+DiP-stored weights, read by their attributes so nothing of the reference is
+imported: an object that also has ``scale`` and ``scheme`` is the
+reference's ``QuantizedDipWeight`` (checked first, so its scales are never
+dropped); any other with ``data`` (numpy storage, kept permutated),
+``d_in``, ``d_out`` and ``perm_tile`` is a ``DipWeight``.
 
 ``opt_state_from_jax(np_opt_state, device)`` converts the reference's AdamW
 state the same way (moments leaf by leaf, ``count`` as an int), so that one
@@ -22,24 +24,32 @@ import numpy as np
 import torch
 
 from repro_torch.api import DipWeight
+from repro_torch.api.quant import QuantizedDipWeight
 from repro_torch.device import resolve_device
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "tensor_from_numpy"]
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    """A numpy array (bf16 via its float32 widening, which is exact) as a
-    tensor of the same dtype on ``device``."""
+    """A numpy array (bf16 via its float32 widening, which is exact; fp8
+    e4m3 through its bytes) as a tensor of the same dtype on ``device``."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(np.array(a).view(np.uint8)).view(torch.float8_e4m3fn).to(device)
     return torch.from_numpy(np.array(a)).to(device)
 
 
 def _convert(v, dev):
     if isinstance(v, dict):
         return {k: _convert(x, dev) for k, x in v.items()}
-    if all(hasattr(v, a) for a in ("data", "d_in", "d_out", "perm_tile")):
+    dip = all(hasattr(v, a) for a in ("data", "d_in", "d_out", "perm_tile"))
+    if dip and hasattr(v, "scale") and hasattr(v, "scheme"):
+        return QuantizedDipWeight(tensor_from_numpy(v.data, dev), tensor_from_numpy(v.scale, dev),
+                                  v.d_in, v.d_out, v.perm_tile, v.scheme,
+                                  plan=getattr(v, "plan", None), checksum=getattr(v, "checksum", None))
+    if dip:
         return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile)
     return tensor_from_numpy(v, dev)
 
@@ -48,7 +58,7 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device="cuda") -> Dict[str, 
     """Convert a (nested) reference parameter dict for ``cfg`` to the port's
     layout on ``device`` (default ``"cuda"``)."""
     params = _convert(np_params, resolve_device(device))
-    if cfg.uses_dip_storage != isinstance(params.get("lm_head"), DipWeight):
+    if cfg.uses_dip_storage != isinstance(params.get("lm_head"), (DipWeight, QuantizedDipWeight)):
         raise ValueError(f"parameter storage does not match cfg.uses_dip_storage={cfg.uses_dip_storage}")
     return params
 

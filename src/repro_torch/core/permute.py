@@ -62,7 +62,12 @@ def unpermute_weights_np(p: np.ndarray) -> np.ndarray:
     return out
 
 
+_BYTE_VIEWED = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
 def _permute_tiled_impl(w: torch.Tensor, tile: int, inverse: bool) -> torch.Tensor:
+    if w.dtype in _BYTE_VIEWED:  # torch's gather has no float8 kernel: move the bytes
+        return _permute_tiled_impl(w.view(torch.uint8), tile, inverse).view(w.dtype)
     r, c = w.shape[-2], w.shape[-1]
     pr, pc = (-r) % tile, (-c) % tile
     if pr or pc:

@@ -7,8 +7,8 @@ has a plain C interface and is compiled on its own into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas=-v -o lib<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source and the flags, so an edited kernel is rebuilt and
-an unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing
+The hash covers the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited kernel is rebuilt and an unchanged one is reused.  :func:`build` starts one ``nvcc`` per missing
 library, all at once, and waits for them; :func:`load` calls it for a library
 missing at first use.  ``nvcc``'s output (registers, shared memory, spills) is kept
 beside each library as ``lib<name>-<hash>.log``.
@@ -36,7 +36,7 @@ __all__ = ["SOURCES", "build", "load", "library_path", "nvcc_path", "refuse_grad
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("dip_matmul", "flash_attention", "lm_head_ce")
+SOURCES = ("dip_matmul", "dip_matmul_q", "dip_systolic", "flash_attention", "lm_head_ce")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -57,8 +57,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -7,6 +7,10 @@ Port of ``repro/kernels/dip_matmul.py::dip_matmul_pallas`` (and of
 into shared memory, applies the rmsnorm prologue to the x tile on load, and
 applies the epilogue to the f32 accumulator before its single write.
 
+int8 x int8 accumulates in exact int32 (WMMA s8), and with no epilogue
+the output is the int32 accumulator, as the reference's ``acc_dtype_for``
+defines it; any epilogue widens it to f32 and returns f32.
+
 Bound on the card: by the weight bytes at decode (M = slots), by
 tensor-core FLOPs at prefill (M = 256).  This first design does nothing
 about either yet (no TMA, no ``wgmma``, no pipelining).
@@ -27,15 +31,21 @@ from repro_torch.core import permute
 from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels import prologue as pro
+from repro_torch.kernels import ref
 
-__all__ = ["TILE", "dip_matmul", "dip_matmul_plain", "out_dtype_for"]
+__all__ = ["TILE", "DTYPE_CODES", "dip_matmul", "dip_matmul_plain", "launch_operands", "out_dtype_for",
+           "require"]
 
 TILE = 64  # output tile, K step and DiP permutation tile of the CUDA kernel
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
-def out_dtype_for(x: torch.Tensor) -> torch.dtype:
-    return x.dtype if x.dtype.is_floating_point else torch.float32
+def out_dtype_for(x: torch.Tensor, epilogue: str = "none") -> torch.dtype:
+    """x's dtype for float x; for integer x the int32 accumulator with no
+    epilogue, f32 with one (the epilogue arithmetic is f32)."""
+    if x.dtype.is_floating_point:
+        return x.dtype
+    return torch.int32 if epi.spec(epilogue).name == "none" else torch.float32
 
 
 def _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands):
@@ -68,26 +78,30 @@ def dip_matmul_plain(x, p, *epilogue_operands, epilogue="none", prologue="none",
                      prologue_operands=(), prologue_k=None, prologue_eps=pro.DEFAULT_EPS,
                      fuse_deshear=True) -> torch.Tensor:
     """The kernel's function in plain torch: de-shear, prologue (f32 scale,
-    cast back), f32 product(s), f32 epilogue, one cast."""
+    cast back), f32 product(s) (exact int32 for int8), f32 epilogue, one
+    cast."""
     _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
     s = epi.spec(epilogue)
 
-    def natural(w):
-        return permute.unpermute_tiled(w, TILE) if fuse_deshear else w
+    def product(w):
+        wn = permute.unpermute_tiled(w, TILE) if fuse_deshear else w
+        return torch.matmul(x.float(), wn.float()) if x.dtype.is_floating_point else ref.int_matmul(x, wn)
 
     if pro.spec(prologue).normalize:
         inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps)
         x = pro.kernel_load(prologue, x, (inv, prologue_operands[0]))
-    x32 = x.float()
-    z = torch.matmul(x32, natural(p).float())
+    out_dtype = out_dtype_for(x, epilogue)
+    z = product(p)
+    if s.name == "none":
+        return z.to(out_dtype)
     if s.dual_weight:
-        aux = (torch.matmul(x32, natural(epilogue_operands[0]).float()),)
+        aux = (product(epilogue_operands[0]).float(),)
     else:
         aux = tuple(op.reshape(1, -1) if s.bias else op for op in epilogue_operands)
-    return epi.apply(epilogue, z, *aux).to(out_dtype_for(x))
+    return epi.apply(epilogue, z.float(), *aux).to(out_dtype)
 
 
-def _require(t: torch.Tensor, what: str, device, dtype=None) -> None:
+def require(t: torch.Tensor, what: str, device, dtype=None) -> None:
     if t.device != device:
         raise ValueError(f"{what} is on {t.device}, expected {device}")
     if dtype is not None and t.dtype != dtype:
@@ -105,6 +119,44 @@ def _lib():
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch_operands(kernel, x, p, epilogue_operands, epilogue, prologue, prologue_operands,
+                    prologue_k, prologue_eps):
+    """Check a CUDA launch of ``kernel`` (``dip_matmul`` or ``dip_systolic``:
+    the same operands) and allocate its output.  Returns ``(out, pointers)``
+    with the pointers in the C entry points' order: x, p, p_up, inv_rms,
+    gain, bias, residual, out."""
+    _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
+    # gradients go through the registry's autograd function, which launches
+    # the kernel with grad mode off
+    _build.refuse_grad(kernel, x, p, *epilogue_operands, *prologue_operands)
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{kernel} kernel takes float32, bfloat16 or int8, got {x.dtype}")
+    dev, dt = x.device, x.dtype
+    m, n = x.shape[0], p.shape[1]
+    if m > 65535 * TILE:
+        raise ValueError(f"M={m} exceeds the kernel's grid limit {65535 * TILE}")
+    require(x, "x", dev, dt)
+    require(p, "p", dev, dt)
+    s = epi.spec(epilogue)
+    p_up = bias = residual = inv = gain = None
+    if s.dual_weight:
+        p_up = epilogue_operands[0]
+        require(p_up, "p_up", dev, dt)
+    elif s.bias:
+        bias = epilogue_operands[0]
+        require(bias, "bias", dev, torch.float32)
+    elif s.residual:
+        residual = epilogue_operands[0]
+        require(residual, "residual", dev, dt)
+    if pro.spec(prologue).normalize:
+        gain = prologue_operands[0]
+        require(gain, "gain", dev, torch.float32)
+        inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
+    out = torch.empty((m, n), dtype=out_dtype_for(x, epilogue), device=dev)
+    ptrs = [None if t is None else t.data_ptr() for t in (x, p, p_up, inv, gain, bias, residual, out)]
+    return out, ptrs
 
 
 def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tensor,
@@ -128,42 +180,12 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
         )
     if x.device.type != "cuda":
         raise ValueError(f"dip_matmul runs on cuda or cpu tensors, got {x.device}")
-    _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
-    # gradients go through the registry's autograd function, which launches
-    # this kernel with grad mode off
-    _build.refuse_grad("dip_matmul", x, p, *epilogue_operands, *prologue_operands)
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"dip_matmul kernel takes float32 or bfloat16, got {x.dtype}")
-    dev, dt = x.device, x.dtype
-    m, k = x.shape
-    n = p.shape[1]
-    if m > 65535 * TILE:
-        raise ValueError(f"M={m} exceeds the kernel's grid limit {65535 * TILE}")
-    _require(x, "x", dev, dt)
-    _require(p, "p", dev, dt)
-    s = epi.spec(epilogue)
-    p_up = bias = residual = inv = gain = None
-    if s.dual_weight:
-        p_up = epilogue_operands[0]
-        _require(p_up, "p_up", dev, dt)
-    elif s.bias:
-        bias = epilogue_operands[0]
-        _require(bias, "bias", dev, torch.float32)
-    elif s.residual:
-        residual = epilogue_operands[0]
-        _require(residual, "residual", dev, dt)
-    if pro.spec(prologue).normalize:
-        gain = prologue_operands[0]
-        _require(gain, "gain", dev, torch.float32)
-        inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
-    out = torch.empty((m, n), dtype=dt, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib()(
-            _DTYPE_CODES[dt], ptr(x), ptr(p), ptr(p_up), ptr(inv), ptr(gain), ptr(bias),
-            ptr(residual), ptr(out), m, n, k, epi.code(epilogue), int(fuse_deshear), stream,
-        )
+    out, ptrs = launch_operands("dip_matmul", x, p, epilogue_operands, epilogue, prologue,
+                                prologue_operands, prologue_k, prologue_eps)
+    (m, k), n = x.shape, p.shape[1]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib()(DTYPE_CODES[x.dtype], *ptrs, m, n, k, epi.code(epilogue), int(fuse_deshear), stream)
     if rc != 0:
         raise RuntimeError(f"dip_matmul kernel launch failed: cudaError {rc}")
     dip_matmul.launches += 1

@@ -6,7 +6,12 @@ Port of ``repro/launch/serve.py`` for the DiP path::
 
 Weights are drawn on the device from ``--seed`` and stored DiP-permutated;
 every projection runs the DiP kernel and chunked prefill the flash kernel.
-``--device cpu`` runs the plain PyTorch versions instead.
+``--quantize int8|fp8_e4m3`` quantizes the projections (the lm_head too)
+and serves through the matching quantized kernel (``dip_int8w`` /
+``dip_fp8``); ``--kv-quant int8`` stores the paged KV cache as int8 rows
+with f32 scales.  ``--device cpu`` runs the plain PyTorch versions instead::
+
+    python -m repro_torch.launch.serve --arch llama3-8b --full --quantize int8 --kv-quant int8
 """
 
 from __future__ import annotations
@@ -17,13 +22,18 @@ import json
 
 import numpy as np
 
+from repro_torch.api.quant import scheme_info
 from repro_torch.configs import get_config
 from repro_torch.device import make_generator
 from repro_torch.models import transformer as tf_model
 from repro_torch.runtime import Request, Server, ServerConfig
 
 
-def main(argv=None):
+def main(argv=None, on_server=None):
+    """Parse ``argv``, build the server, serve the seeded requests, print
+    the results and stats, and return ``{rid: tokens}``.  ``on_server``, if
+    given, is called with the built ``Server`` and its requests before
+    serving (a caller's hook for timing or recording the steps)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     size = ap.add_mutually_exclusive_group()
@@ -40,7 +50,16 @@ def main(argv=None):
     ap.add_argument("--max-seq", type=int, default=1024)
     ap.add_argument("--prefill-chunk", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--prompt-len", type=int, nargs=2, metavar=("LO", "HI"), default=None,
+                    help="prompt lengths drawn from [LO, HI) (default [4, min(max_seq / 2, 600)))")
+    ap.add_argument("--temperature", type=float, default=ServerConfig.temperature,
+                    help="sampling temperature; 0 decodes greedily")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantize", choices=("int8", "fp8_e4m3"), default=None,
+                    help="quantize the DiP projections and serve through the matching quantized "
+                         "kernel (dip_int8w / dip_fp8)")
+    ap.add_argument("--kv-quant", choices=("none", "int8"), default=None,
+                    help="KV-cache storage (default cfg.kv_quant); int8 halves the bytes per token")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -48,15 +67,20 @@ def main(argv=None):
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, matmul_backend="dip", param_dtype=args.dtype,
                               compute_dtype=args.dtype)
+    if args.quantize:
+        cfg = dataclasses.replace(cfg, quantization=args.quantize,
+                                  matmul_backend=scheme_info(args.quantize).backend)
     params = tf_model.init_params(cfg, make_generator(args.seed, args.device), args.device)
     server = Server(cfg, ServerConfig(batch_slots=args.slots, max_seq=args.max_seq,
-                                      max_new_tokens=args.max_new,
-                                      prefill_chunk=args.prefill_chunk),
+                                      max_new_tokens=args.max_new, temperature=args.temperature,
+                                      prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant),
                     params, device=args.device)
     rng = np.random.default_rng(args.seed)
-    hi = max(5, min(args.max_seq // 2, 600))
-    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, size=int(rng.integers(4, hi))))
+    lo, hi = args.prompt_len or (4, max(5, min(args.max_seq // 2, 600)))
+    reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, size=int(rng.integers(lo, hi))))
             for i in range(args.requests)]
+    if on_server is not None:
+        on_server(server, reqs)
     results = server.serve(reqs)
     for rid in sorted(results):
         print(f"req {rid}: {len(results[rid])} tokens -> {results[rid][:8]}...")

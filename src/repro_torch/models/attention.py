@@ -7,9 +7,10 @@ forward's), the KV-chunked online-softmax path (``kv_chunk > 0``, exact
 against the dense one), and the ``api.attention`` route
 (``backend="flash"``) that serving prefill takes; the flash kernel is
 forward-only.  The paged functions are plain torch, as they are plain
-``jnp`` in the reference; they update the block pool in place.  MLA and int8
-KV come with their families (ROADMAP.md Queue 1 "Other model families" and
-"Quantization").
+``jnp`` in the reference; they update the block pool in place.  An int8
+pool (``kv_quant="int8"``) stores each (token, head) row as int8 codes plus
+one f32 scale (``api.quant.quantize_rows``) and dequantizes on read.  MLA
+pools come with their family (ROADMAP.md Queue 1 "Other model families").
 """
 
 from __future__ import annotations
@@ -169,28 +170,54 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
 
 def init_paged_gqa_cache(num_blocks: int, block_size: int, kv_heads: int, head_dim: int,
                          dtype, kv_quant: str = "none", *, device) -> Dict:
-    """GQA block pool: k/v (num_blocks, block_size, kv_heads, head_dim)."""
-    if kv_quant != "none":
-        raise NotImplementedError('int8 KV pools come with quantization (ROADMAP.md Queue 1 "Quantization")')
+    """GQA block pool: k/v (num_blocks, block_size, kv_heads, head_dim); a
+    quantized pool stores the scheme's codes and adds per-(token, head) f32
+    scales k_scale/v_scale (num_blocks, block_size, kv_heads)."""
     shape = (num_blocks, block_size, kv_heads, head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kv_quant == "none":
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    sdt = api.quant.scheme_info(kv_quant).storage_dtype
+    return {"k": torch.zeros(shape, dtype=sdt, device=device),
+            "v": torch.zeros(shape, dtype=sdt, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
 
 
-def paged_write(pool: torch.Tensor, phys: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Write per-token rows ``vals`` (N, ...) into the block pool at flat
-    physical rows ``phys`` (N,), in place.  Every index must be in range:
-    callers drop padding rows themselves (the reference's out-of-range
-    sentinel)."""
+def _rows(pool: torch.Tensor) -> torch.Tensor:
+    """The pool as flat token rows (num_blocks * block_size, ...); float8
+    codes move as bytes (torch has no float8 ``index_copy_``)."""
     nb, bs = pool.shape[:2]
-    pool.view((nb * bs,) + tuple(pool.shape[2:])).index_copy_(0, phys, vals.to(pool.dtype))
+    flat = pool.view((nb * bs,) + tuple(pool.shape[2:]))
+    return flat.view(torch.uint8) if flat.dtype in (torch.float8_e4m3fn, torch.float8_e5m2) else flat
+
+
+def paged_write(pool: torch.Tensor, phys: torch.Tensor, vals: torch.Tensor, *,
+                scale_pool: Optional[torch.Tensor] = None, kv_quant: str = "none") -> torch.Tensor:
+    """Write per-token rows ``vals`` (N, ...) into the block pool at flat
+    physical rows ``phys`` (N,), in place; a quantized pool takes each row's
+    codes and its scale (into ``scale_pool``).  Every index must be in
+    range: callers drop padding rows themselves (the reference's
+    out-of-range sentinel)."""
+    if kv_quant != "none":
+        q, scale = api.quant.quantize_rows(vals, kv_quant)
+        rows = _rows(pool)
+        rows.index_copy_(0, phys, q.view(rows.dtype))
+        _rows(scale_pool).index_copy_(0, phys, scale[..., 0])
+        return pool
+    _rows(pool).index_copy_(0, phys, vals.to(pool.dtype))
     return pool
 
 
-def paged_read(pool: torch.Tensor, idx: torch.Tensor, *, dtype=torch.float32) -> torch.Tensor:
-    """Gather token rows at flat physical indices ``idx`` (any shape)."""
+def paged_read(pool: torch.Tensor, idx: torch.Tensor, *, scale_pool: Optional[torch.Tensor] = None,
+               dtype=torch.float32) -> torch.Tensor:
+    """Gather token rows at flat physical indices ``idx`` (any shape),
+    dequantized against ``scale_pool`` when the pool is quantized."""
     nb, bs = pool.shape[:2]
-    return pool.view((nb * bs,) + tuple(pool.shape[2:]))[idx].to(dtype)
+    vals = pool.view((nb * bs,) + tuple(pool.shape[2:]))[idx]
+    if scale_pool is not None:
+        return api.quant.dequantize_rows(vals, _rows(scale_pool)[idx][..., None], dtype)
+    return vals.to(dtype)
 
 
 def _gather_indices(block_tables: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -208,9 +235,8 @@ def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tenso
     """GQA decode against the paged pool: x (B, 1, d), one token per slot at
     ``positions`` (B,).  Writes this token's K/V into its slot's block (in
     place), gathers the slot's context and attends to positions <= its own.
-    Free slots point at the null block; their rows are ignored."""
-    if kv_quant != "none":
-        raise NotImplementedError('int8 KV pools come with quantization (ROADMAP.md Queue 1 "Quantization")')
+    Free slots point at the null block; their rows are ignored.  A quantized
+    pool (``kv_quant``) stores the rows as codes and scales."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     bs = cache["k"].shape[1]
@@ -224,16 +250,20 @@ def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tenso
 
     rows = torch.arange(b, device=x.device)
     phys = block_tables[rows, positions // bs] * bs + positions % bs
-    ck = paged_write(cache["k"], phys, k[:, 0])
-    cv = paged_write(cache["v"], phys, v[:, 0])
+    cks, cvs = cache.get("k_scale"), cache.get("v_scale")
+    ck = paged_write(cache["k"], phys, k[:, 0], scale_pool=cks, kv_quant=kv_quant)
+    cv = paged_write(cache["v"], phys, v[:, 0], scale_pool=cvs, kv_quant=kv_quant)
 
     idx = _gather_indices(block_tables, bs)
-    k_all = _expand_kv(paged_read(ck, idx, dtype=x.dtype), h // kv)
-    v_all = _expand_kv(paged_read(cv, idx, dtype=x.dtype), h // kv)
+    k_all = _expand_kv(paged_read(ck, idx, scale_pool=cks, dtype=x.dtype), h // kv)
+    v_all = _expand_kv(paged_read(cv, idx, scale_pool=cvs, dtype=x.dtype), h // kv)
     smax = k_all.shape[1]
     scores = torch.einsum("bqhd,bshd->bhqs", (q * hd ** -0.5).float(), k_all.float())
     live = torch.arange(smax, device=x.device)[None, :] <= positions[:, None]
     scores = torch.where(live[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", probs.to(v_all.dtype), v_all)
-    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), {"k": ck, "v": cv}
+    new_cache = {"k": ck, "v": cv}
+    if kv_quant != "none":
+        new_cache.update(k_scale=cks, v_scale=cvs)
+    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), new_cache

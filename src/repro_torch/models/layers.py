@@ -28,13 +28,18 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
            epilogue: Optional[str] = None, epilogue_operands=(), prologue: Optional[str] = None,
            prologue_operands=(), prologue_eps: float = 1e-5) -> torch.Tensor:
     """``epilogue(prologue(x) @ W)`` through the registered matmul backend,
-    with x and W in ``compute_dtype``.  A bias always rides the epilogue;
+    with x and W in ``compute_dtype``; a ``QuantizedDipWeight`` keeps its
+    storage and scales as they are.  A bias always rides the epilogue;
     ``swiglu`` takes a ``(w_gate, w_up)`` pair; ``prologue="rmsnorm"``
     fuses the pre-projection norm (``prologue_operands=(gain,)``)."""
     x = x.to(compute_dtype)
-    w = tuple(wi.astype(compute_dtype) if isinstance(wi, api.DipWeight) else wi.to(compute_dtype)
-              for wi in w) if isinstance(w, (tuple, list)) else (
-        w.astype(compute_dtype) if isinstance(w, api.DipWeight) else w.to(compute_dtype))
+
+    def adapt(wi):
+        if isinstance(wi, api.QuantizedDipWeight):
+            return wi
+        return wi.astype(compute_dtype) if isinstance(wi, api.DipWeight) else wi.to(compute_dtype)
+
+    w = tuple(adapt(wi) for wi in w) if isinstance(w, (tuple, list)) else adapt(w)
     operands = tuple(epilogue_operands)
     if b is not None:
         if epilogue is None:

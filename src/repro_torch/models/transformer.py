@@ -7,12 +7,13 @@ n_layers), as in the reference; a Python loop over the layers takes the
 place of ``jax.lax.scan``, and ``cfg.remat == "block"`` wraps each block in
 ``torch.utils.checkpoint`` as the reference wraps it in ``jax.checkpoint``.
 Linear weights are ``api.DipWeight`` storage when the configured backend
-consumes the DiP layout.  ``loss_fn`` takes the fused lm_head +
-cross-entropy kernel (``kernels/lm_head_ce.py``) unless told otherwise, and
-``train_step_fn`` applies one AdamW step in place.  The MoE, MLA, SSM and
-hybrid families, tied embeddings, quantization, sharding plans and the
-reliability guard come with their ROADMAP.md items and raise
-``NotImplementedError`` here.
+consumes the DiP layout, and ``api.QuantizedDipWeight`` storage (the lm_head
+included) under ``cfg.quantization``; ``cfg.kv_quant`` selects the int8
+paged KV pool.  ``loss_fn`` takes the fused lm_head + cross-entropy kernel
+(``kernels/lm_head_ce.py``) unless told otherwise, and ``train_step_fn``
+applies one AdamW step in place.  The MoE, MLA, SSM and hybrid families,
+tied embeddings, sharding plans and the reliability guard come with their
+ROADMAP.md items and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from repro_torch.models import attention, layers, moe
 
 __all__ = [
     "param_template",
+    "quantize_params",
     "init_params",
     "forward",
     "init_cache",
@@ -52,8 +54,6 @@ def _require_dense(cfg) -> None:
         missing.append(f"the {cfg.family} family ({_FAMILIES})")
     if cfg.tie_embeddings or cfg.frontend != "none":
         missing.append(f"tied embeddings / stub frontends ({_FAMILIES})")
-    if cfg.quantization != "none" or cfg.kv_quant != "none":
-        missing.append('quantized weights or KV (ROADMAP.md Queue 1 "Quantization")')
     if cfg.sharding != "gspmd":
         missing.append(f"sharding plans ({_DISTRIBUTED})")
     if missing:
@@ -104,12 +104,27 @@ def param_template(cfg) -> Dict[str, Any]:
     return t
 
 
+def quantize_params(params: Dict[str, Any], scheme: str) -> Dict[str, Any]:
+    """Quantize every DiP-stored projection to ``scheme`` storage (the
+    offline calibration step: once at init or load, never per forward).
+    Embeddings and norms stay float; quantized nodes pass through."""
+    def q(t):
+        if isinstance(t, dict):
+            return {k: q(v) for k, v in t.items()}
+        return api.quant.quantize(t, scheme) if isinstance(t, (api.DipWeight, api.QuantizedDipWeight)) else t
+
+    return q(params)
+
+
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
     """Materialize parameters on ``device`` from ``generator``: truncated
     normal (-2, 2) scaled by fan_in^-1/2, norms at 1, biases at 0.  DiP
     weights are drawn in natural layout one matrix at a time and permutated
-    on the device (the offline step of paper Fig. 3)."""
+    on the device (the offline step of paper Fig. 3); under
+    ``cfg.quantization`` each matrix is quantized as it is drawn, so no
+    float copy of the whole model is ever held."""
     dev = resolve_device(device)
+    scheme = cfg.quant_scheme
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters go to {dev}")
 
@@ -127,6 +142,15 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
         if dip is None:
             return normal(shape, scale, dt)
         d_in, d_out, perm_tile = dip
+        if scheme is not None:
+            info = api.quant.scheme_info(scheme)
+            data = torch.empty(shape, dtype=info.storage_dtype, device=dev)
+            scales = torch.empty(tuple(shape[:-2]) + (1, shape[-1]), dtype=torch.float32, device=dev)
+            for mat, sc in zip(data.view((-1,) + tuple(shape[-2:])), scales.view((-1, 1, shape[-1]))):
+                qw = api.quant.quantize(normal((d_in, d_out), scale, dt), scheme, perm_tile=perm_tile)
+                mat.copy_(qw.data)
+                sc.copy_(qw.scale)
+            return api.QuantizedDipWeight(data, scales, d_in, d_out, perm_tile, scheme)
         data = torch.empty(shape, dtype=dt, device=dev)
         for mat in data.view((-1,) + tuple(shape[-2:])):
             mat.copy_(permute.permute_tiled(normal((d_in, d_out), scale, dt), perm_tile))
@@ -141,10 +165,15 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
 def _layers(layer_params: Dict[str, Any], n_layers: int) -> List[Dict[str, Any]]:
     """The per-layer views of the layer-stacked leaves (one ``unbind`` per
     leaf, so a backward stacks the layers' gradients once)."""
-    cols = {k: (v.data if isinstance(v, api.DipWeight) else v).unbind(0)
-            for k, v in layer_params.items()}
-    return [{k: (v.with_data(cols[k][i]) if isinstance(v, api.DipWeight) else cols[k][i])
-             for k, v in layer_params.items()} for i in range(n_layers)]
+    def unbound(v):
+        if isinstance(v, api.QuantizedDipWeight):
+            return [v.with_data(d, s) for d, s in zip(v.data.unbind(0), v.scale.unbind(0))]
+        if isinstance(v, api.DipWeight):
+            return [v.with_data(d) for d in v.data.unbind(0)]
+        return v.unbind(0)
+
+    cols = {k: unbound(v) for k, v in layer_params.items()}
+    return [{k: cols[k][i] for k in layer_params} for i in range(n_layers)]
 
 
 # ---------------------------------------------------------------- forward ---
@@ -228,7 +257,9 @@ def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "none",
                      device) -> Dict[str, Any]:
     """Layer-stacked paged pools for the serving engine: k/v (L, num_blocks,
-    block_size, KV, hd).  Block 0 is the null block (serving/kv_cache.py).
+    block_size, KV, hd), and under int8 ``kv_quant`` their per-(token, head)
+    f32 scales k_scale/v_scale (L, num_blocks, block_size, KV).  Block 0 is
+    the null block (serving/kv_cache.py).
     The dense family keeps nothing per slot, so unlike the reference this
     takes no ``slots``."""
     _require_dense(cfg)
@@ -267,8 +298,8 @@ def paged_decode_step_fn(cfg):
                 layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
             x, _ = attention.paged_gqa_attention(
                 attn_in, lp, cfg, positions=positions,
-                cache={"k": pools["k"][i], "v": pools["v"][i]}, block_tables=block_tables,
-                rope=rope, residual=x, norm=attn_g,
+                cache={nm: pool[i] for nm, pool in pools.items()}, block_tables=block_tables,
+                kv_quant=cfg.kv_quant, rope=rope, residual=x, norm=attn_g,
             )
             ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
                 layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)

@@ -73,13 +73,21 @@ class Engine:
                 "the serving reliability ladder (verify, retries, degraded step, TTL) "
                 'is not ported yet (ROADMAP.md Queue 1 "Reliability")'
             )
-        api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
+        be = api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
+        if be.layout == "dip_q" and cfg.quant_scheme != be.scheme:
+            raise ValueError(f"backend {be.name!r} consumes {be.scheme!r}-quantized weights "
+                             f"but cfg.quantization={cfg.quantization!r}")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters are on {params['embed'].device}, the engine runs on {self.device}")
         self.params = params
 
         self.block_size = ecfg.block_size or cfg.kv_block_size
         self.kv_quant = ecfg.kv_quant if ecfg.kv_quant is not None else cfg.kv_quant
+        if self.kv_quant != "none":
+            api.quant.scheme_info(self.kv_quant)  # validate the scheme name
+        if self.kv_quant != cfg.kv_quant:
+            # the paged decode step reads its storage format off the config
+            cfg = self.cfg = dataclasses.replace(cfg, kv_quant=self.kv_quant)
         blocks_per_seq = -(-ecfg.max_seq // self.block_size)
         num_blocks = ecfg.num_blocks or ecfg.slots * blocks_per_seq + 1
         self.kv = kvc.PagedKVCache(

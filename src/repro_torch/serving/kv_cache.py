@@ -9,10 +9,12 @@ edit, never a reallocation.  **Block 0 is the null block**: free slots'
 tables point at it, so their ignored decode writes land somewhere harmless,
 and the allocator hands out blocks ``1..num_blocks-1``.
 
-Storage is the compute dtype (bf16 or f32).  The int8 pools and the
-capacity helpers come with quantization (ROADMAP.md Queue 1 "Quantization");
-the allocator's fault-injection points come with the reliability layer
-(Queue 1 "Reliability").
+Storage is the compute dtype (bf16 or f32), or int8 codes plus one f32
+scale per (token, head) row under ``kv_quant="int8"`` (quantized on write,
+prefill import included).  ``bytes_per_block`` / ``blocks_for_budget`` /
+``max_concurrent`` are the capacity arithmetic.  The allocator's
+fault-injection points come with the reliability layer (ROADMAP.md Queue 1
+"Reliability").
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.device import dtype_of
 from repro_torch.models import attention
 from repro_torch.models import transformer as tf_model
 
-__all__ = ["BlockAllocator", "PagedKVCache", "make_import_fn"]
+__all__ = ["BlockAllocator", "PagedKVCache", "make_import_fn", "bytes_per_block", "blocks_for_budget",
+           "max_concurrent"]
 
 
 class BlockAllocator:
@@ -123,14 +127,39 @@ class PagedKVCache:
         return self.block_tables[slot]
 
 
+def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[str] = None) -> int:
+    """Device bytes one KV block costs across all layers: L * bs * (2 * KV *
+    hd elements, plus one f32 scale per (token, head) row for k and v when
+    quantized)."""
+    if cfg.use_mla or cfg.ssm_state:
+        raise NotImplementedError('MLA and SSM pools come with their families '
+                                  '(ROADMAP.md Queue 1 "Other model families")')
+    bs = block_size if block_size is not None else cfg.kv_block_size
+    kvq = kv_quant if kv_quant is not None else cfg.kv_quant
+    item = 1 if kvq != "none" else torch.finfo(dtype_of(cfg.compute_dtype)).bits // 8
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    scale = 2 * kv * 4 if kvq != "none" else 0
+    return cfg.n_layers * bs * (2 * kv * hd * item + scale)
+
+
+def blocks_for_budget(cfg, budget_bytes: int, block_size: Optional[int] = None,
+                      kv_quant: Optional[str] = None) -> int:
+    """Usable blocks (null block excluded) a byte budget buys."""
+    return max(0, budget_bytes // bytes_per_block(cfg, block_size, kv_quant) - 1)
+
+
+def max_concurrent(cfg, num_usable_blocks: int, seq_len: int, block_size: Optional[int] = None) -> int:
+    """Sequences of ``seq_len`` tokens that fit in ``num_usable_blocks``."""
+    bs = block_size if block_size is not None else cfg.kv_block_size
+    return num_usable_blocks // -(-seq_len // bs)
+
+
 def make_import_fn(block_size: int, kv_quant: str = "none"):
     """The scatter of a finished contiguous B=1 prefill cache into a slot's
     pool blocks: positions ``0..plen-1`` go to ``block_row[p // bs] * bs +
-    p % bs``; the prompt padding past ``plen`` is dropped.  The physical rows
-    are computed on the host from the host block table, and the pools are
-    written in place."""
-    if kv_quant != "none":
-        raise NotImplementedError('int8 KV pools come with quantization (ROADMAP.md Queue 1 "Quantization")')
+    p % bs``; the prompt padding past ``plen`` is dropped.  A quantized pool
+    quantizes each row on import.  The physical rows are computed on the
+    host from the host block table, and the pools are written in place."""
     bs = block_size
 
     def imp(pool_layers: Dict[str, torch.Tensor], prefill_layers: Dict[str, torch.Tensor],
@@ -139,9 +168,10 @@ def make_import_fn(block_size: int, kv_quant: str = "none"):
         phys = block_row[pos // bs].astype(np.int64) * bs + pos % bs
         phys_t = torch.as_tensor(phys, device=pool_layers["k"].device)
         for nm in ("k", "v"):
-            pool = pool_layers[nm]
+            pool, scales = pool_layers[nm], pool_layers.get(f"{nm}_scale")
             for i in range(pool.shape[0]):
-                attention.paged_write(pool[i], phys_t, prefill_layers[nm][i, 0, :plen])
+                attention.paged_write(pool[i], phys_t, prefill_layers[nm][i, 0, :plen],
+                                      scale_pool=None if scales is None else scales[i], kv_quant=kv_quant)
         return pool_layers
 
     return imp

@@ -30,12 +30,13 @@ def assert_close(got, want, tol) -> float:
     return err
 
 
-def reduced_configs(backend_ref="pallas_dip", backend_port="dip", dtype="float32"):
+def reduced_configs(backend_ref="pallas_dip", backend_port="dip", dtype="float32", quantization="none",
+                    kv_quant="none"):
     """The reduced llama3-8b on both sides with the same fields."""
     from repro.configs import get_config as ref_get
     from repro_torch.configs import get_config as port_get
 
-    kw = dict(param_dtype=dtype, compute_dtype=dtype)
+    kw = dict(param_dtype=dtype, compute_dtype=dtype, quantization=quantization, kv_quant=kv_quant)
     return (dataclasses.replace(ref_get("llama3_8b").reduced(), matmul_backend=backend_ref, **kw),
             dataclasses.replace(port_get("llama3-8b").reduced(), matmul_backend=backend_port, **kw))
 

@@ -248,3 +248,116 @@ def _to(t, dev):
     if isinstance(t, api.DipWeight):
         return t.with_data(t.data.to(dev))
     return t.to(dev)
+
+
+# ------------------------------------------- quantized serving slice -------
+@pytest.mark.parametrize("epilogue", epi.EPILOGUES)
+@pytest.mark.parametrize("m", [4, 100])
+@pytest.mark.parametrize("deshear", [True, False])
+def test_dip_matmul_int8_kernel_is_exact(dev, epilogue, m, deshear):
+    """int8 x int8 accumulates exactly in int32 on the tensor cores: no
+    epilogue gives the int32 sums bit for bit, an epilogue their f32 image."""
+    g = torch.Generator(device=dev).manual_seed(m)
+    k, n = 1088, 128
+    x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+    p = torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8)
+    s = epi.spec(epilogue)
+    eops = ((torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8),) if s.dual_weight else
+            (torch.randn(n, generator=g, device=dev) * 1e4,) if s.bias else
+            (torch.randint(-127, 128, (m, n), generator=g, device=dev, dtype=torch.int8),) if s.residual else ())
+    kw = dict(epilogue=epilogue, fuse_deshear=deshear)
+    got, want = dip_matmul(x, p, *eops, **kw), dip_matmul_plain(x, p, *eops, **kw)
+    assert got.dtype == want.dtype == (torch.int32 if epilogue == "none" else torch.float32)
+    if epilogue == "none":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", epi.EPILOGUES)
+@pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
+@pytest.mark.parametrize("m", [4, 37])
+@pytest.mark.parametrize("scheme", ["int8", "fp8_e4m3"])
+def test_dip_matmul_q_kernel_matches_plain(dev, scheme, m, prologue, epilogue, dtype):
+    """Both sides multiply the same operands: for int8 the same activation
+    codes (quantized by the same wrapper code on the card) into exact int32
+    sums, for fp8 the same bf16 values into f32 sums; so the f32 tolerance
+    holds for f32 outputs and one bf16 step for bf16 ones."""
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    k, n = 192, 128
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    qw = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, scheme) for _ in range(2)]
+    s = epi.spec(epilogue)
+    eops = ((qw[1].data, qw[1].scale) if s.dual_weight else _operands(epilogue, m, k, n, dtype, dev, g))
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops, prologue_k=k - 7)
+    before = dip_matmul_q.launches
+    got = dip_matmul_q(x, qw[0].data, qw[0].scale, *eops, **kw)
+    assert dip_matmul_q.launches == before + 1 and got.dtype == dtype
+    _close(got, dip_matmul_q_plain(x, qw[0].data, qw[0].scale, *eops, **kw), dtype)
+
+
+# the rmsnorm prologue normalizes float activations, so int8 runs without it
+SYSTOLIC_INPUTS = [(torch.float32, "none"), (torch.float32, "rmsnorm"), (torch.bfloat16, "none"),
+                   (torch.bfloat16, "rmsnorm"), (torch.int8, "none")]
+
+
+@pytest.mark.parametrize("dtype,prologue", SYSTOLIC_INPUTS)
+@pytest.mark.parametrize("epilogue", epi.EPILOGUES)
+@pytest.mark.parametrize("m", [4, 100])
+def test_dip_systolic_kernel_matches_plain(dev, dtype, epilogue, prologue, m):
+    from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    k, n = 192, 128
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        p, pu = (torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8) for _ in range(2))
+        res = torch.randint(-127, 128, (m, n), generator=g, device=dev, dtype=torch.int8)
+    else:
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        p, pu = ((torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(dtype) for _ in range(2))
+        res = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    s = epi.spec(epilogue)
+    eops = (pu,) if s.dual_weight else (torch.randn(n, generator=g, device=dev),) if s.bias else (
+        (res,) if s.residual else ())
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops, prologue_k=k - 7)
+    before = dip_systolic.launches
+    got = dip_systolic(x, p, *eops, **kw)
+    want = dip_systolic_plain(x, p, *eops, **kw)
+    assert dip_systolic.launches == before + 1 and got.dtype == want.dtype
+    if dtype == torch.int8 and epilogue == "none":
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        _close(got, want, torch.float32 if dtype == torch.int8 else dtype)
+
+
+@pytest.mark.parametrize("scheme,kv_quant", [("int8", "int8"), ("fp8_e4m3", "none")])
+def test_reduced_quantized_model_card_matches_cpu(dev, scheme, kv_quant):
+    """Same quantized weights, greedy tokens on the card and on the CPU."""
+    from repro_torch.runtime import Request, Server, ServerConfig
+
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), quantization=scheme,
+                              matmul_backend=api.quant.scheme_info(scheme).backend, kv_quant=kv_quant,
+                              param_dtype="float32", compute_dtype="float32")
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+
+    def to(t, d):
+        if isinstance(t, dict):
+            return {k: to(v, d) for k, v in t.items()}
+        if isinstance(t, api.QuantizedDipWeight):
+            return t.with_data(t.data.to(d), t.scale.to(d))
+        return t.to(d)
+
+    on_card = to(params, dev)
+    prompts = [np.arange(2, 2 + n, dtype=np.int32) * 7 % cfg.vocab_size for n in (5, 13)]
+    outs = []
+    for where, p in (("cuda", on_card), ("cpu", params)):
+        server = Server(cfg, ServerConfig(batch_slots=2, max_seq=48, max_new_tokens=5, temperature=0.0,
+                                          prefill_chunk=8), p, device=where)
+        outs.append(server.serve([Request(rid=i, prompt=q) for i, q in enumerate(prompts)]))
+    assert outs[0] == outs[1]

@@ -164,9 +164,13 @@ def test_kernel_wrapper_checks_its_inputs():
 
 
 def test_registry_names_and_layouts():
-    assert api.list_backends() == ["dip", "torch", "ws"]
+    assert api.list_backends() == ["dip", "dip_fp8", "dip_int8w", "systolic", "torch", "ws"]
     assert api.get_backend("xla").name == "torch" and api.get_backend("pallas_dip").name == "dip"
+    assert api.get_backend("pallas_systolic").name == "systolic"
     assert api.backend_layout("dip") == "dip" and api.backend_layout("ws") == "natural"
+    assert api.backend_layout("systolic") == "dip"
+    assert api.backend_layout("dip_int8w") == api.backend_layout("dip_fp8") == "dip_q"
+    assert (api.get_backend("dip_int8w").scheme, api.get_backend("dip_fp8").scheme) == ("int8", "fp8_e4m3")
     with pytest.raises(KeyError, match="unknown matmul backend"):
         api.get_backend("nope")
 
@@ -179,6 +183,37 @@ def test_config_fields_and_values_match_reference():
     assert dataclasses.asdict(rc) == dataclasses.asdict(pc)
     assert dataclasses.asdict(rc.reduced()) == dataclasses.asdict(pc.reduced())
     assert (rc.padded_vocab, rc.param_count()) == (pc.padded_vocab, pc.param_count())
-    for be in ("xla", "pallas_dip", "ws"):
+    for be in ("xla", "pallas_dip", "ws", "pallas_systolic", "dip_int8w", "dip_fp8"):
         assert (dataclasses.replace(rc, matmul_backend=be).uses_dip_storage
                 == dataclasses.replace(pc, matmul_backend=be).uses_dip_storage)
+
+
+@pytest.mark.parametrize("backend", ["dip", "ws"])
+def test_int8_accumulates_exactly_in_int32(backend):
+    """int8 x int8 on ``dip`` and ``ws``: an exact int32 accumulator and an
+    int32 output with no epilogue, as the reference's ``acc_dtype_for``
+    defines it (its conformance suite holds these backends to atol=0).  At
+    K = 1088 with operands at +-126/127 the sums pass 2^24, where float32
+    is no longer exact; an epilogue returns float32."""
+    r = np.random.default_rng(7)
+    m, k, n = 16, 1088, 70
+    x = (127 - (r.random((m, k)) < 0.3)).astype(np.int8)
+    w = ((127 - (r.random((k, n)) < 0.3)) * np.where(np.arange(n) % 2, 1, -1)).astype(np.int8)
+    exact = x.astype(np.int64) @ w.astype(np.int64)
+    assert np.abs(exact).max() > 2 ** 24
+    assert (np.asarray(_t(x).float() @ _t(w).float(), np.int64) != exact).any()  # f32 would round
+    if backend == "dip":
+        rw, pw = ref_api.DipWeight.from_natural(jnp.asarray(w)), api.DipWeight.from_natural(_t(w))
+        ref_backend = "pallas_dip"
+    else:
+        rw, pw, ref_backend = jnp.asarray(w), _t(w), "ws"
+    want = ref_api.matmul(jnp.asarray(x), rw, backend=ref_backend)
+    got = api.matmul(_t(x), pw, backend=backend)
+    assert str(np.asarray(want).dtype) == "int32" and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), exact)
+    b = r.normal(size=(n,)).astype(np.float32)
+    got_b = api.matmul(_t(x), pw, backend=backend, epilogue="bias", epilogue_operands=(_t(b),))
+    assert got_b.dtype == torch.float32
+    assert_close(got_b, np.asarray(ref_api.matmul(jnp.asarray(x), rw, backend=ref_backend, epilogue="bias",
+                                                  epilogue_operands=(jnp.asarray(b),))), TOL["float32"])

@@ -32,6 +32,9 @@ def test_every_module_imports_without_jax_or_reference():
     assert {"repro_torch.kernels.lm_head_ce", "repro_torch.optim.adamw", "repro_torch.optim.schedules",
             "repro_torch.data.pipeline", "repro_torch.checkpoint.manager", "repro_torch.runtime.trainer",
             "repro_torch.launch.train", "repro_torch.tree"} <= set(mods)
+    # and the quantized serving slice's
+    assert {"repro_torch.api.quant", "repro_torch.kernels.dip_matmul_q",
+            "repro_torch.kernels.dip_systolic"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -89,7 +92,17 @@ def test_launch_serve_on_cpu(capsys):
     assert '"serve"' in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("what", ["verify", "ttl", "kv_int8", "moe", "backend"])
+@pytest.mark.parametrize("scheme", ["int8", "fp8_e4m3"])
+def test_launch_serve_quantized_on_cpu(scheme, capsys):
+    from repro_torch.launch import serve
+    results = serve.main(["--arch", "llama3-8b", "--reduced", "--dtype", "float32", "--requests", "2",
+                          "--max-new", "2", "--max-seq", "64", "--prefill-chunk", "16", "--device", "cpu",
+                          "--quantize", scheme, "--kv-quant", "int8"])
+    assert sorted(results) == [0, 1] and all(len(v) == 2 for v in results.values())
+    assert '"serve"' in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("what", ["verify", "ttl", "kv_int8", "moe", "backend", "quant_grad"])
 def test_branches_outside_the_slice_raise(what):
     cfg = _reduced()
     params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
@@ -99,13 +112,19 @@ def test_branches_outside_the_slice_raise(what):
     elif what == "ttl":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, params, engine_cfg=EngineConfig(ttl_s=1.0), device="cpu")
-    elif what == "kv_int8":
+    elif what == "kv_int8":  # int8 KV serves now (test_torch_quant_serving.py); MLA pools do not
+        from repro_torch.serving import kv_cache
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, params, engine_cfg=EngineConfig(kv_quant="int8"), device="cpu")
+            kv_cache.bytes_per_block(dataclasses.replace(cfg, use_mla=True, kv_lora_rank=64), kv_quant="int8")
     elif what == "moe":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tf_model.param_template(dataclasses.replace(cfg, n_experts=4, moe_top_k=2, d_ff_expert=64))
+    elif what == "quant_grad":  # the straight-through backward is not ported
+        from repro_torch import api
+        x = torch.randn(2, 64, requires_grad=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            api.matmul(x, api.quant.quantize(torch.randn(64, 64), "int8"))
     else:
         from repro_torch import api
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.get_backend("dip_int8w")
+            api.get_backend("dip_tp")
