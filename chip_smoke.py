@@ -28,8 +28,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    uninterrupted one;
 5. llama3-8b at full width (32 layers, d_model 4096, vocab 128256) in bf16
    served through ``Server``, with the kernels' launch counts checked:
-   193 DiP-matmul launches per forward, 32 flash launches per prefill chunk;
-   then quantized through ``launch.serve`` (``--quantize int8 --kv-quant
+   193 DiP-matmul launches per forward, 32 flash launches per prefill chunk,
+   all of them on flash's tensor-core route; one decode step and one prefill
+   chunk profiled on their last inputs (device ms by kernel, launches, device
+   time against wall time); then quantized through ``launch.serve`` (``--quantize int8 --kv-quant
    int8``, then ``--quantize fp8_e4m3``; the same 4 requests, 16 greedy
    tokens): 193 quantized launches per forward and no DiP launch, and the
    first prefill chunk's and first decode step's logits held against the
@@ -45,9 +47,11 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    PyTorch (``torch.matmul``, unfused loss) on the same weights and batch,
    in f32 and in bf16 compute; after it, the same 4 steps through plain
    PyTorch, printed beside the kernels' losses;
-7. kernel times (CUDA events, L2 flushed between launches) beside their
-   bound, the plain version's time and one library call's time, the
-   quantized and wavefront kernels included.
+7. kernel times (CUDA events, L2 flushed between launches; ``ms`` with the
+   launch queued behind a device sleep, so the wrapper's host time is
+   hidden, and ``host_ms`` without, as the first versions timed) beside their bound,
+   the plain version's time and one library call's time, the quantized and
+   wavefront kernels included.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -58,6 +62,7 @@ nothing of JAX or of the JAX package.
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -226,10 +231,10 @@ def main():
     from repro_torch.kernels import epilogue as epi
     from repro_torch.kernels import lm_head_ce as ce
     from repro_torch.kernels import prologue as pro
-    from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
+    from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain, matmul_plan
     from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
     from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain
-    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention, flash_route
     from repro_torch.kernels.ref import quantize_acts_int8
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serving import kv_cache as kvc
@@ -251,11 +256,27 @@ def main():
     log("phase 1: build")
     took = _build.build()
     log(f"  built {list(_build.SOURCES)} in {took:.1f} s")
-    for name in _build.SOURCES:
-        lines = _build.library_path(name).with_suffix(".log").read_text().splitlines()
-        for line in lines:
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+    def kernel_of(line):
+        """The kernel a ptxas 'Compiling entry function' line names: the
+        shortest length-prefixed identifier ending in _kernel, with its
+        mangled template arguments (ILi2ELb1E: <2, true>)."""
+        mangled = line.split("'")[1]
+        found = []
+        for mm in re.finditer(r"(?=(\d+))", mangled):  # every digit run and each of its suffixes
+            n, start = int(mm.group(1)), mm.start() + len(mm.group(1))
+            ident = mangled[start:start + n]
+            if len(ident) == n and ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+                rest = mangled[start + n:]
+                found.append(ident + (rest[:rest.index("EE") + 1] if rest.startswith("I") and "EE" in rest else ""))
+        return min(found, key=len) if found else mangled
+
+    for name in _build.SOURCES:  # ptxas -v: each kernel's registers, stack and spills
+        kernel = "?"
+        for line in _build.library_path(name).with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                kernel = kernel_of(line)
+            elif "registers" in line or "spill" in line:
+                log(f"  {name} {kernel}: {line.split(':', 1)[-1].strip()}")
 
     # ---------------------------------------------- 2. kernels vs plain -----
     log("phase 2: each kernel against its plain version on the card")
@@ -297,6 +318,15 @@ def main():
     # 256 are held too; M = 4092: a ragged last row tile at that size
     dip_cases = [(4, proj), (256, proj + extra), (4096, proj[:5]), (4092, proj[2:3])]
     worst = {"dip_matmul": 0.0, "flash_attention": 0.0, "lm_head_ce": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan_label(m, n, k, epilogue, dt_name):
+        """The bf16 kernel's plan for this call (the f32 kernel has none)."""
+        if dt_name != "bfloat16":
+            return ""
+        pl = matmul_plan(m, n, k, epi.spec(epilogue).dual_weight, sms)
+        return f" [{pl.regime} {pl.bm}x{pl.bn}, {pl.splits} split(s), {pl.blocks} blocks]"
+
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
         for m, cases in dip_cases:
@@ -304,7 +334,8 @@ def main():
                 x, p, eops, kw = dip_inputs(m, k, n, e, pr, dtype)
                 got = dip_matmul(x, p, *eops, **kw)
                 want = dip_matmul_plain(x, p, *eops, **kw)
-                err = close(f"dip {dt_name} M={m} {label} K={k} N={n} {e}/{pr}", got, want, TOL[dt_name])
+                err = close(f"dip {dt_name} M={m} {label} K={k} N={n} {e}/{pr}{plan_label(m, n, k, e, dt_name)}",
+                            got, want, TOL[dt_name])
                 worst["dip_matmul"] = max(worst["dip_matmul"], err)
                 del x, p, eops, got, want
         x, p, eops, kw = dip_inputs(256, d, d, "residual", "none", dtype)
@@ -347,8 +378,8 @@ def main():
             q, k, v = flash_inputs(dk, dvv, dtype)
             kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
             got = flash_attention(q, k, v, **kw)
-            err = close(f"flash {dt_name} BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label}",
-                        got, attention_plain(q, k, v, **kw), TOL[dt_name])
+            err = close(f"flash {dt_name} BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label} "
+                        f"[{flash_route(dtype, dk, dvv)}]", got, attention_plain(q, k, v, **kw), TOL[dt_name])
             worst["flash_attention"] = max(worst["flash_attention"], err)
             dead = kvl == 0
             if dead.any():
@@ -617,10 +648,14 @@ def main():
     eng = server.engine
     times = {"_prefill_fwd": [], "_decode": []}
 
+    last_args = {}
+
     def timed(attr):
         f = getattr(eng, attr)
+        last_args[attr + "_fn"] = f
 
         def run(*a):
+            last_args[attr] = a  # profiled after the run
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = f(*a)
@@ -638,12 +673,14 @@ def main():
             for i in range(4)]
     st_reqs_phase5 = reqs
     torch.cuda.reset_peak_memory_stats()
-    dip_matmul.launches = flash_attention.launches = ce.lm_head_ce.launches = 0
+    dip_matmul.launches = flash_attention.launches = flash_attention.launches_tc = ce.lm_head_ce.launches = 0
     t0 = time.perf_counter()
     results = server.serve(reqs)
     wall = time.perf_counter() - t0
     launches = {"dip_matmul": dip_matmul.launches, "flash_attention": flash_attention.launches,
                 "lm_head_ce": ce.lm_head_ce.launches}
+    flash_tc = flash_attention.launches_tc
+    routes_by_path = {"serve": {"tensor_cores": flash_tc, "cuda_cores": launches["flash_attention"] - flash_tc}}
     peak = torch.cuda.max_memory_allocated()
     st = server.last_stats
     n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
@@ -661,6 +698,9 @@ def main():
         f"(193 DiP launches per forward, 32 flash launches per prefill chunk)")
     if launches != want:
         raise AssertionError("full width: launch counts differ from 193/forward and 32/prefill chunk")
+    log(f"  flash launches on the tensor-core route {flash_tc} of {launches['flash_attention']}")
+    if flash_tc != want["flash_attention"]:
+        raise AssertionError("full width: a prefill flash launch left the tensor-core route")
     prefill_s, decode_s = sum(times["_prefill_fwd"]), sum(times["_decode"])
     serving = {
         "prefill_tok_per_s": prompt_tokens / prefill_s,
@@ -673,7 +713,37 @@ def main():
         "decode_steps": n_decode,
     }
     log("  serving " + json.dumps(serving))
-    del server, eng, params
+
+    def profile_step(fn, args, what):
+        """One call of an engine step under the profiler: device ms by
+        kernel, launches, and the summed device time against the wall time
+        of the synchronised call."""
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof, torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t)
+        by_kernel = {}
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                us = getattr(ev, "self_device_time_total", None)
+                by_kernel[ev.key] = (ev.count, (us if us is not None else ev.self_cuda_time_total) / 1e3)
+        device_ms = sum(v[1] for v in by_kernel.values())
+        log(f"  {what} (profiled): device ms of all kernels {device_ms:.2f} in "
+            f"{sum(v[0] for v in by_kernel.values())} launches; wall {wall_ms:.2f} ms (profiler on), "
+            f"device idle {100 * max(0.0, 1 - device_ms / wall_ms):.1f}% of it")
+        for key, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
+            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+        return {"device_ms": device_ms, "wall_ms": wall_ms,
+                "launches": sum(v[0] for v in by_kernel.values())}
+
+    # the bf16 steps on their last inputs: what the kernels leave of a step
+    serving["profile_decode"] = profile_step(last_args["_decode_fn"], last_args["_decode"], "decode step")
+    serving["profile_prefill"] = profile_step(last_args["_prefill_fwd_fn"], last_args["_prefill_fwd"],
+                                              "prefill chunk")
+    del server, eng, params, last_args
     torch.cuda.empty_cache()
     serve_launches = launches
     counters = {"dip_matmul": dip_matmul, "dip_matmul_q": dip_matmul_q, "dip_systolic": dip_systolic,
@@ -682,9 +752,15 @@ def main():
     def reset_counts():
         for c in counters.values():
             c.launches = 0
+        flash_attention.launches_tc = 0
 
     def read_counts():
         return {k: c.launches for k, c in counters.items()}
+
+    def flash_routes():
+        """The flash launches of the last run by route."""
+        return {"tensor_cores": flash_attention.launches_tc,
+                "cuda_cores": flash_attention.launches - flash_attention.launches_tc}
 
     serve_launches.update(dip_matmul_q=0, dip_systolic=0)
 
@@ -728,10 +804,10 @@ def main():
                             # the quantized kernels alone: plain matmuls with the
                             # flash kernel kept on both sides (its launches here
                             # are a comparison's, so the count is put back)
-                            n_flash, again = flash_attention.launches, clone_tree(inputs)
+                            n_flash, again = (flash_attention.launches, flash_attention.launches_tc), clone_tree(inputs)
                             with plain_backends(), torch.no_grad():
                                 ref_l = flash_kept(a[0], again, *a[2:])[0][..., :cfg.vocab_size].float()
-                            flash_attention.launches = n_flash
+                            flash_attention.launches, flash_attention.launches_tc = n_flash
                             st["flash_kept"] = (out[0][..., :cfg.vocab_size].float() - ref_l).abs().max().item()
                             del again, ref_l
                         cap = {"vocab": cfg.padded_vocab}
@@ -750,6 +826,7 @@ def main():
         results = serve_cli.main(argv, on_server=hook)
         wall = time.perf_counter() - t0
         launches = read_counts()
+        routes_by_path["serve_int8" if scheme == "int8" else "serve_fp8"] = routes = flash_routes()
         peak = torch.cuda.max_memory_allocated()
         server, reqs, times = st["server"], st["reqs"], st["times"]
         n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
@@ -762,6 +839,9 @@ def main():
         log(f"  launches {launches}; expected {want} (193 quantized launches per forward, no DiP launch)")
         if launches != want:
             raise AssertionError(f"quantized full width ({scheme}): launch counts differ from the expected ones")
+        log(f"  flash launches by route {routes}")
+        if routes["cuda_cores"]:
+            raise AssertionError(f"quantized full width ({scheme}): a bf16 flash launch left the tensor-core route")
         head = server.params["lm_head"]
         if not (isinstance(head, api.QuantizedDipWeight) and head.scheme == scheme):
             raise AssertionError("quantized full width: the lm_head is not quantized")
@@ -842,16 +922,19 @@ def main():
             setattr(eng, attr, run)
         reset_counts()
         out = server.serve([Request(rid=0, prompt=prompt)])
-        sys_runs[backend] = (out, seen, steps, read_counts())
+        sys_runs[backend] = (out, seen, steps, read_counts(), flash_routes())
         del server, eng
-    (out_s, seen_s, steps_s, launches_s), (out_d, seen_d, steps_d, launches_d) = (
+    (out_s, seen_s, steps_s, launches_s, routes_s), (out_d, seen_d, steps_d, launches_d, routes_d) = (
         sys_runs["pallas_systolic"], sys_runs["dip"])
+    routes_by_path["serve_systolic"] = routes_s  # the dip run beside it is a comparison's
     n_fwd = len(seen_s)
     want_s = {"dip_matmul": 0, "dip_matmul_q": 0, "dip_systolic": 193 * n_fwd,
               "flash_attention": 32 * len(steps_s["_prefill_fwd"]), "lm_head_ce": 0}
     log(f"  launches {launches_s}; expected {want_s}; tokens systolic {out_s[0]} / dip {out_d[0]}")
     if launches_s != want_s or launches_d["dip_matmul"] != 193 * len(seen_d) or launches_d["dip_systolic"]:
         raise AssertionError("full-width wavefront serving: launch counts differ from the expected ones")
+    if routes_s["cuda_cores"] or routes_d["cuda_cores"]:
+        raise AssertionError("full-width wavefront serving: a bf16 flash launch left the tensor-core route")
     if [t for t, _ in seen_s] != [t for t, _ in seen_d][:n_fwd] or n_fwd < 2:
         raise AssertionError("full-width wavefront serving: the two backends took different steps")
     # step i's logits pick token i; after a token that differs (a near tie in
@@ -993,15 +1076,22 @@ def main():
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------- 7. times -----
-    log("phase 7: times (ms, median of 10 after 3 warm-ups, L2 flushed before each)")
+    log("phase 7: times (ms, median of 10 after 3 warm-ups, L2 flushed before each; ms: device time, "
+        "host_ms: with the host's launch time)")
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
-    def time_ms(fn, iters=10, warmup=3):
+    def time_ms(fn, iters=10, warmup=3, queued=True):
+        """Median CUDA-event time of fn().  queued: the call is enqueued
+        behind a ~1 ms device sleep, so the events time the device's work
+        alone; else the host's launch time counts wherever the device waits
+        for it (as the first versions of this script timed)."""
         for _ in range(warmup):
             fn()
         ts = []
         for _ in range(iters):
             flush.zero_()
+            if queued:
+                torch.cuda._sleep(2_000_000)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
@@ -1037,14 +1127,18 @@ def main():
                 nbytes += (4 * (k + m) if gain is not None else 0)
                 b_ms, b_by = bound_ms(nbytes, 2 * m * k * n * nw, dt_name)
                 row = dict(kernel="dip_matmul", dtype=dt_name, shape=f"M={m} {label} K={k} N={n} {e}/{pr}",
+                           plan=plan_label(m, n, k, e, dt_name).strip(" []"),
                            ms=time_ms(lambda: dip_matmul(x, p, *eops, **kw)),
+                           host_ms=time_ms(lambda: dip_matmul(x, p, *eops, **kw), queued=False),
                            plain_ms=time_ms(lambda: dip_matmul_plain(x, p, *eops, **kw)),
-                           library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+                           library_ms=time_ms(library),
+                           library_host_ms=time_ms(library, queued=False), bound_ms=b_ms, bound_by=b_by)
                 rows_out.append(row)
                 log("  " + json.dumps(row))
                 if label == "gate+up":  # the ws baseline: the same kernel reading natural storage
                     ws_kw = dict(kw, fuse_deshear=False)
                     row = dict(row, kernel="ws_matmul", ms=time_ms(lambda: dip_matmul(x, p, *eops, **ws_kw)),
+                               host_ms=time_ms(lambda: dip_matmul(x, p, *eops, **ws_kw), queued=False),
                                plain_ms=time_ms(lambda: dip_matmul_plain(x, p, *eops, **ws_kw)))
                     rows_out.append(row)
                     log("  " + json.dumps(row))
@@ -1063,8 +1157,9 @@ def main():
                 qo + i.view(1, -1, 1) >= torch.arange(sk, device=dev).view(1, 1, -1))
             q4, k4, v4, m4 = q[None], k[None], v[None], mask[None]
             row = dict(kernel="flash_attention", dtype=dt_name,
-                       shape=f"BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label}",
+                       shape=f"BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label}", route=flash_route(dtype, dk, dvv),
                        ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
+                       host_ms=time_ms(lambda: flash_attention(q, k, v, **kw), queued=False),
                        plain_ms=time_ms(lambda: attention_plain(q, k, v, **kw)),
                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                            q4, k4, v4, attn_mask=m4, scale=dk ** -0.5)),
@@ -1159,8 +1254,15 @@ def main():
                     lib_name = "torch._int_mm of the int8 codes on natural storage, per weight" + pad_note
                 else:
                     nat = [permute.unpermute_tiled(q.data, 64).to(torch.bfloat16).contiguous() for q in qws]
-                    library = lambda: [torch.matmul(x, w) for w in nat]  # noqa: E731
-                    lib_name = "torch.matmul of bf16 x by the bf16-upcast natural weight, per weight"
+                    scales = [q.scale.reshape(1, -1).float() for q in qws]
+
+                    def library():  # the kernel's whole function
+                        xx = pro.apply(pr, x, *kw["prologue_operands"])
+                        z = torch.matmul(xx, nat[0]) * scales[0]
+                        return F.silu(z) * (torch.matmul(xx, nat[1]) * scales[1]) if s.dual_weight else z
+                    lib_name = (("rmsnorm, " if pr == "rmsnorm" else "") + "torch.matmul by the bf16-upcast natural "
+                                "weight, per-channel scales" + (", swiglu" if s.dual_weight else "")
+                                + ": the kernel's whole function")
                 b_ms, b_by = bound_ms(2 * m * k + nw * (k * n + 4 * n) + 2 * m * n + gbytes, 2 * m * k * n * nw,
                                       "int8" if scheme == "int8" else "bfloat16")
                 row = dict(kernel="dip_matmul_q_int8" if scheme == "int8" else "dip_matmul_q_fp8",
@@ -1219,9 +1321,15 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1], "launches": sum(by_path.values()),
                         "launches_by_path": by_path,
-                        "max_abs_err": worst[name], "ms": row["ms"], "plain_ms": row["plain_ms"],
+                        "max_abs_err": worst[name], "ms": row["ms"], "host_ms": row.get("host_ms"),
+                        "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": f"{pick[name][0]} {row['shape']}"})
+    flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
+    flash_line["launches_by_route"] = {r: sum(v[r] for v in routes_by_path.values())
+                                       for r in ("tensor_cores", "cuda_cores")}
+    flash_line["route_of_timed_shape"] = next(r for r in rows_out if r["kernel"] == "flash_attention"
+                                              and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -3,30 +3,53 @@
 // Replaces repro/kernels/dip_matmul.py::dip_matmul_pallas (and, with
 // deshear = 0, ws_matmul_pallas).  P is the DiP-permutated weight storage
 // (dip_common.cuh).  The TPU kernel walks K on a sequential grid axis and
-// carries the sum in VMEM scratch; here one block owns one 64x64 output tile
-// and loops over K itself, since blocks run in no order.
+// carries the sum in VMEM scratch; here a block loops over K itself, since
+// blocks run in no order, and a K range split across blocks is summed by a
+// second pass.
 //
-// Per K step the block
-//   * loads the 64x64 x tile with the rmsnorm prologue applied on load,
-//     x * inv_rms[m] * gain[k] in f32, cast back to the x dtype before the
-//     product (repro/kernels/prologue.py::kernel_load);
-//   * reads the 64x64 tile of P row by row (coalesced 16-byte loads) and
-//     writes it to shared memory already de-sheared;
-//   * accumulates: bf16 in f32 and int8 in exact int32 through the tensor
-//     cores (WMMA, i.e. mma.sync), f32 with IEEE FMAs on the CUDA cores (no
-//     TF32).
-// After the K loop it applies the epilogue to the f32 (int8: the int32
-// widened to f32) accumulator and writes the output once; int8 with no
-// epilogue writes the int32 accumulator itself, as the reference returns
-// it.  swiglu streams the gate and up tiles over the same x tile into two
-// accumulators.
+// bf16, the served and trained dtype, runs one of two mainloops, chosen by
+// the plan the wrapper computes (kernels/dip_matmul.py::matmul_plan):
 //
-// Bound on the card: at decode (M = slots) by the weight bytes; at prefill
-// (M = 256) by tensor-core operations.  This first design does nothing about
-// either yet: no TMA, no wgmma, no pipelining, and one 64x64 tile per block.
+//   * prefill and training (M > 32; M = 256 a chunk, 4096 a training batch)
+//     are bound by the tensor-core operations.  dip_wgmma_kernel: 128 x 128
+//     block tiles (64 columns per weight for swiglu, so that one
+//     m64n128k16 product serves both weights), two warpgroups of 64 rows,
+//     wgmma with both operands in shared memory, K-major with the 128-byte
+//     swizzle.  A ring of 4 stages is filled by cp.async 16-byte copies:
+//     x lands swizzled, ready for wgmma, and P lands raw.  While a step's
+//     products run, the block turns the next stage's P into the K-major
+//     operand (one of three buffers), de-shearing it on the way: each
+//     thread gathers two 16-byte operand chunks, of columns n and n + 1,
+//     from nine 32-bit words, and the 32 lanes' words fall on 32 banks.
+//     The rmsnorm prologue x * inv_rms[m] * gain[k] (f32, cast back to
+//     bf16) is applied on the same pass, in place in the x stage, its gain
+//     carried through the ring.  One step's products stay in flight across
+//     the barrier, so the tensor cores do not drain between steps.  Where
+//     the tiles fill fewer SMs than the card has, K is split.
+//   * decode (M <= 32, the serving slots) is bound by the weight bytes
+//     (4.5 ms of weights per llama3-8b forward at 3.35 TB/s).
+//     dip_mma_kernel: 32 x 64 tiles (two blocks an SM), eight warps in a
+//     2 x 4 grid, mma.sync m16n8k16 fed by ldmatrix, a ring of 3-4 cp.async
+//     stages.  A projection of N/64 tiles would leave most SMs idle, so the
+//     plan splits K until at least 2 x SMs blocks stream weights.  Each
+//     thread de-shears the chunks it copied itself (no barrier of its own),
+//     in an element order rotated by lane so that its 2-byte scatter is free
+//     of bank conflicts, interleaved with the products of the step before.
+//
+// With a K split each split writes f32 partial sums to a workspace the
+// wrapper allocates, and splitk_reduce_kernel adds them in split order (no
+// atomics) and only then applies the epilogue; without one the epilogue is
+// applied straight from the accumulator registers, with one cast.
+//
+// f32 keeps IEEE FMAs on the CUDA cores (no TF32) and int8 exact int32 WMMA
+// s8 (dip_matmul_kernel): one block per 64x64 output tile, the tile
+// de-sheared on its way into shared memory, the prologue applied on load.
+// int8 with no epilogue writes the int32 accumulator itself, as the
+// reference returns it.
 #include <algorithm>
 
 #include "dip_common.cuh"
+#include "sm90_mma.cuh"
 
 namespace {
 
@@ -71,8 +94,8 @@ __device__ __forceinline__ void fma_tile(const float* xs, const float* ws, const
   }
 }
 
-// T: x, P and residual type (float, bf16, int8); O: output type (T for the
-// float types; int for int8 without an epilogue, float with one).
+// T: x, P and residual type (float, int8); O: output type (float; for int8
+// int without an epilogue, float with one).
 template <typename T, typename O, bool DUAL>
 __global__ void __launch_bounds__(THREADS) dip_matmul_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -109,31 +132,22 @@ __global__ void __launch_bounds__(THREADS) dip_matmul_kernel(const Args a) {
       }
     }
   } else {
+    static_assert(std::is_same<T, int8_t>::value, "bf16 runs dip_mma_kernel / dip_wgmma_kernel");
     const int warp = threadIdx.x / 32, wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-    constexpr bool S8 = std::is_same<T, int8_t>::value;
-    using A = typename std::conditional<S8, int, float>::type;  // accumulator type
-    using Frag = typename std::conditional<S8, FragS32, FragF32>::type;
+    using A = int;  // the exact int32 accumulator
+    using Frag = FragS32;
     Frag acc[2][2], accu[2][2];
     zero_frags<Frag, A>(acc, accu);
     T* xs = reinterpret_cast<T*>(smem);
-    constexpr int ELEMS = S8 ? S8_TILE : Tile<T>::ELEMS;
-    T* ws = xs + ELEMS;
-    T* wu = ws + ELEMS;
+    T* ws = xs + S8_TILE;
+    T* wu = ws + S8_TILE;
     for (int k0 = 0; k0 < a.K; k0 += TILE) {
       __syncthreads();
-      if constexpr (S8) {
-        load_x_tile_s8(xs, x, a.inv_rms, a.gain, a.M, a.K, m0, k0);
-        load_w_tile_s8(ws, p, a.N, k0, n0, a.deshear);
-        if (DUAL) load_w_tile_s8(wu, pu, a.N, k0, n0, a.deshear);
-        __syncthreads();
-        mma_tile_s8<DUAL>(xs, ws, wu, acc, accu, wr, wc);
-      } else {
-        load_x_tile<T>(xs, x, a.inv_rms, a.gain, a.M, a.K, m0, k0);
-        load_w_tile<T>(ws, p, a.N, k0, n0, a.deshear);
-        if (DUAL) load_w_tile<T>(wu, pu, a.N, k0, n0, a.deshear);
-        __syncthreads();
-        mma_tile_bf16<DUAL>(xs, ws, wu, acc, accu, wr, wc);
-      }
+      load_x_tile_s8(xs, x, a.inv_rms, a.gain, a.M, a.K, m0, k0);
+      load_w_tile_s8(ws, p, a.N, k0, n0, a.deshear);
+      if (DUAL) load_w_tile_s8(wu, pu, a.N, k0, n0, a.deshear);
+      __syncthreads();
+      mma_tile_s8<DUAL>(xs, ws, wu, acc, accu, wr, wc);
     }
     __syncthreads();  // the staging buffers below alias the operand tiles
     A* cs = reinterpret_cast<A*>(smem);
@@ -158,9 +172,7 @@ template <typename T, bool DUAL>
 size_t smem_bytes() {
   if (std::is_same<T, int8_t>::value)
     return std::max<size_t>((DUAL ? 3 : 2) * S8_TILE, (DUAL ? 2 : 1) * TILE * CSTRIDE * sizeof(int));
-  const size_t operands = (DUAL ? 3 : 2) * Tile<T>::ELEMS * sizeof(T);
-  const size_t staging = std::is_same<T, float>::value ? 0 : (DUAL ? 2 : 1) * TILE * CSTRIDE * sizeof(float);
-  return operands > staging ? operands : staging;
+  return (DUAL ? 3 : 2) * Tile<T>::ELEMS * sizeof(T);
 }
 
 template <typename T, typename O, bool DUAL>
@@ -181,21 +193,531 @@ cudaError_t launch_any(const Args& a, cudaStream_t s) {
   return a.epilogue == EPI_SWIGLU ? launch<T, O, true>(a, s) : launch<T, O, false>(a, s);
 }
 
+// ---------------------------------------------- bf16: tensor-core mainloop ---
+using bf16 = __nv_bfloat16;
+constexpr int MMA_THREADS = 256;     // eight warps, 2 (rows) x 4 (columns)
+constexpr int WARPS_N = 4;
+constexpr int XS = TILE + 8;         // x stage / operand row stride (elements)
+
+template <bool DUAL>
+struct Cfg {
+  static constexpr int MI = 1, NI = 2;               // m16 and n8 tiles per warp
+  static constexpr int BM = 2 * 16 * MI;             // block rows
+  static constexpr int BN = WARPS_N * 8 * NI;        // block columns per weight
+  static constexpr int WS = BN + 8;                  // weight row stride (elements)
+  static constexpr int NW = DUAL ? 2 : 1;
+  // the swiglu tile keeps two blocks on an SM with three stages
+  static constexpr int STAGES = DUAL ? 3 : 4;
+  static constexpr int X_ELEMS = BM * XS;
+  static constexpr int W_ELEMS = TILE * WS;
+  static constexpr int SLOT = X_ELEMS + NW * W_ELEMS;
+  static constexpr size_t SMEM = (size_t)(STAGES * SLOT + 2 * SLOT) * sizeof(bf16);
+  static constexpr int X_CHUNKS = BM * TILE / 8 / MMA_THREADS;  // 16-byte chunks per thread
+  static constexpr int W_CHUNKS = TILE * BN / 8 / MMA_THREADS;
+};
+
+// Rotate the eight bf16 of a chunk left by 2 * rot elements (rot in 0..3)
+// with selects, so every element index below stays a compile-time constant.
+__device__ __forceinline__ uint4 rotate_chunk(uint4 v, int rot) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r[i] = rot == 0 ? w[i] : rot == 1 ? w[(i + 1) & 3] : rot == 2 ? w[(i + 2) & 3] : w[(i + 3) & 3];
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// One block: rows m0.., columns n0.. (of each weight), K tiles
+// [kt0, kt0 + nk) with kt0 = blockIdx.z * kps.  part != null: write the f32
+// sums of this split to part[(split * NW + w) * M * N + m * N + n].
+template <bool DUAL>
+__global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, const int kps,
+                                                              float* __restrict__ part) {
+  using C = Cfg<DUAL>;
+  constexpr int MI = C::MI, NI = C::NI;
+  constexpr int S = C::STAGES, NW = C::NW, BN = C::BN, WS = C::WS, CPR = BN / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* raw = reinterpret_cast<bf16*>(smem);   // [S][SLOT]: x tile, then the weight tile(s)
+  bf16* op = raw + S * C::SLOT;                 // [2][SLOT]: converted operands
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * C::BM;
+  const int kt0 = blockIdx.z * kps, nk = min(a.K / TILE - kt0, kps);
+  const int M = a.M, N = a.N, K = a.K;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* w_src[2] = {static_cast<const bf16*>(a.p), static_cast<const bf16*>(a.p_up)};
+  const bool prologue = a.inv_rms != nullptr, deshear = a.deshear != 0;
+  const int rot = (lane >> 3) & 3;
+
+  // every thread copies, and later converts, the same chunks of each stage:
+  // x chunk j is row (tid + 256 j) / 8, columns 8 * ((tid + 256 j) % 8);
+  // weight chunk j is row (tid + 256 j) / CPR, columns 8 * ((tid + 256 j) % CPR)
+  auto issue = [&](int t) {
+    bf16* slot = raw + (t % S) * C::SLOT;
+    const int k0 = (kt0 + t) * TILE;
+#pragma unroll
+    for (int j = 0; j < C::X_CHUNKS; ++j) {
+      const int v = tid + MMA_THREADS * j, r = v >> 3, c = (v & 7) * 8, gm = m0 + r;
+      sm90::cp_async16(slot + r * XS + c, x + (size_t)min(gm, M - 1) * K + k0 + c, gm < M);
+    }
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int j = 0; j < C::W_CHUNKS; ++j) {
+        const int v = tid + MMA_THREADS * j, s = v / CPR, c = (v % CPR) * 8, gn = n0 + c;
+        sm90::cp_async16(slot + C::X_ELEMS + w * C::W_ELEMS + s * WS + c,
+                         w_src[w] + (size_t)(k0 + s) * N + min(gn, N - 8), gn < N);
+      }
+  };
+
+  // stage t -> operand buffer t & 1: the prologue on x, the de-shear on P.
+  // Piece q of 4 takes the chunks whose index is q mod 4, so that the pass
+  // interleaves with the four 16-deep products of the step before.
+  auto convert = [&](int t, int q) {
+    const bf16* slot = raw + (t % S) * C::SLOT;
+    bf16* dst = op + (t & 1) * C::SLOT;
+    const int k0 = (kt0 + t) * TILE;
+    if (prologue) {
+#pragma unroll
+      for (int j = q; j < C::X_CHUNKS; j += 4) {
+        const int v = tid + MMA_THREADS * j, r = v >> 3, c = (v & 7) * 8, gm = m0 + r;
+        uint4 chunk = *reinterpret_cast<const uint4*>(slot + r * XS + c);
+        if (gm < M) {
+          __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&chunk);
+          const float iv = a.inv_rms[gm];
+          const float4 g0 = *reinterpret_cast<const float4*>(a.gain + k0 + c);
+          const float4 g1 = *reinterpret_cast<const float4*>(a.gain + k0 + c + 4);
+          const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float2 f = __bfloat1622float2(e[i]);
+            e[i] = __floats2bfloat162_rn((f.x * iv) * gs[2 * i], (f.y * iv) * gs[2 * i + 1]);
+          }
+        }
+        *reinterpret_cast<uint4*>(dst + r * XS + c) = chunk;
+      }
+    }
+    if (deshear) {
+#pragma unroll
+      for (int wj = q; wj < NW * C::W_CHUNKS; wj += 4) {
+        const int w = wj / C::W_CHUNKS, j = wj % C::W_CHUNKS;
+        const int v = tid + MMA_THREADS * j, s = v / CPR, c = (v % CPR) * 8;
+        const uint4 chunk = rotate_chunk(
+            *reinterpret_cast<const uint4*>(slot + C::X_ELEMS + w * C::W_ELEMS + s * WS + c), rot);
+        const bf16* e = reinterpret_cast<const bf16*>(&chunk);
+        bf16* wd = dst + C::X_ELEMS + w * C::W_ELEMS;
+        // P[s][c + i] lands at W[(s + c + i) mod 64][c + i]; element i of
+        // the rotated chunk is element (i + 2 rot) mod 8 of the stored one
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int ci = c + ((i + 2 * rot) & 7);
+          wd[((s + ci) & (TILE - 1)) * WS + ci] = e[i];
+        }
+      }
+    }
+  };
+
+  float acc[NW][MI][NI][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[w][i][j][e] = 0.0f;
+  const int wr = (warp / WARPS_N) * 16 * MI, wc = (warp % WARPS_N) * 8 * NI;
+
+  // Step t: the products of stage t, with the fragments of the next 16-deep
+  // slice loaded before this slice's products are issued, and stage t + 1
+  // converted in four pieces between them.
+  auto compute = [&](int t) {
+    const bf16* slot = raw + (t % S) * C::SLOT;
+    const bf16* cvt = op + (t & 1) * C::SLOT;
+    const bf16* xs = prologue ? cvt : slot;
+    const bf16* ws = (deshear ? cvt : slot) + C::X_ELEMS;
+    const bool next = t + 1 < nk;
+    if (next) sm90::cp_async_wait<S - 2>();  // this thread's copies of stage t + 1 have landed
+    uint32_t af[2][MI][4], bfr[2][NW][NI / 2][4];
+    auto load_frags = [&](int buf, int kk) {
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        sm90::ldmatrix_x4(af[buf][i], xs + (wr + 16 * i + (lane & 15)) * XS + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int j = 0; j < NI / 2; ++j)
+          sm90::ldmatrix_x4_trans(bfr[buf][w][j], ws + w * C::W_ELEMS +
+                                                      (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * WS + wc +
+                                                      16 * j + (lane >> 4) * 8);
+    };
+    load_frags(0, 0);
+#pragma unroll
+    for (int q = 0; q < TILE / 16; ++q) {
+      if (q + 1 < TILE / 16) load_frags((q + 1) & 1, 16 * (q + 1));
+      if (next) convert(t + 1, q);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int j = 0; j < NI / 2; ++j)
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            sm90::mma_bf16(acc[w][i][2 * j], af[q & 1][i], bfr[q & 1][w][j][0], bfr[q & 1][w][j][1]);
+            sm90::mma_bf16(acc[w][i][2 * j + 1], af[q & 1][i], bfr[q & 1][w][j][2], bfr[q & 1][w][j][3]);
+          }
+    }
+  };
+
+  // the ring: stages 0 .. S-2 in flight before the loop; step t issues stage
+  // t + S - 1 into the slot stage t - 1 left, converts stage t + 1 and
+  // multiplies stage t
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < nk) issue(t);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<S - 2>();
+  if (nk > 0)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) convert(0, q);
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    if (t + S - 1 < nk) issue(t + S - 1);
+    sm90::cp_async_commit();
+    compute(t);
+    __syncthreads();
+  }
+  sm90::cp_async_wait<0>();
+
+  const bf16* res = static_cast<const bf16*>(a.residual);
+  bf16* out = static_cast<bf16*>(a.out);
+  const size_t mn = (size_t)M * N;
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + wr + 16 * i + (lane >> 2) + 8 * h, gn = n0 + wc + 8 * j + 2 * (lane & 3);
+        if (gm >= M || gn >= N) continue;
+        const size_t o = (size_t)gm * N + gn;
+        if (part != nullptr) {
+#pragma unroll
+          for (int w = 0; w < NW; ++w)
+            *reinterpret_cast<float2*>(part + (blockIdx.z * NW + w) * mn + o) =
+                make_float2(acc[w][i][j][2 * h], acc[w][i][j][2 * h + 1]);
+        } else {
+          const float u0 = DUAL ? acc[NW - 1][i][j][2 * h] : 0.0f;
+          const float u1 = DUAL ? acc[NW - 1][i][j][2 * h + 1] : 0.0f;
+          const float z0 = apply_epilogue(a.epilogue, acc[0][i][j][2 * h], u0, a.bias, res, N, gm, gn);
+          const float z1 = apply_epilogue(a.epilogue, acc[0][i][j][2 * h + 1], u1, a.bias, res, N, gm, gn + 1);
+          *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(z0, z1);
+        }
+      }
+}
+
+// The split-K second pass: the splits' partial sums added in split order,
+// then the epilogue on the whole sum and one cast.
+template <bool DUAL>
+__global__ void splitk_reduce_kernel(const Args a, const float* __restrict__ part, int splits) {
+  constexpr int NW = DUAL ? 2 : 1;
+  const size_t mn = (size_t)a.M * a.N;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= mn) return;
+  float z = 0.0f, zu = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    z += part[(size_t)s * NW * mn + e];
+    if (DUAL) zu += part[((size_t)s * NW + 1) * mn + e];
+  }
+  const int gm = (int)(e / a.N), gn = (int)(e % a.N);
+  static_cast<bf16*>(a.out)[e] = from_f32<bf16>(
+      apply_epilogue(a.epilogue, z, zu, a.bias, static_cast<const bf16*>(a.residual), a.N, gm, gn));
+}
+
+template <bool DUAL>
+cudaError_t launch_mma(const Args& a, int splits, int kps, float* part, cudaStream_t stream) {
+  using C = Cfg<DUAL>;
+  static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(dip_mma_kernel<DUAL>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid((a.N + C::BN - 1) / C::BN, (a.M + C::BM - 1) / C::BM, splits);
+  dip_mma_kernel<DUAL><<<grid, MMA_THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t mn = (size_t)a.M * a.N;
+  splitk_reduce_kernel<DUAL><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a, part, splits);
+  return cudaGetLastError();
+}
+
+// -------------------------------------- bf16 prefill: wgmma mainloop -------
+// Two warpgroups, each owning 64 rows of the block's 128 and all of its 128
+// columns (swiglu: 64 gate columns then the 64 up columns of the same
+// output columns, so one m64n128k16 product serves both weights).
+constexpr int WG_ROWS = 64, WG_COLS = 128;
+constexpr int RASTER = 8;  // row tiles per rasterization group
+
+template <bool DUAL>
+struct WgCfg {
+  static constexpr int THREADS = 256;
+  static constexpr int BM = 2 * WG_ROWS;
+  static constexpr int BN = DUAL ? WG_COLS / 2 : WG_COLS;  // output columns (per weight)
+  static constexpr int RS = BN + 32;  // raw P row stride (elements): keeps the gather conflict-free
+  static constexpr int STAGES = 4;    // ring slots of raw x and P
+  static constexpr int B_BUFS = 3;    // de-sheared operand buffers: one being read while two are filled
+  static constexpr int X_BYTES = BM * TILE * 2;                  // x tile, K-major, 128B swizzle
+  static constexpr int P_BYTES = (DUAL ? 2 : 1) * TILE * RS * 2;  // raw P tile(s), row-major
+  static constexpr int RAW = X_BYTES + P_BYTES;                   // one ring slot
+  static constexpr int OP = WG_COLS * TILE * 2;                   // B, K-major, 128B swizzle
+  // + the gain ring (64 f32 a stage) + alignment slack
+  static constexpr size_t SMEM = (size_t)STAGES * RAW + B_BUFS * OP + STAGES * TILE * 4 + 1024;
+  static constexpr int X_CHUNKS = WG_ROWS * TILE / 8 / 128;      // 4, of the thread's own warpgroup's rows
+  static constexpr int P_CHUNKS = TILE * BN * (DUAL ? 2 : 1) / 8 / THREADS;
+  static constexpr int B_CHUNKS = WG_COLS * TILE / 8 / THREADS;
+  static_assert(RAW % 1024 == 0 && OP % 1024 == 0, "wgmma tiles must stay 1024-byte aligned");
+};
+
+template <bool DUAL>
+__global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const Args a, const int kps,
+                                                                         float* __restrict__ part) {
+  using C = WgCfg<DUAL>;
+  constexpr int S = C::STAGES, T = C::THREADS, BN = C::BN, RS = C::RS, CPR = BN / 8;
+  extern __shared__ unsigned char smem_dyn[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  unsigned char* raw = smem;                                         // [S][RAW]: x (swizzled), then P [w][64][RS]
+  unsigned char* op = raw + S * C::RAW;                              // [B_BUFS][OP]: B
+  float* gain_ring = reinterpret_cast<float*>(op + C::B_BUFS * C::OP);  // [S][64]: gain of each stage
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, warp = (tid >> 5) & 3, wt = tid & 127;
+  const int M = a.M, N = a.N, K = a.K;
+  // blockIdx.x walks groups of RASTER row tiles column tile by column tile,
+  // so the blocks in flight share their x and weight tiles through L2
+  const int n_tiles = (N + BN - 1) / BN, m_tiles = (M + C::BM - 1) / C::BM;
+  const int group = blockIdx.x / (RASTER * n_tiles), first_m = group * RASTER;
+  const int in_group = blockIdx.x % (RASTER * n_tiles), rows = min(m_tiles - first_m, RASTER);
+  const int n0 = (in_group / rows) * BN, m0 = (first_m + in_group % rows) * C::BM;
+  const int kt0 = blockIdx.z * kps, nk = min(K / TILE - kt0, kps);
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* w_src[2] = {static_cast<const bf16*>(a.p), static_cast<const bf16*>(a.p_up)};
+  const bool prologue = a.inv_rms != nullptr, deshear = a.deshear != 0;
+
+  // x chunk j of this thread: row 64 wg + (wt + 128 j) / 8 (a warpgroup
+  // copies only the rows its own products read), K chunk wt % 8
+  const int xkc = wt & 7;
+  float inv[C::X_CHUNKS];
+#pragma unroll
+  for (int j = 0; j < C::X_CHUNKS; ++j) {
+    const int gm = m0 + wg * WG_ROWS + ((wt + 128 * j) >> 3);
+    inv[j] = prologue && gm < M ? a.inv_rms[gm] : 0.0f;
+  }
+
+  auto issue = [&](int t) {
+    unsigned char* slot = raw + (t % S) * C::RAW;
+    const int k0 = (kt0 + t) * TILE;
+#pragma unroll
+    for (int j = 0; j < C::X_CHUNKS; ++j) {
+      const int r = wg * WG_ROWS + ((wt + 128 * j) >> 3), gm = m0 + r;
+      sm90::cp_async16(slot + sm90::sw128_offset(r, 8 * xkc), x + (size_t)min(gm, M - 1) * K + k0 + 8 * xkc,
+                       gm < M);
+    }
+    if (prologue && tid < TILE / 4) sm90::cp_async16(gain_ring + (t % S) * TILE + 4 * tid, a.gain + k0 + 4 * tid, true);
+    // P chunk j: weight j / (P_CHUNKS / NW), row s, columns c .. c + 7
+#pragma unroll
+    for (int j = 0; j < C::P_CHUNKS; ++j) {
+      constexpr int PER_W = DUAL ? C::P_CHUNKS / 2 : C::P_CHUNKS;
+      const int w = j / PER_W, v = tid + T * (j % PER_W), s = v / CPR, c = (v % CPR) * 8, gn = n0 + c;
+      sm90::cp_async16(slot + C::X_BYTES + (w * TILE * RS + s * RS + c) * 2,
+                       w_src[w] + (size_t)(k0 + s) * N + min(gn, N - 8), gn < N);
+    }
+  };
+
+  // Stage t: the rmsnorm prologue on this thread's x chunks, in place in
+  // the stage (gain from the stage's slice of the gain ring); P -> B buffer
+  // t % B_BUFS: row n (weight w = n / BN, column nl = n % BN), depth k holds
+  // P[(k - nl) mod 64][nl] (ws: P[k][nl]).  Each thread gathers whole
+  // 16-byte chunks of B.
+  auto convert = [&](int t) {
+    unsigned char* slot = raw + (t % S) * C::RAW;
+    if (prologue) {
+      const float4 g0 = *reinterpret_cast<const float4*>(gain_ring + (t % S) * TILE + 8 * xkc);
+      const float4 g1 = *reinterpret_cast<const float4*>(gain_ring + (t % S) * TILE + 8 * xkc + 4);
+      const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int j = 0; j < C::X_CHUNKS; ++j) {
+        uint4* chunk = reinterpret_cast<uint4*>(slot + sm90::sw128_offset(wg * WG_ROWS + ((wt + 128 * j) >> 3), 8 * xkc));
+        uint4 v = *chunk;
+        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = __bfloat1622float2(e[i]);
+          e[i] = __floats2bfloat162_rn((f.x * inv[j]) * gs[2 * i], (f.y * inv[j]) * gs[2 * i + 1]);
+        }
+        *chunk = v;
+      }
+    }
+    // B rows n and n + 1 (n even) from 32-bit words of P, each holding
+    // columns nl and nl + 1 of one row: with deshear, B[n][k] is the low
+    // half of row k - nl and B[n + 1][k] the high half of row k - nl - 1, so
+    // nine words give both 16-byte chunks (RS a multiple of 32 keeps the
+    // 32 lanes' words on 32 banks)
+    const uint32_t* pw = reinterpret_cast<const uint32_t*>(slot + C::X_BYTES);
+    unsigned char* dst = op + (t % C::B_BUFS) * C::OP;
+#pragma unroll
+    for (int j = 0; j < C::B_CHUNKS / 2; ++j) {
+      const int u = tid + T * j, n = ((u >> 8) * 32 + (u & 31)) * 2, kc = (u >> 5) & 7;
+      const int w = DUAL ? n / BN : 0, nl = DUAL ? n % BN : n;
+      const uint32_t* col = pw + (w * TILE * RS + nl) / 2;
+      uint32_t lo[4], hi[4];
+      if (deshear) {
+        uint32_t wd[9];
+#pragma unroll
+        for (int e = 0; e < 9; ++e) wd[e] = col[((8 * kc + e - 1 - nl) & (TILE - 1)) * (RS / 2)];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          lo[i] = __byte_perm(wd[2 * i + 1], wd[2 * i + 2], 0x5410);
+          hi[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x7632);
+        }
+      } else {
+        uint32_t wd[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) wd[e] = col[(8 * kc + e) * (RS / 2)];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          lo[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x5410);
+          hi[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x7632);
+        }
+      }
+      *reinterpret_cast<uint4*>(dst + sm90::sw128_offset(n, 8 * kc)) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      *reinterpret_cast<uint4*>(dst + sm90::sw128_offset(n + 1, 8 * kc)) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  // The ring: stages 0 .. 2 in flight before the loop, stage 0 converted.
+  // Step t starts the products of stage t and, while they run, converts
+  // stage t + 1 (every thread's copies of it landed before the last
+  // barrier); it then waits for its warpgroup's products of step t - 1,
+  // issues stage t + 3 into the slot stage t - 1 left (the x rows a
+  // warpgroup overwrites are its own), and waits for its own copies of
+  // stage t + 2 before the barrier.  The products of step t stay in flight
+  // across the barrier, so the tensor cores do not drain between steps.
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < nk) issue(t);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<S - 3>();  // stages 0 and 1
+  sm90::fence_proxy_async();
+  __syncthreads();
+  if (nk > 0) convert(0);
+  sm90::fence_proxy_async();
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const unsigned char* xa = raw + (t % S) * C::RAW + wg * WG_ROWS * 128;
+    const uint64_t da = sm90::sw128_desc(xa);
+    const uint64_t db = sm90::sw128_desc(op + (t % C::B_BUFS) * C::OP);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) sm90::wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
+    sm90::wgmma_commit();
+    if (t + 1 < nk) convert(t + 1);
+    sm90::wgmma_wait<1>();  // this warpgroup's products of step t - 1
+    sm90::fence_regs(acc);
+    if (t + S - 1 < nk) issue(t + S - 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();  // this thread's copies of stage t + 2
+    sm90::fence_proxy_async();
+    __syncthreads();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::cp_async_wait<0>();
+
+  // accumulator 4 j + e: row 16 warp + lane / 4 (+ 8 for e >= 2), column
+  // 8 j + 2 (lane % 4) + (e & 1) of the warpgroup's 64 x 128
+  const bf16* res = static_cast<const bf16*>(a.residual);
+  bf16* out = static_cast<bf16*>(a.out);
+  const size_t mn = (size_t)M * N;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + wg * WG_ROWS + 16 * warp + (lane >> 2) + 8 * h, gn = n0 + 8 * j + 2 * (lane & 3);
+      if (gm >= M || gn >= N) continue;
+      const size_t o = (size_t)gm * N + gn;
+      const float z0 = acc[4 * j + 2 * h], z1 = acc[4 * j + 2 * h + 1];
+      const float u0 = DUAL ? acc[4 * (j + BN / 8) + 2 * h] : 0.0f;
+      const float u1 = DUAL ? acc[4 * (j + BN / 8) + 2 * h + 1] : 0.0f;
+      if (part != nullptr) {
+        *reinterpret_cast<float2*>(part + blockIdx.z * (DUAL ? 2 : 1) * mn + o) = make_float2(z0, z1);
+        if (DUAL) *reinterpret_cast<float2*>(part + (blockIdx.z * 2 + 1) * mn + o) = make_float2(u0, u1);
+      } else {
+        const float o0 = apply_epilogue(a.epilogue, z0, u0, a.bias, res, N, gm, gn);
+        const float o1 = apply_epilogue(a.epilogue, z1, u1, a.bias, res, N, gm, gn + 1);
+        *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(o0, o1);
+      }
+    }
+}
+
+template <bool DUAL>
+cudaError_t launch_wgmma(const Args& a, int splits, int kps, float* part, cudaStream_t stream) {
+  using C = WgCfg<DUAL>;
+  static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(dip_wgmma_kernel<DUAL>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid(((a.N + C::BN - 1) / C::BN) * ((a.M + C::BM - 1) / C::BM), 1, splits);
+  dip_wgmma_kernel<DUAL><<<grid, C::THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t mn = (size_t)a.M * a.N;
+  splitk_reduce_kernel<DUAL><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a, part, splits);
+  return cudaGetLastError();
+}
+
+// The plan's (bm, bn) picks the kernel: bm = 32 the mma.sync decode tile
+// (bn = 64), bm = 128 the wgmma tile of two warpgroups (bn = 128, or 64 per
+// weight for swiglu).
+cudaError_t launch_bf16(const Args& a, int bm, int bn, int splits, int kps, float* part, cudaStream_t s) {
+  const int k_tiles = a.K / TILE;
+  if (splits < 1 || kps < 1 || (long long)splits * kps < k_tiles || (long long)(splits - 1) * kps >= k_tiles ||
+      (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const bool dual = a.epilogue == EPI_SWIGLU;
+  if (bn != (dual || bm == 32 ? 64 : 128)) return cudaErrorInvalidValue;
+  if (bm == 32) return dual ? launch_mma<true>(a, splits, kps, part, s) : launch_mma<false>(a, splits, kps, part, s);
+  if (bm == 128) return dual ? launch_wgmma<true>(a, splits, kps, part, s) : launch_wgmma<false>(a, splits, kps, part, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (out: int32 without an
-// epilogue, float32 with one).  Returns a cudaError_t (0 on success).
+// epilogue, float32 with one).  bm, bn, splits, kps (K tiles per split) and
+// workspace (f32, splits x (2 for swiglu, else 1) x M x N, used when splits
+// > 1) are the bf16 plan (kernels/dip_matmul.py::matmul_plan); the other
+// dtypes ignore them.  Returns a cudaError_t (0 on success).
 extern "C" int dip_matmul_launch(int dtype, const void* x, const void* p, const void* p_up,
                                  const float* inv_rms, const float* gain, const float* bias,
                                  const void* residual, void* out, int M, int N, int K,
-                                 int epilogue, int deshear, void* stream) {
+                                 int epilogue, int deshear, int bm, int bn, int splits, int kps,
+                                 void* workspace, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || N % TILE || K % TILE || epilogue < EPI_NONE ||
       epilogue > EPI_RESIDUAL)
     return (int)cudaErrorInvalidValue;
   const Args a{x, p, p_up, inv_rms, gain, bias, residual, out, M, N, K, epilogue, deshear};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_any<float, float>(a, s);
-  if (dtype == 1) return (int)launch_any<__nv_bfloat16, __nv_bfloat16>(a, s);
+  if (dtype == 1) return (int)launch_bf16(a, bm, bn, splits, kps, static_cast<float*>(workspace), s);
   if (dtype == 2)
     return (int)(epilogue == EPI_NONE ? launch<int8_t, int, false>(a, s) : launch_any<int8_t, float>(a, s));
   return (int)cudaErrorInvalidValue;

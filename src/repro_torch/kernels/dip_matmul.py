@@ -2,28 +2,37 @@
 
 Port of ``repro/kernels/dip_matmul.py::dip_matmul_pallas`` (and of
 ``ws_matmul.py::ws_matmul_pallas``, which is the same kernel with
-``fuse_deshear=False``).  The kernel is ``csrc/dip_matmul.cu``: one block per
-64x64 output tile loops over K, de-shears each 64x64 tile of ``P`` on its way
-into shared memory, applies the rmsnorm prologue to the x tile on load, and
-applies the epilogue to the f32 accumulator before its single write.
+``fuse_deshear=False``).  The kernel is ``csrc/dip_matmul.cu``.
 
-int8 x int8 accumulates in exact int32 (WMMA s8), and with no epilogue
-the output is the int32 accumulator, as the reference's ``acc_dtype_for``
-defines it; any epilogue widens it to f32 and returns f32.
+bf16, the served and trained dtype, runs a tensor-core mainloop shaped by
+:func:`matmul_plan`.  Prefill and training (M > 32) are bound by the
+products: 128 x 128 block tiles (64 columns per weight for swiglu) on
+``wgmma``, a ring of 4 shared-memory stages filled by cp.async copies, and a
+pass that turns each stage's raw P tile into the de-sheared K-major operand
+(and applies the rmsnorm prologue to the x tile) while the step before
+multiplies.  Decode (M <= 32, the serving slots) is bound by the weight
+bytes: 32 x 64 tiles on ``mma.sync``, with K split across blocks so that
+every SM streams weights.  A split's f32 partial sums go to a workspace
+allocated here and a second pass adds them in split order (no atomics)
+before the epilogue.
 
-Bound on the card: by the weight bytes at decode (M = slots), by
-tensor-core FLOPs at prefill (M = 256).  This first design does nothing
-about either yet (no TMA, no ``wgmma``, no pipelining).
+f32 keeps IEEE FMAs on the CUDA cores (no TF32), and int8 x int8 exact
+int32 sums (WMMA s8), in one block per 64x64 output tile; int8 with no
+epilogue returns the int32 accumulator, as the reference's
+``acc_dtype_for`` defines it, and any epilogue widens it to f32.
 
 :func:`dip_matmul` launches the kernel for CUDA tensors and runs
 :func:`dip_matmul_plain` — ``unpermute_tiled`` then the f32 composition —
-for CPU tensors.  ``dip_matmul.launches`` counts kernel launches.
+for CPU tensors.  ``dip_matmul.launches`` counts wrapper calls that
+launched the kernel (a split-K call's second pass included).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+import dataclasses
+import functools
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -33,11 +42,66 @@ from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels import prologue as pro
 from repro_torch.kernels import ref
 
-__all__ = ["TILE", "DTYPE_CODES", "dip_matmul", "dip_matmul_plain", "launch_operands", "out_dtype_for",
-           "require"]
+__all__ = ["TILE", "DTYPE_CODES", "DECODE_MAX_M", "MatmulPlan", "matmul_plan", "dip_matmul",
+           "dip_matmul_plain", "launch_operands", "out_dtype_for", "require"]
 
 TILE = 64  # output tile, K step and DiP permutation tile of the CUDA kernel
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+DECODE_MAX_M = 32  # rows up to which the bf16 kernel runs its decode tile (32 x 64)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlan:
+    """How the bf16 kernel covers one call: ``bm`` x ``bn`` block tiles
+    (``bn`` per weight), K cut into ``splits`` ranges of
+    ``k_tiles_per_split`` 64-deep tiles (the last may be shorter), and the
+    grid (column tiles, row tiles, splits)."""
+
+    regime: str  # "decode" (bound by weight bytes) or "prefill" (by operations)
+    bm: int
+    bn: int
+    splits: int
+    k_tiles_per_split: int
+    grid: Tuple[int, int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_plan(m: int, n: int, k: int, dual: bool, sms: int) -> MatmulPlan:
+    """The bf16 kernel's tiles and K splits for an (m, k) @ (k, n) call on a
+    card with ``sms`` SMs (``dual``: swiglu, two weights over one x tile).
+
+    Decode (m <= DECODE_MAX_M) is bound by the weight bytes, so every SM
+    must stream: 32 x 64 tiles (two blocks fit on an SM) and K split until
+    there are at least 2 x ``sms`` blocks.  Prefill and training are bound
+    by the products: 128 x 128 tiles (64 columns per weight for swiglu), one
+    block an SM; where the tiles fill fewer SMs than the card has, K is
+    split so that the blocks come closest to one full wave (a second,
+    partly filled wave would cost more than the split saves)."""
+    k_tiles = k // TILE
+    if m <= DECODE_MAX_M:
+        regime, bm, bn = "decode", 32, 64
+        tiles = _cdiv(n, bn)
+        want = _cdiv(2 * sms, tiles) if tiles < 2 * sms else 1
+    else:
+        regime, bm, bn = "prefill", 128, 64 if dual else 128
+        tiles = _cdiv(m, bm) * _cdiv(n, bn)
+        want = max(1, int(sms / tiles + 0.5)) if tiles < sms else 1
+    kps = _cdiv(k_tiles, min(k_tiles, want))
+    splits = _cdiv(k_tiles, kps)  # no empty split
+    return MatmulPlan(regime, bm, bn, splits, kps, (_cdiv(n, bn), _cdiv(m, bm), splits))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def out_dtype_for(x: torch.Tensor, epilogue: str = "none") -> torch.dtype:
@@ -116,7 +180,9 @@ def _lib():
     lib = _build.load("dip_matmul")
     fn = lib.dip_matmul_launch
     if fn.argtypes is None:  # declare once: untyped ints would truncate the pointers
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        # dtype; x, p, p_up, inv_rms, gain, bias, residual, out; M, N, K,
+        # epilogue, deshear, bm, bn, splits, kps; workspace; stream
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
 
@@ -165,7 +231,8 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
                prologue_k: Optional[int] = None, prologue_eps: float = pro.DEFAULT_EPS,
                fuse_deshear: bool = True) -> torch.Tensor:
     """``epilogue(prologue(x) @ unpermute_tiled(p))`` with ``x`` (M, K) and
-    ``p`` (K, N), K and N multiples of 64, M any.  ``epilogue_operands``:
+    ``p`` (K, N), K and N multiples of 64, M any (bf16 tiles past N are
+    masked).  ``epilogue_operands``:
     ``(p_up,)`` for ``swiglu``, the N-element bias for the bias variants, the
     (M, N) residual for ``residual``.  ``prologue_operands`` is the
     K-element gain for ``rmsnorm``; ``prologue_k`` the un-padded K the mean
@@ -183,9 +250,18 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
     out, ptrs = launch_operands("dip_matmul", x, p, epilogue_operands, epilogue, prologue,
                                 prologue_operands, prologue_k, prologue_eps)
     (m, k), n = x.shape, p.shape[1]
+    plan_args, work = (0, 0, 0, 0), None
+    if x.dtype == torch.bfloat16:
+        dual = epi.spec(epilogue).dual_weight
+        plan = matmul_plan(m, n, k, dual, _sms(x.device.index if x.device.index is not None
+                                               else torch.cuda.current_device()))
+        plan_args = (plan.bm, plan.bn, plan.splits, plan.k_tiles_per_split)
+        if plan.splits > 1:
+            work = torch.empty((plan.splits, 2 if dual else 1, m, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib()(DTYPE_CODES[x.dtype], *ptrs, m, n, k, epi.code(epilogue), int(fuse_deshear), stream)
+        rc = _lib()(DTYPE_CODES[x.dtype], *ptrs, m, n, k, epi.code(epilogue), int(fuse_deshear), *plan_args,
+                    None if work is None else work.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"dip_matmul kernel launch failed: cudaError {rc}")
     dip_matmul.launches += 1

@@ -1,20 +1,25 @@
 """Prefill flash attention: causal online-softmax attention, forward only.
 
 Port of ``repro/kernels/flash_attention.py::flash_attention_pallas``.  The
-kernel is ``csrc/flash_attention.cu``: one block per (batch*head, 64-query
-tile) walks the KV tiles with an online softmax in f32, reads each row's
-``q_offset`` and ``kv_len`` on the device, stops at the last KV tile the
-tile's rows can see (skipping tiles above the diagonal or past ``kv_len``),
-and gives exactly 0 for a fully masked row.
+kernels are in ``csrc/flash_attention.cu``: one block per (batch*head,
+64-query tile) walks the KV tiles with an online softmax in f32, reads each
+row's ``q_offset`` and ``kv_len`` on the device, stops at the last KV tile
+the tile's rows can see (skipping tiles above the diagonal or past
+``kv_len``), and gives exactly 0 for a fully masked row.
 
-Bound on the card: by the operations at the prefill chunk (Sq = 256 against
-up to 1024 keys, D = 128); this first design runs them as f32 FMAs on the
-CUDA cores and does nothing about that yet.
+Bound on the card: by the operations at the prefill chunk (BH = 32, Sq =
+256 against up to 1024 keys, D = 128).  :func:`flash_route` picks the
+kernel: bf16 with D = Dv in (64, 128), the served shapes, runs both
+products on the tensor cores (mma.sync, bf16 in and f32 sums, P rounded to
+bf16 for the P V product) with the K and V tiles double-buffered by
+cp.async copies; f32, Dv != D and other head dims up to 256 keep the
+CUDA-core kernel (f32 FMAs).
 
-:func:`flash_attention` launches the kernel for CUDA tensors and runs
+:func:`flash_attention` launches a kernel for CUDA tensors and runs
 :func:`attention_plain` — the dense form with the same masking — for CPU
-tensors.  ``flash_attention.launches`` counts kernel launches.  The kernel
-has no backward (the reference's Pallas call has no jvp rule either): for
+tensors.  ``flash_attention.launches`` counts kernel launches and
+``flash_attention.launches_tc`` those of the tensor-core route.  The kernels
+have no backward (the reference's Pallas call has no jvp rule either): for
 inputs that require grad, with grad mode on, the CUDA path raises.
 
 Layout (flat): q (BH, Sq, D), k (BH, Sk, D), v (BH, Sk, Dv) -> (BH, Sq, Dv)
@@ -31,10 +36,12 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["NEG_INF", "MAX_HEAD_DIM", "flash_attention", "attention_plain", "per_row_i32"]
+__all__ = ["NEG_INF", "MAX_HEAD_DIM", "TC_HEAD_DIMS", "flash_route", "flash_attention", "attention_plain",
+           "per_row_i32"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 128)  # head dims of the tensor-core route (D = Dv)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -84,8 +91,22 @@ def attention_plain(q, k, v, *, q_offset=None, kv_len=None, causal: bool = True,
     return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
-def _lib():
-    fn = _build.load("flash_attention").flash_attention_launch
+def flash_route(dtype: torch.dtype, d: int, dv: int) -> str:
+    """``"tensor_cores"`` for bf16 with D = Dv in :data:`TC_HEAD_DIMS`, else
+    ``"cuda_cores"`` (f32, Dv != D, other head dims)."""
+    return "tensor_cores" if dtype == torch.bfloat16 and d == dv and d in TC_HEAD_DIMS else "cuda_cores"
+
+
+def _lib(route: str):
+    lib = _build.load("flash_attention")
+    if route == "tensor_cores":
+        fn = lib.flash_attention_tc_launch
+        if fn.argtypes is None:  # q, k, v, out, q_offset, kv_len; BH, Sq, Sk, D; scale, causal; stream
+            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        return fn
+    fn = lib.flash_attention_launch
     if fn.argtypes is None:  # declare once: untyped ints would truncate the pointers
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -124,16 +145,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offs
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
+    route = flash_route(q.dtype, d, dv)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qo.data_ptr(), kvl.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _lib()(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            qo.data_ptr(), kvl.data_ptr(), bh, sq, sk, d, dv, scale, int(causal), stream,
-        )
+        if route == "tensor_cores":
+            rc = _lib(route)(*ptrs, bh, sq, sk, d, scale, int(causal), stream)
+        else:
+            rc = _lib(route)(_DTYPE_CODES[q.dtype], *ptrs, bh, sq, sk, d, dv, scale, int(causal), stream)
     if rc != 0:
-        raise RuntimeError(f"flash attention kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash attention kernel launch failed ({route}): cudaError {rc}")
     flash_attention.launches += 1
+    if route == "tensor_cores":
+        flash_attention.launches_tc += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_tc = 0

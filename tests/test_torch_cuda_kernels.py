@@ -361,3 +361,87 @@ def test_reduced_quantized_model_card_matches_cpu(dev, scheme, kv_quant):
                                           prefill_chunk=8), p, device=where)
         outs.append(server.serve([Request(rid=i, prompt=q) for i, q in enumerate(prompts)]))
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------- Hopper redesign (bf16) --------
+# The bf16 DiP matmul's two regimes (mma.sync decode tile with split-K up to
+# M = 32, the wgmma prefill tile above) and flash attention's tensor-core
+# route.  K = 1088 (17 tiles): at N = 4096 the decode plan splits K with a
+# ragged last split, and at M = 257 the prefill block walks all 17 tiles, more
+# than its ring of 4 stages; N = 192 and 320 are not multiples of the
+# prefill tile's 128 columns (tests/test_torch_kernel_plans.py holds that
+# these cases reach each path).
+@pytest.mark.parametrize("deshear", [True, False])
+@pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
+@pytest.mark.parametrize("epilogue", epi.EPILOGUES)
+@pytest.mark.parametrize("n", [192, 320, 4096])
+@pytest.mark.parametrize("m", [1, 4, 16, 100, 257])
+def test_dip_matmul_bf16_plans_match_plain(dev, m, n, epilogue, prologue, deshear):
+    from repro_torch.kernels.dip_matmul import matmul_plan
+
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    k = 1088
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    p = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(torch.bfloat16)
+    eops = _operands(epilogue, m, k, n, torch.bfloat16, dev, g)
+    if epi.spec(epilogue).dual_weight:
+        eops = ((eops[0] / k ** 0.5).to(torch.bfloat16),)
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops, prologue_k=k - 7,
+              fuse_deshear=deshear)
+    plan = matmul_plan(m, n, k, epi.spec(epilogue).dual_weight,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    before = dip_matmul.launches
+    got = dip_matmul(x, p, *eops, **kw)
+    assert dip_matmul.launches == before + 1
+    want = dip_matmul_plain(x, p, *eops, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n), plan
+    _close(got, want, torch.bfloat16)
+
+
+TC_FLASH_CASES = [
+    # bh, sq, sk, d, q_offset, kv_len (None, int, or a per-row list), causal
+    (3, 70, 200, 64, 0, None, True),          # Sq not a multiple of the 64-row tile
+    (2, 130, 300, 128, 96, 250, True),        # q_offset > 0, rows past kv_len
+    (4, 64, 256, 128, 192, [0, 256, 0, 100], True),  # kv_len 0 rows: exactly 0
+    (2, 33, 150, 64, 10, 0, True),            # every row fully masked
+    (2, 70, 190, 128, 0, 170, False),         # causal off
+    (1, 256, 1024, 128, 512, 768, True),      # the prefill chunk's shape
+]
+
+
+@pytest.mark.parametrize("case", TC_FLASH_CASES)
+def test_flash_tensor_core_route_matches_plain(dev, case):
+    bh, sq, sk, d, qo, kvl, causal = case
+    g = torch.Generator(device=dev).manual_seed(sq + d)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev) if isinstance(kvl, list) else kvl
+    kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kv_len, causal=causal)
+    before = (flash_attention.launches, flash_attention.launches_tc)
+    got = flash_attention(q, k, v, **kw)
+    assert (flash_attention.launches, flash_attention.launches_tc) == (before[0] + 1, before[1] + 1)
+    want = attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    _close(got, want, torch.bfloat16)
+    dead = torch.as_tensor(kvl if kvl is not None else sk).reshape(-1).expand(bh) == 0
+    if dead.any():
+        assert (got[dead.to(dev)] == 0).all(), "fully masked rows must be exactly 0"
+
+
+OLD_ROUTE_CASES = [(torch.float32, 128, 128), (torch.float32, 64, 64), (torch.bfloat16, 192, 128),
+                   (torch.bfloat16, 48, 48), (torch.bfloat16, 256, 256), (torch.bfloat16, 40, 24)]
+
+
+@pytest.mark.parametrize("dtype,d,dv", OLD_ROUTE_CASES)
+def test_flash_cuda_core_route_matches_plain(dev, dtype, d, dv):
+    g = torch.Generator(device=dev).manual_seed(d + dv)
+    q, k = (torch.randn(2, s, d, generator=g, device=dev).to(dtype) for s in (70, 150))
+    v = torch.randn(2, 150, dv, generator=g, device=dev).to(dtype)
+    kw = dict(q_offset=torch.tensor(40, device=dev), kv_len=120, causal=True)
+    before = (flash_attention.launches, flash_attention.launches_tc)
+    got = flash_attention(q, k, v, **kw)
+    assert (flash_attention.launches, flash_attention.launches_tc) == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    _close(got, attention_plain(q, k, v, **kw), dtype)

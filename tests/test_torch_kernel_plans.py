@@ -1,0 +1,124 @@
+"""The plans the port's wrappers hand to the Hopper kernels, checked on the CPU.
+
+``kernels/dip_matmul.py::matmul_plan`` shapes the bf16 DiP matmul (regime
+by M, block tile, K splits, grid) and ``kernels/flash_attention.py::
+flash_route`` picks flash attention's kernel by dtype and head dims.  Both
+are plain Python, so their contracts are held here; the kernels themselves
+are held against their plain versions on the card
+(``tests/test_torch_cuda_kernels.py``, ``-m cuda``).
+"""
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels.dip_matmul import DECODE_MAX_M, TILE, dip_matmul, matmul_plan
+from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, flash_attention, flash_route
+
+SMS = 132  # an H100 SXM
+
+_ARCH = get_config("llama3-8b")
+_D, _FF, _KV, _VOCAB = _ARCH.d_model, _ARCH.d_ff, _ARCH.n_kv_heads * _ARCH.resolved_head_dim, _ARCH.padded_vocab
+# (label, K, N, swiglu) of every projection a llama3-8b forward sends to the kernel
+LLAMA_PROJECTIONS = [("q", _D, _D, False), ("k/v", _D, _KV, False), ("o", _D, _D, False),
+                     ("gate+up", _D, _FF, True), ("down", _FF, _D, False), ("lm_head", _D, _VOCAB, False)]
+# the (M, N, K) of the card tests' bf16 cases (tests/test_torch_cuda_kernels.py)
+CARD_CASES = [(m, n, 1088) for m in (1, 4, 16, 100, 257) for n in (192, 320, 4096)]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "swiglu"])
+@pytest.mark.parametrize("m", [1, 4, 16, 32, 33, 64, 100, 256, 257, 4092, 4096])
+@pytest.mark.parametrize("label,k,n", [(lab, k, n) for lab, k, n, _ in LLAMA_PROJECTIONS]
+                         + [("ragged", 1088, 192), ("ragged", 1088, 320), ("short", 64, 64)])
+def test_splits_cover_k_once_in_order(label, k, n, m, dual):
+    """The splits tile K exactly once, in 64-deep steps, in split order,
+    with no empty split; only the last may be short."""
+    plan = matmul_plan(m, n, k, dual, SMS)
+    # split s covers K tiles [s kps, (s + 1) kps) (dip_matmul.cu), and the
+    # second pass adds the splits in that order
+    step = plan.k_tiles_per_split * TILE
+    ranges = [(s * step, min(k, (s + 1) * step)) for s in range(plan.splits)]
+    assert len(ranges) == plan.splits >= 1
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    for (b0, e0), (b1, _) in zip(ranges, ranges[1:]):
+        assert e0 == b1, "splits must be contiguous and in order"
+    for i, (b, e) in enumerate(ranges):
+        assert b % TILE == 0 and e % TILE == 0 and e > b
+        assert e - b == plan.k_tiles_per_split * TILE or i == plan.splits - 1
+    # the kernel's own check of the plan (dip_matmul.cu::launch_bf16)
+    k_tiles = k // TILE
+    assert plan.splits * plan.k_tiles_per_split >= k_tiles > (plan.splits - 1) * plan.k_tiles_per_split
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "swiglu"])
+@pytest.mark.parametrize("m", [1, 4, 16, 100, 256, 257, 4096])
+@pytest.mark.parametrize("k,n", [(1088, 192), (4096, 14336), (14336, 4096), (4096, 129024)])
+def test_plan_tiles_and_grid(k, n, m, dual):
+    plan = matmul_plan(m, n, k, dual, SMS)
+    if m <= DECODE_MAX_M:
+        assert (plan.regime, plan.bm, plan.bn) == ("decode", 32, 64)
+    else:
+        assert (plan.regime, plan.bm, plan.bn) == ("prefill", 128, 64 if dual else 128)
+    assert plan.grid == (_cdiv(n, plan.bn), _cdiv(m, plan.bm), plan.splits)
+    assert plan.blocks == plan.grid[0] * plan.grid[1] * plan.grid[2]
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("label,k,n,dual", LLAMA_PROJECTIONS, ids=[p[0] for p in LLAMA_PROJECTIONS])
+def test_decode_grid_fills_the_card(label, k, n, dual, m):
+    """At the llama3-8b decode shapes every projection puts at least one
+    block on every SM (the weights must stream from all of them)."""
+    plan = matmul_plan(m, n, k, dual, SMS)
+    assert plan.regime == "decode"
+    assert plan.blocks >= SMS, f"{label}: {plan.blocks} blocks on {SMS} SMs"
+
+
+@pytest.mark.parametrize("label,k,n,dual", LLAMA_PROJECTIONS, ids=[p[0] for p in LLAMA_PROJECTIONS])
+def test_prefill_chunk_plan(label, k, n, dual):
+    """A 256-token prefill chunk runs the prefill tiles; where they fill
+    fewer SMs than the card has, K is split into about one wave of blocks."""
+    plan = matmul_plan(256, n, k, dual, SMS)
+    assert plan.regime == "prefill"
+    tiles = plan.grid[0] * plan.grid[1]
+    assert plan.splits == 1 or tiles < SMS
+    if tiles < SMS:
+        assert SMS // 2 < plan.blocks <= 3 * SMS // 2
+
+
+def test_card_cases_reach_every_path():
+    """The card tests' bf16 cases cover both regimes, a split-K plan with a
+    ragged last split, a block whose K range is longer than the ring of
+    stages (4), and N not a multiple of the block's N."""
+    plans = [(matmul_plan(m, n, k, dual, SMS), m, n, k) for m, n, k in CARD_CASES for dual in (False, True)]
+    assert {p.regime for p, *_ in plans} == {"decode", "prefill"}
+    assert any(p.splits > 1 and (k // TILE) % p.k_tiles_per_split for p, m, n, k in plans)
+    assert any(p.k_tiles_per_split > 4 for p, *_ in plans)
+    assert any(n % p.bn for p, m, n, k in plans)
+    assert {m for _, m, _, _ in plans} >= {1, 4, 16, 100, 257}
+
+
+ROUTE_CASES = ([(torch.bfloat16, d, d, "tensor_cores") for d in TC_HEAD_DIMS]
+               + [(torch.float32, d, d, "cuda_cores") for d in (64, 128)]
+               + [(torch.bfloat16, 192, 128, "cuda_cores"), (torch.bfloat16, 128, 64, "cuda_cores"),
+                  (torch.bfloat16, 48, 48, "cuda_cores"), (torch.bfloat16, 40, 40, "cuda_cores"),
+                  (torch.bfloat16, 256, 256, "cuda_cores"), (torch.bfloat16, 32, 32, "cuda_cores"),
+                  (torch.float16, 128, 128, "cuda_cores")])
+
+
+@pytest.mark.parametrize("dtype,d,dv,route", ROUTE_CASES,
+                         ids=[f"{str(c[0]).split('.')[-1]}-{c[1]}-{c[2]}" for c in ROUTE_CASES])
+def test_flash_route(dtype, d, dv, route):
+    assert flash_route(dtype, d, dv) == route
+
+
+def test_cpu_calls_launch_nothing():
+    """CPU tensors take the plain versions: no launch is counted."""
+    before = (flash_attention.launches, flash_attention.launches_tc, dip_matmul.launches)
+    q = torch.randn(2, 5, 64, dtype=torch.bfloat16)
+    flash_attention(q, q, q)
+    dip_matmul(torch.randn(3, 64, dtype=torch.bfloat16), torch.randn(64, 192, dtype=torch.bfloat16))
+    assert (flash_attention.launches, flash_attention.launches_tc, dip_matmul.launches) == before
