@@ -17,7 +17,14 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    the DiP matmul on int8 (exact), the quantized DiP matmul (int8 and fp8
    weights, f32 and bf16 activations, M = 4, 37 and 256) and the wavefront
    kernel (f32, bf16, and int8 exact, M = 4 and 256), at the q, gate+up,
-   down and lm_head shapes;
+   down and lm_head shapes; the fp8 route on the tensor cores (bf16 x) at
+   M = 1, 4, 32, 33, 256 and 4096, every epilogue with and without the
+   rmsnorm prologue, both plans and K splits, and every e4m3 code upcast
+   exactly; lm_head_ce's bf16 x f32 function with the head cut to two bf16
+   parts instead of the kernel's three, in plain torch (printed: whether two
+   would hold TOL); and views at storage offsets that
+   are not 16-byte aligned, refused by flash, lm_head_ce and dip_matmul_q
+   with the CUDA context still usable;
 3. the reduced llama3-8b served on the card against the same weights served
    on the CPU (plain versions): identical greedy tokens, close logits — the
    float model on ``dip``, then ``dip_int8w`` with the int8 KV pool,
@@ -33,7 +40,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    chunk profiled on their last inputs (device ms by kernel, launches, device
    time against wall time); then quantized through ``launch.serve`` (``--quantize int8 --kv-quant
    int8``, then ``--quantize fp8_e4m3``; the same 4 requests, 16 greedy
-   tokens): 193 quantized launches per forward and no DiP launch, and the
+   tokens): 193 quantized launches per forward and no DiP launch (for fp8
+   all on the tensor-core route, for int8 none), and the
    first prefill chunk's and first decode step's logits held against the
    plain versions on the card on the same inputs; then one request of 256
    prompt tokens through ``pallas_systolic`` (the wavefront kernel), its
@@ -51,7 +59,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    launch queued behind a device sleep, so the wrapper's host time is
    hidden, and ``host_ms`` without, as the first versions timed) beside their bound,
    the plain version's time and one library call's time, the quantized and
-   wavefront kernels included.
+   wavefront kernels included (lm_head_ce with the bound of its three bf16
+   part products on the tensor cores beside the f32 CUDA-core bound).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -404,7 +413,7 @@ def main():
 
     pad_splits_seen = 0
     for t in (4092, 37):
-        tiles, splits = ce.split_plan(t, vocab, sms)
+        tiles, splits = ce.split_plan(t, vocab, sms, lm_vocab)
         pad_splits = sum(1 for sp in range(splits) if sp * tiles * ce.BLOCK_V >= lm_vocab)
         pad_splits_seen += pad_splits
         for x_name, w_name in lm_pairs:
@@ -423,6 +432,23 @@ def main():
             del x, w, got, want
     if not pad_splits_seen:
         raise AssertionError("lm_head_ce: no case had a vocab split wholly in the padding")
+    # the part count: the bf16 x f32 function with the head cut to two bf16
+    # parts (hi + mid, whose f32 sum is exact), in plain torch at the training
+    # shape, against the same TOL; printed for the record (the kernel takes
+    # ce.W_PARTS = 3, which sum to the head exactly and are held above)
+    x, w, labels = lm_inputs(4092, "bfloat16", "float32")
+    want = ce.lm_head_ce_plain(x, w, labels, vocab_size=lm_vocab)
+    hi, mid = ce.bf16_parts(w, 2)
+    w2 = hi.float() + mid.float()
+    del hi, mid
+    got = ce.lm_head_ce_plain(x, w2, labels, vocab_size=lm_vocab)
+    errs = [(got[i] - want[i]).abs().max().item() for i in (0, 1)]
+    lims = [TOL["float32"] * max(1.0, want[i].abs().max().item()) for i in (0, 1)]
+    log(f"  lm_head_ce bfloat16 x float32 T=4092, head cut to 2 bf16 parts (plain torch): logz max|err| "
+        f"{errs[0]:.3e} (limit {lims[0]:.3e}), label logit {errs[1]:.3e} (limit {lims[1]:.3e}): "
+        + ("within TOL" if all(e <= lim for e, lim in zip(errs, lims)) else "OUTSIDE TOL")
+        + f" [the kernel takes {ce.W_PARTS}]")
+    del x, w, w2, labels, want, got
     torch.cuda.synchronize()
 
     # the quantized serving slice: (label, K, N, epilogue, prologue) of the
@@ -478,6 +504,92 @@ def main():
                     worst[key] = max(worst[key], err)
                     del x, eops
             del qws
+
+    # the fp8 route on the tensor cores (bf16 x, csrc/dip_matmul.cu): every
+    # epilogue with and without the prologue at the decode and prefill M,
+    # at the projections' widths (swiglu at gate+up, residual at down, none
+    # also at the lm_head), each through its plan; the same TOL
+    fp8_plans = set()
+    for m in (1, 4, 32, 33, 256, 4096):
+        for e in epi.EPILOGUES:
+            s = epi.spec(e)
+            k, n = (d_ff, d) if s.residual else (d, d_ff if s.dual_weight else d)
+            shapes = [(k, n), (d, vocab)] if e == "none" else [(k, n)]
+            for k, n in shapes:
+                qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, "fp8_e4m3")
+                       for _ in range(2 if s.dual_weight else 1)]
+                for pr in ("none", "rmsnorm"):
+                    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+                    eops = ((qws[1].data, qws[1].scale) if s.dual_weight else
+                            (torch.randn(n, generator=g, device=dev),) if s.bias else
+                            (torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16),) if s.residual else ())
+                    kw = dict(epilogue=e, prologue=pr, prologue_operands=(
+                        (torch.rand(k, generator=g, device=dev) + 0.5,) if pr == "rmsnorm" else ()))
+                    pl = matmul_plan(m, n, k, s.dual_weight, sms, weight_bytes=1)
+                    fp8_plans.add((pl.regime, pl.splits > 1))
+                    before = dip_matmul_q.launches_tc
+                    got = dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw)
+                    if dip_matmul_q.launches_tc != before + 1:
+                        raise AssertionError("fp8 route: a bf16 call left the tensor-core route")
+                    err = close(f"dip_matmul_q_fp8 tensor cores M={m} K={k} N={n} {e}/{pr} [{pl.regime} "
+                                f"{pl.bm}x{pl.bn}, {pl.splits} split(s), {pl.blocks} blocks]",
+                                got, dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw), TOL["bfloat16"])
+                    worst["dip_matmul_q_fp8"] = max(worst["dip_matmul_q_fp8"], err)
+                    del x, eops, got
+                del qws
+    if fp8_plans != {("decode", False), ("decode", True), ("prefill", False), ("prefill", True)}:
+        raise AssertionError(f"fp8 route: the cases missed a plan: {sorted(fp8_plans)}")
+    # every e4m3 code but the two NaNs (subnormals and zeros included): rows
+    # of the identity read the de-sheared upcast weight back, bit for bit,
+    # through both mainloops
+    codes = torch.tensor([c for c in range(256) if c not in (0x7F, 0xFF)], dtype=torch.uint8, device=dev)
+    nat = codes.repeat(64 * 128 // codes.numel() + 1)[:64 * 128].reshape(64, 128).view(torch.float8_e4m3fn)
+    q_all = permute.permute_tiled(nat.float()).to(torch.float8_e4m3fn)
+    for m in (8, 64):
+        got = dip_matmul_q(torch.eye(m, 64, device=dev).to(torch.bfloat16), q_all, torch.ones(1, 128, device=dev))
+        if not torch.equal(got, (torch.eye(m, 64, device=dev) @ nat.float()).to(torch.bfloat16)):
+            raise AssertionError(f"fp8 route: an e4m3 code did not upcast exactly (M={m})")
+        log(f"  dip_matmul_q_fp8 tensor cores M={m}: all 254 e4m3 codes upcast exactly "
+            f"[{matmul_plan(m, 128, 64, False, sms, weight_bytes=1).regime}]")
+    del codes, nat, q_all
+    torch.cuda.synchronize()
+
+    # views at a storage offset that is not 16-byte aligned: refused before
+    # the launch (a misaligned 16-byte load would fault and poison the
+    # context), after which the same calls on aligned tensors run
+    buf = torch.randn(32 * 256 * 128 + 8, generator=g, device=dev).to(torch.bfloat16)
+    off = buf[1:1 + 32 * 256 * 128].view(32, 256, 128)
+    ok_q = off.clone()
+    xo = buf[3:3 + 37 * d].view(37, d)
+    head = torch.randn(d, 1024, generator=g, device=dev) * d ** -0.5
+    lab37 = torch.randint(0, 1000, (37,), generator=g, device=dev, dtype=torch.int32)
+    q_small = api.quant.quantize(torch.randn(d, 128, generator=g, device=dev) * d ** -0.5, "fp8_e4m3")
+    refused = 0
+    for what, call in (("flash q", lambda: flash_attention(off, ok_q, ok_q)),
+                       ("flash v", lambda: flash_attention(ok_q, ok_q, off)),
+                       ("lm_head_ce x", lambda: ce.lm_head_ce(xo, head, lab37, vocab_size=1000)),
+                       ("dip_matmul_q x", lambda: dip_matmul_q(xo[:4], q_small.data, q_small.scale))):
+        try:
+            with torch.no_grad():
+                call()
+        except ValueError as exc:
+            if "16-byte aligned" not in str(exc):
+                raise
+            refused += 1
+            log(f"  offset view, {what}: refused ({exc})")
+        else:
+            raise AssertionError(f"{what}: a misaligned view was launched")
+    torch.cuda.synchronize()
+    close("after the refusals: flash on aligned copies", flash_attention(ok_q, ok_q, ok_q),
+          attention_plain(ok_q, ok_q, ok_q), TOL["bfloat16"])
+    with torch.no_grad():
+        got = ce.lm_head_ce(xo.clone(), head, lab37, vocab_size=1000)
+    close("after the refusals: lm_head_ce on an aligned copy", got[0],
+          ce.lm_head_ce_plain(xo.clone(), head, lab37, vocab_size=1000)[0], TOL["float32"])
+    close("after the refusals: dip_matmul_q on an aligned copy", dip_matmul_q(xo[:4].clone(), q_small.data, q_small.scale),
+          dip_matmul_q_plain(xo[:4].clone(), q_small.data, q_small.scale), TOL["bfloat16"])
+    torch.cuda.synchronize()
+    del buf, off, ok_q, xo, head, lab37, q_small
 
     # the wavefront: f32 and bf16 within TOL, int8 exact without an epilogue
     for dt_name in ("float32", "bfloat16", "int8"):
@@ -752,7 +864,7 @@ def main():
     def reset_counts():
         for c in counters.values():
             c.launches = 0
-        flash_attention.launches_tc = 0
+        flash_attention.launches_tc = dip_matmul_q.launches_tc = 0
 
     def read_counts():
         return {k: c.launches for k, c in counters.items()}
@@ -826,6 +938,7 @@ def main():
         results = serve_cli.main(argv, on_server=hook)
         wall = time.perf_counter() - t0
         launches = read_counts()
+        q_tc = dip_matmul_q.launches_tc
         routes_by_path["serve_int8" if scheme == "int8" else "serve_fp8"] = routes = flash_routes()
         peak = torch.cuda.max_memory_allocated()
         server, reqs, times = st["server"], st["reqs"], st["times"]
@@ -836,9 +949,12 @@ def main():
             raise AssertionError("quantized full width: not every request was served")
         want = {"dip_matmul": 0, "dip_matmul_q": 193 * (n_prefill + n_decode), "dip_systolic": 0,
                 "flash_attention": 32 * n_prefill, "lm_head_ce": 0}
-        log(f"  launches {launches}; expected {want} (193 quantized launches per forward, no DiP launch)")
+        log(f"  launches {launches}; expected {want} (193 quantized launches per forward, no DiP launch); "
+            f"{q_tc} of the dip_matmul_q launches on the fp8 tensor-core route")
         if launches != want:
             raise AssertionError(f"quantized full width ({scheme}): launch counts differ from the expected ones")
+        if q_tc != (launches["dip_matmul_q"] if scheme == "fp8_e4m3" else 0):
+            raise AssertionError(f"quantized full width ({scheme}): a projection took the wrong dip_matmul_q route")
         log(f"  flash launches by route {routes}")
         if routes["cuda_cores"]:
             raise AssertionError(f"quantized full width ({scheme}): a bf16 flash launch left the tensor-core route")
@@ -864,6 +980,7 @@ def main():
         generated = sum(len(v) for v in results.values())
         qserve[scheme] = {
             "launches": launches,
+            "dip_matmul_q_tensor_core_launches": q_tc,
             "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
             "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
             "prefill_tok_per_s": sum(len(r.prompt) for r in reqs) / sum(times["_prefill_fwd"]),
@@ -1175,7 +1292,12 @@ def main():
         x, w, labels = lm_inputs(t, x_name, w_name)
         x32 = x.float()
         nbytes = t * d * x.element_size() + d * lm_vocab * 4 + 4 * t + 8 * t
-        b_ms, b_by = bound_ms(nbytes, 2 * t * d * lm_vocab, "float32")
+        f32_ms, f32_by = bound_ms(nbytes, 2 * t * d * lm_vocab, "float32")
+        # bf16 x: the least time at f32 accuracy is three bf16 part products
+        # of the head at the bf16 rate (two miss TOL, phase 2); the f32
+        # CUDA-core bound stays beside it
+        b_ms, b_by = ((f32_ms, f32_by) if x_name == "float32" else
+                      bound_ms(nbytes, ce.W_PARTS * 2 * t * d * lm_vocab, "bfloat16"))
         with torch.no_grad():
             row = dict(kernel="lm_head_ce", dtype=f"{x_name} x {w_name}",
                        shape=f"T={t} D={d} Vp={vocab} vocab={lm_vocab}",
@@ -1185,6 +1307,10 @@ def main():
                        library_ms=time_ms(lambda: torch.matmul(x32, w), iters=5, warmup=1),
                        library="torch.matmul of the same f32 product alone (no logsumexp)",
                        bound_ms=b_ms, bound_by=b_by)
+            if x_name == "bfloat16":
+                row.update(host_ms=time_ms(lambda: ce.lm_head_ce(x, w, labels, vocab_size=lm_vocab), iters=5,
+                                           warmup=1, queued=False),
+                           bound_ms_f32_cuda_cores=f32_ms, bound_by_f32_cuda_cores=f32_by, bf16_parts=ce.W_PARTS)
         rows_out.append(row)
         log("  " + json.dumps(row))
         if x_name == "bfloat16":  # the training step's backward of the fused loss, plain torch f32
@@ -1268,10 +1394,24 @@ def main():
                 row = dict(kernel="dip_matmul_q_int8" if scheme == "int8" else "dip_matmul_q_fp8",
                            dtype="bfloat16", shape=shape,
                            ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw)),
+                           host_ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw),
+                                           queued=False),
                            plain_ms=time_ms(lambda: dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw)),
                            library_ms=time_ms(library), library=lib_name, bound_ms=b_ms, bound_by=b_by)
                 rows_out.append(row)
                 log("  " + json.dumps(row))
+                if scheme == "fp8_e4m3" and pr == "rmsnorm":
+                    # the same launch without the prologue: the kernel's own
+                    # share, without the wrapper's inv_rms reduction (torch)
+                    b_ms, b_by = bound_ms(2 * m * k + nw * (k * n + 4 * n) + 2 * m * n, 2 * m * k * n * nw, "bfloat16")
+                    row = dict(row, shape=f"M={m} {label} K={k} N={n} {e}/none (prologue off)",
+                               ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, epilogue=e)),
+                               host_ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, epilogue=e),
+                                               queued=False), bound_ms=b_ms, bound_by=b_by)
+                    for key in ("plain_ms", "library_ms", "library"):
+                        row.pop(key)
+                    rows_out.append(row)
+                    log("  " + json.dumps(row))
                 del qws, eops, nat
             # the wavefront on bf16 DiP storage
             x, p, eops, kw = dip_inputs(m, k, n, e, pr, torch.bfloat16)
@@ -1294,17 +1434,25 @@ def main():
             log("  " + json.dumps(row))
             del x, p, eops, wn
 
+    # no call can beat the least time the card needs for its work: a row
+    # under its bound means a wrong bound or a wrong timing
+    under = [f"{r['kernel']} {r['dtype']} {r['shape']}: {r['ms']:.4f} < {r['bound_ms']:.4f} ms"
+             for r in rows_out if r["ms"] < r["bound_ms"]]
+    if under:
+        raise AssertionError("timed under the bound: " + "; ".join(under))
+
     # one line per kernel: the served dtype at the prefill chunk's largest
     # launch; lm_head_ce in the training dtypes (bf16 x, f32 head)
     pick = {"dip_matmul": ("bfloat16", "M=256 gate+up"), "flash_attention": ("bfloat16", "q_offset 512"),
             "lm_head_ce": ("bfloat16 x float32", "T=4092"), "dip_matmul_q_int8": ("bfloat16", "M=256 gate+up"),
             "dip_matmul_q_fp8": ("bfloat16", "M=256 gate+up"), "dip_systolic": ("bfloat16", "M=256 gate+up")}
     q_src = ("src/repro_torch/kernels/csrc/dip_matmul_q.cu", "src/repro/kernels/dip_matmul_q.py:117")
+    fp8_src = ("src/repro_torch/kernels/csrc/dip_matmul.cu", "src/repro/kernels/dip_matmul_q.py:117")
     sources = {"dip_matmul": ("src/repro_torch/kernels/csrc/dip_matmul.cu", "src/repro/kernels/dip_matmul.py:100"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:117"),
                "lm_head_ce": ("src/repro_torch/kernels/csrc/lm_head_ce.cu", "src/repro/kernels/lm_head_ce.py:102"),
-               "dip_matmul_q_int8": q_src, "dip_matmul_q_fp8": q_src,
+               "dip_matmul_q_int8": q_src, "dip_matmul_q_fp8": fp8_src,
                "dip_systolic": ("src/repro_torch/kernels/csrc/dip_systolic.cu",
                                 "src/repro/kernels/dip_systolic.py:82")}
     # each kernel's launches on each main path, counted from 0 around it
@@ -1325,11 +1473,15 @@ def main():
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": f"{pick[name][0]} {row['shape']}"})
+        if "bound_ms_f32_cuda_cores" in row:
+            kernels[-1].update(bound_ms_f32_cuda_cores=row["bound_ms_f32_cuda_cores"], bf16_parts=row["bf16_parts"])
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
     flash_line["launches_by_route"] = {r: sum(v[r] for v in routes_by_path.values())
                                        for r in ("tensor_cores", "cuda_cores")}
     flash_line["route_of_timed_shape"] = next(r for r in rows_out if r["kernel"] == "flash_attention"
                                               and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
+    fp8_line = next(kk for kk in kernels if kk["name"] == "dip_matmul_q_fp8")
+    fp8_line["launches_tensor_cores"] = qserve["fp8_e4m3"]["dip_matmul_q_tensor_core_launches"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

@@ -15,7 +15,11 @@ beside each library as ``lib<name>-<hash>.log``.
 
 :func:`refuse_grad` is the wrappers' shared guard: a ctypes launch returns
 tensors with no ``grad_fn``, so a wrapper called where autograd would need
-one raises instead of silently cutting the gradient.
+one raises instead of silently cutting the gradient.  :func:`check_aligned`
+is the other: every kernel reads its operands with 16-byte vector loads or
+``cp.async`` copies, so a contiguous view whose storage offset is not a
+multiple of 16 bytes is refused before the launch (a misaligned load would
+fault and leave the CUDA context unusable).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "build", "load", "library_path", "nvcc_path", "refuse_grad"]
+__all__ = ["SOURCES", "build", "load", "library_path", "nvcc_path", "refuse_grad", "check_aligned"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -105,3 +109,11 @@ def refuse_grad(kernel: str, *tensors) -> None:
             f"{kernel}: the CUDA kernel has no backward here; call it under torch.no_grad() "
             "or through the autograd path that owns it"
         )
+
+
+def check_aligned(t: torch.Tensor, what: str) -> None:
+    """Raise ``ValueError`` unless ``t``'s first element is 16-byte aligned
+    (any device: the check reads only the address)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must be 16-byte aligned (a view at storage offset {t.storage_offset()} "
+                         f"of {t.dtype} is not); pass a fresh tensor or .clone() it")

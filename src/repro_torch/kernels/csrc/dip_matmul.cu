@@ -1,14 +1,17 @@
 // DiP matmul for Hopper (sm_90a): epilogue(prologue(x) @ deshear(P)).
 //
 // Replaces repro/kernels/dip_matmul.py::dip_matmul_pallas (and, with
-// deshear = 0, ws_matmul_pallas).  P is the DiP-permutated weight storage
-// (dip_common.cuh).  The TPU kernel walks K on a sequential grid axis and
-// carries the sum in VMEM scratch; here a block loops over K itself, since
-// blocks run in no order, and a K range split across blocks is summed by a
-// second pass.
+// deshear = 0, ws_matmul_pallas), and for bf16 x with e4m3 weights the fp8
+// route of repro/kernels/dip_matmul_q.py::dip_matmul_q_pallas.  P is the
+// DiP-permutated weight storage (dip_common.cuh).  The TPU kernel walks K on
+// a sequential grid axis and carries the sum in VMEM scratch; here a block
+// loops over K itself, since blocks run in no order, and a K range split
+// across blocks is summed by a second pass.
 //
-// bf16, the served and trained dtype, runs one of two mainloops, chosen by
-// the plan the wrapper computes (kernels/dip_matmul.py::matmul_plan):
+// bf16 x runs one of two mainloops, chosen by the plan the wrapper computes
+// (kernels/dip_matmul.py::matmul_plan), on bf16 weights or on e4m3 codes
+// (one byte a weight, upcast exactly to bf16 in the conversion pass, with
+// z = acc * w_scale[n] before the epilogue; the same products after it):
 //
 //   * prefill and training (M > 32; M = 256 a chunk, 4096 a training batch)
 //     are bound by the tensor-core operations.  dip_wgmma_kernel: 128 x 128
@@ -18,28 +21,35 @@
 //     swizzle.  A ring of 4 stages is filled by cp.async 16-byte copies:
 //     x lands swizzled, ready for wgmma, and P lands raw.  While a step's
 //     products run, the block turns the next stage's P into the K-major
-//     operand (one of three buffers), de-shearing it on the way: each
-//     thread gathers two 16-byte operand chunks, of columns n and n + 1,
-//     from nine 32-bit words, and the 32 lanes' words fall on 32 banks.
+//     operand (one of three buffers), de-shearing it on the way: for bf16
+//     each thread gathers two 16-byte operand chunks, of columns n and
+//     n + 1, from nine 32-bit words; for e4m3 four chunks, of columns
+//     n .. n + 3, from eleven words, upcasting each byte pair; either way
+//     the 32 lanes' words fall on 32 banks.
 //     The rmsnorm prologue x * inv_rms[m] * gain[k] (f32, cast back to
 //     bf16) is applied on the same pass, in place in the x stage, its gain
 //     carried through the ring.  One step's products stay in flight across
 //     the barrier, so the tensor cores do not drain between steps.  Where
 //     the tiles fill fewer SMs than the card has, K is split.
 //   * decode (M <= 32, the serving slots) is bound by the weight bytes
-//     (4.5 ms of weights per llama3-8b forward at 3.35 TB/s).
-//     dip_mma_kernel: 32 x 64 tiles (two blocks an SM), eight warps in a
-//     2 x 4 grid, mma.sync m16n8k16 fed by ldmatrix, a ring of 3-4 cp.async
-//     stages.  A projection of N/64 tiles would leave most SMs idle, so the
-//     plan splits K until at least 2 x SMs blocks stream weights.  Each
-//     thread de-shears the chunks it copied itself (no barrier of its own),
-//     in an element order rotated by lane so that its 2-byte scatter is free
-//     of bank conflicts, interleaved with the products of the step before.
+//     (4.5 ms of bf16 weights per llama3-8b forward at 3.35 TB/s, half that
+//     in e4m3).  dip_mma_kernel: 32 x 64 tiles (two blocks an SM), eight
+//     warps in a 2 x 4 grid, mma.sync m16n8k16 fed by ldmatrix, a ring of
+//     3-4 cp.async stages (for e4m3: 32 x 128 tiles of a single weight, so
+//     that a block still reads 128 bytes of each weight row, and 5 stages).
+//     A projection of N/64 tiles would leave most SMs idle, so the plan
+//     splits K until at least 2 x SMs blocks stream weights.  For bf16
+//     each thread de-shears the chunks it copied itself (no barrier of its
+//     own), in an element order rotated by lane so that its 2-byte scatter
+//     is free of bank conflicts, interleaved with the products of the step
+//     before; for e4m3 the block gathers the transposed operand from every
+//     thread's copies (stage t + 1 made visible by the barrier ending step
+//     t - 1), eleven words and four 16-byte stores a thread.
 //
 // With a K split each split writes f32 partial sums to a workspace the
 // wrapper allocates, and splitk_reduce_kernel adds them in split order (no
-// atomics) and only then applies the epilogue; without one the epilogue is
-// applied straight from the accumulator registers, with one cast.
+// atomics) and only then applies the scales and the epilogue; without one
+// they are applied straight from the accumulator registers, with one cast.
 //
 // f32 keeps IEEE FMAs on the CUDA cores (no TF32) and int8 exact int32 WMMA
 // s8 (dip_matmul_kernel): one block per 64x64 output tile, the tile
@@ -67,6 +77,8 @@ struct Args {
   int M, N, K;
   int epilogue;
   int deshear;
+  const float* w_scale;     // (N,) f32 per-output-channel scales of e4m3 weights, else null
+  const float* w_scale_up;  // (N,) the up weight's scales, e4m3 swiglu only
 };
 
 // f32: thread (ty, tx) of an 8x16 grid owns rows ty + 8i and columns tx + 16j.
@@ -193,27 +205,58 @@ cudaError_t launch_any(const Args& a, cudaStream_t s) {
   return a.epilogue == EPI_SWIGLU ? launch<T, O, true>(a, s) : launch<T, O, false>(a, s);
 }
 
-// ---------------------------------------------- bf16: tensor-core mainloop ---
+// ----------------------------- bf16 and fp8 weights: tensor-core mainloops ---
 using bf16 = __nv_bfloat16;
+using fp8 = uint8_t;  // an e4m3 code (float8_e4m3fn storage)
 constexpr int MMA_THREADS = 256;     // eight warps, 2 (rows) x 4 (columns)
 constexpr int WARPS_N = 4;
 constexpr int XS = TILE + 8;         // x stage / operand row stride (elements)
 
-template <bool DUAL>
+// Two e4m3 codes, in bits 8..15 and 24..31 of v (the other bits are
+// ignored), to two bf16 (the first in the low half), exactly: the code's
+// magnitude bits land in the bf16 exponent and mantissa fields, so the bf16
+// reads 2^-120 times the code's value (a bf16 subnormal for an e4m3
+// subnormal), and one packed product by 2^120 restores it.  e4m3fn's NaN
+// codes never occur: the quantizer saturates at 448.
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t v) {
+  const uint32_t bits = ((v >> 4) & 0x07F007F0u) | (v & 0x80008000u);
+  const uint32_t two120 = 0x7B807B80u;  // bf16 2^120, twice
+  const __nv_bfloat162 r = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&bits),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&two120));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// The decode tile's layout for a weight element type WT: the raw ring slot
+// holds the x tile (bf16, padded rows) then the weight tile(s) as they were
+// copied (bf16: one padded row-major tile per weight, so the undisturbed
+// tile can be the operand; e4m3: one tile of 128-byte rows, 128 columns or
+// for swiglu the gate's 64 then the up weight's 64, so every block reads
+// whole 128-byte row segments as the bf16 tile does), and the converted
+// operand slot the x tile and the de-sheared bf16 weight tile(s): row-major
+// [k][n] for bf16, transposed [n][k] for e4m3, whose gather writes whole
+// 16-byte chunks of k.
+template <typename WT, bool DUAL>
 struct Cfg {
-  static constexpr int MI = 1, NI = 2;               // m16 and n8 tiles per warp
+  static constexpr bool FP8 = sizeof(WT) == 1;
+  static constexpr int MI = 1, NI = FP8 && !DUAL ? 4 : 2;  // m16 and n8 tiles per warp
   static constexpr int BM = 2 * 16 * MI;             // block rows
   static constexpr int BN = WARPS_N * 8 * NI;        // block columns per weight
-  static constexpr int WS = BN + 8;                  // weight row stride (elements)
+  static constexpr int WS = FP8 ? TILE + 8 : BN + 8;  // weight operand row stride (elements; e4m3: of k)
   static constexpr int NW = DUAL ? 2 : 1;
-  // the swiglu tile keeps two blocks on an SM with three stages
-  static constexpr int STAGES = DUAL ? 3 : 4;
+  // bf16: the swiglu tile keeps two blocks on an SM with three stages;
+  // e4m3 stages hold 8 KB of weights either way, and five keep two blocks
+  static constexpr int STAGES = FP8 ? 5 : (DUAL ? 3 : 4);
   static constexpr int X_ELEMS = BM * XS;
-  static constexpr int W_ELEMS = TILE * WS;
-  static constexpr int SLOT = X_ELEMS + NW * W_ELEMS;
-  static constexpr size_t SMEM = (size_t)(STAGES * SLOT + 2 * SLOT) * sizeof(bf16);
+  static constexpr int W_ELEMS = (FP8 ? BN : TILE) * WS;
+  static constexpr int RAW_W = FP8 ? TILE * BN : W_ELEMS * 2;  // bytes of one raw weight tile
+  static constexpr int RW = NW * BN;                           // e4m3: bytes of one raw row (both weights)
+  static constexpr int RAW = X_ELEMS * 2 + NW * RAW_W;         // bytes of one ring slot
+  static constexpr int OP = (X_ELEMS + NW * W_ELEMS) * 2;      // bytes of one operand slot
+  static constexpr size_t SMEM = (size_t)STAGES * RAW + 2 * OP;
   static constexpr int X_CHUNKS = BM * TILE / 8 / MMA_THREADS;  // 16-byte chunks per thread
-  static constexpr int W_CHUNKS = TILE * BN / 8 / MMA_THREADS;
+  static constexpr int CPR = (FP8 ? RW : BN * 2) / 16;         // 16-byte weight chunks per raw row
+  static constexpr int W_CHUNKS = TILE * CPR / MMA_THREADS;     // per thread (bf16: per weight)
+  static_assert(!FP8 || NW * BN == 128, "e4m3: one 128-byte raw row, four columns a lane");
 };
 
 // Rotate the eight bf16 of a chunk left by 2 * rot elements (rot in 0..3)
@@ -230,51 +273,70 @@ __device__ __forceinline__ uint4 rotate_chunk(uint4 v, int rot) {
 // One block: rows m0.., columns n0.. (of each weight), K tiles
 // [kt0, kt0 + nk) with kt0 = blockIdx.z * kps.  part != null: write the f32
 // sums of this split to part[(split * NW + w) * M * N + m * N + n].
-template <bool DUAL>
+template <typename WT, bool DUAL>
 __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, const int kps,
                                                               float* __restrict__ part) {
-  using C = Cfg<DUAL>;
+  using C = Cfg<WT, DUAL>;
+  constexpr bool FP8 = C::FP8;
   constexpr int MI = C::MI, NI = C::NI;
-  constexpr int S = C::STAGES, NW = C::NW, BN = C::BN, WS = C::WS, CPR = BN / 8;
+  constexpr int S = C::STAGES, NW = C::NW, BN = C::BN, WS = C::WS, CPR = C::CPR;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* raw = reinterpret_cast<bf16*>(smem);   // [S][SLOT]: x tile, then the weight tile(s)
-  bf16* op = raw + S * C::SLOT;                 // [2][SLOT]: converted operands
+  unsigned char* raw = smem;                                        // [S][RAW]: x tile, then the weight tile(s)
+  bf16* op = reinterpret_cast<bf16*>(smem + S * C::RAW);            // [2][OP]: converted operands
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * C::BM;
   const int kt0 = blockIdx.z * kps, nk = min(a.K / TILE - kt0, kps);
   const int M = a.M, N = a.N, K = a.K;
   const bf16* x = static_cast<const bf16*>(a.x);
-  const bf16* w_src[2] = {static_cast<const bf16*>(a.p), static_cast<const bf16*>(a.p_up)};
+  const unsigned char* w_src[2] = {static_cast<const unsigned char*>(a.p),
+                                   static_cast<const unsigned char*>(a.p_up)};
   const bool prologue = a.inv_rms != nullptr, deshear = a.deshear != 0;
+  // bf16: a chunk's eight elements rotate by 2 (lane / 8 % 4), the order
+  // that spreads the 32 lanes' scattered stores over the 32 banks
   const int rot = (lane >> 3) & 3;
+  auto x_slot = [&](int t) { return reinterpret_cast<bf16*>(raw + (t % S) * C::RAW); };
+  auto w_slot = [&](int t, int w) { return raw + (t % S) * C::RAW + C::X_ELEMS * 2 + w * C::RAW_W; };
 
   // every thread copies, and later converts, the same chunks of each stage:
   // x chunk j is row (tid + 256 j) / 8, columns 8 * ((tid + 256 j) % 8);
-  // weight chunk j is row (tid + 256 j) / CPR, columns 8 * ((tid + 256 j) % CPR)
+  // weight chunk j is raw row (tid + 256 j) / CPR, its 16-byte chunk
+  // (tid + 256 j) % CPR
   auto issue = [&](int t) {
-    bf16* slot = raw + (t % S) * C::SLOT;
+    bf16* xs = x_slot(t);
     const int k0 = (kt0 + t) * TILE;
 #pragma unroll
     for (int j = 0; j < C::X_CHUNKS; ++j) {
       const int v = tid + MMA_THREADS * j, r = v >> 3, c = (v & 7) * 8, gm = m0 + r;
-      sm90::cp_async16(slot + r * XS + c, x + (size_t)min(gm, M - 1) * K + k0 + c, gm < M);
+      sm90::cp_async16(xs + r * XS + c, x + (size_t)min(gm, M - 1) * K + k0 + c, gm < M);
     }
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
+    if constexpr (FP8) {
+      // chunk j: raw row s, bytes cb .. cb + 15 (swiglu: the gate's columns
+      // below byte 64, the up weight's from there)
 #pragma unroll
       for (int j = 0; j < C::W_CHUNKS; ++j) {
-        const int v = tid + MMA_THREADS * j, s = v / CPR, c = (v % CPR) * 8, gn = n0 + c;
-        sm90::cp_async16(slot + C::X_ELEMS + w * C::W_ELEMS + s * WS + c,
-                         w_src[w] + (size_t)(k0 + s) * N + min(gn, N - 8), gn < N);
+        const int v = tid + MMA_THREADS * j, s = v / CPR, cb = (v % CPR) * 16, gn = n0 + cb % BN;
+        sm90::cp_async16(w_slot(t, 0) + s * C::RW + cb, w_src[cb / BN] + (size_t)(k0 + s) * N + min(gn, N - 16),
+                         gn < N);
       }
+    } else {
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int j = 0; j < C::W_CHUNKS; ++j) {
+          const int v = tid + MMA_THREADS * j, s = v / CPR, c = (v % CPR) * 8, gn = n0 + c;
+          sm90::cp_async16(w_slot(t, w) + (s * WS + c) * 2, w_src[w] + ((size_t)(k0 + s) * N + min(gn, N - 8)) * 2,
+                           gn < N);
+        }
+    }
   };
 
-  // stage t -> operand buffer t & 1: the prologue on x, the de-shear on P.
-  // Piece q of 4 takes the chunks whose index is q mod 4, so that the pass
-  // interleaves with the four 16-deep products of the step before.
+  // stage t -> operand buffer t & 1: the prologue on x, the de-shear (and for
+  // e4m3 the upcast) on the weights.  Piece q of 4 takes the chunks whose
+  // index is q mod 4, so that the pass interleaves with the four 16-deep
+  // products of the step before.
   auto convert = [&](int t, int q) {
-    const bf16* slot = raw + (t % S) * C::SLOT;
-    bf16* dst = op + (t & 1) * C::SLOT;
+    const bf16* slot = x_slot(t);
+    bf16* dst = op + (t & 1) * (C::OP / 2);
     const int k0 = (kt0 + t) * TILE;
     if (prologue) {
 #pragma unroll
@@ -296,13 +358,37 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
         *reinterpret_cast<uint4*>(dst + r * XS + c) = chunk;
       }
     }
-    if (deshear) {
+    if constexpr (FP8) {
+      // the transposed gather (piece 0): thread (lane, warp) builds the
+      // 16-byte chunks k = 8 warp .. + 7 of operand columns n .. n + 3 (n =
+      // 4 lane of the raw row's 128) from 32-bit words of the raw rows,
+      // each holding those 4 columns: with deshear, W[k][nl + j] is byte j
+      // of the word of row k - nl - j, so eleven words give all four
+      // chunks, each byte pair upcast on the way (the 32 lanes' words fall
+      // on 32 banks)
+      if (q == 0) {
+        const int n = 4 * lane, nl = n % BN, kc = warp;
+        const uint32_t* col = reinterpret_cast<const uint32_t*>(w_slot(t, 0)) + lane;
+        uint32_t wd[11];
+#pragma unroll
+        for (int i = 0; i < 11; ++i) wd[i] = col[((8 * kc + i - 3 - (deshear ? nl : 0)) & (TILE - 1)) * (C::RW / 4)];
+        bf16* wd_out = dst + C::X_ELEMS + (n / BN) * C::W_ELEMS;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int sh = deshear ? 3 - j : 3;  // element e of column j: byte j of word e + sh
+          uint32_t o[4];
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            o[p] = e4m3x2_to_bf16x2(__byte_perm(wd[2 * p + sh], wd[2 * p + 1 + sh], ((4 + j) << 12) | (j << 4)));
+          *reinterpret_cast<uint4*>(wd_out + (nl + j) * WS + 8 * kc) = make_uint4(o[0], o[1], o[2], o[3]);
+        }
+      }
+    } else if (deshear) {
 #pragma unroll
       for (int wj = q; wj < NW * C::W_CHUNKS; wj += 4) {
         const int w = wj / C::W_CHUNKS, j = wj % C::W_CHUNKS;
         const int v = tid + MMA_THREADS * j, s = v / CPR, c = (v % CPR) * 8;
-        const uint4 chunk = rotate_chunk(
-            *reinterpret_cast<const uint4*>(slot + C::X_ELEMS + w * C::W_ELEMS + s * WS + c), rot);
+        const uint4 chunk = rotate_chunk(*reinterpret_cast<const uint4*>(w_slot(t, w) + (s * WS + c) * 2), rot);
         const bf16* e = reinterpret_cast<const bf16*>(&chunk);
         bf16* wd = dst + C::X_ELEMS + w * C::W_ELEMS;
         // P[s][c + i] lands at W[(s + c + i) mod 64][c + i]; element i of
@@ -331,12 +417,12 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
   // slice loaded before this slice's products are issued, and stage t + 1
   // converted in four pieces between them.
   auto compute = [&](int t) {
-    const bf16* slot = raw + (t % S) * C::SLOT;
-    const bf16* cvt = op + (t & 1) * C::SLOT;
+    const bf16* slot = x_slot(t);
+    const bf16* cvt = op + (t & 1) * (C::OP / 2);
     const bf16* xs = prologue ? cvt : slot;
-    const bf16* ws = (deshear ? cvt : slot) + C::X_ELEMS;
+    const bf16* ws = (FP8 || deshear ? cvt : slot) + C::X_ELEMS;
     const bool next = t + 1 < nk;
-    if (next) sm90::cp_async_wait<S - 2>();  // this thread's copies of stage t + 1 have landed
+    if (!FP8 && next) sm90::cp_async_wait<S - 2>();  // this thread's copies of stage t + 1 have landed
     uint32_t af[2][MI][4], bfr[2][NW][NI / 2][4];
     auto load_frags = [&](int buf, int kk) {
 #pragma unroll
@@ -345,10 +431,15 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
 #pragma unroll
       for (int w = 0; w < NW; ++w)
 #pragma unroll
-        for (int j = 0; j < NI / 2; ++j)
-          sm90::ldmatrix_x4_trans(bfr[buf][w][j], ws + w * C::W_ELEMS +
-                                                      (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * WS + wc +
-                                                      16 * j + (lane >> 4) * 8);
+        for (int j = 0; j < NI / 2; ++j) {
+          if constexpr (FP8)  // [n][k]: the fragments' own layout
+            sm90::ldmatrix_x4(bfr[buf][w][j], ws + w * C::W_ELEMS + (wc + 16 * j + (lane & 7) + (lane >> 4) * 8) * WS +
+                                                  kk + ((lane >> 3) & 1) * 8);
+          else
+            sm90::ldmatrix_x4_trans(bfr[buf][w][j], ws + w * C::W_ELEMS +
+                                                        (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * WS + wc +
+                                                        16 * j + (lane >> 4) * 8);
+        }
     };
     load_frags(0, 0);
 #pragma unroll
@@ -369,13 +460,21 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
 
   // the ring: stages 0 .. S-2 in flight before the loop; step t issues stage
   // t + S - 1 into the slot stage t - 1 left, converts stage t + 1 and
-  // multiplies stage t
+  // multiplies stage t.  bf16: each thread converts the chunks it copied
+  // itself, so it waits for its own copies of stage t + 1 within step t;
+  // e4m3: the gather reads every thread's chunks, so each thread waits for
+  // its copies of stage t + 2 before the barrier ending step t
 #pragma unroll
   for (int t = 0; t < S - 1; ++t) {
     if (t < nk) issue(t);
     sm90::cp_async_commit();
   }
-  sm90::cp_async_wait<S - 2>();
+  if constexpr (FP8) {
+    sm90::cp_async_wait<S - 3>();  // stages 0 and 1
+    __syncthreads();
+  } else {
+    sm90::cp_async_wait<S - 2>();
+  }
   if (nk > 0)
 #pragma unroll
     for (int q = 0; q < 4; ++q) convert(0, q);
@@ -384,6 +483,7 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
     if (t + S - 1 < nk) issue(t + S - 1);
     sm90::cp_async_commit();
     compute(t);
+    if constexpr (FP8) sm90::cp_async_wait<S - 3>();
     __syncthreads();
   }
   sm90::cp_async_wait<0>();
@@ -406,17 +506,22 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
             *reinterpret_cast<float2*>(part + (blockIdx.z * NW + w) * mn + o) =
                 make_float2(acc[w][i][j][2 * h], acc[w][i][j][2 * h + 1]);
         } else {
-          const float u0 = DUAL ? acc[NW - 1][i][j][2 * h] : 0.0f;
-          const float u1 = DUAL ? acc[NW - 1][i][j][2 * h + 1] : 0.0f;
-          const float z0 = apply_epilogue(a.epilogue, acc[0][i][j][2 * h], u0, a.bias, res, N, gm, gn);
-          const float z1 = apply_epilogue(a.epilogue, acc[0][i][j][2 * h + 1], u1, a.bias, res, N, gm, gn + 1);
-          *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(z0, z1);
+          float z0 = acc[0][i][j][2 * h], z1 = acc[0][i][j][2 * h + 1];
+          float u0 = DUAL ? acc[NW - 1][i][j][2 * h] : 0.0f, u1 = DUAL ? acc[NW - 1][i][j][2 * h + 1] : 0.0f;
+          if (FP8) {  // (x @ W) * w_scale[n], each weight its own scales
+            z0 *= a.w_scale[gn], z1 *= a.w_scale[gn + 1];
+            if (DUAL) u0 *= a.w_scale_up[gn], u1 *= a.w_scale_up[gn + 1];
+          }
+          const float o0 = apply_epilogue(a.epilogue, z0, u0, a.bias, res, N, gm, gn);
+          const float o1 = apply_epilogue(a.epilogue, z1, u1, a.bias, res, N, gm, gn + 1);
+          *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(o0, o1);
         }
       }
 }
 
 // The split-K second pass: the splits' partial sums added in split order,
-// then the epilogue on the whole sum and one cast.
+// then the per-channel scales (e4m3 weights), the epilogue on the whole sum
+// and one cast.
 template <bool DUAL>
 __global__ void splitk_reduce_kernel(const Args a, const float* __restrict__ part, int splits) {
   constexpr int NW = DUAL ? 2 : 1;
@@ -429,65 +534,79 @@ __global__ void splitk_reduce_kernel(const Args a, const float* __restrict__ par
     if (DUAL) zu += part[((size_t)s * NW + 1) * mn + e];
   }
   const int gm = (int)(e / a.N), gn = (int)(e % a.N);
+  if (a.w_scale != nullptr) {
+    z *= a.w_scale[gn];
+    if (DUAL) zu *= a.w_scale_up[gn];
+  }
   static_cast<bf16*>(a.out)[e] = from_f32<bf16>(
       apply_epilogue(a.epilogue, z, zu, a.bias, static_cast<const bf16*>(a.residual), a.N, gm, gn));
 }
 
 template <bool DUAL>
-cudaError_t launch_mma(const Args& a, int splits, int kps, float* part, cudaStream_t stream) {
-  using C = Cfg<DUAL>;
-  static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(dip_mma_kernel<DUAL>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
-  const dim3 grid((a.N + C::BN - 1) / C::BN, (a.M + C::BM - 1) / C::BM, splits);
-  dip_mma_kernel<DUAL><<<grid, MMA_THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
+cudaError_t launch_reduce(const Args& a, int splits, float* part, cudaStream_t stream) {
   const size_t mn = (size_t)a.M * a.N;
   splitk_reduce_kernel<DUAL><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a, part, splits);
   return cudaGetLastError();
 }
 
-// -------------------------------------- bf16 prefill: wgmma mainloop -------
+template <typename WT, bool DUAL>
+cudaError_t launch_mma(const Args& a, int splits, int kps, float* part, cudaStream_t stream) {
+  using C = Cfg<WT, DUAL>;
+  static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(dip_mma_kernel<WT, DUAL>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid((a.N + C::BN - 1) / C::BN, (a.M + C::BM - 1) / C::BM, splits);
+  dip_mma_kernel<WT, DUAL><<<grid, MMA_THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess || splits == 1 ? err : launch_reduce<DUAL>(a, splits, part, stream);
+}
+
+// -------------------------------------------- prefill: wgmma mainloop -------
 // Two warpgroups, each owning 64 rows of the block's 128 and all of its 128
 // columns (swiglu: 64 gate columns then the 64 up columns of the same
 // output columns, so one m64n128k16 product serves both weights).
 constexpr int WG_ROWS = 64, WG_COLS = 128;
 constexpr int RASTER = 8;  // row tiles per rasterization group
 
-template <bool DUAL>
+template <typename WT, bool DUAL>
 struct WgCfg {
+  static constexpr bool FP8 = sizeof(WT) == 1;
   static constexpr int THREADS = 256;
   static constexpr int BM = 2 * WG_ROWS;
   static constexpr int BN = DUAL ? WG_COLS / 2 : WG_COLS;  // output columns (per weight)
-  static constexpr int RS = BN + 32;  // raw P row stride (elements): keeps the gather conflict-free
+  // raw P row stride (elements).  bf16: a multiple of 32 past BN keeps the
+  // gather conflict-free.  e4m3: one 128-byte row holds all 128 operand
+  // columns (swiglu: the gate's 64 then the up weight's 64), so the 32 lanes'
+  // 4-column words fall on 32 banks with no padding
+  static constexpr int RS = FP8 ? WG_COLS : BN + 32;
   static constexpr int STAGES = 4;    // ring slots of raw x and P
   static constexpr int B_BUFS = 3;    // de-sheared operand buffers: one being read while two are filled
-  static constexpr int X_BYTES = BM * TILE * 2;                  // x tile, K-major, 128B swizzle
-  static constexpr int P_BYTES = (DUAL ? 2 : 1) * TILE * RS * 2;  // raw P tile(s), row-major
-  static constexpr int RAW = X_BYTES + P_BYTES;                   // one ring slot
-  static constexpr int OP = WG_COLS * TILE * 2;                   // B, K-major, 128B swizzle
+  static constexpr int X_BYTES = BM * TILE * 2;                                     // x tile, K-major, 128B swizzle
+  static constexpr int P_BYTES = FP8 ? TILE * RS : (DUAL ? 2 : 1) * TILE * RS * 2;  // raw P tile(s), row-major
+  static constexpr int RAW = X_BYTES + P_BYTES;                                     // one ring slot
+  static constexpr int OP = WG_COLS * TILE * 2;                                     // B, K-major, 128B swizzle
   // + the gain ring (64 f32 a stage) + alignment slack
   static constexpr size_t SMEM = (size_t)STAGES * RAW + B_BUFS * OP + STAGES * TILE * 4 + 1024;
   static constexpr int X_CHUNKS = WG_ROWS * TILE / 8 / 128;      // 4, of the thread's own warpgroup's rows
-  static constexpr int P_CHUNKS = TILE * BN * (DUAL ? 2 : 1) / 8 / THREADS;
+  static constexpr int P_CHUNKS = TILE * WG_COLS * (int)sizeof(WT) / 16 / THREADS;  // 16-byte raw P chunks per thread
   static constexpr int B_CHUNKS = WG_COLS * TILE / 8 / THREADS;
   static_assert(RAW % 1024 == 0 && OP % 1024 == 0, "wgmma tiles must stay 1024-byte aligned");
 };
 
-template <bool DUAL>
-__global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const Args a, const int kps,
-                                                                         float* __restrict__ part) {
-  using C = WgCfg<DUAL>;
-  constexpr int S = C::STAGES, T = C::THREADS, BN = C::BN, RS = C::RS, CPR = BN / 8;
+template <typename WT, bool DUAL>
+__global__ void __launch_bounds__(WgCfg<WT, DUAL>::THREADS) dip_wgmma_kernel(const Args a, const int kps,
+                                                                             float* __restrict__ part) {
+  using C = WgCfg<WT, DUAL>;
+  constexpr bool FP8 = C::FP8;
+  constexpr int S = C::STAGES, T = C::THREADS, BN = C::BN, RS = C::RS;
   extern __shared__ unsigned char smem_dyn[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
-  unsigned char* raw = smem;                                         // [S][RAW]: x (swizzled), then P [w][64][RS]
+  unsigned char* raw = smem;                                         // [S][RAW]: x (swizzled), then P
   unsigned char* op = raw + S * C::RAW;                              // [B_BUFS][OP]: B
   float* gain_ring = reinterpret_cast<float*>(op + C::B_BUFS * C::OP);  // [S][64]: gain of each stage
   const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, warp = (tid >> 5) & 3, wt = tid & 127;
@@ -500,7 +619,8 @@ __global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const A
   const int n0 = (in_group / rows) * BN, m0 = (first_m + in_group % rows) * C::BM;
   const int kt0 = blockIdx.z * kps, nk = min(K / TILE - kt0, kps);
   const bf16* x = static_cast<const bf16*>(a.x);
-  const bf16* w_src[2] = {static_cast<const bf16*>(a.p), static_cast<const bf16*>(a.p_up)};
+  const unsigned char* w_src[2] = {static_cast<const unsigned char*>(a.p),
+                                   static_cast<const unsigned char*>(a.p_up)};
   const bool prologue = a.inv_rms != nullptr, deshear = a.deshear != 0;
 
   // x chunk j of this thread: row 64 wg + (wt + 128 j) / 8 (a warpgroup
@@ -523,21 +643,30 @@ __global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const A
                        gm < M);
     }
     if (prologue && tid < TILE / 4) sm90::cp_async16(gain_ring + (t % S) * TILE + 4 * tid, a.gain + k0 + 4 * tid, true);
-    // P chunk j: weight j / (P_CHUNKS / NW), row s, columns c .. c + 7
 #pragma unroll
     for (int j = 0; j < C::P_CHUNKS; ++j) {
-      constexpr int PER_W = DUAL ? C::P_CHUNKS / 2 : C::P_CHUNKS;
-      const int w = j / PER_W, v = tid + T * (j % PER_W), s = v / CPR, c = (v % CPR) * 8, gn = n0 + c;
-      sm90::cp_async16(slot + C::X_BYTES + (w * TILE * RS + s * RS + c) * 2,
-                       w_src[w] + (size_t)(k0 + s) * N + min(gn, N - 8), gn < N);
+      if constexpr (FP8) {
+        // chunk j: row s, bytes cb .. cb + 15 of its 128 (swiglu: the gate's
+        // columns below byte 64, the up weight's from there)
+        const int v = tid + T * j, s = v >> 3, cb = (v & 7) * 16;
+        const int w = DUAL ? cb / BN : 0, gn = n0 + (DUAL ? cb % BN : cb);
+        sm90::cp_async16(slot + C::X_BYTES + s * RS + cb, w_src[w] + (size_t)(k0 + s) * N + min(gn, N - 16),
+                         gn < N);
+      } else {
+        // chunk j: weight j / (P_CHUNKS / NW), row s, columns c .. c + 7
+        constexpr int PER_W = DUAL ? C::P_CHUNKS / 2 : C::P_CHUNKS, CPR = BN / 8;
+        const int w = j / PER_W, v = tid + T * (j % PER_W), s = v / CPR, c = (v % CPR) * 8, gn = n0 + c;
+        sm90::cp_async16(slot + C::X_BYTES + (w * TILE * RS + s * RS + c) * 2,
+                         w_src[w] + ((size_t)(k0 + s) * N + min(gn, N - 8)) * 2, gn < N);
+      }
     }
   };
 
   // Stage t: the rmsnorm prologue on this thread's x chunks, in place in
   // the stage (gain from the stage's slice of the gain ring); P -> B buffer
   // t % B_BUFS: row n (weight w = n / BN, column nl = n % BN), depth k holds
-  // P[(k - nl) mod 64][nl] (ws: P[k][nl]).  Each thread gathers whole
-  // 16-byte chunks of B.
+  // P[(k - nl) mod 64][nl] (ws: P[k][nl]), upcast for e4m3.  Each thread
+  // gathers whole 16-byte chunks of B.
   auto convert = [&](int t) {
     unsigned char* slot = raw + (t % S) * C::RAW;
     if (prologue) {
@@ -557,40 +686,67 @@ __global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const A
         *chunk = v;
       }
     }
-    // B rows n and n + 1 (n even) from 32-bit words of P, each holding
-    // columns nl and nl + 1 of one row: with deshear, B[n][k] is the low
-    // half of row k - nl and B[n + 1][k] the high half of row k - nl - 1, so
-    // nine words give both 16-byte chunks (RS a multiple of 32 keeps the
-    // 32 lanes' words on 32 banks)
     const uint32_t* pw = reinterpret_cast<const uint32_t*>(slot + C::X_BYTES);
     unsigned char* dst = op + (t % C::B_BUFS) * C::OP;
-#pragma unroll
-    for (int j = 0; j < C::B_CHUNKS / 2; ++j) {
-      const int u = tid + T * j, n = ((u >> 8) * 32 + (u & 31)) * 2, kc = (u >> 5) & 7;
-      const int w = DUAL ? n / BN : 0, nl = DUAL ? n % BN : n;
-      const uint32_t* col = pw + (w * TILE * RS + nl) / 2;
-      uint32_t lo[4], hi[4];
+    if constexpr (FP8) {
+      // B rows n .. n + 3 (n = 4 lane), depth chunk kc = warp, from 32-bit
+      // words of P, each holding columns n .. n + 3 of one row: with
+      // deshear, B[n + j][8 kc + e] is byte j of row 8 kc + e - nl - j, so
+      // eleven words give all four 16-byte chunks (the 32 lanes' words
+      // fall on 32 banks); each byte pair is upcast on the way
+      const int n = 4 * (tid & 31), kc = tid >> 5, nl = n % BN;
+      const uint32_t* col = pw + n / 4;
+      uint32_t wd[11];
       if (deshear) {
-        uint32_t wd[9];
 #pragma unroll
-        for (int e = 0; e < 9; ++e) wd[e] = col[((8 * kc + e - 1 - nl) & (TILE - 1)) * (RS / 2)];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          lo[i] = __byte_perm(wd[2 * i + 1], wd[2 * i + 2], 0x5410);
-          hi[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x7632);
-        }
+        for (int i = 0; i < 11; ++i) wd[i] = col[((8 * kc + i - 3 - nl) & (TILE - 1)) * (RS / 4)];
       } else {
-        uint32_t wd[8];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) wd[e] = col[(8 * kc + e) * (RS / 2)];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          lo[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x5410);
-          hi[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x7632);
-        }
+        for (int i = 0; i < 8; ++i) wd[i + 3] = col[(8 * kc + i) * (RS / 4)];
       }
-      *reinterpret_cast<uint4*>(dst + sm90::sw128_offset(n, 8 * kc)) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-      *reinterpret_cast<uint4*>(dst + sm90::sw128_offset(n + 1, 8 * kc)) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t o[4];
+        const int sh = deshear ? 3 - j : 3;  // element e of column j is in word e + sh
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          o[p] = e4m3x2_to_bf16x2(__byte_perm(wd[2 * p + sh], wd[2 * p + 1 + sh], ((4 + j) << 12) | (j << 4)));
+        *reinterpret_cast<uint4*>(dst + sm90::sw128_offset(n + j, 8 * kc)) = make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    } else {
+      // B rows n and n + 1 (n even) from 32-bit words of P, each holding
+      // columns nl and nl + 1 of one row: with deshear, B[n][k] is the low
+      // half of row k - nl and B[n + 1][k] the high half of row k - nl - 1, so
+      // nine words give both 16-byte chunks (RS a multiple of 32 keeps the
+      // 32 lanes' words on 32 banks)
+#pragma unroll
+      for (int j = 0; j < C::B_CHUNKS / 2; ++j) {
+        const int u = tid + T * j, n = ((u >> 8) * 32 + (u & 31)) * 2, kc = (u >> 5) & 7;
+        const int w = DUAL ? n / BN : 0, nl = DUAL ? n % BN : n;
+        const uint32_t* col = pw + (w * TILE * RS + nl) / 2;
+        uint32_t lo[4], hi[4];
+        if (deshear) {
+          uint32_t wd[9];
+#pragma unroll
+          for (int e = 0; e < 9; ++e) wd[e] = col[((8 * kc + e - 1 - nl) & (TILE - 1)) * (RS / 2)];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            lo[i] = __byte_perm(wd[2 * i + 1], wd[2 * i + 2], 0x5410);
+            hi[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x7632);
+          }
+        } else {
+          uint32_t wd[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) wd[e] = col[(8 * kc + e) * (RS / 2)];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            lo[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x5410);
+            hi[i] = __byte_perm(wd[2 * i], wd[2 * i + 1], 0x7632);
+          }
+        }
+        *reinterpret_cast<uint4*>(dst + sm90::sw128_offset(n, 8 * kc)) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        *reinterpret_cast<uint4*>(dst + sm90::sw128_offset(n + 1, 8 * kc)) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      }
     }
   };
 
@@ -606,6 +762,9 @@ __global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const A
   // warpgroup overwrites are its own), and waits for its own copies of
   // stage t + 2 before the barrier.  The products of step t stay in flight
   // across the barrier, so the tensor cores do not drain between steps.
+  // (ptxas of CUDA 12.8 crashes on this kernel if the copies are issued
+  // between the commit and the wait, or if the step body is duplicated;
+  // keep this order.)
 #pragma unroll
   for (int t = 0; t < S - 1; ++t) {
     if (t < nk) issue(t);
@@ -651,13 +810,17 @@ __global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const A
       const int gm = m0 + wg * WG_ROWS + 16 * warp + (lane >> 2) + 8 * h, gn = n0 + 8 * j + 2 * (lane & 3);
       if (gm >= M || gn >= N) continue;
       const size_t o = (size_t)gm * N + gn;
-      const float z0 = acc[4 * j + 2 * h], z1 = acc[4 * j + 2 * h + 1];
-      const float u0 = DUAL ? acc[4 * (j + BN / 8) + 2 * h] : 0.0f;
-      const float u1 = DUAL ? acc[4 * (j + BN / 8) + 2 * h + 1] : 0.0f;
+      float z0 = acc[4 * j + 2 * h], z1 = acc[4 * j + 2 * h + 1];
+      float u0 = DUAL ? acc[4 * (j + BN / 8) + 2 * h] : 0.0f;
+      float u1 = DUAL ? acc[4 * (j + BN / 8) + 2 * h + 1] : 0.0f;
       if (part != nullptr) {
         *reinterpret_cast<float2*>(part + blockIdx.z * (DUAL ? 2 : 1) * mn + o) = make_float2(z0, z1);
         if (DUAL) *reinterpret_cast<float2*>(part + (blockIdx.z * 2 + 1) * mn + o) = make_float2(u0, u1);
       } else {
+        if (FP8) {  // (x @ W) * w_scale[n], each weight its own scales
+          z0 *= a.w_scale[gn], z1 *= a.w_scale[gn + 1];
+          if (DUAL) u0 *= a.w_scale_up[gn], u1 *= a.w_scale_up[gn + 1];
+        }
         const float o0 = apply_epilogue(a.epilogue, z0, u0, a.bias, res, N, gm, gn);
         const float o1 = apply_epilogue(a.epilogue, z1, u1, a.bias, res, N, gm, gn + 1);
         *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(o0, o1);
@@ -665,38 +828,42 @@ __global__ void __launch_bounds__(WgCfg<DUAL>::THREADS) dip_wgmma_kernel(const A
     }
 }
 
-template <bool DUAL>
+template <typename WT, bool DUAL>
 cudaError_t launch_wgmma(const Args& a, int splits, int kps, float* part, cudaStream_t stream) {
-  using C = WgCfg<DUAL>;
+  using C = WgCfg<WT, DUAL>;
   static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(dip_wgmma_kernel<DUAL>,
+    const cudaError_t err = cudaFuncSetAttribute(dip_wgmma_kernel<WT, DUAL>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid(((a.N + C::BN - 1) / C::BN) * ((a.M + C::BM - 1) / C::BM), 1, splits);
-  dip_wgmma_kernel<DUAL><<<grid, C::THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const size_t mn = (size_t)a.M * a.N;
-  splitk_reduce_kernel<DUAL><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a, part, splits);
-  return cudaGetLastError();
+  dip_wgmma_kernel<WT, DUAL><<<grid, C::THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess || splits == 1 ? err : launch_reduce<DUAL>(a, splits, part, stream);
 }
 
 // The plan's (bm, bn) picks the kernel: bm = 32 the mma.sync decode tile
-// (bn = 64), bm = 128 the wgmma tile of two warpgroups (bn = 128, or 64 per
-// weight for swiglu).
-cudaError_t launch_bf16(const Args& a, int bm, int bn, int splits, int kps, float* part, cudaStream_t s) {
+// (bn = 64; 128 for a single e4m3 weight), bm = 128 the wgmma tile of two
+// warpgroups (bn = 128, or 64 per weight for swiglu).  WT: the weight
+// element, bf16 or an e4m3 code.
+template <typename WT>
+cudaError_t launch_tc(const Args& a, int bm, int bn, int splits, int kps, float* part, cudaStream_t s) {
   const int k_tiles = a.K / TILE;
   if (splits < 1 || kps < 1 || (long long)splits * kps < k_tiles || (long long)(splits - 1) * kps >= k_tiles ||
       (splits > 1 && part == nullptr))
     return cudaErrorInvalidValue;
   const bool dual = a.epilogue == EPI_SWIGLU;
-  if (bn != (dual || bm == 32 ? 64 : 128)) return cudaErrorInvalidValue;
-  if (bm == 32) return dual ? launch_mma<true>(a, splits, kps, part, s) : launch_mma<false>(a, splits, kps, part, s);
-  if (bm == 128) return dual ? launch_wgmma<true>(a, splits, kps, part, s) : launch_wgmma<false>(a, splits, kps, part, s);
+  if (bn != (bm == 32 ? (sizeof(WT) == 1 && !dual ? 128 : 64) : (dual ? 64 : 128))) return cudaErrorInvalidValue;
+  if (bm == 32) return dual ? launch_mma<WT, true>(a, splits, kps, part, s) : launch_mma<WT, false>(a, splits, kps, part, s);
+  if (bm == 128)
+    return dual ? launch_wgmma<WT, true>(a, splits, kps, part, s) : launch_wgmma<WT, false>(a, splits, kps, part, s);
   return cudaErrorInvalidValue;
+}
+
+bool bad_shape(int M, int N, int K, int epilogue) {
+  return M <= 0 || N <= 0 || K <= 0 || N % TILE || K % TILE || epilogue < EPI_NONE || epilogue > EPI_RESIDUAL;
 }
 
 }  // namespace
@@ -711,14 +878,27 @@ extern "C" int dip_matmul_launch(int dtype, const void* x, const void* p, const 
                                  const void* residual, void* out, int M, int N, int K,
                                  int epilogue, int deshear, int bm, int bn, int splits, int kps,
                                  void* workspace, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || N % TILE || K % TILE || epilogue < EPI_NONE ||
-      epilogue > EPI_RESIDUAL)
-    return (int)cudaErrorInvalidValue;
-  const Args a{x, p, p_up, inv_rms, gain, bias, residual, out, M, N, K, epilogue, deshear};
+  if (bad_shape(M, N, K, epilogue)) return (int)cudaErrorInvalidValue;
+  const Args a{x, p, p_up, inv_rms, gain, bias, residual, out, M, N, K, epilogue, deshear, nullptr, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_any<float, float>(a, s);
-  if (dtype == 1) return (int)launch_bf16(a, bm, bn, splits, kps, static_cast<float*>(workspace), s);
+  if (dtype == 1) return (int)launch_tc<bf16>(a, bm, bn, splits, kps, static_cast<float*>(workspace), s);
   if (dtype == 2)
     return (int)(epilogue == EPI_NONE ? launch<int8_t, int, false>(a, s) : launch_any<int8_t, float>(a, s));
   return (int)cudaErrorInvalidValue;
+}
+
+// The fp8 route of kernels/dip_matmul_q.py: bf16 x, e4m3 permutated weights
+// q (and q_up for swiglu) with f32 per-output-channel scales, bf16 out;
+// epilogue((prologue(x) @ deshear(upcast(q))) * w_scale[n]) on the bf16
+// mainloops above, with the same plan arguments.  Returns a cudaError_t.
+extern "C" int dip_matmul_fp8_launch(const void* x, const void* q, const void* q_up, const float* w_scale,
+                                     const float* w_scale_up, const float* inv_rms, const float* gain,
+                                     const float* bias, const void* residual, void* out, int M, int N, int K,
+                                     int epilogue, int bm, int bn, int splits, int kps, void* workspace,
+                                     void* stream) {
+  if (bad_shape(M, N, K, epilogue) || w_scale == nullptr || (epilogue == EPI_SWIGLU && w_scale_up == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, q, q_up, inv_rms, gain, bias, residual, out, M, N, K, epilogue, 1, w_scale, w_scale_up};
+  return (int)launch_tc<fp8>(a, bm, bn, splits, kps, static_cast<float*>(workspace), static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,13 @@
 // Quantized DiP matmul for Hopper (sm_90a): reduced-precision permutated
 // weights with per-output-channel scales.
 //
-// Replaces repro/kernels/dip_matmul_q.py::dip_matmul_q_pallas.  The block
-// structure is dip_matmul.cu's: one block per 64x64 output tile loops over K
-// in 64-deep tiles and de-shears each weight tile on its way into shared
-// memory (dip_common.cuh).  Two paths:
+// Replaces repro/kernels/dip_matmul_q.py::dip_matmul_q_pallas for the
+// routes not on the served path; bf16 x with e4m3 weights, the fp8 serving
+// route, runs on the tensor-core mainloops of dip_matmul.cu
+// (dip_matmul_fp8_launch).  The block structure here is dip_matmul.cu's
+// first design: one block per 64x64 output tile loops over K in 64-deep
+// tiles and de-shears each weight tile on its way into shared memory
+// (dip_common.cuh).  Two paths:
 //
 //   int8 (W8A8-dynamic): x arrives already quantized per row by the wrapper
 //     (q8 and x_scale, after any rmsnorm prologue, as the reference does
@@ -12,11 +15,11 @@
 //     int32 accumulator on the tensor cores (WMMA s8) and at the flush
 //     computes z = float(acc) * x_scale[m] * w_scale[n] in that order, then
 //     the f32 epilogue, then one cast.
-//   fp8 (e4m3, weight-only): each weight element is upcast to bf16 on load
-//     (exact: e4m3's 3 mantissa bits and its exponent range fit bf16) and x is
-//     cast to bf16 on load (the device's compute width, the reference's
-//     fp8_compute_dtype on a GPU); bf16 x bf16 accumulates in f32 on the
-//     tensor cores, and the flush computes z = acc * w_scale[n].
+//   fp8 (e4m3, weight-only) with f32 x: each weight element is upcast to
+//     bf16 on load (exact: e4m3's 3 mantissa bits and its exponent range fit
+//     bf16) and x is cast to bf16 on load (the device's compute width, the
+//     reference's fp8_compute_dtype on a GPU); bf16 x bf16 accumulates in
+//     f32 on the tensor cores, and the flush computes z = acc * w_scale[n].
 //
 // swiglu streams the up weight with its own scales over the same x tile (for
 // int8, the same quantized x) into a second accumulator.
@@ -24,7 +27,7 @@
 // Bound on the card: at decode (M = slots) by the weight bytes, one byte per
 // weight; at prefill (M = 256) by tensor-core operations.  This first design
 // does nothing about either yet: no TMA, no wgmma, no pipelining, one 64x64
-// tile per block, and the fp8 path runs its products at the bf16 rate.
+// tile per block.
 #include <algorithm>
 
 #include <cuda_fp8.h>
@@ -50,26 +53,21 @@ struct QArgs {
   int epilogue;
 };
 
-// x tile as bf16: 8 elements of T per step, converted and stored as 16 bytes.
-template <typename T>
-__device__ __forceinline__ void load_x_tile_as_bf16(bf16* xs, const T* x, int M, int K, int m0, int k0) {
+// f32 x tile as bf16: 8 elements per step, converted and stored as 16 bytes.
+__device__ __forceinline__ void load_x_tile_as_bf16(bf16* xs, const float* x, int M, int K, int m0, int k0) {
   constexpr int STRIDE = Tile<bf16>::STRIDE;
   for (int v = threadIdx.x; v < TILE * 8; v += THREADS) {
     const int r = v / 8, c = (v % 8) * 8, gm = m0 + r;
     uint4 packed = make_uint4(0u, 0u, 0u, 0u);
     if (gm < M) {
-      const T* src = x + (size_t)gm * K + k0 + c;
-      if constexpr (std::is_same<T, bf16>::value) {
-        packed = *reinterpret_cast<const uint4*>(src);
-      } else {
-        const float4 lo = *reinterpret_cast<const float4*>(src);
-        const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-        bf16* e = reinterpret_cast<bf16*>(&packed);
-        e[0] = __float2bfloat16_rn(lo.x); e[1] = __float2bfloat16_rn(lo.y);
-        e[2] = __float2bfloat16_rn(lo.z); e[3] = __float2bfloat16_rn(lo.w);
-        e[4] = __float2bfloat16_rn(hi.x); e[5] = __float2bfloat16_rn(hi.y);
-        e[6] = __float2bfloat16_rn(hi.z); e[7] = __float2bfloat16_rn(hi.w);
-      }
+      const float* src = x + (size_t)gm * K + k0 + c;
+      const float4 lo = *reinterpret_cast<const float4*>(src);
+      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+      bf16* e = reinterpret_cast<bf16*>(&packed);
+      e[0] = __float2bfloat16_rn(lo.x); e[1] = __float2bfloat16_rn(lo.y);
+      e[2] = __float2bfloat16_rn(lo.z); e[3] = __float2bfloat16_rn(lo.w);
+      e[4] = __float2bfloat16_rn(hi.x); e[5] = __float2bfloat16_rn(hi.y);
+      e[6] = __float2bfloat16_rn(hi.z); e[7] = __float2bfloat16_rn(hi.w);
     }
     *reinterpret_cast<uint4*>(xs + r * STRIDE + c) = packed;
   }
@@ -119,19 +117,34 @@ __global__ void __launch_bounds__(THREADS) dip_matmul_q_kernel(const QArgs a) {
       mma_tile_s8<DUAL>(xs, ws, wu, acc, accu, wr, wc);
     }
   } else {
+    static_assert(std::is_same<T, float>::value, "bf16 x with e4m3 weights runs dip_matmul.cu");
     bf16* xs = reinterpret_cast<bf16*>(smem);
     bf16* ws = xs + Tile<bf16>::ELEMS;
     bf16* wu = ws + Tile<bf16>::ELEMS;
     const T* x = static_cast<const T*>(a.x);
     const uint8_t* q = static_cast<const uint8_t*>(a.q);
     const uint8_t* qu = static_cast<const uint8_t*>(a.q_up);
+    // each 64-deep step's products start from zero and are added to the
+    // total in IEEE f32: the tensor cores round their f32 sums toward zero,
+    // which over a whole K of 14336 drifts past the f32 tolerance
+    Frag step[2][2], stepu[2][2];
     for (int k0 = 0; k0 < a.K; k0 += TILE) {
       __syncthreads();
-      load_x_tile_as_bf16<T>(xs, x, a.M, a.K, m0, k0);
+      load_x_tile_as_bf16(xs, x, a.M, a.K, m0, k0);
       load_w_tile_fp8(ws, q, a.N, k0, n0);
       if (DUAL) load_w_tile_fp8(wu, qu, a.N, k0, n0);
       __syncthreads();
-      mma_tile_bf16<DUAL>(xs, ws, wu, acc, accu, wr, wc);
+      zero_frags<Frag, A>(step, stepu);
+      mma_tile_bf16<DUAL>(xs, ws, wu, step, stepu, wr, wc);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < step[i][j].num_elements; ++e) {
+            acc[i][j].x[e] += step[i][j].x[e];
+            if (DUAL) accu[i][j].x[e] += stepu[i][j].x[e];
+          }
     }
   }
   __syncthreads();  // the staging buffers below alias the operand tiles
@@ -182,14 +195,16 @@ template <typename T>
 cudaError_t launch_path(int path, const QArgs& a, cudaStream_t s) {
   const bool dual = a.epilogue == EPI_SWIGLU;
   if (path == 0) return dual ? launch<T, true, true>(a, s) : launch<T, true, false>(a, s);
-  return dual ? launch<T, false, true>(a, s) : launch<T, false, false>(a, s);
+  if constexpr (std::is_same<T, float>::value)
+    return dual ? launch<T, false, true>(a, s) : launch<T, false, false>(a, s);
+  return cudaErrorInvalidValue;  // bf16 x with e4m3 weights: dip_matmul_fp8_launch
 }
 
 }  // namespace
 
-// path: 0 = int8 (x holds the int8 codes), 1 = fp8 e4m3 (x holds T).
+// path: 0 = int8 (x holds the int8 codes), 1 = fp8 e4m3 (x holds f32).
 // dtype: the output (and fp8-path x, and residual) type, 0 = float32,
-// 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// 1 = bfloat16 (int8 path only).  Returns a cudaError_t (0 on success).
 extern "C" int dip_matmul_q_launch(int path, int dtype, const void* x, const void* q, const void* q_up,
                                    const float* w_scale, const float* w_scale_up, const float* x_scale,
                                    const float* bias, const void* residual, void* out, int M, int N,

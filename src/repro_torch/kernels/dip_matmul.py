@@ -43,7 +43,7 @@ from repro_torch.kernels import prologue as pro
 from repro_torch.kernels import ref
 
 __all__ = ["TILE", "DTYPE_CODES", "DECODE_MAX_M", "MatmulPlan", "matmul_plan", "dip_matmul",
-           "dip_matmul_plain", "launch_operands", "out_dtype_for", "require"]
+           "dip_matmul_plain", "launch_operands", "out_dtype_for", "require", "sm_count"]
 
 TILE = 64  # output tile, K step and DiP permutation tile of the CUDA kernel
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -74,9 +74,11 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def matmul_plan(m: int, n: int, k: int, dual: bool, sms: int) -> MatmulPlan:
-    """The bf16 kernel's tiles and K splits for an (m, k) @ (k, n) call on a
-    card with ``sms`` SMs (``dual``: swiglu, two weights over one x tile).
+def matmul_plan(m: int, n: int, k: int, dual: bool, sms: int, weight_bytes: int = 2) -> MatmulPlan:
+    """The tensor-core kernel's tiles and K splits for an (m, k) @ (k, n)
+    call on a card with ``sms`` SMs (``dual``: swiglu, two weights over one
+    x tile; ``weight_bytes``: 2 for bf16 weights, 1 for the e4m3 codes of
+    ``dip_matmul_q``'s fp8 route).
 
     Decode (m <= DECODE_MAX_M) is bound by the weight bytes, so every SM
     must stream: 32 x 64 tiles (two blocks fit on an SM) and K split until
@@ -84,17 +86,29 @@ def matmul_plan(m: int, n: int, k: int, dual: bool, sms: int) -> MatmulPlan:
     by the products: 128 x 128 tiles (64 columns per weight for swiglu), one
     block an SM; where the tiles fill fewer SMs than the card has, K is
     split so that the blocks come closest to one full wave (a second,
-    partly filled wave would cost more than the split saves)."""
+    partly filled wave would cost more than the split saves).
+
+    One byte a weight changes the decode plan.  A 64-column e4m3 tile reads
+    64-byte row segments, which measured three times slower per byte than
+    the bf16 tile's 128 (the llama3-8b lm_head, M = 4, at any split), so a
+    single e4m3 weight takes 32 x 128 tiles (swiglu's two 64-column tiles
+    make one 128-byte row already).  And the split is rounded so that the
+    blocks never fall short of 2 x ``sms``: a split streams half the bytes
+    of a bf16 one, so its partial sums cost relatively more, but an idle SM
+    costs more still.  At prefill the products are the same bf16 ones."""
     k_tiles = k // TILE
     if m <= DECODE_MAX_M:
-        regime, bm, bn = "decode", 32, 64
+        regime, bm, bn = "decode", 32, 128 if weight_bytes == 1 and not dual else 64
         tiles = _cdiv(n, bn)
         want = _cdiv(2 * sms, tiles) if tiles < 2 * sms else 1
     else:
         regime, bm, bn = "prefill", 128, 64 if dual else 128
         tiles = _cdiv(m, bm) * _cdiv(n, bn)
         want = max(1, int(sms / tiles + 0.5)) if tiles < sms else 1
-    kps = _cdiv(k_tiles, min(k_tiles, want))
+    want = min(k_tiles, want)
+    kps = _cdiv(k_tiles, want)
+    while weight_bytes == 1 and regime == "decode" and _cdiv(k_tiles, kps) < want:
+        kps -= 1  # the rounding must not leave fewer splits than wanted
     splits = _cdiv(k_tiles, kps)  # no empty split
     return MatmulPlan(regime, bm, bn, splits, kps, (_cdiv(n, bn), _cdiv(m, bm), splits))
 
@@ -102,6 +116,11 @@ def matmul_plan(m: int, n: int, k: int, dual: bool, sms: int) -> MatmulPlan:
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA device (cached)."""
+    return _sms(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def out_dtype_for(x: torch.Tensor, epilogue: str = "none") -> torch.dtype:
@@ -172,8 +191,7 @@ def require(t: torch.Tensor, what: str, device, dtype=None) -> None:
         raise TypeError(f"{what} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{what} must be 16-byte aligned")
+    _build.check_aligned(t, what)
 
 
 def _lib():
@@ -253,8 +271,7 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
     plan_args, work = (0, 0, 0, 0), None
     if x.dtype == torch.bfloat16:
         dual = epi.spec(epilogue).dual_weight
-        plan = matmul_plan(m, n, k, dual, _sms(x.device.index if x.device.index is not None
-                                               else torch.cuda.current_device()))
+        plan = matmul_plan(m, n, k, dual, sm_count(x.device))
         plan_args = (plan.bm, plan.bn, plan.splits, plan.k_tiles_per_split)
         if plan.splits > 1:
             work = torch.empty((plan.splits, 2 if dual else 1, m, n), dtype=torch.float32, device=x.device)

@@ -7,22 +7,32 @@ per-output-channel scales (port of
     fp8    weight-only e4m3: ``epilogue((x @ deshear(upcast(Q))) *
            w_scale[n])`` with f32 accumulation
 
-As in the reference, the prologue (rmsnorm) and the int8 activation
-quantization (:func:`~repro_torch.kernels.ref.quantize_acts_int8`) run in
-the wrapper, ahead of the launch, in torch ops; the kernel
-(``csrc/dip_matmul_q.cu``) de-shears each weight tile in shared memory,
-multiplies on the tensor cores, applies the scales and the epilogue at the
-flush and writes once.  fp8 storage is upcast to :func:`fp8_compute_dtype`:
-bf16 on a card (the reference's GPU choice), f32 on the CPU (its emulated
-fallback), and x is cast to the same width.
+fp8 storage is upcast to :func:`fp8_compute_dtype`: bf16 on a card (the
+reference's GPU choice), f32 on the CPU (its emulated fallback), and x is
+cast to the same width.  Bound on the card: at decode by the weight bytes
+(one per weight), at prefill by tensor-core operations.
 
-Bound on the card: at decode by the weight bytes (one per weight), at
-prefill by tensor-core operations; this first design does nothing about
-either yet.
+Two kernels on the card:
 
-:func:`dip_matmul_q` launches the kernel for CUDA tensors and runs
+* **fp8, bf16 x** (the served route) runs the bf16 tensor-core mainloops
+  of ``csrc/dip_matmul.cu`` (``dip_matmul_fp8_launch``) under
+  :func:`~repro_torch.kernels.dip_matmul.matmul_plan` with one byte a
+  weight (128-column decode tiles for a single weight): the raw e4m3 tile
+  rides the cp.async ring at one byte a weight and the conversion pass
+  upcasts it exactly to bf16 as it de-shears; the rmsnorm prologue is fused
+  as on the bf16 route (``inv_rms`` from :func:`~repro_torch.kernels.prologue.inv_rms`,
+  the gain through the ring); ``(x @ W) * w_scale[n]`` is formed before the
+  epilogue, after the splits are added where K is split.
+  ``dip_matmul_q.launches_tc`` counts these launches.
+* **int8, and fp8 with f32 x** run the first design
+  (``csrc/dip_matmul_q.cu``, one 64x64 WMMA tile per block), with the
+  prologue and the int8 activation quantization
+  (:func:`~repro_torch.kernels.ref.quantize_acts_int8`) in torch ops ahead of
+  the launch, as the reference applies them outside its kernel.
+
+:func:`dip_matmul_q` launches a kernel for CUDA tensors and runs
 :func:`dip_matmul_q_plain` for CPU tensors.  ``dip_matmul_q.launches``
-counts kernel launches.
+counts kernel launches (a split-K call's second pass included).
 """
 
 from __future__ import annotations
@@ -37,9 +47,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels import prologue as pro
 from repro_torch.kernels import ref
-from repro_torch.kernels.dip_matmul import TILE, require
+from repro_torch.kernels.dip_matmul import TILE, matmul_plan, require, sm_count
 
-__all__ = ["dip_matmul_q", "dip_matmul_q_plain", "fp8_compute_dtype"]
+__all__ = ["dip_matmul_q", "dip_matmul_q_plain", "fp8_compute_dtype", "q_route"]
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STORAGE = (torch.int8, torch.float8_e4m3fn)
@@ -55,6 +65,13 @@ def _route(q: torch.Tensor) -> str:
     if q.dtype not in _STORAGE:
         raise TypeError(f"quantized storage must be int8 or float8_e4m3fn, got {q.dtype}")
     return "int8" if q.dtype == torch.int8 else "fp8"
+
+
+def q_route(x_dtype: torch.dtype, q_dtype: torch.dtype) -> str:
+    """The kernel a CUDA call takes: ``"tensor_cores"`` (fp8 storage with
+    bf16 x, ``csrc/dip_matmul.cu``) or ``"first_design"`` (int8, and fp8
+    with f32 x, ``csrc/dip_matmul_q.cu``)."""
+    return "tensor_cores" if q_dtype == torch.float8_e4m3fn and x_dtype == torch.bfloat16 else "first_design"
 
 
 def _check(x, q, w_scale, epilogue_operands, epilogue):
@@ -138,6 +155,16 @@ def _lib():
     return fn
 
 
+def _lib_tc():
+    fn = _build.load("dip_matmul").dip_matmul_fp8_launch
+    if fn.argtypes is None:
+        # x, q, q_up, w_scale, w_scale_up, inv_rms, gain, bias, residual, out;
+        # M, N, K, epilogue, bm, bn, splits, kps; workspace; stream
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilogue_operands: torch.Tensor,
                  epilogue: str = "none", prologue: str = "none",
                  prologue_operands: Sequence[torch.Tensor] = (), prologue_k: Optional[int] = None,
@@ -164,16 +191,10 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
     n = q.shape[1]
     if m > 65535 * TILE:
         raise ValueError(f"M={m} exceeds the kernel's grid limit {65535 * TILE}")
-    x = _prologue(x, prologue, prologue_operands, prologue_k, prologue_eps)
-    path = _route(q)
-    x_scale = None
-    if path == "int8":
-        x, x_scale = ref.quantize_acts_int8(x)
-        x_scale = x_scale.reshape(m)
-    require(x, "x", dev)
+    route = q_route(dt, q.dtype)
+    s = epi.spec(epilogue)
     require(q, "q", dev)
     require(w_scale, "w_scale", dev, torch.float32)
-    s = epi.spec(epilogue)
     q_up = s_up = bias = residual = None
     if s.dual_weight:
         q_up, s_up = epilogue_operands
@@ -185,12 +206,45 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
     elif s.residual:
         residual = epilogue_operands[0]
         require(residual, "residual", dev, dt)
-    out = torch.empty((m, n), dtype=dt, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if route == "tensor_cores":
+        require(x, "x", dev, dt)
+        inv = gain = None
+        if pro.spec(prologue).normalize:
+            if len(prologue_operands) != 1:
+                raise ValueError(f"prologue {prologue!r} takes 1 operand, got {len(prologue_operands)}")
+            gain = prologue_operands[0].reshape(-1)
+            if gain.numel() != k:
+                raise ValueError(f"rmsnorm gain must have {k} elements, got {tuple(gain.shape)}")
+            require(gain, "gain", dev, torch.float32)
+            inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
+        plan = matmul_plan(m, n, k, s.dual_weight, sm_count(dev), weight_bytes=1)
+        work = (torch.empty((plan.splits, 2 if s.dual_weight else 1, m, n), dtype=torch.float32, device=dev)
+                if plan.splits > 1 else None)
+        out = torch.empty((m, n), dtype=dt, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = _lib_tc()(
+                ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(inv), ptr(gain), ptr(bias),
+                ptr(residual), ptr(out), m, n, k, epi.code(epilogue), plan.bm, plan.bn, plan.splits,
+                plan.k_tiles_per_split, ptr(work), stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"dip_matmul_q kernel launch failed (fp8, tensor cores): cudaError {rc}")
+        dip_matmul_q.launches += 1
+        dip_matmul_q.launches_tc += 1
+        return out
+    x = _prologue(x, prologue, prologue_operands, prologue_k, prologue_eps)
+    x_scale = None
+    if _route(q) == "int8":
+        x, x_scale = ref.quantize_acts_int8(x)
+        x_scale = x_scale.reshape(m)
+    require(x, "x", dev)
+    out = torch.empty((m, n), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _lib()(
-            0 if path == "int8" else 1, _OUT_CODES[dt], ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up),
+            0 if x_scale is not None else 1, _OUT_CODES[dt], ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up),
             ptr(x_scale), ptr(bias), ptr(residual), ptr(out), m, n, k, epi.code(epilogue), stream,
         )
     if rc != 0:
@@ -200,3 +254,4 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
 
 
 dip_matmul_q.launches = 0
+dip_matmul_q.launches_tc = 0  # of them, the fp8 tensor-core route

@@ -139,13 +139,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, q_offs
             raise TypeError(f"{name} must be {q.dtype} on {q.device}, got {t.dtype} on {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    route = flash_route(q.dtype, d, dv)
+    if route == "tensor_cores":  # its rows land in shared memory by 16-byte cp.async copies
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _build.check_aligned(t, name)
     scale = d ** -0.5 if scale is None else float(scale)
     qo = per_row_i32(q_offset, bh, 0, q.device)
     kvl = per_row_i32(kv_len, bh, sk, q.device)
     out = torch.empty((bh, sq, dv), dtype=q.dtype, device=q.device)
     if sq == 0:
         return out
-    route = flash_route(q.dtype, d, dv)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qo.data_ptr(), kvl.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -8,13 +8,16 @@ float32 numbers::
 with vocab columns ``>= vocab_size`` masked to -1e30, and the caller builds
 ``loss_t = logz - lab + z_loss * logz^2``.  The kernel is
 ``csrc/lm_head_ce.cu``: each block walks the vocab tiles of one split of V
-with an online logsumexp and a second pass merges the splits (the TPU kernel
-walks all of V on a sequential grid axis).  A split that lies wholly in the
-vocab padding contributes l = 0.
+(:func:`split_plan`) with an online logsumexp and a second pass merges the
+splits (the TPU kernel walks all of V on a sequential grid axis).  A split
+that lies wholly in the vocab padding contributes l = 0.
 
-Bound on the card: by the operations, 2 T D V (f32 on the CUDA cores for an
-f32 head, bf16 on the tensor cores for a bf16 head).  This first design does
-nothing more about it than split V so that every SM has work.
+Bound on the card: by the operations, 2 T D V.  bf16 x (the training pair,
+with the f32 head, and bf16 x bf16) runs on the tensor cores (wgmma): each
+f32 head element is split into :data:`W_PARTS` bf16 parts
+(:func:`bf16_parts`, whose sum is the element exactly) and x . w is the sum
+of the part products, each exact in f32, so no operand is rounded to TF32;
+f32 x f32 (on no main path) keeps IEEE FMAs on the CUDA cores.
 
 * :func:`lm_head_ce` returns ``(logz, label_logit)`` through
   :class:`LogzAndLabel`: for a CUDA tensor the forward launches the kernel
@@ -46,6 +49,8 @@ __all__ = [
     "lm_head_ce",
     "lm_head_ce_plain",
     "split_plan",
+    "bf16_parts",
+    "W_PARTS",
     "check_kernel_shape",
     "fused_cross_entropy_loss",
     "reference_lm_head_ce",
@@ -55,7 +60,8 @@ NEG_INF = -1e30
 IGNORE_INDEX = -100
 DEFAULT_BLOCK_V = 512  # vocab chunk of the plain version (the reference's block_v)
 BWD_BLOCK_V = 4096     # vocab chunk of the backward's recompute
-BLOCK_T, BLOCK_V, BLOCK_K = 128, 128, 32  # the CUDA kernel's tiles
+BLOCK_T, BLOCK_V, BLOCK_K = 128, 128, 64  # the CUDA kernel's tiles (BLOCK_K: its contraction step)
+W_PARTS = 3  # bf16 parts of an f32 head element on the tensor cores (two miss f32 TOL at the label logit)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
@@ -100,15 +106,46 @@ def lm_head_ce_plain(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, *,
     return m + torch.log(l), a
 
 
-def split_plan(t: int, vp: int, sms: int = 132) -> Tuple[int, int]:
+def split_plan(t: int, vp: int, sms: int = 132, vocab: Optional[int] = None) -> Tuple[int, int]:
     """``(tiles_per_split, splits)`` of the kernel's vocab split for T rows
-    and a Vp-wide head: about 16 blocks per SM, so that the last wave is a
-    small share of the run."""
+    and a Vp-wide head whose first ``vocab`` columns are real.
+
+    The tensor-core kernel runs one block an SM (128 tokens by one split),
+    and skips the tiles wholly past ``vocab``.  The splits cut the real
+    tiles evenly: ``tiles_per_split`` divides their count, so the padding
+    tiles begin a split of their own and never share one with real columns
+    (those splits compute nothing and merge as l = 0).  Of the divisors, the
+    one whose real blocks come closest to whole waves of ``sms`` blocks,
+    the fewest splits on a tie: a last, partly filled wave costs as much as
+    a full one."""
     n_t = -(-t // BLOCK_T)
     n_v = -(-vp // BLOCK_V)
-    want = min(n_v, max(1, -(-16 * sms // n_t)))
-    tiles = -(-n_v // want)
-    return tiles, -(-n_v // tiles)
+    n_r = -(-(vp if vocab is None else vocab) // BLOCK_V)
+    best = None
+    for tiles in (d for d in range(1, n_r + 1) if n_r % d == 0):
+        key = (-(-n_t * (n_r // tiles) // sms) * tiles, -tiles)
+        best = key if best is None or key < best else best
+    tiles = -best[1]
+    splits = n_r // tiles + -(-(n_v - n_r) // tiles)
+    if splits > 65535:
+        raise ValueError(f"lm_head_ce: {splits} vocab splits exceed the grid limit 65535")
+    return tiles, splits
+
+
+def bf16_parts(w: torch.Tensor, parts: int = W_PARTS) -> Tuple[torch.Tensor, ...]:
+    """The kernel's split of an f32 head into bf16 parts, in plain torch:
+    ``hi`` = w truncated to bf16, ``mid`` = (w - hi) truncated, ``lo`` =
+    w - hi - mid (for ``parts`` = 3; the f32 subtractions are exact).  For a
+    normal f32 w, ``hi + mid + lo == w`` exactly, so each part product of a
+    bf16 x is exact in f32."""
+    def trunc(v):
+        return (v.float().contiguous().view(torch.int32) & -65536).view(torch.float32)
+
+    out, rest = [], w.float()
+    for _ in range(parts):
+        out.append(trunc(rest))
+        rest = rest - out[-1]
+    return tuple(p.to(torch.bfloat16) for p in out)
 
 
 def check_kernel_shape(d: int, vp: int) -> None:
@@ -122,6 +159,8 @@ def check_kernel_shape(d: int, vp: int) -> None:
 def _lib():
     fn = _build.load("lm_head_ce").lm_head_ce_launch
     if fn.argtypes is None:  # declare once: untyped ints would truncate the pointers
+        # x_dtype, w_dtype; x, w, labels, part, logz, lab; T, D, V, vocab,
+        # tiles_per_split, splits; stream
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -141,8 +180,10 @@ def _launch(x, w, labels, vocab):
     vp = w.shape[1]
     check_kernel_shape(d, vp)
     x, w = x.contiguous(), w.contiguous()
+    _build.check_aligned(x, "x")  # both mainloops read x and w with 16-byte loads or copies
+    _build.check_aligned(w, "w")
     labels = labels.to(torch.int32).contiguous()
-    tiles, splits = split_plan(t, vp, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tiles, splits = split_plan(t, vp, torch.cuda.get_device_properties(dev).multi_processor_count, vocab)
     part = torch.empty((3, splits, t), dtype=torch.float32, device=dev)
     logz = torch.empty((t,), dtype=torch.float32, device=dev)
     lab = torch.empty((t,), dtype=torch.float32, device=dev)

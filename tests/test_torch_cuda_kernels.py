@@ -153,11 +153,13 @@ LM_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
 
 
 @pytest.mark.parametrize("pair", LM_PAIRS, ids=["f32xf32", "bf16xf32", "bf16xbf16"])
-@pytest.mark.parametrize("t", [37, 300])
+@pytest.mark.parametrize("t", [37, 300, 4092])
 def test_lm_head_ce_kernel_matches_plain(dev, pair, t):
     """Ragged T, vocab padding with whole padding-only splits, labels at
-    -100.  f32 1e-5 where W is f32 (IEEE FMAs on both sides), 8e-3 for
-    bf16 x bf16 (tensor-core accumulation), of max(1, max|plain|)."""
+    -100.  f32 1e-5 where W is f32 (IEEE FMAs on the CUDA cores for f32 x;
+    for bf16 x the tensor cores on three bf16 parts of W, each part product
+    exact in f32), 8e-3 for bf16 x bf16 (tensor-core accumulation), of
+    max(1, max|plain|)."""
     xd, wd = pair
     g = torch.Generator(device=dev).manual_seed(t)
     d, vp, vocab = 256, 2048, 1500
@@ -165,7 +167,7 @@ def test_lm_head_ce_kernel_matches_plain(dev, pair, t):
     w = (torch.randn(d, vp, generator=g, device=dev) / d ** 0.5).to(wd)
     labels = torch.randint(0, vocab, (t,), generator=g, device=dev, dtype=torch.int32)
     labels[::7] = ce.IGNORE_INDEX
-    tiles, splits = ce.split_plan(t, vp, torch.cuda.get_device_properties(dev).multi_processor_count)
+    tiles, splits = ce.split_plan(t, vp, torch.cuda.get_device_properties(dev).multi_processor_count, vocab)
     assert (splits - 1) * tiles * ce.BLOCK_V >= vocab, "a split lies wholly in the padding"
     before = ce.lm_head_ce.launches
     with torch.no_grad():
@@ -298,6 +300,24 @@ def test_dip_matmul_q_kernel_matches_plain(dev, scheme, m, prologue, epilogue, d
     got = dip_matmul_q(x, qw[0].data, qw[0].scale, *eops, **kw)
     assert dip_matmul_q.launches == before + 1 and got.dtype == dtype
     _close(got, dip_matmul_q_plain(x, qw[0].data, qw[0].scale, *eops, **kw), dtype)
+
+
+@pytest.mark.parametrize("m", [37, 256])
+def test_dip_matmul_q_fp8_f32_x_long_k_holds_f32_tol(dev, m):
+    """fp8 weights with f32 x stay on the first-design kernel, which once
+    summed a whole K in the tensor cores' f32 fragments; those round toward
+    zero, and at llama3-8b's down projection (K = 14336) the drift passed
+    the f32 tolerance (chip_smoke.py phase 2, M = 37: 6.2e-05 against
+    6.14e-05).  Each 64-deep step's products are now added in IEEE f32."""
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    k, n = 14336, 4096
+    x = torch.randn(m, k, generator=g, device=dev)
+    qw = api.quant.quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, "fp8_e4m3")
+    res = torch.randn(m, n, generator=g, device=dev)
+    got = dip_matmul_q(x, qw.data, qw.scale, res, epilogue="residual")
+    _close(got, dip_matmul_q_plain(x, qw.data, qw.scale, res, epilogue="residual"), torch.float32)
 
 
 # the rmsnorm prologue normalizes float activations, so int8 runs without it
@@ -445,3 +465,86 @@ def test_flash_cuda_core_route_matches_plain(dev, dtype, d, dv):
     assert (flash_attention.launches, flash_attention.launches_tc) == (before[0] + 1, before[1])
     torch.cuda.synchronize()
     _close(got, attention_plain(q, k, v, **kw), dtype)
+
+
+# ------------------------- Hopper redesign: fp8 route, lm_head_ce, alignment --
+# dip_matmul_q with bf16 x and e4m3 weights runs the tensor-core mainloops of
+# dip_matmul.cu under matmul_plan(weight_bytes=1): K = 1088 gives a ragged
+# split at decode and more K tiles than the ring at M = 257; N = 192 and 320
+# are not multiples of the 128-column tiles (test_torch_kernel_plans.py holds
+# that these cases reach each path).  Both sides multiply the same bf16
+# values (the upcast is exact) in f32, so one bf16 step holds.
+@pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
+@pytest.mark.parametrize("epilogue", epi.EPILOGUES)
+@pytest.mark.parametrize("n", [192, 320, 4096])
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 257])
+def test_dip_matmul_q_fp8_route_plans_match_plain(dev, m, n, epilogue, prologue):
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    k = 1088
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    qw = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, "fp8_e4m3") for _ in range(2)]
+    s = epi.spec(epilogue)
+    eops = (qw[1].data, qw[1].scale) if s.dual_weight else _operands(epilogue, m, k, n, torch.bfloat16, dev, g)
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops, prologue_k=k - 7)
+    before = (dip_matmul_q.launches, dip_matmul_q.launches_tc)
+    got = dip_matmul_q(x, qw[0].data, qw[0].scale, *eops, **kw)
+    assert (dip_matmul_q.launches, dip_matmul_q.launches_tc) == (before[0] + 1, before[1] + 1)
+    want = dip_matmul_q_plain(x, qw[0].data, qw[0].scale, *eops, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("m", [8, 64, 100])
+def test_fp8_upcast_is_exact_for_every_code(dev, m):
+    """Identity rows of x read the de-sheared, upcast weight back: every
+    e4m3 code but the two NaNs, subnormals and both zeros included, on the
+    decode and the prefill mainloop, bit for bit."""
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q
+
+    codes = torch.tensor([c for c in range(256) if c not in (0x7F, 0xFF)], dtype=torch.uint8)
+    nat = codes.repeat(64 * 128 // codes.numel() + 1)[:64 * 128].reshape(64, 128).view(torch.float8_e4m3fn)
+    q = permute.permute_tiled(nat.float()).to(torch.float8_e4m3fn).to(dev)
+    eye = torch.eye(m, 64, device=dev).to(torch.bfloat16)
+    got = dip_matmul_q(eye, q, torch.ones(1, 128, device=dev))
+    want = torch.eye(m, 64) @ nat.float()
+    assert torch.equal(got.cpu(), want.to(torch.bfloat16))
+
+
+def test_offset_views_are_refused_and_leave_the_context_usable(dev):
+    """A contiguous view whose storage offset is not 16-byte aligned would
+    fault in the kernels' 16-byte loads and poison the CUDA context: flash's
+    tensor-core route, lm_head_ce and dip_matmul_q refuse it before the
+    launch, and the same calls on aligned tensors then run."""
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    buf = torch.randn(2 * 64 * 128 + 8, generator=g, device=dev).to(torch.bfloat16)
+    q = buf[1:1 + 2 * 64 * 128].view(2, 64, 128)  # 2-byte offset
+    fresh = q.clone()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, fresh, fresh)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(fresh, fresh, q)
+    x = buf[3:3 + 37 * 256].view(37, 256)
+    w = torch.randn(256, 1024, generator=g, device=dev) / 16
+    w_off = torch.randn(256 * 1024 + 4, generator=g, device=dev)[1:1 + 256 * 1024].view(256, 1024)
+    labels = torch.randint(0, 1000, (37,), generator=g, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ce.lm_head_ce(x, w, labels, vocab_size=1000)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ce.lm_head_ce(x.clone(), w_off, labels, vocab_size=1000)
+    qw = api.quant.quantize(torch.randn(256, 128, generator=g, device=dev) / 16, "fp8_e4m3")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dip_matmul_q(x[:4], qw.data, qw.scale)
+    torch.cuda.synchronize()
+    _close(flash_attention(fresh, fresh, fresh), attention_plain(fresh, fresh, fresh), torch.bfloat16)
+    with torch.no_grad():
+        got = ce.lm_head_ce(x.clone(), w, labels, vocab_size=1000)
+    for a, b in zip(got, ce.lm_head_ce_plain(x.clone(), w, labels, vocab_size=1000)):
+        _close(a, b, torch.float32)
+    torch.cuda.synchronize()

@@ -1,10 +1,13 @@
 """The plans the port's wrappers hand to the Hopper kernels, checked on the CPU.
 
-``kernels/dip_matmul.py::matmul_plan`` shapes the bf16 DiP matmul (regime
-by M, block tile, K splits, grid) and ``kernels/flash_attention.py::
-flash_route`` picks flash attention's kernel by dtype and head dims.  Both
-are plain Python, so their contracts are held here; the kernels themselves
-are held against their plain versions on the card
+``kernels/dip_matmul.py::matmul_plan`` shapes the tensor-core DiP matmul
+(regime by M, block tile, K splits, grid) for bf16 weights and for the
+e4m3 weights of ``dip_matmul_q``'s fp8 route (``weight_bytes=1``);
+``kernels/dip_matmul_q.py::q_route`` and ``kernels/flash_attention.py::
+flash_route`` pick a kernel by dtypes and head dims; ``kernels/_build.py::
+check_aligned`` is the alignment check every wrapper runs before a launch.
+All are plain Python, so their contracts are held here; the kernels
+themselves are held against their plain versions on the card
 (``tests/test_torch_cuda_kernels.py``, ``-m cuda``).
 """
 
@@ -12,7 +15,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import _build
 from repro_torch.kernels.dip_matmul import DECODE_MAX_M, TILE, dip_matmul, matmul_plan
+from repro_torch.kernels.dip_matmul_q import dip_matmul_q, q_route
 from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, flash_attention, flash_route
 
 SMS = 132  # an H100 SXM
@@ -24,20 +29,24 @@ LLAMA_PROJECTIONS = [("q", _D, _D, False), ("k/v", _D, _KV, False), ("o", _D, _D
                      ("gate+up", _D, _FF, True), ("down", _FF, _D, False), ("lm_head", _D, _VOCAB, False)]
 # the (M, N, K) of the card tests' bf16 cases (tests/test_torch_cuda_kernels.py)
 CARD_CASES = [(m, n, 1088) for m in (1, 4, 16, 100, 257) for n in (192, 320, 4096)]
+# and of their fp8-route cases
+FP8_CARD_CASES = [(m, n, 1088) for m in (1, 4, 32, 33, 257) for n in (192, 320, 4096)]
+WEIGHT_BYTES = pytest.mark.parametrize("weight_bytes", [2, 1], ids=["bf16", "fp8"])
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
+@WEIGHT_BYTES
 @pytest.mark.parametrize("dual", [False, True], ids=["single", "swiglu"])
 @pytest.mark.parametrize("m", [1, 4, 16, 32, 33, 64, 100, 256, 257, 4092, 4096])
 @pytest.mark.parametrize("label,k,n", [(lab, k, n) for lab, k, n, _ in LLAMA_PROJECTIONS]
                          + [("ragged", 1088, 192), ("ragged", 1088, 320), ("short", 64, 64)])
-def test_splits_cover_k_once_in_order(label, k, n, m, dual):
+def test_splits_cover_k_once_in_order(label, k, n, m, dual, weight_bytes):
     """The splits tile K exactly once, in 64-deep steps, in split order,
     with no empty split; only the last may be short."""
-    plan = matmul_plan(m, n, k, dual, SMS)
+    plan = matmul_plan(m, n, k, dual, SMS, weight_bytes)
     # split s covers K tiles [s kps, (s + 1) kps) (dip_matmul.cu), and the
     # second pass adds the splits in that order
     step = plan.k_tiles_per_split * TILE
@@ -54,34 +63,44 @@ def test_splits_cover_k_once_in_order(label, k, n, m, dual):
     assert plan.splits * plan.k_tiles_per_split >= k_tiles > (plan.splits - 1) * plan.k_tiles_per_split
 
 
+@WEIGHT_BYTES
 @pytest.mark.parametrize("dual", [False, True], ids=["single", "swiglu"])
 @pytest.mark.parametrize("m", [1, 4, 16, 100, 256, 257, 4096])
 @pytest.mark.parametrize("k,n", [(1088, 192), (4096, 14336), (14336, 4096), (4096, 129024)])
-def test_plan_tiles_and_grid(k, n, m, dual):
-    plan = matmul_plan(m, n, k, dual, SMS)
+def test_plan_tiles_and_grid(k, n, m, dual, weight_bytes):
+    """The decode tile is 32 x 64, but 32 x 128 for a single e4m3 weight:
+    every decode block reads 128-byte segments of each weight row."""
+    plan = matmul_plan(m, n, k, dual, SMS, weight_bytes)
     if m <= DECODE_MAX_M:
-        assert (plan.regime, plan.bm, plan.bn) == ("decode", 32, 64)
+        assert (plan.regime, plan.bm, plan.bn) == ("decode", 32, 128 if weight_bytes == 1 and not dual else 64)
     else:
         assert (plan.regime, plan.bm, plan.bn) == ("prefill", 128, 64 if dual else 128)
     assert plan.grid == (_cdiv(n, plan.bn), _cdiv(m, plan.bm), plan.splits)
     assert plan.blocks == plan.grid[0] * plan.grid[1] * plan.grid[2]
 
 
-@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 16])
+@WEIGHT_BYTES
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 16, 32])
 @pytest.mark.parametrize("label,k,n,dual", LLAMA_PROJECTIONS, ids=[p[0] for p in LLAMA_PROJECTIONS])
-def test_decode_grid_fills_the_card(label, k, n, dual, m):
+def test_decode_grid_fills_the_card(label, k, n, dual, m, weight_bytes):
     """At the llama3-8b decode shapes every projection puts at least one
-    block on every SM (the weights must stream from all of them)."""
-    plan = matmul_plan(m, n, k, dual, SMS)
+    block on every SM (the weights must stream from all of them); the fp8
+    plan rounds its splits so that both resident blocks of every SM stream,
+    2 x SMs blocks."""
+    plan = matmul_plan(m, n, k, dual, SMS, weight_bytes)
     assert plan.regime == "decode"
-    assert plan.blocks >= SMS, f"{label}: {plan.blocks} blocks on {SMS} SMs"
+    floor = 2 * SMS if weight_bytes == 1 else SMS
+    assert plan.blocks >= floor, f"{label}: {plan.blocks} blocks on {SMS} SMs"
 
 
+@WEIGHT_BYTES
 @pytest.mark.parametrize("label,k,n,dual", LLAMA_PROJECTIONS, ids=[p[0] for p in LLAMA_PROJECTIONS])
-def test_prefill_chunk_plan(label, k, n, dual):
+def test_prefill_chunk_plan(label, k, n, dual, weight_bytes):
     """A 256-token prefill chunk runs the prefill tiles; where they fill
-    fewer SMs than the card has, K is split into about one wave of blocks."""
-    plan = matmul_plan(256, n, k, dual, SMS)
+    fewer SMs than the card has, K is split into about one wave of blocks
+    (the same for e4m3 weights: the products are the same bf16 ones)."""
+    plan = matmul_plan(256, n, k, dual, SMS, weight_bytes)
+    assert plan == matmul_plan(256, n, k, dual, SMS)
     assert plan.regime == "prefill"
     tiles = plan.grid[0] * plan.grid[1]
     assert plan.splits == 1 or tiles < SMS
@@ -89,16 +108,19 @@ def test_prefill_chunk_plan(label, k, n, dual):
         assert SMS // 2 < plan.blocks <= 3 * SMS // 2
 
 
-def test_card_cases_reach_every_path():
-    """The card tests' bf16 cases cover both regimes, a split-K plan with a
-    ragged last split, a block whose K range is longer than the ring of
-    stages (4), and N not a multiple of the block's N."""
-    plans = [(matmul_plan(m, n, k, dual, SMS), m, n, k) for m, n, k in CARD_CASES for dual in (False, True)]
+@pytest.mark.parametrize("weight_bytes,cases", [(2, CARD_CASES), (1, FP8_CARD_CASES)], ids=["bf16", "fp8"])
+def test_card_cases_reach_every_path(weight_bytes, cases):
+    """The card tests' bf16 and fp8 cases cover both regimes, a split-K plan
+    with a ragged last split, a block whose K range is longer than the ring
+    of stages (4 or 5), and N not a multiple of the block's N (for fp8 also
+    of the 128-column decode tile)."""
+    plans = [(matmul_plan(m, n, k, dual, SMS, weight_bytes), m, n, k) for m, n, k in cases for dual in (False, True)]
     assert {p.regime for p, *_ in plans} == {"decode", "prefill"}
     assert any(p.splits > 1 and (k // TILE) % p.k_tiles_per_split for p, m, n, k in plans)
-    assert any(p.k_tiles_per_split > 4 for p, *_ in plans)
+    assert any(p.k_tiles_per_split > (4 if weight_bytes == 2 else 5) for p, *_ in plans)
     assert any(n % p.bn for p, m, n, k in plans)
-    assert {m for _, m, _, _ in plans} >= {1, 4, 16, 100, 257}
+    assert weight_bytes == 2 or any(n % p.bn for p, m, n, k in plans if p.regime == "decode")
+    assert {m for _, m, _, _ in plans} >= ({1, 4, 16, 100, 257} if weight_bytes == 2 else {1, 4, 32, 33, 257})
 
 
 ROUTE_CASES = ([(torch.bfloat16, d, d, "tensor_cores") for d in TC_HEAD_DIMS]
@@ -117,8 +139,42 @@ def test_flash_route(dtype, d, dv, route):
 
 def test_cpu_calls_launch_nothing():
     """CPU tensors take the plain versions: no launch is counted."""
-    before = (flash_attention.launches, flash_attention.launches_tc, dip_matmul.launches)
+    counters = lambda: (flash_attention.launches, flash_attention.launches_tc, dip_matmul.launches,  # noqa: E731
+                        dip_matmul_q.launches, dip_matmul_q.launches_tc)
+    before = counters()
     q = torch.randn(2, 5, 64, dtype=torch.bfloat16)
     flash_attention(q, q, q)
     dip_matmul(torch.randn(3, 64, dtype=torch.bfloat16), torch.randn(64, 192, dtype=torch.bfloat16))
-    assert (flash_attention.launches, flash_attention.launches_tc, dip_matmul.launches) == before
+    dip_matmul_q(torch.randn(3, 64, dtype=torch.bfloat16), torch.randn(64, 64).to(torch.float8_e4m3fn),
+                 torch.ones(1, 64))
+    assert counters() == before
+
+
+Q_ROUTE_CASES = [(torch.bfloat16, torch.float8_e4m3fn, "tensor_cores"),
+                 (torch.float32, torch.float8_e4m3fn, "first_design"),
+                 (torch.bfloat16, torch.int8, "first_design"), (torch.float32, torch.int8, "first_design")]
+
+
+@pytest.mark.parametrize("x_dtype,q_dtype,route", Q_ROUTE_CASES, ids=["fp8-bf16", "fp8-f32", "int8-bf16", "int8-f32"])
+def test_quantized_route(x_dtype, q_dtype, route):
+    """bf16 x with e4m3 weights, the fp8 serving route, runs the tensor-core
+    mainloops; f32 x and the int8 route keep the first design."""
+    assert q_route(x_dtype, q_dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("offset", [0, 1, 3, 8, 16])
+def test_alignment_check_refuses_offset_views(dtype, offset):
+    """Every wrapper (flash's tensor-core route on q, k, v; lm_head_ce on x
+    and w; dip_matmul and dip_matmul_q on every operand) runs this check
+    before a launch: a contiguous view whose storage offset is not a
+    multiple of 16 bytes is refused (its 16-byte loads would fault on the
+    card), with no launch and no card needed to decide it."""
+    base = torch.zeros(4096, dtype=torch.float32).to(dtype)  # a fresh, aligned allocation
+    view = base[offset:offset + 64]
+    assert view.is_contiguous()
+    if offset * base.element_size() % 16:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _build.check_aligned(view, "x")
+    else:
+        _build.check_aligned(view, "x")

@@ -105,18 +105,25 @@ def test_plain_version_chunk_size_does_not_matter():
         torch.testing.assert_close(u, v, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("t,padding_splits", [(4092, 0), (37, 6), (1, 6)])
-def test_split_plan_covers_the_vocab_and_isolates_padding(t, padding_splits):
-    """llama3-8b's head: vocab 128256 padded to 129024.  At the training
-    shape every split holds real columns; at a short T each split is one
-    128-column tile and six lie wholly in the padding (the l = 0 case of
-    the kernel's merge)."""
-    vp, vocab = 129024, 128256
-    tiles, splits = ce.split_plan(t, vp)
-    n_tiles = vp // ce.BLOCK_V
+@pytest.mark.parametrize("t,vocab,padding_splits", [(4092, 128256, 2), (37, 128256, 3), (1, 128256, 3),
+                                                    (300, 128256, 6), (4092, 129024, 0), (37, 1000, 1000)])
+def test_split_plan_covers_the_vocab_and_isolates_padding(t, vocab, padding_splits):
+    """llama3-8b's head: vocab 128256 padded to 129024 (1002 real 128-column
+    tiles, 6 of padding).  The splits cover every tile once, in order; each
+    is wholly real or wholly padding (the l = 0 case of the kernel's merge),
+    and at the training shape the real blocks fill whole waves of 132."""
+    vp, sms = 129024, 132
+    tiles, splits = ce.split_plan(t, vp, sms, vocab)
+    n_tiles, n_real = vp // ce.BLOCK_V, -(-vocab // ce.BLOCK_V)
     assert tiles * splits >= n_tiles > tiles * (splits - 1)
     assert splits <= 65535
-    assert sum(s * tiles * ce.BLOCK_V >= vocab for s in range(splits)) == padding_splits
+    padding = [s * tiles >= n_real for s in range(splits)]
+    assert sum(padding) == padding_splits
+    for s in range(splits):  # no split mixes real and padding tiles
+        assert padding[s] or (s + 1) * tiles <= n_real
+    if t == 4092 and vocab == 128256:
+        real_blocks = -(-t // ce.BLOCK_T) * (splits - padding_splits)
+        assert real_blocks / (-(-real_blocks // sms) * sms) > 0.98
 
 
 def test_wrapper_checks_shapes():
@@ -151,3 +158,40 @@ def test_card_path_refuses_shapes_the_kernel_does_not_step(d, vp, ok):
     else:
         with pytest.raises(ValueError, match="lm_head_ce kernel needs"):
             ce.check_kernel_shape(d, vp)
+
+
+@pytest.mark.parametrize("lo_exp,hi_exp", [(-100, -60), (-30, 30), (60, 100)])
+def test_bf16_parts_sum_to_the_head_exactly(lo_exp, hi_exp):
+    """The kernel's split of an f32 head element into three bf16 parts
+    (truncations of w, of w - hi and of w - hi - mid) sums back to w with
+    no rounding, for finite normal f32 of any sign across the exponent
+    range; two parts leave less than 2^-15 of |w|."""
+    r = np.random.default_rng(7)
+    mant = r.uniform(1.0, 2.0, size=20000) * r.choice([-1.0, 1.0], size=20000)
+    w = torch.from_numpy((mant * 2.0 ** r.integers(lo_exp, hi_exp, size=20000)).astype(np.float32))
+    hi, mid, lo = ce.bf16_parts(w, 3)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), w)
+    assert torch.equal(hi.float() + mid.float() + lo.float(), w)
+    two = sum(p.float() for p in ce.bf16_parts(w, 2))
+    assert ((two - w).abs() < w.abs() * 2.0 ** -15).all()
+
+
+@pytest.mark.parametrize("parts", [3, 2])
+def test_split_product_of_bf16_x_matches_the_f32_product(parts):
+    """At the training width D = 4096: bf16 x times the parts, each part
+    product exact in f32, summed smallest part first as the kernel
+    accumulates them, gives the f32 product x @ w within TOL["float32"] of
+    max(1, max|x @ w|); two parts are held to the same tolerance here, on
+    the card the label logit of llama3-8b's head needs three
+    (chip_smoke.py phase 2 prints both)."""
+    r = np.random.default_rng(11)
+    d, v = 4096, 256
+    x = torch.from_numpy(r.normal(size=(64, d)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((r.normal(size=(d, v)) / np.sqrt(d)).astype(np.float32))
+    want = x.double() @ w.double()
+    got = torch.zeros(64, v, dtype=torch.float32)
+    for part in reversed(ce.bf16_parts(w, parts)):
+        got = got + x.float() @ part.float()
+    assert_close(got, want.float(), F32)
+    assert_close(x.float() @ w, want.float(), F32)
