@@ -15,12 +15,15 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
    splits and labels at -100; then the quantized serving slice's kernels:
    the DiP matmul on int8 (exact), the quantized DiP matmul (int8 and fp8
-   weights, f32 and bf16 activations, M = 4, 37 and 256) and the wavefront
-   kernel (f32, bf16, and int8 exact, M = 4 and 256), at the q, gate+up,
-   down and lm_head shapes; the fp8 route on the tensor cores (bf16 x) at
-   M = 1, 4, 32, 33, 256 and 4096, every epilogue with and without the
-   rmsnorm prologue, both plans and K splits, and every e4m3 code upcast
-   exactly; lm_head_ce's bf16 x f32 function with the head cut to two bf16
+   weights, f32 and bf16 activations, M = 4, 37 and 256; int8 without an
+   epilogue bit for bit) and the wavefront kernel over its plans (f32, bf16,
+   and int8 exact, M = 1, 4, 13 and 256), at the q, gate+up, down and
+   lm_head shapes; the fp8 route on the tensor cores (bf16 x) at M = 1, 4,
+   32, 33, 256 and 4096, every epilogue with and without the rmsnorm
+   prologue, both plans and K splits, and every e4m3 code upcast exactly;
+   the int8 route's quantizing pass (codes and scales byte for byte) and
+   the int8 route on the tensor cores at the same M, epilogues, prologues
+   and plans (epilogue none bit for bit); lm_head_ce's bf16 x f32 function with the head cut to two bf16
    parts instead of the kernel's three, in plain torch (printed: whether two
    would hold TOL); and views at storage offsets that
    are not 16-byte aligned, refused by flash, lm_head_ce and dip_matmul_q
@@ -40,12 +43,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    chunk profiled on their last inputs (device ms by kernel, launches, device
    time against wall time); then quantized through ``launch.serve`` (``--quantize int8 --kv-quant
    int8``, then ``--quantize fp8_e4m3``; the same 4 requests, 16 greedy
-   tokens): 193 quantized launches per forward and no DiP launch (for fp8
-   all on the tensor-core route, for int8 none), and the
+   tokens): 193 quantized launches per forward, all on the tensor-core
+   route, and no DiP launch; for int8 one quantizing pass per projection;
+   one decode step profiled, its dip_matmul_q kernels counted by name (one
+   product per projection, one quantizing pass per int8 projection, one
+   split-K reduce wherever the plan at the step's M splits); and the
    first prefill chunk's and first decode step's logits held against the
    plain versions on the card on the same inputs; then one request of 256
    prompt tokens through ``pallas_systolic`` (the wavefront kernel), its
-   logits held against the ``dip`` backend's on the same weights;
+   logits held against the ``dip`` backend's on the same weights, and both
+   backends' last decode step and prefill chunk profiled;
 6. llama3-8b at full width cut to 4 layers trained through
    ``launch.train`` and its ``Trainer`` (f32 parameters, bf16 compute, block
    remat, batch 4 x seq 1024, 4 steps, the launcher's warm-up schedule):
@@ -59,8 +66,11 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    launch queued behind a device sleep, so the wrapper's host time is
    hidden, and ``host_ms`` without, as the first versions timed) beside their bound,
    the plain version's time and one library call's time, the quantized and
-   wavefront kernels included (lm_head_ce with the bound of its three bf16
-   part products on the tensor cores beside the f32 CUDA-core bound).
+   wavefront kernels and the int8 route's quantizing pass included
+   (lm_head_ce with the bound of its three bf16 part products on the tensor
+   cores beside the f32 CUDA-core bound; the wavefront with the f32
+   CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
+   of its codes and beside its whole function in library calls).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -241,8 +251,8 @@ def main():
     from repro_torch.kernels import lm_head_ce as ce
     from repro_torch.kernels import prologue as pro
     from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain, matmul_plan
-    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
-    from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain, quantize_pass, quantize_pass_plain
+    from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain, systolic_plan
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention, flash_route
     from repro_torch.kernels.ref import quantize_acts_int8
     from repro_torch.launch import serve as serve_cli
@@ -481,8 +491,9 @@ def main():
             del x, p, eops, got, want
 
     # quantized DiP matmul: both sides multiply the same operands (for int8
-    # the same activation codes, quantized by the same wrapper code on the
-    # card, into exact int32 sums; for fp8 the same bf16 values into f32
+    # the same activation codes, byte-identical from the quantizing pass and
+    # the plain quantizer, into exact int32 sums, so with no epilogue the
+    # outputs are equal bit for bit; for fp8 the same bf16 values into f32
     # sums), so TOL of the output dtype holds
     for scheme in ("int8", "fp8_e4m3"):
         key = "dip_matmul_q_int8" if scheme == "int8" else "dip_matmul_q_fp8"
@@ -498,47 +509,58 @@ def main():
                             (torch.randn(m, n, generator=g, device=dev).to(dtype),) if s.residual else ())
                     kw = dict(epilogue=e, prologue=pr, prologue_operands=(
                         (torch.rand(k, generator=g, device=dev) + 0.5,) if pr == "rmsnorm" else ()))
-                    err = close(f"{key} {dt_name} M={m} {label} K={k} N={n} {e}/{pr}",
-                                dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw),
-                                dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw), TOL[dt_name])
+                    got = dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw)
+                    want = dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw)
+                    err = close(f"{key} {dt_name} M={m} {label} K={k} N={n} {e}/{pr}", got, want, TOL[dt_name])
+                    if scheme == "int8" and e == "none" and not torch.equal(got, want):
+                        raise AssertionError(f"{key} {dt_name} M={m} {label}: epilogue none is not bit-exact")
                     worst[key] = max(worst[key], err)
+                    del got, want
                     del x, eops
             del qws
 
-    # the fp8 route on the tensor cores (bf16 x, csrc/dip_matmul.cu): every
-    # epilogue with and without the prologue at the decode and prefill M,
-    # at the projections' widths (swiglu at gate+up, residual at down, none
-    # also at the lm_head), each through its plan; the same TOL
-    fp8_plans = set()
-    for m in (1, 4, 32, 33, 256, 4096):
-        for e in epi.EPILOGUES:
-            s = epi.spec(e)
-            k, n = (d_ff, d) if s.residual else (d, d_ff if s.dual_weight else d)
-            shapes = [(k, n), (d, vocab)] if e == "none" else [(k, n)]
-            for k, n in shapes:
-                qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, "fp8_e4m3")
-                       for _ in range(2 if s.dual_weight else 1)]
-                for pr in ("none", "rmsnorm"):
-                    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-                    eops = ((qws[1].data, qws[1].scale) if s.dual_weight else
-                            (torch.randn(n, generator=g, device=dev),) if s.bias else
-                            (torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16),) if s.residual else ())
-                    kw = dict(epilogue=e, prologue=pr, prologue_operands=(
-                        (torch.rand(k, generator=g, device=dev) + 0.5,) if pr == "rmsnorm" else ()))
-                    pl = matmul_plan(m, n, k, s.dual_weight, sms, weight_bytes=1)
-                    fp8_plans.add((pl.regime, pl.splits > 1))
-                    before = dip_matmul_q.launches_tc
-                    got = dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw)
-                    if dip_matmul_q.launches_tc != before + 1:
-                        raise AssertionError("fp8 route: a bf16 call left the tensor-core route")
-                    err = close(f"dip_matmul_q_fp8 tensor cores M={m} K={k} N={n} {e}/{pr} [{pl.regime} "
-                                f"{pl.bm}x{pl.bn}, {pl.splits} split(s), {pl.blocks} blocks]",
-                                got, dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw), TOL["bfloat16"])
-                    worst["dip_matmul_q_fp8"] = max(worst["dip_matmul_q_fp8"], err)
-                    del x, eops, got
-                del qws
-    if fp8_plans != {("decode", False), ("decode", True), ("prefill", False), ("prefill", True)}:
-        raise AssertionError(f"fp8 route: the cases missed a plan: {sorted(fp8_plans)}")
+    # the one-byte routes on the tensor cores (bf16 x, csrc/dip_matmul.cu):
+    # every epilogue with and without the prologue at the decode and prefill
+    # M, at the projections' widths (swiglu at gate+up, residual at down,
+    # none also at the lm_head), each through its plan; TOL, and for int8
+    # with no epilogue bit for bit, each call with its quantizing pass
+    for scheme, key in (("fp8_e4m3", "dip_matmul_q_fp8"), ("int8", "dip_matmul_q_int8")):
+        plans = set()
+        for m in (1, 4, 32, 33, 256, 4096):
+            for e in epi.EPILOGUES:
+                s = epi.spec(e)
+                k, n = (d_ff, d) if s.residual else (d, d_ff if s.dual_weight else d)
+                shapes = [(k, n), (d, vocab)] if e == "none" else [(k, n)]
+                for k, n in shapes:
+                    qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, scheme)
+                           for _ in range(2 if s.dual_weight else 1)]
+                    for pr in ("none", "rmsnorm"):
+                        x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+                        eops = ((qws[1].data, qws[1].scale) if s.dual_weight else
+                                (torch.randn(n, generator=g, device=dev),) if s.bias else
+                                (torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16),) if s.residual else ())
+                        kw = dict(epilogue=e, prologue=pr, prologue_operands=(
+                            (torch.rand(k, generator=g, device=dev) + 0.5,) if pr == "rmsnorm" else ()))
+                        pl = matmul_plan(m, n, k, s.dual_weight, sms, weight_bytes=1)
+                        plans.add((pl.regime, pl.splits > 1))
+                        before = (dip_matmul_q.launches_tc, dip_matmul_q.launches_quant)
+                        got = dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, **kw)
+                        if (dip_matmul_q.launches_tc, dip_matmul_q.launches_quant) != (
+                                before[0] + 1, before[1] + (scheme == "int8")):
+                            raise AssertionError(f"{scheme} route: a bf16 call left the tensor-core route")
+                        want = dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw)
+                        name = (f"{key} tensor cores M={m} K={k} N={n} {e}/{pr} [{pl.regime} {pl.bm}x{pl.bn}, "
+                                f"{pl.splits} split(s), {pl.blocks} blocks]")
+                        if scheme == "int8" and e == "none":
+                            if not torch.equal(got, want):
+                                raise AssertionError(f"{name}: not bit for bit the plain version")
+                            log(f"  {name}: bit-exact")
+                        else:
+                            worst[key] = max(worst[key], close(name, got, want, TOL["bfloat16"]))
+                        del x, eops, got, want
+                    del qws
+        if plans != {("decode", False), ("decode", True), ("prefill", False), ("prefill", True)}:
+            raise AssertionError(f"{scheme} route: the cases missed a plan: {sorted(plans)}")
     # every e4m3 code but the two NaNs (subnormals and zeros included): rows
     # of the identity read the de-sheared upcast weight back, bit for bit,
     # through both mainloops
@@ -552,6 +574,30 @@ def main():
         log(f"  dip_matmul_q_fp8 tensor cores M={m}: all 254 e4m3 codes upcast exactly "
             f"[{matmul_plan(m, 128, 64, False, sms, weight_bytes=1).regime}]")
     del codes, nat, q_all
+    torch.cuda.synchronize()
+
+    # the int8 route's quantizing pass: codes and per-row scales byte for
+    # byte those of the plain quantizer (the same inv_rms on both sides),
+    # f32 and bf16 x, with and without the prologue, an all-zero row
+    worst["quantize_pass"] = 0.0
+    for dt_name in ("float32", "bfloat16"):
+        for m, k in ((4, d), (256, d), (37, d_ff)):
+            for pr in ("none", "rmsnorm"):
+                x = (torch.randn(m, k, generator=g, device=dev) * 3).to(getattr(torch, dt_name))
+                x[1] = 0
+                gain = torch.rand(k, generator=g, device=dev) + 0.5 if pr == "rmsnorm" else None
+                inv = pro.inv_rms(x) if gain is not None else None
+                before = dip_matmul_q.launches_quant
+                codes, scale = quantize_pass(x, inv, gain)
+                want_c, want_s = quantize_pass_plain(x, inv, gain)
+                if dip_matmul_q.launches_quant != before + 1:
+                    raise AssertionError("quantizing pass: the wrapper did not launch its kernel")
+                if not (torch.equal(codes, want_c) and torch.equal(scale, want_s)):
+                    raise AssertionError(f"quantizing pass {dt_name} M={m} K={k} {pr}: codes or scales differ "
+                                         f"({int((codes != want_c).sum())} codes, {int((scale != want_s).sum())} scales)")
+                log(f"  quantizing pass {dt_name} M={m} K={k} {pr}: codes and scales byte-identical")
+                del x, codes, scale, want_c, want_s
+
     torch.cuda.synchronize()
 
     # views at a storage offset that is not 16-byte aligned: refused before
@@ -591,9 +637,12 @@ def main():
     torch.cuda.synchronize()
     del buf, off, ok_q, xo, head, lab37, q_small
 
-    # the wavefront: f32 and bf16 within TOL, int8 exact without an epilogue
+    # the wavefront over its plans (systolic_plan: M = 1 and 13 leave decode
+    # warps past M, M = 4 and 13 split K at decode, M = 256 fills the last
+    # wave by a split): f32 and bf16 within TOL, int8 exact without an
+    # epilogue (int32 partial sums where K is split)
     for dt_name in ("float32", "bfloat16", "int8"):
-        for m in (4, 256):
+        for m in (1, 4, 13, 256):
             for label, k, n, e, pr in qproj:
                 if dt_name == "int8":
                     x, p, eops = int8_operands(m, k, n, e)
@@ -601,7 +650,9 @@ def main():
                 else:
                     x, p, eops, kw = dip_inputs(m, k, n, e, pr, getattr(torch, dt_name))
                 got, want = dip_systolic(x, p, *eops, **kw), dip_systolic_plain(x, p, *eops, **kw)
-                name = f"systolic {dt_name} M={m} {label} K={k} N={n} {e}/{kw.get('prologue', 'none')}"
+                pl = systolic_plan(m, n, k, sms, epi.spec(e).dual_weight)
+                name = (f"systolic {dt_name} M={m} {label} K={k} N={n} {e}/{kw.get('prologue', 'none')} "
+                        f"[{pl.regime} {pl.bm}x{pl.bn}, {pl.splits} split(s), {pl.blocks} blocks]")
                 if dt_name == "int8" and e == "none":
                     if got.dtype != torch.int32 or not torch.equal(got, want):
                         raise AssertionError(f"{name}: not the exact int32 sums")
@@ -864,7 +915,7 @@ def main():
     def reset_counts():
         for c in counters.values():
             c.launches = 0
-        flash_attention.launches_tc = dip_matmul_q.launches_tc = 0
+        flash_attention.launches_tc = dip_matmul_q.launches_tc = dip_matmul_q.launches_quant = 0
 
     def read_counts():
         return {k: c.launches for k, c in counters.items()}
@@ -938,7 +989,7 @@ def main():
         results = serve_cli.main(argv, on_server=hook)
         wall = time.perf_counter() - t0
         launches = read_counts()
-        q_tc = dip_matmul_q.launches_tc
+        q_tc, q_quant = dip_matmul_q.launches_tc, dip_matmul_q.launches_quant
         routes_by_path["serve_int8" if scheme == "int8" else "serve_fp8"] = routes = flash_routes()
         peak = torch.cuda.max_memory_allocated()
         server, reqs, times = st["server"], st["reqs"], st["times"]
@@ -950,11 +1001,13 @@ def main():
         want = {"dip_matmul": 0, "dip_matmul_q": 193 * (n_prefill + n_decode), "dip_systolic": 0,
                 "flash_attention": 32 * n_prefill, "lm_head_ce": 0}
         log(f"  launches {launches}; expected {want} (193 quantized launches per forward, no DiP launch); "
-            f"{q_tc} of the dip_matmul_q launches on the fp8 tensor-core route")
+            f"{q_tc} of the dip_matmul_q launches on the tensor-core route; {q_quant} quantizing passes")
         if launches != want:
             raise AssertionError(f"quantized full width ({scheme}): launch counts differ from the expected ones")
-        if q_tc != (launches["dip_matmul_q"] if scheme == "fp8_e4m3" else 0):
-            raise AssertionError(f"quantized full width ({scheme}): a projection took the wrong dip_matmul_q route")
+        if q_tc != launches["dip_matmul_q"]:
+            raise AssertionError(f"quantized full width ({scheme}): a projection left the tensor-core route")
+        if q_quant != (launches["dip_matmul_q"] if scheme == "int8" else 0):
+            raise AssertionError(f"quantized full width ({scheme}): not one quantizing pass per int8 projection")
         log(f"  flash launches by route {routes}")
         if routes["cuda_cores"]:
             raise AssertionError(f"quantized full width ({scheme}): a bf16 flash launch left the tensor-core route")
@@ -981,6 +1034,7 @@ def main():
         qserve[scheme] = {
             "launches": launches,
             "dip_matmul_q_tensor_core_launches": q_tc,
+            "dip_matmul_q_quantizing_passes": q_quant,
             "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
             "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
             "prefill_tok_per_s": sum(len(r.prompt) for r in reqs) / sum(times["_prefill_fwd"]),
@@ -1005,10 +1059,33 @@ def main():
             if str(getattr(ev, "device_type", "")).endswith("CUDA"):
                 us = getattr(ev, "self_device_time_total", None)
                 by_kernel[ev.key] = (ev.count, (us if us is not None else ev.self_cuda_time_total) / 1e3)
-        log(f"  decode step (profiled): device ms of all kernels {sum(v[1] for v in by_kernel.values()):.2f} in "
-            f"{sum(v[0] for v in by_kernel.values())} launches")
+        step_ms, step_launches = sum(v[1] for v in by_kernel.values()), sum(v[0] for v in by_kernel.values())
+        log(f"  decode step (profiled): device ms of all kernels {step_ms:.2f} in {step_launches} launches")
         for key, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]:
             log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+        # the decode step's dip_matmul_q kernels by name: per projection one
+        # product (and for int8 one quantizing pass), plus a split-K reduce
+        # wherever the plan at the step's M splits K
+        m_dec = st["decode_args"][2].numel()
+        per_layer = [(d, d, False), (d, kv, False), (d, kv, False), (d, d, False), (d, d_ff, True), (d_ff, d, False)]
+        projections = per_layer * cfg.n_layers + [(d, vocab, False)]
+        split = sum(matmul_plan(m_dec, n, k, dual, sms, weight_bytes=1).splits > 1 for k, n, dual in projections)
+        names = ({"product": ("dip_mma_s8_kernel", "dip_wgmma_s8_kernel"), "quantize": ("quantize_int8_kernel",),
+                  "reduce": ("splitk_reduce_s8_kernel",)} if scheme == "int8" else
+                 {"product": ("dip_mma_kernel", "dip_wgmma_kernel"), "quantize": ("quantize_int8_kernel",),
+                  "reduce": ("splitk_reduce_kernel",)})
+        split_by = {role: sum(c for key, (c, _) in by_kernel.items() if any(nm + "<" in key for nm in nms))
+                    for role, nms in names.items()}
+        q_ms = sum(ms for key, (_, ms) in by_kernel.items()
+                   if any(nm + "<" in key for nms in names.values() for nm in nms))
+        want_split = {"product": len(projections), "quantize": len(projections) if scheme == "int8" else 0,
+                      "reduce": split}
+        log(f"  decode step, M={m_dec}: dip_matmul_q kernels {split_by} (expected {want_split}), "
+            f"{q_ms:.3f} ms of device time")
+        if split_by != want_split:
+            raise AssertionError(f"quantized full width ({scheme}): the decode step's launch split differs")
+        qserve[scheme].update(decode_step_device_ms=step_ms, decode_step_launches=step_launches,
+                              decode_step_dip_matmul_q_ms=q_ms, decode_step_dip_matmul_q_kernels=split_by)
         del prof
         st.clear()
         del server, reqs, st, results, head, hook
@@ -1021,14 +1098,17 @@ def main():
                                   param_dtype="bfloat16", compute_dtype="bfloat16")
     params = tf_model.init_params(cfg_sys, make_generator(SEED, "cuda"), "cuda")
     prompt = np.random.default_rng(SEED).integers(2, cfg_sys.vocab_size, size=256)
-    sys_runs = {}
+    sys_runs, profiles = {}, {}
     for backend in ("pallas_systolic", "dip"):
         c = dataclasses.replace(cfg_sys, matmul_backend=backend)
         server = Server(c, ServerConfig(batch_slots=1, max_seq=512, max_new_tokens=4, temperature=0.0,
                                         prefill_chunk=256), params, device="cuda")
-        eng, seen, steps = server.engine, [], {"_prefill_fwd": [], "_decode": []}
+        eng, seen, steps, last = server.engine, [], {"_prefill_fwd": [], "_decode": []}, {}
         for attr in ("_prefill_fwd", "_decode"):
+            last[attr + "_fn"] = getattr(eng, attr)
+
             def run(*a, _f=getattr(eng, attr), _attr=attr, _seen=seen, _steps=steps):
+                last[_attr] = a
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 out = _f(*a)
@@ -1040,7 +1120,11 @@ def main():
         reset_counts()
         out = server.serve([Request(rid=0, prompt=prompt)])
         sys_runs[backend] = (out, seen, steps, read_counts(), flash_routes())
-        del server, eng
+        # the two steps on their last inputs under the profiler: device time
+        # against wall time
+        profiles[backend] = {what: profile_step(last[attr + "_fn"], last[attr], f"{backend} {what}")
+                             for attr, what in (("_decode", "decode step"), ("_prefill_fwd", "prefill chunk"))}
+        del server, eng, last
     (out_s, seen_s, steps_s, launches_s, routes_s), (out_d, seen_d, steps_d, launches_d, routes_d) = (
         sys_runs["pallas_systolic"], sys_runs["dip"])
     routes_by_path["serve_systolic"] = routes_s  # the dip run beside it is a comparison's
@@ -1070,7 +1154,8 @@ def main():
     sys_serving = {"prefill_chunk_ms": 1e3 * statistics.median(steps_s["_prefill_fwd"]),
                    "decode_step_ms": 1e3 * statistics.median(steps_s["_decode"]),
                    "dip_prefill_chunk_ms": 1e3 * statistics.median(steps_d["_prefill_fwd"]),
-                   "dip_decode_step_ms": 1e3 * statistics.median(steps_d["_decode"])}
+                   "dip_decode_step_ms": 1e3 * statistics.median(steps_d["_decode"]),
+                   "profiles": profiles}
     log("  serving " + json.dumps(sys_serving))
     del params, sys_runs, seen_s, seen_d
     torch.cuda.empty_cache()
@@ -1378,6 +1463,13 @@ def main():
                     nat = [int_mm_operand(permute.unpermute_tiled(q.data, 64).contiguous()) for q in qws]
                     library = lambda: [int_mm(xq, w) for w in nat]  # noqa: E731
                     lib_name = "torch._int_mm of the int8 codes on natural storage, per weight" + pad_note
+                    scales = [q.scale.reshape(1, -1).float() for q in qws]
+                    col_major = [permute.unpermute_tiled(q.data, 64).t().contiguous().t() for q in qws]
+
+                    def library_function():  # the kernel's whole function
+                        codes, x_scale = quantize_acts_int8(pro.apply(pr, x, *kw["prologue_operands"]))
+                        z = [int_mm(codes, w)[:m].float() * x_scale * sc for w, sc in zip(nat, scales)]
+                        return (F.silu(z[0]) * z[1] if s.dual_weight else z[0]).to(x.dtype)
                 else:
                     nat = [permute.unpermute_tiled(q.data, 64).to(torch.bfloat16).contiguous() for q in qws]
                     scales = [q.scale.reshape(1, -1).float() for q in qws]
@@ -1398,20 +1490,46 @@ def main():
                                            queued=False),
                            plain_ms=time_ms(lambda: dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eops, **kw)),
                            library_ms=time_ms(library), library=lib_name, bound_ms=b_ms, bound_by=b_by)
+                if scheme == "int8":
+                    # the whole function through library calls, and the same
+                    # _int_mm with a column-major weight (the layout it runs
+                    # fastest on; a copy made once, untimed)
+                    row.update(library_function_ms=time_ms(library_function),
+                               library_function=("rmsnorm, " if pr == "rmsnorm" else "") + "quantize_acts_int8, "
+                               "torch._int_mm per weight, the scales" + (", swiglu" if s.dual_weight else "")
+                               + ": the kernel's whole function" + pad_note,
+                               library_ms_int_mm_column_major=time_ms(lambda: [int_mm(xq, w) for w in col_major]))
+                    del col_major
                 rows_out.append(row)
                 log("  " + json.dumps(row))
-                if scheme == "fp8_e4m3" and pr == "rmsnorm":
+                if pr == "rmsnorm":
                     # the same launch without the prologue: the kernel's own
                     # share, without the wrapper's inv_rms reduction (torch)
-                    b_ms, b_by = bound_ms(2 * m * k + nw * (k * n + 4 * n) + 2 * m * n, 2 * m * k * n * nw, "bfloat16")
+                    b_ms, b_by = bound_ms(2 * m * k + nw * (k * n + 4 * n) + 2 * m * n, 2 * m * k * n * nw,
+                                          "int8" if scheme == "int8" else "bfloat16")
                     row = dict(row, shape=f"M={m} {label} K={k} N={n} {e}/none (prologue off)",
                                ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, epilogue=e)),
                                host_ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eops, epilogue=e),
                                                queued=False), bound_ms=b_ms, bound_by=b_by)
-                    for key in ("plain_ms", "library_ms", "library"):
-                        row.pop(key)
+                    for key in ("plain_ms", "library_ms", "library", "library_function_ms", "library_function",
+                                "library_ms_int_mm_column_major"):
+                        row.pop(key, None)
                     rows_out.append(row)
                     log("  " + json.dumps(row))
+                if scheme == "int8" and label == "gate+up":
+                    # the quantizing pass alone: x read, codes and scales
+                    # written (inv_rms and gain read); no one library call
+                    # computes it
+                    gain = kw["prologue_operands"][0] if pr == "rmsnorm" else None
+                    inv = pro.inv_rms(x) if gain is not None else None
+                    b_ms, b_by = bound_ms(3 * m * k + 4 * m + (4 * (k + m) if gain is not None else 0), 0, "int8")
+                    qrow = dict(kernel="quantize_pass", dtype="bfloat16", shape=f"M={m} K={k} {pr}",
+                                ms=time_ms(lambda: quantize_pass(x, inv, gain)),
+                                host_ms=time_ms(lambda: quantize_pass(x, inv, gain), queued=False),
+                                plain_ms=time_ms(lambda: quantize_pass_plain(x, inv, gain)),
+                                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+                    rows_out.append(qrow)
+                    log("  " + json.dumps(qrow))
                 del qws, eops, nat
             # the wavefront on bf16 DiP storage
             x, p, eops, kw = dip_inputs(m, k, n, e, pr, torch.bfloat16)
@@ -1424,11 +1542,17 @@ def main():
                 return F.silu(z) * torch.matmul(xx, wn[1]) if s.dual_weight else z
 
             b_ms, b_by = bound_ms(2 * (m * k + nw * k * n + m * n) + gbytes, 2 * m * k * n * nw, "bfloat16")
+            # its own yardstick: the same bytes, the products at the f32
+            # CUDA-core rate (the wavefront runs on the CUDA cores by design)
+            f32_ms, f32_by = bound_ms(2 * (m * k + nw * k * n + m * n) + gbytes, 2 * m * k * n * nw, "float32")
+            pl = systolic_plan(m, n, k, sms, s.dual_weight)
             row = dict(kernel="dip_systolic", dtype="bfloat16", shape=shape,
+                       plan=f"{pl.regime} {pl.bm}x{pl.bn}, {pl.splits} split(s), {pl.blocks} blocks",
                        ms=time_ms(lambda: dip_systolic(x, p, *eops, **kw)),
+                       host_ms=time_ms(lambda: dip_systolic(x, p, *eops, **kw), queued=False),
                        plain_ms=time_ms(lambda: dip_systolic_plain(x, p, *eops, **kw)),
                        library_ms=time_ms(library), library="torch.matmul (the same products)",
-                       bound_ms=b_ms, bound_by=b_by)
+                       bound_ms=b_ms, bound_by=b_by, bound_ms_f32_cuda_cores=f32_ms, bound_by_f32_cuda_cores=f32_by)
             row["f32_core_share"] = 2 * m * k * n * nw / (row["ms"] * 1e-3) / PEAK_FLOPS["float32"]
             rows_out.append(row)
             log("  " + json.dumps(row))
@@ -1445,21 +1569,27 @@ def main():
     # launch; lm_head_ce in the training dtypes (bf16 x, f32 head)
     pick = {"dip_matmul": ("bfloat16", "M=256 gate+up"), "flash_attention": ("bfloat16", "q_offset 512"),
             "lm_head_ce": ("bfloat16 x float32", "T=4092"), "dip_matmul_q_int8": ("bfloat16", "M=256 gate+up"),
+            "quantize_pass": ("bfloat16", "M=256 K=4096 rmsnorm"),
             "dip_matmul_q_fp8": ("bfloat16", "M=256 gate+up"), "dip_systolic": ("bfloat16", "M=256 gate+up")}
-    q_src = ("src/repro_torch/kernels/csrc/dip_matmul_q.cu", "src/repro/kernels/dip_matmul_q.py:117")
+    # the int8 route: its product on dip_matmul.cu's int8 mainloops, its
+    # quantizing pass in dip_matmul_q.cu (the reference quantizes x outside
+    # its kernel, src/repro/kernels/dip_matmul_q.py:177)
+    q_src = ("src/repro_torch/kernels/csrc/dip_matmul.cu", "src/repro/kernels/dip_matmul_q.py:117")
+    quant_src = ("src/repro_torch/kernels/csrc/dip_matmul_q.cu", "src/repro/kernels/dip_matmul_q.py:117")
     fp8_src = ("src/repro_torch/kernels/csrc/dip_matmul.cu", "src/repro/kernels/dip_matmul_q.py:117")
     sources = {"dip_matmul": ("src/repro_torch/kernels/csrc/dip_matmul.cu", "src/repro/kernels/dip_matmul.py:100"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:117"),
                "lm_head_ce": ("src/repro_torch/kernels/csrc/lm_head_ce.cu", "src/repro/kernels/lm_head_ce.py:102"),
-               "dip_matmul_q_int8": q_src, "dip_matmul_q_fp8": fp8_src,
+               "dip_matmul_q_int8": q_src, "quantize_pass": quant_src, "dip_matmul_q_fp8": fp8_src,
                "dip_systolic": ("src/repro_torch/kernels/csrc/dip_systolic.cu",
                                 "src/repro/kernels/dip_systolic.py:82")}
     # each kernel's launches on each main path, counted from 0 around it
     paths = {"serve": serve_launches, "train": train_launches, "serve_int8": qserve["int8"]["launches"],
              "serve_fp8": qserve["fp8_e4m3"]["launches"], "serve_systolic": launches_s}
+    paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
     counter_of = {"dip_matmul_q_int8": "dip_matmul_q", "dip_matmul_q_fp8": "dip_matmul_q"}
-    path_of = {"dip_matmul_q_int8": ("serve_int8",), "dip_matmul_q_fp8": ("serve_fp8",)}
+    path_of = {"dip_matmul_q_int8": ("serve_int8",), "dip_matmul_q_fp8": ("serve_fp8",), "quantize_pass": ("serve_int8",)}
     kernels = []
     for name in pick:
         row = next(r for r in rows_out if r["kernel"] == name and r["dtype"] == pick[name][0]
@@ -1473,15 +1603,17 @@ def main():
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"], "shape": f"{pick[name][0]} {row['shape']}"})
-        if "bound_ms_f32_cuda_cores" in row:
-            kernels[-1].update(bound_ms_f32_cuda_cores=row["bound_ms_f32_cuda_cores"], bf16_parts=row["bf16_parts"])
+        for key in ("bound_ms_f32_cuda_cores", "bf16_parts", "library_function_ms", "f32_core_share"):
+            if key in row:
+                kernels[-1][key] = row[key]
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
     flash_line["launches_by_route"] = {r: sum(v[r] for v in routes_by_path.values())
                                        for r in ("tensor_cores", "cuda_cores")}
     flash_line["route_of_timed_shape"] = next(r for r in rows_out if r["kernel"] == "flash_attention"
                                               and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
-    fp8_line = next(kk for kk in kernels if kk["name"] == "dip_matmul_q_fp8")
-    fp8_line["launches_tensor_cores"] = qserve["fp8_e4m3"]["dip_matmul_q_tensor_core_launches"]
+    for name, scheme in (("dip_matmul_q_fp8", "fp8_e4m3"), ("dip_matmul_q_int8", "int8")):
+        line = next(kk for kk in kernels if kk["name"] == name)
+        line["launches_tensor_cores"] = qserve[scheme]["dip_matmul_q_tensor_core_launches"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

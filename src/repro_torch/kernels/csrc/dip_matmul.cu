@@ -2,7 +2,8 @@
 //
 // Replaces repro/kernels/dip_matmul.py::dip_matmul_pallas (and, with
 // deshear = 0, ws_matmul_pallas), and for bf16 x with e4m3 weights the fp8
-// route of repro/kernels/dip_matmul_q.py::dip_matmul_q_pallas.  P is the
+// route of repro/kernels/dip_matmul_q.py::dip_matmul_q_pallas, whose int8
+// route runs the s8 mainloops at the end of this file.  P is the
 // DiP-permutated weight storage (dip_common.cuh).  The TPU kernel walks K on
 // a sequential grid axis and carries the sum in VMEM scratch; here a block
 // loops over K itself, since blocks run in no order, and a K range split
@@ -56,6 +57,15 @@
 // de-sheared on its way into shared memory, the prologue applied on load.
 // int8 with no epilogue writes the int32 accumulator itself, as the
 // reference returns it.
+//
+// The int8 route of dip_matmul_q (dip_matmul_int8q_launch: x's codes from
+// dip_matmul_q.cu's quantizing pass, int8 weights, exact int32 sums) keeps
+// the e4m3 tiles' plan and is bound as they are, by the weight bytes at
+// decode (one a weight) and by the operations at prefill (int8 at twice
+// the bf16 rate).  8-bit products take both operands K-major, so its
+// conversion pass transposes the raw weight rows as it de-shears them, and
+// its prefill operands take the 64-byte swizzle (a 64-deep tile of int8 is
+// a 64-byte row); split-K partials stay int32, so the sum is exact.
 #include <algorithm>
 
 #include "dip_common.cuh"
@@ -862,6 +872,397 @@ cudaError_t launch_tc(const Args& a, int bm, int bn, int splits, int kps, float*
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------ int8 x int8: the int8 route of dip_matmul_q ---
+// The codes of x (one int8 per element, row-major, from dip_matmul_q.cu's
+// quantizing pass) times the int8 permutated weight(s), exact int32 sums,
+// then z = float(acc) * x_scale[m] * w_scale[n] (in that order), the f32
+// epilogue and one cast to O (x's dtype, f32 or bf16).  Both mainloops keep
+// the e4m3 tiles' plan and byte layout (a raw weight row of 128 bytes: 128
+// columns, or the gate's 64 then the up weight's 64), but 8-bit products
+// take both operands K-major, so the conversion pass transposes the raw
+// tile as it de-shears it: thread (lane, warp) builds the 16-byte chunk kc =
+// warp % 4 (k = 16 kc .. 16 kc + 15) of operand columns n, n + 1 (n = 4 lane
+// + 2 (warp / 4)) from 17 32-bit words of the raw rows, each word holding
+// columns 4 lane .. 4 lane + 3 of one row: W[k][nl + j] is byte j of the
+// word of row (k - nl - j) mod 64, and three byte permutes put four such
+// bytes into one word of the chunk (the 32 lanes' words fall on 32 banks).
+// two adjacent outputs, f32 or bf16
+template <typename O>
+__device__ __forceinline__ void store2(O* p, float a, float b) {
+  if constexpr (std::is_same<O, float>::value)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+struct S8Args {
+  const int8_t* x;          // (M, K) activation codes
+  const int8_t* q;          // (K, N) permutated int8 weight
+  const int8_t* q_up;       // (K, N) second weight for swiglu, else null
+  const float* x_scale;     // (M,) per-row activation scales
+  const float* w_scale;     // (N,) per-output-channel scales
+  const float* w_scale_up;  // (N,) the up weight's, swiglu only
+  const float* bias;        // (N,) f32, bias epilogues only
+  const void* residual;     // (M, N) O, residual epilogue only
+  void* out;                // (M, N) O
+  int M, N, K;
+  int epilogue;
+};
+
+// the two operand chunks of columns cb, cb + 1 (cb = 4 lane + 2 half) at k
+// = 16 kc .. 16 kc + 15, from the raw 128-byte rows at `rows`; store(c, v)
+// writes chunk v of column cb + c
+template <typename Store>
+__device__ __forceinline__ void gather_s8(const unsigned char* rows, int lane, int kc, int half, Store store) {
+  const uint32_t* col = reinterpret_cast<const uint32_t*>(rows) + lane;
+  const int j0 = 2 * half, nl = (4 * lane + j0) & (TILE - 1);  // the first column's rotation
+  uint32_t wd[17];  // wd[i]: the word of row 16 kc - nl - 1 + i
+#pragma unroll
+  for (int i = 0; i < 17; ++i) wd[i] = col[((16 * kc - nl - 1 + i) & (TILE - 1)) * 32];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    const uint32_t b = j0 + d;  // byte of the column in its word
+    const uint32_t pair = b | ((b + 4) << 4);
+    uint32_t o[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {  // k = 16 kc + 4 p + e is byte b of wd[4 p + e + 1 - d]
+      const uint32_t lo = __byte_perm(wd[4 * p + 1 - d], wd[4 * p + 2 - d], pair);
+      const uint32_t hi = __byte_perm(wd[4 * p + 3 - d], wd[4 * p + 4 - d], pair);
+      o[p] = __byte_perm(lo, hi, 0x5410);
+    }
+    store(d, make_uint4(o[0], o[1], o[2], o[3]));
+  }
+}
+
+// z = float(acc) * x_scale[m] * w_scale[n] for both weights, the epilogue,
+// and two outputs at (gm, gn), (gm, gn + 1)
+template <typename O, bool DUAL>
+__device__ __forceinline__ void s8_flush2(const S8Args& a, int gm, int gn, int z0, int z1, int u0, int u1) {
+  const float xs = a.x_scale[gm];
+  const float f0 = (float)z0 * xs * a.w_scale[gn], f1 = (float)z1 * xs * a.w_scale[gn + 1];
+  const float g0 = DUAL ? (float)u0 * xs * a.w_scale_up[gn] : 0.0f;
+  const float g1 = DUAL ? (float)u1 * xs * a.w_scale_up[gn + 1] : 0.0f;
+  const O* res = static_cast<const O*>(a.residual);
+  store2(static_cast<O*>(a.out) + (size_t)gm * a.N + gn, apply_epilogue(a.epilogue, f0, g0, a.bias, res, a.N, gm, gn),
+         apply_epilogue(a.epilogue, f1, g1, a.bias, res, a.N, gm, gn + 1));
+}
+
+// Decode (M <= 32): the e4m3 decode tile's shape (32 x 128 for one weight,
+// 32 x 64 a weight for swiglu; eight warps in 2 x 4), mma.sync m16n8k32 fed
+// by ldmatrix, x straight from its ring slot (64-byte rows padded to 80,
+// which spreads ldmatrix's eight rows over the banks), the weight through
+// the gather into a K-major operand of 80-byte rows (two buffers).
+constexpr int S8_ROW = TILE + 16;  // bytes of an x row / operand column in shared memory
+
+template <bool DUAL>
+struct S8MmaCfg {
+  static constexpr int NW = DUAL ? 2 : 1, NI = DUAL ? 2 : 4;  // n8 tiles per warp and weight
+  static constexpr int BM = 32, BN = WARPS_N * 8 * NI;         // block rows; columns per weight
+  static constexpr int STAGES = 5;
+  static constexpr int X_BYTES = BM * S8_ROW;
+  static constexpr int RAW = X_BYTES + TILE * 128;  // one ring slot: x, then 64 raw weight rows of 128 bytes
+  static constexpr int OP = 128 * S8_ROW;           // one operand buffer: 128 columns, K-major
+  static constexpr size_t SMEM = (size_t)STAGES * RAW + 2 * OP;
+  static_assert(NW * BN == 128, "one 128-byte raw row");
+};
+
+template <typename O, bool DUAL>
+__global__ void __launch_bounds__(MMA_THREADS) dip_mma_s8_kernel(const S8Args a, const int kps,
+                                                                 int* __restrict__ part) {
+  using C = S8MmaCfg<DUAL>;
+  constexpr int S = C::STAGES, NW = C::NW, NI = C::NI, BN = C::BN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* raw = smem;                 // [S][RAW]
+  unsigned char* op = smem + S * C::RAW;     // [2][OP]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * C::BM;
+  const int kt0 = blockIdx.z * kps, nk = min(a.K / TILE - kt0, kps);
+  const int M = a.M, N = a.N, K = a.K;
+  const int8_t* w_src[2] = {a.q, a.q_up};
+  auto x_slot = [&](int t) { return raw + (t % S) * C::RAW; };
+  auto w_slot = [&](int t) { return raw + (t % S) * C::RAW + C::X_BYTES; };
+
+  // x: thread tid < 128 copies row tid / 4, bytes 16 (tid % 4) ..; the raw
+  // weight rows: chunk v = tid + 256 j is row v / 8, bytes 16 (v % 8) ..
+  // (for swiglu the gate's columns below byte 64, the up weight's from there)
+  auto issue = [&](int t) {
+    const int k0 = (kt0 + t) * TILE;
+    if (tid < C::BM * 4) {
+      const int r = tid >> 2, c = (tid & 3) * 16, gm = m0 + r;
+      sm90::cp_async16(x_slot(t) + r * S8_ROW + c, a.x + (size_t)min(gm, M - 1) * K + k0 + c, gm < M);
+    }
+#pragma unroll
+    for (int j = 0; j < TILE * 8 / MMA_THREADS; ++j) {
+      const int v = tid + MMA_THREADS * j, s = v >> 3, cb = (v & 7) * 16, gn = n0 + cb % BN;
+      sm90::cp_async16(w_slot(t) + s * 128 + cb, w_src[cb / BN] + (size_t)(k0 + s) * N + min(gn, N - 16), gn < N);
+    }
+  };
+  auto convert = [&](int t) {
+    unsigned char* dst = op + (t & 1) * C::OP;
+    gather_s8(w_slot(t), lane, warp & 3, warp >> 2, [&](int d, uint4 v) {
+      *reinterpret_cast<uint4*>(dst + (4 * lane + 2 * (warp >> 2) + d) * S8_ROW + 16 * (warp & 3)) = v;
+    });
+  };
+
+  int acc[NW][NI][4];
+#pragma unroll
+  for (int w = 0; w < NW; ++w)
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[w][j][e] = 0;
+  const int wr = (warp / WARPS_N) * 16, wc = (warp % WARPS_N) * 8 * NI;
+
+  // step t: the products of stage t (two 32-deep slices), with stage t + 1
+  // gathered between them
+  auto compute = [&](int t) {
+    const unsigned char* xs = x_slot(t);
+    const unsigned char* ws = op + (t & 1) * C::OP;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      uint32_t af[4], bfr[NW][NI / 2][4];
+      sm90::ldmatrix_x4(af, xs + (wr + (lane & 15)) * S8_ROW + 32 * kk + (lane >> 4) * 16);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int j = 0; j < NI / 2; ++j)
+          sm90::ldmatrix_x4(bfr[w][j], ws + (w * BN + wc + 16 * j + (lane & 7) + (lane >> 4) * 8) * S8_ROW + 32 * kk +
+                                           ((lane >> 3) & 1) * 16);
+      if (kk == 0 && t + 1 < nk) convert(t + 1);
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int j = 0; j < NI / 2; ++j) {
+          sm90::mma_s8(acc[w][2 * j], af, bfr[w][j][0], bfr[w][j][1]);
+          sm90::mma_s8(acc[w][2 * j + 1], af, bfr[w][j][2], bfr[w][j][3]);
+        }
+    }
+  };
+
+  // the ring, as the e4m3 decode tile runs it: the gather reads every
+  // thread's copies, so each thread waits for its copies of stage t + 2
+  // before the barrier ending step t
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < nk) issue(t);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<S - 3>();  // stages 0 and 1
+  __syncthreads();
+  if (nk > 0) convert(0);
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    if (t + S - 1 < nk) issue(t + S - 1);
+    sm90::cp_async_commit();
+    compute(t);
+    sm90::cp_async_wait<S - 3>();
+    __syncthreads();
+  }
+  sm90::cp_async_wait<0>();
+
+  const size_t mn = (size_t)M * N;
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + wr + (lane >> 2) + 8 * h, gn = n0 + wc + 8 * j + 2 * (lane & 3);
+      if (gm >= M || gn >= N) continue;
+      if (part != nullptr) {
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          *reinterpret_cast<int2*>(part + (blockIdx.z * NW + w) * mn + (size_t)gm * N + gn) =
+              make_int2(acc[w][j][2 * h], acc[w][j][2 * h + 1]);
+      } else {
+        s8_flush2<O, DUAL>(a, gm, gn, acc[0][j][2 * h], acc[0][j][2 * h + 1], acc[NW - 1][j][2 * h],
+                           acc[NW - 1][j][2 * h + 1]);
+      }
+    }
+}
+
+// Prefill (M > 32): the wgmma tile of the bf16 and e4m3 routes (128 x 128,
+// two warpgroups of 64 rows; swiglu 64 columns a weight), m64n128k32 s8
+// from K-major shared memory with the 64-byte swizzle: x's codes land
+// swizzled by their cp.async copies, ready for wgmma, and the gather builds
+// the weight operand (three buffers, one step's products in flight across
+// the barrier, the loop order of dip_wgmma_kernel).
+template <bool DUAL>
+struct S8WgCfg {
+  static constexpr int THREADS = 256;
+  static constexpr int BM = 2 * WG_ROWS;
+  static constexpr int BN = DUAL ? WG_COLS / 2 : WG_COLS;  // output columns (per weight)
+  static constexpr int STAGES = 4;
+  static constexpr int B_BUFS = 3;
+  static constexpr int X_BYTES = BM * TILE;    // codes, K-major, 64-byte swizzle
+  static constexpr int RAW = X_BYTES + TILE * 128;
+  static constexpr int OP = WG_COLS * TILE;    // B, K-major, 64-byte swizzle
+  static constexpr size_t SMEM = (size_t)STAGES * RAW + B_BUFS * OP + 1024;
+  static_assert(RAW % 1024 == 0 && OP % 1024 == 0, "wgmma tiles must stay 1024-byte aligned");
+};
+
+template <typename O, bool DUAL>
+__global__ void __launch_bounds__(S8WgCfg<DUAL>::THREADS) dip_wgmma_s8_kernel(const S8Args a, const int kps,
+                                                                              int* __restrict__ part) {
+  using C = S8WgCfg<DUAL>;
+  constexpr int S = C::STAGES, T = C::THREADS, BN = C::BN;
+  extern __shared__ unsigned char smem_dyn[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  unsigned char* raw = smem;                 // [S][RAW]: x (swizzled), then the raw weight rows
+  unsigned char* op = raw + S * C::RAW;      // [B_BUFS][OP]: B
+  const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, warp = (tid >> 5) & 3, wt = tid & 127;
+  const int M = a.M, N = a.N, K = a.K;
+  const int n_tiles = (N + BN - 1) / BN, m_tiles = (M + C::BM - 1) / C::BM;
+  const int group = blockIdx.x / (RASTER * n_tiles), first_m = group * RASTER;
+  const int in_group = blockIdx.x % (RASTER * n_tiles), rows = min(m_tiles - first_m, RASTER);
+  const int n0 = (in_group / rows) * BN, m0 = (first_m + in_group % rows) * C::BM;
+  const int kt0 = blockIdx.z * kps, nk = min(K / TILE - kt0, kps);
+  const int8_t* w_src[2] = {a.q, a.q_up};
+
+  // x chunk j of this thread: row 64 wg + (wt + 128 j) / 4 (a warpgroup
+  // copies only the rows its own products read), bytes 16 (wt % 4) ..
+  auto issue = [&](int t) {
+    unsigned char* slot = raw + (t % S) * C::RAW;
+    const int k0 = (kt0 + t) * TILE;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = wg * WG_ROWS + ((wt + 128 * j) >> 2), gm = m0 + r, kb = (wt & 3) * 16;
+      sm90::cp_async16(slot + sm90::sw64_offset(r, kb), a.x + (size_t)min(gm, M - 1) * K + k0 + kb, gm < M);
+    }
+#pragma unroll
+    for (int j = 0; j < TILE * 8 / T; ++j) {
+      const int v = tid + T * j, s = v >> 3, cb = (v & 7) * 16;
+      const int w = DUAL ? cb / BN : 0, gn = n0 + (DUAL ? cb % BN : cb);
+      sm90::cp_async16(slot + C::X_BYTES + s * 128 + cb, w_src[w] + (size_t)(k0 + s) * N + min(gn, N - 16), gn < N);
+    }
+  };
+  auto convert = [&](int t) {
+    unsigned char* dst = op + (t % C::B_BUFS) * C::OP;
+    const int kc = (tid >> 5) & 3, half = tid >> 7;
+    gather_s8(raw + (t % S) * C::RAW + C::X_BYTES, lane, kc, half, [&](int d, uint4 v) {
+      *reinterpret_cast<uint4*>(dst + sm90::sw64_offset(4 * lane + 2 * half + d, 16 * kc)) = v;
+    });
+  };
+
+  int acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+
+  // (ptxas of CUDA 12.8 crashes on dip_wgmma_kernel if the copies are issued
+  // between the commit and the wait, or if the step body is duplicated;
+  // this loop keeps its order)
+#pragma unroll
+  for (int t = 0; t < S - 1; ++t) {
+    if (t < nk) issue(t);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<S - 3>();  // stages 0 and 1
+  sm90::fence_proxy_async();
+  __syncthreads();
+  if (nk > 0) convert(0);
+  sm90::fence_proxy_async();
+  __syncthreads();
+  for (int t = 0; t < nk; ++t) {
+    const uint64_t da = sm90::sw64_desc(raw + (t % S) * C::RAW + wg * WG_ROWS * TILE);
+    const uint64_t db = sm90::sw64_desc(op + (t % C::B_BUFS) * C::OP);
+    sm90::fence_regs(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 32; ++kk) sm90::wgmma_m64n128k32_s8(acc, da + 2 * kk, db + 2 * kk);
+    sm90::wgmma_commit();
+    if (t + 1 < nk) convert(t + 1);
+    sm90::wgmma_wait<1>();
+    sm90::fence_regs(acc);
+    if (t + S - 1 < nk) issue(t + S - 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    sm90::fence_proxy_async();
+    __syncthreads();
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::cp_async_wait<0>();
+
+  const size_t mn = (size_t)M * N;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + wg * WG_ROWS + 16 * warp + (lane >> 2) + 8 * h, gn = n0 + 8 * j + 2 * (lane & 3);
+      if (gm >= M || gn >= N) continue;
+      const int z0 = acc[4 * j + 2 * h], z1 = acc[4 * j + 2 * h + 1];
+      const int u0 = DUAL ? acc[4 * (j + BN / 8) + 2 * h] : 0, u1 = DUAL ? acc[4 * (j + BN / 8) + 2 * h + 1] : 0;
+      if (part != nullptr) {
+        const size_t o = (size_t)gm * N + gn;
+        *reinterpret_cast<int2*>(part + blockIdx.z * (DUAL ? 2 : 1) * mn + o) = make_int2(z0, z1);
+        if (DUAL) *reinterpret_cast<int2*>(part + (blockIdx.z * 2 + 1) * mn + o) = make_int2(u0, u1);
+      } else {
+        s8_flush2<O, DUAL>(a, gm, gn, z0, z1, u0, u1);
+      }
+    }
+}
+
+// The int8 split-K second pass: the splits' int32 partial sums added in
+// split order (exact), then the scales, the epilogue and one cast.
+template <typename O, bool DUAL>
+__global__ void splitk_reduce_s8_kernel(const S8Args a, const int* __restrict__ part, int splits) {
+  constexpr int NW = DUAL ? 2 : 1;
+  const size_t mn = (size_t)a.M * a.N;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= mn) return;
+  int z = 0, zu = 0;
+  for (int s = 0; s < splits; ++s) {
+    z += part[(size_t)s * NW * mn + e];
+    if (DUAL) zu += part[((size_t)s * NW + 1) * mn + e];
+  }
+  const int gm = (int)(e / a.N), gn = (int)(e % a.N);
+  const float xs = a.x_scale[gm];
+  const float f = (float)z * xs * a.w_scale[gn], g = DUAL ? (float)zu * xs * a.w_scale_up[gn] : 0.0f;
+  static_cast<O*>(a.out)[e] =
+      from_f32<O>(apply_epilogue(a.epilogue, f, g, a.bias, static_cast<const O*>(a.residual), a.N, gm, gn));
+}
+
+template <typename O, bool DUAL>
+cudaError_t launch_s8(const S8Args& a, int bm, int splits, int kps, int* part, cudaStream_t stream) {
+  static bool attr_set[2] = {false, false};  // the shared-memory opt-in, once per kernel
+  const bool prefill = bm == 128;
+  const void* kernel = prefill ? (const void*)dip_wgmma_s8_kernel<O, DUAL> : (const void*)dip_mma_s8_kernel<O, DUAL>;
+  const size_t smem = prefill ? S8WgCfg<DUAL>::SMEM : S8MmaCfg<DUAL>::SMEM;
+  if (!attr_set[prefill]) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    attr_set[prefill] = true;
+  }
+  int* p = splits > 1 ? part : nullptr;
+  if (prefill) {
+    using C = S8WgCfg<DUAL>;
+    const dim3 grid(((a.N + C::BN - 1) / C::BN) * ((a.M + C::BM - 1) / C::BM), 1, splits);
+    dip_wgmma_s8_kernel<O, DUAL><<<grid, C::THREADS, smem, stream>>>(a, kps, p);
+  } else {
+    using C = S8MmaCfg<DUAL>;
+    const dim3 grid((a.N + C::BN - 1) / C::BN, (a.M + C::BM - 1) / C::BM, splits);
+    dip_mma_s8_kernel<O, DUAL><<<grid, MMA_THREADS, smem, stream>>>(a, kps, p);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t mn = (size_t)a.M * a.N;
+  splitk_reduce_s8_kernel<O, DUAL><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a, part, splits);
+  return cudaGetLastError();
+}
+
+// The plan's (bm, bn) as for e4m3 weights: bm = 32 the decode tile (bn =
+// 128, 64 a weight for swiglu), bm = 128 the wgmma tile (bn = 128, 64 a
+// weight for swiglu).
+template <typename O>
+cudaError_t launch_int8q(const S8Args& a, int bm, int bn, int splits, int kps, int* part, cudaStream_t s) {
+  const int k_tiles = a.K / TILE;
+  if (splits < 1 || kps < 1 || (long long)splits * kps < k_tiles || (long long)(splits - 1) * kps >= k_tiles ||
+      (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const bool dual = a.epilogue == EPI_SWIGLU;
+  if ((bm != 32 && bm != 128) || bn != (dual ? 64 : 128)) return cudaErrorInvalidValue;
+  return dual ? launch_s8<O, true>(a, bm, splits, kps, part, s) : launch_s8<O, false>(a, bm, splits, kps, part, s);
+}
+
 bool bad_shape(int M, int N, int K, int epilogue) {
   return M <= 0 || N <= 0 || K <= 0 || N % TILE || K % TILE || epilogue < EPI_NONE || epilogue > EPI_RESIDUAL;
 }
@@ -901,4 +1302,29 @@ extern "C" int dip_matmul_fp8_launch(const void* x, const void* q, const void* q
     return (int)cudaErrorInvalidValue;
   const Args a{x, q, q_up, inv_rms, gain, bias, residual, out, M, N, K, epilogue, 1, w_scale, w_scale_up};
   return (int)launch_tc<fp8>(a, bm, bn, splits, kps, static_cast<float*>(workspace), static_cast<cudaStream_t>(stream));
+}
+
+// The int8 route of kernels/dip_matmul_q.py: x's int8 codes and per-row
+// scales (dip_matmul_q.cu's quantizing pass), int8 permutated weights q (and
+// q_up for swiglu) with f32 per-output-channel scales; out_dtype 0 = float32,
+// 1 = bfloat16 (x's dtype, also the residual's); epilogue(float(codes @
+// deshear(q)) * x_scale[m] * w_scale[n]) under the plan
+// (kernels/dip_matmul.py::matmul_plan with weight_bytes = 1); workspace:
+// int32, splits x (2 for swiglu, else 1) x M x N, used when splits > 1.
+// Returns a cudaError_t.
+extern "C" int dip_matmul_int8q_launch(int out_dtype, const void* codes, const void* q, const void* q_up,
+                                       const float* x_scale, const float* w_scale, const float* w_scale_up,
+                                       const float* bias, const void* residual, void* out, int M, int N, int K,
+                                       int epilogue, int bm, int bn, int splits, int kps, void* workspace,
+                                       void* stream) {
+  if (bad_shape(M, N, K, epilogue) || x_scale == nullptr || w_scale == nullptr ||
+      (epilogue == EPI_SWIGLU && w_scale_up == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const S8Args a{static_cast<const int8_t*>(codes), static_cast<const int8_t*>(q), static_cast<const int8_t*>(q_up),
+                 x_scale, w_scale, w_scale_up, bias, residual, out, M, N, K, epilogue};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* part = static_cast<int*>(workspace);
+  if (out_dtype == 0) return (int)launch_int8q<float>(a, bm, bn, splits, kps, part, s);
+  if (out_dtype == 1) return (int)launch_int8q<bf16>(a, bm, bn, splits, kps, part, s);
+  return (int)cudaErrorInvalidValue;
 }

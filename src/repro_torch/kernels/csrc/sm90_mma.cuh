@@ -1,12 +1,13 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16
 // mainloops of dip_matmul.cu, flash_attention.cu and lm_head_ce.cu (sm_90a):
 //
-//   * cp.async.cg 16-byte copies from device memory into shared memory, with
-//     a zero-fill form for rows or columns past the edge, committed and
-//     waited on in groups (one group per pipeline stage);
+//   * the cp.async copies of cp_async.cuh;
 //   * ldmatrix x4 (plain and transposed) from padded shared rows into the
 //     register fragments of mma.sync;
-//   * mma.sync m16n8k16, bf16 x bf16 -> f32.
+//   * mma.sync m16n8k16, bf16 x bf16 -> f32, and m16n8k32, s8 x s8 -> s32
+//     (the int8 route of dip_matmul_q);
+//   * wgmma from K-major shared memory with the 128-byte swizzle (bf16) and
+//     the 64-byte swizzle (s8, whose 64-deep tile is a 64-byte row).
 //
 // Operand tiles live in shared memory as padded row-major arrays whose row
 // stride is 16 bytes past a multiple of 128: the eight 16-byte rows one
@@ -16,26 +17,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace sm90 {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src to dst; with live == false the destination is zero-filled
-// and src is not read (it must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(live ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// wait until at most N of this thread's committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Four 8x8 b16 matrices; lane l gives the address of row (l % 8) of matrix
 // l / 8, and register i receives this lane's pair of matrix i.
@@ -57,6 +41,18 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16x32, row-major fragment) * b (32x8, column-major fragment), int8
+// x int8 into exact int32 sums; the fragments hold the same bytes as the
+// bf16 m16n8k16 ones (four int8 a register where bf16 has two), so the same
+// ldmatrix addressing loads them from K-major rows
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
@@ -100,6 +96,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // d (64 x 128, f32, the warpgroup's accumulator layout) += A (64 x 16) B (16 x 128),
 // both K-major from shared memory; with accumulate == 0, d = A B
@@ -110,6 +111,34 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The int8 operands: a 64-deep K slice of a row (an M or N index) is 64
+// bytes at r * 64, its 16-byte chunk j (k = 16 j .. 16 j + 15) stored at
+// chunk j ^ ((r / 2) % 4): the 64-byte swizzle, whose eight-row atom is 512
+// bytes (tiles start 1024-byte aligned).
+__device__ __forceinline__ uint32_t sw64_offset(int r, int kb) {  // bytes; kb: byte of the row
+  return (uint32_t)(r * 64 + ((((kb >> 4) ^ (r >> 1)) & 3) << 4) + (kb & 15));
+}
+
+// Matrix descriptor of such a tile: start >> 4, leading offset 16 bytes
+// (unused by the swizzled K-major layout), stride 512 bytes between 8-row
+// atoms, layout 2 = 64-byte swizzle.  A 32-deep K step adds 32 bytes.
+__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
+  const uint64_t a = smem_addr(tile);
+  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
+}
+
+// d (64 x 128, s32, the warpgroup's accumulator layout) += A (64 x 32) B (32 x
+// 128), int8, both K-major from shared memory (8-bit wgmma has no transpose)
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                                    int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -77,8 +77,8 @@ def _cdiv(a: int, b: int) -> int:
 def matmul_plan(m: int, n: int, k: int, dual: bool, sms: int, weight_bytes: int = 2) -> MatmulPlan:
     """The tensor-core kernel's tiles and K splits for an (m, k) @ (k, n)
     call on a card with ``sms`` SMs (``dual``: swiglu, two weights over one
-    x tile; ``weight_bytes``: 2 for bf16 weights, 1 for the e4m3 codes of
-    ``dip_matmul_q``'s fp8 route).
+    x tile; ``weight_bytes``: 2 for bf16 weights, 1 for the e4m3 and int8
+    codes of ``dip_matmul_q``'s fp8 and int8 routes).
 
     Decode (m <= DECODE_MAX_M) is bound by the weight bytes, so every SM
     must stream: 32 x 64 tiles (two blocks fit on an SM) and K split until

@@ -12,27 +12,39 @@ reference's GPU choice), f32 on the CPU (its emulated fallback), and x is
 cast to the same width.  Bound on the card: at decode by the weight bytes
 (one per weight), at prefill by tensor-core operations.
 
-Two kernels on the card:
+On the card, bf16 x with fp8 weights and every int8 call run the
+tensor-core mainloops of ``csrc/dip_matmul.cu`` under
+:func:`~repro_torch.kernels.dip_matmul.matmul_plan` with one byte a weight
+(128-column decode tiles for a single weight, so that a block reads 128
+bytes of each weight row; ``wgmma`` at prefill):
 
-* **fp8, bf16 x** (the served route) runs the bf16 tensor-core mainloops
-  of ``csrc/dip_matmul.cu`` (``dip_matmul_fp8_launch``) under
-  :func:`~repro_torch.kernels.dip_matmul.matmul_plan` with one byte a
-  weight (128-column decode tiles for a single weight): the raw e4m3 tile
-  rides the cp.async ring at one byte a weight and the conversion pass
-  upcasts it exactly to bf16 as it de-shears; the rmsnorm prologue is fused
-  as on the bf16 route (``inv_rms`` from :func:`~repro_torch.kernels.prologue.inv_rms`,
+* **fp8, bf16 x** (``dip_matmul_fp8_launch``): the raw e4m3 tile rides the
+  cp.async ring at one byte a weight and the conversion pass upcasts it
+  exactly to bf16 as it de-shears; the rmsnorm prologue is fused as on the
+  bf16 route (``inv_rms`` from :func:`~repro_torch.kernels.prologue.inv_rms`,
   the gain through the ring); ``(x @ W) * w_scale[n]`` is formed before the
   epilogue, after the splits are added where K is split.
-  ``dip_matmul_q.launches_tc`` counts these launches.
-* **int8, and fp8 with f32 x** run the first design
-  (``csrc/dip_matmul_q.cu``, one 64x64 WMMA tile per block), with the
-  prologue and the int8 activation quantization
-  (:func:`~repro_torch.kernels.ref.quantize_acts_int8`) in torch ops ahead of
-  the launch, as the reference applies them outside its kernel.
+* **int8, f32 or bf16 x** (two launches a call): the quantizing pass of
+  ``csrc/dip_matmul_q.cu`` (``dip_quantize_int8_launch``) writes x's int8
+  codes and per-row scales (the prologue with the same ``inv_rms``, then
+  :func:`~repro_torch.kernels.ref.quantize_acts_int8`'s arithmetic, so the
+  codes are byte-identical to the plain version's, whatever x's width); the
+  int8 mainloops (``dip_matmul_int8q_launch``: ``mma.sync`` m16n8k32 at
+  decode, ``wgmma`` m64n128k32 at prefill, s8 x s8 into exact int32)
+  multiply them by the de-sheared weight, a split's int32 partial sums are
+  added in split order, and only then ``float(acc) * x_scale[m] *
+  w_scale[n]``, the epilogue and one cast; so with no epilogue the output
+  equals the plain version bit for bit.
 
-:func:`dip_matmul_q` launches a kernel for CUDA tensors and runs
+fp8 with f32 x runs the first design (``csrc/dip_matmul_q.cu``, one 64x64
+WMMA tile per block, x cast to bf16 on load).  :func:`q_route` names the
+route.  ``dip_matmul_q.launches_tc`` counts the launches on the tensor-core
+route and ``dip_matmul_q.launches_quant`` the quantizing passes.
+
+:func:`dip_matmul_q` launches the kernels for CUDA tensors and runs
 :func:`dip_matmul_q_plain` for CPU tensors.  ``dip_matmul_q.launches``
-counts kernel launches (a split-K call's second pass included).
+counts calls that launched the product (a split-K call's second pass
+included; the quantizing pass is counted in ``launches_quant``).
 """
 
 from __future__ import annotations
@@ -49,7 +61,8 @@ from repro_torch.kernels import prologue as pro
 from repro_torch.kernels import ref
 from repro_torch.kernels.dip_matmul import TILE, matmul_plan, require, sm_count
 
-__all__ = ["dip_matmul_q", "dip_matmul_q_plain", "fp8_compute_dtype", "q_route"]
+__all__ = ["dip_matmul_q", "dip_matmul_q_plain", "fp8_compute_dtype", "q_route", "quantize_pass",
+           "quantize_pass_plain"]
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STORAGE = (torch.int8, torch.float8_e4m3fn)
@@ -68,10 +81,10 @@ def _route(q: torch.Tensor) -> str:
 
 
 def q_route(x_dtype: torch.dtype, q_dtype: torch.dtype) -> str:
-    """The kernel a CUDA call takes: ``"tensor_cores"`` (fp8 storage with
-    bf16 x, ``csrc/dip_matmul.cu``) or ``"first_design"`` (int8, and fp8
-    with f32 x, ``csrc/dip_matmul_q.cu``)."""
-    return "tensor_cores" if q_dtype == torch.float8_e4m3fn and x_dtype == torch.bfloat16 else "first_design"
+    """The kernel a CUDA call takes: ``"tensor_cores"`` (int8 storage with
+    f32 or bf16 x, and fp8 storage with bf16 x: ``csrc/dip_matmul.cu``) or
+    ``"first_design"`` (fp8 with f32 x, ``csrc/dip_matmul_q.cu``)."""
+    return "first_design" if q_dtype == torch.float8_e4m3fn and x_dtype != torch.bfloat16 else "tensor_cores"
 
 
 def _check(x, q, w_scale, epilogue_operands, epilogue):
@@ -146,23 +159,75 @@ def dip_matmul_q_plain(x, q, w_scale, *epilogue_operands, epilogue="none", prolo
     return epi.apply(epilogue, z, *aux).to(x.dtype)
 
 
-def _lib():
-    lib = _build.load("dip_matmul_q")
-    fn = lib.dip_matmul_q_launch
+def _fn(source: str, name: str, argtypes):
+    fn = getattr(_build.load(source), name)
     if fn.argtypes is None:  # declare once: untyped ints would truncate the pointers
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _lib():
+    # x, q, q_up, w_scale, w_scale_up, bias, residual, out; M, N, K, epilogue; stream
+    return _fn("dip_matmul_q", "dip_matmul_q_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def _lib_quant():
+    # dtype; x, inv_rms, gain, codes, x_scale; M, K; stream
+    return _fn("dip_matmul_q", "dip_quantize_int8_launch",
+               [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
 def _lib_tc():
-    fn = _build.load("dip_matmul").dip_matmul_fp8_launch
-    if fn.argtypes is None:
-        # x, q, q_up, w_scale, w_scale_up, inv_rms, gain, bias, residual, out;
-        # M, N, K, epilogue, bm, bn, splits, kps; workspace; stream
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
-        fn.restype = ctypes.c_int
-    return fn
+    # x, q, q_up, w_scale, w_scale_up, inv_rms, gain, bias, residual, out;
+    # M, N, K, epilogue, bm, bn, splits, kps; workspace; stream
+    return _fn("dip_matmul", "dip_matmul_fp8_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+
+
+def _lib_int8():
+    # out dtype; codes, q, q_up, x_scale, w_scale, w_scale_up, bias, residual,
+    # out; M, N, K, epilogue, bm, bn, splits, kps; workspace; stream
+    return _fn("dip_matmul", "dip_matmul_int8q_launch",
+               [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+
+
+def quantize_pass_plain(x: torch.Tensor, inv: Optional[torch.Tensor] = None,
+                        gain: Optional[torch.Tensor] = None):
+    """The quantizing pass's function in plain torch: ``(codes, x_scale)``
+    with codes int8 (M, K) and x_scale f32 (M,) of ``y = kernel_load(x)``
+    (the rmsnorm scale by ``inv`` (M, 1) and ``gain`` (K,) in f32, cast back
+    to x's dtype; ``y = x`` without them), by ``ref.quantize_acts_int8``."""
+    y = x if gain is None else pro.kernel_load("rmsnorm", x, (inv.reshape(-1, 1), gain))
+    codes, scale = ref.quantize_acts_int8(y)
+    return codes, scale.reshape(-1)
+
+
+def quantize_pass(x: torch.Tensor, inv: Optional[torch.Tensor] = None, gain: Optional[torch.Tensor] = None):
+    """:func:`quantize_pass_plain` for CPU tensors; for CUDA tensors one
+    launch of the quantizing pass (``dip_matmul_q.launches_quant``)."""
+    if x.device.type == "cpu":
+        return quantize_pass_plain(x, inv, gain)
+    m, k = x.shape
+    dev = x.device
+    require(x, "x", dev)
+    if x.dtype not in _OUT_CODES:
+        raise TypeError(f"the quantizing pass takes float32 or bfloat16 x, got {x.dtype}")
+    if gain is not None:
+        inv = inv.reshape(m)
+        require(inv, "inv_rms", dev, torch.float32)
+        require(gain, "gain", dev, torch.float32)
+    codes = torch.empty((m, k), dtype=torch.int8, device=dev)
+    x_scale = torch.empty((m,), dtype=torch.float32, device=dev)
+    _build.check_aligned(codes, "codes")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib_quant()(_OUT_CODES[x.dtype], ptr(x), ptr(inv if gain is not None else None), ptr(gain),
+                          ptr(codes), ptr(x_scale), m, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"dip_matmul_q quantizing pass launch failed: cudaError {rc}")
+    dip_matmul_q.launches_quant += 1
+    return codes, x_scale
 
 
 def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilogue_operands: torch.Tensor,
@@ -207,51 +272,52 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
         residual = epilogue_operands[0]
         require(residual, "residual", dev, dt)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    if route == "tensor_cores":
+    if route == "first_design":  # fp8 weights, f32 x
+        x = _prologue(x, prologue, prologue_operands, prologue_k, prologue_eps)
         require(x, "x", dev, dt)
-        inv = gain = None
-        if pro.spec(prologue).normalize:
-            if len(prologue_operands) != 1:
-                raise ValueError(f"prologue {prologue!r} takes 1 operand, got {len(prologue_operands)}")
-            gain = prologue_operands[0].reshape(-1)
-            if gain.numel() != k:
-                raise ValueError(f"rmsnorm gain must have {k} elements, got {tuple(gain.shape)}")
-            require(gain, "gain", dev, torch.float32)
-            inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
-        plan = matmul_plan(m, n, k, s.dual_weight, sm_count(dev), weight_bytes=1)
-        work = (torch.empty((plan.splits, 2 if s.dual_weight else 1, m, n), dtype=torch.float32, device=dev)
-                if plan.splits > 1 else None)
         out = torch.empty((m, n), dtype=dt, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _lib_tc()(
-                ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(inv), ptr(gain), ptr(bias),
-                ptr(residual), ptr(out), m, n, k, epi.code(epilogue), plan.bm, plan.bn, plan.splits,
-                plan.k_tiles_per_split, ptr(work), stream,
-            )
+            rc = _lib()(ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(bias), ptr(residual), ptr(out),
+                        m, n, k, epi.code(epilogue), stream)
         if rc != 0:
-            raise RuntimeError(f"dip_matmul_q kernel launch failed (fp8, tensor cores): cudaError {rc}")
+            raise RuntimeError(f"dip_matmul_q kernel launch failed (fp8, f32 x): cudaError {rc}")
         dip_matmul_q.launches += 1
-        dip_matmul_q.launches_tc += 1
         return out
-    x = _prologue(x, prologue, prologue_operands, prologue_k, prologue_eps)
-    x_scale = None
-    if _route(q) == "int8":
-        x, x_scale = ref.quantize_acts_int8(x)
-        x_scale = x_scale.reshape(m)
-    require(x, "x", dev)
+    require(x, "x", dev, dt)
+    inv = gain = None
+    if pro.spec(prologue).normalize:
+        if len(prologue_operands) != 1:
+            raise ValueError(f"prologue {prologue!r} takes 1 operand, got {len(prologue_operands)}")
+        gain = prologue_operands[0].reshape(-1)
+        if gain.numel() != k:
+            raise ValueError(f"rmsnorm gain must have {k} elements, got {tuple(gain.shape)}")
+        require(gain, "gain", dev, torch.float32)
+        inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
+    int8 = _route(q) == "int8"
+    plan = matmul_plan(m, n, k, s.dual_weight, sm_count(dev), weight_bytes=1)
+    work = (torch.empty((plan.splits, 2 if s.dual_weight else 1, m, n), device=dev,
+                        dtype=torch.int32 if int8 else torch.float32) if plan.splits > 1 else None)
+    if int8:  # the codes and scales first; the prologue is the pass's
+        codes, x_scale = quantize_pass(x, inv, gain)
     out = torch.empty((m, n), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _lib()(
-            0 if x_scale is not None else 1, _OUT_CODES[dt], ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up),
-            ptr(x_scale), ptr(bias), ptr(residual), ptr(out), m, n, k, epi.code(epilogue), stream,
-        )
+        plan_args = (m, n, k, epi.code(epilogue), plan.bm, plan.bn, plan.splits, plan.k_tiles_per_split, ptr(work),
+                     stream)
+        if int8:
+            rc = _lib_int8()(_OUT_CODES[dt], ptr(codes), ptr(q), ptr(q_up), ptr(x_scale), ptr(w_scale), ptr(s_up),
+                             ptr(bias), ptr(residual), ptr(out), *plan_args)
+        else:
+            rc = _lib_tc()(ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(inv), ptr(gain), ptr(bias),
+                           ptr(residual), ptr(out), *plan_args)
     if rc != 0:
-        raise RuntimeError(f"dip_matmul_q kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"dip_matmul_q kernel launch failed ({_route(q)}, tensor cores): cudaError {rc}")
     dip_matmul_q.launches += 1
+    dip_matmul_q.launches_tc += 1
     return out
 
 
 dip_matmul_q.launches = 0
-dip_matmul_q.launches_tc = 0  # of them, the fp8 tensor-core route
+dip_matmul_q.launches_tc = 0  # of them, the tensor-core route (int8, and fp8 with bf16 x)
+dip_matmul_q.launches_quant = 0  # the int8 route's quantizing passes

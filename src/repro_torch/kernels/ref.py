@@ -67,10 +67,13 @@ def quantize_acts_int8(x: torch.Tensor):
     """Dynamic symmetric per-row int8 activation quantization: ``(q, scale)``
     with q int8 of x's shape and scale float32 ``(..., 1)``, ``q * scale ~=
     x``; all-zero rows get the floor scale.  Divides, rounds half to even and
-    clips exactly as the reference, so the bytes agree."""
+    clips exactly as the reference, so the bytes agree.  127 is divided by
+    as a tensor on x's device: torch's CUDA division by a Python scalar
+    multiplies by its rounded reciprocal, which moves some scales by one
+    ulp (and their codes with them) off the reference's IEEE quotient."""
     x32 = x.float()
     amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) / 127.0
+    scale = torch.clamp(amax, min=1e-8) / torch.full_like(amax, 127.0)
     q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -548,3 +548,102 @@ def test_offset_views_are_refused_and_leave_the_context_usable(dev):
     for a, b in zip(got, ce.lm_head_ce_plain(x.clone(), w, labels, vocab_size=1000)):
         _close(a, b, torch.float32)
     torch.cuda.synchronize()
+
+
+# ------------------- Hopper redesign: the wavefront and the int8 route -------
+# The int8 route of dip_matmul_q: a quantizing pass (codes and per-row
+# scales, byte for byte those of the plain version) and the int8 mainloops
+# of dip_matmul.cu under matmul_plan(weight_bytes=1), K = 1088 giving a
+# ragged decode split and more K tiles than the ring at prefill; N = 192
+# and 320 are not multiples of the 128-column tiles (test_torch_kernel_plans
+# .py holds that these cases reach each path).  The codes are the same on
+# both sides and the int32 sums exact, so with no epilogue the output is
+# bit for bit the plain version's; an epilogue is f32 arithmetic in another
+# order, so TOL of the output dtype.
+@pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
+@pytest.mark.parametrize("m,k", [(1, 4096), (4, 14336), (37, 1088), (256, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_pass_kernel_matches_plain(dev, dtype, m, k, prologue):
+    from repro_torch.kernels import prologue as pro
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, quantize_pass, quantize_pass_plain
+
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = (torch.randn(m, k, generator=g, device=dev) * 3).to(dtype)
+    if m > 1:
+        x[1] = 0
+    gain = torch.rand(k, generator=g, device=dev) + 0.5 if prologue == "rmsnorm" else None
+    inv = pro.inv_rms(x) if gain is not None else None
+    before = dip_matmul_q.launches_quant
+    codes, scale = quantize_pass(x, inv, gain)
+    assert dip_matmul_q.launches_quant == before + 1
+    want_codes, want_scale = quantize_pass_plain(x, inv, gain)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
+@pytest.mark.parametrize("epilogue", epi.EPILOGUES)
+@pytest.mark.parametrize("n", [192, 320, 4096])
+@pytest.mark.parametrize("m", [1, 4, 32, 33, 256, 4096])
+def test_dip_matmul_q_int8_route_plans_match_plain(dev, m, n, epilogue, prologue, dtype):
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    k = 1088
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    qw = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, "int8") for _ in range(2)]
+    s = epi.spec(epilogue)
+    eops = (qw[1].data, qw[1].scale) if s.dual_weight else _operands(epilogue, m, k, n, dtype, dev, g)
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops, prologue_k=k - 7)
+    before = (dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_quant)
+    got = dip_matmul_q(x, qw[0].data, qw[0].scale, *eops, **kw)
+    assert (dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_quant) == tuple(
+        b + 1 for b in before)
+    want = dip_matmul_q_plain(x, qw[0].data, qw[0].scale, *eops, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (m, n)
+    if epilogue == "none":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, dtype)
+
+
+# The wavefront over its plans (kernels/dip_systolic.py::systolic_plan):
+# decode M = 1, 4 and 13 (a 16-row block with warps past M, K split with a
+# ragged last split at N = 4096), prefill M = 17 and 100 (the 32-row block,
+# 17 K tiles through a ring of 2 or 3 stages); N = 192 and 320 are not
+# multiples of the 128- and 256-column blocks.  f32 and bf16 within TOL,
+# int8 exact (int32 partial sums where K is split).
+@pytest.mark.parametrize("dtype,prologue", SYSTOLIC_INPUTS)
+@pytest.mark.parametrize("epilogue", epi.EPILOGUES)
+@pytest.mark.parametrize("n", [192, 320, 4096])
+@pytest.mark.parametrize("m", [1, 4, 13, 17, 100])
+def test_dip_systolic_plans_match_plain(dev, m, n, epilogue, dtype, prologue):
+    from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain
+
+    g = torch.Generator(device=dev).manual_seed(m * 7 + n)
+    k = 1088
+    if dtype == torch.int8:
+        x = torch.randint(-127, 128, (m, k), generator=g, device=dev, dtype=torch.int8)
+        p, pu = (torch.randint(-127, 128, (k, n), generator=g, device=dev, dtype=torch.int8) for _ in range(2))
+        res = torch.randint(-127, 128, (m, n), generator=g, device=dev, dtype=torch.int8)
+    else:
+        x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+        p, pu = ((torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(dtype) for _ in range(2))
+        res = torch.randn(m, n, generator=g, device=dev).to(dtype)
+    s = epi.spec(epilogue)
+    eops = (pu,) if s.dual_weight else (torch.randn(n, generator=g, device=dev),) if s.bias else (
+        (res,) if s.residual else ())
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops, prologue_k=k - 7)
+    before = dip_systolic.launches
+    got = dip_systolic(x, p, *eops, **kw)
+    want = dip_systolic_plain(x, p, *eops, **kw)
+    torch.cuda.synchronize()
+    assert dip_systolic.launches == before + 1 and got.dtype == want.dtype and got.shape == (m, n)
+    if dtype == torch.int8 and epilogue == "none":
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    else:
+        _close(got, want, torch.float32 if dtype == torch.int8 else dtype)

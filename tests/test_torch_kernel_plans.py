@@ -2,10 +2,12 @@
 
 ``kernels/dip_matmul.py::matmul_plan`` shapes the tensor-core DiP matmul
 (regime by M, block tile, K splits, grid) for bf16 weights and for the
-e4m3 weights of ``dip_matmul_q``'s fp8 route (``weight_bytes=1``);
-``kernels/dip_matmul_q.py::q_route`` and ``kernels/flash_attention.py::
-flash_route`` pick a kernel by dtypes and head dims; ``kernels/_build.py::
-check_aligned`` is the alignment check every wrapper runs before a launch.
+one-byte weights of ``dip_matmul_q`` (``weight_bytes=1``: e4m3 and int8);
+``kernels/dip_systolic.py::systolic_plan`` shapes the wavefront kernel on
+the CUDA cores; ``kernels/dip_matmul_q.py::q_route`` and
+``kernels/flash_attention.py::flash_route`` pick a kernel by dtypes and
+head dims; ``kernels/_build.py::check_aligned`` is the alignment check
+every wrapper runs before a launch.
 All are plain Python, so their contracts are held here; the kernels
 themselves are held against their plain versions on the card
 (``tests/test_torch_cuda_kernels.py``, ``-m cuda``).
@@ -18,6 +20,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels.dip_matmul import DECODE_MAX_M, TILE, dip_matmul, matmul_plan
 from repro_torch.kernels.dip_matmul_q import dip_matmul_q, q_route
+from repro_torch.kernels.dip_systolic import SYSTOLIC_DECODE_MAX_M, dip_systolic, systolic_plan
 from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, flash_attention, flash_route
 
 SMS = 132  # an H100 SXM
@@ -31,6 +34,10 @@ LLAMA_PROJECTIONS = [("q", _D, _D, False), ("k/v", _D, _KV, False), ("o", _D, _D
 CARD_CASES = [(m, n, 1088) for m in (1, 4, 16, 100, 257) for n in (192, 320, 4096)]
 # and of their fp8-route cases
 FP8_CARD_CASES = [(m, n, 1088) for m in (1, 4, 32, 33, 257) for n in (192, 320, 4096)]
+# and of the int8 route's (the same plan, weight_bytes=1)
+INT8_CARD_CASES = [(m, n, 1088) for m in (1, 4, 32, 33, 256, 4096) for n in (192, 320, 4096)]
+# and of the wavefront's (systolic_plan)
+SYSTOLIC_CARD_CASES = [(m, n, 1088) for m in (1, 4, 13, 17, 100) for n in (192, 320, 4096)]
 WEIGHT_BYTES = pytest.mark.parametrize("weight_bytes", [2, 1], ids=["bf16", "fp8"])
 
 
@@ -108,19 +115,87 @@ def test_prefill_chunk_plan(label, k, n, dual, weight_bytes):
         assert SMS // 2 < plan.blocks <= 3 * SMS // 2
 
 
-@pytest.mark.parametrize("weight_bytes,cases", [(2, CARD_CASES), (1, FP8_CARD_CASES)], ids=["bf16", "fp8"])
+@pytest.mark.parametrize("weight_bytes,cases", [(2, CARD_CASES), (1, FP8_CARD_CASES), (1, INT8_CARD_CASES)],
+                         ids=["bf16", "fp8", "int8"])
 def test_card_cases_reach_every_path(weight_bytes, cases):
-    """The card tests' bf16 and fp8 cases cover both regimes, a split-K plan
-    with a ragged last split, a block whose K range is longer than the ring
-    of stages (4 or 5), and N not a multiple of the block's N (for fp8 also
-    of the 128-column decode tile)."""
+    """The card tests' bf16, fp8 and int8 cases cover both regimes, a
+    split-K plan with a ragged last split, a block whose K range is longer
+    than the ring of stages (4 or 5), and N not a multiple of the block's N
+    (for one-byte weights also of the 128-column decode tile)."""
     plans = [(matmul_plan(m, n, k, dual, SMS, weight_bytes), m, n, k) for m, n, k in cases for dual in (False, True)]
     assert {p.regime for p, *_ in plans} == {"decode", "prefill"}
     assert any(p.splits > 1 and (k // TILE) % p.k_tiles_per_split for p, m, n, k in plans)
     assert any(p.k_tiles_per_split > (4 if weight_bytes == 2 else 5) for p, *_ in plans)
     assert any(n % p.bn for p, m, n, k in plans)
     assert weight_bytes == 2 or any(n % p.bn for p, m, n, k in plans if p.regime == "decode")
-    assert {m for _, m, _, _ in plans} >= ({1, 4, 16, 100, 257} if weight_bytes == 2 else {1, 4, 32, 33, 257})
+    assert {m for _, m, _, _ in plans} >= ({1, 4, 16, 100, 257} if weight_bytes == 2 else {1, 4, 32, 33, 257}
+                                           if cases is FP8_CARD_CASES else {1, 4, 32, 33, 256, 4096})
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "swiglu"])
+@pytest.mark.parametrize("m", [1, 4, 13, 16, 17, 32, 100, 256, 257, 4096])
+@pytest.mark.parametrize("label,k,n", [(lab, k, n) for lab, k, n, _ in LLAMA_PROJECTIONS]
+                         + [("ragged", 1088, 192), ("ragged", 1088, 320), ("short", 64, 64)])
+def test_systolic_splits_cover_k_once_in_order(label, k, n, m, dual):
+    """The wavefront's splits tile K exactly once, in 64-deep steps, in
+    split order, with no empty split (dip_systolic.cu's own check of the
+    plan included); within a split the kernel walks its tiles in ascending
+    K, so each output's sum runs over K in order."""
+    plan = systolic_plan(m, n, k, SMS, dual)
+    step = plan.k_tiles_per_split * TILE
+    ranges = [(s * step, min(k, (s + 1) * step)) for s in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(e0 == b1 for (_, e0), (b1, _) in zip(ranges, ranges[1:]))
+    assert all(e > b and b % TILE == 0 for b, e in ranges)
+    k_tiles = k // TILE
+    assert plan.splits * plan.k_tiles_per_split >= k_tiles > (plan.splits - 1) * plan.k_tiles_per_split
+
+
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "swiglu"])
+@pytest.mark.parametrize("m", [1, 4, 16, 17, 256, 4096])
+@pytest.mark.parametrize("k,n", [(1088, 192), (4096, 14336), (14336, 4096), (4096, 129024)])
+def test_systolic_plan_tiles_and_grid(k, n, m, dual):
+    """Decode (M <= 16): 16-row blocks of 128 columns a weight; prefill:
+    32-row blocks of 256 columns, 128 a weight for swiglu (a thread's 8 x 8
+    or 8 x 4 registers of each weight)."""
+    plan = systolic_plan(m, n, k, SMS, dual)
+    if m <= SYSTOLIC_DECODE_MAX_M:
+        assert (plan.regime, plan.bm, plan.bn) == ("decode", 16, 128)
+    else:
+        assert (plan.regime, plan.bm, plan.bn) == ("prefill", 32, 128 if dual else 256)
+    assert plan.grid == (_cdiv(n, plan.bn), _cdiv(m, plan.bm), plan.splits)
+    assert plan.blocks == plan.grid[0] * plan.grid[1] * plan.grid[2]
+
+
+@pytest.mark.parametrize("m", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("label,k,n,dual", LLAMA_PROJECTIONS, ids=[p[0] for p in LLAMA_PROJECTIONS])
+def test_systolic_decode_grid_fills_the_card(label, k, n, dual, m):
+    """At the llama3-8b decode shapes the wavefront's K split puts at least
+    2 x SMs blocks on the card (two resident blocks an SM), so that every
+    SM streams weights; the prefill chunk splits only where that cuts the
+    waves of whole-K work by 5% or more, and never below the unsplit
+    plan's."""
+    plan = systolic_plan(m, n, k, SMS, dual)
+    assert plan.regime == "decode" and plan.blocks >= 2 * SMS, f"{label}: {plan.blocks} blocks"
+    chunk = systolic_plan(256, n, k, SMS, dual)
+    tiles, slots = chunk.grid[0] * chunk.grid[1], 2 * SMS
+    assert chunk.regime == "prefill"
+    waves = lambda s: _cdiv(tiles * s, slots) / s  # noqa: E731
+    assert chunk.splits == 1 or waves(chunk.splits) < 0.95 * waves(1)
+    assert all(waves(chunk.splits) <= waves(s) / 0.95 for s in range(1, min(k // TILE, 32) + 1))
+
+
+def test_systolic_card_cases_reach_every_path():
+    """The card tests' wavefront cases cover both regimes, a decode split
+    with a ragged last split, a block longer than its ring (2 or 3 stages),
+    a decode warp whose rows all lie past M, and N not a multiple of the
+    block's N."""
+    plans = [(systolic_plan(m, n, k, SMS, dual), m, n, k) for m, n, k in SYSTOLIC_CARD_CASES for dual in (False, True)]
+    assert {p.regime for p, *_ in plans} == {"decode", "prefill"}
+    assert any(p.splits > 1 and (k // TILE) % p.k_tiles_per_split for p, m, n, k in plans)
+    assert any(p.k_tiles_per_split > 3 for p, *_ in plans)
+    assert any(p.regime == "decode" and m <= 12 for p, m, *_ in plans)
+    assert any(n % p.bn for p, m, n, k in plans)
 
 
 ROUTE_CASES = ([(torch.bfloat16, d, d, "tensor_cores") for d in TC_HEAD_DIMS]
@@ -140,25 +215,29 @@ def test_flash_route(dtype, d, dv, route):
 def test_cpu_calls_launch_nothing():
     """CPU tensors take the plain versions: no launch is counted."""
     counters = lambda: (flash_attention.launches, flash_attention.launches_tc, dip_matmul.launches,  # noqa: E731
-                        dip_matmul_q.launches, dip_matmul_q.launches_tc)
+                        dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_quant,
+                        dip_systolic.launches)
     before = counters()
     q = torch.randn(2, 5, 64, dtype=torch.bfloat16)
     flash_attention(q, q, q)
     dip_matmul(torch.randn(3, 64, dtype=torch.bfloat16), torch.randn(64, 192, dtype=torch.bfloat16))
     dip_matmul_q(torch.randn(3, 64, dtype=torch.bfloat16), torch.randn(64, 64).to(torch.float8_e4m3fn),
                  torch.ones(1, 64))
+    dip_matmul_q(torch.randn(3, 64), torch.ones(64, 64, dtype=torch.int8), torch.ones(1, 64))
+    dip_systolic(torch.randn(3, 64), torch.randn(64, 64))
     assert counters() == before
 
 
 Q_ROUTE_CASES = [(torch.bfloat16, torch.float8_e4m3fn, "tensor_cores"),
                  (torch.float32, torch.float8_e4m3fn, "first_design"),
-                 (torch.bfloat16, torch.int8, "first_design"), (torch.float32, torch.int8, "first_design")]
+                 (torch.bfloat16, torch.int8, "tensor_cores"), (torch.float32, torch.int8, "tensor_cores")]
 
 
 @pytest.mark.parametrize("x_dtype,q_dtype,route", Q_ROUTE_CASES, ids=["fp8-bf16", "fp8-f32", "int8-bf16", "int8-f32"])
 def test_quantized_route(x_dtype, q_dtype, route):
-    """bf16 x with e4m3 weights, the fp8 serving route, runs the tensor-core
-    mainloops; f32 x and the int8 route keep the first design."""
+    """bf16 x with e4m3 weights, the fp8 serving route, and every int8
+    call (the codes do not depend on x's width) run the tensor-core
+    mainloops; only fp8 with f32 x keeps the first design."""
     assert q_route(x_dtype, q_dtype) == route
 
 
