@@ -9,7 +9,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    source, five sources, all started together);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the llama3-8b serving and training paths give it: the DiP matmul (M = 4,
-   256 and the training batch's 4096) and flash attention in float32 and
+   256 and the training batch's 4096; and at M = 4 and 256 the
+   deepseek-v2-lite-16b projections, N = 64 included) and flash attention in float32 and
    bfloat16, the fused lm_head +
    cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
    training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
@@ -31,7 +32,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 3. the reduced llama3-8b served on the card against the same weights served
    on the CPU (plain versions): identical greedy tokens, close logits — the
    float model on ``dip``, then ``dip_int8w`` with the int8 KV pool,
-   ``dip_fp8`` and ``pallas_systolic``;
+   ``dip_fp8`` and ``pallas_systolic``; and the reduced
+   deepseek-v2-lite-16b (MoE + MLA) on ``dip``;
 4. the reduced llama3-8b trained on the card against the CPU (f32, 3
    ``Trainer`` steps): close losses and gradient norms, and a run stopped by
    ``fail_at_step`` that resumes from its checkpoint and repeats the
@@ -53,6 +55,15 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    prompt tokens through ``pallas_systolic`` (the wavefront kernel), its
    logits held against the ``dip`` backend's on the same weights, and both
    backends' last decode step and prefill chunk profiled;
+5d. deepseek-v2-lite-16b at full width (27 layers, MLA, 64 routed experts
+   top-6 and 2 shared) in bf16 through ``launch.serve`` (4 slots, max_seq
+   1024, prefill chunk 256, 4 requests, 16 greedy tokens): one MLA block and
+   one MoE block against their plain versions on the same input (identical
+   routing), 163 DiP launches per forward and no flash launch, 497,664 KV
+   bytes per block, the first prefill chunk's and decode step's logits
+   against the plain versions on the card (the routing choices that differ
+   counted), the dropped (token, slot) pairs of the first chunk, wall
+   medians, peak memory, and one decode step and prefill chunk profiled;
 6. llama3-8b at full width cut to 4 layers trained through
    ``launch.train`` and its ``Trainer`` (f32 parameters, bf16 compute, block
    remat, batch 4 x seq 1024, 4 steps, the launcher's warm-up schedule):
@@ -68,7 +79,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    the plain version's time and one library call's time, the quantized and
    wavefront kernels and the int8 route's quantizing pass included
    (lm_head_ce with the bound of its three bf16 part products on the tensor
-   cores beside the f32 CUDA-core bound; the wavefront with the f32
+   cores beside the f32 CUDA-core bound; the DiP matmul also at the
+   deepseek-v2-lite-16b projections in bf16; the wavefront with the f32
    CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
    of its codes and beside its whole function in library calls).
 
@@ -78,6 +90,7 @@ limit, and as its last line ``{"ok": true, "device": {...}}``.  It imports
 nothing of JAX or of the JAX package.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -192,8 +205,6 @@ def plain_backends(capture=None):
     """A context in which every kernel-backed matmul backend runs its plain
     PyTorch version on the card (a reference run on the same inputs);
     ``capture`` keeps the input of the last lm_head-wide quantized call."""
-    import contextlib
-
     from repro_torch.api import registry
     from repro_torch.kernels.dip_matmul import dip_matmul_plain
     from repro_torch.kernels.dip_matmul_q import dip_matmul_q_plain
@@ -257,6 +268,7 @@ def main():
     from repro_torch.kernels.ref import quantize_acts_int8
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serving import kv_cache as kvc
+    from repro_torch.models import attention, layers, moe
     from repro_torch.models import transformer as tf_model
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.runtime import Request, Server, ServerConfig, Trainer, TrainerConfig
@@ -315,6 +327,22 @@ def main():
     ]
     extra = [("bias", d, d, "bias", "none"), ("bias_gelu", d, d, "bias_gelu", "none"),
              ("bias_silu", d, d, "bias_silu", "none")]
+    # the DeepSeek-V2-Lite path's projections (phase 5d): the MLA ones (N = 64
+    # for the shared RoPE key: half the prefill tile), the shared experts'
+    # gate+up (N = 2816) and down (K = 2816), the lm_head (N = 102400)
+    ds = get_config("deepseek-v2-lite-16b")
+    ds_d, ds_sff = ds.d_model, ds.n_shared_experts * ds.d_ff_expert
+    ds_proj = [
+        ("deepseek wq", ds_d, ds.n_heads * (ds.qk_nope_head_dim + ds.qk_rope_head_dim), "none", "rmsnorm"),
+        ("deepseek w_dkv", ds_d, ds.kv_lora_rank, "none", "rmsnorm"),
+        ("deepseek w_krope", ds_d, ds.qk_rope_head_dim, "none", "rmsnorm"),
+        ("deepseek wo", ds.n_heads * ds.v_head_dim, ds_d, "residual", "none"),
+        ("deepseek shared gate+up", ds_d, ds_sff, "swiglu", "none"),
+        ("deepseek shared down", ds_sff, ds_d, "none", "none"),
+        ("deepseek lm_head", ds_d, ds.padded_vocab, "none", "none"),
+    ]
+    assert [(k, n) for _, k, n, _, _ in ds_proj] == [(2048, 3072), (2048, 512), (2048, 64), (2048, 2048),
+                                                      (2048, 2816), (2816, 2048), (2048, 102400)]
 
     def dip_inputs(m, k, n, epilogue, prologue, dtype):
         x = torch.randn(m, k, generator=g, device=dev).to(dtype)
@@ -335,7 +363,7 @@ def main():
     # training path's batch 4 x seq 1024 through every projection it sends
     # to this kernel (its lm_head goes through lm_head_ce), so tiles past row
     # 256 are held too; M = 4092: a ragged last row tile at that size
-    dip_cases = [(4, proj), (256, proj + extra), (4096, proj[:5]), (4092, proj[2:3])]
+    dip_cases = [(4, proj + ds_proj), (256, proj + extra + ds_proj), (4096, proj[:5]), (4092, proj[2:3])]
     worst = {"dip_matmul": 0.0, "flash_attention": 0.0, "lm_head_ce": 0.0}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -665,7 +693,7 @@ def main():
 
     # ---------------------------------------- 3. reduced model, card vs CPU --
     log("phase 3: reduced llama3-8b served on the card against the CPU: dip (f32), dip_int8w with the "
-        "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32)")
+        "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32); and reduced deepseek-v2-lite-16b (dip, f32)")
     rcfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
                                param_dtype="float32", compute_dtype="float32")
     cpu_params = tf_model.init_params(rcfg, make_generator(SEED, "cpu"), "cpu")
@@ -706,17 +734,22 @@ def main():
         colsum = permute.unpermute_tiled(head.data, head.perm_tile)[:, :c.vocab_size].float().abs().sum(0)
         return lambda want: MODEL_TOL * max(1.0, want.abs().max().item()) + x_scale * colsum * head.scale[0, :c.vocab_size]
 
+    f32_dip = dict(matmul_backend="dip", param_dtype="float32", compute_dtype="float32")
     variants = [
-        ("dip, f32", dict(matmul_backend="dip", param_dtype="float32", compute_dtype="float32"), "f32"),
-        ("dip_int8w, int8 KV, f32", dict(quantization="int8", matmul_backend="dip_int8w", kv_quant="int8",
-                                         param_dtype="float32", compute_dtype="float32"), "int8"),
-        ("dip_fp8, bf16", dict(quantization="fp8_e4m3", matmul_backend="dip_fp8",
-                               param_dtype="bfloat16", compute_dtype="bfloat16"), "bf16"),
-        ("pallas_systolic, f32", dict(matmul_backend="pallas_systolic", param_dtype="float32",
-                                      compute_dtype="float32"), "f32"),
+        ("dip, f32", "llama3-8b", f32_dip, "f32"),
+        ("dip_int8w, int8 KV, f32", "llama3-8b", dict(quantization="int8", matmul_backend="dip_int8w",
+                                                      kv_quant="int8", param_dtype="float32",
+                                                      compute_dtype="float32"), "int8"),
+        ("dip_fp8, bf16", "llama3-8b", dict(quantization="fp8_e4m3", matmul_backend="dip_fp8",
+                                            param_dtype="bfloat16", compute_dtype="bfloat16"), "bf16"),
+        ("pallas_systolic, f32", "llama3-8b", dict(matmul_backend="pallas_systolic", param_dtype="float32",
+                                                   compute_dtype="float32"), "f32"),
+        # phase 5d's gate 3: the MoE + MLA model, reduced (its w_krope 16
+        # columns wide, padded to one 64-wide tile)
+        ("deepseek-v2-lite-16b reduced, dip, f32", "deepseek-v2-lite-16b", f32_dip, "f32"),
     ]
-    for label, fields, kind in variants:
-        vcfg = dataclasses.replace(get_config("llama3-8b").reduced(), **fields)
+    for label, arch_name, fields, kind in variants:
+        vcfg = dataclasses.replace(get_config(arch_name).reduced(), **fields)
         vparams = cpu_params if vcfg == rcfg else tf_model.init_params(vcfg, make_generator(SEED, "cpu"), "cpu")
         bound = (int8_envelope(vparams, vcfg) if kind == "int8" else
                  (lambda want: BF16_MODEL_TOL * max(1.0, want.abs().max().item())) if kind == "bf16" else
@@ -879,8 +912,9 @@ def main():
 
     def profile_step(fn, args, what):
         """One call of an engine step under the profiler: device ms by
-        kernel, launches, and the summed device time against the wall time
-        of the synchronised call."""
+        kernel, launches, the summed device time against the wall time of
+        the synchronised call, and the host-side operators by their own CPU
+        time (where an idle card's time goes)."""
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof, torch.no_grad():
             torch.cuda.synchronize()
@@ -899,8 +933,14 @@ def main():
             f"device idle {100 * max(0.0, 1 - device_ms / wall_ms):.1f}% of it")
         for key, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
             log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
-        return {"device_ms": device_ms, "wall_ms": wall_ms,
-                "launches": sum(v[0] for v in by_kernel.values())}
+        host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
+                       if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
+        host_ms = sum(h[0] for h in host)
+        log(f"  {what}: host ms of all operators (self time, profiler on) {host_ms:.2f}; the largest:")
+        for ms, count, key in host[:8]:
+            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+        return {"device_ms": device_ms, "wall_ms": wall_ms, "launches": sum(v[0] for v in by_kernel.values()),
+                "host_ms": host_ms}
 
     # the bf16 steps on their last inputs: what the kernels leave of a step
     serving["profile_decode"] = profile_step(last_args["_decode_fn"], last_args["_decode"], "decode step")
@@ -1160,6 +1200,172 @@ def main():
     del params, sys_runs, seen_s, seen_d
     torch.cuda.empty_cache()
 
+    # ------------------------ 5d. DeepSeek-V2-Lite-16B at full width -------
+    log("phase 5d: deepseek-v2-lite-16b full width (27 layers, d_model 2048, MLA with kv_lora_rank 512, "
+        "64 routed experts top-6 + 2 shared), bf16, dip storage, through launch.serve")
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    log(f"  allocated before the phase: {left:.2f} GiB")
+    if left > 4:
+        raise AssertionError("phase 5d: the llama3-8b phases left weights or pools on the card")
+    ds_argv = ["--arch", "deepseek-v2-lite-16b", "--full", "--dtype", "bfloat16", "--requests", "4",
+               "--max-new", "16", "--slots", "4", "--max-seq", "1024", "--prefill-chunk", "256",
+               "--seed", str(SEED), "--prompt-len", "200", "601", "--temperature", "0"]
+    dst = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "last": {}, "orig": {}}
+
+    def ds_hook(server, reqs):
+        """Gate 1 (one MLA block and one MoE block, kernels against plain
+        on the same input), then every count to 0; the engine's two steps
+        timed, and on the first call of each the routing kept and the same
+        step run on a copy of its inputs through the plain versions."""
+        eng, c = server.engine, server.engine.cfg
+        torch.cuda.synchronize()
+        dst.update(server=server, reqs=reqs, allocated_after_init_gib=torch.cuda.memory_allocated() / 2**30,
+                   init_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        lp = tf_model._layers(server.params["layers"], c.n_layers)[0]
+        pos = torch.arange(256, device=dev)
+        x = server.params["embed"][torch.as_tensor(reqs[0].prompt[:256], device=dev)][None].to(getattr(torch, c.compute_dtype))
+        rope = layers.rope_tables(pos, c.qk_rope_head_dim, c.rope_theta)
+        blocks = {}
+        for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_backends)):
+            cache = tf_model.init_cache(c, 1, 1024, device=dev)
+            lcache = dict({nm: t[0] for nm, t in cache["layers"].items()}, pos=0)
+            with ctx(), torch.no_grad():
+                a, _ = attention.mla_attention(x, lp, c, positions=pos, cache=lcache, rope=rope, residual=x,
+                                               norm=lp["attn_norm"])
+                h = blocks["kernels"][0] if label == "plain" else a  # the MoE block on one input
+                f, _, dropped, ids = moe.moe_ffn(layers.rms_norm(h, lp["ffn_norm"], c.norm_eps), lp, c,
+                                                 return_routing=True)
+            blocks[label] = (a, h + f, ids, int(dropped))
+            del cache, lcache
+        (a_k, m_k, ids_k, drop_k), (a_p, m_p, ids_p, drop_p) = blocks["kernels"], blocks["plain"]
+        close("MLA block (absorbed form, 256 tokens) kernels vs plain", a_k, a_p, TOL["bfloat16"])
+        close("MoE block (routed + shared experts, 256 tokens) kernels vs plain", m_k, m_p, TOL["bfloat16"])
+        if not torch.equal(ids_k, ids_p) or drop_k != drop_p:
+            raise AssertionError("phase 5d: the MoE block routed differently on the same input")
+        log(f"  MoE block: routing ids identical ({ids_k.numel()} choices), {drop_k} (token, slot) pairs dropped "
+            f"at capacity {moe.moe_capacity(256, c)}")
+        del blocks, a_k, m_k, a_p, m_p, x
+        plain_steps = {"_prefill_fwd": tf_model.decode_step_fn(c, attn_backend="flash"),
+                       "_decode": tf_model.paged_decode_step_fn(c)}
+        for attr in ("_prefill_fwd", "_decode"):
+            dst["orig"][attr] = getattr(eng, attr)
+
+            def run(*a, _f=getattr(eng, attr), _attr=attr):
+                dst["last"][_attr] = a  # the last step's inputs, profiled after the run
+                first = _attr not in dst["checked"]
+                stats = {} if first else None
+                inputs = clone_tree(a[1]) if first else None
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _f(*a, moe_trace=stats)
+                torch.cuda.synchronize()
+                dst["times"][_attr].append(time.perf_counter() - t)
+                if not bool(torch.isfinite(out[0][..., :c.vocab_size]).all()):
+                    raise AssertionError(f"deepseek full width: non-finite logits from {_attr}")
+                if first:
+                    # the plain step twice on copies of the inputs: routing
+                    # freely, and replaying this run's expert choices
+                    free, replay = {}, {"replay_ids": stats["ids"]}
+                    with plain_backends(), torch.no_grad():
+                        want_free = plain_steps[_attr](a[0], clone_tree(inputs), *a[2:], moe_trace=free)[0]
+                        want = plain_steps[_attr](a[0], inputs, *a[2:], moe_trace=replay)[0]
+                    dst["checked"][_attr] = (out[0][..., :c.vocab_size].float(), want[..., :c.vocab_size].float(),
+                                             want_free[..., :c.vocab_size].float(), stats, free, replay)
+                    del inputs, want, want_free
+                return out
+            setattr(eng, attr, run)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = serve_cli.main(ds_argv, on_server=ds_hook)
+    wall = time.perf_counter() - t0
+    launches_ds, routes_ds = read_counts(), flash_routes()
+    peak = torch.cuda.max_memory_allocated()
+    server, reqs, times = dst["server"], dst["reqs"], dst["times"]
+    dcfg = server.engine.cfg
+    assert (dcfg.n_layers, dcfg.d_model, dcfg.vocab_size, dcfg.n_experts, dcfg.moe_top_k, dcfg.kv_lora_rank) == (
+        27, 2048, 102400, 64, 6, 512)
+    n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
+    n_params = sum(t.numel() for t in tree.leaves(server.params))
+    log(f"  {n_params} parameters ({dst['allocated_after_init_gib']:.2f} GiB allocated after init, init peak "
+        f"{dst['init_peak_gib']:.2f} GiB); prompts {[len(r.prompt) for r in reqs]}, {n_prefill} prefill chunks, "
+        f"{n_decode} decode steps, wall {wall:.2f} s")
+    if sorted(results) != [0, 1, 2, 3] or any(not v for v in results.values()):
+        raise AssertionError("deepseek full width: not every request was served")
+    st = server.last_stats
+    if (n_prefill, n_decode) != (st["prefill_chunks"], st["decode_steps"]):
+        raise AssertionError("deepseek full width: step counts disagree with the engine's stats")
+    # per forward: wq, w_dkv, w_krope (rmsnorm prologue), wo (residual) and the
+    # shared experts' gate+up and down in each of 27 layers, and the lm_head;
+    # the routed experts are einsums, MLA's attention is latent-space torch
+    want = {"dip_matmul": 163 * (n_prefill + n_decode), "dip_matmul_q": 0, "dip_systolic": 0,
+            "flash_attention": 0, "lm_head_ce": 0}
+    per_forward = launches_ds["dip_matmul"] / (n_prefill + n_decode)
+    log(f"  launches {launches_ds}; expected {want}: {per_forward:g} dip_matmul launches per forward (163 = 6 x 27 + 1)")
+    if launches_ds != want:
+        raise AssertionError("deepseek full width: launch counts differ from 163 DiP launches per forward")
+    kv_bytes = kvc.bytes_per_block(dcfg)
+    pool_bytes = sum(t.numel() * t.element_size() for t in server.engine.kv.pools["layers"].values())
+    log(f"  KV bytes per 16-token block {kv_bytes} (the pool: {pool_bytes} bytes in {server.engine.kv.num_blocks} "
+        f"blocks); peak memory while serving {peak / 2**30:.2f} GiB")
+    if kv_bytes != 497_664 or pool_bytes != kv_bytes * server.engine.kv.num_blocks:
+        raise AssertionError("deepseek full width: the latent pool does not cost 497,664 bytes per block")
+    # gate 2: the first prefill chunk's and decode step's logits against the
+    # plain versions on the card, on the same inputs.  A bf16 difference
+    # upstream can flip a near tie in a token's top-6, and at capacity a
+    # flipped choice also changes which of its expert's tokens are dropped,
+    # which moves logits by far more than any rounding (measured: up to 0.86
+    # at max|plain| 4.78 with 1711 of 41472 choices flipped, H100 80GB HBM3,
+    # 700 W); so the routing choices that differ from a freely routing plain
+    # run are counted and printed, and the bound FULL_TOL holds the plain
+    # run that replays this run's choices: every other difference is the
+    # kernels' arithmetic over 27 bf16 layers
+    ds_checked = {}
+    for attr, (got, want_l, free_l, stats, free, replay) in dst["checked"].items():
+        if not all(torch.equal(ik, ir) for ik, ir in zip(stats["ids"], replay["ids"])):
+            raise AssertionError("deepseek full width: the replayed plain run did not route as the kernels' run")
+        err, err_free = (got - want_l).abs(), (got - free_l).abs().max().item()
+        scale = max(1.0, want_l.abs().max().item())
+        within = float((err <= TOL["bfloat16"] * scale).float().mean())
+        flips = sum(int((~(ik[..., :, None] == ip[..., None, :]).any(-1)).sum())
+                    for ik, ip in zip(stats["ids"], free["ids"]))
+        choices = sum(ik.numel() for ik in stats["ids"])
+        dropped = [int(v) for v in stats["dropped"]]
+        log(f"  {attr} first call, kernels against plain on the card: routing freely, logits max|err| "
+            f"{err_free:.3e}, {flips} of {choices} top-6 choices differ, dropped (token, slot) pairs over the 27 "
+            f"layers {sum(dropped)} (plain {sum(int(v) for v in free['dropped'])}); replaying the kernels' choices, "
+            f"logits max|err| {err.max().item():.3e} (max|plain| {scale:.3g}, bound {FULL_TOL:g} x scale), "
+            f"{100 * within:.4f}% within {TOL['bfloat16']:g} x scale")
+        if not bool((err <= FULL_TOL * scale).all()):
+            raise AssertionError(f"deepseek full width: {attr} logits outside the stated bound")
+        ds_checked[attr] = {"max_err_replayed_routing": err.max().item(), "max_err_free_routing": err_free,
+                            "max_plain": scale, "routing_choices_differing": flips, "routing_choices": choices,
+                            "dropped": sum(dropped)}
+    if set(ds_checked) != {"_prefill_fwd", "_decode"}:
+        raise AssertionError("deepseek full width: a step was never checked against plain")
+    prompt_tokens, generated = sum(len(r.prompt) for r in reqs), sum(len(v) for v in results.values())
+    ds_serving = {
+        "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
+        "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
+        "prefill_tok_per_s": prompt_tokens / sum(times["_prefill_fwd"]),
+        "decode_tok_per_s": (generated - len(reqs)) / sum(times["_decode"]),
+        "peak_memory_gib": peak / 2**30, "kv_bytes_per_block": kv_bytes, "parameters": n_params,
+        "first_prefill_chunk_dropped": ds_checked["_prefill_fwd"]["dropped"], "checked": ds_checked,
+        "wall_s": wall, "prefill_chunks": n_prefill, "decode_steps": n_decode,
+    }
+    log(f"  results: { {k: v[:6] for k, v in results.items()} }")
+    ds_serving["profile_decode"] = profile_step(dst["orig"]["_decode"], dst["last"]["_decode"], "decode step")
+    ds_serving["profile_prefill"] = profile_step(dst["orig"]["_prefill_fwd"], dst["last"]["_prefill_fwd"],
+                                                 "prefill chunk")
+    log("  serving " + json.dumps(ds_serving))
+    dst.clear()
+    del server, reqs, results
+    torch.cuda.empty_cache()
+
     # ------------------------------------------- 6. full-width training -----
     log("phase 6: llama3-8b full width cut to 4 layers (f32 params, bf16 compute, dip, block remat) "
         "through launch.train")
@@ -1311,7 +1517,7 @@ def main():
         dtype = getattr(torch, dt_name)
         isz = torch.finfo(dtype).bits // 8
         for m in (4, 256):
-            for label, k, n, e, pr in proj:
+            for label, k, n, e, pr in (proj + ds_proj if dt_name == "bfloat16" else proj):
                 x, p, eops, kw = dip_inputs(m, k, n, e, pr, dtype)
                 s = epi.spec(e)
                 nw = 2 if s.dual_weight else 1
@@ -1586,7 +1792,8 @@ def main():
                                 "src/repro/kernels/dip_systolic.py:82")}
     # each kernel's launches on each main path, counted from 0 around it
     paths = {"serve": serve_launches, "train": train_launches, "serve_int8": qserve["int8"]["launches"],
-             "serve_fp8": qserve["fp8_e4m3"]["launches"], "serve_systolic": launches_s}
+             "serve_fp8": qserve["fp8_e4m3"]["launches"], "serve_systolic": launches_s,
+             "serve_deepseek": launches_ds}
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
     counter_of = {"dip_matmul_q_int8": "dip_matmul_q", "dip_matmul_q_fp8": "dip_matmul_q"}
     path_of = {"dip_matmul_q_int8": ("serve_int8",), "dip_matmul_q_fp8": ("serve_fp8",), "quantize_pass": ("serve_int8",)}

@@ -1,7 +1,9 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
-Only ``llama3-8b`` is ported; the other nine configurations come with their
-families (ROADMAP.md Queue 1 "Other model families").
+The dense ``llama3-8b`` and the two MoE configurations (``deepseek-v2-lite-16b``
+with multi-head latent attention, ``qwen3-moe-235b-a22b`` with GQA) are
+ported; the other seven come with their families (ROADMAP.md Queue 1 "Other
+model families").
 """
 
 from __future__ import annotations
@@ -11,9 +13,13 @@ from typing import Dict, List
 
 from repro_torch.configs.base import ArchConfig
 
-ALL_ARCHS: List[str] = ["llama3_8b"]
+ALL_ARCHS: List[str] = ["deepseek_v2_lite_16b", "qwen3_moe_235b_a22b", "llama3_8b"]
 
-_ALIASES: Dict[str, str] = {"llama3-8b": "llama3_8b"}
+_ALIASES: Dict[str, str] = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "llama3-8b": "llama3_8b",
+}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -12,6 +12,11 @@ and serves through the matching quantized kernel (``dip_int8w`` /
 with f32 scales.  ``--device cpu`` runs the plain PyTorch versions instead::
 
     python -m repro_torch.launch.serve --arch llama3-8b --full --quantize int8 --kv-quant int8
+
+The MoE configurations serve the same way, in bf16 (their quantized
+serving comes with ROADMAP.md Queue 1 "Quantization")::
+
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full
 """
 
 from __future__ import annotations
@@ -63,6 +68,9 @@ def main(argv=None, on_server=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    if (cfg.is_moe or cfg.use_mla) and (args.quantize or args.kv_quant not in (None, "none")):
+        raise NotImplementedError(f"{cfg.name}: --quantize / --kv-quant on the MoE and MLA families are not "
+                                  'ported yet (ROADMAP.md Queue 1 "Quantization")')
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, matmul_backend="dip", param_dtype=args.dtype,

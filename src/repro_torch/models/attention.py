@@ -1,5 +1,6 @@
 """GQA attention with a dense KV cache, flash-routed chunked prefill, and
-paged decode (port of the dense-family parts of ``repro/models/attention.py``).
+paged decode; DeepSeek-style multi-head latent attention (MLA) with its
+latent caches (port of ``repro/models/attention.py``).
 
 ``attention_core`` keeps the reference's GQA broadcast (KV heads expanded to
 the query heads) and its three routes: the dense f32 path (the training
@@ -9,8 +10,15 @@ against the dense one), and the ``api.attention`` route
 forward-only.  The paged functions are plain torch, as they are plain
 ``jnp`` in the reference; they update the block pool in place.  An int8
 pool (``kv_quant="int8"``) stores each (token, head) row as int8 codes plus
-one f32 scale (``api.quant.quantize_rows``) and dequantizes on read.  MLA
-pools come with their family (ROADMAP.md Queue 1 "Other model families").
+one f32 scale (``api.quant.quantize_rows``) and dequantizes on read.
+
+MLA caches the compressed latent ``c_kv`` (``kv_lora_rank`` wide) and the
+single shared RoPE key ``k_rope`` per token, with no head axis: without a
+cache it computes the naive form (per-head K and V expanded from the
+latent, through ``attention_core``), with one the absorbed form (scores
+against the latent itself, ``W_uk`` absorbed into q, ``W_uv`` applied after
+the weighted sum).  Its int8 latent pools come with ROADMAP.md Queue 1
+"Quantization".
 """
 
 from __future__ import annotations
@@ -25,14 +33,29 @@ from repro_torch.models import layers
 __all__ = [
     "attention_core",
     "gqa_attention",
+    "mla_attention",
     "init_gqa_cache",
+    "init_mla_cache",
     "init_paged_gqa_cache",
+    "init_paged_mla_cache",
     "paged_write",
     "paged_read",
     "paged_gqa_attention",
+    "paged_mla_attention",
 ]
 
 NEG_INF = -1e30
+_QUANT = 'ROADMAP.md Queue 1 "Quantization"'
+
+
+def _natural(w):
+    """Natural-layout view of a weight (de-shears a ``DipWeight``): MLA's
+    absorbed form contracts ``w_uk`` / ``w_uv`` per head, so the permutated
+    storage cannot be consumed directly.  De-sheared on every call, as the
+    reference does."""
+    if isinstance(w, (api.DipWeight, api.QuantizedDipWeight)):
+        return w.to_natural()
+    return w
 
 
 def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
@@ -267,3 +290,118 @@ def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tenso
     if kv_quant != "none":
         new_cache.update(k_scale=cks, v_scale=cvs)
     return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), new_cache
+
+
+# --------------------------------------------------------------------- MLA --
+def init_mla_cache(batch: int, max_seq: int, cfg, dtype, device) -> Dict:
+    return {
+        "c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim), dtype=dtype, device=device),
+        "pos": 0,
+    }
+
+
+def _mla_projections(x, p, cfg, nk, rope, pos):
+    """q split into its no-RoPE and RoPE parts (RoPE applied), the latent
+    c_kv and the shared RoPE key, and the natural w_uk / w_uv per head."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    q = layers.linear(x, p["wq"], **nk).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], layers.apply_rope(q[..., dn:], pos, cfg.rope_theta, tables=rope)
+    c_kv = layers.linear(x, p["w_dkv"], **nk)                                  # (B, S, r)
+    k_rope = layers.linear(x, p["w_krope"], **nk)                              # (B, S, dr) shared
+    k_rope = layers.apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta, tables=rope)[:, :, 0, :]
+    w_uk = _natural(p["w_uk"]).to(x.dtype).reshape(r, h, dn)
+    w_uv = _natural(p["w_uv"]).to(x.dtype).reshape(r, h, dv)
+    return q_nope, q_rope, c_kv, k_rope, w_uk, w_uv
+
+
+def _absorbed(q_nope, q_rope, cc, cr, w_uk, w_uv, live, cfg):
+    """Scores against the latent cache itself (q_nope @ W_uk . c_kv +
+    q_rope . k_rope), f32 softmax over the live positions, then
+    (probs @ c_kv) @ W_uv.  ``live``: (B or 1, S, T) bool."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)                      # (B, S, H, r)
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat.float(), cc.float())
+    s_rope = torch.einsum("bshd,btd->bhst", q_rope.float(), cr.float())
+    scores = (s_lat + s_rope) * (dn + dr) ** -0.5
+    scores = torch.where(live[:, None], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhst,btr->bshr", probs.to(cc.dtype), cc)         # (B, S, H, r)
+    return torch.einsum("bshr,rhd->bshd", out_lat, w_uv)
+
+
+def mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
+                  cache: Optional[Dict] = None, rope=None, residual: Optional[torch.Tensor] = None,
+                  norm: Optional[torch.Tensor] = None, kv_chunk: int = 0,
+                  attn_backend: Optional[str] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """DeepSeek-V2 multi-head latent attention.
+
+    Params: wq (d, H*(nope+rope)); w_dkv (d, kv_lora); w_krope (d, rope);
+    w_uk (kv_lora, H*nope); w_uv (kv_lora, H*v_dim); wo (H*v_dim, d).
+    Without a cache the naive form materializes per-head K and V and runs
+    ``attention_core`` (``attn_backend``, ``kv_chunk``); with one
+    (``init_mla_cache``, written in place at ``cache["pos"]``) the absorbed
+    form attends in latent space and ignores ``attn_backend``, as the
+    reference does.  ``residual`` / ``norm`` as in ``gqa_attention``."""
+    b, s, _ = x.shape
+    h, dr, dv = cfg.n_heads, cfg.qk_rope_head_dim, cfg.v_head_dim
+    lk, nk = _proj_kwargs(cfg, x, norm)
+    q_nope, q_rope, c_kv, k_rope, w_uk, w_uv = _mla_projections(x, p, cfg, nk, rope, positions)
+
+    if cache is None:
+        k_nope = torch.einsum("bsr,rhd->bshd", c_kv, w_uk)
+        v = torch.einsum("bsr,rhd->bshd", c_kv, w_uv)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], -1)
+        qc = torch.cat([q_nope, q_rope], -1)
+        out = attention_core(qc, k, v, positions, positions, kv_chunk=kv_chunk, backend=attn_backend)
+        new_cache = None
+    else:
+        pos = cache["pos"]
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        cc[:, pos:pos + s] = c_kv
+        cr[:, pos:pos + s] = k_rope
+        k_pos = torch.arange(cc.shape[1], device=x.device)
+        live = (positions[:, None] >= k_pos[None, :]) & (k_pos < pos + s)[None, :]
+        out = _absorbed(q_nope, q_rope, cc, cr, w_uk, w_uv, live[None], cfg)
+        new_cache = {"c_kv": cc, "k_rope": cr, "pos": pos + s}
+    return _out_proj(out.reshape(b, s, h * dv), p, lk, residual), new_cache
+
+
+def init_paged_mla_cache(num_blocks: int, block_size: int, cfg, dtype, kv_quant: str = "none", *,
+                         device) -> Dict:
+    """MLA block pool: the latent c_kv (num_blocks, block_size, kv_lora_rank)
+    and the shared k_rope (num_blocks, block_size, rope), paged like K/V."""
+    if kv_quant != "none":
+        raise NotImplementedError(f"int8 MLA latent pools are not ported yet ({_QUANT})")
+    return {"c_kv": torch.zeros((num_blocks, block_size, cfg.kv_lora_rank), dtype=dtype, device=device),
+            "k_rope": torch.zeros((num_blocks, block_size, cfg.qk_rope_head_dim), dtype=dtype, device=device)}
+
+
+def paged_mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor, cache: Dict,
+                        block_tables: torch.Tensor, kv_quant: str = "none", rope=None,
+                        residual: Optional[torch.Tensor] = None,
+                        norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed-form MLA decode against the paged latent pool: x (B, 1, d),
+    one token per slot at ``positions`` (B,); this token's c_kv and k_rope
+    rows are written in place, the slot's context gathered, and positions
+    <= its own attended."""
+    if kv_quant != "none":
+        raise NotImplementedError(f"int8 MLA latent pools are not ported yet ({_QUANT})")
+    b, s, _ = x.shape
+    h, dv = cfg.n_heads, cfg.v_head_dim
+    bs = cache["c_kv"].shape[1]
+    lk, nk = _proj_kwargs(cfg, x, norm)
+    q_nope, q_rope, c_kv, k_rope, w_uk, w_uv = _mla_projections(x, p, cfg, nk, rope, positions[:, None])
+
+    rows = torch.arange(b, device=x.device)
+    phys = block_tables[rows, positions // bs] * bs + positions % bs
+    cc = paged_write(cache["c_kv"], phys, c_kv[:, 0])
+    cr = paged_write(cache["k_rope"], phys, k_rope[:, 0])
+    idx = _gather_indices(block_tables, bs)
+    cc_all = paged_read(cc, idx, dtype=x.dtype)                                # (B, Smax, r)
+    cr_all = paged_read(cr, idx, dtype=x.dtype)                                # (B, Smax, dr)
+    live = torch.arange(cc_all.shape[1], device=x.device)[None, :] <= positions[:, None]
+    out = _absorbed(q_nope, q_rope, cc_all, cr_all, w_uk, w_uv, live[:, None, :], cfg)
+    return _out_proj(out.reshape(b, s, h * dv), p, lk, residual), {"c_kv": cc, "k_rope": cr}

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch import api
 
-__all__ = ["linear", "rms_norm", "rope_frequencies", "rope_tables", "apply_rope",
+__all__ = ["linear", "rms_norm", "swiglu", "rope_frequencies", "rope_tables", "apply_rope",
            "cross_entropy_loss"]
 
 _BIAS_EPILOGUES = ("bias", "bias_gelu", "bias_silu")
@@ -57,6 +57,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+
+
+def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.silu(gate) * up
 
 
 def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""The dense decoder: parameters, forward, caches, the serving steps and the
-training objective (port of the dense-family parts of
+"""The decoder: parameters, forward, caches, the serving steps and the
+training objective (port of the transformer-family parts of
 ``repro/models/transformer.py``).
 
 Parameters are a nested dict with layer-stacked leaves (leading axis =
@@ -9,10 +9,14 @@ place of ``jax.lax.scan``, and ``cfg.remat == "block"`` wraps each block in
 Linear weights are ``api.DipWeight`` storage when the configured backend
 consumes the DiP layout, and ``api.QuantizedDipWeight`` storage (the lm_head
 included) under ``cfg.quantization``; ``cfg.kv_quant`` selects the int8
-paged KV pool.  ``loss_fn`` takes the fused lm_head + cross-entropy kernel
-(``kernels/lm_head_ce.py``) unless told otherwise, and ``train_step_fn``
-applies one AdamW step in place.  The MoE, MLA, SSM and hybrid families,
-tied embeddings, sharding plans and the reliability guard come with their
+paged KV pool.  A block's attention is GQA or, under ``cfg.use_mla``,
+multi-head latent attention with its latent caches; its FFN is the dense
+SwiGLU MLP or, for the ``moe`` family, the routed experts plus the shared
+ones (``models/moe.py``).  ``loss_fn`` takes the fused lm_head +
+cross-entropy kernel (``kernels/lm_head_ce.py``) unless told otherwise, and
+``train_step_fn`` applies one AdamW step in place.  Training the MoE and
+MLA families, their quantized serving, the SSM and hybrid families, tied
+embeddings, sharding plans and the reliability guard come with their
 ROADMAP.md items and raise ``NotImplementedError`` here.
 """
 
@@ -45,19 +49,34 @@ __all__ = [
 
 _FAMILIES = 'ROADMAP.md Queue 1 "Other model families"'
 _DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
+_QUANT = 'ROADMAP.md Queue 1 "Quantization"'
 
 
-def _require_dense(cfg) -> None:
-    """Raise for every configuration this slice does not serve."""
+def _require_served(cfg, kv_quant: Optional[str] = None) -> None:
+    """Raise for every configuration the port does not serve: it serves the
+    dense and MoE families, with GQA or MLA attention; quantized weights or
+    an int8 KV pool (``kv_quant``, default ``cfg.kv_quant``) only for the
+    dense family with GQA."""
     missing = []
-    if cfg.is_moe or cfg.use_mla or cfg.ssm_state or cfg.attn_every or cfg.family not in ("dense",):
+    if cfg.ssm_state or cfg.attn_every or cfg.family not in ("dense", "moe"):
         missing.append(f"the {cfg.family} family ({_FAMILIES})")
     if cfg.tie_embeddings or cfg.frontend != "none":
         missing.append(f"tied embeddings / stub frontends ({_FAMILIES})")
     if cfg.sharding != "gspmd":
         missing.append(f"sharding plans ({_DISTRIBUTED})")
+    kvq = cfg.kv_quant if kv_quant is None else kv_quant
+    if (cfg.is_moe or cfg.use_mla) and (cfg.quantization != "none" or kvq != "none"):
+        missing.append(f"quantized weights or KV pools for MoE / MLA ({_QUANT})")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
+
+
+def _require_trainable(cfg) -> None:
+    """Training is ported for the dense family with GQA only."""
+    _require_served(cfg)
+    if cfg.is_moe or cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name}: training the MoE and MLA families (router aux loss, "
+                                  f"gradients through the routing) is not ported yet ({_FAMILIES})")
 
 
 def _no_plan(plan, constrain) -> None:
@@ -76,8 +95,10 @@ def _lin(cfg, d_in, d_out):
 
 def param_template(cfg) -> Dict[str, Any]:
     """Nested dict: leaf = (shape, dtype_str, fan_in, dip_meta); layer
-    stacked; ``shape`` is the storage shape (padded for DiP)."""
-    _require_dense(cfg)
+    stacked; ``shape`` is the storage shape (padded for DiP).  The MoE
+    router and expert banks are plain tensors, as in the reference; the MLA
+    projections and the shared experts are linears like the others."""
+    _require_served(cfg)
     d, v, L, pdt = cfg.d_model, cfg.padded_vocab, cfg.n_layers, cfg.param_dtype
     hd = cfg.resolved_head_dim
     shape, fan, dip = _lin(cfg, d, v)
@@ -90,13 +111,28 @@ def param_template(cfg) -> Dict[str, Any]:
         "attn_norm": ((L, d), pdt, None, None),
         "ffn_norm": ((L, d), pdt, None, None),
     }
-    for nm, (di, do) in dict(
-        wq=(d, cfg.n_heads * hd), wk=(d, cfg.n_kv_heads * hd), wv=(d, cfg.n_kv_heads * hd),
-        wo=(cfg.n_heads * hd, d), w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d),
-    ).items():
+    if cfg.use_mla:
+        dn, dr, dvh, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+        lins = dict(wq=(d, cfg.n_heads * (dn + dr)), w_dkv=(d, r), w_krope=(d, dr),
+                    w_uk=(r, cfg.n_heads * dn), w_uv=(r, cfg.n_heads * dvh), wo=(cfg.n_heads * dvh, d))
+    else:
+        lins = dict(wq=(d, cfg.n_heads * hd), wk=(d, cfg.n_kv_heads * hd), wv=(d, cfg.n_kv_heads * hd),
+                    wo=(cfg.n_heads * hd, d))
+    if cfg.is_moe:
+        e, ffe = cfg.n_experts, cfg.d_ff_expert
+        blk["router"] = ((L, d, e), pdt, d, None)
+        blk["w_gate"] = ((L, e, d, ffe), pdt, d, None)
+        blk["w_up"] = ((L, e, d, ffe), pdt, d, None)
+        blk["w_down"] = ((L, e, ffe, d), pdt, ffe, None)
+        if cfg.n_shared_experts:
+            sff = cfg.n_shared_experts * ffe
+            lins.update(shared_w_gate=(d, sff), shared_w_up=(d, sff), shared_w_down=(sff, d))
+    else:
+        lins.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d))
+    for nm, (di, do) in lins.items():
         shape, fan, dip = _lin(cfg, di, do)
         blk[nm] = ((L,) + tuple(shape), pdt, fan, dip)
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cfg.use_mla:
         for nm, width in (("bq", cfg.n_heads * hd), ("bk", cfg.n_kv_heads * hd),
                           ("bv", cfg.n_kv_heads * hd)):
             blk[nm] = ((L, width), pdt, None, None)
@@ -122,7 +158,9 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
     weights are drawn in natural layout one matrix at a time and permutated
     on the device (the offline step of paper Fig. 3); under
     ``cfg.quantization`` each matrix is quantized as it is drawn, so no
-    float copy of the whole model is ever held."""
+    float copy of the whole model is ever held.  Plain layer-stacked leaves
+    (the MoE router and expert banks) are drawn one layer at a time, so the
+    f32 draw never holds more than one layer's bank."""
     dev = resolve_device(device)
     scheme = cfg.quant_scheme
     if generator.device.type != dev.type:
@@ -139,6 +177,11 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
             init = torch.zeros if name in ("bq", "bk", "bv") else torch.ones
             return init(shape, dtype=dt, device=dev)
         scale = (1.0 / max(1, fan)) ** 0.5
+        if dip is None and len(shape) > 2:
+            data = torch.empty(shape, dtype=dt, device=dev)
+            for layer in data:
+                layer.copy_(normal(tuple(shape[1:]), scale, dt))
+            return data
         if dip is None:
             return normal(shape, scale, dt)
         d_in, d_out, perm_tile = dip
@@ -183,17 +226,44 @@ def _fuses_rmsnorm(cfg) -> bool:
     return "rmsnorm" in api.get_backend(cfg.matmul_backend).prologues
 
 
-def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_backend=None):
+def _rope_dim(cfg) -> int:
+    """RoPE width: MLA rotates only its ``qk_rope_head_dim`` channels."""
+    return cfg.qk_rope_head_dim if cfg.use_mla else cfg.resolved_head_dim
+
+
+def _ffn(x, lp, cfg, fuse, moe_trace):
+    """The block's FFN with its skip connection.  The MoE layer keeps the
+    explicit ``ffn_norm`` (the router and every expert read the normed
+    stream) and the explicit ``x + f``; ``moe_trace``, if given, collects
+    each layer's aux loss, dropped count and (B, S, k) expert ids, and where
+    it holds ``replay_ids`` (one (B, S, k) tensor per layer, from another
+    run's trace) each layer routes with those instead of its own top-k."""
+    if cfg.is_moe:
+        ffn_in = layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        if moe_trace is None:
+            return x + moe.moe_ffn(ffn_in, lp, cfg)[0]
+        replay = moe_trace.get("replay_ids")
+        f, aux, dropped, ids = moe.moe_ffn(ffn_in, lp, cfg, return_routing=True, route_ids=None if replay is None
+                                           else replay[len(moe_trace.get("ids", []))])
+        for key, val in (("aux", aux), ("dropped", dropped), ("ids", ids)):
+            moe_trace.setdefault(key, []).append(val)
+        return x + f
+    ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
+        layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
+    return moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g)
+
+
+def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_backend=None,
+                       moe_trace=None):
     fuse = _fuses_rmsnorm(cfg)
     attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
         layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
-    x, new_cache = attention.gqa_attention(
+    attn = attention.mla_attention if cfg.use_mla else attention.gqa_attention
+    x, new_cache = attn(
         attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
         norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend,
     )
-    ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
-        layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
-    return moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g), new_cache
+    return _ffn(x, lp, cfg, fuse, moe_trace), new_cache
 
 
 def _head(params, cfg, x):
@@ -209,34 +279,41 @@ def _head(params, cfg, x):
 
 
 def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optional[Dict] = None,
-            kv_chunk: int = 0, return_hidden: bool = False, attn_backend: Optional[str] = None):
+            kv_chunk: int = 0, return_hidden: bool = False, attn_backend: Optional[str] = None,
+            moe_trace: Optional[Dict] = None):
     """Returns ``(logits, new_cache)`` for tokens (B, S).
 
     ``cache`` (``init_cache``) is updated in place at ``cache["pos"]`` and
     returned with ``pos`` advanced by S.  ``attn_backend="flash"`` routes
     attention through the CUDA kernel (serving prefill; forward only);
-    ``kv_chunk > 0`` takes the KV-chunked online-softmax attention.
+    ``kv_chunk > 0`` takes the KV-chunked online-softmax attention; MLA
+    with a cache takes its absorbed form and ignores both, as the
+    reference does.  ``moe_trace`` (a dict) collects each MoE layer's
+    ``aux`` loss, ``dropped`` count and expert ``ids``, as lists in layer
+    order; given ``replay_ids`` (a list of one run's ``ids``), every layer
+    routes as that run did.
     ``return_hidden=True`` skips the lm_head and returns the final-normed
     hidden states (B, S, d) in the compute dtype, for the fused loss.  With
     ``cfg.remat == "block"``, no cache and grad mode on, each block runs
     under ``torch.utils.checkpoint`` and its forward runs again in the
     backward.
     """
-    _require_dense(cfg)
+    _require_served(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = F.embedding(tokens, params["embed"]).to(cd)
     b, s = x.shape[:2]
     start = cache["pos"] if cache is not None else 0
     positions = torch.arange(start, start + s, device=x.device)
-    rope = layers.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = layers.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
-        lcache = None if cache is None else {
-            "k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i], "pos": start}
+        lcache = None if cache is None else dict(
+            {nm: t[i] for nm, t in cache["layers"].items()}, pos=start)
 
         def block(x, lp=lp, lcache=lcache):
             return _transformer_block(x, lp, cfg, positions=positions, rope=rope, cache=lcache,
-                                      kv_chunk=kv_chunk, attn_backend=attn_backend)[0]
+                                      kv_chunk=kv_chunk, attn_backend=attn_backend,
+                                      moe_trace=moe_trace)[0]
 
         x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
     new_cache = None if cache is None else dict(cache, pos=start + s)
@@ -246,36 +323,47 @@ def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optiona
 
 # ------------------------------------------------------------------ caches --
 def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
-    """Layer-stacked dense decode cache: k/v (L, B, max_seq, KV, hd)."""
-    _require_dense(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    cd = dtype_of(cfg.compute_dtype)
-    return {"layers": {"k": torch.zeros(shape, dtype=cd, device=device),
-                       "v": torch.zeros(shape, dtype=cd, device=device)}, "pos": 0}
+    """Layer-stacked dense decode cache: k/v (L, B, max_seq, KV, hd), or
+    under MLA the latent c_kv (L, B, max_seq, kv_lora_rank) and the shared
+    k_rope (L, B, max_seq, rope)."""
+    _require_served(cfg)
+    cd, L = dtype_of(cfg.compute_dtype), cfg.n_layers
+    if cfg.use_mla:
+        shapes = {"c_kv": (L, batch, max_seq, cfg.kv_lora_rank),
+                  "k_rope": (L, batch, max_seq, cfg.qk_rope_head_dim)}
+    else:
+        shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shapes = {"k": shape, "v": shape}
+    return {"layers": {nm: torch.zeros(sh, dtype=cd, device=device) for nm, sh in shapes.items()}, "pos": 0}
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "none",
                      device) -> Dict[str, Any]:
     """Layer-stacked paged pools for the serving engine: k/v (L, num_blocks,
     block_size, KV, hd), and under int8 ``kv_quant`` their per-(token, head)
-    f32 scales k_scale/v_scale (L, num_blocks, block_size, KV).  Block 0 is
-    the null block (serving/kv_cache.py).
-    The dense family keeps nothing per slot, so unlike the reference this
-    takes no ``slots``."""
-    _require_dense(cfg)
-    pool = attention.init_paged_gqa_cache(
-        num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim,
-        dtype_of(cfg.compute_dtype), kv_quant, device=device)
+    f32 scales k_scale/v_scale (L, num_blocks, block_size, KV); under MLA
+    the latent c_kv (L, num_blocks, block_size, kv_lora_rank) and k_rope
+    (L, num_blocks, block_size, rope).  Block 0 is the null block
+    (serving/kv_cache.py).  The attention families keep nothing per slot,
+    so unlike the reference this takes no ``slots``."""
+    _require_served(cfg, kv_quant)
+    cd = dtype_of(cfg.compute_dtype)
+    if cfg.use_mla:
+        pool = attention.init_paged_mla_cache(num_blocks, block_size, cfg, cd, kv_quant, device=device)
+    else:
+        pool = attention.init_paged_gqa_cache(
+            num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim, cd, kv_quant, device=device)
     return {"layers": {nm: t.expand((cfg.n_layers,) + tuple(t.shape)).clone()
                        for nm, t in pool.items()}}
 
 
 def decode_step_fn(cfg, *, attn_backend: Optional[str] = None):
     """Returns ``step(params, cache, tokens) -> (logits, cache)``; with
-    ``attn_backend="flash"`` it is the engine's chunked-prefill step."""
+    ``attn_backend="flash"`` it is the engine's chunked-prefill step.
+    ``moe_trace`` as in :func:`forward`."""
 
-    def step(params, cache, tokens):
-        return forward(params, cfg, tokens=tokens, cache=cache, attn_backend=attn_backend)
+    def step(params, cache, tokens, moe_trace=None):
+        return forward(params, cfg, tokens=tokens, cache=cache, attn_backend=attn_backend, moe_trace=moe_trace)
 
     return step
 
@@ -284,26 +372,26 @@ def paged_decode_step_fn(cfg):
     """Returns ``step(params, cache, tokens, positions, block_tables) ->
     (logits, cache)``, the engine's decode step: tokens (slots, 1),
     positions (slots,), block_tables (slots, blocks_per_seq), all integer
-    tensors on the parameters' device; the pools are updated in place."""
-    _require_dense(cfg)
+    tensors on the parameters' device; the pools are updated in place.
+    ``moe_trace`` as in :func:`forward`."""
+    _require_served(cfg)
+    attn = attention.paged_mla_attention if cfg.use_mla else attention.paged_gqa_attention
 
-    def step(params, cache, tokens, positions, block_tables):
+    def step(params, cache, tokens, positions, block_tables, moe_trace=None):
         cd = dtype_of(cfg.compute_dtype)
         x = params["embed"][tokens].to(cd)
-        rope = layers.rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+        rope = layers.rope_tables(positions[:, None], _rope_dim(cfg), cfg.rope_theta)
         fuse = _fuses_rmsnorm(cfg)
         pools = cache["layers"]
         for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
             attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
                 layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
-            x, _ = attention.paged_gqa_attention(
+            x, _ = attn(
                 attn_in, lp, cfg, positions=positions,
                 cache={nm: pool[i] for nm, pool in pools.items()}, block_tables=block_tables,
                 kv_quant=cfg.kv_quant, rope=rope, residual=x, norm=attn_g,
             )
-            ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
-                layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
-            x = moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g)
+            x = _ffn(x, lp, cfg, fuse, moe_trace)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head(params, cfg, x), cache
 
@@ -332,6 +420,7 @@ def loss_fn(params, cfg, batch, *, kv_chunk: int = 0, fused_ce: Optional[bool] =
     logits (neither is ported): the (B, S, V) logits are then never formed.
     ``False`` forces the unfused path through the lm_head projection."""
     _no_plan(plan, constrain)
+    _require_trainable(cfg)
     mask = batch.get("loss_mask")
     shift_mask = None if mask is None else mask[:, 1:]
     if fused_ce is None or fused_ce:
@@ -362,6 +451,7 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
         raise NotImplementedError(
             'the reliability guard is not ported yet (ROADMAP.md Queue 1 "Reliability")')
     _no_plan(plan, constrain)
+    _require_trainable(cfg)
 
     def grad_of(leaves, params, batch):
         loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce)

@@ -8,8 +8,10 @@ scheduler.  ``step()`` advances the whole pool by one tick:
        prompt's KV blocks are both free (FCFS);
     2. **chunked prefill** — the admitted prompt runs through ``forward`` in
        fixed-size chunks with attention on the flash kernel (the chunk's
-       cache offset reaches the kernel as a device tensor), then its K/V are
-       imported into the slot's pool blocks;
+       cache offset reaches the kernel as a device tensor; MLA takes its
+       absorbed form against the latent cache instead, as the reference
+       does), then its K/V (MLA: latent rows) are imported into the slot's
+       pool blocks;
     3. **decode** — one step serves every running slot (free slots compute
        into the null block and are ignored), each row sampled with its
        request's own params and seeded stream.

@@ -11,7 +11,9 @@ and the allocator hands out blocks ``1..num_blocks-1``.
 
 Storage is the compute dtype (bf16 or f32), or int8 codes plus one f32
 scale per (token, head) row under ``kv_quant="int8"`` (quantized on write,
-prefill import included).  ``bytes_per_block`` / ``blocks_for_budget`` /
+prefill import included).  An MLA model pages its latent ``c_kv`` and
+shared ``k_rope`` rows the same way, in the compute dtype (its int8 pools
+come with ROADMAP.md Queue 1 "Quantization").  ``bytes_per_block`` / ``blocks_for_budget`` /
 ``max_concurrent`` are the capacity arithmetic.  The allocator's
 fault-injection points come with the reliability layer (ROADMAP.md Queue 1
 "Reliability").
@@ -128,15 +130,19 @@ class PagedKVCache:
 
 
 def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[str] = None) -> int:
-    """Device bytes one KV block costs across all layers: L * bs * (2 * KV *
-    hd elements, plus one f32 scale per (token, head) row for k and v when
-    quantized)."""
-    if cfg.use_mla or cfg.ssm_state:
-        raise NotImplementedError('MLA and SSM pools come with their families '
+    """Device bytes one KV block costs across all layers: GQA L * bs * (2 *
+    KV * hd elements, plus one f32 scale per (token, head) row for k and v
+    when quantized); MLA L * bs * (kv_lora_rank + rope) elements."""
+    if cfg.ssm_state:
+        raise NotImplementedError('SSM pools come with their family '
                                   '(ROADMAP.md Queue 1 "Other model families")')
     bs = block_size if block_size is not None else cfg.kv_block_size
     kvq = kv_quant if kv_quant is not None else cfg.kv_quant
     item = 1 if kvq != "none" else torch.finfo(dtype_of(cfg.compute_dtype)).bits // 8
+    if cfg.use_mla:
+        if kvq != "none":
+            raise NotImplementedError('int8 MLA latent pools are not ported yet (ROADMAP.md Queue 1 "Quantization")')
+        return cfg.n_layers * bs * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     scale = 2 * kv * 4 if kvq != "none" else 0
     return cfg.n_layers * bs * (2 * kv * hd * item + scale)
@@ -158,16 +164,18 @@ def make_import_fn(block_size: int, kv_quant: str = "none"):
     """The scatter of a finished contiguous B=1 prefill cache into a slot's
     pool blocks: positions ``0..plen-1`` go to ``block_row[p // bs] * bs +
     p % bs``; the prompt padding past ``plen`` is dropped.  A quantized pool
-    quantizes each row on import.  The physical rows are computed on the
-    host from the host block table, and the pools are written in place."""
+    quantizes each row on import.  Every pool of the prefill cache is
+    imported: k and v, or MLA's c_kv and k_rope.  The physical rows are
+    computed on the host from the host block table, and the pools are
+    written in place."""
     bs = block_size
 
     def imp(pool_layers: Dict[str, torch.Tensor], prefill_layers: Dict[str, torch.Tensor],
             plen: int, block_row: np.ndarray) -> Dict[str, torch.Tensor]:
         pos = np.arange(plen)
         phys = block_row[pos // bs].astype(np.int64) * bs + pos % bs
-        phys_t = torch.as_tensor(phys, device=pool_layers["k"].device)
-        for nm in ("k", "v"):
+        phys_t = torch.as_tensor(phys, device=next(iter(prefill_layers.values())).device)
+        for nm in prefill_layers:
             pool, scales = pool_layers[nm], pool_layers.get(f"{nm}_scale")
             for i in range(pool.shape[0]):
                 attention.paged_write(pool[i], phys_t, prefill_layers[nm][i, 0, :plen],

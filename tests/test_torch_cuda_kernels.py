@@ -647,3 +647,75 @@ def test_dip_systolic_plans_match_plain(dev, m, n, epilogue, dtype, prologue):
         assert got.dtype == torch.int32 and torch.equal(got, want)
     else:
         _close(got, want, torch.float32 if dtype == torch.int8 else dtype)
+
+
+# ------------------------------------------------ DeepSeek-V2-Lite slice ---
+_DS = get_config("deepseek-v2-lite-16b")
+_DS_SFF = _DS.n_shared_experts * _DS.d_ff_expert
+# (label, K, N, epilogue, prologue) of every projection a DeepSeek-V2-Lite
+# forward sends to the kernel (tests/test_torch_kernel_plans.py)
+DEEPSEEK_PROJECTIONS = [
+    ("wq", 2048, _DS.n_heads * (_DS.qk_nope_head_dim + _DS.qk_rope_head_dim), "none", "rmsnorm"),
+    ("w_dkv", 2048, _DS.kv_lora_rank, "none", "rmsnorm"),
+    ("w_krope", 2048, _DS.qk_rope_head_dim, "none", "rmsnorm"),
+    ("wo", _DS.n_heads * _DS.v_head_dim, 2048, "residual", "none"),
+    ("shared gate+up", 2048, _DS_SFF, "swiglu", "none"),
+    ("shared down", _DS_SFF, 2048, "none", "none"),
+    ("lm_head", 2048, _DS.padded_vocab, "none", "none"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("proj", DEEPSEEK_PROJECTIONS, ids=[p[0] for p in DEEPSEEK_PROJECTIONS])
+def test_dip_matmul_deepseek_projections_match_plain(dev, proj, m, dtype):
+    """Every DeepSeek-V2-Lite projection at a decode step's M and a prefill
+    chunk's, N = 64 (half the prefill tile's width) included."""
+    label, k, n, epilogue, prologue = proj
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    p = (torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(dtype)
+    eops = _operands(epilogue, m, k, n, dtype, dev, g)
+    if epi.spec(epilogue).dual_weight:
+        eops = ((eops[0] / k ** 0.5).to(dtype),)
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops)
+    before = dip_matmul.launches
+    got = dip_matmul(x, p, *eops, **kw)
+    assert dip_matmul.launches == before + 1
+    want = dip_matmul_plain(x, p, *eops, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    _close(got, want, dtype)
+
+
+# the reduced MoE models, card against CPU on the same weights: f32 logits of
+# two layers, each matmul within TOL (1e-5), so 1e-4 as chip_smoke.py phase 3
+MODEL_TOL = 1e-4
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b"])
+def test_reduced_moe_model_card_matches_cpu(dev, name):
+    """Forward logits and a paged decode step of the reduced MoE model (its
+    w_krope 16 columns wide, padded to one 64-wide tile) on the card against
+    the plain versions on the CPU, with the same routing."""
+    cfg = dataclasses.replace(get_config(name).reduced(), matmul_backend="dip", param_dtype="float32",
+                              compute_dtype="float32")
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu")
+    on_card = _to(params, dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(2, 512, (2, 24)))
+    stats = {"cpu": {}, "cuda": {}}
+    want, _ = tf_model.forward(params, cfg, tokens=tokens, moe_trace=stats["cpu"])
+    got, _ = tf_model.forward(on_card, cfg, tokens=tokens.to(dev), attn_backend="flash", moe_trace=stats["cuda"])
+    assert [int(d) for d in stats["cuda"]["dropped"]] == [int(d) for d in stats["cpu"]["dropped"]]
+    err = (got.cpu()[..., :cfg.vocab_size] - want[..., :cfg.vocab_size]).abs().max().item()
+    assert err <= MODEL_TOL * max(1.0, want[..., :cfg.vocab_size].abs().max().item())
+    tables = torch.tensor([[1, 2], [3, 4]])
+    pos, toks = torch.tensor([5, 2]), torch.tensor([[7], [9]])
+    step = tf_model.paged_decode_step_fn(cfg)
+    outs = []
+    for params_d, d in ((params, "cpu"), (on_card, dev)):
+        pool = tf_model.init_paged_cache(cfg, 5, 16, device=d)
+        outs.append(step(params_d, pool, toks.to(d), pos.to(d), tables.to(d))[0].cpu())
+    err = (outs[1] - outs[0])[..., :cfg.vocab_size].abs().max().item()
+    assert err <= MODEL_TOL * max(1.0, outs[0][..., :cfg.vocab_size].abs().max().item())

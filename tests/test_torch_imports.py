@@ -116,9 +116,11 @@ def test_branches_outside_the_slice_raise(what):
         from repro_torch.serving import kv_cache
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             kv_cache.bytes_per_block(dataclasses.replace(cfg, use_mla=True, kv_lora_rank=64), kv_quant="int8")
-    elif what == "moe":
+    elif what == "moe":  # MoE serves now (test_torch_moe_serving.py); its training does not
+        moe_cfg = dataclasses.replace(cfg, family="moe", n_experts=4, moe_top_k=2, d_ff_expert=64)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf_model.param_template(dataclasses.replace(cfg, n_experts=4, moe_top_k=2, d_ff_expert=64))
+            tf_model.loss_fn(tf_model.init_params(moe_cfg, make_generator(0, "cpu"), device="cpu"), moe_cfg,
+                             {"tokens": torch.zeros(1, 4, dtype=torch.long), "labels": torch.zeros(1, 4, dtype=torch.long)})
     elif what == "quant_grad":  # the straight-through backward is not ported
         from repro_torch import api
         x = torch.randn(2, 64, requires_grad=True)

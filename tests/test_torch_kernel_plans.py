@@ -30,6 +30,17 @@ _D, _FF, _KV, _VOCAB = _ARCH.d_model, _ARCH.d_ff, _ARCH.n_kv_heads * _ARCH.resol
 # (label, K, N, swiglu) of every projection a llama3-8b forward sends to the kernel
 LLAMA_PROJECTIONS = [("q", _D, _D, False), ("k/v", _D, _KV, False), ("o", _D, _D, False),
                      ("gate+up", _D, _FF, True), ("down", _FF, _D, False), ("lm_head", _D, _VOCAB, False)]
+_DS = get_config("deepseek-v2-lite-16b")
+_DS_D, _DS_H, _DS_SFF = _DS.d_model, _DS.n_heads, _DS.n_shared_experts * _DS.d_ff_expert
+# (label, K, N, swiglu) of every projection a DeepSeek-V2-Lite forward sends
+# to the kernel: the MLA projections (q, the latent, the shared RoPE key, the
+# out projection), the shared experts' gate+up and down, the lm_head; the
+# routed experts' banks are plain einsums, as in the reference
+DEEPSEEK_PROJECTIONS = [
+    ("wq", _DS_D, _DS_H * (_DS.qk_nope_head_dim + _DS.qk_rope_head_dim), False),
+    ("w_dkv", _DS_D, _DS.kv_lora_rank, False), ("w_krope", _DS_D, _DS.qk_rope_head_dim, False),
+    ("wo", _DS_H * _DS.v_head_dim, _DS_D, False), ("shared gate+up", _DS_D, _DS_SFF, True),
+    ("shared down", _DS_SFF, _DS_D, False), ("lm_head", _DS_D, _DS.padded_vocab, False)]
 # the (M, N, K) of the card tests' bf16 cases (tests/test_torch_cuda_kernels.py)
 CARD_CASES = [(m, n, 1088) for m in (1, 4, 16, 100, 257) for n in (192, 320, 4096)]
 # and of their fp8-route cases
@@ -48,7 +59,7 @@ def _cdiv(a, b):
 @WEIGHT_BYTES
 @pytest.mark.parametrize("dual", [False, True], ids=["single", "swiglu"])
 @pytest.mark.parametrize("m", [1, 4, 16, 32, 33, 64, 100, 256, 257, 4092, 4096])
-@pytest.mark.parametrize("label,k,n", [(lab, k, n) for lab, k, n, _ in LLAMA_PROJECTIONS]
+@pytest.mark.parametrize("label,k,n", [(lab, k, n) for lab, k, n, _ in LLAMA_PROJECTIONS + DEEPSEEK_PROJECTIONS]
                          + [("ragged", 1088, 192), ("ragged", 1088, 320), ("short", 64, 64)])
 def test_splits_cover_k_once_in_order(label, k, n, m, dual, weight_bytes):
     """The splits tile K exactly once, in 64-deep steps, in split order,
@@ -98,6 +109,44 @@ def test_decode_grid_fills_the_card(label, k, n, dual, m, weight_bytes):
     assert plan.regime == "decode"
     floor = 2 * SMS if weight_bytes == 1 else SMS
     assert plan.blocks >= floor, f"{label}: {plan.blocks} blocks on {SMS} SMs"
+
+
+def test_deepseek_projection_shapes():
+    """The widths the DeepSeek-V2-Lite path gives the kernel: N = 64 (the
+    shared RoPE key), 512 and 3072, swiglu N = 2816 over K = 2048, down
+    K = 2816, the lm_head N = 102400, all multiples of the 64-wide tile."""
+    assert [(k, n) for _, k, n, _ in DEEPSEEK_PROJECTIONS] == [
+        (2048, 3072), (2048, 512), (2048, 64), (2048, 2048), (2048, 2816), (2816, 2048), (2048, 102400)]
+    assert all(k % TILE == 0 and n % TILE == 0 for _, k, n, _ in DEEPSEEK_PROJECTIONS)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8, 16, 32])
+@pytest.mark.parametrize("label,k,n,dual", DEEPSEEK_PROJECTIONS, ids=[p[0] for p in DEEPSEEK_PROJECTIONS])
+def test_deepseek_decode_grid_fills_the_card(label, k, n, dual, m):
+    """At the DeepSeek decode shapes every projection streams its weights
+    from every SM, 2 x SMs blocks where it has that many 64-deep tile
+    columns to split; the narrow ones stop at one block per 32 x 64 tile of
+    their weight (w_dkv: 8 column tiles x 32 K tiles, w_krope: 1 x 32), as
+    K cannot be split finer than a tile."""
+    plan = matmul_plan(m, n, k, dual, SMS)
+    tiles, k_tiles = _cdiv(n, plan.bn), k // TILE
+    assert plan.regime == "decode" and plan.bn == 64
+    assert plan.blocks >= min(SMS, tiles * k_tiles), f"{label}: {plan.blocks} blocks on {SMS} SMs"
+    if tiles * k_tiles < 2 * SMS:
+        assert plan.splits == k_tiles, f"{label}: K split once per tile"
+    if label in ("wq", "shared gate+up", "shared down", "lm_head"):
+        assert plan.blocks >= 2 * SMS, f"{label}: {plan.blocks} blocks"
+
+
+@pytest.mark.parametrize("m", [33, 256, 257])
+def test_narrow_n_on_the_prefill_tile(m):
+    """N = 64 (w_krope) is half of the 128-wide prefill tile: one column of
+    blocks, whose loads past N are zero-filled and stores masked
+    (dip_matmul.cu), with K split across the card."""
+    plan = matmul_plan(m, 64, 2048, False, SMS)
+    assert (plan.regime, plan.bm, plan.bn) == ("prefill", 128, 128)
+    assert plan.grid[0] == 1 and plan.grid[1] == _cdiv(m, 128)
+    assert plan.splits > 1 and plan.blocks <= 3 * SMS // 2
 
 
 @WEIGHT_BYTES
