@@ -10,8 +10,11 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the llama3-8b serving and training paths give it: the DiP matmul (M = 4,
    256 and the training batch's 4096; and at M = 4 and 256 the
-   deepseek-v2-lite-16b projections, N = 64 included) and flash attention in float32 and
-   bfloat16, the fused lm_head +
+   deepseek-v2-lite-16b projections, N = 64 included; at M = 1, 4 and 256
+   the zamba2-2.7b and mamba2-370m projections through the registry, in_proj's
+   padded last tile (10448 and 4384 columns) and out_proj's residual at K =
+   5120 included) and flash attention in float32 and
+   bfloat16 (and at D = 80, Sq = 256 and 1, on the CUDA-core route), the fused lm_head +
    cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
    training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
    splits and labels at -100; then the quantized serving slice's kernels:
@@ -33,7 +36,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    on the CPU (plain versions): identical greedy tokens, close logits — the
    float model on ``dip``, then ``dip_int8w`` with the int8 KV pool,
    ``dip_fp8`` and ``pallas_systolic``; and the reduced
-   deepseek-v2-lite-16b (MoE + MLA) on ``dip``;
+   deepseek-v2-lite-16b (MoE + MLA), zamba2-2.7b (hybrid) and mamba2-370m
+   (SSM, tied head) on ``dip``, prompts that take the SSM prefill tail;
 4. the reduced llama3-8b trained on the card against the CPU (f32, 3
    ``Trainer`` steps): close losses and gradient norms, and a run stopped by
    ``fail_at_step`` that resumes from its checkpoint and repeats the
@@ -64,6 +68,19 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    against the plain versions on the card (the routing choices that differ
    counted), the dropped (token, slot) pairs of the first chunk, wall
    medians, peak memory, and one decode step and prefill chunk profiled;
+5e. zamba2-2.7b at full width (54 Mamba2 layers and one shared attention+FFN
+   block at 9 call sites) and
+5f. mamba2-370m at full width (48 Mamba2 layers, tied head), each in bf16
+   through ``launch.serve`` as in 5d: layer 0's Mamba2 block (a 256-token
+   chunk from zero state, then one decode token: outputs, conv history and
+   state) and zamba2's shared block against their plain versions on one
+   input, the first prefill chunk's and decode step's logits against the
+   plain versions on the card, the prefill run as whole chunks and then the
+   tail token by token, 163 / 96 DiP launches per forward and 9 / 0 flash
+   launches per prefill call (all on the CUDA-core route at D = 80),
+   1,474,560 / 0 KV bytes per block and 72,479,232 / 50,995,200 state bytes
+   per slot, peak memory, wall times, and a decode step, a prefill chunk
+   and a single-token forward of the tail profiled;
 6. llama3-8b at full width cut to 4 layers trained through
    ``launch.train`` and its ``Trainer`` (f32 parameters, bf16 compute, block
    remat, batch 4 x seq 1024, 4 steps, the launcher's warm-up schedule):
@@ -80,7 +97,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    wavefront kernels and the int8 route's quantizing pass included
    (lm_head_ce with the bound of its three bf16 part products on the tensor
    cores beside the f32 CUDA-core bound; the DiP matmul also at the
-   deepseek-v2-lite-16b projections in bf16; the wavefront with the f32
+   deepseek-v2-lite-16b projections in bf16, and at the zamba2-2.7b and
+   mamba2-370m projections at M = 1, 4 and 256 with flash at D = 80; the wavefront with the f32
    CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
    of its codes and beside its whole function in library calls).
 
@@ -132,6 +150,11 @@ BF16_MODEL_TOL = 3e-2
 # also move by one activation-code step of every lm_head input.  The share
 # of logits within the kernel tolerance TOL alone is printed beside it
 FULL_TOL = 5e-2
+# full width, SSM and hybrid models running freely: the kernels' logits may
+# sit at most this many times as far from an f32 run of the same bf16
+# weights and inputs as the plain run's do (both bf16 runs drift from it by
+# their roundings alike; a faulty kernel adds an error of order 1)
+F32_DRIFT = 1.5
 # reduced training, card against CPU, losses and gradient norms over 3 AdamW
 # steps: each step starts from parameters that differ by the f32 rounding of
 # the step before, which AdamW's m/(sqrt(n) + eps) amplifies where a gradient
@@ -233,6 +256,38 @@ def plain_backends(capture=None):
     return swap()
 
 
+@contextlib.contextmanager
+def block_tape(tf_model, mode, tape):
+    """A context in which every block of the model (a Mamba2 block, an
+    attention+FFN block of a forward or of the paged decode step) is taped
+    in call order: ``"record"`` keeps each block's input and output;
+    ``"replay"`` feeds each block the input that the recorded run gave the
+    block of the same call index, in place of its own, and keeps the
+    output.  A plain run replaying a kernels' run so compares the two block
+    by block on the same inputs, without the drift of the bf16 roundings
+    that the blocks before it carry on."""
+    names = ("_mamba_block", "_transformer_block", "_paged_block")
+    saved = {nm: getattr(tf_model, nm) for nm in names}
+
+    def taped(fn):
+        def block(x, *a, **kw):
+            rows = tape.setdefault(mode, [])
+            if mode == "replay":
+                x = tape["record"][len(rows)][0]
+            out = fn(x, *a, **kw)
+            rows.append((x.clone() if mode == "record" else None, (out[0] if isinstance(out, tuple) else out).clone()))
+            return out
+        return block
+
+    for nm in names:
+        setattr(tf_model, nm, taped(saved[nm]))
+    try:
+        yield tape
+    finally:
+        for nm in names:
+            setattr(tf_model, nm, saved[nm])
+
+
 def head_step(head, head_x, vocab):
     """Per-logit change when every int8 activation code of the lm_head's
     input row moves one step: x_scale[m] * sum_k |Q[k, n]| * w_scale[n]."""
@@ -268,7 +323,7 @@ def main():
     from repro_torch.kernels.ref import quantize_acts_int8
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serving import kv_cache as kvc
-    from repro_torch.models import attention, layers, moe
+    from repro_torch.models import attention, layers, moe, ssm
     from repro_torch.models import transformer as tf_model
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.runtime import Request, Server, ServerConfig, Trainer, TrainerConfig
@@ -343,6 +398,27 @@ def main():
     ]
     assert [(k, n) for _, k, n, _, _ in ds_proj] == [(2048, 3072), (2048, 512), (2048, 64), (2048, 2048),
                                                       (2048, 2816), (2816, 2048), (2048, 102400)]
+    # the Zamba2-2.7B and Mamba2-370M paths' projections (phases 5e, 5f) at
+    # their logical widths: in_proj's is not a multiple of 64 (10448 and
+    # 4384, stored as 10496 and 4416, so the last tile is padding), out_proj
+    # carries the residual at K = 5120 / 2048; zamba2's shared block (wq, wk
+    # and wv alike, head_dim 80) and lm_head (N = 32768); mamba2's head is
+    # the tied embedding (torch.matmul, as in the reference)
+    zb, mb = get_config("zamba2-2.7b"), get_config("mamba2-370m")
+    ssm_proj = [
+        ("zamba2 in_proj", zb.d_model, 2 * zb.d_inner + 2 * zb.ssm_state + zb.n_ssm_heads, "none", "none"),
+        ("zamba2 out_proj", zb.d_inner, zb.d_model, "residual", "none"),
+        ("zamba2 wq", zb.d_model, zb.n_heads * zb.resolved_head_dim, "none", "rmsnorm"),
+        ("zamba2 wo", zb.n_heads * zb.resolved_head_dim, zb.d_model, "residual", "none"),
+        ("zamba2 gate+up", zb.d_model, zb.d_ff, "swiglu", "rmsnorm"),
+        ("zamba2 down", zb.d_ff, zb.d_model, "residual", "none"),
+        ("zamba2 lm_head", zb.d_model, zb.padded_vocab, "none", "none"),
+        ("mamba2 in_proj", mb.d_model, 2 * mb.d_inner + 2 * mb.ssm_state + mb.n_ssm_heads, "none", "none"),
+        ("mamba2 out_proj", mb.d_inner, mb.d_model, "residual", "none"),
+    ]
+    assert [(k, n) for _, k, n, _, _ in ssm_proj] == [(2560, 10448), (5120, 2560), (2560, 2560), (2560, 2560),
+                                                       (2560, 10240), (10240, 2560), (2560, 32768),
+                                                       (1024, 4384), (2048, 1024)]
 
     def dip_inputs(m, k, n, epilogue, prologue, dtype):
         x = torch.randn(m, k, generator=g, device=dev).to(dtype)
@@ -405,6 +481,34 @@ def main():
                                prologue_operands=(gain.cpu(),)), TOL[dt_name])
         worst["dip_matmul"] = max(worst["dip_matmul"], err)
 
+    # the SSM paths' projections through the registry on a DipWeight of the
+    # logical width (the shim pads K, N and the residual and crops the
+    # output), against the same call with the plain versions on the card:
+    # M = 1 (the prefill tail's single-token forwards), 4 (a decode step),
+    # 256 (a prefill chunk)
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for m in (1, 4, 256):
+            for label, k, n, e, pr in ssm_proj:
+                x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+                ws = [api.DipWeight.from_natural((torch.randn(k, n, generator=g, device=dev) * k ** -0.5).to(dtype))
+                      for _ in range(2 if epi.spec(e).dual_weight else 1)]
+                eops = (torch.randn(m, n, generator=g, device=dev).to(dtype),) if epi.spec(e).residual else ()
+                kw = dict(backend="dip", epilogue=e, epilogue_operands=eops, prologue=pr,
+                          prologue_operands=(torch.rand(k, generator=g, device=dev) + 0.5,) if pr == "rmsnorm" else ())
+                w = tuple(ws) if len(ws) == 2 else ws[0]
+                before = dip_matmul.launches
+                got = api.matmul(x, w, **kw)
+                if dip_matmul.launches != before + 1:
+                    raise AssertionError(f"dip {label}: the registry call did not launch the kernel once")
+                with plain_backends():
+                    want = api.matmul(x, w, **kw)
+                storage = ws[0].data.shape[1]
+                err = close(f"dip {dt_name} M={m} {label} K={k} N={n} (storage {storage}) {e}/{pr}"
+                            f"{plan_label(m, storage, k, e, dt_name)}", got, want, TOL[dt_name])
+                worst["dip_matmul"] = max(worst["dip_matmul"], err)
+                del x, ws, eops, got, want
+
     bh, sq, sk, hd = 32, 256, 1024, 128
     flash_cases = [  # (label, D, Dv, q_offset, kv_len per row)
         ("q_offset 0", hd, hd, 0, torch.full((bh,), sk, dtype=torch.int32, device=dev)),
@@ -433,6 +537,25 @@ def main():
                 if not bool((got[dead] == 0).all()):
                     raise AssertionError("flash: fully masked rows are not exactly 0")
                 log(f"  flash {dt_name}: {int(dead.sum())} fully masked rows are exactly 0")
+    # Zamba2's shared attention at prefill (phase 5e): 32 heads of D = 80,
+    # which takes the CUDA-core route; a 256-token chunk at q_offset 0 and
+    # 512, and one token of the prefill tail at q_offset 700, against the
+    # 1024 rows of the prefill cache
+    zb_flash = [(256, 0, 256), (256, 512, 768), (1, 700, 701)]  # (Sq, q_offset, kv_len)
+    for dt_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt_name)
+        for zsq, qo, kvl in zb_flash:
+            q = torch.randn(bh, zsq, 80, generator=g, device=dev).to(dtype)
+            k, v = (torch.randn(bh, sk, 80, generator=g, device=dev).to(dtype) for _ in range(2))
+            kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
+            before = flash_attention.launches_tc
+            got = flash_attention(q, k, v, **kw)
+            if flash_route(dtype, 80, 80) != "cuda_cores" or flash_attention.launches_tc != before:
+                raise AssertionError("flash at D = 80 left the CUDA-core route")
+            err = close(f"flash {dt_name} BH={bh} Sq={zsq} Sk={sk} D=80 q_offset {qo} kv_len {kvl} [cuda_cores]",
+                        got, attention_plain(q, k, v, **kw), TOL[dt_name])
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+            del q, k, v, got
     torch.cuda.synchronize()
 
     # lm_head_ce at the training shape: T = 4 x 1023 tokens (the shifted
@@ -693,7 +816,8 @@ def main():
 
     # ---------------------------------------- 3. reduced model, card vs CPU --
     log("phase 3: reduced llama3-8b served on the card against the CPU: dip (f32), dip_int8w with the "
-        "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32); and reduced deepseek-v2-lite-16b (dip, f32)")
+        "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32); and reduced deepseek-v2-lite-16b, "
+        "zamba2-2.7b and mamba2-370m (dip, f32)")
     rcfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
                                param_dtype="float32", compute_dtype="float32")
     cpu_params = tf_model.init_params(rcfg, make_generator(SEED, "cpu"), "cpu")
@@ -747,6 +871,11 @@ def main():
         # phase 5d's gate 3: the MoE + MLA model, reduced (its w_krope 16
         # columns wide, padded to one 64-wide tile)
         ("deepseek-v2-lite-16b reduced, dip, f32", "deepseek-v2-lite-16b", f32_dip, "f32"),
+        # phases 5e and 5f's gate 3: the hybrid and the pure SSM model,
+        # reduced; prompts of 11 and 19 tokens in chunks of 16 take the
+        # single-token prefill tail
+        ("zamba2-2.7b reduced, dip, f32", "zamba2-2.7b", f32_dip, "f32"),
+        ("mamba2-370m reduced, dip, f32", "mamba2-370m", f32_dip, "f32"),
     ]
     for label, arch_name, fields, kind in variants:
         vcfg = dataclasses.replace(get_config(arch_name).reduced(), **fields)
@@ -1366,6 +1495,244 @@ def main():
     del server, reqs, results
     torch.cuda.empty_cache()
 
+    # --------------- 5e / 5f. Zamba2-2.7B and Mamba2-370M at full width ------
+    def serve_ssm(phase, arch, per_forward, flash_per_call, kv_bytes_want, slot_bytes_want, dims):
+        """Serve ``arch`` through ``launch.serve --full`` (4 slots, max_seq
+        1024, prefill chunk 256, the launcher's 4 seeded requests, 16
+        greedy tokens) and hold its gates: layer 0's Mamba2 block (and the
+        hybrid's shared block) against plain on one input, the first
+        prefill chunk's and decode step's logits against plain on the card,
+        the launch counts per forward (the prefill tail's single-token
+        forwards included), the KV bytes per block and the per-slot state
+        bytes.  Returns the launches, flash's routes and the serving
+        numbers."""
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        log(f"  allocated before the phase: {left:.2f} GiB")
+        if left > 4:
+            raise AssertionError(f"phase {phase}: the earlier phases left weights or pools on the card")
+        argv = ["--arch", arch, "--full", "--dtype", "bfloat16", "--requests", "4", "--max-new", "16", "--slots",
+                "4", "--max-seq", "1024", "--prefill-chunk", "256", "--seed", str(SEED), "--prompt-len", "200",
+                "601", "--temperature", "0"]
+        st = {"times": {"chunk": [], "tail": [], "decode": []}, "checked": {}, "last": {}, "orig": {}}
+
+        def copy_to(t, where):
+            """A copy of a cache tree (dicts of tensors and ints) on ``where``."""
+            if isinstance(t, dict):
+                return {k: copy_to(x, where) for k, x in t.items()}
+            return t.to(where, copy=True) if isinstance(t, torch.Tensor) else t
+
+        def as_f32(t):
+            """A copy of a parameter or cache tree with every float leaf in f32."""
+            if isinstance(t, dict):
+                return {k: as_f32(x) for k, x in t.items()}
+            if isinstance(t, api.DipWeight):
+                return t.with_data(t.data.float())
+            if isinstance(t, torch.Tensor):
+                return t.to(torch.float32 if t.is_floating_point() else t.dtype, copy=True)
+            return t
+
+        def hook(server, reqs):
+            """Gate 1, then every count to 0; the engine's steps timed by
+            kind (a prefill chunk, a single-token forward of the prefill
+            tail, a decode step), and the first chunk and decode step run
+            again on a copy of their inputs through the plain versions."""
+            eng, c = server.engine, server.engine.cfg
+            cd = getattr(torch, c.compute_dtype)
+            torch.cuda.synchronize()
+            st.update(server=server, reqs=reqs, allocated_after_init_gib=torch.cuda.memory_allocated() / 2**30,
+                      init_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            lp = tf_model._layers(server.params["layers"], c.n_layers)[0]
+            x = server.params["embed"][torch.as_tensor(reqs[0].prompt[:257], device=dev)][None].to(cd)
+            blocks = {}
+            for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_backends)):
+                with ctx(), torch.no_grad():
+                    y0, c0 = tf_model._mamba_block(x[:, :256], lp, c, ssm.init_ssm_cache(1, c, cd, device=dev))
+                    y1, c1 = tf_model._mamba_block(x[:, 256:], lp, c, c0)
+                    blocks[label] = {"chunk output": y0, "chunk state": c0["state"], "chunk conv": c0["conv"],
+                                     "decode output": y1, "decode state": c1["state"]}
+                    if c.is_hybrid:  # the shared block on the kernels' Mamba2 output, the same on both sides
+                        pos = torch.arange(256, device=dev)
+                        acache = attention.init_gqa_cache(1, c.n_kv_heads, 1024, c.resolved_head_dim, cd, dev)
+                        blocks[label]["shared block"] = tf_model._transformer_block(
+                            blocks["kernels"]["chunk output"], server.params["shared_attn"], c, positions=pos,
+                            rope=layers.rope_tables(pos, c.resolved_head_dim, c.rope_theta), cache=acache,
+                            attn_backend="flash" if label == "kernels" else None)[0]
+            for key in blocks["kernels"]:
+                close(f"layer 0 {key} (256-token chunk from zero state, then one decode token) kernels vs plain"
+                      if "shared" not in key else "shared attention+FFN block (256 tokens, flash vs dense) "
+                      "kernels vs plain", blocks["kernels"][key], blocks["plain"][key], TOL["bfloat16"])
+            del blocks, x
+            plain_steps = {"_prefill_fwd": tf_model.decode_step_fn(c), "_decode": tf_model.paged_decode_step_fn(c)}
+            c32 = dataclasses.replace(c, param_dtype="float32", compute_dtype="float32", matmul_backend="torch")
+            f32_steps = {"_prefill_fwd": tf_model.decode_step_fn(c32), "_decode": tf_model.paged_decode_step_fn(c32)}
+            for attr in ("_prefill_fwd", "_decode"):
+                st["orig"][attr] = getattr(eng, attr)
+
+                def run(*a, _f=getattr(eng, attr), _attr=attr):
+                    kind = "decode" if _attr == "_decode" else "chunk" if a[2].shape[1] > 1 else "tail"
+                    st["last"][kind] = a  # the last step's inputs, profiled after the run
+                    first = kind != "tail" and kind not in st["checked"]
+                    inputs = copy_to(a[1], "cpu") if first else None  # on the host: no card memory
+                    tape = {}
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    with block_tape(tf_model, "record", tape) if first else contextlib.nullcontext():
+                        out = _f(*a)
+                    torch.cuda.synchronize()
+                    st["times"][kind].append(time.perf_counter() - t)
+                    if not bool(torch.isfinite(out[0][..., :c.vocab_size]).all()):
+                        raise AssertionError(f"{arch} full width: non-finite logits from a {kind} call")
+                    if first:
+                        # the plain step on copies of the inputs: replaying
+                        # the kernels' block inputs, and running freely; and
+                        # the same bf16 weights and inputs in f32 (torch.matmul).
+                        # The serving peak is read before, and reset after
+                        st["peak"] = max(st.get("peak", 0), torch.cuda.max_memory_allocated())
+                        v = c.vocab_size
+                        with plain_backends(), torch.no_grad():
+                            with block_tape(tf_model, "replay", tape):
+                                forced = plain_steps[_attr](a[0], copy_to(inputs, dev), *a[2:])[0][..., :v].float()
+                            free = plain_steps[_attr](a[0], copy_to(inputs, dev), *a[2:])[0][..., :v].float()
+                        with torch.no_grad():
+                            f32 = f32_steps[_attr](as_f32(a[0]), as_f32(copy_to(inputs, dev)),
+                                                   *a[2:])[0][..., :v].float()
+                        if len(tape["record"]) != len(tape["replay"]):
+                            raise AssertionError(f"{arch}: the plain run took other blocks than the kernels' run")
+                        st["checked"][kind] = dict(
+                            got=out[0][..., :v].float(), forced=forced, free=free, f32=f32,
+                            blocks=[((ok - op).abs().max() / op.abs().max().clamp(min=1.0)).item()
+                                    for (_, ok), (_, op) in zip(tape["record"], tape["replay"])])
+                        del inputs, forced, free, f32, tape
+                        torch.cuda.empty_cache()
+                        torch.cuda.reset_peak_memory_stats()
+                    return out
+                setattr(eng, attr, run)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = serve_cli.main(argv, on_server=hook)
+        wall = time.perf_counter() - t0
+        launches, routes = read_counts(), flash_routes()
+        peak = max(st.get("peak", 0), torch.cuda.max_memory_allocated())
+        server, reqs, times = st["server"], st["reqs"], st["times"]
+        c = server.engine.cfg
+        assert (c.n_layers, c.d_model, c.vocab_size) == dims
+        n_chunk, n_tail, n_decode = (len(times[k]) for k in ("chunk", "tail", "decode"))
+        n_params = sum(t.numel() for t in tree.leaves(server.params))
+        plens = [len(r.prompt) for r in reqs]
+        log(f"  {n_params} parameters ({st['allocated_after_init_gib']:.2f} GiB allocated after init, init peak "
+            f"{st['init_peak_gib']:.2f} GiB); prompts {plens}: {n_chunk} prefill chunks, {n_tail} single-token "
+            f"forwards of the prefill tail, {n_decode} decode steps, wall {wall:.2f} s")
+        if sorted(results) != [0, 1, 2, 3] or any(not v for v in results.values()):
+            raise AssertionError(f"{arch} full width: not every request was served")
+        if (n_chunk, n_tail) != (sum(n // 256 for n in plens), sum(n % 256 for n in plens)):
+            raise AssertionError(f"{arch} full width: the prefill did not run whole chunks, then the tail token "
+                                 f"by token")
+        if n_decode != server.last_stats["decode_steps"]:
+            raise AssertionError(f"{arch} full width: decode steps disagree with the engine's stats")
+        n_fwd = n_chunk + n_tail + n_decode
+        want = {"dip_matmul": per_forward * n_fwd, "dip_matmul_q": 0, "dip_systolic": 0,
+                "flash_attention": flash_per_call * (n_chunk + n_tail), "lm_head_ce": 0}
+        log(f"  launches {launches}, flash by route {routes}; expected {want}: "
+            f"{launches['dip_matmul'] / n_fwd:g} dip_matmul launches per forward, "
+            f"{launches['flash_attention'] / max(1, n_chunk + n_tail):g} flash launches per prefill call")
+        if launches != want or routes["tensor_cores"] != 0:
+            raise AssertionError(f"{arch} full width: launch counts differ from {per_forward} DiP launches per "
+                                 f"forward and {flash_per_call} flash launches per prefill call on the CUDA-core route")
+        pools = server.engine.kv.pools["layers"]
+        kv_bytes = kvc.bytes_per_block(c)
+        slot_bytes = sum(pools[nm].numel() * pools[nm].element_size() for nm in ("conv", "state")) // 4
+        attn_bytes = sum(t.numel() * t.element_size() for t in pools.get("attn", {}).values())
+        log(f"  KV bytes per 16-token block {kv_bytes} (the paged pool: {attn_bytes} bytes in "
+            f"{server.engine.kv.num_blocks} blocks); state bytes per slot {slot_bytes} (conv history and f32 "
+            f"state); peak memory while serving {peak / 2**30:.2f} GiB")
+        if (kv_bytes, slot_bytes) != (kv_bytes_want, slot_bytes_want) or (
+                attn_bytes != kv_bytes * server.engine.kv.num_blocks if c.is_hybrid else attn_bytes != 0):
+            raise AssertionError(f"{arch} full width: the pools do not cost {kv_bytes_want} bytes per block and "
+                                 f"{slot_bytes_want} per slot")
+        # gate 2: the first prefill chunk's and decode step's logits against
+        # the plain versions on the card on the same inputs.  Two bf16 runs
+        # of these random-weight SSM stacks drift apart block by block (each
+        # block's roundings feed every later one): running freely, zamba2's
+        # first chunk differs by 2.97e-01 at max|plain| 5.06, while the
+        # kernels' and the plain run sit 3.10e-01 and 3.17e-01 from an f32
+        # run of the same bf16 weights (H100 80GB HBM3, 700 W).  So the
+        # plain run replays the kernels' run's input to every block, and
+        # FULL_TOL holds each block's output and the logits; running freely,
+        # the kernels' logits must be no further from the f32 run than
+        # F32_DRIFT times the plain run's, and the free difference is printed
+        checked = {}
+        for kind, r in st["checked"].items():
+            got, forced = r["got"], r["forced"]
+            scale = max(1.0, forced.abs().max().item())
+            err = (got - forced).abs()
+            within = float((err <= TOL["bfloat16"] * scale).float().mean())
+            worst_block = max(r["blocks"])
+            free_err = (got - r["free"]).abs().max().item()
+            k32, p32 = (got - r["f32"]).abs().max().item(), (r["free"] - r["f32"]).abs().max().item()
+            log(f"  first {kind} call, kernels against plain on the card, the plain run replaying the kernels' "
+                f"block inputs: logits max|err| {err.max().item():.3e} (max|plain| {scale:.3g}, bound {FULL_TOL:g} x "
+                f"scale), {100 * within:.4f}% within {TOL['bfloat16']:g} x scale; the worst of {len(r['blocks'])} "
+                f"blocks {worst_block:.3e} of its scale (bound {FULL_TOL:g}), "
+                f"{sum(b <= TOL['bfloat16'] for b in r['blocks'])} within {TOL['bfloat16']:g}; running freely: "
+                f"logits max|kernels - plain| {free_err:.3e}, max|kernels - f32| {k32:.3e}, max|plain - f32| "
+                f"{p32:.3e} (bound {F32_DRIFT:g} x the plain run's)")
+            if not bool((err <= FULL_TOL * scale).all()) or worst_block > FULL_TOL:
+                raise AssertionError(f"{arch} full width: {kind} logits or a block outside the stated bound")
+            if k32 > F32_DRIFT * p32:
+                raise AssertionError(f"{arch} full width: the kernels' {kind} logits drift from the f32 run more "
+                                     f"than the plain run's")
+            checked[kind] = {"max_err_replayed_inputs": err.max().item(), "max_plain": scale,
+                             "within_tol_share": within, "worst_block_rel": worst_block,
+                             "max_err_free": free_err, "max_err_kernels_f32": k32, "max_err_plain_f32": p32}
+        if set(checked) != {"chunk", "decode"}:
+            raise AssertionError(f"{arch} full width: a step was never checked against plain")
+        generated = sum(len(v) for v in results.values())
+        serving = {
+            "median_prefill_chunk_ms": 1e3 * statistics.median(times["chunk"]),
+            "median_decode_step_ms": 1e3 * statistics.median(times["decode"]),
+            "tail_forwards": n_tail, "mean_tail_forward_ms": 1e3 * statistics.mean(times["tail"]),
+            "median_tail_forward_ms": 1e3 * statistics.median(times["tail"]),
+            "tail_s": sum(times["tail"]), "chunks_s": sum(times["chunk"]),
+            "prefill_tok_per_s": sum(plens) / (sum(times["chunk"]) + sum(times["tail"])),
+            "decode_tok_per_s": (generated - len(reqs)) / sum(times["decode"]),
+            "peak_memory_gib": peak / 2**30, "kv_bytes_per_block": kv_bytes, "state_bytes_per_slot": slot_bytes,
+            "parameters": n_params, "checked": checked, "wall_s": wall, "prefill_chunks": n_chunk,
+            "decode_steps": n_decode,
+        }
+        log(f"  results: { {k: v[:6] for k, v in results.items()} }")
+        serving["profile_decode"] = profile_step(st["orig"]["_decode"], st["last"]["decode"], "decode step")
+        serving["profile_prefill"] = profile_step(st["orig"]["_prefill_fwd"], st["last"]["chunk"], "prefill chunk")
+        serving["profile_tail"] = profile_step(st["orig"]["_prefill_fwd"], st["last"]["tail"],
+                                               "single-token forward of the prefill tail")
+        log("  serving " + json.dumps(serving))
+        st.clear()
+        del server, reqs, results, pools
+        torch.cuda.empty_cache()
+        return launches, routes, serving
+
+    log("phase 5e: zamba2-2.7b full width (54 Mamba2 layers, d_model 2560, state 64; one shared attention+FFN "
+        "block at 9 call sites, 32 heads of 80), bf16, dip storage, through launch.serve")
+    # per forward: in_proj and out_proj (residual) of each of 54 Mamba2
+    # layers; wq, wk, wv (rmsnorm prologue), wo (residual), gate+up and down
+    # of the shared block at each of 9 sites; the lm_head.  Flash: the 9
+    # sites of every prefill call, a single-token one of the tail included.
+    # KV: 9 instances x 16 tokens x (k, v) x 32 heads x 80 x 2 bytes
+    launches_zb, routes_zb, zb_serving = serve_ssm(
+        "5e", "zamba2-2.7b", 54 * 2 + 9 * 6 + 1, 9, 9 * 16 * 2 * 32 * 80 * 2,
+        54 * (3 * 5248 * 2 + 80 * 64 * 64 * 4), (54, 2560, 32000))
+    log("phase 5f: mamba2-370m full width (48 Mamba2 layers, d_model 1024, state 128, tied head), bf16, dip "
+        "storage, through launch.serve")
+    # per forward: in_proj and out_proj of each of 48 layers; the tied head
+    # is torch.matmul of the embedding, as in the reference; nothing paged
+    launches_mb, routes_mb, mb_serving = serve_ssm(
+        "5f", "mamba2-370m", 48 * 2, 0, 0, 48 * (3 * 2304 * 2 + 32 * 64 * 128 * 4), (48, 1024, 50280))
+    routes_by_path.update(serve_zamba2=routes_zb, serve_mamba2=routes_mb)
+
     # ------------------------------------------- 6. full-width training -----
     log("phase 6: llama3-8b full width cut to 4 layers (f32 params, bf16 compute, dip, block remat) "
         "through launch.train")
@@ -1575,6 +1942,65 @@ def main():
             rows_out.append(row)
             log("  " + json.dumps(row))
             del q, k, v, mask
+
+    # the SSM paths' projections (phases 5e, 5f) in bf16, as served, at M = 1
+    # (the prefill tail), 4 (a decode step) and 256 (a prefill chunk): the
+    # kernel at the storage width (10496 / 4416 for in_proj), the bound and
+    # the library call at the logical width, the work the function needs;
+    # and zamba2's shared attention at D = 80 on flash's CUDA-core route
+    ssm_rows = []
+    for m in (1, 4, 256):
+        for label, k, n, e, pr in ssm_proj:
+            ns = -(-n // 64) * 64
+            x, p, eops, kw = dip_inputs(m, k, ns, e, pr, torch.bfloat16)
+            s = epi.spec(e)
+            nw = 2 if s.dual_weight else 1
+            wn = [api.DipWeight(w, k, ns).to_natural()[:, :n].contiguous() for w in (p,) + eops[:nw - 1]]
+            res = eops[0][:, :n].contiguous() if s.residual else None
+            gain = kw["prologue_operands"][0] if pr == "rmsnorm" else None
+
+            def library():
+                xx = pro.apply("rmsnorm", x, gain) if gain is not None else x
+                z = torch.matmul(xx, wn[0])
+                if s.dual_weight:
+                    return F.silu(z) * torch.matmul(xx, wn[1])
+                return z + res if s.residual else z
+
+            nbytes = (m * k + nw * k * n + m * n * (2 if s.residual else 1)) * 2 + (4 * (k + m) if gain is not None else 0)
+            b_ms, b_by = bound_ms(nbytes, 2 * m * k * n * nw, "bfloat16")
+            row = dict(kernel="dip_matmul", dtype="bfloat16", shape=f"M={m} {label} K={k} N={n} (storage {ns}) {e}/{pr}",
+                       plan=plan_label(m, ns, k, e, "bfloat16").strip(" []"),
+                       ms=time_ms(lambda: dip_matmul(x, p, *eops, **kw)),
+                       host_ms=time_ms(lambda: dip_matmul(x, p, *eops, **kw), queued=False),
+                       plain_ms=time_ms(lambda: dip_matmul_plain(x, p, *eops, **kw)),
+                       library_ms=time_ms(library), bound_ms=b_ms, bound_by=b_by)
+            rows_out.append(row)
+            ssm_rows.append(row)
+            log("  " + json.dumps(row))
+            del x, p, eops, wn, res
+    for zsq, qo, kvl in zb_flash:
+        q = torch.randn(bh, zsq, 80, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(bh, sk, 80, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+        kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
+        i = torch.arange(zsq, device=dev)
+        live = int(torch.clamp(torch.minimum(torch.tensor(kvl, device=dev), qo + i + 1), min=0).sum()) * bh
+        keys = min(sk, kvl, qo + zsq) * bh
+        b_ms, b_by = bound_ms((q.numel() + keys * 160 + bh * zsq * 80) * 2 + 8 * bh, 2 * live * 160, "bfloat16")
+        mask = (torch.arange(sk, device=dev).view(1, -1) < kvl) & (qo + i.view(-1, 1) >= torch.arange(sk, device=dev).view(1, -1))
+        row = dict(kernel="flash_attention", dtype="bfloat16",
+                   shape=f"BH={bh} Sq={zsq} Sk={sk} D=80 Dv=80 q_offset {qo} kv_len {kvl}",
+                   route=flash_route(torch.bfloat16, 80, 80),
+                   ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
+                   host_ms=time_ms(lambda: flash_attention(q, k, v, **kw), queued=False),
+                   plain_ms=time_ms(lambda: attention_plain(q, k, v, **kw)),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                                             attn_mask=mask[None, None],
+                                                                             scale=80 ** -0.5)),
+                   bound_ms=b_ms, bound_by=b_by)
+        rows_out.append(row)
+        ssm_rows.append(row)
+        log("  " + json.dumps(row))
+        del q, k, v, mask
 
     # lm_head_ce at the full-width training shape, in both training dtypes;
     # the work needed is the first vocab columns only (the rest are masked)
@@ -1793,7 +2219,7 @@ def main():
     # each kernel's launches on each main path, counted from 0 around it
     paths = {"serve": serve_launches, "train": train_launches, "serve_int8": qserve["int8"]["launches"],
              "serve_fp8": qserve["fp8_e4m3"]["launches"], "serve_systolic": launches_s,
-             "serve_deepseek": launches_ds}
+             "serve_deepseek": launches_ds, "serve_zamba2": launches_zb, "serve_mamba2": launches_mb}
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
     counter_of = {"dip_matmul_q_int8": "dip_matmul_q", "dip_matmul_q_fp8": "dip_matmul_q"}
     path_of = {"dip_matmul_q_int8": ("serve_int8",), "dip_matmul_q_fp8": ("serve_fp8",), "quantize_pass": ("serve_int8",)}
@@ -1816,6 +2242,12 @@ def main():
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
     flash_line["launches_by_route"] = {r: sum(v[r] for v in routes_by_path.values())
                                        for r in ("tensor_cores", "cuda_cores")}
+    # the SSM slice's shapes: each kernel's rows at them (phase 7 above)
+    for kk in kernels:
+        if kk["name"] in ("dip_matmul", "flash_attention"):
+            kk["zamba2_mamba2_shapes"] = [
+                {key: r[key] for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for r in ssm_rows if r["kernel"] == kk["name"]]
     flash_line["route_of_timed_shape"] = next(r for r in rows_out if r["kernel"] == "flash_attention"
                                               and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
     for name, scheme in (("dip_matmul_q_fp8", "fp8_e4m3"), ("dip_matmul_q_int8", "int8")):

@@ -1,8 +1,10 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
-The dense ``llama3-8b`` and the two MoE configurations (``deepseek-v2-lite-16b``
-with multi-head latent attention, ``qwen3-moe-235b-a22b`` with GQA) are
-ported; the other seven come with their families (ROADMAP.md Queue 1 "Other
+The dense ``llama3-8b``, the two MoE configurations (``deepseek-v2-lite-16b``
+with multi-head latent attention, ``qwen3-moe-235b-a22b`` with GQA), the
+attention-free ``mamba2-370m`` (tied embeddings) and the hybrid
+``zamba2-2.7b`` (Mamba2 blocks and one shared attention+FFN block) are
+ported; the other five come with their families (ROADMAP.md Queue 1 "Other
 model families").
 """
 
@@ -13,12 +15,15 @@ from typing import Dict, List
 
 from repro_torch.configs.base import ArchConfig
 
-ALL_ARCHS: List[str] = ["deepseek_v2_lite_16b", "qwen3_moe_235b_a22b", "llama3_8b"]
+ALL_ARCHS: List[str] = ["deepseek_v2_lite_16b", "qwen3_moe_235b_a22b", "llama3_8b", "mamba2_370m",
+                        "zamba2_2_7b"]
 
 _ALIASES: Dict[str, str] = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "llama3-8b": "llama3_8b",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 

@@ -11,6 +11,10 @@ reference's ``QuantizedDipWeight`` (checked first, so its scales are never
 dropped); any other with ``data`` (numpy storage, kept permutated),
 ``d_in``, ``d_out`` and ``perm_tile`` is a ``DipWeight``.
 
+Every family's tree converts leaf by leaf the same way: the SSM scalars and
+norms as tensors, ``in_proj`` / ``out_proj`` as ``DipWeight``, the hybrid's
+``shared_attn`` subtree, and a tied model's tree without ``lm_head``.
+
 ``opt_state_from_jax(np_opt_state, device)`` converts the reference's AdamW
 state the same way (moments leaf by leaf, ``count`` as an int), so that one
 optimizer step can be compared leaf by leaf.
@@ -44,6 +48,8 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 def _convert(v, dev):
     if isinstance(v, dict):
         return {k: _convert(x, dev) for k, x in v.items()}
+    if isinstance(v, np.ndarray):  # (its .data is a buffer, which refuses bf16)
+        return tensor_from_numpy(v, dev)
     dip = all(hasattr(v, a) for a in ("data", "d_in", "d_out", "perm_tile"))
     if dip and hasattr(v, "scale") and hasattr(v, "scheme"):
         return QuantizedDipWeight(tensor_from_numpy(v.data, dev), tensor_from_numpy(v.scale, dev),
@@ -58,9 +64,17 @@ def params_from_jax(np_params: Dict[str, Any], cfg, device="cuda") -> Dict[str, 
     """Convert a (nested) reference parameter dict for ``cfg`` to the port's
     layout on ``device`` (default ``"cuda"``)."""
     params = _convert(np_params, resolve_device(device))
-    if cfg.uses_dip_storage != isinstance(params.get("lm_head"), (DipWeight, QuantizedDipWeight)):
+    if cfg.uses_dip_storage != _holds_dip(params):
         raise ValueError(f"parameter storage does not match cfg.uses_dip_storage={cfg.uses_dip_storage}")
     return params
+
+
+def _holds_dip(t) -> bool:
+    """Whether any linear of the tree is DiP-stored (a tied model has no
+    ``lm_head``; its projections are the ``layers`` ones)."""
+    if isinstance(t, dict):
+        return any(_holds_dip(v) for v in t.values())
+    return isinstance(t, (DipWeight, QuantizedDipWeight))
 
 
 def opt_state_from_jax(np_opt_state: Dict[str, Any], device="cuda") -> Dict[str, Any]:

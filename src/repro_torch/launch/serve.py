@@ -13,10 +13,12 @@ with f32 scales.  ``--device cpu`` runs the plain PyTorch versions instead::
 
     python -m repro_torch.launch.serve --arch llama3-8b --full --quantize int8 --kv-quant int8
 
-The MoE configurations serve the same way, in bf16 (their quantized
-serving comes with ROADMAP.md Queue 1 "Quantization")::
+The MoE, SSM and hybrid configurations serve the same way, in bf16 (their
+quantized serving comes with ROADMAP.md Queue 1 "Quantization")::
 
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --full
+    python -m repro_torch.launch.serve --arch mamba2-370m --full
 """
 
 from __future__ import annotations
@@ -68,9 +70,9 @@ def main(argv=None, on_server=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if (cfg.is_moe or cfg.use_mla) and (args.quantize or args.kv_quant not in (None, "none")):
-        raise NotImplementedError(f"{cfg.name}: --quantize / --kv-quant on the MoE and MLA families are not "
-                                  'ported yet (ROADMAP.md Queue 1 "Quantization")')
+    if (cfg.is_moe or cfg.use_mla or cfg.ssm_state) and (args.quantize or args.kv_quant not in (None, "none")):
+        raise NotImplementedError(f"{cfg.name}: --quantize / --kv-quant on the MoE, MLA, SSM and hybrid families "
+                                  'are not ported yet (ROADMAP.md Queue 1 "Quantization")')
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, matmul_backend="dip", param_dtype=args.dtype,

@@ -1,6 +1,5 @@
 """The decoder: parameters, forward, caches, the serving steps and the
-training objective (port of the transformer-family parts of
-``repro/models/transformer.py``).
+training objective (port of ``repro/models/transformer.py``).
 
 Parameters are a nested dict with layer-stacked leaves (leading axis =
 n_layers), as in the reference; a Python loop over the layers takes the
@@ -12,11 +11,18 @@ included) under ``cfg.quantization``; ``cfg.kv_quant`` selects the int8
 paged KV pool.  A block's attention is GQA or, under ``cfg.use_mla``,
 multi-head latent attention with its latent caches; its FFN is the dense
 SwiGLU MLP or, for the ``moe`` family, the routed experts plus the shared
-ones (``models/moe.py``).  ``loss_fn`` takes the fused lm_head +
+ones (``models/moe.py``).  The ``ssm`` family stacks Mamba2 blocks
+(``models/ssm.py``), and the ``hybrid`` family follows every
+``attn_every``-th of them with one shared attention+FFN block whose
+parameters all call sites share, each site with its own KV cache; their
+caches hold a per-sequence conv history and f32 state beside the shared
+block's K/V.  Under ``cfg.tie_embeddings`` the head is the embedding: f32
+sums of the compute-dtype products, outside the DiP kernel as in the
+reference.  ``loss_fn`` takes the fused lm_head +
 cross-entropy kernel (``kernels/lm_head_ce.py``) unless told otherwise, and
-``train_step_fn`` applies one AdamW step in place.  Training the MoE and
-MLA families, their quantized serving, the SSM and hybrid families, tied
-embeddings, sharding plans and the reliability guard come with their
+``train_step_fn`` applies one AdamW step in place.  Training the MoE, MLA,
+SSM and hybrid families and tied heads, their quantized serving, the stub
+frontends, sharding plans and the reliability guard come with their
 ROADMAP.md items and raise ``NotImplementedError`` here.
 """
 
@@ -32,7 +38,7 @@ from repro_torch import api, tree
 from repro_torch.core import permute
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.kernels import lm_head_ce
-from repro_torch.models import attention, layers, moe
+from repro_torch.models import attention, layers, moe, ssm
 
 __all__ = [
     "param_template",
@@ -54,29 +60,29 @@ _QUANT = 'ROADMAP.md Queue 1 "Quantization"'
 
 def _require_served(cfg, kv_quant: Optional[str] = None) -> None:
     """Raise for every configuration the port does not serve: it serves the
-    dense and MoE families, with GQA or MLA attention; quantized weights or
-    an int8 KV pool (``kv_quant``, default ``cfg.kv_quant``) only for the
-    dense family with GQA."""
+    dense, MoE, SSM and hybrid families, with GQA or MLA attention and tied
+    or separate heads; quantized weights or an int8 KV pool (``kv_quant``,
+    default ``cfg.kv_quant``) only for the dense family with GQA."""
     missing = []
-    if cfg.ssm_state or cfg.attn_every or cfg.family not in ("dense", "moe"):
-        missing.append(f"the {cfg.family} family ({_FAMILIES})")
-    if cfg.tie_embeddings or cfg.frontend != "none":
-        missing.append(f"tied embeddings / stub frontends ({_FAMILIES})")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend != "none":
+        missing.append(f"the {cfg.family} family / stub frontends ({_FAMILIES})")
     if cfg.sharding != "gspmd":
         missing.append(f"sharding plans ({_DISTRIBUTED})")
     kvq = cfg.kv_quant if kv_quant is None else kv_quant
-    if (cfg.is_moe or cfg.use_mla) and (cfg.quantization != "none" or kvq != "none"):
-        missing.append(f"quantized weights or KV pools for MoE / MLA ({_QUANT})")
+    if (cfg.is_moe or cfg.use_mla or cfg.ssm_state) and (cfg.quantization != "none" or kvq != "none"):
+        missing.append(f"quantized weights or KV pools for MoE / MLA / SSM / hybrid ({_QUANT})")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
 
 
 def _require_trainable(cfg) -> None:
-    """Training is ported for the dense family with GQA only."""
+    """Training is ported for the dense family with GQA and a separate
+    head only."""
     _require_served(cfg)
-    if cfg.is_moe or cfg.use_mla:
-        raise NotImplementedError(f"{cfg.name}: training the MoE and MLA families (router aux loss, "
-                                  f"gradients through the routing) is not ported yet ({_FAMILIES})")
+    if cfg.is_moe or cfg.use_mla or cfg.ssm_state or cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: training the MoE, MLA, SSM and hybrid families and tied "
+                                  f"heads (router aux loss, gradients through the routing and the scan) "
+                                  f"is not ported yet ({_FAMILIES})")
 
 
 def _no_plan(plan, constrain) -> None:
@@ -100,13 +106,16 @@ def param_template(cfg) -> Dict[str, Any]:
     projections and the shared experts are linears like the others."""
     _require_served(cfg)
     d, v, L, pdt = cfg.d_model, cfg.padded_vocab, cfg.n_layers, cfg.param_dtype
-    hd = cfg.resolved_head_dim
-    shape, fan, dip = _lin(cfg, d, v)
     t: Dict[str, Any] = {
         "embed": ((v, d), pdt, d, None),
         "final_norm": ((d,), pdt, None, None),
-        "lm_head": (shape, pdt, fan, dip),
     }
+    if not cfg.tie_embeddings:
+        shape, fan, dip = _lin(cfg, d, v)
+        t["lm_head"] = (shape, pdt, fan, dip)
+    if cfg.ssm_state:
+        return _mamba_template(cfg, t)
+    hd = cfg.resolved_head_dim
     blk: Dict[str, Any] = {
         "attn_norm": ((L, d), pdt, None, None),
         "ffn_norm": ((L, d), pdt, None, None),
@@ -140,6 +149,32 @@ def param_template(cfg) -> Dict[str, Any]:
     return t
 
 
+def _mamba_template(cfg, t: Dict[str, Any]) -> Dict[str, Any]:
+    """The mamba2 stack (ssm and hybrid families) and, for the hybrid, the
+    one ``shared_attn`` subtree (attention + SwiGLU FFN, unstacked)."""
+    d, L, pdt = cfg.d_model, cfg.n_layers, cfg.param_dtype
+    dims = ssm.ssm_dims(cfg)
+
+    def stacked(shape, fan=None, dip=None):
+        return ((L,) + tuple(shape), pdt, fan, dip)
+
+    blk = dict(norm_in=stacked((d,)), in_proj=stacked(*_lin(cfg, d, dims["in_dim"])),
+               conv_w=stacked((cfg.ssm_conv, dims["conv_dim"]), cfg.ssm_conv), conv_b=stacked((dims["conv_dim"],)),
+               dt_bias=stacked((dims["heads"],)), A_log=stacked((dims["heads"],)), D=stacked((dims["heads"],)),
+               norm=stacked((dims["d_inner"],)), out_proj=stacked(*_lin(cfg, dims["d_inner"], d)))
+    t["layers"] = blk
+    if cfg.is_hybrid:
+        hd = cfg.resolved_head_dim
+        sh: Dict[str, Any] = {"attn_norm": ((d,), pdt, None, None), "ffn_norm": ((d,), pdt, None, None)}
+        for nm, (di, do) in dict(wq=(d, cfg.n_heads * hd), wk=(d, cfg.n_kv_heads * hd),
+                                 wv=(d, cfg.n_kv_heads * hd), wo=(cfg.n_heads * hd, d),
+                                 w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff), w_down=(cfg.d_ff, d)).items():
+            shape, fan, dip = _lin(cfg, di, do)
+            sh[nm] = (shape, pdt, fan, dip)
+        t["shared_attn"] = sh
+    return t
+
+
 def quantize_params(params: Dict[str, Any], scheme: str) -> Dict[str, Any]:
     """Quantize every DiP-stored projection to ``scheme`` storage (the
     offline calibration step: once at init or load, never per forward).
@@ -154,7 +189,8 @@ def quantize_params(params: Dict[str, Any], scheme: str) -> Dict[str, Any]:
 
 def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
     """Materialize parameters on ``device`` from ``generator``: truncated
-    normal (-2, 2) scaled by fan_in^-1/2, norms at 1, biases at 0.  DiP
+    normal (-2, 2) scaled by fan_in^-1/2, norms (and the SSM's D) at 1,
+    biases at 0, the SSM's A_log and dt_bias as the reference draws them.  DiP
     weights are drawn in natural layout one matrix at a time and permutated
     on the device (the offline step of paper Fig. 3); under
     ``cfg.quantization`` each matrix is quantized as it is drawn, so no
@@ -202,7 +238,17 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
     def build(t):
         return {k: build(v) if isinstance(v, dict) else make(k, *v) for k, v in t.items()}
 
-    return build(param_template(cfg))
+    params = build(param_template(cfg))
+    if cfg.ssm_state:
+        # the SSM scalars: A = -exp(A_log) with A_log = log U(1, 16), dt_bias
+        # the inverse softplus of U(1e-3, 0.1), a zero conv bias
+        lyr, pdt, shape = params["layers"], dtype_of(cfg.param_dtype), (cfg.n_layers, cfg.n_ssm_heads)
+        u = torch.empty(shape, dtype=torch.float32, device=dev)
+        lyr["A_log"] = torch.log(u.uniform_(1.0, 16.0, generator=generator)).to(pdt)
+        dt0 = torch.empty(shape, dtype=torch.float32, device=dev).uniform_(1e-3, 0.1, generator=generator)
+        lyr["dt_bias"] = (dt0 + torch.log(-torch.expm1(-dt0))).to(pdt)
+        lyr["conv_b"] = torch.zeros_like(lyr["conv_b"])
+    return params
 
 
 def _layers(layer_params: Dict[str, Any], n_layers: int) -> List[Dict[str, Any]]:
@@ -268,10 +314,16 @@ def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_b
 
 def _head(params, cfg, x):
     """The lm_head through ``linear`` on final-normed x, padded-vocab lanes
-    masked to -1e30."""
+    masked to -1e30.  A tied head is the embedding cast to the compute
+    dtype, multiplied in f32: the exact products of the compute-dtype
+    values summed in f32, as the reference's ``preferred_element_type``
+    gives them (a bf16 ``torch.matmul`` would round the sums to bf16)."""
     cd = dtype_of(cfg.compute_dtype)
-    logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend,
-                           compute_dtype=cd).float()
+    if cfg.tie_embeddings:
+        logits = torch.matmul(x.to(cd).float(), params["embed"].to(cd).float().t())
+    else:
+        logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend,
+                               compute_dtype=cd).float()
     if cfg.padded_vocab != cfg.vocab_size:
         lane = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(lane >= cfg.vocab_size, -1e30)
@@ -291,7 +343,9 @@ def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optiona
     reference does.  ``moe_trace`` (a dict) collects each MoE layer's
     ``aux`` loss, ``dropped`` count and expert ``ids``, as lists in layer
     order; given ``replay_ids`` (a list of one run's ``ids``), every layer
-    routes as that run did.
+    routes as that run did.  The SSM and hybrid families run the chunked
+    SSD over S tokens, or with a cache and S = 1 the O(1) decode update,
+    and write each layer's new conv history and state into the cache.
     ``return_hidden=True`` skips the lm_head and returns the final-normed
     hidden states (B, S, d) in the compute dtype, for the fused loss.  With
     ``cfg.remat == "block"``, no cache and grad mode on, each block runs
@@ -301,11 +355,27 @@ def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optiona
     _require_served(cfg)
     cd = dtype_of(cfg.compute_dtype)
     x = F.embedding(tokens, params["embed"]).to(cd)
-    b, s = x.shape[:2]
+    s = x.shape[1]
     start = cache["pos"] if cache is not None else 0
     positions = torch.arange(start, start + s, device=x.device)
-    rope = layers.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
+    if cfg.ssm_state:
+        x = _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
+    else:
+        x = _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace)
+    new_cache = None if cache is None else dict(cache, pos=start + s)
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return (x if return_hidden else _head(params, cfg, x)), new_cache
+
+
+def _maybe_remat(block, x, remat):
+    return checkpoint(block, x, use_reentrant=False) if remat else block(x)
+
+
+def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace):
+    """The transformer families' layer loop; the cache is written in place."""
+    start = cache["pos"] if cache is not None else 0
+    rope = layers.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         lcache = None if cache is None else dict(
             {nm: t[i] for nm, t in cache["layers"].items()}, pos=start)
@@ -315,19 +385,76 @@ def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optiona
                                       kv_chunk=kv_chunk, attn_backend=attn_backend,
                                       moe_trace=moe_trace)[0]
 
-        x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
-    new_cache = None if cache is None else dict(cache, pos=start + s)
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x if return_hidden else _head(params, cfg, x)), new_cache
+        x = _maybe_remat(block, x, remat)
+    return x
+
+
+def _mamba_block(x, lp, cfg, cache):
+    """RMSNorm, then the SSD block with the skip connection in its out
+    projection's epilogue."""
+    return ssm.ssd_block(layers.rms_norm(x, lp["norm_in"], cfg.norm_eps), lp, cfg, cache=cache, residual=x)
+
+
+def _ssm_cache(pools, i):
+    """Layer ``i``'s conv history and state views of the stacked pools."""
+    return {"conv": pools["conv"][i], "state": pools["state"][i], "pos": 0}
+
+
+def _store_ssm(pools, i, new):
+    """Write a block's new conv history and state back into layer ``i`` of
+    the stacked pools, in place."""
+    pools["conv"][i].copy_(new["conv"])
+    pools["state"][i].copy_(new["state"])
+
+
+def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend):
+    """The mamba2 stack; for the hybrid, after every ``attn_every``-th layer
+    the shared attention+FFN block, whose parameters every call site shares
+    and whose K/V cache is the site's own (``cache["layers"]["attn"]``,
+    stacked over the ``n_layers // attn_every`` sites).  The RoPE tables
+    are built once, at the shared block's head dim.  The caches are written
+    in place."""
+    pools = None if cache is None else cache["layers"]
+    start = cache["pos"] if cache is not None else 0
+    if cfg.is_hybrid:
+        shared = params["shared_attn"]
+        rope = layers.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
+        def block(x, lp=lp, lcache=None if pools is None else _ssm_cache(pools, i)):
+            out, new = _mamba_block(x, lp, cfg, lcache)
+            if new is not None:
+                _store_ssm(pools, i, new)
+            return out
+
+        x = _maybe_remat(block, x, remat)
+        if cfg.is_hybrid and (i + 1) % cfg.attn_every == 0:
+            j = i // cfg.attn_every
+            acache = None if pools is None else dict({nm: t[j] for nm, t in pools["attn"].items()}, pos=start)
+
+            def shared_block(x, acache=acache):
+                return _transformer_block(x, shared, cfg, positions=positions, rope=rope, cache=acache,
+                                          kv_chunk=kv_chunk, attn_backend=attn_backend)[0]
+
+            x = _maybe_remat(shared_block, x, remat)
+    return x
 
 
 # ------------------------------------------------------------------ caches --
 def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
     """Layer-stacked dense decode cache: k/v (L, B, max_seq, KV, hd), or
     under MLA the latent c_kv (L, B, max_seq, kv_lora_rank) and the shared
-    k_rope (L, B, max_seq, rope)."""
+    k_rope (L, B, max_seq, rope); for the SSM families the conv history
+    conv (L, B, ssm_conv - 1, conv_dim) in the compute dtype and the state
+    (L, B, H, P, N) in f32, and for the hybrid the shared block's
+    attn = {k, v} (n_layers // attn_every, B, max_seq, KV, hd)."""
     _require_served(cfg)
     cd, L = dtype_of(cfg.compute_dtype), cfg.n_layers
+    if cfg.ssm_state:
+        layer_caches = _ssm_pools(cfg, batch, cd, device)
+        if cfg.is_hybrid:
+            shape = (cfg.n_layers // cfg.attn_every, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+            layer_caches["attn"] = {nm: torch.zeros(shape, dtype=cd, device=device) for nm in ("k", "v")}
+        return {"layers": layer_caches, "pos": 0}
     if cfg.use_mla:
         shapes = {"c_kv": (L, batch, max_seq, cfg.kv_lora_rank),
                   "k_rope": (L, batch, max_seq, cfg.qk_rope_head_dim)}
@@ -337,24 +464,47 @@ def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
     return {"layers": {nm: torch.zeros(sh, dtype=cd, device=device) for nm, sh in shapes.items()}, "pos": 0}
 
 
-def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "none",
+def _ssm_pools(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
+    """Every layer's conv history and state for ``batch`` rows, stacked."""
+    one = ssm.init_ssm_cache(batch, cfg, dtype, device=device)
+    return {nm: one[nm].expand((cfg.n_layers,) + tuple(one[nm].shape)).clone() for nm in ("conv", "state")}
+
+
+def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "none", slots: int = 0,
                      device) -> Dict[str, Any]:
     """Layer-stacked paged pools for the serving engine: k/v (L, num_blocks,
     block_size, KV, hd), and under int8 ``kv_quant`` their per-(token, head)
     f32 scales k_scale/v_scale (L, num_blocks, block_size, KV); under MLA
     the latent c_kv (L, num_blocks, block_size, kv_lora_rank) and k_rope
     (L, num_blocks, block_size, rope).  Block 0 is the null block
-    (serving/kv_cache.py).  The attention families keep nothing per slot,
-    so unlike the reference this takes no ``slots``."""
+    (serving/kv_cache.py).  The SSM families' conv history and state are
+    O(1) per sequence, so they get a plain pool of ``slots`` rows (``conv``
+    and ``state`` as in :func:`init_cache`, batch axis = slot) instead of
+    pages; the hybrid pages only its shared block's K/V, ``attn`` = {k, v}
+    (n_layers // attn_every, num_blocks, block_size, KV, hd).  The
+    attention families keep nothing per slot and ignore ``slots``."""
     _require_served(cfg, kv_quant)
     cd = dtype_of(cfg.compute_dtype)
+
+    def stacked(pool, n):
+        return {nm: t.expand((n,) + tuple(t.shape)).clone() for nm, t in pool.items()}
+
+    def gqa_pool():
+        return attention.init_paged_gqa_cache(
+            num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim, cd, kv_quant, device=device)
+
+    if cfg.ssm_state:
+        if slots < 1:
+            raise ValueError(f"{cfg.name}: the SSM state pools need slots >= 1, got {slots}")
+        pools: Dict[str, Any] = _ssm_pools(cfg, slots, cd, device)
+        if cfg.is_hybrid:
+            pools["attn"] = stacked(gqa_pool(), cfg.n_layers // cfg.attn_every)
+        return {"layers": pools}
     if cfg.use_mla:
         pool = attention.init_paged_mla_cache(num_blocks, block_size, cfg, cd, kv_quant, device=device)
     else:
-        pool = attention.init_paged_gqa_cache(
-            num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim, cd, kv_quant, device=device)
-    return {"layers": {nm: t.expand((cfg.n_layers,) + tuple(t.shape)).clone()
-                       for nm, t in pool.items()}}
+        pool = gqa_pool()
+    return {"layers": stacked(pool, cfg.n_layers)}
 
 
 def decode_step_fn(cfg, *, attn_backend: Optional[str] = None):
@@ -368,30 +518,47 @@ def decode_step_fn(cfg, *, attn_backend: Optional[str] = None):
     return step
 
 
+def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace):
+    """One attention+FFN block of the paged decode step (a layer of the
+    transformer families, or the hybrid's shared block at one site)."""
+    attn = attention.paged_mla_attention if cfg.use_mla else attention.paged_gqa_attention
+    fuse = _fuses_rmsnorm(cfg)
+    attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
+    x, _ = attn(attn_in, lp, cfg, positions=positions, cache=pools, block_tables=block_tables,
+                kv_quant=cfg.kv_quant, rope=rope, residual=x, norm=attn_g)
+    return _ffn(x, lp, cfg, fuse, moe_trace)
+
+
 def paged_decode_step_fn(cfg):
     """Returns ``step(params, cache, tokens, positions, block_tables) ->
     (logits, cache)``, the engine's decode step: tokens (slots, 1),
     positions (slots,), block_tables (slots, blocks_per_seq), all integer
     tensors on the parameters' device; the pools are updated in place.
-    ``moe_trace`` as in :func:`forward`."""
+    The SSM families update each slot's row of the state pools by the O(1)
+    decode (positions and block tables are read only by the hybrid's
+    shared block).  ``moe_trace`` as in :func:`forward`."""
     _require_served(cfg)
-    attn = attention.paged_mla_attention if cfg.use_mla else attention.paged_gqa_attention
 
     def step(params, cache, tokens, positions, block_tables, moe_trace=None):
         cd = dtype_of(cfg.compute_dtype)
         x = params["embed"][tokens].to(cd)
-        rope = layers.rope_tables(positions[:, None], _rope_dim(cfg), cfg.rope_theta)
-        fuse = _fuses_rmsnorm(cfg)
         pools = cache["layers"]
-        for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
-            attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
-                layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
-            x, _ = attn(
-                attn_in, lp, cfg, positions=positions,
-                cache={nm: pool[i] for nm, pool in pools.items()}, block_tables=block_tables,
-                kv_quant=cfg.kv_quant, rope=rope, residual=x, norm=attn_g,
-            )
-            x = _ffn(x, lp, cfg, fuse, moe_trace)
+        lps = _layers(params["layers"], cfg.n_layers)
+        if cfg.ssm_state:
+            if cfg.is_hybrid:
+                rope = layers.rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+            for i, lp in enumerate(lps):
+                x, new = _mamba_block(x, lp, cfg, _ssm_cache(pools, i))
+                _store_ssm(pools, i, new)
+                if cfg.is_hybrid and (i + 1) % cfg.attn_every == 0:
+                    j = i // cfg.attn_every
+                    x = _paged_block(x, params["shared_attn"], cfg, {nm: t[j] for nm, t in pools["attn"].items()},
+                                     positions, block_tables, rope, None)
+        else:
+            rope = layers.rope_tables(positions[:, None], _rope_dim(cfg), cfg.rope_theta)
+            for i, lp in enumerate(lps):
+                x = _paged_block(x, lp, cfg, {nm: pool[i] for nm, pool in pools.items()}, positions, block_tables,
+                                 rope, moe_trace)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head(params, cfg, x), cache
 
@@ -404,7 +571,7 @@ def _natural_head(params, cfg) -> torch.Tensor:
     parameter dtype, for the fused loss (a ``DipWeight`` is de-sheared, so a
     gradient reaches its permutated storage)."""
     if cfg.tie_embeddings:
-        raise NotImplementedError(f"tied embeddings are not ported yet ({_FAMILIES})")
+        raise NotImplementedError(f"training a tied head is not ported yet ({_FAMILIES})")
     head = params["lm_head"]
     return head.to_natural() if isinstance(head, api.DipWeight) else head
 

@@ -11,7 +11,11 @@ scheduler.  ``step()`` advances the whole pool by one tick:
        cache offset reaches the kernel as a device tensor; MLA takes its
        absorbed form against the latent cache instead, as the reference
        does), then its K/V (MLA: latent rows) are imported into the slot's
-       pool blocks;
+       pool blocks.  For the SSM families the last ``plen mod
+       prefill_chunk`` tokens run one at a time through the O(1) decode
+       path instead of a padded chunk (the recurrent state is exact only
+       over real tokens), and the conv history and state go to the slot's
+       row of the per-slot pools;
     3. **decode** — one step serves every running slot (free slots compute
        into the null block and are ignored), each row sampled with its
        request's own params and seeded stream.
@@ -92,6 +96,8 @@ class Engine:
             cfg = self.cfg = dataclasses.replace(cfg, kv_quant=self.kv_quant)
         blocks_per_seq = -(-ecfg.max_seq // self.block_size)
         num_blocks = ecfg.num_blocks or ecfg.slots * blocks_per_seq + 1
+        # pure SSM has no attention KV: its state is per slot, nothing is paged
+        self._paged = not cfg.is_ssm
         self.kv = kvc.PagedKVCache(
             cfg, num_blocks=num_blocks, block_size=self.block_size, slots=ecfg.slots,
             max_seq=ecfg.max_seq, kv_quant=self.kv_quant, device=self.device,
@@ -100,7 +106,7 @@ class Engine:
         # chunked prefill runs attention on the flash kernel: the chunk's
         # cache offset is a device tensor, so every chunk shares one kernel
         self._prefill_fwd = tf_model.decode_step_fn(cfg, attn_backend="flash")
-        self._import = kvc.make_import_fn(self.block_size, self.kv_quant)
+        self._import = kvc.make_import_fn(cfg, self.block_size, self.kv_quant)
         c = ecfg.prefill_chunk
         self._prefill_buf_len = -(-ecfg.max_seq // c) * c
 
@@ -135,7 +141,7 @@ class Engine:
             )
         need = self.kv.blocks_needed(prompt.size)
         usable = self.kv.num_blocks - 1     # block 0 is the null block
-        if need > usable:
+        if self._paged and need > usable:
             raise ValueError(
                 f"prompt of {prompt.size} tokens needs {need} KV blocks but the entire "
                 f"pool has {usable} usable blocks of {self.block_size} — it can never be admitted"
@@ -165,9 +171,16 @@ class Engine:
                 return i
         return None
 
+    def _ensure(self, slot: int, length: int) -> bool:
+        return self.kv.ensure(slot, length) if self._paged else True
+
+    def _release(self, slot: int) -> None:
+        if self._paged:
+            self.kv.release(slot)
+
     def _evict(self, req: ServeRequest) -> None:
         slot = req.slot
-        self.kv.release(slot)
+        self._release(slot)
         self._slots[slot] = None
         self._ctx[slot] = 0
         self._preempt_count += 1
@@ -176,7 +189,7 @@ class Engine:
     def _finish(self, req: ServeRequest) -> None:
         slot = req.slot
         if slot >= 0:
-            self.kv.release(slot)
+            self._release(slot)
             self._slots[slot] = None
             self._ctx[slot] = 0
         req.state = DONE
@@ -246,13 +259,13 @@ class Engine:
         if slot is None:
             return
         plen = int(req.serve_prompt.size)
-        if not self.kv.can_allocate(plen):
+        if self._paged and not self.kv.can_allocate(plen):
             return
         req = self.scheduler.pop(self._tick)
         req.state = PREFILL
         req.slot = slot
         self._slots[slot] = req
-        if not self.kv.ensure(slot, plen):
+        if not self._ensure(slot, plen):
             raise RuntimeError("allocator disagreed with can_allocate")
         buf = np.zeros(self._prefill_buf_len, np.int64)
         buf[:plen] = req.serve_prompt
@@ -270,11 +283,21 @@ class Engine:
         c = self.ecfg.prefill_chunk
         plen = int(req.serve_prompt.size)
         done = self._prefill_done
-        # the padded tail of the final chunk writes cache rows >= plen, which
-        # the import drops and positions never reach
-        chunk = self._tensor(self._prefill_tokens[done:done + c][None])
-        last_logits, self._prefill_cache = self._prefill_fwd(self.params, self._prefill_cache, chunk)
-        self._prefill_done = done + c
+        if self.cfg.ssm_state and plen - done < c:
+            # the recurrent state is exact only over the real tokens, so the
+            # tail that does not fill a chunk runs token by token through the
+            # O(1) decode path instead of being padded
+            while done < plen:
+                tok = self._tensor(self._prefill_tokens[done:done + 1][None])
+                last_logits, self._prefill_cache = self._prefill_fwd(self.params, self._prefill_cache, tok)
+                done += 1
+        else:
+            # attention-only: the padded tail of the final chunk writes cache
+            # rows >= plen, which the import drops and positions never reach
+            chunk = self._tensor(self._prefill_tokens[done:done + c][None])
+            last_logits, self._prefill_cache = self._prefill_fwd(self.params, self._prefill_cache, chunk)
+            done += c
+        self._prefill_done = done
         self._prefill_chunks += 1
         if self._prefill_done >= plen:
             self._finish_prefill(req, plen, last_logits)
@@ -282,9 +305,11 @@ class Engine:
     def _finish_prefill(self, req: ServeRequest, plen: int, last_logits: torch.Tensor) -> None:
         slot = req.slot
         self.kv.pools["layers"] = self._import(
-            self.kv.pools["layers"], self._prefill_cache["layers"], plen, self.kv.table_row(slot),
+            self.kv.pools["layers"], self._prefill_cache["layers"], slot, plen, self.kv.table_row(slot),
         )
-        # first token: the logits row of the prompt's last position
+        # first token: the logits row of the prompt's last position within
+        # the final prefill call (a padded chunk's row plen - 1 relative to
+        # its start; the only row of an SSM tail's single-token call)
         row_idx = (plen - 1) - (self._prefill_done - last_logits.shape[1])
         row = last_logits[0, row_idx].cpu().numpy()
         tok = int(self._sample_rows(row[None], [req])[0])
@@ -302,7 +327,7 @@ class Engine:
         for req in sorted(self._running, key=lambda r: r.admit_index):
             if req.state != RUNNING:
                 continue
-            while not self.kv.ensure(req.slot, int(self._ctx[req.slot]) + 1):
+            while not self._ensure(req.slot, int(self._ctx[req.slot]) + 1):
                 victims = self._running
                 victim = self.scheduler.pick_victim(victims)
                 if victim is req and len(victims) == 1:

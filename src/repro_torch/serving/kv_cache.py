@@ -13,7 +13,10 @@ Storage is the compute dtype (bf16 or f32), or int8 codes plus one f32
 scale per (token, head) row under ``kv_quant="int8"`` (quantized on write,
 prefill import included).  An MLA model pages its latent ``c_kv`` and
 shared ``k_rope`` rows the same way, in the compute dtype (its int8 pools
-come with ROADMAP.md Queue 1 "Quantization").  ``bytes_per_block`` / ``blocks_for_budget`` /
+come with ROADMAP.md Queue 1 "Quantization").  The SSM families' conv
+history and state are O(1) per sequence and live in per-slot pools beside
+the pages: a pure SSM model pages nothing, a hybrid one only its shared
+attention block's K/V.  ``bytes_per_block`` / ``blocks_for_budget`` /
 ``max_concurrent`` are the capacity arithmetic.  The allocator's
 fault-injection points come with the reliability layer (ROADMAP.md Queue 1
 "Reliability").
@@ -88,7 +91,7 @@ class PagedKVCache:
         self.slots = slots
         self.kv_quant = kv_quant
         self.blocks_per_seq = -(-max_seq // block_size)
-        self.pools = tf_model.init_paged_cache(cfg, num_blocks, block_size, kv_quant=kv_quant,
+        self.pools = tf_model.init_paged_cache(cfg, num_blocks, block_size, kv_quant=kv_quant, slots=slots,
                                                device=device)
         self.allocator = BlockAllocator(num_blocks)
         self.block_tables = np.zeros((slots, self.blocks_per_seq), np.int32)
@@ -132,26 +135,32 @@ class PagedKVCache:
 def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[str] = None) -> int:
     """Device bytes one KV block costs across all layers: GQA L * bs * (2 *
     KV * hd elements, plus one f32 scale per (token, head) row for k and v
-    when quantized); MLA L * bs * (kv_lora_rank + rope) elements."""
-    if cfg.ssm_state:
-        raise NotImplementedError('SSM pools come with their family '
-                                  '(ROADMAP.md Queue 1 "Other model families")')
+    when quantized); MLA L * bs * (kv_lora_rank + rope) elements; the
+    hybrid pages only its ``n_layers // attn_every`` shared-attention
+    instances, and a pure SSM model pages nothing (0)."""
     bs = block_size if block_size is not None else cfg.kv_block_size
     kvq = kv_quant if kv_quant is not None else cfg.kv_quant
     item = 1 if kvq != "none" else torch.finfo(dtype_of(cfg.compute_dtype)).bits // 8
+    if cfg.is_ssm:
+        return 0
     if cfg.use_mla:
         if kvq != "none":
             raise NotImplementedError('int8 MLA latent pools are not ported yet (ROADMAP.md Queue 1 "Quantization")')
         return cfg.n_layers * bs * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item
+    n_inst = cfg.n_layers // cfg.attn_every if cfg.is_hybrid else cfg.n_layers
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     scale = 2 * kv * 4 if kvq != "none" else 0
-    return cfg.n_layers * bs * (2 * kv * hd * item + scale)
+    return n_inst * bs * (2 * kv * hd * item + scale)
 
 
 def blocks_for_budget(cfg, budget_bytes: int, block_size: Optional[int] = None,
                       kv_quant: Optional[str] = None) -> int:
-    """Usable blocks (null block excluded) a byte budget buys."""
-    return max(0, budget_bytes // bytes_per_block(cfg, block_size, kv_quant) - 1)
+    """Usable blocks (null block excluded) a byte budget buys; a pure SSM
+    model has no paged bytes and raises."""
+    per = bytes_per_block(cfg, block_size, kv_quant)
+    if per == 0:
+        raise ValueError(f"{cfg.name}: pure-SSM config has no paged KV bytes")
+    return max(0, budget_bytes // per - 1)
 
 
 def max_concurrent(cfg, num_usable_blocks: int, seq_len: int, block_size: Optional[int] = None) -> int:
@@ -160,18 +169,19 @@ def max_concurrent(cfg, num_usable_blocks: int, seq_len: int, block_size: Option
     return num_usable_blocks // -(-seq_len // bs)
 
 
-def make_import_fn(block_size: int, kv_quant: str = "none"):
+def make_import_fn(cfg, block_size: int, kv_quant: str = "none"):
     """The scatter of a finished contiguous B=1 prefill cache into a slot's
     pool blocks: positions ``0..plen-1`` go to ``block_row[p // bs] * bs +
     p % bs``; the prompt padding past ``plen`` is dropped.  A quantized pool
     quantizes each row on import.  Every pool of the prefill cache is
-    imported: k and v, or MLA's c_kv and k_rope.  The physical rows are
-    computed on the host from the host block table, and the pools are
-    written in place."""
+    imported: k and v, or MLA's c_kv and k_rope; for the SSM families the
+    conv history and state go to the slot's row of the per-slot pools, and
+    the hybrid's shared-block k and v are scattered as above.  The physical
+    rows are computed on the host from the host block table, and the pools
+    are written in place."""
     bs = block_size
 
-    def imp(pool_layers: Dict[str, torch.Tensor], prefill_layers: Dict[str, torch.Tensor],
-            plen: int, block_row: np.ndarray) -> Dict[str, torch.Tensor]:
+    def scatter(pool_layers, prefill_layers, plen, block_row):
         pos = np.arange(plen)
         phys = block_row[pos // bs].astype(np.int64) * bs + pos % bs
         phys_t = torch.as_tensor(phys, device=next(iter(prefill_layers.values())).device)
@@ -180,6 +190,16 @@ def make_import_fn(block_size: int, kv_quant: str = "none"):
             for i in range(pool.shape[0]):
                 attention.paged_write(pool[i], phys_t, prefill_layers[nm][i, 0, :plen],
                                       scale_pool=None if scales is None else scales[i], kv_quant=kv_quant)
+
+    def imp(pool_layers: Dict[str, torch.Tensor], prefill_layers: Dict[str, torch.Tensor], slot: int,
+            plen: int, block_row: np.ndarray) -> Dict[str, torch.Tensor]:
+        if cfg.ssm_state:
+            for nm in ("conv", "state"):
+                pool_layers[nm][:, slot].copy_(prefill_layers[nm][:, 0])
+            if cfg.is_hybrid:
+                scatter(pool_layers["attn"], prefill_layers["attn"], plen, block_row)
+            return pool_layers
+        scatter(pool_layers, prefill_layers, plen, block_row)
         return pool_layers
 
     return imp

@@ -719,3 +719,106 @@ def test_reduced_moe_model_card_matches_cpu(dev, name):
         outs.append(step(params_d, pool, toks.to(d), pos.to(d), tables.to(d))[0].cpu())
     err = (outs[1] - outs[0])[..., :cfg.vocab_size].abs().max().item()
     assert err <= MODEL_TOL * max(1.0, outs[0][..., :cfg.vocab_size].abs().max().item())
+
+
+# ------------------------------------- Zamba2 / Mamba2 (SSM) serving slice ---
+_ZB, _MB = get_config("zamba2-2.7b"), get_config("mamba2-370m")
+# (label, K, N, epilogue, prologue) of every projection a Zamba2-2.7B or
+# Mamba2-370M forward sends to the kernel: in_proj's logical width is not a
+# multiple of 64 (10448 -> storage 10496, 4384 -> 4416), so its last tile is
+# padded; out_proj carries the block's residual at K = 5120 / 2048
+SSM_PROJECTIONS = [
+    ("zamba2 in_proj", 2560, 2 * _ZB.d_inner + 2 * _ZB.ssm_state + _ZB.n_ssm_heads, "none", "none"),
+    ("zamba2 out_proj", _ZB.d_inner, 2560, "residual", "none"),
+    ("zamba2 wq", 2560, 2560, "none", "rmsnorm"),
+    ("zamba2 wo", 2560, 2560, "residual", "none"),
+    ("zamba2 gate+up", 2560, _ZB.d_ff, "swiglu", "rmsnorm"),
+    ("zamba2 down", _ZB.d_ff, 2560, "residual", "none"),
+    ("zamba2 lm_head", 2560, _ZB.padded_vocab, "none", "none"),
+    ("mamba2 in_proj", 1024, 2 * _MB.d_inner + 2 * _MB.ssm_state + _MB.n_ssm_heads, "none", "none"),
+    ("mamba2 out_proj", _MB.d_inner, 1024, "residual", "none"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 256])
+@pytest.mark.parametrize("proj", SSM_PROJECTIONS, ids=[p[0] for p in SSM_PROJECTIONS])
+def test_dip_matmul_ssm_projections_match_plain(dev, proj, m, dtype):
+    """Each projection through the registry on a ``DipWeight`` of its
+    logical width (the shim pads and crops), against the plain version of
+    the padded storage cropped to the same width: M = 1 (the prefill
+    tail), 4 (a decode step) and 256 (a prefill chunk)."""
+    label, k, n, epilogue, prologue = proj
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    ws = [api.DipWeight.from_natural((torch.randn(k, n, generator=g, device=dev) / k ** 0.5).to(dtype))
+          for _ in range(2 if epilogue == "swiglu" else 1)]
+    res = torch.randn(m, n, generator=g, device=dev).to(dtype) if epilogue == "residual" else None
+    gain = torch.rand(k, generator=g, device=dev) + 0.5
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=(gain,) if prologue == "rmsnorm" else ())
+    before = dip_matmul.launches
+    got = api.matmul(x, tuple(ws) if len(ws) == 2 else ws[0], backend="dip",
+                     epilogue_operands=() if res is None else (res,), **kw)
+    assert dip_matmul.launches == before + 1
+    pad = ws[0].data.shape[1] - n
+    eops = ((ws[1].data,) if len(ws) == 2 else
+            (torch.nn.functional.pad(res, (0, pad)),) if res is not None else ())
+    want = dip_matmul_plain(x, ws[0].data, *eops, **kw)[:, :n]
+    torch.cuda.synchronize()
+    assert got.shape == (m, n)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,q_offset", [(256, 0), (256, 512), (1, 700)])
+def test_flash_zamba2_head_dim_80_matches_plain(dev, dtype, sq, q_offset):
+    """Zamba2's shared attention at prefill: 32 heads of 80 (D = 80 takes
+    the CUDA-core route), a 256-token chunk or one token of the prefill
+    tail against up to 1024 keys of the prefill cache."""
+    bh, sk, d = 32, 1024, 80
+    g = torch.Generator(device=dev).manual_seed(sq + q_offset)
+    q = torch.randn(bh, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
+    kw = dict(q_offset=torch.tensor(q_offset, device=dev), kv_len=q_offset + sq, causal=True)
+    before = (flash_attention.launches, flash_attention.launches_tc)
+    got = flash_attention(q, k, v, **kw)
+    assert (flash_attention.launches, flash_attention.launches_tc) == (before[0] + 1, before[1])
+    want = attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "mamba2-370m"])
+def test_reduced_ssm_model_card_matches_cpu(dev, name):
+    """Forward logits, a chunk and a single token through the prefill step,
+    and a paged decode step of the reduced SSM / hybrid model on the card
+    against the plain versions on the CPU; the state pools too."""
+    cfg = dataclasses.replace(get_config(name).reduced(), matmul_backend="dip", param_dtype="float32",
+                              compute_dtype="float32")
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu")
+    on_card = _to(params, dev)
+    v = cfg.vocab_size
+
+    def near(got, want):
+        err = (got.cpu() - want).abs().max().item()
+        assert err <= MODEL_TOL * max(1.0, want.abs().max().item()), err
+
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(2, 512, (2, 45)))
+    near(tf_model.forward(on_card, cfg, tokens=tokens.to(dev))[0][..., :v],
+         tf_model.forward(params, cfg, tokens=tokens)[0][..., :v])
+    step = tf_model.decode_step_fn(cfg, attn_backend="flash")
+    caches = [tf_model.init_cache(cfg, 1, 64, device=d) for d in ("cpu", dev)]
+    for lo, hi in ((0, 40), (40, 41)):
+        outs = [step(p, c, tokens[:1, lo:hi].to(c["layers"]["state"].device)) for p, c in zip((params, on_card), caches)]
+        near(outs[1][0][..., :v], outs[0][0][..., :v])
+    for nm in ("conv", "state"):
+        near(caches[1]["layers"][nm], caches[0]["layers"][nm])
+    tables = torch.tensor([[1, 2], [3, 4]])
+    pos, toks = torch.tensor([5, 2]), torch.tensor([[7], [9]])
+    pstep = tf_model.paged_decode_step_fn(cfg)
+    outs = []
+    for params_d, d in ((params, "cpu"), (on_card, dev)):
+        pool = tf_model.init_paged_cache(cfg, 5, 16, slots=2, device=d)
+        outs.append(pstep(params_d, pool, toks.to(d), pos.to(d), tables.to(d))[0].cpu())
+    near(outs[1][..., :v], outs[0][..., :v])

@@ -35,6 +35,9 @@ def test_every_module_imports_without_jax_or_reference():
     # and the quantized serving slice's
     assert {"repro_torch.api.quant", "repro_torch.kernels.dip_matmul_q",
             "repro_torch.kernels.dip_systolic"} <= set(mods)
+    # and the SSM / hybrid serving slice's
+    assert {"repro_torch.models.ssm", "repro_torch.configs.mamba2_370m",
+            "repro_torch.configs.zamba2_2_7b"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
