@@ -14,7 +14,11 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    the zamba2-2.7b and mamba2-370m projections through the registry, in_proj's
    padded last tile (10448 and 4384 columns) and out_proj's residual at K =
    5120 included) and flash attention in float32 and
-   bfloat16 (and at D = 80, Sq = 256 and 1, on the CUDA-core route), the fused lm_head +
+   bfloat16, each call on the route ``flash_plan`` gives (by the launch
+   counts): Zamba2's D = 80 at Sq = 256 (bf16 on the tensor cores) and at
+   Sq = 1 (bf16 on ``split_kv``; f32 on the CUDA cores), every tensor-core
+   head dim (64, 80, 96, 112, 128) at Sq = 256 and at Sq = 1, 3 and 16 with
+   kv_len 0 rows, two ``split_kv`` calls equal bit for bit; the fused lm_head +
    cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
    training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
    splits and labels at -100; then the quantized serving slice's kernels:
@@ -45,7 +49,7 @@ Phases (each one raises, and the script exits non-zero, if it fails):
 5. llama3-8b at full width (32 layers, d_model 4096, vocab 128256) in bf16
    served through ``Server``, with the kernels' launch counts checked:
    193 DiP-matmul launches per forward, 32 flash launches per prefill chunk,
-   all of them on flash's tensor-core route; one decode step and one prefill
+   all of them on flash's tensor-core routes; one decode step and one prefill
    chunk profiled on their last inputs (device ms by kernel, launches, device
    time against wall time); then quantized through ``launch.serve`` (``--quantize int8 --kv-quant
    int8``, then ``--quantize fp8_e4m3``; the same 4 requests, 16 greedy
@@ -77,7 +81,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    input, the first prefill chunk's and decode step's logits against the
    plain versions on the card, the prefill run as whole chunks and then the
    tail token by token, 163 / 96 DiP launches per forward and 9 / 0 flash
-   launches per prefill call (all on the CUDA-core route at D = 80),
+   launches per prefill call (a chunk's on the tensor cores unsplit, a tail
+   token's on ``split_kv``, none on the CUDA cores),
    1,474,560 / 0 KV bytes per block and 72,479,232 / 50,995,200 state bytes
    per slot, peak memory, wall times, and a decode step, a prefill chunk
    and a single-token forward of the tail profiled;
@@ -98,9 +103,13 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    (lm_head_ce with the bound of its three bf16 part products on the tensor
    cores beside the f32 CUDA-core bound; the DiP matmul also at the
    deepseek-v2-lite-16b projections in bf16, and at the zamba2-2.7b and
-   mamba2-370m projections at M = 1, 4 and 256 with flash at D = 80; the wavefront with the f32
+   mamba2-370m projections at M = 1, 4 and 256 with flash at D = 80 on its
+   planned routes and at D = 128, Sq = 1; a sweep of flash over Sq = 1..256
+   at every tensor-core head dim on both tensor-core routes, from which
+   ``SPLIT_MAX_SQ`` is read; the wavefront with the f32
    CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
-   of its codes and beside its whole function in library calls).
+   of its codes and beside its whole function in library calls; the fp8
+   route with f32 x).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -317,9 +326,11 @@ def main():
     from repro_torch.kernels import lm_head_ce as ce
     from repro_torch.kernels import prologue as pro
     from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain, matmul_plan
-    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain, quantize_pass, quantize_pass_plain
+    from repro_torch.kernels.dip_matmul_q import (dip_matmul_q, dip_matmul_q_plain, q_route, quantize_pass,
+                                                  quantize_pass_plain)
     from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain, systolic_plan
-    from repro_torch.kernels.flash_attention import attention_plain, flash_attention, flash_route
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, attention_plain, flash_attention, flash_plan
     from repro_torch.kernels.ref import quantize_acts_int8
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serving import kv_cache as kvc
@@ -329,6 +340,12 @@ def main():
     from repro_torch.runtime import Request, Server, ServerConfig, Trainer, TrainerConfig
     import numpy as np
     import torch.nn.functional as F
+
+    def flash_routes():
+        """The flash launches counted since the counts were last set to 0, by route."""
+        return {"tensor_cores": flash_attention.launches_tc - flash_attention.launches_split,
+                "split_kv": flash_attention.launches_split,
+                "cuda_cores": flash_attention.launches - flash_attention.launches_tc}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -523,39 +540,74 @@ def main():
                 torch.randn(bh, sk, dk, generator=g, device=dev).to(dtype),
                 torch.randn(bh, sk, dvv, generator=g, device=dev).to(dtype))
 
+    def flash_checked(label, q, k, v, kw, dt_name):
+        """One flash call against attention_plain on the card: one launch,
+        on the route flash_plan gives (by the counts), within TOL; fully
+        masked rows exactly 0.  Returns the output and the plan."""
+        plan = flash_plan(q.shape[0], q.shape[1], v.shape[1], q.shape[2], v.shape[2], q.dtype, sms)
+        before = flash_routes()
+        got = flash_attention(q, k, v, **kw)
+        moved = {r: n - before[r] for r, n in flash_routes().items()}
+        if moved != {r: int(r == plan[0]) for r in moved}:
+            raise AssertionError(f"flash {label}: launched {moved}, planned {plan}")
+        err = close(f"flash {dt_name} BH={q.shape[0]} Sq={q.shape[1]} Sk={k.shape[1]} D={q.shape[2]} "
+                    f"Dv={v.shape[2]} {label} [{plan[0]}, {plan[2]} split(s)]", got, attention_plain(q, k, v, **kw),
+                    TOL[dt_name])
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        kvl = kw["kv_len"]
+        dead = (kvl == 0) if isinstance(kvl, torch.Tensor) else torch.full((q.shape[0],), kvl == 0, device=dev)
+        if dead.any():
+            if not bool((got[dead] == 0).all()):
+                raise AssertionError(f"flash {label}: fully masked rows are not exactly 0")
+            log(f"  flash {dt_name} {label}: {int(dead.sum())} fully masked rows are exactly 0")
+        return got, plan
+
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
         for label, dk, dvv, qo, kvl in flash_cases:
             q, k, v = flash_inputs(dk, dvv, dtype)
-            kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
-            got = flash_attention(q, k, v, **kw)
-            err = close(f"flash {dt_name} BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label} "
-                        f"[{flash_route(dtype, dk, dvv)}]", got, attention_plain(q, k, v, **kw), TOL[dt_name])
-            worst["flash_attention"] = max(worst["flash_attention"], err)
-            dead = kvl == 0
-            if dead.any():
-                if not bool((got[dead] == 0).all()):
-                    raise AssertionError("flash: fully masked rows are not exactly 0")
-                log(f"  flash {dt_name}: {int(dead.sum())} fully masked rows are exactly 0")
-    # Zamba2's shared attention at prefill (phase 5e): 32 heads of D = 80,
-    # which takes the CUDA-core route; a 256-token chunk at q_offset 0 and
-    # 512, and one token of the prefill tail at q_offset 700, against the
-    # 1024 rows of the prefill cache
+            flash_checked(label, q, k, v, dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True),
+                          dt_name)
+    # Zamba2's shared attention at prefill (phase 5e): 32 heads of D = 80; a
+    # 256-token chunk at q_offset 0 and 512, and one token of the prefill
+    # tail at q_offset 700, against the 1024 rows of the prefill cache; in
+    # bf16 the chunk on the tensor cores unsplit and the tail on split_kv,
+    # in f32 both on the CUDA cores.  And the tail's shape at D = 128
     zb_flash = [(256, 0, 256), (256, 512, 768), (1, 700, 701)]  # (Sq, q_offset, kv_len)
+    zb_route = {256: "tensor_cores", 1: "split_kv"}
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
         for zsq, qo, kvl in zb_flash:
             q = torch.randn(bh, zsq, 80, generator=g, device=dev).to(dtype)
             k, v = (torch.randn(bh, sk, 80, generator=g, device=dev).to(dtype) for _ in range(2))
-            kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
-            before = flash_attention.launches_tc
-            got = flash_attention(q, k, v, **kw)
-            if flash_route(dtype, 80, 80) != "cuda_cores" or flash_attention.launches_tc != before:
-                raise AssertionError("flash at D = 80 left the CUDA-core route")
-            err = close(f"flash {dt_name} BH={bh} Sq={zsq} Sk={sk} D=80 q_offset {qo} kv_len {kvl} [cuda_cores]",
-                        got, attention_plain(q, k, v, **kw), TOL[dt_name])
-            worst["flash_attention"] = max(worst["flash_attention"], err)
+            _, plan = flash_checked(f"q_offset {qo} kv_len {kvl}", q, k, v,
+                                    dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True), dt_name)
+            if plan[0] != (zb_route[zsq] if dt_name == "bfloat16" else "cuda_cores"):
+                raise AssertionError(f"flash at D = 80, Sq = {zsq} ({dt_name}) planned {plan}")
+            del q, k, v
+    # every head dim of the tensor-core routes: the chunk's shape with a
+    # kv_len 0 row on every 4th (tensor_cores), and Sq = 1, 3, 16 and 64,
+    # which the plan sends to split_kv, against the end of the cache with the same
+    # dead rows and live keys ending mid-tile; two split calls on the same
+    # inputs must be equal bit for bit (the merge sums the splits in order)
+    kv_dead = torch.tensor([0 if i % 4 == 0 else 1024 - 7 * i for i in range(bh)], dtype=torch.int32, device=dev)
+    for dk in TC_HEAD_DIMS:
+        for fsq in (256, 1, 3, 16, 64):
+            q = torch.randn(bh, fsq, dk, generator=g, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn(bh, sk, dk, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+            kw = dict(q_offset=torch.tensor(sk - fsq - 16 if fsq > 16 else 700, device=dev), kv_len=kv_dead,
+                      causal=True)
+            got, plan = flash_checked("kv_len 0 on every 4th row", q, k, v, kw, "bfloat16")
+            if plan[0] != ("tensor_cores" if fsq > fa.SPLIT_MAX_SQ else "split_kv"):
+                raise AssertionError(f"flash D = {dk}, Sq = {fsq} planned {plan}")
+            if plan[0] == "split_kv" and not torch.equal(got, flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"flash split_kv D = {dk}, Sq = {fsq}: two calls differ")
             del q, k, v, got
+    q, k, v = (torch.randn(bh, s_, 128, generator=g, device=dev).to(torch.bfloat16) for s_ in (1, sk, sk))
+    flash_checked("q_offset 700 kv_len 701", q, k, v, dict(q_offset=torch.tensor(700, device=dev), kv_len=701,
+                                                           causal=True), "bfloat16")
+    log("  flash split_kv: two calls on the same inputs are equal bit for bit at every head dim and Sq")
+    del q, k, v
     torch.cuda.synchronize()
 
     # lm_head_ce at the training shape: T = 4 x 1023 tokens (the shifted
@@ -998,14 +1050,15 @@ def main():
             for i in range(4)]
     st_reqs_phase5 = reqs
     torch.cuda.reset_peak_memory_stats()
-    dip_matmul.launches = flash_attention.launches = flash_attention.launches_tc = ce.lm_head_ce.launches = 0
+    dip_matmul.launches = flash_attention.launches = ce.lm_head_ce.launches = 0
+    flash_attention.launches_tc = flash_attention.launches_split = 0
     t0 = time.perf_counter()
     results = server.serve(reqs)
     wall = time.perf_counter() - t0
     launches = {"dip_matmul": dip_matmul.launches, "flash_attention": flash_attention.launches,
                 "lm_head_ce": ce.lm_head_ce.launches}
     flash_tc = flash_attention.launches_tc
-    routes_by_path = {"serve": {"tensor_cores": flash_tc, "cuda_cores": launches["flash_attention"] - flash_tc}}
+    routes_by_path = {"serve": flash_routes()}
     peak = torch.cuda.max_memory_allocated()
     st = server.last_stats
     n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
@@ -1023,9 +1076,10 @@ def main():
         f"(193 DiP launches per forward, 32 flash launches per prefill chunk)")
     if launches != want:
         raise AssertionError("full width: launch counts differ from 193/forward and 32/prefill chunk")
-    log(f"  flash launches on the tensor-core route {flash_tc} of {launches['flash_attention']}")
+    log(f"  flash launches on the tensor-core routes {flash_tc} of {launches['flash_attention']}, by route "
+        f"{routes_by_path['serve']}")
     if flash_tc != want["flash_attention"]:
-        raise AssertionError("full width: a prefill flash launch left the tensor-core route")
+        raise AssertionError("full width: a prefill flash launch left the tensor-core routes")
     prefill_s, decode_s = sum(times["_prefill_fwd"]), sum(times["_decode"])
     serving = {
         "prefill_tok_per_s": prompt_tokens / prefill_s,
@@ -1060,7 +1114,8 @@ def main():
         log(f"  {what} (profiled): device ms of all kernels {device_ms:.2f} in "
             f"{sum(v[0] for v in by_kernel.values())} launches; wall {wall_ms:.2f} ms (profiler on), "
             f"device idle {100 * max(0.0, 1 - device_ms / wall_ms):.1f}% of it")
-        for key, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]:
+        ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+        for key, (count, ms) in ranked[:12] + [kv for kv in ranked[12:] if "flash_" in kv[0]]:
             log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
         host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
                        if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
@@ -1069,7 +1124,7 @@ def main():
         for ms, count, key in host[:8]:
             log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
         return {"device_ms": device_ms, "wall_ms": wall_ms, "launches": sum(v[0] for v in by_kernel.values()),
-                "host_ms": host_ms}
+                "host_ms": host_ms, "flash_ms": sum(v[1] for key, v in by_kernel.items() if "flash_" in key)}
 
     # the bf16 steps on their last inputs: what the kernels leave of a step
     serving["profile_decode"] = profile_step(last_args["_decode_fn"], last_args["_decode"], "decode step")
@@ -1084,15 +1139,11 @@ def main():
     def reset_counts():
         for c in counters.values():
             c.launches = 0
-        flash_attention.launches_tc = dip_matmul_q.launches_tc = dip_matmul_q.launches_quant = 0
+        flash_attention.launches_tc = flash_attention.launches_split = 0
+        dip_matmul_q.launches_tc = dip_matmul_q.launches_quant = 0
 
     def read_counts():
         return {k: c.launches for k, c in counters.items()}
-
-    def flash_routes():
-        """The flash launches of the last run by route."""
-        return {"tensor_cores": flash_attention.launches_tc,
-                "cuda_cores": flash_attention.launches - flash_attention.launches_tc}
 
     serve_launches.update(dip_matmul_q=0, dip_systolic=0)
 
@@ -1179,7 +1230,7 @@ def main():
             raise AssertionError(f"quantized full width ({scheme}): not one quantizing pass per int8 projection")
         log(f"  flash launches by route {routes}")
         if routes["cuda_cores"]:
-            raise AssertionError(f"quantized full width ({scheme}): a bf16 flash launch left the tensor-core route")
+            raise AssertionError(f"quantized full width ({scheme}): a bf16 flash launch left the tensor-core routes")
         head = server.params["lm_head"]
         if not (isinstance(head, api.QuantizedDipWeight) and head.scheme == scheme):
             raise AssertionError("quantized full width: the lm_head is not quantized")
@@ -1304,7 +1355,7 @@ def main():
     if launches_s != want_s or launches_d["dip_matmul"] != 193 * len(seen_d) or launches_d["dip_systolic"]:
         raise AssertionError("full-width wavefront serving: launch counts differ from the expected ones")
     if routes_s["cuda_cores"] or routes_d["cuda_cores"]:
-        raise AssertionError("full-width wavefront serving: a bf16 flash launch left the tensor-core route")
+        raise AssertionError("full-width wavefront serving: a bf16 flash launch left the tensor-core routes")
     if [t for t, _ in seen_s] != [t for t, _ in seen_d][:n_fwd] or n_fwd < 2:
         raise AssertionError("full-width wavefront serving: the two backends took different steps")
     # step i's logits pick token i; after a token that differs (a near tie in
@@ -1637,12 +1688,16 @@ def main():
         n_fwd = n_chunk + n_tail + n_decode
         want = {"dip_matmul": per_forward * n_fwd, "dip_matmul_q": 0, "dip_systolic": 0,
                 "flash_attention": flash_per_call * (n_chunk + n_tail), "lm_head_ce": 0}
-        log(f"  launches {launches}, flash by route {routes}; expected {want}: "
+        # flash: the chunks (Sq = 256) on the tensor cores unsplit, the tail's
+        # single tokens on split_kv, none on the CUDA cores
+        want_routes = {"tensor_cores": flash_per_call * n_chunk, "split_kv": flash_per_call * n_tail, "cuda_cores": 0}
+        log(f"  launches {launches}, flash by route {routes}; expected {want}, flash {want_routes}: "
             f"{launches['dip_matmul'] / n_fwd:g} dip_matmul launches per forward, "
             f"{launches['flash_attention'] / max(1, n_chunk + n_tail):g} flash launches per prefill call")
-        if launches != want or routes["tensor_cores"] != 0:
+        if launches != want or routes != want_routes:
             raise AssertionError(f"{arch} full width: launch counts differ from {per_forward} DiP launches per "
-                                 f"forward and {flash_per_call} flash launches per prefill call on the CUDA-core route")
+                                 f"forward and {flash_per_call} flash launches per prefill call, the chunks' on the "
+                                 f"tensor cores and the tail's on split_kv")
         pools = server.engine.kv.pools["layers"]
         kv_bytes = kvc.bytes_per_block(c)
         slot_bytes = sum(pools[nm].numel() * pools[nm].element_size() for nm in ("conv", "state")) // 4
@@ -1931,8 +1986,9 @@ def main():
             mask = (torch.arange(sk, device=dev).view(1, 1, -1) < kvl.view(-1, 1, 1)) & (
                 qo + i.view(1, -1, 1) >= torch.arange(sk, device=dev).view(1, 1, -1))
             q4, k4, v4, m4 = q[None], k[None], v[None], mask[None]
+            pl = flash_plan(bh, sq, sk, dk, dvv, dtype, sms)
             row = dict(kernel="flash_attention", dtype=dt_name,
-                       shape=f"BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label}", route=flash_route(dtype, dk, dvv),
+                       shape=f"BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label}", route=pl[0], splits=pl[2],
                        ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
                        host_ms=time_ms(lambda: flash_attention(q, k, v, **kw), queued=False),
                        plain_ms=time_ms(lambda: attention_plain(q, k, v, **kw)),
@@ -1978,29 +2034,56 @@ def main():
             ssm_rows.append(row)
             log("  " + json.dumps(row))
             del x, p, eops, wn, res
-    for zsq, qo, kvl in zb_flash:
-        q = torch.randn(bh, zsq, 80, generator=g, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn(bh, sk, 80, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    def flash_row(fsq, fd, qo, kvl, ms_of=None):
+        """A bf16 flash row at BH = 32, Sk = 1024, D = Dv = fd: the planned
+        launch (or ms_of's plan), its bound (only the keys some query of a
+        row can see are read), the plain version and SDPA on the same mask."""
+        q = torch.randn(bh, fsq, fd, generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn(bh, sk, fd, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
         kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
-        i = torch.arange(zsq, device=dev)
+        i = torch.arange(fsq, device=dev)
         live = int(torch.clamp(torch.minimum(torch.tensor(kvl, device=dev), qo + i + 1), min=0).sum()) * bh
-        keys = min(sk, kvl, qo + zsq) * bh
-        b_ms, b_by = bound_ms((q.numel() + keys * 160 + bh * zsq * 80) * 2 + 8 * bh, 2 * live * 160, "bfloat16")
+        keys = min(sk, kvl, qo + fsq) * bh
+        b_ms, b_by = bound_ms((q.numel() + keys * 2 * fd + bh * fsq * fd) * 2 + 8 * bh, 2 * live * 2 * fd, "bfloat16")
         mask = (torch.arange(sk, device=dev).view(1, -1) < kvl) & (qo + i.view(-1, 1) >= torch.arange(sk, device=dev).view(1, -1))
+        pl = flash_plan(bh, fsq, sk, fd, fd, torch.bfloat16, sms)
         row = dict(kernel="flash_attention", dtype="bfloat16",
-                   shape=f"BH={bh} Sq={zsq} Sk={sk} D=80 Dv=80 q_offset {qo} kv_len {kvl}",
-                   route=flash_route(torch.bfloat16, 80, 80),
+                   shape=f"BH={bh} Sq={fsq} Sk={sk} D={fd} Dv={fd} q_offset {qo} kv_len {kvl}",
+                   route=pl[0], splits=pl[2],
                    ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
                    host_ms=time_ms(lambda: flash_attention(q, k, v, **kw), queued=False),
                    plain_ms=time_ms(lambda: attention_plain(q, k, v, **kw)),
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                                              attn_mask=mask[None, None],
-                                                                             scale=80 ** -0.5)),
+                                                                             scale=fd ** -0.5)),
                    bound_ms=b_ms, bound_by=b_by)
+        if ms_of is not None:  # the same call on other plans (the threshold sweep below)
+            row["ms_by_plan"] = {f"{p_[0]}/{p_[2]}": time_ms(lambda: fa._launch(q, k, v, p_, scale=None, **kw))
+                                 for p_ in ms_of}
+        del q, k, v, mask
+        return row
+
+    # zamba2's shared attention at D = 80 on its planned routes, and the
+    # tail's shape at D = 128
+    for zsq, qo, kvl in zb_flash:
+        row = flash_row(zsq, 80, qo, kvl)
         rows_out.append(row)
         ssm_rows.append(row)
         log("  " + json.dumps(row))
-        del q, k, v, mask
+    row = flash_row(1, 128, 700, 701)
+    rows_out.append(row)
+    log("  " + json.dumps(row))
+    # where split_kv pays, and how many splits: every tensor-core head dim at
+    # the end of the cache (q_offset = Sk - Sq, every key live), timed on the
+    # unsplit 64-row tiles and on split_kv with 1 to 16 splits, beside SDPA;
+    # SPLIT_MAX_SQ and split_count's one-wave rule are read off these rows
+    sweep = []
+    for fd in TC_HEAD_DIMS:
+        for fsq in ((1, 2, 4, 8, 16, 32, 64, 128, 256) if fd in (80, 128) else (1, 16, 256)):
+            plans = [("tensor_cores", 64, 1)] + [("split_kv", 16, n) for n in (1, 2, 4, 8, 16)]
+            row = flash_row(fsq, fd, sk - fsq, sk, ms_of=plans)
+            sweep.append(row)
+            log("  sweep " + json.dumps(row))
 
     # lm_head_ce at the full-width training shape, in both training dtypes;
     # the work needed is the first vocab columns only (the rest are masked)
@@ -2162,6 +2245,32 @@ def main():
                                 library_ms=None, bound_ms=b_ms, bound_by=b_by)
                     rows_out.append(qrow)
                     log("  " + json.dumps(qrow))
+                if scheme == "fp8_e4m3":
+                    # the fp8 route with f32 x (the first design, csrc/
+                    # dip_matmul_q.cu: x cast to bf16 on load, bf16 WMMA): f32
+                    # x read and f32 out written, the products at the bf16 rate
+                    x32 = x.float()
+                    b_ms, b_by = bound_ms(4 * m * k + nw * (k * n + 4 * n) + 4 * m * n + gbytes, 2 * m * k * n * nw,
+                                          "bfloat16")
+
+                    def library_f32():  # the kernel's whole function on f32 x
+                        xx = pro.apply(pr, x32, *kw["prologue_operands"]).to(torch.bfloat16)
+                        z = torch.matmul(xx, nat[0]).float() * scales[0]
+                        return F.silu(z) * (torch.matmul(xx, nat[1]).float() * scales[1]) if s.dual_weight else z
+
+                    row = dict(kernel="dip_matmul_q_fp8", dtype="float32", shape=shape,
+                               route=q_route(x32.dtype, qws[0].data.dtype),
+                               ms=time_ms(lambda: dip_matmul_q(x32, qws[0].data, qws[0].scale, *eops, **kw)),
+                               plain_ms=time_ms(lambda: dip_matmul_q_plain(x32, qws[0].data, qws[0].scale, *eops,
+                                                                           **kw)),
+                               library_ms=time_ms(library_f32),
+                               library=(("rmsnorm, " if pr == "rmsnorm" else "") + "x cast to bf16, torch.matmul by "
+                                        "the bf16-upcast natural weight, f32 per-channel scales"
+                                        + (", swiglu" if s.dual_weight else "") + ": the kernel's whole function"),
+                               bound_ms=b_ms, bound_by=b_by)
+                    rows_out.append(row)
+                    log("  " + json.dumps(row))
+                    del x32
                 del qws, eops, nat
             # the wavefront on bf16 DiP storage
             x, p, eops, kw = dip_inputs(m, k, n, e, pr, torch.bfloat16)
@@ -2241,13 +2350,13 @@ def main():
                 kernels[-1][key] = row[key]
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
     flash_line["launches_by_route"] = {r: sum(v[r] for v in routes_by_path.values())
-                                       for r in ("tensor_cores", "cuda_cores")}
+                                       for r in ("tensor_cores", "split_kv", "cuda_cores")}
     # the SSM slice's shapes: each kernel's rows at them (phase 7 above)
     for kk in kernels:
         if kk["name"] in ("dip_matmul", "flash_attention"):
             kk["zamba2_mamba2_shapes"] = [
-                {key: r[key] for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
-                for r in ssm_rows if r["kernel"] == kk["name"]]
+                {key: r[key] for key in ("shape", "route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+                 if key in r} for r in ssm_rows if r["kernel"] == kk["name"]]
     flash_line["route_of_timed_shape"] = next(r for r in rows_out if r["kernel"] == "flash_attention"
                                               and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
     for name, scheme in (("dip_matmul_q_fp8", "fp8_e4m3"), ("dip_matmul_q_int8", "int8")):

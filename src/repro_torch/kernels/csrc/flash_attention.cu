@@ -2,12 +2,14 @@
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas.  The
 // TPU kernel walks KV blocks on a sequential grid axis with the running
-// max / denominator / accumulator in VMEM scratch; here one block owns one
-// (bh, 64-query tile) and walks the KV tiles itself with an online softmax.
-// Both routes below share these semantics:
+// max / denominator / accumulator in VMEM scratch; here a block owns one
+// (bh, query tile) and walks the KV tiles itself with an online softmax.
+// Every route below shares these semantics:
 //
-//   * q_offset[bh] and kv_len[bh] are read on the device (int32), so one
-//     build serves every prefill chunk with no host sync;
+//   * q_offset and kv_len are per-row values (PerRow below): an int32 or
+//     int64 tensor read on the device, one element or one a row, or a plain
+//     integer the wrapper passes by value; so one build serves every prefill
+//     chunk with no host sync, and neither costs a launch of its own;
 //   * causal masking uses absolute positions, q_offset + i >= k_pos, and
 //     keys at or beyond kv_len (or Sk) are masked;
 //   * the KV loop stops at the last tile a row of this query tile can see,
@@ -16,17 +18,28 @@
 //     flush divides by max(l, 1e-30);
 //   * any Sq and Sk: the ragged edges are masked here instead of padded.
 //
-// Bound on the card: at the prefill chunk (BH = 32, Sq = 256 against up to
-// 1024 keys, D = 128) by the operations, which the tensor cores have to
-// run.  The wrapper picks the route (kernels/flash_attention.py::flash_route):
+// Bound on the card: a prefill chunk (BH = 32, Sq = 256 against up to 1024
+// keys) by the operations, which the tensor cores have to run; a short
+// query (Sq = 1, a token of Zamba2's single-token prefill tail) by the
+// bytes of K and V.  The wrapper picks the route
+// (kernels/flash_attention.py::flash_plan):
 //
-//   * bf16 with D = Dv in {64, 128}, the served shapes: flash_tc_kernel,
+//   * bf16 with D = Dv in {64, 80, 96, 112, 128}: flash_tc_kernel,
 //     FlashAttention-2 style.  Q K^T and P V are mma.sync m16n8k16 products
 //     (bf16 in, f32 sums); the Q tile stays resident in registers; the next
 //     K and V tiles are copied by cp.async while this one is multiplied
 //     (double buffered); the online softmax stays in f32 registers.  BQ =
 //     64 gives 128 blocks at the prefill chunk on 132 SMs, so KV is not
 //     split across blocks.
+//   * the same head dims with a short query: flash_split_kernel.  A 16-row
+//     query tile (one m16 fragment) and the keys split across blocks, so
+//     that a single-token call fills the card and reads K and V once with
+//     16-byte copies.  Each block's four warps take 16 keys each of every
+//     64-key tile and merge in shared memory; each split's f32 partial (m,
+//     l, unnormalised O) goes to a workspace, and the last block of each
+//     (bh, query tile), picked by an atomic ticket that it resets to 0,
+//     merges the splits in split order: one launch, bit-identical from call
+//     to call, no host sync and no per-call memset.
 //   * f32, Dv != D, or another D up to 256: flash_attention_kernel, the
 //     products as f32 FMAs on the CUDA cores.  Each of its 8 warps owns 8
 //     query rows; lane j holds the score of key k0 + j for each of them, so
@@ -54,6 +67,19 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// A per-row value: element step * bh of an int32 (wide = 0) or int64 (wide
+// = 1) array at ptr (step 0: one element for every row), or value where ptr
+// is null.  Positions fit in 32 bits; an int64 array is read as it is, so a
+// caller's position tensor needs no conversion launch.
+struct PerRow {
+  const void* ptr;
+  int step, value, wide;
+  __device__ __forceinline__ int at(int bh) const {
+    if (!ptr) return value;
+    return wide ? (int)static_cast<const long long*>(ptr)[step * bh] : static_cast<const int*>(ptr)[step * bh];
+  }
+};
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -69,8 +95,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, int NJ>
 __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-    const int* __restrict__ q_offset, const int* __restrict__ kv_len, int Sq, int Sk, int D, int Dv,
-    float scale, int causal) {
+    PerRow q_offset, PerRow kv_len, int Sq, int Sk, int D, int Dv, float scale, int causal) {
   extern __shared__ float smem[];
   const int DP = D + 1;  // odd row stride: lane-indexed K rows hit distinct banks
   float* qs = smem;
@@ -78,7 +103,7 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
   float* vs = ks + BK * DP;
   const int bh = blockIdx.x, q0 = blockIdx.y * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qo = q_offset[bh], kvl = kv_len[bh];
+  const int qo = q_offset.at(bh), kvl = kv_len.at(bh);
   const T* qb = q + (size_t)bh * Sq * D;
   const T* kb = k + (size_t)bh * Sk * D;
   const T* vb = v + (size_t)bh * Sk * Dv;
@@ -169,8 +194,8 @@ __global__ void __launch_bounds__(THREADS) flash_attention_kernel(
 }
 
 template <typename T, int NJ>
-cudaError_t launch(const T* q, const T* k, const T* v, T* out, const int* q_offset,
-                   const int* kv_len, int BH, int Sq, int Sk, int D, int Dv, float scale,
+cudaError_t launch(const T* q, const T* k, const T* v, T* out, PerRow q_offset, PerRow kv_len, int BH, int Sq,
+                   int Sk, int D, int Dv, float scale,
                    int causal, cudaStream_t stream) {
   const size_t bytes = (size_t)(BQ * (D + 1) + BK * (D + 1) + BK * Dv) * sizeof(float);
   if (bytes > 48 * 1024) {
@@ -185,8 +210,8 @@ cudaError_t launch(const T* q, const T* k, const T* v, T* out, const int* q_offs
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, const int* q_offset,
-                     const int* kv_len, int BH, int Sq, int Sk, int D, int Dv, float scale,
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, PerRow q_offset, PerRow kv_len,
+                     int BH, int Sq, int Sk, int D, int Dv, float scale,
                      int causal, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -199,7 +224,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, con
 }
 
 // ------------------------------------------- bf16: tensor-core route ------
-// D = Dv in {64, 128}.  Four warps, each owning 16 of the block's 64 query
+// D = Dv in {64, 80, 96, 112, 128}.  Four warps, each owning 16 of the block's 64 query
 // rows; S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32
 // accumulators); the Q tile stays resident (its fragments in registers) and
 // the K and V tiles of the next KV step are copied by cp.async while this
@@ -207,12 +232,72 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, con
 // sums l are taken over the f32 probabilities.
 constexpr int TC_BQ = 64, TC_BKV = 64, TC_THREADS = 128;
 
+// Shared rows of D + 8 bf16: 16 (D / 8 + 1) bytes.  With D a multiple of 16
+// that is an odd number of 16-byte chunks, so the eight rows of one
+// ldmatrix phase start on eight distinct 4-bank groups (D = 80: a 176-byte
+// stride, rows at banks 0, 12, 24, 4, 16, 28, 8, 20) and every row starts
+// 16-byte aligned for cp.async.
+template <int D>
+__host__ __device__ constexpr bool conflict_free_rows() {
+  return D % 16 == 0 && (D / 8 + 1) % 2 == 1;
+}
+
+// One KV step of the online softmax on a warp's S fragments.  s[j] holds
+// the scores of rows row0 + lane / 4 and row0 + lane / 4 + 8 against keys
+// key0 + 8 j + 2 (lane % 4) + {0, 1}; a row's four lanes are a quad.
+// Masked scores give p = 0; m_run (in log2 units: exp(x) = exp2(x log2 e),
+// sl2 = scale log2 e), l_run (this lane's share of the row sum) and o are
+// rescaled, and s returns the f32 probabilities.
+template <int NF, int NO>
+__device__ __forceinline__ void online_softmax(float (&s)[NF][4], float (&m_run)[2], float (&l_run)[2],
+                                               float (&o)[NO][4], int row0, int key0, int kv_lim, int causal,
+                                               float sl2) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qpos = row0 + (lane >> 2) + 8 * h;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = key0 + 8 * j + 2 * (lane & 3) + e;
+        const bool live = key < kv_lim && (!causal || qpos >= key);
+        const float val = live ? s[j][2 * h + e] * sl2 : -INFINITY;
+        s[j][2 * h + e] = val;
+        mx = fmaxf(mx, val);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[h], mx);
+    const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // a row with no live key so far: p = 0
+    const float alpha = exp2f(m_run[h] - m_use);
+    m_run[h] = m_new;
+    float sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2f(s[j][2 * h + e] - m_use);
+        s[j][2 * h + e] = p;
+        sum += p;
+      }
+    l_run[h] = l_run[h] * alpha + sum;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][2 * h] *= alpha;
+      o[j][2 * h + 1] *= alpha;
+    }
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, const int* __restrict__ q_offset,
-    const int* __restrict__ kv_len, int Sq, int Sk, float scale, int causal) {
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, PerRow q_offset, PerRow kv_len, int Sq,
+    int Sk, float scale, int causal) {
   using bf16 = __nv_bfloat16;
+  static_assert(conflict_free_rows<D>(), "head dim must be a multiple of 16");
   constexpr int STR = D + 8, TILE_E = 64 * STR, CPR = D / 8;
   extern __shared__ __align__(128) unsigned char smem_tc[];
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);
@@ -220,7 +305,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
   bf16* vs = ks + 2 * TILE_E;   // [2][TILE_E]
   const int bh = blockIdx.x, q0 = blockIdx.y * TC_BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int qo = q_offset[bh], kv_lim = min(Sk, kv_len[bh]);
+  const int qo = q_offset.at(bh), kv_lim = min(Sk, kv_len.at(bh));
   const bf16* qb = q + (size_t)bh * Sq * D;
   const bf16* kb = k + (size_t)bh * Sk * D;
   const bf16* vb = v + (size_t)bh * Sk * D;
@@ -277,45 +362,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
         sm90::mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
       }
 
-    // online softmax: this thread holds rows lane/4 and lane/4 + 8 of the
-    // warp's 16, keys 8 j + 2 (lane % 4) + {0, 1}; a row's four lanes are a quad
-    const int k0 = t * TC_BKV;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int qpos = qo + q0 + warp * 16 + (lane >> 2) + 8 * h;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < TC_BKV / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int key = k0 + 8 * j + 2 * (lane & 3) + e;
-          const bool live = key < kv_lim && (!causal || qpos >= key);
-          const float val = live ? s[j][2 * h + e] * sl2 : -INFINITY;
-          s[j][2 * h + e] = val;
-          mx = fmaxf(mx, val);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_run[h], mx);
-      const float m_use = m_new == -INFINITY ? 0.0f : m_new;  // a row with no live key so far: p = 0
-      const float alpha = exp2f(m_run[h] - m_use);
-      m_run[h] = m_new;
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < TC_BKV / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float p = exp2f(s[j][2 * h + e] - m_use);
-          s[j][2 * h + e] = p;
-          sum += p;
-        }
-      l_run[h] = l_run[h] * alpha + sum;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][2 * h] *= alpha;
-        o[j][2 * h + 1] *= alpha;
-      }
-    }
+    online_softmax(s, m_run, l_run, o, qo + q0 + warp * 16, t * TC_BKV, kv_lim, causal, sl2);
 
     // O += P V: the S accumulators of key tiles 2kk, 2kk+1 are the A fragment
 #pragma unroll
@@ -352,8 +399,8 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
 }
 
 template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, const int* q_offset,
-                      const int* kv_len, int BH, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, PerRow q_offset, PerRow kv_len,
+                      int BH, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
   constexpr size_t bytes = (size_t)5 * 64 * (D + 8) * sizeof(__nv_bfloat16);
   static bool attr_set = false;
   if (!attr_set) {
@@ -370,34 +417,309 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, co
   return cudaGetLastError();
 }
 
+// ------------------------------------------ bf16: split over the keys ------
+// The tensor-core head dims with a short query (flash_plan's "split_kv").
+// Grid (BH, query tiles of 16 rows, splits): split s walks the 64-key tiles
+// [s tps, (s + 1) tps), and each of the block's four warps takes 16 keys of
+// every tile against the whole 16-row query tile (one m16 fragment, so a
+// single-token call wastes 15 of 16 rows of one warp's products, where the
+// 64-row tile wasted 63 of 64 of four).  K and V are read once, by 16-byte
+// cp.async copies, double buffered.  The four warps' (m, l, O) merge in
+// shared memory; then a split's f32 partial goes to the workspace
+//   ws = [BH][splits][Sq][D] unnormalised O, then [BH][splits][Sq][2] (m, l),
+// only for the tile's rows below Sq, and O only where m > -inf.  A split
+// that lies wholly past its rows' last visible key, min(kv_len, q_offset +
+// q0 + 16), reads no K or V and writes the empty partial (m = -inf, l = 0).
+// Each block then takes a ticket of its (bh, query tile); the last one
+// merges the splits in split order (the same sums whichever block is last,
+// so the output is bit-identical from call to call) and resets the ticket
+// to 0, so the buffer is zeroed once, when the wrapper allocates it.  With
+// one split the block writes the output itself.
+constexpr int SP_BQ = 16, SP_THREADS = 128, MAX_SPLITS = 256;
+
+template <int D>
+__global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, PerRow q_offset, PerRow kv_len,
+    float* __restrict__ ws, int* __restrict__ tickets, int Sq, int Sk, int splits, int tps, float scale, int causal) {
+  using bf16 = __nv_bfloat16;
+  static_assert(conflict_free_rows<D>(), "head dim must be a multiple of 16");
+  constexpr int STR = D + 8, TILE_E = 64 * STR, CPR = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_sp[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_sp);  // [16][STR]
+  bf16* ks = qs + SP_BQ * STR;                  // [2][TILE_E]
+  bf16* vs = ks + 2 * TILE_E;                   // [2][TILE_E]
+  float* red = reinterpret_cast<float*>(ks);    // both merges, once K and V are consumed
+  __shared__ int last;
+  const int bh = blockIdx.x, qt = blockIdx.y, split = blockIdx.z, q0 = qt * SP_BQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int qo = q_offset.at(bh), kv_lim = min(Sk, kv_len.at(bh));
+  const int kv_end = causal ? min(kv_lim, qo + q0 + SP_BQ) : kv_lim;
+  const int t0 = split * tps;
+  const int nt = kv_end > 0 ? max(0, min(tps, (kv_end + TC_BKV - 1) / TC_BKV - t0)) : 0;
+  const int rows = min(SP_BQ, Sq - q0);  // the tile's rows below Sq
+  const bf16* qb = q + (size_t)bh * Sq * D;
+  const bf16* kb = k + (size_t)bh * Sk * D;
+  const bf16* vb = v + (size_t)bh * Sk * D;
+
+  // n rows from row0 of a (rows, D) array; rows at or past limit zero-filled
+  auto load = [&](bf16* dst, const bf16* src, int n, int row0, int limit) {
+    for (int e = tid; e < n * CPR; e += SP_THREADS) {
+      const int r = e / CPR, c = (e % CPR) * 8, g = row0 + r;
+      sm90::cp_async16(dst + r * STR + c, src + (size_t)max(min(g, limit - 1), 0) * D + c, g < limit);
+    }
+  };
+
+  float o[D / 8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  uint32_t qf[D / 16][4];
+  const float sl2 = scale * 1.4426950408889634f;
+
+  if (nt > 0) {
+    load(qs, qb, SP_BQ, q0, Sq);
+    load(ks, kb, TC_BKV, t0 * TC_BKV, Sk);
+    load(vs, vb, TC_BKV, t0 * TC_BKV, Sk);
+  }
+  sm90::cp_async_commit();
+  for (int t = 0; t < nt; ++t) {
+    if (t + 1 < nt) {
+      load(ks + ((t + 1) & 1) * TILE_E, kb, TC_BKV, (t0 + t + 1) * TC_BKV, Sk);
+      load(vs + ((t + 1) & 1) * TILE_E, vb, TC_BKV, (t0 + t + 1) * TC_BKV, Sk);
+    }
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::ldmatrix_x4(qf[kk], qs + (lane & 15) * STR + kk * 16 + (lane >> 4) * 8);
+    }
+    const bf16* kt = ks + (t & 1) * TILE_E + 16 * warp * STR;  // this warp's 16 keys
+    const bf16* vt = vs + (t & 1) * TILE_E + 16 * warp * STR;
+    float s[2][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t b[4];
+      sm90::ldmatrix_x4(b, kt + ((lane & 7) + (lane >> 4) * 8) * STR + kk * 16 + ((lane >> 3) & 1) * 8);
+      sm90::mma_bf16(s[0], qf[kk], b[0], b[1]);
+      sm90::mma_bf16(s[1], qf[kk], b[2], b[3]);
+    }
+    online_softmax(s, m_run, l_run, o, qo + q0, (t0 + t) * TC_BKV + 16 * warp, kv_lim, causal, sl2);
+    const uint32_t pa[4] = {sm90::pack_bf16(s[0][0], s[0][1]), sm90::pack_bf16(s[0][2], s[0][3]),
+                            sm90::pack_bf16(s[1][0], s[1][1]), sm90::pack_bf16(s[1][2], s[1][3])};
+#pragma unroll
+    for (int j = 0; j < D / 8; j += 2) {
+      uint32_t b[4];
+      sm90::ldmatrix_x4_trans(b, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * STR + 8 * j + (lane >> 4) * 8);
+      sm90::mma_bf16(o[j], pa, b[0], b[1]);
+      sm90::mma_bf16(o[j + 1], pa, b[2], b[3]);
+    }
+    __syncthreads();  // this step's K and V buffers are free for step t + 2
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+
+  // the four warps' (m, l, O) of the tile's 16 rows, merged in warp order
+  float* mw = red;               // [4][16]
+  float* lw = mw + 4 * SP_BQ;    // [4][16]
+  float* ow = lw + 4 * SP_BQ;    // [4][16][D]
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = warp * SP_BQ + (lane >> 2) + 8 * h;
+    if ((lane & 3) == 0) {
+      mw[r] = m_run[h];
+      lw[r] = l;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(ow + r * D + 8 * j + 2 * (lane & 3)) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
+  }
+  __syncthreads();
+  // from here on a thread owns 4 adjacent columns of a row (one float4)
+  constexpr int C4 = D / 4;
+  float4* ws_o = reinterpret_cast<float4*>(ws);                              // [BH][splits][Sq][D / 4]
+  float2* ws_ml = reinterpret_cast<float2*>(ws + (size_t)gridDim.x * splits * Sq * D);  // [BH][splits][Sq]
+  const size_t base = (size_t)bh * splits * Sq + q0;  // row q0 of split 0 of this bh
+  auto store4 = [&](int r, int c4, float4 a, float inv_l) {
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bh * Sq + q0 + r) * D + 4 * c4);
+    dst[0] = __floats2bfloat162_rn(a.x * inv_l, a.y * inv_l);
+    dst[1] = __floats2bfloat162_rn(a.z * inv_l, a.w * inv_l);
+  };
+  for (int e = tid; e < rows * C4; e += SP_THREADS) {
+    const int r = e / C4, c4 = e - r * C4;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, mw[w * SP_BQ + r]);
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float l = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      const float mr = mw[w * SP_BQ + r];
+      if (mr == -INFINITY) continue;  // no live key of this warp: nothing to add
+      const float a = exp2f(mr - mx);
+      const float4 ov = reinterpret_cast<const float4*>(ow + (w * SP_BQ + r) * D)[c4];
+      acc = make_float4(acc.x + a * ov.x, acc.y + a * ov.y, acc.z + a * ov.z, acc.w + a * ov.w);
+      l += a * lw[w * SP_BQ + r];
+    }
+    if (splits == 1) {
+      store4(r, c4, acc, 1.0f / fmaxf(l, 1e-30f));
+      continue;
+    }
+    const size_t row = base + (size_t)split * Sq + r;
+    if (mx != -INFINITY) ws_o[row * C4 + c4] = acc;
+    if (c4 == 0) ws_ml[row] = make_float2(mx, l);
+  }
+  if (splits == 1) return;
+
+  __threadfence();  // this split's partial is visible to every block before its ticket
+  __syncthreads();
+  int* ticket = tickets + (size_t)bh * gridDim.y + qt;
+  if (tid == 0) last = atomicAdd(ticket, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last block: M = max of the splits' m, weights w_s = exp2(m_s - M)
+  // (0 for an empty partial), L = sum w_s l_s and O = sum w_s O_s in split
+  // order.  The partials are read from L2 (__ldcg), where the other blocks
+  // wrote them: every (m, l) at once into shared memory, O as float4s eight
+  // splits at a time, so that the loads overlap instead of queueing
+  float* wgt = red;                         // [splits][16]: m_s, then w_s
+  float* lsp = wgt + MAX_SPLITS * SP_BQ;    // [splits][16]: l_s
+  float* l_tot = lsp + MAX_SPLITS * SP_BQ;  // [16]
+  for (int e = tid; e < splits * SP_BQ; e += SP_THREADS) {
+    const int sp = e / SP_BQ, r = e % SP_BQ;
+    const float2 ml = r < rows ? __ldcg(ws_ml + base + (size_t)sp * Sq + r) : make_float2(-INFINITY, 0.0f);
+    wgt[e] = ml.x;
+    lsp[e] = ml.y;
+  }
+  __syncthreads();
+  if (tid < rows) {
+    float mx = -INFINITY;
+    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, wgt[sp * SP_BQ + tid]);
+    float l = 0.0f;
+    for (int sp = 0; sp < splits; ++sp) {
+      const float m = wgt[sp * SP_BQ + tid];
+      const float w = m == -INFINITY ? 0.0f : exp2f(m - mx);
+      wgt[sp * SP_BQ + tid] = w;
+      if (w != 0.0f) l += w * lsp[sp * SP_BQ + tid];
+    }
+    l_tot[tid] = l;
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * C4; e += SP_THREADS) {
+    const int r = e / C4, c4 = e - r * C4;
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int sp0 = 0; sp0 < splits; sp0 += 8) {
+      float4 part[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int sp = sp0 + i;
+        part[i] = sp < splits && wgt[sp * SP_BQ + r] != 0.0f ? __ldcg(ws_o + (base + (size_t)sp * Sq + r) * C4 + c4)
+                                                               : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int sp = sp0 + i;
+        const float w = sp < splits ? wgt[sp * SP_BQ + r] : 0.0f;
+        if (w != 0.0f)
+          acc = make_float4(acc.x + w * part[i].x, acc.y + w * part[i].y, acc.z + w * part[i].z,
+                            acc.w + w * part[i].w);
+      }
+    }
+    store4(r, c4, acc, 1.0f / fmaxf(l_tot[r], 1e-30f));
+  }
+  if (tid == 0) *ticket = 0;  // ready for the next call on this stream
+}
+
+template <int D>
+cudaError_t launch_split(const void* q, const void* k, const void* v, void* out, PerRow q_offset,
+                         PerRow kv_len, float* ws, int* tickets, int BH, int Sq, int Sk, int splits, int tps,
+                         float scale, int causal, cudaStream_t stream) {
+  constexpr size_t bytes = (size_t)(SP_BQ + 4 * TC_BKV) * (D + 8) * sizeof(__nv_bfloat16);
+  // both merges fit in the K and V buffers
+  static_assert((8 * SP_BQ + 4 * SP_BQ * D) * sizeof(float) <= 4 * TC_BKV * (D + 8) * sizeof(__nv_bfloat16), "");
+  static_assert((2 * MAX_SPLITS + 1) * SP_BQ * sizeof(float) <= 4 * TC_BKV * (D + 8) * sizeof(__nv_bfloat16), "");
+  static bool attr_set = false;
+  if (bytes > 48 * 1024 && !attr_set) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+    attr_set = true;
+  }
+  const dim3 grid(BH, (Sq + SP_BQ - 1) / SP_BQ, splits);
+  flash_split_kernel<D><<<grid, SP_THREADS, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), q_offset, kv_len, ws, tickets, Sq,
+      Sk, splits, tps, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// Every entry point takes q_offset and kv_len as (ptr, step, value, wide):
+// an int32 or int64 device array read at element step * bh, or value where
+// ptr is null (PerRow).
+#define PER_ROW_ARGS \
+  const void *q_offset, int qo_step, int qo_value, int qo_wide, const void *kv_len, int kvl_step, int kvl_value, \
+      int kvl_wide
+#define PER_ROW PerRow{q_offset, qo_step, qo_value, qo_wide}, PerRow{kv_len, kvl_step, kvl_value, kvl_wide}
+
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
-extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, const void* v,
-                                      void* out, const int* q_offset, const int* kv_len, int BH,
-                                      int Sq, int Sk, int D, int Dv, float scale, int causal,
-                                      void* stream) {
-  if (BH <= 0 || Sq <= 0 || Sk < 0 || D <= 0 || D > 256 || Dv <= 0 || Dv > 256)
+extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, const void* v, void* out, PER_ROW_ARGS,
+                                      int BH, int Sq, int Sk, int D, int Dv, float scale, int causal, void* stream) {
+  if (BH <= 0 || Sq <= 0 || Sk < 0 || D <= 0 || D > 256 || Dv <= 0 || Dv > 256 || (Sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch<float>(q, k, v, out, q_offset, kv_len, BH, Sq, Sk, D, Dv, scale, causal, s);
+    err = dispatch<float>(q, k, v, out, PER_ROW, BH, Sq, Sk, D, Dv, scale, causal, s);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(q, k, v, out, q_offset, kv_len, BH, Sq, Sk, D, Dv, scale, causal, s);
+    err = dispatch<__nv_bfloat16>(q, k, v, out, PER_ROW, BH, Sq, Sk, D, Dv, scale, causal, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)err;
 }
 
-// The tensor-core route (kernels/flash_attention.py::flash_route): bf16
-// with D = Dv in {64, 128}.  Returns a cudaError_t (0 on success).
-extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out,
-                                         const int* q_offset, const int* kv_len, int BH, int Sq, int Sk,
-                                         int D, float scale, int causal, void* stream) {
-  if (BH <= 0 || Sq <= 0 || Sk < 0) return (int)cudaErrorInvalidValue;
+// The tensor-core route (kernels/flash_attention.py::flash_plan): bf16 with
+// D = Dv in {64, 80, 96, 112, 128}.  Returns a cudaError_t (0 on success).
+extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out, PER_ROW_ARGS, int BH,
+                                         int Sq, int Sk, int D, float scale, int causal, void* stream) {
+  if (BH <= 0 || Sq <= 0 || Sk < 0 || (Sq + TC_BQ - 1) / TC_BQ > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return (int)launch_tc<64>(q, k, v, out, q_offset, kv_len, BH, Sq, Sk, scale, causal, s);
-  if (D == 128) return (int)launch_tc<128>(q, k, v, out, q_offset, kv_len, BH, Sq, Sk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+  switch (D) {
+    case 64: return (int)launch_tc<64>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
+    case 80: return (int)launch_tc<80>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
+    case 96: return (int)launch_tc<96>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
+    case 112: return (int)launch_tc<112>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
+    case 128: return (int)launch_tc<128>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The split route (flash_plan's "split_kv"): the same head dims, `splits`
+// ranges of `tiles_per_split` 64-key tiles.  With splits > 1, ws holds BH x
+// splits x Sq x (D + 2) floats and tickets BH x ceil(Sq / 16) ints, zero
+// before the first call (the kernel leaves them zero).  Returns a
+// cudaError_t (0 on success).
+extern "C" int flash_attention_split_launch(const void* q, const void* k, const void* v, void* out, PER_ROW_ARGS,
+                                            float* ws, int* tickets, int BH, int Sq, int Sk, int D, int splits,
+                                            int tiles_per_split, float scale, int causal, void* stream) {
+  if (BH <= 0 || Sq <= 0 || Sk < 0 || (Sq + SP_BQ - 1) / SP_BQ > 65535 || splits < 1 || splits > MAX_SPLITS ||
+      tiles_per_split < 1 || (splits > 1 && (ws == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tps = tiles_per_split;
+  switch (D) {
+    case 64: return (int)launch_split<64>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
+    case 80: return (int)launch_split<80>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
+    case 96: return (int)launch_split<96>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
+    case 112: return (int)launch_split<112>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
+    case 128: return (int)launch_split<128>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

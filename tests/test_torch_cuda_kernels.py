@@ -23,7 +23,7 @@ from repro_torch.core import permute
 from repro_torch.device import make_generator
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
-from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+from repro_torch.kernels.flash_attention import SPLIT_MAX_SQ, attention_plain, flash_attention, flash_plan
 from repro_torch.kernels import lm_head_ce as ce
 from repro_torch.models import transformer as tf_model
 from repro_torch.optim import AdamW
@@ -428,26 +428,98 @@ TC_FLASH_CASES = [
     (2, 33, 150, 64, 10, 0, True),            # every row fully masked
     (2, 70, 190, 128, 0, 170, False),         # causal off
     (1, 256, 1024, 128, 512, 768, True),      # the prefill chunk's shape
+    (3, 70, 200, 80, 0, None, True),          # D = 80, Zamba2's shared block
+    (4, 130, 300, 80, 96, [0, 250, 300, 17], True),
+    (2, 256, 1024, 80, 512, 768, True),       # D = 80 at the chunk's shape
+    (2, 70, 190, 96, 30, 170, True),          # D = 96
+    (2, 70, 190, 112, 30, 170, True),         # D = 112
+    (3, 33, 150, 112, 0, 140, False),
 ]
+
+
+def _flash_case(dev, bh, sq, sk, d, qo, kvl, causal, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
+    # kv_len lists as int32 and q_offset as int64 tensors: the kernels read both widths
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev) if isinstance(kvl, list) else kvl
+    return q, k, v, dict(q_offset=torch.tensor(qo, device=dev), kv_len=kv_len, causal=causal)
+
+
+def _assert_dead_rows_zero(got, kvl, bh, sk):
+    dead = torch.as_tensor(kvl if kvl is not None else sk).reshape(-1).expand(bh) == 0
+    if dead.any():
+        assert (got[dead.to(got.device)] == 0).all(), "fully masked rows must be exactly 0"
+
+
+def _counters():
+    return flash_attention.launches, flash_attention.launches_tc, flash_attention.launches_split
 
 
 @pytest.mark.parametrize("case", TC_FLASH_CASES)
 def test_flash_tensor_core_route_matches_plain(dev, case):
+    """bf16 at the tensor-core head dims: Sq above SPLIT_MAX_SQ on the
+    unsplit 64-row tiles, Sq = 33 and 64 on split_kv; one launch, counted
+    on the tensor cores."""
     bh, sq, sk, d, qo, kvl, causal = case
-    g = torch.Generator(device=dev).manual_seed(sq + d)
-    q, k, v = (torch.randn(bh, s, d, generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk, sk))
-    kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev) if isinstance(kvl, list) else kvl
-    kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kv_len, causal=causal)
-    before = (flash_attention.launches, flash_attention.launches_tc)
+    q, k, v, kw = _flash_case(dev, *case, seed=sq + d)
+    route = flash_plan(bh, sq, sk, d, d, torch.bfloat16, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    assert route == ("tensor_cores" if sq > SPLIT_MAX_SQ else "split_kv")
+    before = _counters()
     got = flash_attention(q, k, v, **kw)
-    assert (flash_attention.launches, flash_attention.launches_tc) == (before[0] + 1, before[1] + 1)
+    assert _counters() == (before[0] + 1, before[1] + 1, before[2] + (route == "split_kv"))
     want = attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     _close(got, want, torch.bfloat16)
-    dead = torch.as_tensor(kvl if kvl is not None else sk).reshape(-1).expand(bh) == 0
-    if dead.any():
-        assert (got[dead.to(dev)] == 0).all(), "fully masked rows must be exactly 0"
+    _assert_dead_rows_zero(got, kvl, bh, sk)
+
+
+SPLIT_FLASH_CASES = [
+    # bh, sq, sk, d, q_offset (int or per-row list), kv_len (None, int or per-row list), causal
+    (32, 1, 1024, 80, 700, 701, True),        # Zamba2's prefill tail: 4 splits, the last wholly dead
+    (32, 1, 1024, 128, 700, 701, True),       # the same at D = 128
+    (8, 3, 640, 80, 500, 503, True),          # Sq = 3; live keys end mid-tile
+    (4, 16, 1024, 96, [0, 300, 1000, 64], None, True),  # Sq = 16, a whole query tile; causal dead splits
+    (4, 16, 700, 112, 600, [0, 616, 5, 650], True),     # kv_len 0 row: exactly 0; a row ending at key 5
+    (6, 1, 40, 64, 39, None, True),           # Sk below one KV tile: one split, written by the block
+    (6, 5, 50, 80, 0, [0, 0, 0, 0, 0, 0], True),        # every row fully masked
+    (2, 2, 900, 64, 0, 880, False),           # causal off: every split live
+    (32, 1, 1024, 80, 0, 1, True),            # one live key: every split but the first wholly dead
+    (4, 16, 1024, 128, 1008, 1000, True),     # 16 splits; live keys end mid-tile in the last live split
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_FLASH_CASES)
+def test_flash_split_kv_route_matches_plain(dev, case):
+    """The short-query route (16-row query tiles, the keys split across
+    blocks, the partials merged in the same launch by the last block of
+    each query tile) against the plain version, one launch per call, fully
+    masked rows exactly 0 and two calls bit for bit equal (the merge sums
+    the splits in split order, whichever block finishes last)."""
+    bh, sq, sk, d, qo, kvl, causal = case
+    q, k, v, kw = _flash_case(dev, *case, seed=sq * 7 + d)
+    route, q_tile, splits = flash_plan(bh, sq, sk, d, d, torch.bfloat16,
+                                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (route, q_tile) == ("split_kv", 16)
+    before = _counters()
+    got = flash_attention(q, k, v, **kw)
+    assert _counters() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    again = flash_attention(q, k, v, **kw)
+    want = attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), f"two calls differ ({splits} splits)"
+    _close(got, want, torch.bfloat16)
+    _assert_dead_rows_zero(got, kvl, bh, sk)
+
+
+def test_flash_split_kv_tail_fills_one_wave(dev):
+    """Zamba2's tail (BH = 32, Sq = 1, Sk = 1024) is split over the keys
+    until its blocks fill one wave of this card's SMs; its chunk (Sq = 256)
+    keeps 128 unsplit 64-row blocks."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    route, q_tile, splits = flash_plan(32, 1, 1024, 80, 80, torch.bfloat16, sms)
+    assert route == "split_kv" and splits > 1 and sms - 32 < 32 * splits <= sms
+    assert flash_plan(32, 256, 1024, 80, 80, torch.bfloat16, sms) == ("tensor_cores", 64, 1)
 
 
 OLD_ROUTE_CASES = [(torch.float32, 128, 128), (torch.float32, 64, 64), (torch.bfloat16, 192, 128),
@@ -460,9 +532,9 @@ def test_flash_cuda_core_route_matches_plain(dev, dtype, d, dv):
     q, k = (torch.randn(2, s, d, generator=g, device=dev).to(dtype) for s in (70, 150))
     v = torch.randn(2, 150, dv, generator=g, device=dev).to(dtype)
     kw = dict(q_offset=torch.tensor(40, device=dev), kv_len=120, causal=True)
-    before = (flash_attention.launches, flash_attention.launches_tc)
+    before = _counters()
     got = flash_attention(q, k, v, **kw)
-    assert (flash_attention.launches, flash_attention.launches_tc) == (before[0] + 1, before[1])
+    assert _counters() == (before[0] + 1, before[1], before[2])
     torch.cuda.synchronize()
     _close(got, attention_plain(q, k, v, **kw), dtype)
 
@@ -517,7 +589,7 @@ def test_fp8_upcast_is_exact_for_every_code(dev, m):
 def test_offset_views_are_refused_and_leave_the_context_usable(dev):
     """A contiguous view whose storage offset is not 16-byte aligned would
     fault in the kernels' 16-byte loads and poison the CUDA context: flash's
-    tensor-core route, lm_head_ce and dip_matmul_q refuse it before the
+    tensor-core routes, lm_head_ce and dip_matmul_q refuse it before the
     launch, and the same calls on aligned tensors then run."""
     from repro_torch.kernels.dip_matmul_q import dip_matmul_q
 
@@ -529,6 +601,8 @@ def test_offset_views_are_refused_and_leave_the_context_usable(dev):
         flash_attention(q, fresh, fresh)
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(fresh, fresh, q)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # Sq = 1: the split route
+        flash_attention(buf[1:1 + 2 * 128].view(2, 1, 128), fresh, fresh)
     x = buf[3:3 + 37 * 256].view(37, 256)
     w = torch.randn(256, 1024, generator=g, device=dev) / 16
     w_off = torch.randn(256 * 1024 + 4, generator=g, device=dev)[1:1 + 256 * 1024].view(256, 1024)
@@ -772,18 +846,21 @@ def test_dip_matmul_ssm_projections_match_plain(dev, proj, m, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,q_offset", [(256, 0), (256, 512), (1, 700)])
 def test_flash_zamba2_head_dim_80_matches_plain(dev, dtype, sq, q_offset):
-    """Zamba2's shared attention at prefill: 32 heads of 80 (D = 80 takes
-    the CUDA-core route), a 256-token chunk or one token of the prefill
-    tail against up to 1024 keys of the prefill cache."""
+    """Zamba2's shared attention at prefill: 32 heads of 80, a 256-token
+    chunk or one token of the prefill tail against up to 1024 keys of the
+    prefill cache.  bf16 takes the tensor cores (the chunk unsplit, the
+    tail on ``split_kv``); f32 keeps the CUDA-core route."""
     bh, sk, d = 32, 1024, 80
     g = torch.Generator(device=dev).manual_seed(sq + q_offset)
     q = torch.randn(bh, sq, d, generator=g, device=dev).to(dtype)
     k = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
     v = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
     kw = dict(q_offset=torch.tensor(q_offset, device=dev), kv_len=q_offset + sq, causal=True)
-    before = (flash_attention.launches, flash_attention.launches_tc)
+    route = flash_plan(bh, sq, sk, d, d, dtype, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    assert route == ("cuda_cores" if dtype == torch.float32 else "split_kv" if sq == 1 else "tensor_cores")
+    before = _counters()
     got = flash_attention(q, k, v, **kw)
-    assert (flash_attention.launches, flash_attention.launches_tc) == (before[0] + 1, before[1])
+    assert _counters() == (before[0] + 1, before[1] + (route != "cuda_cores"), before[2] + (route == "split_kv"))
     want = attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     _close(got, want, dtype)

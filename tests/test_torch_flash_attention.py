@@ -1,7 +1,9 @@
 """The port's flash-attention module against
 ``repro.kernels.flash_attention.flash_attention_pallas`` (interpret mode on
 the CPU) on the same numpy inputs: causal masking by absolute position,
-``q_offset``, ``kv_len``, fully masked rows and Dv != D.
+``q_offset``, ``kv_len``, fully masked rows, Dv != D, and head dim 80 at
+one token (the shape Zamba2's single-token prefill tail sends to the card's
+``split_kv`` route) and at 16.
 
 Tolerances (``_torch_parity.TOL``): float32 1e-5 of max(1, max|reference|)
 — the same f32 softmax arithmetic, blocked on one side and dense on the
@@ -28,6 +30,10 @@ CASES = [
     (2, 8, 24, 48, 32, 0, None, True),             # Dv != D
     (2, 5, 20, 16, 16, 4, [0, 3], True),           # kv_len 0: row 0 fully masked
     (2, 12, 20, 16, 16, None, 9, False),
+    # D = 80, Zamba2's shared block (the tensor-core head dims' shapes)
+    (2, 1, 96, 80, 80, 70, 71, True),              # one token of the prefill tail
+    (3, 16, 128, 80, 80, [0, 40, 100], [16, 0, 116], True),  # Sq = 16; kv_len 0: row 1 fully masked
+    (2, 1, 64, 80, 80, [10, 63], [0, 64], True),   # Sq = 1 with a kv_len 0 row
 ]
 
 

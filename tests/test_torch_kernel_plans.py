@@ -6,12 +6,15 @@ one-byte weights of ``dip_matmul_q`` (``weight_bytes=1``: e4m3 and int8);
 ``kernels/dip_systolic.py::systolic_plan`` shapes the wavefront kernel on
 the CUDA cores; ``kernels/dip_matmul_q.py::q_route`` and
 ``kernels/flash_attention.py::flash_route`` pick a kernel by dtypes and
-head dims; ``kernels/_build.py::check_aligned`` is the alignment check
+head dims, and ``flash_plan`` the flash route, its query tile and its
+splits of the keys by the shapes; ``kernels/_build.py::check_aligned`` is the alignment check
 every wrapper runs before a launch.
 All are plain Python, so their contracts are held here; the kernels
 themselves are held against their plain versions on the card
 (``tests/test_torch_cuda_kernels.py``, ``-m cuda``).
 """
+
+import inspect
 
 import pytest
 import torch
@@ -21,7 +24,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.dip_matmul import DECODE_MAX_M, TILE, dip_matmul, matmul_plan
 from repro_torch.kernels.dip_matmul_q import dip_matmul_q, q_route
 from repro_torch.kernels.dip_systolic import SYSTOLIC_DECODE_MAX_M, dip_systolic, systolic_plan
-from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, flash_attention, flash_route
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.flash_attention import (KV_TILE, SPLIT_MAX_SQ, TC_HEAD_DIMS, attention_plain, flash_attention,
+                                                 flash_plan, flash_route, split_ranges)
 
 SMS = 132  # an H100 SXM
 
@@ -261,11 +266,128 @@ def test_flash_route(dtype, d, dv, route):
     assert flash_route(dtype, d, dv) == route
 
 
+# (BH, Sq, Sk) of flash calls: Zamba2's prefill tail and chunk, llama3-8b's
+# chunk and short last chunks, one head, long and short caches
+FLASH_SHAPES = [(32, 1, 1024), (32, 256, 1024), (32, 29, 1024), (32, 64, 1024), (32, 65, 1024), (1, 1, 32768),
+                (4, 16, 700), (8, 3, 640), (6, 1, 40), (2, 2, 900), (256, 1, 1024), (1, 1, 0), (64, 16, 4096)]
+
+
+@pytest.mark.parametrize("bh,sq,sk", FLASH_SHAPES)
+@pytest.mark.parametrize("d", TC_HEAD_DIMS)
+def test_flash_plan_splits_cover_the_keys_once(bh, sq, sk, d):
+    """The tensor-core head dims in bf16: Sq <= SPLIT_MAX_SQ takes
+    split_kv with 16-row query tiles, and its splits are whole 64-key tiles
+    that cover [0, Sk) once, in order, none empty, the grid no larger than
+    one wave unless a single split already is; longer queries take the
+    unsplit 64-row tiles."""
+    route, q_tile, splits = flash_plan(bh, sq, sk, d, d, torch.bfloat16, SMS)
+    if sq > SPLIT_MAX_SQ:
+        assert (route, q_tile, splits) == ("tensor_cores", 64, 1)
+        return
+    assert (route, q_tile) == ("split_kv", 16) and 1 <= splits <= fa.MAX_SPLITS
+    ranges = split_ranges(sk, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0 and ranges[-1][1] == sk
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges) or sk == 0
+    assert all(lo % KV_TILE == 0 for lo, _ in ranges)
+    blocks = bh * -(-sq // 16)
+    assert splits == 1 or blocks * splits <= SMS
+
+
+def test_flash_plan_at_zamba2_shapes():
+    """Zamba2's shared block, 32 heads of 80: a tail token (Sq = 1) is
+    split over the keys and fills one wave; a 256-token chunk is not
+    split, 128 blocks of 64 rows; f32 stays on the CUDA cores."""
+    route, q_tile, splits = flash_plan(32, 1, 1024, 80, 80, torch.bfloat16, SMS)
+    assert (route, q_tile) == ("split_kv", 16) and splits > 1 and SMS - 32 < 32 * splits <= SMS
+    assert flash_plan(32, 256, 1024, 80, 80, torch.bfloat16, SMS) == ("tensor_cores", 64, 1)
+    for sq in (1, 256):
+        assert flash_plan(32, sq, 1024, 80, 80, torch.float32, SMS)[0] == "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype,d,dv", [(torch.bfloat16, 32, 32), (torch.bfloat16, 48, 48), (torch.float32, 80, 80),
+                                        (torch.float32, 128, 128), (torch.bfloat16, 192, 128),
+                                        (torch.float16, 80, 80)])
+@pytest.mark.parametrize("sq", [1, 16, 256])
+def test_flash_plan_keeps_other_dtypes_and_head_dims_on_the_cuda_cores(dtype, d, dv, sq):
+    """The reduced models' head dim 32, D = 48, f32 and Dv != D take the
+    CUDA-core kernel at every Sq, unsplit."""
+    assert flash_plan(32, sq, 1024, d, dv, dtype, SMS) == ("cuda_cores", 64, 1)
+
+
+def test_flash_plan_takes_only_host_integers():
+    """The plan reads shapes, the dtype and the SM count: no argument can
+    carry q_offset or kv_len, which live on the card, so planning a call
+    never waits for the device."""
+    params = inspect.signature(flash_plan).parameters
+    assert list(params) == ["bh", "sq", "sk", "d", "dv", "dtype", "sms"]
+    assert [p.annotation for p in params.values()] == ["int"] * 5 + ["torch.dtype", "int"]
+
+
+def test_per_row_values_reach_the_kernels_without_a_launch():
+    """q_offset and kv_len as the kernels take them, (tensor, step, value,
+    wide): an integer by value, an int32 or int64 position tensor of the
+    call's device as it is (one element: step 0), anything else converted
+    to int32 once; a wrong element count is refused."""
+    dev = torch.device("cpu")
+    assert fa._per_row_arg(None, 4, 1024, dev) == (None, 0, 1024, 0)
+    assert fa._per_row_arg(700, 4, 0, dev) == (None, 0, 700, 0)
+    pos = torch.tensor(700)  # a 0-d int64 position, as the models pass q_offset
+    t, step, value, wide = fa._per_row_arg(pos, 4, 0, dev)
+    assert (step, value, wide) == (0, 0, 1) and t.data_ptr() == pos.data_ptr()
+    rows = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    t, step, value, wide = fa._per_row_arg(rows, 4, 0, dev)
+    assert (step, wide) == (1, 0) and t.data_ptr() == rows.data_ptr()
+    t, step, _, wide = fa._per_row_arg(torch.tensor([5.0, 6.0, 7.0, 8.0]), 4, 0, dev)
+    assert (t.dtype, step, wide) == (torch.int32, 1, 0) and t.tolist() == [5, 6, 7, 8]
+    with pytest.raises(ValueError, match="per-row"):
+        fa._per_row_arg(torch.tensor([1, 2]), 4, 0, dev)
+
+
+def _split_merge_emulated(q, k, v, q_offset, kv_len, splits):
+    """split_kv's arithmetic in f32 torch: each split's (m, l, unnormalised
+    O) over its keys (m = -inf, l = 0 where a row sees none of them), then
+    the merge in split order with weights exp(m_s - M), as the last block
+    computes it."""
+    bh, sq, d = q.shape
+    s = torch.einsum("bqd,bkd->bqk", q * d ** -0.5, k)
+    k_pos = torch.arange(k.shape[1])
+    q_pos = torch.as_tensor(q_offset).view(-1, 1) + torch.arange(sq)
+    live = (k_pos < torch.as_tensor(kv_len).view(-1, 1, 1)) & (q_pos[..., None] >= k_pos)
+    live = live.expand(bh, sq, -1)
+    parts = []
+    for lo, hi in split_ranges(k.shape[1], splits):
+        sl, lv = s[..., lo:hi], live[..., lo:hi]
+        m = torch.where(lv, sl, torch.tensor(-torch.inf)).amax(-1, keepdim=True)
+        p = torch.where(lv, torch.exp(sl - torch.where(torch.isinf(m), 0.0, m)), 0.0)
+        parts.append((m, p.sum(-1, keepdim=True), p @ v[:, lo:hi]))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+    acc, den = torch.zeros(bh, sq, v.shape[2]), torch.zeros(bh, sq, 1)
+    for m, l, o in parts:
+        w = torch.where(torch.isinf(m), 0.0, torch.exp(m - torch.where(torch.isinf(big_m), 0.0, big_m)))
+        acc, den = acc + w * o, den + w * l
+    return acc / den.clamp(min=1e-30)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+def test_split_kv_merge_arithmetic_matches_plain(splits):
+    """The partials of whole-tile key ranges merged in split order give
+    attention_plain's output (f32, 1e-5), with wholly dead splits and a
+    kv_len 0 row (exactly 0) among them."""
+    g = torch.Generator().manual_seed(splits)
+    q, k, v = (torch.randn(3, s, 80, generator=g) for s in (4, 300, 300))
+    q_offset, kv_len = torch.tensor([70, 200, 296]), torch.tensor([74, 0, 300])
+    got = _split_merge_emulated(q, k, v, q_offset, kv_len, splits)
+    want = attention_plain(q, k, v, q_offset=q_offset, kv_len=kv_len)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert (got[1] == 0).all()
+
+
 def test_cpu_calls_launch_nothing():
     """CPU tensors take the plain versions: no launch is counted."""
-    counters = lambda: (flash_attention.launches, flash_attention.launches_tc, dip_matmul.launches,  # noqa: E731
-                        dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_quant,
-                        dip_systolic.launches)
+    counters = lambda: (flash_attention.launches, flash_attention.launches_tc, flash_attention.launches_split,  # noqa: E731
+                        dip_matmul.launches, dip_matmul_q.launches, dip_matmul_q.launches_tc,
+                        dip_matmul_q.launches_quant, dip_systolic.launches)
     before = counters()
     q = torch.randn(2, 5, 64, dtype=torch.bfloat16)
     flash_attention(q, q, q)
