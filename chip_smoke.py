@@ -119,6 +119,7 @@ nothing of JAX or of the JAX package.
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -233,6 +234,63 @@ def clone_tree(t):
     return t.clone() if hasattr(t, "clone") else t
 
 
+def copy_tree(dst, src):
+    """Copy a cache tree's tensors into a tree of the same structure, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_tree(dst[k], src[k])
+    elif hasattr(dst, "copy_"):
+        dst.copy_(src)
+
+
+def trees_equal(a, b):
+    """Whether two cache trees hold the same values bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
+    return torch.equal(a, b) if hasattr(a, "shape") else a == b
+
+
+def keep_last(store, kind, a):
+    """Keep a step call's arguments (its integer inputs copied: the engine
+    reuses their host arrays) and a device copy of its cache as the call
+    found it, for the replay-against-eager check after serving: one copy per
+    kind of call, overwritten call by call."""
+    a = tuple(a[:2]) + tuple(t.clone() for t in a[2:])
+    held = store.get(kind)
+    if held is None:
+        store[kind] = (a, clone_tree(a[1]))
+    else:
+        copy_tree(held[1], a[1])
+        store[kind] = (a, held[1])
+
+
+PAGED = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")  # pool leaves with a block axis (dim 1)
+
+
+def live_rows(a):
+    """The batch rows of a step call that the engine reads: for a paged
+    decode step the slots whose block table is not all null (a free slot
+    writes its K/V to the null block's row 0, as every other free slot
+    does, so which write lands there is not defined); otherwise every row."""
+    if len(a) != 5 or not bool((a[4] != 0).any()):
+        return slice(None)
+    return (a[4] != 0).any(-1)
+
+
+def served_cache(t, rows, name=""):
+    """A cache tree without the null block (block 0) of its paged pools and
+    with the per-slot state pools (``conv``, ``state``: slot axis 1) cut to
+    ``rows`` (``live_rows``; a hybrid's free slot attends over the null
+    block): what a step's result may be held to bit for bit."""
+    if isinstance(t, dict):
+        return {k: served_cache(v, rows, k) for k, v in t.items()}
+    if name in PAGED and hasattr(t, "shape"):
+        return t[:, 1:]
+    return t[:, rows] if name in ("conv", "state") else t
+
+
 def plain_backends(capture=None):
     """A context in which every kernel-backed matmul backend runs its plain
     PyTorch version on the card (a reference run on the same inputs);
@@ -333,6 +391,7 @@ def main():
     from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, attention_plain, flash_attention, flash_plan
     from repro_torch.kernels.ref import quantize_acts_int8
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving import graphs
     from repro_torch.serving import kv_cache as kvc
     from repro_torch.models import attention, layers, moe, ssm
     from repro_torch.models import transformer as tf_model
@@ -346,6 +405,174 @@ def main():
         return {"tensor_cores": flash_attention.launches_tc - flash_attention.launches_split,
                 "split_kv": flash_attention.launches_split,
                 "cuda_cores": flash_attention.launches - flash_attention.launches_tc}
+
+    @contextlib.contextmanager
+    def uncounted():
+        """A context whose launches compare a step with its eager or plain
+        version: every counter is put back after it, so that a path counts
+        its own launches only."""
+        saved = graphs.launch_counts()
+        try:
+            yield
+        finally:
+            for (fn, nm), n in saved.items():
+                setattr(fn, nm, n)
+
+    # the kernels that a wrapper call launches once (a split-K reduce after
+    # one is part of the same call), by name and by the counters
+    product_kernels = ("dip_mma_kernel", "dip_wgmma_kernel", "dip_matmul_kernel", "dip_mma_s8_kernel",
+                       "dip_wgmma_s8_kernel", "dip_matmul_q_kernel")
+
+    def kernels_by_name(by_kernel):
+        base = {}
+        for key, (count, _) in by_kernel.items():
+            m = re.search(r"(\w+_kernel)\s*[<(]", key)
+            if m:
+                base[m.group(1)] = base.get(m.group(1), 0) + count
+        return {"dip products": sum(base.get(nm, 0) for nm in product_kernels),
+                "quantizing passes": base.get("quantize_int8_kernel", 0),
+                "wavefront": base.get("dip_systolic_kernel", 0),
+                "flash tensor_cores": base.get("flash_tc_kernel", 0),
+                "flash split_kv": base.get("flash_split_kernel", 0),
+                "flash cuda_cores": base.get("flash_attention_kernel", 0)}
+
+    def kernels_by_counter(delta):
+        def d(fn, nm="launches"):
+            return delta.get((fn, nm), 0)
+        return {"dip products": d(dip_matmul) + d(dip_matmul_q),
+                "quantizing passes": d(dip_matmul_q, "launches_quant"),
+                "wavefront": d(dip_systolic),
+                "flash tensor_cores": d(flash_attention, "launches_tc") - d(flash_attention, "launches_split"),
+                "flash split_kv": d(flash_attention, "launches_split"),
+                "flash cuda_cores": d(flash_attention) - d(flash_attention, "launches_tc")}
+
+    def profile_call(fn, reset, what, top=12):
+        """One synchronised call under the profiler (``reset()`` first,
+        outside it): device ms by kernel, launches, the summed device time
+        against the wall time of the call, and the host operators by their
+        own CPU time."""
+        reset()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof, torch.no_grad():
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t)
+        by_kernel = {}
+        for ev in prof.key_averages():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                us = getattr(ev, "self_device_time_total", None)
+                by_kernel[ev.key] = (ev.count, (us if us is not None else ev.self_cuda_time_total) / 1e3)
+        device_ms = sum(v[1] for v in by_kernel.values())
+        launches = sum(v[0] for v in by_kernel.values())
+        host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
+                       if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
+        host_ms = sum(h[0] for h in host)
+        log(f"  {what} (profiled): device ms of all kernels {device_ms:.2f} in {launches} launches; wall "
+            f"{wall_ms:.2f} ms (profiler on), device idle {100 * max(0.0, 1 - device_ms / wall_ms):.1f}% of it; "
+            f"host ms of all operators (self time) {host_ms:.2f}")
+        if top:
+            ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+            for key, (count, ms) in ranked[:top] + [kv for kv in ranked[top:] if "flash_" in kv[0]]:
+                log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+            for ms, count, key in host[:6]:
+                log(f"    host {ms:8.3f} ms  x{count:<5d} {key[:100]}")
+        return {"device_ms": device_ms, "wall_ms": wall_ms, "launches": launches, "host_ms": host_ms,
+                "flash_ms": sum(v[1] for key, v in by_kernel.items() if "flash_" in key), "by_kernel": by_kernel}
+
+    def graph_check(what, captured, eager, held, vocab):
+        """A replay of the engine's captured step against the uncaptured
+        step function, both from the cache as the call in ``held`` found it
+        (``keep_last``) with its inputs: the logits of the rows the engine
+        reads equal bit for bit, their argmax equal and the caches after the
+        call equal but for the null block (``live_rows``); then 10 timed
+        calls of each after 2 warm-ups (the cache put back before each,
+        outside the clock), one profiled call of each, and the profiled
+        replay's kernels counted by name against the counters' increase
+        over it.  No launch made here counts on the path."""
+        a, snap = held
+        params, cache, inputs = a[0], a[1], a[2:]
+        dev_in = tuple(t.to(dev) for t in inputs)
+        scratch = clone_tree(snap)
+
+        def replay():
+            return captured(params, cache, *inputs)
+
+        def run_eager():
+            return eager(params, scratch, *dev_in)
+
+        def reset_replay():
+            copy_tree(cache, snap)
+
+        def reset_eager():
+            copy_tree(scratch, snap)
+
+        rows = live_rows(a)
+        with uncounted(), torch.no_grad():
+            reset_replay()
+            got = replay()[0][rows].clone()
+            got_cache = clone_tree(cache)
+            reset_eager()
+            want = run_eager()[0][rows]
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs().max().item()
+            bit_equal = torch.equal(got, want)
+            caches_equal = trees_equal(served_cache(got_cache, rows), served_cache(scratch, rows))
+            tokens_equal = torch.equal(got[..., :vocab].argmax(-1), want[..., :vocab].argmax(-1))
+            del got, want, got_cache
+            wall = {}
+            for name, fn, reset in (("replay", replay, reset_replay), ("eager", run_eager, reset_eager)):
+                ts = []
+                for _ in range(12):
+                    reset()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t)
+                wall[name] = 1e3 * statistics.median(ts[2:])
+            before = graphs.launch_counts()
+            prof_r = profile_call(replay, reset_replay, f"{what}, one replay")
+            delta = {k: n - before[k] for k, n in graphs.launch_counts().items()}
+            prof_e = profile_call(run_eager, reset_eager, f"{what}, the eager step", top=0)
+        del scratch
+        replay_kernels[what] = prof_r["by_kernel"]
+        by_name, by_counter = kernels_by_name(prof_r["by_kernel"]), kernels_by_counter(delta)
+        cap = captured.captures[tuple(tuple(t.shape) for t in inputs)]
+        out = {"replay_ms": wall["replay"], "eager_ms": wall["eager"], "replay_device_ms": prof_r["device_ms"],
+               "replay_launches": prof_r["launches"], "eager_device_ms": prof_e["device_ms"],
+               "eager_launches": prof_e["launches"],
+               "replay_idle": max(0.0, 1 - prof_r["device_ms"] / wall["replay"]),
+               "eager_idle": max(0.0, 1 - prof_e["device_ms"] / wall["eager"]),
+               "replay_profiled_wall_ms": prof_r["wall_ms"], "eager_profiled_wall_ms": prof_e["wall_ms"],
+               "eager_host_ms": prof_e["host_ms"], "flash_ms": prof_r["flash_ms"],
+               "capture_s": cap["seconds"], "bit_equal": bit_equal, "max_abs_diff": diff,
+               "tokens_equal": tokens_equal, "caches_equal": caches_equal, "kernels_by_name": by_name}
+        log(f"  {what}: replay {wall['replay']:.3f} ms against the eager step's {wall['eager']:.3f} ms of wall "
+            f"(median of 10); one replay {prof_r['device_ms']:.3f} ms of device time in {prof_r['launches']} "
+            f"launches, idle {100 * out['replay_idle']:.1f}% (eager: {prof_e['device_ms']:.3f} ms in "
+            f"{prof_e['launches']}, idle {100 * out['eager_idle']:.1f}%); capture {cap['seconds']:.2f} s; "
+            f"logits bit-equal {bit_equal} (max|diff| {diff:.3e}), argmax equal {tokens_equal}, caches equal "
+            f"{caches_equal}; ({gpu})")
+        log(f"  {what}: the replay's kernels by name {by_name}; by the counters {by_counter}")
+        if not (bit_equal and tokens_equal and caches_equal):
+            raise AssertionError(f"{what}: the replay differs from the eager step on the same inputs")
+        if by_name != by_counter or not any(by_name.values()):
+            raise AssertionError(f"{what}: the profiled replay's kernels differ from the counters' increase")
+        return out
+
+    replay_kernels = {}  # graph_check's profiled replay: device ms by kernel, by what it checked
+
+    def graph_pool_gib(*steps):
+        """The device memory the captures of an engine's steps reserved in
+        their shared pool: what its graphs keep resident."""
+        return sum(c["reserved_bytes"] for st_ in steps for c in st_.captures.values()) / 2**30
+
+    def dev_args(a):
+        """A step call's integer inputs (host tensors, as the engine stages
+        them) on the card, for the uncaptured step functions."""
+        return tuple(t.to(dev) for t in a[2:])
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1025,14 +1252,14 @@ def main():
     eng = server.engine
     times = {"_prefill_fwd": [], "_decode": []}
 
-    last_args = {}
+    last_args, held = {}, {}
 
     def timed(attr):
         f = getattr(eng, attr)
         last_args[attr + "_fn"] = f
 
         def run(*a):
-            last_args[attr] = a  # profiled after the run
+            keep_last(held, attr, a)  # checked against the eager step after the run
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = f(*a)
@@ -1059,7 +1286,7 @@ def main():
                 "lm_head_ce": ce.lm_head_ce.launches}
     flash_tc = flash_attention.launches_tc
     routes_by_path = {"serve": flash_routes()}
-    peak = torch.cuda.max_memory_allocated()
+    peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     st = server.last_stats
     n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
     prompt_tokens = sum(len(r.prompt) for r in reqs)
@@ -1072,8 +1299,8 @@ def main():
     if (n_prefill, n_decode) != (st["prefill_chunks"], st["decode_steps"]):
         raise AssertionError("full width: step counts disagree with the engine's stats")
     want = {"dip_matmul": 193 * (n_prefill + n_decode), "flash_attention": 32 * n_prefill, "lm_head_ce": 0}
-    log(f"  launches {launches}; expected {want} "
-        f"(193 DiP launches per forward, 32 flash launches per prefill chunk)")
+    log(f"  launches {launches}; expected {want} (193 DiP launches per forward, 32 flash launches per prefill "
+        f"chunk; replays counted)")
     if launches != want:
         raise AssertionError("full width: launch counts differ from 193/forward and 32/prefill chunk")
     log(f"  flash launches on the tensor-core routes {flash_tc} of {launches['flash_attention']}, by route "
@@ -1087,50 +1314,25 @@ def main():
         "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
         "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
         "peak_memory_gib": peak / 2**30,
+        "peak_reserved_gib": peak_reserved / 2**30,
+        "graph_pool_gib": graph_pool_gib(last_args["_prefill_fwd_fn"], last_args["_decode_fn"]),
         "wall_s": wall,
         "prefill_chunks": n_prefill,
         "decode_steps": n_decode,
     }
     log("  serving " + json.dumps(serving))
 
-    def profile_step(fn, args, what):
-        """One call of an engine step under the profiler: device ms by
-        kernel, launches, the summed device time against the wall time of
-        the synchronised call, and the host-side operators by their own CPU
-        time (where an idle card's time goes)."""
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof, torch.no_grad():
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn(*args)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t)
-        by_kernel = {}
-        for ev in prof.key_averages():
-            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                us = getattr(ev, "self_device_time_total", None)
-                by_kernel[ev.key] = (ev.count, (us if us is not None else ev.self_cuda_time_total) / 1e3)
-        device_ms = sum(v[1] for v in by_kernel.values())
-        log(f"  {what} (profiled): device ms of all kernels {device_ms:.2f} in "
-            f"{sum(v[0] for v in by_kernel.values())} launches; wall {wall_ms:.2f} ms (profiler on), "
-            f"device idle {100 * max(0.0, 1 - device_ms / wall_ms):.1f}% of it")
-        ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
-        for key, (count, ms) in ranked[:12] + [kv for kv in ranked[12:] if "flash_" in kv[0]]:
-            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
-        host = sorted(((ev.self_cpu_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
-                       if not str(getattr(ev, "device_type", "")).endswith("CUDA")), reverse=True)
-        host_ms = sum(h[0] for h in host)
-        log(f"  {what}: host ms of all operators (self time, profiler on) {host_ms:.2f}; the largest:")
-        for ms, count, key in host[:8]:
-            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
-        return {"device_ms": device_ms, "wall_ms": wall_ms, "launches": sum(v[0] for v in by_kernel.values()),
-                "host_ms": host_ms, "flash_ms": sum(v[1] for key, v in by_kernel.items() if "flash_" in key)}
-
-    # the bf16 steps on their last inputs: what the kernels leave of a step
-    serving["profile_decode"] = profile_step(last_args["_decode_fn"], last_args["_decode"], "decode step")
-    serving["profile_prefill"] = profile_step(last_args["_prefill_fwd_fn"], last_args["_prefill_fwd"],
-                                              "prefill chunk")
-    del server, eng, params, last_args
+    # the bf16 steps on their last inputs, replayed and eager
+    ecfg = eng.cfg
+    serving["graphs"] = {
+        "decode": graph_check("decode step", last_args["_decode_fn"], tf_model.paged_decode_step_fn(ecfg),
+                              held["_decode"], cfg.vocab_size),
+        "prefill": graph_check("prefill chunk", last_args["_prefill_fwd_fn"],
+                               tf_model.decode_step_fn(ecfg, attn_backend="flash"), held["_prefill_fwd"],
+                               cfg.vocab_size)}
+    log("  graphs " + json.dumps(serving["graphs"]))
+    del server, eng, params, last_args, held
+    gc.collect()
     torch.cuda.empty_cache()
     serve_launches = launches
     counters = {"dip_matmul": dip_matmul, "dip_matmul_q": dip_matmul_q, "dip_systolic": dip_systolic,
@@ -1156,7 +1358,7 @@ def main():
                 "--slots", "4", "--max-seq", "1024", "--prefill-chunk", "256", "--seed", str(SEED),
                 "--prompt-len", "200", "601", "--temperature", "0", "--quantize", scheme]
         argv += ["--kv-quant", kvq] if kvq else []
-        st = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}}
+        st = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "held": {}}
 
         def hook(server, reqs, st=st):
             """Time both engine steps; on the first call of each, keep the
@@ -1168,11 +1370,11 @@ def main():
             plain = {"_prefill_fwd": tf_model.decode_step_fn(eng.cfg, attn_backend="dense"),
                      "_decode": tf_model.paged_decode_step_fn(eng.cfg)}
             flash_kept = tf_model.decode_step_fn(eng.cfg, attn_backend="flash")
-            st["decode_fn"] = eng._decode
+            eager_steps = {"_prefill_fwd": flash_kept, "_decode": plain["_decode"]}
+            st["orig"] = {attr: getattr(eng, attr) for attr in ("_prefill_fwd", "_decode")}
             for attr in ("_prefill_fwd", "_decode"):
                 def run(*a, _f=getattr(eng, attr), _attr=attr):
-                    if _attr == "_decode":
-                        st["decode_args"] = a  # the last step's inputs, profiled after the run
+                    keep_last(st["held"], _attr, a)  # checked against the eager step after the run
                     first = _attr not in st["checked"]
                     inputs = clone_tree(a[1]) if first else None
                     torch.cuda.synchronize()
@@ -1183,20 +1385,35 @@ def main():
                     if not bool(torch.isfinite(out[0][..., :cfg.vocab_size]).all()):
                         raise AssertionError(f"quantized full width: non-finite logits from {_attr}")
                     if first:
+                        # the uncaptured step (the same kernels) on a copy of
+                        # the inputs: its logits must be the captured step's
+                        # first call's (an eager run on the capture stream) bit
+                        # for bit
+                        rows = live_rows(a)
+                        with uncounted(), torch.no_grad():
+                            eager = eager_steps[_attr](a[0], clone_tree(inputs), *dev_args(a))[0]
+                        diff = (eager[rows].float() - out[0][rows].float()).abs().max().item()
+                        log(f"  {_attr} first call (eager on the capture stream, then captured) against the "
+                            f"uncaptured step, max|diff| {diff:.3e}")
+                        if not torch.equal(eager[rows], out[0][rows]):
+                            raise AssertionError(f"quantized full width ({scheme}): the captured {_attr} differs from "
+                                                 f"the eager step")
+                        del eager
                         if _attr == "_prefill_fwd":
                             # the quantized kernels alone: plain matmuls with the
                             # flash kernel kept on both sides (its launches here
-                            # are a comparison's, so the count is put back)
-                            n_flash, again = (flash_attention.launches, flash_attention.launches_tc), clone_tree(inputs)
-                            with plain_backends(), torch.no_grad():
-                                ref_l = flash_kept(a[0], again, *a[2:])[0][..., :cfg.vocab_size].float()
-                            flash_attention.launches, flash_attention.launches_tc = n_flash
+                            # are a comparison's, so they are not counted)
+                            again = clone_tree(inputs)
+                            with uncounted(), plain_backends(), torch.no_grad():
+                                ref_l = flash_kept(a[0], again, *dev_args(a))[0][..., :cfg.vocab_size].float()
                             st["flash_kept"] = (out[0][..., :cfg.vocab_size].float() - ref_l).abs().max().item()
                             del again, ref_l
                         cap = {"vocab": cfg.padded_vocab}
                         with plain_backends(cap), torch.no_grad():
-                            want = plain[_attr](a[0], inputs, *a[2:])[0]
-                        st["checked"][_attr] = (out[0][..., :cfg.vocab_size].float(),
+                            want = plain[_attr](a[0], inputs, *dev_args(a))[0]
+                        # a copy: the logits are the captured step's static buffer, which the
+                        # next replay overwrites
+                        st["checked"][_attr] = (out[0][..., :cfg.vocab_size].float().clone(),
                                                 want[..., :cfg.vocab_size].float(), cap.get("head_x"))
                         del inputs, want
                     return out
@@ -1211,7 +1428,7 @@ def main():
         launches = read_counts()
         q_tc, q_quant = dip_matmul_q.launches_tc, dip_matmul_q.launches_quant
         routes_by_path["serve_int8" if scheme == "int8" else "serve_fp8"] = routes = flash_routes()
-        peak = torch.cuda.max_memory_allocated()
+        peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
         server, reqs, times = st["server"], st["reqs"], st["times"]
         n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
         if [len(r.prompt) for r in reqs] != [len(r.prompt) for r in st_reqs_phase5]:
@@ -1220,7 +1437,8 @@ def main():
             raise AssertionError("quantized full width: not every request was served")
         want = {"dip_matmul": 0, "dip_matmul_q": 193 * (n_prefill + n_decode), "dip_systolic": 0,
                 "flash_attention": 32 * n_prefill, "lm_head_ce": 0}
-        log(f"  launches {launches}; expected {want} (193 quantized launches per forward, no DiP launch); "
+        log(f"  launches {launches}; expected {want} (193 quantized launches per forward, no DiP launch; replays "
+            f"counted); "
             f"{q_tc} of the dip_matmul_q launches on the tensor-core route; {q_quant} quantizing passes")
         if launches != want:
             raise AssertionError(f"quantized full width ({scheme}): launch counts differ from the expected ones")
@@ -1260,6 +1478,8 @@ def main():
             "prefill_tok_per_s": sum(len(r.prompt) for r in reqs) / sum(times["_prefill_fwd"]),
             "decode_tok_per_s": (generated - len(reqs)) / sum(times["_decode"]),
             "peak_memory_gib": peak / 2**30,
+            "peak_reserved_gib": peak_reserved / 2**30,
+            "graph_pool_gib": graph_pool_gib(st["orig"]["_prefill_fwd"], st["orig"]["_decode"]),
             "allocated_at_start_gib": st["allocated_at_start_gib"],
             "kv_bytes_per_block": kvc.bytes_per_block(server.engine.cfg),
             "kv_quant": server.engine.kv_quant,
@@ -1268,25 +1488,22 @@ def main():
         }
         log(f"  results: { {k: v[:6] for k, v in results.items()} }")
         log("  serving " + json.dumps(dict(qserve[scheme], scheme=scheme)))
-        # one more decode step on the last step's inputs, under the profiler:
-        # device time by kernel name
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof, torch.no_grad():
-            st["decode_fn"](*st["decode_args"])
-            torch.cuda.synchronize()
-        by_kernel = {}
-        for ev in prof.key_averages():
-            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                us = getattr(ev, "self_device_time_total", None)
-                by_kernel[ev.key] = (ev.count, (us if us is not None else ev.self_cuda_time_total) / 1e3)
+        # the last decode step and prefill chunk replayed against the eager
+        # step; the replay's kernels by name below
+        ecfg = server.engine.cfg
+        qserve[scheme]["graphs"] = {
+            "decode": graph_check(f"{scheme} decode step", st["orig"]["_decode"], tf_model.paged_decode_step_fn(ecfg),
+                                  st["held"]["_decode"], cfg.vocab_size),
+            "prefill": graph_check(f"{scheme} prefill chunk", st["orig"]["_prefill_fwd"],
+                                   tf_model.decode_step_fn(ecfg, attn_backend="flash"), st["held"]["_prefill_fwd"],
+                                   cfg.vocab_size)}
+        log("  graphs " + json.dumps(qserve[scheme]["graphs"]))
+        by_kernel = replay_kernels[f"{scheme} decode step"]
         step_ms, step_launches = sum(v[1] for v in by_kernel.values()), sum(v[0] for v in by_kernel.values())
-        log(f"  decode step (profiled): device ms of all kernels {step_ms:.2f} in {step_launches} launches")
-        for key, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:10]:
-            log(f"    {ms:8.3f} ms  x{count:<5d} {key[:100]}")
         # the decode step's dip_matmul_q kernels by name: per projection one
         # product (and for int8 one quantizing pass), plus a split-K reduce
         # wherever the plan at the step's M splits K
-        m_dec = st["decode_args"][2].numel()
+        m_dec = st["held"]["_decode"][0][2].numel()
         per_layer = [(d, d, False), (d, kv, False), (d, kv, False), (d, d, False), (d, d_ff, True), (d_ff, d, False)]
         projections = per_layer * cfg.n_layers + [(d, vocab, False)]
         split = sum(matmul_plan(m_dec, n, k, dual, sms, weight_bytes=1).splits > 1 for k, n, dual in projections)
@@ -1300,15 +1517,15 @@ def main():
                    if any(nm + "<" in key for nms in names.values() for nm in nms))
         want_split = {"product": len(projections), "quantize": len(projections) if scheme == "int8" else 0,
                       "reduce": split}
-        log(f"  decode step, M={m_dec}: dip_matmul_q kernels {split_by} (expected {want_split}), "
+        log(f"  decode step replayed, M={m_dec}: dip_matmul_q kernels {split_by} (expected {want_split}), "
             f"{q_ms:.3f} ms of device time")
         if split_by != want_split:
             raise AssertionError(f"quantized full width ({scheme}): the decode step's launch split differs")
         qserve[scheme].update(decode_step_device_ms=step_ms, decode_step_launches=step_launches,
                               decode_step_dip_matmul_q_ms=q_ms, decode_step_dip_matmul_q_kernels=split_by)
-        del prof
         st.clear()
-        del server, reqs, st, results, head, hook
+        del server, reqs, st, results, head, hook, by_kernel
+        gc.collect()
         torch.cuda.empty_cache()
 
     # ----------------------------- 5c. full-width wavefront serving ---------
@@ -1323,28 +1540,32 @@ def main():
         c = dataclasses.replace(cfg_sys, matmul_backend=backend)
         server = Server(c, ServerConfig(batch_slots=1, max_seq=512, max_new_tokens=4, temperature=0.0,
                                         prefill_chunk=256), params, device="cuda")
-        eng, seen, steps, last = server.engine, [], {"_prefill_fwd": [], "_decode": []}, {}
+        eng, seen, steps, last, held = server.engine, [], {"_prefill_fwd": [], "_decode": []}, {}, {}
         for attr in ("_prefill_fwd", "_decode"):
             last[attr + "_fn"] = getattr(eng, attr)
 
-            def run(*a, _f=getattr(eng, attr), _attr=attr, _seen=seen, _steps=steps):
-                last[_attr] = a
+            def run(*a, _f=getattr(eng, attr), _attr=attr, _seen=seen, _steps=steps, _held=held):
+                keep_last(_held, _attr, a)
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 out = _f(*a)
                 torch.cuda.synchronize()
                 _steps[_attr].append(time.perf_counter() - t)
-                _seen.append((_attr, out[0][..., :c.vocab_size].float()))
+                _seen.append((_attr, out[0][..., :c.vocab_size].float().clone()))  # the next replay overwrites out
                 return out
             setattr(eng, attr, run)
         reset_counts()
         out = server.serve([Request(rid=0, prompt=prompt)])
         sys_runs[backend] = (out, seen, steps, read_counts(), flash_routes())
-        # the two steps on their last inputs under the profiler: device time
+        # the two steps on their last inputs, replayed and eager: device time
         # against wall time
-        profiles[backend] = {what: profile_step(last[attr + "_fn"], last[attr], f"{backend} {what}")
+        steps_fn = {"_decode": tf_model.paged_decode_step_fn(eng.cfg),
+                    "_prefill_fwd": tf_model.decode_step_fn(eng.cfg, attn_backend="flash")}
+        profiles[backend] = {what: graph_check(f"{backend} {what}", last[attr + "_fn"], steps_fn[attr], held[attr],
+                                               c.vocab_size)
                              for attr, what in (("_decode", "decode step"), ("_prefill_fwd", "prefill chunk"))}
-        del server, eng, last
+        del server, eng, last, held, run  # run's defaults hold the captured step, its weights and graphs
+        gc.collect()
     (out_s, seen_s, steps_s, launches_s, routes_s), (out_d, seen_d, steps_d, launches_d, routes_d) = (
         sys_runs["pallas_systolic"], sys_runs["dip"])
     routes_by_path["serve_systolic"] = routes_s  # the dip run beside it is a comparison's
@@ -1391,7 +1612,7 @@ def main():
     ds_argv = ["--arch", "deepseek-v2-lite-16b", "--full", "--dtype", "bfloat16", "--requests", "4",
                "--max-new", "16", "--slots", "4", "--max-seq", "1024", "--prefill-chunk", "256",
                "--seed", str(SEED), "--prompt-len", "200", "601", "--temperature", "0"]
-    dst = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "last": {}, "orig": {}}
+    dst = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "held": {}, "orig": {}}
 
     def ds_hook(server, reqs):
         """Gate 1 (one MLA block and one MoE block, kernels against plain
@@ -1432,27 +1653,35 @@ def main():
             dst["orig"][attr] = getattr(eng, attr)
 
             def run(*a, _f=getattr(eng, attr), _attr=attr):
-                dst["last"][_attr] = a  # the last step's inputs, profiled after the run
+                keep_last(dst["held"], _attr, a)  # checked against the eager step after the run
                 first = _attr not in dst["checked"]
-                stats = {} if first else None
                 inputs = clone_tree(a[1]) if first else None
                 torch.cuda.synchronize()
                 t = time.perf_counter()
-                out = _f(*a, moe_trace=stats)
+                out = _f(*a)
                 torch.cuda.synchronize()
                 dst["times"][_attr].append(time.perf_counter() - t)
                 if not bool(torch.isfinite(out[0][..., :c.vocab_size]).all()):
                     raise AssertionError(f"deepseek full width: non-finite logits from {_attr}")
                 if first:
-                    # the plain step twice on copies of the inputs: routing
-                    # freely, and replaying this run's expert choices
-                    free, replay = {}, {"replay_ids": stats["ids"]}
+                    # the captured step takes no trace: the kernels' expert
+                    # choices come from the uncaptured step on a copy of the
+                    # inputs (the same kernels; its logits must be the
+                    # captured step's first call's, an eager run, bit for
+                    # bit), then the plain step twice:
+                    # routing freely, and replaying those choices
+                    stats, free = {}, {}
+                    with uncounted(), torch.no_grad():
+                        eager = plain_steps[_attr](a[0], clone_tree(inputs), *dev_args(a), moe_trace=stats)[0]
+                    if not torch.equal(eager[live_rows(a)], out[0][live_rows(a)]):
+                        raise AssertionError(f"deepseek full width: the captured {_attr} differs from the eager step")
+                    replay = {"replay_ids": stats["ids"]}
                     with plain_backends(), torch.no_grad():
-                        want_free = plain_steps[_attr](a[0], clone_tree(inputs), *a[2:], moe_trace=free)[0]
-                        want = plain_steps[_attr](a[0], inputs, *a[2:], moe_trace=replay)[0]
-                    dst["checked"][_attr] = (out[0][..., :c.vocab_size].float(), want[..., :c.vocab_size].float(),
+                        want_free = plain_steps[_attr](a[0], clone_tree(inputs), *dev_args(a), moe_trace=free)[0]
+                        want = plain_steps[_attr](a[0], inputs, *dev_args(a), moe_trace=replay)[0]
+                    dst["checked"][_attr] = (out[0][..., :c.vocab_size].float().clone(), want[..., :c.vocab_size].float(),
                                              want_free[..., :c.vocab_size].float(), stats, free, replay)
-                    del inputs, want, want_free
+                    del inputs, want, want_free, eager
                 return out
             setattr(eng, attr, run)
         torch.cuda.synchronize()
@@ -1464,7 +1693,7 @@ def main():
     results = serve_cli.main(ds_argv, on_server=ds_hook)
     wall = time.perf_counter() - t0
     launches_ds, routes_ds = read_counts(), flash_routes()
-    peak = torch.cuda.max_memory_allocated()
+    peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
     server, reqs, times = dst["server"], dst["reqs"], dst["times"]
     dcfg = server.engine.cfg
     assert (dcfg.n_layers, dcfg.d_model, dcfg.vocab_size, dcfg.n_experts, dcfg.moe_top_k, dcfg.kv_lora_rank) == (
@@ -1482,10 +1711,11 @@ def main():
     # per forward: wq, w_dkv, w_krope (rmsnorm prologue), wo (residual) and the
     # shared experts' gate+up and down in each of 27 layers, and the lm_head;
     # the routed experts are einsums, MLA's attention is latent-space torch
-    want = {"dip_matmul": 163 * (n_prefill + n_decode), "dip_matmul_q": 0, "dip_systolic": 0,
-            "flash_attention": 0, "lm_head_ce": 0}
-    per_forward = launches_ds["dip_matmul"] / (n_prefill + n_decode)
-    log(f"  launches {launches_ds}; expected {want}: {per_forward:g} dip_matmul launches per forward (163 = 6 x 27 + 1)")
+    n_fwd = n_prefill + n_decode
+    want = {"dip_matmul": 163 * n_fwd, "dip_matmul_q": 0, "dip_systolic": 0, "flash_attention": 0, "lm_head_ce": 0}
+    per_forward = launches_ds["dip_matmul"] / n_fwd
+    log(f"  launches {launches_ds}; expected {want}: {per_forward:g} dip_matmul launches per forward (163 = 6 x 27 + 1; "
+        f"replays counted)")
     if launches_ds != want:
         raise AssertionError("deepseek full width: launch counts differ from 163 DiP launches per forward")
     kv_bytes = kvc.bytes_per_block(dcfg)
@@ -1533,17 +1763,23 @@ def main():
         "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
         "prefill_tok_per_s": prompt_tokens / sum(times["_prefill_fwd"]),
         "decode_tok_per_s": (generated - len(reqs)) / sum(times["_decode"]),
-        "peak_memory_gib": peak / 2**30, "kv_bytes_per_block": kv_bytes, "parameters": n_params,
+        "peak_memory_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
+        "graph_pool_gib": graph_pool_gib(dst["orig"]["_prefill_fwd"], dst["orig"]["_decode"]),
+        "kv_bytes_per_block": kv_bytes, "parameters": n_params,
         "first_prefill_chunk_dropped": ds_checked["_prefill_fwd"]["dropped"], "checked": ds_checked,
         "wall_s": wall, "prefill_chunks": n_prefill, "decode_steps": n_decode,
     }
     log(f"  results: { {k: v[:6] for k, v in results.items()} }")
-    ds_serving["profile_decode"] = profile_step(dst["orig"]["_decode"], dst["last"]["_decode"], "decode step")
-    ds_serving["profile_prefill"] = profile_step(dst["orig"]["_prefill_fwd"], dst["last"]["_prefill_fwd"],
-                                                 "prefill chunk")
+    ds_serving["graphs"] = {
+        "decode": graph_check("deepseek decode step", dst["orig"]["_decode"], tf_model.paged_decode_step_fn(dcfg),
+                              dst["held"]["_decode"], dcfg.vocab_size),
+        "prefill": graph_check("deepseek prefill chunk", dst["orig"]["_prefill_fwd"],
+                               tf_model.decode_step_fn(dcfg, attn_backend="flash"), dst["held"]["_prefill_fwd"],
+                               dcfg.vocab_size)}
     log("  serving " + json.dumps(ds_serving))
     dst.clear()
     del server, reqs, results
+    gc.collect()
     torch.cuda.empty_cache()
 
     # --------------- 5e / 5f. Zamba2-2.7B and Mamba2-370M at full width ------
@@ -1565,7 +1801,7 @@ def main():
         argv = ["--arch", arch, "--full", "--dtype", "bfloat16", "--requests", "4", "--max-new", "16", "--slots",
                 "4", "--max-seq", "1024", "--prefill-chunk", "256", "--seed", str(SEED), "--prompt-len", "200",
                 "601", "--temperature", "0"]
-        st = {"times": {"chunk": [], "tail": [], "decode": []}, "checked": {}, "last": {}, "orig": {}}
+        st = {"times": {"chunk": [], "tail": [], "decode": []}, "checked": {}, "held": {}, "orig": {}}
 
         def copy_to(t, where):
             """A copy of a cache tree (dicts of tensors and ints) on ``where``."""
@@ -1617,41 +1853,52 @@ def main():
             plain_steps = {"_prefill_fwd": tf_model.decode_step_fn(c), "_decode": tf_model.paged_decode_step_fn(c)}
             c32 = dataclasses.replace(c, param_dtype="float32", compute_dtype="float32", matmul_backend="torch")
             f32_steps = {"_prefill_fwd": tf_model.decode_step_fn(c32), "_decode": tf_model.paged_decode_step_fn(c32)}
+            st["eager"] = eager_steps = {"_prefill_fwd": tf_model.decode_step_fn(c, attn_backend="flash"),
+                                         "_decode": tf_model.paged_decode_step_fn(c)}
             for attr in ("_prefill_fwd", "_decode"):
                 st["orig"][attr] = getattr(eng, attr)
 
                 def run(*a, _f=getattr(eng, attr), _attr=attr):
                     kind = "decode" if _attr == "_decode" else "chunk" if a[2].shape[1] > 1 else "tail"
-                    st["last"][kind] = a  # the last step's inputs, profiled after the run
+                    keep_last(st["held"], kind, a)  # checked against the eager step after the run
                     first = kind != "tail" and kind not in st["checked"]
                     inputs = copy_to(a[1], "cpu") if first else None  # on the host: no card memory
-                    tape = {}
                     torch.cuda.synchronize()
                     t = time.perf_counter()
-                    with block_tape(tf_model, "record", tape) if first else contextlib.nullcontext():
-                        out = _f(*a)
+                    out = _f(*a)
                     torch.cuda.synchronize()
                     st["times"][kind].append(time.perf_counter() - t)
                     if not bool(torch.isfinite(out[0][..., :c.vocab_size]).all()):
                         raise AssertionError(f"{arch} full width: non-finite logits from a {kind} call")
                     if first:
-                        # the plain step on copies of the inputs: replaying
-                        # the kernels' block inputs, and running freely; and
-                        # the same bf16 weights and inputs in f32 (torch.matmul).
-                        # The serving peak is read before, and reset after
+                        # the kernels' block inputs, taped: the uncaptured
+                        # step (the same kernels; its logits must be the
+                        # captured step's first call's, an eager run, bit for
+                        # bit) on a copy of the inputs; then
+                        # the plain step on copies: replaying those block
+                        # inputs, and running freely; and the same bf16
+                        # weights and inputs in f32 (torch.matmul).  The
+                        # serving peak is read before, and reset after
                         st["peak"] = max(st.get("peak", 0), torch.cuda.max_memory_allocated())
-                        v = c.vocab_size
+                        st["peak_reserved"] = max(st.get("peak_reserved", 0), torch.cuda.max_memory_reserved())
+                        v, tape = c.vocab_size, {}
+                        with uncounted(), torch.no_grad(), block_tape(tf_model, "record", tape):
+                            eager = eager_steps[_attr](a[0], copy_to(inputs, dev), *dev_args(a))[0]
+                        if not torch.equal(eager[live_rows(a)], out[0][live_rows(a)]):
+                            raise AssertionError(f"{arch} full width: the captured {kind} call differs from the eager "
+                                                 f"step")
+                        del eager
                         with plain_backends(), torch.no_grad():
                             with block_tape(tf_model, "replay", tape):
-                                forced = plain_steps[_attr](a[0], copy_to(inputs, dev), *a[2:])[0][..., :v].float()
-                            free = plain_steps[_attr](a[0], copy_to(inputs, dev), *a[2:])[0][..., :v].float()
+                                forced = plain_steps[_attr](a[0], copy_to(inputs, dev), *dev_args(a))[0][..., :v].float()
+                            free = plain_steps[_attr](a[0], copy_to(inputs, dev), *dev_args(a))[0][..., :v].float()
                         with torch.no_grad():
                             f32 = f32_steps[_attr](as_f32(a[0]), as_f32(copy_to(inputs, dev)),
-                                                   *a[2:])[0][..., :v].float()
+                                                   *dev_args(a))[0][..., :v].float()
                         if len(tape["record"]) != len(tape["replay"]):
                             raise AssertionError(f"{arch}: the plain run took other blocks than the kernels' run")
                         st["checked"][kind] = dict(
-                            got=out[0][..., :v].float(), forced=forced, free=free, f32=f32,
+                            got=out[0][..., :v].float().clone(), forced=forced, free=free, f32=f32,
                             blocks=[((ok - op).abs().max() / op.abs().max().clamp(min=1.0)).item()
                                     for (_, ok), (_, op) in zip(tape["record"], tape["replay"])])
                         del inputs, forced, free, f32, tape
@@ -1669,6 +1916,7 @@ def main():
         wall = time.perf_counter() - t0
         launches, routes = read_counts(), flash_routes()
         peak = max(st.get("peak", 0), torch.cuda.max_memory_allocated())
+        peak_reserved = max(st.get("peak_reserved", 0), torch.cuda.max_memory_reserved())
         server, reqs, times = st["server"], st["reqs"], st["times"]
         c = server.engine.cfg
         assert (c.n_layers, c.d_model, c.vocab_size) == dims
@@ -1690,9 +1938,10 @@ def main():
                 "flash_attention": flash_per_call * (n_chunk + n_tail), "lm_head_ce": 0}
         # flash: the chunks (Sq = 256) on the tensor cores unsplit, the tail's
         # single tokens on split_kv, none on the CUDA cores
-        want_routes = {"tensor_cores": flash_per_call * n_chunk, "split_kv": flash_per_call * n_tail, "cuda_cores": 0}
-        log(f"  launches {launches}, flash by route {routes}; expected {want}, flash {want_routes}: "
-            f"{launches['dip_matmul'] / n_fwd:g} dip_matmul launches per forward, "
+        want_routes = {"tensor_cores": flash_per_call * n_chunk, "split_kv": flash_per_call * n_tail,
+                       "cuda_cores": 0}
+        log(f"  launches {launches}, flash by route {routes}; expected {want}, flash {want_routes} (replays "
+            f"counted): {launches['dip_matmul'] / n_fwd:g} dip_matmul launches per forward, "
             f"{launches['flash_attention'] / max(1, n_chunk + n_tail):g} flash launches per prefill call")
         if launches != want or routes != want_routes:
             raise AssertionError(f"{arch} full width: launch counts differ from {per_forward} DiP launches per "
@@ -1755,18 +2004,29 @@ def main():
             "tail_s": sum(times["tail"]), "chunks_s": sum(times["chunk"]),
             "prefill_tok_per_s": sum(plens) / (sum(times["chunk"]) + sum(times["tail"])),
             "decode_tok_per_s": (generated - len(reqs)) / sum(times["decode"]),
-            "peak_memory_gib": peak / 2**30, "kv_bytes_per_block": kv_bytes, "state_bytes_per_slot": slot_bytes,
+            "peak_memory_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
+            "graph_pool_gib": graph_pool_gib(st["orig"]["_prefill_fwd"], st["orig"]["_decode"]),
+            "kv_bytes_per_block": kv_bytes, "state_bytes_per_slot": slot_bytes,
             "parameters": n_params, "checked": checked, "wall_s": wall, "prefill_chunks": n_chunk,
             "decode_steps": n_decode,
         }
         log(f"  results: { {k: v[:6] for k, v in results.items()} }")
-        serving["profile_decode"] = profile_step(st["orig"]["_decode"], st["last"]["decode"], "decode step")
-        serving["profile_prefill"] = profile_step(st["orig"]["_prefill_fwd"], st["last"]["chunk"], "prefill chunk")
-        serving["profile_tail"] = profile_step(st["orig"]["_prefill_fwd"], st["last"]["tail"],
-                                               "single-token forward of the prefill tail")
+        # the last decode step, chunk and tail token replayed against the
+        # eager step; and the prompts' whole tails as the engine ran them
+        serving["graphs"] = {
+            kind: graph_check(f"{arch} {what}", st["orig"][attr], st["eager"][attr], st["held"][kind], c.vocab_size)
+            for kind, attr, what in (("decode", "_decode", "decode step"), ("chunk", "_prefill_fwd", "prefill chunk"),
+                                     ("tail", "_prefill_fwd", "single-token forward of the prefill tail"))}
+        tail_capture = st["orig"]["_prefill_fwd"].captures[((1, 1),)]["seconds"]
+        log(f"  the prompts' {n_tail} tail forwards as served: {serving['tail_s']:.3f} s of wall under graphs, the "
+            f"first call (the eager step, then its capture of {tail_capture:.3f} s) included; "
+            f"{sum(times['tail'][1:]):.3f} s for the other "
+            f"{n_tail - 1} ({gpu})")
+        serving["tail_capture_s"] = tail_capture
         log("  serving " + json.dumps(serving))
         st.clear()
         del server, reqs, results, pools
+        gc.collect()
         torch.cuda.empty_cache()
         return launches, routes, serving
 

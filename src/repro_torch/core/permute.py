@@ -63,6 +63,19 @@ def unpermute_weights_np(p: np.ndarray) -> np.ndarray:
 
 
 _BYTE_VIEWED = (torch.float8_e4m3fn, torch.float8_e5m2)
+_INDEX = {}
+
+
+def _tile_index(tile: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """The (tile, tile) int64 gather index on ``device``, copied there once
+    per (device, tile, direction): a de-shear inside a serving step (MLA's
+    absorbed form) then copies no host data, so a CUDA graph can capture it."""
+    key = (device, tile, inverse)
+    index = _INDEX.get(key)
+    if index is None:
+        idx = inverse_permutation_indices(tile, tile) if inverse else permutation_indices(tile, tile)
+        index = _INDEX[key] = torch.as_tensor(idx, dtype=torch.int64, device=device)
+    return index
 
 
 def _permute_tiled_impl(w: torch.Tensor, tile: int, inverse: bool) -> torch.Tensor:
@@ -76,8 +89,7 @@ def _permute_tiled_impl(w: torch.Tensor, tile: int, inverse: bool) -> torch.Tens
     lead = tuple(w.shape[:-2])
     # (..., Rt, tile, Ct, tile) -> (..., Rt, Ct, tile, tile)
     blk = w.reshape(lead + (rp // tile, tile, cp // tile, tile)).transpose(-3, -2)
-    idx = inverse_permutation_indices(tile, tile) if inverse else permutation_indices(tile, tile)
-    index = torch.as_tensor(idx, dtype=torch.int64, device=w.device).expand(blk.shape)
+    index = _tile_index(tile, inverse, w.device).expand(blk.shape)
     blk = torch.gather(blk, -2, index)
     # the result stays PADDED to the tile grid (see the reference's note:
     # cropping would drop elements the rotation moved into padding rows)

@@ -208,9 +208,13 @@ def _lib():
 def launch_operands(kernel, x, p, epilogue_operands, epilogue, prologue, prologue_operands,
                     prologue_k, prologue_eps):
     """Check a CUDA launch of ``kernel`` (``dip_matmul`` or ``dip_systolic``:
-    the same operands) and allocate its output.  Returns ``(out, pointers)``
-    with the pointers in the C entry points' order: x, p, p_up, inv_rms,
-    gain, bias, residual, out."""
+    the same operands) and allocate its output.  Returns ``(out, pointers,
+    inv)`` with the pointers in the C entry points' order: x, p, p_up,
+    inv_rms, gain, bias, residual, out.  ``inv`` is the prologue's inv_rms
+    tensor made here (or None): the caller holds it until the launch is
+    queued, or the caching allocator hands its memory to the next
+    allocation (the split-K workspace, which the kernel then writes while
+    other blocks still read inv_rms)."""
     _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
     # gradients go through the registry's autograd function, which launches
     # the kernel with grad mode off
@@ -240,7 +244,7 @@ def launch_operands(kernel, x, p, epilogue_operands, epilogue, prologue, prologu
         inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
     out = torch.empty((m, n), dtype=out_dtype_for(x, epilogue), device=dev)
     ptrs = [None if t is None else t.data_ptr() for t in (x, p, p_up, inv, gain, bias, residual, out)]
-    return out, ptrs
+    return out, ptrs, inv
 
 
 def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tensor,
@@ -265,8 +269,8 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
         )
     if x.device.type != "cuda":
         raise ValueError(f"dip_matmul runs on cuda or cpu tensors, got {x.device}")
-    out, ptrs = launch_operands("dip_matmul", x, p, epilogue_operands, epilogue, prologue,
-                                prologue_operands, prologue_k, prologue_eps)
+    out, ptrs, inv = launch_operands("dip_matmul", x, p, epilogue_operands, epilogue, prologue,
+                                     prologue_operands, prologue_k, prologue_eps)
     (m, k), n = x.shape, p.shape[1]
     plan_args, work = (0, 0, 0, 0), None
     if x.dtype == torch.bfloat16:
@@ -279,6 +283,7 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib()(DTYPE_CODES[x.dtype], *ptrs, m, n, k, epi.code(epilogue), int(fuse_deshear), *plan_args,
                     None if work is None else work.data_ptr(), stream)
+    del inv  # read by the queued launch: held until here
     if rc != 0:
         raise RuntimeError(f"dip_matmul kernel launch failed: cudaError {rc}")
     dip_matmul.launches += 1

@@ -121,8 +121,8 @@ def dip_systolic(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Ten
                                   prologue_eps=prologue_eps)
     if x.device.type != "cuda":
         raise ValueError(f"dip_systolic runs on cuda or cpu tensors, got {x.device}")
-    out, ptrs = launch_operands("dip_systolic", x, p, epilogue_operands, epilogue, prologue,
-                                prologue_operands, prologue_k, prologue_eps)
+    out, ptrs, inv = launch_operands("dip_systolic", x, p, epilogue_operands, epilogue, prologue,
+                                     prologue_operands, prologue_k, prologue_eps)
     (m, k), n = x.shape, p.shape[1]
     dual = epi.spec(epilogue).dual_weight
     plan = systolic_plan(m, n, k, sm_count(x.device), dual)
@@ -134,6 +134,7 @@ def dip_systolic(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Ten
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _lib()(DTYPE_CODES[x.dtype], *ptrs, m, n, k, epi.code(epilogue), plan.bm, plan.bn, plan.splits,
                     plan.k_tiles_per_split, None if work is None else work.data_ptr(), stream)
+    del inv  # read by the queued launch: held until here
     if rc != 0:
         raise RuntimeError(f"dip_systolic kernel launch failed: cudaError {rc}")
     dip_systolic.launches += 1

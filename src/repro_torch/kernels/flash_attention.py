@@ -193,10 +193,16 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     least ``n``.  Zeroed once, when allocated; the kernel's last block of
     each (bh, query tile) resets its ticket to 0, so no call clears them.
     A call needing more allocates a larger buffer (the old one stays valid
-    for launches already queued on the stream)."""
+    for launches already queued on the stream).  A CUDA graph's capture
+    must find its stream's buffer made (the step's first, eager call on
+    that stream makes it): one allocated inside the capture would come
+    from the graph's pool and outlive the graph here, so that raises."""
     with _ticket_lock:
         buf = _ticket_bufs.get((device.index, stream))
         if buf is None or buf.numel() < n:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("flash split_kv: no tickets for the capturing stream; "
+                                   "run the step once on that stream before capturing it")
             buf = _ticket_bufs[(device.index, stream)] = torch.zeros(max(n, 4096), dtype=torch.int32,
                                                                       device=device)
         return buf

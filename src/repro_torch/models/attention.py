@@ -32,6 +32,7 @@ from repro_torch.models import layers
 
 __all__ = [
     "attention_core",
+    "init_pos",
     "gqa_attention",
     "mla_attention",
     "init_gqa_cache",
@@ -127,13 +128,28 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_pos: tor
     return out.transpose(1, 2).to(v.dtype)
 
 
+def init_pos(device) -> torch.Tensor:
+    """A dense cache's write position: a 0-dim int64 tensor on the cache's
+    device, as the reference's ``pos`` is a device scalar, so that a step
+    reads and advances it without the host (a CUDA graph of the step then
+    serves every chunk of every prompt)."""
+    return torch.zeros((), dtype=torch.int64, device=device)
+
+
 def init_gqa_cache(batch: int, kv_heads: int, max_seq: int, head_dim: int, dtype,
                    device) -> Dict:
     return {
         "k": torch.zeros((batch, max_seq, kv_heads, head_dim), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_seq, kv_heads, head_dim), dtype=dtype, device=device),
-        "pos": 0,
+        "pos": init_pos(device),
     }
+
+
+def _write_rows(cache: torch.Tensor, positions: torch.Tensor, vals: torch.Tensor) -> None:
+    """Write a chunk's rows (B, S, ...) into a dense cache (B, max_seq, ...)
+    in place at its tokens' positions (S,), pos .. pos + S - 1: the
+    reference's ``dynamic_update_slice`` at the device position."""
+    cache.index_copy_(1, positions, vals.to(cache.dtype))
 
 
 def _proj_kwargs(cfg, x, norm):
@@ -157,8 +173,9 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
     """Projections + RoPE + cache update + attention + out projection.
 
     ``cache`` is one layer's dense cache (``init_gqa_cache``); this chunk's
-    K/V are written into it in place at ``cache["pos"]`` and the returned
-    cache has ``pos`` advanced.  ``residual`` fuses the block's skip
+    K/V are written into it in place at its ``positions`` (``cache["pos"]``
+    onward; an int or a device scalar) and the returned cache has ``pos``
+    advanced.  ``residual`` fuses the block's skip
     connection into the out projection; ``norm`` is the attention-norm gain
     when the backend fuses prologues (x then arrives un-normalized)."""
     b, s, _ = x.shape
@@ -174,14 +191,14 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
         out = attention_core(q, k, v, positions, positions, kv_chunk=kv_chunk, backend=attn_backend)
         new_cache = None
     else:
-        pos = cache["pos"]
+        end = cache["pos"] + s
         ck, cv = cache["k"], cache["v"]
-        ck[:, pos:pos + s] = k
-        cv[:, pos:pos + s] = v
+        _write_rows(ck, positions, k)
+        _write_rows(cv, positions, v)
         k_pos = torch.arange(ck.shape[1], device=x.device)
-        out = attention_core(q, ck, cv, positions, k_pos, kv_valid_len=pos + s,
+        out = attention_core(q, ck, cv, positions, k_pos, kv_valid_len=end,
                              kv_chunk=kv_chunk, backend=attn_backend)
-        new_cache = {"k": ck, "v": cv, "pos": pos + s}
+        new_cache = {"k": ck, "v": cv, "pos": end}
     return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), new_cache
 
 
@@ -297,7 +314,7 @@ def init_mla_cache(batch: int, max_seq: int, cfg, dtype, device) -> Dict:
     return {
         "c_kv": torch.zeros((batch, max_seq, cfg.kv_lora_rank), dtype=dtype, device=device),
         "k_rope": torch.zeros((batch, max_seq, cfg.qk_rope_head_dim), dtype=dtype, device=device),
-        "pos": 0,
+        "pos": init_pos(device),
     }
 
 
@@ -342,7 +359,7 @@ def mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
     w_uk (kv_lora, H*nope); w_uv (kv_lora, H*v_dim); wo (H*v_dim, d).
     Without a cache the naive form materializes per-head K and V and runs
     ``attention_core`` (``attn_backend``, ``kv_chunk``); with one
-    (``init_mla_cache``, written in place at ``cache["pos"]``) the absorbed
+    (``init_mla_cache``, written in place at its ``positions``) the absorbed
     form attends in latent space and ignores ``attn_backend``, as the
     reference does.  ``residual`` / ``norm`` as in ``gqa_attention``."""
     b, s, _ = x.shape
@@ -358,14 +375,14 @@ def mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
         out = attention_core(qc, k, v, positions, positions, kv_chunk=kv_chunk, backend=attn_backend)
         new_cache = None
     else:
-        pos = cache["pos"]
+        end = cache["pos"] + s
         cc, cr = cache["c_kv"], cache["k_rope"]
-        cc[:, pos:pos + s] = c_kv
-        cr[:, pos:pos + s] = k_rope
+        _write_rows(cc, positions, c_kv)
+        _write_rows(cr, positions, k_rope)
         k_pos = torch.arange(cc.shape[1], device=x.device)
-        live = (positions[:, None] >= k_pos[None, :]) & (k_pos < pos + s)[None, :]
+        live = (positions[:, None] >= k_pos[None, :]) & (k_pos < end)[None, :]
         out = _absorbed(q_nope, q_rope, cc, cr, w_uk, w_uv, live[None], cfg)
-        new_cache = {"c_kv": cc, "k_rope": cr, "pos": pos + s}
+        new_cache = {"c_kv": cc, "k_rope": cr, "pos": end}
     return _out_proj(out.reshape(b, s, h * dv), p, lk, residual), new_cache
 
 

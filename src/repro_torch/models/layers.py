@@ -10,7 +10,7 @@ masking contract without them.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,12 +68,25 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
 
 
+_INV_FREQ: Dict[Tuple[torch.device, int, float], torch.Tensor] = {}
+
+
+def _inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """:func:`rope_frequencies` as f32 on ``device``, copied there once per
+    (device, head dim, theta): a forward then copies no host data, so a
+    CUDA graph can capture it (the reference traces them as a constant)."""
+    key = (device, int(head_dim), float(theta))
+    inv = _INV_FREQ.get(key)
+    if inv is None:
+        inv = _INV_FREQ[key] = torch.as_tensor(rope_frequencies(head_dim, theta), dtype=torch.float32,
+                                               device=device)
+    return inv
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
     """``(cos, sin)`` tables for the given absolute positions, computed once
     per forward; shapes (..., seq, 1, head_dim/2), float32."""
-    inv_freq = torch.as_tensor(rope_frequencies(head_dim, theta), dtype=torch.float32,
-                               device=positions.device)
-    angles = positions.float()[..., None] * inv_freq
+    angles = positions.float()[..., None] * _inv_freq(head_dim, theta, positions.device)
     return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
 
 

@@ -73,7 +73,10 @@ def _route(x: torch.Tensor, router: torch.Tensor, cfg, cap: int,
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance loss (Switch): E * mean(frac_tokens_e * mean_prob_e)
-    load = torch.nn.functional.one_hot(ids[..., 0], e).float().mean((0, 1))
+    # (one_hot's exact 0/1 rows as a comparison: on the CPU one_hot reads
+    # its input's range back to the host)
+    top1 = ids[..., 0, None] == torch.arange(e, device=ids.device, dtype=ids.dtype)
+    load = top1.float().mean((0, 1))
     importance = probs.mean((0, 1))
     aux = cfg.router_aux_loss * e * torch.sum(load * importance)
     aux = aux + 1e-4 * torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))

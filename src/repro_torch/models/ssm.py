@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models import layers
+from repro_torch.models import attention, layers
 
 __all__ = ["ssm_dims", "init_ssm_cache", "ssd_block"]
 
@@ -45,13 +45,14 @@ def ssm_dims(cfg) -> Dict[str, int]:
 
 def init_ssm_cache(batch: int, cfg, dtype, *, device) -> Dict:
     """conv history (B, ssm_conv - 1, conv_dim) in ``dtype``; state (B, H,
-    P, N) in float32."""
+    P, N) in float32; ``pos`` a 0-dim int64 tensor on ``device``, as the
+    reference's device scalar."""
     dims = ssm_dims(cfg)
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, dims["conv_dim"]), dtype=dtype, device=device),
         "state": torch.zeros((batch, dims["heads"], cfg.ssm_headdim, dims["state"]), dtype=torch.float32,
                              device=device),
-        "pos": 0,
+        "pos": attention.init_pos(device),
     }
 
 

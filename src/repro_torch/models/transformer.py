@@ -46,6 +46,7 @@ __all__ = [
     "init_params",
     "forward",
     "init_cache",
+    "reset_cache",
     "init_paged_cache",
     "decode_step_fn",
     "paged_decode_step_fn",
@@ -335,9 +336,11 @@ def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optiona
             moe_trace: Optional[Dict] = None):
     """Returns ``(logits, new_cache)`` for tokens (B, S).
 
-    ``cache`` (``init_cache``) is updated in place at ``cache["pos"]`` and
-    returned with ``pos`` advanced by S.  ``attn_backend="flash"`` routes
-    attention through the CUDA kernel (serving prefill; forward only);
+    ``cache`` (``init_cache``) is updated in place at ``cache["pos"]``, a
+    device scalar that is advanced by S in place too (so a CUDA graph of
+    the step reads and advances it with no host involved), and returned.
+    ``attn_backend="flash"`` routes attention through the CUDA kernel
+    (serving prefill; forward only);
     ``kv_chunk > 0`` takes the KV-chunked online-softmax attention; MLA
     with a cache takes its absorbed form and ignores both, as the
     reference does.  ``moe_trace`` (a dict) collects each MoE layer's
@@ -356,14 +359,16 @@ def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optiona
     cd = dtype_of(cfg.compute_dtype)
     x = F.embedding(tokens, params["embed"]).to(cd)
     s = x.shape[1]
-    start = cache["pos"] if cache is not None else 0
-    positions = torch.arange(start, start + s, device=x.device)
+    positions = torch.arange(s, device=x.device)
+    if cache is not None:
+        positions = positions + cache["pos"]
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
     if cfg.ssm_state:
         x = _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
     else:
         x = _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace)
-    new_cache = None if cache is None else dict(cache, pos=start + s)
+    # in place: the layers read pos before, in stream order
+    new_cache = None if cache is None else dict(cache, pos=cache["pos"].add_(s))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x if return_hidden else _head(params, cfg, x)), new_cache
 
@@ -446,7 +451,8 @@ def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
     k_rope (L, B, max_seq, rope); for the SSM families the conv history
     conv (L, B, ssm_conv - 1, conv_dim) in the compute dtype and the state
     (L, B, H, P, N) in f32, and for the hybrid the shared block's
-    attn = {k, v} (n_layers // attn_every, B, max_seq, KV, hd)."""
+    attn = {k, v} (n_layers // attn_every, B, max_seq, KV, hd).  ``pos``, the
+    next row to write, is a 0-dim int64 tensor on ``device``."""
     _require_served(cfg)
     cd, L = dtype_of(cfg.compute_dtype), cfg.n_layers
     if cfg.ssm_state:
@@ -454,14 +460,28 @@ def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
         if cfg.is_hybrid:
             shape = (cfg.n_layers // cfg.attn_every, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
             layer_caches["attn"] = {nm: torch.zeros(shape, dtype=cd, device=device) for nm in ("k", "v")}
-        return {"layers": layer_caches, "pos": 0}
+        return {"layers": layer_caches, "pos": attention.init_pos(device)}
     if cfg.use_mla:
         shapes = {"c_kv": (L, batch, max_seq, cfg.kv_lora_rank),
                   "k_rope": (L, batch, max_seq, cfg.qk_rope_head_dim)}
     else:
         shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
         shapes = {"k": shape, "v": shape}
-    return {"layers": {nm: torch.zeros(sh, dtype=cd, device=device) for nm, sh in shapes.items()}, "pos": 0}
+    return {"layers": {nm: torch.zeros(sh, dtype=cd, device=device) for nm, sh in shapes.items()},
+            "pos": attention.init_pos(device)}
+
+
+def reset_cache(cfg, cache: Dict[str, Any]) -> Dict[str, Any]:
+    """Make an :func:`init_cache` cache ready for a new sequence, in place:
+    ``pos`` to 0 and, for the SSM families, the conv history and state to 0
+    (the recurrence starts from them).  Rows of K/V past ``pos`` need no
+    clearing: a step writes its rows before it reads them, and the valid
+    length masks the rest."""
+    cache["pos"].zero_()
+    if cfg.ssm_state:
+        cache["layers"]["conv"].zero_()
+        cache["layers"]["state"].zero_()
+    return cache
 
 
 def _ssm_pools(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:

@@ -20,6 +20,20 @@ scheduler.  ``step()`` advances the whole pool by one tick:
        into the null block and are ignored), each row sampled with its
        request's own params and seeded stream.
 
+On the card the engine runs its steps as CUDA graphs
+(``serving/graphs.py``), its counterpart of the reference's ``jax.jit``:
+the first call of the decode step at (slots, 1) tokens, of the prefill
+forward at (1, ``prefill_chunk``) and, for the SSM families, at (1, 1) for
+the tail runs eagerly on the real caches and is then captured; every later
+call replays.  The graphs share one memory pool.  The prefill writes one cache
+that the engine holds for its life (reset on admission: ``pos`` to 0, the
+conv history and state to 0; rows past ``pos`` are masked by the valid
+length), so every prompt's chunks replay one graph.  A step's logits are
+then a static buffer of the pool that the next replay of any of the
+engine's graphs overwrites: the engine copies the rows it samples to the
+host at once.  On the CPU (``device="cpu"``) the same
+step functions run eagerly.
+
 Rows are independent, so a greedy request's tokens do not depend on its
 batch-mates.  Under memory pressure the scheduler's LIFO victim is evicted
 and re-queued with its generated tokens (re-prefilled on re-admission).
@@ -41,6 +55,7 @@ import torch
 from repro_torch import api
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf_model
+from repro_torch.serving import graphs
 from repro_torch.serving import kv_cache as kvc
 from repro_torch.serving import sampling
 from repro_torch.serving.scheduler import (
@@ -102,20 +117,32 @@ class Engine:
             cfg, num_blocks=num_blocks, block_size=self.block_size, slots=ecfg.slots,
             max_seq=ecfg.max_seq, kv_quant=self.kv_quant, device=self.device,
         )
-        self._decode = tf_model.paged_decode_step_fn(cfg)
+        decode = tf_model.paged_decode_step_fn(cfg)
         # chunked prefill runs attention on the flash kernel: the chunk's
         # cache offset is a device tensor, so every chunk shares one kernel
-        self._prefill_fwd = tf_model.decode_step_fn(cfg, attn_backend="flash")
+        prefill = tf_model.decode_step_fn(cfg, attn_backend="flash")
+        # the import runs once a request, eagerly: not worth a graph
         self._import = kvc.make_import_fn(cfg, self.block_size, self.kv_quant)
         c = ecfg.prefill_chunk
         self._prefill_buf_len = -(-ecfg.max_seq // c) * c
+        self._prefill_cache = tf_model.init_cache(cfg, 1, self._prefill_buf_len, device=self.device)
+        if self.device.type == "cuda":
+            # one memory pool for every graph: the steps never run at once
+            pool = torch.cuda.graph_pool_handle()
+            self._decode = graphs.CapturedStep(
+                decode, params, self.kv.pools, [((ecfg.slots, 1), (ecfg.slots,), (ecfg.slots, self.kv.blocks_per_seq))],
+                pool=pool)
+            widths = (c, 1) if cfg.ssm_state else (c,)
+            self._prefill_fwd = graphs.CapturedStep(prefill, params, self._prefill_cache, [((1, w),) for w in widths],
+                                                    pool=pool)
+        else:
+            self._decode, self._prefill_fwd = decode, prefill
 
         self.scheduler = FCFSScheduler(on_preempt=on_preempt)
         self._slots: List[Optional[ServeRequest]] = [None] * ecfg.slots
         self._cur = np.zeros((ecfg.slots, 1), np.int64)     # next token to feed
         self._ctx = np.zeros((ecfg.slots,), np.int64)       # tokens in cache
         self._prefilling: Optional[ServeRequest] = None
-        self._prefill_cache: Any = None
         self._prefill_tokens: Optional[np.ndarray] = None
         self._prefill_done = 0
         self._next_rid = 0
@@ -246,7 +273,10 @@ class Engine:
                                       uniforms=uniforms)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.int64).to(self.device)
+        """A step's integer input as an int64 host tensor: on the CPU the
+        step's own input, on the card staged by the captured step into its
+        static buffers."""
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
 
     # ---------------------------------------------------------- admission --
     def _try_admit(self) -> None:
@@ -272,8 +302,7 @@ class Engine:
         self._prefilling = req
         self._prefill_tokens = buf
         self._prefill_done = 0
-        self._prefill_cache = tf_model.init_cache(self.cfg, 1, self._prefill_buf_len,
-                                                  device=self.device)
+        tf_model.reset_cache(self.cfg, self._prefill_cache)
 
     # ------------------------------------------------------------ prefill --
     def _advance_prefill(self) -> None:
@@ -289,13 +318,13 @@ class Engine:
             # O(1) decode path instead of being padded
             while done < plen:
                 tok = self._tensor(self._prefill_tokens[done:done + 1][None])
-                last_logits, self._prefill_cache = self._prefill_fwd(self.params, self._prefill_cache, tok)
+                last_logits = self._prefill_fwd(self.params, self._prefill_cache, tok)[0]
                 done += 1
         else:
             # attention-only: the padded tail of the final chunk writes cache
             # rows >= plen, which the import drops and positions never reach
             chunk = self._tensor(self._prefill_tokens[done:done + c][None])
-            last_logits, self._prefill_cache = self._prefill_fwd(self.params, self._prefill_cache, chunk)
+            last_logits = self._prefill_fwd(self.params, self._prefill_cache, chunk)[0]
             done += c
         self._prefill_done = done
         self._prefill_chunks += 1
@@ -314,7 +343,6 @@ class Engine:
         row = last_logits[0, row_idx].cpu().numpy()
         tok = int(self._sample_rows(row[None], [req])[0])
         self._prefilling = None
-        self._prefill_cache = None
         self._prefill_tokens = None
         req.state = RUNNING
         self._ctx[slot] = plen
@@ -342,10 +370,10 @@ class Engine:
         reqs = [r if (r is not None and r.state == RUNNING) else None for r in self._slots]
         if not any(r is not None for r in reqs):
             return
-        logits, self.kv.pools = self._decode(
+        logits = self._decode(
             self.params, self.kv.pools, self._tensor(self._cur), self._tensor(self._ctx),
             self._tensor(self.kv.block_tables),
-        )
+        )[0]
         self._decode_steps += 1
         rows = logits[:, -1].cpu().numpy()
         next_tokens = self._sample_rows(rows, reqs)
