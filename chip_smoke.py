@@ -31,7 +31,11 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    prologue, both plans and K splits, and every e4m3 code upcast exactly;
    the int8 route's quantizing pass (codes and scales byte for byte) and
    the int8 route on the tensor cores at the same M, epilogues, prologues
-   and plans (epilogue none bit for bit); lm_head_ce's bf16 x f32 function with the head cut to two bf16
+   and plans (epilogue none bit for bit); the quantized families' projections
+   (deepseek-v2-lite-16b's, zamba2-2.7b's and mamba2-370m's, in_proj's
+   padded columns included) through the registry in int8 and fp8 at M = 1,
+   4 and 256 (int8: the activation codes byte for byte, epilogue none bit
+   for bit); lm_head_ce's bf16 x f32 function with the head cut to two bf16
    parts instead of the kernel's three, in plain torch (printed: whether two
    would hold TOL); and views at storage offsets that
    are not 16-byte aligned, refused by flash, lm_head_ce and dip_matmul_q
@@ -41,11 +45,15 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    float model on ``dip``, then ``dip_int8w`` with the int8 KV pool,
    ``dip_fp8`` and ``pallas_systolic``; and the reduced
    deepseek-v2-lite-16b (MoE + MLA), zamba2-2.7b (hybrid) and mamba2-370m
-   (SSM, tied head) on ``dip``, prompts that take the SSM prefill tail;
+   (SSM, tied head) on ``dip``, prompts that take the SSM prefill tail, and
+   the same three with ``dip_fp8`` (bf16); the reduced yi-9b and
+   codeqwen1.5-7b on ``dip`` in bf16;
 4. the reduced llama3-8b trained on the card against the CPU (f32, 3
    ``Trainer`` steps): close losses and gradient norms, and a run stopped by
    ``fail_at_step`` that resumes from its checkpoint and repeats the
-   uninterrupted one;
+   uninterrupted one; then with int8 and with fp8 weights, the loss and the
+   gradient of every float leaf through the quantized straight-through
+   backward, card against CPU;
 5. llama3-8b at full width (32 layers, d_model 4096, vocab 128256) in bf16
    served through ``Server``, with the kernels' launch counts checked:
    193 DiP-matmul launches per forward, 32 flash launches per prefill chunk,
@@ -86,6 +94,18 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    1,474,560 / 0 KV bytes per block and 72,479,232 / 50,995,200 state bytes
    per slot, peak memory, wall times, and a decode step, a prefill chunk
    and a single-token forward of the tail profiled;
+5g. deepseek-v2-lite-16b at full width as in 5d with ``--quantize int8
+   --kv-quant int8``: the same gates, 163 dip_matmul_q launches per forward
+   (counted from the template) all on the tensor-core route with one
+   quantizing pass each and no bf16 DiP launch, 252,288 KV bytes per
+   block, the int8 latent rows of the first prefill import byte-identical
+   to ``quantize_rows`` on the CPU, weights, peak memory and the captured
+   steps against the eager ones;
+5h. zamba2-2.7b (``--quantize int8 --kv-quant int8``) and mamba2-370m
+   (``--quantize int8``) at full width as in 5e / 5f: 163 / 96 dip_matmul_q
+   launches per forward, flash's routes unchanged, 774,144 / 0 KV bytes
+   per block, the state bytes per slot unchanged, the hybrid's first
+   import checked as in 5g;
 6. llama3-8b at full width cut to 4 layers trained through
    ``launch.train`` and its ``Trainer`` (f32 parameters, bf16 compute, block
    remat, batch 4 x seq 1024, 4 steps, the launcher's warm-up schedule):
@@ -109,7 +129,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    ``SPLIT_MAX_SQ`` is read; the wavefront with the f32
    CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
    of its codes and beside its whole function in library calls; the fp8
-   route with f32 x).
+   route with f32 x; both quantized routes at the quantized families'
+   projections, with their launches per forward).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -266,7 +287,8 @@ def keep_last(store, kind, a):
         store[kind] = (a, held[1])
 
 
-PAGED = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope")  # pool leaves with a block axis (dim 1)
+# pool leaves with a block axis (dim 1)
+PAGED = ("k", "v", "k_scale", "v_scale", "c_kv", "k_rope", "c_kv_scale", "k_rope_scale")
 
 
 def live_rows(a):
@@ -417,6 +439,20 @@ def main():
         finally:
             for (fn, nm), n in saved.items():
                 setattr(fn, nm, n)
+
+    counters = {"dip_matmul": dip_matmul, "dip_matmul_q": dip_matmul_q, "dip_systolic": dip_systolic,
+                "flash_attention": flash_attention, "lm_head_ce": ce.lm_head_ce}
+
+    def reset_counts():
+        """Every launch counter to 0, the per-route ones included."""
+        for c in counters.values():
+            c.launches = 0
+        flash_attention.launches_tc = flash_attention.launches_split = 0
+        dip_matmul_q.launches_tc = dip_matmul_q.launches_quant = 0
+
+    def read_counts():
+        """Each kernel's launches since the counts were last set to 0."""
+        return {k: c.launches for k, c in counters.items()}
 
     # the kernels that a wrapper call launches once (a split-K reduce after
     # one is part of the same call), by name and by the counters
@@ -1030,6 +1066,54 @@ def main():
 
     torch.cuda.synchronize()
 
+    # the quantized families' projections (phases 5g, 5h; fp8 is held at
+    # full width here only) through the registry on a QuantizedDipWeight of
+    # the logical width (the shim pads K and crops the padded columns, which
+    # carry scale 1.0), bf16 x as served, M = 1 (the SSM prefill tail), 4 (a
+    # decode step) and 256 (a prefill chunk): one launch on the tensor-core
+    # route each, for int8 with one quantizing pass whose codes and scales
+    # are byte-identical to the plain quantizer's; against the same call
+    # with the plain versions on the card, TOL, and for int8 with no
+    # epilogue bit for bit
+    for scheme, key in (("int8", "dip_matmul_q_int8"), ("fp8_e4m3", "dip_matmul_q_fp8")):
+        backend = api.quant.scheme_info(scheme).backend
+        for label, k, n, e, pr in ds_proj + ssm_proj:
+            s = epi.spec(e)
+            qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, scheme)
+                   for _ in range(2 if s.dual_weight else 1)]
+            for m in (1, 4, 256):
+                x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+                gain = torch.rand(k, generator=g, device=dev) + 0.5 if pr == "rmsnorm" else None
+                kw = dict(backend=backend, epilogue=e, prologue=pr, prologue_operands=() if gain is None else (gain,),
+                          epilogue_operands=(torch.randn(m, n, generator=g, device=dev).to(torch.bfloat16),)
+                          if s.residual else ())
+                w = tuple(qws) if s.dual_weight else qws[0]
+                before = (dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_quant)
+                got = api.matmul(x, w, **kw)
+                if (dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_quant) != (
+                        before[0] + 1, before[1] + 1, before[2] + (scheme == "int8")):
+                    raise AssertionError(f"{key} {label} M={m}: not one launch on the tensor-core route")
+                with plain_backends():
+                    want = api.matmul(x, w, **kw)
+                name = (f"{key} registry M={m} {label} K={k} N={n} (storage {qws[0].data.shape[1]}) {e}/{pr} "
+                        f"[{matmul_plan(m, qws[0].data.shape[1], k, s.dual_weight, sms, weight_bytes=1).regime}]")
+                if scheme == "int8":
+                    inv = pro.inv_rms(x) if gain is not None else None
+                    codes, scale = quantize_pass(x, inv, gain)
+                    want_c, want_s = quantize_pass_plain(x, inv, gain)
+                    if not (torch.equal(codes, want_c) and torch.equal(scale, want_s)):
+                        raise AssertionError(f"{name}: the activation codes or scales differ from the plain quantizer")
+                    del codes, scale, want_c, want_s
+                if scheme == "int8" and e == "none":
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{name}: not bit for bit the plain version")
+                    log(f"  {name}: codes byte-identical, output bit-exact")
+                else:
+                    worst[key] = max(worst[key], close(name, got, want, TOL["bfloat16"]))
+                del x, got, want, kw
+            del qws
+    torch.cuda.synchronize()
+
     # views at a storage offset that is not 16-byte aligned: refused before
     # the launch (a misaligned 16-byte load would fault and poison the
     # context), after which the same calls on aligned tensors run
@@ -1095,8 +1179,9 @@ def main():
 
     # ---------------------------------------- 3. reduced model, card vs CPU --
     log("phase 3: reduced llama3-8b served on the card against the CPU: dip (f32), dip_int8w with the "
-        "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32); and reduced deepseek-v2-lite-16b, "
-        "zamba2-2.7b and mamba2-370m (dip, f32)")
+        "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32); reduced deepseek-v2-lite-16b, "
+        "zamba2-2.7b and mamba2-370m (dip, f32; dip_fp8, bf16); reduced "
+        "yi-9b and codeqwen1.5-7b (dip, bf16)")
     rcfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
                                param_dtype="float32", compute_dtype="float32")
     cpu_params = tf_model.init_params(rcfg, make_generator(SEED, "cpu"), "cpu")
@@ -1156,6 +1241,23 @@ def main():
         ("zamba2-2.7b reduced, dip, f32", "zamba2-2.7b", f32_dip, "f32"),
         ("mamba2-370m reduced, dip, f32", "mamba2-370m", f32_dip, "f32"),
     ]
+    # the fp8 families: the MoE/MLA, hybrid and SSM models, reduced, with
+    # fp8 weights in bf16 (as served; fp8 at full width is held in phase 2
+    # only); and the dense yi-9b (GQA kv = 4) and codeqwen1.5-7b (QKV bias)
+    # in bf16.  Their int8 runs are held at full width (5g, 5h) against the
+    # plain versions on the card with the routing or block inputs replayed,
+    # not here: the card's and the CPU's f32 sums differ in the last bit,
+    # which moves an activation across an int8 rounding midpoint now and
+    # then (llama3-8b's dense int8 run above happens to meet none); in the
+    # reduced deepseek-v2-lite-16b one such code of wo's input changes the
+    # next layers' routing inputs enough to change a greedy token
+    for arch_name in ("deepseek-v2-lite-16b", "zamba2-2.7b", "mamba2-370m"):
+        variants.append((f"{arch_name} reduced, dip_fp8, bf16", arch_name,
+                         dict(quantization="fp8_e4m3", matmul_backend="dip_fp8", param_dtype="bfloat16",
+                              compute_dtype="bfloat16"), "bf16"))
+    variants += [(f"{nm} reduced, dip, bf16", nm, dict(matmul_backend="dip", param_dtype="bfloat16",
+                                                      compute_dtype="bfloat16"), "bf16")
+                 for nm in ("yi-9b", "codeqwen1.5-7b")]
     for label, arch_name, fields, kind in variants:
         vcfg = dataclasses.replace(get_config(arch_name).reduced(), **fields)
         vparams = cpu_params if vcfg == rcfg else tf_model.init_params(vcfg, make_generator(SEED, "cpu"), "cpu")
@@ -1236,6 +1338,78 @@ def main():
         f"{whole['loss']:.7f} uninterrupted; bit-exact: {bit_exact}")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     del cpu_params, runs, resumed
+
+    # the quantized straight-through backward: the reduced llama3-8b in f32
+    # with int8 and with fp8 weights, the loss (the fused head, the int8 /
+    # fp8 projections on the kernels) and the gradient of every float leaf
+    # (the embedding, the norms and the lm_head's scales, which the fused
+    # loss dequantizes; the projections' scales take none) on the card.
+    # int8: against the CPU within TRAIN_TOL of max(1, |cpu|) (loss) or of
+    # max|cpu leaf| (gradients): the same activation codes into exact
+    # int32 sums.  fp8: the card multiplies bf16-cast activations by the
+    # upcast weights (fp8_compute_dtype) where the CPU multiplies f32 ones,
+    # and even against the plain versions on the card (the same bf16
+    # products) an f32 difference in the last bit upstream now and then
+    # casts an activation to the next bf16 value, so both runs are bf16
+    # runs: FIRST_STEP_TOL's bf16 bounds (loss, largest leaf)
+    def float_leaves(t, prefix=""):
+        if isinstance(t, dict):
+            return [pl for k in sorted(t) for pl in float_leaves(t[k], f"{prefix}/{k}")]
+        return [(f"{prefix}.scale", t.scale)] if isinstance(t, api.QuantizedDipWeight) else [(prefix, t)]
+
+    def loss_and_grads(qparams, qcfg, where, ctx):
+        named = float_leaves(qparams)
+        for _, t in named:
+            t.requires_grad_(True)
+        reset_counts()
+        batch = {"tokens": toks.to(where), "labels": toks.to(where)}
+        with ctx():
+            loss = tf_model.loss_fn(qparams, qcfg, batch)
+            grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+        return (float(loss.detach()), {p: None if gr is None else gr.cpu() for (p, _), gr in zip(named, grads)},
+                read_counts())
+
+    def held_to(what, got, want, loss_tol, leaf_tol):
+        """The loss and each float leaf's gradient of ``got`` against ``want``;
+        returns the worst leaf's error relative to max|want leaf| and the
+        leaves without a gradient (on both sides, or it raises)."""
+        if abs(got[0] - want[0]) > loss_tol * max(1.0, abs(want[0])):
+            raise AssertionError(f"{what}: loss {got[0]} against {want[0]}")
+        worst_g, none = 0.0, []
+        for path, gw in want[1].items():
+            gg = got[1][path]
+            if (gw is None) != (gg is None):
+                raise AssertionError(f"{what}: {path} has a gradient on one side only")
+            if gw is None:
+                none.append(path)
+                continue
+            rel = float((gg - gw).abs().max()) / max(float(gw.abs().max()), 1e-30)
+            worst_g = max(worst_g, rel)
+            if rel > leaf_tol:
+                raise AssertionError(f"{what}: {path} {rel:.3e} of max|leaf| apart (limit {leaf_tol:g})")
+        if "/lm_head.scale" in none or not all(p.endswith(".scale") for p in none):
+            raise AssertionError(f"{what}: the leaves without a gradient are {none}")
+        return worst_g, none
+
+    qgrad = {}
+    toks = torch.as_tensor(np.random.default_rng(SEED).integers(2, rcfg.vocab_size, (2, 64)))
+    for scheme in ("int8", "fp8_e4m3"):
+        qcfg = dataclasses.replace(rcfg, quantization=scheme, matmul_backend=api.quant.scheme_info(scheme).backend)
+        qcpu = tf_model.init_params(qcfg, make_generator(SEED, "cpu"), "cpu")
+        card = loss_and_grads(to_dev(qcpu), qcfg, "cuda", contextlib.nullcontext)
+        want_n = dict(dip_matmul=0, dip_matmul_q=6 * qcfg.n_layers, dip_systolic=0, flash_attention=0, lm_head_ce=1)
+        if card[2] != want_n:
+            raise AssertionError(f"quantized loss ({scheme}): card launches {card[2]}, expected {want_n}")
+        cpu = loss_and_grads(qcpu, qcfg, "cpu", contextlib.nullcontext)
+        loss_tol, leaf_tol = (TRAIN_TOL, TRAIN_TOL) if scheme == "int8" else FIRST_STEP_TOL["bfloat16"][::2]
+        worst_g, none = held_to(f"quantized loss ({scheme}), card vs cpu", card, cpu, loss_tol, leaf_tol)
+        qgrad[scheme] = {"loss_card": card[0], "loss_cpu": cpu[0], "launches": card[2], "worst_leaf_rel": worst_g,
+                         "no_grad": len(none)}
+        log(f"  quantized loss ({scheme}, f32, the straight-through backward): card {card[0]:.7f} cpu {cpu[0]:.7f} "
+            f"(limit {loss_tol:g} x max(1, |cpu|)); {len(cpu[1]) - len(none)} float leaves' gradients, the worst "
+            f"{worst_g:.3e} of max|cpu leaf| (limit {leaf_tol:g}); {len(none)} projection scales without one on both "
+            f"sides; card launches {card[2]}")
+        del qcpu, card, cpu
 
     # ------------------------------------------- 5. full-width serving -----
     log("phase 5: llama3-8b full width, bf16, dip storage, through Server")
@@ -1335,18 +1509,6 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     serve_launches = launches
-    counters = {"dip_matmul": dip_matmul, "dip_matmul_q": dip_matmul_q, "dip_systolic": dip_systolic,
-                "flash_attention": flash_attention, "lm_head_ce": ce.lm_head_ce}
-
-    def reset_counts():
-        for c in counters.values():
-            c.launches = 0
-        flash_attention.launches_tc = flash_attention.launches_split = 0
-        dip_matmul_q.launches_tc = dip_matmul_q.launches_quant = 0
-
-    def read_counts():
-        return {k: c.launches for k, c in counters.items()}
-
     serve_launches.update(dip_matmul_q=0, dip_systolic=0)
 
     # ------------------------------- 5b. full-width quantized serving -------
@@ -1601,198 +1763,324 @@ def main():
     del params, sys_runs, seen_s, seen_d
     torch.cuda.empty_cache()
 
-    # ------------------------ 5d. DeepSeek-V2-Lite-16B at full width -------
+    # ----------------- helpers of the full-width families (5d - 5h) -------
+    def dip_per_forward(c):
+        """The DiP projections a forward launches, counted from the
+        template: every DiP-stored linear of a layer (gate and up one
+        swiglu launch) times the layers, the hybrid's shared block times
+        its sites, and a separate head.  MLA's w_uk and w_uv are absorbed
+        (de-sheared and contracted per head outside the kernel, as in the
+        reference), so they launch nothing."""
+        t = tf_model.param_template(c)
+
+        def count(sub):
+            names = {nm for nm, leaf in sub.items() if leaf[3] is not None and nm not in ("w_uk", "w_uv")}
+            return len(names) - len({nm for nm in names if nm.endswith("w_up") and nm[:-2] + "gate" in names})
+
+        n = count(t["layers"]) * c.n_layers + int("lm_head" in t)
+        if "shared_attn" in t:
+            n += count(t["shared_attn"]) * (c.n_layers // c.attn_every)
+        return n
+
+    def weight_stats(params):
+        """(parameters, GiB) of a parameter tree; a quantized weight counts
+        its codes and its scales."""
+        n = nbytes = 0
+        for leaf in tree.leaves(params):
+            ts = (leaf.data, leaf.scale) if isinstance(leaf, api.QuantizedDipWeight) else (leaf,)
+            n += ts[0].numel()
+            nbytes += sum(t.numel() * t.element_size() for t in ts)
+        return n, nbytes / 2**30
+
+    def check_first_import(eng, record):
+        """Wrap the engine's prefill import: after its first call, the int8
+        rows it wrote into the slot's pool blocks (MLA's latent rows, one
+        scale per token; the hybrid's shared-attention k and v, one scale
+        per (token, head)) must be byte-identical to ``quantize_rows`` of
+        the same prefill-cache rows run on the CPU."""
+        imp, bs = eng._import, eng.block_size
+
+        def wrapped(pools, prefill, slot, plen, block_row):
+            out = imp(pools, prefill, slot, plen, block_row)
+            if not record:
+                got, rows = (out["attn"], prefill["attn"]) if "attn" in out else (out, prefill)
+                pos = np.arange(plen)
+                blk = torch.as_tensor(block_row[pos // bs].astype(np.int64), device=dev)
+                off = torch.as_tensor(pos % bs, device=dev)
+                for nm in rows:
+                    codes, scale = api.quant.quantize_rows(rows[nm][:, 0, :plen].cpu(), "int8")
+                    same = (torch.equal(got[nm][:, blk, off].cpu(), codes)
+                            and torch.equal(got[f"{nm}_scale"][:, blk, off].cpu(), scale[..., 0]))
+                    record[nm] = {"rows": int(codes[..., 0].numel()), "byte_identical": same}
+                    log(f"  first prefill import, {nm}: {codes[..., 0].numel()} int8 rows written on the card, "
+                        f"codes and scales byte-identical to quantize_rows on the CPU: {same}")
+                    if not same:
+                        raise AssertionError(f"the int8 {nm} pool rows differ from quantize_rows on the CPU")
+            return out
+
+        eng._import = wrapped
+
+    def block_tol(scheme):
+        """Gate 1's bound on one block, kernels against plain on one input:
+        TOL in bf16.  Under int8 a block's bf16 roundings (an epilogue's,
+        flash's against the dense attention) feed the next projection's
+        quantizer, where an activation one bf16 step from a rounding
+        midpoint takes the next code, so the block is held to FULL_TOL, the
+        bound that carries such steps over a model."""
+        return TOL["bfloat16"] if scheme is None else FULL_TOL
+
+    def check_quantized_launches(what, scheme, launches, per_forward, n_fwd, want_other):
+        """A quantized path's launches: ``per_forward`` dip_matmul_q launches
+        per forward, all on the tensor-core route, for int8 one quantizing
+        pass each; no bf16 DiP launch; the rest as ``want_other``."""
+        want = dict(want_other, dip_matmul=0, dip_matmul_q=per_forward * n_fwd)
+        q_tc, q_quant = dip_matmul_q.launches_tc, dip_matmul_q.launches_quant
+        passes = launches["dip_matmul_q"] if scheme == "int8" else 0
+        log(f"  {what}: {launches['dip_matmul_q'] / n_fwd:g} dip_matmul_q launches per forward ({per_forward} DiP "
+            f"projections in the template), {q_tc} on the tensor-core route, {q_quant} quantizing passes, "
+            f"{launches['dip_matmul']} bf16 DiP launches")
+        if launches != want or q_tc != launches["dip_matmul_q"] or q_quant != passes:
+            raise AssertionError(f"{what}: launches {launches}, {q_tc} on the tensor cores, {q_quant} quantizing "
+                                 f"passes; expected {want}, all on the tensor cores with one pass each")
+        return q_tc, q_quant
+
+    # --------------- 5d / 5g. DeepSeek-V2-Lite-16B at full width -----------
+    def serve_deepseek(phase, extra_argv=(), scheme=None):
+        """Serve deepseek-v2-lite-16b through ``launch.serve --full`` (4
+        slots, max_seq 1024, prefill chunk 256, the launcher's 4 seeded
+        requests, 16 greedy tokens; ``extra_argv`` quantizes) and hold its
+        gates: one MLA block and one MoE block against plain on one input,
+        the launch counts per forward, the KV bytes per block, the first
+        prefill chunk's and decode step's logits against plain on the card,
+        the captured steps against the eager ones; under int8 KV the first
+        import's pool rows against the CPU's quantizer.  Returns the
+        launches and the serving numbers."""
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        log(f"  allocated before the phase: {left:.2f} GiB")
+        if left > 4:
+            raise AssertionError(f"phase {phase}: the earlier phases left weights or pools on the card")
+        ds_argv = ["--arch", "deepseek-v2-lite-16b", "--full", "--dtype", "bfloat16", "--requests", "4",
+                   "--max-new", "16", "--slots", "4", "--max-seq", "1024", "--prefill-chunk", "256",
+                   "--seed", str(SEED), "--prompt-len", "200", "601", "--temperature", "0"] + list(extra_argv)
+        dst = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "held": {}, "orig": {}, "imported": {}}
+
+        def ds_hook(server, reqs):
+            """Gate 1 (one MLA block and one MoE block, kernels against plain
+            on the same input), then every count to 0; the engine's two steps
+            timed, and on the first call of each the routing kept and the same
+            step run on a copy of its inputs through the plain versions."""
+            eng, c = server.engine, server.engine.cfg
+            torch.cuda.synchronize()
+            dst.update(server=server, reqs=reqs, allocated_after_init_gib=torch.cuda.memory_allocated() / 2**30,
+                       init_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            lp = tf_model._layers(server.params["layers"], c.n_layers)[0]
+            pos = torch.arange(256, device=dev)
+            x = server.params["embed"][torch.as_tensor(reqs[0].prompt[:256], device=dev)][None].to(
+                getattr(torch, c.compute_dtype))
+            rope = layers.rope_tables(pos, c.qk_rope_head_dim, c.rope_theta)
+            blocks = {}
+            for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_backends)):
+                cache = tf_model.init_cache(c, 1, 1024, device=dev)
+                lcache = dict({nm: t[0] for nm, t in cache["layers"].items()}, pos=0)
+                with ctx(), torch.no_grad():
+                    a, _ = attention.mla_attention(x, lp, c, positions=pos, cache=lcache, rope=rope, residual=x,
+                                                   norm=lp["attn_norm"])
+                    h = blocks["kernels"][0] if label == "plain" else a  # the MoE block on one input
+                    f, _, dropped, ids = moe.moe_ffn(layers.rms_norm(h, lp["ffn_norm"], c.norm_eps), lp, c,
+                                                     return_routing=True)
+                blocks[label] = (a, h + f, ids, int(dropped))
+                del cache, lcache
+            (a_k, m_k, ids_k, drop_k), (a_p, m_p, ids_p, drop_p) = blocks["kernels"], blocks["plain"]
+            close("MLA block (absorbed form, 256 tokens) kernels vs plain", a_k, a_p, block_tol(scheme))
+            close("MoE block (routed + shared experts, 256 tokens) kernels vs plain", m_k, m_p, block_tol(scheme))
+            if not torch.equal(ids_k, ids_p) or drop_k != drop_p:
+                raise AssertionError(f"phase {phase}: the MoE block routed differently on the same input")
+            log(f"  MoE block: routing ids identical ({ids_k.numel()} choices), {drop_k} (token, slot) pairs dropped "
+                f"at capacity {moe.moe_capacity(256, c)}")
+            del blocks, a_k, m_k, a_p, m_p, x
+            if eng.kv_quant == "int8":
+                check_first_import(eng, dst["imported"])
+            plain_steps = {"_prefill_fwd": tf_model.decode_step_fn(c, attn_backend="flash"),
+                           "_decode": tf_model.paged_decode_step_fn(c)}
+            for attr in ("_prefill_fwd", "_decode"):
+                dst["orig"][attr] = getattr(eng, attr)
+
+                def run(*a, _f=getattr(eng, attr), _attr=attr):
+                    keep_last(dst["held"], _attr, a)  # checked against the eager step after the run
+                    first = _attr not in dst["checked"]
+                    inputs = clone_tree(a[1]) if first else None
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = _f(*a)
+                    torch.cuda.synchronize()
+                    dst["times"][_attr].append(time.perf_counter() - t)
+                    if not bool(torch.isfinite(out[0][..., :c.vocab_size]).all()):
+                        raise AssertionError(f"deepseek full width: non-finite logits from {_attr}")
+                    if first:
+                        # the captured step takes no trace: the kernels' expert
+                        # choices come from the uncaptured step on a copy of the
+                        # inputs (the same kernels; its logits must be the
+                        # captured step's first call's, an eager run, bit for
+                        # bit), then the plain step twice:
+                        # routing freely, and replaying those choices
+                        stats, free = {}, {}
+                        with uncounted(), torch.no_grad():
+                            eager = plain_steps[_attr](a[0], clone_tree(inputs), *dev_args(a), moe_trace=stats)[0]
+                        if not torch.equal(eager[live_rows(a)], out[0][live_rows(a)]):
+                            raise AssertionError(f"deepseek full width: the captured {_attr} differs from the eager "
+                                                 f"step")
+                        replay, cap = {"replay_ids": stats["ids"]}, {"vocab": c.padded_vocab}
+                        with plain_backends(), torch.no_grad():
+                            want_free = plain_steps[_attr](a[0], clone_tree(inputs), *dev_args(a), moe_trace=free)[0]
+                        with plain_backends(cap), torch.no_grad():
+                            want = plain_steps[_attr](a[0], inputs, *dev_args(a), moe_trace=replay)[0]
+                        dst["checked"][_attr] = (out[0][..., :c.vocab_size].float().clone(),
+                                                 want[..., :c.vocab_size].float(), want_free[..., :c.vocab_size].float(),
+                                                 stats, free, replay, cap.get("head_x"))
+                        del inputs, want, want_free, eager
+                    return out
+                setattr(eng, attr, run)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = serve_cli.main(ds_argv, on_server=ds_hook)
+        wall = time.perf_counter() - t0
+        launches_ds = read_counts()
+        peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+        server, reqs, times = dst["server"], dst["reqs"], dst["times"]
+        dcfg = server.engine.cfg
+        assert (dcfg.n_layers, dcfg.d_model, dcfg.vocab_size, dcfg.n_experts, dcfg.moe_top_k, dcfg.kv_lora_rank) == (
+            27, 2048, 102400, 64, 6, 512)
+        n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
+        n_params, weights_gib = weight_stats(server.params)
+        log(f"  {n_params} parameters, {weights_gib:.3f} GiB of weights ({dst['allocated_after_init_gib']:.2f} GiB "
+            f"allocated after init, init peak {dst['init_peak_gib']:.2f} GiB); prompts {[len(r.prompt) for r in reqs]}, "
+            f"{n_prefill} prefill chunks, {n_decode} decode steps, wall {wall:.2f} s")
+        if sorted(results) != [0, 1, 2, 3] or any(not v for v in results.values()):
+            raise AssertionError("deepseek full width: not every request was served")
+        st = server.last_stats
+        if (n_prefill, n_decode) != (st["prefill_chunks"], st["decode_steps"]):
+            raise AssertionError("deepseek full width: step counts disagree with the engine's stats")
+        # per forward: wq, w_dkv, w_krope (rmsnorm prologue), wo (residual) and the
+        # shared experts' gate+up and down in each of 27 layers, and the lm_head;
+        # the routed experts are einsums, MLA's attention is latent-space torch
+        n_fwd = n_prefill + n_decode
+        per_forward = dip_per_forward(dcfg)
+        if per_forward != 163:
+            raise AssertionError(f"deepseek: the template gives {per_forward} DiP launches per forward, not 163")
+        other = {"dip_systolic": 0, "flash_attention": 0, "lm_head_ce": 0}
+        q_tc = q_quant = 0
+        if scheme is None:
+            want = dict(other, dip_matmul=per_forward * n_fwd, dip_matmul_q=0)
+            log(f"  launches {launches_ds}; expected {want}: {launches_ds['dip_matmul'] / n_fwd:g} dip_matmul launches "
+                f"per forward (163 = 6 x 27 + 1; replays counted)")
+            if launches_ds != want:
+                raise AssertionError("deepseek full width: launch counts differ from 163 DiP launches per forward")
+        else:
+            q_tc, q_quant = check_quantized_launches(f"deepseek {scheme}", scheme, launches_ds, per_forward, n_fwd, other)
+        kv_bytes = kvc.bytes_per_block(dcfg)
+        pool_bytes = sum(t.numel() * t.element_size() for t in server.engine.kv.pools["layers"].values())
+        kv_want = 252_288 if server.engine.kv_quant == "int8" else 497_664
+        log(f"  KV bytes per 16-token block {kv_bytes} (the pool: {pool_bytes} bytes in {server.engine.kv.num_blocks} "
+            f"blocks); peak memory while serving {peak / 2**30:.2f} GiB allocated, {peak_reserved / 2**30:.2f} GiB "
+            f"reserved")
+        if kv_bytes != kv_want or pool_bytes != kv_bytes * server.engine.kv.num_blocks:
+            raise AssertionError(f"deepseek full width: the latent pool does not cost {kv_want} bytes per block")
+        if server.engine.kv_quant == "int8" and set(dst["imported"]) != {"c_kv", "k_rope"}:
+            raise AssertionError("deepseek full width: the int8 latent rows of an import were never checked")
+        # gate 2: the first prefill chunk's and decode step's logits against the
+        # plain versions on the card, on the same inputs.  A bf16 difference
+        # upstream can flip a near tie in a token's top-6, and at capacity a
+        # flipped choice also changes which of its expert's tokens are dropped,
+        # which moves logits by far more than any rounding (measured: up to 0.86
+        # at max|plain| 4.78 with 1711 of 41472 choices flipped, H100 80GB HBM3,
+        # 700 W); so the routing choices that differ from a freely routing plain
+        # run are counted and printed, and the bound FULL_TOL holds the plain
+        # run that replays this run's choices: every other difference is the
+        # kernels' arithmetic over 27 bf16 layers
+        # under int8 each logit may also move by one activation-code step of
+        # every lm_head input (as in 5b): the layers' bf16 roundings move an
+        # activation across a rounding midpoint now and then
+        ds_checked = {}
+        for attr, (got, want_l, free_l, stats, free, replay, head_x) in dst["checked"].items():
+            if not all(torch.equal(ik, ir) for ik, ir in zip(stats["ids"], replay["ids"])):
+                raise AssertionError("deepseek full width: the replayed plain run did not route as the kernels' run")
+            err, err_free = (got - want_l).abs(), (got - free_l).abs().max().item()
+            scale = max(1.0, want_l.abs().max().item())
+            within = float((err <= TOL["bfloat16"] * scale).float().mean())
+            flips = sum(int((~(ik[..., :, None] == ip[..., None, :]).any(-1)).sum())
+                        for ik, ip in zip(stats["ids"], free["ids"]))
+            choices = sum(ik.numel() for ik in stats["ids"])
+            dropped = [int(v) for v in stats["dropped"]]
+            log(f"  {attr} first call, kernels against plain on the card: routing freely, logits max|err| "
+                f"{err_free:.3e}, {flips} of {choices} top-6 choices differ, dropped (token, slot) pairs over the 27 "
+                f"layers {sum(dropped)} (plain {sum(int(v) for v in free['dropped'])}); replaying the kernels' choices, "
+                f"logits max|err| {err.max().item():.3e} (max|plain| {scale:.3g}, bound {FULL_TOL:g} x scale), "
+                f"{100 * within:.4f}% within {TOL['bfloat16']:g} x scale")
+            lim = FULL_TOL * scale
+            if scheme == "int8":
+                lim = lim + head_step(server.params["lm_head"], head_x, dcfg.vocab_size).reshape(got.shape)
+            if not bool((err <= lim).all()):
+                raise AssertionError(f"deepseek full width: {attr} logits outside the stated bound")
+            ds_checked[attr] = {"max_err_replayed_routing": err.max().item(), "max_err_free_routing": err_free,
+                                "max_plain": scale, "routing_choices_differing": flips, "routing_choices": choices,
+                                "dropped": sum(dropped)}
+        if set(ds_checked) != {"_prefill_fwd", "_decode"}:
+            raise AssertionError("deepseek full width: a step was never checked against plain")
+        prompt_tokens, generated = sum(len(r.prompt) for r in reqs), sum(len(v) for v in results.values())
+        ds_serving = {
+            "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
+            "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
+            "prefill_tok_per_s": prompt_tokens / sum(times["_prefill_fwd"]),
+            "decode_tok_per_s": (generated - len(reqs)) / sum(times["_decode"]),
+            "peak_memory_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
+            "graph_pool_gib": graph_pool_gib(dst["orig"]["_prefill_fwd"], dst["orig"]["_decode"]),
+            "kv_bytes_per_block": kv_bytes, "parameters": n_params, "weights_gib": weights_gib,
+            "dip_launches_per_forward": per_forward, "dip_matmul_q_tensor_core_launches": q_tc,
+            "dip_matmul_q_quantizing_passes": q_quant, "int8_import_rows": dst["imported"],
+            "first_prefill_chunk_dropped": ds_checked["_prefill_fwd"]["dropped"], "checked": ds_checked,
+            "wall_s": wall, "prefill_chunks": n_prefill, "decode_steps": n_decode,
+        }
+        log(f"  results: { {k: v[:6] for k, v in results.items()} }")
+        tag = "deepseek" if scheme is None else f"deepseek {scheme}"
+        ds_serving["graphs"] = {
+            "decode": graph_check(f"{tag} decode step", dst["orig"]["_decode"], tf_model.paged_decode_step_fn(dcfg),
+                                  dst["held"]["_decode"], dcfg.vocab_size),
+            "prefill": graph_check(f"{tag} prefill chunk", dst["orig"]["_prefill_fwd"],
+                                   tf_model.decode_step_fn(dcfg, attn_backend="flash"), dst["held"]["_prefill_fwd"],
+                                   dcfg.vocab_size)}
+        log("  serving " + json.dumps(ds_serving))
+        dst.clear()
+        del server, reqs, results
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launches_ds, ds_serving
+
     log("phase 5d: deepseek-v2-lite-16b full width (27 layers, d_model 2048, MLA with kv_lora_rank 512, "
         "64 routed experts top-6 + 2 shared), bf16, dip storage, through launch.serve")
-    torch.cuda.empty_cache()
-    left = torch.cuda.memory_allocated() / 2**30
-    log(f"  allocated before the phase: {left:.2f} GiB")
-    if left > 4:
-        raise AssertionError("phase 5d: the llama3-8b phases left weights or pools on the card")
-    ds_argv = ["--arch", "deepseek-v2-lite-16b", "--full", "--dtype", "bfloat16", "--requests", "4",
-               "--max-new", "16", "--slots", "4", "--max-seq", "1024", "--prefill-chunk", "256",
-               "--seed", str(SEED), "--prompt-len", "200", "601", "--temperature", "0"]
-    dst = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "held": {}, "orig": {}}
-
-    def ds_hook(server, reqs):
-        """Gate 1 (one MLA block and one MoE block, kernels against plain
-        on the same input), then every count to 0; the engine's two steps
-        timed, and on the first call of each the routing kept and the same
-        step run on a copy of its inputs through the plain versions."""
-        eng, c = server.engine, server.engine.cfg
-        torch.cuda.synchronize()
-        dst.update(server=server, reqs=reqs, allocated_after_init_gib=torch.cuda.memory_allocated() / 2**30,
-                   init_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        lp = tf_model._layers(server.params["layers"], c.n_layers)[0]
-        pos = torch.arange(256, device=dev)
-        x = server.params["embed"][torch.as_tensor(reqs[0].prompt[:256], device=dev)][None].to(getattr(torch, c.compute_dtype))
-        rope = layers.rope_tables(pos, c.qk_rope_head_dim, c.rope_theta)
-        blocks = {}
-        for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_backends)):
-            cache = tf_model.init_cache(c, 1, 1024, device=dev)
-            lcache = dict({nm: t[0] for nm, t in cache["layers"].items()}, pos=0)
-            with ctx(), torch.no_grad():
-                a, _ = attention.mla_attention(x, lp, c, positions=pos, cache=lcache, rope=rope, residual=x,
-                                               norm=lp["attn_norm"])
-                h = blocks["kernels"][0] if label == "plain" else a  # the MoE block on one input
-                f, _, dropped, ids = moe.moe_ffn(layers.rms_norm(h, lp["ffn_norm"], c.norm_eps), lp, c,
-                                                 return_routing=True)
-            blocks[label] = (a, h + f, ids, int(dropped))
-            del cache, lcache
-        (a_k, m_k, ids_k, drop_k), (a_p, m_p, ids_p, drop_p) = blocks["kernels"], blocks["plain"]
-        close("MLA block (absorbed form, 256 tokens) kernels vs plain", a_k, a_p, TOL["bfloat16"])
-        close("MoE block (routed + shared experts, 256 tokens) kernels vs plain", m_k, m_p, TOL["bfloat16"])
-        if not torch.equal(ids_k, ids_p) or drop_k != drop_p:
-            raise AssertionError("phase 5d: the MoE block routed differently on the same input")
-        log(f"  MoE block: routing ids identical ({ids_k.numel()} choices), {drop_k} (token, slot) pairs dropped "
-            f"at capacity {moe.moe_capacity(256, c)}")
-        del blocks, a_k, m_k, a_p, m_p, x
-        plain_steps = {"_prefill_fwd": tf_model.decode_step_fn(c, attn_backend="flash"),
-                       "_decode": tf_model.paged_decode_step_fn(c)}
-        for attr in ("_prefill_fwd", "_decode"):
-            dst["orig"][attr] = getattr(eng, attr)
-
-            def run(*a, _f=getattr(eng, attr), _attr=attr):
-                keep_last(dst["held"], _attr, a)  # checked against the eager step after the run
-                first = _attr not in dst["checked"]
-                inputs = clone_tree(a[1]) if first else None
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                out = _f(*a)
-                torch.cuda.synchronize()
-                dst["times"][_attr].append(time.perf_counter() - t)
-                if not bool(torch.isfinite(out[0][..., :c.vocab_size]).all()):
-                    raise AssertionError(f"deepseek full width: non-finite logits from {_attr}")
-                if first:
-                    # the captured step takes no trace: the kernels' expert
-                    # choices come from the uncaptured step on a copy of the
-                    # inputs (the same kernels; its logits must be the
-                    # captured step's first call's, an eager run, bit for
-                    # bit), then the plain step twice:
-                    # routing freely, and replaying those choices
-                    stats, free = {}, {}
-                    with uncounted(), torch.no_grad():
-                        eager = plain_steps[_attr](a[0], clone_tree(inputs), *dev_args(a), moe_trace=stats)[0]
-                    if not torch.equal(eager[live_rows(a)], out[0][live_rows(a)]):
-                        raise AssertionError(f"deepseek full width: the captured {_attr} differs from the eager step")
-                    replay = {"replay_ids": stats["ids"]}
-                    with plain_backends(), torch.no_grad():
-                        want_free = plain_steps[_attr](a[0], clone_tree(inputs), *dev_args(a), moe_trace=free)[0]
-                        want = plain_steps[_attr](a[0], inputs, *dev_args(a), moe_trace=replay)[0]
-                    dst["checked"][_attr] = (out[0][..., :c.vocab_size].float().clone(), want[..., :c.vocab_size].float(),
-                                             want_free[..., :c.vocab_size].float(), stats, free, replay)
-                    del inputs, want, want_free, eager
-                return out
-            setattr(eng, attr, run)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    results = serve_cli.main(ds_argv, on_server=ds_hook)
-    wall = time.perf_counter() - t0
-    launches_ds, routes_ds = read_counts(), flash_routes()
-    peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
-    server, reqs, times = dst["server"], dst["reqs"], dst["times"]
-    dcfg = server.engine.cfg
-    assert (dcfg.n_layers, dcfg.d_model, dcfg.vocab_size, dcfg.n_experts, dcfg.moe_top_k, dcfg.kv_lora_rank) == (
-        27, 2048, 102400, 64, 6, 512)
-    n_prefill, n_decode = len(times["_prefill_fwd"]), len(times["_decode"])
-    n_params = sum(t.numel() for t in tree.leaves(server.params))
-    log(f"  {n_params} parameters ({dst['allocated_after_init_gib']:.2f} GiB allocated after init, init peak "
-        f"{dst['init_peak_gib']:.2f} GiB); prompts {[len(r.prompt) for r in reqs]}, {n_prefill} prefill chunks, "
-        f"{n_decode} decode steps, wall {wall:.2f} s")
-    if sorted(results) != [0, 1, 2, 3] or any(not v for v in results.values()):
-        raise AssertionError("deepseek full width: not every request was served")
-    st = server.last_stats
-    if (n_prefill, n_decode) != (st["prefill_chunks"], st["decode_steps"]):
-        raise AssertionError("deepseek full width: step counts disagree with the engine's stats")
-    # per forward: wq, w_dkv, w_krope (rmsnorm prologue), wo (residual) and the
-    # shared experts' gate+up and down in each of 27 layers, and the lm_head;
-    # the routed experts are einsums, MLA's attention is latent-space torch
-    n_fwd = n_prefill + n_decode
-    want = {"dip_matmul": 163 * n_fwd, "dip_matmul_q": 0, "dip_systolic": 0, "flash_attention": 0, "lm_head_ce": 0}
-    per_forward = launches_ds["dip_matmul"] / n_fwd
-    log(f"  launches {launches_ds}; expected {want}: {per_forward:g} dip_matmul launches per forward (163 = 6 x 27 + 1; "
-        f"replays counted)")
-    if launches_ds != want:
-        raise AssertionError("deepseek full width: launch counts differ from 163 DiP launches per forward")
-    kv_bytes = kvc.bytes_per_block(dcfg)
-    pool_bytes = sum(t.numel() * t.element_size() for t in server.engine.kv.pools["layers"].values())
-    log(f"  KV bytes per 16-token block {kv_bytes} (the pool: {pool_bytes} bytes in {server.engine.kv.num_blocks} "
-        f"blocks); peak memory while serving {peak / 2**30:.2f} GiB")
-    if kv_bytes != 497_664 or pool_bytes != kv_bytes * server.engine.kv.num_blocks:
-        raise AssertionError("deepseek full width: the latent pool does not cost 497,664 bytes per block")
-    # gate 2: the first prefill chunk's and decode step's logits against the
-    # plain versions on the card, on the same inputs.  A bf16 difference
-    # upstream can flip a near tie in a token's top-6, and at capacity a
-    # flipped choice also changes which of its expert's tokens are dropped,
-    # which moves logits by far more than any rounding (measured: up to 0.86
-    # at max|plain| 4.78 with 1711 of 41472 choices flipped, H100 80GB HBM3,
-    # 700 W); so the routing choices that differ from a freely routing plain
-    # run are counted and printed, and the bound FULL_TOL holds the plain
-    # run that replays this run's choices: every other difference is the
-    # kernels' arithmetic over 27 bf16 layers
-    ds_checked = {}
-    for attr, (got, want_l, free_l, stats, free, replay) in dst["checked"].items():
-        if not all(torch.equal(ik, ir) for ik, ir in zip(stats["ids"], replay["ids"])):
-            raise AssertionError("deepseek full width: the replayed plain run did not route as the kernels' run")
-        err, err_free = (got - want_l).abs(), (got - free_l).abs().max().item()
-        scale = max(1.0, want_l.abs().max().item())
-        within = float((err <= TOL["bfloat16"] * scale).float().mean())
-        flips = sum(int((~(ik[..., :, None] == ip[..., None, :]).any(-1)).sum())
-                    for ik, ip in zip(stats["ids"], free["ids"]))
-        choices = sum(ik.numel() for ik in stats["ids"])
-        dropped = [int(v) for v in stats["dropped"]]
-        log(f"  {attr} first call, kernels against plain on the card: routing freely, logits max|err| "
-            f"{err_free:.3e}, {flips} of {choices} top-6 choices differ, dropped (token, slot) pairs over the 27 "
-            f"layers {sum(dropped)} (plain {sum(int(v) for v in free['dropped'])}); replaying the kernels' choices, "
-            f"logits max|err| {err.max().item():.3e} (max|plain| {scale:.3g}, bound {FULL_TOL:g} x scale), "
-            f"{100 * within:.4f}% within {TOL['bfloat16']:g} x scale")
-        if not bool((err <= FULL_TOL * scale).all()):
-            raise AssertionError(f"deepseek full width: {attr} logits outside the stated bound")
-        ds_checked[attr] = {"max_err_replayed_routing": err.max().item(), "max_err_free_routing": err_free,
-                            "max_plain": scale, "routing_choices_differing": flips, "routing_choices": choices,
-                            "dropped": sum(dropped)}
-    if set(ds_checked) != {"_prefill_fwd", "_decode"}:
-        raise AssertionError("deepseek full width: a step was never checked against plain")
-    prompt_tokens, generated = sum(len(r.prompt) for r in reqs), sum(len(v) for v in results.values())
-    ds_serving = {
-        "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
-        "median_decode_step_ms": 1e3 * statistics.median(times["_decode"]),
-        "prefill_tok_per_s": prompt_tokens / sum(times["_prefill_fwd"]),
-        "decode_tok_per_s": (generated - len(reqs)) / sum(times["_decode"]),
-        "peak_memory_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
-        "graph_pool_gib": graph_pool_gib(dst["orig"]["_prefill_fwd"], dst["orig"]["_decode"]),
-        "kv_bytes_per_block": kv_bytes, "parameters": n_params,
-        "first_prefill_chunk_dropped": ds_checked["_prefill_fwd"]["dropped"], "checked": ds_checked,
-        "wall_s": wall, "prefill_chunks": n_prefill, "decode_steps": n_decode,
-    }
-    log(f"  results: { {k: v[:6] for k, v in results.items()} }")
-    ds_serving["graphs"] = {
-        "decode": graph_check("deepseek decode step", dst["orig"]["_decode"], tf_model.paged_decode_step_fn(dcfg),
-                              dst["held"]["_decode"], dcfg.vocab_size),
-        "prefill": graph_check("deepseek prefill chunk", dst["orig"]["_prefill_fwd"],
-                               tf_model.decode_step_fn(dcfg, attn_backend="flash"), dst["held"]["_prefill_fwd"],
-                               dcfg.vocab_size)}
-    log("  serving " + json.dumps(ds_serving))
-    dst.clear()
-    del server, reqs, results
-    gc.collect()
-    torch.cuda.empty_cache()
+    launches_ds, ds_serving = serve_deepseek("5d")
+    log("phase 5g: deepseek-v2-lite-16b full width, bf16 compute, --quantize int8 --kv-quant int8 (the MLA and "
+        "shared-expert projections and the head int8, the router and expert banks bf16), through launch.serve")
+    launches_dsq, dsq_serving = serve_deepseek("5g", ["--quantize", "int8", "--kv-quant", "int8"], "int8")
 
     # --------------- 5e / 5f. Zamba2-2.7B and Mamba2-370M at full width ------
-    def serve_ssm(phase, arch, per_forward, flash_per_call, kv_bytes_want, slot_bytes_want, dims):
+    def serve_ssm(phase, arch, per_forward, flash_per_call, kv_bytes_want, slot_bytes_want, dims, extra_argv=(),
+                  scheme=None):
         """Serve ``arch`` through ``launch.serve --full`` (4 slots, max_seq
         1024, prefill chunk 256, the launcher's 4 seeded requests, 16
-        greedy tokens) and hold its gates: layer 0's Mamba2 block (and the
-        hybrid's shared block) against plain on one input, the first
-        prefill chunk's and decode step's logits against plain on the card,
-        the launch counts per forward (the prefill tail's single-token
-        forwards included), the KV bytes per block and the per-slot state
-        bytes.  Returns the launches, flash's routes and the serving
-        numbers."""
+        greedy tokens; ``extra_argv`` quantizes) and hold its gates: layer
+        0's Mamba2 block (and the hybrid's shared block) against plain on
+        one input, the first prefill chunk's and decode step's logits
+        against plain on the card, the launch counts per forward (the
+        prefill tail's single-token forwards included; ``per_forward`` DiP
+        projections, as the template counts them), the KV bytes per block
+        and the per-slot state bytes; under int8 KV the first import's
+        shared-attention rows against the CPU's quantizer.  Returns the
+        launches, flash's routes and the serving numbers."""
         torch.cuda.empty_cache()
         left = torch.cuda.memory_allocated() / 2**30
         log(f"  allocated before the phase: {left:.2f} GiB")
@@ -1800,8 +2088,8 @@ def main():
             raise AssertionError(f"phase {phase}: the earlier phases left weights or pools on the card")
         argv = ["--arch", arch, "--full", "--dtype", "bfloat16", "--requests", "4", "--max-new", "16", "--slots",
                 "4", "--max-seq", "1024", "--prefill-chunk", "256", "--seed", str(SEED), "--prompt-len", "200",
-                "601", "--temperature", "0"]
-        st = {"times": {"chunk": [], "tail": [], "decode": []}, "checked": {}, "held": {}, "orig": {}}
+                "601", "--temperature", "0"] + list(extra_argv)
+        st = {"times": {"chunk": [], "tail": [], "decode": []}, "checked": {}, "held": {}, "orig": {}, "imported": {}}
 
         def copy_to(t, where):
             """A copy of a cache tree (dicts of tensors and ints) on ``where``."""
@@ -1848,8 +2136,10 @@ def main():
             for key in blocks["kernels"]:
                 close(f"layer 0 {key} (256-token chunk from zero state, then one decode token) kernels vs plain"
                       if "shared" not in key else "shared attention+FFN block (256 tokens, flash vs dense) "
-                      "kernels vs plain", blocks["kernels"][key], blocks["plain"][key], TOL["bfloat16"])
+                      "kernels vs plain", blocks["kernels"][key], blocks["plain"][key], block_tol(scheme))
             del blocks, x
+            if eng.kv_quant == "int8" and c.is_hybrid:
+                check_first_import(eng, st["imported"])
             plain_steps = {"_prefill_fwd": tf_model.decode_step_fn(c), "_decode": tf_model.paged_decode_step_fn(c)}
             c32 = dataclasses.replace(c, param_dtype="float32", compute_dtype="float32", matmul_backend="torch")
             f32_steps = {"_prefill_fwd": tf_model.decode_step_fn(c32), "_decode": tf_model.paged_decode_step_fn(c32)}
@@ -1888,8 +2178,9 @@ def main():
                             raise AssertionError(f"{arch} full width: the captured {kind} call differs from the eager "
                                                  f"step")
                         del eager
+                        cap = {"vocab": c.padded_vocab}
                         with plain_backends(), torch.no_grad():
-                            with block_tape(tf_model, "replay", tape):
+                            with block_tape(tf_model, "replay", tape), plain_backends(cap):
                                 forced = plain_steps[_attr](a[0], copy_to(inputs, dev), *dev_args(a))[0][..., :v].float()
                             free = plain_steps[_attr](a[0], copy_to(inputs, dev), *dev_args(a))[0][..., :v].float()
                         with torch.no_grad():
@@ -1899,6 +2190,7 @@ def main():
                             raise AssertionError(f"{arch}: the plain run took other blocks than the kernels' run")
                         st["checked"][kind] = dict(
                             got=out[0][..., :v].float().clone(), forced=forced, free=free, f32=f32,
+                            head_x=cap.get("head_x"),
                             blocks=[((ok - op).abs().max() / op.abs().max().clamp(min=1.0)).item()
                                     for (_, ok), (_, op) in zip(tape["record"], tape["replay"])])
                         del inputs, forced, free, f32, tape
@@ -1921,9 +2213,10 @@ def main():
         c = server.engine.cfg
         assert (c.n_layers, c.d_model, c.vocab_size) == dims
         n_chunk, n_tail, n_decode = (len(times[k]) for k in ("chunk", "tail", "decode"))
-        n_params = sum(t.numel() for t in tree.leaves(server.params))
+        n_params, weights_gib = weight_stats(server.params)
         plens = [len(r.prompt) for r in reqs]
-        log(f"  {n_params} parameters ({st['allocated_after_init_gib']:.2f} GiB allocated after init, init peak "
+        log(f"  {n_params} parameters, {weights_gib:.3f} GiB of weights ({st['allocated_after_init_gib']:.2f} GiB "
+            f"allocated after init, init peak "
             f"{st['init_peak_gib']:.2f} GiB); prompts {plens}: {n_chunk} prefill chunks, {n_tail} single-token "
             f"forwards of the prefill tail, {n_decode} decode steps, wall {wall:.2f} s")
         if sorted(results) != [0, 1, 2, 3] or any(not v for v in results.values()):
@@ -1934,14 +2227,21 @@ def main():
         if n_decode != server.last_stats["decode_steps"]:
             raise AssertionError(f"{arch} full width: decode steps disagree with the engine's stats")
         n_fwd = n_chunk + n_tail + n_decode
-        want = {"dip_matmul": per_forward * n_fwd, "dip_matmul_q": 0, "dip_systolic": 0,
-                "flash_attention": flash_per_call * (n_chunk + n_tail), "lm_head_ce": 0}
+        if dip_per_forward(c) != per_forward:
+            raise AssertionError(f"{arch}: the template gives {dip_per_forward(c)} DiP launches per forward, not "
+                                 f"{per_forward}")
+        other = {"dip_systolic": 0, "flash_attention": flash_per_call * (n_chunk + n_tail), "lm_head_ce": 0}
+        want = dict(other, dip_matmul=per_forward * n_fwd, dip_matmul_q=0)
+        q_tc = q_quant = 0
+        if scheme is not None:
+            q_tc, q_quant = check_quantized_launches(f"{arch} {scheme}", scheme, launches, per_forward, n_fwd, other)
+            want = dict(other, dip_matmul=0, dip_matmul_q=per_forward * n_fwd)
         # flash: the chunks (Sq = 256) on the tensor cores unsplit, the tail's
         # single tokens on split_kv, none on the CUDA cores
         want_routes = {"tensor_cores": flash_per_call * n_chunk, "split_kv": flash_per_call * n_tail,
                        "cuda_cores": 0}
         log(f"  launches {launches}, flash by route {routes}; expected {want}, flash {want_routes} (replays "
-            f"counted): {launches['dip_matmul'] / n_fwd:g} dip_matmul launches per forward, "
+            f"counted): {(launches['dip_matmul'] + launches['dip_matmul_q']) / n_fwd:g} DiP launches per forward, "
             f"{launches['flash_attention'] / max(1, n_chunk + n_tail):g} flash launches per prefill call")
         if launches != want or routes != want_routes:
             raise AssertionError(f"{arch} full width: launch counts differ from {per_forward} DiP launches per "
@@ -1958,6 +2258,8 @@ def main():
                 attn_bytes != kv_bytes * server.engine.kv.num_blocks if c.is_hybrid else attn_bytes != 0):
             raise AssertionError(f"{arch} full width: the pools do not cost {kv_bytes_want} bytes per block and "
                                  f"{slot_bytes_want} per slot")
+        if server.engine.kv_quant == "int8" and c.is_hybrid and set(st["imported"]) != {"k", "v"}:
+            raise AssertionError(f"{arch} full width: the int8 shared-attention rows of an import were never checked")
         # gate 2: the first prefill chunk's and decode step's logits against
         # the plain versions on the card on the same inputs.  Two bf16 runs
         # of these random-weight SSM stacks drift apart block by block (each
@@ -1974,6 +2276,11 @@ def main():
             got, forced = r["got"], r["forced"]
             scale = max(1.0, forced.abs().max().item())
             err = (got - forced).abs()
+            # under int8 with a quantized head, one activation-code step of
+            # every lm_head input more (as in 5b; a tied head is float)
+            lim = FULL_TOL * scale
+            if scheme == "int8" and "lm_head" in server.params:
+                lim = lim + head_step(server.params["lm_head"], r["head_x"], c.vocab_size).reshape(got.shape)
             within = float((err <= TOL["bfloat16"] * scale).float().mean())
             worst_block = max(r["blocks"])
             free_err = (got - r["free"]).abs().max().item()
@@ -1985,7 +2292,7 @@ def main():
                 f"{sum(b <= TOL['bfloat16'] for b in r['blocks'])} within {TOL['bfloat16']:g}; running freely: "
                 f"logits max|kernels - plain| {free_err:.3e}, max|kernels - f32| {k32:.3e}, max|plain - f32| "
                 f"{p32:.3e} (bound {F32_DRIFT:g} x the plain run's)")
-            if not bool((err <= FULL_TOL * scale).all()) or worst_block > FULL_TOL:
+            if not bool((err <= lim).all()) or worst_block > FULL_TOL:
                 raise AssertionError(f"{arch} full width: {kind} logits or a block outside the stated bound")
             if k32 > F32_DRIFT * p32:
                 raise AssertionError(f"{arch} full width: the kernels' {kind} logits drift from the f32 run more "
@@ -2007,14 +2314,17 @@ def main():
             "peak_memory_gib": peak / 2**30, "peak_reserved_gib": peak_reserved / 2**30,
             "graph_pool_gib": graph_pool_gib(st["orig"]["_prefill_fwd"], st["orig"]["_decode"]),
             "kv_bytes_per_block": kv_bytes, "state_bytes_per_slot": slot_bytes,
-            "parameters": n_params, "checked": checked, "wall_s": wall, "prefill_chunks": n_chunk,
+            "parameters": n_params, "weights_gib": weights_gib, "dip_launches_per_forward": per_forward,
+            "dip_matmul_q_tensor_core_launches": q_tc, "dip_matmul_q_quantizing_passes": q_quant,
+            "int8_import_rows": st["imported"], "checked": checked, "wall_s": wall, "prefill_chunks": n_chunk,
             "decode_steps": n_decode,
         }
         log(f"  results: { {k: v[:6] for k, v in results.items()} }")
         # the last decode step, chunk and tail token replayed against the
         # eager step; and the prompts' whole tails as the engine ran them
+        tag = arch if scheme is None else f"{arch} {scheme}"
         serving["graphs"] = {
-            kind: graph_check(f"{arch} {what}", st["orig"][attr], st["eager"][attr], st["held"][kind], c.vocab_size)
+            kind: graph_check(f"{tag} {what}", st["orig"][attr], st["eager"][attr], st["held"][kind], c.vocab_size)
             for kind, attr, what in (("decode", "_decode", "decode step"), ("chunk", "_prefill_fwd", "prefill chunk"),
                                      ("tail", "_prefill_fwd", "single-token forward of the prefill tail"))}
         tail_capture = st["orig"]["_prefill_fwd"].captures[((1, 1),)]["seconds"]
@@ -2047,6 +2357,18 @@ def main():
     launches_mb, routes_mb, mb_serving = serve_ssm(
         "5f", "mamba2-370m", 48 * 2, 0, 0, 48 * (3 * 2304 * 2 + 32 * 64 * 128 * 4), (48, 1024, 50280))
     routes_by_path.update(serve_zamba2=routes_zb, serve_mamba2=routes_mb)
+    log("phase 5h: zamba2-2.7b full width, bf16 compute, --quantize int8 --kv-quant int8 (its projections and the "
+        "shared block int8, the SSM scalars, conv and norms bf16), through launch.serve")
+    # KV: 9 instances x 16 tokens x (k, v) x 32 heads x (80 int8 codes + one f32 scale); the state unchanged
+    launches_zbq, routes_zbq, zbq_serving = serve_ssm(
+        "5h", "zamba2-2.7b", 54 * 2 + 9 * 6 + 1, 9, 9 * 16 * (2 * 32 * 80 + 2 * 32 * 4),
+        54 * (3 * 5248 * 2 + 80 * 64 * 64 * 4), (54, 2560, 32000), ["--quantize", "int8", "--kv-quant", "int8"], "int8")
+    log("phase 5h: mamba2-370m full width, bf16 compute, --quantize int8 (in_proj and out_proj int8, the tied head "
+        "the bf16 embedding), through launch.serve")
+    launches_mbq, routes_mbq, mbq_serving = serve_ssm(
+        "5h", "mamba2-370m", 48 * 2, 0, 0, 48 * (3 * 2304 * 2 + 32 * 64 * 128 * 4), (48, 1024, 50280),
+        ["--quantize", "int8"], "int8")
+    routes_by_path.update(serve_zamba2_int8=routes_zbq, serve_mamba2_int8=routes_mbq)
 
     # ------------------------------------------- 6. full-width training -----
     log("phase 6: llama3-8b full width cut to 4 layers (f32 params, bf16 compute, dip, block remat) "
@@ -2559,6 +2881,82 @@ def main():
             log("  " + json.dumps(row))
             del x, p, eops, wn
 
+    # the quantized families' projections (phases 5g, 5h; fp8 at full width
+    # is held in phase 2 only), bf16 x as served: DeepSeek's at M = 4 and
+    # 256, Zamba2's and Mamba2's also at M = 1 (the prefill tail).  The
+    # kernel at the storage width (in_proj's padded last tile); the bound
+    # and the library calls at the logical width: the weights read once
+    # (one byte each and an f32 scale a column), x read and the output
+    # written; the library call torch._int_mm of the int8 codes (int8) or
+    # torch.matmul by the bf16-upcast weight and the scales (fp8), and for
+    # int8 the whole function in library calls beside it.  Launches per
+    # forward: how often the path's forward runs the projection
+    per_fwd = {"deepseek wq": 27, "deepseek w_dkv": 27, "deepseek w_krope": 27, "deepseek wo": 27,
+               "deepseek shared gate+up": 27, "deepseek shared down": 27, "deepseek lm_head": 1,
+               "zamba2 in_proj": 54, "zamba2 out_proj": 54, "zamba2 wq": 27, "zamba2 wo": 9, "zamba2 gate+up": 9,
+               "zamba2 down": 9, "zamba2 lm_head": 1, "mamba2 in_proj": 48, "mamba2 out_proj": 48}
+    qfam_rows = []
+    for label, k, n, e, pr in ds_proj + ssm_proj:
+        s = epi.spec(e)
+        nw = 2 if s.dual_weight else 1
+        for scheme in ("int8", "fp8_e4m3"):
+            qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, scheme)
+                   for _ in range(nw)]
+            ns = qws[0].data.shape[1]
+            eq = (qws[1].data, qws[1].scale) if s.dual_weight else ()
+            scales = [q.scale[:, :n].float() for q in qws]
+            if scheme == "int8":
+                nat = [int_mm_operand(permute.unpermute_tiled(q.data, 64)[:, :n].contiguous()) for q in qws]
+            else:
+                nat = [permute.unpermute_tiled(q.data, 64)[:, :n].to(torch.bfloat16).contiguous() for q in qws]
+            for m in ((4, 256) if label.startswith("deepseek") else (1, 4, 256)):
+                x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+                gain = torch.rand(k, generator=g, device=dev) + 0.5 if pr == "rmsnorm" else None
+                pops = () if gain is None else (gain,)
+                res = (torch.randn(m, ns, generator=g, device=dev).to(torch.bfloat16),) if s.residual else ()
+                kw = dict(epilogue=e, prologue=pr, prologue_operands=pops)
+                pad_note = " (torch._int_mm rows zero-padded to 32)" if m <= 16 else ""
+
+                def finish(z):  # the epilogue on the f32 products, one cast
+                    out = F.silu(z[0]) * z[1] if s.dual_weight else z[0] + res[0][:, :n].float() if s.residual else z[0]
+                    return out.to(torch.bfloat16)
+
+                if scheme == "int8":
+                    xq, _ = quantize_acts_int8(pro.apply(pr, x, *pops))
+                    library = lambda: [int_mm(xq, w) for w in nat]  # noqa: E731
+                    lib_name = "torch._int_mm of the int8 codes on natural storage, per weight" + pad_note
+
+                    def library_function():  # the kernel's whole function
+                        codes, x_scale = quantize_acts_int8(pro.apply(pr, x, *pops))
+                        return finish([int_mm(codes, w)[:m].float() * x_scale * sc for w, sc in zip(nat, scales)])
+                else:
+                    def library():  # the kernel's whole function
+                        xx = pro.apply(pr, x, *pops)
+                        return finish([torch.matmul(xx, w).float() * sc for w, sc in zip(nat, scales)])
+                    lib_name = (("rmsnorm, " if pr == "rmsnorm" else "") + "torch.matmul by the bf16-upcast natural "
+                                "weight, per-channel scales, the epilogue: the kernel's whole function")
+                nbytes = 2 * m * k + nw * (k * n + 4 * n) + 2 * m * n * (2 if s.residual else 1)
+                nbytes += 4 * (k + m) if gain is not None else 0
+                b_ms, b_by = bound_ms(nbytes, 2 * m * k * n * nw, "int8" if scheme == "int8" else "bfloat16")
+                pl = matmul_plan(m, ns, k, s.dual_weight, sms, weight_bytes=1)
+                row = dict(kernel="dip_matmul_q_int8" if scheme == "int8" else "dip_matmul_q_fp8", dtype="bfloat16",
+                           shape=f"M={m} {label} K={k} N={n} (storage {ns}) {e}/{pr}",
+                           plan=f"{pl.regime} {pl.bm}x{pl.bn}, {pl.splits} split(s), {pl.blocks} blocks",
+                           launches_per_forward=per_fwd[label],
+                           ms=time_ms(lambda: dip_matmul_q(x, qws[0].data, qws[0].scale, *eq, *res, **kw)),
+                           plain_ms=time_ms(lambda: dip_matmul_q_plain(x, qws[0].data, qws[0].scale, *eq, *res, **kw)),
+                           library_ms=time_ms(library), library=lib_name, bound_ms=b_ms, bound_by=b_by)
+                if scheme == "int8":
+                    row.update(library_function_ms=time_ms(library_function),
+                               library_function=("rmsnorm, " if pr == "rmsnorm" else "") + "quantize_acts_int8, "
+                               "torch._int_mm per weight, the scales, the epilogue: the kernel's whole function"
+                               + pad_note)
+                rows_out.append(row)
+                qfam_rows.append(row)
+                log("  " + json.dumps(row))
+                del x, res
+            del qws, nat, eq
+
     # no call can beat the least time the card needs for its work: a row
     # under its bound means a wrong bound or a wrong timing
     under = [f"{r['kernel']} {r['dtype']} {r['shape']}: {r['ms']:.4f} < {r['bound_ms']:.4f} ms"
@@ -2588,10 +2986,16 @@ def main():
     # each kernel's launches on each main path, counted from 0 around it
     paths = {"serve": serve_launches, "train": train_launches, "serve_int8": qserve["int8"]["launches"],
              "serve_fp8": qserve["fp8_e4m3"]["launches"], "serve_systolic": launches_s,
-             "serve_deepseek": launches_ds, "serve_zamba2": launches_zb, "serve_mamba2": launches_mb}
+             "serve_deepseek": launches_ds, "serve_zamba2": launches_zb, "serve_mamba2": launches_mb,
+             "serve_deepseek_int8": launches_dsq, "serve_zamba2_int8": launches_zbq,
+             "serve_mamba2_int8": launches_mbq}
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
+    for pth, served in (("serve_deepseek_int8", dsq_serving), ("serve_zamba2_int8", zbq_serving),
+                        ("serve_mamba2_int8", mbq_serving)):
+        paths[pth]["quantize_pass"] = served["dip_matmul_q_quantizing_passes"]
+    int8_paths = ("serve_int8", "serve_deepseek_int8", "serve_zamba2_int8", "serve_mamba2_int8")
     counter_of = {"dip_matmul_q_int8": "dip_matmul_q", "dip_matmul_q_fp8": "dip_matmul_q"}
-    path_of = {"dip_matmul_q_int8": ("serve_int8",), "dip_matmul_q_fp8": ("serve_fp8",), "quantize_pass": ("serve_int8",)}
+    path_of = {"dip_matmul_q_int8": int8_paths, "dip_matmul_q_fp8": ("serve_fp8",), "quantize_pass": int8_paths}
     kernels = []
     for name in pick:
         row = next(r for r in rows_out if r["kernel"] == name and r["dtype"] == pick[name][0]
@@ -2621,7 +3025,14 @@ def main():
                                               and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
     for name, scheme in (("dip_matmul_q_fp8", "fp8_e4m3"), ("dip_matmul_q_int8", "int8")):
         line = next(kk for kk in kernels if kk["name"] == name)
-        line["launches_tensor_cores"] = qserve[scheme]["dip_matmul_q_tensor_core_launches"]
+        line["launches_tensor_cores"] = qserve[scheme]["dip_matmul_q_tensor_core_launches"] + (
+            sum(sv["dip_matmul_q_tensor_core_launches"] for sv in (dsq_serving, zbq_serving, mbq_serving))
+            if scheme == "int8" else 0)
+        # the quantized families' shapes (phase 7 above)
+        line["quantized_family_shapes"] = [
+            {key: r[key] for key in ("shape", "plan", "launches_per_forward", "ms", "plain_ms", "library_ms",
+                                     "library_function_ms", "bound_ms", "bound_by") if key in r}
+            for r in qfam_rows if r["kernel"] == name]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

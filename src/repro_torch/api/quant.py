@@ -16,9 +16,13 @@ any other backend receives it dequantized at the activation dtype.
 Every quantizer divides by the scale (never multiplies by its reciprocal),
 rounds half to even (``torch.round``, as ``jnp.round``) and clips integer
 codes to +-127, so the same float32 input gives the same bytes as the
-reference.  fp8 codes are the dtype cast itself: the scale maps amax onto
-448, the format's largest normal, so no value leaves the range (where
-``ml_dtypes`` would give NaN and torch saturates).
+reference.  The scale is amax divided by ``qmax`` held as a tensor on the
+input's device: torch's CUDA division by a Python scalar multiplies by its
+rounded reciprocal, which moves some scales by one ulp (and their codes with
+them) off the IEEE quotient, so a pool written on the card would differ from
+the same rows quantized on the CPU.  fp8 codes are the dtype cast itself:
+the scale maps amax onto 448, the format's largest normal, so no value
+leaves the range (where ``ml_dtypes`` would give NaN and torch saturates).
 
 The reference's ``plan`` (sharding, ROADMAP.md Queue 1 "Distributed") and
 ``checksum`` (ABFT, Queue 1 "Reliability") fields are not ported; passing
@@ -145,6 +149,11 @@ class QuantizedDipWeight:
                 f"d_in={self.d_in}, d_out={self.d_out}, perm_tile={self.perm_tile})")
 
 
+def _scale(amax: torch.Tensor, info: QuantScheme) -> torch.Tensor:
+    """``max(amax, floor) / qmax``, an IEEE quotient on every device."""
+    return torch.clamp(amax, min=_AMAX_FLOOR) / torch.full_like(amax, info.qmax)
+
+
 def _codes(x32: torch.Tensor, scale: torch.Tensor, info: QuantScheme) -> torch.Tensor:
     if info.is_integer:
         return torch.clamp(torch.round(x32 / scale), -info.qmax, info.qmax).to(info.storage_dtype)
@@ -175,7 +184,7 @@ def quantize(w: Union[torch.Tensor, DipWeight, QuantizedDipWeight], scheme: str 
     d_in, d_out = int(wn.shape[-2]), int(wn.shape[-1])
     w32 = wn.float()
     amax = torch.amax(torch.abs(w32), dim=-2, keepdim=True)          # (..., 1, d_out)
-    scale = torch.clamp(amax, min=_AMAX_FLOOR) / info.qmax
+    scale = _scale(amax, info)
     storage = permute.permute_tiled(_codes(w32, scale, info), perm_tile)
     scale_p = F.pad(scale, (0, storage.shape[-1] - d_out), value=1.0)
     return QuantizedDipWeight(storage, scale_p, d_in, d_out, perm_tile, scheme)
@@ -199,7 +208,7 @@ def quantize_rows(x: torch.Tensor, scheme: str = "int8") -> Tuple[torch.Tensor, 
     info = scheme_info(scheme)
     x32 = x.float()
     amax = torch.amax(torch.abs(x32), dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=_AMAX_FLOOR) / info.qmax
+    scale = _scale(amax, info)
     return _codes(x32, scale, info), scale
 
 

@@ -30,9 +30,7 @@ another scheme raises; any other backend receives the weight dequantized at
 the activation dtype (how the ``torch`` backend serves a quantized model).
 The quantized dispatch pads x's K to the storage and crops the output; the
 storage is already padded to the 64-tile grid with padding columns at scale
-1.0 (``quant.quantize``).  It is forward-only here: an input that needs a
-gradient raises, since the reference's straight-through backward is not
-ported (ROADMAP.md Queue 1 "Quantization").
+1.0 (``quant.quantize``).
 
 Tiled backends share one shim: x is flattened to (M, K) and its K padded to
 the weight's 64-padded storage, the gain row and bias row are padded with
@@ -51,10 +49,15 @@ f32 with torch autograd through :func:`fused_recompute`, and returns the x,
 gain and bias/residual cotangents and the weight cotangent re-permuted with
 ``permute_tiled`` (the permutation is orthogonal, so
 ``d/dP f(unperm(P)) = perm(d/dW f(W))``) and cast to the storage dtype.
-The ``torch`` backend keeps plain autograd.
+The ``torch`` backend keeps plain autograd.  The ``dip_q`` backends go
+through :class:`QuantizedDispatch` (the reference's
+``_build_quantized_caller``): its forward launches the quantized kernel, and
+its backward is straight-through: the same f32 recompute against the
+dequantized, de-sheared weight ``unpermute_tiled(q) * scale``, giving the x,
+gain and bias/residual cotangents; the storage and its scales are frozen
+calibration artifacts and take none (the reference's float0 and zeros).
 
-Not ported yet: the quantized straight-through backward (ROADMAP.md Queue
-1 "Quantization"), sharded plans (Queue 1 "Distributed"), ABFT verification
+Not ported yet: sharded plans (ROADMAP.md Queue 1 "Distributed"), ABFT verification
 (Queue 1 "Reliability") and the block-size tuning table (Queue 1 "Tooling";
 the kernel's tile is fixed at 64).
 """
@@ -88,6 +91,7 @@ __all__ = [
     "matmul",
     "fused_recompute",
     "FusedDispatch",
+    "QuantizedDispatch",
 ]
 
 DEFAULT_BACKEND = "torch"
@@ -248,12 +252,45 @@ class FusedDispatch(torch.autograd.Function):
         return (None,) * 5 + tuple(d.to(t.dtype) for d, t in zip(grads, saved))
 
 
+class QuantizedDispatch(torch.autograd.Function):
+    """One padded 2-D launch of a ``dip_q`` backend with the straight-through
+    backward.  ``tensors`` is ``(x2, q0, s0, [q1, s1,] *pops, *eops)``: the
+    quantized storages with their scales (two pairs for ``swiglu``), the
+    padded gain row and the padded bias row or residual block."""
+
+    @staticmethod
+    def forward(ctx, fn, opts, n_w, n_p, *tensors):
+        epilogue, prologue, k_true, eps = opts
+        x2, qs = tensors[0], tensors[1:1 + 2 * n_w]
+        pops, eops = tensors[1 + 2 * n_w:1 + 2 * n_w + n_p], tensors[1 + 2 * n_w + n_p:]
+        ctx.save_for_backward(*tensors)
+        ctx.meta = (opts, n_w, n_p)
+        return fn(x2, *qs, *eops, epilogue=epilogue, prologue=prologue, prologue_operands=pops,
+                  prologue_k=k_true, prologue_eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        (epilogue, prologue, k_true, eps), n_w, n_p = ctx.meta
+        saved = ctx.saved_tensors
+        x2, qs = saved[0], saved[1:1 + 2 * n_w]
+        pops, eops = saved[1 + 2 * n_w:1 + 2 * n_w + n_p], saved[1 + 2 * n_w + n_p:]
+        wns32 = [permute.unpermute_tiled(q.float(), PERM_TILE) * sc.float() for q, sc in zip(qs[::2], qs[1::2])]
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_() for t in (x2,) + pops + eops]
+            out = fused_recompute(prologue, epilogue, k_true, eps, leaves[0], leaves[1:1 + n_p], wns32,
+                                  leaves[1 + n_p:])
+            grads = torch.autograd.grad(out, leaves, g.float())
+        dx, dpops, deops = grads[0], grads[1:1 + n_p], grads[1 + n_p:]
+        return ((None,) * 4 + (dx.to(x2.dtype),) + (None,) * (2 * n_w)
+                + tuple(d.to(t.dtype) for d, t in zip(dpops + deops, pops + eops)))
+
+
 def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, pro_operands, eps, scales=()):
     """One padded 2-D launch: x flattened to (M, Kp), the gain and bias rows
     and the residual padded to the storage ``ws`` (two for ``swiglu``), the
     output cropped to ``out_cols``.  ``dip_q`` backends take the storages'
-    ``scales`` and run forward only; the others go through
-    :class:`FusedDispatch`."""
+    ``scales`` and go through :class:`QuantizedDispatch`; the others
+    through :class:`FusedDispatch`."""
     lead = tuple(x.shape[:-1])
     kp, np_ = ws[0].shape
     x2 = x.reshape(-1, x.shape[-1])
@@ -273,13 +310,9 @@ def _tiled_dispatch(be, x, ws, out_cols, k_true, epilogue, operands, prologue, p
         r = operands[0].reshape(-1, out_cols)
         eops = (_pad_last2(r, r.shape[0], np_).contiguous(),)
     if be.layout == "dip_q":
-        if torch.is_grad_enabled() and any(t.requires_grad for t in (x2,) + pops + eops):
-            raise NotImplementedError(
-                f"backend {be.name!r} is forward-only here: the quantized straight-through backward "
-                'is not ported yet (ROADMAP.md Queue 1 "Quantization")')
-        pairs = tuple(t for w, sc in zip(ws[1:], scales[1:]) for t in (w, sc))
-        out = be.fn(x2, ws[0], scales[0], *pairs, *eops, epilogue=epilogue, prologue=prologue,
-                    prologue_operands=pops, prologue_k=k_true, prologue_eps=eps)
+        pairs = tuple(t for w, sc in zip(ws, scales) for t in (w, sc))
+        out = QuantizedDispatch.apply(be.fn, (epilogue, prologue, k_true, eps), len(ws), len(pops),
+                                      x2, *pairs, *pops, *eops)
     else:
         out = FusedDispatch.apply(be.fn, be.layout, (epilogue, prologue, k_true, eps), len(ws), len(pops),
                                   x2, *ws, *pops, *eops)

@@ -1,11 +1,15 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
-The dense ``llama3-8b``, the two MoE configurations (``deepseek-v2-lite-16b``
-with multi-head latent attention, ``qwen3-moe-235b-a22b`` with GQA), the
-attention-free ``mamba2-370m`` (tied embeddings) and the hybrid
-``zamba2-2.7b`` (Mamba2 blocks and one shared attention+FFN block) are
-ported; the other five come with their families (ROADMAP.md Queue 1 "Other
-model families").
+Every configuration of the reference resolves here with the same fields.
+The port serves the dense ``llama3-8b``, ``yi-9b``, ``codeqwen1.5-7b`` (QKV
+bias, full MHA) and ``qwen2-72b`` (144 GB in bf16: ``reduced()`` only on one
+card), the two MoE configurations (``deepseek-v2-lite-16b`` with multi-head
+latent attention, ``qwen3-moe-235b-a22b`` with GQA), the attention-free
+``mamba2-370m`` (tied embeddings) and the hybrid ``zamba2-2.7b`` (Mamba2
+blocks and one shared attention+FFN block).  ``phi-3-vision-4.2b`` and
+``musicgen-medium`` resolve too, but their stub frontends are not served
+yet (ROADMAP.md Queue 1 "Other model families"; ``models/transformer.py``
+refuses them).
 """
 
 from __future__ import annotations
@@ -13,16 +17,33 @@ from __future__ import annotations
 import importlib
 from typing import Dict, List
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import SHAPE_CELLS, ArchConfig, ShapeCell
+from repro_torch.configs.shapes import MatmulShape, linear_dims, matmul_shapes
 
-ALL_ARCHS: List[str] = ["deepseek_v2_lite_16b", "qwen3_moe_235b_a22b", "llama3_8b", "mamba2_370m",
-                        "zamba2_2_7b"]
+ALL_ARCHS: List[str] = [
+    "deepseek_v2_lite_16b",
+    "qwen3_moe_235b_a22b",
+    "mamba2_370m",
+    "llama3_8b",
+    "codeqwen15_7b",
+    "yi_9b",
+    "qwen2_72b",
+    "phi3_vision_4_2b",
+    "musicgen_medium",
+    "zamba2_2_7b",
+]
 
+# assignment ids (with dashes/dots) -> module names
 _ALIASES: Dict[str, str] = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
-    "llama3-8b": "llama3_8b",
     "mamba2-370m": "mamba2_370m",
+    "llama3-8b": "llama3_8b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "yi-9b": "yi_9b",
+    "qwen2-72b": "qwen2_72b",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
+    "musicgen-medium": "musicgen_medium",
     "zamba2-2.7b": "zamba2_2_7b",
 }
 
@@ -30,11 +51,23 @@ _ALIASES: Dict[str, str] = {
 def get_config(name: str) -> ArchConfig:
     mod_name = _ALIASES.get(name, name.replace("-", "_").replace(".", "_"))
     if mod_name not in ALL_ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ported: {ALL_ARCHS}; "
-            'the other families come with ROADMAP.md Queue 1 "Other model families")'
-        )
+        raise KeyError(f"unknown architecture {name!r}; registered: {sorted(_ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}").CONFIG
 
 
-__all__ = ["ALL_ARCHS", "ArchConfig", "get_config"]
+def shape_cells_for(cfg: ArchConfig) -> List[ShapeCell]:
+    """The assigned shape set, honouring the long_500k sub-quadratic gate."""
+    return [cell for cell in SHAPE_CELLS if cell.name != "long_500k" or cfg.sub_quadratic]
+
+
+__all__ = [
+    "ALL_ARCHS",
+    "ArchConfig",
+    "ShapeCell",
+    "SHAPE_CELLS",
+    "MatmulShape",
+    "get_config",
+    "shape_cells_for",
+    "linear_dims",
+    "matmul_shapes",
+]

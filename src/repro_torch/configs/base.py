@@ -12,9 +12,9 @@ resolves ``xla``, ``pallas_dip`` and ``pallas_systolic`` to its ``torch``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
-__all__ = ["ArchConfig"]
+__all__ = ["ArchConfig", "ShapeCell", "SHAPE_CELLS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,3 +228,21 @@ class ArchConfig:
             small["attn_every"] = 2
         small.update(overrides)
         return dataclasses.replace(self, **small)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell: what gets lowered in the dry-run."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPE_CELLS: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)

@@ -13,7 +13,9 @@ dropped); any other with ``data`` (numpy storage, kept permutated),
 
 Every family's tree converts leaf by leaf the same way: the SSM scalars and
 norms as tensors, ``in_proj`` / ``out_proj`` as ``DipWeight``, the hybrid's
-``shared_attn`` subtree, and a tied model's tree without ``lm_head``.
+``shared_attn`` subtree, and a tied model's tree without ``lm_head``; a
+quantized tree of any family the same, its layer-stacked int8 or fp8
+projections as ``QuantizedDipWeight`` with their stacked scales.
 
 ``opt_state_from_jax(np_opt_state, device)`` converts the reference's AdamW
 state the same way (moments leaf by leaf, ``count`` as an int), so that one

@@ -8,9 +8,11 @@ rotated **up** by ``i`` positions (wrap-around)::
 
 ``permute_tiled`` / ``unpermute_tiled`` apply that to each block of a
 (possibly batched) matrix, zero-padding ragged edges up to the tile grid and
-returning the PADDED storage, exactly as the reference does.  The numpy
-index helpers and the literal pseudocode transcriptions are copied from the
-reference unchanged.
+returning the PADDED storage, exactly as the reference does.
+``permute_weights`` / ``unpermute_weights`` rotate whole (R, C) matrices
+(modulo R, no tiling), and ``rotate_rows_left`` is the diagonal input
+movement of the array.  The numpy index helpers and the literal pseudocode
+transcriptions are copied from the reference unchanged.
 """
 
 from __future__ import annotations
@@ -22,11 +24,16 @@ import torch.nn.functional as F
 __all__ = [
     "permutation_indices",
     "inverse_permutation_indices",
+    "permute_weights",
+    "unpermute_weights",
     "permute_weights_np",
     "unpermute_weights_np",
     "permute_tiled",
     "unpermute_tiled",
+    "rotate_rows_left",
 ]
+
+_BYTE_VIEWED = (torch.float8_e4m3fn, torch.float8_e5m2)
 
 
 def permutation_indices(rows: int, cols: int) -> np.ndarray:
@@ -41,6 +48,25 @@ def inverse_permutation_indices(rows: int, cols: int) -> np.ndarray:
     k = np.arange(rows)[:, None]
     i = np.arange(cols)[None, :]
     return ((k - i) % rows).astype(np.int32)
+
+
+def _row_gather(w: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """``out[..., j, i] = w[..., idx[j, i], i]`` over the trailing two dims
+    (leading dims untouched)."""
+    if w.dtype in _BYTE_VIEWED:  # torch's gather has no float8 kernel: move the bytes
+        return _row_gather(w.view(torch.uint8), idx).view(w.dtype)
+    index = torch.as_tensor(idx, dtype=torch.int64, device=w.device).expand(w.shape)
+    return torch.gather(w, -2, index)
+
+
+def permute_weights(w: torch.Tensor) -> torch.Tensor:
+    """DiP-permute the trailing two dims of ``w`` (paper Fig. 3 pseudocode)."""
+    return _row_gather(w, permutation_indices(w.shape[-2], w.shape[-1]))
+
+
+def unpermute_weights(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`permute_weights`."""
+    return _row_gather(p, inverse_permutation_indices(p.shape[-2], p.shape[-1]))
 
 
 def permute_weights_np(w: np.ndarray) -> np.ndarray:
@@ -62,7 +88,6 @@ def unpermute_weights_np(p: np.ndarray) -> np.ndarray:
     return out
 
 
-_BYTE_VIEWED = (torch.float8_e4m3fn, torch.float8_e5m2)
 _INDEX = {}
 
 
@@ -106,3 +131,10 @@ def permute_tiled(w: torch.Tensor, tile: int = 64) -> torch.Tensor:
 def unpermute_tiled(p: torch.Tensor, tile: int = 64) -> torch.Tensor:
     """Inverse of :func:`permute_tiled` (still padded to the tile grid)."""
     return _permute_tiled_impl(p, tile, True)
+
+
+def rotate_rows_left(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """Rotate the trailing axis left by ``shift`` (diagonal input movement):
+    an input row hops from PE row ``r`` to ``r + 1`` rotated left by one
+    (paper Fig. 2a / Fig. 4a)."""
+    return torch.roll(x, -shift, dims=-1)

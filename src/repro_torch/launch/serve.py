@@ -13,12 +13,19 @@ with f32 scales.  ``--device cpu`` runs the plain PyTorch versions instead::
 
     python -m repro_torch.launch.serve --arch llama3-8b --full --quantize int8 --kv-quant int8
 
-The MoE, SSM and hybrid configurations serve the same way, in bf16 (their
-quantized serving comes with ROADMAP.md Queue 1 "Quantization")::
+The MoE, SSM and hybrid configurations serve the same way, in bf16 or
+quantized: their DiP projections go through the quantized kernel, while the
+MoE router and expert banks, the SSM scalars and the tied head stay float
+(only DiP-stored weights are quantized, as in the reference).  ``--kv-quant
+int8`` pages MLA's latent rows with one scale per token and the hybrid's
+shared-attention K/V per (token, head); a pure SSM model pages nothing, so
+it changes nothing there.  ``qwen3-moe-235b-a22b`` serves at ``--reduced``
+only::
 
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full
-    python -m repro_torch.launch.serve --arch zamba2-2.7b --full
-    python -m repro_torch.launch.serve --arch mamba2-370m --full
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full --quantize int8 --kv-quant int8
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --full --quantize int8 --kv-quant int8
+    python -m repro_torch.launch.serve --arch mamba2-370m --full --quantize fp8_e4m3
 """
 
 from __future__ import annotations
@@ -70,9 +77,6 @@ def main(argv=None, on_server=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
-    if (cfg.is_moe or cfg.use_mla or cfg.ssm_state) and (args.quantize or args.kv_quant not in (None, "none")):
-        raise NotImplementedError(f"{cfg.name}: --quantize / --kv-quant on the MoE, MLA, SSM and hybrid families "
-                                  'are not ported yet (ROADMAP.md Queue 1 "Quantization")')
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, matmul_backend="dip", param_dtype=args.dtype,

@@ -17,8 +17,8 @@ single shared RoPE key ``k_rope`` per token, with no head axis: without a
 cache it computes the naive form (per-head K and V expanded from the
 latent, through ``attention_core``), with one the absorbed form (scores
 against the latent itself, ``W_uk`` absorbed into q, ``W_uv`` applied after
-the weighted sum).  Its int8 latent pools come with ROADMAP.md Queue 1
-"Quantization".
+the weighted sum).  Its int8 latent pools store each token's c_kv and
+k_rope rows as codes with one f32 scale per token (no head axis).
 """
 
 from __future__ import annotations
@@ -46,7 +46,6 @@ __all__ = [
 ]
 
 NEG_INF = -1e30
-_QUANT = 'ROADMAP.md Queue 1 "Quantization"'
 
 
 def _natural(w):
@@ -389,11 +388,18 @@ def mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
 def init_paged_mla_cache(num_blocks: int, block_size: int, cfg, dtype, kv_quant: str = "none", *,
                          device) -> Dict:
     """MLA block pool: the latent c_kv (num_blocks, block_size, kv_lora_rank)
-    and the shared k_rope (num_blocks, block_size, rope), paged like K/V."""
-    if kv_quant != "none":
-        raise NotImplementedError(f"int8 MLA latent pools are not ported yet ({_QUANT})")
-    return {"c_kv": torch.zeros((num_blocks, block_size, cfg.kv_lora_rank), dtype=dtype, device=device),
-            "k_rope": torch.zeros((num_blocks, block_size, cfg.qk_rope_head_dim), dtype=dtype, device=device)}
+    and the shared k_rope (num_blocks, block_size, rope), paged like K/V; a
+    quantized pool stores the scheme's codes and adds one f32 scale per
+    token for each, c_kv_scale/k_rope_scale (num_blocks, block_size)."""
+    shapes = {"c_kv": (num_blocks, block_size, cfg.kv_lora_rank),
+              "k_rope": (num_blocks, block_size, cfg.qk_rope_head_dim)}
+    if kv_quant == "none":
+        return {nm: torch.zeros(sh, dtype=dtype, device=device) for nm, sh in shapes.items()}
+    sdt = api.quant.scheme_info(kv_quant).storage_dtype
+    pool = {nm: torch.zeros(sh, dtype=sdt, device=device) for nm, sh in shapes.items()}
+    pool.update({f"{nm}_scale": torch.zeros(sh[:2], dtype=torch.float32, device=device)
+                 for nm, sh in shapes.items()})
+    return pool
 
 
 def paged_mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor, cache: Dict,
@@ -402,10 +408,9 @@ def paged_mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tenso
                         norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-form MLA decode against the paged latent pool: x (B, 1, d),
     one token per slot at ``positions`` (B,); this token's c_kv and k_rope
-    rows are written in place, the slot's context gathered, and positions
-    <= its own attended."""
-    if kv_quant != "none":
-        raise NotImplementedError(f"int8 MLA latent pools are not ported yet ({_QUANT})")
+    rows are written in place (a quantized pool takes each row's codes and
+    its scale), the slot's context gathered (dequantized into x's dtype),
+    and positions <= its own attended."""
     b, s, _ = x.shape
     h, dv = cfg.n_heads, cfg.v_head_dim
     bs = cache["c_kv"].shape[1]
@@ -414,11 +419,15 @@ def paged_mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tenso
 
     rows = torch.arange(b, device=x.device)
     phys = block_tables[rows, positions // bs] * bs + positions % bs
-    cc = paged_write(cache["c_kv"], phys, c_kv[:, 0])
-    cr = paged_write(cache["k_rope"], phys, k_rope[:, 0])
+    ccs, crs = cache.get("c_kv_scale"), cache.get("k_rope_scale")
+    cc = paged_write(cache["c_kv"], phys, c_kv[:, 0], scale_pool=ccs, kv_quant=kv_quant)
+    cr = paged_write(cache["k_rope"], phys, k_rope[:, 0], scale_pool=crs, kv_quant=kv_quant)
     idx = _gather_indices(block_tables, bs)
-    cc_all = paged_read(cc, idx, dtype=x.dtype)                                # (B, Smax, r)
-    cr_all = paged_read(cr, idx, dtype=x.dtype)                                # (B, Smax, dr)
+    cc_all = paged_read(cc, idx, scale_pool=ccs, dtype=x.dtype)                # (B, Smax, r)
+    cr_all = paged_read(cr, idx, scale_pool=crs, dtype=x.dtype)                # (B, Smax, dr)
     live = torch.arange(cc_all.shape[1], device=x.device)[None, :] <= positions[:, None]
     out = _absorbed(q_nope, q_rope, cc_all, cr_all, w_uk, w_uv, live[:, None, :], cfg)
-    return _out_proj(out.reshape(b, s, h * dv), p, lk, residual), {"c_kv": cc, "k_rope": cr}
+    new_cache = {"c_kv": cc, "k_rope": cr}
+    if kv_quant != "none":
+        new_cache.update(c_kv_scale=ccs, k_rope_scale=crs)
+    return _out_proj(out.reshape(b, s, h * dv), p, lk, residual), new_cache

@@ -20,10 +20,13 @@ block's K/V.  Under ``cfg.tie_embeddings`` the head is the embedding: f32
 sums of the compute-dtype products, outside the DiP kernel as in the
 reference.  ``loss_fn`` takes the fused lm_head +
 cross-entropy kernel (``kernels/lm_head_ce.py``) unless told otherwise, and
-``train_step_fn`` applies one AdamW step in place.  Training the MoE, MLA,
-SSM and hybrid families and tied heads, their quantized serving, the stub
-frontends, sharding plans and the reliability guard come with their
-ROADMAP.md items and raise ``NotImplementedError`` here.
+``train_step_fn`` applies one AdamW step in place.  Every served family
+serves quantized too: ``quantize_params`` quantizes only the DiP-stored
+projections, so the MoE router and expert banks, the SSM scalars, conv and
+norms, and the embeddings stay float, as in the reference.  Training the
+MoE, MLA, SSM and hybrid families and tied heads, the stub frontends,
+sharding plans and the reliability guard come with their ROADMAP.md items
+and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -56,22 +59,18 @@ __all__ = [
 
 _FAMILIES = 'ROADMAP.md Queue 1 "Other model families"'
 _DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
-_QUANT = 'ROADMAP.md Queue 1 "Quantization"'
 
 
-def _require_served(cfg, kv_quant: Optional[str] = None) -> None:
+def _require_served(cfg) -> None:
     """Raise for every configuration the port does not serve: it serves the
     dense, MoE, SSM and hybrid families, with GQA or MLA attention and tied
-    or separate heads; quantized weights or an int8 KV pool (``kv_quant``,
-    default ``cfg.kv_quant``) only for the dense family with GQA."""
+    or separate heads, in float or with quantized weights and an int8 KV
+    pool; not the stub frontends or sharding plans."""
     missing = []
     if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend != "none":
         missing.append(f"the {cfg.family} family / stub frontends ({_FAMILIES})")
     if cfg.sharding != "gspmd":
         missing.append(f"sharding plans ({_DISTRIBUTED})")
-    kvq = cfg.kv_quant if kv_quant is None else kv_quant
-    if (cfg.is_moe or cfg.use_mla or cfg.ssm_state) and (cfg.quantization != "none" or kvq != "none"):
-        missing.append(f"quantized weights or KV pools for MoE / MLA / SSM / hybrid ({_QUANT})")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
 
@@ -496,14 +495,18 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "
     block_size, KV, hd), and under int8 ``kv_quant`` their per-(token, head)
     f32 scales k_scale/v_scale (L, num_blocks, block_size, KV); under MLA
     the latent c_kv (L, num_blocks, block_size, kv_lora_rank) and k_rope
-    (L, num_blocks, block_size, rope).  Block 0 is the null block
+    (L, num_blocks, block_size, rope), and under int8 ``kv_quant`` one f32
+    scale per token for each, c_kv_scale/k_rope_scale (L, num_blocks,
+    block_size).  Block 0 is the null block
     (serving/kv_cache.py).  The SSM families' conv history and state are
     O(1) per sequence, so they get a plain pool of ``slots`` rows (``conv``
     and ``state`` as in :func:`init_cache`, batch axis = slot) instead of
     pages; the hybrid pages only its shared block's K/V, ``attn`` = {k, v}
-    (n_layers // attn_every, num_blocks, block_size, KV, hd).  The
-    attention families keep nothing per slot and ignore ``slots``."""
-    _require_served(cfg, kv_quant)
+    (n_layers // attn_every, num_blocks, block_size, KV, hd), with their
+    scales under int8 ``kv_quant``; a pure SSM model pages nothing, so
+    ``kv_quant`` changes nothing there.  The attention families keep
+    nothing per slot and ignore ``slots``."""
+    _require_served(cfg)
     cd = dtype_of(cfg.compute_dtype)
 
     def stacked(pool, n):
@@ -587,12 +590,16 @@ def paged_decode_step_fn(cfg):
 
 # ------------------------------------------------------------- objectives ---
 def _natural_head(params, cfg) -> torch.Tensor:
-    """The lm_head as a natural (d_model, padded_vocab) tensor in the
-    parameter dtype, for the fused loss (a ``DipWeight`` is de-sheared, so a
-    gradient reaches its permutated storage)."""
+    """The lm_head as a natural (d_model, padded_vocab) tensor for the fused
+    loss: a ``DipWeight`` de-sheared in the parameter dtype, so a gradient
+    reaches its permutated storage; a ``QuantizedDipWeight`` dequantized to
+    f32, as the reference does (its codes take no gradient, its scales that
+    of the dequantized head)."""
     if cfg.tie_embeddings:
         raise NotImplementedError(f"training a tied head is not ported yet ({_FAMILIES})")
     head = params["lm_head"]
+    if isinstance(head, api.QuantizedDipWeight):
+        return head.to_natural(torch.float32)
     return head.to_natural() if isinstance(head, api.DipWeight) else head
 
 

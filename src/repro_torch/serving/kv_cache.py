@@ -12,8 +12,8 @@ and the allocator hands out blocks ``1..num_blocks-1``.
 Storage is the compute dtype (bf16 or f32), or int8 codes plus one f32
 scale per (token, head) row under ``kv_quant="int8"`` (quantized on write,
 prefill import included).  An MLA model pages its latent ``c_kv`` and
-shared ``k_rope`` rows the same way, in the compute dtype (its int8 pools
-come with ROADMAP.md Queue 1 "Quantization").  The SSM families' conv
+shared ``k_rope`` rows the same way, int8 with one f32 scale per token
+(no head axis).  The SSM families' conv
 history and state are O(1) per sequence and live in per-slot pools beside
 the pages: a pure SSM model pages nothing, a hybrid one only its shared
 attention block's K/V.  ``bytes_per_block`` / ``blocks_for_budget`` /
@@ -135,7 +135,8 @@ class PagedKVCache:
 def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[str] = None) -> int:
     """Device bytes one KV block costs across all layers: GQA L * bs * (2 *
     KV * hd elements, plus one f32 scale per (token, head) row for k and v
-    when quantized); MLA L * bs * (kv_lora_rank + rope) elements; the
+    when quantized); MLA L * bs * (kv_lora_rank + rope elements, plus one
+    f32 scale per token for c_kv and for k_rope when quantized); the
     hybrid pages only its ``n_layers // attn_every`` shared-attention
     instances, and a pure SSM model pages nothing (0)."""
     bs = block_size if block_size is not None else cfg.kv_block_size
@@ -144,9 +145,8 @@ def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[st
     if cfg.is_ssm:
         return 0
     if cfg.use_mla:
-        if kvq != "none":
-            raise NotImplementedError('int8 MLA latent pools are not ported yet (ROADMAP.md Queue 1 "Quantization")')
-        return cfg.n_layers * bs * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item
+        scale = 2 * 4 if kvq != "none" else 0
+        return cfg.n_layers * bs * ((cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item + scale)
     n_inst = cfg.n_layers // cfg.attn_every if cfg.is_hybrid else cfg.n_layers
     kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     scale = 2 * kv * 4 if kvq != "none" else 0
@@ -173,8 +173,10 @@ def make_import_fn(cfg, block_size: int, kv_quant: str = "none"):
     """The scatter of a finished contiguous B=1 prefill cache into a slot's
     pool blocks: positions ``0..plen-1`` go to ``block_row[p // bs] * bs +
     p % bs``; the prompt padding past ``plen`` is dropped.  A quantized pool
-    quantizes each row on import.  Every pool of the prefill cache is
-    imported: k and v, or MLA's c_kv and k_rope; for the SSM families the
+    quantizes each row on import into the codes and its ``{name}_scale``
+    pool (per (token, head) for k and v, per token for MLA's latent rows).
+    Every pool of the prefill cache is imported: k and v, or MLA's c_kv and
+    k_rope; for the SSM families the
     conv history and state go to the slot's row of the per-slot pools, and
     the hybrid's shared-block k and v are scattered as above.  The physical
     rows are computed on the host from the host block table, and the pools

@@ -655,6 +655,24 @@ def test_quantize_pass_kernel_matches_plain(dev, dtype, m, k, prologue):
     assert torch.equal(codes, want_codes) and torch.equal(scale, want_scale)
 
 
+# the KV pools' and the weights' quantizers on the card give the CPU's bytes:
+# scales divided as IEEE quotients (a CUDA division by a Python scalar
+# multiplies by the rounded reciprocal), the codes divided by them
+@pytest.mark.parametrize("scheme", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("shape", [(27, 300, 576), (9, 300, 32, 80), (2048, 512)])
+def test_quantizers_on_the_card_give_the_cpu_bytes(dev, shape, scheme):
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g, device=dev) * 3).to(torch.bfloat16)
+    x[0, 1] = 0
+    q, s = api.quant.quantize_rows(x, scheme)
+    q_cpu, s_cpu = api.quant.quantize_rows(x.cpu(), scheme)
+    assert torch.equal(s.cpu(), s_cpu) and torch.equal(q.cpu().view(torch.uint8), q_cpu.view(torch.uint8))
+    if len(shape) == 2:
+        w, w_cpu = api.quant.quantize(x.float(), scheme), api.quant.quantize(x.float().cpu(), scheme)
+        assert torch.equal(w.scale.cpu(), w_cpu.scale)
+        assert torch.equal(w.data.cpu().view(torch.uint8), w_cpu.data.view(torch.uint8))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
 @pytest.mark.parametrize("epilogue", epi.EPILOGUES)

@@ -131,7 +131,10 @@ def test_quantized_dispatch_routes_and_refuses():
         api.matmul(x, f8, backend="dip_int8w")
     with pytest.raises(ValueError, match="scheme"):
         api.matmul(x, (q8, f8), backend="dip_int8w", epilogue="swiglu")
-    with pytest.raises(NotImplementedError, match="Quantization"):
-        api.matmul(x.requires_grad_(), q8)
+    # an input that needs a gradient takes the straight-through backward
+    # (refused until it was ported; test_torch_quant_grad.py holds it to the reference)
+    xg = x.clone().requires_grad_()
+    api.matmul(xg, q8).sum().backward()
+    torch.testing.assert_close(xg.grad, q8.to_natural().sum(1).expand(3, 64))
     with pytest.raises(ValueError, match="w_scale"):
         dip_matmul_q_plain(x, q8.data, q8.scale[:, :32])

@@ -12,7 +12,9 @@ steps are the engine's: ``paged_decode_step_fn``, the prefill forward at a
 chunk and, for the SSM families, at one token, each run once beforehand as
 the engine's first, eager call runs it (device constants are made then), at
 ``reduced()`` of llama3-8b in bf16, with int8 weights and the int8 KV pool,
-with fp8 weights, deepseek-v2-lite-16b, mamba2-370m and zamba2-2.7b.
+with fp8 weights, deepseek-v2-lite-16b, mamba2-370m and zamba2-2.7b, and
+the last three quantized (int8 weights with the int8 latent or
+shared-attention pool, and zamba2-2.7b with fp8 weights).
 
 Parity (float32, the reference's weights through ``params_from_jax``):
 chunk by chunk through a prefill cache that first served another prompt
@@ -61,6 +63,11 @@ SERVED = [
     ("deepseek-v2-lite-16b", "deepseek-v2-lite-16b", dict(matmul_backend="dip")),
     ("mamba2-370m", "mamba2-370m", dict(matmul_backend="dip")),
     ("zamba2-2.7b", "zamba2-2.7b", dict(matmul_backend="dip")),
+    ("deepseek-v2-lite-16b-int8-kv8", "deepseek-v2-lite-16b",
+     dict(matmul_backend="dip_int8w", quantization="int8", kv_quant="int8")),
+    ("mamba2-370m-int8", "mamba2-370m", dict(matmul_backend="dip_int8w", quantization="int8")),
+    ("zamba2-2.7b-int8-kv8", "zamba2-2.7b", dict(matmul_backend="dip_int8w", quantization="int8", kv_quant="int8")),
+    ("zamba2-2.7b-fp8", "zamba2-2.7b", dict(matmul_backend="dip_fp8", quantization="fp8_e4m3")),
 ]
 PARITY = ["llama3-8b", "deepseek-v2-lite-16b", "mamba2-370m", "zamba2-2.7b"]
 

@@ -115,20 +115,23 @@ def test_branches_outside_the_slice_raise(what):
     elif what == "ttl":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, params, engine_cfg=EngineConfig(ttl_s=1.0), device="cpu")
-    elif what == "kv_int8":  # int8 KV serves now (test_torch_quant_serving.py); MLA pools do not
+    elif what == "kv_int8":  # int8 KV serves now, MLA's latent pools too (test_torch_quant_families.py)
         from repro_torch.serving import kv_cache
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            kv_cache.bytes_per_block(dataclasses.replace(cfg, use_mla=True, kv_lora_rank=64), kv_quant="int8")
+        mla = dataclasses.replace(cfg, use_mla=True, kv_lora_rank=64)
+        # (rank + rope) one-byte codes and two f32 scales per token and layer
+        assert kv_cache.bytes_per_block(mla, 16, "int8") == cfg.n_layers * 16 * (64 + mla.qk_rope_head_dim + 8)
     elif what == "moe":  # MoE serves now (test_torch_moe_serving.py); its training does not
         moe_cfg = dataclasses.replace(cfg, family="moe", n_experts=4, moe_top_k=2, d_ff_expert=64)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tf_model.loss_fn(tf_model.init_params(moe_cfg, make_generator(0, "cpu"), device="cpu"), moe_cfg,
                              {"tokens": torch.zeros(1, 4, dtype=torch.long), "labels": torch.zeros(1, 4, dtype=torch.long)})
-    elif what == "quant_grad":  # the straight-through backward is not ported
+    elif what == "quant_grad":  # the straight-through backward (test_torch_quant_grad.py)
         from repro_torch import api
         x = torch.randn(2, 64, requires_grad=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.matmul(x, api.quant.quantize(torch.randn(64, 64), "int8"))
+        qw = api.quant.quantize(torch.randn(64, 64), "int8")
+        api.matmul(x, qw).sum().backward()
+        # d(sum)/dx against the dequantized weight: its row sums
+        torch.testing.assert_close(x.grad, qw.to_natural().sum(1).expand(2, 64))
     else:
         from repro_torch import api
         with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -136,11 +136,38 @@ def test_paged_decode_matches_reference(layer):
 
 
 def test_int8_latent_pools_raise(layer):
-    _, cfg, _, tl = layer
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Quantization"'):
-        attention.init_paged_mla_cache(4, 4, cfg, torch.float32, "int8", device="cpu")
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Quantization"'):
-        attention.paged_mla_attention(torch.zeros(1, 1, cfg.d_model), tl, cfg, positions=torch.zeros(1).long(),
-                                      cache={}, block_tables=torch.ones(1, 1).long(), kv_quant="int8")
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Quantization"'):
-        tf_model.init_paged_cache(cfg, 4, 4, kv_quant="int8", device="cpu")
+    """The int8 latent pools, refused until quantized MLA was ported, now
+    serve: one f32 scale per token for c_kv and for k_rope (no head axis),
+    and five paged decode steps over them match the reference's paged form
+    with the same int8 pools (outputs within TOL; the pools' codes within
+    one code of their row's scale, where an f32 sum's last bit moves a
+    value across a rounding midpoint; the scales within 1e-5 relative)."""
+    ref_cfg, cfg, rl, tl = layer
+    nb, bs = 9, 4
+    pool = attention.init_paged_mla_cache(nb, bs, cfg, torch.float32, "int8", device="cpu")
+    assert {nm: (t.dtype, tuple(t.shape)) for nm, t in pool.items()} == {
+        "c_kv": (torch.int8, (nb, bs, cfg.kv_lora_rank)), "k_rope": (torch.int8, (nb, bs, cfg.qk_rope_head_dim)),
+        "c_kv_scale": (torch.float32, (nb, bs)), "k_rope_scale": (torch.float32, (nb, bs))}
+    stacked = tf_model.init_paged_cache(cfg, nb, bs, kv_quant="int8", device="cpu")["layers"]
+    assert {nm: tuple(t.shape) for nm, t in stacked.items()} == {
+        nm: (cfg.n_layers,) + tuple(t.shape) for nm, t in pool.items()}
+    tables = np.array([[1, 2, 0, 0], [3, 4, 5, 0]], np.int32)
+    rpool = ref_attn.init_paged_mla_cache(nb, bs, ref_cfg, jnp.float32, "int8")
+    for t in range(5):
+        x = _x((2, 1, cfg.d_model), seed=10 + t)
+        pos = np.array([t, 3 + t], np.int32)
+        rk, tk = _fused(cfg, rl, tl, x)
+        want, rpool = ref_attn.paged_mla_attention(jnp.asarray(x), rl, ref_cfg, positions=jnp.asarray(pos),
+                                                   cache=rpool, block_tables=jnp.asarray(tables), kv_quant="int8",
+                                                   **rk)
+        got, pool = attention.paged_mla_attention(torch.as_tensor(x), tl, cfg, positions=torch.as_tensor(pos).long(),
+                                                  cache=pool, block_tables=torch.as_tensor(tables).long(),
+                                                  kv_quant="int8", **tk)
+        assert_close(got, want, TOL["float32"])
+    assert set(pool) == set(rpool)
+    for nm in ("c_kv", "k_rope"):
+        sc = pool[f"{nm}_scale"][..., None].numpy()
+        want_v = np.asarray(rpool[nm], np.float32) * np.asarray(rpool[f"{nm}_scale"])[..., None]
+        assert (np.abs(pool[nm].float().numpy() * sc - want_v) <= TOL["float32"] * max(1.0, np.abs(want_v).max())
+                + sc).all()
+        np.testing.assert_allclose(pool[f"{nm}_scale"].numpy(), np.asarray(rpool[f"{nm}_scale"]), rtol=1e-5)

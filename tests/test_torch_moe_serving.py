@@ -34,7 +34,7 @@ from repro.serving import Engine as RefEngine
 from repro.serving import EngineConfig as RefEngineConfig
 from repro.serving import SamplingParams as RefSamplingParams
 from repro.serving import kv_cache as ref_kvc
-from repro_torch.api import DipWeight
+from repro_torch.api import DipWeight, QuantizedDipWeight
 from repro_torch.configs import get_config as port_get
 from repro_torch.convert import params_from_jax
 from repro_torch.device import make_generator
@@ -216,10 +216,13 @@ def test_bytes_per_block_matches_reference(name, reduced):
     if reduced:
         ref_cfg, cfg = ref_cfg.reduced(), cfg.reduced()
     for bs in (4, 16):
-        assert kvc.bytes_per_block(cfg, bs) == ref_kvc.bytes_per_block(ref_cfg, bs)
+        for kvq in ("none", "int8"):
+            assert kvc.bytes_per_block(cfg, bs, kvq) == ref_kvc.bytes_per_block(ref_cfg, bs, kvq)
     if name == "deepseek-v2-lite-16b" and not reduced:
-        # (kv_lora_rank + rope) x 2 bytes x 27 layers x 16 tokens
+        # (kv_lora_rank + rope) x 2 bytes x 27 layers x 16 tokens; int8: x 1 byte, plus an f32
+        # scale per token for c_kv and for k_rope
         assert kvc.bytes_per_block(cfg) == (512 + 64) * 2 * 27 * 16 == 497_664
+        assert kvc.bytes_per_block(cfg, kv_quant="int8") == 27 * 16 * (512 + 64 + 2 * 4) == 252_288
 
 
 def test_paged_pool_shapes_and_import(dip_model):
@@ -243,6 +246,9 @@ def test_paged_pool_shapes_and_import(dip_model):
 
 @pytest.mark.parametrize("what", ["loss", "train_step", "quantize", "kv_int8", "serve_quantize", "serve_kv_int8"])
 def test_what_the_slice_refuses(what):
+    """Training is refused; the quantized cases, refused until the quantized
+    families were ported, now serve (their parity with the reference is in
+    test_torch_quant_families.py)."""
     _, cfg = _configs("deepseek-v2-lite-16b", ("xla", "torch"))
     from repro_torch.launch import serve
     if what in ("loss", "train_step"):
@@ -254,16 +260,30 @@ def test_what_the_slice_refuses(what):
             else:
                 tf_model.train_step_fn(cfg, AdamW())
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Quantization"'):
-        if what == "quantize":
-            tf_model.param_template(dataclasses.replace(cfg, quantization="int8"))
-        elif what == "kv_int8":
-            params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
-            Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=16, kv_quant="int8"), device="cpu")
-        elif what == "serve_quantize":
-            serve.main(["--arch", "qwen3-moe-235b-a22b", "--reduced", "--device", "cpu", "--quantize", "fp8_e4m3"])
-        else:
-            serve.main(["--arch", "deepseek-v2-lite-16b", "--reduced", "--device", "cpu", "--kv-quant", "int8"])
+    small = ["--reduced", "--device", "cpu", "--dtype", "float32", "--requests", "2", "--max-new", "3",
+             "--max-seq", "32", "--prefill-chunk", "8", "--temperature", "0"]
+    if what == "quantize":
+        qcfg = dataclasses.replace(cfg, quantization="int8", matmul_backend="dip_int8w")
+        lay = tf_model.init_params(qcfg, make_generator(0, "cpu"), device="cpu")["layers"]
+        for nm in ("wq", "w_dkv", "w_krope", "w_uk", "w_uv", "wo", "shared_w_gate", "shared_w_up",
+                   "shared_w_down"):
+            assert isinstance(lay[nm], QuantizedDipWeight) and lay[nm].data.dtype == torch.int8, nm
+        for nm in ("router", "w_gate", "w_up", "w_down", "attn_norm", "ffn_norm"):
+            assert isinstance(lay[nm], torch.Tensor) and lay[nm].dtype == torch.float32, nm
+    elif what == "kv_int8":
+        params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=16, kv_quant="int8"), device="cpu")
+        pools = eng.kv.pools["layers"]
+        assert {nm: t.dtype for nm, t in pools.items()} == {"c_kv": torch.int8, "k_rope": torch.int8,
+                                                           "c_kv_scale": torch.float32,
+                                                           "k_rope_scale": torch.float32}
+        assert pools["c_kv_scale"].shape == pools["c_kv"].shape[:3]
+    elif what == "serve_quantize":
+        out = serve.main(["--arch", "qwen3-moe-235b-a22b", "--quantize", "fp8_e4m3"] + small)
+        assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
+    else:
+        out = serve.main(["--arch", "deepseek-v2-lite-16b", "--kv-quant", "int8"] + small)
+        assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -38,7 +38,7 @@ from repro.serving import Engine as RefEngine
 from repro.serving import EngineConfig as RefEngineConfig
 from repro.serving import SamplingParams as RefSamplingParams
 from repro.serving import kv_cache as ref_kvc
-from repro_torch.api import DipWeight
+from repro_torch.api import DipWeight, QuantizedDipWeight
 from repro_torch.configs import get_config as port_get
 from repro_torch.convert import params_from_jax
 from repro_torch.device import make_generator
@@ -263,8 +263,11 @@ def test_bytes_per_block_matches_reference(name, reduced):
         for kvq in ("none", "int8"):
             assert kvc.bytes_per_block(cfg, bs, kvq) == ref_kvc.bytes_per_block(ref_cfg, bs, kvq)
     if not reduced:
-        # zamba2: 9 shared-attention instances x 16 tokens x (k, v) x 32 heads x 80 x 2 bytes
+        # zamba2: 9 shared-attention instances x 16 tokens x (k, v) x 32 heads x 80 x 2 bytes; int8:
+        # x 1 byte, plus an f32 scale per (token, head) for k and v
         assert kvc.bytes_per_block(cfg) == (9 * 16 * 2 * 32 * 80 * 2 if cfg.is_hybrid else 0)
+        assert 9 * 16 * (2 * 32 * 80 + 2 * 32 * 4) == 774_144
+        assert kvc.bytes_per_block(cfg, kv_quant="int8") == (774_144 if cfg.is_hybrid else 0)
     if cfg.is_ssm:
         with pytest.raises(ValueError, match="no paged KV bytes"):
             kvc.blocks_for_budget(cfg, 2**30)
@@ -320,6 +323,9 @@ def test_paged_pools_and_import(dip_model):
                                   "no_slots"])
 @pytest.mark.parametrize("name", ARCHS)
 def test_what_the_slice_refuses(name, what):
+    """Training and a pool without slots are refused; the quantized cases,
+    refused until the quantized families were ported, now serve (their
+    parity with the reference is in test_torch_quant_families.py)."""
     _, cfg = _configs(name, ("xla", "torch"))
     from repro_torch.launch import serve
     if what in ("loss", "train_step"):
@@ -335,16 +341,40 @@ def test_what_the_slice_refuses(name, what):
         with pytest.raises(ValueError, match="slots"):
             tf_model.init_paged_cache(cfg, 4, 4, device="cpu")
         return
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Quantization"'):
-        if what == "quantize":
-            tf_model.param_template(dataclasses.replace(cfg, quantization="int8"))
-        elif what == "kv_int8":
-            params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
-            Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=16, kv_quant="int8"), device="cpu")
-        elif what == "serve_quantize":
-            serve.main(["--arch", name, "--reduced", "--device", "cpu", "--quantize", "int8"])
+    small = ["--arch", name, "--reduced", "--device", "cpu", "--dtype", "float32", "--requests", "2",
+             "--max-new", "3", "--max-seq", "32", "--prefill-chunk", "8", "--temperature", "0"]
+    if what == "quantize":
+        # the projections are quantized; the SSM scalars, conv, norms and embedding stay float
+        qcfg = dataclasses.replace(cfg, quantization="int8", matmul_backend="dip_int8w")
+        params = tf_model.init_params(qcfg, make_generator(0, "cpu"), device="cpu")
+        lay = params["layers"]
+        for nm in ("in_proj", "out_proj"):
+            assert isinstance(lay[nm], QuantizedDipWeight) and lay[nm].data.dtype == torch.int8, nm
+        for nm in ("A_log", "D", "dt_bias", "conv_w", "conv_b", "norm", "norm_in"):
+            assert isinstance(lay[nm], torch.Tensor) and lay[nm].dtype == torch.float32, nm
+        assert params["embed"].dtype == torch.float32
+        # mamba2's tied head is the embedding; zamba2's separate head is a projection
+        assert isinstance(params["lm_head"], QuantizedDipWeight) if not cfg.tie_embeddings else "lm_head" not in params
+        if cfg.is_hybrid:
+            assert all(isinstance(params["shared_attn"][nm], QuantizedDipWeight)
+                       for nm in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"))
+    elif what == "kv_int8":
+        params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=16, kv_quant="int8"), device="cpu")
+        pools = eng.kv.pools["layers"]
+        # a pure SSM model pages nothing: int8 KV changes nothing there
+        assert pools["state"].dtype == torch.float32 and eng.kv_quant == "int8"
+        if cfg.is_hybrid:
+            assert {nm: t.dtype for nm, t in pools["attn"].items()} == {
+                "k": torch.int8, "v": torch.int8, "k_scale": torch.float32, "v_scale": torch.float32}
         else:
-            serve.main(["--arch", name, "--reduced", "--device", "cpu", "--kv-quant", "int8"])
+            assert "attn" not in pools
+    elif what == "serve_quantize":
+        out = serve.main(small + ["--quantize", "int8"])
+        assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
+    else:
+        out = serve.main(small + ["--kv-quant", "int8"])
+        assert sorted(out) == [0, 1] and all(len(v) == 3 for v in out.values())
 
 
 def test_stub_frontends_stay_refused():
