@@ -13,7 +13,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    deepseek-v2-lite-16b projections, N = 64 included; at M = 1, 4 and 256
    the zamba2-2.7b and mamba2-370m projections through the registry, in_proj's
    padded last tile (10448 and 4384 columns) and out_proj's residual at K =
-   5120 included) and flash attention in float32 and
+   5120 included; at M = 4096, the training batch, the DeepSeek, Zamba2,
+   Mamba2 and musicgen-medium projections in bf16) and flash attention in float32 and
    bfloat16, each call on the route ``flash_plan`` gives (by the launch
    counts): Zamba2's D = 80 at Sq = 256 (bf16 on the tensor cores) and at
    Sq = 1 (bf16 on ``split_kv``; f32 on the CUDA cores), every tensor-core
@@ -21,7 +22,9 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    kv_len 0 rows, two ``split_kv`` calls equal bit for bit; the fused lm_head +
    cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
    training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
-   splits and labels at -100; then the quantized serving slice's kernels:
+   splits and labels at -100, and bf16 x f32 at the training heads of the
+   four families of phases 6b-6e (the tied one a transposed view); then the
+   quantized serving slice's kernels:
    the DiP matmul on int8 (exact), the quantized DiP matmul (int8 and fp8
    weights, f32 and bf16 activations, M = 4, 37 and 256; int8 without an
    epilogue bit for bit) and the wavefront kernel over its plans (f32, bf16,
@@ -47,11 +50,15 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    deepseek-v2-lite-16b (MoE + MLA), zamba2-2.7b (hybrid) and mamba2-370m
    (SSM, tied head) on ``dip``, prompts that take the SSM prefill tail, and
    the same three with ``dip_fp8`` (bf16); the reduced yi-9b and
-   codeqwen1.5-7b on ``dip`` in bf16;
+   codeqwen1.5-7b on ``dip`` in bf16; the reduced phi-3-vision-4.2b and
+   musicgen-medium (the stub frontends' decoders) from tokens on ``dip``;
 4. the reduced llama3-8b trained on the card against the CPU (f32, 3
    ``Trainer`` steps): close losses and gradient norms, and a run stopped by
    ``fail_at_step`` that resumes from its checkpoint and repeats the
-   uninterrupted one; then with int8 and with fp8 weights, the loss and the
+   uninterrupted one; the reduced deepseek-v2-lite-16b, qwen3-moe-235b-a22b,
+   zamba2-2.7b, mamba2-370m, musicgen-medium and phi-3-vision-4.2b (the last
+   two fed the pipeline's embeddings) the same, 3 steps each, with their
+   launches; then with int8 and with fp8 weights, the loss and the
    gradient of every float leaf through the quantized straight-through
    backward, card against CPU;
 5. llama3-8b at full width (32 layers, d_model 4096, vocab 128256) in bf16
@@ -106,15 +113,30 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    launches per forward, flash's routes unchanged, 774,144 / 0 KV bytes
    per block, the state bytes per slot unchanged, the hybrid's first
    import checked as in 5g;
-6. llama3-8b at full width cut to 4 layers trained through
-   ``launch.train`` and its ``Trainer`` (f32 parameters, bf16 compute, block
-   remat, batch 4 x seq 1024, 4 steps, the launcher's warm-up schedule):
-   finite losses, step time, tokens/s, peak memory, 48 DiP launches and 1
-   lm_head_ce launch per step, and one profiled step; before it, the first
-   step's loss and every gradient leaf through the kernels against plain
-   PyTorch (``torch.matmul``, unfused loss) on the same weights and batch,
-   in f32 and in bf16 compute; after it, the same 4 steps through plain
-   PyTorch, printed beside the kernels' losses;
+6. llama3-8b at full width cut to 4 layers,
+6b. deepseek-v2-lite-16b at full width cut to 4 layers,
+6c. zamba2-2.7b (54 layers),
+6d. mamba2-370m (48 layers, the tied head) and
+6e. musicgen-medium (48 layers, fed the pipeline's embeddings), each trained
+   through ``launch.train`` and its ``Trainer`` (f32 parameters, bf16
+   compute, block remat, batch 4 x seq 1024, 4 steps, the launcher's
+   warm-up schedule) by one function, ``train_family``: the first step's
+   loss, gradient norm and every gradient leaf through the kernels against
+   plain PyTorch (``torch.matmul``, unfused loss) on the same weights and
+   batch in f32 and bf16 compute (DeepSeek's plain run replaying the
+   kernels' expert ids; a recurrent stack's bf16 step, where it misses the
+   bound, held to no further from the f32 plain run than 1.5x the bf16
+   plain run, and its kernels' distance with the unfused loss printed
+   beside), the expert ids of the remat rerun against the forward's (0
+   differ), exact DiP launches per step (each projection of a forward but
+   the head, twice: forward and remat rerun; llama3-8b's 2 x 6 x 4), 1
+   lm_head_ce launch per step and no flash launch, every padded DiP leaf's
+   padding (Zamba2's and Mamba2's in_proj) and both its AdamW moments
+   exactly 0 after the steps, finite losses, step time, tokens/s, peak
+   allocated and reserved memory, one more step split into forward,
+   backward and AdamW and profiled, and a run resumed from the step-3
+   checkpoint whose step 4 repeats the uninterrupted one; after 6, the same
+   4 llama3-8b steps through plain PyTorch, printed beside the kernels';
 7. kernel times (CUDA events, L2 flushed between launches; ``ms`` with the
    launch queued behind a device sleep, so the wrapper's host time is
    hidden, and ``host_ms`` without, as the first versions timed) beside their bound,
@@ -130,7 +152,9 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
    of its codes and beside its whole function in library calls; the fp8
    route with f32 x; both quantized routes at the quantized families'
-   projections, with their launches per forward).
+   projections, with their launches per forward; lm_head_ce at the training
+   heads of 6b-6e, the tied head with its contiguous copy of ``embed.t()``,
+   timed on its own too).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -220,32 +244,67 @@ def close(name, got, want, tol):
     return err
 
 
-def first_step_against_plain(params, cfg, batch, tree, tf_model):
+def step_grads(params, cfg, batch, tree, tf_model, moe_trace=None, fused_ce=None):
+    """One step's loss and every leaf's gradient through ``cfg``'s backend
+    (the fused loss unless ``fused_ce`` is False, and for the ``torch``
+    backend always the unfused one); a leaf
+    the loss does not reach (the embedding of a model fed embeddings) gets
+    zeros, as the optimizer sees it."""
+    import torch
+
+    leaves = [leaf.requires_grad_(True) for leaf in tree.leaves(params)]
+    loss = tf_model.loss_fn(params, cfg, batch, fused_ce=False if cfg.matmul_backend == "torch" else fused_ce,
+                            moe_trace=moe_trace)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for leaf in leaves:
+        leaf.requires_grad_(False)
+    return float(loss.detach()), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+
+
+def grad_norm(grads):
+    import torch
+
+    return float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads)))
+
+
+def rel_l2(a, b):
+    import torch
+
+    return float(torch.linalg.vector_norm((a - b).float()) / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
+
+
+def first_step_against_plain(params, cfg, batch, tree, tf_model, replay=False, keep=False):
     """Loss and every leaf's gradient of one step through the kernels (the
     configured backend and the fused loss) and through plain PyTorch (the
     ``torch`` backend: ``torch.matmul`` on the de-sheared weights, and the
-    unfused loss), on the same weights and batch.  Returns ``(losses,
-    grad_norms, worst)``: the two losses, the two global gradient norms and
-    the largest per-leaf relative L2 gradient error with its path."""
-    import torch
+    unfused loss), on the same weights and batch.  ``replay``: the plain
+    run of a MoE model routes with the kernel run's expert ids (every
+    layer's, its remat rerun's too).  Returns a dict: ``losses`` and
+    ``norms`` (kernels, plain), ``rel`` (each leaf's relative L2 gradient
+    error), ``worst`` (the largest, with its path), ``mismatches`` (under
+    remat, the kernel run's rerun's expert ids that differ from its
+    forward's, over every MoE layer; None without MoE) and with ``keep``
+    both runs' gradients, ``grads`` (kernels, plain)."""
+    import dataclasses
 
     named = tree.paths(params)
-    leaves = [leaf.requires_grad_(True) for _, leaf in named]
     plain = dataclasses.replace(cfg, matmul_backend="torch")
-    losses, flat = [], []
-    for c, fused in ((cfg, None), (plain, False)):
-        loss = tf_model.loss_fn(params, c, batch, fused_ce=fused)
-        flat.append(torch.autograd.grad(loss, leaves))
-        losses.append(float(loss.detach()))
-        del loss
-    for leaf in leaves:
-        leaf.requires_grad_(False)
-    norms = [float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in gs))) for gs in flat]
-    worst = (0.0, "")
-    for (path, _), a, b in zip(named, *flat):
-        rel = float(torch.linalg.vector_norm((a - b).float()) / torch.linalg.vector_norm(b.float()).clamp(min=1e-30))
-        worst = max(worst, (rel, path))
-    return losses, norms, worst
+    trace = {} if cfg.is_moe else None
+    lk, gk = step_grads(params, cfg, batch, tree, tf_model, moe_trace=trace)
+    mismatches = None
+    if trace is not None:
+        rerun = trace.get("recompute_ids", {})
+        if cfg.remat == "block" and sorted(rerun) != list(range(cfg.n_layers)):
+            raise AssertionError(f"the remat rerun recorded the routing of layers {sorted(rerun)}")
+        mismatches = sum(int((rerun[i] != ids).sum()) for i, ids in enumerate(trace["ids"]) if i in rerun)
+    lp, gp = step_grads(params, plain, batch, tree, tf_model,
+                        moe_trace={"replay_ids": trace["ids"]} if replay and trace is not None else None)
+    rel = {path: rel_l2(a, b) for (path, _), a, b in zip(named, gk, gp)}
+    out = {"losses": (lk, lp), "norms": (grad_norm(gk), grad_norm(gp)), "rel": rel,
+           "worst": max((v, k) for k, v in rel.items()), "mismatches": mismatches}
+    if keep:
+        out["grads"] = (gk, gp)
+    return out
 
 
 def clone_tree(t):
@@ -454,33 +513,15 @@ def main():
         """Each kernel's launches since the counts were last set to 0."""
         return {k: c.launches for k, c in counters.items()}
 
-    # the kernels that a wrapper call launches once (a split-K reduce after
-    # one is part of the same call), by name and by the counters
-    product_kernels = ("dip_mma_kernel", "dip_wgmma_kernel", "dip_matmul_kernel", "dip_mma_s8_kernel",
-                       "dip_wgmma_s8_kernel", "dip_matmul_q_kernel")
-
     def kernels_by_name(by_kernel):
+        """A profiler trace's kernels (demangled names) in the groups of
+        ``graphs.kernels_by_group``."""
         base = {}
         for key, (count, _) in by_kernel.items():
             m = re.search(r"(\w+_kernel)\s*[<(]", key)
             if m:
                 base[m.group(1)] = base.get(m.group(1), 0) + count
-        return {"dip products": sum(base.get(nm, 0) for nm in product_kernels),
-                "quantizing passes": base.get("quantize_int8_kernel", 0),
-                "wavefront": base.get("dip_systolic_kernel", 0),
-                "flash tensor_cores": base.get("flash_tc_kernel", 0),
-                "flash split_kv": base.get("flash_split_kernel", 0),
-                "flash cuda_cores": base.get("flash_attention_kernel", 0)}
-
-    def kernels_by_counter(delta):
-        def d(fn, nm="launches"):
-            return delta.get((fn, nm), 0)
-        return {"dip products": d(dip_matmul) + d(dip_matmul_q),
-                "quantizing passes": d(dip_matmul_q, "launches_quant"),
-                "wavefront": d(dip_systolic),
-                "flash tensor_cores": d(flash_attention, "launches_tc") - d(flash_attention, "launches_split"),
-                "flash split_kv": d(flash_attention, "launches_split"),
-                "flash cuda_cores": d(flash_attention) - d(flash_attention, "launches_tc")}
+        return graphs.kernels_by_group(base)
 
     def profile_call(fn, reset, what, top=12):
         """One synchronised call under the profiler (``reset()`` first,
@@ -524,9 +565,12 @@ def main():
         reads equal bit for bit, their argmax equal and the caches after the
         call equal but for the null block (``live_rows``); then 10 timed
         calls of each after 2 warm-ups (the cache put back before each,
-        outside the clock), one profiled call of each, and the profiled
-        replay's kernels counted by name against the counters' increase
-        over it.  No launch made here counts on the path."""
+        outside the clock), one profiled call of each, and the captured
+        graph's kernel nodes counted by name (``CapturedStep.kernel_nodes``:
+        what every replay launches) against the counters' increase over one
+        replay, exactly; the profiled replay's trace gives the device time,
+        and its kernels by name are printed beside them.  No launch made
+        here counts on the path."""
         a, snap = held
         params, cache, inputs = a[0], a[1], a[2:]
         dev_in = tuple(t.to(dev) for t in inputs)
@@ -570,12 +614,17 @@ def main():
                 wall[name] = 1e3 * statistics.median(ts[2:])
             before = graphs.launch_counts()
             prof_r = profile_call(replay, reset_replay, f"{what}, one replay")
-            delta = {k: n - before[k] for k, n in graphs.launch_counts().items()}
+            by_counter = graphs.counters_by_group(
+                {k: n - before[k] for k, n in graphs.launch_counts().items()})
             prof_e = profile_call(run_eager, reset_eager, f"{what}, the eager step", top=0)
         del scratch
         replay_kernels[what] = prof_r["by_kernel"]
-        by_name, by_counter = kernels_by_name(prof_r["by_kernel"]), kernels_by_counter(delta)
-        cap = captured.captures[tuple(tuple(t.shape) for t in inputs)]
+        key = tuple(tuple(t.shape) for t in inputs)
+        by_graph = graphs.kernels_by_group(captured.kernel_nodes(key))
+        by_trace = kernels_by_name(prof_r["by_kernel"])
+        trace_short = sum(by_graph.values()) - sum(by_trace.values())
+        trace_checks.append((what, trace_short))
+        cap = captured.captures[key]
         out = {"replay_ms": wall["replay"], "eager_ms": wall["eager"], "replay_device_ms": prof_r["device_ms"],
                "replay_launches": prof_r["launches"], "eager_device_ms": prof_e["device_ms"],
                "eager_launches": prof_e["launches"],
@@ -584,21 +633,24 @@ def main():
                "replay_profiled_wall_ms": prof_r["wall_ms"], "eager_profiled_wall_ms": prof_e["wall_ms"],
                "eager_host_ms": prof_e["host_ms"], "flash_ms": prof_r["flash_ms"],
                "capture_s": cap["seconds"], "bit_equal": bit_equal, "max_abs_diff": diff,
-               "tokens_equal": tokens_equal, "caches_equal": caches_equal, "kernels_by_name": by_name}
+               "tokens_equal": tokens_equal, "caches_equal": caches_equal, "graph_kernels": by_graph,
+               "trace_kernels": by_trace}
         log(f"  {what}: replay {wall['replay']:.3f} ms against the eager step's {wall['eager']:.3f} ms of wall "
             f"(median of 10); one replay {prof_r['device_ms']:.3f} ms of device time in {prof_r['launches']} "
             f"launches, idle {100 * out['replay_idle']:.1f}% (eager: {prof_e['device_ms']:.3f} ms in "
             f"{prof_e['launches']}, idle {100 * out['eager_idle']:.1f}%); capture {cap['seconds']:.2f} s; "
             f"logits bit-equal {bit_equal} (max|diff| {diff:.3e}), argmax equal {tokens_equal}, caches equal "
             f"{caches_equal}; ({gpu})")
-        log(f"  {what}: the replay's kernels by name {by_name}; by the counters {by_counter}")
+        log(f"  {what}: the graph's kernel nodes by name {by_graph}; by the counters {by_counter}; in the "
+            f"profiled replay's trace {by_trace} ({trace_short} fewer than the graph's)")
         if not (bit_equal and tokens_equal and caches_equal):
             raise AssertionError(f"{what}: the replay differs from the eager step on the same inputs")
-        if by_name != by_counter or not any(by_name.values()):
-            raise AssertionError(f"{what}: the profiled replay's kernels differ from the counters' increase")
+        if by_graph != by_counter or not any(by_graph.values()):
+            raise AssertionError(f"{what}: the captured graph's kernels differ from the counters' increase")
         return out
 
     replay_kernels = {}  # graph_check's profiled replay: device ms by kernel, by what it checked
+    trace_checks = []  # graph_check: (what, the graph's counted kernels missing from the profiled trace)
 
     def graph_pool_gib(*steps):
         """The device memory the captures of an engine's steps reserved in
@@ -715,11 +767,23 @@ def main():
         pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
         return x, p, eops, dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops)
 
+    # musicgen-medium's projections (phase 6e's training path): wq / wk /
+    # wv / wo 1536 x 1536, gate+up 1536 -> 6144, down 6144 -> 1536
+    mg = get_config("musicgen-medium")
+    mg_proj = [("musicgen wq", mg.d_model, mg.n_heads * mg.resolved_head_dim, "none", "rmsnorm"),
+               ("musicgen wo", mg.n_heads * mg.resolved_head_dim, mg.d_model, "residual", "none"),
+               ("musicgen gate+up", mg.d_model, mg.d_ff, "swiglu", "rmsnorm"),
+               ("musicgen down", mg.d_ff, mg.d_model, "residual", "none")]
+    assert [(k, n) for _, k, n, _, _ in mg_proj] == [(1536, 1536), (1536, 1536), (1536, 6144), (6144, 1536)]
+
     # M = 4 and 256: a serving decode step and prefill chunk; M = 4096: the
-    # training path's batch 4 x seq 1024 through every projection it sends
-    # to this kernel (its lm_head goes through lm_head_ce), so tiles past row
-    # 256 are held too; M = 4092: a ragged last row tile at that size
-    dip_cases = [(4, proj + ds_proj), (256, proj + extra + ds_proj), (4096, proj[:5]), (4092, proj[2:3])]
+    # training paths' batch 4 x seq 1024 through every projection they send
+    # to this kernel (llama3-8b's, DeepSeek-V2-Lite's with w_krope's single
+    # 64-wide tile, musicgen-medium's; their lm_heads go through
+    # lm_head_ce), so tiles past row 256 are held too; M = 4092: a ragged
+    # last row tile at that size
+    dip_cases = [(4, proj + ds_proj), (256, proj + extra + ds_proj), (4096, proj[:5] + ds_proj[:-1] + mg_proj),
+                 (4092, proj[2:3])]
     worst = {"dip_matmul": 0.0, "flash_attention": 0.0, "lm_head_ce": 0.0}
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -765,11 +829,15 @@ def main():
     # logical width (the shim pads K, N and the residual and crops the
     # output), against the same call with the plain versions on the card:
     # M = 1 (the prefill tail's single-token forwards), 4 (a decode step),
-    # 256 (a prefill chunk)
+    # 256 (a prefill chunk); and in bf16 M = 4096, the training batch (phases
+    # 6c / 6d: in_proj's padded tile, out_proj's K = 5120; the heads go
+    # through lm_head_ce)
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
-        for m in (1, 4, 256):
+        for m in (1, 4, 256) + ((4096,) if dt_name == "bfloat16" else ()):
             for label, k, n, e, pr in ssm_proj:
+                if m == 4096 and label.endswith("lm_head"):
+                    continue
                 x = torch.randn(m, k, generator=g, device=dev).to(dtype)
                 ws = [api.DipWeight.from_natural((torch.randn(k, n, generator=g, device=dev) * k ** -0.5).to(dtype))
                       for _ in range(2 if epi.spec(e).dual_weight else 1)]
@@ -908,6 +976,40 @@ def main():
             del x, w, got, want
     if not pad_splits_seen:
         raise AssertionError("lm_head_ce: no case had a vocab split wholly in the padding")
+    # the families' training heads (phases 6b-6e), bf16 x against the f32
+    # head at T = 4092: (d_model, padded vocab, vocab) of DeepSeek-V2-Lite,
+    # Zamba2 (32000 of 32768 real), Mamba2 (the tied head: embed.t(), a
+    # (d, Vp) view of the (Vp, d) embedding, which the wrapper copies
+    # contiguous; 50280 of 51200 real) and musicgen-medium; the split count
+    # stays under the grid limit and the padded lanes are masked
+    fam_heads = [(f.name, f.d_model, f.padded_vocab, f.vocab_size, f.tie_embeddings)
+                 for f in (ds, zb, mb, mg)]
+    assert [h[1:] for h in fam_heads] == [(2048, 102400, 102400, False), (2560, 32768, 32000, False),
+                                          (1024, 51200, 50280, True), (1536, 2048, 2048, False)]
+
+    def fam_head_inputs(t, fd, fvp, fvocab, tied):
+        x = torch.randn(t, fd, generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn(fvp, fd, generator=g, device=dev).t() if tied else torch.randn(fd, fvp, generator=g,
+                                                                                        device=dev)
+        labels = torch.randint(0, fvocab, (t,), generator=g, device=dev, dtype=torch.int32)
+        labels[::5] = ce.IGNORE_INDEX
+        return x, w * fd ** -0.5, labels
+
+    for fname, fd, fvp, fvocab, tied in fam_heads:
+        x, w, labels = fam_head_inputs(4092, fd, fvp, fvocab, tied)
+        tiles, splits = ce.split_plan(4092, fvp, sms, fvocab)
+        before = ce.lm_head_ce.launches
+        with torch.no_grad():
+            got = ce.lm_head_ce(x, w, labels, vocab_size=fvocab)
+        want = ce.lm_head_ce_plain(x, w, labels, vocab_size=fvocab)
+        if ce.lm_head_ce.launches != before + 1 or splits > 65535:
+            raise AssertionError(f"lm_head_ce {fname}: {ce.lm_head_ce.launches - before} launches, {splits} splits")
+        label = (f"lm_head_ce bfloat16 x float32 {fname} T=4092 D={fd} Vp={fvp} vocab={fvocab} ({splits} splits"
+                 f"{', the tied head embed.t()' if tied else ''})")
+        err = max(close(f"{label} logz", got[0], want[0], TOL["float32"]),
+                  close(f"{label} label logit", got[1], want[1], TOL["float32"]))
+        worst["lm_head_ce"] = max(worst["lm_head_ce"], err)
+        del x, w, labels, got, want
     # the part count: the bf16 x f32 function with the head cut to two bf16
     # parts (hi + mid, whose f32 sum is exact), in plain torch at the training
     # shape, against the same TOL; printed for the record (the kernel takes
@@ -1177,11 +1279,29 @@ def main():
                 del x, p, eops, got, want
     torch.cuda.synchronize()
 
+    def dip_per_forward(c):
+        """The DiP projections a forward launches, counted from the
+        template: every DiP-stored linear of a layer (gate and up one
+        swiglu launch) times the layers, the hybrid's shared block times
+        its sites, and a separate head.  MLA's w_uk and w_uv are absorbed
+        (de-sheared and contracted per head outside the kernel, as in the
+        reference), so they launch nothing."""
+        t = tf_model.param_template(c)
+
+        def count(sub):
+            names = {nm for nm, leaf in sub.items() if leaf[3] is not None and nm not in ("w_uk", "w_uv")}
+            return len(names) - len({nm for nm in names if nm.endswith("w_up") and nm[:-2] + "gate" in names})
+
+        n = count(t["layers"]) * c.n_layers + int("lm_head" in t)
+        if "shared_attn" in t:
+            n += count(t["shared_attn"]) * (c.n_layers // c.attn_every)
+        return n
+
     # ---------------------------------------- 3. reduced model, card vs CPU --
     log("phase 3: reduced llama3-8b served on the card against the CPU: dip (f32), dip_int8w with the "
         "int8 KV pool (f32), dip_fp8 (bf16), pallas_systolic (f32); reduced deepseek-v2-lite-16b, "
         "zamba2-2.7b and mamba2-370m (dip, f32; dip_fp8, bf16); reduced "
-        "yi-9b and codeqwen1.5-7b (dip, bf16)")
+        "yi-9b and codeqwen1.5-7b (dip, bf16); reduced phi-3-vision-4.2b and musicgen-medium from tokens (dip, f32)")
     rcfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
                                param_dtype="float32", compute_dtype="float32")
     cpu_params = tf_model.init_params(rcfg, make_generator(SEED, "cpu"), "cpu")
@@ -1258,6 +1378,9 @@ def main():
     variants += [(f"{nm} reduced, dip, bf16", nm, dict(matmul_backend="dip", param_dtype="bfloat16",
                                                       compute_dtype="bfloat16"), "bf16")
                  for nm in ("yi-9b", "codeqwen1.5-7b")]
+    # the stub frontends' dense decoders, served from tokens as the
+    # reference serves them (training feeds them embeddings: phase 4)
+    variants += [(f"{nm} reduced, dip, f32", nm, f32_dip, "f32") for nm in ("phi-3-vision-4.2b", "musicgen-medium")]
     for label, arch_name, fields, kind in variants:
         vcfg = dataclasses.replace(get_config(arch_name).reduced(), **fields)
         vparams = cpu_params if vcfg == rcfg else tf_model.init_params(vcfg, make_generator(SEED, "cpu"), "cpu")
@@ -1287,7 +1410,7 @@ def main():
 
     # ------------------------------------ 4. reduced training, card vs CPU --
     log("phase 4: reduced llama3-8b, f32, dip backend: 3 Trainer steps, card against CPU, "
-        "with a checkpoint and a resume")
+        "with a checkpoint and a resume; then the reduced MoE, SSM, hybrid and stub-frontend families the same")
     ckpt_root = os.path.join(ROOT, "build", "chip_smoke_ckpt")
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
@@ -1338,6 +1461,45 @@ def main():
         f"{whole['loss']:.7f} uninterrupted; bit-exact: {bit_exact}")
     shutil.rmtree(ckpt_root, ignore_errors=True)
     del cpu_params, runs, resumed
+
+    # the families that train since phases 6b-6e, reduced, f32 on dip: the
+    # MoE + MLA and the MoE + GQA models, the hybrid, the SSM (tied head) and
+    # the stub frontends' decoders fed the pipeline's embeddings; 3 Trainer
+    # steps on the card against the CPU from the same weights, within
+    # TRAIN_TOL; per step one forward's DiP launches but the head (remat is
+    # off in the reduced configurations; the fused loss takes the head) and
+    # one lm_head_ce launch
+    reduced_training = {}
+    for arch_name in ("deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "mamba2-370m",
+                      "musicgen-medium", "phi-3-vision-4.2b"):
+        fcfg = dataclasses.replace(get_config(arch_name).reduced(), **f32_dip)
+        fparams = tf_model.init_params(fcfg, make_generator(SEED, "cpu"), "cpu")
+        fruns = {}
+        for where in ("cpu", "cuda"):
+            reset_counts()
+            fruns[where] = Trainer(fcfg, TrainerConfig(steps=3, ckpt_every=10 ** 9, ckpt_dir=os.path.join(
+                ckpt_root, arch_name, where), log_every=10 ** 9), seq_len=64, global_batch=4, device=where).run(
+                params=to_dev(fparams) if where == "cuda" else tree.map_tree(lambda t: t.clone(), fparams))
+        got = read_counts()
+        head = int("lm_head" in tf_model.param_template(fcfg))
+        want = dict(dip_matmul=3 * (dip_per_forward(fcfg) - head), dip_matmul_q=0, dip_systolic=0,
+                    flash_attention=0, lm_head_ce=3)
+        if got != want:
+            raise AssertionError(f"reduced {arch_name} training: card launches {got}, expected {want}")
+        errs = []
+        for a, b in zip(fruns["cuda"]["metrics"], fruns["cpu"]["metrics"]):
+            for k in ("loss", "grad_norm"):
+                errs.append(abs(a[k] - b[k]) / max(1.0, abs(b[k])))
+                if errs[-1] > TRAIN_TOL or not np.isfinite(a[k]):
+                    raise AssertionError(f"reduced {arch_name} training: step {a['step']} {k} card {a[k]} cpu {b[k]}")
+        reduced_training[arch_name] = {"losses_card": [m["loss"] for m in fruns["cuda"]["metrics"]],
+                                       "worst_rel": max(errs), "launches": got}
+        log(f"  {arch_name} reduced, f32, 3 Trainer steps: card losses "
+            f"{[round(m['loss'], 6) for m in fruns['cuda']['metrics']]}, worst |card - cpu| "
+            f"{max(errs):.2e} of max(1, |cpu|) over losses and gradient norms (limit {TRAIN_TOL:g}); card launches "
+            f"{got}")
+        del fparams, fruns
+    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # the quantized straight-through backward: the reduced llama3-8b in f32
     # with int8 and with fp8 weights, the loss (the fused head, the int8 /
@@ -1764,24 +1926,6 @@ def main():
     torch.cuda.empty_cache()
 
     # ----------------- helpers of the full-width families (5d - 5h) -------
-    def dip_per_forward(c):
-        """The DiP projections a forward launches, counted from the
-        template: every DiP-stored linear of a layer (gate and up one
-        swiglu launch) times the layers, the hybrid's shared block times
-        its sites, and a separate head.  MLA's w_uk and w_uv are absorbed
-        (de-sheared and contracted per head outside the kernel, as in the
-        reference), so they launch nothing."""
-        t = tf_model.param_template(c)
-
-        def count(sub):
-            names = {nm for nm, leaf in sub.items() if leaf[3] is not None and nm not in ("w_uk", "w_uv")}
-            return len(names) - len({nm for nm in names if nm.endswith("w_up") and nm[:-2] + "gate" in names})
-
-        n = count(t["layers"]) * c.n_layers + int("lm_head" in t)
-        if "shared_attn" in t:
-            n += count(t["shared_attn"]) * (c.n_layers // c.attn_every)
-        return n
-
     def weight_stats(params):
         """(parameters, GiB) of a parameter tree; a quantized weight counts
         its codes and its scales."""
@@ -2370,99 +2514,249 @@ def main():
         ["--quantize", "int8"], "int8")
     routes_by_path.update(serve_zamba2_int8=routes_zbq, serve_mamba2_int8=routes_mbq)
 
+    short = [(w, n) for w, n in trace_checks if n]
+    log(f"  the profiler's trace of a replay lacked records of counted kernels in {len(short)} of "
+        f"{len(trace_checks)} graph checks: {short}")
+
     # ------------------------------------------- 6. full-width training -----
+    t_batch, t_seq, t_steps, t_lr = 4, 1024, 4, 3e-4
+
+    def padding_nonzero(w):
+        """Nonzero elements of a ``DipWeight``'s padding (rows past d_in,
+        columns past d_out of each natural matrix), one layer at a time."""
+        n = 0
+        for mat in w.data.reshape((-1,) + tuple(w.data.shape[-2:])):
+            nat = permute.unpermute_tiled(mat, w.perm_tile)
+            n += int((nat[w.d_in:] != 0).sum()) + int((nat[:, w.d_out:] != 0).sum())
+        return n
+
+    def padded_dips(t, keys=()):
+        """(keys, DipWeight) of every DiP leaf whose logical shape leaves padding."""
+        if isinstance(t, dict):
+            for k, v in t.items():
+                yield from padded_dips(v, keys + (k,))
+        elif isinstance(t, api.DipWeight) and (t.d_in % t.perm_tile or t.d_out % t.perm_tile):
+            yield keys, t
+
+    def at(t, keys):
+        for k in keys:
+            t = t[k]
+        return t
+
+    def train_family(phase, arch_name, layers=None):
+        """One model trained at full width through ``launch.train`` (f32
+        parameters, bf16 compute, block remat, batch 4 x 1024, 4 AdamW steps,
+        the launcher's schedule), with its gates: the first step through the
+        kernels against plain PyTorch in f32 and bf16 compute (a MoE model's
+        plain run replaying the kernels' expert ids; a recurrent stack's bf16
+        step, where it misses FIRST_STEP_TOL, held to no further from the f32
+        plain run than F32_DRIFT times the bf16 plain run), 0 expert ids of
+        the remat rerun that differ from the forward's, the launches of the
+        4 steps (per step, twice every DiP projection of a forward but the
+        head, which the fused loss takes: forward and remat rerun; one
+        lm_head_ce, no flash), every padded DiP leaf's padding and both its
+        moments exactly 0 after the steps, finite losses, and a run resumed
+        from the step-3 checkpoint whose step 4 is the uninterrupted one's."""
+        base = get_config(arch_name)
+        c = dataclasses.replace(base, matmul_backend="dip", n_layers=layers or base.n_layers)
+        assert (c.param_dtype, c.compute_dtype, c.remat) == ("float32", "bfloat16", "block")
+        cut = f"{c.n_layers} of {base.n_layers} layers" + (" (cut)" if layers else " (all)")
+        data = SyntheticLM(vocab_size=c.vocab_size, seq_len=t_seq, global_batch=t_batch, seed=SEED,
+                           emit_embeddings=c.d_model if c.frontend != "none" else None)
+        head = int("lm_head" in tf_model.param_template(c))
+        per_step = 2 * (dip_per_forward(c) - head)
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() / 2**30
+        log(f"  {arch_name}: {cut}, d_model {c.d_model}, vocab {c.vocab_size} (padded {c.padded_vocab}), "
+            f"{'tied head, ' if c.tie_embeddings else ''}{'fed embeddings, ' if c.frontend != 'none' else ''}"
+            f"{per_step} DiP launches per step expected; allocated before the phase: {left:.2f} GiB")
+        if left > 1.0:
+            raise AssertionError(f"phase {phase}: the earlier phases left tensors on the card")
+        result = {"layers": c.n_layers, "published_layers": base.n_layers}
+        t_phase = time.perf_counter()
+
+        # the first step: the launcher's weights from the seed and its first batch
+        params = tf_model.init_params(c, make_generator(SEED, "cuda"), "cuda")
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(0).items()}
+        drift = bool(c.ssm_state)
+        f32_plain = None
+        with uncounted():
+            for cd in ("float32", "bfloat16"):
+                first = first_step_against_plain(params, dataclasses.replace(c, compute_dtype=cd), batch, tree,
+                                                 tf_model, replay=c.is_moe, keep=drift)
+                (lk, lp), (nk, npl), (err, path) = first["losses"], first["norms"], first["worst"]
+                mismatches, grads, leaf_rel = first["mismatches"], first.get("grads"), first["rel"]
+                del first
+                tl, tn, tg = FIRST_STEP_TOL[cd]
+                direct = (abs(lk - lp) <= tl * max(1.0, abs(lp)), abs(nk - npl) <= tn * max(1.0, npl), err <= tg)
+                row = {"loss": (lk, lp), "grad_norm": (nk, npl), "worst_leaf": (err, path),
+                       "expert_id_mismatches_remat": mismatches, "within_tol": all(direct)}
+                replayed = " (its routing replayed)" if c.is_moe else ""
+                log(f"  first step, {cd} compute, kernels / plain PyTorch{replayed}: loss {lk:.6f} / {lp:.6f}, "
+                    f"gradient norm {nk:.5f} / {npl:.5f}, worst leaf relative L2 error {err:.2e} ({path}); "
+                    f"limits {tl:g}, {tn:g}, {tg:g}: {'within' if all(direct) else 'outside'}")
+                if mismatches is not None:
+                    log(f"  first step, {cd}: expert ids of the remat rerun that differ from the forward's, over "
+                        f"{c.n_layers} MoE layers: {mismatches}")
+                    if mismatches:
+                        raise AssertionError(f"phase {phase}: the remat rerun routed differently from the forward")
+                if cd == "float32":
+                    if not all(direct):
+                        raise AssertionError(f"phase {phase}: the first f32 step through the kernels differs from "
+                                             f"plain PyTorch")
+                    if drift:
+                        f32_plain = (lp, npl, grads[1])
+                elif drift:
+                    # the kernels' projections with the unfused loss (bf16
+                    # logits, as the plain run's): how far the fused loss
+                    # alone moves the bf16 step from the f32 plain run
+                    lu, gu = step_grads(params, dataclasses.replace(c, compute_dtype=cd), batch, tree, tf_model,
+                                        fused_ce=False)
+                    nu = grad_norm(gu)
+                    l32, n32, g32 = f32_plain
+                    row["kernels_unfused_loss"] = {"loss": lu, "grad_norm": nu, "f32_distance": {
+                        "loss": abs(lu - l32), "grad_norm": abs(nu - n32),
+                        "worst_leaf": max(rel_l2(a, b) for a, b in zip(gu, g32))}}
+                    del gu
+                    log(f"  first step, bf16, the kernels' projections with the unfused loss: loss {lu:.6f}, gradient "
+                        f"norm {nu:.5f}; distance to the f32 plain run: loss {abs(lu - l32):.3e}, gradient norm "
+                        f"{abs(nu - n32):.3e}, worst leaf relative L2 "
+                        f"{row['kernels_unfused_loss']['f32_distance']['worst_leaf']:.3e}")
+                if cd == "bfloat16" and not all(direct):
+                    if not drift:
+                        raise AssertionError(f"phase {phase}: the first bf16 step through the kernels differs from "
+                                             f"plain PyTorch")
+                    # each bound the bf16 step misses is held instead to the
+                    # f32 plain run: the kernels' value (the loss, the norm,
+                    # each leaf missing the leaf bound) may sit no further
+                    # from it than F32_DRIFT x the bf16 plain run's
+                    l32, n32, g32 = f32_plain
+                    (dlk, dnk, dgk), (dlp, dnp, dgp) = (
+                        (abs(lx - l32), abs(nx - n32), [rel_l2(a, b) for a, b in zip(gx, g32)])
+                        for lx, nx, gx in ((lk, nk, grads[0]), (lp, npl, grads[1])))
+                    missed = [nm for nm, ok in zip(("loss", "gradient norm", "leaves"), direct) if not ok]
+                    bad = [path for (path, _), a, b, rel in zip(tree.paths(params), dgk, dgp, leaf_rel.values())
+                           if rel > tg and a > F32_DRIFT * b]
+                    ok = ((direct[0] or dlk <= F32_DRIFT * dlp) and (direct[1] or dnk <= F32_DRIFT * dnp)
+                          and (direct[2] or not bad))
+                    beyond = {path: (round(a, 5), round(b, 5)) for (path, _), a, b, rel in
+                              zip(tree.paths(params), dgk, dgp, leaf_rel.values()) if rel > tg}
+                    row["f32_distance"] = {"loss": (dlk, dlp), "grad_norm": (dnk, dnp),
+                                           "leaves_beyond_tol_kernels_plain": beyond}
+                    log(f"  first step, bf16: outside the bound in {missed}; distance to the f32 plain run, kernels / "
+                        f"plain: loss {dlk:.3e} / {dlp:.3e}, gradient norm {dnk:.3e} / {dnp:.3e}, each leaf beyond "
+                        f"{tg:g} against plain (relative L2, kernels / plain): {beyond}; limit {F32_DRIFT:g} x the plain "
+                        f"run's: {'met' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"phase {phase}: the bf16 first step through the kernels drifts further "
+                                             f"from f32 than plain PyTorch does ({bad or missed})")
+                result[f"first_step_{cd}"] = row
+                del grads
+        del params, batch, f32_plain
+        torch.cuda.empty_cache()
+        result["first_step_checks_s"] = time.perf_counter() - t_phase
+
+        # 4 steps through the launcher, a checkpoint at step 3
+        ckdir = os.path.join(ckpt_root, arch_name)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        argv = ["--arch", arch_name, "--full", "--steps", str(t_steps), "--batch", str(t_batch), "--seq", str(t_seq),
+                "--lr", str(t_lr), "--seed", str(SEED), "--ckpt-dir", ckdir, "--ckpt-every", "3"]
+        argv += ["--layers", str(layers)] if layers else []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = train_cli.main(argv)
+        run_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak = (torch.cuda.max_memory_allocated() / 2**30, torch.cuda.max_memory_reserved() / 2**30)
+        metrics = out["metrics"]
+        if len(metrics) != t_steps or not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
+            raise AssertionError(f"phase {phase}: expected {t_steps} finite steps, got {metrics}")
+        want = dict(dip_matmul=per_step * t_steps, dip_matmul_q=0, dip_systolic=0, flash_attention=0,
+                    lm_head_ce=t_steps)
+        log(f"  launches {launches}; expected {want}")
+        if launches != want:
+            raise AssertionError(f"phase {phase}: launch counts differ from the expected ones")
+        state = out["state"]
+        pads = {}
+        for keys, w in padded_dips(state["params"]):
+            pads["/".join(keys)] = [padding_nonzero(w)] + [padding_nonzero(at(state["opt_state"][m], keys))
+                                                           for m in ("mu", "nu")]
+        log(f"  nonzero padding elements after {t_steps} steps (parameter, mu, nu) of each padded DiP leaf: {pads}")
+        if any(any(v) for v in pads.values()):
+            raise AssertionError(f"phase {phase}: a DiP leaf's padding moved")
+        n_params = sum(t.numel() for t in tree.leaves(state["params"]))
+        step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
+        result.update(parameters=n_params, losses=[m["loss"] for m in metrics],
+                      grad_norms=[m["grad_norm"] for m in metrics], step_times_s=[m["step_time_s"] for m in metrics],
+                      median_step_s_steps_2_to_4=step_s, tokens_per_s=t_batch * t_seq / step_s,
+                      peak_allocated_gib=peak[0], peak_reserved_gib=peak[1], run_s=run_s,
+                      launches_per_step={k: v / t_steps for k, v in launches.items()}, padding_nonzero=pads)
+
+        # one more step, split by CUDA events (loss forward, backward, AdamW)
+        # and profiled: device time by kernel
+        opt = AdamW(lr=cosine_schedule(t_lr, 10, t_steps))
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(t_steps).items()}
+        leaves = [leaf.requires_grad_(True) for leaf in tree.leaves(state["params"])]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with uncounted(), torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            loss = tf_model.loss_fn(state["params"], c, batch)
+            ev[1].record()
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            ev[2].record()
+            grads = [torch.zeros_like(p) if gr is None else gr for p, gr in zip(leaves, grads)]
+            opt.update(tree.unflatten(state["params"], grads), state["opt_state"], state["params"])
+            ev[3].record()
+            torch.cuda.synchronize()
+        split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(("forward_ms", "backward_ms", "adamw_ms"))}
+        kernel_ms = {}
+        for e in prof.key_averages():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                us = getattr(e, "self_device_time_total", None)
+                kernel_ms[e.key] = (e.count, (us if us is not None else e.self_cuda_time_total) / 1e3)
+        device_ms = sum(v[1] for v in kernel_ms.values())
+        top = sorted(kernel_ms.items(), key=lambda kv: -kv[1][1])[:10]
+        result.update(profiled_step=dict(split, device_ms=device_ms,
+                                         top_kernels=[(k[:90], n, ms) for k, (n, ms) in top]))
+        log(f"  step {t_steps + 1} (profiled): " + json.dumps(split) + f"; device ms of all kernels {device_ms:.1f}")
+        for key, (count, ms) in top:
+            log(f"    {ms:9.2f} ms  x{count:<5d} {key[:110]}")
+        del grads, loss, leaves, batch, prof, out, state, opt
+        torch.cuda.empty_cache()
+
+        # the run resumed from its step-3 checkpoint: step 4 again
+        t0 = time.perf_counter()
+        again = train_cli.main(argv)
+        resume_s = time.perf_counter() - t0
+        am = again["metrics"]
+        if [int(m["step"]) for m in am] != [t_steps]:
+            raise AssertionError(f"phase {phase}: the resumed run ran steps {[m['step'] for m in am]}")
+        bit_exact = all(am[0][k] == metrics[-1][k] for k in ("loss", "grad_norm"))
+        for k in ("loss", "grad_norm"):
+            if abs(am[0][k] - metrics[-1][k]) > RESUME_TOL * max(1.0, abs(metrics[-1][k])):
+                raise AssertionError(f"phase {phase}: resumed step {t_steps} {k} {am[0][k]} against {metrics[-1][k]}")
+        result.update(resumed_step=dict(loss=am[0]["loss"], grad_norm=am[0]["grad_norm"], bit_exact=bit_exact,
+                                        run_s=resume_s))
+        log(f"  resumed from the step-3 checkpoint: step {t_steps} loss {am[0]['loss']:.7f} against "
+            f"{metrics[-1]['loss']:.7f}, gradient norm {am[0]['grad_norm']:.6f} against {metrics[-1]['grad_norm']:.6f}; "
+            f"bit-exact: {bit_exact} (run {resume_s:.1f} s with the restore)")
+        del again
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        result["phase_s"] = time.perf_counter() - t_phase
+        log(f"  {phase} " + json.dumps({k: v for k, v in result.items() if k != "profiled_step"}) + f" ({gpu})")
+        return result, launches
+
     log("phase 6: llama3-8b full width cut to 4 layers (f32 params, bf16 compute, dip, block remat) "
         "through launch.train")
     c = dataclasses.replace(arch, n_layers=4, matmul_backend="dip")
-    assert (c.param_dtype, c.compute_dtype, c.remat) == ("float32", "bfloat16", "block")
     assert (c.d_model, c.n_heads, c.n_kv_heads, c.resolved_head_dim, c.d_ff, c.vocab_size, c.padded_vocab) == (
         4096, 32, 8, 128, 14336, 128256, 129024)
-    t_batch, t_seq, t_steps, t_lr = 4, 1024, 4, 3e-4
+    training, train_launches = train_family("6", "llama3-8b", c.n_layers)
     data = SyntheticLM(vocab_size=c.vocab_size, seq_len=t_seq, global_batch=t_batch, seed=SEED)
     plain = dataclasses.replace(c, matmul_backend="torch")
-    # the launcher's first step (its weights from the seed, its first batch)
-    # through the kernels and through plain PyTorch, in f32 compute and in the
-    # configuration's bf16 compute
-    params = tf_model.init_params(c, make_generator(SEED, "cuda"), "cuda")
-    batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(0).items()}
-    for cd in ("float32", "bfloat16"):
-        (lk, lp), (nk, npl), (err, path) = first_step_against_plain(
-            params, dataclasses.replace(c, compute_dtype=cd), batch, tree, tf_model)
-        tl, tn, tg = FIRST_STEP_TOL[cd]
-        log(f"  first step, {cd} compute, kernels / plain PyTorch: loss {lk:.6f} / {lp:.6f}, "
-            f"gradient norm {nk:.5f} / {npl:.5f}, worst leaf relative L2 error {err:.2e} ({path}); "
-            f"limits {tl:g}, {tn:g}, {tg:g}")
-        if abs(lk - lp) > tl * max(1.0, abs(lp)) or abs(nk - npl) > tn * max(1.0, npl) or not err <= tg:
-            raise AssertionError(f"full-width training: the first step through the kernels differs from "
-                                 f"plain PyTorch in {cd} compute")
-    del params, batch
-    torch.cuda.empty_cache()
-    shutil.rmtree(ckpt_root, ignore_errors=True)
-    torch.cuda.reset_peak_memory_stats()
-    dip_matmul.launches = flash_attention.launches = ce.lm_head_ce.launches = 0
-    out = train_cli.main(["--arch", "llama3-8b", "--full", "--layers", str(c.n_layers), "--steps", str(t_steps),
-                          "--batch", str(t_batch), "--seq", str(t_seq), "--lr", str(t_lr), "--seed", str(SEED),
-                          "--ckpt-dir", os.path.join(ckpt_root, "full"), "--ckpt-every", str(10 ** 9)])
-    launches = {"dip_matmul": dip_matmul.launches, "flash_attention": flash_attention.launches,
-                "lm_head_ce": ce.lm_head_ce.launches}
-    t_peak = torch.cuda.max_memory_allocated()
-    metrics = out["metrics"]
-    if len(metrics) != t_steps or not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in metrics):
-        raise AssertionError(f"full-width training: expected {t_steps} finite steps, got {metrics}")
-    # 6 DiP launches per layer forward (q, k, v, o, gate+up, down) and the
-    # same 6 again when block remat reruns the forward in the backward; the
-    # fused loss launches lm_head_ce once per step; no flash launch
-    want = {"dip_matmul": 2 * 6 * c.n_layers * t_steps, "flash_attention": 0, "lm_head_ce": t_steps}
-    log(f"  launches {launches}; expected {want} (per step: 2 x 6 x {c.n_layers} DiP, 1 lm_head_ce)")
-    if launches != want:
-        raise AssertionError("full-width training: launch counts differ from the expected ones")
-    n_params = sum(t.numel() for t in tree.leaves(out["state"]["params"]))
-    step_s = statistics.median(m["step_time_s"] for m in metrics[1:])
-    training = {
-        "parameters": n_params,
-        "losses": [m["loss"] for m in metrics],
-        "grad_norms": [m["grad_norm"] for m in metrics],
-        "step_times_s": [m["step_time_s"] for m in metrics],
-        "median_step_s_steps_2_to_4": step_s,
-        "tokens_per_s": t_batch * t_seq / step_s,
-        "peak_memory_gib": t_peak / 2**30,
-        "launches_per_step": {k: v / t_steps for k, v in launches.items()},
-    }
-    log("  training " + json.dumps(training))
-    train_launches = launches
-
-    # one more step, split by CUDA events into the calls train_step_fn makes
-    # (loss forward, autograd backward, AdamW update), under the profiler for
-    # device time by kernel
-    state = out["state"]
-    opt = AdamW(lr=cosine_schedule(t_lr, 10, t_steps))  # the launcher's optimizer
-    batch = {k: torch.as_tensor(v).to(dev) for k, v in data.batch(t_steps).items()}
-    leaves = tree.leaves(state["params"])
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        ev[0].record()
-        loss = tf_model.loss_fn(state["params"], c, batch)
-        ev[1].record()
-        grads = torch.autograd.grad(loss, leaves)
-        ev[2].record()
-        opt.update(tree.unflatten(state["params"], grads), state["opt_state"], state["params"])
-        ev[3].record()
-        torch.cuda.synchronize()
-    split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(("forward_ms", "backward_ms", "adamw_ms"))}
-    kernel_ms = {}  # device-side events only: the kernels and copies themselves
-    for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total", None)
-            kernel_ms[e.key] = (e.count, (us if us is not None else e.self_cuda_time_total) / 1e3)
-    log(f"  step {t_steps + 1} (profiled): loss {float(loss.detach()):.4f}; " + json.dumps(split)
-        + f"; device ms of all kernels {sum(v[1] for v in kernel_ms.values()):.1f}")
-    for key, (count, ms) in sorted(kernel_ms.items(), key=lambda kv: -kv[1][1])[:16]:
-        log(f"    {ms:9.2f} ms  x{count:<5d} {key[:110]}")
-    del grads, loss, leaves
-    del out, state, batch, prof
-    torch.cuda.empty_cache()
-    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # the same 4 steps through plain PyTorch from the same weights: what the
     # configuration does under the launcher's schedule without any kernel
@@ -2486,6 +2780,19 @@ def main():
         raise AssertionError("full-width training: the plain path gave a non-finite loss")
     del params, state, step_fn
     torch.cuda.empty_cache()
+
+    # ------------------- 6b-6e. the families' training at full width -------
+    family_training, family_launches = {}, {}
+    for phase, arch_name, layers, what in (
+            ("6b", "deepseek-v2-lite-16b", 4, "MLA and 64 routed experts top-6 + 2 shared in every layer, cut to 4 "
+                                              "layers as phase 6 cuts llama3-8b"),
+            ("6c", "zamba2-2.7b", None, "54 Mamba2 layers and the shared attention+FFN block at 9 sites"),
+            ("6d", "mamba2-370m", None, "48 Mamba2 layers, the tied head"),
+            ("6e", "musicgen-medium", None, "48 dense layers fed the pipeline's embeddings")):
+        log(f"phase {phase}: {arch_name} full width ({what}; f32 params, bf16 compute, dip, block remat) "
+            f"through launch.train")
+        family_training[arch_name], family_launches[arch_name] = train_family(phase, arch_name, layers)
+    shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # --------------------------------------------------------- 7. times -----
     log("phase 7: times (ms, median of 10 after 3 warm-ups, L2 flushed before each; ms: device time, "
@@ -2707,6 +3014,39 @@ def main():
                                        dtype=row["dtype"], shape=row["shape"], forward_and_backward_ms=both,
                                        backward_ms=both - row["ms"])))
         del x, w, x32
+
+    # lm_head_ce at the families' training heads (phases 6b-6e), bf16 x and
+    # the f32 head, T = 4092; bound as above, by three bf16 part products of
+    # the real columns.  The tied head (Mamba2) is embed.t(), which the
+    # wrapper copies contiguous before the launch: its ms include the copy,
+    # whose time is given on its own too
+    fam_ce_rows = []
+    for fname, fd, fvp, fvocab, tied in fam_heads:
+        x, w, labels = fam_head_inputs(t, fd, fvp, fvocab, tied)
+        x32 = x.float()
+        nbytes = t * fd * 2 + fd * fvocab * 4 + 4 * t + 8 * t
+        f32_ms, f32_by = bound_ms(nbytes, 2 * t * fd * fvocab, "float32")
+        b_ms, b_by = bound_ms(nbytes, ce.W_PARTS * 2 * t * fd * fvocab, "bfloat16")
+        with torch.no_grad():
+            row = dict(kernel="lm_head_ce", dtype="bfloat16 x float32",
+                       shape=f"{fname} T={t} D={fd} Vp={fvp} vocab={fvocab}" + (" tied: embed.t()" if tied else ""),
+                       ms=time_ms(lambda: ce.lm_head_ce(x, w, labels, vocab_size=fvocab), iters=5, warmup=1),
+                       plain_ms=time_ms(lambda: ce.lm_head_ce_plain(x, w, labels, vocab_size=fvocab),
+                                        iters=5, warmup=1),
+                       library_ms=time_ms(lambda: torch.matmul(x32, w), iters=5, warmup=1),
+                       library="torch.matmul of the same f32 product alone (no logsumexp)",
+                       bound_ms=b_ms, bound_by=b_by, bound_ms_f32_cuda_cores=f32_ms, bound_by_f32_cuda_cores=f32_by,
+                       launches_per_step=1)
+            if tied:
+                wc = w.contiguous()
+                row.update(copy_ms=time_ms(lambda: w.contiguous(), iters=5, warmup=1), copy_bytes=2 * 4 * fd * fvp,
+                           ms_without_copy=time_ms(lambda: ce.lm_head_ce(x, wc, labels, vocab_size=fvocab),
+                                                   iters=5, warmup=1))
+                del wc
+        rows_out.append(row)
+        fam_ce_rows.append(row)
+        log("  " + json.dumps(row))
+        del x, w, x32, labels
 
     # the quantized serving slice's kernels at the two launches that bound a
     # forward (gate+up, the widest projection, and the lm_head), M = 4 (a
@@ -2989,6 +3329,7 @@ def main():
              "serve_deepseek": launches_ds, "serve_zamba2": launches_zb, "serve_mamba2": launches_mb,
              "serve_deepseek_int8": launches_dsq, "serve_zamba2_int8": launches_zbq,
              "serve_mamba2_int8": launches_mbq}
+    paths.update({f"train_{nm.split('-')[0]}": n for nm, n in family_launches.items()})
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
     for pth, served in (("serve_deepseek_int8", dsq_serving), ("serve_zamba2_int8", zbq_serving),
                         ("serve_mamba2_int8", mbq_serving)):
@@ -3021,6 +3362,11 @@ def main():
             kk["zamba2_mamba2_shapes"] = [
                 {key: r[key] for key in ("shape", "route", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
                  if key in r} for r in ssm_rows if r["kernel"] == kk["name"]]
+    ce_line = next(kk for kk in kernels if kk["name"] == "lm_head_ce")
+    ce_line["family_training_shapes"] = [
+        {key: r[key] for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "copy_ms",
+                                 "copy_bytes", "ms_without_copy", "launches_per_step") if key in r}
+        for r in fam_ce_rows]
     flash_line["route_of_timed_shape"] = next(r for r in rows_out if r["kernel"] == "flash_attention"
                                               and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
     for name, scheme in (("dip_matmul_q_fp8", "fp8_e4m3"), ("dip_matmul_q_int8", "int8")):

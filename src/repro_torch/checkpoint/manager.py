@@ -24,6 +24,8 @@ naming the real dtype, as the reference stores them.
 * **Retention** — the newest ``keep`` steps are kept.
 * **Integrity** — every leaf's crc32 is in the manifest and is checked on
   restore.
+* **In place** — a restore writes into the target tree's tensors, so a
+  trainer resuming at full width holds one state on the card, not two.
 
 The reference's fault-injection points (``checkpoint.save.*``) come with
 the reliability layer.
@@ -37,7 +39,9 @@ import secrets
 import shutil
 import threading
 import zlib
-from typing import Any, Dict, List, Optional
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -81,6 +85,14 @@ def _dip_index(t: Any, prefix: str = "") -> Dict[str, Dict]:
     return out
 
 
+_THREADS = min(8, os.cpu_count() or 1)  # the threads that write or read and check the leaf files
+_READ_AHEAD_BYTES = 16 << 30  # a restore's files in host memory at once, beyond the one being copied
+
+
+def _pool() -> ThreadPoolExecutor:
+    return ThreadPoolExecutor(max_workers=_THREADS)
+
+
 def _snapshot(state: Any):
     """``(path, host array, dtype name)`` of every leaf, copied now."""
     out = []
@@ -93,12 +105,16 @@ def _snapshot(state: Any):
 def _write(path: str, snapshot, dip_index: Dict, meta: Optional[Dict]) -> None:
     tmp = f"{path}.tmp-{secrets.token_hex(4)}"
     os.makedirs(tmp, exist_ok=True)
-    index: List[Dict] = []
-    for i, (p, arr, dtype_name) in enumerate(snapshot):
+
+    def one(i):
+        p, arr, dtype_name = snapshot[i]
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
-        index.append({"path": p, "file": fname, "shape": list(arr.shape), "dtype": dtype_name,
-                      "crc32": zlib.crc32(np.ascontiguousarray(arr).tobytes())})
+        return {"path": p, "file": fname, "shape": list(arr.shape), "dtype": dtype_name,
+                "crc32": zlib.crc32(np.ascontiguousarray(arr))}
+
+    with _pool() as pool:  # the writes and the crc32 release the GIL
+        index: List[Dict] = list(pool.map(one, range(len(snapshot))))
     manifest = {"leaves": index, "meta": meta or {}, "dip_weights": dip_index}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -121,16 +137,19 @@ def _from_numpy(arr: np.ndarray, dtype_name: str, like):
         if t.dtype != like.dtype or tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"leaf is {t.dtype}{tuple(t.shape)} in the checkpoint, "
                              f"{like.dtype}{tuple(like.shape)} in the restore target")
-        return t.to(like.device)
+        with torch.no_grad():  # into the target's own storage: no second copy of the state on the card
+            return like.copy_(t)
     if tuple(t.shape) != ():
         raise ValueError(f"a scalar leaf holds shape {tuple(t.shape)} in the checkpoint")
     return type(like)(t.item())
 
 
 def restore_pytree(path: str, like: Any) -> Any:
-    """Restore into the structure of ``like`` (tensors land on the devices
-    and must have the dtypes and shapes of ``like``'s leaves; Python-number
-    leaves come back as numbers)."""
+    """Restore into the structure of ``like``: each tensor leaf is
+    overwritten in place (it must have the saved dtype and shape), so a
+    full-width state is never held twice on the card; Python-number leaves
+    come back as numbers.  A leaf that fails its check raises, and the
+    leaves before it are already overwritten."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     live_dip = _dip_index(like)
@@ -149,18 +168,44 @@ def restore_pytree(path: str, like: Any) -> Any:
     missing = sorted({p for p, _ in pairs} - set(by_path))
     if missing or extra:
         raise ValueError(f"checkpoint/tree mismatch; missing={missing} extra={extra}")
-    out = []
-    for p, leaf in pairs:
+
+    def load(p):
         entry = by_path[p]
         arr = np.load(os.path.join(path, entry["file"]))
         want = entry.get("crc32")
-        if want is not None and zlib.crc32(np.ascontiguousarray(arr).tobytes()) != want:
-            raise ValueError(f"checkpoint integrity failure at leaf {p!r} ({entry['file']}): "
-                             "crc32 differs from the manifest")
-        try:
-            out.append(_from_numpy(arr, entry["dtype"], leaf))
-        except ValueError as e:
-            raise ValueError(f"{p}: {e}") from None
+        return arr, want is None or zlib.crc32(np.ascontiguousarray(arr)) == want
+
+    def nbytes(p):
+        entry = by_path[p]
+        size = 2 if entry["dtype"] == "bfloat16" else np.dtype(entry["dtype"]).itemsize
+        return size * int(np.prod(entry["shape"], dtype=np.int64))
+
+    out = []
+    ahead: Deque = deque()  # (path, leaf, bytes, future) read and checked ahead of the copies, in order
+    queued = 0
+    with _pool() as pool:
+        todo = iter(pairs)
+        nxt = next(todo, None)
+        while nxt is not None or ahead:
+            # top up: at most _READ_AHEAD_BYTES of files in host memory
+            # (one leaf at least), at most one file per thread
+            while nxt is not None and len(ahead) < _THREADS and (
+                    not ahead or queued + nbytes(nxt[0]) <= _READ_AHEAD_BYTES):
+                size = nbytes(nxt[0])
+                ahead.append((nxt[0], nxt[1], size, pool.submit(load, nxt[0])))
+                queued += size
+                nxt = next(todo, None)
+            p, leaf, size, fut = ahead.popleft()
+            arr, intact = fut.result()
+            queued -= size
+            if not intact:
+                raise ValueError(f"checkpoint integrity failure at leaf {p!r} ({by_path[p]['file']}): "
+                                 "crc32 differs from the manifest")
+            try:
+                out.append(_from_numpy(arr, by_path[p]["dtype"], leaf))
+            except ValueError as e:
+                raise ValueError(f"{p}: {e}") from None
+            del arr
     return tree.unflatten(like, out)
 
 
@@ -233,7 +278,10 @@ class CheckpointManager:
 
     def restore(self, like: Any, *, step: Optional[int] = None):
         """``(tree, meta)`` of ``step`` (default: the latest), or
-        ``(None, None)`` when there is none."""
+        ``(None, None)`` when there is none.  ``like`` is consumed: its
+        tensors are overwritten in place and the returned tree holds them;
+        if a leaf fails its crc32, the leaves before it are already
+        overwritten."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None

@@ -1,15 +1,16 @@
 """Architecture registry (port of ``repro/configs/__init__.py``).
 
 Every configuration of the reference resolves here with the same fields.
-The port serves the dense ``llama3-8b``, ``yi-9b``, ``codeqwen1.5-7b`` (QKV
-bias, full MHA) and ``qwen2-72b`` (144 GB in bf16: ``reduced()`` only on one
-card), the two MoE configurations (``deepseek-v2-lite-16b`` with multi-head
-latent attention, ``qwen3-moe-235b-a22b`` with GQA), the attention-free
-``mamba2-370m`` (tied embeddings) and the hybrid ``zamba2-2.7b`` (Mamba2
-blocks and one shared attention+FFN block).  ``phi-3-vision-4.2b`` and
-``musicgen-medium`` resolve too, but their stub frontends are not served
-yet (ROADMAP.md Queue 1 "Other model families"; ``models/transformer.py``
-refuses them).
+The port serves and trains the dense ``llama3-8b``, ``yi-9b``,
+``codeqwen1.5-7b`` (QKV bias, full MHA) and ``qwen2-72b`` (144 GB in bf16:
+``reduced()`` only on one card), the two MoE configurations
+(``deepseek-v2-lite-16b`` with multi-head latent attention,
+``qwen3-moe-235b-a22b`` with GQA), the attention-free ``mamba2-370m`` (tied
+embeddings), the hybrid ``zamba2-2.7b`` (Mamba2 blocks and one shared
+attention+FFN block) and the dense decoders behind the stub frontends,
+``phi-3-vision-4.2b`` and ``musicgen-medium``: trained on the precomputed
+embeddings that the data pipeline stands in for the frontends with, served
+from tokens, as the reference does.
 """
 
 from __future__ import annotations

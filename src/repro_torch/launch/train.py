@@ -1,19 +1,26 @@
-"""Training driver: llama3-8b through ``Trainer`` on the card.
+"""Training launcher: any configuration through ``Trainer`` on the card.
 
 Port of ``repro/launch/train.py`` for one device::
 
     python -m repro_torch.launch.train --arch llama3-8b --full --layers 4 \\
         --steps 4 --batch 4 --seq 1024
-    python -m repro_torch.launch.train --arch llama3-8b --reduced --device cpu --steps 3
+    python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --full --layers 4 --steps 4 --batch 4 --seq 1024
+    python -m repro_torch.launch.train --arch zamba2-2.7b --full --steps 4 --batch 4 --seq 1024
+    python -m repro_torch.launch.train --arch mamba2-370m --reduced --device cpu --steps 3
 
-Weights are drawn from ``--seed`` in the configuration's dtypes (f32
-parameters, bf16 compute) and stored DiP-permutated: every projection runs
-the DiP kernel forward and the fused lm_head + cross-entropy kernel computes
-the loss.  ``--layers`` cuts the depth (the one cut full-width training on
-one card needs: f32 parameters, gradients and two AdamW moments take 16
-bytes per parameter).  ``--device cpu`` runs the plain PyTorch versions.
-Meshes, sharding strategies and gradient compression come with ROADMAP.md
-Queue 1 "Distributed".
+``--arch`` takes every configuration: the dense ones, the MoE ones
+(``deepseek-v2-lite-16b``; ``qwen3-moe-235b-a22b`` at ``--reduced`` on one
+card), the SSM ``mamba2-370m`` (tied head), the hybrid ``zamba2-2.7b`` and
+the stub frontends ``musicgen-medium`` and ``phi-3-vision-4.2b``, which the
+trainer feeds the pipeline's precomputed embeddings.  Weights are drawn
+from ``--seed`` in the configuration's dtypes (f32 parameters, bf16
+compute) and stored DiP-permutated: every projection runs the DiP kernel
+forward and the fused lm_head + cross-entropy kernel computes the loss.
+``--layers`` cuts the depth (full-width training on one card takes 16 bytes
+per parameter: f32 parameters, gradients and two AdamW moments); a
+hybrid's cut must be a multiple of its ``attn_every``.  ``--device cpu``
+runs the plain PyTorch versions.  Meshes, sharding strategies and gradient
+compression come with ROADMAP.md Queue 1 "Distributed".
 """
 
 from __future__ import annotations
@@ -52,6 +59,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, matmul_backend="dip")
     if args.layers is not None:
+        if cfg.is_hybrid and args.layers % cfg.attn_every:
+            raise ValueError(f"--layers {args.layers}: a {cfg.name} cut must be a multiple of its "
+                             f"attn_every = {cfg.attn_every} (each shared-block site closes a group)")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     print(f"[train] {cfg.name} {'reduced' if args.reduced else 'full width'}: {cfg.n_layers} layers "
           f"(published {get_config(args.arch).n_layers}), d_model {cfg.d_model}, vocab {cfg.vocab_size}, "

@@ -16,7 +16,7 @@ dispatch) comes with ROADMAP.md Queue 1 "Distributed".
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -139,15 +139,24 @@ def _moe_ffn_ep(x, p, cfg, plan):
 
 
 def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = False,
-            route_ids: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, ...]:
+            route_ids: Optional[torch.Tensor] = None,
+            on_route: Optional[Callable[[torch.Tensor], None]] = None) -> Tuple[torch.Tensor, ...]:
     """Routed expert FFN on x (B, S, d).  Returns ``(out, aux, dropped)``:
     ``aux`` the load-balance + z-loss (f32 scalar), ``dropped`` the number
     of (token, slot) pairs past capacity in this layer (int32 scalar).
     ``return_routing=True`` appends the (B, S, k) expert ids, so that two
     runs can be checked to route alike; ``route_ids`` replays such ids in
     place of this run's top-k (the rest of the layer unchanged), so that two
-    runs can be compared with their discrete choices held equal.  A
-    sharding ``plan`` raises: the expert-parallel path is not ported."""
+    runs can be compared with their discrete choices held equal;
+    ``on_route`` is called with the ids as soon as they are chosen (a
+    rerun under ``torch.utils.checkpoint`` may stop before the layer
+    returns).  A sharding ``plan`` raises: the expert-parallel path is not
+    ported.
+
+    Gradients reach x, the router and the banks through the gates (the
+    top-k probabilities, renormalized), the aux loss and the gathers; the
+    ids, the sort, the capacity mask and the counts carry none, as
+    ``jax.lax.top_k`` and the argsort carry none in the reference."""
     if plan is not None:
         return _moe_ffn_ep(x, p, cfg, plan)
     b, s, d = x.shape
@@ -155,6 +164,8 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = 
     cap = moe_capacity(s, cfg)                                             # per-group capacity
 
     r = _route(x, p["router"], cfg, cap, route_ids)
+    if on_route is not None:
+        on_route(r["ids"])
     buf = _fill_buffer(r, cap)
 
     # batched per-expert SwiGLU: weights (E, d, ffe) / (E, ffe, d)

@@ -18,15 +18,17 @@ parameters all call sites share, each site with its own KV cache; their
 caches hold a per-sequence conv history and f32 state beside the shared
 block's K/V.  Under ``cfg.tie_embeddings`` the head is the embedding: f32
 sums of the compute-dtype products, outside the DiP kernel as in the
-reference.  ``loss_fn`` takes the fused lm_head +
-cross-entropy kernel (``kernels/lm_head_ce.py``) unless told otherwise, and
-``train_step_fn`` applies one AdamW step in place.  Every served family
+reference.  The ``vlm`` and ``audio`` families are dense decoders whose stub
+frontends hand ``forward`` precomputed ``embeddings``; served, they read
+tokens, as the reference's ``Server`` does.  ``loss_fn`` (cross entropy plus
+the MoE router's aux loss) takes the fused lm_head + cross-entropy kernel
+(``kernels/lm_head_ce.py``) unless told otherwise, and ``train_step_fn``
+applies one AdamW step in place; every family trains.  Every served family
 serves quantized too: ``quantize_params`` quantizes only the DiP-stored
 projections, so the MoE router and expert banks, the SSM scalars, conv and
-norms, and the embeddings stay float, as in the reference.  Training the
-MoE, MLA, SSM and hybrid families and tied heads, the stub frontends,
-sharding plans and the reliability guard come with their ROADMAP.md items
-and raise ``NotImplementedError`` here.
+norms, and the embeddings stay float, as in the reference.  Sharding plans
+and the reliability guard come with their ROADMAP.md items and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -57,32 +59,29 @@ __all__ = [
     "train_step_fn",
 ]
 
-_FAMILIES = 'ROADMAP.md Queue 1 "Other model families"'
 _DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
+_KNOWN_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _require_served(cfg) -> None:
-    """Raise for every configuration the port does not serve: it serves the
-    dense, MoE, SSM and hybrid families, with GQA or MLA attention and tied
-    or separate heads, in float or with quantized weights and an int8 KV
-    pool; not the stub frontends or sharding plans."""
-    missing = []
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend != "none":
-        missing.append(f"the {cfg.family} family / stub frontends ({_FAMILIES})")
+    """Raise for every configuration the port does not serve: it serves
+    every family of the reference (the stub frontends from tokens), with
+    GQA or MLA attention and tied or separate heads, in float or with
+    quantized weights and an int8 KV pool; not sharding plans."""
+    if cfg.family not in _KNOWN_FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (one of {_KNOWN_FAMILIES})")
     if cfg.sharding != "gspmd":
-        missing.append(f"sharding plans ({_DISTRIBUTED})")
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: not ported yet: " + "; ".join(missing))
+        raise NotImplementedError(f"{cfg.name}: not ported yet: sharding plans ({_DISTRIBUTED})")
 
 
 def _require_trainable(cfg) -> None:
-    """Training is ported for the dense family with GQA and a separate
-    head only."""
+    """Every served family trains; quantized weights are an inference
+    artifact (their codes take no gradient), as the reference's
+    ``Trainer`` holds them."""
     _require_served(cfg)
-    if cfg.is_moe or cfg.use_mla or cfg.ssm_state or cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: training the MoE, MLA, SSM and hybrid families and tied "
-                                  f"heads (router aux loss, gradients through the routing and the scan) "
-                                  f"is not ported yet ({_FAMILIES})")
+    if cfg.quantization != "none":
+        raise ValueError(f"cfg.quantization={cfg.quantization!r} is inference-only; "
+                         "train in float and quantize the checkpoint for serving")
 
 
 def _no_plan(plan, constrain) -> None:
@@ -277,30 +276,43 @@ def _rope_dim(cfg) -> int:
     return cfg.qk_rope_head_dim if cfg.use_mla else cfg.resolved_head_dim
 
 
-def _ffn(x, lp, cfg, fuse, moe_trace):
-    """The block's FFN with its skip connection.  The MoE layer keeps the
-    explicit ``ffn_norm`` (the router and every expert read the normed
-    stream) and the explicit ``x + f``; ``moe_trace``, if given, collects
-    each layer's aux loss, dropped count and (B, S, k) expert ids, and where
-    it holds ``replay_ids`` (one (B, S, k) tensor per layer, from another
-    run's trace) each layer routes with those instead of its own top-k."""
+def _ffn(x, lp, cfg, fuse, replay_ids=None, on_route=None):
+    """The block's FFN with its skip connection; returns ``(x, routing)``.
+    The MoE layer keeps the explicit ``ffn_norm`` (the router and every
+    expert read the normed stream) and the explicit ``x + f``; its
+    ``routing`` is ``(aux, dropped, ids)``: the router's aux loss, the
+    dropped (token, slot) pairs and the (B, S, k) expert ids.
+    ``replay_ids`` routes with those ids instead of this run's top-k;
+    ``on_route`` is called with the ids as soon as they are chosen.  A dense
+    FFN's ``routing`` is None."""
     if cfg.is_moe:
         ffn_in = layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        if moe_trace is None:
-            return x + moe.moe_ffn(ffn_in, lp, cfg)[0]
-        replay = moe_trace.get("replay_ids")
-        f, aux, dropped, ids = moe.moe_ffn(ffn_in, lp, cfg, return_routing=True, route_ids=None if replay is None
-                                           else replay[len(moe_trace.get("ids", []))])
-        for key, val in (("aux", aux), ("dropped", dropped), ("ids", ids)):
-            moe_trace.setdefault(key, []).append(val)
-        return x + f
+        f, aux, dropped, ids = moe.moe_ffn(ffn_in, lp, cfg, return_routing=True, route_ids=replay_ids,
+                                           on_route=on_route)
+        return x + f, (aux, dropped, ids)
     ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
         layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps), None)
-    return moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g)
+    return moe.dense_ffn(ffn_in, lp, cfg, residual=x, norm=ffn_g), None
+
+
+def _replay(moe_trace, layer):
+    """Layer ``layer``'s expert ids to route with, if ``moe_trace`` holds
+    ``replay_ids`` (one (B, S, k) tensor per layer, from another run)."""
+    ids = None if moe_trace is None else moe_trace.get("replay_ids")
+    return None if ids is None else ids[layer]
+
+
+def _record(moe_trace, routing) -> None:
+    """Append a MoE layer's ``(aux, dropped, ids)`` to ``moe_trace``."""
+    if moe_trace is not None and routing is not None:
+        for key, val in zip(("aux", "dropped", "ids"), routing):
+            moe_trace.setdefault(key, []).append(val)
 
 
 def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_backend=None,
-                       moe_trace=None):
+                       replay_ids=None, on_route=None):
+    """Attention then FFN, each with its skip connection; returns ``(x,
+    new_cache, routing)`` (``_ffn``'s routing)."""
     fuse = _fuses_rmsnorm(cfg)
     attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
         layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
@@ -309,7 +321,8 @@ def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_b
         attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
         norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend,
     )
-    return _ffn(x, lp, cfg, fuse, moe_trace), new_cache
+    x, routing = _ffn(x, lp, cfg, fuse, replay_ids, on_route)
+    return x, new_cache, routing
 
 
 def _head(params, cfg, x):
@@ -330,12 +343,18 @@ def _head(params, cfg, x):
     return logits
 
 
-def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optional[Dict] = None,
+def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = None,
+            embeddings: Optional[torch.Tensor] = None, cache: Optional[Dict] = None,
             kv_chunk: int = 0, return_hidden: bool = False, attn_backend: Optional[str] = None,
-            moe_trace: Optional[Dict] = None):
-    """Returns ``(logits, new_cache)`` for tokens (B, S).
+            moe_trace: Optional[Dict] = None, return_aux: bool = False):
+    """Returns ``(logits, new_cache)`` for tokens (B, S), or with
+    ``return_aux=True`` ``(logits, new_cache, aux)``: ``aux`` the MoE
+    layers' router aux losses summed (an f32 scalar, 0 for the other
+    families), which the loss adds to the cross entropy.
 
-    ``cache`` (``init_cache``) is updated in place at ``cache["pos"]``, a
+    ``embeddings`` (B, S, d), the stub frontends' precomputed inputs, are
+    cast to the compute dtype and replace the token lookup.  ``cache``
+    (``init_cache``) is updated in place at ``cache["pos"]``, a
     device scalar that is advanced by S in place too (so a CUDA graph of
     the step reads and advances it with no host involved), and returned.
     ``attn_backend="flash"`` routes attention through the CUDA kernel
@@ -344,52 +363,77 @@ def forward(params: Dict[str, Any], cfg, *, tokens: torch.Tensor, cache: Optiona
     with a cache takes its absorbed form and ignores both, as the
     reference does.  ``moe_trace`` (a dict) collects each MoE layer's
     ``aux`` loss, ``dropped`` count and expert ``ids``, as lists in layer
-    order; given ``replay_ids`` (a list of one run's ``ids``), every layer
-    routes as that run did.  The SSM and hybrid families run the chunked
-    SSD over S tokens, or with a cache and S = 1 the O(1) decode update,
-    and write each layer's new conv history and state into the cache.
-    ``return_hidden=True`` skips the lm_head and returns the final-normed
-    hidden states (B, S, d) in the compute dtype, for the fused loss.  With
-    ``cfg.remat == "block"``, no cache and grad mode on, each block runs
-    under ``torch.utils.checkpoint`` and its forward runs again in the
-    backward.
+    order, once per forward; given ``replay_ids`` (a list of one run's
+    ``ids``), every layer routes as that run did.  The SSM and hybrid
+    families run the chunked SSD over S tokens, or with a cache and S = 1
+    the O(1) decode update, and write each layer's new conv history and
+    state into the cache.  ``return_hidden=True`` skips the lm_head and
+    returns the final-normed hidden states (B, S, d) in the compute dtype,
+    for the fused loss.  With ``cfg.remat == "block"``, no cache and grad
+    mode on, each block runs under ``torch.utils.checkpoint`` and its
+    forward runs again in the backward: a block's aux and routing leave it
+    as outputs, and the rerun records its expert ids in
+    ``moe_trace["recompute_ids"]`` (by layer), so that a caller can check
+    that the backward routed as the forward did.
     """
     _require_served(cfg)
     cd = dtype_of(cfg.compute_dtype)
-    x = F.embedding(tokens, params["embed"]).to(cd)
+    if embeddings is not None:
+        x = embeddings.to(cd)
+    else:
+        x = F.embedding(tokens, params["embed"]).to(cd)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     if cache is not None:
         positions = positions + cache["pos"]
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
+    auxes: List[torch.Tensor] = []
     if cfg.ssm_state:
         x = _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
     else:
-        x = _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace)
+        x = _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace,
+                              auxes)
     # in place: the layers read pos before, in stream order
     new_cache = None if cache is None else dict(cache, pos=cache["pos"].add_(s))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x if return_hidden else _head(params, cfg, x)), new_cache
+    out = (x if return_hidden else _head(params, cfg, x)), new_cache
+    if not return_aux:
+        return out
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:  # in layer order, as the reference's scan carries it
+        aux = aux + a
+    return out + (aux,)
 
 
 def _maybe_remat(block, x, remat):
     return checkpoint(block, x, use_reentrant=False) if remat else block(x)
 
 
-def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace):
-    """The transformer families' layer loop; the cache is written in place."""
+def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace, auxes):
+    """The transformer families' layer loop; the cache is written in place
+    and each MoE layer's router aux loss appended to ``auxes``."""
     start = cache["pos"] if cache is not None else 0
     rope = layers.rope_tables(positions, _rope_dim(cfg), cfg.rope_theta)
+    calls = [0] * cfg.n_layers
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         lcache = None if cache is None else dict(
             {nm: t[i] for nm, t in cache["layers"].items()}, pos=start)
 
-        def block(x, lp=lp, lcache=lcache):
-            return _transformer_block(x, lp, cfg, positions=positions, rope=rope, cache=lcache,
-                                      kv_chunk=kv_chunk, attn_backend=attn_backend,
-                                      moe_trace=moe_trace)[0]
+        def block(x, i=i, lp=lp, lcache=lcache):
+            calls[i] += 1  # a second call is remat's rerun in the backward
+            seen = None
+            if calls[i] > 1 and moe_trace is not None:
+                def seen(ids, i=i):
+                    moe_trace.setdefault("recompute_ids", {})[i] = ids
+            x, _, routing = _transformer_block(x, lp, cfg, positions=positions, rope=rope, cache=lcache,
+                                               kv_chunk=kv_chunk, attn_backend=attn_backend,
+                                               replay_ids=_replay(moe_trace, i), on_route=seen)
+            return x, routing
 
-        x = _maybe_remat(block, x, remat)
+        x, routing = _maybe_remat(block, x, remat)
+        _record(moe_trace, routing)
+        if routing is not None:
+            auxes.append(routing[0])
     return x
 
 
@@ -541,15 +585,18 @@ def decode_step_fn(cfg, *, attn_backend: Optional[str] = None):
     return step
 
 
-def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace):
+def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace, layer):
     """One attention+FFN block of the paged decode step (a layer of the
-    transformer families, or the hybrid's shared block at one site)."""
+    transformer families, or the hybrid's shared block at one site);
+    a MoE layer's routing goes into ``moe_trace``."""
     attn = attention.paged_mla_attention if cfg.use_mla else attention.paged_gqa_attention
     fuse = _fuses_rmsnorm(cfg)
     attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
     x, _ = attn(attn_in, lp, cfg, positions=positions, cache=pools, block_tables=block_tables,
                 kv_quant=cfg.kv_quant, rope=rope, residual=x, norm=attn_g)
-    return _ffn(x, lp, cfg, fuse, moe_trace)
+    x, routing = _ffn(x, lp, cfg, fuse, _replay(moe_trace, layer))
+    _record(moe_trace, routing)
+    return x
 
 
 def paged_decode_step_fn(cfg):
@@ -576,12 +623,12 @@ def paged_decode_step_fn(cfg):
                 if cfg.is_hybrid and (i + 1) % cfg.attn_every == 0:
                     j = i // cfg.attn_every
                     x = _paged_block(x, params["shared_attn"], cfg, {nm: t[j] for nm, t in pools["attn"].items()},
-                                     positions, block_tables, rope, None)
+                                     positions, block_tables, rope, None, j)
         else:
             rope = layers.rope_tables(positions[:, None], _rope_dim(cfg), cfg.rope_theta)
             for i, lp in enumerate(lps):
                 x = _paged_block(x, lp, cfg, {nm: pool[i] for nm, pool in pools.items()}, positions, block_tables,
-                                 rope, moe_trace)
+                                 rope, moe_trace, i)
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head(params, cfg, x), cache
 
@@ -591,12 +638,14 @@ def paged_decode_step_fn(cfg):
 # ------------------------------------------------------------- objectives ---
 def _natural_head(params, cfg) -> torch.Tensor:
     """The lm_head as a natural (d_model, padded_vocab) tensor for the fused
-    loss: a ``DipWeight`` de-sheared in the parameter dtype, so a gradient
-    reaches its permutated storage; a ``QuantizedDipWeight`` dequantized to
-    f32, as the reference does (its codes take no gradient, its scales that
-    of the dequantized head)."""
+    loss: a tied head is the embedding's transpose (a view: the head's
+    gradient returns through it into ``embed`` and adds to the lookup's); a
+    ``DipWeight`` is de-sheared in the parameter dtype, so a gradient
+    reaches its permutated storage; a ``QuantizedDipWeight`` is dequantized
+    to f32, as the reference does (its codes take no gradient, its scales
+    that of the dequantized head)."""
     if cfg.tie_embeddings:
-        raise NotImplementedError(f"training a tied head is not ported yet ({_FAMILIES})")
+        return params["embed"].t()
     head = params["lm_head"]
     if isinstance(head, api.QuantizedDipWeight):
         return head.to_natural(torch.float32)
@@ -604,38 +653,46 @@ def _natural_head(params, cfg) -> torch.Tensor:
 
 
 def loss_fn(params, cfg, batch, *, kv_chunk: int = 0, fused_ce: Optional[bool] = None,
-            plan=None, constrain=None) -> torch.Tensor:
-    """Next-token cross entropy.  ``batch["loss_mask"]`` (optional, (B, S),
-    nonzero = train on this position) and the -100 ``ignore_index`` in
-    ``labels`` both exclude tokens from the mean and the gradient.
+            plan=None, constrain=None, moe_trace: Optional[Dict] = None) -> torch.Tensor:
+    """Next-token cross entropy plus the router aux loss (0 but for MoE).
+    ``batch`` holds ``labels`` and ``tokens`` or, from a stub frontend,
+    ``embeddings`` (B, S, d), which ``forward`` reads in place of the
+    tokens.  ``batch["loss_mask"]`` (optional, (B, S), nonzero = train on
+    this position) and the -100 ``ignore_index`` in ``labels`` both exclude
+    tokens from the mean and the gradient.
 
     ``fused_ce=None`` selects the fused lm_head + cross-entropy kernel, as
     the reference does when no sharding plan or constrain hook needs the
     logits (neither is ported): the (B, S, V) logits are then never formed.
-    ``False`` forces the unfused path through the lm_head projection."""
+    ``False`` forces the unfused path through the lm_head projection.
+    ``moe_trace`` as in :func:`forward`."""
     _no_plan(plan, constrain)
-    _require_trainable(cfg)
+    _require_served(cfg)
     mask = batch.get("loss_mask")
     shift_mask = None if mask is None else mask[:, 1:]
+    inputs = dict(tokens=batch.get("tokens"), embeddings=batch.get("embeddings"), kv_chunk=kv_chunk,
+                  moe_trace=moe_trace, return_aux=True)
     if fused_ce is None or fused_ce:
-        hidden, _ = forward(params, cfg, tokens=batch["tokens"], kv_chunk=kv_chunk,
-                            return_hidden=True)
+        hidden, _, aux = forward(params, cfg, return_hidden=True, **inputs)
         return lm_head_ce.fused_cross_entropy_loss(
             hidden[:, :-1], _natural_head(params, cfg), batch["labels"][:, 1:], mask=shift_mask,
-            vocab_size=cfg.vocab_size)
-    logits, _ = forward(params, cfg, tokens=batch["tokens"], kv_chunk=kv_chunk)
-    return layers.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:], mask=shift_mask)
+            vocab_size=cfg.vocab_size) + aux
+    logits, _, aux = forward(params, cfg, **inputs)
+    return layers.cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:], mask=shift_mask) + aux
 
 
 def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
                   fused_ce: Optional[bool] = None, guard: bool = False, plan=None,
                   constrain=None):
     """Returns ``step(state, batch) -> (state, metrics)`` for ``state =
-    {"params", "opt_state", "step"}`` and a batch of (B, S) ``tokens`` /
-    ``labels`` tensors on the parameters' device.
+    {"params", "opt_state", "step"}`` and a batch of (B, S) ``tokens`` (or
+    (B, S, d) ``embeddings``) and ``labels`` tensors on the parameters'
+    device.
 
     The gradients are taken with ``torch.autograd.grad`` over every
-    parameter leaf (a ``DipWeight``'s permutated ``data``); the optimizer
+    parameter leaf (a ``DipWeight``'s permutated ``data``; a leaf that the
+    loss does not reach, as the embedding of a model fed ``embeddings``
+    with a separate head, gets zeros, as ``jax.grad`` gives it); the optimizer
     then updates the parameters and its moments IN PLACE, so the returned
     state holds the same tensors.  ``microbatch > 1`` splits the batch into
     that many slices, sums their losses and gradients and scales both by
@@ -649,7 +706,8 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
 
     def grad_of(leaves, params, batch):
         loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
     def step(state, batch):
         params = state["params"]

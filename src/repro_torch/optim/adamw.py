@@ -14,6 +14,10 @@ of each, and returns ``(params, state)``::
 
 The arithmetic follows the reference step by step (f32 moments, bias
 corrections from ``b ** count`` in f32, decay on leaves with ndim >= 2).
+The update walks each leaf in slabs of its leading axis (at most
+:data:`SLAB` elements), clipping each slab of the gradient as it goes, so
+its transients are a slab's and not a leaf's (a full-width Zamba2 in_proj
+leaf is 5.8 GB); elementwise, the result is the same bit for bit.
 """
 
 from __future__ import annotations
@@ -35,12 +39,30 @@ def _global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
+# elements of one slab of the update's leading-axis walk (64 MiB of f32)
+SLAB = 1 << 24
+
+
+def _slabs(t: torch.Tensor):
+    """``t`` as views along its leading axis of at most :data:`SLAB`
+    elements each (one row when a row is larger); a 0-d or small tensor is
+    one slab."""
+    if t.dim() == 0 or t.numel() <= SLAB:
+        return (t,)
+    return t.split(max(1, SLAB // t[0].numel()))
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """``(grads * min(1, max_norm / norm), norm)`` with ``norm`` the f32
-    global norm; the scaled leaves are new tensors."""
+    global norm; the scaled leaves are new tensors (:meth:`AdamW.update`
+    scales each slab as it goes instead)."""
     flat = tree.leaves(grads)
     norm = _global_norm(flat)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree.unflatten(grads, [(g * scale).to(g.dtype) for g in flat]), norm
 
 
@@ -75,21 +97,26 @@ class AdamW:
     @torch.no_grad()
     def update(self, grads, state: Dict[str, Any], params):
         """One step, in place on ``params``, ``state["mu"]`` and ``state["nu"]``."""
-        grads, gnorm = clip_by_global_norm(grads, self.clip_norm)
+        flat = tree.leaves(grads)
+        gnorm = _global_norm(flat)
+        scale = _clip_scale(gnorm, self.clip_norm)
         count = int(state["count"]) + 1
         f32 = np.float32
         b1c = float(f32(1.0) - f32(self.b1) ** f32(count))
         b2c = float(f32(1.0) - f32(self.b2) ** f32(count))
         lr = self._lr_at(count)
-        for g, mu, nu, p in zip(tree.leaves(grads), tree.leaves(state["mu"]),
-                                tree.leaves(state["nu"]), tree.leaves(params)):
-            g32 = g.float()
-            mu.mul_(self.b1).add_(g32 * (1 - self.b1))
-            nu.mul_(self.b2).add_(torch.square(g32) * (1 - self.b2))
-            step = (mu / b1c) / (torch.sqrt(nu / b2c) + self.eps)
-            if self.weight_decay and p.dim() >= 2:  # decay matrices only
-                step = step + self.weight_decay * p.float()
-            p.add_((-lr * step).to(p.dtype))
+        for g, mu, nu, p in zip(flat, tree.leaves(state["mu"]), tree.leaves(state["nu"]), tree.leaves(params)):
+            decay = self.weight_decay and p.dim() >= 2  # decay matrices only
+            # slab by slab along the leading axis: the same elementwise
+            # arithmetic, with transients of one slab instead of the leaf
+            for gs, ms, ns, ps in zip(*(_slabs(t) for t in (g, mu, nu, p))):
+                g32 = (gs * scale).to(gs.dtype).float()  # clip_by_global_norm's leaf
+                ms.mul_(self.b1).add_(g32 * (1 - self.b1))
+                ns.mul_(self.b2).add_(torch.square(g32) * (1 - self.b2))
+                step = (ms / b1c) / (torch.sqrt(ns / b2c) + self.eps)
+                if decay:
+                    step = step + self.weight_decay * ps.float()
+                ps.add_((-lr * step).to(ps.dtype))
         state["count"] = count
         state["grad_norm"] = gnorm
         return params, state

@@ -11,7 +11,9 @@
 * **Straggler signal** — a per-step wall-time EWMA; steps slower than
   ``straggler_factor`` times it are counted in the metrics.
 
-Per-step metrics: ``loss``, ``grad_norm``, ``step``, ``step_time_s`` (host
+Every family trains; a stub frontend's configuration (``frontend !=
+"none"``) is fed the pipeline's precomputed embeddings, as in the
+reference.  Per-step metrics: ``loss``, ``grad_norm``, ``step``, ``step_time_s`` (host
 clock around the step, which ends by reading the loss back, so the card's
 work is inside it) and ``stragglers``.  The run happens on ``device``
 (default ``"cuda"``; pass ``"cpu"`` for the plain versions of the kernels).
@@ -80,8 +82,8 @@ class Trainer:
         self.tcfg = tcfg
         self.device = resolve_device(device)
         self.opt = optimizer or AdamW(lr=3e-4)
-        self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len,
-                                        global_batch=global_batch)
+        self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
+                                        emit_embeddings=cfg.d_model if cfg.frontend != "none" else None)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
         self._step_fn = tf_model.train_step_fn(cfg, self.opt)
         self.metrics_log: list = []

@@ -40,13 +40,22 @@ pool belong to the object and are freed with it.
 
 Launch counts stay true: a replay runs no Python, so at capture the step's
 increase of every kernel wrapper's counters (``launches*``) is recorded and
-taken back (the capture launched nothing), and each replay adds it.
+taken back (the capture launched nothing), and each replay adds it.  Each
+graph is kept beside its executable form (host memory only), and
+:meth:`CapturedStep.kernel_nodes` lists its kernel nodes by function name,
+so that a check can hold the counters' increase to the kernels a replay
+really launches (:func:`kernels_by_group` against :func:`counters_by_group`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import os
+import re
+import tempfile
 import time
+from collections import Counter
 from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
@@ -57,11 +66,79 @@ from repro_torch.kernels.dip_matmul_q import dip_matmul_q
 from repro_torch.kernels.dip_systolic import dip_systolic
 from repro_torch.kernels.flash_attention import flash_attention
 
-__all__ = ["CapturedStep", "launch_counts"]
+__all__ = ["CapturedStep", "launch_counts", "kernels_by_group", "counters_by_group"]
 
 _COUNTED = (dip_matmul, dip_matmul_q, dip_systolic, flash_attention, lm_head_ce.lm_head_ce)
 _ALIGN = 16
 Shapes = Tuple[Tuple[int, ...], ...]
+
+# the kernels a counted wrapper call launches once (a split-K reduce after a
+# product belongs to the same call), by function name, in the groups the
+# counters can tell apart
+_GROUPS = {"dip products": ("dip_mma_kernel", "dip_wgmma_kernel", "dip_matmul_kernel", "dip_mma_s8_kernel",
+                            "dip_wgmma_s8_kernel", "dip_matmul_q_kernel"),
+           "quantizing passes": ("quantize_int8_kernel",), "wavefront": ("dip_systolic_kernel",),
+           "flash tensor_cores": ("flash_tc_kernel",), "flash split_kv": ("flash_split_kernel",),
+           "flash cuda_cores": ("flash_attention_kernel",), "lm_head_ce": ("lm_head_tc_kernel", "lm_head_ce_f32_kernel")}
+
+
+def kernels_by_group(names: Dict[str, int]) -> Dict[str, int]:
+    """Kernel launches counted by function name (``kernel_nodes``, or a
+    profiler's trace), summed into the groups of :func:`counters_by_group`."""
+    return {group: sum(names.get(nm, 0) for nm in members) for group, members in _GROUPS.items()}
+
+
+def counters_by_group(delta: Dict[Tuple[Any, str], int]) -> Dict[str, int]:
+    """An increase of the wrappers' counters (keys as ``launch_counts``)
+    in the groups of :func:`kernels_by_group`."""
+    def d(fn, nm="launches"):
+        return delta.get((fn, nm), 0)
+    return {"dip products": d(dip_matmul) + d(dip_matmul_q),
+            "quantizing passes": d(dip_matmul_q, "launches_quant"),
+            "wavefront": d(dip_systolic),
+            "flash tensor_cores": d(flash_attention, "launches_tc") - d(flash_attention, "launches_split"),
+            "flash split_kv": d(flash_attention, "launches_split"),
+            "flash cuda_cores": d(flash_attention) - d(flash_attention, "launches_tc"),
+            "lm_head_ce": d(lm_head_ce.lm_head_ce)}
+
+
+def function_name(symbol: str) -> str:
+    """A kernel's own name from its symbol: the last identifier of an
+    Itanium-mangled name's (nested) name, before any template arguments
+    (``_ZN12_GLOBAL__N_116dip_wgmma_kernelI...`` -> ``dip_wgmma_kernel``);
+    an unmangled symbol as it is."""
+    if not symbol.startswith("_Z"):
+        return symbol
+    i, last = 2, symbol
+    nested = symbol[i:i + 1] == "N"
+    i += nested
+    while i < len(symbol) and symbol[i] in "rVK":
+        i += 1
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while symbol[j].isdigit():
+            j += 1
+        n = int(symbol[i:j])
+        last, i = symbol[j:j + n], j + n
+        if not nested or symbol[i:i + 1] in ("I", "E", ""):
+            break
+    return last
+
+
+def dot_kernel_nodes(dot: str) -> Counter:
+    """The kernel nodes of a ``cuGraphDebugDotPrint`` dump, counted by
+    function name: each node statement (``"graph_<g>_node_<n>"[...]``)
+    that is a KERNEL node names its function's symbol before its launch
+    configuration (``<symbol>\\<\\<\\<grid,block,smem\\>\\>\\>``)."""
+    out: Counter = Counter()
+    for chunk in re.split(r'"graph_\d+_node_\d+"\s*\[', dot)[1:]:
+        if "KERNEL" not in chunk:
+            continue
+        sym = re.search(r"([A-Za-z_]\w*)\s*\\?<\\?<\\?<", chunk)
+        if sym is None:
+            raise ValueError(f"a kernel node without a function name: {chunk[:300]!r}")
+        out[function_name(sym.group(1))] += 1
+    return out
 
 
 def launch_counts() -> Dict[Tuple[Any, str], int]:
@@ -177,7 +254,7 @@ class CapturedStep:
         torch.cuda.empty_cache()  # what the pool reserves below is the graph's alone
         reserved = torch.cuda.memory_reserved(dev)
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept for kernel_nodes
         before = launch_counts()
         try:
             with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool, stream=stream):
@@ -185,12 +262,26 @@ class CapturedStep:
         finally:
             launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
             _add_counts(launches, -1)  # the capture launched nothing
+        graph.instantiate()
         torch.cuda.current_stream(dev).wait_stream(stream)
         self.captures[key] = {"seconds": time.perf_counter() - t0,
                               "reserved_bytes": torch.cuda.memory_reserved(dev) - reserved,
                               "launches": {f"{fn.__name__}.{nm}": n for (fn, nm), n in launches.items()}}
         self._graphs[key] = _Graph(graph, host_inputs, device_buf, pinned, captured, launches)
         return out
+
+    def kernel_nodes(self, key: Shapes) -> Counter:
+        """The kernel nodes of the graph captured for the input shapes
+        ``key``, counted by function name: the kernels one replay launches."""
+        graph = self._graphs[key].graph
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "graph.dot")
+            err = ctypes.CDLL("libcuda.so.1").cuGraphDebugDotPrint(
+                ctypes.c_void_p(graph.raw_cuda_graph()), path.encode(), ctypes.c_uint(1))  # 1: verbose
+            if err:
+                raise RuntimeError(f"cuGraphDebugDotPrint failed with CUresult {err}")
+            with open(path) as f:
+                return dot_kernel_nodes(f.read())
 
 
 def _tensors(tree) -> List[torch.Tensor]:

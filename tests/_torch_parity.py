@@ -48,3 +48,39 @@ def reference_params(cfg, seed=0):
 
     params = ref_tf.init_params(jax.random.PRNGKey(seed), cfg)
     return params, jax.tree_util.tree_map(np.asarray, params)
+
+
+# the families that train beside llama3-8b (tests/test_torch_train_families*.py)
+FAMILIES = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", "zamba2-2.7b", "mamba2-370m", "musicgen-medium",
+            "phi-3-vision-4.2b"]
+
+
+def family_configs(name, **over):
+    """``reduced()`` of ``name`` in f32 on both sides: the reference on its
+    ``xla`` backend over DiP storage (``dip_weights=True``, cheap on the
+    CPU), the port on ``dip``."""
+    from repro.configs import get_config as ref_get
+    from repro_torch.configs import get_config as port_get
+
+    kw = dict(param_dtype="float32", compute_dtype="float32", **over)
+    return (dataclasses.replace(ref_get(name).reduced(), matmul_backend="xla", dip_weights=True, **kw),
+            dataclasses.replace(port_get(name).reduced(), matmul_backend="dip", **kw))
+
+
+def family_batch(cfg, step=0, batch=2, seq=32):
+    """The trainer's batch for ``cfg`` (tokens, or a stub frontend's
+    embeddings) as JAX arrays and as torch tensors."""
+    import jax.numpy as jnp
+    from repro_torch.data import SyntheticLM
+
+    emb = cfg.d_model if cfg.frontend != "none" else None
+    host = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, emit_embeddings=emb).batch(step)
+    return ({k: jnp.asarray(v) for k, v in host.items()}, {k: torch.as_tensor(v) for k, v in host.items()})
+
+
+def leaf_close(got, want, rel) -> None:
+    """max|got - want| <= rel * max|want| (a gradient or moment leaf)."""
+    got, want = as_np(got), as_np(want)
+    assert got.shape == want.shape
+    err = float(np.abs(got - want).max())
+    assert err <= rel * max(float(np.abs(want).max()), 1e-30), f"max|err| {err} > {rel} x max|ref|"

@@ -11,8 +11,8 @@
   and solo equal to the reference ``Server``'s (exact), which serves the
   same weights on its ``xla`` path (it de-shears them; the DiP kernels
   themselves are held to the reference's in test_torch_dip_matmul.py).  The stub-frontend
-  configurations resolve but are refused for serving, citing ROADMAP.md
-  Queue 1 "Other model families".
+  configurations (``phi-3-vision-4.2b``, ``musicgen-medium``) serve from
+  tokens the same way, as the reference's ``Server`` serves them.
 * ``permute_weights``, ``unpermute_weights`` and ``rotate_rows_left`` equal
   the reference's, bit for bit (they move elements only).
 """
@@ -35,8 +35,6 @@ from repro.runtime import ServerConfig as RefServerConfig
 from repro_torch import configs
 from repro_torch.convert import params_from_jax
 from repro_torch.core import permute
-from repro_torch.device import make_generator
-from repro_torch.models import transformer as tf_model
 from repro_torch.runtime import Request, Server, ServerConfig
 
 NAMES = ["deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", "mamba2-370m", "llama3-8b", "codeqwen1.5-7b", "yi-9b",
@@ -81,15 +79,18 @@ def test_shapes_match_reference(name):
 
 @pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "musicgen-medium"])
 def test_stub_frontends_are_refused_for_serving(name):
-    cfg = dataclasses.replace(configs.get_config(name).reduced(), param_dtype="float32", compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Other model families"'):
-        tf_model.param_template(cfg)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Other model families"'):
-        tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+    """No longer refused: the stub-frontend configurations serve from tokens,
+    as the reference's ``Server`` serves them (their frontends stay stubs:
+    training feeds precomputed embeddings, test_torch_train_families.py)."""
+    _serves_as_the_reference_server(name, requests=2)
 
 
 @pytest.mark.parametrize("name", ["yi-9b", "codeqwen1.5-7b"])
 def test_dense_configs_serve_as_the_reference_server(name):
+    _serves_as_the_reference_server(name)
+
+
+def _serves_as_the_reference_server(name, requests=3):
     kw = dict(param_dtype="float32", compute_dtype="float32")
     ref_cfg = dataclasses.replace(ref_configs.get_config(name).reduced(), matmul_backend="pallas_dip", **kw)
     cfg = dataclasses.replace(configs.get_config(name).reduced(), matmul_backend="dip", **kw)
@@ -98,7 +99,7 @@ def test_dense_configs_serve_as_the_reference_server(name):
     if cfg.qkv_bias:
         assert {"bq", "bk", "bv"} <= set(tparams["layers"])
     rng = np.random.default_rng(3)
-    prompts = [rng.integers(2, cfg.vocab_size, size=int(n)).astype(np.int32) for n in (5, 11, 7)]
+    prompts = [rng.integers(2, cfg.vocab_size, size=int(n)).astype(np.int32) for n in (5, 11, 7)[:requests]]
     kw = dict(batch_slots=2, max_seq=32, max_new_tokens=5, temperature=0.0, prefill_chunk=8)
     want = RefServer(dataclasses.replace(ref_cfg, matmul_backend="xla"), RefServerConfig(**kw), params).serve(
         [RefRequest(rid=i, prompt=p) for i, p in enumerate(prompts)])

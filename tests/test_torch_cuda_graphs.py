@@ -11,8 +11,10 @@ logits and caches bit for bit on clones of the same caches and inputs (the
 same kernels in the same order), and the call returns the caller's cache
 object; the engine's steps draw on one graph memory pool; once a step is
 captured, N replays raise the launch counters by N times the eager step's
-launches; and a call with another cache, another input shape, another input
-dtype or a ``moe_trace`` raises instead of running the eager step.
+launches; each graph's kernel nodes (``CapturedStep.kernel_nodes``) equal
+that increase by kernel group; and a
+call with another cache, another input shape, another input dtype or a
+``moe_trace`` raises instead of running the eager step.
 """
 
 import dataclasses
@@ -154,6 +156,19 @@ def test_replays_count_their_launches(engine, dev):
             torch.cuda.synchronize()
             got = {k: v - start[k] for k, v in graphs.launch_counts().items()}
             assert got == {k: n * v for k, v in one.items()}, name
+
+
+def test_graph_kernel_nodes_equal_the_counters(engine, dev):
+    """A captured graph's kernel nodes, counted by function name and
+    grouped, equal the counters' increase of one eager call of the step."""
+    with torch.no_grad():
+        for name, captured, eager, cache, inputs in _steps(engine):
+            before = graphs.launch_counts()
+            eager(engine.params, _clone(cache), *(t.to(dev) for t in inputs))
+            want = graphs.counters_by_group({k: n - before[k] for k, n in graphs.launch_counts().items()})
+            captured(engine.params, cache, *inputs)  # captured by now
+            nodes = captured.kernel_nodes(tuple(tuple(t.shape) for t in inputs))
+            assert sum(want.values()) > 0 and graphs.kernels_by_group(nodes) == want, (name, dict(nodes))
 
 
 def test_mismatched_calls_raise(engine, dev):

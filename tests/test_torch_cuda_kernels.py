@@ -917,3 +917,54 @@ def test_reduced_ssm_model_card_matches_cpu(dev, name):
         pool = tf_model.init_paged_cache(cfg, 5, 16, slots=2, device=d)
         outs.append(pstep(params_d, pool, toks.to(d), pos.to(d), tables.to(d))[0].cpu())
     near(outs[1][..., :v], outs[0][..., :v])
+
+
+# -------------------- the families' training heads: lm_head_ce's new shapes --
+# (d_model, padded vocab, vocab): DeepSeek-V2-Lite, Zamba2-2.7B, Mamba2-370M
+# (tied: the head is embed.t()) and musicgen-medium, at the training batch's
+# T = 4 x 1023
+FAMILY_HEADS = [(2048, 102400, 102400), (2560, 32768, 32000), (1024, 51200, 50280), (1536, 2048, 2048)]
+
+
+@pytest.mark.parametrize("d,vp,vocab", FAMILY_HEADS)
+def test_lm_head_ce_family_heads_match_plain(dev, d, vp, vocab):
+    """bf16 x against the f32 head, as training runs it: the split plan
+    stays under the grid limit and the padded lanes are masked (f32 TOL of
+    max(1, max|plain|): three exact bf16 part products)."""
+    t = 4 * 1023
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(t, d, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(d, vp, generator=g, device=dev) / d ** 0.5
+    labels = torch.randint(0, vocab, (t,), generator=g, device=dev, dtype=torch.int32)
+    labels[::11] = ce.IGNORE_INDEX
+    tiles, splits = ce.split_plan(t, vp, torch.cuda.get_device_properties(dev).multi_processor_count, vocab)
+    assert splits <= 65535 and (vp == vocab or (splits - 1) * tiles * ce.BLOCK_V >= vocab)
+    before = ce.lm_head_ce.launches
+    with torch.no_grad():
+        got = ce.lm_head_ce(x, w, labels, vocab_size=vocab)
+    assert ce.lm_head_ce.launches == before + 1
+    want = ce.lm_head_ce_plain(x, w, labels, vocab_size=vocab)
+    for a, b in zip(got, want):
+        _close(a, b, torch.float32)
+
+
+def test_tied_head_gradient_into_the_embedding_card_matches_cpu(dev):
+    """The tied head's fused loss on the card (the kernel reads a contiguous
+    copy of ``embed.t()``): the loss and the embedding's gradient, lookup
+    and head summed, against the plain versions on the CPU."""
+
+    cfg = dataclasses.replace(get_config("mamba2-370m").reduced(), matmul_backend="dip", param_dtype="float32",
+                              compute_dtype="float32")
+    params = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(2, cfg.vocab_size, (2, 40)))
+    out = {}
+    for where, p in (("cpu", params), ("cuda", _to(params, dev))):
+        embed = p["embed"].requires_grad_(True)
+        before = ce.lm_head_ce.launches
+        loss = tf_model.loss_fn(p, cfg, {"tokens": toks.to(where), "labels": toks.to(where)})
+        (grad,) = torch.autograd.grad(loss, [embed])
+        assert ce.lm_head_ce.launches == before + (where == "cuda")
+        out[where] = (loss.detach(), grad)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-4 * max(1.0, b.abs().max().item()), err

@@ -89,6 +89,45 @@ def _ints(shape, hi, seed):
     return torch.as_tensor(np.random.default_rng(seed).integers(2, hi, size=shape), dtype=torch.long)
 
 
+def test_graph_dump_kernel_nodes_by_function_name():
+    """``dot_kernel_nodes`` counts a ``cuGraphDebugDotPrint`` dump's KERNEL
+    nodes by the function's own name (mangled in anonymous namespaces, in
+    ``at::native``, templated, or unmangled), skips other nodes and edges,
+    and ``kernels_by_group`` sums them into the counters' groups."""
+    from repro_torch.kernels import dip_matmul as dm
+    from repro_torch.kernels import dip_matmul_q as dq
+    from repro_torch.serving import graphs
+
+    assert graphs.function_name("_ZN12_GLOBAL__N_116dip_wgmma_kernelI13__nv_bfloat16Lb1EEEvNS_4ArgsEiPf") \
+        == "dip_wgmma_kernel"
+    assert graphs.function_name("_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_") \
+        == "vectorized_elementwise_kernel"
+    assert graphs.function_name("_Z20quantize_int8_kernelIfEvPKT_") == "quantize_int8_kernel"
+    assert graphs.function_name("flash_tc_kernel") == "flash_tc_kernel"
+
+    def node(i, label):
+        return f'"graph_1_node_{i}"[style="solid" shape="record" label="{label}"];\n'
+
+    dot = ("digraph dot {\nsubgraph cluster_1 {\nlabel=\"graph_1\" graph[style=\"dashed\"];\n"
+           + node(0, r"{KERNEL | {ID | 0 | _ZN12_GLOBAL__N_116dip_wgmma_kernelI13__nv_bfloat16Lb1EEEvNS_4ArgsEiPf"
+                     r"\<\<\<(8,1,1),(384,1,1),1024\>\>\>}}")
+           + node(1, r"{KERNEL | {ID | 1 | _ZN12_GLOBAL__N_120splitk_reduce_kernelENS_4ArgsEPKfi\<\<\<4,256,0\>\>\>}}")
+           + node(2, "{MEMSET | {ID | 2}}")
+           + node(3, "3\nKERNEL\nID: 3\n_Z20quantize_int8_kernelIfEvPKT_\n\\<\\<\\<1,128,0\\>\\>\\>")
+           + node(4, r"{KERNEL | {ID | 4 | _ZN12_GLOBAL__N_117dip_mma_s8_kernelENS_6S8ArgsEiPi\<\<\<1,128,0\>\>\>}}")
+           + '"graph_1_node_0" -> "graph_1_node_1";\n}\n}\n')
+    nodes = graphs.dot_kernel_nodes(dot)
+    assert nodes == {"dip_wgmma_kernel": 1, "splitk_reduce_kernel": 1, "quantize_int8_kernel": 1,
+                     "dip_mma_s8_kernel": 1}
+    groups = graphs.kernels_by_group(nodes)
+    assert groups["dip products"] == 2 and groups["quantizing passes"] == 1 and sum(groups.values()) == 3
+    delta = {(dm.dip_matmul, "launches"): 1, (dq.dip_matmul_q, "launches"): 1,
+             (dq.dip_matmul_q, "launches_quant"): 1, (dq.dip_matmul_q, "launches_tc"): 1}
+    assert graphs.counters_by_group(delta) == groups
+    with pytest.raises(ValueError, match="without a function name"):
+        graphs.dot_kernel_nodes(node(0, "{KERNEL | {ID | 0}}"))
+
+
 def test_the_mode_sees_host_traffic():
     """The watch itself: a numpy array and a Python list made into tensors,
     and a value read back, are each seen; device-side arithmetic is not."""

@@ -120,11 +120,19 @@ def test_branches_outside_the_slice_raise(what):
         mla = dataclasses.replace(cfg, use_mla=True, kv_lora_rank=64)
         # (rank + rope) one-byte codes and two f32 scales per token and layer
         assert kv_cache.bytes_per_block(mla, 16, "int8") == cfg.n_layers * 16 * (64 + mla.qk_rope_head_dim + 8)
-    elif what == "moe":  # MoE serves now (test_torch_moe_serving.py); its training does not
+    elif what == "moe":  # MoE serves (test_torch_moe_serving.py) and trains (test_torch_train_families.py)
         moe_cfg = dataclasses.replace(cfg, family="moe", n_experts=4, moe_top_k=2, d_ff_expert=64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf_model.loss_fn(tf_model.init_params(moe_cfg, make_generator(0, "cpu"), device="cpu"), moe_cfg,
-                             {"tokens": torch.zeros(1, 4, dtype=torch.long), "labels": torch.zeros(1, 4, dtype=torch.long)})
+        params = tf_model.init_params(moe_cfg, make_generator(0, "cpu"), device="cpu")
+        toks = torch.arange(2, 10, dtype=torch.long)[None]
+        batch = {"tokens": toks, "labels": toks}
+        loss = tf_model.loss_fn(params, moe_cfg, batch)
+        _, _, aux = tf_model.forward(params, moe_cfg, tokens=toks, return_aux=True)
+        # the loss is the cross entropy plus the router aux (load balance +
+        # z-loss); without the load-balance weight only the z-loss is left
+        no_lb = dataclasses.replace(moe_cfg, router_aux_loss=0.0)
+        _, _, z = tf_model.forward(params, no_lb, tokens=toks, return_aux=True)
+        assert torch.isfinite(loss) and float(aux) > float(z) > 0
+        torch.testing.assert_close(loss - aux, tf_model.loss_fn(params, no_lb, batch) - z)
     elif what == "quant_grad":  # the straight-through backward (test_torch_quant_grad.py)
         from repro_torch import api
         x = torch.randn(2, 64, requires_grad=True)

@@ -126,6 +126,22 @@ def test_split_plan_covers_the_vocab_and_isolates_padding(t, vocab, padding_spli
         assert real_blocks / (-(-real_blocks // sms) * sms) > 0.98
 
 
+@pytest.mark.parametrize("d,vp,vocab", [(2048, 102400, 102400), (2560, 32768, 32000), (1024, 51200, 50280),
+                                        (1536, 2048, 2048)])
+def test_split_plan_at_the_families_training_heads(d, vp, vocab):
+    """DeepSeek-V2-Lite's, Zamba2's, Mamba2's (tied) and musicgen-medium's
+    heads at the training batch's T = 4092: the kernel steps them, the
+    splits cover every tile once under the grid limit, and a split is
+    wholly real or wholly padding (Zamba2's 768 and Mamba2's 920 padded
+    columns are masked by whole splits)."""
+    ce.check_kernel_shape(d, vp)
+    tiles, splits = ce.split_plan(4092, vp, 132, vocab)
+    n_tiles, n_real = vp // ce.BLOCK_V, -(-vocab // ce.BLOCK_V)
+    assert tiles * splits >= n_tiles > tiles * (splits - 1) and splits <= 65535
+    for s in range(splits):
+        assert s * tiles >= n_real or (s + 1) * tiles <= n_real
+
+
 def test_wrapper_checks_shapes():
     x, w, labels, _ = _inputs("float32")
     with pytest.raises(ValueError, match="contraction"):

@@ -246,19 +246,22 @@ def test_paged_pool_shapes_and_import(dip_model):
 
 @pytest.mark.parametrize("what", ["loss", "train_step", "quantize", "kv_int8", "serve_quantize", "serve_kv_int8"])
 def test_what_the_slice_refuses(what):
-    """Training is refused; the quantized cases, refused until the quantized
-    families were ported, now serve (their parity with the reference is in
-    test_torch_quant_families.py)."""
+    """Nothing here is refused any more: the loss and a training step run
+    (their parity with the reference is in test_torch_train_families.py),
+    and the quantized cases serve (test_torch_quant_families.py)."""
     _, cfg = _configs("deepseek-v2-lite-16b", ("xla", "torch"))
     from repro_torch.launch import serve
-    if what in ("loss", "train_step"):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Other model families"'):
-            if what == "loss":
-                params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
-                toks = torch.zeros(1, 8, dtype=torch.long)
-                tf_model.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
-            else:
-                tf_model.train_step_fn(cfg, AdamW())
+    if what in ("loss", "train_step"):  # refused until the families trained (test_torch_train_families.py)
+        params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+        toks = torch.arange(2, 10, dtype=torch.long)[None]
+        batch = {"tokens": toks, "labels": toks}
+        if what == "loss":
+            assert torch.isfinite(tf_model.loss_fn(params, cfg, batch))
+        else:
+            opt = AdamW()
+            state, metrics = tf_model.train_step_fn(cfg, opt)({"params": params, "opt_state": opt.init(params),
+                                                               "step": 0}, batch)
+            assert state["step"] == 1 and torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
         return
     small = ["--reduced", "--device", "cpu", "--dtype", "float32", "--requests", "2", "--max-new", "3",
              "--max-seq", "32", "--prefill-chunk", "8", "--temperature", "0"]

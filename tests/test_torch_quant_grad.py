@@ -18,7 +18,10 @@ reference's (``_build_quantized_caller``), on the CPU.
   gradient leaf within 1e-4 of max|reference leaf|, as the int8 forward's
   activation codes may sit one code apart (test_torch_quant_serving.py) and
   the backward then starts from another point.
-* A tied head still raises, citing ROADMAP.md Queue 1 "Other model families".
+* A quantized tied head (the reduced Mamba2 in int8, f32) no longer raises:
+  the fused loss's head is the float embedding's transpose, and the loss and
+  the embedding's gradient (lookup and head summed) match the reference's,
+  at the bounds above.
 """
 
 import dataclasses
@@ -36,7 +39,6 @@ from repro.models import transformer as ref_tf
 from repro_torch import api
 from repro_torch.configs import get_config as port_get
 from repro_torch.convert import params_from_jax, tensor_from_numpy
-from repro_torch.device import make_generator
 from repro_torch.kernels import epilogue as epi
 from repro_torch.models import transformer as tf_model
 
@@ -166,11 +168,22 @@ def test_quantized_loss_and_float_gradients_match_reference(qmodel, fused):
 
 
 def test_a_tied_head_still_raises():
-    cfg = dataclasses.replace(port_get("mamba2-370m").reduced(), matmul_backend="dip_int8w", quantization="int8",
-                              param_dtype="float32", compute_dtype="float32")
-    params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
-    toks = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Other model families"'):
-        tf_model.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Other model families"'):
-        tf_model._natural_head(params, cfg)
+    """No longer raises: the tied model's quantized loss and its float
+    leaves' gradients, the embedding's included, against the reference."""
+    kw = dict(param_dtype="float32", compute_dtype="float32", quantization="int8")
+    from repro.configs import get_config as ref_get
+    ref_cfg = dataclasses.replace(ref_get("mamba2-370m").reduced(), matmul_backend="dip_int8w", **kw)
+    cfg = dataclasses.replace(port_get("mamba2-370m").reduced(), matmul_backend="dip_int8w", **kw)
+    params, np_params = reference_params(ref_cfg)
+    tparams = params_from_jax(np_params, cfg, device="cpu")
+    assert tf_model._natural_head(tparams, cfg).data_ptr() == tparams["embed"].data_ptr()
+    toks = np.random.default_rng(5).integers(2, cfg.vocab_size, (2, 16)).astype(np.int32)
+    want, want_g = jax.value_and_grad(lambda e: ref_tf.loss_fn(
+        dict(params, embed=e), ref_cfg, {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}))(params["embed"])
+    embed = tparams["embed"].requires_grad_(True)
+    t = torch.as_tensor(toks)
+    got = tf_model.loss_fn(tparams, cfg, {"tokens": t, "labels": t})
+    (g,) = torch.autograd.grad(got, [embed])
+    assert_close(got.detach(), want, F32)
+    err = float((g - torch.from_numpy(np.array(want_g))).abs().max())
+    assert err <= GRAD_TOL * float(np.abs(np.asarray(want_g)).max()), err

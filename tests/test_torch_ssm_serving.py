@@ -323,19 +323,22 @@ def test_paged_pools_and_import(dip_model):
                                   "no_slots"])
 @pytest.mark.parametrize("name", ARCHS)
 def test_what_the_slice_refuses(name, what):
-    """Training and a pool without slots are refused; the quantized cases,
-    refused until the quantized families were ported, now serve (their
-    parity with the reference is in test_torch_quant_families.py)."""
+    """A pool without slots is refused; the loss and a training step run
+    (their parity with the reference is in test_torch_train_families.py),
+    and the quantized cases serve (test_torch_quant_families.py)."""
     _, cfg = _configs(name, ("xla", "torch"))
     from repro_torch.launch import serve
-    if what in ("loss", "train_step"):
-        with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Other model families"'):
-            if what == "loss":
-                params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
-                toks = torch.zeros(1, 8, dtype=torch.long)
-                tf_model.loss_fn(params, cfg, {"tokens": toks, "labels": toks})
-            else:
-                tf_model.train_step_fn(cfg, AdamW())
+    if what in ("loss", "train_step"):  # refused until the families trained (test_torch_train_families.py)
+        params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
+        toks = torch.arange(2, 10, dtype=torch.long)[None]
+        batch = {"tokens": toks, "labels": toks}
+        if what == "loss":
+            assert torch.isfinite(tf_model.loss_fn(params, cfg, batch))
+        else:
+            opt = AdamW()
+            state, metrics = tf_model.train_step_fn(cfg, opt)({"params": params, "opt_state": opt.init(params),
+                                                               "step": 0}, batch)
+            assert state["step"] == 1 and torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
         return
     if what == "no_slots":
         with pytest.raises(ValueError, match="slots"):
@@ -378,9 +381,12 @@ def test_what_the_slice_refuses(name, what):
 
 
 def test_stub_frontends_stay_refused():
+    """No longer refused: a frontend only changes what training feeds the
+    model (embeddings), so the template is the configuration's own."""
     _, cfg = _configs("zamba2-2.7b", ("xla", "torch"))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Other model families"'):
-        tf_model.param_template(dataclasses.replace(cfg, frontend="vision_stub"))
+    shapes = {k: v[0] for k, v in tf_model.param_template(cfg)["layers"].items()}
+    stub = tf_model.param_template(dataclasses.replace(cfg, frontend="vision_stub"))
+    assert {k: v[0] for k, v in stub["layers"].items()} == shapes and "shared_attn" in stub
 
 
 @pytest.mark.parametrize("name", ARCHS)

@@ -231,6 +231,36 @@ def test_adamw_update_matches_reference_on_the_same_gradients():
     assert st["count"] == int(ref_s["count"]) == 3
 
 
+def test_adamw_slabs_give_the_same_bits(monkeypatch):
+    """The update walks each leaf in slabs of its leading axis, clipping as
+    it goes: with slabs of a few elements (rows split, a row larger than a
+    slab alone) the parameters and moments equal the one-slab update bit for
+    bit, a bf16 leaf and a clipped step included."""
+    from repro_torch.optim import adamw
+
+    r = np.random.default_rng(8)
+
+    def tree_of(scale):
+        return {"w": api.DipWeight(_t(r.normal(size=(3, 64, 128)) * scale), 100, 70),
+                "b16": _t(r.normal(size=(5, 7)) * scale).to(torch.bfloat16), "v": _t(r.normal(size=(9,)) * scale)}
+
+    params, grads = tree_of(0.1), tree_of(30.0)  # norm >> clip_norm: the clip scales every slab
+    out = []
+    for slab in (adamw.SLAB, 5):
+        monkeypatch.setattr(adamw, "SLAB", slab)
+        opt = AdamW(lr=1e-2)
+        p = tree.map_tree(lambda t: t.clone(), params)
+        st = opt.init(p)
+        for _ in range(2):
+            p, st = opt.update(grads, st, p)
+        out.append((p, st))
+    (p0, s0), (p1, s1) = out
+    for a, b in zip(tree.leaves(p1) + tree.leaves(s1["mu"]) + tree.leaves(s1["nu"]),
+                    tree.leaves(p0) + tree.leaves(s0["mu"]) + tree.leaves(s0["nu"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(s1["grad_norm"], s0["grad_norm"]) and float(s0["grad_norm"]) > AdamW().clip_norm
+
+
 def test_microbatch_matches_the_full_batch(model):
     """Every token valid, so the two halves' mean losses average to the full
     batch's (with a mask the halves would hold different token counts, in
@@ -304,13 +334,21 @@ def test_block_remat_reruns_each_forward_and_keeps_the_gradients(monkeypatch):
 
 @pytest.mark.parametrize("what", ["guard", "plan", "grad_transform", "tied"])
 def test_training_branches_outside_the_slice_raise(what):
+    """The guard, sharding plans and gradient transforms still raise; a tied
+    head trains now: the fused loss's head is the embedding's transpose, a
+    view of its storage (test_torch_train_families.py holds its gradient)."""
     _, cfg = reduced_configs()
+    if what == "tied":
+        tied = dataclasses.replace(cfg, tie_embeddings=True)
+        params = {"embed": torch.randn(tied.padded_vocab, tied.d_model)}
+        head = tf_model._natural_head(params, tied)
+        assert head.shape == (tied.d_model, tied.padded_vocab)
+        assert torch.equal(head, params["embed"].t()) and head.data_ptr() == params["embed"].data_ptr()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "guard":
             tf_model.train_step_fn(cfg, AdamW(), guard=True)
         elif what == "plan":
             tf_model.train_step_fn(cfg, AdamW(), plan=object())
-        elif what == "grad_transform":
-            AdamW(grad_transform=object())
         else:
-            tf_model._natural_head({}, dataclasses.replace(cfg, tie_embeddings=True))
+            AdamW(grad_transform=object())

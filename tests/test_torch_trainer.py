@@ -12,11 +12,22 @@ reference on the CPU.
   (same paths, dtypes and crc32), and the next step's loss matches (1e-5 of
   max(1, |reference|): the same weights, batch and optimizer state).
 * ``fail_at_step`` then auto-resume continues bit-exactly.
+* ``SyntheticLM(emit_embeddings=)`` (the stub frontends' batches) is
+  byte-identical to the reference's.
+* The reduced Mamba2 (tied head) and Zamba2 (hybrid) ``Trainer`` runs of 3
+  steps from the reference's initial weights give the reference
+  ``Trainer``'s losses and gradient norms (``LOSS_TOL``; both on DiP storage,
+  the reference on its ``xla`` backend), and a run stopped at step 2 resumes
+  from its checkpoint (a tree without ``lm_head``, with ``shared_attn``) and
+  repeats step 3 bit for bit.
+* ``convert.opt_state_from_jax`` converts the reference's AdamW state over a
+  MoE/MLA and a hybrid tree leaf for leaf, bytes and paths.
 """
 
 import dataclasses
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -24,14 +35,14 @@ import torch
 
 import jax
 
-from _torch_parity import TOL, assert_close, reduced_configs
+from _torch_parity import TOL, assert_close, family_configs, reduced_configs
 from repro.data import SyntheticLM as RefSyntheticLM
 from repro.optim import cosine_schedule as ref_cosine
 from repro.runtime import Trainer as RefTrainer
 from repro.runtime import TrainerConfig as RefTrainerConfig
 from repro_torch import api, tree
 from repro_torch.checkpoint import CheckpointManager, restore_pytree, save_pytree
-from repro_torch.convert import params_from_jax
+from repro_torch.convert import opt_state_from_jax, params_from_jax
 from repro_torch.data import DataState, SyntheticLM
 from repro_torch.optim import cosine_schedule
 from repro_torch.runtime import Trainer, TrainerConfig
@@ -65,6 +76,42 @@ def test_schedules_match_reference():
     for s in (0, 1, 5, 10, 11, 57, 100, 150):
         assert float(cosine_schedule(3e-4, 10, 100)(s)) == pytest.approx(
             float(ref_cosine(3e-4, 10, 100)(jnp.asarray(s, jnp.int32))), rel=1e-6)
+
+
+@pytest.mark.parametrize("d_model", [24, 64])
+def test_synthetic_embeddings_are_bit_identical(d_model):
+    kw = dict(vocab_size=512, seq_len=24, global_batch=2, seed=1, emit_embeddings=d_model)
+    ref, port = RefSyntheticLM(**kw), SyntheticLM(**kw)
+    for step in (0, 3):
+        a, b = ref.batch(step), port.batch(step)
+        assert sorted(a) == sorted(b) == ["embeddings", "labels"]
+        for k in a:
+            assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "zamba2-2.7b"])
+def test_opt_state_from_jax_over_family_trees(name):
+    """The reference's AdamW state (moments in the parameters' tree: the
+    plain stacked banks and router, MLA's projections, ``A_log``, the
+    hybrid's ``shared_attn``) converts leaf for leaf into the port's."""
+    from repro.models import transformer as ref_tf
+    from repro.optim import AdamW as RefAdamW
+    from repro_torch.optim import AdamW
+
+    ref_cfg, cfg = family_configs(name)
+    params = ref_tf.init_params(jax.random.PRNGKey(0), ref_cfg)
+    state = RefAdamW().init(params)
+    r = np.random.default_rng(0)
+    np_state = jax.tree_util.tree_map(lambda a: r.normal(size=np.shape(a)).astype(np.asarray(a).dtype), state)
+    np_state["count"] = np.asarray(3, np.int32)
+    conv = opt_state_from_jax(np_state, device="cpu")
+    port = AdamW().init(params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu"))
+    assert conv["count"] == 3
+    for name_ in ("mu", "nu"):
+        assert [p for p, _ in tree.paths(conv[name_])] == [p for p, _ in tree.paths(port[name_])]
+        for a, b, want in zip(tree.leaves(conv[name_]), tree.leaves(port[name_]),
+                              jax.tree_util.tree_leaves(np_state[name_])):
+            assert a.shape == b.shape and a.dtype == b.dtype and a.numpy().tobytes() == np.asarray(want).tobytes()
 
 
 def _tree():
@@ -110,6 +157,40 @@ def test_async_save_snapshots_before_in_place_updates(tmp_path):
     mgr.wait()
     got, _ = mgr.restore(_tree())
     torch.testing.assert_close(got["params"]["v"], _tree()["params"]["v"], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("budget", [1, 600])
+def test_restore_reads_ahead_within_its_byte_budget(budget, tmp_path, monkeypatch):
+    """The leaf files held on the host at once stay within the read-ahead
+    budget (one leaf at least) and restore in order, bit for bit."""
+    from repro_torch.checkpoint import manager
+
+    g = torch.Generator().manual_seed(1)
+    state = {f"l{i}": torch.randn(40 + i, generator=g) for i in range(12)}  # 160-204 bytes a leaf
+    save_pytree(str(tmp_path / "ck"), state)
+    held, most, lock, load = [0], [0], threading.Lock(), np.load
+
+    def counting_load(f, *a, **kw):
+        arr = load(f, *a, **kw)
+        with lock:
+            held[0] += arr.nbytes
+            most[0] = max(most[0], held[0])
+        return arr
+
+    real_from_numpy = manager._from_numpy
+
+    def releasing_from_numpy(arr, *a):
+        with lock:
+            held[0] -= arr.nbytes
+        return real_from_numpy(arr, *a)
+
+    monkeypatch.setattr(manager, "_READ_AHEAD_BYTES", budget)
+    monkeypatch.setattr(manager.np, "load", counting_load)
+    monkeypatch.setattr(manager, "_from_numpy", releasing_from_numpy)
+    got = restore_pytree(str(tmp_path / "ck"), {k: torch.zeros_like(v) for k, v in state.items()})
+    assert most[0] <= max(budget, 204) + 204  # the budget, or one leaf, beyond the one being copied
+    for k in state:
+        assert torch.equal(got[k], state[k])
 
 
 def test_restore_fails_loudly_on_what_it_cannot_place(tmp_path):
@@ -194,6 +275,35 @@ def test_fail_at_step_then_resume_is_bit_exact(tmp_path):
             assert a == b
 
 
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-2.7b"])
+def test_family_trainer_matches_reference_and_resumes(name, tmp_path, capsys):
+    ref_cfg, cfg = family_configs(name)
+    tk = dict(steps=3, ckpt_every=2, keep=5, log_every=100)
+    ref = RefTrainer(ref_cfg, RefTrainerConfig(ckpt_dir=str(tmp_path / "r"), async_ckpt=False, **tk),
+                     seq_len=SEQ, global_batch=BATCH)
+    want = ref.run()["metrics"]
+    start = _reference_start(ref, cfg)
+    assert ("lm_head" in start) != cfg.tie_embeddings and ("shared_attn" in start) == cfg.is_hybrid
+
+    def trainer(d, fail_at=None):
+        return Trainer(cfg, TrainerConfig(ckpt_dir=str(tmp_path / d), fail_at_step=fail_at, **tk),
+                       seq_len=SEQ, global_batch=BATCH, device="cpu")
+
+    full = trainer("a").run(params=tree.map_tree(lambda t: t.clone(), start))
+    got = full["metrics"]
+    assert [m["step"] for m in got] == [1, 2, 3]
+    for a, b in zip(got, want):
+        for k in ("loss", "grad_norm"):
+            assert abs(a[k] - b[k]) <= LOSS_TOL * max(1.0, abs(b[k])), (k, a, b)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        trainer("b", fail_at=2).run(params=tree.map_tree(lambda t: t.clone(), start))
+    resumed = trainer("b").run()
+    assert "resumed from step 2" in capsys.readouterr().out
+    assert [m["loss"] for m in resumed["metrics"]] == [got[-1]["loss"]]
+    for a, b in zip(tree.leaves(resumed["state"]["params"]), tree.leaves(full["state"]["params"])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_launch_train_on_cpu_and_not_without_a_card(tmp_path, capsys):
     from repro_torch.launch import train
 
@@ -205,6 +315,22 @@ def test_launch_train_on_cpu_and_not_without_a_card(tmp_path, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             train.main(["--arch", "llama3-8b", "--reduced", "--steps", "1", "--ckpt-dir", str(tmp_path / "d")])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "zamba2-2.7b", "mamba2-370m", "musicgen-medium"])
+def test_launch_train_takes_every_family_on_cpu(arch, tmp_path, capsys):
+    """``--arch`` takes the MoE/MLA, hybrid, SSM and stub-frontend families;
+    a hybrid's ``--layers`` must close its last shared-block group."""
+    from repro_torch.launch import train
+
+    out = train.main(["--arch", arch, "--reduced", "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "16",
+                      "--ckpt-dir", str(tmp_path / "c")])
+    assert capsys.readouterr().out.startswith(f"[train] {arch} reduced")
+    assert len(out["metrics"]) == 2 and all(np.isfinite(m["loss"]) for m in out["metrics"])
+    if arch == "zamba2-2.7b":
+        with pytest.raises(ValueError, match="multiple of its attn_every"):
+            train.main(["--arch", arch, "--reduced", "--device", "cpu", "--layers", "3", "--ckpt-dir",
+                        str(tmp_path / "d")])
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
