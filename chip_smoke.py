@@ -19,7 +19,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    counts): Zamba2's D = 80 at Sq = 256 (bf16 on the tensor cores) and at
    Sq = 1 (bf16 on ``split_kv``; f32 on the CUDA cores), every tensor-core
    head dim (64, 80, 96, 112, 128) at Sq = 256 and at Sq = 1, 3 and 16 with
-   kv_len 0 rows, two ``split_kv`` calls equal bit for bit; the fused lm_head +
+   kv_len 0 rows, two ``split_kv`` calls equal bit for bit, and
+   DeepSeek-V2-Lite's MLA pair (D = 192, Dv = 128) at Sq = 256 on the tensor
+   cores and at Sq = 1, 16 and 64 on ``split_kv``, kv_len 0 rows exactly 0;
+   the fused lm_head +
    cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
    training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
    splits and labels at -100, and bf16 x f32 at the training heads of the
@@ -38,7 +41,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    (deepseek-v2-lite-16b's, zamba2-2.7b's and mamba2-370m's, in_proj's
    padded columns included) through the registry in int8 and fp8 at M = 1,
    4 and 256 (int8: the activation codes byte for byte, epilogue none bit
-   for bit); lm_head_ce's bf16 x f32 function with the head cut to two bf16
+   for bit); fp8 with f32 x (its cast pass to bf16 byte for byte, then the
+   e4m3 mainloops with an f32 output) at those projections and with the
+   bias epilogues, M = 1, 4 and 256, within f32 TOL, one cast pass and one
+   tensor-core product a call; lm_head_ce's bf16 x f32 function with the head cut to two bf16
    parts instead of the kernel's three, in plain torch (printed: whether two
    would hold TOL); and views at storage offsets that
    are not 16-byte aligned, refused by flash, lm_head_ce and dip_matmul_q
@@ -49,7 +55,9 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    ``dip_fp8`` and ``pallas_systolic``; and the reduced
    deepseek-v2-lite-16b (MoE + MLA), zamba2-2.7b (hybrid) and mamba2-370m
    (SSM, tied head) on ``dip``, prompts that take the SSM prefill tail, and
-   the same three with ``dip_fp8`` (bf16); the reduced yi-9b and
+   the same three with ``dip_fp8`` (bf16); the reduced llama3-8b with
+   ``dip_fp8`` in f32 compute, held against the plain versions on the card
+   (every projection a cast pass and a tensor-core product); the reduced yi-9b and
    codeqwen1.5-7b on ``dip`` in bf16; the reduced phi-3-vision-4.2b and
    musicgen-medium (the stub frontends' decoders) from tokens on ``dip``;
 4. the reduced llama3-8b trained on the card against the CPU (f32, 3
@@ -87,6 +95,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    against the plain versions on the card (the routing choices that differ
    counted), the dropped (token, slot) pairs of the first chunk, wall
    medians, peak memory, and one decode step and prefill chunk profiled;
+   then the 541-token request's whole-prompt forward with no cache through
+   ``decode_step_fn(cfg, attn_backend="flash")``: 27 flash launches, all on
+   the tensor cores at (192, 128), its logits against the dense attention
+   core with the expert choices replayed, both profiled;
 5e. zamba2-2.7b at full width (54 Mamba2 layers and one shared attention+FFN
    block at 9 call sites) and
 5f. mamba2-370m at full width (48 Mamba2 layers, tied head), each in bf16
@@ -151,7 +163,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    ``SPLIT_MAX_SQ`` is read; the wavefront with the f32
    CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
    of its codes and beside its whole function in library calls; the fp8
-   route with f32 x; both quantized routes at the quantized families'
+   route with f32 x and its cast pass; flash at (192, 128) beside the
+   CUDA-core kernel that ran it before; both quantized routes at the quantized families'
    projections, with their launches per forward; lm_head_ce at the training
    heads of 6b-6e, the tied head with its contiguous copy of ``embed.t()``,
    timed on its own too).
@@ -465,8 +478,8 @@ def main():
     from repro_torch.kernels import lm_head_ce as ce
     from repro_torch.kernels import prologue as pro
     from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain, matmul_plan
-    from repro_torch.kernels.dip_matmul_q import (dip_matmul_q, dip_matmul_q_plain, q_route, quantize_pass,
-                                                  quantize_pass_plain)
+    from repro_torch.kernels.dip_matmul_q import (cast_pass, cast_pass_plain, dip_matmul_q, dip_matmul_q_plain,
+                                                  q_route, quantize_pass, quantize_pass_plain)
     from repro_torch.kernels.dip_systolic import dip_systolic, dip_systolic_plain, systolic_plan
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.flash_attention import TC_HEAD_DIMS, attention_plain, flash_attention, flash_plan
@@ -507,7 +520,7 @@ def main():
         for c in counters.values():
             c.launches = 0
         flash_attention.launches_tc = flash_attention.launches_split = 0
-        dip_matmul_q.launches_tc = dip_matmul_q.launches_quant = 0
+        dip_matmul_q.launches_tc = dip_matmul_q.launches_quant = dip_matmul_q.launches_cast = 0
 
     def read_counts():
         """Each kernel's launches since the counts were last set to 0."""
@@ -858,16 +871,25 @@ def main():
                 del x, ws, eops, got, want
 
     bh, sq, sk, hd = 32, 256, 1024, 128
-    flash_cases = [  # (label, D, Dv, q_offset, kv_len per row)
-        ("q_offset 0", hd, hd, 0, torch.full((bh,), sk, dtype=torch.int32, device=dev)),
-        ("q_offset 512", hd, hd, 512, torch.full((bh,), 768, dtype=torch.int32, device=dev)),
-        ("kv_len 0 on every 4th row", hd, hd, 512,
-         torch.tensor([0 if i % 4 == 0 else 700 - 5 * i for i in range(bh)], dtype=torch.int32, device=dev)),
-        ("Dv != D (192/128)", 192, 128, 512, torch.full((bh,), 768, dtype=torch.int32, device=dev)),
+    kv_full = lambda n: torch.full((bh,), n, dtype=torch.int32, device=dev)  # noqa: E731
+    kv_quarter_dead = lambda top: torch.tensor([0 if i % 4 == 0 else top - 5 * i for i in range(bh)],  # noqa: E731
+                                               dtype=torch.int32, device=dev)
+    # (label, Sq, D, Dv, q_offset, kv_len per row); DeepSeek-V2-Lite's MLA
+    # pair (q and k of nope + rope = 192 columns, v of 128) on both bf16
+    # routes: Sq = 256 on the 64-row tiles, Sq = 1, 16 and 64 on split_kv
+    flash_cases = [
+        ("q_offset 0", sq, hd, hd, 0, kv_full(sk)),
+        ("q_offset 512", sq, hd, hd, 512, kv_full(768)),
+        ("kv_len 0 on every 4th row", sq, hd, hd, 512, kv_quarter_dead(700)),
+        ("Dv != D (192/128)", sq, 192, 128, 512, kv_full(768)),
+        ("MLA pair, kv_len 0 on every 4th row", sq, 192, 128, 512, kv_quarter_dead(700)),
+        ("MLA pair, a token at q_offset 700", 1, 192, 128, 700, kv_full(701)),
+        ("MLA pair, kv_len 0 on every 4th row", 16, 192, 128, 800, kv_quarter_dead(816)),
+        ("MLA pair at the split limit", 64, 192, 128, 900, kv_full(964)),
     ]
 
-    def flash_inputs(dk, dvv, dtype):
-        return (torch.randn(bh, sq, dk, generator=g, device=dev).to(dtype),
+    def flash_inputs(fsq, dk, dvv, dtype):
+        return (torch.randn(bh, fsq, dk, generator=g, device=dev).to(dtype),
                 torch.randn(bh, sk, dk, generator=g, device=dev).to(dtype),
                 torch.randn(bh, sk, dvv, generator=g, device=dev).to(dtype))
 
@@ -895,10 +917,17 @@ def main():
 
     for dt_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dt_name)
-        for label, dk, dvv, qo, kvl in flash_cases:
-            q, k, v = flash_inputs(dk, dvv, dtype)
-            flash_checked(label, q, k, v, dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True),
-                          dt_name)
+        for label, fsq, dk, dvv, qo, kvl in flash_cases:
+            q, k, v = flash_inputs(fsq, dk, dvv, dtype)
+            kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
+            got, plan = flash_checked(label, q, k, v, kw, dt_name)
+            want_route = ("cuda_cores" if dt_name == "float32" or dk != dvv and (dk, dvv) != (192, 128)
+                          else "tensor_cores" if fsq > fa.SPLIT_MAX_SQ else "split_kv")
+            if plan[0] != want_route:
+                raise AssertionError(f"flash {dt_name} Sq={fsq} D={dk} Dv={dvv} planned {plan}, not {want_route}")
+            if plan[0] == "split_kv" and not torch.equal(got, flash_attention(q, k, v, **kw)):
+                raise AssertionError(f"flash split_kv Sq={fsq} D={dk} Dv={dvv}: two calls differ")
+            del q, k, v, got
     # Zamba2's shared attention at prefill (phase 5e): 32 heads of D = 80; a
     # 256-token chunk at q_offset 0 and 512, and one token of the prefill
     # tail at q_offset 700, against the 1024 rows of the prefill cache; in
@@ -1166,6 +1195,31 @@ def main():
                 log(f"  quantizing pass {dt_name} M={m} K={k} {pr}: codes and scales byte-identical")
                 del x, codes, scale, want_c, want_s
 
+    # the fp8 route's cast pass for f32 x: bf16 bytes those of the plain
+    # version (the same inv_rms on both sides), with and without the
+    # prologue, an all-zero row and a row of exact bf16 rounding midpoints
+    worst["cast_pass"] = 0.0  # byte-identical, or the phase fails
+    for m, k in ((1, d), (4, d), (256, d), (37, d_ff)):
+        for pr in ("none", "rmsnorm"):
+            x = torch.randn(m, k, generator=g, device=dev) * 3
+            if m > 2:
+                x[1] = 0
+                x[2] = ((torch.randint(0x3C00, 0x4400, (k,), generator=g, device=dev, dtype=torch.int32) << 16)
+                        + 0x8000).view(torch.float32)
+            gain = torch.rand(k, generator=g, device=dev) + 0.5 if pr == "rmsnorm" else None
+            inv = pro.inv_rms(x) if gain is not None else None
+            before = dip_matmul_q.launches_cast
+            got = cast_pass(x, inv, gain)
+            if dip_matmul_q.launches_cast != before + 1:
+                raise AssertionError("cast pass: the wrapper did not launch its kernel")
+            want_b = cast_pass_plain(x, inv, gain)
+            if not torch.equal(got.view(torch.int16), want_b.view(torch.int16)):
+                n_diff = int((got.view(torch.int16) != want_b.view(torch.int16)).sum())
+                raise AssertionError(f"cast pass M={m} K={k} {pr}: {n_diff} bf16 values differ from the plain "
+                                     f"version's")
+            log(f"  cast pass float32 -> bfloat16 M={m} K={k} {pr}: byte-identical")
+            del x, got, want_b
+
     torch.cuda.synchronize()
 
     # the quantized families' projections (phases 5g, 5h; fp8 is held at
@@ -1214,6 +1268,47 @@ def main():
                     worst[key] = max(worst[key], close(name, got, want, TOL["bfloat16"]))
                 del x, got, want, kw
             del qws
+    torch.cuda.synchronize()
+
+    # fp8 weights with f32 x, as an f32-compute model gives them (phase 3
+    # serves one): one cast pass to bf16, then the e4m3 mainloops with an
+    # f32 output, through the registry at every family projection of 5g / 5h
+    # and with the bias epilogues at DeepSeek-V2-Lite's shared gate width,
+    # M = 1, 4 and 256; one product on the tensor-core route and one cast
+    # pass a call; against the same call with the plain versions on the
+    # card, f32 TOL (the same bf16 operands, summed in IEEE f32 across K)
+    fp8_backend = api.quant.scheme_info("fp8_e4m3").backend
+    worst["dip_matmul_q_fp8_f32"] = 0.0
+    bias_proj = [(f"deepseek shared gate {e}", ds_d, ds_sff, e, "rmsnorm") for e in ("bias", "bias_gelu", "bias_silu")]
+    for label, k, n, e, pr in ds_proj + ssm_proj + bias_proj:
+        s = epi.spec(e)
+        qws = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) * k ** -0.5, "fp8_e4m3")
+               for _ in range(2 if s.dual_weight else 1)]
+        for m in (1, 4, 256):
+            x = torch.randn(m, k, generator=g, device=dev)
+            gain = torch.rand(k, generator=g, device=dev) + 0.5 if pr == "rmsnorm" else None
+            eops = ((torch.randn(m, n, generator=g, device=dev),) if s.residual else
+                    (torch.randn(n, generator=g, device=dev),) if s.bias else ())
+            kw = dict(backend=fp8_backend, epilogue=e, prologue=pr, prologue_operands=() if gain is None else (gain,),
+                      epilogue_operands=eops)
+            w = tuple(qws) if s.dual_weight else qws[0]
+            before = (dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_cast,
+                      dip_matmul_q.launches_quant)
+            got = api.matmul(x, w, **kw)
+            moved = tuple(a_ - b_ for a_, b_ in zip((dip_matmul_q.launches, dip_matmul_q.launches_tc,
+                                                     dip_matmul_q.launches_cast, dip_matmul_q.launches_quant), before))
+            if moved != (1, 1, 1, 0):
+                raise AssertionError(f"fp8 f32 x {label} M={m}: launches (product, tensor cores, cast, quantize) "
+                                     f"{moved}, not (1, 1, 1, 0)")
+            with plain_backends():
+                want = api.matmul(x, w, **kw)
+            name = (f"dip_matmul_q_fp8 float32 x registry M={m} {label} K={k} N={n} (storage {qws[0].data.shape[1]}) "
+                    f"{e}/{pr} [{matmul_plan(m, qws[0].data.shape[1], k, s.dual_weight, sms, weight_bytes=1).regime}]")
+            if got.dtype != torch.float32:
+                raise AssertionError(f"{name}: out dtype {got.dtype}")
+            worst["dip_matmul_q_fp8_f32"] = max(worst["dip_matmul_q_fp8_f32"], close(name, got, want, TOL["float32"]))
+            del x, got, want, kw, eops
+        del qws
     torch.cuda.synchronize()
 
     # views at a storage offset that is not 16-byte aligned: refused before
@@ -1407,6 +1502,49 @@ def main():
             over += int((err > MODEL_TOL * max(1.0, b.abs().max().item())).sum())
         log(f"  {label}: {len(vlogits['cuda'])} steps, logits max|card - cpu| {worst_err:.3e} within the "
             f"bound; {over} logits above {MODEL_TOL:g} x max(1, max|cpu|)")
+
+    # fp8 weights in f32 compute: every projection a cast pass to bf16 and the
+    # e4m3 mainloops with an f32 output.  Held against the plain versions on
+    # the card, not against the CPU: on the card both sides multiply
+    # bf16-cast activations (fp8_compute_dtype), where the CPU multiplies f32
+    # ones.  The same weights served twice on the card, the kernels and then
+    # the plain versions (flash on both sides); greedy tokens and steps equal,
+    # every step's logits within BF16_MODEL_TOL, every dip_matmul_q launch on
+    # the tensor-core route with one cast pass
+    fcfg = dataclasses.replace(get_config("llama3-8b").reduced(), quantization="fp8_e4m3", matmul_backend="dip_fp8",
+                               param_dtype="float32", compute_dtype="float32")
+    fparams = to_dev(tf_model.init_params(fcfg, make_generator(SEED, "cpu"), "cpu"))
+    fruns = {}
+    for label, ctx in (("kernels", contextlib.nullcontext), ("plain", plain_backends)):
+        reset_counts()
+        with ctx():
+            server = Server(fcfg, scfg, fparams, device="cuda")
+            seen = recorded(server)
+            outs = server.serve([Request(rid=i, prompt=p) for i, p in enumerate(prompts)])
+        fruns[label] = (outs, seen, read_counts(), dip_matmul_q.launches_tc, dip_matmul_q.launches_cast,
+                        dip_matmul_q.launches_quant, flash_routes())
+        del server
+    (outs_k, seen_k, counts_k, tc_k, cast_k, quant_k, fp8_f32_routes), (outs_p, seen_p, counts_p, *_) = (
+        fruns["kernels"], fruns["plain"])
+    log(f"  llama3-8b reduced, dip_fp8, f32: greedy tokens kernels {outs_k} / plain {outs_p}; launches {counts_k} "
+        f"({tc_k} on the tensor-core route, {cast_k} cast passes, {quant_k} quantizing passes; the plain run's "
+        f"{counts_p})")
+    n_q = counts_k["dip_matmul_q"]
+    if not n_q or tc_k != n_q or cast_k != n_q or quant_k or counts_k["dip_matmul"] or counts_p["dip_matmul_q"]:
+        raise AssertionError("reduced fp8 model, f32: a projection left the tensor-core route or its cast pass")
+    if outs_k != outs_p or [t for t, _ in seen_k] != [t for t, _ in seen_p]:
+        raise AssertionError("reduced fp8 model, f32: greedy tokens or steps differ between kernels and plain")
+    worst_err = 0.0
+    for (tag, a), (_, b) in zip(seen_k, seen_p):
+        err = (a - b).abs().max().item()
+        if err > BF16_MODEL_TOL * max(1.0, b.abs().max().item()):
+            raise AssertionError(f"reduced fp8 model, f32: {tag} logits outside {BF16_MODEL_TOL:g} x "
+                                 f"max(1, max|plain|)")
+        worst_err = max(worst_err, err)
+    log(f"  llama3-8b reduced, dip_fp8, f32: {len(seen_k)} steps, logits max|kernels - plain| {worst_err:.3e} within "
+        f"{BF16_MODEL_TOL:g} x max(1, max|plain|)")
+    fp8_f32_path = dict(counts_k, cast_pass=cast_k)
+    del fparams, fruns
 
     # ------------------------------------ 4. reduced training, card vs CPU --
     log("phase 4: reduced llama3-8b, f32, dip backend: 3 Trainer steps, card against CPU, "
@@ -1989,6 +2127,56 @@ def main():
         return q_tc, q_quant
 
     # --------------- 5d / 5g. DeepSeek-V2-Lite-16B at full width -----------
+    def whole_prompt_forward(params, c, reqs):
+        """The whole-prompt forward with no cache (the naive MLA form: q and
+        k of nope + rope = 192 columns, v of 128, per head), through the
+        engine's step function ``decode_step_fn(c, attn_backend="flash")``
+        on the 541-token request: 163 DiP launches and 27 flash launches,
+        every one on the tensor-core route (D = 192, Dv = 128, Sq = 541);
+        its logits against ``attn_backend="dense"`` replaying its expert
+        choices (the two differ only in the attention core), within
+        FULL_TOL; then both profiled for device time."""
+        prompt = next(r.prompt for r in reqs if len(r.prompt) == 541)
+        toks = torch.as_tensor(prompt, device=dev)[None]
+        flash_step = tf_model.decode_step_fn(c, attn_backend="flash")
+        dense_step = tf_model.decode_step_fn(c, attn_backend="dense")
+        stats = {}
+        reset_counts()
+        with torch.no_grad():
+            got, cache = flash_step(params, None, toks, moe_trace=stats)
+        torch.cuda.synchronize()
+        launches, routes = read_counts(), flash_routes()
+        want_l = {"dip_matmul": 163, "dip_matmul_q": 0, "dip_systolic": 0, "flash_attention": c.n_layers,
+                  "lm_head_ce": 0}
+        log(f"  whole-prompt forward, no cache (541 tokens, flash): launches {launches}, flash by route {routes}")
+        if cache is not None or launches != want_l or routes != {"tensor_cores": c.n_layers, "split_kv": 0,
+                                                                  "cuda_cores": 0}:
+            raise AssertionError(f"deepseek whole-prompt forward: launches {launches}, routes {routes}; expected "
+                                 f"163 DiP and {c.n_layers} flash launches, all on tensor_cores, and no cache")
+        replay = {"replay_ids": stats["ids"]}
+        with uncounted(), torch.no_grad():
+            want, _ = dense_step(params, None, toks, moe_trace=replay)
+        got_v, want_v = got[..., :c.vocab_size].float(), want[..., :c.vocab_size].float()
+        if not bool(torch.isfinite(got_v).all()):
+            raise AssertionError("deepseek whole-prompt forward: non-finite logits")
+        err, scale = (got_v - want_v).abs().max().item(), max(1.0, want_v.abs().max().item())
+        with uncounted():
+            prof_f = profile_call(lambda: flash_step(params, None, toks, moe_trace={"replay_ids": stats["ids"]}),
+                                  lambda: None, "whole-prompt forward, flash", top=6)
+            prof_d = profile_call(lambda: dense_step(params, None, toks, moe_trace={"replay_ids": stats["ids"]}),
+                                  lambda: None, "whole-prompt forward, dense attention", top=6)
+        log(f"  whole-prompt forward: logits against the dense attention core (expert choices replayed) max|err| "
+            f"{err:.3e} (max|dense| {scale:.3g}, bound {FULL_TOL:g} x scale); device ms flash "
+            f"{prof_f['device_ms']:.3f} (of it flash kernels {prof_f['flash_ms']:.3f}) against dense "
+            f"{prof_d['device_ms']:.3f} ({gpu})")
+        if err > FULL_TOL * scale:
+            raise AssertionError("deepseek whole-prompt forward: logits outside the stated bound of the dense run")
+        del got, want, got_v, want_v, stats, replay
+        return {"tokens": int(toks.shape[1]), "launches": launches, "flash_routes": routes, "max_err": err,
+                "max_dense": scale, "device_ms_flash": prof_f["device_ms"], "flash_kernel_ms": prof_f["flash_ms"],
+                "device_ms_dense": prof_d["device_ms"], "wall_ms_flash": prof_f["wall_ms"],
+                "wall_ms_dense": prof_d["wall_ms"]}
+
     def serve_deepseek(phase, extra_argv=(), scheme=None):
         """Serve deepseek-v2-lite-16b through ``launch.serve --full`` (4
         slots, max_seq 1024, prefill chunk 256, the launcher's 4 seeded
@@ -2175,6 +2363,7 @@ def main():
                                 "dropped": sum(dropped)}
         if set(ds_checked) != {"_prefill_fwd", "_decode"}:
             raise AssertionError("deepseek full width: a step was never checked against plain")
+        whole = whole_prompt_forward(server.params, dcfg, reqs) if scheme is None else None
         prompt_tokens, generated = sum(len(r.prompt) for r in reqs), sum(len(v) for v in results.values())
         ds_serving = {
             "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
@@ -2187,7 +2376,7 @@ def main():
             "dip_launches_per_forward": per_forward, "dip_matmul_q_tensor_core_launches": q_tc,
             "dip_matmul_q_quantizing_passes": q_quant, "int8_import_rows": dst["imported"],
             "first_prefill_chunk_dropped": ds_checked["_prefill_fwd"]["dropped"], "checked": ds_checked,
-            "wall_s": wall, "prefill_chunks": n_prefill, "decode_steps": n_decode,
+            "wall_s": wall, "prefill_chunks": n_prefill, "decode_steps": n_decode, "whole_prompt_forward": whole,
         }
         log(f"  results: { {k: v[:6] for k, v in results.items()} }")
         tag = "deepseek" if scheme is None else f"deepseek {scheme}"
@@ -2862,28 +3051,30 @@ def main():
                     rows_out.append(row)
                     log("  " + json.dumps(row))
                 del x, p, eops, wn
-        for label, dk, dvv, qo, kvl in flash_cases:
-            q, k, v = flash_inputs(dk, dvv, dtype)
+        for label, fsq, dk, dvv, qo, kvl in flash_cases:
+            q, k, v = flash_inputs(fsq, dk, dvv, dtype)
             kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
-            i = torch.arange(sq, device=dev)
+            i = torch.arange(fsq, device=dev)
             live = torch.clamp(torch.minimum(kvl.view(-1, 1).long(), qo + i.view(1, -1) + 1), min=0).sum().item()
             # only the keys some query of the row can see must be read: those
             # below min(Sk, kv_len, q_offset + Sq)
-            keys = torch.clamp(torch.clamp(kvl.long(), max=min(sk, qo + sq)), min=0).sum().item()
-            nbytes = (q.numel() + keys * (dk + dvv) + bh * sq * dvv) * isz + 8 * bh
+            keys = torch.clamp(torch.clamp(kvl.long(), max=min(sk, qo + fsq)), min=0).sum().item()
+            nbytes = (q.numel() + keys * (dk + dvv) + bh * fsq * dvv) * isz + 8 * bh
             b_ms, b_by = bound_ms(nbytes, 2 * live * (dk + dvv), dt_name)
             mask = (torch.arange(sk, device=dev).view(1, 1, -1) < kvl.view(-1, 1, 1)) & (
                 qo + i.view(1, -1, 1) >= torch.arange(sk, device=dev).view(1, 1, -1))
             q4, k4, v4, m4 = q[None], k[None], v[None], mask[None]
-            pl = flash_plan(bh, sq, sk, dk, dvv, dtype, sms)
+            pl = flash_plan(bh, fsq, sk, dk, dvv, dtype, sms)
             row = dict(kernel="flash_attention", dtype=dt_name,
-                       shape=f"BH={bh} Sq={sq} Sk={sk} D={dk} Dv={dvv} {label}", route=pl[0], splits=pl[2],
+                       shape=f"BH={bh} Sq={fsq} Sk={sk} D={dk} Dv={dvv} {label}", route=pl[0], splits=pl[2],
                        ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
                        host_ms=time_ms(lambda: flash_attention(q, k, v, **kw), queued=False),
                        plain_ms=time_ms(lambda: attention_plain(q, k, v, **kw)),
                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                            q4, k4, v4, attn_mask=m4, scale=dk ** -0.5)),
                        bound_ms=b_ms, bound_by=b_by)
+            if pl[0] != "cuda_cores":  # the CUDA-core kernel, which ran these shapes before, in the same call
+                row["cuda_cores_ms"] = time_ms(lambda: fa._launch(q, k, v, ("cuda_cores", 64, 1), scale=None, **kw))
             rows_out.append(row)
             log("  " + json.dumps(row))
             del q, k, v, mask
@@ -3168,9 +3359,9 @@ def main():
                     rows_out.append(qrow)
                     log("  " + json.dumps(qrow))
                 if scheme == "fp8_e4m3":
-                    # the fp8 route with f32 x (the first design, csrc/
-                    # dip_matmul_q.cu: x cast to bf16 on load, bf16 WMMA): f32
-                    # x read and f32 out written, the products at the bf16 rate
+                    # the fp8 route with f32 x (the cast pass to bf16, then the
+                    # e4m3 mainloops with an f32 output): f32 x read and f32
+                    # out written, the products at the bf16 rate
                     x32 = x.float()
                     b_ms, b_by = bound_ms(4 * m * k + nw * (k * n + 4 * n) + 4 * m * n + gbytes, 2 * m * k * n * nw,
                                           "bfloat16")
@@ -3192,6 +3383,23 @@ def main():
                                bound_ms=b_ms, bound_by=b_by)
                     rows_out.append(row)
                     log("  " + json.dumps(row))
+                    if label == "gate+up":
+                        # the cast pass alone, with and without the prologue:
+                        # f32 x read, bf16 written (inv_rms and gain read);
+                        # without the prologue one library call computes it
+                        for cpr in ("none", "rmsnorm"):
+                            gain = kw["prologue_operands"][0] if cpr == "rmsnorm" else None
+                            inv = pro.inv_rms(x32) if gain is not None else None
+                            b_ms, b_by = bound_ms(6 * m * k + (4 * (k + m) if gain is not None else 0), 0, "float32")
+                            crow = dict(kernel="cast_pass", dtype="float32", shape=f"M={m} K={k} {cpr}",
+                                        ms=time_ms(lambda: cast_pass(x32, inv, gain)),
+                                        host_ms=time_ms(lambda: cast_pass(x32, inv, gain), queued=False),
+                                        plain_ms=time_ms(lambda: cast_pass_plain(x32, inv, gain)),
+                                        library_ms=time_ms(lambda: x32.to(torch.bfloat16)) if gain is None else None,
+                                        library="x.to(torch.bfloat16)" if gain is None else None,
+                                        bound_ms=b_ms, bound_by=b_by)
+                            rows_out.append(crow)
+                            log("  " + json.dumps(crow))
                     del x32
                 del qws, eops, nat
             # the wavefront on bf16 DiP storage
@@ -3308,7 +3516,7 @@ def main():
     # launch; lm_head_ce in the training dtypes (bf16 x, f32 head)
     pick = {"dip_matmul": ("bfloat16", "M=256 gate+up"), "flash_attention": ("bfloat16", "q_offset 512"),
             "lm_head_ce": ("bfloat16 x float32", "T=4092"), "dip_matmul_q_int8": ("bfloat16", "M=256 gate+up"),
-            "quantize_pass": ("bfloat16", "M=256 K=4096 rmsnorm"),
+            "quantize_pass": ("bfloat16", "M=256 K=4096 rmsnorm"), "cast_pass": ("float32", "M=256 K=4096 rmsnorm"),
             "dip_matmul_q_fp8": ("bfloat16", "M=256 gate+up"), "dip_systolic": ("bfloat16", "M=256 gate+up")}
     # the int8 route: its product on dip_matmul.cu's int8 mainloops, its
     # quantizing pass in dip_matmul_q.cu (the reference quantizes x outside
@@ -3320,7 +3528,8 @@ def main():
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:117"),
                "lm_head_ce": ("src/repro_torch/kernels/csrc/lm_head_ce.cu", "src/repro/kernels/lm_head_ce.py:102"),
-               "dip_matmul_q_int8": q_src, "quantize_pass": quant_src, "dip_matmul_q_fp8": fp8_src,
+               "dip_matmul_q_int8": q_src, "quantize_pass": quant_src, "cast_pass": quant_src,
+               "dip_matmul_q_fp8": fp8_src,
                "dip_systolic": ("src/repro_torch/kernels/csrc/dip_systolic.cu",
                                 "src/repro/kernels/dip_systolic.py:82")}
     # each kernel's launches on each main path, counted from 0 around it
@@ -3330,13 +3539,17 @@ def main():
              "serve_deepseek_int8": launches_dsq, "serve_zamba2_int8": launches_zbq,
              "serve_mamba2_int8": launches_mbq}
     paths.update({f"train_{nm.split('-')[0]}": n for nm, n in family_launches.items()})
+    paths["serve_fp8_f32_reduced"] = fp8_f32_path  # phase 3: fp8 weights in f32 compute, the cast pass each call
+    routes_by_path["serve_fp8_f32_reduced"] = fp8_f32_routes  # its flash launches: the reduced head dim 32
+    paths["deepseek_whole_prompt"] = ds_serving["whole_prompt_forward"]["launches"]
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
     for pth, served in (("serve_deepseek_int8", dsq_serving), ("serve_zamba2_int8", zbq_serving),
                         ("serve_mamba2_int8", mbq_serving)):
         paths[pth]["quantize_pass"] = served["dip_matmul_q_quantizing_passes"]
     int8_paths = ("serve_int8", "serve_deepseek_int8", "serve_zamba2_int8", "serve_mamba2_int8")
     counter_of = {"dip_matmul_q_int8": "dip_matmul_q", "dip_matmul_q_fp8": "dip_matmul_q"}
-    path_of = {"dip_matmul_q_int8": int8_paths, "dip_matmul_q_fp8": ("serve_fp8",), "quantize_pass": int8_paths}
+    path_of = {"dip_matmul_q_int8": int8_paths, "dip_matmul_q_fp8": ("serve_fp8", "serve_fp8_f32_reduced"),
+               "quantize_pass": int8_paths, "cast_pass": ("serve_fp8_f32_reduced",)}
     kernels = []
     for name in pick:
         row = next(r for r in rows_out if r["kernel"] == name and r["dtype"] == pick[name][0]
@@ -3354,8 +3567,16 @@ def main():
             if key in row:
                 kernels[-1][key] = row[key]
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
+    routes_by_path["deepseek_whole_prompt"] = ds_serving["whole_prompt_forward"]["flash_routes"]
     flash_line["launches_by_route"] = {r: sum(v[r] for v in routes_by_path.values())
                                        for r in ("tensor_cores", "split_kv", "cuda_cores")}
+    # DeepSeek-V2-Lite's MLA pair (D = 192, Dv = 128), bf16, on its planned
+    # routes, beside the CUDA-core kernel on the same call
+    flash_line["mla_pair_192_128"] = [
+        {key: r[key] for key in ("shape", "route", "splits", "ms", "host_ms", "cuda_cores_ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by") if key in r}
+        for r in rows_out
+        if r["kernel"] == "flash_attention" and r["dtype"] == "bfloat16" and "D=192 Dv=128" in r["shape"]]
     # the SSM slice's shapes: each kernel's rows at them (phase 7 above)
     for kk in kernels:
         if kk["name"] in ("dip_matmul", "flash_attention"):
@@ -3374,6 +3595,11 @@ def main():
         line["launches_tensor_cores"] = qserve[scheme]["dip_matmul_q_tensor_core_launches"] + (
             sum(sv["dip_matmul_q_tensor_core_launches"] for sv in (dsq_serving, zbq_serving, mbq_serving))
             if scheme == "int8" else 0)
+        if name == "dip_matmul_q_fp8":  # f32 x: the cast pass, then the mainloops with an f32 output
+            line["f32_x"] = [{key: r[key] for key in ("shape", "route", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                      "bound_by") if key in r}
+                             for r in rows_out if r["kernel"] == name and r["dtype"] == "float32"]
+            line["f32_x_max_abs_err"] = worst["dip_matmul_q_fp8_f32"]
         # the quantized families' shapes (phase 7 above)
         line["quantized_family_shapes"] = [
             {key: r[key] for key in ("shape", "plan", "launches_per_forward", "ms", "plain_ms", "library_ms",

@@ -51,6 +51,9 @@
 // wrapper allocates, and splitk_reduce_kernel adds them in split order (no
 // atomics) and only then applies the scales and the epilogue; without one
 // they are applied straight from the accumulator registers, with one cast.
+// The output is bf16, or for e4m3 weights also f32 (the fp8 route with f32
+// x, fed bf16 x by dip_matmul_q.cu's cast pass), whose sums are carried in
+// IEEE f32 across K (FLUSH below); the residual has the output's type.
 //
 // f32 keeps IEEE FMAs on the CUDA cores (no TF32) and int8 exact int32 WMMA
 // s8 (dip_matmul_kernel): one block per 64x64 output tile, the tile
@@ -222,6 +225,23 @@ constexpr int MMA_THREADS = 256;     // eight warps, 2 (rows) x 4 (columns)
 constexpr int WARPS_N = 4;
 constexpr int XS = TILE + 8;         // x stage / operand row stride (elements)
 
+// two adjacent outputs, f32 or bf16
+template <typename O>
+__device__ __forceinline__ void store2(O* p, float a, float b) {
+  if constexpr (std::is_same<O, float>::value)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The f32 output (the fp8 route with f32 x) keeps its sums IEEE f32 across
+// K: mma.sync and wgmma round their f32 sums toward zero, a bias that over
+// K = 14336 grows past the f32 tolerance, so each K tile's products (the
+// decode tile) or each FLUSH K tiles' (the wgmma tile) start from zero and
+// are added to a running total in IEEE f32, as a split's partials are.
+// The bf16 output is rounded to 2^-8 and keeps one accumulator.
+constexpr int FLUSH = 4;
+
 // Two e4m3 codes, in bits 8..15 and 24..31 of v (the other bits are
 // ignored), to two bf16 (the first in the low half), exactly: the code's
 // magnitude bits land in the bf16 exponent and mantissa fields, so the bf16
@@ -282,11 +302,13 @@ __device__ __forceinline__ uint4 rotate_chunk(uint4 v, int rot) {
 
 // One block: rows m0.., columns n0.. (of each weight), K tiles
 // [kt0, kt0 + nk) with kt0 = blockIdx.z * kps.  part != null: write the f32
-// sums of this split to part[(split * NW + w) * M * N + m * N + n].
-template <typename WT, bool DUAL>
+// sums of this split to part[(split * NW + w) * M * N + m * N + n].  O: the
+// output and residual type, bf16 or (e4m3 weights only) f32.
+template <typename WT, typename O, bool DUAL>
 __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, const int kps,
                                                               float* __restrict__ part) {
   using C = Cfg<WT, DUAL>;
+  constexpr bool IEEE = std::is_same<O, float>::value;
   constexpr bool FP8 = C::FP8;
   constexpr int MI = C::MI, NI = C::NI;
   constexpr int S = C::STAGES, NW = C::NW, BN = C::BN, WS = C::WS, CPR = C::CPR;
@@ -421,6 +443,7 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
       for (int j = 0; j < NI; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[w][i][j][e] = 0.0f;
+  float tot[IEEE ? NW : 1][MI][NI][4] = {};  // IEEE: the running total of the K tiles' sums
   const int wr = (warp / WARPS_N) * 16 * MI, wc = (warp % WARPS_N) * 8 * NI;
 
   // Step t: the products of stage t, with the fragments of the next 16-deep
@@ -493,13 +516,36 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
     if (t + S - 1 < nk) issue(t + S - 1);
     sm90::cp_async_commit();
     compute(t);
+    if constexpr (IEEE) {  // this K tile's products into the total, then a fresh sum
+#pragma unroll
+      for (int w = 0; w < NW; ++w)
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tot[w][i][j][e] += acc[w][i][j][e];
+              acc[w][i][j][e] = 0.0f;
+            }
+    }
     if constexpr (FP8) sm90::cp_async_wait<S - 3>();
     __syncthreads();
   }
   sm90::cp_async_wait<0>();
+  if constexpr (IEEE) {
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NI; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[w][i][j][e] = tot[w][i][j][e];
+  }
 
-  const bf16* res = static_cast<const bf16*>(a.residual);
-  bf16* out = static_cast<bf16*>(a.out);
+  const O* res = static_cast<const O*>(a.residual);
+  O* out = static_cast<O*>(a.out);
   const size_t mn = (size_t)M * N;
 #pragma unroll
   for (int i = 0; i < MI; ++i)
@@ -522,17 +568,16 @@ __global__ void __launch_bounds__(MMA_THREADS) dip_mma_kernel(const Args a, cons
             z0 *= a.w_scale[gn], z1 *= a.w_scale[gn + 1];
             if (DUAL) u0 *= a.w_scale_up[gn], u1 *= a.w_scale_up[gn + 1];
           }
-          const float o0 = apply_epilogue(a.epilogue, z0, u0, a.bias, res, N, gm, gn);
-          const float o1 = apply_epilogue(a.epilogue, z1, u1, a.bias, res, N, gm, gn + 1);
-          *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(o0, o1);
+          store2(out + o, apply_epilogue(a.epilogue, z0, u0, a.bias, res, N, gm, gn),
+                 apply_epilogue(a.epilogue, z1, u1, a.bias, res, N, gm, gn + 1));
         }
       }
 }
 
 // The split-K second pass: the splits' partial sums added in split order,
 // then the per-channel scales (e4m3 weights), the epilogue on the whole sum
-// and one cast.
-template <bool DUAL>
+// and one cast to O.
+template <typename O, bool DUAL>
 __global__ void splitk_reduce_kernel(const Args a, const float* __restrict__ part, int splits) {
   constexpr int NW = DUAL ? 2 : 1;
   const size_t mn = (size_t)a.M * a.N;
@@ -548,31 +593,31 @@ __global__ void splitk_reduce_kernel(const Args a, const float* __restrict__ par
     z *= a.w_scale[gn];
     if (DUAL) zu *= a.w_scale_up[gn];
   }
-  static_cast<bf16*>(a.out)[e] = from_f32<bf16>(
-      apply_epilogue(a.epilogue, z, zu, a.bias, static_cast<const bf16*>(a.residual), a.N, gm, gn));
+  static_cast<O*>(a.out)[e] =
+      from_f32<O>(apply_epilogue(a.epilogue, z, zu, a.bias, static_cast<const O*>(a.residual), a.N, gm, gn));
 }
 
-template <bool DUAL>
+template <typename O, bool DUAL>
 cudaError_t launch_reduce(const Args& a, int splits, float* part, cudaStream_t stream) {
   const size_t mn = (size_t)a.M * a.N;
-  splitk_reduce_kernel<DUAL><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a, part, splits);
+  splitk_reduce_kernel<O, DUAL><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(a, part, splits);
   return cudaGetLastError();
 }
 
-template <typename WT, bool DUAL>
+template <typename WT, typename O, bool DUAL>
 cudaError_t launch_mma(const Args& a, int splits, int kps, float* part, cudaStream_t stream) {
   using C = Cfg<WT, DUAL>;
   static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(dip_mma_kernel<WT, DUAL>,
+    const cudaError_t err = cudaFuncSetAttribute(dip_mma_kernel<WT, O, DUAL>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid((a.N + C::BN - 1) / C::BN, (a.M + C::BM - 1) / C::BM, splits);
-  dip_mma_kernel<WT, DUAL><<<grid, MMA_THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
+  dip_mma_kernel<WT, O, DUAL><<<grid, MMA_THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
   const cudaError_t err = cudaGetLastError();
-  return err != cudaSuccess || splits == 1 ? err : launch_reduce<DUAL>(a, splits, part, stream);
+  return err != cudaSuccess || splits == 1 ? err : launch_reduce<O, DUAL>(a, splits, part, stream);
 }
 
 // -------------------------------------------- prefill: wgmma mainloop -------
@@ -607,11 +652,11 @@ struct WgCfg {
   static_assert(RAW % 1024 == 0 && OP % 1024 == 0, "wgmma tiles must stay 1024-byte aligned");
 };
 
-template <typename WT, bool DUAL>
+template <typename WT, typename O, bool DUAL>
 __global__ void __launch_bounds__(WgCfg<WT, DUAL>::THREADS) dip_wgmma_kernel(const Args a, const int kps,
                                                                              float* __restrict__ part) {
   using C = WgCfg<WT, DUAL>;
-  constexpr bool FP8 = C::FP8;
+  constexpr bool FP8 = C::FP8, IEEE = std::is_same<O, float>::value;
   constexpr int S = C::STAGES, T = C::THREADS, BN = C::BN, RS = C::RS;
   extern __shared__ unsigned char smem_dyn[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -760,7 +805,7 @@ __global__ void __launch_bounds__(WgCfg<WT, DUAL>::THREADS) dip_wgmma_kernel(con
     }
   };
 
-  float acc[64];
+  float acc[64], tot[IEEE ? 64 : 1] = {};  // IEEE: the running total of every FLUSH K tiles' sums
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
@@ -796,7 +841,21 @@ __global__ void __launch_bounds__(WgCfg<WT, DUAL>::THREADS) dip_wgmma_kernel(con
     for (int kk = 0; kk < TILE / 16; ++kk) sm90::wgmma_m64n128k16(acc, da + 2 * kk, db + 2 * kk);
     sm90::wgmma_commit();
     if (t + 1 < nk) convert(t + 1);
-    sm90::wgmma_wait<1>();  // this warpgroup's products of step t - 1
+    if constexpr (IEEE) {
+      if (t % FLUSH == FLUSH - 1) {  // the products of steps t - 3 .. t into the total, then a fresh sum
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          tot[i] += acc[i];
+          acc[i] = 0.0f;
+        }
+      } else {
+        sm90::wgmma_wait<1>();
+      }
+    } else {
+      sm90::wgmma_wait<1>();  // this warpgroup's products of step t - 1
+    }
     sm90::fence_regs(acc);
     if (t + S - 1 < nk) issue(t + S - 1);
     sm90::cp_async_commit();
@@ -807,11 +866,15 @@ __global__ void __launch_bounds__(WgCfg<WT, DUAL>::THREADS) dip_wgmma_kernel(con
   sm90::wgmma_wait<0>();
   sm90::fence_regs(acc);
   sm90::cp_async_wait<0>();
+  if constexpr (IEEE) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = tot[i] + acc[i];
+  }
 
   // accumulator 4 j + e: row 16 warp + lane / 4 (+ 8 for e >= 2), column
   // 8 j + 2 (lane % 4) + (e & 1) of the warpgroup's 64 x 128
-  const bf16* res = static_cast<const bf16*>(a.residual);
-  bf16* out = static_cast<bf16*>(a.out);
+  const O* res = static_cast<const O*>(a.residual);
+  O* out = static_cast<O*>(a.out);
   const size_t mn = (size_t)M * N;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j)
@@ -831,34 +894,33 @@ __global__ void __launch_bounds__(WgCfg<WT, DUAL>::THREADS) dip_wgmma_kernel(con
           z0 *= a.w_scale[gn], z1 *= a.w_scale[gn + 1];
           if (DUAL) u0 *= a.w_scale_up[gn], u1 *= a.w_scale_up[gn + 1];
         }
-        const float o0 = apply_epilogue(a.epilogue, z0, u0, a.bias, res, N, gm, gn);
-        const float o1 = apply_epilogue(a.epilogue, z1, u1, a.bias, res, N, gm, gn + 1);
-        *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(o0, o1);
+        store2(out + o, apply_epilogue(a.epilogue, z0, u0, a.bias, res, N, gm, gn),
+               apply_epilogue(a.epilogue, z1, u1, a.bias, res, N, gm, gn + 1));
       }
     }
 }
 
-template <typename WT, bool DUAL>
+template <typename WT, typename O, bool DUAL>
 cudaError_t launch_wgmma(const Args& a, int splits, int kps, float* part, cudaStream_t stream) {
   using C = WgCfg<WT, DUAL>;
   static bool attr_set = false;  // the shared-memory opt-in, once per instantiation
   if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(dip_wgmma_kernel<WT, DUAL>,
+    const cudaError_t err = cudaFuncSetAttribute(dip_wgmma_kernel<WT, O, DUAL>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid(((a.N + C::BN - 1) / C::BN) * ((a.M + C::BM - 1) / C::BM), 1, splits);
-  dip_wgmma_kernel<WT, DUAL><<<grid, C::THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
+  dip_wgmma_kernel<WT, O, DUAL><<<grid, C::THREADS, C::SMEM, stream>>>(a, kps, splits > 1 ? part : nullptr);
   const cudaError_t err = cudaGetLastError();
-  return err != cudaSuccess || splits == 1 ? err : launch_reduce<DUAL>(a, splits, part, stream);
+  return err != cudaSuccess || splits == 1 ? err : launch_reduce<O, DUAL>(a, splits, part, stream);
 }
 
 // The plan's (bm, bn) picks the kernel: bm = 32 the mma.sync decode tile
 // (bn = 64; 128 for a single e4m3 weight), bm = 128 the wgmma tile of two
 // warpgroups (bn = 128, or 64 per weight for swiglu).  WT: the weight
-// element, bf16 or an e4m3 code.
-template <typename WT>
+// element, bf16 or an e4m3 code; O: the output, bf16 or (e4m3) f32.
+template <typename WT, typename O>
 cudaError_t launch_tc(const Args& a, int bm, int bn, int splits, int kps, float* part, cudaStream_t s) {
   const int k_tiles = a.K / TILE;
   if (splits < 1 || kps < 1 || (long long)splits * kps < k_tiles || (long long)(splits - 1) * kps >= k_tiles ||
@@ -866,9 +928,11 @@ cudaError_t launch_tc(const Args& a, int bm, int bn, int splits, int kps, float*
     return cudaErrorInvalidValue;
   const bool dual = a.epilogue == EPI_SWIGLU;
   if (bn != (bm == 32 ? (sizeof(WT) == 1 && !dual ? 128 : 64) : (dual ? 64 : 128))) return cudaErrorInvalidValue;
-  if (bm == 32) return dual ? launch_mma<WT, true>(a, splits, kps, part, s) : launch_mma<WT, false>(a, splits, kps, part, s);
+  if (bm == 32)
+    return dual ? launch_mma<WT, O, true>(a, splits, kps, part, s) : launch_mma<WT, O, false>(a, splits, kps, part, s);
   if (bm == 128)
-    return dual ? launch_wgmma<WT, true>(a, splits, kps, part, s) : launch_wgmma<WT, false>(a, splits, kps, part, s);
+    return dual ? launch_wgmma<WT, O, true>(a, splits, kps, part, s)
+                : launch_wgmma<WT, O, false>(a, splits, kps, part, s);
   return cudaErrorInvalidValue;
 }
 
@@ -886,14 +950,6 @@ cudaError_t launch_tc(const Args& a, int bm, int bn, int splits, int kps, float*
 // columns 4 lane .. 4 lane + 3 of one row: W[k][nl + j] is byte j of the
 // word of row (k - nl - j) mod 64, and three byte permutes put four such
 // bytes into one word of the chunk (the 32 lanes' words fall on 32 banks).
-// two adjacent outputs, f32 or bf16
-template <typename O>
-__device__ __forceinline__ void store2(O* p, float a, float b) {
-  if constexpr (std::is_same<O, float>::value)
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  else
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 struct S8Args {
   const int8_t* x;          // (M, K) activation codes
@@ -1283,25 +1339,31 @@ extern "C" int dip_matmul_launch(int dtype, const void* x, const void* p, const 
   const Args a{x, p, p_up, inv_rms, gain, bias, residual, out, M, N, K, epilogue, deshear, nullptr, nullptr};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_any<float, float>(a, s);
-  if (dtype == 1) return (int)launch_tc<bf16>(a, bm, bn, splits, kps, static_cast<float*>(workspace), s);
+  if (dtype == 1) return (int)launch_tc<bf16, bf16>(a, bm, bn, splits, kps, static_cast<float*>(workspace), s);
   if (dtype == 2)
     return (int)(epilogue == EPI_NONE ? launch<int8_t, int, false>(a, s) : launch_any<int8_t, float>(a, s));
   return (int)cudaErrorInvalidValue;
 }
 
-// The fp8 route of kernels/dip_matmul_q.py: bf16 x, e4m3 permutated weights
-// q (and q_up for swiglu) with f32 per-output-channel scales, bf16 out;
-// epilogue((prologue(x) @ deshear(upcast(q))) * w_scale[n]) on the bf16
-// mainloops above, with the same plan arguments.  Returns a cudaError_t.
-extern "C" int dip_matmul_fp8_launch(const void* x, const void* q, const void* q_up, const float* w_scale,
-                                     const float* w_scale_up, const float* inv_rms, const float* gain,
-                                     const float* bias, const void* residual, void* out, int M, int N, int K,
-                                     int epilogue, int bm, int bn, int splits, int kps, void* workspace,
-                                     void* stream) {
+// The fp8 route of kernels/dip_matmul_q.py: bf16 x (for f32 x, dip_matmul_q.cu's
+// cast pass writes it), e4m3 permutated weights q (and q_up for swiglu) with
+// f32 per-output-channel scales; out_dtype 0 = float32, 1 = bfloat16 (also
+// the residual's); epilogue((prologue(x) @ deshear(upcast(q))) * w_scale[n])
+// on the bf16 mainloops above, with the same plan arguments.  Returns a
+// cudaError_t.
+extern "C" int dip_matmul_fp8_launch(int out_dtype, const void* x, const void* q, const void* q_up,
+                                     const float* w_scale, const float* w_scale_up, const float* inv_rms,
+                                     const float* gain, const float* bias, const void* residual, void* out, int M,
+                                     int N, int K, int epilogue, int bm, int bn, int splits, int kps,
+                                     void* workspace, void* stream) {
   if (bad_shape(M, N, K, epilogue) || w_scale == nullptr || (epilogue == EPI_SWIGLU && w_scale_up == nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{x, q, q_up, inv_rms, gain, bias, residual, out, M, N, K, epilogue, 1, w_scale, w_scale_up};
-  return (int)launch_tc<fp8>(a, bm, bn, splits, kps, static_cast<float*>(workspace), static_cast<cudaStream_t>(stream));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(workspace);
+  if (out_dtype == 0) return (int)launch_tc<fp8, float>(a, bm, bn, splits, kps, part, s);
+  if (out_dtype == 1) return (int)launch_tc<fp8, bf16>(a, bm, bn, splits, kps, part, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // The int8 route of kernels/dip_matmul_q.py: x's int8 codes and per-row

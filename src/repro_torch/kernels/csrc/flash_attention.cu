@@ -24,14 +24,16 @@
 // bytes of K and V.  The wrapper picks the route
 // (kernels/flash_attention.py::flash_plan):
 //
-//   * bf16 with D = Dv in {64, 80, 96, 112, 128}: flash_tc_kernel,
+//   * bf16 with (D, Dv) a tensor-core pair, D = Dv in {64, 80, 96, 112,
+//     128} or (192, 128) (DeepSeek-V2-Lite's MLA prefill: q and k carry
+//     nope + rope = 128 + 64 columns, v 128): flash_tc_kernel,
 //     FlashAttention-2 style.  Q K^T and P V are mma.sync m16n8k16 products
 //     (bf16 in, f32 sums); the Q tile stays resident in registers; the next
 //     K and V tiles are copied by cp.async while this one is multiplied
 //     (double buffered); the online softmax stays in f32 registers.  BQ =
 //     64 gives 128 blocks at the prefill chunk on 132 SMs, so KV is not
 //     split across blocks.
-//   * the same head dims with a short query: flash_split_kernel.  A 16-row
+//   * the same pairs with a short query: flash_split_kernel.  A 16-row
 //     query tile (one m16 fragment) and the keys split across blocks, so
 //     that a single-token call fills the card and reads K and V once with
 //     16-byte copies.  Each block's four warps take 16 keys each of every
@@ -40,7 +42,7 @@
 //     (bh, query tile), picked by an atomic ticket that it resets to 0,
 //     merges the splits in split order: one launch, bit-identical from call
 //     to call, no host sync and no per-call memset.
-//   * f32, Dv != D, or another D up to 256: flash_attention_kernel, the
+//   * f32, or another (D, Dv) up to 256: flash_attention_kernel, the
 //     products as f32 FMAs on the CUDA cores.  Each of its 8 warps owns 8
 //     query rows; lane j holds the score of key k0 + j for each of them, so
 //     the row max and sum are warp shuffles and the probabilities reach the
@@ -224,12 +226,18 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, Per
 }
 
 // ------------------------------------------- bf16: tensor-core route ------
-// D = Dv in {64, 80, 96, 112, 128}.  Four warps, each owning 16 of the block's 64 query
-// rows; S = Q K^T and O += P V run as mma.sync m16n8k16 (bf16 in, f32
+// (D, Dv): D = Dv in {64, 80, 96, 112, 128}, or (192, 128).  Four warps,
+// each owning 16 of the block's 64 query rows; S = Q K^T (D / 16 steps) and
+// O += P V (Dv / 8 output fragments) run as mma.sync m16n8k16 (bf16 in, f32
 // accumulators); the Q tile stays resident (its fragments in registers) and
 // the K and V tiles of the next KV step are copied by cp.async while this
 // one is multiplied.  P is rounded to bf16 for the P V product; the row
-// sums l are taken over the f32 probabilities.
+// sums l are taken over the f32 probabilities.  At (192, 128) a block holds
+// Q 25.6 KB + 2 x K 25.6 KB + 2 x V 17.4 KB = 111.6 KB of shared memory, so
+// two blocks fit an SM; its registers hold 48 words of Q fragments, 64 of O
+// and 32 of S: ptxas -v (CUDA 12.8) gives 225 registers a thread and no
+// spills (two blocks of 128 threads fit the SM's 65,536), the split
+// kernel at (192, 128) 168.
 constexpr int TC_BQ = 64, TC_BKV = 64, TC_THREADS = 128;
 
 // Shared rows of D + 8 bf16: 16 (D / 8 + 1) bytes.  With D a multiple of 16
@@ -240,6 +248,20 @@ constexpr int TC_BQ = 64, TC_BKV = 64, TC_THREADS = 128;
 template <int D>
 __host__ __device__ constexpr bool conflict_free_rows() {
   return D % 16 == 0 && (D / 8 + 1) % 2 == 1;
+}
+
+// ROWS rows from row0 of a (rows, W) bf16 array into shared rows of W + 8,
+// one 16-byte cp.async a chunk over NT threads; rows at or past limit are
+// zero-filled.
+template <int W, int ROWS, int NT>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0, int limit,
+                                          int tid) {
+  constexpr int CPR = W / 8;
+#pragma unroll
+  for (int e = tid; e < ROWS * CPR; e += NT) {
+    const int r = e / CPR, c = (e % CPR) * 8, g = row0 + r;
+    sm90::cp_async16(dst + r * (W + 8) + c, src + (size_t)max(min(g, limit - 1), 0) * W + c, g < limit);
+  }
 }
 
 // One KV step of the online softmax on a warp's S fragments.  s[j] holds
@@ -291,53 +313,44 @@ __device__ __forceinline__ void online_softmax(float (&s)[NF][4], float (&m_run)
   }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, PerRow q_offset, PerRow kv_len, int Sq,
     int Sk, float scale, int causal) {
   using bf16 = __nv_bfloat16;
-  static_assert(conflict_free_rows<D>(), "head dim must be a multiple of 16");
-  constexpr int STR = D + 8, TILE_E = 64 * STR, CPR = D / 8;
+  static_assert(conflict_free_rows<D>() && conflict_free_rows<DV>(), "head dims must be multiples of 16");
+  constexpr int KSTR = D + 8, VSTR = DV + 8, K_TILE = 64 * KSTR, V_TILE = 64 * VSTR;
   extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc);
-  bf16* ks = qs + TILE_E;       // [2][TILE_E]
-  bf16* vs = ks + 2 * TILE_E;   // [2][TILE_E]
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [64][KSTR]
+  bf16* ks = qs + K_TILE;                        // [2][K_TILE]
+  bf16* vs = ks + 2 * K_TILE;                    // [2][V_TILE]
   const int bh = blockIdx.x, q0 = blockIdx.y * TC_BQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int qo = q_offset.at(bh), kv_lim = min(Sk, kv_len.at(bh));
   const bf16* qb = q + (size_t)bh * Sq * D;
   const bf16* kb = k + (size_t)bh * Sk * D;
-  const bf16* vb = v + (size_t)bh * Sk * D;
+  const bf16* vb = v + (size_t)bh * Sk * DV;
   // keys at or past kv_end are masked for every row of this tile
   const int kv_end = causal ? min(kv_lim, qo + q0 + TC_BQ) : kv_lim;
   const int nt = kv_end > 0 ? (kv_end + TC_BKV - 1) / TC_BKV : 0;
 
-  // 64 rows from row0 of a (rows, D) array; rows at or past limit zero-filled
-  auto load = [&](bf16* dst, const bf16* src, int row0, int limit) {
+  float o[DV / 8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int e = tid; e < 64 * CPR; e += TC_THREADS) {
-      const int r = e / CPR, c = (e % CPR) * 8, g = row0 + r;
-      sm90::cp_async16(dst + r * STR + c, src + (size_t)max(min(g, limit - 1), 0) * D + c, g < limit);
-    }
-  };
-
-  float o[D / 8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int j = 0; j < DV / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
   uint32_t qf[D / 16][4];
   const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units: exp(x) = exp2(x log2 e)
 
   if (nt > 0) {
-    load(qs, qb, q0, Sq);
-    load(ks, kb, 0, Sk);
-    load(vs, vb, 0, Sk);
+    load_rows<D, TC_BQ, TC_THREADS>(qs, qb, q0, Sq, tid);
+    load_rows<D, TC_BKV, TC_THREADS>(ks, kb, 0, Sk, tid);
+    load_rows<DV, TC_BKV, TC_THREADS>(vs, vb, 0, Sk, tid);
   }
   sm90::cp_async_commit();
   for (int t = 0; t < nt; ++t) {
     if (t + 1 < nt) {
-      load(ks + ((t + 1) & 1) * TILE_E, kb, (t + 1) * TC_BKV, Sk);
-      load(vs + ((t + 1) & 1) * TILE_E, vb, (t + 1) * TC_BKV, Sk);
+      load_rows<D, TC_BKV, TC_THREADS>(ks + ((t + 1) & 1) * K_TILE, kb, (t + 1) * TC_BKV, Sk, tid);
+      load_rows<DV, TC_BKV, TC_THREADS>(vs + ((t + 1) & 1) * V_TILE, vb, (t + 1) * TC_BKV, Sk, tid);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();  // every group but the one just committed
@@ -345,10 +358,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
     if (t == 0) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * STR + kk * 16 + (lane >> 4) * 8);
+        sm90::ldmatrix_x4(qf[kk], qs + (warp * 16 + (lane & 15)) * KSTR + kk * 16 + (lane >> 4) * 8);
     }
-    const bf16* kt = ks + (t & 1) * TILE_E;
-    const bf16* vt = vs + (t & 1) * TILE_E;
+    const bf16* kt = ks + (t & 1) * K_TILE;
+    const bf16* vt = vs + (t & 1) * V_TILE;
     float s[TC_BKV / 8][4];
 #pragma unroll
     for (int j = 0; j < TC_BKV / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
@@ -357,7 +370,7 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
 #pragma unroll
       for (int j = 0; j < TC_BKV / 8; j += 2) {
         uint32_t b[4];  // K rows are the key columns of Q K^T: no transpose
-        sm90::ldmatrix_x4(b, kt + (8 * j + (lane & 7) + (lane >> 4) * 8) * STR + kk * 16 + ((lane >> 3) & 1) * 8);
+        sm90::ldmatrix_x4(b, kt + (8 * j + (lane & 7) + (lane >> 4) * 8) * KSTR + kk * 16 + ((lane >> 3) & 1) * 8);
         sm90::mma_bf16(s[j], qf[kk], b[0], b[1]);
         sm90::mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
       }
@@ -371,9 +384,10 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
                               sm90::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               sm90::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
+      for (int j = 0; j < DV / 8; j += 2) {
         uint32_t b[4];
-        sm90::ldmatrix_x4_trans(b, vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + 8 * j + (lane >> 4) * 8);
+        sm90::ldmatrix_x4_trans(b,
+                                vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * VSTR + 8 * j + (lane >> 4) * 8);
         sm90::mma_bf16(o[j], pa, b[0], b[1]);
         sm90::mma_bf16(o[j + 1], pa, b[2], b[3]);
       }
@@ -390,27 +404,27 @@ __global__ void __launch_bounds__(TC_THREADS) flash_tc_kernel(
     const float inv_l = 1.0f / fmaxf(l, 1e-30f);  // a fully masked row: l = 0, o = 0
     const int row = q0 + warp * 16 + (lane >> 2) + 8 * h;
     if (row >= Sq) continue;
-    bf16* orow = out + ((size_t)bh * Sq + row) * D;
+    bf16* orow = out + ((size_t)bh * Sq + row) * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane & 3)) =
           __floats2bfloat162_rn(o[j][2 * h] * inv_l, o[j][2 * h + 1] * inv_l);
   }
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, PerRow q_offset, PerRow kv_len,
                       int BH, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t bytes = (size_t)5 * 64 * (D + 8) * sizeof(__nv_bfloat16);
+  constexpr size_t bytes = (size_t)(3 * 64 * (D + 8) + 2 * 64 * (DV + 8)) * sizeof(__nv_bfloat16);
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        cudaFuncSetAttribute(flash_tc_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid(BH, (Sq + TC_BQ - 1) / TC_BQ);
-  flash_tc_kernel<D><<<grid, TC_THREADS, bytes, stream>>>(
+  flash_tc_kernel<D, DV><<<grid, TC_THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), q_offset, kv_len, Sq, Sk, scale,
       causal);
@@ -418,7 +432,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, Pe
 }
 
 // ------------------------------------------ bf16: split over the keys ------
-// The tensor-core head dims with a short query (flash_plan's "split_kv").
+// The tensor-core (D, Dv) pairs with a short query (flash_plan's "split_kv").
 // Grid (BH, query tiles of 16 rows, splits): split s walks the 64-key tiles
 // [s tps, (s + 1) tps), and each of the block's four warps takes 16 keys of
 // every tile against the whole 16-row query tile (one m16 fragment, so a
@@ -426,7 +440,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, Pe
 // 64-row tile wasted 63 of 64 of four).  K and V are read once, by 16-byte
 // cp.async copies, double buffered.  The four warps' (m, l, O) merge in
 // shared memory; then a split's f32 partial goes to the workspace
-//   ws = [BH][splits][Sq][D] unnormalised O, then [BH][splits][Sq][2] (m, l),
+//   ws = [BH][splits][Sq][Dv] unnormalised O, then [BH][splits][Sq][2] (m, l),
 // only for the tile's rows below Sq, and O only where m > -inf.  A split
 // that lies wholly past its rows' last visible key, min(kv_len, q_offset +
 // q0 + 16), reads no K or V and writes the empty partial (m = -inf, l = 0).
@@ -437,18 +451,18 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, Pe
 // one split the block writes the output itself.
 constexpr int SP_BQ = 16, SP_THREADS = 128, MAX_SPLITS = 256;
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, PerRow q_offset, PerRow kv_len,
     float* __restrict__ ws, int* __restrict__ tickets, int Sq, int Sk, int splits, int tps, float scale, int causal) {
   using bf16 = __nv_bfloat16;
-  static_assert(conflict_free_rows<D>(), "head dim must be a multiple of 16");
-  constexpr int STR = D + 8, TILE_E = 64 * STR, CPR = D / 8;
+  static_assert(conflict_free_rows<D>() && conflict_free_rows<DV>(), "head dims must be multiples of 16");
+  constexpr int KSTR = D + 8, VSTR = DV + 8, K_TILE = 64 * KSTR, V_TILE = 64 * VSTR;
   extern __shared__ __align__(128) unsigned char smem_sp[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_sp);  // [16][STR]
-  bf16* ks = qs + SP_BQ * STR;                  // [2][TILE_E]
-  bf16* vs = ks + 2 * TILE_E;                   // [2][TILE_E]
+  bf16* qs = reinterpret_cast<bf16*>(smem_sp);  // [16][KSTR]
+  bf16* ks = qs + SP_BQ * KSTR;                 // [2][K_TILE]
+  bf16* vs = ks + 2 * K_TILE;                   // [2][V_TILE]
   float* red = reinterpret_cast<float*>(ks);    // both merges, once K and V are consumed
   __shared__ int last;
   const int bh = blockIdx.x, qt = blockIdx.y, split = blockIdx.z, q0 = qt * SP_BQ;
@@ -460,32 +474,24 @@ __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
   const int rows = min(SP_BQ, Sq - q0);  // the tile's rows below Sq
   const bf16* qb = q + (size_t)bh * Sq * D;
   const bf16* kb = k + (size_t)bh * Sk * D;
-  const bf16* vb = v + (size_t)bh * Sk * D;
+  const bf16* vb = v + (size_t)bh * Sk * DV;
 
-  // n rows from row0 of a (rows, D) array; rows at or past limit zero-filled
-  auto load = [&](bf16* dst, const bf16* src, int n, int row0, int limit) {
-    for (int e = tid; e < n * CPR; e += SP_THREADS) {
-      const int r = e / CPR, c = (e % CPR) * 8, g = row0 + r;
-      sm90::cp_async16(dst + r * STR + c, src + (size_t)max(min(g, limit - 1), 0) * D + c, g < limit);
-    }
-  };
-
-  float o[D / 8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
+  float o[DV / 8][4], m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.0f, 0.0f};
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  for (int j = 0; j < DV / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
   uint32_t qf[D / 16][4];
   const float sl2 = scale * 1.4426950408889634f;
 
   if (nt > 0) {
-    load(qs, qb, SP_BQ, q0, Sq);
-    load(ks, kb, TC_BKV, t0 * TC_BKV, Sk);
-    load(vs, vb, TC_BKV, t0 * TC_BKV, Sk);
+    load_rows<D, SP_BQ, SP_THREADS>(qs, qb, q0, Sq, tid);
+    load_rows<D, TC_BKV, SP_THREADS>(ks, kb, t0 * TC_BKV, Sk, tid);
+    load_rows<DV, TC_BKV, SP_THREADS>(vs, vb, t0 * TC_BKV, Sk, tid);
   }
   sm90::cp_async_commit();
   for (int t = 0; t < nt; ++t) {
     if (t + 1 < nt) {
-      load(ks + ((t + 1) & 1) * TILE_E, kb, TC_BKV, (t0 + t + 1) * TC_BKV, Sk);
-      load(vs + ((t + 1) & 1) * TILE_E, vb, TC_BKV, (t0 + t + 1) * TC_BKV, Sk);
+      load_rows<D, TC_BKV, SP_THREADS>(ks + ((t + 1) & 1) * K_TILE, kb, (t0 + t + 1) * TC_BKV, Sk, tid);
+      load_rows<DV, TC_BKV, SP_THREADS>(vs + ((t + 1) & 1) * V_TILE, vb, (t0 + t + 1) * TC_BKV, Sk, tid);
     }
     sm90::cp_async_commit();
     sm90::cp_async_wait<1>();
@@ -493,15 +499,15 @@ __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
     if (t == 0) {
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::ldmatrix_x4(qf[kk], qs + (lane & 15) * STR + kk * 16 + (lane >> 4) * 8);
+        sm90::ldmatrix_x4(qf[kk], qs + (lane & 15) * KSTR + kk * 16 + (lane >> 4) * 8);
     }
-    const bf16* kt = ks + (t & 1) * TILE_E + 16 * warp * STR;  // this warp's 16 keys
-    const bf16* vt = vs + (t & 1) * TILE_E + 16 * warp * STR;
+    const bf16* kt = ks + (t & 1) * K_TILE + 16 * warp * KSTR;  // this warp's 16 keys
+    const bf16* vt = vs + (t & 1) * V_TILE + 16 * warp * VSTR;
     float s[2][4] = {};
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t b[4];
-      sm90::ldmatrix_x4(b, kt + ((lane & 7) + (lane >> 4) * 8) * STR + kk * 16 + ((lane >> 3) & 1) * 8);
+      sm90::ldmatrix_x4(b, kt + ((lane & 7) + (lane >> 4) * 8) * KSTR + kk * 16 + ((lane >> 3) & 1) * 8);
       sm90::mma_bf16(s[0], qf[kk], b[0], b[1]);
       sm90::mma_bf16(s[1], qf[kk], b[2], b[3]);
     }
@@ -509,9 +515,9 @@ __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
     const uint32_t pa[4] = {sm90::pack_bf16(s[0][0], s[0][1]), sm90::pack_bf16(s[0][2], s[0][3]),
                             sm90::pack_bf16(s[1][0], s[1][1]), sm90::pack_bf16(s[1][2], s[1][3])};
 #pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
+    for (int j = 0; j < DV / 8; j += 2) {
       uint32_t b[4];
-      sm90::ldmatrix_x4_trans(b, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * STR + 8 * j + (lane >> 4) * 8);
+      sm90::ldmatrix_x4_trans(b, vt + ((lane & 7) + ((lane >> 3) & 1) * 8) * VSTR + 8 * j + (lane >> 4) * 8);
       sm90::mma_bf16(o[j], pa, b[0], b[1]);
       sm90::mma_bf16(o[j + 1], pa, b[2], b[3]);
     }
@@ -523,7 +529,7 @@ __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
   // the four warps' (m, l, O) of the tile's 16 rows, merged in warp order
   float* mw = red;               // [4][16]
   float* lw = mw + 4 * SP_BQ;    // [4][16]
-  float* ow = lw + 4 * SP_BQ;    // [4][16][D]
+  float* ow = lw + 4 * SP_BQ;    // [4][16][DV]
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_run[h];
@@ -535,17 +541,17 @@ __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
       lw[r] = l;
     }
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(ow + r * D + 8 * j + 2 * (lane & 3)) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<float2*>(ow + r * DV + 8 * j + 2 * (lane & 3)) = make_float2(o[j][2 * h], o[j][2 * h + 1]);
   }
   __syncthreads();
   // from here on a thread owns 4 adjacent columns of a row (one float4)
-  constexpr int C4 = D / 4;
-  float4* ws_o = reinterpret_cast<float4*>(ws);                              // [BH][splits][Sq][D / 4]
-  float2* ws_ml = reinterpret_cast<float2*>(ws + (size_t)gridDim.x * splits * Sq * D);  // [BH][splits][Sq]
+  constexpr int C4 = DV / 4;
+  float4* ws_o = reinterpret_cast<float4*>(ws);                               // [BH][splits][Sq][DV / 4]
+  float2* ws_ml = reinterpret_cast<float2*>(ws + (size_t)gridDim.x * splits * Sq * DV);  // [BH][splits][Sq]
   const size_t base = (size_t)bh * splits * Sq + q0;  // row q0 of split 0 of this bh
   auto store4 = [&](int r, int c4, float4 a, float inv_l) {
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bh * Sq + q0 + r) * D + 4 * c4);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(out + ((size_t)bh * Sq + q0 + r) * DV + 4 * c4);
     dst[0] = __floats2bfloat162_rn(a.x * inv_l, a.y * inv_l);
     dst[1] = __floats2bfloat162_rn(a.z * inv_l, a.w * inv_l);
   };
@@ -561,7 +567,7 @@ __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
       const float mr = mw[w * SP_BQ + r];
       if (mr == -INFINITY) continue;  // no live key of this warp: nothing to add
       const float a = exp2f(mr - mx);
-      const float4 ov = reinterpret_cast<const float4*>(ow + (w * SP_BQ + r) * D)[c4];
+      const float4 ov = reinterpret_cast<const float4*>(ow + (w * SP_BQ + r) * DV)[c4];
       acc = make_float4(acc.x + a * ov.x, acc.y + a * ov.y, acc.z + a * ov.z, acc.w + a * ov.w);
       l += a * lw[w * SP_BQ + r];
     }
@@ -636,23 +642,24 @@ __global__ void __launch_bounds__(SP_THREADS) flash_split_kernel(
   if (tid == 0) *ticket = 0;  // ready for the next call on this stream
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_split(const void* q, const void* k, const void* v, void* out, PerRow q_offset,
                          PerRow kv_len, float* ws, int* tickets, int BH, int Sq, int Sk, int splits, int tps,
                          float scale, int causal, cudaStream_t stream) {
-  constexpr size_t bytes = (size_t)(SP_BQ + 4 * TC_BKV) * (D + 8) * sizeof(__nv_bfloat16);
+  constexpr size_t kv_bytes = (size_t)2 * TC_BKV * (D + 8 + DV + 8) * sizeof(__nv_bfloat16);
+  constexpr size_t bytes = (size_t)SP_BQ * (D + 8) * sizeof(__nv_bfloat16) + kv_bytes;
   // both merges fit in the K and V buffers
-  static_assert((8 * SP_BQ + 4 * SP_BQ * D) * sizeof(float) <= 4 * TC_BKV * (D + 8) * sizeof(__nv_bfloat16), "");
-  static_assert((2 * MAX_SPLITS + 1) * SP_BQ * sizeof(float) <= 4 * TC_BKV * (D + 8) * sizeof(__nv_bfloat16), "");
+  static_assert((8 * SP_BQ + 4 * SP_BQ * DV) * sizeof(float) <= kv_bytes, "");
+  static_assert((2 * MAX_SPLITS + 1) * SP_BQ * sizeof(float) <= kv_bytes, "");
   static bool attr_set = false;
   if (bytes > 48 * 1024 && !attr_set) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        cudaFuncSetAttribute(flash_split_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
   const dim3 grid(BH, (Sq + SP_BQ - 1) / SP_BQ, splits);
-  flash_split_kernel<D><<<grid, SP_THREADS, bytes, stream>>>(
+  flash_split_kernel<D, DV><<<grid, SP_THREADS, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), q_offset, kv_len, ws, tickets, Sq,
       Sk, splits, tps, scale, causal);
@@ -686,40 +693,37 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k, c
 }
 
 // The tensor-core route (kernels/flash_attention.py::flash_plan): bf16 with
-// D = Dv in {64, 80, 96, 112, 128}.  Returns a cudaError_t (0 on success).
+// (D, Dv) a tensor-core pair: D = Dv in {64, 80, 96, 112, 128}, or (192,
+// 128).  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_tc_launch(const void* q, const void* k, const void* v, void* out, PER_ROW_ARGS, int BH,
-                                         int Sq, int Sk, int D, float scale, int causal, void* stream) {
+                                         int Sq, int Sk, int D, int Dv, float scale, int causal, void* stream) {
   if (BH <= 0 || Sq <= 0 || Sk < 0 || (Sq + TC_BQ - 1) / TC_BQ > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return (int)launch_tc<64>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
-    case 80: return (int)launch_tc<80>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
-    case 96: return (int)launch_tc<96>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
-    case 112: return (int)launch_tc<112>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
-    case 128: return (int)launch_tc<128>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define TC_CASE(d, dv) \
+  if (D == d && Dv == dv) return (int)launch_tc<d, dv>(q, k, v, out, PER_ROW, BH, Sq, Sk, scale, causal, s);
+  TC_CASE(64, 64) TC_CASE(80, 80) TC_CASE(96, 96) TC_CASE(112, 112) TC_CASE(128, 128) TC_CASE(192, 128)
+#undef TC_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
-// The split route (flash_plan's "split_kv"): the same head dims, `splits`
-// ranges of `tiles_per_split` 64-key tiles.  With splits > 1, ws holds BH x
-// splits x Sq x (D + 2) floats and tickets BH x ceil(Sq / 16) ints, zero
-// before the first call (the kernel leaves them zero).  Returns a
+// The split route (flash_plan's "split_kv"): the same (D, Dv) pairs,
+// `splits` ranges of `tiles_per_split` 64-key tiles.  With splits > 1, ws
+// holds BH x splits x Sq x (Dv + 2) floats and tickets BH x ceil(Sq / 16)
+// ints, zero before the first call (the kernel leaves them zero).  Returns a
 // cudaError_t (0 on success).
 extern "C" int flash_attention_split_launch(const void* q, const void* k, const void* v, void* out, PER_ROW_ARGS,
-                                            float* ws, int* tickets, int BH, int Sq, int Sk, int D, int splits,
-                                            int tiles_per_split, float scale, int causal, void* stream) {
+                                            float* ws, int* tickets, int BH, int Sq, int Sk, int D, int Dv,
+                                            int splits, int tiles_per_split, float scale, int causal, void* stream) {
   if (BH <= 0 || Sq <= 0 || Sk < 0 || (Sq + SP_BQ - 1) / SP_BQ > 65535 || splits < 1 || splits > MAX_SPLITS ||
       tiles_per_split < 1 || (splits > 1 && (ws == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tps = tiles_per_split;
-  switch (D) {
-    case 64: return (int)launch_split<64>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
-    case 80: return (int)launch_split<80>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
-    case 96: return (int)launch_split<96>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
-    case 112: return (int)launch_split<112>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
-    case 128: return (int)launch_split<128>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define SPLIT_CASE(d, dv)                                                                                         \
+  if (D == d && Dv == dv)                                                                                        \
+    return (int)launch_split<d, dv>(q, k, v, out, PER_ROW, ws, tickets, BH, Sq, Sk, splits, tps, scale, causal, s);
+  SPLIT_CASE(64, 64) SPLIT_CASE(80, 80) SPLIT_CASE(96, 96) SPLIT_CASE(112, 112) SPLIT_CASE(128, 128)
+  SPLIT_CASE(192, 128)
+#undef SPLIT_CASE
+  return (int)cudaErrorInvalidValue;
 }

@@ -12,8 +12,8 @@ reference's GPU choice), f32 on the CPU (its emulated fallback), and x is
 cast to the same width.  Bound on the card: at decode by the weight bytes
 (one per weight), at prefill by tensor-core operations.
 
-On the card, bf16 x with fp8 weights and every int8 call run the
-tensor-core mainloops of ``csrc/dip_matmul.cu`` under
+On the card every call runs the tensor-core mainloops of
+``csrc/dip_matmul.cu`` under
 :func:`~repro_torch.kernels.dip_matmul.matmul_plan` with one byte a weight
 (128-column decode tiles for a single weight, so that a block reads 128
 bytes of each weight row; ``wgmma`` at prefill):
@@ -24,6 +24,14 @@ bytes of each weight row; ``wgmma`` at prefill):
   bf16 route (``inv_rms`` from :func:`~repro_torch.kernels.prologue.inv_rms`,
   the gain through the ring); ``(x @ W) * w_scale[n]`` is formed before the
   epilogue, after the splits are added where K is split.
+* **fp8, f32 x** (two launches a call): the cast pass of
+  ``csrc/dip_matmul_q.cu`` (``dip_cast_bf16_launch``) writes
+  ``bf16(prologue(x))`` (the prologue in f32 with the same ``inv_rms``, one
+  rounding: byte-identical to :func:`cast_pass_plain`), then the same
+  mainloops with an f32 output and residual, whose sums are carried in
+  IEEE f32 across K (a running total of each K tile's products at decode,
+  of every four K tiles' at prefill: the tensor cores' own f32 sums round
+  toward zero).
 * **int8, f32 or bf16 x** (two launches a call): the quantizing pass of
   ``csrc/dip_matmul_q.cu`` (``dip_quantize_int8_launch``) writes x's int8
   codes and per-row scales (the prologue with the same ``inv_rms``, then
@@ -36,15 +44,15 @@ bytes of each weight row; ``wgmma`` at prefill):
   w_scale[n]``, the epilogue and one cast; so with no epilogue the output
   equals the plain version bit for bit.
 
-fp8 with f32 x runs the first design (``csrc/dip_matmul_q.cu``, one 64x64
-WMMA tile per block, x cast to bf16 on load).  :func:`q_route` names the
-route.  ``dip_matmul_q.launches_tc`` counts the launches on the tensor-core
-route and ``dip_matmul_q.launches_quant`` the quantizing passes.
+:func:`q_route` names the route.  ``dip_matmul_q.launches_tc`` counts the
+launches on the tensor-core route, ``dip_matmul_q.launches_quant`` the
+quantizing passes and ``dip_matmul_q.launches_cast`` the cast passes.
 
 :func:`dip_matmul_q` launches the kernels for CUDA tensors and runs
 :func:`dip_matmul_q_plain` for CPU tensors.  ``dip_matmul_q.launches``
 counts calls that launched the product (a split-K call's second pass
-included; the quantizing pass is counted in ``launches_quant``).
+included; the passes ahead of it are counted in ``launches_quant`` and
+``launches_cast``).
 """
 
 from __future__ import annotations
@@ -61,8 +69,8 @@ from repro_torch.kernels import prologue as pro
 from repro_torch.kernels import ref
 from repro_torch.kernels.dip_matmul import TILE, matmul_plan, require, sm_count
 
-__all__ = ["dip_matmul_q", "dip_matmul_q_plain", "fp8_compute_dtype", "q_route", "quantize_pass",
-           "quantize_pass_plain"]
+__all__ = ["cast_pass", "cast_pass_plain", "dip_matmul_q", "dip_matmul_q_plain", "fp8_compute_dtype", "q_route",
+           "quantize_pass", "quantize_pass_plain"]
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _STORAGE = (torch.int8, torch.float8_e4m3fn)
@@ -81,10 +89,14 @@ def _route(q: torch.Tensor) -> str:
 
 
 def q_route(x_dtype: torch.dtype, q_dtype: torch.dtype) -> str:
-    """The kernel a CUDA call takes: ``"tensor_cores"`` (int8 storage with
-    f32 or bf16 x, and fp8 storage with bf16 x: ``csrc/dip_matmul.cu``) or
-    ``"first_design"`` (fp8 with f32 x, ``csrc/dip_matmul_q.cu``)."""
-    return "first_design" if q_dtype == torch.float8_e4m3fn and x_dtype != torch.bfloat16 else "tensor_cores"
+    """The kernel a CUDA call takes: ``"tensor_cores"``, the mainloops of
+    ``csrc/dip_matmul.cu``, for every storage and x dtype (int8 after its
+    quantizing pass, fp8 with f32 x after its cast pass)."""
+    if q_dtype not in _STORAGE:
+        raise TypeError(f"quantized storage must be int8 or float8_e4m3fn, got {q_dtype}")
+    if x_dtype not in _OUT_CODES:
+        raise TypeError(f"dip_matmul_q kernel takes float32 or bfloat16 activations, got {x_dtype}")
+    return "tensor_cores"
 
 
 def _check(x, q, w_scale, epilogue_operands, epilogue):
@@ -167,21 +179,22 @@ def _fn(source: str, name: str, argtypes):
     return fn
 
 
-def _lib():
-    # x, q, q_up, w_scale, w_scale_up, bias, residual, out; M, N, K, epilogue; stream
-    return _fn("dip_matmul_q", "dip_matmul_q_launch", [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-
-
 def _lib_quant():
     # dtype; x, inv_rms, gain, codes, x_scale; M, K; stream
     return _fn("dip_matmul_q", "dip_quantize_int8_launch",
                [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
+def _lib_cast():
+    # x, inv_rms, gain, out; M, K; stream
+    return _fn("dip_matmul_q", "dip_cast_bf16_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
 def _lib_tc():
-    # x, q, q_up, w_scale, w_scale_up, inv_rms, gain, bias, residual, out;
-    # M, N, K, epilogue, bm, bn, splits, kps; workspace; stream
-    return _fn("dip_matmul", "dip_matmul_fp8_launch", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
+    # out dtype; x, q, q_up, w_scale, w_scale_up, inv_rms, gain, bias,
+    # residual, out; M, N, K, epilogue, bm, bn, splits, kps; workspace; stream
+    return _fn("dip_matmul", "dip_matmul_fp8_launch",
+               [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2)
 
 
 def _lib_int8():
@@ -230,6 +243,38 @@ def quantize_pass(x: torch.Tensor, inv: Optional[torch.Tensor] = None, gain: Opt
     return codes, x_scale
 
 
+def cast_pass_plain(x: torch.Tensor, inv: Optional[torch.Tensor] = None,
+                    gain: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fp8 route's cast pass in plain torch: bf16 (M, K) of f32 x, or
+    of ``(x * inv) * gain`` in f32 with the rmsnorm prologue (``inv`` (M,
+    1) or (M,), ``gain`` (K,)), rounded to nearest once."""
+    y = x if gain is None else pro.kernel_load("rmsnorm", x, (inv.reshape(-1, 1), gain))
+    return y.to(torch.bfloat16)
+
+
+def cast_pass(x: torch.Tensor, inv: Optional[torch.Tensor] = None, gain: Optional[torch.Tensor] = None):
+    """:func:`cast_pass_plain` for CPU tensors; for CUDA tensors one launch
+    of the cast pass (``dip_matmul_q.launches_cast``), f32 x only."""
+    if x.device.type == "cpu":
+        return cast_pass_plain(x, inv, gain)
+    m, k = x.shape
+    dev = x.device
+    require(x, "x", dev, torch.float32)
+    if gain is not None:
+        inv = inv.reshape(m)
+        require(inv, "inv_rms", dev, torch.float32)
+        require(gain, "gain", dev, torch.float32)
+    out = torch.empty((m, k), dtype=torch.bfloat16, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _lib_cast()(ptr(x), ptr(inv if gain is not None else None), ptr(gain), ptr(out), m, k, stream)
+    if rc != 0:
+        raise RuntimeError(f"dip_matmul_q cast pass launch failed: cudaError {rc}")
+    dip_matmul_q.launches_cast += 1
+    return out
+
+
 def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilogue_operands: torch.Tensor,
                  epilogue: str = "none", prologue: str = "none",
                  prologue_operands: Sequence[torch.Tensor] = (), prologue_k: Optional[int] = None,
@@ -256,7 +301,6 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
     n = q.shape[1]
     if m > 65535 * TILE:
         raise ValueError(f"M={m} exceeds the kernel's grid limit {65535 * TILE}")
-    route = q_route(dt, q.dtype)
     s = epi.spec(epilogue)
     require(q, "q", dev)
     require(w_scale, "w_scale", dev, torch.float32)
@@ -272,18 +316,6 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
         residual = epilogue_operands[0]
         require(residual, "residual", dev, dt)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    if route == "first_design":  # fp8 weights, f32 x
-        x = _prologue(x, prologue, prologue_operands, prologue_k, prologue_eps)
-        require(x, "x", dev, dt)
-        out = torch.empty((m, n), dtype=dt, device=dev)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _lib()(ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(bias), ptr(residual), ptr(out),
-                        m, n, k, epi.code(epilogue), stream)
-        if rc != 0:
-            raise RuntimeError(f"dip_matmul_q kernel launch failed (fp8, f32 x): cudaError {rc}")
-        dip_matmul_q.launches += 1
-        return out
     require(x, "x", dev, dt)
     inv = gain = None
     if pro.spec(prologue).normalize:
@@ -300,6 +332,9 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
                         dtype=torch.int32 if int8 else torch.float32) if plan.splits > 1 else None)
     if int8:  # the codes and scales first; the prologue is the pass's
         codes, x_scale = quantize_pass(x, inv, gain)
+    elif dt == torch.float32:  # bf16 x first (the compute width); the prologue is the pass's
+        x = cast_pass(x, inv, gain)
+        inv = gain = None
     out = torch.empty((m, n), dtype=dt, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -309,8 +344,8 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
             rc = _lib_int8()(_OUT_CODES[dt], ptr(codes), ptr(q), ptr(q_up), ptr(x_scale), ptr(w_scale), ptr(s_up),
                              ptr(bias), ptr(residual), ptr(out), *plan_args)
         else:
-            rc = _lib_tc()(ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(inv), ptr(gain), ptr(bias),
-                           ptr(residual), ptr(out), *plan_args)
+            rc = _lib_tc()(_OUT_CODES[dt], ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(inv), ptr(gain),
+                           ptr(bias), ptr(residual), ptr(out), *plan_args)
     if rc != 0:
         raise RuntimeError(f"dip_matmul_q kernel launch failed ({_route(q)}, tensor cores): cudaError {rc}")
     dip_matmul_q.launches += 1
@@ -319,5 +354,6 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
 
 
 dip_matmul_q.launches = 0
-dip_matmul_q.launches_tc = 0  # of them, the tensor-core route (int8, and fp8 with bf16 x)
+dip_matmul_q.launches_tc = 0  # of them, the tensor-core route (every CUDA call)
 dip_matmul_q.launches_quant = 0  # the int8 route's quantizing passes
+dip_matmul_q.launches_cast = 0  # the fp8 route's cast passes (f32 x)

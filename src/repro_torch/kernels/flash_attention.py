@@ -10,20 +10,23 @@ and gives exactly 0 for a fully masked row.
 :func:`flash_plan` picks the route and its grid from the shapes alone (it
 reads no device value, so a call never syncs with the host):
 
-* ``"tensor_cores"``: bf16 with D = Dv in :data:`TC_HEAD_DIMS` (64 to 128
-  in steps of 16; Zamba2's shared block has D = 80) and Sq above
-  :data:`SPLIT_MAX_SQ`.  Bound by the operations at a prefill chunk (BH =
-  32, Sq = 256 against up to 1024 keys): both products on the tensor cores
-  (mma.sync, bf16 in and f32 sums, P rounded to bf16 for the P V product)
-  in 64-row query tiles, the K and V tiles double-buffered by cp.async.
-* ``"split_kv"``: the same head dims with Sq <= :data:`SPLIT_MAX_SQ` (a
+* ``"tensor_cores"``: bf16 with (D, Dv) in :data:`TC_PAIRS` and Sq above
+  :data:`SPLIT_MAX_SQ`: D = Dv in :data:`TC_HEAD_DIMS` (64 to 128 in steps
+  of 16; Zamba2's shared block has D = 80), and (192, 128), DeepSeek-V2-Lite's
+  whole-prompt MLA forward (q and k carry the nope + rope columns, 128 + 64;
+  v 128).  Bound by the operations at a prefill chunk (BH = 32, Sq = 256
+  against up to 1024 keys): both products on the tensor cores (mma.sync,
+  bf16 in and f32 sums, P rounded to bf16 for the P V product) in 64-row
+  query tiles, the K and V tiles double-buffered by cp.async.
+* ``"split_kv"``: the same pairs with Sq <= :data:`SPLIT_MAX_SQ` (a
   token of Zamba2's single-token prefill tail).  Bound by the bytes of K
   and V: 16-row query tiles, and the keys split across blocks until the
   grid fills one wave (:func:`split_count`); each split's f32 partial goes
   to a workspace from the caching allocator and the last block of each
   query tile (an atomic ticket, :func:`_tickets`) merges them in split
   order in the same launch.
-* ``"cuda_cores"``: f32, Dv != D and other head dims up to 256 (f32 FMAs).
+* ``"cuda_cores"``: f32 and every other (D, Dv) up to 256 (f32 FMAs), the
+  reduced models' head dims included.
 
 :func:`flash_attention` launches the planned kernel for CUDA tensors and runs
 :func:`attention_plain` — the dense form with the same masking — for CPU
@@ -50,12 +53,14 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dip_matmul import sm_count
 
-__all__ = ["NEG_INF", "MAX_HEAD_DIM", "TC_HEAD_DIMS", "SPLIT_MAX_SQ", "flash_route", "flash_plan", "split_count",
-           "split_ranges", "flash_attention", "attention_plain", "per_row_i32"]
+__all__ = ["NEG_INF", "MAX_HEAD_DIM", "TC_HEAD_DIMS", "TC_PAIRS", "SPLIT_MAX_SQ", "flash_route", "flash_plan",
+           "split_count", "split_ranges", "flash_attention", "attention_plain", "per_row_i32"]
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 80, 96, 112, 128)  # head dims of the tensor-core routes (D = Dv)
+TC_HEAD_DIMS = (64, 80, 96, 112, 128)  # head dims of the tensor-core routes with D = Dv
+# (D, Dv) pairs of the tensor-core routes: D = Dv above, and DeepSeek-V2-Lite's MLA prefill
+TC_PAIRS = frozenset([(d, d) for d in TC_HEAD_DIMS] + [(192, 128)])
 SPLIT_MAX_SQ = 64  # query rows up to which the tensor-core head dims take "split_kv"
 KV_TILE = 64  # keys per KV tile of the tensor-core kernels; splits are whole tiles
 SPLIT_Q_TILE = 16  # query rows per block of the split route (one m16 fragment)
@@ -128,9 +133,9 @@ def attention_plain(q, k, v, *, q_offset=None, kv_len=None, causal: bool = True,
 
 
 def flash_route(dtype: torch.dtype, d: int, dv: int) -> str:
-    """``"tensor_cores"`` for bf16 with D = Dv in :data:`TC_HEAD_DIMS`, else
-    ``"cuda_cores"`` (f32, Dv != D, other head dims)."""
-    return "tensor_cores" if dtype == torch.bfloat16 and d == dv and d in TC_HEAD_DIMS else "cuda_cores"
+    """``"tensor_cores"`` for bf16 with (D, Dv) in :data:`TC_PAIRS`, else
+    ``"cuda_cores"`` (f32, other head dims)."""
+    return "tensor_cores" if dtype == torch.bfloat16 and (d, dv) in TC_PAIRS else "cuda_cores"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -142,13 +147,13 @@ def flash_plan(bh: int, sq: int, sk: int, d: int, dv: int, dtype: torch.dtype, s
     ``sms`` SMs.  Plain Python on the shapes: the plan never reads
     ``q_offset`` or ``kv_len``, which live on the card.
 
-    The tensor-core head dims take ``"split_kv"`` when Sq <=
+    The tensor-core pairs take ``"split_kv"`` when Sq <=
     :data:`SPLIT_MAX_SQ`: 16-row query tiles, the block's four warps
     splitting every KV tile's keys, and the ``ceil(Sk / 64)`` KV tiles cut
     across blocks as :func:`split_count` says (Zamba2's single-token tail:
     4 splits).  Longer queries keep one block per 64-row tile and no split
     (``"tensor_cores"``): Zamba2's 256-token chunk is 128 such blocks.
-    Other dtypes and head dims take ``"cuda_cores"``.  SPLIT_MAX_SQ = 64 is
+    Other dtypes and pairs take ``"cuda_cores"``.  SPLIT_MAX_SQ = 64 is
     the longest query for which the 16-row tiles won at both D = 80 and 128
     on the H100 (``chip_smoke.py`` phase 7's sweep: at Sq = 128 only D = 80
     still gained, at 256 neither)."""
@@ -212,9 +217,9 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 _HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int] * 2
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
 _ARGTYPES = {
-    "tensor_cores": ("flash_attention_tc_launch", _HEAD + [ctypes.c_int] * 4 + _TAIL),  # BH, Sq, Sk, D
-    # ws, tickets; BH, Sq, Sk, D, splits, tiles a split
-    "split_kv": ("flash_attention_split_launch", _HEAD + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + _TAIL),
+    "tensor_cores": ("flash_attention_tc_launch", _HEAD + [ctypes.c_int] * 5 + _TAIL),  # BH, Sq, Sk, D, Dv
+    # ws, tickets; BH, Sq, Sk, D, Dv, splits, tiles a split
+    "split_kv": ("flash_attention_split_launch", _HEAD + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + _TAIL),
     "cuda_cores": ("flash_attention_launch", [ctypes.c_int] + _HEAD + [ctypes.c_int] * 5 + _TAIL),  # dtype first; BH, Sq, Sk, D, Dv
 }
 
@@ -266,7 +271,7 @@ def _launch(q, k, v, plan: Tuple[str, int, int], *, q_offset, kv_len, causal: bo
             raise ValueError(f"{name} must be contiguous")
     if route != "cuda_cores":  # the tensor-core kernels land rows in shared memory by 16-byte cp.async copies
         if flash_route(q.dtype, d, dv) != "tensor_cores":
-            raise ValueError(f"route {route!r} takes bf16 with D = Dv in {TC_HEAD_DIMS}, got {q.dtype} {d}/{dv}")
+            raise ValueError(f"route {route!r} takes bf16 with (D, Dv) in {sorted(TC_PAIRS)}, got {q.dtype} {d}/{dv}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             _build.check_aligned(t, name)
     scale = d ** -0.5 if scale is None else float(scale)
@@ -282,14 +287,14 @@ def _launch(q, k, v, plan: Tuple[str, int, int], *, q_offset, kv_len, causal: bo
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "split_kv":
             ws = tickets = None
-            if splits > 1:  # f32 partials: O (BH, splits, Sq, D), then (m, l) (BH, splits, Sq, 2)
-                ws = torch.empty(bh * splits * sq * (d + 2), dtype=torch.float32, device=q.device)
+            if splits > 1:  # f32 partials: O (BH, splits, Sq, Dv), then (m, l) (BH, splits, Sq, 2)
+                ws = torch.empty(bh * splits * sq * (dv + 2), dtype=torch.float32, device=q.device)
                 tickets = _tickets(q.device, stream, bh * _cdiv(sq, SPLIT_Q_TILE))
             rc = _lib(route)(*ptrs, None if ws is None else ws.data_ptr(),
-                             None if tickets is None else tickets.data_ptr(), bh, sq, sk, d, splits,
+                             None if tickets is None else tickets.data_ptr(), bh, sq, sk, d, dv, splits,
                              _tiles_per_split(sk, splits), scale, int(causal), stream)
         elif route == "tensor_cores":
-            rc = _lib(route)(*ptrs, bh, sq, sk, d, scale, int(causal), stream)
+            rc = _lib(route)(*ptrs, bh, sq, sk, d, dv, scale, int(causal), stream)
         else:
             rc = _lib(route)(_DTYPE_CODES[q.dtype], *ptrs, bh, sq, sk, d, dv, scale, int(causal), stream)
     if rc != 0:

@@ -76,8 +76,9 @@ Shapes = Tuple[Tuple[int, ...], ...]
 # product belongs to the same call), by function name, in the groups the
 # counters can tell apart
 _GROUPS = {"dip products": ("dip_mma_kernel", "dip_wgmma_kernel", "dip_matmul_kernel", "dip_mma_s8_kernel",
-                            "dip_wgmma_s8_kernel", "dip_matmul_q_kernel"),
-           "quantizing passes": ("quantize_int8_kernel",), "wavefront": ("dip_systolic_kernel",),
+                            "dip_wgmma_s8_kernel"),
+           "quantizing passes": ("quantize_int8_kernel",), "cast passes": ("cast_bf16_kernel",),
+           "wavefront": ("dip_systolic_kernel",),
            "flash tensor_cores": ("flash_tc_kernel",), "flash split_kv": ("flash_split_kernel",),
            "flash cuda_cores": ("flash_attention_kernel",), "lm_head_ce": ("lm_head_tc_kernel", "lm_head_ce_f32_kernel")}
 
@@ -95,6 +96,7 @@ def counters_by_group(delta: Dict[Tuple[Any, str], int]) -> Dict[str, int]:
         return delta.get((fn, nm), 0)
     return {"dip products": d(dip_matmul) + d(dip_matmul_q),
             "quantizing passes": d(dip_matmul_q, "launches_quant"),
+            "cast passes": d(dip_matmul_q, "launches_cast"),
             "wavefront": d(dip_systolic),
             "flash tensor_cores": d(flash_attention, "launches_tc") - d(flash_attention, "launches_split"),
             "flash split_kv": d(flash_attention, "launches_split"),

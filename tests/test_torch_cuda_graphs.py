@@ -14,7 +14,12 @@ captured, N replays raise the launch counters by N times the eager step's
 launches; each graph's kernel nodes (``CapturedStep.kernel_nodes``) equal
 that increase by kernel group; and a
 call with another cache, another input shape, another input dtype or a
-``moe_trace`` raises instead of running the eager step.
+``moe_trace`` raises instead of running the eager step.  The fp8 model in
+f32 compute runs each projection as a cast pass and the e4m3 mainloop with
+an f32 output, both inside the graphs.  Single kernels: the bf16 decode
+tile with the rmsnorm prologue, the fp8 route with f32 x and flash at
+DeepSeek-V2-Lite's (192, 128) head dims, each replayed from a graph bit for
+bit equal to its eager call.
 """
 
 import dataclasses
@@ -38,6 +43,8 @@ SERVED = [
     ("llama3-8b-bf16", "llama3-8b", dict(matmul_backend="dip")),
     ("llama3-8b-int8-kv8", "llama3-8b", dict(matmul_backend="dip_int8w", quantization="int8", kv_quant="int8")),
     ("llama3-8b-fp8", "llama3-8b", dict(matmul_backend="dip_fp8", quantization="fp8_e4m3")),
+    ("llama3-8b-fp8-f32", "llama3-8b", dict(matmul_backend="dip_fp8", quantization="fp8_e4m3",
+                                            param_dtype="float32", compute_dtype="float32")),
     ("llama3-8b-systolic", "llama3-8b", dict(matmul_backend="pallas_systolic")),
     ("deepseek-v2-lite-16b", "deepseek-v2-lite-16b", dict(matmul_backend="dip")),
     ("mamba2-370m", "mamba2-370m", dict(matmul_backend="dip")),
@@ -222,3 +229,67 @@ def test_prologue_decode_tile_is_bit_stable_back_to_back(dev, m, n):
     torch.cuda.synchronize()
     assert all(torch.equal(o, want) for o in outs)
 
+
+
+def _replays_equal_eager(fn, dev):
+    """``fn()`` three times back to back on a side stream (the first makes
+    whatever per-stream state a launch needs, such as flash's split
+    tickets), then captured on that stream and replayed ten times: every
+    output equal to the first eager call's bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        outs = [fn() for _ in range(3)]
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    for _ in range(10):
+        graph.replay()
+        outs.append(out.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    return outs[0]
+
+
+@pytest.mark.parametrize("m", [4, 256])
+def test_fp8_f32_x_route_replays_bit_equal_to_eager(dev, m):
+    """fp8 weights with f32 x: the cast pass and the e4m3 mainloop with an
+    f32 output (M = 4: the decode tile with a K split, M = 256: wgmma),
+    with the rmsnorm prologue and swiglu at llama3-8b's gate+up, replayed
+    from a graph equal to the eager call; two launches a call (cast and
+    product) on the tensor-core route; within f32 TOL of the plain version."""
+    from repro_torch import api
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(m)
+    k, n = 4096, 14336
+    x = torch.randn(m, k, device=dev, generator=g)
+    qw = [api.quant.quantize(torch.randn(k, n, device=dev, generator=g) / k ** 0.5, "fp8_e4m3") for _ in range(2)]
+    kw = dict(epilogue="swiglu", prologue="rmsnorm",
+              prologue_operands=(torch.rand(k, device=dev, generator=g) + 0.5,))
+    before = (dip_matmul_q.launches_tc, dip_matmul_q.launches_cast)
+    got = _replays_equal_eager(lambda: dip_matmul_q(x, qw[0].data, qw[0].scale, qw[1].data, qw[1].scale, **kw), dev)
+    assert (dip_matmul_q.launches_tc - before[0], dip_matmul_q.launches_cast - before[1]) == (4, 4)
+    plain = dip_matmul_q_plain(x, qw[0].data, qw[0].scale, qw[1].data, qw[1].scale, **kw)
+    assert got.dtype == torch.float32
+    assert (got - plain).abs().max().item() <= 1e-5 * max(1.0, plain.abs().max().item())
+
+
+@pytest.mark.parametrize("sq", [1, 256])
+def test_flash_mla_pair_replays_bit_equal_to_eager(dev, sq):
+    """Flash at D = 192, Dv = 128 in bf16 on its tensor-core routes (Sq =
+    256: the 64-row tiles; Sq = 1: split_kv, its partials merged in the
+    launch), replayed from a graph equal to the eager call, and within bf16
+    TOL of the plain version."""
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(sq)
+    q, k = (torch.randn(16, s, 192, device=dev, generator=g).to(torch.bfloat16) for s in (sq, 1024))
+    v = torch.randn(16, 1024, 128, device=dev, generator=g).to(torch.bfloat16)
+    kw = dict(q_offset=torch.tensor(700 if sq == 1 else 512, device=dev), kv_len=768 if sq > 1 else 701)
+    got = _replays_equal_eager(lambda: flash_attention(q, k, v, **kw), dev)
+    plain = attention_plain(q, k, v, **kw).float()
+    assert (got.float() - plain).abs().max().item() <= 8e-3 * max(1.0, plain.abs().max().item())

@@ -304,11 +304,12 @@ def test_dip_matmul_q_kernel_matches_plain(dev, scheme, m, prologue, epilogue, d
 
 @pytest.mark.parametrize("m", [37, 256])
 def test_dip_matmul_q_fp8_f32_x_long_k_holds_f32_tol(dev, m):
-    """fp8 weights with f32 x stay on the first-design kernel, which once
-    summed a whole K in the tensor cores' f32 fragments; those round toward
-    zero, and at llama3-8b's down projection (K = 14336) the drift passed
-    the f32 tolerance (chip_smoke.py phase 2, M = 37: 6.2e-05 against
-    6.14e-05).  Each 64-deep step's products are now added in IEEE f32."""
+    """fp8 weights with f32 x: summing a whole K in the tensor cores' f32
+    fragments, which round toward zero, drifts past the f32 tolerance at
+    llama3-8b's down projection (K = 14336; chip_smoke.py phase 2, M = 37:
+    6.2e-05 against 6.14e-05, on an earlier kernel).  The mainloops' f32
+    output adds each K tile's products (decode) or every four K tiles'
+    (wgmma, M = 37 and 256 here) to a running total in IEEE f32."""
     from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
 
     g = torch.Generator(device=dev).manual_seed(m)
@@ -522,8 +523,9 @@ def test_flash_split_kv_tail_fills_one_wave(dev):
     assert flash_plan(32, 256, 1024, 80, 80, torch.bfloat16, sms) == ("tensor_cores", 64, 1)
 
 
-OLD_ROUTE_CASES = [(torch.float32, 128, 128), (torch.float32, 64, 64), (torch.bfloat16, 192, 128),
-                   (torch.bfloat16, 48, 48), (torch.bfloat16, 256, 256), (torch.bfloat16, 40, 24)]
+OLD_ROUTE_CASES = [(torch.float32, 128, 128), (torch.float32, 64, 64), (torch.float32, 192, 128),
+                   (torch.bfloat16, 128, 64), (torch.bfloat16, 48, 48), (torch.bfloat16, 256, 256),
+                   (torch.bfloat16, 40, 24)]
 
 
 @pytest.mark.parametrize("dtype,d,dv", OLD_ROUTE_CASES)
@@ -968,3 +970,141 @@ def test_tied_head_gradient_into_the_embedding_card_matches_cpu(dev):
     for a, b in zip(out["cuda"], out["cpu"]):
         err = (a.cpu() - b).abs().max().item()
         assert err <= 1e-4 * max(1.0, b.abs().max().item()), err
+
+
+# ---------------- the MLA pair (192, 128) and fp8 with f32 x on the tensor cores --
+MLA_FLASH_CASES = [
+    # bh, sq, sk, q_offset (int or per-row list), kv_len (None, int or per-row list), causal
+    (16, 541, 541, 0, None, True),             # DeepSeek-V2-Lite's 541-token prompt, no cache
+    (2, 130, 300, 96, 250, True),              # q_offset > 0, rows past kv_len
+    (4, 100, 256, [0, 150, 10, 100], [0, 256, 0, 200], True),  # per-row values, kv_len 0 rows: exactly 0
+    (2, 70, 190, 0, 170, False),               # causal off
+    (32, 256, 1024, 512, 768, True),           # phase 7's 2-DvD shape
+    (32, 1, 1024, 700, 701, True),             # split_kv, the last split wholly dead
+    (4, 16, 700, 600, [0, 616, 5, 650], True),  # split_kv, a kv_len 0 row and a row ending at key 5
+    (4, 64, 1024, [0, 300, 900, 64], None, True),  # split_kv at SPLIT_MAX_SQ
+    (2, 2, 900, 0, 880, False),                # split_kv, causal off
+]
+
+
+def _mla_case(dev, bh, sq, sk, qo, kvl, causal):
+    g = torch.Generator(device=dev).manual_seed(sq * 3 + sk)
+    q, k = (torch.randn(bh, s, 192, generator=g, device=dev).to(torch.bfloat16) for s in (sq, sk))
+    v = torch.randn(bh, sk, 128, generator=g, device=dev).to(torch.bfloat16)
+    kv_len = torch.tensor(kvl, dtype=torch.int32, device=dev) if isinstance(kvl, list) else kvl
+    return q, k, v, dict(q_offset=torch.tensor(qo, device=dev), kv_len=kv_len, causal=causal)
+
+
+@pytest.mark.parametrize("case", MLA_FLASH_CASES)
+def test_flash_mla_pair_matches_plain(dev, case):
+    """bf16 with D = 192 (nope + rope) and Dv = 128, DeepSeek-V2-Lite's
+    whole-prompt MLA attention: Sq above SPLIT_MAX_SQ on the unsplit 64-row
+    tiles, shorter on split_kv; one launch counted on the tensor cores,
+    within bf16 TOL of the plain version, fully masked rows exactly 0, two
+    split calls bit for bit equal."""
+    bh, sq, sk, qo, kvl, causal = case
+    q, k, v, kw = _mla_case(dev, *case)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    route = flash_plan(bh, sq, sk, 192, 128, torch.bfloat16, sms)[0]
+    assert route == ("tensor_cores" if sq > SPLIT_MAX_SQ else "split_kv")
+    before = _counters()
+    got = flash_attention(q, k, v, **kw)
+    assert _counters() == (before[0] + 1, before[1] + 1, before[2] + (route == "split_kv"))
+    want = attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (bh, sq, 128) and got.dtype == torch.bfloat16
+    _close(got, want, torch.bfloat16)
+    _assert_dead_rows_zero(got, kvl, bh, sk)
+    if route == "split_kv":
+        assert torch.equal(got, flash_attention(q, k, v, **kw)), "two split calls differ"
+
+
+def test_flash_mla_pair_refuses_offset_views(dev):
+    """q, k or v at a storage offset that is not 16-byte aligned is refused
+    before the launch on both tensor-core routes of the (192, 128) pair,
+    and the aligned call then runs."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    buf = torch.randn(2 * 150 * 192 + 8, generator=g, device=dev).to(torch.bfloat16)
+    q, k = (torch.randn(2, s, 192, generator=g, device=dev).to(torch.bfloat16) for s in (70, 150))
+    v = torch.randn(2, 150, 128, generator=g, device=dev).to(torch.bfloat16)
+    for bad in ((buf[1:1 + 2 * 70 * 192].view(2, 70, 192), k, v), (q, buf[3:3 + 2 * 150 * 192].view(2, 150, 192), v),
+                (q, k, buf[1:1 + 2 * 150 * 128].view(2, 150, 128)), (buf[1:1 + 2 * 192].view(2, 1, 192), k, v)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention(*bad)
+    torch.cuda.synchronize()
+    _close(flash_attention(q, k, v), attention_plain(q, k, v), torch.bfloat16)
+
+
+def _fp8_f32_call(dev, m, k, n, epilogue, prologue, seed):
+    """An fp8 f32-x call on the card: the launches it made (products on the
+    tensor cores, cast passes) and its output against the plain version's."""
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev)
+    qw = [api.quant.quantize(torch.randn(k, n, generator=g, device=dev) / k ** 0.5, "fp8_e4m3") for _ in range(2)]
+    s = epi.spec(epilogue)
+    eops = (qw[1].data, qw[1].scale) if s.dual_weight else _operands(epilogue, m, k, n, torch.float32, dev, g)
+    pops = (torch.rand(k, generator=g, device=dev) + 0.5,) if prologue == "rmsnorm" else ()
+    kw = dict(epilogue=epilogue, prologue=prologue, prologue_operands=pops)
+    before = (dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_cast)
+    got = dip_matmul_q(x, qw[0].data, qw[0].scale, *eops, **kw)
+    moved = tuple(c - b for c, b in zip((dip_matmul_q.launches, dip_matmul_q.launches_tc, dip_matmul_q.launches_cast),
+                                        before))
+    want = dip_matmul_q_plain(x, qw[0].data, qw[0].scale, *eops, **kw)
+    torch.cuda.synchronize()
+    return moved, got, want
+
+
+# the families' projections of phases 5d-5h at their storage widths (in_proj
+# padded to a 64-multiple), f32 x as an f32-compute model gives them
+FP8_F32_PROJECTIONS = [(label, k, -(-n // 64) * 64, e, pr) for label, k, n, e, pr in
+                       DEEPSEEK_PROJECTIONS + SSM_PROJECTIONS]
+
+
+@pytest.mark.parametrize("m", [1, 4, 256])
+@pytest.mark.parametrize("proj", FP8_F32_PROJECTIONS, ids=[p[0] for p in FP8_F32_PROJECTIONS])
+def test_dip_matmul_q_fp8_f32_x_family_projections_match_plain(dev, proj, m):
+    """fp8 weights with f32 x at every family projection: one cast pass and
+    one product on the tensor-core route, f32 out within f32 TOL of the
+    plain version (the same bf16 operands, summed in IEEE f32 across K)."""
+    label, k, n, epilogue, prologue = proj
+    moved, got, want = _fp8_f32_call(dev, m, k, n, epilogue, prologue, seed=m + k + n)
+    assert moved == (1, 1, 1) and got.dtype == torch.float32 and got.shape == (m, n)
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
+@pytest.mark.parametrize("epilogue", ["bias", "bias_gelu", "bias_silu", "residual", "swiglu"])
+@pytest.mark.parametrize("m", [1, 4, 256])
+def test_dip_matmul_q_fp8_f32_x_epilogues_match_plain(dev, m, epilogue, prologue):
+    """The bias, residual and swiglu epilogues with and without the rmsnorm
+    prologue at DeepSeek-V2-Lite's width (K = 2048, N = 2816)."""
+    moved, got, want = _fp8_f32_call(dev, m, 2048, 2816, epilogue, prologue, seed=m)
+    assert moved == (1, 1, 1) and got.dtype == torch.float32
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("prologue", ["none", "rmsnorm"])
+@pytest.mark.parametrize("m,k", [(1, 2048), (4, 14336), (37, 1088), (256, 4096)])
+def test_cast_pass_kernel_matches_plain_byte_for_byte(dev, m, k, prologue):
+    """The fp8 route's cast pass on the card: bf16 bytes equal to the plain
+    version's, an all-zero row and a row of exact bf16 rounding midpoints
+    (ties to even) included."""
+    from repro_torch.kernels import prologue as pro
+    from repro_torch.kernels.dip_matmul_q import cast_pass, cast_pass_plain, dip_matmul_q
+
+    g = torch.Generator(device=dev).manual_seed(m + k)
+    x = torch.randn(m, k, generator=g, device=dev) * 3
+    if m > 2:
+        x[1] = 0
+        bits = (torch.randint(0x3C00, 0x4400, (k,), generator=g, device=dev, dtype=torch.int32) << 16) + 0x8000
+        x[2] = bits.view(torch.float32)
+    gain = torch.rand(k, generator=g, device=dev) + 0.5 if prologue == "rmsnorm" else None
+    inv = pro.inv_rms(x) if gain is not None else None
+    before = dip_matmul_q.launches_cast
+    got = cast_pass(x, inv, gain)
+    assert dip_matmul_q.launches_cast == before + 1 and got.dtype == torch.bfloat16
+    want = cast_pass_plain(x, inv, gain)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -26,7 +26,7 @@ from repro_torch.kernels.dip_matmul_q import dip_matmul_q, q_route
 from repro_torch.kernels.dip_systolic import SYSTOLIC_DECODE_MAX_M, dip_systolic, systolic_plan
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention import (KV_TILE, SPLIT_MAX_SQ, TC_HEAD_DIMS, attention_plain, flash_attention,
-                                                 flash_plan, flash_route, split_ranges)
+                                                 flash_plan, flash_route, split_count, split_ranges)
 
 SMS = 132  # an H100 SXM
 
@@ -254,7 +254,7 @@ def test_systolic_card_cases_reach_every_path():
 
 ROUTE_CASES = ([(torch.bfloat16, d, d, "tensor_cores") for d in TC_HEAD_DIMS]
                + [(torch.float32, d, d, "cuda_cores") for d in (64, 128)]
-               + [(torch.bfloat16, 192, 128, "cuda_cores"), (torch.bfloat16, 128, 64, "cuda_cores"),
+               + [(torch.bfloat16, 192, 128, "tensor_cores"), (torch.bfloat16, 128, 64, "cuda_cores"),
                   (torch.bfloat16, 48, 48, "cuda_cores"), (torch.bfloat16, 40, 40, "cuda_cores"),
                   (torch.bfloat16, 256, 256, "cuda_cores"), (torch.bfloat16, 32, 32, "cuda_cores"),
                   (torch.float16, 128, 128, "cuda_cores")])
@@ -306,13 +306,33 @@ def test_flash_plan_at_zamba2_shapes():
 
 
 @pytest.mark.parametrize("dtype,d,dv", [(torch.bfloat16, 32, 32), (torch.bfloat16, 48, 48), (torch.float32, 80, 80),
-                                        (torch.float32, 128, 128), (torch.bfloat16, 192, 128),
-                                        (torch.float16, 80, 80)])
+                                        (torch.float32, 128, 128), (torch.bfloat16, 128, 64),
+                                        (torch.float32, 192, 128), (torch.float16, 80, 80)])
 @pytest.mark.parametrize("sq", [1, 16, 256])
 def test_flash_plan_keeps_other_dtypes_and_head_dims_on_the_cuda_cores(dtype, d, dv, sq):
-    """The reduced models' head dim 32, D = 48, f32 and Dv != D take the
-    CUDA-core kernel at every Sq, unsplit."""
+    """The reduced models' head dim 32, D = 48, f32 and the pairs with Dv
+    != D other than (192, 128) take the CUDA-core kernel at every Sq,
+    unsplit."""
     assert flash_plan(32, sq, 1024, d, dv, dtype, SMS) == ("cuda_cores", 64, 1)
+
+
+@pytest.mark.parametrize("bh,sq,sk", FLASH_SHAPES)
+def test_flash_plan_takes_the_mla_pair_to_the_tensor_cores(bh, sq, sk):
+    """DeepSeek-V2-Lite's whole-prompt MLA forward, bf16 with D = 192 (nope
+    + rope) and Dv = 128: split_kv with 16-row query tiles at Sq <=
+    SPLIT_MAX_SQ, its splits whole 64-key tiles covering [0, Sk) once, in
+    order, none empty; the unsplit 64-row tiles above."""
+    route, q_tile, splits = flash_plan(bh, sq, sk, 192, 128, torch.bfloat16, SMS)
+    if sq > SPLIT_MAX_SQ:
+        assert (route, q_tile, splits) == ("tensor_cores", 64, 1)
+        return
+    assert (route, q_tile) == ("split_kv", 16) and 1 <= splits <= fa.MAX_SPLITS
+    assert splits == split_count(bh, sq, sk, SMS)
+    ranges = split_ranges(sk, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0 and ranges[-1][1] == sk
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges) or sk == 0
+    assert all(lo % KV_TILE == 0 for lo, _ in ranges)
 
 
 def test_flash_plan_takes_only_host_integers():
@@ -400,15 +420,16 @@ def test_cpu_calls_launch_nothing():
 
 
 Q_ROUTE_CASES = [(torch.bfloat16, torch.float8_e4m3fn, "tensor_cores"),
-                 (torch.float32, torch.float8_e4m3fn, "first_design"),
+                 (torch.float32, torch.float8_e4m3fn, "tensor_cores"),
                  (torch.bfloat16, torch.int8, "tensor_cores"), (torch.float32, torch.int8, "tensor_cores")]
 
 
 @pytest.mark.parametrize("x_dtype,q_dtype,route", Q_ROUTE_CASES, ids=["fp8-bf16", "fp8-f32", "int8-bf16", "int8-f32"])
 def test_quantized_route(x_dtype, q_dtype, route):
-    """bf16 x with e4m3 weights, the fp8 serving route, and every int8
-    call (the codes do not depend on x's width) run the tensor-core
-    mainloops; only fp8 with f32 x keeps the first design."""
+    """Every call runs the tensor-core mainloops: bf16 x with e4m3 weights
+    (the fp8 serving route), f32 x with e4m3 weights after its cast pass
+    to bf16, and every int8 call after its quantizing pass (the codes do
+    not depend on x's width)."""
     assert q_route(x_dtype, q_dtype) == route
 
 

@@ -4,12 +4,14 @@ rope 16, v 32) in float32, with the reference's layer-0 weights loaded
 through ``params_from_jax``: the naive cache-less form (dense, KV-chunked
 and flash-routed attention core), the absorbed form over two chunks of a
 dense latent cache, and the paged form over decode steps, each with the
-fused rmsnorm prologue and residual the blocks use; ``pallas_dip`` against
-the port's ``dip`` and ``xla`` against ``torch``.
+fused rmsnorm prologue and residual the blocks use; and the whole reduced
+model's no-cache forward through the engine's flash-routed step function;
+``pallas_dip`` against the port's ``dip`` and ``xla`` against ``torch``.
 
 Tolerance: ``TOL["float32"]`` (1e-5) of max(1, max|reference|) — one layer
 of f32 arithmetic in another summation order.  The latent caches and
-pools are compared with the same bound.
+pools are compared with the same bound; the whole model's logits with
+``MODEL_TOL`` (1e-4, every layer's f32 roundings carried on).
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from repro_torch.models import attention
 from repro_torch.models import transformer as tf_model
 
 BACKENDS = [("pallas_dip", "dip"), ("xla", "torch")]
+MODEL_TOL = 1e-4
 
 
 @pytest.fixture(scope="module", params=BACKENDS, ids=[b for _, b in BACKENDS])
@@ -171,3 +174,31 @@ def test_int8_latent_pools_raise(layer):
         assert (np.abs(pool[nm].float().numpy() * sc - want_v) <= TOL["float32"] * max(1.0, np.abs(want_v).max())
                 + sc).all()
         np.testing.assert_allclose(pool[f"{nm}_scale"].numpy(), np.asarray(rpool[f"{nm}_scale"]), rtol=1e-5)
+
+
+@pytest.fixture(scope="module", params=BACKENDS, ids=[b for _, b in BACKENDS])
+def model(request):
+    kw = dict(param_dtype="float32", compute_dtype="float32")
+    ref_cfg = dataclasses.replace(ref_get("deepseek_v2_lite_16b").reduced(), matmul_backend=request.param[0], **kw)
+    cfg = dataclasses.replace(port_get("deepseek-v2-lite-16b").reduced(), matmul_backend=request.param[1], **kw)
+    params = ref_tf.init_params(jax.random.PRNGKey(7), ref_cfg)
+    return ref_cfg, cfg, params, params_from_jax(jax.tree_util.tree_map(np.asarray, params), cfg, device="cpu")
+
+
+def test_whole_prompt_forward_without_a_cache_matches_reference(model):
+    """The whole-prompt forward with no cache through the engine's step
+    function, ``decode_step_fn(cfg, attn_backend="flash")(params, None,
+    tokens)``: every layer runs the naive MLA form, whose attention core
+    takes the flash route (q and k of nope + rope columns, v of v_head_dim;
+    at full width the (192, 128) pair of the tensor-core kernels).  Logits
+    against the reference's same call, no cache back; the MoE layers route
+    freely (f32 on both sides)."""
+    ref_cfg, cfg, params, tparams = model
+    toks = np.random.default_rng(3).integers(2, cfg.vocab_size, size=(2, 19)).astype(np.int32)
+    want, wc = ref_tf.decode_step_fn(ref_cfg, attn_backend="flash")(params, None, jnp.asarray(toks))
+    got, c = tf_model.decode_step_fn(cfg, attn_backend="flash")(tparams, None, torch.as_tensor(toks, dtype=torch.long))
+    assert wc is None and c is None
+    v = cfg.vocab_size
+    assert got.shape == tuple(want.shape)
+    assert_close(got[..., :v], np.asarray(want)[..., :v], MODEL_TOL)
+    assert (got[..., v:] == -1e30).all()
