@@ -16,17 +16,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    5120 included; at M = 4096, the training batch, the DeepSeek, Zamba2,
    Mamba2 and musicgen-medium projections in bf16) and flash attention in float32 and
    bfloat16, each call on the route ``flash_plan`` gives (by the launch
-   counts): Zamba2's D = 80 at Sq = 256 (bf16 on the tensor cores) and at
-   Sq = 1 (bf16 on ``split_kv``; f32 on the CUDA cores), every tensor-core
-   head dim (64, 80, 96, 112, 128) at Sq = 256 and at Sq = 1, 3 and 16 with
-   kv_len 0 rows, two ``split_kv`` calls equal bit for bit, and
-   DeepSeek-V2-Lite's MLA pair (D = 192, Dv = 128) at Sq = 256 on the tensor
-   cores and at Sq = 1, 16 and 64 on ``split_kv``, kv_len 0 rows exactly 0;
-   the fused lm_head +
-   cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32 — the
-   training dtypes — and bf16 x bf16) at ragged T with padding-only vocab
-   splits and labels at -100, and bf16 x f32 at the training heads of the
-   four families of phases 6b-6e (the tied one a transposed view); then the
+   counts): Zamba2's D = 80 at Sq = 256 (on the tensor cores) and at Sq =
+   1 (on ``split_kv``), every tensor-core pair (D = Dv in 32, 48, 64, 80,
+   96, 112, 128, the reduced MLA pair (48, 32) and DeepSeek-V2-Lite's (192,
+   128)) in both dtypes at Sq = 256 and at Sq = 1, 3, 16 and 64 with kv_len
+   0 rows exactly 0, two ``split_kv`` calls equal bit for bit; the fused
+   lm_head + cross-entropy in its three dtype pairs (f32 x f32, bf16 x f32
+   — the training dtypes — and bf16 x bf16, all on the tensor cores) at
+   ragged T with padding-only vocab splits and labels at -100, and bf16 x
+   f32 and f32 x f32 at the training heads of the four families of phases
+   6b-6e (the tied one a transposed view); then the
    quantized serving slice's kernels:
    the DiP matmul on int8 (exact), the quantized DiP matmul (int8 and fp8
    weights, f32 and bf16 activations, M = 4, 37 and 256; int8 without an
@@ -45,8 +44,9 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    e4m3 mainloops with an f32 output) at those projections and with the
    bias epilogues, M = 1, 4 and 256, within f32 TOL, one cast pass and one
    tensor-core product a call; lm_head_ce's bf16 x f32 function with the head cut to two bf16
-   parts instead of the kernel's three, in plain torch (printed: whether two
-   would hold TOL); and views at storage offsets that
+   parts instead of the kernel's three, and its f32 x f32 function with 3,
+   5 and the kernel's 6 bf16 part products, in plain torch (printed: whether
+   fewer would hold TOL); and views at storage offsets that
    are not 16-byte aligned, refused by flash, lm_head_ce and dip_matmul_q
    with the CUDA context still usable;
 3. the reduced llama3-8b served on the card against the same weights served
@@ -60,6 +60,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    (every projection a cast pass and a tensor-core product); the reduced yi-9b and
    codeqwen1.5-7b on ``dip`` in bf16; the reduced phi-3-vision-4.2b and
    musicgen-medium (the stub frontends' decoders) from tokens on ``dip``;
+   each variant's flash launches by route printed, none on the CUDA cores
+   (head dim 32 and the MLA pair (48, 32) on the tensor cores, f32 and bf16);
 4. the reduced llama3-8b trained on the card against the CPU (f32, 3
    ``Trainer`` steps): close losses and gradient norms, and a run stopped by
    ``fail_at_step`` that resumes from its checkpoint and repeats the
@@ -135,7 +137,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    warm-up schedule) by one function, ``train_family``: the first step's
    loss, gradient norm and every gradient leaf through the kernels against
    plain PyTorch (``torch.matmul``, unfused loss) on the same weights and
-   batch in f32 and bf16 compute (DeepSeek's plain run replaying the
+   batch in f32 and bf16 compute (the f32 step's lm_head_ce launch, f32 x
+   f32 on the tensor cores, printed; DeepSeek's plain run replaying the
    kernels' expert ids; a recurrent stack's bf16 step, where it misses the
    bound, held to no further from the f32 plain run than 1.5x the bf16
    plain run, and its kernels' distance with the unfused loss printed
@@ -154,8 +157,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    hidden, and ``host_ms`` without, as the first versions timed) beside their bound,
    the plain version's time and one library call's time, the quantized and
    wavefront kernels and the int8 route's quantizing pass included
-   (lm_head_ce with the bound of its three bf16 part products on the tensor
-   cores beside the f32 CUDA-core bound; the DiP matmul also at the
+   (lm_head_ce with the bound of its three (bf16 x) or six (f32 x) bf16
+   part products on the tensor cores beside the f32 CUDA-core bound; the DiP matmul also at the
    deepseek-v2-lite-16b projections in bf16, and at the zamba2-2.7b and
    mamba2-370m projections at M = 1, 4 and 256 with flash at D = 80 on its
    planned routes and at D = 128, Sq = 1; a sweep of flash over Sq = 1..256
@@ -164,8 +167,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    CUDA-core bound beside its bf16 one; the int8 route beside torch._int_mm
    of its codes and beside its whole function in library calls; the fp8
    route with f32 x and its cast pass; flash at (192, 128) beside the
-   CUDA-core kernel that ran it before; both quantized routes at the quantized families'
-   projections, with their launches per forward; lm_head_ce at the training
+   CUDA-core kernel that ran it before; flash in f32 at D = 32, 80 and 128
+   and at (192, 128), at the chunk and at Sq = 1, each beside the CUDA-core
+   kernel and bound by six bf16 part products; both quantized routes at the quantized families'
+   projections, with their launches per forward; lm_head_ce with bf16 and f32 x at the training
    heads of 6b-6e, the tied head with its contiguous copy of ``embed.t()``,
    timed on its own too).
 
@@ -240,6 +245,32 @@ RESUME_TOL = 1e-6
 # loss, 1e-3 in the norm and 1e-2 in the worst leaf (CPU), and a faulty tile
 # or dispatch gives an error of order 1 in some leaf
 FIRST_STEP_TOL = {"float32": (1e-4, 1e-4, 1e-4), "bfloat16": (1e-3, 1e-2, 5e-2)}
+
+
+def device_ms(fn, flush, iters=10, warmup=3, queued=True):
+    """Median CUDA-event time of fn() in ms, after ``warmup`` calls, with
+    the card's buffer ``flush`` written before each call (the L2 holds
+    none of fn's inputs).  queued: the call is enqueued behind a ~1 ms
+    device sleep, so the events time the device's work alone; else the
+    host's launch time counts wherever the device waits for it (as the
+    first versions of this script timed).  Phase 7's timer, which
+    ``tools/torch_kernel_times.py`` imports."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    ts = []
+    for _ in range(iters):
+        flush.zero_()
+        if queued:
+            torch.cuda._sleep(2_000_000)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return statistics.median(ts)
 
 
 def log(msg):
@@ -472,6 +503,7 @@ def main():
     from repro_torch.core import permute
     from repro_torch.data import SyntheticLM
     from repro_torch.device import make_generator
+    from repro_torch.kernels import _bf16_parts as bp
     from repro_torch.kernels import _build
     from repro_torch.launch import train as train_cli
     from repro_torch.kernels import epilogue as epi
@@ -921,7 +953,7 @@ def main():
             q, k, v = flash_inputs(fsq, dk, dvv, dtype)
             kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
             got, plan = flash_checked(label, q, k, v, kw, dt_name)
-            want_route = ("cuda_cores" if dt_name == "float32" or dk != dvv and (dk, dvv) != (192, 128)
+            want_route = ("cuda_cores" if (dk, dvv) not in fa.TC_PAIRS
                           else "tensor_cores" if fsq > fa.SPLIT_MAX_SQ else "split_kv")
             if plan[0] != want_route:
                 raise AssertionError(f"flash {dt_name} Sq={fsq} D={dk} Dv={dvv} planned {plan}, not {want_route}")
@@ -931,8 +963,8 @@ def main():
     # Zamba2's shared attention at prefill (phase 5e): 32 heads of D = 80; a
     # 256-token chunk at q_offset 0 and 512, and one token of the prefill
     # tail at q_offset 700, against the 1024 rows of the prefill cache; in
-    # bf16 the chunk on the tensor cores unsplit and the tail on split_kv,
-    # in f32 both on the CUDA cores.  And the tail's shape at D = 128
+    # both dtypes the chunk on the tensor cores unsplit and the tail on
+    # split_kv.  And the tail's shape at D = 128
     zb_flash = [(256, 0, 256), (256, 512, 768), (1, 700, 701)]  # (Sq, q_offset, kv_len)
     zb_route = {256: "tensor_cores", 1: "split_kv"}
     for dt_name in ("float32", "bfloat16"):
@@ -942,31 +974,46 @@ def main():
             k, v = (torch.randn(bh, sk, 80, generator=g, device=dev).to(dtype) for _ in range(2))
             _, plan = flash_checked(f"q_offset {qo} kv_len {kvl}", q, k, v,
                                     dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True), dt_name)
-            if plan[0] != (zb_route[zsq] if dt_name == "bfloat16" else "cuda_cores"):
+            if plan[0] != zb_route[zsq]:
                 raise AssertionError(f"flash at D = 80, Sq = {zsq} ({dt_name}) planned {plan}")
             del q, k, v
-    # every head dim of the tensor-core routes: the chunk's shape with a
+    # every pair of the tensor-core routes in both dtypes (the reduced
+    # models' D = 32, 48 and (48, 32) among them): the chunk's shape with a
     # kv_len 0 row on every 4th (tensor_cores), and Sq = 1, 3, 16 and 64,
     # which the plan sends to split_kv, against the end of the cache with the same
     # dead rows and live keys ending mid-tile; two split calls on the same
     # inputs must be equal bit for bit (the merge sums the splits in order)
     kv_dead = torch.tensor([0 if i % 4 == 0 else 1024 - 7 * i for i in range(bh)], dtype=torch.int32, device=dev)
-    for dk in TC_HEAD_DIMS:
-        for fsq in (256, 1, 3, 16, 64):
-            q = torch.randn(bh, fsq, dk, generator=g, device=dev).to(torch.bfloat16)
-            k, v = (torch.randn(bh, sk, dk, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
-            kw = dict(q_offset=torch.tensor(sk - fsq - 16 if fsq > 16 else 700, device=dev), kv_len=kv_dead,
-                      causal=True)
-            got, plan = flash_checked("kv_len 0 on every 4th row", q, k, v, kw, "bfloat16")
-            if plan[0] != ("tensor_cores" if fsq > fa.SPLIT_MAX_SQ else "split_kv"):
-                raise AssertionError(f"flash D = {dk}, Sq = {fsq} planned {plan}")
-            if plan[0] == "split_kv" and not torch.equal(got, flash_attention(q, k, v, **kw)):
-                raise AssertionError(f"flash split_kv D = {dk}, Sq = {fsq}: two calls differ")
-            del q, k, v, got
+    for dt_name in ("bfloat16", "float32"):
+        for dk, dvv in sorted(fa.TC_PAIRS):
+            for fsq in (256, 1, 3, 16, 64):
+                q, k, v = flash_inputs(fsq, dk, dvv, getattr(torch, dt_name))
+                kw = dict(q_offset=torch.tensor(sk - fsq - 16 if fsq > 16 else 700, device=dev), kv_len=kv_dead,
+                          causal=True)
+                got, plan = flash_checked("kv_len 0 on every 4th row", q, k, v, kw, dt_name)
+                if plan[0] != ("tensor_cores" if fsq > fa.SPLIT_MAX_SQ else "split_kv"):
+                    raise AssertionError(f"flash {dt_name} D = {dk}, Dv = {dvv}, Sq = {fsq} planned {plan}")
+                if plan[0] == "split_kv" and not torch.equal(got, flash_attention(q, k, v, **kw)):
+                    raise AssertionError(f"flash split_kv {dt_name} D = {dk}, Dv = {dvv}, Sq = {fsq}: two calls differ")
+                del q, k, v, got
+    # the CUDA-core kernel keeps the pairs the tensor-core routes do not
+    # take (a pair Dv != D, D not a multiple of 16, D above 128 other than
+    # (192, 128)), in both dtypes: the chunk's shape and one token, with a
+    # kv_len 0 row on every 4th
+    for dt_name in ("float32", "bfloat16"):
+        for dk, dvv in ((128, 64), (40, 40), (256, 256)):
+            for fsq in (256, 1):
+                q, k, v = flash_inputs(fsq, dk, dvv, getattr(torch, dt_name))
+                kw = dict(q_offset=torch.tensor(sk - fsq - 16 if fsq > 16 else 700, device=dev), kv_len=kv_dead,
+                          causal=True)
+                _, plan = flash_checked("kv_len 0 on every 4th row", q, k, v, kw, dt_name)
+                if plan[0] != "cuda_cores":
+                    raise AssertionError(f"flash {dt_name} D = {dk}, Dv = {dvv}, Sq = {fsq} planned {plan}")
+                del q, k, v
     q, k, v = (torch.randn(bh, s_, 128, generator=g, device=dev).to(torch.bfloat16) for s_ in (1, sk, sk))
     flash_checked("q_offset 700 kv_len 701", q, k, v, dict(q_offset=torch.tensor(700, device=dev), kv_len=701,
                                                            causal=True), "bfloat16")
-    log("  flash split_kv: two calls on the same inputs are equal bit for bit at every head dim and Sq")
+    log("  flash split_kv: two calls on the same inputs are equal bit for bit at every pair, dtype and Sq")
     del q, k, v
     torch.cuda.synchronize()
 
@@ -1005,7 +1052,8 @@ def main():
             del x, w, got, want
     if not pad_splits_seen:
         raise AssertionError("lm_head_ce: no case had a vocab split wholly in the padding")
-    # the families' training heads (phases 6b-6e), bf16 x against the f32
+    # the families' training heads (phases 6b-6e), bf16 x (bf16 compute) and
+    # f32 x (the f32 first steps) against the f32
     # head at T = 4092: (d_model, padded vocab, vocab) of DeepSeek-V2-Lite,
     # Zamba2 (32000 of 32768 real), Mamba2 (the tied head: embed.t(), a
     # (d, Vp) view of the (Vp, d) embedding, which the wrapper copies
@@ -1016,16 +1064,17 @@ def main():
     assert [h[1:] for h in fam_heads] == [(2048, 102400, 102400, False), (2560, 32768, 32000, False),
                                           (1024, 51200, 50280, True), (1536, 2048, 2048, False)]
 
-    def fam_head_inputs(t, fd, fvp, fvocab, tied):
-        x = torch.randn(t, fd, generator=g, device=dev).to(torch.bfloat16)
+    def fam_head_inputs(t, fd, fvp, fvocab, tied, x_dtype=torch.bfloat16):
+        x = torch.randn(t, fd, generator=g, device=dev).to(x_dtype)
         w = torch.randn(fvp, fd, generator=g, device=dev).t() if tied else torch.randn(fd, fvp, generator=g,
                                                                                         device=dev)
         labels = torch.randint(0, fvocab, (t,), generator=g, device=dev, dtype=torch.int32)
         labels[::5] = ce.IGNORE_INDEX
         return x, w * fd ** -0.5, labels
 
-    for fname, fd, fvp, fvocab, tied in fam_heads:
-        x, w, labels = fam_head_inputs(4092, fd, fvp, fvocab, tied)
+    for (fname, fd, fvp, fvocab, tied), x_dtype in ((h, xd) for xd in (torch.bfloat16, torch.float32)
+                                                    for h in fam_heads):
+        x, w, labels = fam_head_inputs(4092, fd, fvp, fvocab, tied, x_dtype)
         tiles, splits = ce.split_plan(4092, fvp, sms, fvocab)
         before = ce.lm_head_ce.launches
         with torch.no_grad():
@@ -1033,11 +1082,13 @@ def main():
         want = ce.lm_head_ce_plain(x, w, labels, vocab_size=fvocab)
         if ce.lm_head_ce.launches != before + 1 or splits > 65535:
             raise AssertionError(f"lm_head_ce {fname}: {ce.lm_head_ce.launches - before} launches, {splits} splits")
-        label = (f"lm_head_ce bfloat16 x float32 {fname} T=4092 D={fd} Vp={fvp} vocab={fvocab} ({splits} splits"
-                 f"{', the tied head embed.t()' if tied else ''})")
+        label = (f"lm_head_ce {str(x_dtype).split('.')[-1]} x float32 {fname} T=4092 D={fd} Vp={fvp} "
+                 f"vocab={fvocab} ({splits} splits{', the tied head embed.t()' if tied else ''})")
         err = max(close(f"{label} logz", got[0], want[0], TOL["float32"]),
                   close(f"{label} label logit", got[1], want[1], TOL["float32"]))
         worst["lm_head_ce"] = max(worst["lm_head_ce"], err)
+        if not bool((got[1][labels == ce.IGNORE_INDEX] == 0).all()):
+            raise AssertionError(f"lm_head_ce {fname}: a label at -100 matched a column")
         del x, w, labels, got, want
     # the part count: the bf16 x f32 function with the head cut to two bf16
     # parts (hi + mid, whose f32 sum is exact), in plain torch at the training
@@ -1056,6 +1107,29 @@ def main():
         + ("within TOL" if all(e <= lim for e, lim in zip(errs, lims)) else "OUTSIDE TOL")
         + f" [the kernel takes {ce.W_PARTS}]")
     del x, w, w2, labels, want, got
+    # the product count of f32 x f32: logz and the label logit with f32 x
+    # and the head both split into bf16 parts and only the largest part
+    # products kept (bp.part_products, bp.split_matmul), in plain torch at
+    # the training shape against the f32 plain version, the same TOL;
+    # printed for the record (the kernel takes ce.F32_PRODUCTS = 6, held
+    # above)
+    x, w, labels = lm_inputs(4092, "float32", "float32")
+    want = ce.lm_head_ce_plain(x, w, labels, vocab_size=lm_vocab)
+    lims = [TOL["float32"] * max(1.0, want[i].abs().max().item()) for i in (0, 1)]
+    live = labels != ce.IGNORE_INDEX
+    for n in (3, 5, ce.F32_PRODUCTS):
+        z = torch.cat([bp.split_matmul(x, w[:, c0:min(c0 + 8192, lm_vocab)], n)
+                       for c0 in range(0, lm_vocab, 8192)], dim=1)
+        got = (torch.logsumexp(z, dim=1),
+               torch.where(live, z.gather(1, labels.long().clamp(min=0).view(-1, 1)).view(-1), 0.0))
+        del z
+        errs = [(got[i] - want[i]).abs().max().item() for i in (0, 1)]
+        log(f"  lm_head_ce float32 x float32 T=4092, {n} bf16 part products {bp.part_products(n)} (plain torch): "
+            f"logz max|err| {errs[0]:.3e} (limit {lims[0]:.3e}), label logit {errs[1]:.3e} (limit {lims[1]:.3e}): "
+            + ("within TOL" if all(e <= lim for e, lim in zip(errs, lims)) else "OUTSIDE TOL")
+            + f" [the kernel takes {ce.F32_PRODUCTS}]")
+        del got
+    del x, w, labels, want
     torch.cuda.synchronize()
 
     # the quantized serving slice: (label, K, N, epilogue, prologue) of the
@@ -1476,6 +1550,7 @@ def main():
     # the stub frontends' dense decoders, served from tokens as the
     # reference serves them (training feeds them embeddings: phase 4)
     variants += [(f"{nm} reduced, dip, f32", nm, f32_dip, "f32") for nm in ("phi-3-vision-4.2b", "musicgen-medium")]
+    reduced_flash_routes = {}  # each variant's flash launches on the card, by route
     for label, arch_name, fields, kind in variants:
         vcfg = dataclasses.replace(get_config(arch_name).reduced(), **fields)
         vparams = cpu_params if vcfg == rcfg else tf_model.init_params(vcfg, make_generator(SEED, "cpu"), "cpu")
@@ -1484,9 +1559,21 @@ def main():
                  (lambda want: MODEL_TOL * max(1.0, want.abs().max().item())))
         vouts, vlogits = {}, {}
         for where, params in (("cuda", to_dev(vparams)), ("cpu", vparams)):
+            reset_counts()
             server = Server(vcfg, scfg, params, device=where)
             vlogits[where] = recorded(server)
             vouts[where] = server.serve([Request(rid=i, prompt=p) for i, p in enumerate(prompts)])
+            if where == "cuda":
+                v_routes = flash_routes()
+        # the reduced models' attention (D = 32, the MLA pair (48, 32)) on the
+        # tensor-core routes in f32 and bf16: no flash launch on the CUDA cores
+        reduced_flash_routes[label] = v_routes
+        dims = ("no attention" if not vcfg.n_heads else
+                f"MLA D {vcfg.qk_nope_head_dim + vcfg.qk_rope_head_dim} / Dv {vcfg.v_head_dim}" if vcfg.use_mla
+                else f"head dim {vcfg.resolved_head_dim}")
+        log(f"  {label}: flash launches by route {v_routes} ({dims})")
+        if v_routes["cuda_cores"]:
+            raise AssertionError(f"reduced model, {label}: {v_routes['cuda_cores']} flash launches on the CUDA cores")
         log(f"  {label}: greedy tokens card {vouts['cuda']} / cpu {vouts['cpu']}")
         if vouts["cuda"] != vouts["cpu"]:
             raise AssertionError(f"reduced model, {label}: greedy tokens differ between card and CPU")
@@ -2771,8 +2858,16 @@ def main():
         f32_plain = None
         with uncounted():
             for cd in ("float32", "bfloat16"):
+                ce_before = ce.lm_head_ce.launches
                 first = first_step_against_plain(params, dataclasses.replace(c, compute_dtype=cd), batch, tree,
                                                  tf_model, replay=c.is_moe, keep=drift)
+                ce_first = ce.lm_head_ce.launches - ce_before
+                if cd == "float32":  # the fused loss's head: f32 x against the f32 head, one launch
+                    log(f"  first step, f32 compute: {ce_first} lm_head_ce launch(es), f32 x f32 on the tensor cores "
+                        f"({ce.F32_PRODUCTS} bf16 part products; lm_head_ce has no CUDA-core route)")
+                    if ce_first < 1:
+                        raise AssertionError(f"phase {phase}: the f32 first step launched no lm_head_ce")
+                    result["first_step_float32_lm_head_ce_launches"] = ce_first
                 (lk, lp), (nk, npl), (err, path) = first["losses"], first["norms"], first["worst"]
                 mismatches, grads, leaf_rel = first["mismatches"], first.get("grads"), first["rel"]
                 del first
@@ -2989,28 +3084,23 @@ def main():
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def time_ms(fn, iters=10, warmup=3, queued=True):
-        """Median CUDA-event time of fn().  queued: the call is enqueued
-        behind a ~1 ms device sleep, so the events time the device's work
-        alone; else the host's launch time counts wherever the device waits
-        for it (as the first versions of this script timed)."""
-        for _ in range(warmup):
-            fn()
-        ts = []
-        for _ in range(iters):
-            flush.zero_()
-            if queued:
-                torch.cuda._sleep(2_000_000)
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            ts.append(s.elapsed_time(e))
-        return statistics.median(ts)
+        return device_ms(fn, flush, iters, warmup, queued)
 
     def bound_ms(nbytes, flops, dt_name):
         by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dt_name]
         return 1e3 * max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+    def flash_bounds(nbytes, flops, dt_name, route):
+        """A flash row's bound: bf16 products at the bf16 rate; f32 on the
+        tensor cores at f32 accuracy is six bf16 part products of each
+        product (ce.F32_PRODUCTS) at the bf16 rate, with the f32 CUDA-core
+        bound beside it; f32 on the CUDA cores the f32 rate."""
+        if dt_name == "float32" and route != "cuda_cores":
+            f32_ms, f32_by = bound_ms(nbytes, flops, "float32")
+            b_ms, b_by = bound_ms(nbytes, ce.F32_PRODUCTS * flops, "bfloat16")
+            return dict(bound_ms=b_ms, bound_by=b_by, bound_ms_f32_cuda_cores=f32_ms, bound_by_f32_cuda_cores=f32_by)
+        b_ms, b_by = bound_ms(nbytes, flops, dt_name)
+        return dict(bound_ms=b_ms, bound_by=b_by)
 
     rows_out = []
     for dt_name in ("bfloat16", "float32"):
@@ -3060,7 +3150,6 @@ def main():
             # below min(Sk, kv_len, q_offset + Sq)
             keys = torch.clamp(torch.clamp(kvl.long(), max=min(sk, qo + fsq)), min=0).sum().item()
             nbytes = (q.numel() + keys * (dk + dvv) + bh * fsq * dvv) * isz + 8 * bh
-            b_ms, b_by = bound_ms(nbytes, 2 * live * (dk + dvv), dt_name)
             mask = (torch.arange(sk, device=dev).view(1, 1, -1) < kvl.view(-1, 1, 1)) & (
                 qo + i.view(1, -1, 1) >= torch.arange(sk, device=dev).view(1, 1, -1))
             q4, k4, v4, m4 = q[None], k[None], v[None], mask[None]
@@ -3072,7 +3161,7 @@ def main():
                        plain_ms=time_ms(lambda: attention_plain(q, k, v, **kw)),
                        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                            q4, k4, v4, attn_mask=m4, scale=dk ** -0.5)),
-                       bound_ms=b_ms, bound_by=b_by)
+                       **flash_bounds(nbytes, 2 * live * (dk + dvv), dt_name, pl[0]))
             if pl[0] != "cuda_cores":  # the CUDA-core kernel, which ran these shapes before, in the same call
                 row["cuda_cores_ms"] = time_ms(lambda: fa._launch(q, k, v, ("cuda_cores", 64, 1), scale=None, **kw))
             rows_out.append(row)
@@ -3114,21 +3203,22 @@ def main():
             ssm_rows.append(row)
             log("  " + json.dumps(row))
             del x, p, eops, wn, res
-    def flash_row(fsq, fd, qo, kvl, ms_of=None):
-        """A bf16 flash row at BH = 32, Sk = 1024, D = Dv = fd: the planned
-        launch (or ms_of's plan), its bound (only the keys some query of a
-        row can see are read), the plain version and SDPA on the same mask."""
-        q = torch.randn(bh, fsq, fd, generator=g, device=dev).to(torch.bfloat16)
-        k, v = (torch.randn(bh, sk, fd, generator=g, device=dev).to(torch.bfloat16) for _ in range(2))
+    def flash_row(fsq, fd, qo, kvl, ms_of=None, dt_name="bfloat16", fdv=None):
+        """A flash row at BH = 32, Sk = 1024, D = fd, Dv = fdv (fd): the
+        planned launch (or ms_of's plan), its bound (only the keys some
+        query of a row can see are read), the plain version and SDPA on the
+        same mask; off the CUDA cores, the CUDA-core kernel beside it."""
+        fdv, dtype = fdv or fd, getattr(torch, dt_name)
+        q, k, v = flash_inputs(fsq, fd, fdv, dtype)
         kw = dict(q_offset=torch.tensor(qo, device=dev), kv_len=kvl, causal=True)
         i = torch.arange(fsq, device=dev)
         live = int(torch.clamp(torch.minimum(torch.tensor(kvl, device=dev), qo + i + 1), min=0).sum()) * bh
         keys = min(sk, kvl, qo + fsq) * bh
-        b_ms, b_by = bound_ms((q.numel() + keys * 2 * fd + bh * fsq * fd) * 2 + 8 * bh, 2 * live * 2 * fd, "bfloat16")
+        nbytes = (q.numel() + keys * (fd + fdv) + bh * fsq * fdv) * q.element_size() + 8 * bh
         mask = (torch.arange(sk, device=dev).view(1, -1) < kvl) & (qo + i.view(-1, 1) >= torch.arange(sk, device=dev).view(1, -1))
-        pl = flash_plan(bh, fsq, sk, fd, fd, torch.bfloat16, sms)
-        row = dict(kernel="flash_attention", dtype="bfloat16",
-                   shape=f"BH={bh} Sq={fsq} Sk={sk} D={fd} Dv={fd} q_offset {qo} kv_len {kvl}",
+        pl = flash_plan(bh, fsq, sk, fd, fdv, dtype, sms)
+        row = dict(kernel="flash_attention", dtype=dt_name,
+                   shape=f"BH={bh} Sq={fsq} Sk={sk} D={fd} Dv={fdv} q_offset {qo} kv_len {kvl}",
                    route=pl[0], splits=pl[2],
                    ms=time_ms(lambda: flash_attention(q, k, v, **kw)),
                    host_ms=time_ms(lambda: flash_attention(q, k, v, **kw), queued=False),
@@ -3136,7 +3226,9 @@ def main():
                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
                                                                              attn_mask=mask[None, None],
                                                                              scale=fd ** -0.5)),
-                   bound_ms=b_ms, bound_by=b_by)
+                   **flash_bounds(nbytes, 2 * live * (fd + fdv), dt_name, pl[0]))
+        if pl[0] != "cuda_cores" and ms_of is None:  # the CUDA-core kernel, which ran these shapes before
+            row["cuda_cores_ms"] = time_ms(lambda: fa._launch(q, k, v, ("cuda_cores", 64, 1), scale=None, **kw))
         if ms_of is not None:  # the same call on other plans (the threshold sweep below)
             row["ms_by_plan"] = {f"{p_[0]}/{p_[2]}": time_ms(lambda: fa._launch(q, k, v, p_, scale=None, **kw))
                                  for p_ in ms_of}
@@ -3153,6 +3245,18 @@ def main():
     row = flash_row(1, 128, 700, 701)
     rows_out.append(row)
     log("  " + json.dumps(row))
+    # f32 on the tensor cores: the reduced models' D = 32, Zamba2's 80, 128
+    # and the MLA pair at the chunk (q_offset 512) and at one token against
+    # the end of the cache, each beside the CUDA-core kernel that ran them
+    # before (phase 7's flash_cases rows above hold D = 128 and (192, 128)
+    # at the chunk in f32 as well)
+    f32_flash_rows = []
+    for fd, fdv in ((32, 32), (80, 80), (128, 128), (192, 128)):
+        for fsq, qo, kvl in ((256, 512, 768), (1, 700, 701)):
+            row = flash_row(fsq, fd, qo, kvl, dt_name="float32", fdv=fdv)
+            rows_out.append(row)
+            f32_flash_rows.append(row)
+            log("  " + json.dumps(row))
     # where split_kv pays, and how many splits: every tensor-core head dim at
     # the end of the cache (q_offset = Sk - Sq, every key live), timed on the
     # unsplit 64-row tiles and on split_kv with 1 to 16 splits, beside SDPA;
@@ -3173,11 +3277,11 @@ def main():
         x32 = x.float()
         nbytes = t * d * x.element_size() + d * lm_vocab * 4 + 4 * t + 8 * t
         f32_ms, f32_by = bound_ms(nbytes, 2 * t * d * lm_vocab, "float32")
-        # bf16 x: the least time at f32 accuracy is three bf16 part products
-        # of the head at the bf16 rate (two miss TOL, phase 2); the f32
-        # CUDA-core bound stays beside it
-        b_ms, b_by = ((f32_ms, f32_by) if x_name == "float32" else
-                      bound_ms(nbytes, ce.W_PARTS * 2 * t * d * lm_vocab, "bfloat16"))
+        # the least time at f32 accuracy: bf16 x, three bf16 part products
+        # of the head; f32 x, six of x and the head (fewer miss TOL, phase
+        # 2), at the bf16 rate; the f32 CUDA-core bound stays beside it
+        products = ce.F32_PRODUCTS if x_name == "float32" else ce.W_PARTS
+        b_ms, b_by = bound_ms(nbytes, products * 2 * t * d * lm_vocab, "bfloat16")
         with torch.no_grad():
             row = dict(kernel="lm_head_ce", dtype=f"{x_name} x {w_name}",
                        shape=f"T={t} D={d} Vp={vocab} vocab={lm_vocab}",
@@ -3187,10 +3291,10 @@ def main():
                        library_ms=time_ms(lambda: torch.matmul(x32, w), iters=5, warmup=1),
                        library="torch.matmul of the same f32 product alone (no logsumexp)",
                        bound_ms=b_ms, bound_by=b_by)
-            if x_name == "bfloat16":
-                row.update(host_ms=time_ms(lambda: ce.lm_head_ce(x, w, labels, vocab_size=lm_vocab), iters=5,
-                                           warmup=1, queued=False),
-                           bound_ms_f32_cuda_cores=f32_ms, bound_by_f32_cuda_cores=f32_by, bf16_parts=ce.W_PARTS)
+            row.update(host_ms=time_ms(lambda: ce.lm_head_ce(x, w, labels, vocab_size=lm_vocab), iters=5,
+                                       warmup=1, queued=False),
+                       bound_ms_f32_cuda_cores=f32_ms, bound_by_f32_cuda_cores=f32_by)
+            row.update({"f32_products": ce.F32_PRODUCTS} if x_name == "float32" else {"bf16_parts": ce.W_PARTS})
         rows_out.append(row)
         log("  " + json.dumps(row))
         if x_name == "bfloat16":  # the training step's backward of the fused loss, plain torch f32
@@ -3206,20 +3310,22 @@ def main():
                                        backward_ms=both - row["ms"])))
         del x, w, x32
 
-    # lm_head_ce at the families' training heads (phases 6b-6e), bf16 x and
-    # the f32 head, T = 4092; bound as above, by three bf16 part products of
-    # the real columns.  The tied head (Mamba2) is embed.t(), which the
-    # wrapper copies contiguous before the launch: its ms include the copy,
-    # whose time is given on its own too
+    # lm_head_ce at the families' training heads (phases 6b-6e), bf16 x (bf16
+    # compute) and f32 x (the f32 first step) against the f32 head, T = 4092;
+    # bound as above, by three or six bf16 part products of the real
+    # columns.  The tied head (Mamba2) is embed.t(), which the wrapper
+    # copies contiguous before the launch: its ms include the copy, whose
+    # time is given on its own too
     fam_ce_rows = []
-    for fname, fd, fvp, fvocab, tied in fam_heads:
-        x, w, labels = fam_head_inputs(t, fd, fvp, fvocab, tied)
+    for (fname, fd, fvp, fvocab, tied), x_name in ((h, xn) for xn in ("bfloat16", "float32") for h in fam_heads):
+        x, w, labels = fam_head_inputs(t, fd, fvp, fvocab, tied, getattr(torch, x_name))
         x32 = x.float()
-        nbytes = t * fd * 2 + fd * fvocab * 4 + 4 * t + 8 * t
+        nbytes = t * fd * x.element_size() + fd * fvocab * 4 + 4 * t + 8 * t
         f32_ms, f32_by = bound_ms(nbytes, 2 * t * fd * fvocab, "float32")
-        b_ms, b_by = bound_ms(nbytes, ce.W_PARTS * 2 * t * fd * fvocab, "bfloat16")
+        products = ce.F32_PRODUCTS if x_name == "float32" else ce.W_PARTS
+        b_ms, b_by = bound_ms(nbytes, products * 2 * t * fd * fvocab, "bfloat16")
         with torch.no_grad():
-            row = dict(kernel="lm_head_ce", dtype="bfloat16 x float32",
+            row = dict(kernel="lm_head_ce", dtype=f"{x_name} x float32",
                        shape=f"{fname} T={t} D={fd} Vp={fvp} vocab={fvocab}" + (" tied: embed.t()" if tied else ""),
                        ms=time_ms(lambda: ce.lm_head_ce(x, w, labels, vocab_size=fvocab), iters=5, warmup=1),
                        plain_ms=time_ms(lambda: ce.lm_head_ce_plain(x, w, labels, vocab_size=fvocab),
@@ -3585,9 +3691,21 @@ def main():
                  if key in r} for r in ssm_rows if r["kernel"] == kk["name"]]
     ce_line = next(kk for kk in kernels if kk["name"] == "lm_head_ce")
     ce_line["family_training_shapes"] = [
-        {key: r[key] for key in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "copy_ms",
-                                 "copy_bytes", "ms_without_copy", "launches_per_step") if key in r}
+        {key: r[key] for key in ("dtype", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                 "bound_ms_f32_cuda_cores", "copy_ms", "copy_bytes", "ms_without_copy",
+                                 "launches_per_step") if key in r}
         for r in fam_ce_rows]
+    # f32 x f32 at llama3-8b's head: six bf16 part products on the tensor
+    # cores (the f32 first steps of phases 6-6e launch it)
+    ce_line["f32_x"] = next({key: r[key] for key in ("shape", "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+                                                     "bound_by", "bound_ms_f32_cuda_cores", "f32_products")}
+                            for r in rows_out if r["kernel"] == "lm_head_ce" and r["dtype"] == "float32 x float32")
+    # f32 flash on the tensor-core routes, each row beside the CUDA-core kernel
+    flash_line["f32"] = [
+        {key: r[key] for key in ("shape", "route", "splits", "ms", "cuda_cores_ms", "plain_ms", "library_ms",
+                                 "bound_ms", "bound_by", "bound_ms_f32_cuda_cores") if key in r}
+        for r in rows_out if r["kernel"] == "flash_attention" and r["dtype"] == "float32"]
+    flash_line["reduced_models"] = reduced_flash_routes  # phase 3: each variant's launches by route
     flash_line["route_of_timed_shape"] = next(r for r in rows_out if r["kernel"] == "flash_attention"
                                               and r["dtype"] == "bfloat16" and "q_offset 512" in r["shape"])["route"]
     for name, scheme in (("dip_matmul_q_fp8", "fp8_e4m3"), ("dip_matmul_q_int8", "int8")):

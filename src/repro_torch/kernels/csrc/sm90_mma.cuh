@@ -62,6 +62,39 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// ------------------------------------------- f32 as exact bf16 parts ---
+// An f32 operand on the tensor cores: each element split into three bf16
+// parts by truncation, hi = x, mid = x - hi, lo = x - hi - mid (each cut
+// to its top 16 bits; the subtractions are exact, and hi + mid + lo == x
+// for normal f32: kernels/lm_head_ce.py::bf16_parts).  p[i] holds part i of
+// x0 (low half) and x1 (high half), one register of an mma operand.
+__device__ __forceinline__ void split_bf16x3(float x0, float x1, uint32_t (&p)[3]) {
+  const uint32_t a0 = __float_as_uint(x0), a1 = __float_as_uint(x1);
+  const float r0 = x0 - __uint_as_float(a0 & 0xFFFF0000u), r1 = x1 - __uint_as_float(a1 & 0xFFFF0000u);
+  const uint32_t b0 = __float_as_uint(r0), b1 = __float_as_uint(r1);
+  const float t0 = r0 - __uint_as_float(b0 & 0xFFFF0000u), t1 = r1 - __uint_as_float(b1 & 0xFFFF0000u);
+  p[0] = __byte_perm(a0, a1, 0x7632);  // the high halves: truncation
+  p[1] = __byte_perm(b0, b1, 0x7632);
+  p[2] = __byte_perm(__float_as_uint(t0), __float_as_uint(t1), 0x7632);
+}
+
+// The f32 product a b of one m16n8k16 step as the six part products a_i
+// b_j with i + j <= 2 (the dropped ones, i + j >= 3, are about 2^-24 of
+// it): each bf16 x bf16 product is exact in f32.  The five smaller ones
+// are summed into lo, smallest first, and hi_a hi_b into hi; the caller
+// adds lo to hi in IEEE f32 (the tensor cores round their f32 sums toward
+// zero, so keeping the large term's chain short keeps that error small).
+// a[i]: part i of the A fragment, b[j]: part j of the B fragment.
+__device__ __forceinline__ void mma_bf16_parts(float (&hi)[4], float (&lo)[4], const uint32_t (&a)[3][4],
+                                               const uint32_t (&b)[3][2]) {
+  mma_bf16(lo, a[0], b[2][0], b[2][1]);
+  mma_bf16(lo, a[1], b[1][0], b[1][1]);
+  mma_bf16(lo, a[2], b[0][0], b[0][1]);
+  mma_bf16(lo, a[0], b[1][0], b[1][1]);
+  mma_bf16(lo, a[1], b[0][0], b[0][1]);
+  mma_bf16(hi, a[0], b[0][0], b[0][1]);
+}
+
 // ------------------------------------------------------------- wgmma ---
 // Operands for wgmma live in shared memory K-major with the 128-byte
 // swizzle: row r (an M or N index) of a 64-deep K slice is 128 bytes at r *
@@ -112,6 +145,26 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The same product with A from registers (4 per thread: the warp's 16 rows
+// of the warpgroup's 64 in mma.sync's m16n8k16 A layout, rows 16 w + lane /
+// 4 (+ 8), columns 2 (lane % 4) (+ 8)).  The registers are read after the
+// issue: keep them unchanged, and alive (fence_regs), until the wait.
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b,
+                                                    int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The int8 operands: a 64-deep K slice of a row (an M or N index) is 64

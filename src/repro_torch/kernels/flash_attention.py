@@ -10,14 +10,19 @@ and gives exactly 0 for a fully masked row.
 :func:`flash_plan` picks the route and its grid from the shapes alone (it
 reads no device value, so a call never syncs with the host):
 
-* ``"tensor_cores"``: bf16 with (D, Dv) in :data:`TC_PAIRS` and Sq above
-  :data:`SPLIT_MAX_SQ`: D = Dv in :data:`TC_HEAD_DIMS` (64 to 128 in steps
-  of 16; Zamba2's shared block has D = 80), and (192, 128), DeepSeek-V2-Lite's
+* ``"tensor_cores"``: bf16 or f32 with (D, Dv) in :data:`TC_PAIRS` and Sq
+  above :data:`SPLIT_MAX_SQ`: D = Dv in :data:`TC_HEAD_DIMS` (32 to 128 in
+  steps of 16; the reduced models have D = 32, Zamba2's shared block D =
+  80), the reduced MLA model's (48, 32), and (192, 128), DeepSeek-V2-Lite's
   whole-prompt MLA forward (q and k carry the nope + rope columns, 128 + 64;
   v 128).  Bound by the operations at a prefill chunk (BH = 32, Sq = 256
   against up to 1024 keys): both products on the tensor cores (mma.sync,
-  bf16 in and f32 sums, P rounded to bf16 for the P V product) in 64-row
-  query tiles, the K and V tiles double-buffered by cp.async.
+  bf16 in and f32 sums) in 64-row query tiles, the K and V tiles
+  double-buffered by cp.async.  bf16 rounds P to bf16 for the P V product;
+  f32 splits every operand, P included, into three bf16 parts
+  (:func:`repro_torch.kernels._bf16_parts.bf16_parts`) and takes each
+  product as the six exact part products i + j <= 2, so no operand is
+  rounded to TF32.
 * ``"split_kv"``: the same pairs with Sq <= :data:`SPLIT_MAX_SQ` (a
   token of Zamba2's single-token prefill tail).  Bound by the bytes of K
   and V: 16-row query tiles, and the keys split across blocks until the
@@ -25,8 +30,9 @@ reads no device value, so a call never syncs with the host):
   to a workspace from the caching allocator and the last block of each
   query tile (an atomic ticket, :func:`_tickets`) merges them in split
   order in the same launch.
-* ``"cuda_cores"``: f32 and every other (D, Dv) up to 256 (f32 FMAs), the
-  reduced models' head dims included.
+* ``"cuda_cores"``: every other (D, Dv) up to 256 (f32 FMAs): D not a
+  multiple of 16, a pair above 128 other than (192, 128), the other Dv != D
+  pairs.
 
 :func:`flash_attention` launches the planned kernel for CUDA tensors and runs
 :func:`attention_plain` — the dense form with the same masking — for CPU
@@ -58,9 +64,10 @@ __all__ = ["NEG_INF", "MAX_HEAD_DIM", "TC_HEAD_DIMS", "TC_PAIRS", "SPLIT_MAX_SQ"
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-TC_HEAD_DIMS = (64, 80, 96, 112, 128)  # head dims of the tensor-core routes with D = Dv
-# (D, Dv) pairs of the tensor-core routes: D = Dv above, and DeepSeek-V2-Lite's MLA prefill
-TC_PAIRS = frozenset([(d, d) for d in TC_HEAD_DIMS] + [(192, 128)])
+TC_HEAD_DIMS = (32, 48, 64, 80, 96, 112, 128)  # head dims of the tensor-core routes with D = Dv
+# (D, Dv) pairs of the tensor-core routes: D = Dv above, the reduced MLA model's
+# (nope 32 + rope 16, v 32) and DeepSeek-V2-Lite's MLA prefill
+TC_PAIRS = frozenset([(d, d) for d in TC_HEAD_DIMS] + [(48, 32), (192, 128)])
 SPLIT_MAX_SQ = 64  # query rows up to which the tensor-core head dims take "split_kv"
 KV_TILE = 64  # keys per KV tile of the tensor-core kernels; splits are whole tiles
 SPLIT_Q_TILE = 16  # query rows per block of the split route (one m16 fragment)
@@ -133,9 +140,9 @@ def attention_plain(q, k, v, *, q_offset=None, kv_len=None, causal: bool = True,
 
 
 def flash_route(dtype: torch.dtype, d: int, dv: int) -> str:
-    """``"tensor_cores"`` for bf16 with (D, Dv) in :data:`TC_PAIRS`, else
-    ``"cuda_cores"`` (f32, other head dims)."""
-    return "tensor_cores" if dtype == torch.bfloat16 and (d, dv) in TC_PAIRS else "cuda_cores"
+    """``"tensor_cores"`` for bf16 or f32 with (D, Dv) in :data:`TC_PAIRS`,
+    else ``"cuda_cores"`` (other head dims)."""
+    return "tensor_cores" if dtype in _DTYPE_CODES and (d, dv) in TC_PAIRS else "cuda_cores"
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -153,7 +160,7 @@ def flash_plan(bh: int, sq: int, sk: int, d: int, dv: int, dtype: torch.dtype, s
     across blocks as :func:`split_count` says (Zamba2's single-token tail:
     4 splits).  Longer queries keep one block per 64-row tile and no split
     (``"tensor_cores"``): Zamba2's 256-token chunk is 128 such blocks.
-    Other dtypes and pairs take ``"cuda_cores"``.  SPLIT_MAX_SQ = 64 is
+    Other pairs take ``"cuda_cores"``.  SPLIT_MAX_SQ = 64 is
     the longest query for which the 16-row tiles won at both D = 80 and 128
     on the H100 (``chip_smoke.py`` phase 7's sweep: at Sq = 128 only D = 80
     still gained, at 256 neither)."""
@@ -216,11 +223,12 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
 # q, k, v, out; q_offset and kv_len as (pointer, step, value, wide) each; then per route
 _HEAD = [ctypes.c_void_p] * 4 + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int] * 2
 _TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]  # scale, causal, stream
-_ARGTYPES = {
-    "tensor_cores": ("flash_attention_tc_launch", _HEAD + [ctypes.c_int] * 5 + _TAIL),  # BH, Sq, Sk, D, Dv
+_ARGTYPES = {  # each takes the dtype code first
+    "tensor_cores": ("flash_attention_tc_launch", [ctypes.c_int] + _HEAD + [ctypes.c_int] * 5 + _TAIL),  # BH, Sq, Sk, D, Dv
     # ws, tickets; BH, Sq, Sk, D, Dv, splits, tiles a split
-    "split_kv": ("flash_attention_split_launch", _HEAD + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + _TAIL),
-    "cuda_cores": ("flash_attention_launch", [ctypes.c_int] + _HEAD + [ctypes.c_int] * 5 + _TAIL),  # dtype first; BH, Sq, Sk, D, Dv
+    "split_kv": ("flash_attention_split_launch",
+                 [ctypes.c_int] + _HEAD + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + _TAIL),
+    "cuda_cores": ("flash_attention_launch", [ctypes.c_int] + _HEAD + [ctypes.c_int] * 5 + _TAIL),  # BH, Sq, Sk, D, Dv
 }
 
 
@@ -271,7 +279,7 @@ def _launch(q, k, v, plan: Tuple[str, int, int], *, q_offset, kv_len, causal: bo
             raise ValueError(f"{name} must be contiguous")
     if route != "cuda_cores":  # the tensor-core kernels land rows in shared memory by 16-byte cp.async copies
         if flash_route(q.dtype, d, dv) != "tensor_cores":
-            raise ValueError(f"route {route!r} takes bf16 with (D, Dv) in {sorted(TC_PAIRS)}, got {q.dtype} {d}/{dv}")
+            raise ValueError(f"route {route!r} takes (D, Dv) in {sorted(TC_PAIRS)}, got {d}/{dv}")
         for name, t in (("q", q), ("k", k), ("v", v)):
             _build.check_aligned(t, name)
     scale = d ** -0.5 if scale is None else float(scale)
@@ -283,6 +291,7 @@ def _launch(q, k, v, plan: Tuple[str, int, int], *, q_offset, kv_len, causal: bo
         return out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             *(x.data_ptr() if isinstance(x, torch.Tensor) else x for x in per_row))
+    code = _DTYPE_CODES[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if route == "split_kv":
@@ -290,13 +299,11 @@ def _launch(q, k, v, plan: Tuple[str, int, int], *, q_offset, kv_len, causal: bo
             if splits > 1:  # f32 partials: O (BH, splits, Sq, Dv), then (m, l) (BH, splits, Sq, 2)
                 ws = torch.empty(bh * splits * sq * (dv + 2), dtype=torch.float32, device=q.device)
                 tickets = _tickets(q.device, stream, bh * _cdiv(sq, SPLIT_Q_TILE))
-            rc = _lib(route)(*ptrs, None if ws is None else ws.data_ptr(),
+            rc = _lib(route)(code, *ptrs, None if ws is None else ws.data_ptr(),
                              None if tickets is None else tickets.data_ptr(), bh, sq, sk, d, dv, splits,
                              _tiles_per_split(sk, splits), scale, int(causal), stream)
-        elif route == "tensor_cores":
-            rc = _lib(route)(*ptrs, bh, sq, sk, d, dv, scale, int(causal), stream)
         else:
-            rc = _lib(route)(_DTYPE_CODES[q.dtype], *ptrs, bh, sq, sk, d, dv, scale, int(causal), stream)
+            rc = _lib(route)(code, *ptrs, bh, sq, sk, d, dv, scale, int(causal), stream)
     if rc != 0:
         raise RuntimeError(f"flash attention kernel launch failed ({route}): cudaError {rc}")
     flash_attention.launches += 1

@@ -12,12 +12,15 @@ with vocab columns ``>= vocab_size`` masked to -1e30, and the caller builds
 splits (the TPU kernel walks all of V on a sequential grid axis).  A split
 that lies wholly in the vocab padding contributes l = 0.
 
-Bound on the card: by the operations, 2 T D V.  bf16 x (the training pair,
-with the f32 head, and bf16 x bf16) runs on the tensor cores (wgmma): each
-f32 head element is split into :data:`W_PARTS` bf16 parts
-(:func:`bf16_parts`, whose sum is the element exactly) and x . w is the sum
-of the part products, each exact in f32, so no operand is rounded to TF32;
-f32 x f32 (on no main path) keeps IEEE FMAs on the CUDA cores.
+Bound on the card: by the operations, 2 T D V.  Every pair runs on the
+tensor cores (wgmma), and no operand is rounded to TF32.  bf16 x (the
+training pair, with the f32 head, and bf16 x bf16): each f32 head element
+is split into :data:`W_PARTS` bf16 parts (:func:`bf16_parts`, whose sum is
+the element exactly) and x . w is the sum of the part products, each exact
+in f32.  f32 x f32 (the first training step in f32 compute): x is split
+too, and x . w is the sum of the :data:`F32_PRODUCTS` largest part
+products x_i w_j, i + j <= 2 (:func:`repro_torch.kernels._bf16_parts.
+split_matmul` is that arithmetic in plain torch).
 
 * :func:`lm_head_ce` returns ``(logz, label_logit)`` through
   :class:`LogzAndLabel`: for a CUDA tensor the forward launches the kernel
@@ -40,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._bf16_parts import F32_PRODUCTS, bf16_parts
 
 __all__ = [
     "NEG_INF",
@@ -51,6 +55,7 @@ __all__ = [
     "split_plan",
     "bf16_parts",
     "W_PARTS",
+    "F32_PRODUCTS",
     "check_kernel_shape",
     "fused_cross_entropy_loss",
     "reference_lm_head_ce",
@@ -62,6 +67,7 @@ DEFAULT_BLOCK_V = 512  # vocab chunk of the plain version (the reference's block
 BWD_BLOCK_V = 4096     # vocab chunk of the backward's recompute
 BLOCK_T, BLOCK_V, BLOCK_K = 128, 128, 64  # the CUDA kernel's tiles (BLOCK_K: its contraction step)
 W_PARTS = 3  # bf16 parts of an f32 head element on the tensor cores (two miss f32 TOL at the label logit)
+BLOCK_K_F32 = 32  # the f32 x f32 mainloop's contraction step
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PAIRS = {(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
           (torch.bfloat16, torch.bfloat16)}
@@ -132,22 +138,6 @@ def split_plan(t: int, vp: int, sms: int = 132, vocab: Optional[int] = None) -> 
     return tiles, splits
 
 
-def bf16_parts(w: torch.Tensor, parts: int = W_PARTS) -> Tuple[torch.Tensor, ...]:
-    """The kernel's split of an f32 head into bf16 parts, in plain torch:
-    ``hi`` = w truncated to bf16, ``mid`` = (w - hi) truncated, ``lo`` =
-    w - hi - mid (for ``parts`` = 3; the f32 subtractions are exact).  For a
-    normal f32 w, ``hi + mid + lo == w`` exactly, so each part product of a
-    bf16 x is exact in f32."""
-    def trunc(v):
-        return (v.float().contiguous().view(torch.int32) & -65536).view(torch.float32)
-
-    out, rest = [], w.float()
-    for _ in range(parts):
-        out.append(trunc(rest))
-        rest = rest - out[-1]
-    return tuple(p.to(torch.bfloat16) for p in out)
-
-
 def check_kernel_shape(d: int, vp: int) -> None:
     """The kernel steps D by ``BLOCK_K`` and the head's width by ``BLOCK_V``;
     every configuration's d_model and padded vocab are multiples of both."""
@@ -180,7 +170,7 @@ def _launch(x, w, labels, vocab):
     vp = w.shape[1]
     check_kernel_shape(d, vp)
     x, w = x.contiguous(), w.contiguous()
-    _build.check_aligned(x, "x")  # both mainloops read x and w with 16-byte loads or copies
+    _build.check_aligned(x, "x")  # the mainloops copy x and w in 16-byte cp.async chunks
     _build.check_aligned(w, "w")
     labels = labels.to(torch.int32).contiguous()
     tiles, splits = split_plan(t, vp, torch.cuda.get_device_properties(dev).multi_processor_count, vocab)

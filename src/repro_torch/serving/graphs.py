@@ -80,7 +80,7 @@ _GROUPS = {"dip products": ("dip_mma_kernel", "dip_wgmma_kernel", "dip_matmul_ke
            "quantizing passes": ("quantize_int8_kernel",), "cast passes": ("cast_bf16_kernel",),
            "wavefront": ("dip_systolic_kernel",),
            "flash tensor_cores": ("flash_tc_kernel",), "flash split_kv": ("flash_split_kernel",),
-           "flash cuda_cores": ("flash_attention_kernel",), "lm_head_ce": ("lm_head_tc_kernel", "lm_head_ce_f32_kernel")}
+           "flash cuda_cores": ("flash_attention_kernel",), "lm_head_ce": ("lm_head_tc_kernel", "lm_head_f32_kernel")}
 
 
 def kernels_by_group(names: Dict[str, int]) -> Dict[str, int]:

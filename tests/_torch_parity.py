@@ -7,6 +7,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.kernels._bf16_parts import F32_PRODUCTS, split_matmul
+from repro_torch.kernels.flash_attention import per_row_i32
+
 # max|port - reference| <= TOL * max(1, max|reference|).
 # float32: both sides compute in IEEE f32 and differ only in summation order.
 # bfloat16: both accumulate the same bf16 operands in f32, so after the final
@@ -28,6 +31,40 @@ def assert_close(got, want, tol) -> float:
     scale = max(1.0, float(np.abs(want).max()) if want.size else 0.0)
     assert err <= tol * scale, f"max|err| {err} > {tol} * {scale}"
     return err
+
+
+def lm_head_ce_parts_plain(x, w, labels, vocab_size, products=F32_PRODUCTS):
+    """``(logz, label_logit)`` of the card's f32 x f32 ``lm_head_ce`` route
+    in dense torch: each logit the sum of ``products`` bf16 part products
+    (``split_matmul``), columns past ``vocab_size`` masked, a label of -100
+    matching no column."""
+    z = split_matmul(x.float(), w.float(), products)
+    z = torch.where(torch.arange(w.shape[1]) < vocab_size, z, -torch.inf)
+    lab = labels.long()
+    hit = z.gather(1, lab.clamp(min=0).view(-1, 1)).view(-1)
+    return torch.logsumexp(z, dim=1), torch.where(lab >= 0, hit, 0.0)
+
+
+def attention_parts_plain(q, k, v, *, q_offset=None, kv_len=None, causal=True, products=F32_PRODUCTS):
+    """The card's f32 flash routes in dense torch: the scores q k^T and the
+    unnormalised probabilities exp(s - max) times v, each as ``products``
+    bf16 part products (``split_matmul``), the scale D^-1/2 applied to the
+    scores after the product, the row sum over the f32 probabilities
+    divided out at the end; fully masked rows exactly 0."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    k_pos = torch.arange(sk, dtype=torch.int32).view(1, 1, sk)
+    live = k_pos < per_row_i32(kv_len, bh, sk, q.device).view(bh, 1, 1)
+    if causal:
+        q_pos = per_row_i32(q_offset, bh, 0, q.device).view(bh, 1, 1) + torch.arange(
+            sq, dtype=torch.int32).view(1, sq, 1)
+        live = live & (q_pos >= k_pos)
+    s = torch.stack([split_matmul(q[b].float(), k[b].float().T, products) for b in range(bh)]) * d ** -0.5
+    s = torch.where(live, s, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - torch.where(torch.isinf(m), 0.0, m)), 0.0)
+    o = torch.stack([split_matmul(p[b], v[b].float(), products) for b in range(bh)])
+    return (o / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)).to(q.dtype)
 
 
 def reduced_configs(backend_ref="pallas_dip", backend_port="dip", dtype="float32", quantization="none",

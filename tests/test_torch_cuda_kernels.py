@@ -23,7 +23,7 @@ from repro_torch.core import permute
 from repro_torch.device import make_generator
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
-from repro_torch.kernels.flash_attention import SPLIT_MAX_SQ, attention_plain, flash_attention, flash_plan
+from repro_torch.kernels.flash_attention import SPLIT_MAX_SQ, TC_PAIRS, attention_plain, flash_attention, flash_plan
 from repro_torch.kernels import lm_head_ce as ce
 from repro_torch.models import transformer as tf_model
 from repro_torch.optim import AdamW
@@ -156,10 +156,10 @@ LM_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
 @pytest.mark.parametrize("t", [37, 300, 4092])
 def test_lm_head_ce_kernel_matches_plain(dev, pair, t):
     """Ragged T, vocab padding with whole padding-only splits, labels at
-    -100.  f32 1e-5 where W is f32 (IEEE FMAs on the CUDA cores for f32 x;
-    for bf16 x the tensor cores on three bf16 parts of W, each part product
-    exact in f32), 8e-3 for bf16 x bf16 (tensor-core accumulation), of
-    max(1, max|plain|)."""
+    -100.  f32 1e-5 where W is f32 (the tensor cores on three bf16 parts of
+    W, each part product exact in f32; for f32 x, x split too and the six
+    part products i + j <= 2), 8e-3 for bf16 x bf16 (tensor-core
+    accumulation), of max(1, max|plain|)."""
     xd, wd = pair
     g = torch.Generator(device=dev).manual_seed(t)
     d, vp, vocab = 256, 2048, 1500
@@ -523,20 +523,41 @@ def test_flash_split_kv_tail_fills_one_wave(dev):
     assert flash_plan(32, 256, 1024, 80, 80, torch.bfloat16, sms) == ("tensor_cores", 64, 1)
 
 
-OLD_ROUTE_CASES = [(torch.float32, 128, 128), (torch.float32, 64, 64), (torch.float32, 192, 128),
-                   (torch.bfloat16, 128, 64), (torch.bfloat16, 48, 48), (torch.bfloat16, 256, 256),
-                   (torch.bfloat16, 40, 24)]
+OLD_ROUTE_CASES = [(torch.bfloat16, 128, 64), (torch.bfloat16, 256, 256), (torch.bfloat16, 40, 24),
+                   (torch.float32, 128, 64), (torch.float32, 256, 256), (torch.float32, 40, 24)]
+# the cases that ran on the CUDA cores before f32 and the reduced head dims
+# took the tensor cores
+MOVED_ROUTE_CASES = [(torch.float32, 128, 128), (torch.float32, 64, 64), (torch.float32, 192, 128),
+                     (torch.bfloat16, 48, 48)]
+
+
+def _old_route_case(dev, dtype, d, dv):
+    g = torch.Generator(device=dev).manual_seed(d + dv)
+    q, k = (torch.randn(2, s, d, generator=g, device=dev).to(dtype) for s in (70, 150))
+    v = torch.randn(2, 150, dv, generator=g, device=dev).to(dtype)
+    return q, k, v, dict(q_offset=torch.tensor(40, device=dev), kv_len=120, causal=True)
 
 
 @pytest.mark.parametrize("dtype,d,dv", OLD_ROUTE_CASES)
 def test_flash_cuda_core_route_matches_plain(dev, dtype, d, dv):
-    g = torch.Generator(device=dev).manual_seed(d + dv)
-    q, k = (torch.randn(2, s, d, generator=g, device=dev).to(dtype) for s in (70, 150))
-    v = torch.randn(2, 150, dv, generator=g, device=dev).to(dtype)
-    kw = dict(q_offset=torch.tensor(40, device=dev), kv_len=120, causal=True)
+    """The pairs no tensor-core route takes (Dv != D other than (48, 32) and
+    (192, 128), D above 128, D not a multiple of 16), in both dtypes."""
+    q, k, v, kw = _old_route_case(dev, dtype, d, dv)
     before = _counters()
     got = flash_attention(q, k, v, **kw)
     assert _counters() == (before[0] + 1, before[1], before[2])
+    torch.cuda.synchronize()
+    _close(got, attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype,d,dv", MOVED_ROUTE_CASES)
+def test_flash_moved_cases_take_the_tensor_cores(dev, dtype, d, dv):
+    """The CUDA-core route's former f32 cases and bf16 D = 48, at Sq = 70:
+    one launch counted on the tensor cores, within TOL of plain."""
+    q, k, v, kw = _old_route_case(dev, dtype, d, dv)
+    before = _counters()
+    got = flash_attention(q, k, v, **kw)
+    assert _counters() == (before[0] + 1, before[1] + 1, before[2])
     torch.cuda.synchronize()
     _close(got, attention_plain(q, k, v, **kw), dtype)
 
@@ -868,8 +889,8 @@ def test_dip_matmul_ssm_projections_match_plain(dev, proj, m, dtype):
 def test_flash_zamba2_head_dim_80_matches_plain(dev, dtype, sq, q_offset):
     """Zamba2's shared attention at prefill: 32 heads of 80, a 256-token
     chunk or one token of the prefill tail against up to 1024 keys of the
-    prefill cache.  bf16 takes the tensor cores (the chunk unsplit, the
-    tail on ``split_kv``); f32 keeps the CUDA-core route."""
+    prefill cache.  Both dtypes take the tensor cores (the chunk unsplit,
+    the tail on ``split_kv``)."""
     bh, sk, d = 32, 1024, 80
     g = torch.Generator(device=dev).manual_seed(sq + q_offset)
     q = torch.randn(bh, sq, d, generator=g, device=dev).to(dtype)
@@ -877,7 +898,7 @@ def test_flash_zamba2_head_dim_80_matches_plain(dev, dtype, sq, q_offset):
     v = torch.randn(bh, sk, d, generator=g, device=dev).to(dtype)
     kw = dict(q_offset=torch.tensor(q_offset, device=dev), kv_len=q_offset + sq, causal=True)
     route = flash_plan(bh, sq, sk, d, d, dtype, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
-    assert route == ("cuda_cores" if dtype == torch.float32 else "split_kv" if sq == 1 else "tensor_cores")
+    assert route == ("split_kv" if sq == 1 else "tensor_cores")
     before = _counters()
     got = flash_attention(q, k, v, **kw)
     assert _counters() == (before[0] + 1, before[1] + (route != "cuda_cores"), before[2] + (route == "split_kv"))
@@ -1108,3 +1129,94 @@ def test_cast_pass_kernel_matches_plain_byte_for_byte(dev, m, k, prologue):
     want = cast_pass_plain(x, inv, gain)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+# ------- f32 on the tensor cores (flash, lm_head_ce), the reduced head dims --
+# f32 flash at every tensor-core pair and bf16 at the reduced models' pairs:
+# both routes by Sq, ragged Sq and Sk, per-row q_offset / kv_len, kv_len 0
+# rows exactly 0.  f32 takes each product as the six exact bf16 part
+# products i + j <= 2, so it holds the f32 TOL of the plain version.
+NEW_FLASH_SHAPES = [
+    # bh, sq, sk, q_offset (int or per-row list), kv_len (None, int or per-row list), causal
+    (3, 70, 200, 0, None, True),               # Sq not a multiple of the 64-row tile
+    (4, 130, 300, [0, 96, 170, 40], [0, 250, 300, 17], True),  # per-row values; kv_len 0: exactly 0
+    (2, 70, 190, 30, 170, False),              # causal off
+    (2, 256, 1024, 512, 768, True),            # the prefill chunk's shape
+    (32, 1, 1024, 700, 701, True),             # split_kv: one token, the last split wholly dead
+    (4, 16, 700, 600, [0, 616, 5, 650], True),  # split_kv: a kv_len 0 row, a row ending at key 5
+    (3, 33, 150, 10, 0, True),                 # split_kv: every row fully masked
+    (4, 64, 1024, [0, 300, 900, 64], None, True),  # split_kv at SPLIT_MAX_SQ
+]
+NEW_FLASH_ROUTES = ([(torch.float32, p) for p in sorted(TC_PAIRS)]
+                    + [(torch.bfloat16, p) for p in ((32, 32), (48, 48), (48, 32))])
+
+
+@pytest.mark.parametrize("case", NEW_FLASH_SHAPES)
+@pytest.mark.parametrize("dtype,pair", NEW_FLASH_ROUTES,
+                         ids=[f"{str(dt).split('.')[-1]}-{p[0]}x{p[1]}" for dt, p in NEW_FLASH_ROUTES])
+def test_flash_f32_and_reduced_head_dims_on_the_tensor_cores(dev, dtype, pair, case):
+    """One launch on the planned tensor-core route (``tensor_cores`` above
+    SPLIT_MAX_SQ, ``split_kv`` at or below), counted by route; within TOL
+    of the plain version; fully masked rows exactly 0; two split calls bit
+    for bit equal."""
+    bh, sq, sk, qo, kvl, causal = case
+    d, dv = pair
+    g = torch.Generator(device=dev).manual_seed(sq * 5 + d + dv)
+    q, k = (torch.randn(bh, s, d, generator=g, device=dev).to(dtype) for s in (sq, sk))
+    v = torch.randn(bh, sk, dv, generator=g, device=dev).to(dtype)
+    kw = dict(q_offset=torch.tensor(qo, device=dev),
+              kv_len=torch.tensor(kvl, dtype=torch.int32, device=dev) if isinstance(kvl, list) else kvl,
+              causal=causal)
+    route = flash_plan(bh, sq, sk, d, dv, dtype, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+    assert route == ("tensor_cores" if sq > SPLIT_MAX_SQ else "split_kv")
+    before = _counters()
+    got = flash_attention(q, k, v, **kw)
+    assert _counters() == (before[0] + 1, before[1] + 1, before[2] + (route == "split_kv"))
+    want = attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (bh, sq, dv) and got.dtype == dtype
+    _close(got, want, dtype)
+    _assert_dead_rows_zero(got, kvl, bh, sk)
+    if route == "split_kv":
+        assert torch.equal(got, flash_attention(q, k, v, **kw)), "two split calls differ"
+
+
+def test_flash_f32_refuses_offset_views(dev):
+    """f32 q, k or v at a storage offset that is not 16-byte aligned is
+    refused before the launch on both tensor-core routes, and the aligned
+    calls then run."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    buf = torch.randn(2 * 150 * 128 + 8, generator=g, device=dev)
+    q, k, v = (torch.randn(2, s, 128, generator=g, device=dev) for s in (70, 150, 150))
+    for bad in ((buf[1:1 + 2 * 70 * 128].view(2, 70, 128), k, v), (q, buf[2:2 + 2 * 150 * 128].view(2, 150, 128), v),
+                (q, k, buf[3:3 + 2 * 150 * 128].view(2, 150, 128)), (buf[1:1 + 2 * 128].view(2, 1, 128), k, v)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            flash_attention(*bad)
+    torch.cuda.synchronize()
+    for qq in (q, q[:, :1].clone()):
+        _close(flash_attention(qq, k, v), attention_plain(qq, k, v), torch.float32)
+
+
+@pytest.mark.parametrize("d,vp,vocab", FAMILY_HEADS)
+def test_lm_head_ce_f32_family_heads_match_plain(dev, d, vp, vocab):
+    """f32 x against the f32 head at the families' training heads, T = 4
+    x 1023 (the first training step in f32 compute): one launch, within f32
+    TOL of max(1, max|plain|) (six exact bf16 part products); Mamba2's tied
+    head as ``embed.t()``, the (d, Vp) view of a (Vp, d) embedding; labels
+    at -100 add nothing."""
+    t = 4 * 1023
+    g = torch.Generator(device=dev).manual_seed(d + 1)
+    x = torch.randn(t, d, generator=g, device=dev)
+    tied = (d, vp) == (1024, 51200)
+    w = (torch.randn(vp, d, generator=g, device=dev).t() if tied else torch.randn(d, vp, generator=g, device=dev))
+    w = w / d ** 0.5
+    labels = torch.randint(0, vocab, (t,), generator=g, device=dev, dtype=torch.int32)
+    labels[::11] = ce.IGNORE_INDEX
+    before = ce.lm_head_ce.launches
+    with torch.no_grad():
+        got = ce.lm_head_ce(x, w, labels, vocab_size=vocab)
+    assert ce.lm_head_ce.launches == before + 1
+    want = ce.lm_head_ce_plain(x, w, labels, vocab_size=vocab)
+    for a, b in zip(got, want):
+        _close(a, b, torch.float32)
+    assert (got[1][labels == ce.IGNORE_INDEX] == 0).all()

@@ -253,11 +253,14 @@ def test_systolic_card_cases_reach_every_path():
 
 
 ROUTE_CASES = ([(torch.bfloat16, d, d, "tensor_cores") for d in TC_HEAD_DIMS]
-               + [(torch.float32, d, d, "cuda_cores") for d in (64, 128)]
+               + [(torch.float32, d, d, "tensor_cores") for d in (64, 128)]
                + [(torch.bfloat16, 192, 128, "tensor_cores"), (torch.bfloat16, 128, 64, "cuda_cores"),
-                  (torch.bfloat16, 48, 48, "cuda_cores"), (torch.bfloat16, 40, 40, "cuda_cores"),
-                  (torch.bfloat16, 256, 256, "cuda_cores"), (torch.bfloat16, 32, 32, "cuda_cores"),
-                  (torch.float16, 128, 128, "cuda_cores")])
+                  (torch.bfloat16, 48, 48, "tensor_cores"), (torch.bfloat16, 40, 40, "cuda_cores"),
+                  (torch.bfloat16, 256, 256, "cuda_cores"), (torch.bfloat16, 32, 32, "tensor_cores"),
+                  (torch.float16, 128, 128, "cuda_cores"), (torch.bfloat16, 48, 32, "tensor_cores"),
+                  (torch.float32, 48, 32, "tensor_cores"), (torch.float32, 192, 128, "tensor_cores"),
+                  (torch.float32, 32, 32, "tensor_cores"), (torch.float32, 128, 64, "cuda_cores"),
+                  (torch.float32, 40, 40, "cuda_cores"), (torch.float32, 256, 256, "cuda_cores")])
 
 
 @pytest.mark.parametrize("dtype,d,dv,route", ROUTE_CASES,
@@ -297,23 +300,37 @@ def test_flash_plan_splits_cover_the_keys_once(bh, sq, sk, d):
 def test_flash_plan_at_zamba2_shapes():
     """Zamba2's shared block, 32 heads of 80: a tail token (Sq = 1) is
     split over the keys and fills one wave; a 256-token chunk is not
-    split, 128 blocks of 64 rows; f32 stays on the CUDA cores."""
+    split, 128 blocks of 64 rows; f32 takes the same plan."""
     route, q_tile, splits = flash_plan(32, 1, 1024, 80, 80, torch.bfloat16, SMS)
     assert (route, q_tile) == ("split_kv", 16) and splits > 1 and SMS - 32 < 32 * splits <= SMS
     assert flash_plan(32, 256, 1024, 80, 80, torch.bfloat16, SMS) == ("tensor_cores", 64, 1)
     for sq in (1, 256):
-        assert flash_plan(32, sq, 1024, 80, 80, torch.float32, SMS)[0] == "cuda_cores"
+        assert flash_plan(32, sq, 1024, 80, 80, torch.float32, SMS) == flash_plan(32, sq, 1024, 80, 80,
+                                                                                  torch.bfloat16, SMS)
+
+
+@pytest.mark.parametrize("dtype,d,dv", [(torch.bfloat16, 128, 64), (torch.float16, 80, 80), (torch.bfloat16, 40, 40),
+                                        (torch.bfloat16, 256, 256), (torch.float32, 128, 64), (torch.float32, 40, 40)])
+@pytest.mark.parametrize("sq", [1, 16, 256])
+def test_flash_plan_keeps_other_dtypes_and_head_dims_on_the_cuda_cores(dtype, d, dv, sq):
+    """fp16, D not a multiple of 16, D above 128 but for (192, 128), and
+    the pairs with Dv != D other than (48, 32) and (192, 128) take the
+    CUDA-core kernel at every Sq, unsplit."""
+    assert flash_plan(32, sq, 1024, d, dv, dtype, SMS) == ("cuda_cores", 64, 1)
 
 
 @pytest.mark.parametrize("dtype,d,dv", [(torch.bfloat16, 32, 32), (torch.bfloat16, 48, 48), (torch.float32, 80, 80),
-                                        (torch.float32, 128, 128), (torch.bfloat16, 128, 64),
-                                        (torch.float32, 192, 128), (torch.float16, 80, 80)])
+                                        (torch.float32, 128, 128), (torch.float32, 192, 128),
+                                        (torch.bfloat16, 48, 32), (torch.float32, 32, 32), (torch.float32, 48, 32)])
 @pytest.mark.parametrize("sq", [1, 16, 256])
-def test_flash_plan_keeps_other_dtypes_and_head_dims_on_the_cuda_cores(dtype, d, dv, sq):
-    """The reduced models' head dim 32, D = 48, f32 and the pairs with Dv
-    != D other than (192, 128) take the CUDA-core kernel at every Sq,
-    unsplit."""
-    assert flash_plan(32, sq, 1024, d, dv, dtype, SMS) == ("cuda_cores", 64, 1)
+def test_flash_plan_takes_f32_and_the_reduced_head_dims_to_the_tensor_cores(dtype, d, dv, sq):
+    """The reduced models' head dims (D = 32, 48 and the MLA pair (48, 32))
+    in bf16 and f32, and f32 at every tensor-core pair, which took the
+    CUDA-core kernel before: split_kv at Sq <= SPLIT_MAX_SQ, the unsplit
+    64-row tiles above, the same plan as bf16."""
+    want = ("tensor_cores", 64, 1) if sq > SPLIT_MAX_SQ else ("split_kv", 16, split_count(32, sq, 1024, SMS))
+    assert flash_plan(32, sq, 1024, d, dv, dtype, SMS) == want
+    assert flash_plan(32, sq, 1024, d, dv, torch.bfloat16, SMS) == want
 
 
 @pytest.mark.parametrize("bh,sq,sk", FLASH_SHAPES)

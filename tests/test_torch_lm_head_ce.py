@@ -8,7 +8,10 @@ vocab padding (``vocab_size`` < Vp, with whole padding-only chunks), labels
 at -100, a ``mask``, and x in bf16 against an f32 head (the training
 dtypes).  Tolerance: f32 1e-5 of max(1, max|reference|) — both sides form
 the same f32 products (a bf16 x widens exactly) and differ only in the
-order of the sums.
+order of the sums.  The card's f32 x f32 route sums six exact bf16 part
+products of each element product; its arithmetic in plain torch
+(``_bf16_parts.split_matmul``, ``_torch_parity.lm_head_ce_parts_plain``) is
+held to the same tolerance.
 """
 
 import numpy as np
@@ -18,9 +21,10 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from _torch_parity import TOL, assert_close
+from _torch_parity import TOL, assert_close, lm_head_ce_parts_plain
 from repro import api as ref_api
 from repro.kernels import lm_head_ce as ref_ce
+from repro_torch.kernels import _bf16_parts as bp
 from repro_torch.kernels import _build
 from repro_torch.kernels import lm_head_ce as ce
 
@@ -211,3 +215,51 @@ def test_split_product_of_bf16_x_matches_the_f32_product(parts):
         got = got + x.float() @ part.float()
     assert_close(got, want.float(), F32)
     assert_close(x.float() @ w, want.float(), F32)
+
+
+def test_f32_split_products_match_pallas_kernel():
+    """f32 x against the f32 head as the card takes it (both split into
+    three bf16 parts, the six part products i + j <= 2 of each element
+    product): logz and the label logit against the reference's
+    interpret-mode kernel, at the ragged T and the padded vocab above."""
+    x, w, labels, _ = _inputs("float32", seed=4)
+    want_z, want_l = ref_ce.lm_head_ce_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(labels),
+                                              vocab_size=VOCAB, interpret=ref_api.default_interpret())
+    got_z, got_l = lm_head_ce_parts_plain(_t(x), _t(w), _t(labels), VOCAB, products=ce.F32_PRODUCTS)
+    assert_close(got_z, want_z, F32)
+    assert_close(got_l, want_l, F32)
+    assert (got_l[torch.from_numpy(labels == ce.IGNORE_INDEX)] == 0).all()
+
+
+@pytest.mark.parametrize("products", [1, 3, 6])
+def test_split_product_of_f32_x_matches_the_f32_product(products):
+    """At the training width D = 4096, f32 x against the f32 head as the
+    kernel sums them (both split into bf16 parts, each part product exact
+    in f32, the products smallest first from zero over each 32-deep step,
+    added to an f32 total), against the float64 product: the six products
+    i + j <= 2 are within TOL["float32"] of max(1, max|x @ w|), as close as
+    the f32 product itself; three (i + j <= 1) and one miss it.  (Five,
+    without x_hi w_lo, land at 0.92 of TOL here: no margin.)"""
+    r = np.random.default_rng(11)
+    d, v = 4096, 256
+    x = torch.from_numpy(r.normal(size=(64, d)).astype(np.float32))
+    w = torch.from_numpy((r.normal(size=(d, v)) / np.sqrt(d)).astype(np.float32))
+    want = (x.double() @ w.double()).float()
+    got = bp.split_matmul(x, w, products, step=ce.BLOCK_K_F32)
+    if products == ce.F32_PRODUCTS:
+        assert_close(got, want, F32)
+        assert (got - want).abs().max() <= 4 * (x @ w - want).abs().max()
+    else:
+        with pytest.raises(AssertionError, match="max.err"):
+            assert_close(got, want, F32)
+
+
+def test_part_products_are_the_largest_smallest_first():
+    """The kernels' order: a_i b_j is about 2^-8(i + j) of a b; the first n
+    by size, summed smallest first, hi x hi last."""
+    assert bp.part_products(6) == ((0, 2), (1, 1), (2, 0), (0, 1), (1, 0), (0, 0))
+    assert bp.part_products(3) == ((0, 1), (1, 0), (0, 0))
+    assert bp.part_products(1) == ((0, 0),)
+    assert all(i + j <= 2 for i, j in bp.part_products(ce.F32_PRODUCTS))
+    with pytest.raises(ValueError, match="part products"):
+        bp.part_products(7)
