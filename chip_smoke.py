@@ -172,7 +172,25 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    kernel and bound by six bf16 part products; both quantized routes at the quantized families'
    projections, with their launches per forward; lm_head_ce with bf16 and f32 x at the training
    heads of 6b-6e, the tied head with its contiguous copy of ``embed.t()``,
-   timed on its own too).
+   timed on its own too);
+8. the reliability layer at full width, run where its weights are: 8a and
+   8b inside phase 5 on its llama3-8b weights, 8c after 6e.  8a:
+   ``api.matmul(..., verify=True)`` at layer 0's shapes, M = 4 and 256 (wq
+   on ``dip`` and ``systolic``, the probe; gate+up under swiglu, the
+   storage rung; wq quantized on ``dip_int8w`` and ``dip_fp8``): outputs
+   bit for bit the unverified calls', clean audits, a flipped storage bit
+   flagged, the audit's device ms beside the dispatch's.  8b: the verified
+   engine at phase 5's settings: phase 5's prompts give its first 8 tokens
+   with a ``ttl_s=0`` request swept and the decode graph's launches
+   unchanged; a NaN in a victim's first K block gives one fault and one
+   retry with the peer's tokens unchanged; ``max_retries=0`` degrades the
+   victim to the captured ``torch``-backend decode step (replayed against
+   its eager step and timed); the int8 weights + int8 KV engine's drill
+   poisons ``k_scale``.  8c: llama3-8b cut to 4 layers through a guarded
+   ``Trainer``, its losses and norms phase 6's bit for bit, the
+   fingerprint's device ms; mamba2-370m at full depth with a NaN planted at
+   data step 3: one weight fault, a skipped step, one recovery, finite
+   parameters at the step count.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -368,12 +386,16 @@ def copy_tree(dst, src):
 
 
 def trees_equal(a, b):
-    """Whether two cache trees hold the same values bit for bit."""
+    """Whether two cache trees hold the same values bit for bit (a NaN
+    equals the same NaN: the rows of a block poisoned by a fault drill)."""
     import torch
 
     if isinstance(a, dict):
         return set(a) == set(b) and all(trees_equal(a[k], b[k]) for k in a)
-    return torch.equal(a, b) if hasattr(a, "shape") else a == b
+    if not hasattr(a, "shape"):
+        return a == b
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8), b.contiguous().reshape(-1).view(torch.uint8))
 
 
 def keep_last(store, kind, a):
@@ -523,6 +545,8 @@ def main():
     from repro_torch.models import transformer as tf_model
     from repro_torch.optim import AdamW, cosine_schedule
     from repro_torch.runtime import Request, Server, ServerConfig, Trainer, TrainerConfig
+    from repro_torch import reliability as rel
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
     import numpy as np
     import torch.nn.functional as F
 
@@ -603,7 +627,7 @@ def main():
         return {"device_ms": device_ms, "wall_ms": wall_ms, "launches": launches, "host_ms": host_ms,
                 "flash_ms": sum(v[1] for key, v in by_kernel.items() if "flash_" in key), "by_kernel": by_kernel}
 
-    def graph_check(what, captured, eager, held, vocab):
+    def graph_check(what, captured, eager, held, vocab, counted=True):
         """A replay of the engine's captured step against the uncaptured
         step function, both from the cache as the call in ``held`` found it
         (``keep_last``) with its inputs: the logits of the rows the engine
@@ -615,7 +639,9 @@ def main():
         what every replay launches) against the counters' increase over one
         replay, exactly; the profiled replay's trace gives the device time,
         and its kernels by name are printed beside them.  No launch made
-        here counts on the path."""
+        here counts on the path.  ``counted=False``: a step that launches none
+        of the counted kernels (the degraded ``torch`` decode step), whose
+        graph must hold none either."""
         a, snap = held
         params, cache, inputs = a[0], a[1], a[2:]
         dev_in = tuple(t.to(dev) for t in inputs)
@@ -690,7 +716,7 @@ def main():
             f"profiled replay's trace {by_trace} ({trace_short} fewer than the graph's)")
         if not (bit_equal and tokens_equal and caches_equal):
             raise AssertionError(f"{what}: the replay differs from the eager step on the same inputs")
-        if by_graph != by_counter or not any(by_graph.values()):
+        if by_graph != by_counter or any(by_graph.values()) != counted:
             raise AssertionError(f"{what}: the captured graph's kernels differ from the counters' increase")
         return out
 
@@ -1798,6 +1824,286 @@ def main():
             f"sides; card launches {card[2]}")
         del qcpu, card, cpu
 
+    # --------------------------------------- 8. reliability at full width ---
+    # Run where the weights are: 8a and 8b on phase 5's llama3-8b weights
+    # before they are freed, 8c after phase 6e (the weights phases 6 and 6d
+    # draw from the seed).  The audits and the comparisons count no launch;
+    # the serving and training drills are paths of their own.
+    def verified_dispatch(params):
+        """Phase 8a: ``api.matmul(..., verify=True)`` at llama3-8b's layer-0
+        shapes, M = 4 and 256, bf16 x: ``wq`` on ``dip`` and ``systolic``
+        (the probe), gate+up under ``swiglu`` on ``dip`` (the storage rung),
+        ``wq`` quantized on ``dip_int8w`` and ``dip_fp8`` (the probe with the
+        exact storage compare folded in).  Each clean call reports ok, and
+        its output equals the unverified call bit for bit; a seeded flip in
+        the storage (bit 14 of a bf16 element, bit 6 of an int8 or e4m3
+        code, the checksum left as it was) is flagged.  The audit's and the
+        dispatch's device ms (phase 7's timer) are printed side by side."""
+        flush8 = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+        lay = params["layers"]
+
+        def stamped(w):
+            return rel.attach_checksums(w.with_data(w.data[0]))
+
+        wq = stamped(lay["wq"])
+        pair = (stamped(lay["w_gate"]), stamped(lay["w_up"]))
+        quant = {s: rel.attach_checksums(api.quant.quantize(wq, s)) for s in ("int8", "fp8_e4m3")}
+        cases = (("wq", "dip", wq, "none", "probe"), ("wq", "systolic", wq, "none", "probe"),
+                 ("gate+up", "dip", pair, "swiglu", "storage"),
+                 ("wq", "dip_int8w", quant["int8"], "none", "probe"),
+                 ("wq", "dip_fp8", quant["fp8_e4m3"], "none", "probe"))
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        rows = []
+        with uncounted():
+            for m in (4, 256):
+                x = torch.randn(m, 4096, generator=g, device=dev).to(torch.bfloat16)
+                for what, backend, w, epi, mode in cases:
+                    plain = api.matmul(x, w, backend=backend, epilogue=epi)
+                    out, rep = api.matmul(x, w, backend=backend, epilogue=epi, verify=True)
+                    weights = w if isinstance(w, tuple) else (w,)
+                    w0 = weights[0]
+                    bad = rel.bitflip(w0.data, seed=SEED, bit=14 if w0.data.dtype == torch.bfloat16 else 6)
+                    flipped = (w0.with_data(bad, w0.scale, checksum=w0.checksum)
+                               if isinstance(w0, api.QuantizedDipWeight) else w0.with_data(bad, checksum=w0.checksum))
+                    fw = (flipped,) + weights[1:] if isinstance(w, tuple) else flipped
+                    frep = api.matmul(x, fw, backend=backend, epilogue=epi, verify=True)[1]
+                    row = {"shape": f"M={m} {what}", "backend": backend, "mode": rep["mode"],
+                           "bit_equal": torch.equal(out, plain), "ok": bool(rep["ok"]),
+                           "max_excess": float(rep["max_excess"]), "flip_flagged": not bool(frep["ok"]),
+                           "flip_rows_flagged": int(frep["rows_flagged"]),
+                           "dispatch_ms": device_ms(lambda: api.matmul(x, w, backend=backend, epilogue=epi), flush8),
+                           "audit_ms": device_ms(lambda: rel.verify_matmul(x, weights, out, epilogue=epi), flush8)}
+                    log(f"  8a {json.dumps(row)} ({gpu})")
+                    rows.append(row)
+                    if not (row["bit_equal"] and row["ok"] and row["mode"] == mode and row["flip_flagged"]):
+                        raise AssertionError(f"phase 8a: {what} on {backend} at M={m}: {row}")
+                    del plain, out, rep, frep, bad, flipped, fw
+        del flush8, wq, pair, quant
+        return rows
+
+    def drill_counts():
+        """Each kernel's launches since the counts were set to 0, and the
+        int8 route's quantizing passes."""
+        return dict(read_counts(), quantize_pass=dip_matmul_q.launches_quant)
+
+    def drill_engine(ecfg_kw, c, p):
+        return Engine(c, p, engine_cfg=EngineConfig(**dict(dict(slots=4, max_seq=1024, prefill_chunk=256,
+                                                                  verify=True), **ecfg_kw)), device="cuda")
+
+    def kv_fault_drill(what, c, p, prompts, max_retries, degraded_held=None):
+        """Two requests of 8 greedy tokens; once both decode (and two more
+        ticks), the victim's first KV block is poisoned with NaN in place
+        (``corrupt_kv_block``: ``k``, or ``k_scale`` under the int8 pool)
+        and the engine runs to the end.  ``degraded_held``: a dict that
+        keeps the degraded step's last call for ``graph_check``."""
+        eng = drill_engine(dict(max_retries=max_retries), c, p)
+        r0, r1 = [eng.add_request(q, SamplingParams(max_new_tokens=8)) for q in prompts]
+        if degraded_held is not None:
+            get = eng._get_decode_xla
+
+            def recording():
+                step = get()
+
+                def run(*a):
+                    keep_last(degraded_held, "_decode_xla", a)
+                    return step(*a)
+                return run
+            eng._get_decode_xla = recording
+        reset_counts()
+        t0 = time.perf_counter()
+        while sum(r is not None and r.state == "running" for r in eng._slots) < 2:
+            eng.step()
+        for _ in range(2):
+            eng.step()
+        victim = next(r for r in eng._slots if r is not None and r.rid == r0)
+        pool = rel.corrupt_kv_block(eng.kv, eng.kv.owned[victim.slot][0], mode="nan")
+        got = eng.run()
+        torch.cuda.synchronize()
+        out = {"pool": pool, "wall_s": time.perf_counter() - t0, "launches": drill_counts(),
+               "stats": {k: eng.last_stats[k] for k in ("faults_detected", "retries", "deadline_evictions",
+                                                        "degraded_requests", "decode_steps", "prefill_chunks")},
+               "victim": {k: eng.request_stats[r0][k] for k in ("retries", "degraded", "fault_failed",
+                                                                "new_tokens")},
+               "peer_tokens": got[r1], "victim_tokens": got[r0]}
+        log(f"  8b {what}: {json.dumps({k: v for k, v in out.items() if 'tokens' not in k})} ({gpu})")
+        if len(got[r0]) != 8 or len(got[r1]) != 8:
+            raise AssertionError(f"phase 8b {what}: a request did not complete: {got}")
+        return eng, out
+
+    def reliability_serving(params, cfg, reqs, want, decode_step):
+        """Phase 8b: the verified engine at phase 5's settings (4 slots,
+        max_seq 1024, chunk 256) on its weights, greedy, 8 new tokens.
+        (1) No fault: phase 5's 4 prompts and, behind the full slot pool, a
+        request with ``ttl_s=0``: the 4 give phase 5's first 8 tokens, the
+        fifth is swept, and the decode graph's counted launches are phase
+        5's.  (2) A NaN in the victim's first K block mid-decode: one fault,
+        one retry, the victim completes, the peer's tokens are the clean
+        run's.  (3) ``max_retries=0``: the victim completes degraded through
+        the captured ``torch``-backend decode step (built on that fault, in
+        the engine's graph pool, launching none of the counted kernels),
+        whose replay is held to its eager step and timed (``graph_check``).
+        (4) The int8 weights + int8 KV pool (phase 5's weights quantized, as
+        5b serves them): a clean run, then the drill of (2) with ``k_scale``
+        poisoned."""
+        out, path = {}, {}
+
+        def add(launches):
+            for k, n in launches.items():
+                path[k] = path.get(k, 0) + n
+
+        eng = drill_engine({}, cfg, params)
+        rids = [eng.add_request(r.prompt, SamplingParams(max_new_tokens=8), rid=r.rid) for r in reqs]
+        late = eng.add_request(reqs[0].prompt, SamplingParams(max_new_tokens=8), ttl_s=0.0)
+        reset_counts()
+        got = eng.run()
+        add(drill_counts())
+        key = ((4, 1), (4,), (4, eng.kv.blocks_per_seq))
+        same_launches = eng._decode.captures[key]["launches"] == decode_step.captures[key]["launches"]
+        # what verify adds to a decode tick: the host screen of the rows it copies anyway
+        rows = np.random.default_rng(SEED).standard_normal((4, cfg.padded_vocab)).astype(np.float32)
+        screen = []
+        for _ in range(50):
+            t = time.perf_counter()
+            [bool(np.isfinite(rows[i]).all()) for i in range(4)]
+            screen.append(time.perf_counter() - t)
+        out["clean"] = {"tokens_equal_phase5": all(got[r] == want[r][:8] for r in rids), "swept": got[late] == [],
+                        "screen_host_ms": 1e3 * statistics.median(screen),
+                        "stats": {k: eng.last_stats[k] for k in ("faults_detected", "deadline_evictions",
+                                                                 "decode_steps")},
+                        "decode_graph_launches": eng._decode.captures[key]["launches"],
+                        "decode_graph_launches_equal_phase5": same_launches}
+        log(f"  8b clean, verify=True: {json.dumps(out['clean'])}")
+        if not (out["clean"]["tokens_equal_phase5"] and out["clean"]["swept"] and same_launches
+                and eng.last_stats["faults_detected"] == 0 and eng.last_stats["deadline_evictions"] == 1
+                and eng._decode_xla is None):
+            raise AssertionError(f"phase 8b: the clean verified run: {out['clean']}")
+        del eng
+        torch.cuda.empty_cache()
+
+        pair = [reqs[0].prompt, reqs[1].prompt]
+        eng, out["retry"] = kv_fault_drill("retry, bf16", cfg, params, pair, 1)
+        add(out["retry"]["launches"])
+        st = out["retry"]["stats"]
+        if (out["retry"]["pool"], st["faults_detected"], st["retries"], eng._decode_xla) != ("k", 1, 1, None) or \
+                out["retry"]["peer_tokens"] != want[reqs[1].rid][:8]:
+            raise AssertionError(f"phase 8b: the retry drill: {out['retry']}")
+        del eng
+        torch.cuda.empty_cache()
+
+        held8 = {}
+        eng, out["degrade"] = kv_fault_drill("degrade, bf16", cfg, params, pair, 0, degraded_held=held8)
+        add(out["degrade"]["launches"])
+        st, v = out["degrade"]["stats"], out["degrade"]["victim"]
+        xla = eng._decode_xla
+        if not (st["degraded_requests"] == 1 and v["degraded"] and not v["fault_failed"]
+                and isinstance(xla, graphs.CapturedStep) and xla.pool is eng._decode.pool
+                and not xla.captures[key]["launches"]):
+            raise AssertionError(f"phase 8b: the degrade drill: {out['degrade']}")
+        out["degrade"]["peer_tokens_equal_clean"] = out["degrade"]["peer_tokens"] == want[reqs[1].rid][:8]
+        out["degrade"]["graph"] = graph_check(
+            "degraded decode step (torch backend)", xla,
+            tf_model.paged_decode_step_fn(dataclasses.replace(eng.cfg, matmul_backend="torch")),
+            held8["_decode_xla"], cfg.vocab_size, counted=False)
+        del eng, xla, held8
+        torch.cuda.empty_cache()
+
+        qcfg = dataclasses.replace(cfg, quantization="int8", matmul_backend="dip_int8w", kv_quant="int8")
+        qparams = tf_model.quantize_params(params, "int8")
+        eng = drill_engine({}, qcfg, qparams)
+        rq = [eng.add_request(q, SamplingParams(max_new_tokens=8)) for q in pair]
+        reset_counts()
+        clean_q = eng.run()
+        add(drill_counts())
+        del eng
+        eng, out["retry_int8"] = kv_fault_drill("retry, int8 weights + int8 KV", qcfg, qparams, pair, 1)
+        add(out["retry_int8"]["launches"])
+        st = out["retry_int8"]["stats"]
+        out["retry_int8"]["peer_tokens_equal_clean"] = out["retry_int8"]["peer_tokens"] == clean_q[rq[1]]
+        if (out["retry_int8"]["pool"], st["faults_detected"], st["retries"]) != ("k_scale", 1, 1) or \
+                not out["retry_int8"]["peer_tokens_equal_clean"]:
+            raise AssertionError(f"phase 8b: the int8 drill: {out['retry_int8']}")
+        del eng, qparams
+        torch.cuda.empty_cache()
+        for k in ("dip_matmul", "flash_attention", "dip_matmul_q", "quantize_pass"):
+            if not path.get(k):
+                raise AssertionError(f"phase 8b: the reliability serving path launched no {k}: {path}")
+        out["launches"] = path
+        return out
+
+    def reliability_training(losses, grad_norms):
+        """Phase 8c: llama3-8b at full width cut to 4 layers through a
+        guarded ``Trainer`` with phase 6's launcher settings (the weights
+        from the seed, 4 steps, no checkpoint): no fault, and its losses and
+        gradient norms equal phase 6's unguarded run bit for bit; the
+        fingerprint's device ms a pass (two a step).  Then mamba2-370m at
+        full depth (phase 6d's configuration), guarded, ``ckpt_every=2``, a
+        NaN planted in the first ``layers`` leaf through ``step_hook`` before
+        step 4 (data step 3): one weight fault, at least one skipped step,
+        one recovery from the step-2 checkpoint, and the run reaches its
+        step count with finite parameters."""
+        out, path = {}, {}
+        ck = os.path.join(ckpt_root, "guarded")
+        c = dataclasses.replace(arch, n_layers=4, matmul_backend="dip")
+        tr = Trainer(c, TrainerConfig(steps=t_steps, ckpt_every=100, ckpt_dir=ck, log_every=1, guard=True),
+                     optimizer=AdamW(lr=cosine_schedule(t_lr, 10, t_steps)), seq_len=t_seq, global_batch=t_batch,
+                     device="cuda")
+        reset_counts()
+        run = tr.run(seed=SEED)
+        path["llama3-8b"] = read_counts()
+        ms = run["metrics"]
+        flush8 = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+        fp_ms = device_ms(lambda: rel.fingerprint(run["state"]["params"]), flush8, iters=5, warmup=1)
+        out["llama3-8b"] = {"losses": [m["loss"] for m in ms], "grad_norms": [m["grad_norm"] for m in ms],
+                            "step_s": [m["step_time_s"] for m in ms], "skipped": run["skipped"],
+                            "weight_faults": run["weight_faults"], "fingerprint_ms": fp_ms,
+                            "leaves": len(rel.fingerprint_paths(run["state"]["params"])),
+                            "equal_phase6": [m["loss"] for m in ms] == losses
+                            and [m["grad_norm"] for m in ms] == grad_norms}
+        log(f"  8c llama3-8b, 4 layers, guarded: {json.dumps(out['llama3-8b'])}; phase 6 unguarded: losses "
+            f"{losses}, gradient norms {grad_norms} ({gpu})")
+        if not out["llama3-8b"]["equal_phase6"] or run["skipped"] or run["weight_faults"]:
+            raise AssertionError(f"phase 8c: the guarded llama3-8b run differs from phase 6's: {out['llama3-8b']}")
+        del tr, run, ms
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        hit = {}
+
+        def hook(step_no, state):
+            if step_no == 3:
+                params, hit["path"] = rel.corrupt_pytree(state["params"], "layers", seed=SEED, mode="nan")
+                state = dict(state, params=params)
+            return state
+
+        cm = dataclasses.replace(get_config("mamba2-370m"), matmul_backend="dip")
+        tr = Trainer(cm, TrainerConfig(steps=t_steps, ckpt_every=2, ckpt_dir=os.path.join(ck, "mamba2"), keep=5,
+                                       log_every=1, guard=True, async_ckpt=False),
+                     optimizer=AdamW(lr=cosine_schedule(t_lr, 10, t_steps)), seq_len=t_seq, global_batch=t_batch,
+                     step_hook=hook, device="cuda")
+        reset_counts()
+        t0 = time.perf_counter()
+        run = tr.run(seed=SEED)
+        wall = time.perf_counter() - t0
+        path["mamba2-370m"] = read_counts()
+        finite = all(bool(torch.isfinite(t).all()) for t in tree.leaves(run["state"]["params"]))
+        out["mamba2-370m"] = {"hit": hit.get("path"), "weight_faults": run["weight_faults"],
+                              "skipped": run["skipped"], "recoveries": run["recoveries"],
+                              "final_step": run["state"]["step"], "steps_run": len(run["metrics"]),
+                              "losses": [m["loss"] for m in run["metrics"]], "params_finite": finite, "wall_s": wall}
+        log(f"  8c mamba2-370m, guarded, NaN at data step 3: {json.dumps(out['mamba2-370m'])} ({gpu})")
+        if not (run["weight_faults"] == 1 and run["skipped"] >= 1 and run["recoveries"] == 1
+                and run["state"]["step"] == t_steps and finite):
+            raise AssertionError(f"phase 8c: the mamba2-370m drill: {out['mamba2-370m']}")
+        del tr, run, flush8
+        shutil.rmtree(ck, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, n in path.items():
+            if not (n.get("dip_matmul") and n.get("lm_head_ce")):
+                raise AssertionError(f"phase 8c: the guarded {name} run launched no dip_matmul or lm_head_ce: {n}")
+        out["launches"] = path
+        return out
+
     # ------------------------------------------- 5. full-width serving -----
     log("phase 5: llama3-8b full width, bf16, dip storage, through Server")
     cfg = dataclasses.replace(get_config("llama3-8b"), matmul_backend="dip",
@@ -1892,6 +2198,11 @@ def main():
                                tf_model.decode_step_fn(ecfg, attn_backend="flash"), held["_prefill_fwd"],
                                cfg.vocab_size)}
     log("  graphs " + json.dumps(serving["graphs"]))
+    log("phase 8a: verified dispatch at llama3-8b's shapes (phase 5's weights, layer 0)")
+    reliability_out = {"dispatch": verified_dispatch(params)}
+    log("phase 8b: the verified engine at full width, phase 5's settings and weights: the retry -> degrade ladder, "
+        "a request TTL, int8 weights + int8 KV")
+    reliability_out["serving"] = reliability_serving(params, cfg, reqs, results, last_args["_decode_fn"])
     del server, eng, params, last_args, held
     gc.collect()
     torch.cuda.empty_cache()
@@ -3076,6 +3387,9 @@ def main():
         log(f"phase {phase}: {arch_name} full width ({what}; f32 params, bf16 compute, dip, block remat) "
             f"through launch.train")
         family_training[arch_name], family_launches[arch_name] = train_family(phase, arch_name, layers)
+    log("phase 8c: guarded training: llama3-8b cut to 4 layers without a fault against phase 6, then mamba2-370m "
+        "(48 layers) with a NaN planted mid-run")
+    reliability_out["training"] = reliability_training(training["losses"], training["grad_norms"])
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
     # --------------------------------------------------------- 7. times -----
@@ -3648,11 +3962,15 @@ def main():
     paths["serve_fp8_f32_reduced"] = fp8_f32_path  # phase 3: fp8 weights in f32 compute, the cast pass each call
     routes_by_path["serve_fp8_f32_reduced"] = fp8_f32_routes  # its flash launches: the reduced head dim 32
     paths["deepseek_whole_prompt"] = ds_serving["whole_prompt_forward"]["launches"]
+    paths["serve_reliability"] = reliability_out["serving"]["launches"]  # phase 8b, every drill's engine
+    for nm, n in reliability_out["training"]["launches"].items():  # phase 8c
+        paths[f"train_guarded_{nm.split('-')[0]}"] = n
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
     for pth, served in (("serve_deepseek_int8", dsq_serving), ("serve_zamba2_int8", zbq_serving),
                         ("serve_mamba2_int8", mbq_serving)):
         paths[pth]["quantize_pass"] = served["dip_matmul_q_quantizing_passes"]
-    int8_paths = ("serve_int8", "serve_deepseek_int8", "serve_zamba2_int8", "serve_mamba2_int8")
+    int8_paths = ("serve_int8", "serve_deepseek_int8", "serve_zamba2_int8", "serve_mamba2_int8",
+                  "serve_reliability")  # phase 8b's int8 + int8 KV drill
     counter_of = {"dip_matmul_q_int8": "dip_matmul_q", "dip_matmul_q_fp8": "dip_matmul_q"}
     path_of = {"dip_matmul_q_int8": int8_paths, "dip_matmul_q_fp8": ("serve_fp8", "serve_fp8_f32_reduced"),
                "quantize_pass": int8_paths, "cast_pass": ("serve_fp8_f32_reduced",)}

@@ -24,9 +24,9 @@ the same rows quantized on the CPU.  fp8 codes are the dtype cast itself:
 the scale maps amax onto 448, the format's largest normal, so no value
 leaves the range (where ``ml_dtypes`` would give NaN and torch saturates).
 
-The reference's ``plan`` (sharding, ROADMAP.md Queue 1 "Distributed") and
-``checksum`` (ABFT, Queue 1 "Reliability") fields are not ported; passing
-either raises.
+``checksum`` is the optional ABFT child, as on ``DipWeight``.  The
+reference's ``plan`` (sharding, ROADMAP.md Queue 1 "Distributed") is not
+ported; passing one raises.
 """
 
 from __future__ import annotations
@@ -87,27 +87,26 @@ def scheme_info(scheme: str) -> QuantScheme:
         raise ValueError(f"unknown quantization scheme {scheme!r}; supported: {sorted(SCHEMES)}") from None
 
 
-def _not_ported(plan, checksum) -> None:
+def _not_ported(plan) -> None:
     if plan is not None:
         raise NotImplementedError('weight plans are not ported yet (ROADMAP.md Queue 1 "Distributed")')
-    if checksum is not None:
-        raise NotImplementedError('ABFT checksums are not ported yet (ROADMAP.md Queue 1 "Reliability")')
 
 
 class QuantizedDipWeight:
     """Quantized permutated storage plus per-output-channel scales."""
 
-    __slots__ = ("data", "scale", "d_in", "d_out", "perm_tile", "scheme")
+    __slots__ = ("data", "scale", "d_in", "d_out", "perm_tile", "scheme", "checksum")
 
     def __init__(self, data: torch.Tensor, scale: torch.Tensor, d_in: int, d_out: int,
                  perm_tile: int = PERM_TILE, scheme: str = "int8", plan=None, checksum=None):
-        _not_ported(plan, checksum)
+        _not_ported(plan)
         self.data = data
         self.scale = scale
         self.d_in = int(d_in)
         self.d_out = int(d_out)
         self.perm_tile = int(perm_tile)
         self.scheme = str(scheme)
+        self.checksum = checksum
 
     @property
     def dtype(self) -> torch.dtype:
@@ -140,8 +139,14 @@ class QuantizedDipWeight:
         return self.dequantize(dtype).to_natural()
 
     def with_data(self, data: torch.Tensor, scale: torch.Tensor, checksum=None) -> "QuantizedDipWeight":
-        """Same metadata, different payloads (a layer slice, a device copy)."""
+        """Same metadata, different payloads (a layer slice, a device copy).
+        The checksum does not carry over unless passed as ``checksum=``."""
         return QuantizedDipWeight(data, scale, self.d_in, self.d_out, self.perm_tile, self.scheme,
+                                  checksum=checksum)
+
+    def with_checksum(self, checksum) -> "QuantizedDipWeight":
+        """Same payloads, with an ABFT checksum attached."""
+        return QuantizedDipWeight(self.data, self.scale, self.d_in, self.d_out, self.perm_tile, self.scheme,
                                   checksum=checksum)
 
     def __repr__(self) -> str:

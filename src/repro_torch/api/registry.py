@@ -57,15 +57,22 @@ dequantized, de-sheared weight ``unpermute_tiled(q) * scale``, giving the x,
 gain and bias/residual cotangents; the storage and its scales are frozen
 calibration artifacts and take none (the reference's float0 and zeros).
 
-Not ported yet: sharded plans (ROADMAP.md Queue 1 "Distributed"), ABFT verification
-(Queue 1 "Reliability") and the block-size tuning table (Queue 1 "Tooling";
-the kernel's tile is fixed at 64).
+Verification (port of the reference's ``verify=``): ``matmul(...,
+verify=True | "auto" | "probe" | "storage")`` runs the same dispatch, so its
+output is bit-identical to the unverified call's, then audits it with
+``reliability.abft.verify_matmul`` against the weight's checksum, and
+returns ``(out, report)``.  Every built-in backend computes an exact
+product, so each declares ``abft=True``.
+
+Not ported yet: sharded plans (ROADMAP.md Queue 1 "Distributed") and the
+block-size tuning table (Queue 1 "Tooling"; the kernel's tile is fixed at
+64).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -120,6 +127,8 @@ class MatmulBackend:
     prologues: FrozenSet[str] = frozenset({"none"})
     description: str = ""
     scheme: Optional[str] = None
+    # computes an exact product, so the row-sum probe of ``verify=`` holds
+    abft: bool = True
 
 
 def _torch_fn(x, wn):
@@ -383,7 +392,8 @@ def matmul(
     prologue: Optional[str] = None,
     prologue_operands: Sequence[torch.Tensor] = (),
     prologue_eps: float = prologue_lib.DEFAULT_EPS,
-) -> torch.Tensor:
+    verify: Union[bool, str] = False,
+):
     """``epilogue(prologue(x) @ w)`` through a registered backend.
 
     ``x``: (..., d_in); ``w``: a natural (d_in, d_out) tensor, a
@@ -393,6 +403,14 @@ def matmul(
     dequantized at x's dtype.  ``bias``/``bias_gelu``/``bias_silu`` take
     ``epilogue_operands=(b,)``, ``residual`` takes ``(r,)`` of the output's
     shape and x's dtype; ``rmsnorm`` takes ``prologue_operands=(g,)``.
+
+    ``verify`` (default off) adds the ABFT audit (``reliability.abft``):
+    ``True`` / ``"auto"`` picks the strongest valid mode, ``"probe"``
+    demands the row-sum audit and raises where it does not hold (a
+    nonlinear epilogue, a fused prologue, two weights, an ``abft=False``
+    backend), ``"storage"`` pins the weight-integrity rung.  Then the call
+    returns ``(out, report)``, ``out`` bit-identical to the unverified
+    call's.
     """
     epilogue = epilogue or "none"
     prologue = prologue or "none"
@@ -415,6 +433,17 @@ def matmul(
     if backend is None and isinstance(weights[0], QuantizedDipWeight):
         backend = weights[0].default_backend
     be = get_backend(backend)
+
+    if verify:
+        # the ordinary dispatch, then the audit outside it (reliability sits
+        # above the api layer: imported here)
+        from repro_torch.reliability import abft
+
+        out = matmul(x, w, backend=be.name, epilogue=epilogue, epilogue_operands=operands, prologue=prologue,
+                     prologue_operands=pro_operands, prologue_eps=prologue_eps)
+        report = abft.verify_matmul(x, weights, out, epilogue=epilogue, operands=operands, prologue=prologue,
+                                    backend_abft=be.abft, mode=verify if isinstance(verify, str) else "auto")
+        return out, report
 
     if prologue != "none":
         _check_prologue_inputs(weights, prologue, pro_operands)

@@ -4,9 +4,11 @@
 ``data`` holds the storage, (..., Kp, Np), permutated per 64x64 tile and
 zero-padded to the tile grid; ``d_in`` / ``d_out`` are the logical dims;
 ``perm_tile`` is the tile (64 in the paper).  Leading dims (a layer-stacking
-axis) pass through.  The reference's ``plan`` and ``checksum`` fields belong
-to the sharded backends and the reliability layer, which are not ported yet
-(ROADMAP.md Queue 1 "Distributed" and "Reliability").
+axis) pass through.  ``checksum`` is an optional ABFT child
+(``reliability.abft.AbftChecksum``, stamped by ``attach_checksums``) that
+``tree`` flattens after ``data`` as the reference does; a new payload or a
+cast drops it.  The reference's ``plan`` field belongs to the sharded
+backends, which are not ported yet (ROADMAP.md Queue 1 "Distributed").
 
 Gradients need nothing of this class: ``data`` is the parameter leaf, and
 the layer slice (``with_data(data[i])``), the cast of :meth:`astype` and the
@@ -16,7 +18,7 @@ layer-stacked storage in the permutated layout.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Tuple
 
 import torch
 
@@ -34,13 +36,15 @@ def _pad_up(v: int, multiple: int) -> int:
 class DipWeight:
     """Permutated weight storage plus logical-shape metadata."""
 
-    __slots__ = ("data", "d_in", "d_out", "perm_tile")
+    __slots__ = ("data", "d_in", "d_out", "perm_tile", "checksum")
 
-    def __init__(self, data: torch.Tensor, d_in: int, d_out: int, perm_tile: int = PERM_TILE):
+    def __init__(self, data: torch.Tensor, d_in: int, d_out: int, perm_tile: int = PERM_TILE,
+                 checksum: Any = None):
         self.data = data
         self.d_in = int(d_in)
         self.d_out = int(d_out)
         self.perm_tile = int(perm_tile)
+        self.checksum = checksum
 
     @staticmethod
     def storage_dims(d_in: int, d_out: int, perm_tile: int = PERM_TILE) -> Tuple[int, int]:
@@ -74,7 +78,8 @@ class DipWeight:
 
     def astype(self, dtype: torch.dtype) -> "DipWeight":
         """Cast the storage (elementwise, so the permutation commutes);
-        float-to-float only, as in the reference."""
+        float-to-float only, as in the reference.  The checksum, computed
+        from the old storage, is dropped."""
         if dtype == self.data.dtype:
             return self
         if not dtype.is_floating_point:
@@ -84,9 +89,15 @@ class DipWeight:
             )
         return self.with_data(self.data.to(dtype))
 
-    def with_data(self, data: torch.Tensor) -> "DipWeight":
-        """Same metadata, different payload (a layer slice, a device copy)."""
-        return DipWeight(data, self.d_in, self.d_out, self.perm_tile)
+    def with_data(self, data: torch.Tensor, checksum: Any = None) -> "DipWeight":
+        """Same metadata, different payload (a layer slice, a device copy).
+        The checksum does not carry over (a new payload invalidates it);
+        pass ``checksum=`` to thread a matching one."""
+        return DipWeight(data, self.d_in, self.d_out, self.perm_tile, checksum)
+
+    def with_checksum(self, checksum: Any) -> "DipWeight":
+        """Same payload, with an ABFT checksum attached."""
+        return DipWeight(self.data, self.d_in, self.d_out, self.perm_tile, checksum)
 
     def __repr__(self) -> str:
         return (f"DipWeight({tuple(self.data.shape)}:{self.data.dtype}, d_in={self.d_in}, "

@@ -9,12 +9,12 @@
 A checkpoint written by the reference's ``Trainer`` restores here and the
 other way round.  Leaves are named by the reference's paths
 (``jax.tree_util.tree_flatten_with_path`` joined by ``/``): dict keys as
-``['params']``, a ``DipWeight``'s storage as ``.data``.  The reference's
-``DipWeight`` also flattens an optional ABFT ``.checksum`` child, which the
-port does not carry yet (ROADMAP.md Queue 1 "Reliability"): restoring a
-checkpoint that holds one raises, as does any other leaf the target tree
-cannot place.  bf16 leaves are stored as ``uint16`` views with the manifest
-naming the real dtype, as the reference stores them.
+``['params']``, a ``DipWeight``'s storage as ``.data`` and its optional
+ABFT checksum as ``.checksum/.col`` ... (``tree``).  A checkpoint whose
+``DipWeight`` carries a checksum restores into a target without one: the
+checksum is placed on the restored weight.  Any other leaf the target tree
+cannot place raises.  bf16 leaves are stored as ``uint16`` views with the
+manifest naming the real dtype, as the reference stores them.
 
 * **Atomicity** — a step directory either has a complete manifest or is a
   ``.tmp-*`` orphan, removed when a manager opens the directory.
@@ -26,9 +26,12 @@ naming the real dtype, as the reference stores them.
   restore.
 * **In place** — a restore writes into the target tree's tensors, so a
   trainer resuming at full width holds one state on the card, not two.
-
-The reference's fault-injection points (``checkpoint.save.*``) come with
-the reliability layer.
+* **Fail-points** — ``checkpoint.save.mid_write`` trips in a leaf write
+  other than the first (on the writer threads: the exception leaves
+  ``pool.map`` before the manifest is written) and
+  ``checkpoint.save.pre_rename`` after the manifest, before the rename
+  (``reliability.inject``); either leaves a ``.tmp-*`` orphan and the
+  previous step restorable.
 """
 
 from __future__ import annotations
@@ -48,11 +51,14 @@ import torch
 
 from repro_torch import tree
 from repro_torch.api.weights import DipWeight
+from repro_torch.reliability.abft import AbftChecksum
+from repro_torch.reliability.inject import maybe_fail
 
 __all__ = ["CheckpointManager", "save_pytree", "restore_pytree", "checkpoint_meta"]
 
 _NUMPY_DTYPES = {torch.float32: "float32", torch.int32: "int32", torch.int64: "int64",
                  torch.bfloat16: "bfloat16"}
+_TORCH_DTYPES = {name: dt for dt, name in _NUMPY_DTYPES.items()}
 
 
 def _to_numpy(leaf) -> np.ndarray:
@@ -107,6 +113,8 @@ def _write(path: str, snapshot, dip_index: Dict, meta: Optional[Dict]) -> None:
     os.makedirs(tmp, exist_ok=True)
 
     def one(i):
+        if i > 0:
+            maybe_fail("checkpoint.save.mid_write")
         p, arr, dtype_name = snapshot[i]
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr)
@@ -120,6 +128,7 @@ def _write(path: str, snapshot, dip_index: Dict, meta: Optional[Dict]) -> None:
         json.dump(manifest, f)
         f.flush()
         os.fsync(f.fileno())
+    maybe_fail("checkpoint.save.pre_rename")
     os.replace(tmp, path) if not os.path.exists(path) else shutil.rmtree(tmp)
 
 
@@ -144,6 +153,22 @@ def _from_numpy(arr: np.ndarray, dtype_name: str, like):
     return type(like)(t.item())
 
 
+def _place_checksums(t: Any, by_path: Dict[str, Dict], prefix: str = "") -> Any:
+    """``t`` with an empty ``AbftChecksum`` on each ``DipWeight`` that has
+    none where the checkpoint holds ``.checksum`` leaves for it (the
+    restore fills them)."""
+    if isinstance(t, dict):
+        return {k: _place_checksums(v, by_path, f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]")
+                for k, v in t.items()}
+    if isinstance(t, DipWeight) and t.checksum is None:
+        entries = [by_path.get(f"{prefix}/.checksum/.{f}") for f in AbftChecksum._fields]
+        if any(entries):
+            return t.with_checksum(AbftChecksum(*(
+                None if e is None else torch.empty(e["shape"], dtype=_TORCH_DTYPES[e["dtype"]],
+                                                   device=t.data.device) for e in entries)))
+    return t
+
+
 def restore_pytree(path: str, like: Any) -> Any:
     """Restore into the structure of ``like``: each tensor leaf is
     overwritten in place (it must have the saved dtype and shape), so a
@@ -158,13 +183,10 @@ def restore_pytree(path: str, like: Any) -> Any:
         if live is not None and any(saved.get(k) != live[k] for k in live):
             raise ValueError(f"DipWeight metadata mismatch at {p}: checkpoint {saved}, "
                              f"restore target {live}")
-    pairs = tree.paths(like)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    like = _place_checksums(like, by_path)
+    pairs = tree.paths(like)
     extra = sorted(set(by_path) - {p for p, _ in pairs})
-    checksums = [p for p in extra if "/.checksum" in p]
-    if checksums:
-        raise ValueError(f"checkpoint carries ABFT checksum leaves the port cannot place yet "
-                         f'(ROADMAP.md Queue 1 "Reliability"): {checksums[:4]}')
     missing = sorted({p for p, _ in pairs} - set(by_path))
     if missing or extra:
         raise ValueError(f"checkpoint/tree mismatch; missing={missing} extra={extra}")

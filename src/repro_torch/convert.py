@@ -9,7 +9,9 @@ DiP-stored weights, read by their attributes so nothing of the reference is
 imported: an object that also has ``scale`` and ``scheme`` is the
 reference's ``QuantizedDipWeight`` (checked first, so its scales are never
 dropped); any other with ``data`` (numpy storage, kept permutated),
-``d_in``, ``d_out`` and ``perm_tile`` is a ``DipWeight``.
+``d_in``, ``d_out`` and ``perm_tile`` is a ``DipWeight``.  Either one's ABFT
+``checksum`` (the reference's ``AbftChecksum``, read by its fields) comes
+across as a ``reliability.AbftChecksum`` of tensors.
 
 Every family's tree converts leaf by leaf the same way: the SSM scalars and
 norms as tensors, ``in_proj`` / ``out_proj`` as ``DipWeight``, the hybrid's
@@ -32,6 +34,7 @@ import torch
 from repro_torch.api import DipWeight
 from repro_torch.api.quant import QuantizedDipWeight
 from repro_torch.device import resolve_device
+from repro_torch.reliability.abft import AbftChecksum
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "tensor_from_numpy"]
 
@@ -47,6 +50,13 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
+def _checksum(cs, dev):
+    if cs is None:
+        return None
+    return AbftChecksum(*(None if getattr(cs, f) is None else tensor_from_numpy(getattr(cs, f), dev)
+                          for f in AbftChecksum._fields))
+
+
 def _convert(v, dev):
     if isinstance(v, dict):
         return {k: _convert(x, dev) for k, x in v.items()}
@@ -56,9 +66,11 @@ def _convert(v, dev):
     if dip and hasattr(v, "scale") and hasattr(v, "scheme"):
         return QuantizedDipWeight(tensor_from_numpy(v.data, dev), tensor_from_numpy(v.scale, dev),
                                   v.d_in, v.d_out, v.perm_tile, v.scheme,
-                                  plan=getattr(v, "plan", None), checksum=getattr(v, "checksum", None))
+                                  plan=getattr(v, "plan", None),
+                                  checksum=_checksum(getattr(v, "checksum", None), dev))
     if dip:
-        return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile)
+        return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile,
+                         checksum=_checksum(getattr(v, "checksum", None), dev))
     return tensor_from_numpy(v, dev)
 
 

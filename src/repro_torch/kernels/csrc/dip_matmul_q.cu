@@ -11,6 +11,9 @@
 //     max|y| in f32, scale = max(amax, 1e-8) / 127 and q = clamp(rint(y /
 //     scale), -127, 127): IEEE division and round half to even, as the
 //     reference's quantize_acts_int8, so the codes are byte-identical to it.
+//     Both maxima propagate a NaN, as jnp.max and torch.amax do (fmaxf drops
+//     it): a row holding a NaN gets a NaN scale, so its output row is NaN
+//     and a fault screen downstream sees it, instead of codes of -127.
 //     It writes the codes (M, K) and x_scale (M,); the int8 mainloops of
 //     dip_matmul.cu (dip_matmul_int8q_launch) multiply them.  It reads x
 //     twice (the second read, which forms the codes once amax is known,
@@ -59,6 +62,9 @@ __device__ __forceinline__ void load8(const bf16* x, int k, float inv, const flo
   }
 }
 
+// max(a, b) that returns a NaN operand (fmaxf returns the other one).
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
+
 // One block a row: amax over the row, then the codes from a second read of
 // the same row (the same arithmetic, so the same y).
 template <typename T>
@@ -74,16 +80,16 @@ __global__ void __launch_bounds__(Q_THREADS) quantize_int8_kernel(const T* __res
     float y[8];
     load8(row, k, inv, gain, y);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(y[i]));
+    for (int i = 0; i < 8; ++i) amax = max_nan(amax, fabsf(y[i]));
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  for (int o = 16; o > 0; o >>= 1) amax = max_nan(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = amax;
   __syncthreads();
   amax = warp_max[0];
 #pragma unroll
-  for (int w = 1; w < Q_THREADS / 32; ++w) amax = fmaxf(amax, warp_max[w]);
-  const float scale = __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f);
+  for (int w = 1; w < Q_THREADS / 32; ++w) amax = max_nan(amax, warp_max[w]);
+  const float scale = __fdiv_rn(max_nan(amax, 1e-8f), 127.0f);
   if (threadIdx.x == 0) x_scale[m] = scale;
   int8_t* out = codes + (size_t)m * K;
   for (int k = 8 * threadIdx.x; k < K; k += 8 * Q_THREADS) {

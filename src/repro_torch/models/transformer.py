@@ -23,12 +23,12 @@ frontends hand ``forward`` precomputed ``embeddings``; served, they read
 tokens, as the reference's ``Server`` does.  ``loss_fn`` (cross entropy plus
 the MoE router's aux loss) takes the fused lm_head + cross-entropy kernel
 (``kernels/lm_head_ce.py``) unless told otherwise, and ``train_step_fn``
-applies one AdamW step in place; every family trains.  Every served family
+applies one AdamW step in place (``guard=True``: behind the reliability
+guard's screens); every family trains.  Every served family
 serves quantized too: ``quantize_params`` quantizes only the DiP-stored
 projections, so the MoE router and expert banks, the SSM scalars, conv and
 norms, and the embeddings stay float, as in the reference.  Sharding plans
-and the reliability guard come with their ROADMAP.md items and raise
-``NotImplementedError`` here.
+come with their ROADMAP.md item and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -44,6 +44,8 @@ from repro_torch.core import permute
 from repro_torch.device import dtype_of, resolve_device
 from repro_torch.kernels import lm_head_ce
 from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.optim.adamw import global_norm
+from repro_torch.reliability import guard as guard_lib
 
 __all__ = [
     "param_template",
@@ -697,10 +699,21 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
     state holds the same tensors.  ``microbatch > 1`` splits the batch into
     that many slices, sums their losses and gradients and scales both by
     1/microbatch, as the reference's scan does.  Metrics: ``loss``,
-    ``grad_norm`` (pre-clip) and ``step``, as 0-d tensors / int."""
-    if guard:
-        raise NotImplementedError(
-            'the reliability guard is not ported yet (ROADMAP.md Queue 1 "Reliability")')
+    ``grad_norm`` (pre-clip) and ``step``, as 0-d tensors / int.
+
+    ``guard=True`` puts the step behind the reliability guard
+    (``reliability.guard``); the state then carries its side-car keys
+    (``reliability.init_guard_state``).  Its screens run where the
+    reference's do, but AdamW updates in place, so instead of selecting
+    between two states it decides before the update: the fingerprint is
+    taken before the forward pass, forward and backward run as unguarded
+    (the same metrics), the global gradient norm is computed, and
+    ``optimizer.update`` runs only when the weights, the loss and the norm
+    all pass (one read to the host).  A skipped step leaves the parameters
+    and the optimizer state (``count`` and ``grad_norm`` included) as they
+    were and freezes the fingerprint reference; ``step`` advances either
+    way.  Metrics gain ``skipped`` / ``weight_fault`` (0 or 1) and
+    ``skipped_total`` / ``weight_faults_total``."""
     _no_plan(plan, constrain)
     _require_trainable(cfg)
 
@@ -709,8 +722,7 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
-    def step(state, batch):
-        params = state["params"]
+    def loss_and_grads(params, batch):
         leaves = tree.leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
@@ -726,10 +738,33 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
             inv = 1.0 / microbatch
             loss = loss * inv
             flat = [g * inv for g in flat]
-        grads = tree.unflatten(params, flat)
+        return loss, tree.unflatten(params, flat)
+
+    def step(state, batch):
+        params = state["params"]
+        loss, grads = loss_and_grads(params, batch)
         params, opt_state = optimizer.update(grads, state["opt_state"], params)
         new_state = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": optimizer.last_grad_norm(opt_state),
                            "step": new_state["step"]}
 
-    return step
+    if not guard:
+        return step
+
+    def guarded_step(state, batch):
+        params = state["params"]
+        weights_ok = guard_lib.fingerprint_ok(guard_lib.fingerprint(params), state["fingerprint"])
+        loss, grads = loss_and_grads(params, batch)
+        gnorm = global_norm(grads)
+        w_ok, ok = torch.stack([weights_ok, weights_ok & torch.isfinite(loss) & torch.isfinite(gnorm)]).tolist()
+        if ok:
+            optimizer.update(grads, state["opt_state"], params)
+        skipped, wfault = int(not ok), int(not w_ok)
+        new_state = dict(state, step=state["step"] + 1,
+                         fingerprint=guard_lib.fingerprint(params) if ok else state["fingerprint"],
+                         skipped=state["skipped"] + skipped, weight_faults=state["weight_faults"] + wfault)
+        return new_state, {"loss": loss, "grad_norm": gnorm, "step": new_state["step"], "skipped": skipped,
+                           "weight_fault": wfault, "skipped_total": new_state["skipped"],
+                           "weight_faults_total": new_state["weight_faults"]}
+
+    return guarded_step

@@ -30,13 +30,19 @@ import torch
 
 from repro_torch import tree
 
-__all__ = ["AdamW", "clip_by_global_norm"]
+__all__ = ["AdamW", "clip_by_global_norm", "global_norm"]
 
 Schedule = Union[float, Callable[[int], float]]
 
 
 def _global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+
+
+def global_norm(grads) -> torch.Tensor:
+    """The f32 global norm of a gradient tree, as :meth:`AdamW.update`
+    computes it."""
+    return _global_norm(tree.leaves(grads))
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:

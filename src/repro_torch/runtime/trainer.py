@@ -10,6 +10,14 @@
   the restart path.
 * **Straggler signal** — a per-step wall-time EWMA; steps slower than
   ``straggler_factor`` times it are counted in the metrics.
+* **Reliability guard** (``guard=True``; ``reliability.guard``) — every step
+  screens the loss, the gradient norm and the parameters' fingerprint and
+  skips a poisoned update.  On a weight fault the trainer names the corrupt
+  leaves and restores the latest checkpoint in place (a recovery), or with
+  ``recover_on_fault=False`` or no checkpoint raises ``ReliabilityError``.
+  The run's ``skipped``, ``weight_faults`` and ``recoveries`` are summed on
+  the host from the per-step flags (a restore rewinds the in-state
+  counters); checkpoints carry the guard's keys.
 
 Every family trains; a stub frontend's configuration (``frontend !=
 "none"``) is fed the pipeline's precomputed embeddings, as in the
@@ -18,9 +26,8 @@ clock around the step, which ends by reading the loss back, so the card's
 work is inside it) and ``stragglers``.  The run happens on ``device``
 (default ``"cuda"``; pass ``"cpu"`` for the plain versions of the kernels).
 
-Not ported yet: the reliability guard and its fault recovery (``guard``;
-ROADMAP.md Queue 1 "Reliability"), sharding plans, meshes and pipeline
-stages (Queue 1 "Distributed").
+Not ported yet: sharding plans, meshes and pipeline stages (ROADMAP.md
+Queue 1 "Distributed").
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from repro_torch import api
+from repro_torch import api, reliability
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import DataState, SyntheticLM
 from repro_torch.device import make_generator, resolve_device
@@ -57,7 +64,10 @@ class TrainerConfig:
     fail_at_step: Optional[int] = None     # failure injection (tests)
     straggler_factor: float = 3.0
     metrics_path: Optional[str] = None     # JSONL
-    guard: bool = False                    # not ported (Queue 1 "Reliability")
+    # the reliability guard: screen every step, skip poisoned updates
+    guard: bool = False
+    # on a weight fault: restore the latest checkpoint (True) or raise
+    recover_on_fault: bool = True
     pipeline_microbatches: int = 0         # not ported (Queue 1 "Distributed")
 
 
@@ -67,9 +77,6 @@ class Trainer:
                  seq_len: int = 512, global_batch: int = 8,
                  step_hook: Optional[Callable[[int, Dict[str, Any]], Dict[str, Any]]] = None,
                  device="cuda"):
-        if tcfg.guard:
-            raise NotImplementedError(
-                'the reliability guard is not ported yet (ROADMAP.md Queue 1 "Reliability")')
         if mesh is not None or plan is not None or policy is not None or tcfg.pipeline_microbatches:
             raise NotImplementedError(f"meshes, sharding plans and pipeline stages are not ported yet ({_DIST})")
         api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
@@ -85,10 +92,12 @@ class Trainer:
         self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
                                         emit_embeddings=cfg.d_model if cfg.frontend != "none" else None)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
-        self._step_fn = tf_model.train_step_fn(cfg, self.opt)
+        self._step_fn = tf_model.train_step_fn(cfg, self.opt, guard=tcfg.guard)
         self.metrics_log: list = []
-        # called as state = step_hook(step_no, state) before each step
+        # called as state = step_hook(step_no, state) before each step: how
+        # the chaos tests corrupt a parameter between steps
         self._step_hook = step_hook
+        self.recoveries = 0
 
     def init_state(self, seed: int = 0, params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Fresh parameters drawn from ``seed`` on the trainer's device (or
@@ -96,10 +105,13 @@ class Trainer:
         zero moments, step 0."""
         if params is None:
             params = tf_model.init_params(self.cfg, make_generator(seed, self.device), self.device)
-        return {"params": params, "opt_state": self.opt.init(params), "step": 0}
+        state = {"params": params, "opt_state": self.opt.init(params), "step": 0}
+        return reliability.init_guard_state(state) if self.tcfg.guard else state
 
     def run(self, seed: int = 0, params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """Train to ``tcfg.steps``; returns ``{"state", "wall_s", "metrics"}``."""
+        """Train to ``tcfg.steps``; returns ``{"state", "wall_s", "metrics"}``
+        and, under the guard, the run's ``skipped``, ``weight_faults`` and
+        ``recoveries``."""
         state = self.init_state(seed, params)
         data_state = DataState(step=0)
         restored, meta = self.ckpt.restore(state)
@@ -124,6 +136,8 @@ class Trainer:
                 t0 = time.monotonic()
                 state, metrics = self._step_fn(state, batch)
                 metrics = {k: float(v) for k, v in metrics.items()}  # reads back: the step is done
+                if self.tcfg.guard and metrics["weight_fault"]:
+                    state = self._recover(state)
                 dt = time.monotonic() - t0
                 ewma = dt if ewma is None else 0.9 * ewma + 0.1 * dt
                 if dt > self.tcfg.straggler_factor * ewma and step_no > 3:
@@ -142,5 +156,29 @@ class Trainer:
         finally:
             self.data.stop()
             self.ckpt.wait()
-        return {"state": state, "wall_s": time.monotonic() - t_loop, "metrics": self.metrics_log}
+        out = {"state": state, "wall_s": time.monotonic() - t_loop, "metrics": self.metrics_log}
+        if self.tcfg.guard:
+            out.update(skipped=sum(int(m["skipped"]) for m in self.metrics_log),
+                       weight_faults=sum(int(m["weight_fault"]) for m in self.metrics_log),
+                       recoveries=self.recoveries)
+        return out
+
+    def _recover(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        """A weight fault: name the corrupt leaves, then restore the latest
+        checkpoint into ``state`` in place (or raise when there is none or
+        recovery is off).  The data stream keeps advancing, as the
+        reference's does."""
+        bad = reliability.locate_fingerprint_fault(state["params"], state["fingerprint"])
+        leaves = ", ".join(bad) if bad else "<fingerprint mismatch>"
+        restored = None
+        if self.tcfg.recover_on_fault:
+            self.ckpt.wait()
+            restored, meta = self.ckpt.restore(state)
+        if restored is None:
+            raise reliability.ReliabilityError(
+                f"weight corruption detected in [{leaves}] and no recovery path "
+                "(recover_on_fault=False or no checkpoint yet)")
+        self.recoveries += 1
+        print(f"[trainer] weight fault in [{leaves}]; restored checkpoint step {meta['step']}")
+        return restored
 

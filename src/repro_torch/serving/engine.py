@@ -38,9 +38,24 @@ Rows are independent, so a greedy request's tokens do not depend on its
 batch-mates.  Under memory pressure the scheduler's LIFO victim is evicted
 and re-queued with its generated tokens (re-prefilled on re-admission).
 
-The reliability ladder of the reference (``verify`` screening, retries, the
-degraded ``xla`` step, request TTLs) comes with ROADMAP.md Queue 1 "Reliability";
-asking for it raises ``NotImplementedError``.
+**Fail-safe serving** (``EngineConfig.verify``, as the reference): each
+tick screens every request's logits row (the host copy the engine samples
+from) for nonfinite values, the signature of a corrupted KV block or a
+tripped matmul.  A faulted request is retried (evicted, so that its
+re-prefill rebuilds clean KV, with ``retry_backoff_ticks`` of admission
+backoff), then degraded, then failed, while its batch-mates stream on.  The
+degraded rung is the decode step with ``matmul_backend="torch"`` (the
+reference's ``xla``): built on the first fault only, on the card a second
+``CapturedStep`` at the decode shape in the engine's graph pool, and a tick
+with a degraded request runs the whole pool through it.  A fault on a
+degraded request finishes it with ``fault_failed``.  Requests may carry
+deadlines (``ttl_s``, per request or engine-wide); expired ones, waiting or
+running, are swept at the start of every tick.  A fault or an expiry during
+a prefill drops the prefill, and keeps the one prefill cache the captured
+prefill is bound to (reset at the next admission).  ``last_stats`` counts
+``faults_detected``, ``retries``, ``deadline_evictions`` and
+``degraded_requests``; ``request_stats`` carries each request's
+``retries``, ``degraded``, ``deadline_expired`` and ``fault_failed``.
 """
 
 from __future__ import annotations
@@ -74,8 +89,11 @@ class EngineConfig:
     num_blocks: Optional[int] = None     # None -> full occupancy, no preemption
     prefill_chunk: int = 64
     eos_id: int = 1
-    verify: bool = False                 # reliability ladder: not ported yet
-    ttl_s: Optional[float] = None        # request deadlines: not ported yet
+    # --- reliability ---
+    verify: bool = False                 # screen the logits rows for nonfinite values
+    max_retries: int = 1                 # fault-triggered re-prefills per request
+    retry_backoff_ticks: int = 2         # admission backoff after a fault
+    ttl_s: Optional[float] = None        # default per-request deadline
 
 
 class Engine:
@@ -89,11 +107,6 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg = engine_cfg or EngineConfig()
-        if ecfg.verify or ecfg.ttl_s is not None:
-            raise NotImplementedError(
-                "the serving reliability ladder (verify, retries, degraded step, TTL) "
-                'is not ported yet (ROADMAP.md Queue 1 "Reliability")'
-            )
         be = api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
         if be.layout == "dip_q" and cfg.quant_scheme != be.scheme:
             raise ValueError(f"backend {be.name!r} consumes {be.scheme!r}-quantized weights "
@@ -126,17 +139,15 @@ class Engine:
         c = ecfg.prefill_chunk
         self._prefill_buf_len = -(-ecfg.max_seq // c) * c
         self._prefill_cache = tf_model.init_cache(cfg, 1, self._prefill_buf_len, device=self.device)
-        if self.device.type == "cuda":
-            # one memory pool for every graph: the steps never run at once
-            pool = torch.cuda.graph_pool_handle()
-            self._decode = graphs.CapturedStep(
-                decode, params, self.kv.pools, [((ecfg.slots, 1), (ecfg.slots,), (ecfg.slots, self.kv.blocks_per_seq))],
-                pool=pool)
+        # one memory pool for every graph of the engine: the steps never run at once
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self._decode = self._captured_decode(decode)
+        if self._graph_pool is not None:
             widths = (c, 1) if cfg.ssm_state else (c,)
             self._prefill_fwd = graphs.CapturedStep(prefill, params, self._prefill_cache, [((1, w),) for w in widths],
-                                                    pool=pool)
+                                                    pool=self._graph_pool)
         else:
-            self._decode, self._prefill_fwd = decode, prefill
+            self._prefill_fwd = prefill
 
         self.scheduler = FCFSScheduler(on_preempt=on_preempt)
         self._slots: List[Optional[ServeRequest]] = [None] * ecfg.slots
@@ -154,10 +165,27 @@ class Engine:
         self._generated_total = 0
         self._tick = 0
         self.last_stats: Dict[str, Any] = {}
+        # reliability bookkeeping
+        self._faults_detected = 0
+        self._retries_total = 0
+        self._deadline_evictions = 0
+        self._degraded_requests = 0
+        self._decode_xla = None             # the degraded decode step, built on the first fault
+
+    def _captured_decode(self, step):
+        """The paged decode step ``step`` as the engine runs it: on the card
+        a CUDA graph at (slots, 1) in the engine's graph pool, on the CPU the
+        function itself."""
+        if self._graph_pool is None:
+            return step
+        s = self.ecfg.slots
+        return graphs.CapturedStep(step, self.params, self.kv.pools, [((s, 1), (s,), (s, self.kv.blocks_per_seq))],
+                                   pool=self._graph_pool)
 
     # ------------------------------------------------------------ intake ---
     def add_request(self, prompt, sampling_params: Optional[SamplingParams] = None, *,
-                    rid: Optional[int] = None, on_token: Optional[Callable] = None) -> int:
+                    rid: Optional[int] = None, on_token: Optional[Callable] = None,
+                    ttl_s: Optional[float] = None) -> int:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -180,6 +208,9 @@ class Engine:
         req = ServeRequest(rid=rid, prompt=prompt, sampling=sp, on_token=on_token)
         req.rng = np.random.default_rng(sp.seed)
         req.arrival_s = time.monotonic()
+        ttl = ttl_s if ttl_s is not None else self.ecfg.ttl_s
+        if ttl is not None:
+            req.deadline_s = req.arrival_s + ttl
         self.scheduler.add(req)
         return rid
 
@@ -213,7 +244,7 @@ class Engine:
         self._preempt_count += 1
         self.scheduler.preempt(req)
 
-    def _finish(self, req: ServeRequest) -> None:
+    def _finish(self, req: ServeRequest, *, deadline_expired: bool = False, fault_failed: bool = False) -> None:
         slot = req.slot
         if slot >= 0:
             self._release(slot)
@@ -229,6 +260,10 @@ class Engine:
                        if req.first_token_s is not None else None),
             "latency_s": req.finish_s - req.arrival_s,
             "preemptions": req.preemptions,
+            "retries": req.retries,
+            "degraded": req.degraded,
+            "deadline_expired": deadline_expired,
+            "fault_failed": fault_failed,
         }
 
     def _emit(self, req: ServeRequest, token: int, done: bool) -> None:
@@ -277,6 +312,56 @@ class Engine:
         step's own input, on the card staged by the captured step into its
         static buffers."""
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+
+    # ------------------------------------------------------------- faults --
+    def _drop_prefill(self, req: ServeRequest) -> None:
+        """Abandon ``req``'s prefill; the prefill cache stays (the captured
+        prefill is bound to it) and is reset at the next admission."""
+        if req is self._prefilling:
+            self._prefilling = None
+            self._prefill_tokens = None
+
+    def _handle_fault(self, req: ServeRequest) -> None:
+        """A screened row of ``req`` went nonfinite: a bounded retry (evict:
+        the re-prefill rebuilds clean KV, after a tick backoff), then the
+        degraded step, then give up.  Its batch-mates are untouched: rows
+        are independent."""
+        self._faults_detected += 1
+        self._drop_prefill(req)
+        if req.degraded:
+            # the degraded step faulted too: persistent corruption
+            self._finish(req, fault_failed=True)
+            return
+        req.not_before_tick = self._tick + self.ecfg.retry_backoff_ticks
+        if req.retries < self.ecfg.max_retries:
+            req.retries += 1
+            self._retries_total += 1
+        else:
+            req.degraded = True
+            self._degraded_requests += 1
+        self._evict(req)
+
+    def _get_decode_xla(self):
+        """The decode step on the plain ``torch`` matmul backend (the
+        reference's ``xla``), the bottom rung of the ladder; built on the
+        first fault."""
+        if self._decode_xla is None:
+            cfg_torch = dataclasses.replace(self.cfg, matmul_backend="torch")
+            self._decode_xla = self._captured_decode(tf_model.paged_decode_step_fn(cfg_torch))
+        return self._decode_xla
+
+    def _expire(self, req: ServeRequest) -> None:
+        self._deadline_evictions += 1
+        self._drop_prefill(req)
+        self._finish(req, deadline_expired=True)
+
+    def _sweep_deadlines(self) -> None:
+        now = time.monotonic()
+        for req in self.scheduler.drop_expired(now):
+            self._expire(req)
+        for req in list(self._slots):
+            if req is not None and req.deadline_s is not None and now >= req.deadline_s:
+                self._expire(req)
 
     # ---------------------------------------------------------- admission --
     def _try_admit(self) -> None:
@@ -341,6 +426,9 @@ class Engine:
         # its start; the only row of an SSM tail's single-token call)
         row_idx = (plen - 1) - (self._prefill_done - last_logits.shape[1])
         row = last_logits[0, row_idx].cpu().numpy()
+        if self.ecfg.verify and not np.isfinite(row).all():
+            self._handle_fault(req)
+            return
         tok = int(self._sample_rows(row[None], [req])[0])
         self._prefilling = None
         self._prefill_tokens = None
@@ -370,7 +458,10 @@ class Engine:
         reqs = [r if (r is not None and r.state == RUNNING) else None for r in self._slots]
         if not any(r is not None for r in reqs):
             return
-        logits = self._decode(
+        # a tick with a degraded request runs the whole pool through the
+        # degraded step (one step a tick; healthy rows are independent)
+        decode = self._get_decode_xla() if any(r is not None and r.degraded for r in reqs) else self._decode
+        logits = decode(
             self.params, self.kv.pools, self._tensor(self._cur), self._tensor(self._ctx),
             self._tensor(self.kv.block_tables),
         )[0]
@@ -380,14 +471,19 @@ class Engine:
         for i, req in enumerate(reqs):
             if req is None:
                 continue
+            if self.ecfg.verify and not np.isfinite(rows[i]).all():
+                # a corrupted KV block or a tripped matmul: only this row's request pays
+                self._handle_fault(req)
+                continue
             self._ctx[i] += 1   # the fed token is now in the cache
             self._append_token(req, int(next_tokens[i]))
 
     # -------------------------------------------------------------- drive --
     def step(self) -> bool:
-        """One engine tick (admit -> prefill chunk -> decode step).  Returns
-        True while there is work left."""
+        """One engine tick (deadline sweep -> admit -> prefill chunk ->
+        decode step).  Returns True while there is work left."""
         self._tick += 1
+        self._sweep_deadlines()
         self._try_admit()
         self._advance_prefill()
         self._try_admit()    # a finished prefill may free the pipeline
@@ -409,5 +505,9 @@ class Engine:
             "prefill_chunks": self._prefill_chunks,
             "preemptions": self._preempt_count,
             "requests": len(self.results),
+            "faults_detected": self._faults_detected,
+            "retries": self._retries_total,
+            "deadline_evictions": self._deadline_evictions,
+            "degraded_requests": self._degraded_requests,
         }
         return dict(self.results)

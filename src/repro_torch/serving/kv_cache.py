@@ -17,9 +17,9 @@ shared ``k_rope`` rows the same way, int8 with one f32 scale per token
 history and state are O(1) per sequence and live in per-slot pools beside
 the pages: a pure SSM model pages nothing, a hybrid one only its shared
 attention block's K/V.  ``bytes_per_block`` / ``blocks_for_budget`` /
-``max_concurrent`` are the capacity arithmetic.  The allocator's
-fault-injection points come with the reliability layer (ROADMAP.md Queue 1
-"Reliability").
+``max_concurrent`` are the capacity arithmetic.  The allocator carries the
+fail-points ``kv.alloc`` and ``kv.free`` (``reliability.inject``), each
+before any mutation, so a raise leaves the free/allocated partition whole.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ import torch
 from repro_torch.device import dtype_of
 from repro_torch.models import attention
 from repro_torch.models import transformer as tf_model
+from repro_torch.reliability.inject import maybe_fail
 
 __all__ = ["BlockAllocator", "PagedKVCache", "make_import_fn", "bytes_per_block", "blocks_for_budget",
            "max_concurrent"]
@@ -60,6 +61,8 @@ class BlockAllocator:
             raise ValueError(f"alloc({n})")
         if n > len(self._free):
             return None
+        maybe_fail("kv.alloc")
+        # slice-atomically: a raise between pops would leak the popped prefix
         got = self._free[-n:][::-1] if n else []
         del self._free[len(self._free) - n:]
         self._allocated.update(got)
@@ -69,6 +72,7 @@ class BlockAllocator:
         for b in blocks:
             if b not in self._allocated:
                 raise ValueError(f"freeing block {b} not currently allocated")
+        maybe_fail("kv.free")
         for b in blocks:
             self._allocated.discard(b)
             self._free.append(b)

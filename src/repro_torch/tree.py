@@ -2,10 +2,13 @@
 ``jax.tree_util`` gives the reference).
 
 A tree is a dict (walked in sorted-key order, as ``jax.tree_util`` walks
-it), an ``api.DipWeight`` (one child: its ``data``) or a leaf: a tensor or a
-Python number.  :func:`paths` names the leaves as the reference's
-checkpoints do (``jax.tree_util.keystr`` parts joined by ``/``, e.g.
-``['params']/['layers']/['wq']/.data``).
+it), an ``api.DipWeight`` (children: its ``data``, then its ABFT
+``checksum`` when it has one), a named tuple (its fields in order, a
+``None`` field an empty subtree: ``reliability.AbftChecksum``) or a leaf: a
+tensor or a Python number.  :func:`paths` names the leaves as the
+reference's checkpoints do (``jax.tree_util.keystr`` parts joined by ``/``,
+e.g. ``['params']/['layers']/['wq']/.data`` and
+``['params']/['layers']/['wq']/.checksum/.row``).
 """
 
 from __future__ import annotations
@@ -25,8 +28,16 @@ def paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
             out += paths(tree[k], f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]")
         return out
     if isinstance(tree, DipWeight):
-        return paths(tree.data, f"{prefix}/.data")
+        return paths(tree.data, f"{prefix}/.data") + paths(tree.checksum, f"{prefix}/.checksum")
+    if _is_namedtuple(tree):
+        return [pl for f, v in zip(tree._fields, tree) for pl in paths(v, f"{prefix}/.{f}")]
+    if tree is None:
+        return []
     return [(prefix, tree)]
+
+
+def _is_namedtuple(t: Any) -> bool:
+    return isinstance(t, tuple) and hasattr(t, "_fields")
 
 
 def leaves(tree: Any) -> List[Any]:
@@ -42,7 +53,11 @@ def unflatten(like: Any, flat) -> Any:
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, DipWeight):
-            return t.with_data(build(t.data))
+            return t.with_data(build(t.data), checksum=build(t.checksum))
+        if _is_namedtuple(t):
+            return type(t)(*(build(v) for v in t))
+        if t is None:
+            return None
         return next(it)
 
     out = build(like)

@@ -38,6 +38,9 @@ def test_every_module_imports_without_jax_or_reference():
     # and the SSM / hybrid serving slice's
     assert {"repro_torch.models.ssm", "repro_torch.configs.mamba2_370m",
             "repro_torch.configs.zamba2_2_7b"} <= set(mods)
+    # and the reliability layer's
+    assert {"repro_torch.reliability", "repro_torch.reliability.abft", "repro_torch.reliability.guard",
+            "repro_torch.reliability.inject"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -109,12 +112,18 @@ def test_launch_serve_quantized_on_cpu(scheme, capsys):
 def test_branches_outside_the_slice_raise(what):
     cfg = _reduced()
     params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
-    if what == "verify":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, params, engine_cfg=EngineConfig(verify=True), device="cpu")
-    elif what == "ttl":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, params, engine_cfg=EngineConfig(ttl_s=1.0), device="cpu")
+    if what == "verify":  # the screen serves now (test_torch_reliability_serving.py)
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=32, prefill_chunk=8, verify=True),
+                     device="cpu")
+        rid = eng.add_request([5, 6, 7])
+        assert len(eng.run()[rid]) > 0 and eng.last_stats["faults_detected"] == 0
+        assert eng._decode_xla is None  # the degraded step is built on a first fault only
+    elif what == "ttl":  # request deadlines too: an engine-wide TTL stamps every request
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=32, prefill_chunk=8, ttl_s=1e6),
+                     device="cpu")
+        eng.add_request([5, 6, 7])
+        req = eng.scheduler.waiting[0]
+        assert req.deadline_s == pytest.approx(req.arrival_s + 1e6)
     elif what == "kv_int8":  # int8 KV serves now, MLA's latent pools too (test_torch_quant_families.py)
         from repro_torch.serving import kv_cache
         mla = dataclasses.replace(cfg, use_mla=True, kv_lora_rank=64)

@@ -334,10 +334,28 @@ def test_block_remat_reruns_each_forward_and_keeps_the_gradients(monkeypatch):
 
 @pytest.mark.parametrize("what", ["guard", "plan", "grad_transform", "tied"])
 def test_training_branches_outside_the_slice_raise(what):
-    """The guard, sharding plans and gradient transforms still raise; a tied
-    head trains now: the fused loss's head is the embedding's transpose, a
-    view of its storage (test_torch_train_families.py holds its gradient)."""
+    """Sharding plans and gradient transforms still raise; a tied head
+    trains now: the fused loss's head is the embedding's transpose, a view
+    of its storage (test_torch_train_families.py holds its gradient); so
+    does the guard: a guarded step's loss and norm are the unguarded step's
+    (test_torch_reliability_guard.py holds its skips)."""
     _, cfg = reduced_configs()
+    if what == "guard":
+        from repro_torch import reliability
+        from repro_torch.data import SyntheticLM
+        batch = {k: torch.as_tensor(v) for k, v in
+                 SyntheticLM(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2).batch(0).items()}
+        metrics = []
+        for guard in (False, True):
+            params = tf_model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+            state = {"params": params, "opt_state": AdamW().init(params), "step": 0}
+            state = reliability.init_guard_state(state) if guard else state
+            state, m = tf_model.train_step_fn(cfg, AdamW(), guard=guard)(state, batch)
+            metrics.append(m)
+        assert torch.equal(metrics[0]["loss"], metrics[1]["loss"])
+        assert torch.equal(metrics[0]["grad_norm"], metrics[1]["grad_norm"])
+        assert (metrics[1]["skipped"], metrics[1]["weight_fault"], state["step"]) == (0, 0, 1)
+        return
     if what == "tied":
         tied = dataclasses.replace(cfg, tie_embeddings=True)
         params = {"embed": torch.randn(tied.padded_vocab, tied.d_model)}
@@ -346,9 +364,7 @@ def test_training_branches_outside_the_slice_raise(what):
         assert torch.equal(head, params["embed"].t()) and head.data_ptr() == params["embed"].data_ptr()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "guard":
-            tf_model.train_step_fn(cfg, AdamW(), guard=True)
-        elif what == "plan":
+        if what == "plan":
             tf_model.train_step_fn(cfg, AdamW(), plan=object())
         else:
             AdamW(grad_transform=object())

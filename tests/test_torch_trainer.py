@@ -203,12 +203,21 @@ def test_restore_fails_loudly_on_what_it_cannot_place(tmp_path):
     with pytest.raises(ValueError, match="v"):
         restore_pytree(path, bad)
     manifest = json.loads(open(os.path.join(path, "manifest.json")).read())
-    manifest["leaves"].append(dict(manifest["leaves"][0], path="['params']/['w']/.checksum/.row"))
+    # an ABFT checksum leaf of a DipWeight is placed on the restored weight
+    # (test_torch_reliability_abft.py: the reference's checksums verify)
+    row = next(e for e in manifest["leaves"] if e["path"] == "['params']/['v']")
+    manifest["leaves"].append(dict(row, path="['params']/['w']/.checksum/.row"))
     open(os.path.join(path, "manifest.json"), "w").write(json.dumps(manifest))
-    with pytest.raises(ValueError, match="checksum"):
+    got = restore_pytree(path, _tree())
+    assert got["params"]["w"].checksum.col is None and torch.equal(got["params"]["w"].checksum.row,
+                                                                  state["params"]["v"])
+    # a leaf nothing in the target can take still fails loudly
+    manifest["leaves"].append(dict(row, path="['params']/['u']/.checksum/.row"))
+    open(os.path.join(path, "manifest.json"), "w").write(json.dumps(manifest))
+    with pytest.raises(ValueError, match=r"extra=.*\['u'\]/\.checksum/\.row"):
         restore_pytree(path, state)
     np.save(os.path.join(path, manifest["leaves"][0]["file"]), np.zeros(3, np.float32))
-    manifest["leaves"].pop()
+    manifest["leaves"] = manifest["leaves"][:-2]
     open(os.path.join(path, "manifest.json"), "w").write(json.dumps(manifest))
     with pytest.raises(ValueError, match="integrity"):
         restore_pytree(path, state)
@@ -335,8 +344,10 @@ def test_launch_train_takes_every_family_on_cpu(arch, tmp_path, capsys):
 
 def test_trainer_refuses_what_is_not_ported(tmp_path):
     _, cfg = reduced_configs()
-    for tcfg, kw in ((TrainerConfig(guard=True, ckpt_dir=str(tmp_path)), {}),
-                     (TrainerConfig(ckpt_dir=str(tmp_path)), {"plan": object()}),
+    # the guard is ported (test_torch_reliability_guard.py): its state carries the side-car keys
+    guarded = Trainer(cfg, TrainerConfig(guard=True, ckpt_dir=str(tmp_path)), device="cpu").init_state()
+    assert {"fingerprint", "skipped", "weight_faults"} <= set(guarded)
+    for tcfg, kw in ((TrainerConfig(ckpt_dir=str(tmp_path)), {"plan": object()}),
                      (TrainerConfig(pipeline_microbatches=4, ckpt_dir=str(tmp_path)), {})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(cfg, tcfg, device="cpu", **kw)
