@@ -190,7 +190,24 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    ``Trainer``, its losses and norms phase 6's bit for bit, the
    fingerprint's device ms; mamba2-370m at full depth with a NaN planted at
    data step 3: one weight fault, a skipped step, one recovery, finite
-   parameters at the step count.
+   parameters at the step count;
+9. the explicit sharded backends and llama3-8b tensor-parallel, run after
+   phase 5 (each rank draws phase 5's weights from the same seed and keeps
+   its slice), in a 2-rank world sharing the card over the ``host``
+   transport (gloo groups, payloads copied through host memory; the steps
+   run eagerly, since a gloo collective cannot be captured): 9a ``dip_tp``
+   column and row, ``dip_fsdp`` and ``dip_sp`` column and row at llama3-8b's
+   gate+up and down, M = 4 and 256, bf16, and ``dip_int8w`` on the tp row,
+   each against the single-rank dispatch on the card (the int8 row against
+   its shard body byte for byte), the communicator's counts against the
+   reference's contract, each rank's launch device ms beside the single-rank
+   dispatch's; 9c llama3-8b at full width through ``Server(plan=)`` at phase
+   5's settings and requests: first-token logits within FULL_TOL of phase
+   5's, the greedy streams beside phase 5's, 66 collectives and 193 DiP
+   launches (each a shard) per step and rank, wall and device ms per step,
+   peak memory per rank; 9d the reduced llama3-8b in f32 over the 2 ranks
+   serving the single-rank engine's tokens exactly; then 9b the 9a calls in
+   a 1-rank NCCL world.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -221,7 +238,9 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 # kernel vs plain: max|err| <= TOL * max(1, max|plain|).  float32: both sides
 # multiply the same operands in IEEE f32 (no TF32) and differ only in the
-# order of the sums; bfloat16: both accumulate the same bf16 operands in f32,
+# order of the sums, as do the bf16 mainloops' f32 store (exact bf16
+# products summed in f32) and its plain version, where a bf16 rounding of
+# the output would be ~2^-9 of it; bfloat16: both accumulate the same bf16 operands in f32,
 # so after the final cast they differ by about one bf16 step (2^-8) at most
 TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # reduced model, card against CPU, f32 logits: two layers of the above
@@ -511,6 +530,382 @@ def head_step(head, head_x, vocab):
     _, x_scale = quantize_acts_int8(head_x)
     colsum = permute.unpermute_tiled(head.data, head.perm_tile)[:, :vocab].float().abs().sum(0)
     return x_scale * colsum * head.scale[0, :vocab]
+
+
+# ------------------------------------------------- phase 9: the ranks' side --
+# Module-level, so that the ranks ``distributed.run_world`` spawns (``spawn``
+# start method: they import this file as a module) can reach them.
+SHARDED_SHAPES = {"gate+up": (4096, 14336), "down": (14336, 4096)}
+
+
+def _sharded_cases():
+    """(label, backend, plan kind, shape, epilogue, scheme) of phase 9a / 9b:
+    llama3-8b's gate+up and down at M = 4 and 256, bf16."""
+    cases = []
+    for m in (4, 256):
+        cases += [(f"dip_tp column gate+up M={m}", "dip_tp", "column", "gate+up", "swiglu", None, m),
+                  (f"dip_tp row down M={m}", "dip_tp", "row", "down", "residual", None, m),
+                  (f"dip_fsdp gate+up M={m}", "dip_fsdp", "column", "gate+up", "swiglu", None, m),
+                  (f"dip_fsdp down M={m}", "dip_fsdp", "row", "down", "residual", None, m),
+                  (f"dip_sp column gate+up M={m}", "dip_sp", "column", "gate+up", "swiglu", None, m),
+                  (f"dip_sp row down M={m}", "dip_sp", "row", "down", "residual", None, m),
+                  (f"dip_tp row down dip_int8w M={m}", "dip_tp", "row", "down", "none", "int8", m)]
+    return cases
+
+
+# the reference's placement contract (tests/test_sharded_backends.py:121-140,
+# :253-262) at T ranks: collectives and launches of one call
+def _sharded_want(backend, kind, epilogue, t):
+    if backend == "dip_tp":
+        return {"psum": 0, "launch": 1} if kind == "column" else {"psum": 1, "launch": 2 if epilogue == "swiglu"
+                                                                  else 1}
+    if backend == "dip_fsdp":
+        return {"all_gather": 2 if epilogue == "swiglu" else 1, "psum": 0, "launch": 1}
+    if kind == "column":
+        return {"ppermute": t - 1, "all_gather": 0, "psum": 0, "launch": t}
+    return {"reduce_scatter": 1, "psum": 0, "launch": 1}
+
+
+def record_first_logits(eng, vocab, into):
+    """Hook ``eng`` so that each request's first-token logits (the last
+    prompt row's first ``vocab`` columns) land in ``into`` by request id:
+    phase 9c holds the sharded engine's to phase 5's."""
+    finish = eng._finish_prefill
+
+    def record(req, plen, last_logits):
+        row = (plen - 1) - (eng._prefill_done - last_logits.shape[1])
+        into[req.rid] = last_logits[0, row, :vocab].float().cpu().numpy()
+        return finish(req, plen, last_logits)
+
+    eng._finish_prefill = record
+
+
+def _held_launch(launch, plain, exact, tol):
+    """One kernel launch beside its plain version on the same card inputs:
+    bit for bit where ``exact``, else max|err| <= tol * max(1, max|plain|);
+    the kernels' counters must show the one launch.  Returns the record and
+    the kernel's output."""
+    import torch
+
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q
+
+    before = dip_matmul.launches + dip_matmul_q.launches
+    got = launch()
+    counted = dip_matmul.launches + dip_matmul_q.launches - before
+    want = plain()
+    err = float((got.float() - want.float()).abs().max())
+    bound = 0.0 if exact else tol * max(1.0, float(want.float().abs().max()))
+    ok = counted == 1 and got.dtype == want.dtype and (bool(torch.equal(got, want)) if exact else err <= bound)
+    return {"max_abs_err": err, "bound": bound, "exact": exact, "out_dtype": str(got.dtype), "counted": counted,
+            "ok": ok}, got
+
+
+def _phase9_dispatch(transport):
+    """9a / 9b on this rank: every case through its sharded backend on the
+    rank's shard, the single-rank dispatch of the whole weight and its plain
+    version beside it on the same card, this rank's own launch held against
+    its plain version on the same inputs (the row partials' f32 store; int8
+    bit for bit), the communicator's counts, the kernels' own counters, and
+    the device ms of this rank's launch (and of the single-rank dispatch)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.distributed import WeightPlan, comm, make_local_mesh, shard_weight
+    from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    dev = torch.device("cuda", 0 if transport == "host" else rank)
+    torch.cuda.set_device(dev)
+    meshes = {"m": make_local_mesh(data=1, model=world, transport=transport, device=dev),
+              "f": make_local_mesh(data=world, model=1, transport=transport, device=dev)}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    f32 = torch.float32
+
+    def draw(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    weights = {nm: [api.DipWeight.from_natural(draw(k, n, scale=k ** -0.5)) for _ in range(2)]
+               for nm, (k, n) in SHARDED_SHAPES.items()}
+    out, timers = [], []
+    for label, backend, kind, shape, epilogue, scheme, m in _sharded_cases():
+        k, n = SHARDED_SHAPES[shape]
+        mesh = meshes["f" if backend == "dip_fsdp" else "m"]
+        axis = "data" if backend == "dip_fsdp" else "model"
+        t, me = mesh.shape[axis], mesh.coord(axis)
+        x, resid = draw(m, k), draw(m, n)
+        full = weights[shape][:2 if epilogue == "swiglu" else 1]
+        if scheme:
+            full = [api.quant.quantize(w.to_natural().float(), scheme) for w in full]
+        plan = WeightPlan(kind, axis="model", fsdp="data", mesh=mesh)
+        loc = [shard_weight(w, plan, along="fsdp" if backend == "dip_fsdp" else "tp") for w in full]
+        xl, rl = x, resid
+        if kind == "row" and backend != "dip_fsdp":
+            xl = x[:, me * (k // t):(me + 1) * (k // t)].contiguous()
+        if backend == "dip_fsdp" or (backend == "dip_sp" and kind == "column"):
+            xl = x[me * (m // t):(me + 1) * (m // t)]
+        if backend == "dip_fsdp" or (backend == "dip_sp" and kind == "row"):
+            rl = resid[me * (m // t):(me + 1) * (m // t)]
+        ops = (rl,) if epilogue == "residual" else ()
+        w_arg = tuple(loc) if epilogue == "swiglu" else loc[0]
+        before = dip_matmul.launches + dip_matmul_q.launches
+        comm.reset()
+        got = api.matmul(xl, w_arg, backend=backend, epilogue=epilogue, epilogue_operands=ops)
+        torch.cuda.synchronize(dev)
+        counted = dip_matmul.launches + dip_matmul_q.launches - before
+        counts = comm.counts()
+
+        def whole(x=x, full=full, epilogue=epilogue, scheme=scheme, resid=resid):
+            return api.matmul(x, tuple(full) if epilogue == "swiglu" else full[0],
+                              backend=None if scheme else "dip", epilogue=epilogue,
+                              epilogue_operands=(resid,) if epilogue == "residual" else ())
+
+        single = whole()
+        with plain_backends():
+            plain = whole()
+        # this rank's launch alone, the per-shard product at the shard's
+        # shape, beside its plain version on the same inputs
+        if kind == "row" and backend != "dip_fsdp":
+            q = loc[0]
+            if scheme:
+                pair = (lambda xs=xl, q=q: dip_matmul_q(xs, q.data, q.scale, out_dtype=f32),
+                        lambda xs=xl, q=q: dip_matmul_q_plain(xs, q.data, q.scale, out_dtype=f32))
+            else:
+                pair = (lambda xs=xl, q=q: dip_matmul(xs, q.data, out_dtype=f32),
+                        lambda xs=xl, q=q: dip_matmul_plain(xs, q.data, out_dtype=f32))
+            held, part = _held_launch(*pair, exact=bool(scheme), tol=TOL["float32"])
+        else:
+            # fsdp: the gathered weight on the local rows; sp: one ring step
+            wl = [w.data for w in (full if backend == "dip_fsdp" else loc)]
+            args = (wl[0], wl[1]) if epilogue == "swiglu" else (wl[0], rl)
+            pair = (lambda xs=xl, a=args, e=epilogue: dip_matmul(xs, *a, epilogue=e),
+                    lambda xs=xl, a=args, e=epilogue: dip_matmul_plain(xs, *a, epilogue=e))
+            held, part = _held_launch(*pair, exact=False, tol=TOL["bfloat16"])
+        timers.append((pair[0], lambda x=x, full=full, epilogue=epilogue, scheme=scheme: api.matmul(
+            x, tuple(full) if epilogue == "swiglu" else full[0], backend=None if scheme else "dip",
+            epilogue="swiglu" if epilogue == "swiglu" else None)))
+        out.append({"label": label, "backend": backend, "kind": kind, "epilogue": epilogue, "scheme": scheme,
+                    "ranks": t, "got": got.float().cpu().numpy(), "single": single.float().cpu().numpy(),
+                    "plain": plain.float().cpu().numpy(), "held": held,
+                    "partial": part.float().cpu().numpy() if scheme else None, "counts": counts,
+                    "counted": counted, "want_counts": _sharded_want(backend, kind, epilogue, t)})
+        del got, single, plain, part
+    # the ranks share the card: each times its launches while the others wait
+    for r in range(world):
+        torch.distributed.barrier()
+        if r == rank:
+            for row, (launch, single_call) in zip(out, timers):
+                row["rank_ms"] = device_ms(launch, flush)
+                row["single_ms"] = device_ms(single_call, flush)
+        torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+    return out
+
+
+def _held_served_launches(eng, dev):
+    """9c on this rank, after serving: each DiP launch of the served forward
+    at its shard's shape, on the engine's own storage (layer 0's and the
+    lm_head's slices) at M = 4 (a decode step's slots) and 256 (a prefill
+    chunk), the kernel against its plain version on the same card inputs
+    (``_held_launch``): the column shards (q, k, v, gate+up under swiglu,
+    the lm_head) with the rmsnorm prologue fused, within bf16 TOL; the row
+    partials of o and down (the f32 store), within f32 TOL.  Each one's
+    device ms beside the plain version's, timed while the other ranks wait."""
+    import torch
+
+    from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
+
+    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1 + rank)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    lyr = eng.params["layers"]
+    shards = [("wq", [lyr["wq"]]), ("wk", [lyr["wk"]]), ("wv", [lyr["wv"]]),
+              ("w_gate + w_up", [lyr["w_gate"], lyr["w_up"]]), ("wo", [lyr["wo"]]), ("w_down", [lyr["w_down"]]),
+              ("lm_head", [eng.params["lm_head"]])]
+    out, calls = [], []
+    for m in (4, 256):
+        for label, ws in shards:
+            kind = ws[0].plan.kind
+            data = [w.data[0] if w.data.dim() == 3 else w.data for w in ws]
+            k, n = data[0].shape
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            if kind == "row":
+                kw = dict(out_dtype=torch.float32)
+            else:
+                kw = dict(epilogue="swiglu" if len(data) == 2 else "none", prologue="rmsnorm",
+                          prologue_operands=(torch.rand(k, generator=gen, device=dev) + 0.5,))
+            pair = (lambda x=x, d=data, kw=kw: dip_matmul(x, *d, **kw),
+                    lambda x=x, d=data, kw=kw: dip_matmul_plain(x, *d, **kw))
+            held, _ = _held_launch(*pair, exact=False, tol=TOL["float32" if kind == "row" else "bfloat16"])
+            out.append(dict(held, launch=label, kind=kind, m=m, k=k, n=n, epilogue=kw.get("epilogue", "none"),
+                            prologue=kw.get("prologue", "none")))
+            calls.append(pair)
+    for r in range(world):
+        torch.distributed.barrier()
+        if r == rank:
+            for rec, (launch, plain) in zip(out, calls):
+                rec["ms"], rec["plain_ms"] = device_ms(launch, flush), device_ms(plain, flush)
+        torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+    return out
+
+
+def _phase9_serve(prompts):
+    """9c on this rank: llama3-8b at full width through
+    ``Server(plan=make_plan(mesh(model=2), cfg_tp, "decode"))`` on the
+    ``host`` transport, phase 5's settings and requests: the rank draws
+    phase 5's weights from the same seed on the card, keeping only its
+    slice (``init_params(plan=)``).  Each step's collectives and launches,
+    wall ms, the device ms of one profiled decode step and prefill chunk,
+    the first-token logits, peak memory while building and while serving,
+    and each launch shape held to its plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.runtime import Request, Server, ServerConfig
+
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(data=1, model=torch.distributed.get_world_size(), transport="host", device=dev)
+    cfg = dataclasses.replace(get_config("llama3-8b"), matmul_backend="dip_tp", sharding="tp",
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    plan = make_plan(mesh, cfg, "decode")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    # phase 5's weights (the same draws), of which the rank keeps only its slice
+    params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+    server = Server(cfg, ServerConfig(batch_slots=4, max_seq=1024, max_new_tokens=16, temperature=0.0,
+                                      prefill_chunk=256), params, device=dev, plan=plan)
+    del params
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    build_peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    weights_gib = torch.cuda.memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = server.engine
+    steps = {"_prefill_fwd": [], "_decode": []}
+    profiled = {}
+    first = {}
+
+    def traced(attr):
+        f = getattr(eng, attr)
+
+        def run(*a):
+            calls = steps[attr]
+            c0, l0 = comm.counts(), dip_matmul.launches
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            if len(calls) == 1:  # the second call of each step, profiled: kernels and copies apart
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    res = f(*a)
+                    torch.cuda.synchronize(dev)
+                dev_ev = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                ms = {e.key: (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3
+                      for e in dev_ev}
+                copies = {k: v for k, v in ms.items() if k.startswith("Memcpy") or k.startswith("Memset")}
+                profiled[attr] = {"kernels_ms": sum(ms.values()) - sum(copies.values()),
+                                  "copies_ms": sum(copies.values()),
+                                  "kernel_launches": sum(e.count for e in dev_ev if e.key not in copies)}
+            else:
+                res = f(*a)
+            torch.cuda.synchronize(dev)
+            wall = 1e3 * (time.perf_counter() - t)
+            c1 = comm.counts()
+            calls.append({"wall_ms": wall, "collectives": {k: c1[k] - c0[k] for k in c1 if k != "launch"},
+                          "dip_launches": dip_matmul.launches - l0})
+            return res
+        setattr(eng, attr, run)
+
+    record_first_logits(eng, cfg.vocab_size, first)
+    traced("_prefill_fwd")
+    traced("_decode")
+    reqs = [Request(rid=i, prompt=np.asarray(p)) for i, p in enumerate(prompts)]
+    dip_matmul.launches = dip_matmul.launches_f32 = fa.flash_attention.launches = 0
+    comm.reset()
+    t0 = time.perf_counter()
+    results = server.serve(reqs)
+    wall = time.perf_counter() - t0
+    launches = {"dip_matmul": dip_matmul.launches, "dip_matmul_f32_x": dip_matmul.launches_f32,
+                "flash_attention": fa.flash_attention.launches}
+    # the host transport alone, no kernels in flight: one all-reduce of a
+    # decode step's and of a prefill chunk's f32 partials from the card, and
+    # the same bytes over gloo from host memory
+    transport = {}
+    for rows in (4, 256):
+        t_dev = torch.ones((rows, cfg.d_model), device=dev)
+        t_host = torch.ones((rows, cfg.d_model))
+        for what, fn in (("card", lambda: comm.psum(t_dev, mesh, "model")),
+                         ("host", lambda: torch.distributed.all_reduce(t_host, group=mesh.group("model")))):
+            ts = []
+            for _ in range(12):
+                torch.distributed.barrier()
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                ts.append(1e3 * (time.perf_counter() - t))
+            transport[f"{what}_{rows}x{cfg.d_model}_f32_ms"] = statistics.median(ts[2:])
+    out = {"results": results, "first_logits": first, "steps": steps, "profiled_device_ms": profiled,
+           "transport_ms": transport, "launches": launches,
+           "wall_s": wall, "build_s": build_s, "weights_gib": weights_gib, "build_peak_gib": build_peak_gib,
+           "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30,
+           "transport": mesh.transport, "eager_reason": eng.eager_reason, "captured": eng.captured,
+           "kv_heads": int(eng.kv.pools["layers"]["k"].shape[3])}
+    out["held_launches"] = _held_served_launches(eng, dev)  # after the peaks: its plain versions' f32 copies
+    return out
+
+
+def _phase9_reduced(prompts):
+    """9d on this rank: the reduced llama3-8b in f32, ``dip_tp`` over the
+    ranks on the card (host transport), seeded weights drawn on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import make_local_mesh, make_plan
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(data=1, model=torch.distributed.get_world_size(), transport="host", device=dev)
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip", compute_dtype="float32",
+                              param_dtype="float32")
+    params = tf_model.init_params(cfg, make_generator(SEED, dev), dev)
+    tp = dataclasses.replace(cfg, matmul_backend="dip_tp", sharding="tp")
+    eng = Engine(tp, params, engine_cfg=EngineConfig(slots=2, max_seq=64, prefill_chunk=16), device=dev,
+                 plan=make_plan(mesh, tp, "decode"))
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
+    dip_matmul.launches = dip_matmul.launches_f32 = 0
+    results = eng.run()
+    return {"results": results, "dip_launches": dip_matmul.launches, "dip_f32_x_launches": dip_matmul.launches_f32}
+
+
+def phase9_rank(rank, serve_prompts, reduced_prompts):
+    """One rank of the 2-rank world sharing the card (host transport): 9a,
+    then 9c on phase 5's weights and requests, then 9d.  Returns numpy and
+    numbers only."""
+    import warnings
+
+    warnings.simplefilter("ignore", UserWarning)  # the reduced model's K/V replicate (announced once)
+    out = {"9a": _phase9_dispatch("host")}
+    out["9c"] = _phase9_serve(serve_prompts)
+    out["9d"] = _phase9_reduced(reduced_prompts)
+    return out
+
+
+def phase9_nccl_rank(rank):
+    """9b: the dispatch cases in a 1-rank NCCL world on the card."""
+    return _phase9_dispatch("nccl")
 
 
 def main():
@@ -1824,6 +2219,180 @@ def main():
             f"sides; card launches {card[2]}")
         del qcpu, card, cpu
 
+    # ------------------------------------- 9. the sharded backends and TP ---
+    # Run once phase 5's weights are freed, against its first-token logits
+    # and tokens (each rank draws the same weights from the seed); 9b after.
+    def check_dispatch(phase, rows_by_rank):
+        """9a / 9b: each case's ranks assembled into the global output, held
+        to the plain version of the whole product and to the single-rank
+        dispatch on the card (bf16 TOL of the output's magnitude: f32 sums
+        cast once on each side); each rank's own launch to its plain version
+        on the same inputs (``_held_launch``: the row partials' f32 store
+        within f32 TOL, int8 bit for bit); the int8 row path to its shard
+        body byte for byte (the ranks' f32 partials summed, two shards:
+        order-free, then the one cast); the communicator's counts to the
+        reference's contract, the kernels' counters to the logged launches;
+        each rank's launch device ms beside the single-rank one."""
+        out = []
+        for i, row in enumerate(rows_by_rank[0]):
+            per = [r[i] for r in rows_by_rank]
+            kind, backend = row["kind"], row["backend"]
+            if backend == "dip_tp" and kind == "row":
+                got = per[0]["got"]
+                if any(not np.array_equal(p["got"], got) for p in per):
+                    raise AssertionError(f"phase {phase}: {row['label']}: the ranks' whole outputs differ")
+            elif backend == "dip_fsdp" or (backend == "dip_sp" and kind == "row"):
+                got = np.concatenate([p["got"] for p in per], 0)
+            else:
+                got = np.concatenate([p["got"] for p in per], -1)
+            errs, ok = {}, True
+            # int8: each K shard quantizes x with its own rows' maxima, so the
+            # whole product is held within the quantization error (bf16 TOL
+            # is not it) and the shard body byte for byte
+            for what in ("plain", "single") if not row["scheme"] else ():
+                want = row[what]
+                errs[what] = float(np.abs(got - want).max())
+                ok = ok and errs[what] <= TOL["bfloat16"] * max(1.0, float(np.abs(want).max()))
+            body_equal = None
+            if row["scheme"]:
+                body = torch.from_numpy(sum(p["partial"] for p in per[1:]) + per[0]["partial"]).bfloat16().float()
+                body_equal = bool(np.array_equal(got, body.numpy()))
+                errs["plain"] = float(np.abs(got - row["plain"]).max())
+                ok = ok and body_equal
+            held = [p["held"] for p in per]
+            ok = ok and all(h["ok"] for h in held)
+            counts_ok = all(row["counts"].get(k, 0) == v for k, v in row["want_counts"].items()) and all(
+                p["counted"] == p["counts"]["launch"] for p in per)
+            rec = {"case": row["label"], "max_abs_err_vs_plain": errs["plain"],
+                   "max_abs_err_vs_single": errs.get("single"), "within_tol": ok,
+                   "int8_body_byte_equal": body_equal, "rank_launch_vs_plain": held, "counts": row["counts"],
+                   "kernel_launches_counted": [p["counted"] for p in per],
+                   "rank_launch_ms": [p["rank_ms"] for p in per], "single_rank_ms": per[0]["single_ms"]}
+            tol_note = ("int8: the shard body byte for byte" if row["scheme"] else
+                        f"tol {TOL['bfloat16']} x max(1, max|want|)")
+            log(f"  {phase} {row['label']}: max|err| vs plain {errs['plain']:.3e}, vs the single-rank dispatch "
+                f"{errs.get('single', float('nan')):.3e} ({tol_note})"
+                f"{'' if body_equal is None else f', shard body byte-equal {body_equal}'}; each rank's launch "
+                f"({held[0]['out_dtype']}) vs plain {['%.3e' % h['max_abs_err'] for h in held]} "
+                f"({'bit for bit' if held[0]['exact'] else 'bounds ' + str(['%.3e' % h['bound'] for h in held])}); "
+                f"counts {row['counts']} (want {row['want_counts']}), kernel counters "
+                f"{rec['kernel_launches_counted']}; "
+                f"each rank's launch {['%.4f' % v for v in rec['rank_launch_ms']]} ms, the single-rank dispatch "
+                f"{per[0]['single_ms']:.4f} ms ({gpu})")
+            if not (ok and counts_ok):
+                raise AssertionError(f"phase {phase}: {row['label']}: {rec}")
+            out.append(rec)
+        return out
+
+    def phase9(reqs, results, first_logits, serving):
+        from repro_torch.distributed import run_world
+
+        # 9d's single-rank engine: the reduced llama3-8b in f32 on dip, the same seed
+        rcfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip",
+                                   compute_dtype="float32", param_dtype="float32")
+        prompts = [list(range(2, 9)), list(range(40, 57))]
+        with uncounted():
+            eng1 = Engine(rcfg, tf_model.init_params(rcfg, make_generator(SEED, "cuda"), "cuda"),
+                          engine_cfg=EngineConfig(slots=2, max_seq=64, prefill_chunk=16), device="cuda")
+            for rid, p in enumerate(prompts):
+                eng1.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
+            want_reduced = eng1.run()
+            del eng1
+        t0 = time.perf_counter()
+        outs = run_world(phase9_rank, 2, [r.prompt.tolist() for r in reqs], prompts, timeout=900.0)
+        world_s = time.perf_counter() - t0
+        res = {"world_s": world_s}
+        log(f"phase 9a: dip_tp / dip_fsdp / dip_sp at llama3-8b's gate+up and down, M = 4 and 256, bf16, and "
+            f"dip_int8w for the dip_tp row, over 2 ranks sharing the card ({outs[0]['9c']['transport']} "
+            f"transport)")
+        res["9a"] = check_dispatch("9a", [o["9a"] for o in outs])
+
+        # ---- 9c: llama3-8b tensor-parallel at full width ----
+        n_layers = 32
+        want_per_step = {"psum": 2 * n_layers + 1, "all_gather": 1, "reduce_scatter": 0, "ppermute": 0}
+        log(f"phase 9c: llama3-8b full width, bf16, dip_tp over 2 ranks ({outs[0]['9c']['transport']} transport: "
+            f"{outs[0]['9c']['eager_reason']}); phase 5's settings and requests")
+        tp = [o["9c"] for o in outs]
+        if any(t["results"] != tp[0]["results"] for t in tp):
+            raise AssertionError("phase 9c: the ranks served different tokens")
+        got = tp[0]["results"]
+        cmp = {}
+        for rid in sorted(results):
+            want_l, got_l = first_logits[rid], tp[0]["first_logits"][rid]
+            scale = max(1.0, float(np.abs(want_l).max()))
+            err = float(np.abs(got_l - want_l).max())
+            a, b = list(results[rid]), list(got[rid])
+            prefix = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            cmp[rid] = {"first_logits_max_abs_err": err, "scale": scale, "within": err <= FULL_TOL * scale,
+                        "equal_prefix": prefix, "phase5": a, "tp": b}
+            log(f"  request {rid}: first-token logits max|err| {err:.4e} against phase 5's (bound {FULL_TOL} x "
+                f"{scale:.2f}); tokens equal for the first {prefix} of {len(a)}: tp {b} | phase 5 {a}")
+        if not all(c["within"] for c in cmp.values()):
+            raise AssertionError(f"phase 9c: first-token logits off phase 5's: {cmp}")
+        per_rank = []
+        for r, t in enumerate(tp):
+            dec, pre = t["steps"]["_decode"], t["steps"]["_prefill_fwd"]
+            bad = [s["collectives"] for s in dec + pre if s["collectives"] != want_per_step]
+            bad_launches = [s["dip_launches"] for s in dec + pre if s["dip_launches"] != 193]
+            # every launch bf16 x on the tensor cores: none on the f32-x route
+            want_l = {"dip_matmul": 193 * (len(dec) + len(pre)), "dip_matmul_f32_x": 0, "flash_attention": 0}
+            rec = {"rank": r, "decode_steps": len(dec), "prefill_chunks": len(pre),
+                   "collectives_per_step": dec[0]["collectives"], "launches": t["launches"],
+                   "median_decode_step_wall_ms": statistics.median(s["wall_ms"] for s in dec),
+                   "median_prefill_chunk_wall_ms": statistics.median(s["wall_ms"] for s in pre),
+                   "decode_step_device": t["profiled_device_ms"].get("_decode"),
+                   "prefill_chunk_device": t["profiled_device_ms"].get("_prefill_fwd"),
+                   "transport_ms": t["transport_ms"],
+                   "peak_gib": t["peak_gib"], "peak_reserved_gib": t["peak_reserved_gib"],
+                   "build_peak_gib": t["build_peak_gib"],
+                   "weights_gib": t["weights_gib"], "kv_heads": t["kv_heads"], "build_s": t["build_s"],
+                   "wall_s": t["wall_s"]}
+            log(f"  rank {r}: {json.dumps(rec)} ({gpu})")
+            if bad or bad_launches or t["launches"] != want_l:
+                raise AssertionError(f"phase 9c rank {r}: collectives or launches off the design: {bad[:3]} "
+                                     f"{bad_launches[:3]} {t['launches']} (want {want_per_step}, 193 a step, {want_l})")
+            per_rank.append(rec)
+            # each launch shape of the served forward, on the rank's own
+            # storage, held to its plain version (``_held_served_launches``)
+            for h in t["held_launches"]:
+                log(f"  rank {r} {h['launch']} ({h['kind']}) M={h['m']} K={h['k']} N={h['n']} {h['epilogue']}/"
+                    f"{h['prologue']} -> {h['out_dtype']}: max|err| vs plain {h['max_abs_err']:.3e} (bound "
+                    f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms ({gpu})")
+            if not all(h["ok"] for h in t["held_launches"]):
+                raise AssertionError(f"phase 9c rank {r}: a served launch shape off its plain version: "
+                                     f"{[h for h in t['held_launches'] if not h['ok']]}")
+            rec["held_launches"] = t["held_launches"]
+        log(f"  per step and rank: {sum(want_per_step.values())} collectives ({want_per_step}: one all-reduce "
+            f"after wo and one after w_down in each of the {n_layers} layers, the embedding's all-reduce, the "
+            f"logits' all-gather) and 193 DiP launches, each a shard (q/k/v, gate+up and the lm_head N/2; o and "
+            f"down K/2); phase 5 single-rank: decode step {serving['median_decode_step_ms']:.3f} ms wall "
+            f"(captured), prefill chunk {serving['median_prefill_chunk_ms']:.3f} ms")
+        res["9c"] = {"requests": cmp, "ranks": per_rank, "transport": tp[0]["transport"],
+                     "eager_reason": tp[0]["eager_reason"], "collectives_per_step": want_per_step}
+
+        # ---- 9d: reduced f32 TP against the single-rank engine, exactly ----
+        got_r = [o["9d"]["results"] for o in outs]
+        log(f"phase 9d: reduced llama3-8b, f32, dip_tp over 2 ranks on the card: tokens {got_r[0]}; the single-rank "
+            f"engine's {want_reduced}")
+        if any(g != want_reduced for g in got_r):
+            raise AssertionError("phase 9d: the sharded engine's tokens differ from the single-rank engine's")
+        f32_x = [o["9d"]["dip_f32_x_launches"] for o in outs]
+        log(f"  9d's DiP launches a rank {[o['9d']['dip_launches'] for o in outs]}, of them on the f32-x route "
+            f"(IEEE FMAs on the CUDA cores, the first design): {f32_x}")
+        res["9d"] = {"equal": True, "tokens": want_reduced, "f32_x_launches": f32_x}
+
+        # ---- 9b: the same dispatch in a 1-rank NCCL world ----
+        t0 = time.perf_counter()
+        nccl = run_world(phase9_nccl_rank, 1, timeout=600.0)
+        log(f"phase 9b: the 9a calls in a 1-rank NCCL world on the card ({time.perf_counter() - t0:.1f} s)")
+        res["9b"] = check_dispatch("9b", nccl)
+        res["launches"] = {"serve_tp": {"dip_matmul": sum(t["launches"]["dip_matmul"] for t in tp),
+                                        "dip_matmul_f32_x": 0, "flash_attention": 0},
+                           "serve_tp_reduced": {"dip_matmul": sum(o["9d"]["dip_launches"] for o in outs),
+                                                "dip_matmul_f32_x": sum(f32_x)}}
+        log(f"  phase 9 wall: the 2-rank world {world_s:.1f} s")
+        return res
+
     # --------------------------------------- 8. reliability at full width ---
     # Run where the weights are: 8a and 8b on phase 5's llama3-8b weights
     # before they are freed, 8c after phase 6e (the weights phases 6 and 6d
@@ -2139,6 +2708,8 @@ def main():
 
     timed("_prefill_fwd")
     timed("_decode")
+    first_logits = {}  # each request's first-token logits (phase 9c holds the sharded engine's to them)
+    record_first_logits(eng, cfg.vocab_size, first_logits)
     rng = np.random.default_rng(SEED)
     reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, size=int(rng.integers(200, 601))))
             for i in range(4)]
@@ -2206,6 +2777,9 @@ def main():
     del server, eng, params, last_args, held
     gc.collect()
     torch.cuda.empty_cache()
+    log("phase 9 (after phase 5, against its logits and tokens): the sharded backends and llama3-8b "
+        "tensor-parallel over a 2-rank world sharing the card")
+    sharded_out = phase9(reqs, results, first_logits, serving)
     serve_launches = launches
     serve_launches.update(dip_matmul_q=0, dip_systolic=0)
 
@@ -3963,6 +4537,7 @@ def main():
     routes_by_path["serve_fp8_f32_reduced"] = fp8_f32_routes  # its flash launches: the reduced head dim 32
     paths["deepseek_whole_prompt"] = ds_serving["whole_prompt_forward"]["launches"]
     paths["serve_reliability"] = reliability_out["serving"]["launches"]  # phase 8b, every drill's engine
+    paths.update(sharded_out["launches"])  # phase 9c / 9d, both ranks' counters
     for nm, n in reliability_out["training"]["launches"].items():  # phase 8c
         paths[f"train_guarded_{nm.split('-')[0]}"] = n
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
@@ -3990,6 +4565,21 @@ def main():
         for key in ("bound_ms_f32_cuda_cores", "bf16_parts", "library_function_ms", "f32_core_share"):
             if key in row:
                 kernels[-1][key] = row[key]
+    # phase 9c: each launch shape of the tensor-parallel forward on rank 0's
+    # storage, against its plain version; and the launches with f32 x (the
+    # first-design route) by path
+    dip_line = next(kk for kk in kernels if kk["name"] == "dip_matmul")
+    dip_line["tp_shard_launches"] = []
+    for h in sharded_out["9c"]["ranks"][0]["held_launches"]:
+        dual = 2 if h["epilogue"] == "swiglu" else 1
+        out_bytes = 4 if h["kind"] == "row" else 2
+        b_ms, b_by = bound_ms(2 * (h["m"] * h["k"] + dual * h["k"] * h["n"]) + out_bytes * h["m"] * h["n"],
+                              2 * dual * h["m"] * h["k"] * h["n"], "bfloat16")
+        dip_line["tp_shard_launches"].append(
+            {key: h[key] for key in ("launch", "kind", "m", "k", "n", "epilogue", "prologue", "out_dtype",
+                                     "max_abs_err", "bound", "ms", "plain_ms")} | {"bound_ms": b_ms, "bound_by": b_by})
+    dip_line["launches_f32_x_by_path"] = {pth: v["dip_matmul_f32_x"] for pth, v in paths.items()
+                                          if "dip_matmul_f32_x" in v}
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
     routes_by_path["deepseek_whole_prompt"] = ds_serving["whole_prompt_forward"]["flash_routes"]
     flash_line["launches_by_route"] = {r: sum(v[r] for v in routes_by_path.values())

@@ -24,9 +24,9 @@ the same rows quantized on the CPU.  fp8 codes are the dtype cast itself:
 the scale maps amax onto 448, the format's largest normal, so no value
 leaves the range (where ``ml_dtypes`` would give NaN and torch saturates).
 
-``checksum`` is the optional ABFT child, as on ``DipWeight``.  The
-reference's ``plan`` (sharding, ROADMAP.md Queue 1 "Distributed") is not
-ported; passing one raises.
+``checksum`` is the optional ABFT child and ``plan`` the optional partition
+decision, as on ``DipWeight`` (under a plan ``data`` and, on a column
+plan, ``scale`` are this rank's shards).
 """
 
 from __future__ import annotations
@@ -87,19 +87,14 @@ def scheme_info(scheme: str) -> QuantScheme:
         raise ValueError(f"unknown quantization scheme {scheme!r}; supported: {sorted(SCHEMES)}") from None
 
 
-def _not_ported(plan) -> None:
-    if plan is not None:
-        raise NotImplementedError('weight plans are not ported yet (ROADMAP.md Queue 1 "Distributed")')
-
-
 class QuantizedDipWeight:
     """Quantized permutated storage plus per-output-channel scales."""
 
-    __slots__ = ("data", "scale", "d_in", "d_out", "perm_tile", "scheme", "checksum")
+    __slots__ = ("data", "scale", "d_in", "d_out", "perm_tile", "scheme", "plan", "checksum")
 
     def __init__(self, data: torch.Tensor, scale: torch.Tensor, d_in: int, d_out: int,
                  perm_tile: int = PERM_TILE, scheme: str = "int8", plan=None, checksum=None):
-        _not_ported(plan)
+        self.plan = plan
         self.data = data
         self.scale = scale
         self.d_in = int(d_in)
@@ -131,8 +126,10 @@ class QuantizedDipWeight:
 
     def dequantize(self, dtype: torch.dtype = torch.float32) -> DipWeight:
         """Scales applied in the permutated domain (they commute with the
-        per-column rotation); returns a float ``DipWeight``."""
-        return DipWeight((self.data.float() * self.scale).to(dtype), self.d_in, self.d_out, self.perm_tile)
+        per-column rotation); returns a float ``DipWeight`` (the plan rides
+        along)."""
+        return DipWeight((self.data.float() * self.scale).to(dtype), self.d_in, self.d_out, self.perm_tile,
+                         self.plan)
 
     def to_natural(self, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Dequantized natural-layout weight (inverse permutation + crop)."""
@@ -140,14 +137,22 @@ class QuantizedDipWeight:
 
     def with_data(self, data: torch.Tensor, scale: torch.Tensor, checksum=None) -> "QuantizedDipWeight":
         """Same metadata, different payloads (a layer slice, a device copy).
-        The checksum does not carry over unless passed as ``checksum=``."""
+        The checksum does not carry over unless passed as ``checksum=``; the
+        plan rides along."""
         return QuantizedDipWeight(data, scale, self.d_in, self.d_out, self.perm_tile, self.scheme,
-                                  checksum=checksum)
+                                  plan=self.plan, checksum=checksum)
 
     def with_checksum(self, checksum) -> "QuantizedDipWeight":
         """Same payloads, with an ABFT checksum attached."""
         return QuantizedDipWeight(self.data, self.scale, self.d_in, self.d_out, self.perm_tile, self.scheme,
-                                  checksum=checksum)
+                                  plan=self.plan, checksum=checksum)
+
+    def with_plan(self, plan) -> "QuantizedDipWeight":
+        """Same payloads, another partition decision."""
+        if plan == self.plan:
+            return self
+        return QuantizedDipWeight(self.data, self.scale, self.d_in, self.d_out, self.perm_tile, self.scheme,
+                                  plan=plan, checksum=self.checksum)
 
     def __repr__(self) -> str:
         return (f"QuantizedDipWeight({tuple(self.data.shape)}:{self.data.dtype}, scheme={self.scheme!r}, "

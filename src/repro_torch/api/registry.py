@@ -64,9 +64,19 @@ output is bit-identical to the unverified call's, then audits it with
 returns ``(out, report)``.  Every built-in backend computes an exact
 product, so each declares ``abft=True``.
 
-Not ported yet: sharded plans (ROADMAP.md Queue 1 "Distributed") and the
-block-size tuning table (Queue 1 "Tooling"; the kernel's tile is fixed at
-64).
+Sharded backends (port of the reference's ``"sharded"`` layout): ``dip_tp``,
+``dip_fsdp`` and ``dip_sp`` (``kernels/dip_matmul_sharded.py``) dispatch on
+the ``WeightPlan`` the weight carries (``distributed.plan``), as ``fn(x,
+weights, operands, plan=, epilogue=, prologue=, prologue_operands=,
+prologue_eps=)`` on this rank's shard; they fuse every prologue and
+epilogue (per shard or once past the reduction).  A weight with no plan, or
+one whose split is absent (a replicated plan; no fsdp axis for
+``dip_fsdp``), decomposes to the single-device path: the ``dip`` kernel for
+a ``DipWeight``, its scheme's kernel for a ``QuantizedDipWeight``, the
+default backend for a natural tensor.  Any other backend refuses a weight
+that holds one rank's shard of its storage.  ``dip_ep`` is not ported yet
+(ROADMAP.md Queue 1 "Distributed"), nor is the block-size tuning table
+(Queue 1 "Tooling"; the kernel's tile is fixed at 64).
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ from repro_torch.kernels import prologue as prologue_lib
 from repro_torch.kernels.dip_matmul import dip_matmul
 from repro_torch.kernels.dip_matmul_q import dip_matmul_q
 from repro_torch.kernels.dip_systolic import dip_systolic
+from repro_torch.kernels.dip_matmul_sharded import dip_fsdp_matmul, dip_sp_matmul, dip_tp_matmul
 
 __all__ = [
     "MatmulBackend",
@@ -120,7 +131,7 @@ class MatmulBackend:
     """
 
     name: str
-    layout: str  # "natural" | "dip" | "dip_q"
+    layout: str  # "natural" | "dip" | "dip_q" | "sharded"
     fn: Callable
     tiled: bool = True
     epilogues: FrozenSet[str] = frozenset({"none"})
@@ -163,17 +174,22 @@ _REGISTRY: Dict[str, MatmulBackend] = {
                       scheme="fp8_e4m3",
                       description="CUDA fp8-e4m3-weight kernel: bf16 compute on a card, f32 on "
                                   "the CPU, fused scale on output"),
+        MatmulBackend("dip_tp", "sharded", dip_tp_matmul, tiled=False, epilogues=_ALL, prologues=_ALL_PRO,
+                      description="tensor parallel: column shards with no collective, row shards with "
+                                  "one all-reduce and the epilogue after it"),
+        MatmulBackend("dip_fsdp", "sharded", dip_fsdp_matmul, tiled=False, epilogues=_ALL,
+                      prologues=_ALL_PRO,
+                      description="ZeRO-3: one all-gather of the K-sharded storage per weight, one "
+                                  "launch on the local rows"),
+        MatmulBackend("dip_sp", "sharded", dip_sp_matmul, tiled=False, epilogues=_ALL, prologues=_ALL_PRO,
+                      description="sequence parallel: the rows ring through the column launches, "
+                                  "row shards end in one reduce-scatter"),
     )
 }
 # the reference's backend names, so its configurations resolve here
 _ALIASES = {"xla": "torch", "pallas_dip": "dip", "pallas_systolic": "systolic"}
 _DIST = 'ROADMAP.md Queue 1 "Distributed"'
-_NOT_PORTED = {
-    "dip_tp": _DIST,
-    "dip_fsdp": _DIST,
-    "dip_sp": _DIST,
-    "dip_ep": _DIST,
-}
+_NOT_PORTED = {"dip_ep": _DIST}
 
 
 def get_backend(name: Optional[str] = None) -> MatmulBackend:
@@ -191,8 +207,37 @@ def list_backends() -> List[str]:
 
 
 def backend_layout(name: Optional[str] = None) -> str:
-    """Weight layout the named backend consumes ("natural" | "dip" | "dip_q")."""
+    """Weight layout the named backend consumes ("natural" | "dip" | "dip_q"
+    | "sharded")."""
     return get_backend(name).layout
+
+
+def _is_shard(w) -> bool:
+    """Whether a DiP weight's storage is one rank's shard of its logical
+    dims (``distributed.shard_weight``)."""
+    if not isinstance(w, (DipWeight, QuantizedDipWeight)):
+        return False
+    return tuple(w.data.shape[-2:]) != DipWeight.storage_dims(w.d_in, w.d_out, w.perm_tile)
+
+
+def _sharded_dispatch(be, x, w, weights, epilogue, operands, prologue, pro_operands, eps, verify):
+    """The plan-aware dispatch on (weight.plan, backend, epilogue), or the
+    decomposition of a weight whose split is absent."""
+    plan = getattr(weights[0], "plan", None)
+    needs_fsdp = be.name == "dip_fsdp"
+    if (plan is None or plan.mesh is None or (not needs_fsdp and plan.kind == "replicated")
+            or (needs_fsdp and plan.fsdp is None)):
+        if any(_is_shard(wi) for wi in weights):
+            raise ValueError(f"{be.name}: the weight holds one rank's shard but its plan {plan!r} splits nothing")
+        inner = "dip" if isinstance(weights[0], DipWeight) else None
+        return matmul(x, w, backend=inner, epilogue=epilogue, epilogue_operands=operands, prologue=prologue,
+                      prologue_operands=pro_operands, prologue_eps=eps, verify=verify)
+    if verify:
+        raise NotImplementedError(f"verify= on the sharded backend {be.name!r} is not ported yet ({_DIST})")
+    if prologue != "none":
+        _check_prologue_inputs(weights, prologue, pro_operands)
+    return be.fn(x, weights, operands, plan=plan, epilogue=epilogue, prologue=prologue,
+                 prologue_operands=pro_operands, prologue_eps=eps)
 
 
 # ------------------------------------------------------------------ shim ---
@@ -433,6 +478,12 @@ def matmul(
     if backend is None and isinstance(weights[0], QuantizedDipWeight):
         backend = weights[0].default_backend
     be = get_backend(backend)
+    if be.layout == "sharded":
+        return _sharded_dispatch(be, x, w, weights, epilogue, operands, prologue, pro_operands, prologue_eps,
+                                 verify)
+    if any(_is_shard(wi) for wi in weights):
+        raise ValueError(f"backend {be.name!r} was given one rank's shard of a weight; dispatch it through "
+                         "its plan's sharded backend (dip_tp / dip_fsdp / dip_sp)")
 
     if verify:
         # the ordinary dispatch, then the audit outside it (reliability sits

@@ -7,8 +7,11 @@ zero-padded to the tile grid; ``d_in`` / ``d_out`` are the logical dims;
 axis) pass through.  ``checksum`` is an optional ABFT child
 (``reliability.abft.AbftChecksum``, stamped by ``attach_checksums``) that
 ``tree`` flattens after ``data`` as the reference does; a new payload or a
-cast drops it.  The reference's ``plan`` field belongs to the sharded
-backends, which are not ported yet (ROADMAP.md Queue 1 "Distributed").
+cast drops it.  ``plan`` is the optional partition decision
+(``distributed.plan.WeightPlan``) that the sharded backends (``dip_tp`` /
+``dip_fsdp`` / ``dip_sp``) dispatch on; it rides through a layer slice, a
+cast and a new payload.  Under a plan ``data`` is this rank's shard of the
+storage while ``d_in`` / ``d_out`` stay the whole weight's logical dims.
 
 Gradients need nothing of this class: ``data`` is the parameter leaf, and
 the layer slice (``with_data(data[i])``), the cast of :meth:`astype` and the
@@ -36,14 +39,15 @@ def _pad_up(v: int, multiple: int) -> int:
 class DipWeight:
     """Permutated weight storage plus logical-shape metadata."""
 
-    __slots__ = ("data", "d_in", "d_out", "perm_tile", "checksum")
+    __slots__ = ("data", "d_in", "d_out", "perm_tile", "plan", "checksum")
 
     def __init__(self, data: torch.Tensor, d_in: int, d_out: int, perm_tile: int = PERM_TILE,
-                 checksum: Any = None):
+                 plan: Any = None, checksum: Any = None):
         self.data = data
         self.d_in = int(d_in)
         self.d_out = int(d_out)
         self.perm_tile = int(perm_tile)
+        self.plan = plan
         self.checksum = checksum
 
     @staticmethod
@@ -52,11 +56,11 @@ class DipWeight:
         return _pad_up(d_in, perm_tile), _pad_up(d_out, perm_tile)
 
     @classmethod
-    def from_natural(cls, w: torch.Tensor, perm_tile: int = PERM_TILE) -> "DipWeight":
+    def from_natural(cls, w: torch.Tensor, perm_tile: int = PERM_TILE, plan: Any = None) -> "DipWeight":
         """Offline permutation (paper Fig. 3): pad to the tile grid and
         permute each tile; leading dims pass through."""
         d_in, d_out = int(w.shape[-2]), int(w.shape[-1])
-        return cls(permute.permute_tiled(w, perm_tile), d_in, d_out, perm_tile)
+        return cls(permute.permute_tiled(w, perm_tile), d_in, d_out, perm_tile, plan)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -92,16 +96,24 @@ class DipWeight:
     def with_data(self, data: torch.Tensor, checksum: Any = None) -> "DipWeight":
         """Same metadata, different payload (a layer slice, a device copy).
         The checksum does not carry over (a new payload invalidates it);
-        pass ``checksum=`` to thread a matching one."""
-        return DipWeight(data, self.d_in, self.d_out, self.perm_tile, checksum)
+        pass ``checksum=`` to thread a matching one.  The plan rides along."""
+        return DipWeight(data, self.d_in, self.d_out, self.perm_tile, self.plan, checksum)
 
     def with_checksum(self, checksum: Any) -> "DipWeight":
         """Same payload, with an ABFT checksum attached."""
-        return DipWeight(self.data, self.d_in, self.d_out, self.perm_tile, checksum)
+        return DipWeight(self.data, self.d_in, self.d_out, self.perm_tile, self.plan, checksum)
+
+    def with_plan(self, plan: Any) -> "DipWeight":
+        """Same payload, another partition decision
+        (``distributed.ShardingPlan.attach_params``)."""
+        if plan == self.plan:
+            return self
+        return DipWeight(self.data, self.d_in, self.d_out, self.perm_tile, plan, self.checksum)
 
     def __repr__(self) -> str:
+        plan = "" if self.plan is None else f", plan={self.plan!r}"
         return (f"DipWeight({tuple(self.data.shape)}:{self.data.dtype}, d_in={self.d_in}, "
-                f"d_out={self.d_out}, perm_tile={self.perm_tile})")
+                f"d_out={self.d_out}, perm_tile={self.perm_tile}{plan})")
 
 
 def as_dip_weight(w) -> DipWeight:

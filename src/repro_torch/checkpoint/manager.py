@@ -13,7 +13,11 @@ other way round.  Leaves are named by the reference's paths
 ABFT checksum as ``.checksum/.col`` ... (``tree``).  A checkpoint whose
 ``DipWeight`` carries a checksum restores into a target without one: the
 checksum is placed on the restored weight.  Any other leaf the target tree
-cannot place raises.  bf16 leaves are stored as ``uint16`` views with the
+cannot place raises.  A ``DipWeight``'s ``WeightPlan`` is written as its
+``describe()`` form (the mesh reduced to axis sizes) beside its logical
+dims, and a restore validates it against the target's live plan, as the
+reference does: the kind and axes must agree where both sides carry a plan,
+and the saved axes must exist in the live mesh.  bf16 leaves are stored as ``uint16`` views with the
 manifest naming the real dtype, as the reference stores them.
 
 * **Atomicity** — a step directory either has a complete manifest or is a
@@ -81,14 +85,37 @@ def _dtype_name(leaf, arr: np.ndarray) -> str:
 
 
 def _dip_index(t: Any, prefix: str = "") -> Dict[str, Dict]:
-    """path -> logical-shape metadata of every ``DipWeight`` node."""
+    """path -> logical-shape metadata (and plan) of every ``DipWeight`` node."""
     out: Dict[str, Dict] = {}
     if isinstance(t, dict):
         for k in sorted(t):
             out.update(_dip_index(t[k], f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]"))
     elif isinstance(t, DipWeight):
         out[prefix] = {"d_in": t.d_in, "d_out": t.d_out, "perm_tile": t.perm_tile}
+        if t.plan is not None:
+            out[prefix]["plan"] = t.plan.describe()
     return out
+
+
+_DIP_CORE_KEYS = ("d_in", "d_out", "perm_tile")
+
+
+def _check_dip_entry(path: str, saved: Dict, live: Dict) -> None:
+    """The reference's restore-time check of one weight: the logical dims
+    exactly; the plans for compatibility (kind and axes where both sides
+    carry one, the saved axes present in the live mesh)."""
+    if any(saved.get(k) != live.get(k) for k in _DIP_CORE_KEYS):
+        raise ValueError(f"DipWeight metadata mismatch at {path}: checkpoint {saved}, restore target {live}")
+    sp, lp = saved.get("plan"), live.get("plan")
+    if not sp or not lp:
+        return
+    if (sp.get("kind"), sp.get("axis"), sp.get("fsdp")) != (lp.get("kind"), lp.get("axis"), lp.get("fsdp")):
+        raise ValueError(f"ShardingPlan mismatch at {path}: checkpoint plan {sp}, restore target plan {lp}")
+    live_axes = lp.get("mesh_axes") or {}
+    for a in (sp.get("axis"), sp.get("fsdp")):
+        if a and a not in live_axes:
+            raise ValueError(f"ShardingPlan mismatch at {path}: saved plan shards over axis {a!r} which the "
+                             f"live mesh (axes {sorted(live_axes)}) does not have")
 
 
 _THREADS = min(8, os.cpu_count() or 1)  # the threads that write or read and check the leaf files
@@ -180,9 +207,8 @@ def restore_pytree(path: str, like: Any) -> Any:
     live_dip = _dip_index(like)
     for p, saved in manifest.get("dip_weights", {}).items():
         live = live_dip.get(p)
-        if live is not None and any(saved.get(k) != live[k] for k in live):
-            raise ValueError(f"DipWeight metadata mismatch at {p}: checkpoint {saved}, "
-                             f"restore target {live}")
+        if live is not None:
+            _check_dip_entry(p, saved, live)
     by_path = {e["path"]: e for e in manifest["leaves"]}
     like = _place_checksums(like, by_path)
     pairs = tree.paths(like)

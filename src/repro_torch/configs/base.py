@@ -132,7 +132,8 @@ class ArchConfig:
             return True
         from repro_torch import api  # deferred: keep config import light
 
-        return api.backend_layout(self.matmul_backend) in ("dip", "dip_q")
+        # the sharded backends run the dip-layout kernels on the local shards
+        return api.backend_layout(self.matmul_backend) in ("dip", "dip_q", "sharded")
 
     @property
     def is_moe(self) -> bool:

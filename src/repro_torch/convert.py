@@ -11,7 +11,11 @@ reference's ``QuantizedDipWeight`` (checked first, so its scales are never
 dropped); any other with ``data`` (numpy storage, kept permutated),
 ``d_in``, ``d_out`` and ``perm_tile`` is a ``DipWeight``.  Either one's ABFT
 ``checksum`` (the reference's ``AbftChecksum``, read by its fields) comes
-across as a ``reliability.AbftChecksum`` of tensors.
+across as a ``reliability.AbftChecksum`` of tensors, and its ``plan`` (the
+reference's ``WeightPlan``, which holds a JAX mesh) as a
+``distributed.WeightPlan`` of its kind and axis names only: a rank's slice
+of the reference's parameters is ``plan.shard_params(params_from_jax(...))``
+under a live ``ShardingPlan``, which decides each weight's plan anew.
 
 Every family's tree converts leaf by leaf the same way: the SSM scalars and
 norms as tensors, ``in_proj`` / ``out_proj`` as ``DipWeight``, the hybrid's
@@ -34,6 +38,7 @@ import torch
 from repro_torch.api import DipWeight
 from repro_torch.api.quant import QuantizedDipWeight
 from repro_torch.device import resolve_device
+from repro_torch.distributed.plan import WeightPlan
 from repro_torch.reliability.abft import AbftChecksum
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "tensor_from_numpy"]
@@ -57,6 +62,11 @@ def _checksum(cs, dev):
                           for f in AbftChecksum._fields))
 
 
+def _plan(v):
+    p = getattr(v, "plan", None)
+    return None if p is None else WeightPlan(kind=p.kind, axis=p.axis, fsdp=p.fsdp)
+
+
 def _convert(v, dev):
     if isinstance(v, dict):
         return {k: _convert(x, dev) for k, x in v.items()}
@@ -65,11 +75,10 @@ def _convert(v, dev):
     dip = all(hasattr(v, a) for a in ("data", "d_in", "d_out", "perm_tile"))
     if dip and hasattr(v, "scale") and hasattr(v, "scheme"):
         return QuantizedDipWeight(tensor_from_numpy(v.data, dev), tensor_from_numpy(v.scale, dev),
-                                  v.d_in, v.d_out, v.perm_tile, v.scheme,
-                                  plan=getattr(v, "plan", None),
+                                  v.d_in, v.d_out, v.perm_tile, v.scheme, plan=_plan(v),
                                   checksum=_checksum(getattr(v, "checksum", None), dev))
     if dip:
-        return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile,
+        return DipWeight(tensor_from_numpy(v.data, dev), v.d_in, v.d_out, v.perm_tile, plan=_plan(v),
                          checksum=_checksum(getattr(v, "checksum", None), dev))
     return tensor_from_numpy(v, dev)
 

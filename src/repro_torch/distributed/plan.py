@@ -1,0 +1,399 @@
+"""``ShardingPlan`` — the mesh, the declarative per-weight partition rules
+and the activation constraints (port of ``repro/distributed/plan.py``).
+
+The reference's plan is global-view: a ``PartitionSpec`` says how XLA
+splits a global array.  The port runs one process per rank, each holding
+only its shard (Megatron-style local view, as the reference's
+``kernels/dip_matmul_sharded.py`` module doc describes it), so a spec here
+says which slice of a leaf this rank holds; the global array is the
+concatenation of the ranks' slices along the spec's dims.  Specs are
+tuples of axis names (or None), one per dim, as ``PartitionSpec`` holds
+them.
+
+* :data:`LAYER_RULES` maps a template leaf name to its role; a role
+  resolves to a concrete :class:`WeightPlan` (column / row / replicated)
+  against this plan's mesh (:meth:`ShardingPlan.weight_plan`), checked
+  against the *storage* dims so every shard is perm-tile-aligned DiP
+  storage.  A mis-sized dim replicates and warns once (``strict`` raises).
+* :meth:`ShardingPlan.attach_params` stamps every ``DipWeight`` /
+  ``QuantizedDipWeight`` with its plan; :meth:`ShardingPlan.shard_params`
+  also cuts each leaf to this rank's slice (the ``tp`` strategy's
+  layout: projections by their plan, the embedding and the lm_head by
+  vocab, everything else whole).
+* ``with_sharding_constraint`` has no counterpart: the explicit strategies
+  place every collective by hand, so :meth:`ShardingPlan.constrain` is the
+  identity.
+
+Strategies this slice runs: ``tp`` (the model path and the matmul
+backends), ``fsdp`` and ``sp`` (the matmul backends), and ``gspmd`` over a
+one-rank mesh.  ``ep``, ``pp`` and ``gspmd`` over more than one rank raise,
+citing ROADMAP.md Queue 1 "Distributed"; so does a ``stage`` axis
+(:func:`make_local_mesh`).  ``make_production_mesh`` (a 256/512-chip TPU
+pod layout) waits with the dry-run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Any, Dict, Optional, Set, Tuple
+
+import torch
+
+from repro_torch.api.quant import QuantizedDipWeight
+from repro_torch.api.weights import DipWeight
+from repro_torch.distributed.comm import Mesh, build_mesh
+
+__all__ = ["WeightPlan", "LAYER_RULES", "ShardingPlan", "make_plan", "make_local_mesh", "STRATEGIES",
+           "shard_weight"]
+
+_DIST = 'ROADMAP.md Queue 1 "Distributed"'
+STRATEGIES = ("gspmd", "tp", "fsdp", "sp", "ep", "pp")
+_RUNS = ("gspmd", "tp", "fsdp", "sp")
+
+Spec = Tuple[Optional[str], ...]
+
+
+def make_local_mesh(data: int = 1, model: int = 1, stage: int = 1, *, transport: Optional[str] = None,
+                    device=None) -> Mesh:
+    """The ("data", "model") mesh over the initialized world (every rank
+    calls it alike); ``device`` is this rank's device (default the CPU, over
+    gloo) and ``transport`` how the ranks talk (see ``distributed.comm``: a
+    CUDA mesh must say ``"nccl"`` or ``"host"``)."""
+    if stage > 1:
+        raise NotImplementedError(f"pipeline stages are not ported yet ({_DIST})")
+    return build_mesh({"data": data, "model": model}, transport=transport, device=device)
+
+
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class WeightPlan:
+    """One weight's partition decision: ``kind`` is the tensor-parallel role
+    of the (d_in, d_out) storage (column: d_out over ``axis``; row: d_in
+    over ``axis``; replicated; expert), ``fsdp`` the ZeRO-3 axis that
+    ``dip_fsdp`` splits K over, ``mesh`` the mesh the decision was made
+    against (None for a plan read from a reference checkpoint or weight,
+    which carries only its kind and axes)."""
+
+    kind: str = "replicated"
+    axis: Optional[str] = None
+    fsdp: Optional[str] = None
+    mesh: Optional[Mesh] = None
+
+    def __post_init__(self):
+        if self.kind not in ("column", "row", "replicated", "expert"):
+            raise ValueError(f"WeightPlan.kind must be column | row | replicated | expert, got {self.kind!r}")
+
+    def axis_size(self, name: Optional[str]) -> int:
+        if name is None or self.mesh is None or name not in self.mesh.shape:
+            return 1
+        return int(self.mesh.shape[name])
+
+    @property
+    def tp_size(self) -> int:
+        return self.axis_size(self.axis)
+
+    @property
+    def fsdp_size(self) -> int:
+        return self.axis_size(self.fsdp)
+
+    def describe(self) -> Dict[str, Any]:
+        """JSON-safe manifest form (the mesh reduced to its axis sizes), as
+        the reference writes it."""
+        return {"kind": self.kind, "axis": self.axis, "fsdp": self.fsdp,
+                "mesh_axes": None if self.mesh is None else dict(self.mesh.shape)}
+
+    def __repr__(self) -> str:
+        parts = [self.kind]
+        if self.axis:
+            parts.append(f"axis={self.axis}:{self.tp_size}")
+        if self.fsdp:
+            parts.append(f"fsdp={self.fsdp}:{self.fsdp_size}")
+        return f"WeightPlan({', '.join(parts)})"
+
+
+LAYER_RULES: Dict[str, str] = {
+    "embed": "embed",
+    "lm_head": "lm_head",
+    "final_norm": "replicated",
+    "wq": "column", "wk": "column", "wv": "column",
+    "w_gate": "column", "w_up": "column",
+    "in_proj": "column", "w_dkv": "column", "w_krope": "column",
+    "w_uk": "column", "w_uv": "column",
+    "shared_w_gate": "column", "shared_w_up": "column",
+    "wo": "row", "w_down": "row",
+    "out_proj": "row", "shared_w_down": "row",
+    "router": "router",
+    "bq": "bias_out", "bk": "bias_out", "bv": "bias_out",
+    "conv_w": "conv",
+    "conv_b": "vector_tp", "norm": "vector_tp",
+    "dt_bias": "vector_tp", "A_log": "vector_tp", "D": "vector_tp",
+}
+
+_TP_KINDS = {"column": "column", "row": "row"}
+
+
+def _rule_for(name: Optional[str], shape: Tuple[int, ...]) -> str:
+    if name in ("w_gate", "w_up", "w_down") and len(shape) == 4:
+        return "expert_bank"
+    return LAYER_RULES.get(name, "replicated")
+
+
+_WARNED: Set[Tuple] = set()
+
+
+def _surface_fallback(leaf: str, dim: int, axis: str, size: int, strict: bool) -> None:
+    msg = (f"ShardingPlan: leaf {leaf!r} dim {dim} does not divide mesh axis {axis!r}={size}; "
+           "replicating instead of sharding")
+    if strict:
+        raise ValueError(msg + " (strict=True)")
+    key = (leaf, dim, axis, size)
+    if key not in _WARNED:
+        _WARNED.add(key)
+        warnings.warn(msg, UserWarning, stacklevel=3)
+
+
+# ------------------------------------------------------------ the shards ---
+def _slice(t: torch.Tensor, dim: int, index: int, parts: int) -> torch.Tensor:
+    size = t.shape[dim] // parts
+    return t.narrow(dim, index * size, size).clone()
+
+
+def shard_weight(w, plan: WeightPlan, *, along: str = "tp"):
+    """This rank's shard of a whole DiP-stored weight under ``plan``, with
+    the plan attached: ``along="tp"`` cuts the storage's N (column; the
+    quantized scales with it) or K (row) over the plan's axis (the layout
+    ``dip_tp`` and ``dip_sp`` consume); ``along="fsdp"`` cuts K over its
+    fsdp axis (``dip_fsdp``).  The logical ``d_in`` / ``d_out`` stay the
+    whole weight's.  Leading (layer) dims pass through."""
+    if plan.mesh is None:
+        raise ValueError("shard_weight needs a WeightPlan with a mesh")
+    if along == "tp":
+        axis, dim = plan.axis, {"column": -1, "row": -2}.get(plan.kind)
+    elif along == "fsdp":
+        axis, dim = plan.fsdp, -2
+    else:
+        raise ValueError(f"along must be 'tp' or 'fsdp', got {along!r}")
+    if axis is None or dim is None:
+        return w.with_plan(plan)
+    parts, idx = plan.mesh.shape[axis], plan.mesh.coord(axis)
+    data = _slice(w.data, w.data.dim() + dim, idx, parts)
+    if isinstance(w, QuantizedDipWeight):
+        scale = _slice(w.scale, w.scale.dim() - 1, idx, parts) if dim == -1 else w.scale.clone()
+        return QuantizedDipWeight(data, scale, w.d_in, w.d_out, w.perm_tile, w.scheme, plan=plan)
+    return DipWeight(data, w.d_in, w.d_out, w.perm_tile, plan=plan)
+
+
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class ShardingPlan:
+    """Mesh + partition rules + activation constraints for one (mesh,
+    config, phase) triple; ``strategy`` comes from ``cfg.sharding`` and
+    ``explicit_backend`` names the matmul backend its projections take."""
+
+    mesh: Mesh
+    cfg: Any
+    mode: str
+    strict: bool = False
+    fsdp: Optional[str] = None
+    tp: Optional[str] = None
+
+    def __post_init__(self):
+        names = self.mesh.axis_names
+        self.fsdp = "data" if "data" in names else None
+        self.tp = "model" if "model" in names else None
+        strategy = self.strategy
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown sharding strategy {strategy!r} (cfg.sharding); supported: {STRATEGIES}")
+        if strategy not in _RUNS or (strategy == "gspmd" and self.mesh.size > 1):
+            what = "implicit gspmd partitioning over more than one rank" if strategy == "gspmd" else \
+                f"sharding strategy {strategy!r}"
+            raise NotImplementedError(f"{what} is not ported yet ({_DIST})")
+
+    # ---------------------------------------------------------- strategy ---
+    @property
+    def strategy(self) -> str:
+        return getattr(self.cfg, "sharding", "gspmd") or "gspmd"
+
+    @property
+    def explicit_backend(self) -> Optional[str]:
+        return {"tp": "dip_tp", "fsdp": "dip_fsdp", "sp": "dip_sp", "ep": "dip_ep", "pp": None,
+                "gspmd": None}[self.strategy]
+
+    @property
+    def tp_size(self) -> int:
+        return int(self.mesh.shape[self.tp]) if self.tp else 1
+
+    @property
+    def tp_rank(self) -> int:
+        return self.mesh.coord(self.tp) if self.tp else 0
+
+    # ---------------------------------------------------------- helpers ----
+    def _tp_if(self, n: int, leaf: Optional[str] = None) -> Optional[str]:
+        return self._axis_if(self.tp, n, leaf)
+
+    def _fsdp_if(self, n: int, leaf: Optional[str] = None) -> Optional[str]:
+        return self._axis_if(self.fsdp, n, leaf)
+
+    def _axis_if(self, axis: Optional[str], n: int, leaf: Optional[str]) -> Optional[str]:
+        if not axis or axis not in self.mesh.shape:
+            return None
+        if n % self.mesh.shape[axis] == 0:
+            return axis
+        if leaf is not None:
+            _surface_fallback(leaf, n, axis, self.mesh.shape[axis], self.strict)
+        return None
+
+    @property
+    def heads_on_tp(self) -> bool:
+        """Can attention shard heads over the TP axis (both q and kv)?"""
+        cfg = self.cfg
+        if not cfg.n_heads or not self.tp:
+            return False
+        tp = self.mesh.shape[self.tp]
+        if self.mode == "decode":
+            return cfg.n_kv_heads % tp == 0 and cfg.n_heads % tp == 0
+        return cfg.n_heads % tp == 0
+
+    # ------------------------------------------------------------ params ---
+    def param_pspec(self, name: str, shape: Tuple[int, ...]) -> Spec:
+        """The spec of a template leaf through LAYER_RULES (layer-stacked
+        shapes included), as the reference's ``param_pspec``."""
+        rule = _rule_for(name, shape)
+        stacked = rule not in ("embed", "lm_head") and name != "final_norm" and len(shape) >= 1
+        lead = (None,) if stacked else ()
+        body = shape[1:] if stacked else shape
+        if rule == "embed":
+            return (self._tp_if(shape[0], name), self._fsdp_if(shape[1], name))
+        if rule == "lm_head":
+            combo = tuple(a for a in (self.fsdp, self.tp) if a)
+            size = 1
+            for a in combo:
+                size *= self.mesh.shape[a]
+            if combo and shape[1] % size == 0:
+                return (None, combo)
+            return (self._fsdp_if(shape[0], name), self._tp_if(shape[1], name))
+        if rule == "expert_bank":
+            return (*lead, self._tp_if(body[0], name), self._fsdp_if(body[1], name), None)
+        if rule == "router":
+            return (*lead, self._fsdp_if(body[0], name), None)
+        if rule in ("column", "row"):
+            if len(body) != 2:
+                return (*lead, *([None] * len(body)))
+            if rule == "column":
+                return (*lead, self._fsdp_if(body[0], name), self._tp_if(body[1], name))
+            return (*lead, self._tp_if(body[0], name), self._fsdp_if(body[1], name))
+        if rule == "bias_out":
+            return (*lead, self._tp_if(body[0], name))
+        if rule == "conv":
+            return (*lead, None, self._tp_if(body[1], name))
+        if rule == "vector_tp":
+            return (*lead, self._tp_if(body[0], name))
+        return (*lead, *([None] * len(body)))
+
+    def weight_plan(self, name: str, storage_shape: Tuple[int, ...], perm_tile: int) -> WeightPlan:
+        """The plan of a DiP-stored linear: the sharded storage dim must
+        divide the axis into perm-tile-aligned shards, else it replicates
+        (warned once, raised under ``strict``); lm_head is column-parallel
+        over its (padded) vocab."""
+        rule = _rule_for(name, storage_shape)
+        kind = _TP_KINDS.get(rule, "column" if rule == "lm_head" else "replicated")
+        kp, np_ = int(storage_shape[-2]), int(storage_shape[-1])
+        if kind != "replicated" and self.tp:
+            tp = self.mesh.shape[self.tp]
+            dim = np_ if kind == "column" else kp
+            if dim % tp != 0 or (dim // tp) % perm_tile != 0:
+                _surface_fallback(name, dim, self.tp, tp, self.strict)
+                kind = "replicated"
+        fsdp = self.fsdp
+        if fsdp and kp % self.mesh.shape[fsdp] != 0:
+            _surface_fallback(name, kp, fsdp, self.mesh.shape[fsdp], self.strict)
+            fsdp = None
+        return WeightPlan(kind=kind, axis=self.tp if kind != "replicated" else None, fsdp=fsdp, mesh=self.mesh)
+
+    def attach_params(self, tree: Any) -> Any:
+        """Every ``DipWeight`` / ``QuantizedDipWeight`` node stamped with
+        its :class:`WeightPlan` (payloads untouched)."""
+        def walk(t, name=None):
+            if isinstance(t, dict):
+                return {k: walk(v, k) for k, v in t.items()}
+            if isinstance(t, (DipWeight, QuantizedDipWeight)):
+                return t.with_plan(self.weight_plan(name, tuple(t.data.shape), t.perm_tile))
+            return t
+
+        return walk(tree)
+
+    def shard_params(self, params: Any) -> Any:
+        """This rank's slice of the parameters (``init_params`` or
+        ``params_from_jax`` output) under the ``tp`` strategy, plans
+        attached, leaf by leaf (:meth:`shard_leaf`).  Leaves that already
+        are this rank's slice (``init_params(plan=)``) pass through."""
+        def walk(t, name=None):
+            if isinstance(t, dict):
+                return {k: walk(v, k) for k, v in t.items()}
+            return self.shard_leaf(name, t)
+
+        return walk(params)
+
+    def shard_leaf(self, name: str, t: Any) -> Any:
+        """This rank's slice of the leaf ``name``: a projection by its plan
+        (:func:`shard_weight`), the embedding's rows by vocab, every other
+        leaf whole (the biases too: the backend takes its columns).  A slice
+        is a copy, so the whole leaf can be freed; a leaf that already is
+        this rank's slice (its shape and plan say so) passes through."""
+        if self.strategy != "tp":
+            raise NotImplementedError(f"the {self.strategy!r} strategy's model path is not ported yet ({_DIST}); "
+                                      "the model runs under 'tp'")
+        tp, idx = self.tp_size, self.tp_rank
+        if isinstance(t, (DipWeight, QuantizedDipWeight)):
+            whole = tuple(t.data.shape[:-2]) + DipWeight.storage_dims(t.d_in, t.d_out, t.perm_tile)
+            wp = self.weight_plan(name, whole, t.perm_tile)
+            if tuple(t.data.shape) == whole:
+                return shard_weight(t, wp)
+            part, dim = list(whole), {"column": -1, "row": -2}.get(wp.kind)
+            if dim is not None:
+                part[dim] //= tp
+            if t.plan == wp and tuple(t.data.shape) == tuple(part):
+                return t
+            raise ValueError(f"{name}: storage {tuple(t.data.shape)} (plan {t.plan}) is neither the whole "
+                             f"{whole} nor this rank's slice {tuple(part)} under {wp}")
+        if name == "embed":
+            rows = self.cfg.padded_vocab
+            if rows % tp:
+                raise ValueError(f"embed rows {rows} do not divide by {self.tp}={tp}")
+            if t.shape[0] == rows:
+                return _slice(t, 0, idx, tp)
+            if t.shape[0] * tp == rows:
+                return t
+            raise ValueError(f"embed has {t.shape[0]} rows: neither the whole {rows} nor this rank's {rows // tp}")
+        if name == "lm_head":
+            raise ValueError("a natural lm_head under a plan: the tp model path stores its projections "
+                             "DiP-permutated (cfg.uses_dip_storage)")
+        return t
+
+    # ------------------------------------------------------------- cache ---
+    def paged_cache_pspec(self, name: str, shape: Tuple[int, ...]) -> Spec:
+        """Paged serving-cache leaves (L, num_blocks, block_size, ...): the
+        block and in-block dims are addresses, never sharded; K/V heads
+        shard over TP when they divide it."""
+        if name in ("k", "v"):
+            return (None, None, None, self.tp, None) if self.heads_on_tp else (None,) * len(shape)
+        if name in ("k_scale", "v_scale"):
+            return (None, None, None, self.tp) if self.heads_on_tp else (None,) * len(shape)
+        if name == "state":
+            return (None, None, self._tp_if(shape[2]), None, None)
+        if name == "conv":
+            return (None, None, None, self._tp_if(shape[3]))
+        return (None,) * len(shape)
+
+    # -------------------------------------------------------- activations --
+    def constrain(self, x: torch.Tensor, tag: str) -> torch.Tensor:
+        """The identity: the explicit strategies place every collective by
+        hand (the reference's ``with_sharding_constraint`` hints XLA)."""
+        return x
+
+
+def make_plan(mesh: Mesh, cfg, mode: str, *, strict: bool = False) -> ShardingPlan:
+    """The plan for one (mesh, config, phase) triple; ``strict`` raises
+    where a divisibility fallback would replicate."""
+    return ShardingPlan(mesh=mesh, cfg=cfg, mode=mode, strict=strict)

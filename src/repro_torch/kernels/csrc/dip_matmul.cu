@@ -1326,7 +1326,8 @@ bool bad_shape(int M, int N, int K, int epilogue) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (out: int32 without an
-// epilogue, float32 with one).  bm, bn, splits, kps (K tiles per split) and
+// epilogue, float32 with one), 3 = bfloat16 with a float32 out (the f32
+// sums unrounded: kernels/dip_matmul_sharded.py's row-parallel partials).  bm, bn, splits, kps (K tiles per split) and
 // workspace (f32, splits x (2 for swiglu, else 1) x M x N, used when splits
 // > 1) are the bf16 plan (kernels/dip_matmul.py::matmul_plan); the other
 // dtypes ignore them.  Returns a cudaError_t (0 on success).
@@ -1340,6 +1341,7 @@ extern "C" int dip_matmul_launch(int dtype, const void* x, const void* p, const 
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch_any<float, float>(a, s);
   if (dtype == 1) return (int)launch_tc<bf16, bf16>(a, bm, bn, splits, kps, static_cast<float*>(workspace), s);
+  if (dtype == 3) return (int)launch_tc<bf16, float>(a, bm, bn, splits, kps, static_cast<float*>(workspace), s);
   if (dtype == 2)
     return (int)(epilogue == EPI_NONE ? launch<int8_t, int, false>(a, s) : launch_any<int8_t, float>(a, s));
   return (int)cudaErrorInvalidValue;

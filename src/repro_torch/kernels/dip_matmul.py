@@ -24,7 +24,8 @@ epilogue returns the int32 accumulator, as the reference's
 :func:`dip_matmul` launches the kernel for CUDA tensors and runs
 :func:`dip_matmul_plain` — ``unpermute_tiled`` then the f32 composition —
 for CPU tensors.  ``dip_matmul.launches`` counts wrapper calls that
-launched the kernel (a split-K call's second pass included).
+launched the kernel (a split-K call's second pass included), and
+``dip_matmul.launches_f32`` those of them with f32 x.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ __all__ = ["TILE", "DTYPE_CODES", "DECODE_MAX_M", "MatmulPlan", "matmul_plan", "
 
 TILE = 64  # output tile, K step and DiP permutation tile of the CUDA kernel
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_BF16_F32_OUT = 3  # bf16 x and weights, f32 out: the bf16 mainloops with an f32 store
 DECODE_MAX_M = 32  # rows up to which the bf16 kernel runs its decode tile (32 x 64)
 
 
@@ -123,9 +125,17 @@ def sm_count(device: torch.device) -> int:
     return _sms(device.index if device.index is not None else torch.cuda.current_device())
 
 
-def out_dtype_for(x: torch.Tensor, epilogue: str = "none") -> torch.dtype:
+def out_dtype_for(x: torch.Tensor, epilogue: str = "none", out_dtype: Optional[torch.dtype] = None) -> torch.dtype:
     """x's dtype for float x; for integer x the int32 accumulator with no
-    epilogue, f32 with one (the epilogue arithmetic is f32)."""
+    epilogue, f32 with one (the epilogue arithmetic is f32).  ``out_dtype``
+    f32 with bf16 x and no epilogue keeps the f32 sums unrounded (the
+    row-parallel partial products of ``kernels/dip_matmul_sharded.py``,
+    reduced across ranks before the one cast)."""
+    if out_dtype is not None:
+        if (x.dtype, out_dtype, epi.spec(epilogue).name) != (torch.bfloat16, torch.float32, "none"):
+            raise ValueError(f"out_dtype={out_dtype} is the f32 store of bf16 x with no epilogue; got x "
+                             f"{x.dtype}, epilogue {epilogue!r}")
+        return out_dtype
     if x.dtype.is_floating_point:
         return x.dtype
     return torch.int32 if epi.spec(epilogue).name == "none" else torch.float32
@@ -159,10 +169,10 @@ def _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands):
 
 def dip_matmul_plain(x, p, *epilogue_operands, epilogue="none", prologue="none",
                      prologue_operands=(), prologue_k=None, prologue_eps=pro.DEFAULT_EPS,
-                     fuse_deshear=True) -> torch.Tensor:
+                     fuse_deshear=True, out_dtype=None) -> torch.Tensor:
     """The kernel's function in plain torch: de-shear, prologue (f32 scale,
     cast back), f32 product(s) (exact int32 for int8), f32 epilogue, one
-    cast."""
+    cast (to ``out_dtype`` where given, see :func:`out_dtype_for`)."""
     _check(x, p, epilogue_operands, epilogue, prologue, prologue_operands)
     s = epi.spec(epilogue)
 
@@ -173,7 +183,7 @@ def dip_matmul_plain(x, p, *epilogue_operands, epilogue="none", prologue="none",
     if pro.spec(prologue).normalize:
         inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps)
         x = pro.kernel_load(prologue, x, (inv, prologue_operands[0]))
-    out_dtype = out_dtype_for(x, epilogue)
+    out_dtype = out_dtype_for(x, epilogue, out_dtype)
     z = product(p)
     if s.name == "none":
         return z.to(out_dtype)
@@ -206,7 +216,7 @@ def _lib():
 
 
 def launch_operands(kernel, x, p, epilogue_operands, epilogue, prologue, prologue_operands,
-                    prologue_k, prologue_eps):
+                    prologue_k, prologue_eps, out_dtype=None):
     """Check a CUDA launch of ``kernel`` (``dip_matmul`` or ``dip_systolic``:
     the same operands) and allocate its output.  Returns ``(out, pointers,
     inv)`` with the pointers in the C entry points' order: x, p, p_up,
@@ -242,7 +252,7 @@ def launch_operands(kernel, x, p, epilogue_operands, epilogue, prologue, prologu
         gain = prologue_operands[0]
         require(gain, "gain", dev, torch.float32)
         inv = pro.inv_rms(x, k_true=prologue_k, eps=prologue_eps).reshape(m)
-    out = torch.empty((m, n), dtype=out_dtype_for(x, epilogue), device=dev)
+    out = torch.empty((m, n), dtype=out_dtype_for(x, epilogue, out_dtype), device=dev)
     ptrs = [None if t is None else t.data_ptr() for t in (x, p, p_up, inv, gain, bias, residual, out)]
     return out, ptrs, inv
 
@@ -251,7 +261,7 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
                epilogue: str = "none", prologue: str = "none",
                prologue_operands: Sequence[torch.Tensor] = (),
                prologue_k: Optional[int] = None, prologue_eps: float = pro.DEFAULT_EPS,
-               fuse_deshear: bool = True) -> torch.Tensor:
+               fuse_deshear: bool = True, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``epilogue(prologue(x) @ unpermute_tiled(p))`` with ``x`` (M, K) and
     ``p`` (K, N), K and N multiples of 64, M any (bf16 tiles past N are
     masked).  ``epilogue_operands``:
@@ -259,18 +269,20 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
     (M, N) residual for ``residual``.  ``prologue_operands`` is the
     K-element gain for ``rmsnorm``; ``prologue_k`` the un-padded K the mean
     divides by.  ``fuse_deshear=False`` reads ``p`` as natural storage (the
-    ``ws`` baseline).  CPU tensors take :func:`dip_matmul_plain`; CUDA
-    tensors launch the kernel or raise."""
+    ``ws`` baseline).  ``out_dtype=torch.float32`` with bf16 x and no
+    epilogue stores the f32 sums (the bf16 mainloops' f32 store).  CPU
+    tensors take :func:`dip_matmul_plain`; CUDA tensors launch the kernel or
+    raise."""
     if x.device.type == "cpu":
         return dip_matmul_plain(
             x, p, *epilogue_operands, epilogue=epilogue, prologue=prologue,
             prologue_operands=prologue_operands, prologue_k=prologue_k,
-            prologue_eps=prologue_eps, fuse_deshear=fuse_deshear,
+            prologue_eps=prologue_eps, fuse_deshear=fuse_deshear, out_dtype=out_dtype,
         )
     if x.device.type != "cuda":
         raise ValueError(f"dip_matmul runs on cuda or cpu tensors, got {x.device}")
     out, ptrs, inv = launch_operands("dip_matmul", x, p, epilogue_operands, epilogue, prologue,
-                                     prologue_operands, prologue_k, prologue_eps)
+                                     prologue_operands, prologue_k, prologue_eps, out_dtype)
     (m, k), n = x.shape, p.shape[1]
     plan_args, work = (0, 0, 0, 0), None
     if x.dtype == torch.bfloat16:
@@ -281,13 +293,17 @@ def dip_matmul(x: torch.Tensor, p: torch.Tensor, *epilogue_operands: torch.Tenso
             work = torch.empty((plan.splits, 2 if dual else 1, m, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib()(DTYPE_CODES[x.dtype], *ptrs, m, n, k, epi.code(epilogue), int(fuse_deshear), *plan_args,
+        code = _BF16_F32_OUT if out.dtype != x.dtype and x.dtype == torch.bfloat16 else DTYPE_CODES[x.dtype]
+        rc = _lib()(code, *ptrs, m, n, k, epi.code(epilogue), int(fuse_deshear), *plan_args,
                     None if work is None else work.data_ptr(), stream)
     del inv  # read by the queued launch: held until here
     if rc != 0:
         raise RuntimeError(f"dip_matmul kernel launch failed: cudaError {rc}")
     dip_matmul.launches += 1
+    if x.dtype == torch.float32:
+        dip_matmul.launches_f32 += 1
     return out
 
 
 dip_matmul.launches = 0
+dip_matmul.launches_f32 = 0  # of them, f32 x: the first-design IEEE route on the CUDA cores

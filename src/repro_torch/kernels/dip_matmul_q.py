@@ -67,7 +67,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import epilogue as epi
 from repro_torch.kernels import prologue as pro
 from repro_torch.kernels import ref
-from repro_torch.kernels.dip_matmul import TILE, matmul_plan, require, sm_count
+from repro_torch.kernels.dip_matmul import TILE, matmul_plan, out_dtype_for, require, sm_count
 
 __all__ = ["cast_pass", "cast_pass_plain", "dip_matmul_q", "dip_matmul_q_plain", "fp8_compute_dtype", "q_route",
            "quantize_pass", "quantize_pass_plain"]
@@ -141,12 +141,14 @@ def _prologue(x, prologue, prologue_operands, prologue_k, prologue_eps):
 
 
 def dip_matmul_q_plain(x, q, w_scale, *epilogue_operands, epilogue="none", prologue="none",
-                       prologue_operands=(), prologue_k=None, prologue_eps=pro.DEFAULT_EPS) -> torch.Tensor:
+                       prologue_operands=(), prologue_k=None, prologue_eps=pro.DEFAULT_EPS,
+                       out_dtype=None) -> torch.Tensor:
     """The kernel's function in plain torch on x's device: prologue, int8
     activation codes (int8) or the cast to :func:`fp8_compute_dtype` (fp8),
     de-shear, exact int32 or f32 products, the scales, the f32 epilogue and
-    one cast to x's dtype."""
+    one cast to x's dtype (or ``out_dtype``)."""
     _check(x, q, w_scale, epilogue_operands, epilogue)
+    out_dtype = out_dtype_for(x, epilogue, out_dtype)
     x = _prologue(x, prologue, prologue_operands, prologue_k, prologue_eps)
     s = epi.spec(epilogue)
     if _route(q) == "int8":
@@ -168,7 +170,7 @@ def dip_matmul_q_plain(x, q, w_scale, *epilogue_operands, epilogue="none", prolo
         aux = (z_of(*epilogue_operands),)
     else:
         aux = tuple(op.reshape(1, -1) if s.bias else op for op in epilogue_operands)
-    return epi.apply(epilogue, z, *aux).to(x.dtype)
+    return epi.apply(epilogue, z, *aux).to(out_dtype)
 
 
 def _fn(source: str, name: str, argtypes):
@@ -278,17 +280,19 @@ def cast_pass(x: torch.Tensor, inv: Optional[torch.Tensor] = None, gain: Optiona
 def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilogue_operands: torch.Tensor,
                  epilogue: str = "none", prologue: str = "none",
                  prologue_operands: Sequence[torch.Tensor] = (), prologue_k: Optional[int] = None,
-                 prologue_eps: float = pro.DEFAULT_EPS) -> torch.Tensor:
+                 prologue_eps: float = pro.DEFAULT_EPS, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``x`` (M, K) float, ``q`` (K, N) int8 or float8_e4m3fn permutated
     storage, ``w_scale`` (1, N) f32; K and N multiples of 64, M any.
     ``epilogue_operands``: ``(q_up, w_scale_up)`` for ``swiglu``, the
     N-element f32 bias, or the (M, N) residual in x's dtype.  Returns
-    (M, N) in x's dtype.  CPU tensors take :func:`dip_matmul_q_plain`; CUDA
-    tensors launch the kernel or raise."""
+    (M, N) in x's dtype, or f32 for bf16 x with no epilogue under
+    ``out_dtype=torch.float32``.  CPU tensors take
+    :func:`dip_matmul_q_plain`; CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         return dip_matmul_q_plain(
             x, q, w_scale, *epilogue_operands, epilogue=epilogue, prologue=prologue,
             prologue_operands=prologue_operands, prologue_k=prologue_k, prologue_eps=prologue_eps,
+            out_dtype=out_dtype,
         )
     if x.device.type != "cuda":
         raise ValueError(f"dip_matmul_q runs on cuda or cpu tensors, got {x.device}")
@@ -297,6 +301,7 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
     if x.dtype not in _OUT_CODES:
         raise TypeError(f"dip_matmul_q kernel takes float32 or bfloat16 activations, got {x.dtype}")
     dev, dt = x.device, x.dtype
+    out_dt = out_dtype_for(x, epilogue, out_dtype)  # x's width before a cast pass
     m, k = x.shape
     n = q.shape[1]
     if m > 65535 * TILE:
@@ -335,16 +340,17 @@ def dip_matmul_q(x: torch.Tensor, q: torch.Tensor, w_scale: torch.Tensor, *epilo
     elif dt == torch.float32:  # bf16 x first (the compute width); the prologue is the pass's
         x = cast_pass(x, inv, gain)
         inv = gain = None
-    out = torch.empty((m, n), dtype=dt, device=dev)
+    out = torch.empty((m, n), dtype=out_dt, device=dev)
+    code = _OUT_CODES[out_dt]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         plan_args = (m, n, k, epi.code(epilogue), plan.bm, plan.bn, plan.splits, plan.k_tiles_per_split, ptr(work),
                      stream)
         if int8:
-            rc = _lib_int8()(_OUT_CODES[dt], ptr(codes), ptr(q), ptr(q_up), ptr(x_scale), ptr(w_scale), ptr(s_up),
+            rc = _lib_int8()(code, ptr(codes), ptr(q), ptr(q_up), ptr(x_scale), ptr(w_scale), ptr(s_up),
                              ptr(bias), ptr(residual), ptr(out), *plan_args)
         else:
-            rc = _lib_tc()(_OUT_CODES[dt], ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(inv), ptr(gain),
+            rc = _lib_tc()(code, ptr(x), ptr(q), ptr(q_up), ptr(w_scale), ptr(s_up), ptr(inv), ptr(gain),
                            ptr(bias), ptr(residual), ptr(out), *plan_args)
     if rc != 0:
         raise RuntimeError(f"dip_matmul_q kernel launch failed ({_route(q)}, tensor cores): cudaError {rc}")

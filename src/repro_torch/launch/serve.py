@@ -26,6 +26,17 @@ only::
     python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --full --quantize int8 --kv-quant int8
     python -m repro_torch.launch.serve --arch zamba2-2.7b --full --quantize int8 --kv-quant int8
     python -m repro_torch.launch.serve --arch mamba2-370m --full --quantize fp8_e4m3
+
+``--sharded tp`` serves tensor-parallel through ``dip_tp`` over a world of
+one rank a local card (over NCCL; on the CPU 2 ranks over gloo), as the reference's ``--sharded`` serves over
+the local devices: each rank draws the same seeded weights, keeps its
+slice (``ShardingPlan.shard_params``) and runs the engine on it; rank 0's
+results are printed.  The dense family only; ``--sharded fsdp`` (the
+batch-sharded model path) is not ported yet (ROADMAP.md Queue 1
+"Distributed")::
+
+    python -m repro_torch.launch.serve --arch llama3-8b --full --sharded tp
+    python -m repro_torch.launch.serve --arch llama3-8b --reduced --dtype float32 --device cpu --sharded tp
 """
 
 from __future__ import annotations
@@ -33,8 +44,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 
 import numpy as np
+import torch
 
 from repro_torch.api.quant import scheme_info
 from repro_torch.configs import get_config
@@ -42,12 +55,10 @@ from repro_torch.device import make_generator
 from repro_torch.models import transformer as tf_model
 from repro_torch.runtime import Request, Server, ServerConfig
 
+_DIST = 'ROADMAP.md Queue 1 "Distributed"'
 
-def main(argv=None, on_server=None):
-    """Parse ``argv``, build the server, serve the seeded requests, print
-    the results and stats, and return ``{rid: tokens}``.  ``on_server``, if
-    given, is called with the built ``Server`` and its requests before
-    serving (a caller's hook for timing or recording the steps)."""
+
+def _parse(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     size = ap.add_mutually_exclusive_group()
@@ -74,8 +85,17 @@ def main(argv=None, on_server=None):
                          "kernel (dip_int8w / dip_fp8)")
     ap.add_argument("--kv-quant", choices=("none", "int8"), default=None,
                     help="KV-cache storage (default cfg.kv_quant); int8 halves the bytes per token")
-    args = ap.parse_args(argv)
+    ap.add_argument("--sharded", choices=("tp", "fsdp"), default=None,
+                    help="serve through the explicit multi-rank backend (dip_tp): one rank a local card "
+                         "(2 ranks on the CPU)")
+    return ap.parse_args(argv)
 
+
+def _setup(args, mesh=None):
+    """The configuration, parameters, server config, seeded requests and
+    plan of ``args``: the whole parameters, or over ``mesh`` this rank's
+    slice of them (``init_params(plan=)``: no rank holds the whole model)
+    and the plan that cut it."""
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -84,21 +104,74 @@ def main(argv=None, on_server=None):
     if args.quantize:
         cfg = dataclasses.replace(cfg, quantization=args.quantize,
                                   matmul_backend=scheme_info(args.quantize).backend)
-    params = tf_model.init_params(cfg, make_generator(args.seed, args.device), args.device)
-    server = Server(cfg, ServerConfig(batch_slots=args.slots, max_seq=args.max_seq,
-                                      max_new_tokens=args.max_new, temperature=args.temperature,
-                                      prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant),
-                    params, device=args.device)
+    if args.sharded:
+        cfg = dataclasses.replace(cfg, sharding=args.sharded, matmul_backend="dip_tp")
+    plan = None
+    if mesh is not None:
+        from repro_torch.distributed import make_plan
+
+        plan = make_plan(mesh, cfg, "decode")
+    params = tf_model.init_params(cfg, make_generator(args.seed, args.device), args.device, plan=plan)
+    scfg = ServerConfig(batch_slots=args.slots, max_seq=args.max_seq, max_new_tokens=args.max_new,
+                        temperature=args.temperature, prefill_chunk=args.prefill_chunk, kv_quant=args.kv_quant)
     rng = np.random.default_rng(args.seed)
     lo, hi = args.prompt_len or (4, max(5, min(args.max_seq // 2, 600)))
     reqs = [Request(rid=i, prompt=rng.integers(2, cfg.vocab_size, size=int(rng.integers(lo, hi))))
             for i in range(args.requests)]
+    return cfg, params, scfg, reqs, plan
+
+
+def _report(results, stats):
+    for rid in sorted(results):
+        print(f"req {rid}: {len(results[rid])} tokens -> {results[rid][:8]}...")
+    print(json.dumps({"serve": stats}))
+
+
+def _serve_rank(rank: int, argv):
+    """One rank of ``--sharded tp``: its card (or the CPU), the mesh over the
+    world, its slice of the same seeded weights, the engine on it."""
+    from repro_torch.distributed import make_local_mesh
+
+    args = _parse(argv)
+    world = torch.distributed.get_world_size()
+    if args.device == "cpu":
+        mesh = make_local_mesh(data=1, model=world)
+    else:
+        args.device = f"cuda:{rank}"
+        mesh = make_local_mesh(data=1, model=world, transport="nccl", device=args.device)
+    cfg, params, scfg, reqs, plan = _setup(args, mesh)
+    server = Server(cfg, scfg, params, device=args.device, plan=plan)
+    del params
+    results = server.serve(reqs)
+    return results, dict(server.last_stats, ranks=world, transport=mesh.transport)
+
+
+def main(argv=None, on_server=None):
+    """Parse ``argv``, build the server, serve the seeded requests, print
+    the results and stats, and return ``{rid: tokens}``.  ``on_server``, if
+    given, is called with the built ``Server`` and its requests before
+    serving (a caller's hook for timing or recording the steps; not under
+    ``--sharded``)."""
+    args = _parse(argv)
+    if args.sharded == "fsdp":
+        raise NotImplementedError(f"--sharded fsdp (the batch-sharded model path) is not ported yet ({_DIST})")
+    if args.sharded == "tp":
+        from repro_torch.distributed import run_world
+
+        if args.device != "cpu" and not torch.cuda.is_available():
+            raise RuntimeError("--sharded tp on device='cuda' but torch.cuda.is_available() is False; "
+                               "pass --device cpu to serve over gloo ranks on the CPU")
+        ranks = 2 if args.device == "cpu" else torch.cuda.device_count()
+        out = run_world(_serve_rank, ranks, list(argv if argv is not None else sys.argv[1:]), timeout=3600.0)
+        results, stats = out[0]
+        _report(results, stats)
+        return results
+    cfg, params, scfg, reqs, _ = _setup(args)
+    server = Server(cfg, scfg, params, device=args.device)
     if on_server is not None:
         on_server(server, reqs)
     results = server.serve(reqs)
-    for rid in sorted(results):
-        print(f"req {rid}: {len(results[rid])} tokens -> {results[rid][:8]}...")
-    print(json.dumps({"serve": server.last_stats}))
+    _report(results, server.last_stats)
     return results
 
 

@@ -19,6 +19,12 @@ latent, through ``attention_core``), with one the absorbed form (scores
 against the latent itself, ``W_uk`` absorbed into q, ``W_uv`` applied after
 the weighted sum).  Its int8 latent pools store each token's c_kv and
 k_rope rows as codes with one f32 scale per token (no head axis).
+
+Under a ``ShardingPlan`` (``plan=``, tensor parallel) the GQA functions run
+on this rank's heads: q/k/v come from column-parallel projections (a
+replicated K/V projection, whose width does not split over the axis, gives
+every head and the rank takes its block), the cache holds the rank's KV
+heads, and ``wo`` is row-parallel over the heads.
 """
 
 from __future__ import annotations
@@ -151,6 +157,33 @@ def _write_rows(cache: torch.Tensor, positions: torch.Tensor, vals: torch.Tensor
     cache.index_copy_(1, positions, vals.to(cache.dtype))
 
 
+def _heads(cfg, plan) -> Tuple[int, int]:
+    """(query heads, KV heads) this rank attends with."""
+    if plan is None:
+        return cfg.n_heads, cfg.n_kv_heads
+    return cfg.n_heads // plan.tp_size, cfg.n_kv_heads // plan.tp_size
+
+
+def _own_heads(y: torch.Tensor, w, n: int, hd: int, plan) -> torch.Tensor:
+    """A projection's columns of this rank's ``n`` heads: a column-parallel
+    weight gives just those; a replicated one gives every head, of which the
+    rank takes its block."""
+    if plan is None or getattr(getattr(w, "plan", None), "kind", None) == "column":
+        return y
+    r = plan.tp_rank
+    return y[..., r * n * hd:(r + 1) * n * hd]
+
+
+def _qkv(x, p, cfg, nk, plan):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) on this rank's heads."""
+    b, s, _ = x.shape
+    (h, kv), hd = _heads(cfg, plan), cfg.resolved_head_dim
+    q = _own_heads(layers.linear(x, p["wq"], p.get("bq"), **nk), p["wq"], h, hd, plan).reshape(b, s, h, hd)
+    k = _own_heads(layers.linear(x, p["wk"], p.get("bk"), **nk), p["wk"], kv, hd, plan).reshape(b, s, kv, hd)
+    v = _own_heads(layers.linear(x, p["wv"], p.get("bv"), **nk), p["wv"], kv, hd, plan).reshape(b, s, kv, hd)
+    return q, k, v
+
+
 def _proj_kwargs(cfg, x, norm):
     lk = dict(backend=cfg.matmul_backend, compute_dtype=x.dtype)
     nk = dict(lk) if norm is None else dict(lk, prologue="rmsnorm", prologue_operands=(norm,),
@@ -167,8 +200,8 @@ def _out_proj(out, p, lk, residual):
 def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
                   cache: Optional[Dict] = None, rope=None,
                   residual: Optional[torch.Tensor] = None, norm: Optional[torch.Tensor] = None,
-                  kv_chunk: int = 0,
-                  attn_backend: Optional[str] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  kv_chunk: int = 0, attn_backend: Optional[str] = None,
+                  plan=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Projections + RoPE + cache update + attention + out projection.
 
     ``cache`` is one layer's dense cache (``init_gqa_cache``); this chunk's
@@ -176,13 +209,12 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
     onward; an int or a device scalar) and the returned cache has ``pos``
     advanced.  ``residual`` fuses the block's skip
     connection into the out projection; ``norm`` is the attention-norm gain
-    when the backend fuses prologues (x then arrives un-normalized)."""
+    when the backend fuses prologues (x then arrives un-normalized).
+    ``plan``: this rank's heads (module doc)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    (h, _), hd = _heads(cfg, plan), cfg.resolved_head_dim
     lk, nk = _proj_kwargs(cfg, x, norm)
-    q = layers.linear(x, p["wq"], p.get("bq"), **nk).reshape(b, s, h, hd)
-    k = layers.linear(x, p["wk"], p.get("bk"), **nk).reshape(b, s, kv, hd)
-    v = layers.linear(x, p["wv"], p.get("bv"), **nk).reshape(b, s, kv, hd)
+    q, k, v = _qkv(x, p, cfg, nk, plan)
     q = layers.apply_rope(q, positions, cfg.rope_theta, tables=rope)
     k = layers.apply_rope(k, positions, cfg.rope_theta, tables=rope)
 
@@ -270,19 +302,18 @@ def _gather_indices(block_tables: torch.Tensor, block_size: int) -> torch.Tensor
 def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor, cache: Dict,
                         block_tables: torch.Tensor, kv_quant: str = "none", rope=None,
                         residual: Optional[torch.Tensor] = None,
-                        norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                        norm: Optional[torch.Tensor] = None, plan=None) -> Tuple[torch.Tensor, Dict]:
     """GQA decode against the paged pool: x (B, 1, d), one token per slot at
     ``positions`` (B,).  Writes this token's K/V into its slot's block (in
     place), gathers the slot's context and attends to positions <= its own.
     Free slots point at the null block; their rows are ignored.  A quantized
-    pool (``kv_quant``) stores the rows as codes and scales."""
+    pool (``kv_quant``) stores the rows as codes and scales.  ``plan``: this
+    rank's heads (module doc)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    (h, kv), hd = _heads(cfg, plan), cfg.resolved_head_dim
     bs = cache["k"].shape[1]
     lk, nk = _proj_kwargs(cfg, x, norm)
-    q = layers.linear(x, p["wq"], p.get("bq"), **nk).reshape(b, s, h, hd)
-    k = layers.linear(x, p["wk"], p.get("bk"), **nk).reshape(b, s, kv, hd)
-    v = layers.linear(x, p["wv"], p.get("bv"), **nk).reshape(b, s, kv, hd)
+    q, k, v = _qkv(x, p, cfg, nk, plan)
     pos2 = positions[:, None]
     q = layers.apply_rope(q, pos2, cfg.rope_theta, tables=rope)
     k = layers.apply_rope(k, pos2, cfg.rope_theta, tables=rope)

@@ -18,7 +18,7 @@ import torch
 from repro_torch import api
 
 __all__ = ["linear", "rms_norm", "swiglu", "rope_frequencies", "rope_tables", "apply_rope",
-           "cross_entropy_loss"]
+           "cross_entropy_loss", "resolve_constrain"]
 
 _BIAS_EPILOGUES = ("bias", "bias_gelu", "bias_silu")
 
@@ -51,6 +51,15 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     return api.matmul(x, w, backend=backend, epilogue=epilogue, epilogue_operands=operands,
                       prologue=prologue, prologue_operands=tuple(prologue_operands),
                       prologue_eps=prologue_eps)
+
+
+def resolve_constrain(plan, constrain=None):
+    """The one plan -> activation-constraint resolution the model stack
+    uses: a plan's ``constrain`` wins, then the bare ``constrain(x, tag)``
+    hook, else the identity."""
+    if plan is not None:
+        return plan.constrain
+    return constrain if constrain is not None else (lambda x, tag: x)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

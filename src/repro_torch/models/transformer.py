@@ -27,8 +27,20 @@ applies one AdamW step in place (``guard=True``: behind the reliability
 guard's screens); every family trains.  Every served family
 serves quantized too: ``quantize_params`` quantizes only the DiP-stored
 projections, so the MoE router and expert banks, the SSM scalars, conv and
-norms, and the embeddings stay float, as in the reference.  Sharding plans
-come with their ROADMAP.md item and raise ``NotImplementedError`` here.
+norms, and the embeddings stay float, as in the reference.
+
+Under a ``ShardingPlan`` (``plan=``, strategy ``tp``, the dense family; the
+port of the reference's explicit ``dip_tp`` model path) each rank runs
+``forward`` / ``decode_step_fn`` / ``paged_decode_step_fn`` on its slice
+of the parameters (``plan.shard_params``): the projections dispatch on
+their ``WeightPlan`` (q/k/v and gate/up column-parallel, attention on the
+rank's heads, ``wo`` and ``w_down`` row-parallel with one all-reduce each),
+the embedding is vocab-parallel (a masked local lookup and one
+all-reduce), and the lm_head is column-parallel over the padded vocab with
+its logits all-gathered, so every rank returns the whole logits: 2 x
+n_layers + 2 collectives a step.  Its caches hold the rank's KV heads.  The
+other families, and the other strategies' model paths, raise
+(ROADMAP.md Queue 1 "Distributed"); so does training under a plan.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import api, tree
 from repro_torch.core import permute
 from repro_torch.device import dtype_of, resolve_device
+from repro_torch.distributed import comm
 from repro_torch.kernels import lm_head_ce
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.optim.adamw import global_norm
@@ -69,11 +82,41 @@ def _require_served(cfg) -> None:
     """Raise for every configuration the port does not serve: it serves
     every family of the reference (the stub frontends from tokens), with
     GQA or MLA attention and tied or separate heads, in float or with
-    quantized weights and an int8 KV pool; not sharding plans."""
+    quantized weights and an int8 KV pool; under a sharding strategy only
+    the dense family with ``tp``."""
     if cfg.family not in _KNOWN_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (one of {_KNOWN_FAMILIES})")
-    if cfg.sharding != "gspmd":
-        raise NotImplementedError(f"{cfg.name}: not ported yet: sharding plans ({_DISTRIBUTED})")
+    if cfg.sharding not in ("gspmd", "tp") or (cfg.sharding == "tp" and not _dense(cfg)):
+        raise NotImplementedError(f"{cfg.name}: not ported yet: sharding {cfg.sharding!r} for the "
+                                  f"{cfg.family} family ({_DISTRIBUTED})")
+
+
+def _dense(cfg) -> bool:
+    return cfg.family == "dense" and not cfg.use_mla and not cfg.tie_embeddings
+
+
+def _require_plan(cfg, plan) -> None:
+    """The model path a plan runs in this slice: ``tp`` on the dense
+    family, heads split over the TP axis, and the attention and FFN
+    projections column / row-parallel as the plan decides them (K/V may
+    replicate where their width is too small to split: each rank then takes
+    its heads of the whole projection)."""
+    if plan is None:
+        return
+    if plan.strategy != "tp" or not _dense(cfg):
+        raise NotImplementedError(f"{cfg.name}: the {plan.strategy!r} model path of the {cfg.family} family "
+                                  f"is not ported yet ({_DISTRIBUTED})")
+    if not plan.heads_on_tp:
+        raise NotImplementedError(f"{cfg.name}: heads that do not divide the TP axis (sequence-parallel "
+                                  f"attention) are not ported yet ({_DISTRIBUTED})")
+    hd, d = cfg.resolved_head_dim, cfg.d_model
+    for name, di, do, kind in (("wq", d, cfg.n_heads * hd, "column"), ("wo", cfg.n_heads * hd, d, "row"),
+                               ("w_gate", d, cfg.d_ff, "column"), ("w_up", d, cfg.d_ff, "column"),
+                               ("w_down", cfg.d_ff, d, "row")):
+        got = plan.weight_plan(name, api.DipWeight.storage_dims(di, do), api.PERM_TILE).kind
+        if got != kind:
+            raise NotImplementedError(f"{cfg.name}: {name} does not split {kind}-parallel over "
+                                      f"{plan.tp}={plan.tp_size} ({_DISTRIBUTED})")
 
 
 def _require_trainable(cfg) -> None:
@@ -86,9 +129,9 @@ def _require_trainable(cfg) -> None:
                          "train in float and quantize the checkpoint for serving")
 
 
-def _no_plan(plan, constrain) -> None:
-    if plan is not None or constrain is not None:
-        raise NotImplementedError(f"sharding plans and constrain hooks are not ported yet ({_DISTRIBUTED})")
+def _no_plan(plan) -> None:
+    if plan is not None:
+        raise NotImplementedError(f"training under a sharding plan is not ported yet ({_DISTRIBUTED})")
 
 
 # ------------------------------------------------------------ param layout --
@@ -188,7 +231,7 @@ def quantize_params(params: Dict[str, Any], scheme: str) -> Dict[str, Any]:
     return q(params)
 
 
-def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any]:
+def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Dict[str, Any]:
     """Materialize parameters on ``device`` from ``generator``: truncated
     normal (-2, 2) scaled by fan_in^-1/2, norms (and the SSM's D) at 1,
     biases at 0, the SSM's A_log and dt_bias as the reference draws them.  DiP
@@ -197,11 +240,20 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
     ``cfg.quantization`` each matrix is quantized as it is drawn, so no
     float copy of the whole model is ever held.  Plain layer-stacked leaves
     (the MoE router and expert banks) are drawn one layer at a time, so the
-    f32 draw never holds more than one layer's bank."""
+    f32 draw never holds more than one layer's bank.
+
+    Under a ``plan`` (``distributed.make_plan``) each drawn matrix and the
+    embedding are cut to this rank's slice before the next is drawn: the
+    values of ``plan.shard_params(init_params(cfg, generator, device))``,
+    from the same draws, while the rank never holds more than its slice and
+    one whole matrix."""
     dev = resolve_device(device)
     scheme = cfg.quant_scheme
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters go to {dev}")
+
+    def kept(name, t):
+        return t if plan is None else plan.shard_leaf(name, t)
 
     def normal(shape, scale, dt):
         t = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -220,21 +272,33 @@ def init_params(cfg, generator: torch.Generator, device="cuda") -> Dict[str, Any
                 layer.copy_(normal(tuple(shape[1:]), scale, dt))
             return data
         if dip is None:
-            return normal(shape, scale, dt)
+            return kept(name, normal(shape, scale, dt))
         d_in, d_out, perm_tile = dip
-        if scheme is not None:
-            info = api.quant.scheme_info(scheme)
-            data = torch.empty(shape, dtype=info.storage_dtype, device=dev)
-            scales = torch.empty(tuple(shape[:-2]) + (1, shape[-1]), dtype=torch.float32, device=dev)
-            for mat, sc in zip(data.view((-1,) + tuple(shape[-2:])), scales.view((-1, 1, shape[-1]))):
-                qw = api.quant.quantize(normal((d_in, d_out), scale, dt), scheme, perm_tile=perm_tile)
-                mat.copy_(qw.data)
-                sc.copy_(qw.scale)
-            return api.QuantizedDipWeight(data, scales, d_in, d_out, perm_tile, scheme)
-        data = torch.empty(shape, dtype=dt, device=dev)
-        for mat in data.view((-1,) + tuple(shape[-2:])):
-            mat.copy_(permute.permute_tiled(normal((d_in, d_out), scale, dt), perm_tile))
-        return api.DipWeight(data, d_in, d_out, perm_tile)
+
+        def matrix():  # one drawn (d_in, d_out) matrix as storage, this rank's slice of it under a plan
+            w = normal((d_in, d_out), scale, dt)
+            if scheme is not None:
+                w = api.quant.quantize(w, scheme, perm_tile=perm_tile)
+            else:
+                w = api.DipWeight(permute.permute_tiled(w, perm_tile), d_in, d_out, perm_tile)
+            return kept(name, w)
+
+        lead = tuple(shape[:-2])
+        first = matrix()
+        if not lead:
+            return first
+        data = torch.empty(lead + tuple(first.data.shape), dtype=first.data.dtype, device=dev)
+        mats = data.view((-1,) + tuple(first.data.shape))
+        if scheme is None:
+            for i, mat in enumerate(mats):
+                mat.copy_((first if i == 0 else matrix()).data)
+            return first.with_data(data)
+        scales = torch.empty(lead + tuple(first.scale.shape), dtype=torch.float32, device=dev)
+        for i, (mat, sc) in enumerate(zip(mats, scales.view((-1,) + tuple(first.scale.shape)))):
+            w = first if i == 0 else matrix()
+            mat.copy_(w.data)
+            sc.copy_(w.scale)
+        return first.with_data(data, scales)
 
     def build(t):
         return {k: build(v) if isinstance(v, dict) else make(k, *v) for k, v in t.items()}
@@ -312,33 +376,56 @@ def _record(moe_trace, routing) -> None:
 
 
 def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_backend=None,
-                       replay_ids=None, on_route=None):
+                       replay_ids=None, on_route=None, plan=None):
     """Attention then FFN, each with its skip connection; returns ``(x,
     new_cache, routing)`` (``_ffn``'s routing)."""
     fuse = _fuses_rmsnorm(cfg)
     attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
         layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
-    attn = attention.mla_attention if cfg.use_mla else attention.gqa_attention
-    x, new_cache = attn(
-        attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
-        norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend,
-    )
+    if cfg.use_mla:
+        x, new_cache = attention.mla_attention(
+            attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
+            norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend,
+        )
+    else:
+        x, new_cache = attention.gqa_attention(
+            attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
+            norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan,
+        )
     x, routing = _ffn(x, lp, cfg, fuse, replay_ids, on_route)
     return x, new_cache, routing
 
 
-def _head(params, cfg, x):
+def _embed(table: torch.Tensor, tokens: torch.Tensor, plan) -> torch.Tensor:
+    """The token lookup; under a plan vocab-parallel: this rank's rows of
+    the table answer the tokens in its range, the others give zeros, and
+    one all-reduce sums the ranks' rows (exactly: one rank is nonzero)."""
+    if plan is None:
+        return F.embedding(tokens, table)
+    v_loc = table.shape[0]
+    local = tokens - plan.tp_rank * v_loc
+    hit = (local >= 0) & (local < v_loc)
+    rows = F.embedding(local.clamp(0, v_loc - 1), table)
+    return comm.psum(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)),
+                     plan.mesh, plan.tp)
+
+
+def _head(params, cfg, x, plan=None):
     """The lm_head through ``linear`` on final-normed x, padded-vocab lanes
     masked to -1e30.  A tied head is the embedding cast to the compute
     dtype, multiplied in f32: the exact products of the compute-dtype
     values summed in f32, as the reference's ``preferred_element_type``
-    gives them (a bf16 ``torch.matmul`` would round the sums to bf16)."""
+    gives them (a bf16 ``torch.matmul`` would round the sums to bf16).
+    Under a plan the head is column-parallel over the padded vocab and its
+    logits (in the compute dtype) are all-gathered before the f32 cast."""
     cd = dtype_of(cfg.compute_dtype)
     if cfg.tie_embeddings:
         logits = torch.matmul(x.to(cd).float(), params["embed"].to(cd).float().t())
     else:
-        logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend,
-                               compute_dtype=cd).float()
+        logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend, compute_dtype=cd)
+        if plan is not None:
+            logits = comm.all_gather(logits, plan.mesh, plan.tp, dim=-1)
+        logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
         lane = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(lane >= cfg.vocab_size, -1e30)
@@ -348,7 +435,7 @@ def _head(params, cfg, x):
 def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = None,
             embeddings: Optional[torch.Tensor] = None, cache: Optional[Dict] = None,
             kv_chunk: int = 0, return_hidden: bool = False, attn_backend: Optional[str] = None,
-            moe_trace: Optional[Dict] = None, return_aux: bool = False):
+            moe_trace: Optional[Dict] = None, return_aux: bool = False, plan=None, constrain=None):
     """Returns ``(logits, new_cache)`` for tokens (B, S), or with
     ``return_aux=True`` ``(logits, new_cache, aux)``: ``aux`` the MoE
     layers' router aux losses summed (an f32 scalar, 0 for the other
@@ -377,13 +464,23 @@ def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = Non
     as outputs, and the rerun records its expert ids in
     ``moe_trace["recompute_ids"]`` (by layer), so that a caller can check
     that the backward routed as the forward did.
+
+    ``plan`` (a ``distributed.ShardingPlan``) runs the rank's part of the
+    tensor-parallel forward on ``plan.shard_params`` parameters (module
+    doc); ``constrain(x, tag)`` is the reference's activation hook, called
+    at ``"act_btd"`` (the residual stream after the embedding and after each
+    block) and ``"logits"``, and a plan's (``plan.constrain``) wins: the
+    identity, since the explicit strategies place every collective.
     """
     _require_served(cfg)
+    _require_plan(cfg, plan)
+    constrain = layers.resolve_constrain(plan, constrain)
     cd = dtype_of(cfg.compute_dtype)
     if embeddings is not None:
         x = embeddings.to(cd)
     else:
-        x = F.embedding(tokens, params["embed"]).to(cd)
+        x = _embed(params["embed"], tokens, plan).to(cd)
+    x = constrain(x, "act_btd")
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     if cache is not None:
@@ -394,11 +491,11 @@ def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = Non
         x = _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
     else:
         x = _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace,
-                              auxes)
+                              auxes, plan, constrain)
     # in place: the layers read pos before, in stream order
     new_cache = None if cache is None else dict(cache, pos=cache["pos"].add_(s))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out = (x if return_hidden else _head(params, cfg, x)), new_cache
+    out = (x if return_hidden else constrain(_head(params, cfg, x, plan), "logits")), new_cache
     if not return_aux:
         return out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -411,7 +508,8 @@ def _maybe_remat(block, x, remat):
     return checkpoint(block, x, use_reentrant=False) if remat else block(x)
 
 
-def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace, auxes):
+def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace, auxes,
+                      plan=None, constrain=None):
     """The transformer families' layer loop; the cache is written in place
     and each MoE layer's router aux loss appended to ``auxes``."""
     start = cache["pos"] if cache is not None else 0
@@ -429,8 +527,8 @@ def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_ba
                     moe_trace.setdefault("recompute_ids", {})[i] = ids
             x, _, routing = _transformer_block(x, lp, cfg, positions=positions, rope=rope, cache=lcache,
                                                kv_chunk=kv_chunk, attn_backend=attn_backend,
-                                               replay_ids=_replay(moe_trace, i), on_route=seen)
-            return x, routing
+                                               replay_ids=_replay(moe_trace, i), on_route=seen, plan=plan)
+            return x if constrain is None else constrain(x, "act_btd"), routing
 
         x, routing = _maybe_remat(block, x, remat)
         _record(moe_trace, routing)
@@ -490,15 +588,26 @@ def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
 
 
 # ------------------------------------------------------------------ caches --
-def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
+def _kv_heads(cfg, plan) -> int:
+    """The KV heads a rank's caches hold: all of them, or under a plan its
+    share of the head axis as ``plan.paged_cache_pspec`` shards it."""
+    if plan is None:
+        return cfg.n_kv_heads
+    axis = plan.paged_cache_pspec("k", (cfg.n_layers, 1, 1, cfg.n_kv_heads, cfg.resolved_head_dim))[3]
+    return cfg.n_kv_heads // (plan.mesh.shape[axis] if axis else 1)
+
+
+def init_cache(cfg, batch: int, max_seq: int, *, device, plan=None) -> Dict[str, Any]:
     """Layer-stacked dense decode cache: k/v (L, B, max_seq, KV, hd), or
     under MLA the latent c_kv (L, B, max_seq, kv_lora_rank) and the shared
     k_rope (L, B, max_seq, rope); for the SSM families the conv history
     conv (L, B, ssm_conv - 1, conv_dim) in the compute dtype and the state
     (L, B, H, P, N) in f32, and for the hybrid the shared block's
     attn = {k, v} (n_layers // attn_every, B, max_seq, KV, hd).  ``pos``, the
-    next row to write, is a 0-dim int64 tensor on ``device``."""
+    next row to write, is a 0-dim int64 tensor on ``device``.  Under a
+    ``plan`` k/v hold the rank's KV heads."""
     _require_served(cfg)
+    _require_plan(cfg, plan)
     cd, L = dtype_of(cfg.compute_dtype), cfg.n_layers
     if cfg.ssm_state:
         layer_caches = _ssm_pools(cfg, batch, cd, device)
@@ -510,7 +619,7 @@ def init_cache(cfg, batch: int, max_seq: int, *, device) -> Dict[str, Any]:
         shapes = {"c_kv": (L, batch, max_seq, cfg.kv_lora_rank),
                   "k_rope": (L, batch, max_seq, cfg.qk_rope_head_dim)}
     else:
-        shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (L, batch, max_seq, _kv_heads(cfg, plan), cfg.resolved_head_dim)
         shapes = {"k": shape, "v": shape}
     return {"layers": {nm: torch.zeros(sh, dtype=cd, device=device) for nm, sh in shapes.items()},
             "pos": attention.init_pos(device)}
@@ -536,7 +645,7 @@ def _ssm_pools(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
 
 
 def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "none", slots: int = 0,
-                     device) -> Dict[str, Any]:
+                     device, plan=None) -> Dict[str, Any]:
     """Layer-stacked paged pools for the serving engine: k/v (L, num_blocks,
     block_size, KV, hd), and under int8 ``kv_quant`` their per-(token, head)
     f32 scales k_scale/v_scale (L, num_blocks, block_size, KV); under MLA
@@ -551,8 +660,11 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "
     (n_layers // attn_every, num_blocks, block_size, KV, hd), with their
     scales under int8 ``kv_quant``; a pure SSM model pages nothing, so
     ``kv_quant`` changes nothing there.  The attention families keep
-    nothing per slot and ignore ``slots``."""
+    nothing per slot and ignore ``slots``.  Under a ``plan`` the pools hold
+    the rank's KV heads (``plan.paged_cache_pspec``); the block tables stay
+    on the host."""
     _require_served(cfg)
+    _require_plan(cfg, plan)
     cd = dtype_of(cfg.compute_dtype)
 
     def stacked(pool, n):
@@ -560,7 +672,7 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "
 
     def gqa_pool():
         return attention.init_paged_gqa_cache(
-            num_blocks, block_size, cfg.n_kv_heads, cfg.resolved_head_dim, cd, kv_quant, device=device)
+            num_blocks, block_size, _kv_heads(cfg, plan), cfg.resolved_head_dim, cd, kv_quant, device=device)
 
     if cfg.ssm_state:
         if slots < 1:
@@ -576,44 +688,52 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "
     return {"layers": stacked(pool, cfg.n_layers)}
 
 
-def decode_step_fn(cfg, *, attn_backend: Optional[str] = None):
+def decode_step_fn(cfg, *, attn_backend: Optional[str] = None, plan=None, constrain=None):
     """Returns ``step(params, cache, tokens) -> (logits, cache)``; with
     ``attn_backend="flash"`` it is the engine's chunked-prefill step.
-    ``moe_trace`` as in :func:`forward`."""
+    ``moe_trace``, ``plan`` and ``constrain`` as in :func:`forward`."""
+    _require_plan(cfg, plan)
 
     def step(params, cache, tokens, moe_trace=None):
-        return forward(params, cfg, tokens=tokens, cache=cache, attn_backend=attn_backend, moe_trace=moe_trace)
+        return forward(params, cfg, tokens=tokens, cache=cache, attn_backend=attn_backend, moe_trace=moe_trace,
+                       plan=plan, constrain=constrain)
 
     return step
 
 
-def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace, layer):
+def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace, layer, plan=None):
     """One attention+FFN block of the paged decode step (a layer of the
     transformer families, or the hybrid's shared block at one site);
     a MoE layer's routing goes into ``moe_trace``."""
-    attn = attention.paged_mla_attention if cfg.use_mla else attention.paged_gqa_attention
     fuse = _fuses_rmsnorm(cfg)
     attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
-    x, _ = attn(attn_in, lp, cfg, positions=positions, cache=pools, block_tables=block_tables,
-                kv_quant=cfg.kv_quant, rope=rope, residual=x, norm=attn_g)
+    kw = dict(positions=positions, cache=pools, block_tables=block_tables, kv_quant=cfg.kv_quant, rope=rope,
+              residual=x, norm=attn_g)
+    if cfg.use_mla:
+        x, _ = attention.paged_mla_attention(attn_in, lp, cfg, **kw)
+    else:
+        x, _ = attention.paged_gqa_attention(attn_in, lp, cfg, plan=plan, **kw)
     x, routing = _ffn(x, lp, cfg, fuse, _replay(moe_trace, layer))
     _record(moe_trace, routing)
     return x
 
 
-def paged_decode_step_fn(cfg):
+def paged_decode_step_fn(cfg, *, plan=None, constrain=None):
     """Returns ``step(params, cache, tokens, positions, block_tables) ->
     (logits, cache)``, the engine's decode step: tokens (slots, 1),
     positions (slots,), block_tables (slots, blocks_per_seq), all integer
     tensors on the parameters' device; the pools are updated in place.
     The SSM families update each slot's row of the state pools by the O(1)
     decode (positions and block tables are read only by the hybrid's
-    shared block).  ``moe_trace`` as in :func:`forward`."""
+    shared block).  ``moe_trace``, ``plan`` and ``constrain`` as in
+    :func:`forward`."""
     _require_served(cfg)
+    _require_plan(cfg, plan)
+    constrain = layers.resolve_constrain(plan, constrain)
 
     def step(params, cache, tokens, positions, block_tables, moe_trace=None):
         cd = dtype_of(cfg.compute_dtype)
-        x = params["embed"][tokens].to(cd)
+        x = constrain(_embed(params["embed"], tokens, plan).to(cd), "act_btd")
         pools = cache["layers"]
         lps = _layers(params["layers"], cfg.n_layers)
         if cfg.ssm_state:
@@ -629,10 +749,10 @@ def paged_decode_step_fn(cfg):
         else:
             rope = layers.rope_tables(positions[:, None], _rope_dim(cfg), cfg.rope_theta)
             for i, lp in enumerate(lps):
-                x = _paged_block(x, lp, cfg, {nm: pool[i] for nm, pool in pools.items()}, positions, block_tables,
-                                 rope, moe_trace, i)
+                x = constrain(_paged_block(x, lp, cfg, {nm: pool[i] for nm, pool in pools.items()}, positions,
+                                           block_tables, rope, moe_trace, i, plan), "act_btd")
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return _head(params, cfg, x), cache
+        return constrain(_head(params, cfg, x, plan), "logits"), cache
 
     return step
 
@@ -664,16 +784,20 @@ def loss_fn(params, cfg, batch, *, kv_chunk: int = 0, fused_ce: Optional[bool] =
     tokens from the mean and the gradient.
 
     ``fused_ce=None`` selects the fused lm_head + cross-entropy kernel, as
-    the reference does when no sharding plan or constrain hook needs the
-    logits (neither is ported): the (B, S, V) logits are then never formed.
-    ``False`` forces the unfused path through the lm_head projection.
-    ``moe_trace`` as in :func:`forward`."""
-    _no_plan(plan, constrain)
+    the reference does when no constrain hook needs the logits: the (B, S,
+    V) logits are then never formed; with a ``constrain`` hook (called as
+    in :func:`forward`) it takes the unfused path.  ``False`` forces the
+    unfused path through the lm_head projection.  ``moe_trace`` as in
+    :func:`forward`; a sharding ``plan`` raises (training under a plan is
+    not ported yet)."""
+    _no_plan(plan)
     _require_served(cfg)
     mask = batch.get("loss_mask")
     shift_mask = None if mask is None else mask[:, 1:]
     inputs = dict(tokens=batch.get("tokens"), embeddings=batch.get("embeddings"), kv_chunk=kv_chunk,
-                  moe_trace=moe_trace, return_aux=True)
+                  moe_trace=moe_trace, return_aux=True, constrain=constrain)
+    if fused_ce is None and constrain is not None:
+        fused_ce = False
     if fused_ce is None or fused_ce:
         hidden, _, aux = forward(params, cfg, return_hidden=True, **inputs)
         return lm_head_ce.fused_cross_entropy_loss(
@@ -713,12 +837,13 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
     and the optimizer state (``count`` and ``grad_norm`` included) as they
     were and freezes the fingerprint reference; ``step`` advances either
     way.  Metrics gain ``skipped`` / ``weight_fault`` (0 or 1) and
-    ``skipped_total`` / ``weight_faults_total``."""
-    _no_plan(plan, constrain)
+    ``skipped_total`` / ``weight_faults_total``.  ``constrain`` as in
+    :func:`loss_fn`; a sharding ``plan`` raises."""
+    _no_plan(plan)
     _require_trainable(cfg)
 
     def grad_of(leaves, params, batch):
-        loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce)
+        loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce, constrain=constrain)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 

@@ -44,9 +44,10 @@ class Request:
 
 class Server:
     """The batch API served by the engine on ``device`` (default
-    ``"cuda"``; raises without a card unless ``device="cpu"``)."""
+    ``"cuda"``; raises without a card unless ``device="cpu"``); ``plan``
+    serves this rank's part of a sharded world (``Engine(plan=)``)."""
 
-    def __init__(self, cfg, scfg: ServerConfig, params, *, device="cuda"):
+    def __init__(self, cfg, scfg: ServerConfig, params, *, device="cuda", plan=None):
         self.cfg = cfg
         self.scfg = scfg
         self.engine = Engine(
@@ -55,7 +56,7 @@ class Server:
                 slots=scfg.batch_slots, max_seq=scfg.max_seq, prefill_chunk=scfg.prefill_chunk,
                 block_size=scfg.block_size, kv_quant=scfg.kv_quant, eos_id=scfg.eos_id,
             ),
-            device=device,
+            device=device, plan=plan,
         )
         self.params = self.engine.params
         self.last_stats: Dict = {}

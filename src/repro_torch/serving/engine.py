@@ -34,6 +34,21 @@ engine's graphs overwrites: the engine copies the rows it samples to the
 host at once.  On the CPU (``device="cpu"``) the same
 step functions run eagerly.
 
+**Sharded serving** (``plan=``, the port of the reference's
+``Engine(plan=)``): every rank of a tensor-parallel world runs one engine
+on the same requests, over its slice of the parameters (pass the whole
+ones, which ``plan.shard_params`` cuts, or only the rank's slice from
+``init_params(plan=)``, so that no rank holds the whole model) and pools
+of its KV heads;
+the block tables stay on the host.  Every rank sees the whole logits (the
+lm_head's are all-gathered), so the ranks sample alike and stay in step.
+Prefill keeps the non-flash attention path under a plan, as the reference
+does.  The steps run eagerly (``captured`` is False, ``eager_reason``
+says why): a gloo collective, the host transport's, cannot be captured in
+a CUDA graph, and capturing sharded steps over NCCL is not ported yet
+(ROADMAP.md Queue 1 "Distributed").  A ``"sharded"`` backend with no plan
+raises; so does ``verify`` under one (its degraded step is single-device).
+
 Rows are independent, so a greedy request's tokens do not depend on its
 batch-mates.  Under memory pressure the scheduler's LIFO victim is evicted
 and re-queued with its generated tokens (re-prefilled on re-admission).
@@ -79,6 +94,8 @@ from repro_torch.serving.scheduler import (
 
 __all__ = ["Engine", "EngineConfig"]
 
+_DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
+
 
 @dataclasses.dataclass
 class EngineConfig:
@@ -100,10 +117,12 @@ class Engine:
     """``add_request`` / ``step`` / ``run`` over a fixed slot pool on
     ``device`` (default ``"cuda"``; raises without a card unless
     ``device="cpu"``).  ``params`` come from ``init_params`` or
-    ``convert.params_from_jax`` on that device."""
+    ``convert.params_from_jax`` on that device; under a ``plan`` they are
+    the whole parameters, of which the engine keeps this rank's slice, or
+    that slice already (``init_params(plan=)``)."""
 
     def __init__(self, cfg, params, *, engine_cfg: Optional[EngineConfig] = None,
-                 on_preempt: Optional[Callable] = None, device="cuda"):
+                 on_preempt: Optional[Callable] = None, device="cuda", plan=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg = engine_cfg or EngineConfig()
@@ -111,8 +130,23 @@ class Engine:
         if be.layout == "dip_q" and cfg.quant_scheme != be.scheme:
             raise ValueError(f"backend {be.name!r} consumes {be.scheme!r}-quantized weights "
                              f"but cfg.quantization={cfg.quantization!r}")
+        if be.layout == "sharded" and plan is None:
+            raise ValueError(f"backend {be.name!r} dispatches on the weights' ShardingPlan metadata; pass plan= "
+                             "(distributed.make_plan) or serve on a single-device backend")
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters are on {params['embed'].device}, the engine runs on {self.device}")
+        self.plan = plan
+        self.eager_reason = None
+        if plan is not None:
+            if ecfg.verify:
+                raise NotImplementedError(f"verify= under a sharding plan is not ported yet ({_DISTRIBUTED})")
+            if plan.mesh.device is not None and plan.mesh.device.type != self.device.type:
+                raise ValueError(f"the plan's mesh is on {plan.mesh.device}, the engine runs on {self.device}")
+            params = plan.shard_params(params)
+            self.eager_reason = (
+                f"sharded steps over the {plan.mesh.transport} transport run eagerly: "
+                + ("a gloo collective cannot be captured in a CUDA graph" if plan.mesh.transport != "nccl"
+                   else f"capturing them over NCCL is not ported yet ({_DISTRIBUTED})"))
         self.params = params
 
         self.block_size = ecfg.block_size or cfg.kv_block_size
@@ -128,19 +162,21 @@ class Engine:
         self._paged = not cfg.is_ssm
         self.kv = kvc.PagedKVCache(
             cfg, num_blocks=num_blocks, block_size=self.block_size, slots=ecfg.slots,
-            max_seq=ecfg.max_seq, kv_quant=self.kv_quant, device=self.device,
+            max_seq=ecfg.max_seq, kv_quant=self.kv_quant, device=self.device, plan=plan,
         )
-        decode = tf_model.paged_decode_step_fn(cfg)
+        decode = tf_model.paged_decode_step_fn(cfg, plan=plan)
         # chunked prefill runs attention on the flash kernel: the chunk's
-        # cache offset is a device tensor, so every chunk shares one kernel
-        prefill = tf_model.decode_step_fn(cfg, attn_backend="flash")
+        # cache offset is a device tensor, so every chunk shares one kernel;
+        # under a plan the dense attention path, as the reference keeps it
+        prefill = tf_model.decode_step_fn(cfg, attn_backend=None if plan is not None else "flash", plan=plan)
         # the import runs once a request, eagerly: not worth a graph
         self._import = kvc.make_import_fn(cfg, self.block_size, self.kv_quant)
         c = ecfg.prefill_chunk
         self._prefill_buf_len = -(-ecfg.max_seq // c) * c
-        self._prefill_cache = tf_model.init_cache(cfg, 1, self._prefill_buf_len, device=self.device)
+        self._prefill_cache = tf_model.init_cache(cfg, 1, self._prefill_buf_len, device=self.device, plan=plan)
         # one memory pool for every graph of the engine: the steps never run at once
-        self._graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.captured = self.device.type == "cuda" and plan is None
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.captured else None
         self._decode = self._captured_decode(decode)
         if self._graph_pool is not None:
             widths = (c, 1) if cfg.ssm_state else (c,)
@@ -308,10 +344,12 @@ class Engine:
                                       uniforms=uniforms)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        """A step's integer input as an int64 host tensor: on the CPU the
-        step's own input, on the card staged by the captured step into its
-        static buffers."""
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+        """A step's integer input as an int64 tensor: on the CPU the step's
+        own input; on the card a host tensor that the captured step stages
+        into its static buffers, or, for steps that run eagerly (under a
+        plan), a copy on the card."""
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+        return t if self.captured or self.device.type == "cpu" else t.to(self.device)
 
     # ------------------------------------------------------------- faults --
     def _drop_prefill(self, req: ServeRequest) -> None:

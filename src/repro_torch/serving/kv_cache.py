@@ -88,15 +88,16 @@ class PagedKVCache:
     """
 
     def __init__(self, cfg, *, num_blocks: int, block_size: int, slots: int, max_seq: int,
-                 kv_quant: str = "none", device):
+                 kv_quant: str = "none", device, plan=None):
         self.cfg = cfg
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.slots = slots
         self.kv_quant = kv_quant
         self.blocks_per_seq = -(-max_seq // block_size)
+        # under a plan the pools hold this rank's KV heads; the tables stay here
         self.pools = tf_model.init_paged_cache(cfg, num_blocks, block_size, kv_quant=kv_quant, slots=slots,
-                                               device=device)
+                                               device=device, plan=plan)
         self.allocator = BlockAllocator(num_blocks)
         self.block_tables = np.zeros((slots, self.blocks_per_seq), np.int32)
         self.owned: List[List[int]] = [[] for _ in range(slots)]

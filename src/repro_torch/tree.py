@@ -8,7 +8,9 @@ it), an ``api.DipWeight`` (children: its ``data``, then its ABFT
 tensor or a Python number.  :func:`paths` names the leaves as the
 reference's checkpoints do (``jax.tree_util.keystr`` parts joined by ``/``,
 e.g. ``['params']/['layers']/['wq']/.data`` and
-``['params']/['layers']/['wq']/.checksum/.row``).
+``['params']/['layers']/['wq']/.checksum/.row``).  A ``DipWeight``'s
+metadata, its ``WeightPlan`` included, rides through :func:`unflatten` (the
+reference's static aux data).
 """
 
 from __future__ import annotations

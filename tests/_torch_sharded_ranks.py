@@ -1,0 +1,212 @@
+"""Rank-side bodies of the sharded tests: torch and the port only (no JAX),
+imported by the ranks that ``distributed.run_world`` spawns.
+
+Each body takes numpy inputs, runs the port on this rank's slice and returns
+numpy outputs with the communicator's log; the test process holds them
+against the reference.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+BACKENDS = {"tp_col": ("dip_tp", "column"), "tp_row": ("dip_tp", "row"), "fsdp": ("dip_fsdp", "column"),
+            "sp_col": ("dip_sp", "column"), "sp_row": ("dip_sp", "row")}
+
+
+def _t(a, dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+def _np(t):
+    t = t.detach().cpu()
+    return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+
+def local_inputs(path, mesh, x, resid):
+    """This rank's x and residual under ``path`` (the backends' module doc):
+    tp column whole; tp row and sp row x's K slice; fsdp the data rank's
+    rows; sp column x's rows of the model rank; the residual with the
+    output's rows on this rank."""
+    tp, me = mesh.shape["model"], mesh.coord("model")
+    dn, d = mesh.shape["data"], mesh.coord("data")
+    m, k = x.shape
+    if path == "tp_col":
+        return x, resid
+    if path == "tp_row":
+        kl = k // tp
+        return x[:, me * kl:(me + 1) * kl], resid
+    if path == "fsdp":
+        ml = m // dn
+        rows = slice(d * ml, (d + 1) * ml)
+        return x[rows], None if resid is None else resid[rows]
+    ml = m // tp
+    rows = slice(me * ml, (me + 1) * ml)
+    if path == "sp_col":
+        return x[rows], resid
+    kl = k // tp
+    return x[:, me * kl:(me + 1) * kl], None if resid is None else resid[rows]
+
+
+def run_case(case, meshes):
+    """One sharded dispatch: ``case`` holds path, mesh, epilogue, dtype,
+    scheme, x, the natural weights, bias, residual and gain (numpy)."""
+    from repro_torch import api
+    from repro_torch.distributed import WeightPlan, comm, shard_weight
+
+    mesh = meshes[case["mesh"]]
+    backend, kind = BACKENDS[case["path"]]
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[case["dtype"]]
+    x = _t(case["x"], dt)
+    ws = [_t(w, dt) for w in case["ws"]]
+    full = [api.DipWeight.from_natural(w) for w in ws]
+    if case.get("scheme"):
+        full = [api.quant.quantize(w.to_natural().float(), case["scheme"]) for w in full]
+    plan = WeightPlan(kind, axis="model", fsdp="data", mesh=mesh)
+    loc = [shard_weight(w, plan, along="fsdp" if backend == "dip_fsdp" else "tp") for w in full]
+    resid = None if case.get("resid") is None else _t(case["resid"], dt)
+    xl, rl = local_inputs(case["path"], mesh, x, resid)
+    ops = ()
+    if case.get("bias") is not None:
+        ops = (torch.from_numpy(case["bias"]),)
+    elif rl is not None:
+        ops = (rl,)
+    pro = {}
+    if case.get("gain") is not None:
+        pro = dict(prologue="rmsnorm", prologue_operands=(torch.from_numpy(case["gain"]),))
+    comm.reset(schedule=True)
+    out = api.matmul(xl, tuple(loc) if len(loc) == 2 else loc[0], backend=backend, epilogue=case["epilogue"],
+                     epilogue_operands=ops, **pro)
+    return _np(out), comm.counts(), comm.schedule(), str(out.dtype)
+
+
+def matmul_rank(rank, cases):
+    """Every case on this rank, against the meshes of a 4-rank world:
+    ``m4`` (data 1, model 4), ``f4`` (data 4, model 1) and ``m22`` (data 2,
+    model 2)."""
+    from repro_torch.distributed import make_local_mesh
+
+    meshes = {"m4": make_local_mesh(data=1, model=4), "f4": make_local_mesh(data=4, model=1),
+              "m22": make_local_mesh(data=2, model=2)}
+    coords = {name: (m.coord("data"), m.coord("model")) for name, m in meshes.items()}
+    return coords, [run_case(c, meshes) for c in cases]
+
+
+def _serving_cfg(cfg_fields):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ArchConfig
+
+    if "arch" in cfg_fields:
+        fields = dict(cfg_fields)
+        return dataclasses.replace(get_config(fields.pop("arch")).reduced(), **fields)
+    return ArchConfig(**cfg_fields)
+
+
+def serving_rank(rank, tiny, tiny_params, tiny_tokens, reduced, reduced_params, prompts, max_new):
+    """A 2-rank tensor-parallel world: the tiny dense forward through
+    ``dip_tp`` on the converted reference parameters (logits, and the
+    collectives of one forward), then the reduced llama3-8b ``Engine``
+    (tokens, and the collectives of one decode step)."""
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+
+    mesh = make_local_mesh(data=1, model=2)
+    out = {}
+    cfg = _serving_cfg(tiny)
+    plan = make_plan(mesh, cfg, "train")
+    params = plan.shard_params(params_from_jax(tiny_params, cfg, device="cpu"))
+    out["kinds"] = {k: params["layers"][k].plan.kind for k in ("wq", "wk", "wo", "w_gate", "w_down")}
+    comm.reset()
+    logits, _ = tf_model.forward(params, cfg, tokens=torch.from_numpy(tiny_tokens), plan=plan)
+    out["tiny_logits"], out["tiny_counts"] = _np(logits), comm.counts()
+
+    cfg = _serving_cfg(reduced)
+    plan = make_plan(mesh, cfg, "decode")
+    eng = Engine(cfg, params_from_jax(reduced_params, cfg, device="cpu"),
+                 engine_cfg=EngineConfig(slots=2, max_seq=32, prefill_chunk=8), device="cpu", plan=plan)
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, SamplingParams(max_new_tokens=max_new), rid=rid)
+    out["tokens"] = eng.run()
+    out["captured"], out["eager_reason"] = eng.captured, eng.eager_reason
+    out["pool_heads"] = int(eng.kv.pools["layers"]["k"].shape[3])
+    comm.reset()
+    s = eng.ecfg.slots
+    eng._decode(eng.params, eng.kv.pools, torch.full((s, 1), 5), torch.arange(s), torch.as_tensor(
+        eng.kv.block_tables, dtype=torch.long))
+    out["decode_counts"] = comm.counts()
+    return out
+
+
+def sleep_rank(rank, seconds):
+    """A rank that outlives its world's timeout."""
+    import time
+
+    time.sleep(seconds)
+
+
+def fail_rank(rank):
+    if rank == 1:
+        raise ValueError("rank 1 stops here")
+    return rank
+
+
+def cuda_rank(rank, transport, cases):
+    """The card's side of ``test_torch_cuda_sharded.py``: each case through
+    its sharded backend on this rank's card (``host``: every rank on card 0;
+    ``nccl``: card ``rank``), beside the single-rank dispatch of the whole
+    weight on the same card; for the row paths this rank's partial launch
+    (f32 store for bf16 x) with the plain version of it on the same card
+    inputs, and each held launch's kernel count."""
+    from repro_torch import api
+    from repro_torch.distributed import WeightPlan, comm, make_local_mesh, shard_weight
+    from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
+    from repro_torch.kernels.dip_matmul_q import dip_matmul_q, dip_matmul_q_plain
+
+    world = torch.distributed.get_world_size()
+    dev = torch.device("cuda", 0 if transport == "host" else rank)
+    meshes = {"m": make_local_mesh(data=1, model=world, transport=transport, device=dev),
+              "f": make_local_mesh(data=world, model=1, transport=transport, device=dev)}
+    out = []
+    for case in cases:
+        mesh = meshes["f" if case["path"] == "fsdp" else "m"]
+        backend, kind = BACKENDS[case["path"]]
+        dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[case["dtype"]]
+        x = _t(case["x"], dt).to(dev)
+        full = [api.DipWeight.from_natural(_t(w, dt).to(dev)) for w in case["ws"]]
+        if case.get("scheme"):
+            full = [api.quant.quantize(w.to_natural().float(), case["scheme"]) for w in full]
+        plan = WeightPlan(kind, axis="model", fsdp="data", mesh=mesh)
+        loc = [shard_weight(w, plan, along="fsdp" if backend == "dip_fsdp" else "tp") for w in full]
+        resid = None if case.get("resid") is None else _t(case["resid"], dt).to(dev)
+        xl, rl = local_inputs(case["path"], mesh, x, resid)
+        ops = (torch.from_numpy(case["bias"]).to(dev),) if case.get("bias") is not None else (
+            (rl,) if rl is not None else ())
+        launches = dip_matmul.launches + dip_matmul_q.launches
+        comm.reset()
+        got = api.matmul(xl, tuple(loc) if len(loc) == 2 else loc[0], backend=backend, epilogue=case["epilogue"],
+                         epilogue_operands=ops)
+        torch.cuda.synchronize(dev)
+        counted = dip_matmul.launches + dip_matmul_q.launches - launches
+        single_ops = (torch.from_numpy(case["bias"]).to(dev),) if case.get("bias") is not None else (
+            (resid,) if resid is not None else ())
+        single = api.matmul(x, tuple(full) if len(full) == 2 else full[0],
+                            backend=None if case.get("scheme") else "dip", epilogue=case["epilogue"],
+                            epilogue_operands=single_ops)
+        partial = None
+        if kind == "row":
+            f32 = torch.float32 if dt == torch.bfloat16 else None
+            xs, w = xl.contiguous(), loc[0]
+            before = dip_matmul.launches + dip_matmul_q.launches
+            if case.get("scheme"):
+                pair = (dip_matmul_q(xs, w.data, w.scale, out_dtype=f32),
+                        dip_matmul_q_plain(xs, w.data, w.scale, out_dtype=f32))
+            else:
+                pair = (dip_matmul(xs, w.data, out_dtype=f32), dip_matmul_plain(xs, w.data, out_dtype=f32))
+            torch.cuda.synchronize(dev)
+            partial = (_np(pair[0]), _np(pair[1]), str(pair[0].dtype),
+                       dip_matmul.launches + dip_matmul_q.launches - before)
+        out.append((_np(got.cpu()), _np(single.cpu()), comm.counts(), counted, partial))
+    return out

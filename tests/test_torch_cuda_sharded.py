@@ -1,0 +1,154 @@
+"""The sharded matmul backends on the card: a 2-rank world sharing one card
+over the ``host`` transport (gloo groups, payloads copied through host
+memory) and a 1-rank NCCL world, so that both transports' branches are
+built and run.
+
+Marked ``cuda``: every test skips where ``torch.cuda.is_available()`` is
+false.  On an H100 run them with ``python -m pytest -q -m cuda
+tests/test_torch_cuda_sharded.py``.
+
+Every path (tp column and row, fsdp, sp column and row) at small shapes, in
+bf16 and f32, with no epilogue, ``bias_silu``, ``swiglu`` and ``residual``,
+against the single-rank dispatch of the whole weight on the same card and
+against the plain version of the whole product on the CPU, both within
+``TOL`` of the output's magnitude; each rank's row partial (the f32 store
+for bf16 x) against the plain version on the same card inputs (int8 byte
+for byte); the int8 and bf16 row outputs equal to their partials' sum
+(two shards, order-free) cast once; the launches counted by the kernels'
+own counters equal the communicator's.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.distributed import run_world
+
+import _torch_sharded_ranks as ranks
+
+pytestmark = pytest.mark.cuda
+
+M, K, N = 64, 256, 256
+# max|err| <= TOL * max(1, max|want|).  float32: the same IEEE f32 products
+# summed in another order (the row paths add the ranks' partials); the bf16
+# mainloops' f32 store sums exact bf16 products in f32 alike.  bfloat16: f32
+# sums cast once on both sides, which land about one bf16 step (2^-8) apart
+# where they straddle a rounding midpoint
+TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+PATHS = ("tp_col", "tp_row", "fsdp", "sp_col", "sp_row")
+
+
+def _cases():
+    r = np.random.default_rng(0)
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        x = torch.from_numpy(r.normal(0, 1, (M, K)).astype(np.float32)).to(getattr(torch, dtype)).float().numpy()
+        ws = [torch.from_numpy(r.normal(0, 1, (K, N)).astype(np.float32)).to(getattr(torch, dtype)).float().numpy()
+              for _ in range(2)]
+        b = r.normal(0, 1, (N,)).astype(np.float32)
+        res = torch.from_numpy(r.normal(0, 1, (M, N)).astype(np.float32)).to(getattr(torch, dtype)).float().numpy()
+        for epilogue in ("none", "bias_silu", "swiglu", "residual"):
+            for path in PATHS:
+                cases.append(dict(x=x, ws=ws if epilogue == "swiglu" else ws[:1], path=path, dtype=dtype,
+                                  epilogue=epilogue, bias=b if epilogue == "bias_silu" else None,
+                                  resid=res if epilogue == "residual" else None))
+    x = r.normal(0, 1, (M, K)).astype(np.float32)
+    w = r.normal(0, 1, (K, N)).astype(np.float32)
+    for path in ("tp_row", "sp_row"):
+        cases.append(dict(x=x, ws=[w], path=path, dtype="bfloat16", epilogue="none", scheme="int8"))
+    return cases
+
+
+@pytest.fixture(scope="module", params=["host", "nccl"])
+def world(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    n = 2 if request.param == "host" else 1
+    cases = _cases()
+    return request.param, n, cases, run_world(ranks.cuda_rank, n, request.param, cases, timeout=600)
+
+
+def _close(got, want, dtype, what):
+    err = float(np.abs(got - want).max())
+    bound = TOL[dtype] * max(1.0, float(np.abs(want).max()))
+    assert err <= bound, f"{what}: max|err| {err:.3e} > {bound:.3e}"
+
+
+def _plain(case):
+    """The whole product through the registry on the CPU: the plain
+    version."""
+    from repro_torch import api
+
+    dt = getattr(torch, case["dtype"])
+    full = [api.DipWeight.from_natural(ranks._t(w, dt)) for w in case["ws"]]
+    ops = (torch.from_numpy(case["bias"]),) if case.get("bias") is not None else (
+        (ranks._t(case["resid"], dt),) if case.get("resid") is not None else ())
+    out = api.matmul(ranks._t(case["x"], dt), tuple(full) if len(full) == 2 else full[0], backend="dip",
+                     epilogue=case["epilogue"], epilogue_operands=ops)
+    return out.float().numpy()
+
+
+def _global(path, outs):
+    if path == "tp_row":
+        return outs[0]
+    return np.concatenate(outs, -1 if path in ("tp_col", "sp_col") else 0)
+
+
+def test_every_path_against_the_single_rank_dispatch(world):
+    transport, n, cases, res = world
+    for i, case in enumerate(cases):
+        if case.get("scheme"):
+            continue
+        got = _global(case["path"], [r[i][0] for r in res])
+        _close(got, res[0][i][1], case["dtype"], f"{transport} {case['path']}/{case['epilogue']}/{case['dtype']}")
+
+
+def test_every_path_against_the_plain_version(world):
+    transport, n, cases, res = world
+    for i, case in enumerate(cases):
+        if case.get("scheme"):  # a K shard's own activation scales: held by its partials below
+            continue
+        got = _global(case["path"], [r[i][0] for r in res])
+        _close(got, _plain(case), case["dtype"], f"{transport} {case['path']}/{case['epilogue']}/{case['dtype']}")
+
+
+def test_row_partials_against_the_plain_version(world):
+    transport, n, cases, res = world
+    for i, case in enumerate(cases):
+        for r in res:
+            if r[i][4] is None:
+                continue
+            got, want, dtype, launched = r[i][4]
+            what = f"{transport} {case['path']}/{case['dtype']}/{case.get('scheme')}"
+            assert dtype == "torch.float32" and launched == 1, (what, dtype, launched)
+            if case.get("scheme"):
+                np.testing.assert_array_equal(got, want, err_msg=what)
+            else:
+                _close(got, want, "float32", what)
+
+
+def test_int8_and_bf16_row_partials_sum_to_the_output(world):
+    transport, n, cases, res = world
+    for i, case in enumerate(cases):
+        if res[0][i][4] is None or not (case.get("scheme") or (case["dtype"] == "bfloat16"
+                                                               and case["epilogue"] == "none")):
+            continue
+        partials = [r[i][4][0] for r in res]
+        # the f32 partials' sum, cast once to bf16 (x's dtype)
+        want = torch.from_numpy(sum(partials[1:], partials[0])).bfloat16().float().numpy()
+        got = [r[i][0] for r in res]
+        if case["path"] == "tp_row":
+            for g in got:
+                np.testing.assert_array_equal(g, want)
+        else:
+            m_loc = -(-M // n)
+            for j, g in enumerate(got):
+                np.testing.assert_array_equal(g, want[j * m_loc:(j + 1) * m_loc])
+
+
+def test_kernel_counters_equal_the_logged_launches(world):
+    transport, n, cases, res = world
+    for i, case in enumerate(cases):
+        for r in res:
+            counts, counted = r[i][2], r[i][3]
+            assert counted == counts["launch"], (transport, case["path"], counts, counted)

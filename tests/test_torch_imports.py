@@ -41,6 +41,9 @@ def test_every_module_imports_without_jax_or_reference():
     # and the reliability layer's
     assert {"repro_torch.reliability", "repro_torch.reliability.abft", "repro_torch.reliability.guard",
             "repro_torch.reliability.inject"} <= set(mods)
+    # and the distributed layer's
+    assert {"repro_torch.distributed", "repro_torch.distributed.comm", "repro_torch.distributed.plan",
+            "repro_torch.distributed.world", "repro_torch.kernels.dip_matmul_sharded"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -149,7 +152,8 @@ def test_branches_outside_the_slice_raise(what):
         api.matmul(x, qw).sum().backward()
         # d(sum)/dx against the dequantized weight: its row sums
         torch.testing.assert_close(x.grad, qw.to_natural().sum(1).expand(2, 64))
-    else:
+    else:  # dip_tp / dip_fsdp / dip_sp serve now (test_torch_sharded_*.py); dip_ep does not yet
         from repro_torch import api
+        assert api.backend_layout("dip_tp") == "sharded"
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.get_backend("dip_tp")
+            api.get_backend("dip_ep")
