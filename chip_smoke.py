@@ -129,9 +129,10 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    import checked as in 5g;
 6. llama3-8b at full width cut to 4 layers,
 6b. deepseek-v2-lite-16b at full width cut to 4 layers,
-6c. zamba2-2.7b (54 layers),
+6c. zamba2-2.7b cut to 12 of its 54 layers (the shared block at 2 sites),
 6d. mamba2-370m (48 layers, the tied head) and
-6e. musicgen-medium (48 layers, fed the pipeline's embeddings), each trained
+6e. musicgen-medium cut to 12 of its 48 layers (fed the pipeline's
+   embeddings), each trained
    through ``launch.train`` and its ``Trainer`` (f32 parameters, bf16
    compute, block remat, batch 4 x seq 1024, 4 steps, the launcher's
    warm-up schedule) by one function, ``train_family``: the first step's
@@ -149,8 +150,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    padding (Zamba2's and Mamba2's in_proj) and both its AdamW moments
    exactly 0 after the steps, finite losses, step time, tokens/s, peak
    allocated and reserved memory, one more step split into forward,
-   backward and AdamW and profiled, and a run resumed from the step-3
-   checkpoint whose step 4 repeats the uninterrupted one; after 6, the same
+   backward and AdamW and profiled, and (6c and 6d) a run resumed from the
+   step-3 checkpoint whose step 4 repeats the uninterrupted one; after 6, the same
    4 llama3-8b steps through plain PyTorch, printed beside the kernels';
 7. kernel times (CUDA events, L2 flushed between launches; ``ms`` with the
    launch queued behind a device sleep, so the wrapper's host time is
@@ -207,7 +208,33 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    launches (each a shard) per step and rank, wall and device ms per step,
    peak memory per rank; 9d the reduced llama3-8b in f32 over the 2 ranks
    serving the single-rank engine's tokens exactly; then 9b the 9a calls in
-   a 1-rank NCCL world.
+   a 1-rank NCCL world;
+9e. deepseek-v2-lite-16b expert-parallel (``ep``) at full width in a 2-rank
+   world sharing the card (``host`` transport), after 5d with its engine
+   freed, held to what 5d recorded from its whole weights: (a) each rank
+   draws only its slice (``init_params(plan=)``: 32 of the 64 experts a
+   layer, the shared experts whole), its layer-0 experts equal to 5d's by
+   checksum, the build peak a rank; (b) a (2, 256) forward split by batch
+   within FULL_TOL of 5d's logits with 5d's expert choices replayed and its
+   dropped pairs equal by layer (the free-routing run's flips printed),
+   164 collectives; (c) layer 0's MoE on a (1, 256) chunk split by sequence
+   within bf16 TOL of 5d's plain ``moe_ffn`` on each half at
+   moe_capacity(128), drops and expert ids equal, 2 all-to-alls, 1 psum, 1
+   all-gather, the dispatch before the 2 shared-expert launches; (d)
+   ``Engine(plan=)`` serving 5d's 4 requests, 8 greedy tokens each: per
+   step and rank 164 collectives (27 x (2 all-to-alls, 2 all-reduces, 2
+   all-gathers) + 2), 163 DiP launches, each dispatch before its
+   shared-expert launches, walls, kernel and copy device ms, peak memory;
+   first-token logits and greedy streams beside 5d's (printed, not held:
+   the sequence split drops other pairs); (e) each launch shape of that
+   forward on the rank's own storage against its plain version, with
+   device ms beside plain, bound and the library call; (f) the reduced
+   deepseek-v2-lite-16b under ``tp`` and the reduced deepseek-v2-lite-16b
+   and qwen3-moe-235b-a22b under ``ep`` (capacity factor E / k, no drops)
+   in f32 serving the single-rank engines' tokens.
+
+Each phase's wall seconds are printed on a line of their own when the next
+phase opens, and all of them together before the ``kernels`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  It prints a ``{"kernels": [...]}`` line, the card's name and power
@@ -310,8 +337,29 @@ def device_ms(fn, flush, iters=10, warmup=3, queued=True):
     return statistics.median(ts)
 
 
+PHASE_S = {}  # phase -> wall seconds, from one "phase X:" line to the next
+_PHASE = {"name": None, "t": None}
+
+
 def log(msg):
+    """Print a line; a line that opens another phase ("phase 5d: ...";
+    "phase 9e(b): ..." stays in 9e) first closes the open one with a line
+    of its wall seconds."""
+    m = re.match(r"phase (\w+)[:( ]", msg)
+    if m and m.group(1) != _PHASE["name"]:
+        close_phase()
+        _PHASE.update(name=m.group(1), t=time.perf_counter())
     print(msg, flush=True)
+
+
+def close_phase():
+    """Print the open phase's wall seconds on a line of its own and add
+    them to ``PHASE_S``."""
+    if _PHASE["name"] is not None:
+        dt = time.perf_counter() - _PHASE["t"]
+        PHASE_S[_PHASE["name"]] = PHASE_S.get(_PHASE["name"], 0.0) + dt
+        print(f"  [wall of phase {_PHASE['name']}: {dt:.1f} s]", flush=True)
+        _PHASE["name"] = None
 
 
 def close(name, got, want, tol):
@@ -704,52 +752,87 @@ def _phase9_dispatch(transport):
     return out
 
 
+def _library_call(x, nats, kw):
+    """The same function in library calls: ``torch.matmul`` of the natural
+    weight(s), after ``F.rms_norm`` where the launch fuses the prologue,
+    with the swiglu epilogue in torch (a row partial's f32 store: the bf16
+    ``torch.matmul``, whose sums cuBLAS also keeps in f32)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.prologue import DEFAULT_EPS
+
+    gain = kw.get("prologue_operands")
+
+    def run():
+        h = x if gain is None else F.rms_norm(x, (x.shape[-1],), gain[0].to(x.dtype), DEFAULT_EPS)
+        if len(nats) == 2:
+            return F.silu(h @ nats[0]) * (h @ nats[1])
+        return h @ nats[0]
+
+    return run
+
+
+def _held_shapes(shapes, dev, seed):
+    """Each launch shape (``(label, kind, m, datas, kw)``: the rank's own
+    storage, the ``dip_matmul`` keywords) on random bf16 x, the kernel
+    against its plain version on the same card inputs (``_held_launch``;
+    the row partials' f32 store within f32 TOL, the rest within bf16 TOL);
+    each one's device ms beside the plain version's and the library call's
+    (``_library_call``), timed while the other ranks wait."""
+    import torch
+
+    from repro_torch.core import permute
+    from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
+
+    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    gen = torch.Generator(device=dev).manual_seed(seed + rank)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out, calls = [], []
+    for label, kind, m, data, kw in shapes:
+        k, n = data[0].shape
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        if kw.get("prologue") == "rmsnorm":
+            kw = dict(kw, prologue_operands=(torch.rand(k, generator=gen, device=dev) + 0.5,))
+        pair = (lambda x=x, d=data, kw=kw: dip_matmul(x, *d, **kw),
+                lambda x=x, d=data, kw=kw: dip_matmul_plain(x, *d, **kw))
+        held, _ = _held_launch(*pair, exact=False, tol=TOL["float32" if kind == "row" else "bfloat16"])
+        nats = [permute.unpermute_tiled(d, 64) for d in data]
+        out.append(dict(held, launch=label, kind=kind, m=m, k=k, n=n, epilogue=kw.get("epilogue", "none"),
+                        prologue=kw.get("prologue", "none")))
+        calls.append(pair + (_library_call(x, nats, kw),))
+    for r in range(world):
+        torch.distributed.barrier()
+        if r == rank:
+            for rec, (launch, plain, library) in zip(out, calls):
+                rec["ms"], rec["plain_ms"] = device_ms(launch, flush), device_ms(plain, flush)
+                rec["library_ms"] = device_ms(library, flush)
+        torch.cuda.synchronize(dev)
+    torch.distributed.barrier()
+    return out
+
+
 def _held_served_launches(eng, dev):
     """9c on this rank, after serving: each DiP launch of the served forward
     at its shard's shape, on the engine's own storage (layer 0's and the
     lm_head's slices) at M = 4 (a decode step's slots) and 256 (a prefill
-    chunk), the kernel against its plain version on the same card inputs
-    (``_held_launch``): the column shards (q, k, v, gate+up under swiglu,
-    the lm_head) with the rmsnorm prologue fused, within bf16 TOL; the row
-    partials of o and down (the f32 store), within f32 TOL.  Each one's
-    device ms beside the plain version's, timed while the other ranks wait."""
+    chunk) through ``_held_shapes``: the column shards (q, k, v, gate+up
+    under swiglu, the lm_head) with the rmsnorm prologue fused; the row
+    partials of o and down (the f32 store)."""
     import torch
 
-    from repro_torch.kernels.dip_matmul import dip_matmul, dip_matmul_plain
-
-    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1 + rank)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     lyr = eng.params["layers"]
     shards = [("wq", [lyr["wq"]]), ("wk", [lyr["wk"]]), ("wv", [lyr["wv"]]),
               ("w_gate + w_up", [lyr["w_gate"], lyr["w_up"]]), ("wo", [lyr["wo"]]), ("w_down", [lyr["w_down"]]),
               ("lm_head", [eng.params["lm_head"]])]
-    out, calls = [], []
+    shapes = []
     for m in (4, 256):
         for label, ws in shards:
             kind = ws[0].plan.kind
             data = [w.data[0] if w.data.dim() == 3 else w.data for w in ws]
-            k, n = data[0].shape
-            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-            if kind == "row":
-                kw = dict(out_dtype=torch.float32)
-            else:
-                kw = dict(epilogue="swiglu" if len(data) == 2 else "none", prologue="rmsnorm",
-                          prologue_operands=(torch.rand(k, generator=gen, device=dev) + 0.5,))
-            pair = (lambda x=x, d=data, kw=kw: dip_matmul(x, *d, **kw),
-                    lambda x=x, d=data, kw=kw: dip_matmul_plain(x, *d, **kw))
-            held, _ = _held_launch(*pair, exact=False, tol=TOL["float32" if kind == "row" else "bfloat16"])
-            out.append(dict(held, launch=label, kind=kind, m=m, k=k, n=n, epilogue=kw.get("epilogue", "none"),
-                            prologue=kw.get("prologue", "none")))
-            calls.append(pair)
-    for r in range(world):
-        torch.distributed.barrier()
-        if r == rank:
-            for rec, (launch, plain) in zip(out, calls):
-                rec["ms"], rec["plain_ms"] = device_ms(launch, flush), device_ms(plain, flush)
-        torch.cuda.synchronize(dev)
-    torch.distributed.barrier()
-    return out
+            kw = dict(out_dtype=torch.float32) if kind == "row" else dict(
+                epilogue="swiglu" if len(data) == 2 else "none", prologue="rmsnorm")
+            shapes.append((label, kind, m, data, kw))
+    return _held_shapes(shapes, dev, SEED + 1)
 
 
 def _phase9_serve(prompts):
@@ -790,42 +873,9 @@ def _phase9_serve(prompts):
     weights_gib = torch.cuda.memory_allocated(dev) / 2**30
     torch.cuda.reset_peak_memory_stats(dev)
     eng = server.engine
-    steps = {"_prefill_fwd": [], "_decode": []}
-    profiled = {}
-    first = {}
-
-    def traced(attr):
-        f = getattr(eng, attr)
-
-        def run(*a):
-            calls = steps[attr]
-            c0, l0 = comm.counts(), dip_matmul.launches
-            torch.cuda.synchronize(dev)
-            t = time.perf_counter()
-            if len(calls) == 1:  # the second call of each step, profiled: kernels and copies apart
-                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    res = f(*a)
-                    torch.cuda.synchronize(dev)
-                dev_ev = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
-                ms = {e.key: (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3
-                      for e in dev_ev}
-                copies = {k: v for k, v in ms.items() if k.startswith("Memcpy") or k.startswith("Memset")}
-                profiled[attr] = {"kernels_ms": sum(ms.values()) - sum(copies.values()),
-                                  "copies_ms": sum(copies.values()),
-                                  "kernel_launches": sum(e.count for e in dev_ev if e.key not in copies)}
-            else:
-                res = f(*a)
-            torch.cuda.synchronize(dev)
-            wall = 1e3 * (time.perf_counter() - t)
-            c1 = comm.counts()
-            calls.append({"wall_ms": wall, "collectives": {k: c1[k] - c0[k] for k in c1 if k != "launch"},
-                          "dip_launches": dip_matmul.launches - l0})
-            return res
-        setattr(eng, attr, run)
-
+    steps, profiled, first = {"_prefill_fwd": [], "_decode": []}, {}, {}
     record_first_logits(eng, cfg.vocab_size, first)
-    traced("_prefill_fwd")
-    traced("_decode")
+    _traced_steps(eng, dev, steps, profiled)
     reqs = [Request(rid=i, prompt=np.asarray(p)) for i, p in enumerate(prompts)]
     dip_matmul.launches = dip_matmul.launches_f32 = fa.flash_attention.launches = 0
     comm.reset()
@@ -906,6 +956,257 @@ def phase9_rank(rank, serve_prompts, reduced_prompts):
 def phase9_nccl_rank(rank):
     """9b: the dispatch cases in a 1-rank NCCL world on the card."""
     return _phase9_dispatch("nccl")
+
+
+# ----------------------------------------------- phase 9e: the ranks' side --
+EP_CHUNK = 256  # 9e's prefill chunk and (B, S) = (2, EP_CHUNK) forward
+# (name, arch, strategy, ample capacity)
+DS_REDUCED = (("deepseek_tp", "deepseek-v2-lite-16b", "tp", False), ("deepseek_ep", "deepseek-v2-lite-16b", "ep", True),
+              ("qwen3_ep", "qwen3-moe-235b-a22b", "ep", True))
+
+
+def ds_config(strategy=None):
+    """Phase 5d's DeepSeek-V2-Lite configuration (the launcher's: bf16,
+    ``dip``), or under ``strategy`` its plan's (``dip_tp`` / ``dip_ep``)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), matmul_backend="dip", param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    return cfg if strategy is None else dataclasses.replace(cfg, matmul_backend=f"dip_{strategy}",
+                                                            sharding=strategy)
+
+
+def reduced_moe_config(arch, strategy=None, ample=False):
+    """9e(f)'s reduced model in f32 on ``dip``, or under ``strategy`` its
+    plan's; ``ample``: the capacity factor E / k, so that an expert can take
+    every token of a group and no pair drops on either side (finite
+    capacity is held in 9e(c))."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), matmul_backend="dip", compute_dtype="float32",
+                              param_dtype="float32")
+    if ample:
+        cfg = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    if strategy is not None:
+        cfg = dataclasses.replace(cfg, matmul_backend=f"dip_{strategy}", sharding=strategy)
+    return cfg
+
+
+def bank_sums(bank):
+    """Per expert, the integer sum of a layer's bank's bf16 bit patterns:
+    a checksum that no summation order changes."""
+    import torch
+
+    return bank.view(torch.int16).long().sum((1, 2)).cpu().numpy()
+
+
+def _traced_steps(eng, dev, steps, profiled):
+    """Wrap the engine's two steps (phases 9c and 9e): each call's wall ms,
+    collectives by name (``comm.reset(schedule=True)`` before it), DiP
+    launches and, for the expert-parallel layer, whether each dispatch
+    all-to-all came before its two shared-expert launches; the second call
+    of each under the profiler (kernel and copy device ms)."""
+    import torch
+
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.dip_matmul import dip_matmul
+
+    def traced(attr):
+        f = getattr(eng, attr)
+
+        def run(*a):
+            calls = steps[attr]
+            comm.reset(schedule=True)
+            l0 = dip_matmul.launches
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            if len(calls) == 1:
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    res = f(*a)
+                    torch.cuda.synchronize(dev)
+                dev_ev = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+                ms = {e.key: (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3
+                      for e in dev_ev}
+                copies = {k: v for k, v in ms.items() if k.startswith("Memcpy") or k.startswith("Memset")}
+                profiled[attr] = {"kernels_ms": sum(ms.values()) - sum(copies.values()),
+                                  "copies_ms": sum(copies.values()),
+                                  "kernel_launches": sum(e.count for e in dev_ev if e.key not in copies)}
+            else:
+                res = f(*a)
+            torch.cuda.synchronize(dev)
+            wall = 1e3 * (time.perf_counter() - t)
+            sched = comm.schedule()
+            # each dispatch all-to-all (the first of a layer's pair) is followed
+            # by the two plan-free shared-expert launches, then the combine
+            a2a = [i for i, nm in enumerate(sched) if nm == "all_to_all"]
+            order_ok = bool(a2a) and len(a2a) % 2 == 0 and all(
+                sched[i + 1:i + 4] == ["launch", "launch", "all_to_all"] for i in a2a[::2])
+            calls.append({"wall_ms": wall, "collectives": {k: v for k, v in comm.counts().items() if k != "launch"},
+                          "dip_launches": dip_matmul.launches - l0, "dispatch_first": order_ok})
+            return res
+        setattr(eng, attr, run)
+
+    traced("_prefill_fwd")
+    traced("_decode")
+
+
+def _phase9e_serve(rec):
+    """9e (a)-(e) on this rank: DeepSeek-V2-Lite at full width under the
+    ``ep`` plan over the ranks sharing the card (``host`` transport), the
+    rank drawing only its slice of phase 5d's weights from the seed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_local_mesh(data=1, model=torch.distributed.get_world_size(), transport="host", device=dev)
+    cfg = ds_config("ep")
+    plan = make_plan(mesh, cfg, "decode")
+    me, vocab = plan.tp_rank, cfg.vocab_size
+    out = {}
+
+    # (a) the rank's slice of 5d's weights, drawn from the seed
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+    torch.cuda.synchronize(dev)
+    e0, n = plan.experts_local(cfg.n_experts)
+    lyr = params["layers"]
+    out["a"] = {"build_s": time.perf_counter() - t0, "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "weights_gib": torch.cuda.memory_allocated(dev) / 2**30, "experts": [e0, n],
+                "banks_equal": all(np.array_equal(bank_sums(lyr[nm][0]), rec["bank_sums"][nm][e0:e0 + n])
+                                   for nm in ("w_gate", "w_up", "w_down")),
+                "bank_shape": list(lyr["w_gate"].shape), "shared_storage": list(lyr["shared_w_gate"].data.shape),
+                "shared_plan": lyr["shared_w_gate"].plan.kind}
+
+    # (b) the (2, 256) forward, split by batch: free routing, then 5d's choices replayed
+    toks = torch.as_tensor(rec["tokens"], device=dev)
+    ref = torch.as_tensor(rec["logits"], device=dev)
+    scale = max(1.0, float(ref.abs().max()))
+    replay_ids = [torch.as_tensor(a, device=dev) for a in rec["ids"]]
+    b = {"scale": scale}
+    for what, trace in (("free", {}), ("replayed", {"replay_ids": replay_ids})):
+        comm.reset()
+        with torch.no_grad():
+            logits = tf_model.forward(params, cfg, tokens=toks, plan=plan, moe_trace=trace)[0][..., :vocab].float()
+        mine = [r.narrow(0, me, 1) for r in replay_ids]  # the batch split: this rank's row
+        flips = sum(int((~(ik[..., :, None] == ir[..., None, :]).any(-1)).sum()) for ik, ir in zip(trace["ids"], mine))
+        b[what] = {"max_abs_err": float((logits - ref).abs().max()), "finite": bool(torch.isfinite(logits).all()),
+                   "dropped": [int(v) for v in trace["dropped"]], "choices_differing": flips,
+                   "collectives": {k: v for k, v in comm.counts().items() if k != "launch"}}
+        del logits
+    out["b"] = b
+    del ref
+
+    # (c) layer 0 on the chunk shape (1, 256), split by sequence
+    lp0 = tf_model._layers(lyr, cfg.n_layers)[0]
+    x = torch.as_tensor(rec["chunk_x"], device=dev).to(torch.bfloat16)
+    comm.reset(schedule=True)
+    with torch.no_grad():
+        y, aux, dropped, ids = moe.moe_ffn(x, lp0, cfg, plan=plan, return_routing=True)
+    want = torch.as_tensor(rec["halves_out"], device=dev)
+    out["c"] = {"max_abs_err": float((y.float() - want).abs().max()),
+                "bound": TOL["bfloat16"] * max(1.0, float(want.abs().max())), "dropped": int(dropped),
+                "ids_equal": bool(np.array_equal(ids.cpu().numpy(), rec["halves_ids"][me])),
+                "counts": comm.counts(), "schedule": comm.schedule(), "capacity": moe.moe_capacity(x.shape[1] // 2, cfg)}
+    del x, y, want, lp0
+
+    # (d) the engine at 5d's settings, 5d's requests, 8 greedy tokens each
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=4, max_seq=1024, prefill_chunk=EP_CHUNK), device=dev,
+                 plan=plan)
+    del params, lyr
+    steps, profiled, first = {"_prefill_fwd": [], "_decode": []}, {}, {}
+    record_first_logits(eng, vocab, first)
+    _traced_steps(eng, dev, steps, profiled)
+    for rid, p in enumerate(rec["prompts"]):
+        eng.add_request(np.asarray(p), SamplingParams(max_new_tokens=8), rid=rid)
+    dip_matmul.launches = dip_matmul.launches_f32 = 0
+    t0 = time.perf_counter()
+    results = eng.run()
+    out["d"] = {"results": results, "first_logits": first, "steps": steps, "profiled_device_ms": profiled,
+                "launches": {"dip_matmul": dip_matmul.launches, "dip_matmul_f32_x": dip_matmul.launches_f32},
+                "wall_s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30,
+                "eager_reason": eng.eager_reason, "captured": eng.captured,
+                "pools": {k: list(v.shape) for k, v in eng.kv.pools["layers"].items()}}
+
+    # (e) each launch shape of the served forward on the rank's own storage
+    lp = eng.params["layers"]
+
+    def layer0(w):
+        return [w.data[0]]
+
+    col = dict(prologue="rmsnorm")
+    shapes = []
+    for m in (4, 256):
+        shapes += [("wq", "column", m, layer0(lp["wq"]), col), ("w_dkv", "column", m, layer0(lp["w_dkv"]), col),
+                   ("w_krope", "replicated", m, layer0(lp["w_krope"]), col),
+                   ("wo", "row", m, layer0(lp["wo"]), dict(out_dtype=torch.float32)),
+                   ("lm_head", "column", m, [eng.params["lm_head"].data], {})]
+    for m in (2, EP_CHUNK // 2):  # the rank's own tokens: half the decode slots, half the chunk
+        shapes += [("shared gate+up", "plan-free", m, layer0(lp["shared_w_gate"]) + layer0(lp["shared_w_up"]),
+                    dict(epilogue="swiglu")),
+                   ("shared down", "plan-free", m, layer0(lp["shared_w_down"]), {})]
+    out["e"] = _held_shapes(shapes, dev, SEED + 11)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase9e_reduced(prompts):
+    """9e (f) on this rank: the reduced DeepSeek-V2-Lite under ``tp``, and
+    the reduced DeepSeek-V2-Lite and Qwen3-MoE under ``ep``, in f32 on the
+    card: each engine's tokens, its launches, and the dropped pairs of one
+    forward of the first prompt."""
+    import torch
+
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import make_local_mesh, make_plan
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(data=1, model=torch.distributed.get_world_size(), transport="host", device=dev)
+    out = {}
+    for name, arch, strategy, ample in DS_REDUCED:
+        cfg = reduced_moe_config(arch, strategy, ample)
+        plan = make_plan(mesh, cfg, "decode")
+        params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+        trace = {}
+        with torch.no_grad():
+            tf_model.forward(params, cfg, tokens=torch.as_tensor([prompts[0]], device=dev), plan=plan,
+                             moe_trace=trace)
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=2, max_seq=64, prefill_chunk=16), device=dev,
+                     plan=plan)
+        for rid, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
+        dip_matmul.launches = dip_matmul.launches_f32 = 0
+        results = eng.run()
+        out[name] = {"results": results, "dropped": sum(int(v) for v in trace["dropped"]),
+                     "dip_launches": dip_matmul.launches, "dip_f32_x_launches": dip_matmul.launches_f32}
+    return out
+
+
+def phase9e_rank(rank, rec, reduced_prompts):
+    """One rank of 9e's 2-rank world sharing the card (host transport):
+    (a)-(e) at full width on phase 5d's weights and requests, then (f).
+    Returns numpy and numbers only."""
+    import warnings
+
+    warnings.simplefilter("ignore", UserWarning)  # the width fallbacks (w_krope; the reduced widths) announce once
+    out = _phase9e_serve(rec)
+    out["f"] = _phase9e_reduced(reduced_prompts)
+    return out
 
 
 def main():
@@ -2309,7 +2610,7 @@ def main():
 
         # ---- 9c: llama3-8b tensor-parallel at full width ----
         n_layers = 32
-        want_per_step = {"psum": 2 * n_layers + 1, "all_gather": 1, "reduce_scatter": 0, "ppermute": 0}
+        want_per_step = {"psum": 2 * n_layers + 1, "all_gather": 1, "reduce_scatter": 0, "ppermute": 0, "all_to_all": 0}
         log(f"phase 9c: llama3-8b full width, bf16, dip_tp over 2 ranks ({outs[0]['9c']['transport']} transport: "
             f"{outs[0]['9c']['eager_reason']}); phase 5's settings and requests")
         tp = [o["9c"] for o in outs]
@@ -2357,7 +2658,8 @@ def main():
             for h in t["held_launches"]:
                 log(f"  rank {r} {h['launch']} ({h['kind']}) M={h['m']} K={h['k']} N={h['n']} {h['epilogue']}/"
                     f"{h['prologue']} -> {h['out_dtype']}: max|err| vs plain {h['max_abs_err']:.3e} (bound "
-                    f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms ({gpu})")
+                    f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, library "
+                    f"{h['library_ms']:.4f} ms ({gpu})")
             if not all(h["ok"] for h in t["held_launches"]):
                 raise AssertionError(f"phase 9c rank {r}: a served launch shape off its plain version: "
                                      f"{[h for h in t['held_launches'] if not h['ok']]}")
@@ -2382,15 +2684,166 @@ def main():
         res["9d"] = {"equal": True, "tokens": want_reduced, "f32_x_launches": f32_x}
 
         # ---- 9b: the same dispatch in a 1-rank NCCL world ----
+        log("phase 9b: the 9a calls in a 1-rank NCCL world on the card")
         t0 = time.perf_counter()
         nccl = run_world(phase9_nccl_rank, 1, timeout=600.0)
-        log(f"phase 9b: the 9a calls in a 1-rank NCCL world on the card ({time.perf_counter() - t0:.1f} s)")
+        log(f"  the 1-rank NCCL world {time.perf_counter() - t0:.1f} s")
         res["9b"] = check_dispatch("9b", nccl)
         res["launches"] = {"serve_tp": {"dip_matmul": sum(t["launches"]["dip_matmul"] for t in tp),
                                         "dip_matmul_f32_x": 0, "flash_attention": 0},
                            "serve_tp_reduced": {"dip_matmul": sum(o["9d"]["dip_launches"] for o in outs),
                                                 "dip_matmul_f32_x": sum(f32_x)}}
         log(f"  phase 9 wall: the 2-rank world {world_s:.1f} s")
+        return res
+
+    # ------------------------- 9e. expert parallelism at full width --------
+    def phase9e(rec):
+        """DeepSeek-V2-Lite under ``ep`` over 2 ranks sharing the card
+        (``phase9e_rank``), held to 5d's records (``ep_records``); (f)'s
+        reduced models against single-rank engines on the card from the
+        same seed."""
+        from repro_torch.distributed import run_world
+
+        prompts = [list(range(2, 9)), list(range(40, 57))]
+        single = {}
+        with uncounted():
+            for name, arch, strategy, ample in DS_REDUCED:
+                c1 = reduced_moe_config(arch, ample=ample)
+                p1 = tf_model.init_params(c1, make_generator(SEED, "cuda"), "cuda")
+                trace = {}
+                with torch.no_grad():
+                    tf_model.forward(p1, c1, tokens=torch.as_tensor([prompts[0]], device=dev), moe_trace=trace)
+                e1 = Engine(c1, p1, engine_cfg=EngineConfig(slots=2, max_seq=64, prefill_chunk=16), device="cuda")
+                for rid, p in enumerate(prompts):
+                    e1.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
+                single[name] = {"results": e1.run(), "dropped": sum(int(v) for v in trace["dropped"])}
+                del e1, p1, trace
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = run_world(phase9e_rank, 2, rec, prompts, timeout=900.0)
+        world_s = time.perf_counter() - t0
+        n_layers = 27
+        want_step = {"psum": 2 * n_layers + 1, "all_gather": 2 * n_layers + 1, "reduce_scatter": 0, "ppermute": 0,
+                     "all_to_all": 2 * n_layers}
+        res = {"world_s": world_s, "collectives_per_step": want_step}
+
+        log("phase 9e(a): each rank's slice of 5d's weights, drawn from the seed (init_params(plan=))")
+        for r, o in enumerate(outs):
+            a = o["a"]
+            log(f"  rank {r}: {json.dumps(a)} ({gpu})")
+            if not a["banks_equal"] or a["experts"] != [32 * r, 32] or a["shared_storage"] != [27, 2048, 2816]:
+                raise AssertionError(f"phase 9e(a) rank {r}: the rank's experts or shared experts are not 5d's: {a}")
+        res["a"] = [o["a"] for o in outs]
+
+        log(f"phase 9e(b): the (2, {EP_CHUNK}) forward split by batch against 5d's logits (bound {FULL_TOL} x "
+            f"max(1, max|5d|))")
+        for r, o in enumerate(outs):
+            b = o["b"]
+            bound = FULL_TOL * b["scale"]
+            log(f"  rank {r}: free routing: max|err| {b['free']['max_abs_err']:.4e}, {b['free']['choices_differing']} "
+                f"of the rank's {EP_CHUNK * 6 * n_layers} top-6 choices differ from 5d's, dropped "
+                f"{sum(b['free']['dropped'])} (5d {sum(rec['dropped'])}); 5d's choices replayed: max|err| "
+                f"{b['replayed']['max_abs_err']:.4e} (bound {bound:.4f}), dropped by layer equal "
+                f"{b['replayed']['dropped'] == rec['dropped']}; collectives {b['replayed']['collectives']}")
+            if (b["replayed"]["max_abs_err"] > bound or not b["replayed"]["finite"] or b["replayed"]["dropped"] !=
+                    rec["dropped"] or b["replayed"]["collectives"] != want_step):
+                raise AssertionError(f"phase 9e(b) rank {r}: the expert-parallel forward is off 5d's: {b}")
+        res["b"] = [o["b"] for o in outs]
+
+        log(f"phase 9e(c): layer 0's MoE on the chunk shape (1, {EP_CHUNK}), split by sequence, against 5d's "
+            f"plain moe_ffn on each half")
+        want_c = {"psum": 1, "all_gather": 1, "reduce_scatter": 0, "ppermute": 0, "all_to_all": 2, "launch": 2}
+        for r, o in enumerate(outs):
+            c = o["c"]
+            log(f"  rank {r}: max|err| {c['max_abs_err']:.4e} (bound {c['bound']:.4e}), dropped {c['dropped']} (5d's "
+                f"halves {rec['halves_dropped']}, capacity {c['capacity']}), the rank's ids equal 5d's half's "
+                f"{c['ids_equal']}; counts {c['counts']}, schedule {c['schedule']}")
+            if (c["max_abs_err"] > c["bound"] or c["dropped"] != rec["halves_dropped"] or not c["ids_equal"]
+                    or c["counts"] != want_c or c["schedule"] != ["all_to_all", "launch", "launch", "all_to_all",
+                                                                  "psum", "all_gather"]):
+                raise AssertionError(f"phase 9e(c) rank {r}: the expert-parallel layer is off 5d's halves: {c}")
+        res["c"] = [o["c"] for o in outs]
+
+        d0 = outs[0]["d"]
+        log(f"phase 9e(d): Engine(plan=) at 5d's settings (4 slots, max_seq 1024, chunk {EP_CHUNK}) over 2 ranks "
+            f"({d0['eager_reason']}); 5d's 4 requests, 8 greedy tokens each")
+        if any(o["d"]["results"] != d0["results"] for o in outs):
+            raise AssertionError("phase 9e(d): the ranks served different tokens")
+        if sorted(d0["results"]) != [0, 1, 2, 3] or any(len(v) != 8 for v in d0["results"].values()):
+            raise AssertionError(f"phase 9e(d): not every request got its 8 tokens: {d0['results']}")
+        cmp = {}
+        for rid, want_l in rec["first_logits"].items():
+            got_l = d0["first_logits"][rid]
+            a, bb = list(rec["results"][rid][:8]), list(d0["results"][rid])
+            prefix = next((i for i, (x, y) in enumerate(zip(a, bb)) if x != y), len(bb))
+            cmp[rid] = {"first_logits_max_abs_err": float(np.abs(got_l - want_l).max()),
+                        "scale": max(1.0, float(np.abs(want_l).max())), "equal_prefix": prefix, "ep": bb, "phase5d": a}
+            log(f"  request {rid} ({len(rec['prompts'][rid])} tokens): first-token logits max|err| "
+                f"{cmp[rid]['first_logits_max_abs_err']:.4e} against 5d's (max|5d| {cmp[rid]['scale']:.3g}; printed, "
+                f"not held: the sequence split drops other pairs); tokens equal for the first {prefix} of 8: ep {bb} "
+                f"| 5d {a}")
+        per_rank = []
+        for r, o in enumerate(outs):
+            d = o["d"]
+            dec, pre = d["steps"]["_decode"], d["steps"]["_prefill_fwd"]
+            bad = [s_["collectives"] for s_ in dec + pre if s_["collectives"] != want_step]
+            bad_launches = [s_["dip_launches"] for s_ in dec + pre if s_["dip_launches"] != 163]
+            order = all(s_["dispatch_first"] for s_ in dec + pre)
+            rec_r = {"rank": r, "decode_steps": len(dec), "prefill_chunks": len(pre),
+                     "collectives_per_step": dec[0]["collectives"], "launches": d["launches"],
+                     "dispatch_before_shared_launches": order,
+                     "median_decode_step_wall_ms": statistics.median(s_["wall_ms"] for s_ in dec),
+                     "median_prefill_chunk_wall_ms": statistics.median(s_["wall_ms"] for s_ in pre),
+                     "decode_step_device": d["profiled_device_ms"].get("_decode"),
+                     "prefill_chunk_device": d["profiled_device_ms"].get("_prefill_fwd"),
+                     "peak_gib": d["peak_gib"], "peak_reserved_gib": d["peak_reserved_gib"],
+                     "weights_gib": o["a"]["weights_gib"], "build_peak_gib": o["a"]["build_peak_gib"],
+                     "build_s": o["a"]["build_s"], "wall_s": d["wall_s"], "pools": d["pools"]}
+            log(f"  rank {r}: {json.dumps(rec_r)} ({gpu})")
+            want_l = {"dip_matmul": 163 * (len(dec) + len(pre)), "dip_matmul_f32_x": 0}
+            if bad or bad_launches or not order or d["launches"] != want_l:
+                raise AssertionError(f"phase 9e(d) rank {r}: collectives, launches or the dispatch order off the "
+                                     f"design: {bad[:3]} {bad_launches[:3]} {order} {d['launches']} (want {want_step}, "
+                                     f"163 a forward)")
+            per_rank.append(rec_r)
+        log(f"  per step and rank: {sum(want_step.values())} collectives ({want_step}: in each of the {n_layers} "
+            f"layers w_dkv's all-gather, wo's all-reduce, the MoE's dispatch and combine all-to-alls, its stats' "
+            f"all-reduce and its tokens' all-gather; the embedding's all-reduce, the logits' all-gather) and 163 DiP "
+            f"launches; each dispatch before the shared experts' launches")
+        res["d"] = {"requests": cmp, "ranks": per_rank, "eager_reason": d0["eager_reason"]}
+
+        log("phase 9e(e): each launch shape of the served forward on the rank's own storage against its plain "
+            "version")
+        for r, o in enumerate(outs):
+            for h in o["e"]:
+                log(f"  rank {r} {h['launch']} ({h['kind']}) M={h['m']} K={h['k']} N={h['n']} {h['epilogue']}/"
+                    f"{h['prologue']} -> {h['out_dtype']}: max|err| vs plain {h['max_abs_err']:.3e} (bound "
+                    f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, library "
+                    f"{h['library_ms']:.4f} ms ({gpu})")
+            if not all(h["ok"] for h in o["e"]):
+                raise AssertionError(f"phase 9e(e) rank {r}: a launch shape off its plain version: "
+                                     f"{[h for h in o['e'] if not h['ok']]}")
+        res["e"] = outs[0]["e"]
+
+        log("phase 9e(f): the reduced models in f32 over the 2 ranks against single-rank engines on the card "
+            "(ep: capacity factor E / k)")
+        for name, arch, strategy, ample in DS_REDUCED:
+            got = [o["f"][name] for o in outs]
+            log(f"  {name}: tokens {got[0]['results']}; the single-rank engine's {single[name]['results']}; dropped "
+                f"pairs in a forward of the first prompt: ranks {[g['dropped'] for g in got]}, single rank "
+                f"{single[name]['dropped']}; DiP launches a rank {[g['dip_launches'] for g in got]} (f32 x "
+                f"{[g['dip_f32_x_launches'] for g in got]})")
+            if any(g["results"] != single[name]["results"] for g in got):
+                raise AssertionError(f"phase 9e(f) {name}: the sharded engine's tokens differ from the single rank's")
+            if ample and (single[name]["dropped"] or any(g["dropped"] for g in got)):
+                raise AssertionError(f"phase 9e(f) {name}: pairs dropped at capacity factor E / k")
+        res["f"] = {name: {"tokens": single[name]["results"]} for name, *_ in DS_REDUCED}
+        res["launches"] = {
+            "serve_ep": {"dip_matmul": sum(o["d"]["launches"]["dip_matmul"] for o in outs), "dip_matmul_f32_x": 0},
+            "serve_ep_reduced": {"dip_matmul": sum(o["f"][nm]["dip_launches"] for o in outs for nm, *_ in DS_REDUCED),
+                                 "dip_matmul_f32_x": sum(o["f"][nm]["dip_f32_x_launches"] for o in outs
+                                                         for nm, *_ in DS_REDUCED)}}
+        log(f"  phase 9e wall: the 2-rank world {world_s:.1f} s")
         return res
 
     # --------------------------------------- 8. reliability at full width ---
@@ -3149,6 +3602,41 @@ def main():
                 "device_ms_dense": prof_d["device_ms"], "wall_ms_flash": prof_f["wall_ms"],
                 "wall_ms_dense": prof_d["wall_ms"]}
 
+    def ep_records(server, reqs, results, first):
+        """What phase 9e is held to, from 5d's whole weights: the logits of
+        a (2, 256) forward (the first 256 tokens of 5d's first two prompts;
+        dense attention, as a plan's forward takes it) with its expert ids
+        and dropped pairs by layer; layer 0's ``moe_ffn`` through the plain
+        versions on each half of a seeded (1, 256) bf16 input, at
+        moe_capacity(128) (the reference's ``ep`` semantics for a sequence
+        split); layer 0's banks' checksums by expert; 5d's prompts, tokens
+        and first-token logits.  No launch here counts on 5d's path."""
+        c, params = server.engine.cfg, server.params
+        toks = torch.as_tensor(np.stack([r.prompt[:EP_CHUNK] for r in reqs[:2]]), device=dev)
+        trace = {}
+        with uncounted(), torch.no_grad():
+            logits = tf_model.forward(params, c, tokens=toks, moe_trace=trace)[0][..., :c.vocab_size].float()
+        lp0 = tf_model._layers(params["layers"], c.n_layers)[0]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        x = torch.randn((1, EP_CHUNK, c.d_model), generator=gen, device=dev).to(torch.bfloat16)
+        with uncounted(), plain_backends(), torch.no_grad():
+            halves = [moe.moe_ffn(h.contiguous(), lp0, c, return_routing=True) for h in x.chunk(2, 1)]
+        rec = {"prompts": [r.prompt.tolist() for r in reqs], "results": {k: list(v) for k, v in results.items()},
+               "first_logits": dict(first), "tokens": toks.cpu().numpy(), "logits": logits.cpu().numpy(),
+               "ids": [i.cpu().numpy() for i in trace["ids"]], "dropped": [int(v) for v in trace["dropped"]],
+               "chunk_x": x.float().cpu().numpy(),
+               "halves_out": torch.cat([h[0] for h in halves], 1).float().cpu().numpy(),
+               "halves_dropped": sum(int(h[2]) for h in halves), "halves_ids": [h[3].cpu().numpy() for h in halves],
+               "bank_sums": {nm: bank_sums(params["layers"][nm][0]) for nm in ("w_gate", "w_up", "w_down")}}
+        log(f"  recorded for phase 9e: a (2, {EP_CHUNK}) forward's logits (max|logit| "
+            f"{float(logits.abs().max()):.3g}, {sum(rec['dropped'])} pairs dropped over {c.n_layers} layers); layer "
+            f"0 on each half of a (1, {EP_CHUNK}) input at capacity {moe.moe_capacity(EP_CHUNK // 2, c)}, "
+            f"{rec['halves_dropped']} pairs dropped; layer 0's bank checksums")
+        del logits, x, halves, trace
+        return rec
+
+    ds_for_9e = {}  # 5d's records, for phase 9e
+
     def serve_deepseek(phase, extra_argv=(), scheme=None):
         """Serve deepseek-v2-lite-16b through ``launch.serve --full`` (4
         slots, max_seq 1024, prefill chunk 256, the launcher's 4 seeded
@@ -3167,7 +3655,8 @@ def main():
         ds_argv = ["--arch", "deepseek-v2-lite-16b", "--full", "--dtype", "bfloat16", "--requests", "4",
                    "--max-new", "16", "--slots", "4", "--max-seq", "1024", "--prefill-chunk", "256",
                    "--seed", str(SEED), "--prompt-len", "200", "601", "--temperature", "0"] + list(extra_argv)
-        dst = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "held": {}, "orig": {}, "imported": {}}
+        dst = {"times": {"_prefill_fwd": [], "_decode": []}, "checked": {}, "held": {}, "orig": {}, "imported": {},
+               "first": {}}
 
         def ds_hook(server, reqs):
             """Gate 1 (one MLA block and one MoE block, kernels against plain
@@ -3205,6 +3694,8 @@ def main():
             del blocks, a_k, m_k, a_p, m_p, x
             if eng.kv_quant == "int8":
                 check_first_import(eng, dst["imported"])
+            if scheme is None:
+                record_first_logits(eng, c.vocab_size, dst["first"])
             plain_steps = {"_prefill_fwd": tf_model.decode_step_fn(c, attn_backend="flash"),
                            "_decode": tf_model.paged_decode_step_fn(c)}
             for attr in ("_prefill_fwd", "_decode"):
@@ -3336,6 +3827,8 @@ def main():
         if set(ds_checked) != {"_prefill_fwd", "_decode"}:
             raise AssertionError("deepseek full width: a step was never checked against plain")
         whole = whole_prompt_forward(server.params, dcfg, reqs) if scheme is None else None
+        if scheme is None:
+            ds_for_9e.update(ep_records(server, reqs, results, dst["first"]))
         prompt_tokens, generated = sum(len(r.prompt) for r in reqs), sum(len(v) for v in results.values())
         ds_serving = {
             "median_prefill_chunk_ms": 1e3 * statistics.median(times["_prefill_fwd"]),
@@ -3368,6 +3861,10 @@ def main():
     log("phase 5d: deepseek-v2-lite-16b full width (27 layers, d_model 2048, MLA with kv_lora_rank 512, "
         "64 routed experts top-6 + 2 shared), bf16, dip storage, through launch.serve")
     launches_ds, ds_serving = serve_deepseek("5d")
+    log("phase 9e: deepseek-v2-lite-16b expert-parallel (ep) at full width over 2 ranks sharing the card (host "
+        "transport), after 5d with its engine freed, held to 5d's records")
+    ep_out = phase9e(ds_for_9e)
+    ds_for_9e.clear()
     log("phase 5g: deepseek-v2-lite-16b full width, bf16 compute, --quantize int8 --kv-quant int8 (the MLA and "
         "shared-expert projections and the head int8, the router and expert banks bf16), through launch.serve")
     launches_dsq, dsq_serving = serve_deepseek("5g", ["--quantize", "int8", "--kv-quant", "int8"], "int8")
@@ -3704,7 +4201,7 @@ def main():
             t = t[k]
         return t
 
-    def train_family(phase, arch_name, layers=None):
+    def train_family(phase, arch_name, layers=None, resume=True):
         """One model trained at full width through ``launch.train`` (f32
         parameters, bf16 compute, block remat, batch 4 x 1024, 4 AdamW steps,
         the launcher's schedule), with its gates: the first step through the
@@ -3716,8 +4213,9 @@ def main():
         4 steps (per step, twice every DiP projection of a forward but the
         head, which the fused loss takes: forward and remat rerun; one
         lm_head_ce, no flash), every padded DiP leaf's padding and both its
-        moments exactly 0 after the steps, finite losses, and a run resumed
-        from the step-3 checkpoint whose step 4 is the uninterrupted one's."""
+        moments exactly 0 after the steps, finite losses, and (``resume``) a
+        run resumed from the step-3 checkpoint whose step 4 is the
+        uninterrupted one's."""
         base = get_config(arch_name)
         c = dataclasses.replace(base, matmul_backend="dip", n_layers=layers or base.n_layers)
         assert (c.param_dtype, c.compute_dtype, c.remat) == ("float32", "bfloat16", "block")
@@ -3895,6 +4393,12 @@ def main():
         del grads, loss, leaves, batch, prof, out, state, opt
         torch.cuda.empty_cache()
 
+        if not resume:
+            shutil.rmtree(ckdir, ignore_errors=True)
+            result["phase_s"] = time.perf_counter() - t_phase
+            log(f"  {phase} " + json.dumps({k: v for k, v in result.items() if k != "profiled_step"}) + f" ({gpu})")
+            return result, launches
+
         # the run resumed from its step-3 checkpoint: step 4 again
         t0 = time.perf_counter()
         again = train_cli.main(argv)
@@ -3923,7 +4427,9 @@ def main():
     c = dataclasses.replace(arch, n_layers=4, matmul_backend="dip")
     assert (c.d_model, c.n_heads, c.n_kv_heads, c.resolved_head_dim, c.d_ff, c.vocab_size, c.padded_vocab) == (
         4096, 32, 8, 128, 14336, 128256, 129024)
-    training, train_launches = train_family("6", "llama3-8b", c.n_layers)
+    # the resume from a checkpoint is held once for the transformer stacks
+    # (6c, the hybrid with its shared block's tree) and once for the pure SSM (6d)
+    training, train_launches = train_family("6", "llama3-8b", c.n_layers, resume=False)
     data = SyntheticLM(vocab_size=c.vocab_size, seq_len=t_seq, global_batch=t_batch, seed=SEED)
     plain = dataclasses.replace(c, matmul_backend="torch")
 
@@ -3952,15 +4458,17 @@ def main():
 
     # ------------------- 6b-6e. the families' training at full width -------
     family_training, family_launches = {}, {}
-    for phase, arch_name, layers, what in (
-            ("6b", "deepseek-v2-lite-16b", 4, "MLA and 64 routed experts top-6 + 2 shared in every layer, cut to 4 "
-                                              "layers as phase 6 cuts llama3-8b"),
-            ("6c", "zamba2-2.7b", None, "54 Mamba2 layers and the shared attention+FFN block at 9 sites"),
-            ("6d", "mamba2-370m", None, "48 Mamba2 layers, the tied head"),
-            ("6e", "musicgen-medium", None, "48 dense layers fed the pipeline's embeddings")):
+    for phase, arch_name, layers, resume, what in (
+            ("6b", "deepseek-v2-lite-16b", 4, False, "MLA and 64 routed experts top-6 + 2 shared in every layer, "
+                                                     "cut to 4 layers as phase 6 cuts llama3-8b"),
+            ("6c", "zamba2-2.7b", 12, True, "cut to 12 of its 54 Mamba2 layers, the shared attention+FFN block at "
+                                            "2 of its 9 sites"),
+            ("6d", "mamba2-370m", None, True, "48 Mamba2 layers, the tied head"),
+            ("6e", "musicgen-medium", 12, False, "cut to 12 of its 48 dense layers, fed the pipeline's "
+                                                 "embeddings")):
         log(f"phase {phase}: {arch_name} full width ({what}; f32 params, bf16 compute, dip, block remat) "
             f"through launch.train")
-        family_training[arch_name], family_launches[arch_name] = train_family(phase, arch_name, layers)
+        family_training[arch_name], family_launches[arch_name] = train_family(phase, arch_name, layers, resume)
     log("phase 8c: guarded training: llama3-8b cut to 4 layers without a fault against phase 6, then mamba2-370m "
         "(48 layers) with a NaN planted mid-run")
     reliability_out["training"] = reliability_training(training["losses"], training["grad_norms"])
@@ -4538,6 +5046,7 @@ def main():
     paths["deepseek_whole_prompt"] = ds_serving["whole_prompt_forward"]["launches"]
     paths["serve_reliability"] = reliability_out["serving"]["launches"]  # phase 8b, every drill's engine
     paths.update(sharded_out["launches"])  # phase 9c / 9d, both ranks' counters
+    paths.update(ep_out["launches"])  # phase 9e (d) / (f), both ranks' counters
     for nm, n in reliability_out["training"]["launches"].items():  # phase 8c
         paths[f"train_guarded_{nm.split('-')[0]}"] = n
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
@@ -4577,7 +5086,20 @@ def main():
                               2 * dual * h["m"] * h["k"] * h["n"], "bfloat16")
         dip_line["tp_shard_launches"].append(
             {key: h[key] for key in ("launch", "kind", "m", "k", "n", "epilogue", "prologue", "out_dtype",
-                                     "max_abs_err", "bound", "ms", "plain_ms")} | {"bound_ms": b_ms, "bound_by": b_by})
+                                     "max_abs_err", "bound", "ms", "plain_ms", "library_ms")}
+            | {"bound_ms": b_ms, "bound_by": b_by})
+    # phase 9e: each launch shape of the expert-parallel forward on rank 0's
+    # storage (the row partial's f32 store; the plan-free shared experts)
+    dip_line["ep_shard_launches"] = []
+    for h in ep_out["e"]:
+        dual = 2 if h["epilogue"] == "swiglu" else 1
+        out_bytes = 4 if h["kind"] == "row" else 2
+        b_ms, b_by = bound_ms(2 * (h["m"] * h["k"] + dual * h["k"] * h["n"]) + out_bytes * h["m"] * h["n"],
+                              2 * dual * h["m"] * h["k"] * h["n"], "bfloat16")
+        dip_line["ep_shard_launches"].append(
+            {key: h[key] for key in ("launch", "kind", "m", "k", "n", "epilogue", "prologue", "out_dtype",
+                                     "max_abs_err", "bound", "ms", "plain_ms", "library_ms")}
+            | {"bound_ms": b_ms, "bound_by": b_by})
     dip_line["launches_f32_x_by_path"] = {pth: v["dip_matmul_f32_x"] for pth, v in paths.items()
                                           if "dip_matmul_f32_x" in v}
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")
@@ -4631,6 +5153,8 @@ def main():
             {key: r[key] for key in ("shape", "plan", "launches_per_forward", "ms", "plain_ms", "library_ms",
                                      "library_function_ms", "bound_ms", "bound_by") if key in r}
             for r in qfam_rows if r["kernel"] == name]
+    close_phase()
+    log("wall seconds by phase " + json.dumps({k: round(v, 1) for k, v in PHASE_S.items()}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(gpu)

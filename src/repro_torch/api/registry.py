@@ -65,7 +65,9 @@ returns ``(out, report)``.  Every built-in backend computes an exact
 product, so each declares ``abft=True``.
 
 Sharded backends (port of the reference's ``"sharded"`` layout): ``dip_tp``,
-``dip_fsdp`` and ``dip_sp`` (``kernels/dip_matmul_sharded.py``) dispatch on
+``dip_fsdp``, ``dip_sp`` (``kernels/dip_matmul_sharded.py``) and ``dip_ep``
+(the expert-parallel strategy's dense projections: ``dip_tp``'s placement;
+the MoE layer's all-to-all dispatch lives in ``models/moe.py``) dispatch on
 the ``WeightPlan`` the weight carries (``distributed.plan``), as ``fn(x,
 weights, operands, plan=, epilogue=, prologue=, prologue_operands=,
 prologue_eps=)`` on this rank's shard; they fuse every prologue and
@@ -74,9 +76,9 @@ one whose split is absent (a replicated plan; no fsdp axis for
 ``dip_fsdp``), decomposes to the single-device path: the ``dip`` kernel for
 a ``DipWeight``, its scheme's kernel for a ``QuantizedDipWeight``, the
 default backend for a natural tensor.  Any other backend refuses a weight
-that holds one rank's shard of its storage.  ``dip_ep`` is not ported yet
-(ROADMAP.md Queue 1 "Distributed"), nor is the block-size tuning table
-(Queue 1 "Tooling"; the kernel's tile is fixed at 64).
+that holds one rank's shard of its storage.  The block-size tuning table
+is not ported yet (ROADMAP.md Queue 1 "Tooling"; the kernel's tile is fixed
+at 64).
 """
 
 from __future__ import annotations
@@ -184,18 +186,18 @@ _REGISTRY: Dict[str, MatmulBackend] = {
         MatmulBackend("dip_sp", "sharded", dip_sp_matmul, tiled=False, epilogues=_ALL, prologues=_ALL_PRO,
                       description="sequence parallel: the rows ring through the column launches, "
                                   "row shards end in one reduce-scatter"),
+        MatmulBackend("dip_ep", "sharded", dip_tp_matmul, tiled=False, epilogues=_ALL, prologues=_ALL_PRO,
+                      description="expert parallel: dip_tp's placement for the dense projections; the MoE "
+                                  "expert banks dispatch tokens over the model axis with paired all-to-alls"),
     )
 }
 # the reference's backend names, so its configurations resolve here
 _ALIASES = {"xla": "torch", "pallas_dip": "dip", "pallas_systolic": "systolic"}
 _DIST = 'ROADMAP.md Queue 1 "Distributed"'
-_NOT_PORTED = {"dip_ep": _DIST}
 
 
 def get_backend(name: Optional[str] = None) -> MatmulBackend:
     name = name or DEFAULT_BACKEND
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"matmul backend {name!r} is not ported yet: {_NOT_PORTED[name]}")
     try:
         return _REGISTRY[_ALIASES.get(name, name)]
     except KeyError:
@@ -483,7 +485,7 @@ def matmul(
                                  verify)
     if any(_is_shard(wi) for wi in weights):
         raise ValueError(f"backend {be.name!r} was given one rank's shard of a weight; dispatch it through "
-                         "its plan's sharded backend (dip_tp / dip_fsdp / dip_sp)")
+                         "its plan's sharded backend (dip_tp / dip_fsdp / dip_sp / dip_ep)")
 
     if verify:
         # the ordinary dispatch, then the audit outside it (reliability sits

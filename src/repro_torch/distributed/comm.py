@@ -1,6 +1,6 @@
 """The mesh and its collectives over ``torch.distributed`` (the port's
 counterpart of ``jax.sharding.Mesh`` and of ``jax.lax.{psum, all_gather,
-psum_scatter, ppermute}`` inside ``shard_map``).
+psum_scatter, ppermute, all_to_all}`` inside ``shard_map``).
 
 The port runs one process per rank and every rank holds only its shard
 (local view).  A :class:`Mesh` names its axes and their sizes (``data``
@@ -22,12 +22,15 @@ and no groups: plans are made and validated against it, and a collective on
 it raises.
 
 **The log.**  Every collective counts itself by the reference's primitive
-name (``psum``, ``all_gather``, ``reduce_scatter``, ``ppermute``) in
+name (``psum``, ``all_gather``, ``reduce_scatter``, ``ppermute``,
+``all_to_all``) in
 :data:`COUNTS`; the sharded backends call :func:`note_launch` where they
 dispatch a per-shard product, counted as ``launch``.  After
 ``reset(schedule=True)``, every collective and launch is also appended to
 :data:`SCHEDULE` in issue order (the reference's ``collective_schedule``);
-``dip_sp`` issues each ring hop before the launch it overlaps.
+``dip_sp`` issues each ring hop before the launch it overlaps, and the
+expert-parallel MoE layer its dispatch all-to-all before the shared-expert
+launches (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -39,10 +42,10 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["TRANSPORTS", "Mesh", "abstract_mesh", "build_mesh", "psum", "all_gather", "psum_scatter",
-           "ppermute_start", "note_launch", "reset", "counts", "schedule", "COUNTS", "SCHEDULE"]
+           "all_to_all", "ppermute_start", "note_launch", "reset", "counts", "schedule", "COUNTS", "SCHEDULE"]
 
 TRANSPORTS = ("gloo", "nccl", "host")
-COLLECTIVES = ("psum", "all_gather", "reduce_scatter", "ppermute")
+COLLECTIVES = ("psum", "all_gather", "reduce_scatter", "ppermute", "all_to_all")
 
 COUNTS: collections.Counter = collections.Counter()
 SCHEDULE: List[str] = []
@@ -264,6 +267,25 @@ def psum_scatter(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.
     scatter = _single("reduce_scatter_single", "reduce_scatter_tensor")
     scatter(out, w, op=dist.ReduceOp.SUM, group=mesh.group(axis))
     return _back(out, t).movedim(0, dim)
+
+
+def all_to_all(t: torch.Tensor, mesh: Mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Block ``j`` of ``split_dim`` to rank ``j`` of ``axis``, and the
+    blocks received concatenated along ``concat_dim`` in axis order
+    (``jax.lax.all_to_all(..., tiled=True)``); one ``all_to_all``.
+    ``t.shape[split_dim]`` must divide by the axis size.  The payload moves
+    as its bytes (an exchange changes no value; gloo carries no float8)."""
+    _log("all_to_all")
+    n = mesh.shape[axis]
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} does not divide by {axis}={n}")
+    lead = t.movedim(split_dim, 0)
+    w = _send_form(lead, mesh).contiguous()
+    raw = w.reshape(w.shape[0], -1).view(torch.uint8)
+    out = torch.empty_like(raw)
+    dist.all_to_all_single(out, raw, group=mesh.group(axis))
+    got = _back(out.view(w.dtype).reshape(w.shape), lead)
+    return torch.cat([b.movedim(0, split_dim) for b in got.chunk(n, 0)], dim=concat_dim)
 
 
 class _Hop:

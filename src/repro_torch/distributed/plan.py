@@ -17,16 +17,20 @@ them.
   storage.  A mis-sized dim replicates and warns once (``strict`` raises).
 * :meth:`ShardingPlan.attach_params` stamps every ``DipWeight`` /
   ``QuantizedDipWeight`` with its plan; :meth:`ShardingPlan.shard_params`
-  also cuts each leaf to this rank's slice (the ``tp`` strategy's
-  layout: projections by their plan, the embedding and the lm_head by
-  vocab, everything else whole).
+  also cuts each leaf to this rank's slice (the model path's layout under
+  ``tp`` and ``ep``: projections by their plan, the MoE expert banks by
+  expert, the embedding and the lm_head by vocab, everything else whole;
+  under ``ep`` the shared experts stay whole, since the expert-parallel
+  layer runs them plan-free on the rank's tokens).
+* :attr:`ShardingPlan.expert_plan` is the ``WeightPlan(kind="expert")``
+  that the MoE layer dispatches on under ``ep`` (None otherwise).
 * ``with_sharding_constraint`` has no counterpart: the explicit strategies
   place every collective by hand, so :meth:`ShardingPlan.constrain` is the
   identity.
 
-Strategies this slice runs: ``tp`` (the model path and the matmul
-backends), ``fsdp`` and ``sp`` (the matmul backends), and ``gspmd`` over a
-one-rank mesh.  ``ep``, ``pp`` and ``gspmd`` over more than one rank raise,
+Strategies this slice runs: ``tp`` and ``ep`` (the model path and the
+matmul backends), ``fsdp`` and ``sp`` (the matmul backends), and ``gspmd``
+over a one-rank mesh.  ``pp`` and ``gspmd`` over more than one rank raise,
 citing ROADMAP.md Queue 1 "Distributed"; so does a ``stage`` axis
 (:func:`make_local_mesh`).  ``make_production_mesh`` (a 256/512-chip TPU
 pod layout) waits with the dry-run.
@@ -49,7 +53,8 @@ __all__ = ["WeightPlan", "LAYER_RULES", "ShardingPlan", "make_plan", "make_local
 
 _DIST = 'ROADMAP.md Queue 1 "Distributed"'
 STRATEGIES = ("gspmd", "tp", "fsdp", "sp", "ep", "pp")
-_RUNS = ("gspmd", "tp", "fsdp", "sp")
+_RUNS = ("gspmd", "tp", "fsdp", "sp", "ep")
+_MODEL_PATHS = ("tp", "ep")
 
 Spec = Tuple[Optional[str], ...]
 
@@ -221,6 +226,15 @@ class ShardingPlan:
                 "gspmd": None}[self.strategy]
 
     @property
+    def expert_plan(self) -> Optional[WeightPlan]:
+        """The ``WeightPlan(kind="expert")`` the MoE expert banks dispatch
+        on under ``ep`` (the expert dim over the model axis); None
+        otherwise, which keeps ``moe_ffn`` on its dense-style path."""
+        if self.strategy != "ep" or not self.tp:
+            return None
+        return WeightPlan(kind="expert", axis=self.tp, fsdp=None, mesh=self.mesh)
+
+    @property
     def tp_size(self) -> int:
         return int(self.mesh.shape[self.tp]) if self.tp else 1
 
@@ -325,8 +339,8 @@ class ShardingPlan:
 
     def shard_params(self, params: Any) -> Any:
         """This rank's slice of the parameters (``init_params`` or
-        ``params_from_jax`` output) under the ``tp`` strategy, plans
-        attached, leaf by leaf (:meth:`shard_leaf`).  Leaves that already
+        ``params_from_jax`` output) under the ``tp`` or ``ep`` strategy,
+        plans attached, leaf by leaf (:meth:`shard_leaf`).  Leaves that already
         are this rank's slice (``init_params(plan=)``) pass through."""
         def walk(t, name=None):
             if isinstance(t, dict):
@@ -335,21 +349,33 @@ class ShardingPlan:
 
         return walk(params)
 
+    def experts_local(self, n_experts: int) -> Tuple[int, int]:
+        """(first expert, experts) of this rank's slice of an expert bank:
+        E / T consecutive experts when E divides the TP axis, else all."""
+        tp = self.tp_size
+        if n_experts % tp:
+            return 0, n_experts
+        return self.tp_rank * (n_experts // tp), n_experts // tp
+
     def shard_leaf(self, name: str, t: Any) -> Any:
         """This rank's slice of the leaf ``name``: a projection by its plan
-        (:func:`shard_weight`), the embedding's rows by vocab, every other
-        leaf whole (the biases too: the backend takes its columns).  A slice
-        is a copy, so the whole leaf can be freed; a leaf that already is
-        this rank's slice (its shape and plan say so) passes through."""
-        if self.strategy != "tp":
+        (:func:`shard_weight`; under ``ep`` the shared experts keep their
+        whole storage with the plan attached), an expert bank (L, E, ., .)
+        by expert (:meth:`experts_local`), the embedding's rows by vocab,
+        every other leaf whole (the biases too: the backend takes its
+        columns).  A slice is a copy, so the whole leaf can be freed; a leaf
+        that already is this rank's slice (its shape and plan say so)
+        passes through."""
+        if self.strategy not in _MODEL_PATHS:
             raise NotImplementedError(f"the {self.strategy!r} strategy's model path is not ported yet ({_DIST}); "
-                                      "the model runs under 'tp'")
+                                      f"the model runs under {_MODEL_PATHS}")
         tp, idx = self.tp_size, self.tp_rank
         if isinstance(t, (DipWeight, QuantizedDipWeight)):
             whole = tuple(t.data.shape[:-2]) + DipWeight.storage_dims(t.d_in, t.d_out, t.perm_tile)
             wp = self.weight_plan(name, whole, t.perm_tile)
+            keep_whole = self.strategy == "ep" and name.startswith("shared_")
             if tuple(t.data.shape) == whole:
-                return shard_weight(t, wp)
+                return t.with_plan(wp) if keep_whole else shard_weight(t, wp)
             part, dim = list(whole), {"column": -1, "row": -2}.get(wp.kind)
             if dim is not None:
                 part[dim] //= tp
@@ -357,6 +383,14 @@ class ShardingPlan:
                 return t
             raise ValueError(f"{name}: storage {tuple(t.data.shape)} (plan {t.plan}) is neither the whole "
                              f"{whole} nor this rank's slice {tuple(part)} under {wp}")
+        if _rule_for(name, tuple(t.shape)) == "expert_bank":
+            e = self.cfg.n_experts
+            e0, n = self.experts_local(e)
+            if t.shape[1] == e:
+                return t.narrow(1, e0, n).clone() if n != e else t
+            if t.shape[1] == n:
+                return t
+            raise ValueError(f"{name} holds {t.shape[1]} experts: neither the whole {e} nor this rank's {n}")
         if name == "embed":
             rows = self.cfg.padded_vocab
             if rows % tp:
@@ -367,7 +401,7 @@ class ShardingPlan:
                 return t
             raise ValueError(f"embed has {t.shape[0]} rows: neither the whole {rows} nor this rank's {rows // tp}")
         if name == "lm_head":
-            raise ValueError("a natural lm_head under a plan: the tp model path stores its projections "
+            raise ValueError("a natural lm_head under a plan: the model path stores its projections "
                              "DiP-permutated (cfg.uses_dip_storage)")
         return t
 
@@ -375,7 +409,9 @@ class ShardingPlan:
     def paged_cache_pspec(self, name: str, shape: Tuple[int, ...]) -> Spec:
         """Paged serving-cache leaves (L, num_blocks, block_size, ...): the
         block and in-block dims are addresses, never sharded; K/V heads
-        shard over TP when they divide it."""
+        shard over TP when they divide it; the MLA latent pools (c_kv,
+        k_rope and their scales) stay whole on every rank: the absorbed
+        form reads the whole latent for the rank's heads."""
         if name in ("k", "v"):
             return (None, None, None, self.tp, None) if self.heads_on_tp else (None,) * len(shape)
         if name in ("k_scale", "v_scale"):

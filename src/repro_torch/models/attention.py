@@ -20,11 +20,18 @@ against the latent itself, ``W_uk`` absorbed into q, ``W_uv`` applied after
 the weighted sum).  Its int8 latent pools store each token's c_kv and
 k_rope rows as codes with one f32 scale per token (no head axis).
 
-Under a ``ShardingPlan`` (``plan=``, tensor parallel) the GQA functions run
-on this rank's heads: q/k/v come from column-parallel projections (a
-replicated K/V projection, whose width does not split over the axis, gives
-every head and the rank takes its block), the cache holds the rank's KV
-heads, and ``wo`` is row-parallel over the heads.
+Under a ``ShardingPlan`` (``plan=``, the ``tp`` and ``ep`` strategies) the
+GQA functions run on this rank's heads: q/k/v come from column-parallel
+projections (a replicated K/V projection, whose width does not split over
+the axis, gives every head and the rank takes its block), the cache holds
+the rank's KV heads, and ``wo`` is row-parallel over the heads.  MLA runs
+on the rank's heads too: q from ``wq``, and the natural ``w_uk`` / ``w_uv``
+of the rank's shard, (r, H/T, .) (each column-parallel, or replicated by
+the width fallback, the rank then taking its block); the latent is whole on
+every rank: ``w_dkv``'s column-parallel output (the reference's plan splits
+it) is all-gathered, one all-gather a layer, and ``w_krope`` (replicated
+where 64 / T columns are no 64-tile shard) gives the whole RoPE key; the
+latent caches and pools are whole on every rank; ``wo`` is row-parallel.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch import api
+from repro_torch.distributed import comm
 from repro_torch.models import layers
 
 __all__ = [
@@ -172,6 +180,14 @@ def _own_heads(y: torch.Tensor, w, n: int, hd: int, plan) -> torch.Tensor:
         return y
     r = plan.tp_rank
     return y[..., r * n * hd:(r + 1) * n * hd]
+
+
+def _whole_columns(y: torch.Tensor, w, plan) -> torch.Tensor:
+    """A projection's whole output on every rank: a column-parallel
+    weight's shards all-gathered (one ``all_gather``), any other as it is."""
+    if plan is None or getattr(getattr(w, "plan", None), "kind", None) != "column":
+        return y
+    return comm.all_gather(y, plan.mesh, plan.tp, dim=-1)
 
 
 def _qkv(x, p, cfg, nk, plan):
@@ -348,19 +364,24 @@ def init_mla_cache(batch: int, max_seq: int, cfg, dtype, device) -> Dict:
     }
 
 
-def _mla_projections(x, p, cfg, nk, rope, pos):
+def _mla_heads(cfg, plan) -> int:
+    return cfg.n_heads if plan is None else cfg.n_heads // plan.tp_size
+
+
+def _mla_projections(x, p, cfg, nk, rope, pos, plan=None):
     """q split into its no-RoPE and RoPE parts (RoPE applied), the latent
-    c_kv and the shared RoPE key, and the natural w_uk / w_uv per head."""
+    c_kv and the shared RoPE key (whole on every rank), and the natural
+    w_uk / w_uv per head, on this rank's heads under a plan."""
     b, s, _ = x.shape
-    h, dn, dr, dv = cfg.n_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    r = cfg.kv_lora_rank
-    q = layers.linear(x, p["wq"], **nk).reshape(b, s, h, dn + dr)
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h, r = _mla_heads(cfg, plan), cfg.kv_lora_rank
+    q = _own_heads(layers.linear(x, p["wq"], **nk), p["wq"], h, dn + dr, plan).reshape(b, s, h, dn + dr)
     q_nope, q_rope = q[..., :dn], layers.apply_rope(q[..., dn:], pos, cfg.rope_theta, tables=rope)
-    c_kv = layers.linear(x, p["w_dkv"], **nk)                                  # (B, S, r)
-    k_rope = layers.linear(x, p["w_krope"], **nk)                              # (B, S, dr) shared
+    c_kv = _whole_columns(layers.linear(x, p["w_dkv"], **nk), p["w_dkv"], plan)        # (B, S, r)
+    k_rope = _whole_columns(layers.linear(x, p["w_krope"], **nk), p["w_krope"], plan)  # (B, S, dr) shared
     k_rope = layers.apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta, tables=rope)[:, :, 0, :]
-    w_uk = _natural(p["w_uk"]).to(x.dtype).reshape(r, h, dn)
-    w_uv = _natural(p["w_uv"]).to(x.dtype).reshape(r, h, dv)
+    w_uk = _own_heads(_natural(p["w_uk"]), p["w_uk"], h, dn, plan).to(x.dtype).reshape(r, h, dn)
+    w_uv = _own_heads(_natural(p["w_uv"]), p["w_uv"], h, dv, plan).to(x.dtype).reshape(r, h, dv)
     return q_nope, q_rope, c_kv, k_rope, w_uk, w_uv
 
 
@@ -382,7 +403,7 @@ def _absorbed(q_nope, q_rope, cc, cr, w_uk, w_uv, live, cfg):
 def mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
                   cache: Optional[Dict] = None, rope=None, residual: Optional[torch.Tensor] = None,
                   norm: Optional[torch.Tensor] = None, kv_chunk: int = 0,
-                  attn_backend: Optional[str] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  attn_backend: Optional[str] = None, plan=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """DeepSeek-V2 multi-head latent attention.
 
     Params: wq (d, H*(nope+rope)); w_dkv (d, kv_lora); w_krope (d, rope);
@@ -391,11 +412,12 @@ def mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
     ``attention_core`` (``attn_backend``, ``kv_chunk``); with one
     (``init_mla_cache``, written in place at its ``positions``) the absorbed
     form attends in latent space and ignores ``attn_backend``, as the
-    reference does.  ``residual`` / ``norm`` as in ``gqa_attention``."""
+    reference does.  ``residual`` / ``norm`` as in ``gqa_attention``;
+    ``plan``: this rank's heads (module doc)."""
     b, s, _ = x.shape
-    h, dr, dv = cfg.n_heads, cfg.qk_rope_head_dim, cfg.v_head_dim
+    h, dr, dv = _mla_heads(cfg, plan), cfg.qk_rope_head_dim, cfg.v_head_dim
     lk, nk = _proj_kwargs(cfg, x, norm)
-    q_nope, q_rope, c_kv, k_rope, w_uk, w_uv = _mla_projections(x, p, cfg, nk, rope, positions)
+    q_nope, q_rope, c_kv, k_rope, w_uk, w_uv = _mla_projections(x, p, cfg, nk, rope, positions, plan)
 
     if cache is None:
         k_nope = torch.einsum("bsr,rhd->bshd", c_kv, w_uk)
@@ -436,17 +458,18 @@ def init_paged_mla_cache(num_blocks: int, block_size: int, cfg, dtype, kv_quant:
 def paged_mla_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor, cache: Dict,
                         block_tables: torch.Tensor, kv_quant: str = "none", rope=None,
                         residual: Optional[torch.Tensor] = None,
-                        norm: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Dict]:
+                        norm: Optional[torch.Tensor] = None, plan=None) -> Tuple[torch.Tensor, Dict]:
     """Absorbed-form MLA decode against the paged latent pool: x (B, 1, d),
     one token per slot at ``positions`` (B,); this token's c_kv and k_rope
     rows are written in place (a quantized pool takes each row's codes and
     its scale), the slot's context gathered (dequantized into x's dtype),
-    and positions <= its own attended."""
+    and positions <= its own attended.  ``plan``: this rank's heads over
+    the whole latent pool (module doc)."""
     b, s, _ = x.shape
-    h, dv = cfg.n_heads, cfg.v_head_dim
+    h, dv = _mla_heads(cfg, plan), cfg.v_head_dim
     bs = cache["c_kv"].shape[1]
     lk, nk = _proj_kwargs(cfg, x, norm)
-    q_nope, q_rope, c_kv, k_rope, w_uk, w_uv = _mla_projections(x, p, cfg, nk, rope, positions[:, None])
+    q_nope, q_rope, c_kv, k_rope, w_uk, w_uv = _mla_projections(x, p, cfg, nk, rope, positions[:, None], plan)
 
     rows = torch.arange(b, device=x.device)
     phys = block_tables[rows, positions // bs] * bs + positions % bs

@@ -9,8 +9,40 @@ the outputs gathered back and combined with the renormalized gates.  The
 expert banks are plain (E, d, ffe) / (E, ffe, d) tensors multiplied with
 ``torch.einsum``, as the reference multiplies them with ``jnp.einsum``
 outside any Pallas kernel; the shared experts go through ``dense_ffn``, and
-so through the DiP kernel.  The expert-parallel path (explicit all-to-all
-dispatch) comes with ROADMAP.md Queue 1 "Distributed".
+so through the DiP kernel.
+
+Under a ``ShardingPlan`` (``plan=``; one process per rank, local view) every
+rank enters the layer holding every token (the attention's row all-reduce
+gave them all) and its slice of the banks, E / T consecutive experts
+(``plan.experts_local``):
+
+* **Expert parallel** (``plan.expert_plan`` set: strategy ``ep``; the port
+  of the reference's ``_moe_ffn_ep`` shard_map body).  The rank takes its
+  own tokens: by batch when B divides the axis (the groups stay the
+  single-rank ones), else by sequence (groups of S / T tokens, each at its
+  own ``moe_capacity``).  It routes them, issues the dispatch
+  ``all_to_all`` (experts split over the axis, the ranks' tokens
+  concatenated) BEFORE the shared-expert launches it overlaps, runs the
+  shared experts plan-free on its tokens, its experts over every rank's
+  tokens, the combine ``all_to_all``, ONE psum of the (aux, dropped) pair
+  (aux averaged over the ranks, drops summed) and ONE ``all_gather`` of the
+  tokens back (in the reference GSPMD's implicit reshard of the
+  shard_map's output).  Each rank holds the shared experts whole (their
+  storage keeps its column / row plan, unused: ``ShardingPlan.shard_leaf``),
+  so that no call gathers them.  ``return_routing`` and ``on_route`` give
+  the rank's own tokens' expert ids; ``route_ids`` is the whole (B, S, k)
+  replay, of which the rank takes its tokens' part.
+* **Expert-split dense style** (strategy ``tp``, and the ``ep`` fallback
+  when neither B nor S divides the axis).  Every rank routes every token
+  exactly as the single-rank path does, fills only its experts' part of the
+  buffer and combines only their outputs; ONE psum (in f32) adds the ranks'
+  partial outputs, which equals the single-rank layer with its capacity and
+  drops.  The shared experts follow their plans under ``tp`` (column gate
+  and up, row down with its all-reduce, or replicated where their width
+  does not split) and run plan-free under ``ep``.
+
+Each plan-free shared-expert launch is logged (``comm.note_launch``), so
+``comm.schedule()`` shows the dispatch before them.
 """
 
 from __future__ import annotations
@@ -20,21 +52,23 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed import comm
+from repro_torch.kernels.dip_matmul_sharded import _inner_backend
 from repro_torch.models import layers
 
 __all__ = ["dense_ffn", "moe_capacity", "moe_ffn"]
 
-_DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
-
 
 def dense_ffn(x: torch.Tensor, p: Dict, cfg, *, residual: Optional[torch.Tensor] = None,
-              norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+              norm: Optional[torch.Tensor] = None, backend: Optional[str] = None) -> torch.Tensor:
     """SwiGLU MLP: the gate and up projections run as ONE dual-weight
     ``swiglu`` dispatch (one kernel launch on the ``dip`` backend), then the
     down projection with the block's skip connection fused as the
     ``residual`` epilogue.  ``norm`` is the pre-FFN RMSNorm gain when the
-    backend fuses prologues (x then arrives un-normalized)."""
-    lk = dict(backend=cfg.matmul_backend, compute_dtype=x.dtype)
+    backend fuses prologues (x then arrives un-normalized).  ``backend``
+    overrides ``cfg.matmul_backend`` (the expert-parallel layer runs the
+    shared experts on the single-device kernel)."""
+    lk = dict(backend=backend or cfg.matmul_backend, compute_dtype=x.dtype)
     gk = dict(lk) if norm is None else dict(lk, prologue="rmsnorm", prologue_operands=(norm,),
                                             prologue_eps=cfg.norm_eps)
     h = layers.linear(x, (p["w_gate"], p["w_up"]), epilogue="swiglu", **gk)
@@ -112,19 +146,34 @@ def _fill_buffer(r: Dict[str, torch.Tensor], cap: int) -> torch.Tensor:
     return buf * valid[..., None].to(sorted_src.dtype)
 
 
-def _combine(y: torch.Tensor, r: Dict[str, torch.Tensor], cap: int, k: int) -> torch.Tensor:
-    """Gather expert outputs back per sorted slot, unsort, gate, sum k."""
-    g, e, _, d = y.shape
+def _combine(y: torch.Tensor, r: Dict[str, torch.Tensor], cap: int, k: int, e0: int = 0) -> torch.Tensor:
+    """Gather expert outputs back per sorted slot, unsort, gate, sum k.
+    ``y`` may hold only experts ``e0 .. e0 + y.shape[1] - 1``: the slots of
+    the others then contribute zeros (a rank's partial output)."""
+    g, e_loc, _, d = y.shape
     sorted_ids = r["sorted_ids"]
     sk = sorted_ids.shape[1]
     j_iota = torch.arange(sk, device=y.device, dtype=sorted_ids.dtype)[None, :]
     pos_sorted = j_iota - torch.gather(r["start"], 1, sorted_ids)
     keep_sorted = pos_sorted < cap
-    slot = sorted_ids * cap + torch.where(keep_sorted, pos_sorted, 0)
-    out_sorted = torch.gather(y.reshape(g, e * cap, d), 1, slot[..., None].expand(g, sk, d))
+    local = sorted_ids
+    if e_loc != r["counts"].shape[1]:
+        local = sorted_ids - e0
+        keep_sorted = keep_sorted & (local >= 0) & (local < e_loc)
+        local = local.clamp(0, e_loc - 1)
+    slot = local * cap + torch.where(keep_sorted, pos_sorted, 0)
+    out_sorted = torch.gather(y.reshape(g, e_loc * cap, d), 1, slot[..., None].expand(g, sk, d))
     out_sorted = out_sorted * keep_sorted[..., None].to(y.dtype)
     out = torch.gather(out_sorted, 1, r["inv_order"][..., None].expand(g, sk, d))
     return (out * r["gates_flat"][..., None]).reshape(g, sk // k, k, d).sum(dim=2)
+
+
+def _run_banks(buf: torch.Tensor, p: Dict, cd) -> torch.Tensor:
+    """The batched per-expert SwiGLU of a (G, E', C, d) buffer through the
+    banks (E', d, ffe) / (E', ffe, d) that ``p`` holds."""
+    gate_h = torch.einsum("becd,edf->becf", buf, p["w_gate"].to(cd))
+    up_h = torch.einsum("becd,edf->becf", buf, p["w_up"].to(cd))
+    return torch.einsum("becf,efd->becd", layers.swiglu(gate_h, up_h), p["w_down"].to(cd))
 
 
 def _shared_params(p: Dict) -> Optional[Dict]:
@@ -132,10 +181,79 @@ def _shared_params(p: Dict) -> Optional[Dict]:
             "w_down": p["shared_w_down"]} if "shared_w_gate" in p else None
 
 
-def _moe_ffn_ep(x, p, cfg, plan):
-    """The expert-parallel layer (one all-to-all dispatch and one combine
-    per layer) is not ported."""
-    raise NotImplementedError(f"expert parallelism (dip_ep) and sharding plans are not ported yet ({_DISTRIBUTED})")
+def _plan_free_ffn(x: torch.Tensor, shared: Dict, cfg) -> torch.Tensor:
+    """The shared experts, whole on this rank, on its tokens, rebuilt
+    plan-free (the reference's ``_ep_payload`` / ``_local_weight``): the
+    single-device kernel's gate+up launch and down launch, logged."""
+    sw = {n: w.with_plan(None) for n, w in shared.items()}
+    comm.note_launch()
+    comm.note_launch()
+    return dense_ffn(x, sw, cfg, backend=_inner_backend(sw["w_gate"]))
+
+
+def _experts(x, p, cfg, route_ids, on_route, e0=0, n=None):
+    """The dense-style layer's routed part: every token routed at
+    ``moe_capacity(S)``, experts ``e0 .. e0 + n - 1`` (all by default) run
+    on their part of the buffer and combined (the others' slots give
+    zeros).  Returns ``(out, routing state)``."""
+    cap = moe_capacity(x.shape[1], cfg)                                    # per-group capacity
+    r = _route(x, p["router"], cfg, cap, route_ids)
+    if on_route is not None:
+        on_route(r["ids"])
+    n = cfg.n_experts if n is None else n
+    y = _run_banks(_fill_buffer(r, cap)[:, e0:e0 + n], p, x.dtype)         # (B, n, C, d)
+    return _combine(y, r, cap, cfg.moe_top_k, e0), r
+
+
+def _moe_ffn_ep(x, p, cfg, plan, dim, route_ids, on_route):
+    """The expert-parallel layer on this rank (module doc): its tokens
+    along ``dim``, two all-to-alls, one psum, one all-gather."""
+    mesh, ax = plan.mesh, plan.tp
+    t, me = plan.tp_size, plan.tp_rank
+    e, k = cfg.n_experts, cfg.moe_top_k
+    d, cd = x.shape[-1], x.dtype
+    if p["w_gate"].shape[0] != e // t:
+        raise ValueError(f"expert parallelism over {ax}={t} needs E/T = {e // t} experts a rank, the banks hold "
+                         f"{p['w_gate'].shape[0]} (ShardingPlan.shard_params)")
+    n = x.shape[dim] // t
+    xl = x.narrow(dim, me * n, n)
+    ids = None if route_ids is None else route_ids.narrow(dim, me * n, n)
+    g = xl.shape[0]
+    cap = moe_capacity(xl.shape[1], cfg)
+    r = _route(xl, p["router"], cfg, cap, ids)
+    if on_route is not None:
+        on_route(r["ids"])
+    buf = _fill_buffer(r, cap)                                             # (G, E, C, d)
+    # experts split over the axis, the ranks' tokens concatenated: this rank
+    # receives every token routed to its E / T experts; issued before the
+    # shared experts' launches, which it overlaps
+    disp = comm.all_to_all(buf.transpose(0, 1).reshape(e, g * cap, d), mesh, ax, split_dim=0, concat_dim=1)
+    shared = _shared_params(p)
+    shared_out = _plan_free_ffn(xl, shared, cfg) if cfg.n_shared_experts and shared is not None else None
+    y = _run_banks(disp[None], p, cd)[0]                                   # (E/T, T*G*C, d)
+    comb = comm.all_to_all(y, mesh, ax, split_dim=1, concat_dim=0)          # (E, G*C, d)
+    out = _combine(comb.reshape(e, g, cap, d).transpose(0, 1), r, cap, k)
+    if shared_out is not None:
+        out = out + shared_out
+    # ONE psum for the stats pair: aux averages over the ranks, drops sum
+    stats = comm.psum(torch.stack([r["aux"].double(), r["dropped"].double()]), mesh, ax)
+    aux, dropped = (stats[0] / t).float(), stats[1].round().to(torch.int32)
+    return comm.all_gather(out, mesh, ax, dim=dim), aux, dropped, r["ids"]
+
+
+def _moe_ffn_split(x, p, cfg, plan, route_ids, on_route):
+    """The expert-split dense-style layer on this rank (module doc)."""
+    e0, n = plan.experts_local(cfg.n_experts)
+    if p["w_gate"].shape[0] != n:
+        raise ValueError(f"this rank's expert slice holds {n} experts, the banks {p['w_gate'].shape[0]} "
+                         "(ShardingPlan.shard_params)")
+    out, r = _experts(x, p, cfg, route_ids, on_route, e0, n)
+    if n != cfg.n_experts:
+        out = comm.psum(out.float(), plan.mesh, plan.tp).to(x.dtype)
+    shared = _shared_params(p)
+    if cfg.n_shared_experts and shared is not None:
+        out = out + (_plan_free_ffn(x, shared, cfg) if plan.expert_plan is not None else dense_ffn(x, shared, cfg))
+    return out, r["aux"], r["dropped"], r["ids"]
 
 
 def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = False,
@@ -150,31 +268,25 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = 
     runs can be compared with their discrete choices held equal;
     ``on_route`` is called with the ids as soon as they are chosen (a
     rerun under ``torch.utils.checkpoint`` may stop before the layer
-    returns).  A sharding ``plan`` raises: the expert-parallel path is not
-    ported.
+    returns).  Under a sharding ``plan`` this rank's part of the
+    expert-parallel or expert-split layer (module doc); every rank returns
+    the whole ``out``, ``aux`` and ``dropped``.
 
     Gradients reach x, the router and the banks through the gates (the
     top-k probabilities, renormalized), the aux loss and the gathers; the
     ids, the sort, the capacity mask and the counts carry none, as
     ``jax.lax.top_k`` and the argsort carry none in the reference."""
     if plan is not None:
-        return _moe_ffn_ep(x, p, cfg, plan)
-    b, s, d = x.shape
-    cd = x.dtype
-    cap = moe_capacity(s, cfg)                                             # per-group capacity
-
-    r = _route(x, p["router"], cfg, cap, route_ids)
-    if on_route is not None:
-        on_route(r["ids"])
-    buf = _fill_buffer(r, cap)
-
-    # batched per-expert SwiGLU: weights (E, d, ffe) / (E, ffe, d)
-    gate_h = torch.einsum("becd,edf->becf", buf, p["w_gate"].to(cd))
-    up_h = torch.einsum("becd,edf->becf", buf, p["w_up"].to(cd))
-    h = layers.swiglu(gate_h, up_h)
-    y = torch.einsum("becf,efd->becd", h, p["w_down"].to(cd))             # (B, E, C, d)
-
-    out = _combine(y, r, cap, cfg.moe_top_k)
+        b, s, _ = x.shape
+        t = plan.tp_size
+        # the rank's tokens: by batch when B divides the axis, else by sequence
+        dim = 0 if b % t == 0 else (1 if s % t == 0 else None)
+        if plan.expert_plan is not None and t > 1 and cfg.n_experts % t == 0 and dim is not None:
+            res = _moe_ffn_ep(x, p, cfg, plan, dim, route_ids, on_route)
+        else:
+            res = _moe_ffn_split(x, p, cfg, plan, route_ids, on_route)
+        return res if return_routing else res[:3]
+    out, r = _experts(x, p, cfg, route_ids, on_route)
 
     # shared experts (DeepSeek-style), computed densely for every token
     shared = _shared_params(p)

@@ -29,18 +29,24 @@ serves quantized too: ``quantize_params`` quantizes only the DiP-stored
 projections, so the MoE router and expert banks, the SSM scalars, conv and
 norms, and the embeddings stay float, as in the reference.
 
-Under a ``ShardingPlan`` (``plan=``, strategy ``tp``, the dense family; the
-port of the reference's explicit ``dip_tp`` model path) each rank runs
-``forward`` / ``decode_step_fn`` / ``paged_decode_step_fn`` on its slice
-of the parameters (``plan.shard_params``): the projections dispatch on
-their ``WeightPlan`` (q/k/v and gate/up column-parallel, attention on the
-rank's heads, ``wo`` and ``w_down`` row-parallel with one all-reduce each),
-the embedding is vocab-parallel (a masked local lookup and one
-all-reduce), and the lm_head is column-parallel over the padded vocab with
-its logits all-gathered, so every rank returns the whole logits: 2 x
-n_layers + 2 collectives a step.  Its caches hold the rank's KV heads.  The
-other families, and the other strategies' model paths, raise
-(ROADMAP.md Queue 1 "Distributed"); so does training under a plan.
+Under a ``ShardingPlan`` (``plan=``, strategy ``tp`` or ``ep``, the dense
+and moe families; the port of the reference's explicit ``dip_tp`` /
+``dip_ep`` model paths) each rank runs ``forward`` / ``decode_step_fn`` /
+``paged_decode_step_fn`` on its slice of the parameters
+(``plan.shard_params``): the projections dispatch on their ``WeightPlan``
+(q/k/v and gate/up column-parallel, attention on the rank's heads, ``wo``
+and ``w_down`` row-parallel with one all-reduce each), the embedding is
+vocab-parallel (a masked local lookup and one all-reduce), and the lm_head
+is column-parallel over the padded vocab with its logits all-gathered, so
+every rank returns the whole logits: 2 x n_layers + 2 collectives a dense
+step.  Its caches hold the rank's KV heads, or the whole MLA latent.  A MoE
+layer runs on the rank's experts (``models/moe.py``): expert-parallel under
+``ep`` (2 all-to-alls, 1 all-reduce and 1 all-gather a layer), expert-split
+with one all-reduce under ``tp``; MLA all-gathers its latent where
+``w_dkv`` is column-parallel.  DeepSeek-V2-Lite under ``ep`` on 2 ranks
+runs 27 x 6 + 2 = 164 collectives a step.  The SSM and hybrid families and
+the other strategies' model paths raise (ROADMAP.md Queue 1
+"Distributed"); so does training under a plan.
 """
 
 from __future__ import annotations
@@ -76,47 +82,66 @@ __all__ = [
 
 _DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
 _KNOWN_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+_PLANNED = ("tp", "ep")  # the strategies whose model path runs
 
 
 def _require_served(cfg) -> None:
     """Raise for every configuration the port does not serve: it serves
     every family of the reference (the stub frontends from tokens), with
     GQA or MLA attention and tied or separate heads, in float or with
-    quantized weights and an int8 KV pool; under a sharding strategy only
-    the dense family with ``tp``."""
+    quantized weights and an int8 KV pool; under the ``tp`` and ``ep``
+    strategies the dense and moe families with separate heads."""
     if cfg.family not in _KNOWN_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (one of {_KNOWN_FAMILIES})")
-    if cfg.sharding not in ("gspmd", "tp") or (cfg.sharding == "tp" and not _dense(cfg)):
+    if cfg.sharding not in ("gspmd",) + _PLANNED or (cfg.sharding in _PLANNED and not _plannable(cfg)):
         raise NotImplementedError(f"{cfg.name}: not ported yet: sharding {cfg.sharding!r} for the "
                                   f"{cfg.family} family ({_DISTRIBUTED})")
 
 
-def _dense(cfg) -> bool:
-    return cfg.family == "dense" and not cfg.use_mla and not cfg.tie_embeddings
+def _plannable(cfg) -> bool:
+    """The families a plan's model path runs: dense with GQA, and moe (GQA
+    or MLA, with or without shared experts), each with a separate head."""
+    return not cfg.tie_embeddings and (cfg.family == "moe" or (cfg.family == "dense" and not cfg.use_mla))
 
 
 def _require_plan(cfg, plan) -> None:
-    """The model path a plan runs in this slice: ``tp`` on the dense
-    family, heads split over the TP axis, and the attention and FFN
-    projections column / row-parallel as the plan decides them (K/V may
-    replicate where their width is too small to split: each rank then takes
-    its heads of the whole projection)."""
+    """The model path a plan runs in this slice: ``tp`` or ``ep`` on the
+    dense and moe families, heads split over the TP axis, ``wo`` (and a
+    dense FFN's ``w_down``) row-parallel and the column projections
+    column-parallel as the plan decides them (K/V, and MLA's q, latent and
+    up-projections, may replicate where their width is too small to split:
+    each rank then takes its heads of the whole projection).  A
+    column-parallel head projection must split at a head boundary (no
+    padding columns)."""
     if plan is None:
         return
-    if plan.strategy != "tp" or not _dense(cfg):
+    if plan.strategy not in _PLANNED or not _plannable(cfg):
         raise NotImplementedError(f"{cfg.name}: the {plan.strategy!r} model path of the {cfg.family} family "
                                   f"is not ported yet ({_DISTRIBUTED})")
     if not plan.heads_on_tp:
         raise NotImplementedError(f"{cfg.name}: heads that do not divide the TP axis (sequence-parallel "
                                   f"attention) are not ported yet ({_DISTRIBUTED})")
-    hd, d = cfg.resolved_head_dim, cfg.d_model
-    for name, di, do, kind in (("wq", d, cfg.n_heads * hd, "column"), ("wo", cfg.n_heads * hd, d, "row"),
-                               ("w_gate", d, cfg.d_ff, "column"), ("w_up", d, cfg.d_ff, "column"),
-                               ("w_down", cfg.d_ff, d, "row")):
+    hd, d, h = cfg.resolved_head_dim, cfg.d_model, cfg.n_heads
+    if cfg.use_mla:
+        dn, dr, dv, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+        need = [("wo", h * dv, d, "row")]
+        split = [("wq", d, h * (dn + dr)), ("w_uk", r, h * dn), ("w_uv", r, h * dv), ("w_dkv", d, r),
+                 ("w_krope", d, dr)]
+    else:
+        need = [("wq", d, h * hd, "column"), ("wo", h * hd, d, "row")]
+        split = []
+    if not cfg.is_moe:
+        need += [("w_gate", d, cfg.d_ff, "column"), ("w_up", d, cfg.d_ff, "column"), ("w_down", cfg.d_ff, d, "row")]
+    for name, di, do, kind in need:
         got = plan.weight_plan(name, api.DipWeight.storage_dims(di, do), api.PERM_TILE).kind
         if got != kind:
             raise NotImplementedError(f"{cfg.name}: {name} does not split {kind}-parallel over "
                                       f"{plan.tp}={plan.tp_size} ({_DISTRIBUTED})")
+    for name, di, do in split:
+        storage = api.DipWeight.storage_dims(di, do)
+        if plan.weight_plan(name, storage, api.PERM_TILE).kind == "column" and storage[1] != do:
+            raise NotImplementedError(f"{cfg.name}: {name}'s {do} columns are padded to {storage[1]}, so its "
+                                      f"column shards do not split at a head boundary ({_DISTRIBUTED})")
 
 
 def _require_trainable(cfg) -> None:
@@ -242,11 +267,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
     (the MoE router and expert banks) are drawn one layer at a time, so the
     f32 draw never holds more than one layer's bank.
 
-    Under a ``plan`` (``distributed.make_plan``) each drawn matrix and the
-    embedding are cut to this rank's slice before the next is drawn: the
-    values of ``plan.shard_params(init_params(cfg, generator, device))``,
-    from the same draws, while the rank never holds more than its slice and
-    one whole matrix."""
+    Under a ``plan`` (``distributed.make_plan``) each drawn matrix, each
+    layer's expert bank and the embedding are cut to this rank's slice
+    before the next is drawn: the values of
+    ``plan.shard_params(init_params(cfg, generator, device))``, from the
+    same draws (rank r of T holds experts [r E / T, (r + 1) E / T) of the
+    single-rank draw), while the rank never holds more than its slice and
+    one whole matrix or layer's bank."""
     dev = resolve_device(device)
     scheme = cfg.quant_scheme
     if generator.device.type != dev.type:
@@ -267,9 +294,12 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
             return init(shape, dtype=dt, device=dev)
         scale = (1.0 / max(1, fan)) ** 0.5
         if dip is None and len(shape) > 2:
-            data = torch.empty(shape, dtype=dt, device=dev)
-            for layer in data:
-                layer.copy_(normal(tuple(shape[1:]), scale, dt))
+            lead = tuple(shape[:1])
+            body = tuple(shape[1:])
+            e0, n = (0, body[0]) if plan is None or len(shape) != 4 else plan.experts_local(body[0])
+            data = torch.empty(lead + (n,) + body[1:], dtype=dt, device=dev)
+            for layer in data:  # one layer's whole draw, of which this rank keeps its experts
+                layer.copy_(normal(body, scale, dt)[e0:e0 + n])
             return data
         if dip is None:
             return kept(name, normal(shape, scale, dt))
@@ -342,7 +372,7 @@ def _rope_dim(cfg) -> int:
     return cfg.qk_rope_head_dim if cfg.use_mla else cfg.resolved_head_dim
 
 
-def _ffn(x, lp, cfg, fuse, replay_ids=None, on_route=None):
+def _ffn(x, lp, cfg, fuse, replay_ids=None, on_route=None, plan=None):
     """The block's FFN with its skip connection; returns ``(x, routing)``.
     The MoE layer keeps the explicit ``ffn_norm`` (the router and every
     expert read the normed stream) and the explicit ``x + f``; its
@@ -350,10 +380,11 @@ def _ffn(x, lp, cfg, fuse, replay_ids=None, on_route=None):
     dropped (token, slot) pairs and the (B, S, k) expert ids.
     ``replay_ids`` routes with those ids instead of this run's top-k;
     ``on_route`` is called with the ids as soon as they are chosen.  A dense
-    FFN's ``routing`` is None."""
+    FFN's ``routing`` is None.  Under an ``ep`` plan the ids are the rank's
+    own tokens' (``moe.moe_ffn``)."""
     if cfg.is_moe:
         ffn_in = layers.rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-        f, aux, dropped, ids = moe.moe_ffn(ffn_in, lp, cfg, return_routing=True, route_ids=replay_ids,
+        f, aux, dropped, ids = moe.moe_ffn(ffn_in, lp, cfg, plan=plan, return_routing=True, route_ids=replay_ids,
                                            on_route=on_route)
         return x + f, (aux, dropped, ids)
     ffn_in, ffn_g = (x, lp["ffn_norm"]) if fuse else (
@@ -385,14 +416,14 @@ def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_b
     if cfg.use_mla:
         x, new_cache = attention.mla_attention(
             attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
-            norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend,
+            norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan,
         )
     else:
         x, new_cache = attention.gqa_attention(
             attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
             norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan,
         )
-    x, routing = _ffn(x, lp, cfg, fuse, replay_ids, on_route)
+    x, routing = _ffn(x, lp, cfg, fuse, replay_ids, on_route, plan)
     return x, new_cache, routing
 
 
@@ -710,10 +741,10 @@ def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace, la
     kw = dict(positions=positions, cache=pools, block_tables=block_tables, kv_quant=cfg.kv_quant, rope=rope,
               residual=x, norm=attn_g)
     if cfg.use_mla:
-        x, _ = attention.paged_mla_attention(attn_in, lp, cfg, **kw)
+        x, _ = attention.paged_mla_attention(attn_in, lp, cfg, plan=plan, **kw)
     else:
         x, _ = attention.paged_gqa_attention(attn_in, lp, cfg, plan=plan, **kw)
-    x, routing = _ffn(x, lp, cfg, fuse, _replay(moe_trace, layer))
+    x, routing = _ffn(x, lp, cfg, fuse, _replay(moe_trace, layer), plan=plan)
     _record(moe_trace, routing)
     return x
 

@@ -35,11 +35,12 @@ host at once.  On the CPU (``device="cpu"``) the same
 step functions run eagerly.
 
 **Sharded serving** (``plan=``, the port of the reference's
-``Engine(plan=)``): every rank of a tensor-parallel world runs one engine
-on the same requests, over its slice of the parameters (pass the whole
-ones, which ``plan.shard_params`` cuts, or only the rank's slice from
-``init_params(plan=)``, so that no rank holds the whole model) and pools
-of its KV heads;
+``Engine(plan=)``): every rank of a tensor- or expert-parallel world (the
+dense and moe families) runs one engine on the same requests, over its
+slice of the parameters (pass the whole ones, which ``plan.shard_params``
+cuts, or only the rank's slice from ``init_params(plan=)``, so that no rank
+holds the whole model) and pools of its KV heads (MLA: the whole latent;
+``kv_cache.bytes_per_block(..., plan=)`` is a rank's cost);
 the block tables stay on the host.  Every rank sees the whole logits (the
 lm_head's are all-gathered), so the ranks sample alike and stay in step.
 Prefill keeps the non-flash attention path under a plan, as the reference

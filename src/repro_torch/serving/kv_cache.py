@@ -137,13 +137,15 @@ class PagedKVCache:
         return self.block_tables[slot]
 
 
-def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[str] = None) -> int:
+def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[str] = None, plan=None) -> int:
     """Device bytes one KV block costs across all layers: GQA L * bs * (2 *
     KV * hd elements, plus one f32 scale per (token, head) row for k and v
     when quantized); MLA L * bs * (kv_lora_rank + rope elements, plus one
     f32 scale per token for c_kv and for k_rope when quantized); the
     hybrid pages only its ``n_layers // attn_every`` shared-attention
-    instances, and a pure SSM model pages nothing (0)."""
+    instances, and a pure SSM model pages nothing (0).  Under a ``plan``
+    the bytes one rank's pools cost: its KV heads, or the whole MLA
+    latent."""
     bs = block_size if block_size is not None else cfg.kv_block_size
     kvq = kv_quant if kv_quant is not None else cfg.kv_quant
     item = 1 if kvq != "none" else torch.finfo(dtype_of(cfg.compute_dtype)).bits // 8
@@ -153,7 +155,7 @@ def bytes_per_block(cfg, block_size: Optional[int] = None, kv_quant: Optional[st
         scale = 2 * 4 if kvq != "none" else 0
         return cfg.n_layers * bs * ((cfg.kv_lora_rank + cfg.qk_rope_head_dim) * item + scale)
     n_inst = cfg.n_layers // cfg.attn_every if cfg.is_hybrid else cfg.n_layers
-    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    kv, hd = tf_model._kv_heads(cfg, plan), cfg.resolved_head_dim
     scale = 2 * kv * 4 if kvq != "none" else 0
     return n_inst * bs * (2 * kv * hd * item + scale)
 

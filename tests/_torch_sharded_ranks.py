@@ -210,3 +210,58 @@ def cuda_rank(rank, transport, cases):
                        dip_matmul.launches + dip_matmul_q.launches - before)
         out.append((_np(got.cpu()), _np(single.cpu()), comm.counts(), counted, partial))
     return out
+
+
+def _layer0(lyr):
+    from repro_torch import api
+
+    return {k: v.with_data(v.data[0]) if isinstance(v, api.DipWeight) else v[0] for k, v in lyr.items()}
+
+
+def moe_rank(rank, layer_cases, engine_cases):
+    """A 2-rank world (data 1, model 2) for ``test_torch_sharded_moe.py``:
+    each layer case is ``moe_ffn`` under its plan on layer 0 of the
+    converted reference parameters (out, aux, dropped, the rank's expert
+    ids, the communicator's counts and schedule of the call); each engine
+    case the reduced model's ``Engine(plan=)`` (tokens, a decode step's
+    collectives, the pools' shapes and ``bytes_per_block``)."""
+    import warnings
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.models import moe
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+    from repro_torch.serving import kv_cache as kvc
+
+    warnings.simplefilter("ignore", UserWarning)  # the reduced widths replicate (announced once)
+    mesh = make_local_mesh(data=1, model=2)
+    layers_out = {}
+    for case in layer_cases:
+        cfg = _serving_cfg(case["cfg"])
+        plan = make_plan(mesh, cfg, "train")
+        lp = _layer0(plan.shard_params(params_from_jax(case["params"], cfg, device="cpu"))["layers"])
+        comm.reset(schedule=True)
+        out, aux, dropped, ids = moe.moe_ffn(torch.from_numpy(case["x"]), lp, cfg, plan=plan, return_routing=True)
+        layers_out[case["name"]] = dict(out=_np(out), aux=float(aux), dropped=int(dropped), ids=_np(ids),
+                                        counts=comm.counts(), schedule=comm.schedule(),
+                                        experts=int(lp["w_gate"].shape[0]),
+                                        expert_plan=None if plan.expert_plan is None else plan.expert_plan.kind)
+    engines_out = {}
+    for case in engine_cases:
+        cfg = _serving_cfg(case["cfg"])
+        plan = make_plan(mesh, cfg, "decode")
+        eng = Engine(cfg, params_from_jax(case["params"], cfg, device="cpu"),
+                     engine_cfg=EngineConfig(slots=2, max_seq=32, prefill_chunk=8), device="cpu", plan=plan)
+        for rid, p in enumerate(case["prompts"]):
+            eng.add_request(p, SamplingParams(max_new_tokens=case["max_new"]), rid=rid)
+        rec = {"tokens": eng.run(), "captured": eng.captured,
+               "pools": {k: tuple(v.shape) for k, v in eng.kv.pools["layers"].items()},
+               "bytes_per_block": kvc.bytes_per_block(cfg, eng.block_size, plan=plan),
+               "experts": int(eng.params["layers"]["w_gate"].shape[1])}
+        comm.reset()
+        s = eng.ecfg.slots
+        eng._decode(eng.params, eng.kv.pools, torch.full((s, 1), 5), torch.arange(s),
+                    torch.as_tensor(eng.kv.block_tables, dtype=torch.long))
+        rec["decode_counts"] = comm.counts()
+        engines_out[case["name"]] = rec
+    return layers_out, engines_out

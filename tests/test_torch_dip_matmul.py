@@ -164,8 +164,8 @@ def test_kernel_wrapper_checks_its_inputs():
 
 
 def test_registry_names_and_layouts():
-    assert api.list_backends() == ["dip", "dip_fp8", "dip_fsdp", "dip_int8w", "dip_sp", "dip_tp", "systolic",
-                                   "torch", "ws"]
+    assert api.list_backends() == ["dip", "dip_ep", "dip_fp8", "dip_fsdp", "dip_int8w", "dip_sp", "dip_tp",
+                                   "systolic", "torch", "ws"]
     assert api.get_backend("xla").name == "torch" and api.get_backend("pallas_dip").name == "dip"
     assert api.get_backend("pallas_systolic").name == "systolic"
     assert api.backend_layout("dip") == "dip" and api.backend_layout("ws") == "natural"
@@ -173,6 +173,7 @@ def test_registry_names_and_layouts():
     assert api.backend_layout("dip_int8w") == api.backend_layout("dip_fp8") == "dip_q"
     assert (api.get_backend("dip_int8w").scheme, api.get_backend("dip_fp8").scheme) == ("int8", "fp8_e4m3")
     assert api.backend_layout("dip_tp") == api.backend_layout("dip_fsdp") == api.backend_layout("dip_sp") == "sharded"
+    assert api.backend_layout("dip_ep") == "sharded"
     with pytest.raises(KeyError, match="unknown matmul backend"):
         api.get_backend("nope")
 

@@ -152,8 +152,7 @@ def test_branches_outside_the_slice_raise(what):
         api.matmul(x, qw).sum().backward()
         # d(sum)/dx against the dequantized weight: its row sums
         torch.testing.assert_close(x.grad, qw.to_natural().sum(1).expand(2, 64))
-    else:  # dip_tp / dip_fsdp / dip_sp serve now (test_torch_sharded_*.py); dip_ep does not yet
+    else:  # dip_tp / dip_fsdp / dip_sp / dip_ep serve now (test_torch_sharded_*.py)
         from repro_torch import api
-        assert api.backend_layout("dip_tp") == "sharded"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            api.get_backend("dip_ep")
+        assert api.backend_layout("dip_tp") == api.backend_layout("dip_ep") == "sharded"
+        assert api.get_backend("dip_ep").fn is api.get_backend("dip_tp").fn  # dip_tp's placement

@@ -161,10 +161,18 @@ def test_reduced_configs_moe_ffn_and_routing(name, backends):
 
 
 def test_expert_parallel_path_raises():
+    """The expert-parallel layer runs now (``test_torch_sharded_moe.py``);
+    it still refuses banks that are not the plan's E / T experts a rank
+    (the whole banks, not ``ShardingPlan.shard_params``), and so does the
+    expert-split layer, before any collective."""
+    from repro_torch.distributed import comm, make_plan
+
     ref_cfg, cfg = _small()
     _, tl = _layer0(ref_cfg, cfg)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md Queue 1 "Distributed"'):
-        moe.moe_ffn(torch.zeros(1, 4, 32), tl, cfg, plan=object())
+    for strategy, shape in (("ep", (2, 4, 32)), ("tp", (1, 4, 32))):
+        plan = make_plan(comm.Mesh({"data": 1, "model": 2}), dataclasses.replace(cfg, sharding=strategy), "decode")
+        with pytest.raises(ValueError, match="shard_params"):
+            moe.moe_ffn(torch.zeros(shape), tl, cfg, plan=plan)
 
 
 def test_replayed_routing_follows_the_given_ids():

@@ -41,9 +41,9 @@ from repro_torch.serving import Engine, EngineConfig
 ARCHS = ("llama3-8b", "deepseek-v2-lite-16b", "zamba2-2.7b")
 
 
-def _ref_kinds(name):
-    cfg = dataclasses.replace(ref_config(name.replace("-", "_").replace(".", "_")).reduced(), sharding="tp",
-                              matmul_backend="dip_tp")
+def _ref_kinds(name, strategy="tp"):
+    cfg = dataclasses.replace(ref_config(name.replace("-", "_").replace(".", "_")).reduced(), sharding=strategy,
+                              matmul_backend=f"dip_{strategy}")
     plan = ref_make_plan(AbstractMesh((1, 2), ("data", "model")), cfg, "decode")
     out = {}
 
@@ -60,49 +60,52 @@ def _ref_kinds(name):
     return plan, out
 
 
-def _port_plan(name, **opts):
-    cfg = dataclasses.replace(get_config(name).reduced(), sharding="tp", matmul_backend="dip_tp")
+def _port_plan(name, strategy="tp", **opts):
+    cfg = dataclasses.replace(get_config(name).reduced(), sharding=strategy, matmul_backend=f"dip_{strategy}")
     return make_plan(abstract_mesh(data=1, model=2), cfg, "decode", **opts)
 
 
 @pytest.mark.parametrize("name", ARCHS)
 def test_attach_params_matches_the_reference(name):
-    ref_plan, want = _ref_kinds(name)
-    plan = _port_plan(name)
+    """Under ``tp`` and under ``ep``: every DiP leaf's kind and axes, every
+    template leaf's spec and every paged-cache pool's spec."""
     cfg = dataclasses.replace(get_config(name).reduced(), matmul_backend="dip")
     params = tf_model.init_params(cfg, make_generator(0, "cpu"), device="cpu")
-    got = {}
+    for strategy in ("tp", "ep"):
+        ref_plan, want = _ref_kinds(name, strategy)
+        plan = _port_plan(name, strategy)
+        got = {}
 
-    def walk(t, path):
-        if isinstance(t, dict):
+        def walk(t, path):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, path + (k,))
+            elif getattr(t, "plan", None) is not None:
+                got[path] = (t.plan.kind, t.plan.axis, t.plan.fsdp)
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            walk(plan.attach_params(params), ())
+        assert got == want and len(got) > 5, strategy
+
+        # and every template leaf's spec
+        def leaves(t, path=()):
             for k, v in t.items():
-                walk(v, path + (k,))
-        elif getattr(t, "plan", None) is not None:
-            got[path] = (t.plan.kind, t.plan.axis, t.plan.fsdp)
+                if isinstance(v, dict):
+                    yield from leaves(v, path + (k,))
+                else:
+                    yield k, tuple(v[0])
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        walk(plan.attach_params(params), ())
-    assert got == want and len(got) > 5
-
-    # and every template leaf's spec
-    def leaves(t, path=()):
-        for k, v in t.items():
-            if isinstance(v, dict):
-                yield from leaves(v, path + (k,))
-            else:
-                yield k, tuple(v[0])
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        for leaf, shape in leaves(tf_model.param_template(cfg)):
-            assert plan.param_pspec(leaf, shape) == tuple(ref_plan.param_pspec(leaf, shape)), leaf
-    # and every paged-cache pool's
-    pools = tf_model.init_paged_cache(cfg, 3, 4, slots=2, device="cpu")["layers"]
-    for nm, t in pools.items():
-        shape = tuple(t.shape) if nm != "attn" else None
-        if shape is not None:
-            assert plan.paged_cache_pspec(nm, shape) == tuple(ref_plan.paged_cache_pspec(nm, shape)), nm
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for leaf, shape in leaves(tf_model.param_template(cfg)):
+                assert plan.param_pspec(leaf, shape) == tuple(ref_plan.param_pspec(leaf, shape)), (leaf, strategy)
+        # and every paged-cache pool's
+        pools = tf_model.init_paged_cache(cfg, 3, 4, slots=2, device="cpu")["layers"]
+        for nm, t in pools.items():
+            shape = tuple(t.shape) if nm != "attn" else None
+            if shape is not None:
+                assert plan.paged_cache_pspec(nm, shape) == tuple(ref_plan.paged_cache_pspec(nm, shape)), nm
 
 
 def test_divisibility_fallback_warns_once_and_raises_under_strict():
@@ -272,7 +275,7 @@ def test_plan_free_weights_decompose():
     x = torch.from_numpy(r.normal(0, 1, (4, 100)).astype(np.float32))
     w = torch.from_numpy(r.normal(0, 1, (100, 130)).astype(np.float32))
     dw = api.DipWeight.from_natural(w)
-    for backend in ("dip_tp", "dip_fsdp", "dip_sp"):
+    for backend in ("dip_tp", "dip_fsdp", "dip_sp", "dip_ep"):
         torch.testing.assert_close(api.matmul(x, dw, backend=backend), api.matmul(x, dw, backend="dip"),
                                    rtol=0, atol=0)
         torch.testing.assert_close(api.matmul(x, dw, backend=backend), x @ w, rtol=2e-3, atol=2e-3)
@@ -280,16 +283,15 @@ def test_plan_free_weights_decompose():
     assert torch.equal(api.matmul(x, qw, backend="dip_tp"), api.matmul(x, qw))
     rep = api.DipWeight.from_natural(w, plan=WeightPlan("replicated"))
     torch.testing.assert_close(api.matmul(x, rep, backend="dip_tp"), x @ w, rtol=2e-3, atol=2e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.matmul(x, dw, backend="dip_ep")
+    torch.testing.assert_close(api.matmul(x, rep, backend="dip_ep"), x @ w, rtol=2e-3, atol=2e-3)
 
 
 def test_sharded_registration_rules():
-    for name in ("dip_tp", "dip_fsdp", "dip_sp"):
+    for name in ("dip_tp", "dip_fsdp", "dip_sp", "dip_ep"):
         be = api.get_backend(name)
         assert api.backend_layout(name) == "sharded" and not be.tiled
         assert set(be.epilogues) == set(api.EPILOGUES) and set(be.prologues) == set(api.PROLOGUES)
-    assert "dip_tp" in api.list_backends() and "dip_ep" not in api.list_backends()
+    assert "dip_tp" in api.list_backends() and "dip_ep" in api.list_backends()
     cfg = dataclasses.replace(get_config("llama3-8b").reduced(), matmul_backend="dip_tp")
     assert cfg.uses_dip_storage
 
@@ -350,9 +352,10 @@ def test_refusals_outside_the_slice():
     with pytest.raises(ValueError, match="ShardingPlan"):  # the reference's test_engine_sharded_backend_requires_plan
         Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=16), device="cpu")
     mesh = abstract_mesh(data=1, model=2)
-    for strategy in ("ep", "pp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_plan(mesh, dataclasses.replace(cfg, sharding=strategy), "decode")
+    # ep and the moe family under tp run now (test_torch_sharded_moe.py); pp does not
+    assert make_plan(mesh, dataclasses.replace(cfg, sharding="ep"), "decode").expert_plan.kind == "expert"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_plan(mesh, dataclasses.replace(cfg, sharding="pp"), "decode")
     with pytest.raises(NotImplementedError, match="gspmd"):
         make_plan(mesh, cfg, "decode")
     with pytest.raises(NotImplementedError, match="pipeline"):
@@ -362,8 +365,16 @@ def test_refusals_outside_the_slice():
     tp = dataclasses.replace(cfg, sharding="tp")
     plan = make_plan(mesh, tp, "decode")
     moe = dataclasses.replace(tp, family="moe", n_experts=4, moe_top_k=2, d_ff_expert=64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf_model.forward(params, moe, tokens=torch.zeros(1, 4, dtype=torch.long), plan=plan)
+    tf_model._require_plan(moe, plan)  # admitted
+    # the SSM and hybrid families stay refused under every plan
+    for arch in ("mamba2-370m", "zamba2-2.7b"):
+        for strategy in ("tp", "ep"):
+            fam = dataclasses.replace(get_config(arch).reduced(), sharding=strategy, matmul_backend=f"dip_{strategy}")
+            fam_plan = make_plan(mesh, fam, "decode")
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tf_model.init_paged_cache(fam, 3, 4, slots=1, device="cpu", plan=fam_plan)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                tf_model.paged_decode_step_fn(fam, plan=fam_plan)
     from repro_torch.optim import AdamW
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf_model.train_step_fn(tp, AdamW(), plan=plan)
