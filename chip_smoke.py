@@ -103,7 +103,8 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    core with the expert choices replayed, both profiled;
 5e. zamba2-2.7b at full width (54 Mamba2 layers and one shared attention+FFN
    block at 9 call sites) and
-5f. mamba2-370m at full width (48 Mamba2 layers, tied head), each in bf16
+5f. mamba2-370m at full width (48 Mamba2 layers, tied head; the launcher's
+   first 2 requests), each in bf16
    through ``launch.serve`` as in 5d: layer 0's Mamba2 block (a 256-token
    chunk from zero state, then one decode token: outputs, conv history and
    state) and zamba2's shared block against their plain versions on one
@@ -123,15 +124,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    to ``quantize_rows`` on the CPU, weights, peak memory and the captured
    steps against the eager ones;
 5h. zamba2-2.7b (``--quantize int8 --kv-quant int8``) and mamba2-370m
-   (``--quantize int8``) at full width as in 5e / 5f: 163 / 96 dip_matmul_q
+   (``--quantize int8``) at full width as in 5e / 5f (the launcher's first
+   2 requests): 163 / 96 dip_matmul_q
    launches per forward, flash's routes unchanged, 774,144 / 0 KV bytes
    per block, the state bytes per slot unchanged, the hybrid's first
    import checked as in 5g;
-6. llama3-8b at full width cut to 4 layers,
-6b. deepseek-v2-lite-16b at full width cut to 4 layers,
-6c. zamba2-2.7b cut to 12 of its 54 layers (the shared block at 2 sites),
-6d. mamba2-370m (48 layers, the tied head) and
-6e. musicgen-medium cut to 12 of its 48 layers (fed the pipeline's
+6. llama3-8b at full width cut to 2 layers,
+6b. deepseek-v2-lite-16b at full width cut to 2 layers,
+6c. zamba2-2.7b cut to 6 of its 54 layers (the shared block at 1 site),
+6d. mamba2-370m cut to 24 of its 48 layers (the tied head) and
+6e. musicgen-medium cut to 6 of its 48 layers (fed the pipeline's
    embeddings), each trained
    through ``launch.train`` and its ``Trainer`` (f32 parameters, bf16
    compute, block remat, batch 4 x seq 1024, 4 steps, the launcher's
@@ -145,7 +147,7 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    plain run, and its kernels' distance with the unfused loss printed
    beside), the expert ids of the remat rerun against the forward's (0
    differ), exact DiP launches per step (each projection of a forward but
-   the head, twice: forward and remat rerun; llama3-8b's 2 x 6 x 4), 1
+   the head, twice: forward and remat rerun; llama3-8b's 2 x 6 x 2), 1
    lm_head_ce launch per step and no flash launch, every padded DiP leaf's
    padding (Zamba2's and Mamba2's in_proj) and both its AdamW moments
    exactly 0 after the steps, finite losses, step time, tokens/s, peak
@@ -187,9 +189,9 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    retry with the peer's tokens unchanged; ``max_retries=0`` degrades the
    victim to the captured ``torch``-backend decode step (replayed against
    its eager step and timed); the int8 weights + int8 KV engine's drill
-   poisons ``k_scale``.  8c: llama3-8b cut to 4 layers through a guarded
+   poisons ``k_scale``.  8c: llama3-8b cut to 2 layers through a guarded
    ``Trainer``, its losses and norms phase 6's bit for bit, the
-   fingerprint's device ms; mamba2-370m at full depth with a NaN planted at
+   fingerprint's device ms; mamba2-370m cut to 24 layers with a NaN planted at
    data step 3: one weight fault, a skipped step, one recovery, finite
    parameters at the step count;
 9. the explicit sharded backends and llama3-8b tensor-parallel, run after
@@ -203,7 +205,7 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    its shard body byte for byte), the communicator's counts against the
    reference's contract, each rank's launch device ms beside the single-rank
    dispatch's; 9c llama3-8b at full width through ``Server(plan=)`` at phase
-   5's settings and requests: first-token logits within FULL_TOL of phase
+   5's settings and its first two requests: first-token logits within FULL_TOL of phase
    5's, the greedy streams beside phase 5's, 66 collectives and 193 DiP
    launches (each a shard) per step and rank, wall and device ms per step,
    peak memory per rank; 9d the reduced llama3-8b in f32 over the 2 ranks
@@ -221,7 +223,7 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    within bf16 TOL of 5d's plain ``moe_ffn`` on each half at
    moe_capacity(128), drops and expert ids equal, 2 all-to-alls, 1 psum, 1
    all-gather, the dispatch before the 2 shared-expert launches; (d)
-   ``Engine(plan=)`` serving 5d's 4 requests, 8 greedy tokens each: per
+   ``Engine(plan=)`` serving 5d's first 2 requests, 8 greedy tokens each: per
    step and rank 164 collectives (27 x (2 all-to-alls, 2 all-reduces, 2
    all-gathers) + 2), 163 DiP launches, each dispatch before its
    shared-expert launches, walls, kernel and copy device ms, peak memory;
@@ -232,6 +234,27 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    deepseek-v2-lite-16b under ``tp`` and the reduced deepseek-v2-lite-16b
    and qwen3-moe-235b-a22b under ``ep`` (capacity factor E / k, no drops)
    in f32 serving the single-rank engines' tokens.
+9f-9h. zamba2-2.7b at full width (all 54 layers) in one 2-rank world
+   sharing the card (``host`` transport), after 5e with its engine freed,
+   each rank drawing only its slice of 5e's weights (``init_params(plan=)``),
+   ``Engine(plan=)`` with 2 slots: 9f under ``tp`` on 5e's requests 1 and
+   0 cut to 256 + 3 and 512 + 2 tokens (4 greedy tokens each), 9g under
+   ``fsdp`` on requests 2 and 3 cut to 256 + 2 and 256 + 1 (2 each: a
+   decode step's slots split 1 / 1). 5e's engine records their first-token
+   logits, and an f32 run of its bf16 weights its own; the sharded engine's
+   must sit no further from the f32 run than F32_DRIFT times 5e's (both
+   run freely in bf16; 5e-2 of max|5e| is printed beside). Every call's
+   collectives and launches are held exactly (9f 182 and 163 a call and
+   rank; 9g 173 all-gathers a prefill call, 174 a decode step, 163
+   launches), the state pool's heads a rank, then every launch shape of
+   the forward (9f the rank's column shards and f32-store row partials at
+   M = 1, 2, 256; 9g the gathered storage at M = 1, 256) against its plain
+   version with device, plain and library ms; the steps' wall, kernel and
+   copy device ms by kind, storage and gathered bytes and peak memory a
+   rank are printed. 9h: the reduced Zamba2 (``in_proj`` replicated, and
+   column-parallel with ``ssm_state=32``) and Mamba2 under ``tp``, the
+   reduced llama3-8b and Zamba2 under ``fsdp``, in f32, serving the
+   single-rank engines' tokens.
 
 Each phase's wall seconds are printed on a line of their own when the next
 phase opens, and all of them together before the ``kernels`` line.
@@ -752,11 +775,12 @@ def _phase9_dispatch(transport):
     return out
 
 
-def _library_call(x, nats, kw):
+def _library_call(x, nats, kw, ops=()):
     """The same function in library calls: ``torch.matmul`` of the natural
     weight(s), after ``F.rms_norm`` where the launch fuses the prologue,
-    with the swiglu epilogue in torch (a row partial's f32 store: the bf16
-    ``torch.matmul``, whose sums cuBLAS also keeps in f32)."""
+    with the swiglu epilogue in torch, or the residual ``ops`` added (a row
+    partial's f32 store: the bf16 ``torch.matmul``, whose sums cuBLAS also
+    keeps in f32)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.prologue import DEFAULT_EPS
@@ -767,7 +791,7 @@ def _library_call(x, nats, kw):
         h = x if gain is None else F.rms_norm(x, (x.shape[-1],), gain[0].to(x.dtype), DEFAULT_EPS)
         if len(nats) == 2:
             return F.silu(h @ nats[0]) * (h @ nats[1])
-        return h @ nats[0]
+        return h @ nats[0] + ops[0] if ops else h @ nats[0]
 
     return run
 
@@ -778,7 +802,8 @@ def _held_shapes(shapes, dev, seed):
     against its plain version on the same card inputs (``_held_launch``;
     the row partials' f32 store within f32 TOL, the rest within bf16 TOL);
     each one's device ms beside the plain version's and the library call's
-    (``_library_call``), timed while the other ranks wait."""
+    (``_library_call``), timed while the other ranks wait.  A ``residual``
+    epilogue gets a random (m, n) residual."""
     import torch
 
     from repro_torch.core import permute
@@ -793,13 +818,15 @@ def _held_shapes(shapes, dev, seed):
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         if kw.get("prologue") == "rmsnorm":
             kw = dict(kw, prologue_operands=(torch.rand(k, generator=gen, device=dev) + 0.5,))
-        pair = (lambda x=x, d=data, kw=kw: dip_matmul(x, *d, **kw),
-                lambda x=x, d=data, kw=kw: dip_matmul_plain(x, *d, **kw))
+        ops = (torch.randn(m, n, generator=gen, device=dev).to(torch.bfloat16),) if kw.get(
+            "epilogue") == "residual" else ()
+        pair = (lambda x=x, d=data, kw=kw, o=ops: dip_matmul(x, *d, *o, **kw),
+                lambda x=x, d=data, kw=kw, o=ops: dip_matmul_plain(x, *d, *o, **kw))
         held, _ = _held_launch(*pair, exact=False, tol=TOL["float32" if kind == "row" else "bfloat16"])
         nats = [permute.unpermute_tiled(d, 64) for d in data]
         out.append(dict(held, launch=label, kind=kind, m=m, k=k, n=n, epilogue=kw.get("epilogue", "none"),
                         prologue=kw.get("prologue", "none")))
-        calls.append(pair + (_library_call(x, nats, kw),))
+        calls.append(pair + (_library_call(x, nats, kw, ops),))
     for r in range(world):
         torch.distributed.barrier()
         if r == rank:
@@ -1000,12 +1027,19 @@ def bank_sums(bank):
     return bank.view(torch.int16).long().sum((1, 2)).cpu().numpy()
 
 
-def _traced_steps(eng, dev, steps, profiled):
-    """Wrap the engine's two steps (phases 9c and 9e): each call's wall ms,
-    collectives by name (``comm.reset(schedule=True)`` before it), DiP
-    launches and, for the expert-parallel layer, whether each dispatch
+def _step_kind(attr, args):
+    """A step call's kind (phases 9f and 9g): a ``decode`` step, a prefill
+    ``chunk`` or a single-token forward of the prefill ``tail``."""
+    return "decode" if attr == "_decode" else "chunk" if args[2].shape[1] > 1 else "tail"
+
+
+def _traced_steps(eng, dev, steps, profiled, kind_of=None):
+    """Wrap the engine's two steps (phases 9c, 9e, 9f and 9g): each call's
+    wall ms, collectives by name (``comm.reset(schedule=True)`` before it),
+    DiP launches and, for the expert-parallel layer, whether each dispatch
     all-to-all came before its two shared-expert launches; the second call
-    of each under the profiler (kernel and copy device ms)."""
+    of each kind under the profiler (kernel and copy device ms).  A call's
+    kind is its step's name, or ``kind_of(name, args)``."""
     import torch
 
     from repro_torch.distributed import comm
@@ -1015,7 +1049,8 @@ def _traced_steps(eng, dev, steps, profiled):
         f = getattr(eng, attr)
 
         def run(*a):
-            calls = steps[attr]
+            kind = attr if kind_of is None else kind_of(attr, a)
+            calls = steps.setdefault(kind, [])
             comm.reset(schedule=True)
             l0 = dip_matmul.launches
             torch.cuda.synchronize(dev)
@@ -1028,7 +1063,7 @@ def _traced_steps(eng, dev, steps, profiled):
                 ms = {e.key: (getattr(e, "self_device_time_total", None) or e.self_cuda_time_total) / 1e3
                       for e in dev_ev}
                 copies = {k: v for k, v in ms.items() if k.startswith("Memcpy") or k.startswith("Memset")}
-                profiled[attr] = {"kernels_ms": sum(ms.values()) - sum(copies.values()),
+                profiled[kind] = {"kernels_ms": sum(ms.values()) - sum(copies.values()),
                                   "copies_ms": sum(copies.values()),
                                   "kernel_launches": sum(e.count for e in dev_ev if e.key not in copies)}
             else:
@@ -1126,7 +1161,7 @@ def _phase9e_serve(rec):
     steps, profiled, first = {"_prefill_fwd": [], "_decode": []}, {}, {}
     record_first_logits(eng, vocab, first)
     _traced_steps(eng, dev, steps, profiled)
-    for rid, p in enumerate(rec["prompts"]):
+    for rid, p in enumerate(rec["prompts"][:SHARDED_REQUESTS]):
         eng.add_request(np.asarray(p), SamplingParams(max_new_tokens=8), rid=rid)
     dip_matmul.launches = dip_matmul.launches_f32 = 0
     t0 = time.perf_counter()
@@ -1207,6 +1242,218 @@ def phase9e_rank(rank, rec, reduced_prompts):
     out = _phase9e_serve(rec)
     out["f"] = _phase9e_reduced(reduced_prompts)
     return out
+
+
+# ------------------------------------- phases 9f-9h: the ranks' side --
+def zamba2_config(strategy=None):
+    """Phase 5e's Zamba2-2.7B configuration (the launcher's: bf16,
+    ``dip``), or under ``strategy`` its plan's (``dip_tp`` / ``dip_fsdp``)."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), matmul_backend="dip", param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    return cfg if strategy is None else dataclasses.replace(cfg, matmul_backend=f"dip_{strategy}",
+                                                            sharding=strategy)
+
+
+# phases 9c and 9e(d) serve the first two of their phase's requests (the time
+# budget, PERF.md §4)
+SHARDED_REQUESTS = 2
+
+# 9h: (name, arch, reduced() overrides, strategy): the reduced models in f32;
+# zamba2_col's in_proj is column-parallel under tp (640 storage columns)
+Z_REDUCED = (("zamba2_tp", "zamba2-2.7b", {}, "tp"), ("zamba2_col_tp", "zamba2-2.7b", {"ssm_state": 32}, "tp"),
+             ("mamba2_tp", "mamba2-370m", {}, "tp"), ("llama3_fsdp", "llama3-8b", {}, "fsdp"),
+             ("zamba2_fsdp", "zamba2-2.7b", {}, "fsdp"))
+
+
+def reduced_f32_config(arch, overrides, strategy=None):
+    """9h's reduced model in f32 on ``dip``, or under ``strategy`` its
+    plan's backend."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch).reduced(**overrides), matmul_backend="dip",
+                              compute_dtype="float32", param_dtype="float32")
+    return cfg if strategy is None else dataclasses.replace(cfg, matmul_backend=f"dip_{strategy}", sharding=strategy)
+
+
+def _dip_items(t, cls, path=""):
+    """(path, weight) of every ``cls`` leaf of a parameter tree."""
+    if isinstance(t, dict):
+        for k, v in t.items():
+            yield from _dip_items(v, cls, f"{path}/{k}" if path else k)
+    elif isinstance(t, cls):
+        yield path, t
+
+
+def _zamba2_served(strategy, prompts, max_new):
+    """9f / 9g on this rank: Zamba2-2.7B at full width under ``strategy``
+    over the ranks sharing the card (``host`` transport), the rank drawing
+    only its slice of phase 5e's weights from the seed
+    (``init_params(plan=)``), ``Engine(plan=)`` with 2 slots on
+    ``prompts``: tokens, first-token logits, each step's kind, wall,
+    collectives and launches, one profiled call of each kind, the pools'
+    bytes, the rank's storage bytes, peak memory."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import make_local_mesh, make_plan
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    world = torch.distributed.get_world_size()
+    axes = dict(data=1, model=world) if strategy == "tp" else dict(data=world, model=1)
+    mesh = make_local_mesh(**axes, transport="host", device=dev)
+    cfg = zamba2_config(strategy)
+    plan = make_plan(mesh, cfg, "decode")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+    torch.cuda.synchronize(dev)
+    out = {"build_s": time.perf_counter() - t0, "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "weights_gib": torch.cuda.memory_allocated(dev) / 2**30}
+    dips = list(_dip_items(params, api.DipWeight))
+    out["storage_bytes"] = sum(w.data.numel() * w.data.element_size() for _, w in dips)
+    out["shards"] = {nm: [list(w.data.shape), w.plan.kind, w.plan.fsdp] for nm, w in dips}
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=2, max_seq=1024, prefill_chunk=256), device=dev,
+                 plan=plan)
+    del params
+    steps, profiled, first = {}, {}, {}
+    record_first_logits(eng, cfg.vocab_size, first)
+    _traced_steps(eng, dev, steps, profiled, kind_of=_step_kind)
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, SamplingParams(max_new_tokens=max_new), rid=rid)
+    dip_matmul.launches = dip_matmul.launches_f32 = 0
+    t0 = time.perf_counter()
+    results = eng.run()
+    pools = eng.kv.pools["layers"]
+    out.update({"results": results, "first_logits": first, "steps": steps, "profiled_device_ms": profiled,
+                "launches": {"dip_matmul": dip_matmul.launches, "dip_matmul_f32_x": dip_matmul.launches_f32},
+                "wall_s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30, "eager_reason": eng.eager_reason,
+                "captured": eng.captured, "pools": {k: list(v.shape) for k, v in pools.items() if k != "attn"},
+                "state_pool_bytes": pools["state"].numel() * pools["state"].element_size(),
+                "conv_pool_bytes": pools["conv"].numel() * pools["conv"].element_size(),
+                "attn_pools": {k: list(v.shape) for k, v in pools["attn"].items()}})
+    return eng, mesh, out
+
+
+def _phase9f(rec):
+    """9f on this rank: Zamba2-2.7B under ``tp``, then each launch shape of
+    its forward on the rank's own storage against its plain version: the
+    column shards (in_proj; the shared block's q, k, v and gate+up with
+    the rmsnorm prologue; the lm_head) and the row partials (out_proj, wo,
+    w_down: the f32 store), at M = 1 (the tail), 2 (a decode step's slots)
+    and 256 (a chunk)."""
+    import torch
+
+    eng, _, out = _zamba2_served("tp", rec["tp_prompts"], 4)
+    dev = torch.device("cuda", 0)
+    lyr, sh = eng.params["layers"], eng.params["shared_attn"]
+
+    def l0(w):
+        return w.data[0] if w.data.dim() == 3 else w.data
+
+    col, row = dict(prologue="rmsnorm"), dict(out_dtype=torch.float32)
+    shapes = []
+    for m in (1, 2, 256):
+        shapes += [("in_proj", "column", m, [l0(lyr["in_proj"])], {}),
+                   ("out_proj", "row", m, [l0(lyr["out_proj"])], row),
+                   ("wq", "column", m, [l0(sh["wq"])], col), ("wk", "column", m, [l0(sh["wk"])], col),
+                   ("wv", "column", m, [l0(sh["wv"])], col),
+                   ("w_gate + w_up", "column", m, [l0(sh["w_gate"]), l0(sh["w_up"])], dict(col, epilogue="swiglu")),
+                   ("wo", "row", m, [l0(sh["wo"])], row), ("w_down", "row", m, [l0(sh["w_down"])], row),
+                   ("lm_head", "column", m, [eng.params["lm_head"].data], {})]
+    out["held_launches"] = _held_shapes(shapes, dev, SEED + 13)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase9g(rec):
+    """9g on this rank: Zamba2-2.7B under ``fsdp``, then each launch shape
+    of its forward on the gathered storage (every rank gathers each
+    weight's K shards, as ``dip_fsdp`` does) against its plain version, at
+    M = 1 (the tail, and a decode step's slot a rank) and 256 (a chunk):
+    whole-width launches with the epilogues and prologues the forward
+    fuses."""
+    import torch
+
+    from repro_torch.distributed import comm
+
+    eng, mesh, out = _zamba2_served("fsdp", rec["fsdp_prompts"], 2)
+    dev = torch.device("cuda", 0)
+    lyr, sh = eng.params["layers"], eng.params["shared_attn"]
+
+    def whole(w):
+        return comm.all_gather(w.data[0] if w.data.dim() == 3 else w.data, mesh, "data", dim=0)
+
+    g = {nm: whole(lyr[nm]) for nm in ("in_proj", "out_proj")}
+    g.update({nm: whole(sh[nm]) for nm in ("wq", "wk", "wv", "w_gate", "w_up", "wo", "w_down")})
+    g["lm_head"] = whole(eng.params["lm_head"])
+    col, res = dict(prologue="rmsnorm"), dict(epilogue="residual")
+    shapes = []
+    for m in (1, 256):
+        shapes += [("in_proj", "gathered", m, [g["in_proj"]], {}), ("out_proj", "gathered", m, [g["out_proj"]], res),
+                   ("wq", "gathered", m, [g["wq"]], col), ("wk", "gathered", m, [g["wk"]], col),
+                   ("wv", "gathered", m, [g["wv"]], col),
+                   ("w_gate + w_up", "gathered", m, [g["w_gate"], g["w_up"]], dict(col, epilogue="swiglu")),
+                   ("wo", "gathered", m, [g["wo"]], res), ("w_down", "gathered", m, [g["w_down"]], res),
+                   ("lm_head", "gathered", m, [g["lm_head"]], {})]
+    out["held_launches"] = _held_shapes(shapes, dev, SEED + 17)
+    del eng, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase9h(prompts):
+    """9h on this rank: the reduced models in f32 under their plans
+    (``Z_REDUCED``), seeded weights drawn on the card: each engine's
+    tokens and DiP launches."""
+    import torch
+
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import make_local_mesh, make_plan
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+
+    dev = torch.device("cuda", 0)
+    world = torch.distributed.get_world_size()
+    meshes = {"tp": make_local_mesh(data=1, model=world, transport="host", device=dev),
+              "fsdp": make_local_mesh(data=world, model=1, transport="host", device=dev)}
+    out = {}
+    for name, arch, overrides, strategy in Z_REDUCED:
+        cfg = reduced_f32_config(arch, overrides, strategy)
+        plan = make_plan(meshes[strategy], cfg, "decode")
+        params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=2, max_seq=64, prefill_chunk=16), device=dev,
+                     plan=plan)
+        for rid, p in enumerate(prompts):
+            eng.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
+        dip_matmul.launches = dip_matmul.launches_f32 = 0
+        out[name] = {"results": eng.run(), "dip_launches": dip_matmul.launches,
+                     "dip_f32_x_launches": dip_matmul.launches_f32,
+                     "in_proj": getattr(eng.params["layers"].get("in_proj"), "plan", None) and
+                     eng.params["layers"]["in_proj"].plan.kind}
+    return out
+
+
+def phase9z_rank(rank, rec, reduced_prompts):
+    """One rank of the 2-rank world of phases 9f-9h sharing the card (host
+    transport): 9f and 9g on phase 5e's weights, then 9h.  Returns numpy and
+    numbers only."""
+    import warnings
+
+    warnings.simplefilter("ignore", UserWarning)  # the reduced widths replicate (announced once)
+    return {"9f": _phase9f(rec), "9g": _phase9g(rec), "9h": _phase9h(reduced_prompts)}
 
 
 def main():
@@ -2600,7 +2847,9 @@ def main():
             want_reduced = eng1.run()
             del eng1
         t0 = time.perf_counter()
-        outs = run_world(phase9_rank, 2, [r.prompt.tolist() for r in reqs], prompts, timeout=900.0)
+        # phase 5's first two requests (the time budget, PERF.md §4)
+        outs = run_world(phase9_rank, 2, [r.prompt.tolist() for r in reqs[:SHARDED_REQUESTS]], prompts,
+                         timeout=900.0)
         world_s = time.perf_counter() - t0
         res = {"world_s": world_s}
         log(f"phase 9a: dip_tp / dip_fsdp / dip_sp at llama3-8b's gate+up and down, M = 4 and 256, bf16, and "
@@ -2612,13 +2861,15 @@ def main():
         n_layers = 32
         want_per_step = {"psum": 2 * n_layers + 1, "all_gather": 1, "reduce_scatter": 0, "ppermute": 0, "all_to_all": 0}
         log(f"phase 9c: llama3-8b full width, bf16, dip_tp over 2 ranks ({outs[0]['9c']['transport']} transport: "
-            f"{outs[0]['9c']['eager_reason']}); phase 5's settings and requests")
+            f"{outs[0]['9c']['eager_reason']}); phase 5's settings and its first {SHARDED_REQUESTS} requests")
         tp = [o["9c"] for o in outs]
         if any(t["results"] != tp[0]["results"] for t in tp):
             raise AssertionError("phase 9c: the ranks served different tokens")
         got = tp[0]["results"]
         cmp = {}
-        for rid in sorted(results):
+        if sorted(got) != list(range(SHARDED_REQUESTS)):
+            raise AssertionError(f"phase 9c: not every request was served: {sorted(got)}")
+        for rid in sorted(got):
             want_l, got_l = first_logits[rid], tp[0]["first_logits"][rid]
             scale = max(1.0, float(np.abs(want_l).max()))
             err = float(np.abs(got_l - want_l).max())
@@ -2766,13 +3017,14 @@ def main():
 
         d0 = outs[0]["d"]
         log(f"phase 9e(d): Engine(plan=) at 5d's settings (4 slots, max_seq 1024, chunk {EP_CHUNK}) over 2 ranks "
-            f"({d0['eager_reason']}); 5d's 4 requests, 8 greedy tokens each")
+            f"({d0['eager_reason']}); 5d's first {SHARDED_REQUESTS} requests, 8 greedy tokens each")
         if any(o["d"]["results"] != d0["results"] for o in outs):
             raise AssertionError("phase 9e(d): the ranks served different tokens")
-        if sorted(d0["results"]) != [0, 1, 2, 3] or any(len(v) != 8 for v in d0["results"].values()):
+        if sorted(d0["results"]) != list(range(SHARDED_REQUESTS)) or any(len(v) != 8 for v in d0["results"].values()):
             raise AssertionError(f"phase 9e(d): not every request got its 8 tokens: {d0['results']}")
         cmp = {}
-        for rid, want_l in rec["first_logits"].items():
+        for rid in sorted(d0["first_logits"]):
+            want_l = rec["first_logits"][rid]
             got_l = d0["first_logits"][rid]
             a, bb = list(rec["results"][rid][:8]), list(d0["results"][rid])
             prefix = next((i for i, (x, y) in enumerate(zip(a, bb)) if x != y), len(bb))
@@ -2844,6 +3096,192 @@ def main():
                                  "dip_matmul_f32_x": sum(o["f"][nm]["dip_f32_x_launches"] for o in outs
                                                          for nm, *_ in DS_REDUCED)}}
         log(f"  phase 9e wall: the 2-rank world {world_s:.1f} s")
+        return res
+
+    # ----------------- 9f-9h. the SSM / hybrid families under tp and fsdp ----
+    def z_records(eng, orig, reqs):
+        """What phases 9f and 9g are held to, from 5e's single-rank engine
+        (its captured steps, the hooks taken off): the first-token logits of
+        9f's prompts (5e's requests 1 and 0 cut to 256 + 3 and 512 + 2
+        tokens) and 9g's (requests 2 and 3 cut to 256 + 2 and 256 + 1),
+        uncounted."""
+        for attr, f in orig.items():
+            setattr(eng, attr, f)
+        tp_prompts = [reqs[1].prompt[:259], reqs[0].prompt[:514]]
+        fsdp_prompts = [reqs[2].prompt[:258], reqs[3].prompt[:257]]
+        first = {}
+        record_first_logits(eng, eng.cfg.vocab_size, first)
+        with uncounted():
+            for rid, p in enumerate(tp_prompts + fsdp_prompts):
+                eng.add_request(p, SamplingParams(max_new_tokens=1), rid=100 + rid)
+            eng.run()
+        del eng._finish_prefill
+        # the same bf16 weights in f32 (torch.matmul), each whole prompt at
+        # once: the yardstick of a free-running bf16 run's drift (gate 2)
+        c32 = dataclasses.replace(eng.cfg, param_dtype="float32", compute_dtype="float32", matmul_backend="torch")
+
+        def f32_of(t):
+            if isinstance(t, dict):
+                return {k: f32_of(x) for k, x in t.items()}
+            return t.with_data(t.data.float()) if isinstance(t, api.DipWeight) else t.float()
+
+        p32, f32 = f32_of(eng.params), []
+        with uncounted(), torch.no_grad():
+            for p in tp_prompts + fsdp_prompts:
+                logits = tf_model.forward(p32, c32, tokens=torch.as_tensor(np.asarray(p), device=dev)[None])[0]
+                f32.append(logits[0, -1, :c32.vocab_size].float().cpu().numpy())
+                del logits
+        del p32
+        torch.cuda.empty_cache()
+        log(f"  recorded for phases 9f / 9g: the first-token logits of {[len(p) for p in tp_prompts]}- and "
+            f"{[len(p) for p in fsdp_prompts]}-token prompts cut from requests 1, 0 and 2, 3, and of the same "
+            f"bf16 weights in f32")
+        return {"tp_prompts": [p.tolist() for p in tp_prompts], "fsdp_prompts": [p.tolist() for p in fsdp_prompts],
+                "tp_first": [first[100], first[101]], "fsdp_first": [first[102], first[103]],
+                "tp_f32": f32[:2], "fsdp_f32": f32[2:]}
+
+    def phase9z(rec):
+        """Zamba2-2.7B over 2 ranks sharing the card (``phase9z_rank``): 9f
+        under ``tp`` and 9g under ``fsdp``, held to 5e's records
+        (``z_records``); 9h's reduced models against single-rank engines on
+        the card from the same seed."""
+        from repro_torch.distributed import run_world
+
+        prompts = [list(range(2, 9)), list(range(40, 57))]  # 7 tokens: all tail; 17: a chunk and a tail token
+        single = {}
+        with uncounted():
+            for name, arch, overrides, strategy in Z_REDUCED:
+                c1 = reduced_f32_config(arch, overrides)
+                e1 = Engine(c1, tf_model.init_params(c1, make_generator(SEED, "cuda"), "cuda"),
+                            engine_cfg=EngineConfig(slots=2, max_seq=64, prefill_chunk=16), device="cuda")
+                for rid, p in enumerate(prompts):
+                    e1.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
+                single[name] = e1.run()
+                del e1
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = run_world(phase9z_rank, 2, rec, prompts, timeout=1000.0)
+        world_s = time.perf_counter() - t0
+        n_layers, sites = 54, 9
+        res = {"world_s": world_s}
+        # per step and rank.  tp: the embedding's all-reduce; per Mamba2 layer
+        # in_proj's all-gather, the gated norm's and out_proj's all-reduces;
+        # per site wo's and w_down's all-reduces; the logits' all-gather.
+        # fsdp: one all-gather per weight (in_proj, out_proj; wq, wk, wv, wo,
+        # w_gate, w_up, w_down at each site; the lm_head), the embedding's
+        # columns, and in a decode step (2 slots split 1 / 1) the logits' rows
+        want = {"9f": {k: {"psum": 1 + 2 * n_layers + 2 * sites, "all_gather": n_layers + 1, "reduce_scatter": 0,
+                           "ppermute": 0, "all_to_all": 0} for k in ("chunk", "tail", "decode")},
+                "9g": {k: {"psum": 0, "all_gather": 2 * n_layers + 7 * sites + 1 + 1 + (k == "decode"),
+                           "reduce_scatter": 0, "ppermute": 0, "all_to_all": 0}
+                       for k in ("chunk", "tail", "decode")}}
+        per_forward = 2 * n_layers + 6 * sites + 1
+        for ph, strategy, firsts, max_new in (("9f", "tp", rec["tp_first"], 4), ("9g", "fsdp", rec["fsdp_first"], 2)):
+            f32s = rec[strategy + "_f32"]
+            o0 = outs[0][ph]
+            log(f"phase {ph}: zamba2-2.7b under {strategy} at full width, 2 ranks sharing the card "
+                f"({o0['eager_reason']}); 2 slots, max_seq 1024, chunk 256, prompts "
+                f"{[len(p) for p in rec[strategy + '_prompts']]}, {max_new} greedy tokens each")
+            if any(o[ph]["results"] != o0["results"] for o in outs):
+                raise AssertionError(f"phase {ph}: the ranks served different tokens")
+            if sorted(o0["results"]) != [0, 1] or any(len(v) != max_new for v in o0["results"].values()):
+                raise AssertionError(f"phase {ph}: not every request got its {max_new} tokens: {o0['results']}")
+            # both engines run freely in bf16, in other orders of rounding, and
+            # two such runs of this 54-layer stack drift apart by ~6% of the
+            # largest logit (5e's gate 2: its kernels against its plain
+            # versions), so, as 5e's gate 2 holds a free run, the sharded
+            # engine's first-token logits must sit no further from the f32 run
+            # of the same weights than F32_DRIFT times 5e's engine's; the
+            # FULL_TOL comparison with 5e's engine is printed beside it
+            firsts_cmp = []
+            for rid, want_l in enumerate(firsts):
+                got_l = o0["first_logits"][rid]
+                err, scale = float(np.abs(got_l - want_l).max()), max(1.0, float(np.abs(want_l).max()))
+                s32, r32 = float(np.abs(got_l - f32s[rid]).max()), float(np.abs(want_l - f32s[rid]).max())
+                log(f"  request {rid}: first-token logits max|err| {err:.4e} against 5e's single-rank engine "
+                    f"(max|5e| {scale:.3g}; {FULL_TOL} x max(1, max|5e|) = {FULL_TOL * scale:.4f}: "
+                    f"{'within' if err <= FULL_TOL * scale else 'beyond'}); against the f32 run {s32:.4e}, 5e's "
+                    f"{r32:.4e} (bound {F32_DRIFT} x 5e's); argmax {int(np.argmax(got_l))} | 5e "
+                    f"{int(np.argmax(want_l))} | f32 {int(np.argmax(f32s[rid]))}; tokens {o0['results'][rid]}")
+                if not s32 <= F32_DRIFT * r32:
+                    raise AssertionError(f"phase {ph} request {rid}: the sharded engine's first-token logits drift "
+                                         f"from the f32 run ({s32:.4e}) beyond {F32_DRIFT} x 5e's ({r32:.4e})")
+                firsts_cmp.append({"max_abs_err_5e": err, "scale": scale, "within_full_tol": err <= FULL_TOL * scale,
+                                   "max_abs_err_f32": s32, "max_abs_err_5e_f32": r32})
+            per_rank = []
+            for r, o in enumerate(outs):
+                d = o[ph]
+                bad = [(k, c["collectives"], c["dip_launches"]) for k, calls in d["steps"].items() for c in calls
+                       if c["collectives"] != want[ph][k] or c["dip_launches"] != per_forward]
+                n_calls = sum(len(v) for v in d["steps"].values())
+                rec_r = {"rank": r, "calls": {k: len(v) for k, v in d["steps"].items()},
+                         "collectives_per_step": {k: v[0]["collectives"] for k, v in d["steps"].items()},
+                         "dip_launches_per_step": per_forward, "launches": d["launches"],
+                         "median_wall_ms": {k: statistics.median(c["wall_ms"] for c in v)
+                                            for k, v in d["steps"].items()},
+                         "profiled_device_ms": d["profiled_device_ms"], "peak_gib": d["peak_gib"],
+                         "peak_reserved_gib": d["peak_reserved_gib"], "weights_gib": d["weights_gib"],
+                         "build_peak_gib": d["build_peak_gib"], "build_s": d["build_s"], "wall_s": d["wall_s"],
+                         "storage_bytes": d["storage_bytes"], "state_pool_bytes": d["state_pool_bytes"],
+                         "conv_pool_bytes": d["conv_pool_bytes"], "pools": d["pools"], "attn_pools": d["attn_pools"]}
+                log(f"  rank {r}: {json.dumps(rec_r)} ({gpu})")
+                want_l = {"dip_matmul": per_forward * n_calls, "dip_matmul_f32_x": 0}
+                if bad or d["launches"] != want_l or set(d["steps"]) != {"chunk", "tail", "decode"}:
+                    raise AssertionError(f"phase {ph} rank {r}: collectives or launches off the design: {bad[:3]} "
+                                         f"{d['launches']} (want {want[ph]}, {per_forward} a forward)")
+                per_rank.append(rec_r)
+            heads = 80 // 2 if strategy == "tp" else 80
+            state_want = n_layers * 2 * heads * 64 * 64 * 4
+            if any(o[ph]["state_pool_bytes"] != state_want for o in outs):
+                raise AssertionError(f"phase {ph}: a rank's state pool is not {heads} heads a slot")
+            shards = outs[0][ph]["shards"]
+            if strategy == "tp":
+                log(f"  per step and rank: {sum(want[ph]['chunk'].values())} collectives ({want[ph]['chunk']}) and "
+                    f"{per_forward} DiP launches; state pool {state_want} bytes a rank (40 of 80 heads), conv "
+                    f"{outs[0][ph]['conv_pool_bytes']} bytes; in_proj {shards['layers/in_proj']}, out_proj "
+                    f"{shards['layers/out_proj']}")
+            else:
+                gathered = 2 * outs[0][ph]["storage_bytes"] + (sites - 1) * 2 * sum(
+                    w[0][0] * w[0][1] * 2 for nm, w in shards.items() if nm.startswith("shared_attn/"))
+                log(f"  per step and rank: {want[ph]['chunk']['all_gather']} all-gathers in a prefill call, "
+                    f"{want[ph]['decode']['all_gather']} in a decode step ({per_forward} DiP launches): one a weight "
+                    f"(the shared block's 7 at each of its {sites} sites), the embedding's columns, the logits' rows "
+                    f"in the split decode; the weights' storage assembled a step {gathered} bytes, half of it "
+                    f"received from the other rank through host memory; the rank's storage "
+                    f"{outs[0][ph]['storage_bytes']} bytes (K / 2 of every projection: in_proj "
+                    f"{shards['layers/in_proj']}); peak memory a rank {[o[ph]['peak_gib'] for o in outs]} GiB")
+                res[ph + "_gathered_bytes"] = gathered
+            log(f"phase {ph}: each launch shape of the served forward against its plain version")
+            for r, o in enumerate(outs):
+                for h in o[ph]["held_launches"]:
+                    log(f"  rank {r} {h['launch']} ({h['kind']}) M={h['m']} K={h['k']} N={h['n']} {h['epilogue']}/"
+                        f"{h['prologue']} -> {h['out_dtype']}: max|err| vs plain {h['max_abs_err']:.3e} (bound "
+                        f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, library "
+                        f"{h['library_ms']:.4f} ms ({gpu})")
+                if not all(h["ok"] for h in o[ph]["held_launches"]):
+                    raise AssertionError(f"phase {ph} rank {r}: a launch shape off its plain version: "
+                                         f"{[h for h in o[ph]['held_launches'] if not h['ok']]}")
+            res[ph] = {"ranks": per_rank, "held": outs[0][ph]["held_launches"], "tokens": o0["results"],
+                       "first_logits": firsts_cmp}
+
+        log("phase 9h: the reduced models in f32 over the 2 ranks against single-rank engines on the card")
+        for name, arch, overrides, strategy in Z_REDUCED:
+            got = [o["9h"][name] for o in outs]
+            log(f"  {name} ({arch}{overrides or ''} under {strategy}; in_proj {got[0]['in_proj']}): tokens "
+                f"{got[0]['results']}; the single-rank engine's {single[name]}; DiP launches a rank "
+                f"{[g['dip_launches'] for g in got]} (f32 x {[g['dip_f32_x_launches'] for g in got]})")
+            if any(g["results"] != single[name] for g in got):
+                raise AssertionError(f"phase 9h {name}: the sharded engine's tokens differ from the single rank's")
+        res["launches"] = {
+            "serve_tp_zamba2": {"dip_matmul": sum(o["9f"]["launches"]["dip_matmul"] for o in outs),
+                                "dip_matmul_f32_x": 0},
+            "serve_fsdp_zamba2": {"dip_matmul": sum(o["9g"]["launches"]["dip_matmul"] for o in outs),
+                                  "dip_matmul_f32_x": 0},
+            "serve_ssm_fsdp_reduced": {"dip_matmul": sum(o["9h"][nm]["dip_launches"] for o in outs
+                                                         for nm, *_ in Z_REDUCED),
+                                       "dip_matmul_f32_x": sum(o["9h"][nm]["dip_f32_x_launches"] for o in outs
+                                                               for nm, *_ in Z_REDUCED)}}
+        log(f"  phases 9f-9h wall: the 2-rank world {world_s:.1f} s")
         return res
 
     # --------------------------------------- 8. reliability at full width ---
@@ -3053,7 +3491,7 @@ def main():
         return out
 
     def reliability_training(losses, grad_norms):
-        """Phase 8c: llama3-8b at full width cut to 4 layers through a
+        """Phase 8c: llama3-8b at full width cut to 2 layers through a
         guarded ``Trainer`` with phase 6's launcher settings (the weights
         from the seed, 4 steps, no checkpoint): no fault, and its losses and
         gradient norms equal phase 6's unguarded run bit for bit; the
@@ -3065,7 +3503,7 @@ def main():
         step count with finite parameters."""
         out, path = {}, {}
         ck = os.path.join(ckpt_root, "guarded")
-        c = dataclasses.replace(arch, n_layers=4, matmul_backend="dip")
+        c = dataclasses.replace(arch, n_layers=2, matmul_backend="dip")
         tr = Trainer(c, TrainerConfig(steps=t_steps, ckpt_every=100, ckpt_dir=ck, log_every=1, guard=True),
                      optimizer=AdamW(lr=cosine_schedule(t_lr, 10, t_steps)), seq_len=t_seq, global_batch=t_batch,
                      device="cuda")
@@ -3081,7 +3519,7 @@ def main():
                             "leaves": len(rel.fingerprint_paths(run["state"]["params"])),
                             "equal_phase6": [m["loss"] for m in ms] == losses
                             and [m["grad_norm"] for m in ms] == grad_norms}
-        log(f"  8c llama3-8b, 4 layers, guarded: {json.dumps(out['llama3-8b'])}; phase 6 unguarded: losses "
+        log(f"  8c llama3-8b, 2 layers, guarded: {json.dumps(out['llama3-8b'])}; phase 6 unguarded: losses "
             f"{losses}, gradient norms {grad_norms} ({gpu})")
         if not out["llama3-8b"]["equal_phase6"] or run["skipped"] or run["weight_faults"]:
             raise AssertionError(f"phase 8c: the guarded llama3-8b run differs from phase 6's: {out['llama3-8b']}")
@@ -3097,7 +3535,7 @@ def main():
                 state = dict(state, params=params)
             return state
 
-        cm = dataclasses.replace(get_config("mamba2-370m"), matmul_backend="dip")
+        cm = dataclasses.replace(get_config("mamba2-370m"), matmul_backend="dip", n_layers=24)
         tr = Trainer(cm, TrainerConfig(steps=t_steps, ckpt_every=2, ckpt_dir=os.path.join(ck, "mamba2"), keep=5,
                                        log_every=1, guard=True, async_ckpt=False),
                      optimizer=AdamW(lr=cosine_schedule(t_lr, 10, t_steps)), seq_len=t_seq, global_batch=t_batch,
@@ -3871,9 +4309,9 @@ def main():
 
     # --------------- 5e / 5f. Zamba2-2.7B and Mamba2-370M at full width ------
     def serve_ssm(phase, arch, per_forward, flash_per_call, kv_bytes_want, slot_bytes_want, dims, extra_argv=(),
-                  scheme=None):
+                  scheme=None, sharded_records=None, requests=4):
         """Serve ``arch`` through ``launch.serve --full`` (4 slots, max_seq
-        1024, prefill chunk 256, the launcher's 4 seeded requests, 16
+        1024, prefill chunk 256, the launcher's first ``requests`` seeded requests, 16
         greedy tokens; ``extra_argv`` quantizes) and hold its gates: layer
         0's Mamba2 block (and the hybrid's shared block) against plain on
         one input, the first prefill chunk's and decode step's logits
@@ -3881,14 +4319,18 @@ def main():
         prefill tail's single-token forwards included; ``per_forward`` DiP
         projections, as the template counts them), the KV bytes per block
         and the per-slot state bytes; under int8 KV the first import's
-        shared-attention rows against the CPU's quantizer.  Returns the
-        launches, flash's routes and the serving numbers."""
+        shared-attention rows against the CPU's quantizer.  With
+        ``sharded_records`` (a dict), the same engine then serves the
+        prompts of phases 9f and 9g (``z_records``) for their first-token
+        logits, uncounted.  Returns the launches, flash's routes and the
+        serving numbers."""
         torch.cuda.empty_cache()
         left = torch.cuda.memory_allocated() / 2**30
         log(f"  allocated before the phase: {left:.2f} GiB")
         if left > 4:
             raise AssertionError(f"phase {phase}: the earlier phases left weights or pools on the card")
-        argv = ["--arch", arch, "--full", "--dtype", "bfloat16", "--requests", "4", "--max-new", "16", "--slots",
+        argv = ["--arch", arch, "--full", "--dtype", "bfloat16", "--requests", str(requests), "--max-new", "16",
+                "--slots",
                 "4", "--max-seq", "1024", "--prefill-chunk", "256", "--seed", str(SEED), "--prompt-len", "200",
                 "601", "--temperature", "0"] + list(extra_argv)
         st = {"times": {"chunk": [], "tail": [], "decode": []}, "checked": {}, "held": {}, "orig": {}, "imported": {}}
@@ -4021,7 +4463,7 @@ def main():
             f"allocated after init, init peak "
             f"{st['init_peak_gib']:.2f} GiB); prompts {plens}: {n_chunk} prefill chunks, {n_tail} single-token "
             f"forwards of the prefill tail, {n_decode} decode steps, wall {wall:.2f} s")
-        if sorted(results) != [0, 1, 2, 3] or any(not v for v in results.values()):
+        if sorted(results) != list(range(requests)) or any(not v for v in results.values()):
             raise AssertionError(f"{arch} full width: not every request was served")
         if (n_chunk, n_tail) != (sum(n // 256 for n in plens), sum(n % 256 for n in plens)):
             raise AssertionError(f"{arch} full width: the prefill did not run whole chunks, then the tail token "
@@ -4136,6 +4578,8 @@ def main():
             f"{n_tail - 1} ({gpu})")
         serving["tail_capture_s"] = tail_capture
         log("  serving " + json.dumps(serving))
+        if sharded_records is not None:
+            sharded_records.update(z_records(server.engine, st["orig"], reqs))
         st.clear()
         del server, reqs, results, pools
         gc.collect()
@@ -4149,27 +4593,33 @@ def main():
     # of the shared block at each of 9 sites; the lm_head.  Flash: the 9
     # sites of every prefill call, a single-token one of the tail included.
     # KV: 9 instances x 16 tokens x (k, v) x 32 heads x 80 x 2 bytes
+    z_rec = {}  # 5e's records, for phases 9f / 9g
     launches_zb, routes_zb, zb_serving = serve_ssm(
         "5e", "zamba2-2.7b", 54 * 2 + 9 * 6 + 1, 9, 9 * 16 * 2 * 32 * 80 * 2,
-        54 * (3 * 5248 * 2 + 80 * 64 * 64 * 4), (54, 2560, 32000))
+        54 * (3 * 5248 * 2 + 80 * 64 * 64 * 4), (54, 2560, 32000), sharded_records=z_rec)
+    log("phase 9f: zamba2-2.7b tensor-parallel (tp) at full width over 2 ranks sharing the card (host transport), "
+        "after 5e with its engine freed, held to 5e's records; then 9g under fsdp and 9h, in the same world")
+    z_out = phase9z(z_rec)
+    z_rec.clear()
     log("phase 5f: mamba2-370m full width (48 Mamba2 layers, d_model 1024, state 128, tied head), bf16, dip "
         "storage, through launch.serve")
     # per forward: in_proj and out_proj of each of 48 layers; the tied head
     # is torch.matmul of the embedding, as in the reference; nothing paged
     launches_mb, routes_mb, mb_serving = serve_ssm(
-        "5f", "mamba2-370m", 48 * 2, 0, 0, 48 * (3 * 2304 * 2 + 32 * 64 * 128 * 4), (48, 1024, 50280))
+        "5f", "mamba2-370m", 48 * 2, 0, 0, 48 * (3 * 2304 * 2 + 32 * 64 * 128 * 4), (48, 1024, 50280), requests=2)
     routes_by_path.update(serve_zamba2=routes_zb, serve_mamba2=routes_mb)
     log("phase 5h: zamba2-2.7b full width, bf16 compute, --quantize int8 --kv-quant int8 (its projections and the "
         "shared block int8, the SSM scalars, conv and norms bf16), through launch.serve")
     # KV: 9 instances x 16 tokens x (k, v) x 32 heads x (80 int8 codes + one f32 scale); the state unchanged
     launches_zbq, routes_zbq, zbq_serving = serve_ssm(
         "5h", "zamba2-2.7b", 54 * 2 + 9 * 6 + 1, 9, 9 * 16 * (2 * 32 * 80 + 2 * 32 * 4),
-        54 * (3 * 5248 * 2 + 80 * 64 * 64 * 4), (54, 2560, 32000), ["--quantize", "int8", "--kv-quant", "int8"], "int8")
+        54 * (3 * 5248 * 2 + 80 * 64 * 64 * 4), (54, 2560, 32000), ["--quantize", "int8", "--kv-quant", "int8"], "int8",
+        requests=2)
     log("phase 5h: mamba2-370m full width, bf16 compute, --quantize int8 (in_proj and out_proj int8, the tied head "
         "the bf16 embedding), through launch.serve")
     launches_mbq, routes_mbq, mbq_serving = serve_ssm(
         "5h", "mamba2-370m", 48 * 2, 0, 0, 48 * (3 * 2304 * 2 + 32 * 64 * 128 * 4), (48, 1024, 50280),
-        ["--quantize", "int8"], "int8")
+        ["--quantize", "int8"], "int8", requests=2)
     routes_by_path.update(serve_zamba2_int8=routes_zbq, serve_mamba2_int8=routes_mbq)
 
     short = [(w, n) for w, n in trace_checks if n]
@@ -4422,9 +4872,9 @@ def main():
         log(f"  {phase} " + json.dumps({k: v for k, v in result.items() if k != "profiled_step"}) + f" ({gpu})")
         return result, launches
 
-    log("phase 6: llama3-8b full width cut to 4 layers (f32 params, bf16 compute, dip, block remat) "
+    log("phase 6: llama3-8b full width cut to 2 layers (f32 params, bf16 compute, dip, block remat) "
         "through launch.train")
-    c = dataclasses.replace(arch, n_layers=4, matmul_backend="dip")
+    c = dataclasses.replace(arch, n_layers=2, matmul_backend="dip")
     assert (c.d_model, c.n_heads, c.n_kv_heads, c.resolved_head_dim, c.d_ff, c.vocab_size, c.padded_vocab) == (
         4096, 32, 8, 128, 14336, 128256, 129024)
     # the resume from a checkpoint is held once for the transformer stacks
@@ -4459,18 +4909,18 @@ def main():
     # ------------------- 6b-6e. the families' training at full width -------
     family_training, family_launches = {}, {}
     for phase, arch_name, layers, resume, what in (
-            ("6b", "deepseek-v2-lite-16b", 4, False, "MLA and 64 routed experts top-6 + 2 shared in every layer, "
-                                                     "cut to 4 layers as phase 6 cuts llama3-8b"),
-            ("6c", "zamba2-2.7b", 12, True, "cut to 12 of its 54 Mamba2 layers, the shared attention+FFN block at "
-                                            "2 of its 9 sites"),
-            ("6d", "mamba2-370m", None, True, "48 Mamba2 layers, the tied head"),
-            ("6e", "musicgen-medium", 12, False, "cut to 12 of its 48 dense layers, fed the pipeline's "
+            ("6b", "deepseek-v2-lite-16b", 2, False, "MLA and 64 routed experts top-6 + 2 shared in every layer, "
+                                                     "cut to 2 layers"),
+            ("6c", "zamba2-2.7b", 6, True, "cut to 6 of its 54 Mamba2 layers, the shared attention+FFN block at "
+                                           "1 of its 9 sites"),
+            ("6d", "mamba2-370m", 24, True, "cut to 24 of its 48 Mamba2 layers, the tied head"),
+            ("6e", "musicgen-medium", 6, False, "cut to 6 of its 48 dense layers, fed the pipeline's "
                                                  "embeddings")):
         log(f"phase {phase}: {arch_name} full width ({what}; f32 params, bf16 compute, dip, block remat) "
             f"through launch.train")
         family_training[arch_name], family_launches[arch_name] = train_family(phase, arch_name, layers, resume)
-    log("phase 8c: guarded training: llama3-8b cut to 4 layers without a fault against phase 6, then mamba2-370m "
-        "(48 layers) with a NaN planted mid-run")
+    log("phase 8c: guarded training: llama3-8b cut to 2 layers without a fault against phase 6, then mamba2-370m "
+        "(24 of its 48 layers) with a NaN planted mid-run")
     reliability_out["training"] = reliability_training(training["losses"], training["grad_norms"])
     shutil.rmtree(ckpt_root, ignore_errors=True)
 
@@ -5047,6 +5497,7 @@ def main():
     paths["serve_reliability"] = reliability_out["serving"]["launches"]  # phase 8b, every drill's engine
     paths.update(sharded_out["launches"])  # phase 9c / 9d, both ranks' counters
     paths.update(ep_out["launches"])  # phase 9e (d) / (f), both ranks' counters
+    paths.update(z_out["launches"])  # phases 9f / 9g / 9h, both ranks' counters
     for nm, n in reliability_out["training"]["launches"].items():  # phase 8c
         paths[f"train_guarded_{nm.split('-')[0]}"] = n
     paths["serve_int8"]["quantize_pass"] = qserve["int8"]["dip_matmul_q_quantizing_passes"]
@@ -5100,6 +5551,19 @@ def main():
             {key: h[key] for key in ("launch", "kind", "m", "k", "n", "epilogue", "prologue", "out_dtype",
                                      "max_abs_err", "bound", "ms", "plain_ms", "library_ms")}
             | {"bound_ms": b_ms, "bound_by": b_by})
+    # phases 9f / 9g: each launch shape of the zamba2-2.7b forward under tp
+    # (rank 0's shards) and under fsdp (the gathered storage)
+    for ph, key in (("9f", "tp_zamba2_shard_launches"), ("9g", "fsdp_zamba2_launches")):
+        dip_line[key] = []
+        for h in z_out[ph]["held"]:
+            dual = 2 if h["epilogue"] == "swiglu" else 1
+            out_bytes = (4 if h["kind"] == "row" else 2) * (2 if h["epilogue"] == "residual" else 1)
+            b_ms, b_by = bound_ms(2 * (h["m"] * h["k"] + dual * h["k"] * h["n"]) + out_bytes * h["m"] * h["n"],
+                                  2 * dual * h["m"] * h["k"] * h["n"], "bfloat16")
+            dip_line[key].append(
+                {kk: h[kk] for kk in ("launch", "kind", "m", "k", "n", "epilogue", "prologue", "out_dtype",
+                                      "max_abs_err", "bound", "ms", "plain_ms", "library_ms")}
+                | {"bound_ms": b_ms, "bound_by": b_by})
     dip_line["launches_f32_x_by_path"] = {pth: v["dip_matmul_f32_x"] for pth, v in paths.items()
                                           if "dip_matmul_f32_x" in v}
     flash_line = next(kk for kk in kernels if kk["name"] == "flash_attention")

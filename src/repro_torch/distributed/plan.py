@@ -18,19 +18,36 @@ them.
 * :meth:`ShardingPlan.attach_params` stamps every ``DipWeight`` /
   ``QuantizedDipWeight`` with its plan; :meth:`ShardingPlan.shard_params`
   also cuts each leaf to this rank's slice (the model path's layout under
-  ``tp`` and ``ep``: projections by their plan, the MoE expert banks by
-  expert, the embedding and the lm_head by vocab, everything else whole;
-  under ``ep`` the shared experts stay whole, since the expert-parallel
-  layer runs them plan-free on the rank's tokens).
+  ``tp``, ``ep`` and ``fsdp``).  Under ``tp`` and ``ep``: projections by
+  their plan, the MoE expert banks by expert, the embedding and the
+  lm_head by vocab, everything else whole; under ``ep`` the shared experts
+  stay whole, since the expert-parallel layer runs them plan-free on the
+  rank's tokens.  Under ``fsdp`` (ZeRO-3): every DiP projection, the
+  lm_head included, along its storage K over ``data`` (``shard_weight(...,
+  along="fsdp")``, the layout ``dip_fsdp`` gathers), the embedding's d
+  over ``data`` as the reference's spec cuts it, the norms and the SSM
+  leaves whole.
+* **The SSM leaves under ``tp`` are cut by head**, not as the reference's
+  specs cut them: a rank holds the H / T consecutive heads
+  (:meth:`ShardingPlan.ssm_heads`) of ``dt_bias``, ``A_log`` and ``D``,
+  their ``d_inner / T`` channels of the gated norm's gain ``norm``, and of
+  ``conv_w`` / ``conv_b`` its heads' x channels followed by the whole B
+  and C (one B/C group, which every head reads).  The reference's
+  ``conv`` and ``vector_tp`` roles split ``conv_dim / T`` channels, which
+  fall on no head boundary (Zamba2: 5248 / 2 = 2624, all of x's first 2560
+  and 64 of B); GSPMD reshards that implicitly, a local-view rank cannot.
+  :meth:`ShardingPlan.param_pspec` still returns the reference's specs
+  (its global-view contract); the conv history and state pools follow the
+  leaves (:meth:`ShardingPlan.paged_cache_pspec`).
 * :attr:`ShardingPlan.expert_plan` is the ``WeightPlan(kind="expert")``
   that the MoE layer dispatches on under ``ep`` (None otherwise).
 * ``with_sharding_constraint`` has no counterpart: the explicit strategies
   place every collective by hand, so :meth:`ShardingPlan.constrain` is the
   identity.
 
-Strategies this slice runs: ``tp`` and ``ep`` (the model path and the
-matmul backends), ``fsdp`` and ``sp`` (the matmul backends), and ``gspmd``
-over a one-rank mesh.  ``pp`` and ``gspmd`` over more than one rank raise,
+Strategies this slice runs: ``tp``, ``ep`` and ``fsdp`` (the model path
+and the matmul backends), ``sp`` (the matmul backends), and ``gspmd`` over
+a one-rank mesh.  ``pp`` and ``gspmd`` over more than one rank raise,
 citing ROADMAP.md Queue 1 "Distributed"; so does a ``stage`` axis
 (:func:`make_local_mesh`).  ``make_production_mesh`` (a 256/512-chip TPU
 pod layout) waits with the dry-run.
@@ -54,7 +71,7 @@ __all__ = ["WeightPlan", "LAYER_RULES", "ShardingPlan", "make_plan", "make_local
 _DIST = 'ROADMAP.md Queue 1 "Distributed"'
 STRATEGIES = ("gspmd", "tp", "fsdp", "sp", "ep", "pp")
 _RUNS = ("gspmd", "tp", "fsdp", "sp", "ep")
-_MODEL_PATHS = ("tp", "ep")
+_MODEL_PATHS = ("tp", "ep", "fsdp")
 
 Spec = Tuple[Optional[str], ...]
 
@@ -136,6 +153,8 @@ LAYER_RULES: Dict[str, str] = {
 }
 
 _TP_KINDS = {"column": "column", "row": "row"}
+# the SSM leaves a rank holds by head under tp (module doc)
+_SSM_BY_HEAD = ("conv_w", "conv_b", "norm", "dt_bias", "A_log", "D")
 
 
 def _rule_for(name: Optional[str], shape: Tuple[int, ...]) -> str:
@@ -242,6 +261,50 @@ class ShardingPlan:
     def tp_rank(self) -> int:
         return self.mesh.coord(self.tp) if self.tp else 0
 
+    @property
+    def fsdp_size(self) -> int:
+        return int(self.mesh.shape[self.fsdp]) if self.fsdp else 1
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.mesh.coord(self.fsdp) if self.fsdp else 0
+
+    def ssm_heads(self) -> Tuple[int, int]:
+        """(first head, heads) of this rank's SSM heads: H / T consecutive
+        heads under ``tp`` (the model path requires T to divide H), all of
+        them under the other strategies."""
+        h = self.cfg.n_ssm_heads
+        if self.strategy != "tp" or self.tp_size == 1:
+            return 0, h
+        if h % self.tp_size:
+            raise ValueError(f"{h} SSM heads do not divide {self.tp}={self.tp_size}")
+        return self.tp_rank * (h // self.tp_size), h // self.tp_size
+
+    def _ssm_local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's heads of an SSM leaf (module doc): the per-head
+        vectors by head, ``norm`` by its heads' channels, ``conv_w`` /
+        ``conv_b`` by its heads' x channels, then the whole B and C."""
+        cfg = self.cfg
+        h0, hl = self.ssm_heads()
+        if hl == cfg.n_ssm_heads:
+            return t
+        p, di = cfg.ssm_headdim, cfg.d_inner
+        if name in ("dt_bias", "A_log", "D"):
+            whole, start, width = cfg.n_ssm_heads, h0, hl
+        elif name == "norm":
+            whole, start, width = di, h0 * p, hl * p
+        else:  # conv_w / conv_b: the [x | B | C] channels
+            whole, start, width = di + 2 * cfg.ssm_state, h0 * p, hl * p
+        local = width + (whole - di if name in ("conv_w", "conv_b") else 0)
+        if t.shape[-1] == local:
+            return t
+        if t.shape[-1] != whole:
+            raise ValueError(f"{name} holds {t.shape[-1]} channels: neither the whole {whole} nor this rank's {local}")
+        own = t.narrow(-1, start, width)
+        if name in ("conv_w", "conv_b"):
+            own = torch.cat([own, t.narrow(-1, di, whole - di)], dim=-1)
+        return own.clone()
+
     # ---------------------------------------------------------- helpers ----
     def _tp_if(self, n: int, leaf: Optional[str] = None) -> Optional[str]:
         return self._axis_if(self.tp, n, leaf)
@@ -339,9 +402,10 @@ class ShardingPlan:
 
     def shard_params(self, params: Any) -> Any:
         """This rank's slice of the parameters (``init_params`` or
-        ``params_from_jax`` output) under the ``tp`` or ``ep`` strategy,
-        plans attached, leaf by leaf (:meth:`shard_leaf`).  Leaves that already
-        are this rank's slice (``init_params(plan=)``) pass through."""
+        ``params_from_jax`` output) under the ``tp``, ``ep`` or ``fsdp``
+        strategy, plans attached, leaf by leaf (:meth:`shard_leaf`).  Leaves
+        that already are this rank's slice (``init_params(plan=)``) pass
+        through."""
         def walk(t, name=None):
             if isinstance(t, dict):
                 return {k: walk(v, k) for k, v in t.items()}
@@ -358,25 +422,29 @@ class ShardingPlan:
         return self.tp_rank * (n_experts // tp), n_experts // tp
 
     def shard_leaf(self, name: str, t: Any) -> Any:
-        """This rank's slice of the leaf ``name``: a projection by its plan
-        (:func:`shard_weight`; under ``ep`` the shared experts keep their
-        whole storage with the plan attached), an expert bank (L, E, ., .)
-        by expert (:meth:`experts_local`), the embedding's rows by vocab,
-        every other leaf whole (the biases too: the backend takes its
-        columns).  A slice is a copy, so the whole leaf can be freed; a leaf
-        that already is this rank's slice (its shape and plan say so)
-        passes through."""
+        """This rank's slice of the leaf ``name`` (module doc): a projection
+        by its plan (:func:`shard_weight`: along its tensor-parallel split,
+        or under ``fsdp`` along K; under ``ep`` the shared experts keep
+        their whole storage with the plan attached), an expert bank (L, E,
+        ., .) by expert (:meth:`experts_local`), the embedding's rows by
+        vocab (under ``fsdp`` its columns by d), the SSM leaves under
+        ``tp`` by head (:meth:`ssm_heads`), every other leaf whole (the
+        biases too: the backend takes its columns).  A slice is a copy, so
+        the whole leaf can be freed; a leaf that already is this rank's
+        slice (its shape and plan say so) passes through."""
         if self.strategy not in _MODEL_PATHS:
             raise NotImplementedError(f"the {self.strategy!r} strategy's model path is not ported yet ({_DIST}); "
                                       f"the model runs under {_MODEL_PATHS}")
-        tp, idx = self.tp_size, self.tp_rank
+        fsdp = self.strategy == "fsdp"
+        tp, idx = (self.fsdp_size, self.fsdp_rank) if fsdp else (self.tp_size, self.tp_rank)
         if isinstance(t, (DipWeight, QuantizedDipWeight)):
             whole = tuple(t.data.shape[:-2]) + DipWeight.storage_dims(t.d_in, t.d_out, t.perm_tile)
             wp = self.weight_plan(name, whole, t.perm_tile)
             keep_whole = self.strategy == "ep" and name.startswith("shared_")
             if tuple(t.data.shape) == whole:
-                return t.with_plan(wp) if keep_whole else shard_weight(t, wp)
-            part, dim = list(whole), {"column": -1, "row": -2}.get(wp.kind)
+                return t.with_plan(wp) if keep_whole else shard_weight(t, wp, along="fsdp" if fsdp else "tp")
+            part = list(whole)
+            dim = (-2 if wp.fsdp else None) if fsdp else {"column": -1, "row": -2}.get(wp.kind)
             if dim is not None:
                 part[dim] //= tp
             if t.plan == wp and tuple(t.data.shape) == tuple(part):
@@ -392,17 +460,21 @@ class ShardingPlan:
                 return t
             raise ValueError(f"{name} holds {t.shape[1]} experts: neither the whole {e} nor this rank's {n}")
         if name == "embed":
-            rows = self.cfg.padded_vocab
-            if rows % tp:
-                raise ValueError(f"embed rows {rows} do not divide by {self.tp}={tp}")
-            if t.shape[0] == rows:
-                return _slice(t, 0, idx, tp)
-            if t.shape[0] * tp == rows:
+            dim, whole = (1, self.cfg.d_model) if fsdp else (0, self.cfg.padded_vocab)
+            what = "columns" if fsdp else "rows"
+            if whole % tp:
+                raise ValueError(f"embed {what} {whole} do not divide by {self.fsdp if fsdp else self.tp}={tp}")
+            if t.shape[dim] == whole:
+                return _slice(t, dim, idx, tp)
+            if t.shape[dim] * tp == whole:
                 return t
-            raise ValueError(f"embed has {t.shape[0]} rows: neither the whole {rows} nor this rank's {rows // tp}")
+            raise ValueError(f"embed has {t.shape[dim]} {what}: neither the whole {whole} nor this rank's "
+                             f"{whole // tp}")
         if name == "lm_head":
             raise ValueError("a natural lm_head under a plan: the model path stores its projections "
                              "DiP-permutated (cfg.uses_dip_storage)")
+        if name in _SSM_BY_HEAD and self.cfg.ssm_state and self.strategy == "tp":
+            return self._ssm_local(name, t)
         return t
 
     # ------------------------------------------------------------- cache ---
@@ -411,7 +483,14 @@ class ShardingPlan:
         block and in-block dims are addresses, never sharded; K/V heads
         shard over TP when they divide it; the MLA latent pools (c_kv,
         k_rope and their scales) stay whole on every rank: the absorbed
-        form reads the whole latent for the rank's heads."""
+        form reads the whole latent for the rank's heads.  The SSM pools
+        (L, slots, ...) follow the leaves: ``state``'s heads over TP (a
+        rank's H / T heads), and ``conv``'s channel dim over TP, which
+        under ``tp`` means the rank's heads' x channels followed by the
+        whole B and C (d_inner / T + 2 N channels: the leaves' layout in
+        the module doc, not the reference's conv_dim / T block).  Under
+        ``fsdp`` (model axis 1) every pool is whole on every rank, and a
+        rank writes only the slots it decodes."""
         if name in ("k", "v"):
             return (None, None, None, self.tp, None) if self.heads_on_tp else (None,) * len(shape)
         if name in ("k_scale", "v_scale"):

@@ -27,16 +27,21 @@ only::
     python -m repro_torch.launch.serve --arch zamba2-2.7b --full --quantize int8 --kv-quant int8
     python -m repro_torch.launch.serve --arch mamba2-370m --full --quantize fp8_e4m3
 
-``--sharded tp`` serves tensor-parallel through ``dip_tp`` over a world of
-one rank a local card (over NCCL; on the CPU 2 ranks over gloo), as the reference's ``--sharded`` serves over
-the local devices: each rank draws the same seeded weights, keeps its
-slice (``ShardingPlan.shard_params``) and runs the engine on it; rank 0's
-results are printed.  The dense family only; ``--sharded fsdp`` (the
-batch-sharded model path) is not ported yet (ROADMAP.md Queue 1
-"Distributed")::
+``--sharded tp`` serves tensor-parallel through ``dip_tp`` on a (data 1,
+model T) mesh, ``--sharded fsdp`` ZeRO-3 through ``dip_fsdp`` on a (data
+T, model 1) mesh (each rank K / T of every projection, gathered per
+launch; a decode step's slots split over the ranks), as the reference's
+``--sharded`` serves over the local devices: a world of one rank a local
+card (over NCCL; on the CPU 2 ranks over gloo), each rank drawing only its
+slice of the seeded weights (``init_params(plan=)``) and running the
+engine on it; rank 0's results are printed.  ``tp`` serves the dense,
+moe, ssm and hybrid families, ``fsdp`` the dense, ssm and hybrid ones (the
+moe family under ``fsdp`` raises, ROADMAP.md Queue 1 "Distributed")::
 
     python -m repro_torch.launch.serve --arch llama3-8b --full --sharded tp
-    python -m repro_torch.launch.serve --arch llama3-8b --reduced --dtype float32 --device cpu --sharded tp
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --full --sharded fsdp
+    python -m repro_torch.launch.serve --arch llama3-8b --reduced --dtype float32 --device cpu --sharded fsdp
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --reduced --dtype float32 --device cpu --sharded tp
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from repro_torch.device import make_generator
 from repro_torch.models import transformer as tf_model
 from repro_torch.runtime import Request, Server, ServerConfig
 
-_DIST = 'ROADMAP.md Queue 1 "Distributed"'
+_BACKENDS = {"tp": "dip_tp", "fsdp": "dip_fsdp"}
 
 
 def _parse(argv):
@@ -86,9 +91,22 @@ def _parse(argv):
     ap.add_argument("--kv-quant", choices=("none", "int8"), default=None,
                     help="KV-cache storage (default cfg.kv_quant); int8 halves the bytes per token")
     ap.add_argument("--sharded", choices=("tp", "fsdp"), default=None,
-                    help="serve through the explicit multi-rank backend (dip_tp): one rank a local card "
-                         "(2 ranks on the CPU)")
+                    help="serve through the explicit multi-rank backend (dip_tp / dip_fsdp): one rank a "
+                         "local card (2 ranks on the CPU)")
     return ap.parse_args(argv)
+
+
+def _config(args):
+    """The served configuration of ``args``."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, matmul_backend="dip", param_dtype=args.dtype, compute_dtype=args.dtype)
+    if args.quantize:
+        cfg = dataclasses.replace(cfg, quantization=args.quantize, matmul_backend=scheme_info(args.quantize).backend)
+    if args.sharded:
+        cfg = dataclasses.replace(cfg, sharding=args.sharded, matmul_backend=_BACKENDS[args.sharded])
+    return cfg
 
 
 def _setup(args, mesh=None):
@@ -96,16 +114,7 @@ def _setup(args, mesh=None):
     plan of ``args``: the whole parameters, or over ``mesh`` this rank's
     slice of them (``init_params(plan=)``: no rank holds the whole model)
     and the plan that cut it."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    cfg = dataclasses.replace(cfg, matmul_backend="dip", param_dtype=args.dtype,
-                              compute_dtype=args.dtype)
-    if args.quantize:
-        cfg = dataclasses.replace(cfg, quantization=args.quantize,
-                                  matmul_backend=scheme_info(args.quantize).backend)
-    if args.sharded:
-        cfg = dataclasses.replace(cfg, sharding=args.sharded, matmul_backend="dip_tp")
+    cfg = _config(args)
     plan = None
     if mesh is not None:
         from repro_torch.distributed import make_plan
@@ -128,17 +137,19 @@ def _report(results, stats):
 
 
 def _serve_rank(rank: int, argv):
-    """One rank of ``--sharded tp``: its card (or the CPU), the mesh over the
-    world, its slice of the same seeded weights, the engine on it."""
+    """One rank of ``--sharded``: its card (or the CPU), the mesh over the
+    world (the model axis under ``tp``, the data axis under ``fsdp``), its
+    slice of the same seeded weights, the engine on it."""
     from repro_torch.distributed import make_local_mesh
 
     args = _parse(argv)
     world = torch.distributed.get_world_size()
+    axes = dict(data=1, model=world) if args.sharded == "tp" else dict(data=world, model=1)
     if args.device == "cpu":
-        mesh = make_local_mesh(data=1, model=world)
+        mesh = make_local_mesh(**axes)
     else:
         args.device = f"cuda:{rank}"
-        mesh = make_local_mesh(data=1, model=world, transport="nccl", device=args.device)
+        mesh = make_local_mesh(**axes, transport="nccl", device=args.device)
     cfg, params, scfg, reqs, plan = _setup(args, mesh)
     server = Server(cfg, scfg, params, device=args.device, plan=plan)
     del params
@@ -153,14 +164,14 @@ def main(argv=None, on_server=None):
     serving (a caller's hook for timing or recording the steps; not under
     ``--sharded``)."""
     args = _parse(argv)
-    if args.sharded == "fsdp":
-        raise NotImplementedError(f"--sharded fsdp (the batch-sharded model path) is not ported yet ({_DIST})")
-    if args.sharded == "tp":
+    if args.sharded:
         from repro_torch.distributed import run_world
 
         if args.device != "cpu" and not torch.cuda.is_available():
-            raise RuntimeError("--sharded tp on device='cuda' but torch.cuda.is_available() is False; "
+            raise RuntimeError(f"--sharded {args.sharded} on device='cuda' but torch.cuda.is_available() is False; "
                                "pass --device cpu to serve over gloo ranks on the CPU")
+        # the families the strategy serves, checked here before any rank starts
+        tf_model._require_served(_config(args))
         ranks = 2 if args.device == "cpu" else torch.cuda.device_count()
         out = run_world(_serve_rank, ranks, list(argv if argv is not None else sys.argv[1:]), timeout=3600.0)
         results, stats = out[0]

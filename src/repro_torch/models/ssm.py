@@ -32,9 +32,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import comm
 from repro_torch.models import attention, layers
 
-__all__ = ["ssm_dims", "init_ssm_cache", "ssd_block"]
+__all__ = ["ssm_dims", "rank_dims", "init_ssm_cache", "ssd_block"]
 
 
 def ssm_dims(cfg) -> Dict[str, int]:
@@ -43,11 +44,29 @@ def ssm_dims(cfg) -> Dict[str, int]:
                 in_dim=2 * di + 2 * n + h)
 
 
-def init_ssm_cache(batch: int, cfg, dtype, *, device) -> Dict:
+def _tp(plan):
+    """The plan whose heads this block splits: a ``tp`` plan (None under
+    no plan and under ``fsdp``, whose ranks run whole blocks on their
+    rows)."""
+    return plan if plan is not None and plan.strategy == "tp" else None
+
+
+def rank_dims(cfg, plan=None) -> Dict[str, int]:
+    """:func:`ssm_dims` as this rank runs the block: under a ``tp`` plan
+    its heads (``first_head``, ``heads``, of ``plan.ssm_heads()``), their
+    ``d_inner`` channels and a conv of those plus the whole B and C."""
+    dims = ssm_dims(cfg)
+    h0, hl = (0, dims["heads"]) if _tp(plan) is None else plan.ssm_heads()
+    di = hl * dims["headdim"]
+    return dict(dims, first_head=h0, heads=hl, d_inner=di, conv_dim=di + 2 * dims["state"])
+
+
+def init_ssm_cache(batch: int, cfg, dtype, *, device, plan=None) -> Dict:
     """conv history (B, ssm_conv - 1, conv_dim) in ``dtype``; state (B, H,
     P, N) in float32; ``pos`` a 0-dim int64 tensor on ``device``, as the
-    reference's device scalar."""
-    dims = ssm_dims(cfg)
+    reference's device scalar.  Under a ``tp`` plan the rank's heads and
+    conv channels (:func:`rank_dims`)."""
+    dims = rank_dims(cfg, plan)
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, dims["conv_dim"]), dtype=dtype, device=device),
         "state": torch.zeros((batch, dims["heads"], cfg.ssm_headdim, dims["state"]), dtype=torch.float32,
@@ -116,21 +135,62 @@ def _chunked(dt, a, bmat, cmat, xh, init, q):
     return (y_intra + y_inter).reshape(bsz, length, h, pdim), hprev
 
 
+def _in_proj(x, w, lk, tp) -> torch.Tensor:
+    """z | x | B | C | dt, all ``in_dim`` columns, on every rank: under a
+    ``tp`` plan a column-parallel ``in_proj``'s shards (each padded to its
+    storage width: the last ones hold the padding columns) are
+    all-gathered (one ``all_gather``) and cropped; a replicated one gives
+    them whole."""
+    y = layers.linear(x, w, **lk)
+    if tp is None or getattr(w.plan, "kind", None) != "column":
+        return y
+    y = F.pad(y, (0, w.data.shape[-1] - y.shape[-1]))
+    return comm.all_gather(y, tp.mesh, tp.tp, dim=-1)[..., :w.d_out]
+
+
+def _gated_norm(y: torch.Tensor, gain: torch.Tensor, eps: float, d_inner: int, tp) -> torch.Tensor:
+    """``layers.rms_norm`` over the whole ``d_inner`` row; under a ``tp``
+    plan the rank holds ``d_inner / T`` channels of it, so the rows' sums
+    of squares are summed over the ranks (one ``psum``) and the rank
+    scales its own channels by the same f32 arithmetic."""
+    if tp is None:
+        return layers.rms_norm(y, gain, eps)
+    y32 = y.float()
+    ssq = comm.psum(torch.sum(y32 * y32, dim=-1, keepdim=True), tp.mesh, tp.tp)
+    return (y32 * torch.rsqrt(ssq / d_inner + eps) * gain.float()).to(y.dtype)
+
+
 def ssd_block(x: torch.Tensor, p: Dict, cfg, *, cache: Optional[Dict] = None,
-              residual: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[Dict]]:
+              residual: Optional[torch.Tensor] = None, plan=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One Mamba2 block on x (B, L, d): the chunked SSD, or with a cache and
     L = 1 the O(1) decode update.  ``cache`` (``init_ssm_cache``, one
     layer's) is read, not written: the returned cache holds the new conv
     history and state, and ``pos`` advanced by L.  ``residual`` fuses the
     block's skip connection into the out projection's epilogue (the result
-    is then the updated residual stream)."""
+    is then the updated residual stream).
+
+    Under a ``tp`` plan (on ``ShardingPlan.shard_params`` leaves; the port
+    of the reference's ``ssd_block(plan=)``) the rank runs its H / T heads:
+    the whole z | x | B | C | dt on every rank (:func:`_in_proj`), of which
+    it takes its heads' z, x and dt and the whole B and C; the conv on its
+    x channels and B and C, whose history its cache holds; the scan or the
+    O(1) update on its heads, whose state its cache holds; the gated norm
+    with one psum (:func:`_gated_norm`); ``out_proj`` row-parallel over its
+    ``d_inner / T`` channels (one all-reduce, the residual added once): 3
+    collectives a block with a column-parallel ``in_proj``, 2 with a
+    replicated one.  Under ``fsdp`` the block runs whole on the rank's rows
+    and its projections gather their storage (``dip_fsdp``)."""
     bsz, seqlen, _ = x.shape
-    dims = ssm_dims(cfg)
+    tp = _tp(plan)
+    dims = rank_dims(cfg, plan)
     di, h, pdim, n = dims["d_inner"], dims["heads"], dims["headdim"], dims["state"]
     lk = dict(backend=cfg.matmul_backend, compute_dtype=x.dtype)
 
-    zxbcdt = layers.linear(x, p["in_proj"], **lk)        # cropped to in_dim by the dispatch
-    z, xin, bmat, cmat, dt = torch.split(zxbcdt, [di, di, n, n, h], dim=-1)
+    zxbcdt = _in_proj(x, p["in_proj"], lk, tp)          # cropped to in_dim
+    z, xin, bmat, cmat, dt = torch.split(zxbcdt, [cfg.d_inner, cfg.d_inner, n, n, cfg.n_ssm_heads], dim=-1)
+    if tp is not None:  # the rank's heads of z, x and dt
+        c0, h0 = dims["first_head"] * pdim, dims["first_head"]
+        z, xin, dt = z[..., c0:c0 + di], xin[..., c0:c0 + di], dt[..., h0:h0 + h]
 
     xbc = torch.cat([xin, bmat, cmat], dim=-1)          # (B, L, conv_dim)
     if cache is not None:
@@ -173,7 +233,7 @@ def ssd_block(x: torch.Tensor, p: Dict, cfg, *, cache: Optional[Dict] = None,
 
     # gated RMSNorm, then the out projection (skip connection in its epilogue)
     y = y.to(x.dtype) * F.silu(z)
-    y = layers.rms_norm(y, p["norm"], cfg.norm_eps)
+    y = _gated_norm(y, p["norm"], cfg.norm_eps, cfg.d_inner, tp)
     if residual is not None:
         out = layers.linear(y, p["out_proj"], epilogue="residual", epilogue_operands=(residual,), **lk)
     else:

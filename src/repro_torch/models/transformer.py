@@ -30,8 +30,9 @@ projections, so the MoE router and expert banks, the SSM scalars, conv and
 norms, and the embeddings stay float, as in the reference.
 
 Under a ``ShardingPlan`` (``plan=``, strategy ``tp`` or ``ep``, the dense
-and moe families; the port of the reference's explicit ``dip_tp`` /
-``dip_ep`` model paths) each rank runs ``forward`` / ``decode_step_fn`` /
+and moe families, and ``tp`` the ssm and hybrid families too; the port of
+the reference's explicit ``dip_tp`` / ``dip_ep`` model paths) each rank
+runs ``forward`` / ``decode_step_fn`` /
 ``paged_decode_step_fn`` on its slice of the parameters
 (``plan.shard_params``): the projections dispatch on their ``WeightPlan``
 (q/k/v and gate/up column-parallel, attention on the rank's heads, ``wo``
@@ -44,9 +45,28 @@ layer runs on the rank's experts (``models/moe.py``): expert-parallel under
 ``ep`` (2 all-to-alls, 1 all-reduce and 1 all-gather a layer), expert-split
 with one all-reduce under ``tp``; MLA all-gathers its latent where
 ``w_dkv`` is column-parallel.  DeepSeek-V2-Lite under ``ep`` on 2 ranks
-runs 27 x 6 + 2 = 164 collectives a step.  The SSM and hybrid families and
-the other strategies' model paths raise (ROADMAP.md Queue 1
-"Distributed"); so does training under a plan.
+runs 27 x 6 + 2 = 164 collectives a step.  A Mamba2 block under ``tp``
+runs the rank's SSM heads (``models/ssm.py``: ``in_proj``'s output
+all-gathered where it is column-parallel, the gated norm's psum,
+``out_proj``'s all-reduce), its caches the rank's heads of the state and
+their conv channels; the hybrid's shared block runs the dense block's
+``tp`` path at each site; a tied head multiplies the rank's vocab rows of
+the embedding and all-gathers the logits.  Zamba2-2.7B on 2 ranks: 1 + 54
+x 3 + 9 x 2 + 1 = 182 collectives a step.
+
+Under ``fsdp`` (ZeRO-3, the dense, ssm and hybrid families on a (data =
+T, model = 1) mesh) every rank holds K / T rows of each projection's
+storage and the embedding's d / T columns; the embedding's rows are
+looked up on every token and all-gathered over d; each projection
+dispatches ``dip_fsdp`` (one all-gather of its storage a weight, one
+launch).  The rows split over ``data`` where the batch divides it (the
+reference's ``dp_for``: a decode step's slots), each rank running its own
+and all-gathering the logits' rows; otherwise (the engine's batch-1
+prefill) every rank runs the same rows.  The caches and pools stay whole
+on every rank, which writes only the rows it runs; a tied head
+all-gathers the embedding.  The ``sp`` model path and the moe family
+under ``fsdp`` raise (ROADMAP.md Queue 1 "Distributed"); so does training
+under a plan.
 """
 
 from __future__ import annotations
@@ -82,42 +102,62 @@ __all__ = [
 
 _DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
 _KNOWN_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-_PLANNED = ("tp", "ep")  # the strategies whose model path runs
+_PLANNED = ("tp", "ep", "fsdp")  # the strategies whose model path runs
 
 
 def _require_served(cfg) -> None:
     """Raise for every configuration the port does not serve: it serves
     every family of the reference (the stub frontends from tokens), with
     GQA or MLA attention and tied or separate heads, in float or with
-    quantized weights and an int8 KV pool; under the ``tp`` and ``ep``
-    strategies the dense and moe families with separate heads."""
+    quantized weights and an int8 KV pool; under a plan the families
+    :func:`_plannable` names."""
     if cfg.family not in _KNOWN_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (one of {_KNOWN_FAMILIES})")
-    if cfg.sharding not in ("gspmd",) + _PLANNED or (cfg.sharding in _PLANNED and not _plannable(cfg)):
+    if cfg.sharding not in ("gspmd",) + _PLANNED or (cfg.sharding in _PLANNED and not _plannable(cfg, cfg.sharding)):
         raise NotImplementedError(f"{cfg.name}: not ported yet: sharding {cfg.sharding!r} for the "
                                   f"{cfg.family} family ({_DISTRIBUTED})")
 
 
-def _plannable(cfg) -> bool:
-    """The families a plan's model path runs: dense with GQA, and moe (GQA
-    or MLA, with or without shared experts), each with a separate head."""
-    return not cfg.tie_embeddings and (cfg.family == "moe" or (cfg.family == "dense" and not cfg.use_mla))
+def _plannable(cfg, strategy: str) -> bool:
+    """The families a strategy's model path runs, tied or separate heads:
+    under ``tp`` dense with GQA, moe (GQA or MLA, with or without shared
+    experts), ssm and hybrid; under ``ep`` dense with GQA and moe; under
+    ``fsdp`` dense with GQA, ssm and hybrid."""
+    dense = cfg.family == "dense" and not cfg.use_mla
+    ssm_fams = cfg.family in ("ssm", "hybrid")
+    if strategy == "fsdp":
+        return dense or ssm_fams
+    return dense or cfg.family == "moe" or (strategy == "tp" and ssm_fams)
 
 
 def _require_plan(cfg, plan) -> None:
-    """The model path a plan runs in this slice: ``tp`` or ``ep`` on the
-    dense and moe families, heads split over the TP axis, ``wo`` (and a
-    dense FFN's ``w_down``) row-parallel and the column projections
-    column-parallel as the plan decides them (K/V, and MLA's q, latent and
-    up-projections, may replicate where their width is too small to split:
-    each rank then takes its heads of the whole projection).  A
-    column-parallel head projection must split at a head boundary (no
-    padding columns)."""
+    """The model path a plan runs in this slice (module doc).  ``fsdp``: a
+    (data, model = 1) mesh whose data axis divides d_model (the
+    embedding's columns).  ``tp`` / ``ep``: heads split over the TP axis,
+    ``wo`` (and a dense FFN's ``w_down``) row-parallel and the column
+    projections column-parallel as the plan decides them (K/V, and MLA's
+    q, latent and up-projections, may replicate where their width is too
+    small to split: each rank then takes its heads of the whole
+    projection).  A column-parallel head projection must split at a head
+    boundary (no padding columns); ``in_proj``, whose output is gathered
+    whole, may split anywhere or replicate.  A Mamba2 block needs its SSM
+    heads to divide the axis and ``out_proj`` row-parallel at a head
+    boundary."""
     if plan is None:
         return
-    if plan.strategy not in _PLANNED or not _plannable(cfg):
+    if plan.strategy not in _PLANNED or not _plannable(cfg, plan.strategy):
         raise NotImplementedError(f"{cfg.name}: the {plan.strategy!r} model path of the {cfg.family} family "
                                   f"is not ported yet ({_DISTRIBUTED})")
+    if plan.strategy == "fsdp":
+        if plan.tp_size != 1 or cfg.d_model % plan.fsdp_size:
+            raise NotImplementedError(f"{cfg.name}: fsdp over {dict(plan.mesh.shape)} (a model axis, or a data "
+                                      f"axis that does not divide d_model={cfg.d_model}) is not ported yet "
+                                      f"({_DISTRIBUTED})")
+        return
+    if cfg.ssm_state:
+        _require_ssm_plan(cfg, plan)
+        if not cfg.is_hybrid:
+            return
     if not plan.heads_on_tp:
         raise NotImplementedError(f"{cfg.name}: heads that do not divide the TP axis (sequence-parallel "
                                   f"attention) are not ported yet ({_DISTRIBUTED})")
@@ -142,6 +182,18 @@ def _require_plan(cfg, plan) -> None:
         if plan.weight_plan(name, storage, api.PERM_TILE).kind == "column" and storage[1] != do:
             raise NotImplementedError(f"{cfg.name}: {name}'s {do} columns are padded to {storage[1]}, so its "
                                       f"column shards do not split at a head boundary ({_DISTRIBUTED})")
+
+
+def _require_ssm_plan(cfg, plan) -> None:
+    """A Mamba2 block under ``tp`` runs H / T SSM heads (``ssm.ssd_block``):
+    T must divide H, and ``out_proj``'s row shards must be the heads'
+    ``d_inner / T`` channels (row-parallel storage with no padding rows)."""
+    di, d, tp = cfg.d_inner, cfg.d_model, plan.tp_size
+    storage = api.DipWeight.storage_dims(di, d)
+    if cfg.n_ssm_heads % tp or plan.weight_plan("out_proj", storage, api.PERM_TILE).kind != "row" \
+            or storage[0] != di:
+        raise NotImplementedError(f"{cfg.name}: {cfg.n_ssm_heads} SSM heads with out_proj ({di}, {d}) do not "
+                                  f"split row-parallel at a head boundary over {plan.tp}={tp} ({_DISTRIBUTED})")
 
 
 def _require_trainable(cfg) -> None:
@@ -273,7 +325,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
     ``plan.shard_params(init_params(cfg, generator, device))``, from the
     same draws (rank r of T holds experts [r E / T, (r + 1) E / T) of the
     single-rank draw), while the rank never holds more than its slice and
-    one whole matrix or layer's bank."""
+    one whole matrix or layer's bank.  The SSM's per-head and per-channel
+    leaves (a few vectors a layer) are drawn whole and then cut."""
     dev = resolve_device(device)
     scheme = cfg.quant_scheme
     if generator.device.type != dev.type:
@@ -343,6 +396,8 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
         dt0 = torch.empty(shape, dtype=torch.float32, device=dev).uniform_(1e-3, 0.1, generator=generator)
         lyr["dt_bias"] = (dt0 + torch.log(-torch.expm1(-dt0))).to(pdt)
         lyr["conv_b"] = torch.zeros_like(lyr["conv_b"])
+        if plan is not None:  # the small SSM leaves, drawn whole: the rank's heads of them
+            params["layers"] = plan.shard_params(lyr)
     return params
 
 
@@ -430,9 +485,13 @@ def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_b
 def _embed(table: torch.Tensor, tokens: torch.Tensor, plan) -> torch.Tensor:
     """The token lookup; under a plan vocab-parallel: this rank's rows of
     the table answer the tokens in its range, the others give zeros, and
-    one all-reduce sums the ranks' rows (exactly: one rank is nonzero)."""
+    one all-reduce sums the ranks' rows (exactly: one rank is nonzero).
+    Under ``fsdp`` the rank's d / T columns of every token's row, then one
+    all-gather of the columns."""
     if plan is None:
         return F.embedding(tokens, table)
+    if plan.strategy == "fsdp":
+        return comm.all_gather(F.embedding(tokens, table), plan.mesh, plan.fsdp, dim=-1)
     v_loc = table.shape[0]
     local = tokens - plan.tp_rank * v_loc
     hit = (local >= 0) & (local < v_loc)
@@ -447,20 +506,56 @@ def _head(params, cfg, x, plan=None):
     dtype, multiplied in f32: the exact products of the compute-dtype
     values summed in f32, as the reference's ``preferred_element_type``
     gives them (a bf16 ``torch.matmul`` would round the sums to bf16).
-    Under a plan the head is column-parallel over the padded vocab and its
-    logits (in the compute dtype) are all-gathered before the f32 cast."""
+    Under ``tp`` / ``ep`` the head is column-parallel over the padded vocab
+    (a tied one: the rank's vocab rows of the embedding) and its logits are
+    all-gathered (a separate head's in the compute dtype, before the f32
+    cast); under ``fsdp`` a separate head gathers its storage in the
+    dispatch, a tied one all-gathers the embedding's columns first."""
     cd = dtype_of(cfg.compute_dtype)
+    vocab_split = plan is not None and plan.strategy != "fsdp"
     if cfg.tie_embeddings:
-        logits = torch.matmul(x.to(cd).float(), params["embed"].to(cd).float().t())
+        table = params["embed"]
+        if plan is not None and plan.strategy == "fsdp":
+            table = comm.all_gather(table, plan.mesh, plan.fsdp, dim=1)
+        logits = torch.matmul(x.to(cd).float(), table.to(cd).float().t())
+        if vocab_split:
+            logits = comm.all_gather(logits, plan.mesh, plan.tp, dim=-1)
     else:
         logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend, compute_dtype=cd)
-        if plan is not None:
+        if vocab_split:
             logits = comm.all_gather(logits, plan.mesh, plan.tp, dim=-1)
         logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
         lane = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(lane >= cfg.vocab_size, -1e30)
     return logits
+
+
+def _row_split(plan, batch: int):
+    """(first row, rows) of this rank's batch under ``fsdp`` where the
+    batch divides the data axis (the reference's ``dp_for``), else None:
+    every rank runs every row."""
+    if plan is None or plan.strategy != "fsdp" or plan.fsdp_size == 1 or batch % plan.fsdp_size:
+        return None
+    n = batch // plan.fsdp_size
+    return plan.fsdp_rank * n, n
+
+
+def _own_rows(t, split, dim: int = 0):
+    """``t`` (a tensor, or a dict of them, recursively) narrowed to this
+    rank's rows along ``dim``: views, so in-place cache writes land in the
+    whole cache."""
+    if split is None or t is None:
+        return t
+    if isinstance(t, dict):
+        return {k: _own_rows(v, split, dim) for k, v in t.items()}
+    return t.narrow(dim, *split)
+
+
+def _gather_rows(logits: torch.Tensor, plan, split) -> torch.Tensor:
+    """The logits of every rank's rows on every rank (one all-gather), so
+    that each rank's host sampler sees the whole batch."""
+    return logits if split is None else comm.all_gather(logits, plan.mesh, plan.fsdp, dim=0)
 
 
 def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = None,
@@ -497,8 +592,9 @@ def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = Non
     that the backward routed as the forward did.
 
     ``plan`` (a ``distributed.ShardingPlan``) runs the rank's part of the
-    tensor-parallel forward on ``plan.shard_params`` parameters (module
-    doc); ``constrain(x, tag)`` is the reference's activation hook, called
+    sharded forward on ``plan.shard_params`` parameters (module doc; under
+    ``fsdp`` the rank's rows where the batch splits, the cache's rows of
+    them written, the logits of every row returned); ``constrain(x, tag)`` is the reference's activation hook, called
     at ``"act_btd"`` (the residual stream after the embedding and after each
     block) and ``"logits"``, and a plan's (``plan.constrain``) wins: the
     identity, since the explicit strategies place every collective.
@@ -511,22 +607,25 @@ def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = Non
         x = embeddings.to(cd)
     else:
         x = _embed(params["embed"], tokens, plan).to(cd)
-    x = constrain(x, "act_btd")
+    split = _row_split(plan, x.shape[0])
+    x = constrain(_own_rows(x, split), "act_btd")
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     if cache is not None:
         positions = positions + cache["pos"]
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
     auxes: List[torch.Tensor] = []
+    rows = None if cache is None else dict(cache, layers=_own_rows(cache["layers"], split, 1))
     if cfg.ssm_state:
-        x = _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
+        x = _scan_mamba(params, cfg, x, rows, positions, remat, kv_chunk, attn_backend, plan)
     else:
-        x = _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace,
+        x = _scan_transformer(params, cfg, x, rows, positions, remat, kv_chunk, attn_backend, moe_trace,
                               auxes, plan, constrain)
     # in place: the layers read pos before, in stream order
     new_cache = None if cache is None else dict(cache, pos=cache["pos"].add_(s))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out = (x if return_hidden else constrain(_head(params, cfg, x, plan), "logits")), new_cache
+    out = (x if return_hidden else constrain(_gather_rows(_head(params, cfg, x, plan), plan, split), "logits")), \
+        new_cache
     if not return_aux:
         return out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -568,10 +667,11 @@ def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_ba
     return x
 
 
-def _mamba_block(x, lp, cfg, cache):
+def _mamba_block(x, lp, cfg, cache, plan=None):
     """RMSNorm, then the SSD block with the skip connection in its out
-    projection's epilogue."""
-    return ssm.ssd_block(layers.rms_norm(x, lp["norm_in"], cfg.norm_eps), lp, cfg, cache=cache, residual=x)
+    projection's epilogue (``plan``: ``ssm.ssd_block``'s)."""
+    return ssm.ssd_block(layers.rms_norm(x, lp["norm_in"], cfg.norm_eps), lp, cfg, cache=cache, residual=x,
+                         plan=plan)
 
 
 def _ssm_cache(pools, i):
@@ -586,13 +686,14 @@ def _store_ssm(pools, i, new):
     pools["state"][i].copy_(new["state"])
 
 
-def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend):
+def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, plan=None):
     """The mamba2 stack; for the hybrid, after every ``attn_every``-th layer
     the shared attention+FFN block, whose parameters every call site shares
     and whose K/V cache is the site's own (``cache["layers"]["attn"]``,
     stacked over the ``n_layers // attn_every`` sites).  The RoPE tables
     are built once, at the shared block's head dim.  The caches are written
-    in place."""
+    in place.  ``plan`` goes to every block (the shared one runs the dense
+    block's sharded path)."""
     pools = None if cache is None else cache["layers"]
     start = cache["pos"] if cache is not None else 0
     if cfg.is_hybrid:
@@ -600,7 +701,7 @@ def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
         rope = layers.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         def block(x, lp=lp, lcache=None if pools is None else _ssm_cache(pools, i)):
-            out, new = _mamba_block(x, lp, cfg, lcache)
+            out, new = _mamba_block(x, lp, cfg, lcache, plan)
             if new is not None:
                 _store_ssm(pools, i, new)
             return out
@@ -612,7 +713,7 @@ def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend)
 
             def shared_block(x, acache=acache):
                 return _transformer_block(x, shared, cfg, positions=positions, rope=rope, cache=acache,
-                                          kv_chunk=kv_chunk, attn_backend=attn_backend)[0]
+                                          kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan)[0]
 
             x = _maybe_remat(shared_block, x, remat)
     return x
@@ -636,14 +737,15 @@ def init_cache(cfg, batch: int, max_seq: int, *, device, plan=None) -> Dict[str,
     (L, B, H, P, N) in f32, and for the hybrid the shared block's
     attn = {k, v} (n_layers // attn_every, B, max_seq, KV, hd).  ``pos``, the
     next row to write, is a 0-dim int64 tensor on ``device``.  Under a
-    ``plan`` k/v hold the rank's KV heads."""
+    ``plan`` k/v hold the rank's KV heads, and conv and state its SSM
+    heads (``ssm.rank_dims``)."""
     _require_served(cfg)
     _require_plan(cfg, plan)
     cd, L = dtype_of(cfg.compute_dtype), cfg.n_layers
     if cfg.ssm_state:
-        layer_caches = _ssm_pools(cfg, batch, cd, device)
+        layer_caches = _ssm_pools(cfg, batch, cd, device, plan)
         if cfg.is_hybrid:
-            shape = (cfg.n_layers // cfg.attn_every, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+            shape = (cfg.n_layers // cfg.attn_every, batch, max_seq, _kv_heads(cfg, plan), cfg.resolved_head_dim)
             layer_caches["attn"] = {nm: torch.zeros(shape, dtype=cd, device=device) for nm in ("k", "v")}
         return {"layers": layer_caches, "pos": attention.init_pos(device)}
     if cfg.use_mla:
@@ -669,9 +771,11 @@ def reset_cache(cfg, cache: Dict[str, Any]) -> Dict[str, Any]:
     return cache
 
 
-def _ssm_pools(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
-    """Every layer's conv history and state for ``batch`` rows, stacked."""
-    one = ssm.init_ssm_cache(batch, cfg, dtype, device=device)
+def _ssm_pools(cfg, batch: int, dtype, device, plan=None) -> Dict[str, torch.Tensor]:
+    """Every layer's conv history and state for ``batch`` rows, stacked:
+    under a ``tp`` plan the rank's heads of the state and their conv
+    channels (``plan.paged_cache_pspec``)."""
+    one = ssm.init_ssm_cache(batch, cfg, dtype, device=device, plan=plan)
     return {nm: one[nm].expand((cfg.n_layers,) + tuple(one[nm].shape)).clone() for nm in ("conv", "state")}
 
 
@@ -692,8 +796,8 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "
     scales under int8 ``kv_quant``; a pure SSM model pages nothing, so
     ``kv_quant`` changes nothing there.  The attention families keep
     nothing per slot and ignore ``slots``.  Under a ``plan`` the pools hold
-    the rank's KV heads (``plan.paged_cache_pspec``); the block tables stay
-    on the host."""
+    the rank's KV heads and SSM heads (``plan.paged_cache_pspec``), under
+    ``fsdp`` every head and slot; the block tables stay on the host."""
     _require_served(cfg)
     _require_plan(cfg, plan)
     cd = dtype_of(cfg.compute_dtype)
@@ -708,7 +812,7 @@ def init_paged_cache(cfg, num_blocks: int, block_size: int, *, kv_quant: str = "
     if cfg.ssm_state:
         if slots < 1:
             raise ValueError(f"{cfg.name}: the SSM state pools need slots >= 1, got {slots}")
-        pools: Dict[str, Any] = _ssm_pools(cfg, slots, cd, device)
+        pools: Dict[str, Any] = _ssm_pools(cfg, slots, cd, device, plan)
         if cfg.is_hybrid:
             pools["attn"] = stacked(gqa_pool(), cfg.n_layers // cfg.attn_every)
         return {"layers": pools}
@@ -757,33 +861,38 @@ def paged_decode_step_fn(cfg, *, plan=None, constrain=None):
     The SSM families update each slot's row of the state pools by the O(1)
     decode (positions and block tables are read only by the hybrid's
     shared block).  ``moe_trace``, ``plan`` and ``constrain`` as in
-    :func:`forward`."""
+    :func:`forward`: under ``fsdp`` a rank decodes its slots where the
+    slots divide the data axis, writing only their rows of the pools."""
     _require_served(cfg)
     _require_plan(cfg, plan)
     constrain = layers.resolve_constrain(plan, constrain)
 
     def step(params, cache, tokens, positions, block_tables, moe_trace=None):
         cd = dtype_of(cfg.compute_dtype)
-        x = constrain(_embed(params["embed"], tokens, plan).to(cd), "act_btd")
+        x = _embed(params["embed"], tokens, plan).to(cd)
+        split = _row_split(plan, x.shape[0])  # fsdp: this rank's slots
+        x = constrain(_own_rows(x, split), "act_btd")
+        positions, block_tables = _own_rows(positions, split), _own_rows(block_tables, split)
         pools = cache["layers"]
         lps = _layers(params["layers"], cfg.n_layers)
         if cfg.ssm_state:
+            slots = {nm: _own_rows(pools[nm], split, 1) for nm in ("conv", "state")}
             if cfg.is_hybrid:
                 rope = layers.rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
             for i, lp in enumerate(lps):
-                x, new = _mamba_block(x, lp, cfg, _ssm_cache(pools, i))
-                _store_ssm(pools, i, new)
+                x, new = _mamba_block(x, lp, cfg, _ssm_cache(slots, i), plan)
+                _store_ssm(slots, i, new)
                 if cfg.is_hybrid and (i + 1) % cfg.attn_every == 0:
                     j = i // cfg.attn_every
                     x = _paged_block(x, params["shared_attn"], cfg, {nm: t[j] for nm, t in pools["attn"].items()},
-                                     positions, block_tables, rope, None, j)
+                                     positions, block_tables, rope, None, j, plan)
         else:
             rope = layers.rope_tables(positions[:, None], _rope_dim(cfg), cfg.rope_theta)
             for i, lp in enumerate(lps):
                 x = constrain(_paged_block(x, lp, cfg, {nm: pool[i] for nm, pool in pools.items()}, positions,
                                            block_tables, rope, moe_trace, i, plan), "act_btd")
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return constrain(_head(params, cfg, x, plan), "logits"), cache
+        return constrain(_gather_rows(_head(params, cfg, x, plan), plan, split), "logits"), cache
 
     return step
 

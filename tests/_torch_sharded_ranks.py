@@ -265,3 +265,99 @@ def moe_rank(rank, layer_cases, engine_cases):
         rec["decode_counts"] = comm.counts()
         engines_out[case["name"]] = rec
     return layers_out, engines_out
+
+
+def _engine_run(eng, prompts, max_new):
+    from repro_torch.serving import SamplingParams
+
+    for rid, p in enumerate(prompts):
+        eng.add_request(p, SamplingParams(max_new_tokens=max_new), rid=rid)
+    return eng.run()
+
+
+def _decode_counts(eng):
+    """The communicator's counts of one paged decode step of ``eng``."""
+    from repro_torch.distributed import comm
+
+    comm.reset()
+    s = eng.ecfg.slots
+    eng._decode(eng.params, eng.kv.pools, torch.full((s, 1), 5), torch.arange(s),
+                torch.as_tensor(eng.kv.block_tables, dtype=torch.long))
+    return comm.counts()
+
+
+def _storage_shapes(params):
+    """Every DiP leaf's storage shape and plan, by path."""
+    from repro_torch import api
+
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, path + (k,))
+        elif isinstance(t, api.DipWeight):
+            out["/".join(path)] = (tuple(t.data.shape), t.plan.kind, t.plan.axis, t.plan.fsdp)
+        elif isinstance(t, torch.Tensor):
+            out["/".join(path)] = (tuple(t.shape), None, None, None)
+
+    walk(params, ())
+    return out
+
+
+def sharded_model_rank(rank, strategy, cases):
+    """A 2-rank world for ``test_torch_sharded_ssm.py`` (``tp``: data 1,
+    model 2) and ``test_torch_sharded_fsdp.py`` (``fsdp``: data 2, model
+    1).  Each case runs on the converted reference parameters: layer 0's
+    Mamba2 block (a chunked prefill into a cache, then one O(1) decode
+    token) where the case gives ``x``; ``forward`` on each of its token
+    batches (logits and counts); the ``Engine`` (tokens, one decode step's
+    counts, the pools' shapes); the rank's leaves; and the same parameters
+    drawn from a seed on the rank alone (``init_params(plan=)``) against
+    ``shard_params`` of the whole draw."""
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.convert import params_from_jax
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig
+
+    warnings.simplefilter("ignore", UserWarning)  # the reduced widths replicate (announced once)
+    mesh = make_local_mesh(data=1, model=2) if strategy == "tp" else make_local_mesh(data=2, model=1)
+    out = {}
+    for case in cases:
+        cfg = _serving_cfg(case["cfg"])
+        plan = make_plan(mesh, cfg, "decode")
+        params = plan.shard_params(params_from_jax(case["params"], cfg, device="cpu"))
+        rec = {"leaves": _storage_shapes(params), "ssm_heads": plan.ssm_heads() if cfg.ssm_state else None}
+        if case.get("x") is not None:
+            lp = _layer0(params["layers"])
+            x = torch.from_numpy(case["x"])
+            cache = ssm.init_ssm_cache(x.shape[0], cfg, torch.float32, device="cpu", plan=plan)
+            comm.reset()
+            y0, c0 = ssm.ssd_block(x[:, :-1], lp, cfg, cache=cache, plan=plan)
+            rec["block_counts"] = comm.counts()
+            y1, c1 = ssm.ssd_block(x[:, -1:], lp, cfg, cache=c0, plan=plan)
+            rec["block"] = {"chunk out": _np(y0), "chunk state": _np(c0["state"]), "chunk conv": _np(c0["conv"]),
+                            "decode out": _np(y1), "decode state": _np(c1["state"]), "decode conv": _np(c1["conv"])}
+        rec["forward"] = []
+        for toks in case["tokens"]:
+            comm.reset()
+            logits, _ = tf_model.forward(params, cfg, tokens=torch.from_numpy(toks), plan=plan)
+            rec["forward"].append((_np(logits), comm.counts()))
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=2, max_seq=32, prefill_chunk=8), device="cpu",
+                     plan=plan)
+        rec["tokens"] = _engine_run(eng, case["prompts"], case["max_new"])
+        rec["prefill_chunks"] = eng.last_stats["prefill_chunks"]
+        rec["pools"] = {k: tuple(v.shape) for k, v in eng.kv.pools["layers"].items() if k != "attn"}
+        rec["attn_pools"] = {k: tuple(v.shape) for k, v in eng.kv.pools["layers"].get("attn", {}).items()}
+        rec["decode_counts"] = _decode_counts(eng)
+        drawn = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu", plan=plan)
+        whole = plan.shard_params(tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu"))
+        rec["draw_equal"] = all(torch.equal(a, b) for a, b in zip(tree.leaves(drawn), tree.leaves(whole))) and \
+            _storage_shapes(drawn) == _storage_shapes(whole)
+        out[case["name"]] = rec
+    return out

@@ -152,3 +152,57 @@ def test_kernel_counters_equal_the_logged_launches(world):
         for r in res:
             counts, counted = r[i][2], r[i][3]
             assert counted == counts["launch"], (transport, case["path"], counts, counted)
+
+
+# ---- Zamba2-2.7B's shard shapes (the SSM family under tp and fsdp) ----
+Z_D, Z_IN, Z_INNER = 2560, 10448, 5120  # d_model, in_proj's in_dim (storage 10496), d_inner
+
+
+def _zamba2_cases():
+    """in_proj column-parallel (5248 storage columns a rank, the last
+    rank's 48 of them padding), out_proj row-parallel (K 2560 a rank, the
+    residual added once after the all-reduce), and in_proj under dip_fsdp
+    (K 1280 a rank, gathered for one whole-width launch on the rank's 2 of
+    4 rows); bf16, a decode step's 4 rows."""
+    r = np.random.default_rng(29)
+
+    def bf16(*shape):
+        return torch.from_numpy(r.normal(0, 1, shape).astype(np.float32)).bfloat16().float().numpy()
+
+    w_in = bf16(Z_D, Z_IN) * Z_D ** -0.5
+    return [dict(x=bf16(4, Z_D), ws=[w_in], path="tp_col", dtype="bfloat16", epilogue="none"),
+            dict(x=bf16(4, Z_INNER), ws=[bf16(Z_INNER, Z_D) * Z_INNER ** -0.5], path="tp_row", dtype="bfloat16",
+                 epilogue="residual", resid=bf16(4, Z_D)),
+            dict(x=bf16(4, Z_D), ws=[w_in], path="fsdp", dtype="bfloat16", epilogue="none")]
+
+
+@pytest.fixture(scope="module")
+def zamba2_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    cases = _zamba2_cases()
+    return cases, run_world(ranks.cuda_rank, 2, "host", cases, timeout=600)
+
+
+def test_zamba2_shards_against_single_rank_and_plain(zamba2_world):
+    cases, res = zamba2_world
+    for i, case in enumerate(cases):
+        got = _global(case["path"], [r[i][0] for r in res])
+        assert got.shape == (4, Z_IN if case["path"] != "tp_row" else Z_D), (case["path"], got.shape)
+        _close(got, res[0][i][1], "bfloat16", f"zamba2 {case['path']} against the single-rank dispatch")
+        _close(got, _plain(case), "bfloat16", f"zamba2 {case['path']} against the plain version")
+        for r in res:
+            counts, counted = r[i][2], r[i][3]
+            assert counted == counts["launch"] == 1, (case["path"], counts, counted)
+            # one all-gather of the K shards under fsdp; one all-reduce of the row partials; none for a column
+            want = {"tp_col": (0, 0), "tp_row": (1, 0), "fsdp": (0, 1)}[case["path"]]
+            assert (counts["psum"], counts["all_gather"]) == want, (case["path"], counts)
+
+
+def test_zamba2_out_proj_row_partial_against_plain(zamba2_world):
+    cases, res = zamba2_world
+    i = next(j for j, c in enumerate(cases) if c["path"] == "tp_row")
+    for r in res:
+        got, want, dtype, launched = r[i][4]
+        assert dtype == "torch.float32" and launched == 1 and got.shape == (4, Z_D)
+        _close(got, want, "float32", "zamba2 out_proj row partial (K 2560 a rank, f32 store)")

@@ -366,11 +366,14 @@ def test_refusals_outside_the_slice():
     plan = make_plan(mesh, tp, "decode")
     moe = dataclasses.replace(tp, family="moe", n_experts=4, moe_top_k=2, d_ff_expert=64)
     tf_model._require_plan(moe, plan)  # admitted
-    # the SSM and hybrid families stay refused under every plan
+    # the SSM and hybrid families run under tp (test_torch_sharded_ssm.py) and stay refused under ep
     for arch in ("mamba2-370m", "zamba2-2.7b"):
         for strategy in ("tp", "ep"):
             fam = dataclasses.replace(get_config(arch).reduced(), sharding=strategy, matmul_backend=f"dip_{strategy}")
             fam_plan = make_plan(mesh, fam, "decode")
+            if strategy == "tp":
+                tf_model._require_plan(fam, fam_plan)  # admitted
+                continue
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 tf_model.init_paged_cache(fam, 3, 4, slots=1, device="cpu", plan=fam_plan)
             with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -379,5 +382,5 @@ def test_refusals_outside_the_slice():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf_model.train_step_fn(tp, AdamW(), plan=plan)
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        serve.main(["--arch", "llama3-8b", "--device", "cpu", "--sharded", "fsdp"])
+    with pytest.raises(NotImplementedError, match="fsdp"):  # the moe family under fsdp (the dense one serves)
+        serve.main(["--arch", "deepseek-v2-lite-16b", "--device", "cpu", "--sharded", "fsdp"])
