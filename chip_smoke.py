@@ -210,7 +210,16 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    launches (each a shard) per step and rank, wall and device ms per step,
    peak memory per rank; 9d the reduced llama3-8b in f32 over the 2 ranks
    serving the single-rank engine's tokens exactly; then 9b the 9a calls in
-   a 1-rank NCCL world;
+   a 1-rank NCCL world.  9i: llama3-8b sequence-parallel (``sp``) in the
+   same world on 9c's rank parameters (``dip_sp`` consumes ``tp``'s column
+   and row shards) through ``Server(plan=)`` on 9c's requests, 8 greedy
+   tokens each: first-token logits within FULL_TOL of phase 5's, the
+   streams printed beside 9c's and phase 5's, 195 collectives (the
+   embedding's reduce-scatter, 4 ring hops and 2 reduce-scatters a layer,
+   the lm_head's hop and the logits' gather of vocab) and 322 launches a
+   step and rank, no replicated weight, walls and device ms, then every
+   launch shape against its plain version (the column shards at the rank's
+   2 and 128 rows, the row partials at all 4 and 256);
 9e. deepseek-v2-lite-16b expert-parallel (``ep``) at full width in a 2-rank
    world sharing the card (``host`` transport), after 5d with its engine
    freed, held to what 5d recorded from its whole weights: (a) each rank
@@ -233,14 +242,24 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    device ms beside plain, bound and the library call; (f) the reduced
    deepseek-v2-lite-16b under ``tp`` and the reduced deepseek-v2-lite-16b
    and qwen3-moe-235b-a22b under ``ep`` (capacity factor E / k, no drops)
-   in f32 serving the single-rank engines' tokens.
+   in f32 serving the single-rank engines' tokens.  9k, in the same world:
+   deepseek-v2-lite-16b under ``fsdp`` at full width cut to its first 2 of
+   27 layers (the time budget), each rank drawing its slice from the seed
+   (K / 2 of every projection, half of each expert bank's contraction dim
+   and of the router's d), ``Engine(plan=)`` with 2 slots on 5d's first
+   two requests cut to 256 tokens, 2 greedy tokens each: first-token logits
+   within FULL_TOL of the single-rank cut model's prefill step on the same
+   seed (its expert choices replayed where a prompt's differ), 28
+   all-gathers a prefill call and 29 a decode step, 13 launches a forward,
+   the storage bytes a forward gathers, peak memory, then every launch
+   shape on the gathered storage against its plain version.
 9f-9h. zamba2-2.7b at full width (all 54 layers) in one 2-rank world
    sharing the card (``host`` transport), after 5e with its engine freed,
    each rank drawing only its slice of 5e's weights (``init_params(plan=)``),
    ``Engine(plan=)`` with 2 slots: 9f under ``tp`` on 5e's requests 1 and
    0 cut to 256 + 3 and 512 + 2 tokens (4 greedy tokens each), 9g under
-   ``fsdp`` on requests 2 and 3 cut to 256 + 2 and 256 + 1 (2 each: a
-   decode step's slots split 1 / 1). 5e's engine records their first-token
+   ``fsdp`` on request 2 cut to 256 + 1 (2 greedy tokens: a decode step's
+   slots split 1 / 1; one request, the time budget). 5e's engine records their first-token
    logits, and an f32 run of its bf16 weights its own; the sharded engine's
    must sit no further from the f32 run than F32_DRIFT times 5e's (both
    run freely in bf16; 5e-2 of max|5e| is printed beside). Every call's
@@ -254,7 +273,13 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    rank are printed. 9h: the reduced Zamba2 (``in_proj`` replicated, and
    column-parallel with ``ssm_state=32``) and Mamba2 under ``tp``, the
    reduced llama3-8b and Zamba2 under ``fsdp``, in f32, serving the
-   single-rank engines' tokens.
+   single-rank engines' tokens.  9j, in the same world after 9f:
+   zamba2-2.7b under ``sp`` on 9f's rank parameters and prompts (the tail
+   tokens one real row, rank 1 a pad row), held as 9f is, with 273
+   collectives and 254 launches a call; 9l, after 9h: the reduced
+   llama3-8b, Zamba2 (both ``in_proj`` layouts) and Mamba2 under ``sp``,
+   the reduced DeepSeek-V2-Lite and Qwen3-MoE under ``fsdp``, in f32,
+   serving the single-rank engines' tokens.
 
 Each phase's wall seconds are printed on a line of their own when the next
 phase opens, and all of them together before the ``kernels`` line.
@@ -838,23 +863,27 @@ def _held_shapes(shapes, dev, seed):
     return out
 
 
-def _held_served_launches(eng, dev):
-    """9c on this rank, after serving: each DiP launch of the served forward
-    at its shard's shape, on the engine's own storage (layer 0's and the
-    lm_head's slices) at M = 4 (a decode step's slots) and 256 (a prefill
-    chunk) through ``_held_shapes``: the column shards (q, k, v, gate+up
-    under swiglu, the lm_head) with the rmsnorm prologue fused; the row
-    partials of o and down (the f32 store)."""
+def _held_served_launches(eng, dev, rows=None):
+    """9c / 9i on this rank, after serving: each DiP launch of the served
+    forward at its shard's shape, on the engine's own storage (layer 0's and
+    the lm_head's slices) through ``_held_shapes``: the column shards (q, k,
+    v, gate+up under swiglu, the lm_head) with the rmsnorm prologue fused;
+    the row partials of o and down (the f32 store).  ``rows``: each kind's
+    two M, a decode step's and a prefill chunk's: 4 and 256 under ``tp``;
+    under ``sp`` the column shards run the rank's 2 and 128 rows, the row
+    partials all 4 and 256."""
     import torch
 
+    rows = rows or {"column": (4, 256), "row": (4, 256)}
     lyr = eng.params["layers"]
     shards = [("wq", [lyr["wq"]]), ("wk", [lyr["wk"]]), ("wv", [lyr["wv"]]),
               ("w_gate + w_up", [lyr["w_gate"], lyr["w_up"]]), ("wo", [lyr["wo"]]), ("w_down", [lyr["w_down"]]),
               ("lm_head", [eng.params["lm_head"]])]
     shapes = []
-    for m in (4, 256):
+    for i in range(2):
         for label, ws in shards:
             kind = ws[0].plan.kind
+            m = rows[kind][i]
             data = [w.data[0] if w.data.dim() == 3 else w.data for w in ws]
             kw = dict(out_dtype=torch.float32) if kind == "row" else dict(
                 epilogue="swiglu" if len(data) == 2 else "none", prologue="rmsnorm")
@@ -937,6 +966,51 @@ def _phase9_serve(prompts):
            "transport": mesh.transport, "eager_reason": eng.eager_reason, "captured": eng.captured,
            "kv_heads": int(eng.kv.pools["layers"]["k"].shape[3])}
     out["held_launches"] = _held_served_launches(eng, dev)  # after the peaks: its plain versions' f32 copies
+    return out, eng.params, mesh
+
+
+def _phase9i(params, mesh, prompts):
+    """9i on this rank: llama3-8b under ``sp`` on 9c's rank parameters
+    (``dip_sp`` consumes the column / row shards ``dip_tp`` does: nothing is
+    drawn again) through ``Server(plan=)`` at 9c's settings on its
+    requests, 8 greedy tokens each: tokens, first-token logits, each step's
+    collectives, launches, replicated dispatches, wall and device ms, peak
+    memory; then each launch shape of the forward on the rank's storage
+    against its plain version (the column shards at the rank's 2 and 128
+    rows, the row partials at all 4 and 256)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import make_plan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.runtime import Request, Server, ServerConfig
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config("llama3-8b"), matmul_backend="dip_sp", sharding="sp",
+                              param_dtype="bfloat16", compute_dtype="bfloat16")
+    plan = make_plan(mesh, cfg, "decode")
+    torch.cuda.reset_peak_memory_stats(dev)
+    server = Server(cfg, ServerConfig(batch_slots=4, max_seq=1024, max_new_tokens=SP_TOKENS, temperature=0.0,
+                                      prefill_chunk=256), params, device=dev, plan=plan)
+    eng = server.engine
+    steps, profiled, first = {"_prefill_fwd": [], "_decode": []}, {}, {}
+    record_first_logits(eng, cfg.vocab_size, first)
+    _traced_steps(eng, dev, steps, profiled)
+    reqs = [Request(rid=i, prompt=np.asarray(p)) for i, p in enumerate(prompts)]
+    dip_matmul.launches = dip_matmul.launches_f32 = fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    results = server.serve(reqs)
+    wall = time.perf_counter() - t0
+    out = {"results": results, "first_logits": first, "steps": steps, "profiled_device_ms": profiled,
+           "launches": {"dip_matmul": dip_matmul.launches, "dip_matmul_f32_x": dip_matmul.launches_f32,
+                        "flash_attention": fa.flash_attention.launches},
+           "wall_s": wall, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30, "eager_reason": eng.eager_reason,
+           "kv_heads": int(eng.kv.pools["layers"]["k"].shape[3])}
+    out["held_launches"] = _held_served_launches(eng, dev, {"column": (2, 128), "row": (4, 256)})
+    del server, eng
     return out
 
 
@@ -969,13 +1043,21 @@ def _phase9_reduced(prompts):
 
 def phase9_rank(rank, serve_prompts, reduced_prompts):
     """One rank of the 2-rank world sharing the card (host transport): 9a,
-    then 9c on phase 5's weights and requests, then 9d.  Returns numpy and
-    numbers only."""
+    then 9c on phase 5's weights and requests, 9i on 9c's rank parameters,
+    then 9d.  Returns numpy and numbers only."""
     import warnings
+
+    import torch
 
     warnings.simplefilter("ignore", UserWarning)  # the reduced model's K/V replicate (announced once)
     out = {"9a": _phase9_dispatch("host")}
-    out["9c"] = _phase9_serve(serve_prompts)
+    out["9c"], params, mesh = _phase9_serve(serve_prompts)
+    t0 = time.perf_counter()
+    out["9i"] = _phase9i(params, mesh, serve_prompts)
+    out["9i"]["phase_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     out["9d"] = _phase9_reduced(reduced_prompts)
     return out
 
@@ -1034,9 +1116,10 @@ def _step_kind(attr, args):
 
 
 def _traced_steps(eng, dev, steps, profiled, kind_of=None):
-    """Wrap the engine's two steps (phases 9c, 9e, 9f and 9g): each call's
-    wall ms, collectives by name (``comm.reset(schedule=True)`` before it),
-    DiP launches and, for the expert-parallel layer, whether each dispatch
+    """Wrap the engine's two steps (phases 9c, 9e, 9f, 9g and 9i-9k): each
+    call's wall ms, collectives by name (``comm.reset(schedule=True)``
+    before it), DiP launches, the replicated weights the ``sp`` path
+    dispatched and, for the expert-parallel layer, whether each dispatch
     all-to-all came before its two shared-expert launches; the second call
     of each kind under the profiler (kernel and copy device ms).  A call's
     kind is its step's name, or ``kind_of(name, args)``."""
@@ -1077,7 +1160,8 @@ def _traced_steps(eng, dev, steps, profiled, kind_of=None):
             order_ok = bool(a2a) and len(a2a) % 2 == 0 and all(
                 sched[i + 1:i + 4] == ["launch", "launch", "all_to_all"] for i in a2a[::2])
             calls.append({"wall_ms": wall, "collectives": {k: v for k, v in comm.counts().items() if k != "launch"},
-                          "dip_launches": dip_matmul.launches - l0, "dispatch_first": order_ok})
+                          "dip_launches": dip_matmul.launches - l0, "dispatch_first": order_ok,
+                          "replicated": comm.replicated()})
             return res
         setattr(eng, attr, run)
 
@@ -1232,15 +1316,146 @@ def _phase9e_reduced(prompts):
     return out
 
 
-def phase9e_rank(rank, rec, reduced_prompts):
+def _choices_differing(a, b):
+    """(token, slot) pairs of expert ids ``a`` whose expert is not among the
+    same token's choices in ``b`` (both (B, S, k), a layer each)."""
+    import numpy as np
+
+    return sum(int((~(np.asarray(x)[..., :, None] == np.asarray(y)[..., None, :]).any(-1)).sum())
+               for x, y in zip(a, b))
+
+
+def _phase9k(rec):
+    """9k on this rank: DeepSeek-V2-Lite at full width cut to its first
+    ``DS_CUT_LAYERS`` layers under ``fsdp`` over the ranks sharing the card
+    (a (data 2, model 1) mesh, ``host`` transport): the rank draws its slice
+    from the seed (K / 2 of every projection, half of each expert bank's
+    contraction dim and of the router's d), ``Engine(plan=)`` with 2 slots
+    serves ``rec``'s two prompts (one 256-token chunk each, whole on both
+    ranks), 2 greedy tokens each (a decode step's 2 slots split 1 / 1):
+    tokens, first-token logits and each prefill's expert ids, each step's
+    all-gathers, launches, wall and device ms, the storage bytes a forward
+    gathers, peak memory.  A prompt whose expert choices differ from the
+    single-rank step's runs its prefill again with those choices replayed.
+    Then each launch shape of the forward on the gathered storage against
+    its plain version, at M = 1 (a decode step's slot a rank) and 256 (the
+    chunk)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig, SamplingParams
+
+    dev = torch.device("cuda", 0)
+    world = torch.distributed.get_world_size()
+    mesh = make_local_mesh(data=world, model=1, transport="host", device=dev)
+    cfg = dataclasses.replace(ds_config("fsdp"), n_layers=DS_CUT_LAYERS)
+    plan = make_plan(mesh, cfg, "decode")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+    torch.cuda.synchronize(dev)
+    out = {"build_s": time.perf_counter() - t0, "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "weights_gib": torch.cuda.memory_allocated(dev) / 2**30}
+    # the storage one forward assembles: every leaf the plan cut, whole, once
+    # (the MLA up-projections in their de-shear, the banks and the router at
+    # their layer, every other projection in its dispatch)
+    cut = [w.data if isinstance(w, api.DipWeight) else w for nm, w in _dip_items(params, (api.DipWeight, torch.Tensor))
+           if (isinstance(w, api.DipWeight) and w.plan.fsdp) or nm.split("/")[-1] in ("router", "w_gate", "w_up",
+                                                                                       "w_down")]
+    out["gathered_bytes"] = world * sum(t.numel() * t.element_size() for t in cut)
+    out["shards"] = {nm: list(w.shape) for nm, w in _dip_items(params["layers"], torch.Tensor)
+                     if nm in ("router", "w_gate", "w_up", "w_down")}
+    out["shards"].update({nm: [list(w.data.shape), w.plan.kind, w.plan.fsdp]
+                          for nm, w in _dip_items(params["layers"], api.DipWeight)})
+    eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=2, max_seq=DS_CUT_MAX_SEQ, prefill_chunk=DS_CUT_TOKENS),
+                 device=dev, plan=plan)
+    del params
+    steps, profiled, first, ids = {}, {}, {}, []
+    record_first_logits(eng, cfg.vocab_size, first)
+    prefill = eng._prefill_fwd
+
+    def recorded(p, c, t):  # each prefill call's expert ids, by layer
+        trace = {}
+        res = prefill(p, c, t, moe_trace=trace)
+        ids.append([i.cpu().numpy() for i in trace["ids"]])
+        return res
+
+    eng._prefill_fwd = recorded
+    _traced_steps(eng, dev, steps, profiled)
+    for rid, p in enumerate(rec["prompts"]):
+        eng.add_request(np.asarray(p), SamplingParams(max_new_tokens=2), rid=rid)
+    dip_matmul.launches = dip_matmul.launches_f32 = 0
+    t0 = time.perf_counter()
+    results = eng.run()
+    out.update({"results": results, "first_logits": first, "ids": ids, "steps": steps,
+                "profiled_device_ms": profiled,
+                "launches": {"dip_matmul": dip_matmul.launches, "dip_matmul_f32_x": dip_matmul.launches_f32},
+                "wall_s": time.perf_counter() - t0, "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30,
+                "eager_reason": eng.eager_reason,
+                "pools": {k: list(v.shape) for k, v in eng.kv.pools["layers"].items()}})
+    # where a prompt's choices differ from the single-rank step's: its prefill
+    # again with those choices replayed (uncounted: not the served path)
+    out["flips"] = [_choices_differing(a, b) for a, b in zip(ids, rec["ids"])]
+    out["replayed_logits"] = {}
+    step = tf_model.decode_step_fn(cfg, plan=plan)
+    saved = dip_matmul.launches, dip_matmul.launches_f32
+    for rid, flips in enumerate(out["flips"]):
+        if flips:
+            cache = tf_model.init_cache(cfg, 1, DS_CUT_MAX_SEQ, device=dev, plan=plan)
+            trace = {"replay_ids": [torch.as_tensor(a, device=dev) for a in rec["ids"][rid]]}
+            with torch.no_grad():
+                logits = step(eng.params, cache, torch.as_tensor([rec["prompts"][rid]], device=dev), trace)[0]
+            out["replayed_logits"][rid] = logits[0, -1, :cfg.vocab_size].float().cpu().numpy()
+            del logits, cache
+    dip_matmul.launches, dip_matmul.launches_f32 = saved
+    # each launch shape on the gathered storage (every rank gathers each
+    # weight's K shards, as dip_fsdp does)
+    lyr = eng.params["layers"]
+
+    def whole(w):
+        return comm.all_gather(w.data[0] if w.data.dim() == 3 else w.data, mesh, "data", dim=0)
+
+    g = {nm: whole(lyr[nm]) for nm in ("wq", "w_dkv", "w_krope", "wo", "shared_w_gate", "shared_w_up",
+                                       "shared_w_down")}
+    g["lm_head"] = whole(eng.params["lm_head"])
+    col, res = dict(prologue="rmsnorm"), dict(epilogue="residual")
+    shapes = []
+    for m in (1, DS_CUT_TOKENS):
+        shapes += [("wq", "gathered", m, [g["wq"]], col), ("w_dkv", "gathered", m, [g["w_dkv"]], col),
+                   ("w_krope", "gathered", m, [g["w_krope"]], col), ("wo", "gathered", m, [g["wo"]], res),
+                   ("shared gate+up", "gathered", m, [g["shared_w_gate"], g["shared_w_up"]],
+                    dict(epilogue="swiglu")),
+                   ("shared down", "gathered", m, [g["shared_w_down"]], {}),
+                   ("lm_head", "gathered", m, [g["lm_head"]], {})]
+    out["held_launches"] = _held_shapes(shapes, dev, SEED + 23)
+    del eng, g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase9e_rank(rank, rec, reduced_prompts, rec_9k):
     """One rank of 9e's 2-rank world sharing the card (host transport):
-    (a)-(e) at full width on phase 5d's weights and requests, then (f).
-    Returns numpy and numbers only."""
+    (a)-(e) at full width on phase 5d's weights and requests, then (f), then
+    9k held to ``rec_9k``.  Returns numpy and numbers only."""
     import warnings
+
+    import torch
 
     warnings.simplefilter("ignore", UserWarning)  # the width fallbacks (w_krope; the reduced widths) announce once
     out = _phase9e_serve(rec)
     out["f"] = _phase9e_reduced(reduced_prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["9k"] = _phase9k(rec_9k)
+    out["9k"]["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1259,12 +1474,24 @@ def zamba2_config(strategy=None):
 # phases 9c and 9e(d) serve the first two of their phase's requests (the time
 # budget, PERF.md §4)
 SHARDED_REQUESTS = 2
+# 9i: greedy tokens a request under sp
+SP_TOKENS = 8
+# 9k: DeepSeek-V2-Lite under fsdp at full width cut to its first 2 of 27
+# layers (each forward gathers ~1.17 GB a layer through host memory: the
+# time budget, PERF.md §4), on two prompts cut to one 256-token chunk
+DS_CUT_LAYERS = 2
+DS_CUT_TOKENS = 256
+DS_CUT_MAX_SEQ = 2 * DS_CUT_TOKENS  # 9k's engines' max_seq, and so the length of their prefill caches
 
 # 9h: (name, arch, reduced() overrides, strategy): the reduced models in f32;
 # zamba2_col's in_proj is column-parallel under tp (640 storage columns)
 Z_REDUCED = (("zamba2_tp", "zamba2-2.7b", {}, "tp"), ("zamba2_col_tp", "zamba2-2.7b", {"ssm_state": 32}, "tp"),
              ("mamba2_tp", "mamba2-370m", {}, "tp"), ("llama3_fsdp", "llama3-8b", {}, "fsdp"),
              ("zamba2_fsdp", "zamba2-2.7b", {}, "fsdp"))
+# 9l: the same under sp, and the moe family under fsdp
+L_REDUCED = (("llama3_sp", "llama3-8b", {}, "sp"), ("zamba2_sp", "zamba2-2.7b", {}, "sp"),
+             ("zamba2_col_sp", "zamba2-2.7b", {"ssm_state": 32}, "sp"), ("mamba2_sp", "mamba2-370m", {}, "sp"),
+             ("deepseek_fsdp", "deepseek-v2-lite-16b", {}, "fsdp"), ("qwen3_fsdp", "qwen3-moe-235b-a22b", {}, "fsdp"))
 
 
 def reduced_f32_config(arch, overrides, strategy=None):
@@ -1286,14 +1513,15 @@ def _dip_items(t, cls, path=""):
         yield path, t
 
 
-def _zamba2_served(strategy, prompts, max_new):
-    """9f / 9g on this rank: Zamba2-2.7B at full width under ``strategy``
-    over the ranks sharing the card (``host`` transport), the rank drawing
-    only its slice of phase 5e's weights from the seed
-    (``init_params(plan=)``), ``Engine(plan=)`` with 2 slots on
-    ``prompts``: tokens, first-token logits, each step's kind, wall,
-    collectives and launches, one profiled call of each kind, the pools'
-    bytes, the rank's storage bytes, peak memory."""
+def _zamba2_served(strategy, prompts, max_new, params=None, mesh=None):
+    """9f / 9g / 9j on this rank: Zamba2-2.7B at full width under
+    ``strategy`` over the ranks sharing the card (``host`` transport), the
+    rank drawing only its slice of phase 5e's weights from the seed
+    (``init_params(plan=)``; 9j takes 9f's slice and mesh, ``params`` and
+    ``mesh``), ``Engine(plan=)`` with 2 slots on ``prompts``: tokens,
+    first-token logits, each step's kind, wall, collectives and launches,
+    one profiled call of each kind, the pools' bytes, the rank's storage
+    bytes, peak memory."""
     import torch
 
     from repro_torch import api
@@ -1306,16 +1534,19 @@ def _zamba2_served(strategy, prompts, max_new):
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     world = torch.distributed.get_world_size()
-    axes = dict(data=1, model=world) if strategy == "tp" else dict(data=world, model=1)
-    mesh = make_local_mesh(**axes, transport="host", device=dev)
+    axes = dict(data=1, model=world) if strategy in ("tp", "sp") else dict(data=world, model=1)
+    if mesh is None:
+        mesh = make_local_mesh(**axes, transport="host", device=dev)
     cfg = zamba2_config(strategy)
     plan = make_plan(mesh, cfg, "decode")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
-    torch.cuda.synchronize(dev)
-    out = {"build_s": time.perf_counter() - t0, "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-           "weights_gib": torch.cuda.memory_allocated(dev) / 2**30}
+    out = {}
+    if params is None:
+        params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+        torch.cuda.synchronize(dev)
+        out = {"build_s": time.perf_counter() - t0, "build_peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    out["weights_gib"] = torch.cuda.memory_allocated(dev) / 2**30
     dips = list(_dip_items(params, api.DipWeight))
     out["storage_bytes"] = sum(w.data.numel() * w.data.element_size() for _, w in dips)
     out["shards"] = {nm: [list(w.data.shape), w.plan.kind, w.plan.fsdp] for nm, w in dips}
@@ -1352,7 +1583,7 @@ def _phase9f(rec):
     and 256 (a chunk)."""
     import torch
 
-    eng, _, out = _zamba2_served("tp", rec["tp_prompts"], 4)
+    eng, mesh, out = _zamba2_served("tp", rec["tp_prompts"], 4)
     dev = torch.device("cuda", 0)
     lyr, sh = eng.params["layers"], eng.params["shared_attn"]
 
@@ -1370,6 +1601,43 @@ def _phase9f(rec):
                    ("wo", "row", m, [l0(sh["wo"])], row), ("w_down", "row", m, [l0(sh["w_down"])], row),
                    ("lm_head", "column", m, [eng.params["lm_head"].data], {})]
     out["held_launches"] = _held_shapes(shapes, dev, SEED + 13)
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, params, mesh
+
+
+def _phase9j(rec, params, mesh):
+    """9j on this rank: Zamba2-2.7B under ``sp`` on 9f's rank parameters and
+    mesh (``dip_sp`` consumes ``tp``'s shards: nothing is drawn again), 9f's
+    prompts, 4 greedy tokens each, then each launch shape of the forward
+    against its plain version: the column shards (in_proj; the shared
+    block's q, k, v and gate+up with the rmsnorm prologue; the lm_head) at
+    the rank's 1 row (a tail token, rank 1's a pad row; a 2-slot decode) and
+    128 (a chunk), the f32-store row partials (out_proj, wo, w_down) at all
+    2 and 256 rows."""
+    import torch
+
+    eng, _, out = _zamba2_served("sp", rec["tp_prompts"], 4, params=params, mesh=mesh)
+    dev = torch.device("cuda", 0)
+    lyr, sh = eng.params["layers"], eng.params["shared_attn"]
+
+    def l0(w):
+        return w.data[0] if w.data.dim() == 3 else w.data
+
+    col, row = dict(prologue="rmsnorm"), dict(out_dtype=torch.float32)
+    shapes = []
+    for m_col, m_row in ((1, 2), (128, 256)):
+        shapes += [("in_proj", "column", m_col, [l0(lyr["in_proj"])], {}),
+                   ("out_proj", "row", m_row, [l0(lyr["out_proj"])], row),
+                   ("wq", "column", m_col, [l0(sh["wq"])], col), ("wk", "column", m_col, [l0(sh["wk"])], col),
+                   ("wv", "column", m_col, [l0(sh["wv"])], col),
+                   ("w_gate + w_up", "column", m_col, [l0(sh["w_gate"]), l0(sh["w_up"])],
+                    dict(col, epilogue="swiglu")),
+                   ("wo", "row", m_row, [l0(sh["wo"])], row), ("w_down", "row", m_row, [l0(sh["w_down"])], row),
+                   ("lm_head", "column", m_col, [eng.params["lm_head"].data], {})]
+    out["held_launches"] = _held_shapes(shapes, dev, SEED + 19)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -1413,14 +1681,14 @@ def _phase9g(rec):
     return out
 
 
-def _phase9h(prompts):
-    """9h on this rank: the reduced models in f32 under their plans
-    (``Z_REDUCED``), seeded weights drawn on the card: each engine's
-    tokens and DiP launches."""
+def _phase9h(prompts, cases=Z_REDUCED):
+    """9h / 9l on this rank: the reduced models in f32 under their plans
+    (``Z_REDUCED`` / ``L_REDUCED``), seeded weights drawn on the card: each
+    engine's tokens, DiP launches and replicated dispatches."""
     import torch
 
     from repro_torch.device import make_generator
-    from repro_torch.distributed import make_local_mesh, make_plan
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
     from repro_torch.kernels.dip_matmul import dip_matmul
     from repro_torch.models import transformer as tf_model
     from repro_torch.serving import Engine, EngineConfig, SamplingParams
@@ -1429,8 +1697,9 @@ def _phase9h(prompts):
     world = torch.distributed.get_world_size()
     meshes = {"tp": make_local_mesh(data=1, model=world, transport="host", device=dev),
               "fsdp": make_local_mesh(data=world, model=1, transport="host", device=dev)}
+    meshes["sp"] = meshes["tp"]
     out = {}
-    for name, arch, overrides, strategy in Z_REDUCED:
+    for name, arch, overrides, strategy in cases:
         cfg = reduced_f32_config(arch, overrides, strategy)
         plan = make_plan(meshes[strategy], cfg, "decode")
         params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
@@ -1439,21 +1708,37 @@ def _phase9h(prompts):
         for rid, p in enumerate(prompts):
             eng.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
         dip_matmul.launches = dip_matmul.launches_f32 = 0
+        comm.reset()
         out[name] = {"results": eng.run(), "dip_launches": dip_matmul.launches,
-                     "dip_f32_x_launches": dip_matmul.launches_f32,
+                     "dip_f32_x_launches": dip_matmul.launches_f32, "replicated": comm.replicated(),
                      "in_proj": getattr(eng.params["layers"].get("in_proj"), "plan", None) and
                      eng.params["layers"]["in_proj"].plan.kind}
     return out
 
 
 def phase9z_rank(rank, rec, reduced_prompts):
-    """One rank of the 2-rank world of phases 9f-9h sharing the card (host
-    transport): 9f and 9g on phase 5e's weights, then 9h.  Returns numpy and
-    numbers only."""
+    """One rank of the 2-rank world of phases 9f-9h, 9j and 9l sharing the
+    card (host transport): 9f on phase 5e's weights, 9j on 9f's rank
+    parameters, 9g, then 9h and 9l.  Returns numpy and numbers only."""
     import warnings
 
+    import torch
+
     warnings.simplefilter("ignore", UserWarning)  # the reduced widths replicate (announced once)
-    return {"9f": _phase9f(rec), "9g": _phase9g(rec), "9h": _phase9h(reduced_prompts)}
+    out = {}
+    out["9f"], params, mesh = _phase9f(rec)
+    t0 = time.perf_counter()
+    out["9j"] = _phase9j(rec, params, mesh)
+    out["9j"]["phase_s"] = time.perf_counter() - t0
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["9g"] = _phase9g(rec)
+    out["9h"] = _phase9h(reduced_prompts)
+    t0 = time.perf_counter()
+    out["9l"] = _phase9h(reduced_prompts, L_REDUCED)
+    out["9l_s"] = time.perf_counter() - t0
+    return out
 
 
 def main():
@@ -2923,6 +3208,73 @@ def main():
         res["9c"] = {"requests": cmp, "ranks": per_rank, "transport": tp[0]["transport"],
                      "eager_reason": tp[0]["eager_reason"], "collectives_per_step": want_per_step}
 
+        # ---- 9i: llama3-8b sequence-parallel on 9c's rank parameters ----
+        # per step and rank: the embedding's reduce-scatter; per layer the
+        # ring hops of wq, wk, wv and gate+up and the reduce-scatters of wo and
+        # w_down; the lm_head's hop and the logits' all-gather of vocab.  Per
+        # step 32 x 10 + 2 launches: each column projection T = 2 launches
+        sp_step = {"psum": 0, "all_gather": 1, "reduce_scatter": 2 * n_layers + 1, "ppermute": 4 * n_layers + 1,
+                   "all_to_all": 0}
+        sp_launches = 10 * n_layers + 2
+        sp = [o["9i"] for o in outs]
+        log(f"phase 9i: llama3-8b full width, bf16, sequence parallel (dip_sp) over 2 ranks on 9c's rank parameters "
+            f"({sp[0]['eager_reason']}); 9c's settings and requests, {SP_TOKENS} greedy tokens each; the rank's "
+            f"wall {[round(o['phase_s'], 1) for o in sp]} s")
+        if any(t["results"] != sp[0]["results"] for t in sp):
+            raise AssertionError("phase 9i: the ranks served different tokens")
+        got_sp = sp[0]["results"]
+        if sorted(got_sp) != list(range(SHARDED_REQUESTS)) or any(len(v) != SP_TOKENS for v in got_sp.values()):
+            raise AssertionError(f"phase 9i: not every request got its {SP_TOKENS} tokens: {got_sp}")
+        cmp_sp = {}
+        for rid in sorted(got_sp):
+            want_l, got_l = first_logits[rid], sp[0]["first_logits"][rid]
+            scale = max(1.0, float(np.abs(want_l).max()))
+            err = float(np.abs(got_l - want_l).max())
+            a, b, c9 = list(results[rid]), list(got_sp[rid]), list(got[rid])
+            prefix = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+            cmp_sp[rid] = {"first_logits_max_abs_err": err, "scale": scale, "within": err <= FULL_TOL * scale,
+                           "equal_prefix_phase5": prefix, "sp": b, "tp": c9, "phase5": a}
+            log(f"  request {rid}: first-token logits max|err| {err:.4e} against phase 5's (bound {FULL_TOL} x "
+                f"{scale:.2f}); tokens equal to phase 5's for the first {prefix}: sp {b} | 9c tp {c9[:SP_TOKENS]} | "
+                f"phase 5 {a[:SP_TOKENS]}")
+        if not all(c["within"] for c in cmp_sp.values()):
+            raise AssertionError(f"phase 9i: first-token logits off phase 5's: {cmp_sp}")
+        per_rank_sp = []
+        for r, t in enumerate(sp):
+            dec, pre = t["steps"]["_decode"], t["steps"]["_prefill_fwd"]
+            bad = [(s["collectives"], s["dip_launches"], s["replicated"]) for s in dec + pre
+                   if s["collectives"] != sp_step or s["dip_launches"] != sp_launches or s["replicated"]]
+            want_l = {"dip_matmul": sp_launches * (len(dec) + len(pre)), "dip_matmul_f32_x": 0, "flash_attention": 0}
+            rec = {"rank": r, "decode_steps": len(dec), "prefill_chunks": len(pre),
+                   "collectives_per_step": dec[0]["collectives"], "launches": t["launches"],
+                   "replicated_per_step": dec[0]["replicated"],
+                   "median_decode_step_wall_ms": statistics.median(s["wall_ms"] for s in dec),
+                   "median_prefill_chunk_wall_ms": statistics.median(s["wall_ms"] for s in pre),
+                   "decode_step_device": t["profiled_device_ms"].get("_decode"),
+                   "prefill_chunk_device": t["profiled_device_ms"].get("_prefill_fwd"),
+                   "peak_gib": t["peak_gib"], "peak_reserved_gib": t["peak_reserved_gib"],
+                   "kv_heads": t["kv_heads"], "wall_s": t["wall_s"]}
+            log(f"  rank {r}: {json.dumps(rec)} ({gpu})")
+            if bad or t["launches"] != want_l:
+                raise AssertionError(f"phase 9i rank {r}: collectives, launches or replicated weights off the "
+                                     f"design: {bad[:3]} {t['launches']} (want {sp_step}, {sp_launches} a step, "
+                                     f"no replicated weight, {want_l})")
+            for h in t["held_launches"]:
+                log(f"  rank {r} {h['launch']} ({h['kind']}) M={h['m']} K={h['k']} N={h['n']} {h['epilogue']}/"
+                    f"{h['prologue']} -> {h['out_dtype']}: max|err| vs plain {h['max_abs_err']:.3e} (bound "
+                    f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, library "
+                    f"{h['library_ms']:.4f} ms ({gpu})")
+            if not all(h["ok"] for h in t["held_launches"]):
+                raise AssertionError(f"phase 9i rank {r}: a served launch shape off its plain version: "
+                                     f"{[h for h in t['held_launches'] if not h['ok']]}")
+            rec["held_launches"] = t["held_launches"]
+            per_rank_sp.append(rec)
+        log(f"  per step and rank: {sum(sp_step.values())} collectives ({sp_step}) and {sp_launches} DiP launches "
+            f"(each column projection on both ranks' rows in turn: 128 of a chunk's 256, 2 of a decode step's 4; "
+            f"the row projections on all rows, K / 2); 9c's tp step {sum(want_per_step.values())} and 193")
+        res["9i"] = {"requests": cmp_sp, "ranks": per_rank_sp, "collectives_per_step": sp_step,
+                     "launches_per_step": sp_launches, "phase_s": [o["phase_s"] for o in sp]}
+
         # ---- 9d: reduced f32 TP against the single-rank engine, exactly ----
         got_r = [o["9d"]["results"] for o in outs]
         log(f"phase 9d: reduced llama3-8b, f32, dip_tp over 2 ranks on the card: tokens {got_r[0]}; the single-rank "
@@ -2942,6 +3294,8 @@ def main():
         res["9b"] = check_dispatch("9b", nccl)
         res["launches"] = {"serve_tp": {"dip_matmul": sum(t["launches"]["dip_matmul"] for t in tp),
                                         "dip_matmul_f32_x": 0, "flash_attention": 0},
+                           "serve_sp": {"dip_matmul": sum(t["launches"]["dip_matmul"] for t in sp),
+                                        "dip_matmul_f32_x": 0, "flash_attention": 0},
                            "serve_tp_reduced": {"dip_matmul": sum(o["9d"]["dip_launches"] for o in outs),
                                                 "dip_matmul_f32_x": sum(f32_x)}}
         log(f"  phase 9 wall: the 2-rank world {world_s:.1f} s")
@@ -2952,10 +3306,36 @@ def main():
         """DeepSeek-V2-Lite under ``ep`` over 2 ranks sharing the card
         (``phase9e_rank``), held to 5d's records (``ep_records``); (f)'s
         reduced models against single-rank engines on the card from the
-        same seed."""
+        same seed; then 9k, DeepSeek-V2-Lite cut to ``DS_CUT_LAYERS`` layers
+        under ``fsdp`` in the same world, held to the single-rank cut model
+        on the same seed (its prefill step's first-token logits and expert
+        ids on each prompt, its engine's tokens)."""
         from repro_torch.distributed import run_world
 
         prompts = [list(range(2, 9)), list(range(40, 57))]
+        cut = dataclasses.replace(ds_config(), n_layers=DS_CUT_LAYERS)
+        rec_9k = {"prompts": [[int(t) for t in p[:DS_CUT_TOKENS]] for p in rec["prompts"][:2]], "ids": []}
+        first_9k = []
+        with uncounted():
+            p1 = tf_model.init_params(cut, make_generator(SEED, "cuda"), "cuda")
+            # the engine's prefill step on a cache of its prefill cache's
+            # length (MLA with a cache is the absorbed form, which attends
+            # over every row of it)
+            step = tf_model.decode_step_fn(cut)
+            for p in rec_9k["prompts"]:
+                trace = {}
+                with torch.no_grad():
+                    logits = step(p1, tf_model.init_cache(cut, 1, DS_CUT_MAX_SEQ, device="cuda"),
+                                  torch.as_tensor([p], device=dev), trace)[0]
+                first_9k.append(logits[0, -1, :cut.vocab_size].float().cpu().numpy())
+                rec_9k["ids"].append([i.cpu().numpy() for i in trace["ids"]])
+                del logits
+            e1 = Engine(cut, p1, engine_cfg=EngineConfig(slots=2, max_seq=DS_CUT_MAX_SEQ, prefill_chunk=DS_CUT_TOKENS),
+                        device="cuda")
+            for rid, p in enumerate(rec_9k["prompts"]):
+                e1.add_request(p, SamplingParams(max_new_tokens=2), rid=rid)
+            tokens_9k = e1.run()
+            del e1, p1, step
         single = {}
         with uncounted():
             for name, arch, strategy, ample in DS_REDUCED:
@@ -2971,7 +3351,7 @@ def main():
                 del e1, p1, trace
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        outs = run_world(phase9e_rank, 2, rec, prompts, timeout=900.0)
+        outs = run_world(phase9e_rank, 2, rec, prompts, rec_9k, timeout=1000.0)
         world_s = time.perf_counter() - t0
         n_layers = 27
         want_step = {"psum": 2 * n_layers + 1, "all_gather": 2 * n_layers + 1, "reduce_scatter": 0, "ppermute": 0,
@@ -3090,7 +3470,10 @@ def main():
             if ample and (single[name]["dropped"] or any(g["dropped"] for g in got)):
                 raise AssertionError(f"phase 9e(f) {name}: pairs dropped at capacity factor E / k")
         res["f"] = {name: {"tokens": single[name]["results"]} for name, *_ in DS_REDUCED}
+        res["9k"] = check_9k(outs, rec_9k, first_9k, tokens_9k)
         res["launches"] = {
+            "serve_fsdp_deepseek": {"dip_matmul": sum(o["9k"]["launches"]["dip_matmul"] for o in outs),
+                                    "dip_matmul_f32_x": sum(o["9k"]["launches"]["dip_matmul_f32_x"] for o in outs)},
             "serve_ep": {"dip_matmul": sum(o["d"]["launches"]["dip_matmul"] for o in outs), "dip_matmul_f32_x": 0},
             "serve_ep_reduced": {"dip_matmul": sum(o["f"][nm]["dip_launches"] for o in outs for nm, *_ in DS_REDUCED),
                                  "dip_matmul_f32_x": sum(o["f"][nm]["dip_f32_x_launches"] for o in outs
@@ -3098,17 +3481,94 @@ def main():
         log(f"  phase 9e wall: the 2-rank world {world_s:.1f} s")
         return res
 
+    def check_9k(outs, rec_9k, first_9k, tokens_9k):
+        """9k: the ranks' DeepSeek-V2-Lite under ``fsdp`` (``_phase9k``)
+        against the single-rank cut model: first-token logits within
+        FULL_TOL (with the single-rank expert choices replayed where a
+        prompt's differ), every call's all-gathers and launches exactly,
+        every launch shape against its plain version."""
+        n_layers = DS_CUT_LAYERS
+        # per layer: the router and 3 banks, wq, w_dkv, w_krope, wo, w_uk and
+        # w_uv, the 3 shared experts' storage; the embedding's columns and the
+        # lm_head's storage; a decode step's logits' rows (its 2 slots split)
+        per_layer = 13
+        want = {k: {"psum": 0, "all_gather": per_layer * n_layers + 2 + (k == "_decode"), "reduce_scatter": 0,
+                    "ppermute": 0, "all_to_all": 0} for k in ("_prefill_fwd", "_decode")}
+        per_forward = 6 * n_layers + 1  # wq, w_dkv, w_krope, wo, shared gate+up and down; the lm_head
+        o0 = outs[0]["9k"]
+        log(f"phase 9k: deepseek-v2-lite-16b full width cut to {n_layers} of 27 layers, bf16, fsdp (ZeRO-3: each "
+            f"rank K / 2 of every projection and half of each expert bank's contraction dim and the router's d) over "
+            f"2 ranks sharing the card ({o0['eager_reason']}); 2 slots, 2 prompts of {DS_CUT_TOKENS} tokens cut from "
+            f"5d's, 2 greedy tokens each; the rank's wall {[round(o['9k']['phase_s'], 1) for o in outs]} s")
+        if any(o["9k"]["results"] != o0["results"] for o in outs):
+            raise AssertionError("phase 9k: the ranks served different tokens")
+        if sorted(o0["results"]) != [0, 1] or any(len(v) != 2 for v in o0["results"].values()):
+            raise AssertionError(f"phase 9k: not every request got its 2 tokens: {o0['results']}")
+        firsts = []
+        for rid, want_l in enumerate(first_9k):
+            scale = max(1.0, float(np.abs(want_l).max()))
+            row = {"scale": scale, "flips": [o["9k"]["flips"][rid] for o in outs]}
+            for r, o in enumerate(outs):
+                err = float(np.abs(o["9k"]["first_logits"][rid] - want_l).max())
+                rep_l = o["9k"]["replayed_logits"].get(rid)
+                rep_err = None if rep_l is None else float(np.abs(rep_l - want_l).max())
+                row[f"rank{r}"] = {"max_abs_err_free": err, "max_abs_err_replayed": rep_err}
+                if not (err <= FULL_TOL * scale or (rep_err is not None and rep_err <= FULL_TOL * scale)):
+                    raise AssertionError(f"phase 9k request {rid} rank {r}: first-token logits off the single-rank "
+                                         f"cut model's: {row}")
+            log(f"  request {rid}: first-token logits against the single-rank cut model (bound {FULL_TOL} x "
+                f"{scale:.3g}): {json.dumps(row)}; tokens {o0['results'][rid]} | single rank {tokens_9k[rid]}")
+            firsts.append(row)
+        per_rank = []
+        for r, o in enumerate(outs):
+            d = o["9k"]
+            bad = [(k, c["collectives"], c["dip_launches"]) for k, calls in d["steps"].items() for c in calls
+                   if c["collectives"] != want[k] or c["dip_launches"] != per_forward]
+            n_calls = sum(len(v) for v in d["steps"].values())
+            rec_r = {"rank": r, "calls": {k: len(v) for k, v in d["steps"].items()},
+                     "collectives_per_step": {k: v[0]["collectives"] for k, v in d["steps"].items()},
+                     "dip_launches_per_step": per_forward, "launches": d["launches"],
+                     "median_wall_ms": {k: statistics.median(c["wall_ms"] for c in v) for k, v in d["steps"].items()},
+                     "profiled_device_ms": d["profiled_device_ms"], "gathered_bytes_per_forward": d["gathered_bytes"],
+                     "peak_gib": d["peak_gib"], "peak_reserved_gib": d["peak_reserved_gib"],
+                     "weights_gib": d["weights_gib"], "build_peak_gib": d["build_peak_gib"], "build_s": d["build_s"],
+                     "wall_s": d["wall_s"], "pools": d["pools"]}
+            log(f"  rank {r}: {json.dumps(rec_r)} ({gpu})")
+            if bad or d["launches"] != {"dip_matmul": per_forward * n_calls, "dip_matmul_f32_x": 0} \
+                    or set(d["steps"]) != {"_prefill_fwd", "_decode"}:
+                raise AssertionError(f"phase 9k rank {r}: all-gathers or launches off the design: {bad[:3]} "
+                                     f"{d['launches']} (want {want}, {per_forward} a forward)")
+            per_rank.append(rec_r)
+        log(f"  per call and rank: {want['_prefill_fwd']['all_gather']} all-gathers a prefill chunk, "
+            f"{want['_decode']['all_gather']} a decode step, {per_forward} DiP launches; the weights' storage "
+            f"assembled a forward {o0['gathered_bytes']} bytes, half of it from the other rank through host memory; "
+            f"the rank's shards {json.dumps(o0['shards'])}")
+        log("phase 9k: each launch shape of the forward on the gathered storage against its plain version")
+        for r, o in enumerate(outs):
+            for h in o["9k"]["held_launches"]:
+                log(f"  rank {r} {h['launch']} ({h['kind']}) M={h['m']} K={h['k']} N={h['n']} {h['epilogue']}/"
+                    f"{h['prologue']} -> {h['out_dtype']}: max|err| vs plain {h['max_abs_err']:.3e} (bound "
+                    f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, library "
+                    f"{h['library_ms']:.4f} ms ({gpu})")
+            if not all(h["ok"] for h in o["9k"]["held_launches"]):
+                raise AssertionError(f"phase 9k rank {r}: a launch shape off its plain version: "
+                                     f"{[h for h in o['9k']['held_launches'] if not h['ok']]}")
+        return {"ranks": per_rank, "first_logits": firsts, "tokens": o0["results"], "single_tokens": tokens_9k,
+                "held": o0["held_launches"], "gathered_bytes": o0["gathered_bytes"],
+                "phase_s": [o["9k"]["phase_s"] for o in outs]}
+
     # ----------------- 9f-9h. the SSM / hybrid families under tp and fsdp ----
     def z_records(eng, orig, reqs):
         """What phases 9f and 9g are held to, from 5e's single-rank engine
         (its captured steps, the hooks taken off): the first-token logits of
         9f's prompts (5e's requests 1 and 0 cut to 256 + 3 and 512 + 2
-        tokens) and 9g's (requests 2 and 3 cut to 256 + 2 and 256 + 1),
+        tokens) and 9g's (request 2 cut to 256 + 1: one request, the time
+        budget, PERF.md §4; its decode steps still split 2 slots 1 / 1),
         uncounted."""
         for attr, f in orig.items():
             setattr(eng, attr, f)
         tp_prompts = [reqs[1].prompt[:259], reqs[0].prompt[:514]]
-        fsdp_prompts = [reqs[2].prompt[:258], reqs[3].prompt[:257]]
+        fsdp_prompts = [reqs[2].prompt[:257]]
         first = {}
         record_first_logits(eng, eng.cfg.vocab_size, first)
         with uncounted():
@@ -3134,23 +3594,97 @@ def main():
         del p32
         torch.cuda.empty_cache()
         log(f"  recorded for phases 9f / 9g: the first-token logits of {[len(p) for p in tp_prompts]}- and "
-            f"{[len(p) for p in fsdp_prompts]}-token prompts cut from requests 1, 0 and 2, 3, and of the same "
+            f"{[len(p) for p in fsdp_prompts]}-token prompts cut from requests 1, 0 and 2, and of the same "
             f"bf16 weights in f32")
+        n_tp = len(tp_prompts)
+        firsts = [first[100 + i] for i in range(n_tp + len(fsdp_prompts))]
         return {"tp_prompts": [p.tolist() for p in tp_prompts], "fsdp_prompts": [p.tolist() for p in fsdp_prompts],
-                "tp_first": [first[100], first[101]], "fsdp_first": [first[102], first[103]],
-                "tp_f32": f32[:2], "fsdp_f32": f32[2:]}
+                "tp_first": firsts[:n_tp], "fsdp_first": firsts[n_tp:], "tp_f32": f32[:n_tp], "fsdp_f32": f32[n_tp:]}
+
+    def check_9j(outs, rec):
+        """9j: Zamba2-2.7B under ``sp`` on 9f's rank parameters
+        (``_phase9j``), held as 9f is: first-token logits no further from
+        the f32 run than F32_DRIFT times 5e's (FULL_TOL printed beside),
+        every call's collectives, launches and replicated dispatches
+        exactly, every launch shape against its plain version."""
+        n_layers, sites = 54, 9
+        # per call and rank: the embedding's reduce-scatter; per Mamba2 layer
+        # in_proj's ring hop and gather of columns, the gated norm's psum,
+        # out_proj's reduce-scatter; per site the hops of wq, wk, wv and
+        # gate+up and the reduce-scatters of wo and w_down; the lm_head's hop
+        # and the logits' gather of vocab
+        step = {"psum": n_layers, "all_gather": n_layers + 1, "reduce_scatter": 1 + n_layers + 2 * sites,
+                "ppermute": n_layers + 4 * sites + 1, "all_to_all": 0}
+        per_call = 3 * n_layers + 10 * sites + 2
+        o0 = outs[0]["9j"]
+        log(f"phase 9j: zamba2-2.7b full width, bf16, sequence parallel (dip_sp) over 2 ranks on 9f's rank parameters "
+            f"({o0['eager_reason']}); 9f's prompts {[len(p) for p in rec['tp_prompts']]}, 4 greedy tokens each (the "
+            f"tail tokens one real row: rank 1 a pad row); the rank's wall {[round(o['9j']['phase_s'], 1) for o in outs]}"
+            f" s")
+        if any(o["9j"]["results"] != o0["results"] for o in outs):
+            raise AssertionError("phase 9j: the ranks served different tokens")
+        if sorted(o0["results"]) != [0, 1] or any(len(v) != 4 for v in o0["results"].values()):
+            raise AssertionError(f"phase 9j: not every request got its 4 tokens: {o0['results']}")
+        firsts = []
+        for rid, want_l in enumerate(rec["tp_first"]):
+            got_l, f32 = o0["first_logits"][rid], rec["tp_f32"][rid]
+            err, scale = float(np.abs(got_l - want_l).max()), max(1.0, float(np.abs(want_l).max()))
+            s32, r32 = float(np.abs(got_l - f32).max()), float(np.abs(want_l - f32).max())
+            log(f"  request {rid}: first-token logits max|err| {err:.4e} against 5e's single-rank engine "
+                f"({FULL_TOL} x max(1, max|5e|) = {FULL_TOL * scale:.4f}: "
+                f"{'within' if err <= FULL_TOL * scale else 'beyond'}); against the f32 run {s32:.4e}, 5e's "
+                f"{r32:.4e} (bound {F32_DRIFT} x 5e's); argmax {int(np.argmax(got_l))} | 5e {int(np.argmax(want_l))} "
+                f"| f32 {int(np.argmax(f32))}; tokens sp {o0['results'][rid]} | 9f tp {outs[0]['9f']['results'][rid]}")
+            if not s32 <= F32_DRIFT * r32:
+                raise AssertionError(f"phase 9j request {rid}: the first-token logits drift from the f32 run "
+                                     f"({s32:.4e}) beyond {F32_DRIFT} x 5e's ({r32:.4e})")
+            firsts.append({"max_abs_err_5e": err, "scale": scale, "within_full_tol": err <= FULL_TOL * scale,
+                           "max_abs_err_f32": s32, "max_abs_err_5e_f32": r32})
+        per_rank = []
+        for r, o in enumerate(outs):
+            d = o["9j"]
+            bad = [(k, c["collectives"], c["dip_launches"], c["replicated"]) for k, calls in d["steps"].items()
+                   for c in calls if c["collectives"] != step or c["dip_launches"] != per_call or c["replicated"]]
+            n_calls = sum(len(v) for v in d["steps"].values())
+            rec_r = {"rank": r, "calls": {k: len(v) for k, v in d["steps"].items()},
+                     "collectives_per_step": {k: v[0]["collectives"] for k, v in d["steps"].items()},
+                     "dip_launches_per_step": per_call, "launches": d["launches"],
+                     "median_wall_ms": {k: statistics.median(c["wall_ms"] for c in v) for k, v in d["steps"].items()},
+                     "profiled_device_ms": d["profiled_device_ms"], "peak_gib": d["peak_gib"],
+                     "peak_reserved_gib": d["peak_reserved_gib"], "wall_s": d["wall_s"],
+                     "state_pool_bytes": d["state_pool_bytes"], "conv_pool_bytes": d["conv_pool_bytes"]}
+            log(f"  rank {r}: {json.dumps(rec_r)} ({gpu})")
+            if bad or d["launches"] != {"dip_matmul": per_call * n_calls, "dip_matmul_f32_x": 0} \
+                    or set(d["steps"]) != {"chunk", "tail", "decode"}:
+                raise AssertionError(f"phase 9j rank {r}: collectives, launches or replicated weights off the design: "
+                                     f"{bad[:3]} {d['launches']} (want {step}, {per_call} a call)")
+            per_rank.append(rec_r)
+        log(f"  per call and rank: {sum(step.values())} collectives ({step}) and {per_call} DiP launches; 9f's tp "
+            f"call 182 and 163")
+        log("phase 9j: each launch shape of the served forward against its plain version")
+        for r, o in enumerate(outs):
+            for h in o["9j"]["held_launches"]:
+                log(f"  rank {r} {h['launch']} ({h['kind']}) M={h['m']} K={h['k']} N={h['n']} {h['epilogue']}/"
+                    f"{h['prologue']} -> {h['out_dtype']}: max|err| vs plain {h['max_abs_err']:.3e} (bound "
+                    f"{h['bound']:.3e}), {h['ms']:.4f} ms, plain {h['plain_ms']:.4f} ms, library "
+                    f"{h['library_ms']:.4f} ms ({gpu})")
+            if not all(h["ok"] for h in o["9j"]["held_launches"]):
+                raise AssertionError(f"phase 9j rank {r}: a launch shape off its plain version: "
+                                     f"{[h for h in o['9j']['held_launches'] if not h['ok']]}")
+        return {"ranks": per_rank, "first_logits": firsts, "tokens": o0["results"], "held": o0["held_launches"],
+                "collectives_per_call": step, "launches_per_call": per_call, "phase_s": [o["9j"]["phase_s"] for o in outs]}
 
     def phase9z(rec):
         """Zamba2-2.7B over 2 ranks sharing the card (``phase9z_rank``): 9f
-        under ``tp`` and 9g under ``fsdp``, held to 5e's records
-        (``z_records``); 9h's reduced models against single-rank engines on
-        the card from the same seed."""
+        under ``tp``, 9j under ``sp`` and 9g under ``fsdp``, held to 5e's
+        records (``z_records``); 9h's and 9l's reduced models against
+        single-rank engines on the card from the same seed."""
         from repro_torch.distributed import run_world
 
         prompts = [list(range(2, 9)), list(range(40, 57))]  # 7 tokens: all tail; 17: a chunk and a tail token
         single = {}
         with uncounted():
-            for name, arch, overrides, strategy in Z_REDUCED:
+            for name, arch, overrides, strategy in Z_REDUCED + L_REDUCED:
                 c1 = reduced_f32_config(arch, overrides)
                 e1 = Engine(c1, tf_model.init_params(c1, make_generator(SEED, "cuda"), "cuda"),
                             engine_cfg=EngineConfig(slots=2, max_seq=64, prefill_chunk=16), device="cuda")
@@ -3160,7 +3694,7 @@ def main():
                 del e1
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        outs = run_world(phase9z_rank, 2, rec, prompts, timeout=1000.0)
+        outs = run_world(phase9z_rank, 2, rec, prompts, timeout=1200.0)
         world_s = time.perf_counter() - t0
         n_layers, sites = 54, 9
         res = {"world_s": world_s}
@@ -3184,7 +3718,8 @@ def main():
                 f"{[len(p) for p in rec[strategy + '_prompts']]}, {max_new} greedy tokens each")
             if any(o[ph]["results"] != o0["results"] for o in outs):
                 raise AssertionError(f"phase {ph}: the ranks served different tokens")
-            if sorted(o0["results"]) != [0, 1] or any(len(v) != max_new for v in o0["results"].values()):
+            if sorted(o0["results"]) != list(range(len(firsts))) or any(len(v) != max_new
+                                                                      for v in o0["results"].values()):
                 raise AssertionError(f"phase {ph}: not every request got its {max_new} tokens: {o0['results']}")
             # both engines run freely in bf16, in other orders of rounding, and
             # two such runs of this 54-layer stack drift apart by ~6% of the
@@ -3264,6 +3799,7 @@ def main():
             res[ph] = {"ranks": per_rank, "held": outs[0][ph]["held_launches"], "tokens": o0["results"],
                        "first_logits": firsts_cmp}
 
+        res["9j"] = check_9j(outs, rec)
         log("phase 9h: the reduced models in f32 over the 2 ranks against single-rank engines on the card")
         for name, arch, overrides, strategy in Z_REDUCED:
             got = [o["9h"][name] for o in outs]
@@ -3272,7 +3808,25 @@ def main():
                 f"{[g['dip_launches'] for g in got]} (f32 x {[g['dip_f32_x_launches'] for g in got]})")
             if any(g["results"] != single[name] for g in got):
                 raise AssertionError(f"phase 9h {name}: the sharded engine's tokens differ from the single rank's")
+        log(f"phase 9l: the reduced models in f32 under sp and the moe family under fsdp over the 2 ranks against "
+            f"single-rank engines on the card; the rank's wall {[round(o['9l_s'], 1) for o in outs]} s")
+        for name, arch, overrides, strategy in L_REDUCED:
+            got = [o["9l"][name] for o in outs]
+            log(f"  {name} ({arch}{overrides or ''} under {strategy}; in_proj {got[0]['in_proj']}): tokens "
+                f"{got[0]['results']}; the single-rank engine's {single[name]}; DiP launches a rank "
+                f"{[g['dip_launches'] for g in got]} (f32 x {[g['dip_f32_x_launches'] for g in got]}); replicated "
+                f"weights dispatched under sp {[g['replicated'] for g in got]}")
+            if any(g["results"] != single[name] for g in got):
+                raise AssertionError(f"phase 9l {name}: the sharded engine's tokens differ from the single rank's")
+        res["9l"] = {name: {"tokens": single[name], "replicated": outs[0]["9l"][name]["replicated"]}
+                     for name, *_ in L_REDUCED}
         res["launches"] = {
+            "serve_sp_zamba2": {"dip_matmul": sum(o["9j"]["launches"]["dip_matmul"] for o in outs),
+                                "dip_matmul_f32_x": sum(o["9j"]["launches"]["dip_matmul_f32_x"] for o in outs)},
+            "serve_sp_fsdp_reduced": {"dip_matmul": sum(o["9l"][nm]["dip_launches"] for o in outs
+                                                        for nm, *_ in L_REDUCED),
+                                      "dip_matmul_f32_x": sum(o["9l"][nm]["dip_f32_x_launches"] for o in outs
+                                                              for nm, *_ in L_REDUCED)},
             "serve_tp_zamba2": {"dip_matmul": sum(o["9f"]["launches"]["dip_matmul"] for o in outs),
                                 "dip_matmul_f32_x": 0},
             "serve_fsdp_zamba2": {"dip_matmul": sum(o["9g"]["launches"]["dip_matmul"] for o in outs),
@@ -5551,11 +6105,15 @@ def main():
             {key: h[key] for key in ("launch", "kind", "m", "k", "n", "epilogue", "prologue", "out_dtype",
                                      "max_abs_err", "bound", "ms", "plain_ms", "library_ms")}
             | {"bound_ms": b_ms, "bound_by": b_by})
-    # phases 9f / 9g: each launch shape of the zamba2-2.7b forward under tp
-    # (rank 0's shards) and under fsdp (the gathered storage)
-    for ph, key in (("9f", "tp_zamba2_shard_launches"), ("9g", "fsdp_zamba2_launches")):
+    # phases 9f / 9g / 9j / 9i / 9k: each launch shape of the zamba2-2.7b
+    # forward under tp and sp (rank 0's shards) and under fsdp (the gathered
+    # storage), of llama3-8b's under sp and of DeepSeek-V2-Lite's under fsdp
+    for held, key in ((z_out["9f"]["held"], "tp_zamba2_shard_launches"), (z_out["9g"]["held"], "fsdp_zamba2_launches"),
+                      (z_out["9j"]["held"], "sp_zamba2_shard_launches"),
+                      (sharded_out["9i"]["ranks"][0]["held_launches"], "sp_shard_launches"),
+                      (ep_out["9k"]["held"], "fsdp_deepseek_launches")):
         dip_line[key] = []
-        for h in z_out[ph]["held"]:
+        for h in held:
             dual = 2 if h["epilogue"] == "swiglu" else 1
             out_bytes = (4 if h["kind"] == "row" else 2) * (2 if h["epilogue"] == "residual" else 1)
             b_ms, b_by = bound_ms(2 * (h["m"] * h["k"] + dual * h["k"] * h["n"]) + out_bytes * h["m"] * h["n"],

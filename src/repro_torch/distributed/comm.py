@@ -25,7 +25,9 @@ it raises.
 name (``psum``, ``all_gather``, ``reduce_scatter``, ``ppermute``,
 ``all_to_all``) in
 :data:`COUNTS`; the sharded backends call :func:`note_launch` where they
-dispatch a per-shard product, counted as ``launch``.  After
+dispatch a per-shard product, counted as ``launch``, and the ``sp`` model
+path :func:`note_replicated` where a weight the plan leaves replicated
+makes it gather rows (:func:`replicated`).  After
 ``reset(schedule=True)``, every collective and launch is also appended to
 :data:`SCHEDULE` in issue order (the reference's ``collective_schedule``);
 ``dip_sp`` issues each ring hop before the launch it overlaps, and the
@@ -42,7 +44,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["TRANSPORTS", "Mesh", "abstract_mesh", "build_mesh", "psum", "all_gather", "psum_scatter",
-           "all_to_all", "ppermute_start", "note_launch", "reset", "counts", "schedule", "COUNTS", "SCHEDULE"]
+           "all_to_all", "ppermute_start", "note_launch", "note_replicated", "replicated", "reset", "counts",
+           "schedule", "COUNTS", "SCHEDULE"]
 
 TRANSPORTS = ("gloo", "nccl", "host")
 COLLECTIVES = ("psum", "all_gather", "reduce_scatter", "ppermute", "all_to_all")
@@ -77,6 +80,17 @@ def _log(name: str) -> None:
 def note_launch() -> None:
     """Log one per-shard product dispatch (the reference's ``pallas_call``)."""
     _log("launch")
+
+
+def note_replicated() -> None:
+    """Count one dispatch of a weight that the plan leaves replicated where
+    the ``sp`` model path wants its columns split (not in the schedule)."""
+    COUNTS["replicated"] += 1
+
+
+def replicated() -> int:
+    """:func:`note_replicated` calls since :func:`reset`."""
+    return COUNTS.get("replicated", 0)
 
 
 class Mesh:

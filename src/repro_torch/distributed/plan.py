@@ -18,17 +18,21 @@ them.
 * :meth:`ShardingPlan.attach_params` stamps every ``DipWeight`` /
   ``QuantizedDipWeight`` with its plan; :meth:`ShardingPlan.shard_params`
   also cuts each leaf to this rank's slice (the model path's layout under
-  ``tp``, ``ep`` and ``fsdp``).  Under ``tp`` and ``ep``: projections by
-  their plan, the MoE expert banks by expert, the embedding and the
-  lm_head by vocab, everything else whole; under ``ep`` the shared experts
-  stay whole, since the expert-parallel layer runs them plan-free on the
-  rank's tokens.  Under ``fsdp`` (ZeRO-3): every DiP projection, the
-  lm_head included, along its storage K over ``data`` (``shard_weight(...,
-  along="fsdp")``, the layout ``dip_fsdp`` gathers), the embedding's d
-  over ``data`` as the reference's spec cuts it, the norms and the SSM
-  leaves whole.
-* **The SSM leaves under ``tp`` are cut by head**, not as the reference's
-  specs cut them: a rank holds the H / T consecutive heads
+  ``tp``, ``sp``, ``ep`` and ``fsdp``).  Under ``tp``, ``sp`` and ``ep``:
+  projections by their plan, the MoE expert banks by expert, the embedding
+  and the lm_head by vocab, everything else whole (``sp`` consumes the
+  same column / row shards as ``tp``: the reference's specs do not depend
+  on the strategy); under ``ep`` the shared experts stay whole, since the
+  expert-parallel layer runs them plan-free on the rank's tokens.  Under
+  ``fsdp`` (ZeRO-3): every DiP projection, the lm_head included, along its
+  storage K over ``data`` (``shard_weight(..., along="fsdp")``, the layout
+  ``dip_fsdp`` gathers), the embedding's d over ``data`` as the reference's
+  spec cuts it, each MoE expert bank along its contraction dim (d of the
+  gate / up banks (L, E, d, ffe), ffe of the down bank (L, E, ffe, d)) and
+  the router (L, d, E) along d, as the reference's ``expert_bank`` and
+  ``router`` specs cut them, the norms and the SSM leaves whole.
+* **The SSM leaves under ``tp`` and ``sp`` are cut by head**, not as the
+  reference's specs cut them: a rank holds the H / T consecutive heads
   (:meth:`ShardingPlan.ssm_heads`) of ``dt_bias``, ``A_log`` and ``D``,
   their ``d_inner / T`` channels of the gated norm's gain ``norm``, and of
   ``conv_w`` / ``conv_b`` its heads' x channels followed by the whole B
@@ -45,12 +49,12 @@ them.
   place every collective by hand, so :meth:`ShardingPlan.constrain` is the
   identity.
 
-Strategies this slice runs: ``tp``, ``ep`` and ``fsdp`` (the model path
-and the matmul backends), ``sp`` (the matmul backends), and ``gspmd`` over
-a one-rank mesh.  ``pp`` and ``gspmd`` over more than one rank raise,
-citing ROADMAP.md Queue 1 "Distributed"; so does a ``stage`` axis
-(:func:`make_local_mesh`).  ``make_production_mesh`` (a 256/512-chip TPU
-pod layout) waits with the dry-run.
+Strategies this slice runs: ``tp``, ``sp``, ``ep`` and ``fsdp`` (the
+model path and the matmul backends) and ``gspmd`` over a one-rank mesh.
+``pp`` and ``gspmd`` over more than one rank raise, citing ROADMAP.md
+Queue 1 "Distributed"; so does a ``stage`` axis (:func:`make_local_mesh`).
+``make_production_mesh`` (a 256/512-chip TPU pod layout) waits with the
+dry-run.
 """
 
 from __future__ import annotations
@@ -71,7 +75,8 @@ __all__ = ["WeightPlan", "LAYER_RULES", "ShardingPlan", "make_plan", "make_local
 _DIST = 'ROADMAP.md Queue 1 "Distributed"'
 STRATEGIES = ("gspmd", "tp", "fsdp", "sp", "ep", "pp")
 _RUNS = ("gspmd", "tp", "fsdp", "sp", "ep")
-_MODEL_PATHS = ("tp", "ep", "fsdp")
+_MODEL_PATHS = ("tp", "sp", "ep", "fsdp")
+_HEAD_SPLIT = ("tp", "sp")  # the strategies whose ranks run H / T SSM heads
 
 Spec = Tuple[Optional[str], ...]
 
@@ -271,10 +276,10 @@ class ShardingPlan:
 
     def ssm_heads(self) -> Tuple[int, int]:
         """(first head, heads) of this rank's SSM heads: H / T consecutive
-        heads under ``tp`` (the model path requires T to divide H), all of
-        them under the other strategies."""
+        heads under ``tp`` and ``sp`` (the model path requires T to divide
+        H), all of them under the other strategies."""
         h = self.cfg.n_ssm_heads
-        if self.strategy != "tp" or self.tp_size == 1:
+        if self.strategy not in _HEAD_SPLIT or self.tp_size == 1:
             return 0, h
         if h % self.tp_size:
             raise ValueError(f"{h} SSM heads do not divide {self.tp}={self.tp_size}")
@@ -421,17 +426,38 @@ class ShardingPlan:
             return 0, n_experts
         return self.tp_rank * (n_experts // tp), n_experts // tp
 
+    def _fsdp_cut(self, name: str, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of the MoE leaf ``t`` along ``dim`` (the dim
+        :meth:`fsdp_whole` names) over ``data``; a dim that does not divide
+        the axis stays whole, as the reference's ``fsdp_if`` replicates it."""
+        whole, n = self.fsdp_whole(name), self.fsdp_size
+        if n == 1 or whole % n:
+            return t
+        if t.shape[dim] == whole:
+            return _slice(t, dim, self.fsdp_rank, n)
+        if t.shape[dim] * n == whole:
+            return t
+        raise ValueError(f"{name} holds {t.shape[dim]} along dim {dim}: neither the whole {whole} nor this "
+                         f"rank's {whole // n}")
+
+    def fsdp_whole(self, name: str) -> int:
+        """The whole length of the dim that ``fsdp`` cuts in the MoE leaf
+        ``name`` (dim 2 of a bank, dim 1 of the router): d, or ffe for the
+        down bank."""
+        return self.cfg.d_ff_expert if name == "w_down" else self.cfg.d_model
+
     def shard_leaf(self, name: str, t: Any) -> Any:
         """This rank's slice of the leaf ``name`` (module doc): a projection
         by its plan (:func:`shard_weight`: along its tensor-parallel split,
         or under ``fsdp`` along K; under ``ep`` the shared experts keep
         their whole storage with the plan attached), an expert bank (L, E,
-        ., .) by expert (:meth:`experts_local`), the embedding's rows by
+        ., .) by expert (:meth:`experts_local`; under ``fsdp`` along its
+        contraction dim, and the router along d), the embedding's rows by
         vocab (under ``fsdp`` its columns by d), the SSM leaves under
-        ``tp`` by head (:meth:`ssm_heads`), every other leaf whole (the
-        biases too: the backend takes its columns).  A slice is a copy, so
-        the whole leaf can be freed; a leaf that already is this rank's
-        slice (its shape and plan say so) passes through."""
+        ``tp`` and ``sp`` by head (:meth:`ssm_heads`), every other leaf
+        whole (the biases too: the backend takes its columns).  A slice is
+        a copy, so the whole leaf can be freed; a leaf that already is this
+        rank's slice (its shape and plan say so) passes through."""
         if self.strategy not in _MODEL_PATHS:
             raise NotImplementedError(f"the {self.strategy!r} strategy's model path is not ported yet ({_DIST}); "
                                       f"the model runs under {_MODEL_PATHS}")
@@ -451,7 +477,10 @@ class ShardingPlan:
                 return t
             raise ValueError(f"{name}: storage {tuple(t.data.shape)} (plan {t.plan}) is neither the whole "
                              f"{whole} nor this rank's slice {tuple(part)} under {wp}")
-        if _rule_for(name, tuple(t.shape)) == "expert_bank":
+        rule = _rule_for(name, tuple(t.shape))
+        if fsdp and rule in ("expert_bank", "router"):
+            return self._fsdp_cut(name, t, 2 if rule == "expert_bank" else 1)
+        if rule == "expert_bank":
             e = self.cfg.n_experts
             e0, n = self.experts_local(e)
             if t.shape[1] == e:
@@ -473,7 +502,7 @@ class ShardingPlan:
         if name == "lm_head":
             raise ValueError("a natural lm_head under a plan: the model path stores its projections "
                              "DiP-permutated (cfg.uses_dip_storage)")
-        if name in _SSM_BY_HEAD and self.cfg.ssm_state and self.strategy == "tp":
+        if name in _SSM_BY_HEAD and self.cfg.ssm_state and self.strategy in _HEAD_SPLIT:
             return self._ssm_local(name, t)
         return t
 

@@ -34,14 +34,18 @@ launch; a decode step's slots split over the ranks), as the reference's
 ``--sharded`` serves over the local devices: a world of one rank a local
 card (over NCCL; on the CPU 2 ranks over gloo), each rank drawing only its
 slice of the seeded weights (``init_params(plan=)``) and running the
-engine on it; rank 0's results are printed.  ``tp`` serves the dense,
-moe, ssm and hybrid families, ``fsdp`` the dense, ssm and hybrid ones (the
-moe family under ``fsdp`` raises, ROADMAP.md Queue 1 "Distributed")::
+engine on it; rank 0's results are printed.  Both serve the dense, moe,
+ssm and hybrid families (the moe family under ``fsdp``: each rank K / T of
+every projection and its block of each expert bank's contraction dim and
+of the router, all gathered at the layer).  There is no ``--sharded sp``,
+as the reference's launcher has none: the ``sp`` model path serves
+through ``Server(plan=make_plan(mesh, cfg_sp, "decode"))``::
 
     python -m repro_torch.launch.serve --arch llama3-8b --full --sharded tp
     python -m repro_torch.launch.serve --arch zamba2-2.7b --full --sharded fsdp
     python -m repro_torch.launch.serve --arch llama3-8b --reduced --dtype float32 --device cpu --sharded fsdp
     python -m repro_torch.launch.serve --arch zamba2-2.7b --reduced --dtype float32 --device cpu --sharded tp
+    python -m repro_torch.launch.serve --arch deepseek-v2-lite-16b --reduced --dtype float32 --device cpu --sharded fsdp
 """
 
 from __future__ import annotations

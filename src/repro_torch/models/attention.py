@@ -32,6 +32,19 @@ every rank: ``w_dkv``'s column-parallel output (the reference's plan splits
 it) is all-gathered, one all-gather a layer, and ``w_krope`` (replicated
 where 64 / T columns are no 64-tile shard) gives the whole RoPE key; the
 latent caches and pools are whole on every rank; ``wo`` is row-parallel.
+
+Under ``sp`` (``rows=``, a ``layers.SeqRows``) the GQA functions take the
+rank's rows of the stream (2-D, (m, d)) and convert at their boundary: each
+column projection (``dip_sp``) gives every row of the rank's heads, cropped
+to the real rows and viewed as (B, S, ...) (``layers.sp_columns``; a
+replicated K/V projection gives the rank's rows of every head, then one
+all-gather of rows); RoPE, the cache write and attention run as under
+``tp``; the output is padded back to T m rows for ``wo``'s row-parallel
+``dip_sp`` (one reduce-scatter), which returns the rank's rows with the
+residual added.  Under ``fsdp`` (model axis 1) every function runs whole on
+the rank's rows: the projections gather their storage in ``dip_fsdp``, and
+MLA gathers ``w_uk`` / ``w_uv`` before de-shearing them (one all-gather
+each).
 """
 
 from __future__ import annotations
@@ -62,14 +75,18 @@ __all__ = [
 NEG_INF = -1e30
 
 
-def _natural(w):
+def _natural(w, plan=None):
     """Natural-layout view of a weight (de-shears a ``DipWeight``): MLA's
     absorbed form contracts ``w_uk`` / ``w_uv`` per head, so the permutated
     storage cannot be consumed directly.  De-sheared on every call, as the
-    reference does."""
-    if isinstance(w, (api.DipWeight, api.QuantizedDipWeight)):
-        return w.to_natural()
-    return w
+    reference does; under ``fsdp`` the rank's K rows of the storage are
+    all-gathered first (one all-gather)."""
+    if not isinstance(w, (api.DipWeight, api.QuantizedDipWeight)):
+        return w
+    if plan is not None and plan.strategy == "fsdp" and getattr(w.plan, "fsdp", None):
+        data = comm.all_gather(w.data, plan.mesh, plan.fsdp, dim=-2)
+        w = w.with_data(data, w.scale) if isinstance(w, api.QuantizedDipWeight) else w.with_data(data)
+    return w.to_natural()
 
 
 def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
@@ -184,20 +201,32 @@ def _own_heads(y: torch.Tensor, w, n: int, hd: int, plan) -> torch.Tensor:
 
 def _whole_columns(y: torch.Tensor, w, plan) -> torch.Tensor:
     """A projection's whole output on every rank: a column-parallel
-    weight's shards all-gathered (one ``all_gather``), any other as it is."""
-    if plan is None or getattr(getattr(w, "plan", None), "kind", None) != "column":
+    weight's shards all-gathered (one ``all_gather``; none over a model
+    axis of 1), any other as it is."""
+    if plan is None or plan.tp_size == 1 or getattr(getattr(w, "plan", None), "kind", None) != "column":
         return y
     return comm.all_gather(y, plan.mesh, plan.tp, dim=-1)
 
 
-def _qkv(x, p, cfg, nk, plan):
-    """q (B, S, H, hd), k and v (B, S, KV, hd) on this rank's heads."""
-    b, s, _ = x.shape
+def _batch(x, rows) -> Tuple[int, int]:
+    """(B, S) of the block's input: x's leading dims, or under ``sp`` the
+    row layout's."""
+    return (rows.batch, rows.seq) if rows is not None else tuple(x.shape[:2])
+
+
+def _qkv(x, p, cfg, nk, plan, rows=None):
+    """q (B, S, H, hd), k and v (B, S, KV, hd) on this rank's heads (under
+    ``sp`` every real row of them, from the rank's rows of x)."""
+    b, s = _batch(x, rows)
     (h, kv), hd = _heads(cfg, plan), cfg.resolved_head_dim
-    q = _own_heads(layers.linear(x, p["wq"], p.get("bq"), **nk), p["wq"], h, hd, plan).reshape(b, s, h, hd)
-    k = _own_heads(layers.linear(x, p["wk"], p.get("bk"), **nk), p["wk"], kv, hd, plan).reshape(b, s, kv, hd)
-    v = _own_heads(layers.linear(x, p["wv"], p.get("bv"), **nk), p["wv"], kv, hd, plan).reshape(b, s, kv, hd)
-    return q, k, v
+
+    def proj(name, bias, n):
+        y = layers.linear(x, p[name], p.get(bias), **nk)
+        if rows is not None:
+            y = layers.sp_columns(y, p[name], rows)
+        return _own_heads(y, p[name], n, hd, plan).reshape(b, s, n, hd)
+
+    return proj("wq", "bq", h), proj("wk", "bk", kv), proj("wv", "bv", kv)
 
 
 def _proj_kwargs(cfg, x, norm):
@@ -207,7 +236,11 @@ def _proj_kwargs(cfg, x, norm):
     return lk, nk
 
 
-def _out_proj(out, p, lk, residual):
+def _out_proj(out, p, lk, residual, rows=None):
+    """``wo`` on the attention output (B, S, heads), the residual fused;
+    under ``sp`` on all T m rows, returning the rank's m."""
+    if rows is not None:
+        out = rows.pad(out)
     if residual is not None:
         return layers.linear(out, p["wo"], epilogue="residual", epilogue_operands=(residual,), **lk)
     return layers.linear(out, p["wo"], **lk)
@@ -217,7 +250,7 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
                   cache: Optional[Dict] = None, rope=None,
                   residual: Optional[torch.Tensor] = None, norm: Optional[torch.Tensor] = None,
                   kv_chunk: int = 0, attn_backend: Optional[str] = None,
-                  plan=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+                  plan=None, rows=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Projections + RoPE + cache update + attention + out projection.
 
     ``cache`` is one layer's dense cache (``init_gqa_cache``); this chunk's
@@ -226,11 +259,12 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
     advanced.  ``residual`` fuses the block's skip
     connection into the out projection; ``norm`` is the attention-norm gain
     when the backend fuses prologues (x then arrives un-normalized).
-    ``plan``: this rank's heads (module doc)."""
-    b, s, _ = x.shape
+    ``plan``: this rank's heads; ``rows``: the ``sp`` layout, x and the
+    residual the rank's rows (module doc)."""
+    b, s = _batch(x, rows)
     (h, _), hd = _heads(cfg, plan), cfg.resolved_head_dim
     lk, nk = _proj_kwargs(cfg, x, norm)
-    q, k, v = _qkv(x, p, cfg, nk, plan)
+    q, k, v = _qkv(x, p, cfg, nk, plan, rows)
     q = layers.apply_rope(q, positions, cfg.rope_theta, tables=rope)
     k = layers.apply_rope(k, positions, cfg.rope_theta, tables=rope)
 
@@ -246,7 +280,7 @@ def gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor,
         out = attention_core(q, ck, cv, positions, k_pos, kv_valid_len=end,
                              kv_chunk=kv_chunk, backend=attn_backend)
         new_cache = {"k": ck, "v": cv, "pos": end}
-    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), new_cache
+    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual, rows), new_cache
 
 
 # ------------------------------------------------------------------- paged --
@@ -318,24 +352,25 @@ def _gather_indices(block_tables: torch.Tensor, block_size: int) -> torch.Tensor
 def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tensor, cache: Dict,
                         block_tables: torch.Tensor, kv_quant: str = "none", rope=None,
                         residual: Optional[torch.Tensor] = None,
-                        norm: Optional[torch.Tensor] = None, plan=None) -> Tuple[torch.Tensor, Dict]:
+                        norm: Optional[torch.Tensor] = None, plan=None,
+                        rows=None) -> Tuple[torch.Tensor, Dict]:
     """GQA decode against the paged pool: x (B, 1, d), one token per slot at
     ``positions`` (B,).  Writes this token's K/V into its slot's block (in
     place), gathers the slot's context and attends to positions <= its own.
     Free slots point at the null block; their rows are ignored.  A quantized
     pool (``kv_quant``) stores the rows as codes and scales.  ``plan``: this
-    rank's heads (module doc)."""
-    b, s, _ = x.shape
+    rank's heads; ``rows``: the ``sp`` layout (module doc)."""
+    b, s = _batch(x, rows)
     (h, kv), hd = _heads(cfg, plan), cfg.resolved_head_dim
     bs = cache["k"].shape[1]
     lk, nk = _proj_kwargs(cfg, x, norm)
-    q, k, v = _qkv(x, p, cfg, nk, plan)
+    q, k, v = _qkv(x, p, cfg, nk, plan, rows)
     pos2 = positions[:, None]
     q = layers.apply_rope(q, pos2, cfg.rope_theta, tables=rope)
     k = layers.apply_rope(k, pos2, cfg.rope_theta, tables=rope)
 
-    rows = torch.arange(b, device=x.device)
-    phys = block_tables[rows, positions // bs] * bs + positions % bs
+    slot_ids = torch.arange(b, device=x.device)
+    phys = block_tables[slot_ids, positions // bs] * bs + positions % bs
     cks, cvs = cache.get("k_scale"), cache.get("v_scale")
     ck = paged_write(cache["k"], phys, k[:, 0], scale_pool=cks, kv_quant=kv_quant)
     cv = paged_write(cache["v"], phys, v[:, 0], scale_pool=cvs, kv_quant=kv_quant)
@@ -352,7 +387,7 @@ def paged_gqa_attention(x: torch.Tensor, p: Dict, cfg, *, positions: torch.Tenso
     new_cache = {"k": ck, "v": cv}
     if kv_quant != "none":
         new_cache.update(k_scale=cks, v_scale=cvs)
-    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual), new_cache
+    return _out_proj(out.reshape(b, s, h * hd), p, lk, residual, rows), new_cache
 
 
 # --------------------------------------------------------------------- MLA --
@@ -380,8 +415,8 @@ def _mla_projections(x, p, cfg, nk, rope, pos, plan=None):
     c_kv = _whole_columns(layers.linear(x, p["w_dkv"], **nk), p["w_dkv"], plan)        # (B, S, r)
     k_rope = _whole_columns(layers.linear(x, p["w_krope"], **nk), p["w_krope"], plan)  # (B, S, dr) shared
     k_rope = layers.apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta, tables=rope)[:, :, 0, :]
-    w_uk = _own_heads(_natural(p["w_uk"]), p["w_uk"], h, dn, plan).to(x.dtype).reshape(r, h, dn)
-    w_uv = _own_heads(_natural(p["w_uv"]), p["w_uv"], h, dv, plan).to(x.dtype).reshape(r, h, dv)
+    w_uk = _own_heads(_natural(p["w_uk"], plan), p["w_uk"], h, dn, plan).to(x.dtype).reshape(r, h, dn)
+    w_uv = _own_heads(_natural(p["w_uv"], plan), p["w_uv"], h, dv, plan).to(x.dtype).reshape(r, h, dv)
     return q_nope, q_rope, c_kv, k_rope, w_uk, w_uv
 
 

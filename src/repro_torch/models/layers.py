@@ -5,7 +5,9 @@
 projection goes through ``api.matmul`` with the configured backend, and a
 ``DipWeight`` carries its own logical width.  ``cross_entropy_loss`` is the
 unfused loss over materialized logits; ``kernels/lm_head_ce.py`` keeps its
-masking contract without them.
+masking contract without them.  :class:`SeqRows` is the row layout of the
+sequence-parallel (``sp``) model path, and :func:`sp_columns` the all-rows
+output of one of its column projections.
 """
 
 from __future__ import annotations
@@ -14,11 +16,13 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import api
+from repro_torch.distributed import comm
 
 __all__ = ["linear", "rms_norm", "swiglu", "rope_frequencies", "rope_tables", "apply_rope",
-           "cross_entropy_loss", "resolve_constrain"]
+           "cross_entropy_loss", "resolve_constrain", "SeqRows", "sp_columns"]
 
 _BIAS_EPILOGUES = ("bias", "bias_gelu", "bias_silu")
 
@@ -51,6 +55,57 @@ def linear(x: torch.Tensor, w, b: Optional[torch.Tensor] = None, *,
     return api.matmul(x, w, backend=backend, epilogue=epilogue, epilogue_operands=operands,
                       prologue=prologue, prologue_operands=tuple(prologue_operands),
                       prologue_eps=prologue_eps)
+
+
+class SeqRows:
+    """The rows of a (B, S) batch under the ``sp`` model path: the B S rows
+    flattened and padded to T m rows, m = ceil(B S / T); rank r holds rows
+    r m .. (r + 1) m - 1 of the residual stream (a rank past the real rows
+    holds pad rows, zeros at the embedding).  ``dip_sp``'s column
+    projections return all T m rows of the rank's columns, its row
+    projections the rank's m rows of every column."""
+
+    def __init__(self, plan, batch: int, seq: int):
+        self.plan, self.batch, self.seq = plan, int(batch), int(seq)
+        self.rows = self.batch * self.seq
+        self.local = -(-self.rows // plan.tp_size)
+
+    def pad(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, S, n) or (B S, n) -> all T m rows (n), the pad rows zero."""
+        y = y.reshape(self.rows, y.shape[-1])
+        pad = self.local * self.plan.tp_size - self.rows
+        return F.pad(y, (0, 0, 0, pad)) if pad else y
+
+    def whole(self, y: torch.Tensor) -> torch.Tensor:
+        """All T m rows -> the real ones as (B, S, n): no pad row reaches a
+        cache, a state or the sampler."""
+        return y[:self.rows].reshape(self.batch, self.seq, y.shape[-1])
+
+    def own(self, y: torch.Tensor) -> torch.Tensor:
+        """Every row (B, S, n), held whole on each rank -> this rank's m."""
+        return self.pad(y).narrow(0, self.plan.tp_rank * self.local, self.local)
+
+    def gather(self, y: torch.Tensor) -> torch.Tensor:
+        """The ranks' rows (m, n) -> every real row (B, S, n) on each rank:
+        one all-gather."""
+        return self.whole(comm.all_gather(y, self.plan.mesh, self.plan.tp, dim=0))
+
+    def scatter(self, y: torch.Tensor) -> torch.Tensor:
+        """Each rank's partial (B, S, n) of every row -> this rank's m rows
+        of their sum: one reduce-scatter."""
+        return comm.psum_scatter(self.pad(y), self.plan.mesh, self.plan.tp, dim=0)
+
+
+def sp_columns(y: torch.Tensor, w, rows: SeqRows) -> torch.Tensor:
+    """A projection's output under ``sp`` as every real row (B, S, n): a
+    column-parallel weight's ``dip_sp`` output (all rows, the rank's
+    columns) cropped; a weight the plan leaves replicated (its width does
+    not split over the axis) gives the rank's rows of every column, which
+    one all-gather of rows completes (counted, ``comm.note_replicated``)."""
+    if getattr(getattr(w, "plan", None), "kind", None) == "column":
+        return rows.whole(y)
+    comm.note_replicated()
+    return rows.gather(y)
 
 
 def resolve_constrain(plan, constrain=None):

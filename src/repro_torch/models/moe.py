@@ -43,6 +43,22 @@ gave them all) and its slice of the banks, E / T consecutive experts
 
 Each plan-free shared-expert launch is logged (``comm.note_launch``), so
 ``comm.schedule()`` shows the dispatch before them.
+
+* **ZeRO-3** (strategy ``fsdp``, a (data = T, model = 1) mesh; the port of
+  the reference's ``expert_bank`` / ``router`` specs under ``fsdp``).  The
+  rank holds its block of each bank's contraction dim (d of the gate / up
+  banks, ffe of the down bank) and of the router's d
+  (``ShardingPlan.shard_leaf``), and enters the layer with its rows
+  (``transformer._row_split``: a decode step's slots split over the axis,
+  a batch-1 prefill whole on every rank).  It all-gathers the router and
+  each bank (one all-gather a leaf), routes its rows exactly as the
+  single-rank layer routes them (routing is per sequence and the rows
+  split by whole sequences, so each group's capacity and drops are the
+  single-rank layer's), runs every expert, and runs the shared experts
+  through ``dense_ffn`` on ``dip_fsdp`` (one all-gather of storage a
+  weight).  ``aux``, ``dropped`` and the ids are the rank's rows' (no
+  collective sums them: the ranks' drops add up to the single-rank
+  layer's).
 """
 
 from __future__ import annotations
@@ -256,6 +272,20 @@ def _moe_ffn_split(x, p, cfg, plan, route_ids, on_route):
     return out, r["aux"], r["dropped"], r["ids"]
 
 
+def _moe_ffn_fsdp(x, p, cfg, plan, route_ids, on_route):
+    """The ZeRO-3 layer on this rank's rows (module doc): the router and
+    the banks gathered whole, one all-gather a leaf that the plan cut."""
+    full = dict(p)
+    for name, dim in (("router", 0), ("w_gate", 1), ("w_up", 1), ("w_down", 1)):
+        if p[name].shape[dim] != plan.fsdp_whole(name):
+            full[name] = comm.all_gather(p[name], plan.mesh, plan.fsdp, dim=dim)
+    out, r = _experts(x, full, cfg, route_ids, on_route)
+    shared = _shared_params(p)
+    if cfg.n_shared_experts and shared is not None:
+        out = out + dense_ffn(x, shared, cfg)
+    return out, r["aux"], r["dropped"], r["ids"]
+
+
 def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = False,
             route_ids: Optional[torch.Tensor] = None,
             on_route: Optional[Callable[[torch.Tensor], None]] = None) -> Tuple[torch.Tensor, ...]:
@@ -270,7 +300,8 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = 
     rerun under ``torch.utils.checkpoint`` may stop before the layer
     returns).  Under a sharding ``plan`` this rank's part of the
     expert-parallel or expert-split layer (module doc); every rank returns
-    the whole ``out``, ``aux`` and ``dropped``.
+    the whole ``out``, ``aux`` and ``dropped``.  Under ``fsdp`` x is the
+    rank's rows, and so are ``out``, ``aux``, ``dropped`` and the ids.
 
     Gradients reach x, the router and the banks through the gates (the
     top-k probabilities, renormalized), the aux loss and the gathers; the
@@ -281,7 +312,9 @@ def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = 
         t = plan.tp_size
         # the rank's tokens: by batch when B divides the axis, else by sequence
         dim = 0 if b % t == 0 else (1 if s % t == 0 else None)
-        if plan.expert_plan is not None and t > 1 and cfg.n_experts % t == 0 and dim is not None:
+        if plan.strategy == "fsdp":
+            res = _moe_ffn_fsdp(x, p, cfg, plan, route_ids, on_route)
+        elif plan.expert_plan is not None and t > 1 and cfg.n_experts % t == 0 and dim is not None:
             res = _moe_ffn_ep(x, p, cfg, plan, dim, route_ids, on_route)
         else:
             res = _moe_ffn_split(x, p, cfg, plan, route_ids, on_route)

@@ -45,15 +45,15 @@ def ssm_dims(cfg) -> Dict[str, int]:
 
 
 def _tp(plan):
-    """The plan whose heads this block splits: a ``tp`` plan (None under
-    no plan and under ``fsdp``, whose ranks run whole blocks on their
-    rows)."""
-    return plan if plan is not None and plan.strategy == "tp" else None
+    """The plan whose heads this block splits: a ``tp`` or ``sp`` plan
+    (None under no plan and under ``fsdp``, whose ranks run whole blocks
+    on their rows)."""
+    return plan if plan is not None and plan.strategy in ("tp", "sp") else None
 
 
 def rank_dims(cfg, plan=None) -> Dict[str, int]:
-    """:func:`ssm_dims` as this rank runs the block: under a ``tp`` plan
-    its heads (``first_head``, ``heads``, of ``plan.ssm_heads()``), their
+    """:func:`ssm_dims` as this rank runs the block: under a ``tp`` or
+    ``sp`` plan its heads (``first_head``, ``heads``, of ``plan.ssm_heads()``), their
     ``d_inner`` channels and a conv of those plus the whole B and C."""
     dims = ssm_dims(cfg)
     h0, hl = (0, dims["heads"]) if _tp(plan) is None else plan.ssm_heads()
@@ -135,14 +135,21 @@ def _chunked(dt, a, bmat, cmat, xh, init, q):
     return (y_intra + y_inter).reshape(bsz, length, h, pdim), hprev
 
 
-def _in_proj(x, w, lk, tp) -> torch.Tensor:
+def _in_proj(x, w, lk, tp, rows=None) -> torch.Tensor:
     """z | x | B | C | dt, all ``in_dim`` columns, on every rank: under a
     ``tp`` plan a column-parallel ``in_proj``'s shards (each padded to its
     storage width: the last ones hold the padding columns) are
     all-gathered (one ``all_gather``) and cropped; a replicated one gives
-    them whole."""
+    them whole.  Under ``sp`` (``rows``) of every real row, as (B, L, .):
+    a column-parallel ``in_proj`` (``dip_sp``) gives every row of the
+    rank's columns, cropped to the real rows before the gather of columns;
+    a replicated one the rank's rows of every column, then one all-gather
+    of rows (``layers.sp_columns``)."""
     y = layers.linear(x, w, **lk)
-    if tp is None or getattr(w.plan, "kind", None) != "column":
+    column = getattr(getattr(w, "plan", None), "kind", None) == "column"
+    if rows is not None:
+        y = layers.sp_columns(y, w, rows)
+    if tp is None or not column:
         return y
     y = F.pad(y, (0, w.data.shape[-1] - y.shape[-1]))
     return comm.all_gather(y, tp.mesh, tp.tp, dim=-1)[..., :w.d_out]
@@ -161,7 +168,8 @@ def _gated_norm(y: torch.Tensor, gain: torch.Tensor, eps: float, d_inner: int, t
 
 
 def ssd_block(x: torch.Tensor, p: Dict, cfg, *, cache: Optional[Dict] = None,
-              residual: Optional[torch.Tensor] = None, plan=None) -> Tuple[torch.Tensor, Optional[Dict]]:
+              residual: Optional[torch.Tensor] = None, plan=None,
+              rows=None) -> Tuple[torch.Tensor, Optional[Dict]]:
     """One Mamba2 block on x (B, L, d): the chunked SSD, or with a cache and
     L = 1 the O(1) decode update.  ``cache`` (``init_ssm_cache``, one
     layer's) is read, not written: the returned cache holds the new conv
@@ -179,14 +187,25 @@ def ssd_block(x: torch.Tensor, p: Dict, cfg, *, cache: Optional[Dict] = None,
     ``d_inner / T`` channels (one all-reduce, the residual added once): 3
     collectives a block with a column-parallel ``in_proj``, 2 with a
     replicated one.  Under ``fsdp`` the block runs whole on the rank's rows
-    and its projections gather their storage (``dip_fsdp``)."""
-    bsz, seqlen, _ = x.shape
+    and its projections gather their storage (``dip_fsdp``).
+
+    Under ``sp`` (``rows``, a ``layers.SeqRows``: x and the residual the
+    rank's rows (m, d) of the stream) the scan needs every row of a
+    sequence in order, so the rank runs its heads over every row as under
+    ``tp``: ``in_proj`` gives them (:func:`_in_proj`: one ring hop and the
+    gather of columns where column-parallel, one all-gather of rows where
+    replicated), and ``out_proj`` is ``dip_sp``'s row path on the T m rows
+    padded back (one reduce-scatter), returning the rank's rows with the
+    residual added: 4 collectives a block with a column-parallel
+    ``in_proj`` on 2 ranks, 3 with a replicated one.  The pad rows never
+    reach the conv history or the state."""
+    bsz, seqlen = (rows.batch, rows.seq) if rows is not None else x.shape[:2]
     tp = _tp(plan)
     dims = rank_dims(cfg, plan)
     di, h, pdim, n = dims["d_inner"], dims["heads"], dims["headdim"], dims["state"]
     lk = dict(backend=cfg.matmul_backend, compute_dtype=x.dtype)
 
-    zxbcdt = _in_proj(x, p["in_proj"], lk, tp)          # cropped to in_dim
+    zxbcdt = _in_proj(x, p["in_proj"], lk, tp, rows)    # cropped to in_dim
     z, xin, bmat, cmat, dt = torch.split(zxbcdt, [cfg.d_inner, cfg.d_inner, n, n, cfg.n_ssm_heads], dim=-1)
     if tp is not None:  # the rank's heads of z, x and dt
         c0, h0 = dims["first_head"] * pdim, dims["first_head"]
@@ -234,6 +253,8 @@ def ssd_block(x: torch.Tensor, p: Dict, cfg, *, cache: Optional[Dict] = None,
     # gated RMSNorm, then the out projection (skip connection in its epilogue)
     y = y.to(x.dtype) * F.silu(z)
     y = _gated_norm(y, p["norm"], cfg.norm_eps, cfg.d_inner, tp)
+    if rows is not None:
+        y = rows.pad(y)
     if residual is not None:
         out = layers.linear(y, p["out_proj"], epilogue="residual", epilogue_operands=(residual,), **lk)
     else:

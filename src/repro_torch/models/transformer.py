@@ -31,7 +31,8 @@ norms, and the embeddings stay float, as in the reference.
 
 Under a ``ShardingPlan`` (``plan=``, strategy ``tp`` or ``ep``, the dense
 and moe families, and ``tp`` the ssm and hybrid families too; the port of
-the reference's explicit ``dip_tp`` / ``dip_ep`` model paths) each rank
+the reference's explicit ``dip_tp`` / ``dip_ep`` model paths; ``sp`` and
+``fsdp`` below) each rank
 runs ``forward`` / ``decode_step_fn`` /
 ``paged_decode_step_fn`` on its slice of the parameters
 (``plan.shard_params``): the projections dispatch on their ``WeightPlan``
@@ -54,8 +55,8 @@ their conv channels; the hybrid's shared block runs the dense block's
 the embedding and all-gathers the logits.  Zamba2-2.7B on 2 ranks: 1 + 54
 x 3 + 9 x 2 + 1 = 182 collectives a step.
 
-Under ``fsdp`` (ZeRO-3, the dense, ssm and hybrid families on a (data =
-T, model = 1) mesh) every rank holds K / T rows of each projection's
+Under ``fsdp`` (ZeRO-3, the dense, moe, ssm and hybrid families on a
+(data = T, model = 1) mesh) every rank holds K / T rows of each projection's
 storage and the embedding's d / T columns; the embedding's rows are
 looked up on every token and all-gathered over d; each projection
 dispatches ``dip_fsdp`` (one all-gather of its storage a weight, one
@@ -64,9 +65,28 @@ reference's ``dp_for``: a decode step's slots), each rank running its own
 and all-gathering the logits' rows; otherwise (the engine's batch-1
 prefill) every rank runs the same rows.  The caches and pools stay whole
 on every rank, which writes only the rows it runs; a tied head
-all-gathers the embedding.  The ``sp`` model path and the moe family
-under ``fsdp`` raise (ROADMAP.md Queue 1 "Distributed"); so does training
-under a plan.
+all-gathers the embedding.  The moe family runs its layer on the rank's
+rows with the router and each expert bank all-gathered (``models/moe.py``)
+and MLA gathers ``w_uk`` / ``w_uv`` before de-shearing them.
+
+Under ``sp`` (sequence parallel, the dense, ssm and hybrid families; the
+weights, caches and pools are ``tp``'s) the residual stream is the rank's
+block of the flattened B S rows, padded to T m rows
+(``layers.SeqRows``): the embedding's vocab-parallel lookup ends in one
+reduce-scatter to the rank's rows; the norms and the residual adds run on
+those rows; each column projection dispatches ``dip_sp`` (T launches, T -
+1 ring hops) and gives every row of the rank's heads or columns, cropped
+to the real rows before RoPE, the cache write, attention, the conv and the
+scan, which run as under ``tp``; ``wo``, ``w_down`` and ``out_proj``
+dispatch ``dip_sp``'s row path (one reduce-scatter each) back to the
+rank's rows; a separate lm_head is ``dip_sp`` column and its logits
+all-gathered over the vocab, a tied one multiplies every row (one
+all-gather of rows) by the rank's vocab rows.  The pad rows are cropped
+before the logits leave: every rank returns the whole (B, S) logits.
+llama3-8b on 2 ranks: 32 x (4 + 2) + 1 + 2 = 195 collectives and 32 x 10
++ 2 = 322 launches a step; Zamba2-2.7B: 54 x 4 + 9 x 6 + 3 = 273 and 54 x
+3 + 9 x 10 + 2 = 254.  The moe family under ``sp`` raises (ROADMAP.md
+Queue 1 "Distributed"); so does training under a plan.
 """
 
 from __future__ import annotations
@@ -102,7 +122,7 @@ __all__ = [
 
 _DISTRIBUTED = 'ROADMAP.md Queue 1 "Distributed"'
 _KNOWN_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-_PLANNED = ("tp", "ep", "fsdp")  # the strategies whose model path runs
+_PLANNED = ("tp", "sp", "ep", "fsdp")  # the strategies whose model path runs
 
 
 def _require_served(cfg) -> None:
@@ -120,24 +140,27 @@ def _require_served(cfg) -> None:
 
 def _plannable(cfg, strategy: str) -> bool:
     """The families a strategy's model path runs, tied or separate heads:
-    under ``tp`` dense with GQA, moe (GQA or MLA, with or without shared
-    experts), ssm and hybrid; under ``ep`` dense with GQA and moe; under
-    ``fsdp`` dense with GQA, ssm and hybrid."""
+    under ``tp`` and ``fsdp`` dense with GQA, moe (GQA or MLA, with or
+    without shared experts), ssm and hybrid; under ``sp`` dense with GQA,
+    ssm and hybrid; under ``ep`` dense with GQA and moe."""
     dense = cfg.family == "dense" and not cfg.use_mla
+    moe_fam = cfg.family == "moe"
     ssm_fams = cfg.family in ("ssm", "hybrid")
-    if strategy == "fsdp":
+    if strategy == "sp":
         return dense or ssm_fams
-    return dense or cfg.family == "moe" or (strategy == "tp" and ssm_fams)
+    if strategy == "ep":
+        return dense or moe_fam
+    return dense or moe_fam or ssm_fams
 
 
 def _require_plan(cfg, plan) -> None:
     """The model path a plan runs in this slice (module doc).  ``fsdp``: a
     (data, model = 1) mesh whose data axis divides d_model (the
-    embedding's columns).  ``tp`` / ``ep``: heads split over the TP axis,
-    ``wo`` (and a dense FFN's ``w_down``) row-parallel and the column
-    projections column-parallel as the plan decides them (K/V, and MLA's
-    q, latent and up-projections, may replicate where their width is too
-    small to split: each rank then takes its heads of the whole
+    embedding's columns).  ``tp`` / ``sp`` / ``ep``: heads split over the
+    TP axis, ``wo`` (and a dense FFN's ``w_down``) row-parallel and the
+    column projections column-parallel as the plan decides them (K/V, and
+    MLA's q, latent and up-projections, may replicate where their width is
+    too small to split: each rank then takes its heads of the whole
     projection).  A column-parallel head projection must split at a head
     boundary (no padding columns); ``in_proj``, whose output is gathered
     whole, may split anywhere or replicate.  A Mamba2 block needs its SSM
@@ -320,11 +343,12 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
     f32 draw never holds more than one layer's bank.
 
     Under a ``plan`` (``distributed.make_plan``) each drawn matrix, each
-    layer's expert bank and the embedding are cut to this rank's slice
-    before the next is drawn: the values of
+    layer's expert bank and router and the embedding are cut to this rank's
+    slice before the next is drawn: the values of
     ``plan.shard_params(init_params(cfg, generator, device))``, from the
     same draws (rank r of T holds experts [r E / T, (r + 1) E / T) of the
-    single-rank draw), while the rank never holds more than its slice and
+    single-rank draw, or under ``fsdp`` its block of each bank's
+    contraction dim), while the rank never holds more than its slice and
     one whole matrix or layer's bank.  The SSM's per-head and per-channel
     leaves (a few vectors a layer) are drawn whole and then cut."""
     dev = resolve_device(device)
@@ -347,12 +371,13 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
             return init(shape, dtype=dt, device=dev)
         scale = (1.0 / max(1, fan)) ** 0.5
         if dip is None and len(shape) > 2:
-            lead = tuple(shape[:1])
-            body = tuple(shape[1:])
-            e0, n = (0, body[0]) if plan is None or len(shape) != 4 else plan.experts_local(body[0])
-            data = torch.empty(lead + (n,) + body[1:], dtype=dt, device=dev)
-            for layer in data:  # one layer's whole draw, of which this rank keeps its experts
-                layer.copy_(normal(body, scale, dt)[e0:e0 + n])
+            def layer():  # one layer's whole draw, of which this rank keeps its slice
+                return kept(name, normal(shape[1:], scale, dt)[None])[0]
+
+            first = layer()
+            data = torch.empty((shape[0],) + tuple(first.shape), dtype=dt, device=dev)
+            for i, lyr in enumerate(data):
+                lyr.copy_(first if i == 0 else layer())
             return data
         if dip is None:
             return kept(name, normal(shape, scale, dt))
@@ -462,9 +487,11 @@ def _record(moe_trace, routing) -> None:
 
 
 def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_backend=None,
-                       replay_ids=None, on_route=None, plan=None):
+                       replay_ids=None, on_route=None, plan=None, rows=None):
     """Attention then FFN, each with its skip connection; returns ``(x,
-    new_cache, routing)`` (``_ffn``'s routing)."""
+    new_cache, routing)`` (``_ffn``'s routing).  ``rows``: the ``sp``
+    layout, x the rank's rows (the FFN's ``dip_sp`` launches take them as
+    they are)."""
     fuse = _fuses_rmsnorm(cfg)
     attn_in, attn_g = (x, lp["attn_norm"]) if fuse else (
         layers.rms_norm(x, lp["attn_norm"], cfg.norm_eps), None)
@@ -476,18 +503,19 @@ def _transformer_block(x, lp, cfg, *, positions, rope, cache, kv_chunk=0, attn_b
     else:
         x, new_cache = attention.gqa_attention(
             attn_in, lp, cfg, positions=positions, cache=cache, rope=rope, residual=x,
-            norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan,
+            norm=attn_g, kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan, rows=rows,
         )
     x, routing = _ffn(x, lp, cfg, fuse, replay_ids, on_route, plan)
     return x, new_cache, routing
 
 
-def _embed(table: torch.Tensor, tokens: torch.Tensor, plan) -> torch.Tensor:
+def _embed(table: torch.Tensor, tokens: torch.Tensor, plan, rows=None) -> torch.Tensor:
     """The token lookup; under a plan vocab-parallel: this rank's rows of
     the table answer the tokens in its range, the others give zeros, and
-    one all-reduce sums the ranks' rows (exactly: one rank is nonzero).
-    Under ``fsdp`` the rank's d / T columns of every token's row, then one
-    all-gather of the columns."""
+    one all-reduce sums the ranks' rows (exactly: one rank is nonzero);
+    under ``sp`` (``rows``) one reduce-scatter instead, to the rank's rows
+    of the stream.  Under ``fsdp`` the rank's d / T columns of every
+    token's row, then one all-gather of the columns."""
     if plan is None:
         return F.embedding(tokens, table)
     if plan.strategy == "fsdp":
@@ -495,12 +523,12 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor, plan) -> torch.Tensor:
     v_loc = table.shape[0]
     local = tokens - plan.tp_rank * v_loc
     hit = (local >= 0) & (local < v_loc)
-    rows = F.embedding(local.clamp(0, v_loc - 1), table)
-    return comm.psum(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device)),
-                     plan.mesh, plan.tp)
+    found = F.embedding(local.clamp(0, v_loc - 1), table)
+    found = torch.where(hit[..., None], found, torch.zeros((), dtype=found.dtype, device=found.device))
+    return rows.scatter(found) if rows is not None else comm.psum(found, plan.mesh, plan.tp)
 
 
-def _head(params, cfg, x, plan=None):
+def _head(params, cfg, x, plan=None, rows=None):
     """The lm_head through ``linear`` on final-normed x, padded-vocab lanes
     masked to -1e30.  A tied head is the embedding cast to the compute
     dtype, multiplied in f32: the exact products of the compute-dtype
@@ -510,18 +538,25 @@ def _head(params, cfg, x, plan=None):
     (a tied one: the rank's vocab rows of the embedding) and its logits are
     all-gathered (a separate head's in the compute dtype, before the f32
     cast); under ``fsdp`` a separate head gathers its storage in the
-    dispatch, a tied one all-gathers the embedding's columns first."""
+    dispatch, a tied one all-gathers the embedding's columns first.  Under
+    ``sp`` (``rows``; x the rank's rows) a separate head's ``dip_sp``
+    column output is cropped to the real rows before the gather of vocab,
+    and a tied one first all-gathers the rows; the logits are (B, S, V)."""
     cd = dtype_of(cfg.compute_dtype)
     vocab_split = plan is not None and plan.strategy != "fsdp"
     if cfg.tie_embeddings:
         table = params["embed"]
         if plan is not None and plan.strategy == "fsdp":
             table = comm.all_gather(table, plan.mesh, plan.fsdp, dim=1)
+        if rows is not None:
+            x = rows.gather(x)
         logits = torch.matmul(x.to(cd).float(), table.to(cd).float().t())
         if vocab_split:
             logits = comm.all_gather(logits, plan.mesh, plan.tp, dim=-1)
     else:
         logits = layers.linear(x, params["lm_head"], backend=cfg.matmul_backend, compute_dtype=cd)
+        if rows is not None:
+            logits = rows.whole(logits)
         if vocab_split:
             logits = comm.all_gather(logits, plan.mesh, plan.tp, dim=-1)
         logits = logits.float()
@@ -529,6 +564,12 @@ def _head(params, cfg, x, plan=None):
         lane = torch.arange(logits.shape[-1], device=logits.device)
         logits = logits.masked_fill(lane >= cfg.vocab_size, -1e30)
     return logits
+
+
+def _seq_rows(plan, batch: int, seq: int):
+    """The ``sp`` row layout of a (batch, seq) call (``layers.SeqRows``),
+    None under the other strategies."""
+    return layers.SeqRows(plan, batch, seq) if plan is not None and plan.strategy == "sp" else None
 
 
 def _row_split(plan, batch: int):
@@ -594,8 +635,11 @@ def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = Non
     ``plan`` (a ``distributed.ShardingPlan``) runs the rank's part of the
     sharded forward on ``plan.shard_params`` parameters (module doc; under
     ``fsdp`` the rank's rows where the batch splits, the cache's rows of
-    them written, the logits of every row returned); ``constrain(x, tag)`` is the reference's activation hook, called
-    at ``"act_btd"`` (the residual stream after the embedding and after each
+    them written, the logits of every row returned; under ``sp`` the
+    rank's rows of the stream, every row of the rank's heads in the cache,
+    the logits and ``return_hidden``'s states of every row returned);
+    ``constrain(x, tag)`` is the reference's activation hook, called at
+    ``"act_btd"`` (the residual stream after the embedding and after each
     block) and ``"logits"``, and a plan's (``plan.constrain``) wins: the
     identity, since the explicit strategies place every collective.
     """
@@ -603,29 +647,32 @@ def forward(params: Dict[str, Any], cfg, *, tokens: Optional[torch.Tensor] = Non
     _require_plan(cfg, plan)
     constrain = layers.resolve_constrain(plan, constrain)
     cd = dtype_of(cfg.compute_dtype)
+    b, s = (embeddings if embeddings is not None else tokens).shape[:2]
+    rows = _seq_rows(plan, b, s)
     if embeddings is not None:
-        x = embeddings.to(cd)
+        x = embeddings.to(cd) if rows is None else rows.own(embeddings.to(cd))
     else:
-        x = _embed(params["embed"], tokens, plan).to(cd)
-    split = _row_split(plan, x.shape[0])
+        x = _embed(params["embed"], tokens, plan, rows).to(cd)
+    split = _row_split(plan, b)
     x = constrain(_own_rows(x, split), "act_btd")
-    s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     if cache is not None:
         positions = positions + cache["pos"]
     remat = cfg.remat == "block" and cache is None and torch.is_grad_enabled()
     auxes: List[torch.Tensor] = []
-    rows = None if cache is None else dict(cache, layers=_own_rows(cache["layers"], split, 1))
+    layer_cache = None if cache is None else dict(cache, layers=_own_rows(cache["layers"], split, 1))
     if cfg.ssm_state:
-        x = _scan_mamba(params, cfg, x, rows, positions, remat, kv_chunk, attn_backend, plan)
+        x = _scan_mamba(params, cfg, x, layer_cache, positions, remat, kv_chunk, attn_backend, plan, rows)
     else:
-        x = _scan_transformer(params, cfg, x, rows, positions, remat, kv_chunk, attn_backend, moe_trace,
-                              auxes, plan, constrain)
+        x = _scan_transformer(params, cfg, x, layer_cache, positions, remat, kv_chunk, attn_backend, moe_trace,
+                              auxes, plan, constrain, rows)
     # in place: the layers read pos before, in stream order
     new_cache = None if cache is None else dict(cache, pos=cache["pos"].add_(s))
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    out = (x if return_hidden else constrain(_gather_rows(_head(params, cfg, x, plan), plan, split), "logits")), \
-        new_cache
+    if return_hidden:
+        out = (x if rows is None else rows.gather(x)), new_cache
+    else:
+        out = constrain(_gather_rows(_head(params, cfg, x, plan, rows), plan, split), "logits"), new_cache
     if not return_aux:
         return out
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -639,7 +686,7 @@ def _maybe_remat(block, x, remat):
 
 
 def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, moe_trace, auxes,
-                      plan=None, constrain=None):
+                      plan=None, constrain=None, rows=None):
     """The transformer families' layer loop; the cache is written in place
     and each MoE layer's router aux loss appended to ``auxes``."""
     start = cache["pos"] if cache is not None else 0
@@ -657,7 +704,8 @@ def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_ba
                     moe_trace.setdefault("recompute_ids", {})[i] = ids
             x, _, routing = _transformer_block(x, lp, cfg, positions=positions, rope=rope, cache=lcache,
                                                kv_chunk=kv_chunk, attn_backend=attn_backend,
-                                               replay_ids=_replay(moe_trace, i), on_route=seen, plan=plan)
+                                               replay_ids=_replay(moe_trace, i), on_route=seen, plan=plan,
+                                               rows=rows)
             return x if constrain is None else constrain(x, "act_btd"), routing
 
         x, routing = _maybe_remat(block, x, remat)
@@ -667,11 +715,11 @@ def _scan_transformer(params, cfg, x, cache, positions, remat, kv_chunk, attn_ba
     return x
 
 
-def _mamba_block(x, lp, cfg, cache, plan=None):
+def _mamba_block(x, lp, cfg, cache, plan=None, rows=None):
     """RMSNorm, then the SSD block with the skip connection in its out
-    projection's epilogue (``plan``: ``ssm.ssd_block``'s)."""
+    projection's epilogue (``plan``, ``rows``: ``ssm.ssd_block``'s)."""
     return ssm.ssd_block(layers.rms_norm(x, lp["norm_in"], cfg.norm_eps), lp, cfg, cache=cache, residual=x,
-                         plan=plan)
+                         plan=plan, rows=rows)
 
 
 def _ssm_cache(pools, i):
@@ -686,7 +734,7 @@ def _store_ssm(pools, i, new):
     pools["state"][i].copy_(new["state"])
 
 
-def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, plan=None):
+def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend, plan=None, rows=None):
     """The mamba2 stack; for the hybrid, after every ``attn_every``-th layer
     the shared attention+FFN block, whose parameters every call site shares
     and whose K/V cache is the site's own (``cache["layers"]["attn"]``,
@@ -701,7 +749,7 @@ def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend,
         rope = layers.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     for i, lp in enumerate(_layers(params["layers"], cfg.n_layers)):
         def block(x, lp=lp, lcache=None if pools is None else _ssm_cache(pools, i)):
-            out, new = _mamba_block(x, lp, cfg, lcache, plan)
+            out, new = _mamba_block(x, lp, cfg, lcache, plan, rows)
             if new is not None:
                 _store_ssm(pools, i, new)
             return out
@@ -713,7 +761,8 @@ def _scan_mamba(params, cfg, x, cache, positions, remat, kv_chunk, attn_backend,
 
             def shared_block(x, acache=acache):
                 return _transformer_block(x, shared, cfg, positions=positions, rope=rope, cache=acache,
-                                          kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan)[0]
+                                          kv_chunk=kv_chunk, attn_backend=attn_backend, plan=plan,
+                                          rows=rows)[0]
 
             x = _maybe_remat(shared_block, x, remat)
     return x
@@ -836,7 +885,7 @@ def decode_step_fn(cfg, *, attn_backend: Optional[str] = None, plan=None, constr
     return step
 
 
-def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace, layer, plan=None):
+def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace, layer, plan=None, rows=None):
     """One attention+FFN block of the paged decode step (a layer of the
     transformer families, or the hybrid's shared block at one site);
     a MoE layer's routing goes into ``moe_trace``."""
@@ -847,7 +896,7 @@ def _paged_block(x, lp, cfg, pools, positions, block_tables, rope, moe_trace, la
     if cfg.use_mla:
         x, _ = attention.paged_mla_attention(attn_in, lp, cfg, plan=plan, **kw)
     else:
-        x, _ = attention.paged_gqa_attention(attn_in, lp, cfg, plan=plan, **kw)
+        x, _ = attention.paged_gqa_attention(attn_in, lp, cfg, plan=plan, rows=rows, **kw)
     x, routing = _ffn(x, lp, cfg, fuse, _replay(moe_trace, layer), plan=plan)
     _record(moe_trace, routing)
     return x
@@ -862,15 +911,18 @@ def paged_decode_step_fn(cfg, *, plan=None, constrain=None):
     decode (positions and block tables are read only by the hybrid's
     shared block).  ``moe_trace``, ``plan`` and ``constrain`` as in
     :func:`forward`: under ``fsdp`` a rank decodes its slots where the
-    slots divide the data axis, writing only their rows of the pools."""
+    slots divide the data axis, writing only their rows of the pools;
+    under ``sp`` the stream is the rank's rows of the slots, and every
+    slot's row of the rank's heads is written."""
     _require_served(cfg)
     _require_plan(cfg, plan)
     constrain = layers.resolve_constrain(plan, constrain)
 
     def step(params, cache, tokens, positions, block_tables, moe_trace=None):
         cd = dtype_of(cfg.compute_dtype)
-        x = _embed(params["embed"], tokens, plan).to(cd)
-        split = _row_split(plan, x.shape[0])  # fsdp: this rank's slots
+        rows = _seq_rows(plan, *tokens.shape[:2])
+        x = _embed(params["embed"], tokens, plan, rows).to(cd)
+        split = _row_split(plan, tokens.shape[0])  # fsdp: this rank's slots
         x = constrain(_own_rows(x, split), "act_btd")
         positions, block_tables = _own_rows(positions, split), _own_rows(block_tables, split)
         pools = cache["layers"]
@@ -880,19 +932,19 @@ def paged_decode_step_fn(cfg, *, plan=None, constrain=None):
             if cfg.is_hybrid:
                 rope = layers.rope_tables(positions[:, None], cfg.resolved_head_dim, cfg.rope_theta)
             for i, lp in enumerate(lps):
-                x, new = _mamba_block(x, lp, cfg, _ssm_cache(slots, i), plan)
+                x, new = _mamba_block(x, lp, cfg, _ssm_cache(slots, i), plan, rows)
                 _store_ssm(slots, i, new)
                 if cfg.is_hybrid and (i + 1) % cfg.attn_every == 0:
                     j = i // cfg.attn_every
                     x = _paged_block(x, params["shared_attn"], cfg, {nm: t[j] for nm, t in pools["attn"].items()},
-                                     positions, block_tables, rope, None, j, plan)
+                                     positions, block_tables, rope, None, j, plan, rows)
         else:
             rope = layers.rope_tables(positions[:, None], _rope_dim(cfg), cfg.rope_theta)
             for i, lp in enumerate(lps):
                 x = constrain(_paged_block(x, lp, cfg, {nm: pool[i] for nm, pool in pools.items()}, positions,
-                                           block_tables, rope, moe_trace, i, plan), "act_btd")
+                                           block_tables, rope, moe_trace, i, plan, rows), "act_btd")
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return constrain(_gather_rows(_head(params, cfg, x, plan), plan, split), "logits"), cache
+        return constrain(_gather_rows(_head(params, cfg, x, plan, rows), plan, split), "logits"), cache
 
     return step
 

@@ -361,3 +361,184 @@ def sharded_model_rank(rank, strategy, cases):
             _storage_shapes(drawn) == _storage_shapes(whole)
         out[case["name"]] = rec
     return out
+
+
+def _own_rows_of(rows, a):
+    """This rank's rows (m, .) of a whole (B, S, .) numpy batch under the
+    ``sp`` layout ``rows``."""
+    return rows.own(torch.from_numpy(np.asarray(a, np.float32)))
+
+
+def sp_model_rank(rank, cases):
+    """A 2-rank world (data 1, model 2) for ``test_torch_sharded_sp.py``.
+    Each case runs under its ``sp`` plan on the converted reference
+    parameters: layer 0's block on the rank's rows of ``x`` (the Mamba2
+    block: a chunked prefill into a cache, then one O(1) decode token; the
+    dense block: one chunk with no cache, its schedule recorded), then
+    ``forward`` on each token batch, then the ``Engine`` (tokens, the
+    counts of one decode step, the pools); where the case asks, the rank's
+    own draw against its slice of the whole draw."""
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.convert import params_from_jax
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.models import layers, ssm
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig
+
+    warnings.simplefilter("ignore", UserWarning)  # the reduced widths replicate (announced once)
+    mesh = make_local_mesh(data=1, model=2)
+    out = {}
+    for case in cases:
+        cfg = _serving_cfg(case["cfg"])
+        plan = make_plan(mesh, cfg, "decode")
+        params = plan.shard_params(params_from_jax(case["params"], cfg, device="cpu"))
+        rec = {"leaves": _storage_shapes(params)}
+        x = case.get("x")
+        if x is not None and cfg.ssm_state:
+            lp = _layer0(params["layers"])
+            b, s = x.shape[0], x.shape[1] - 1
+            chunk, step = layers.SeqRows(plan, b, s), layers.SeqRows(plan, b, 1)
+            cache = ssm.init_ssm_cache(b, cfg, torch.float32, device="cpu", plan=plan)
+            comm.reset(schedule=True)
+            y0, c0 = ssm.ssd_block(_own_rows_of(chunk, x[:, :-1]), lp, cfg, cache=cache, plan=plan, rows=chunk)
+            rec["block_counts"], rec["block_schedule"] = comm.counts(), comm.schedule()
+            y1, c1 = ssm.ssd_block(_own_rows_of(step, x[:, -1:]), lp, cfg, cache=c0, plan=plan, rows=step)
+            rec["block"] = {"chunk out": _np(y0), "chunk state": _np(c0["state"]), "chunk conv": _np(c0["conv"]),
+                            "decode out": _np(y1), "decode state": _np(c1["state"]), "decode conv": _np(c1["conv"])}
+        elif x is not None:
+            lp = _layer0(params["layers"])
+            b, s = x.shape[:2]
+            rows = layers.SeqRows(plan, b, s)
+            pos = torch.arange(s)
+            rope = layers.rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+            comm.reset(schedule=True)
+            y, _, _ = tf_model._transformer_block(_own_rows_of(rows, x), lp, cfg, positions=pos, rope=rope,
+                                                  cache=None, plan=plan, rows=rows)
+            rec["block_counts"], rec["block_schedule"] = comm.counts(), comm.schedule()
+            rec["block"] = {"out": _np(y)}
+        rec["forward"] = []
+        for toks in case["tokens"]:
+            comm.reset()
+            logits, _ = tf_model.forward(params, cfg, tokens=torch.from_numpy(toks), plan=plan)
+            rec["forward"].append((_np(logits), comm.counts(), comm.replicated()))
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=2, max_seq=32, prefill_chunk=8), device="cpu",
+                     plan=plan)
+        rec["tokens"] = _engine_run(eng, case["prompts"], case["max_new"])
+        rec["prefill_chunks"] = eng.last_stats["prefill_chunks"]
+        rec["pools"] = {k: tuple(v.shape) for k, v in eng.kv.pools["layers"].items() if k != "attn"}
+        rec["attn_pools"] = {k: tuple(v.shape) for k, v in eng.kv.pools["layers"].get("attn", {}).items()}
+        rec["decode_counts"] = _decode_counts(eng)
+        if case.get("draw"):
+            drawn = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu", plan=plan)
+            whole = plan.shard_params(tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu"))
+            rec["draw_equal"] = all(torch.equal(a, b) for a, b in zip(tree.leaves(drawn), tree.leaves(whole))) \
+                and _storage_shapes(drawn) == _storage_shapes(whole)
+        out[case["name"]] = rec
+    return out
+
+
+def moe_fsdp_rank(rank, layer_cases, cases):
+    """A 2-rank world (data 2, model 1) for
+    ``test_torch_sharded_moe_fsdp.py``.  Each layer case is layer 0's
+    ``moe_ffn`` under its ``fsdp`` plan on this rank's sequence of ``x``
+    (out, aux, dropped, ids, counts, schedule); each model case the rank's
+    leaves, ``forward`` on each token batch, the ``Engine`` (tokens, one
+    decode step's counts, the pools), the rank's draw against its slice of
+    the whole draw, and the rank's slice through a checkpoint (restored
+    into its own shapes; into the whole banks' it raises)."""
+    import os
+    import tempfile
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import restore_pytree, save_pytree
+    from repro_torch.convert import params_from_jax
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.serving import Engine, EngineConfig
+
+    warnings.simplefilter("ignore", UserWarning)
+    mesh = make_local_mesh(data=2, model=1)
+    layers_out = {}
+    for case in layer_cases:
+        cfg = _serving_cfg(case["cfg"])
+        plan = make_plan(mesh, cfg, "decode")
+        lp = _layer0(plan.shard_params(params_from_jax(case["params"], cfg, device="cpu"))["layers"])
+        x = torch.from_numpy(case["x"])
+        n = x.shape[0] // 2
+        comm.reset(schedule=True)
+        o, aux, dropped, ids = moe.moe_ffn(x[rank * n:(rank + 1) * n], lp, cfg, plan=plan, return_routing=True)
+        layers_out[case["name"]] = dict(out=_np(o), aux=float(aux), dropped=int(dropped), ids=_np(ids),
+                                        counts=comm.counts(), schedule=comm.schedule(),
+                                        banks={k: tuple(lp[k].shape) for k in ("router", "w_gate", "w_up",
+                                                                               "w_down")})
+    models_out = {}
+    for case in cases:
+        cfg = _serving_cfg(case["cfg"])
+        plan = make_plan(mesh, cfg, "decode")
+        whole = params_from_jax(case["params"], cfg, device="cpu")
+        params = plan.shard_params(whole)
+        rec = {"leaves": _storage_shapes(params), "forward": []}
+        for toks in case["tokens"]:
+            comm.reset()
+            logits, _ = tf_model.forward(params, cfg, tokens=torch.from_numpy(toks), plan=plan)
+            rec["forward"].append((_np(logits), comm.counts()))
+        eng = Engine(cfg, params, engine_cfg=EngineConfig(slots=2, max_seq=32, prefill_chunk=8), device="cpu",
+                     plan=plan)
+        rec["tokens"] = _engine_run(eng, case["prompts"], case["max_new"])
+        rec["pools"] = {k: tuple(v.shape) for k, v in eng.kv.pools["layers"].items()}
+        rec["decode_counts"] = _decode_counts(eng)
+        drawn = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu", plan=plan)
+        ref_draw = plan.shard_params(tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu"))
+        rec["draw_equal"] = all(torch.equal(a, b) for a, b in zip(tree.leaves(drawn), tree.leaves(ref_draw))) \
+            and _storage_shapes(drawn) == _storage_shapes(ref_draw)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "ck")
+            save_pytree(path, params)
+            got = restore_pytree(path, tree.unflatten(params, [torch.zeros_like(t) for t in tree.leaves(params)]))
+            rec["restored_equal"] = all(torch.equal(a, b) for a, b in zip(tree.leaves(got), tree.leaves(params)))
+            try:
+                restore_pytree(path, dict(params, layers=dict(params["layers"], w_gate=whole["layers"]["w_gate"])))
+                rec["whole_bank_restore"] = "restored"
+            except ValueError as err:
+                rec["whole_bank_restore"] = str(err)
+        models_out[case["name"]] = rec
+    return layers_out, models_out
+
+
+def cuda_moe_fsdp_rank(rank, layers, tokens, seed):
+    """The card's side of ``test_torch_cuda_sharded.py``'s DeepSeek-V2-Lite
+    ``fsdp`` layer: a 2-rank world sharing card 0 (``host``); each rank
+    draws the first ``layers`` layers at full width whole and, under the
+    ``fsdp`` plan, only its slice (``init_params(plan=)``), then runs layer
+    0's MoE on its sequence of a (2, ``tokens``) batch through the gathered
+    banks beside the whole-bank layer on the whole batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_local_mesh, make_plan
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf_model
+
+    dev = torch.device("cuda", 0)
+    mesh = make_local_mesh(data=2, model=1, transport="host", device=dev)
+    base = dataclasses.replace(get_config("deepseek-v2-lite-16b"), n_layers=layers, param_dtype="bfloat16",
+                               compute_dtype="bfloat16")
+    single = dataclasses.replace(base, matmul_backend="dip")
+    fsdp = dataclasses.replace(base, matmul_backend="dip_fsdp", sharding="fsdp")
+    plan = make_plan(mesh, fsdp, "decode")
+    whole = _layer0(tf_model.init_params(single, make_generator(seed, dev), dev)["layers"])
+    local = _layer0(tf_model.init_params(fsdp, make_generator(seed, dev), dev, plan=plan)["layers"])
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn((2, tokens, base.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    want, _, want_dropped, want_ids = moe.moe_ffn(x, whole, single, return_routing=True)
+    comm.reset()
+    got, _, dropped, ids = moe.moe_ffn(x[rank:rank + 1], local, fsdp, plan=plan, return_routing=True)
+    torch.cuda.synchronize(dev)
+    return {"got": _np(got), "want": _np(want[rank:rank + 1]), "ids_equal": bool(torch.equal(ids, want_ids[rank:rank + 1])),
+            "dropped": int(dropped), "want_dropped": int(want_dropped), "counts": comm.counts(),
+            "banks": {k: tuple(local[k].shape) for k in ("router", "w_gate", "w_up", "w_down")}}

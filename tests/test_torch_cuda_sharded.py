@@ -15,7 +15,11 @@ against the plain version of the whole product on the CPU, both within
 for bf16 x) against the plain version on the same card inputs (int8 byte
 for byte); the int8 and bf16 row outputs equal to their partials' sum
 (two shards, order-free) cast once; the launches counted by the kernels'
-own counters equal the communicator's.
+own counters equal the communicator's.  At Zamba2-2.7B's shapes: the
+``tp`` / ``fsdp`` shards, and the ``sp`` model path's ``dip_sp`` column
+launch on one real row and one pad row and its row launch with the
+reduce-scatter.  DeepSeek-V2-Lite's MoE layer under ``fsdp`` on gathered
+banks against the whole-bank layer.
 """
 
 import numpy as np
@@ -206,3 +210,79 @@ def test_zamba2_out_proj_row_partial_against_plain(zamba2_world):
         got, want, dtype, launched = r[i][4]
         assert dtype == "torch.float32" and launched == 1 and got.shape == (4, Z_D)
         _close(got, want, "float32", "zamba2 out_proj row partial (K 2560 a rank, f32 store)")
+
+
+def _zamba2_sp_cases():
+    """The ``sp`` model path's launches on a Zamba2 tail token (1 real row,
+    rank 1 holding a pad row of zeros): in_proj's ``dip_sp`` column (each
+    rank its row, then one ring hop: both rows of its 5248 storage
+    columns) and out_proj's ``dip_sp`` row (K 2560 a rank, one
+    reduce-scatter, the residual added on the rank's row); bf16."""
+    r = np.random.default_rng(30)
+
+    def bf16(*shape):
+        return torch.from_numpy(r.normal(0, 1, shape).astype(np.float32)).bfloat16().float().numpy()
+
+    def padded(a):
+        return np.concatenate([a, np.zeros_like(a)], 0)
+
+    return [dict(x=padded(bf16(1, Z_D)), ws=[bf16(Z_D, Z_IN) * Z_D ** -0.5], path="sp_col", dtype="bfloat16",
+                 epilogue="none"),
+            dict(x=padded(bf16(1, Z_INNER)), ws=[bf16(Z_INNER, Z_D) * Z_INNER ** -0.5], path="sp_row",
+                 dtype="bfloat16", epilogue="residual", resid=padded(bf16(1, Z_D)))]
+
+
+@pytest.fixture(scope="module")
+def zamba2_sp_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    cases = _zamba2_sp_cases()
+    return cases, run_world(ranks.cuda_rank, 2, "host", cases, timeout=600)
+
+
+def test_zamba2_sp_launches_with_a_pad_row_against_single_rank_and_plain(zamba2_sp_world):
+    cases, res = zamba2_sp_world
+    for i, case in enumerate(cases):
+        got = _global(case["path"], [r[i][0] for r in res])
+        assert got.shape == (2, Z_IN if case["path"] == "sp_col" else Z_D), (case["path"], got.shape)
+        _close(got, res[0][i][1], "bfloat16", f"zamba2 {case['path']} against the single-rank dispatch")
+        _close(got, _plain(case), "bfloat16", f"zamba2 {case['path']} against the plain version")
+        if case["path"] == "sp_col":  # the pad row stays zero
+            assert not np.any(got[1])
+        for r in res:
+            counts, counted = r[i][2], r[i][3]
+            want = {"sp_col": (1, 0, 2), "sp_row": (0, 1, 1)}[case["path"]]  # (ppermute, reduce_scatter, launch)
+            assert (counts["ppermute"], counts["reduce_scatter"], counts["launch"]) == want, (case["path"], counts)
+            assert counted == counts["launch"], (case["path"], counts, counted)
+
+
+def test_zamba2_sp_out_proj_row_partial_against_plain(zamba2_sp_world):
+    cases, res = zamba2_sp_world
+    i = next(j for j, c in enumerate(cases) if c["path"] == "sp_row")
+    for r in res:
+        got, want, dtype, launched = r[i][4]
+        assert dtype == "torch.float32" and launched == 1 and got.shape == (2, Z_D)
+        _close(got, want, "float32", "zamba2 out_proj sp row partial (K 2560 a rank, f32 store)")
+
+
+@pytest.fixture(scope="module")
+def deepseek_fsdp_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    return run_world(ranks.cuda_moe_fsdp_rank, 2, 1, 128, 30, timeout=900)
+
+
+def test_deepseek_fsdp_moe_layer_on_gathered_banks_against_the_whole_banks(deepseek_fsdp_world):
+    """Layer 0's routed and shared experts at full width: each rank's
+    sequence through the banks it gathers (d / 2 of gate and up, ffe / 2
+    of down, d / 2 of the router) equals the whole-bank layer's rows
+    (bf16 ``TOL``: the shared experts' launch runs the rank's 128 rows
+    where the whole layer's runs 256), with the same expert ids."""
+    for r, out in enumerate(deepseek_fsdp_world):
+        assert out["banks"] == {"router": (1024, 64), "w_gate": (64, 1024, 1408), "w_up": (64, 1024, 1408),
+                                "w_down": (64, 704, 2048)}
+        assert out["ids_equal"], r
+        _close(out["got"], out["want"], "bfloat16", f"rank {r}: the fsdp layer against the whole-bank layer")
+        c = out["counts"]  # router + 3 banks + the shared experts' 3 storages; gate+up and down launches
+        assert (c["all_gather"], c["launch"], c["psum"]) == (7, 2, 0), c
+    assert sum(o["dropped"] for o in deepseek_fsdp_world) == deepseek_fsdp_world[0]["want_dropped"]

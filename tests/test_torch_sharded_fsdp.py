@@ -16,9 +16,11 @@ order of the sums differs), the exact collective and launch counts, the
 ``Engine``'s greedy tokens on prompts that leave a 3-token SSM tail, the
 pools whole on every rank, the rank's draw (``init_params(plan=)``)
 against its slice of the whole draw; with no world, the ``fsdp`` plan
-through ``params_from_jax``, ``tree`` and a checkpoint; the MoE family
-under ``fsdp`` and the ``sp`` model path refused; ``launch.serve
---sharded fsdp`` serving the unsharded launcher's tokens.
+through ``params_from_jax``, ``tree`` and a checkpoint; what stays
+refused (a model axis under ``fsdp``, the MoE family under ``sp``,
+training under a plan); ``launch.serve --sharded fsdp`` serving the
+unsharded launcher's tokens, with llama3-8b and with DeepSeek-V2-Lite
+(the MoE family under ``fsdp``: ``test_torch_sharded_moe_fsdp.py``).
 """
 
 import dataclasses
@@ -165,25 +167,32 @@ def test_fsdp_plan_rides_through_convert_tree_and_checkpoint(tmp_path):
         restore_pytree(path, dict(local, lm_head=local["lm_head"].with_plan(bad)))
 
 
-def test_moe_under_fsdp_and_the_sp_model_path_raise():
-    mesh = abstract_mesh(data=2, model=1)
-    moe = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(), sharding="fsdp",
-                              matmul_backend="dip_fsdp", **F32)
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        tf_model.param_template(moe)
-    with pytest.raises(NotImplementedError, match="Distributed"):  # the plan refuses the family too
-        tf_model.paged_decode_step_fn(dataclasses.replace(moe, sharding="gspmd"), plan=make_plan(mesh, moe, "decode"))
+def test_moe_under_fsdp_and_the_sp_model_path_raise(capsys):
+    """What stays refused around the two paths this test once held
+    refused: fsdp over a model axis, the moe family under ``sp``, training
+    under an ``fsdp`` plan.  The moe family under ``fsdp`` now serves:
+    ``launch.serve --sharded fsdp`` with DeepSeek-V2-Lite serves the
+    unsharded launcher's tokens."""
     dense = _fsdp_cfg()
-    sp = dataclasses.replace(dense, sharding="sp", matmul_backend="dip_sp")
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        tf_model.forward({}, sp, tokens=torch.zeros((1, 4), dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="Distributed"):
-        tf_model.decode_step_fn(dense, plan=make_plan(abstract_mesh(data=1, model=2), sp, "decode"))
     with pytest.raises(NotImplementedError, match="fsdp over"):  # a model axis under fsdp
         tf_model.decode_step_fn(dense, plan=make_plan(abstract_mesh(data=1, model=2), dense, "decode"))
-    from repro_torch.launch import serve
+    moe = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(), **F32)
+    moe_sp = dataclasses.replace(moe, sharding="sp", matmul_backend="dip_sp")
     with pytest.raises(NotImplementedError, match="Distributed"):
-        serve.main(["--arch", "deepseek-v2-lite-16b", "--device", "cpu", "--sharded", "fsdp"])
+        tf_model.param_template(moe_sp)
+    with pytest.raises(NotImplementedError, match="Distributed"):  # the plan refuses the family too
+        tf_model.paged_decode_step_fn(moe, plan=make_plan(abstract_mesh(data=1, model=2), moe_sp, "decode"))
+    moe_fsdp = dataclasses.replace(moe, sharding="fsdp", matmul_backend="dip_fsdp")
+    with pytest.raises(NotImplementedError, match="training under a sharding plan"):
+        tf_model.train_step_fn(moe_fsdp, None, plan=make_plan(abstract_mesh(data=2, model=1), moe_fsdp, "train"))
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "deepseek-v2-lite-16b", "--reduced", "--dtype", "float32", "--requests", "2", "--max-new",
+            "3", "--slots", "2", "--max-seq", "64", "--prefill-chunk", "16", "--device", "cpu", "--temperature", "0"]
+    want = serve.main(argv)
+    got = serve.main(argv + ["--sharded", "fsdp"])
+    assert got == want and sorted(got) == [0, 1]
+    assert '"transport": "gloo"' in capsys.readouterr().out
 
 
 def test_launch_serve_sharded_fsdp_on_cpu(capsys):

@@ -381,6 +381,7 @@ def test_refusals_outside_the_slice():
     from repro_torch.optim import AdamW
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tf_model.train_step_fn(tp, AdamW(), plan=plan)
-    from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="fsdp"):  # the moe family under fsdp (the dense one serves)
-        serve.main(["--arch", "deepseek-v2-lite-16b", "--device", "cpu", "--sharded", "fsdp"])
+    # the moe family under fsdp serves now (test_torch_sharded_moe_fsdp.py); under sp it does not
+    moe_sp = dataclasses.replace(moe, sharding="sp", matmul_backend="dip_sp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf_model._require_plan(moe_sp, make_plan(mesh, moe_sp, "decode"))
