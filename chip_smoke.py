@@ -280,6 +280,22 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    llama3-8b, Zamba2 (both ``in_proj`` layouts) and Mamba2 under ``sp``,
    the reduced DeepSeek-V2-Lite and Qwen3-MoE under ``fsdp``, in f32,
    serving the single-rank engines' tokens.
+10. Training under a plan over 2 ranks sharing the card (``host``
+   transport), with no fallback.  10a, in phase 9's world after 9d:
+   llama3-8b under ``tp`` at full width cut to 2 layers (f32 parameters,
+   bf16 compute, block remat), 3 AdamW steps at batch 2 x 1024, each rank
+   drawing its slice; the first step's loss, global norm and every
+   gradient slice held to a single-rank step on the same whole weights and
+   batch (``FIRST_STEP_TOL["bfloat16"]``), each step's collectives and
+   launches exactly, finite losses, the step walls, a profiled step's
+   kernel and copy device ms and the peak memory a rank.  10b, in 9e's
+   world after 9k: DeepSeek-V2-Lite under ``ep``, the same, the
+   single-rank step replaying the ranks' expert ids.  10c, after 10a:
+   every (strategy, family) pair on the reduced f32 models, one step
+   against the single-rank step on the card (1e-4), and the checkpoint
+   drill (save under the plan, the one-rank restore bit-equal, the same
+   mesh's bit-equal resume) on four of them.  The full-width drill runs
+   in ``tools/torch_sharded_ckpt.py`` (its ~18 GB states take minutes).
 
 Each phase's wall seconds are printed on a line of their own when the next
 phase opens, and all of them together before the ``kernels`` line.
@@ -1044,7 +1060,9 @@ def _phase9_reduced(prompts):
 def phase9_rank(rank, serve_prompts, reduced_prompts):
     """One rank of the 2-rank world sharing the card (host transport): 9a,
     then 9c on phase 5's weights and requests, 9i on 9c's rank parameters,
-    then 9d.  Returns numpy and numbers only."""
+    then 9d, then training under a plan: 10a (llama3-8b ``tp``) and 10c
+    (the reduced pairs and their checkpoint drills).  Returns numpy and
+    numbers only."""
     import warnings
 
     import torch
@@ -1059,6 +1077,22 @@ def phase9_rank(rank, serve_prompts, reduced_prompts):
     gc.collect()
     torch.cuda.empty_cache()
     out["9d"] = _phase9_reduced(reduced_prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    out["10a"] = _phase10_model(train10_config("llama3-8b"), train10_config("llama3-8b", "tp"),
+                                os.path.join(ROOT, "build", "chip_smoke_ckpt", "10a"), dev)
+    out["10a"]["world_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["10c"] = {"pairs": _phase10c(dev), "drills": {}}
+    for strategy, fam in TRAIN10_DRILLS:  # the checkpoint drill on the reduced models (PERF.md §4)
+        base = train10_reduced_config(fam)
+        drill = _phase10_model(base, dataclasses.replace(base, sharding=strategy, matmul_backend=f"dip_{strategy}"),
+                               os.path.join(ROOT, "build", "chip_smoke_ckpt", f"10c_{strategy}_{fam}"), dev,
+                               replay=base.is_moe, checkpoint=True, batch=(2, 32))
+        out["10c"]["drills"][f"{strategy}/{fam}"] = dict(drill, world_phase_s=drill["phase_s"])
+    out["10c"]["phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1443,7 +1477,8 @@ def _phase9k(rec):
 def phase9e_rank(rank, rec, reduced_prompts, rec_9k):
     """One rank of 9e's 2-rank world sharing the card (host transport):
     (a)-(e) at full width on phase 5d's weights and requests, then (f), then
-    9k held to ``rec_9k``.  Returns numpy and numbers only."""
+    9k held to ``rec_9k``, then 10b (DeepSeek-V2-Lite trained under ``ep``).
+    Returns numpy and numbers only."""
     import warnings
 
     import torch
@@ -1456,6 +1491,13 @@ def phase9e_rank(rank, rec, reduced_prompts, rec_9k):
     t0 = time.perf_counter()
     out["9k"] = _phase9k(rec_9k)
     out["9k"]["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["10b"] = _phase10_model(train10_config("deepseek-v2-lite-16b"), train10_config("deepseek-v2-lite-16b", "ep"),
+                                os.path.join(ROOT, "build", "chip_smoke_ckpt", "10b"), torch.device("cuda", 0),
+                                replay=True)
+    out["10b"]["world_phase_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1739,6 +1781,480 @@ def phase9z_rank(rank, rec, reduced_prompts):
     out["9l"] = _phase9h(reduced_prompts, L_REDUCED)
     out["9l_s"] = time.perf_counter() - t0
     return out
+
+
+# ------------------------------------------ phase 10: the ranks' side --
+TRAIN10_STEPS = 3  # 10a / 10b: AdamW steps under the plan
+TRAIN10_BATCH = (2, 1024)  # 10a / 10b: rows x tokens of each step's batch
+TRAIN10_LR = 1e-4
+TRAIN10_LAYERS = 2  # phase 6's and 6b's cut
+# 10a / 10b: one step's collectives and launches a rank (forward, block
+# remat's reruns, backward, the whole leaves' psum and the norm's), the
+# counts tests/test_torch_sharded_train_models.py pins on configurations
+# that split every projection as the full widths do
+TRAIN10_COUNTS = {
+    "10a": dict(psum=14, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=25),
+    "10b": dict(psum=16, all_gather=7, reduce_scatter=5, ppermute=0, all_to_all=12, launch=21),
+}
+# 10a / 10b: one step's dip_matmul launches a rank: the shard launches, and
+# under ep w_krope's (64 columns split into no 64-tile shard, so the rank
+# runs the whole weight) in each layer's forward and remat rerun
+TRAIN10_DIP = {"10a": 25, "10b": 25}
+# 10c: (strategy, family) -> the reduced configuration of the CPU tests'
+# pairs (tests/_torch_train_pairs.py: f32, batch 2 x 32) and one step's
+# collectives and launches a rank, the counts those tests pin
+TRAIN10_FAMILIES = {"dense": "llama3-8b", "moe": "deepseek-v2-lite-16b", "ssm": "mamba2-370m",
+                    "hybrid": "zamba2-2.7b"}
+TRAIN10_PAIRS = {
+    ("tp", "dense"): dict(psum=12, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=9),
+    ("fsdp", "dense"): dict(psum=2, all_gather=17, reduce_scatter=17, ppermute=0, all_to_all=0, launch=13),
+    ("sp", "dense"): dict(psum=2, all_gather=10, reduce_scatter=10, ppermute=10, all_to_all=0, launch=14),
+    ("ep", "dense"): dict(psum=12, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=9),
+    ("tp", "moe"): dict(psum=12, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=3),
+    ("fsdp", "moe"): dict(psum=6, all_gather=29, reduce_scatter=29, ppermute=0, all_to_all=0, launch=13),
+    ("ep", "moe"): dict(psum=12, all_gather=3, reduce_scatter=3, ppermute=0, all_to_all=8, launch=7),
+    ("tp", "ssm"): dict(psum=12, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=2),
+    ("fsdp", "ssm"): dict(psum=2, all_gather=7, reduce_scatter=7, ppermute=0, all_to_all=0, launch=4),
+    ("sp", "ssm"): dict(psum=6, all_gather=7, reduce_scatter=7, ppermute=0, all_to_all=0, launch=2),
+    ("tp", "hybrid"): dict(psum=28, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=13),
+    ("fsdp", "hybrid"): dict(psum=2, all_gather=25, reduce_scatter=25, ppermute=0, all_to_all=0, launch=21),
+    ("sp", "hybrid"): dict(psum=10, all_gather=18, reduce_scatter=18, ppermute=10, all_to_all=0, launch=18),
+}
+
+
+# 10c: the checkpoint drill (save at step 2 under the plan, the one-rank
+# restore, the same mesh's resume) on these pairs' reduced models, batch 2 x 32
+TRAIN10_DRILLS = (("tp", "dense"), ("ep", "moe"), ("fsdp", "hybrid"), ("sp", "ssm"))
+
+
+def train10_reduced_config(fam):
+    """10c's reduced ``fam`` configuration in f32 on ``dip`` (the CPU
+    tests' pairs)."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(TRAIN10_FAMILIES[fam]).reduced(), matmul_backend="dip",
+                               compute_dtype="float32", param_dtype="float32")
+
+
+def train10_config(arch, strategy=None):
+    """10a / 10b's configuration: ``arch`` at full width cut to
+    ``TRAIN10_LAYERS`` layers, phase 6's settings (f32 parameters, bf16
+    compute, block remat) on ``dip``, or under ``strategy`` its plan's."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), matmul_backend="dip", n_layers=TRAIN10_LAYERS)
+    assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == ("float32", "bfloat16", "block")
+    return cfg if strategy is None else dataclasses.replace(cfg, sharding=strategy, matmul_backend=f"dip_{strategy}")
+
+
+def _train_mesh(strategy, dev):
+    """The 2-rank training mesh of ``strategy`` on the card (host
+    transport): the data axis under ``fsdp``, the model axis otherwise."""
+    import torch
+
+    from repro_torch.distributed import make_local_mesh
+
+    t = torch.distributed.get_world_size()
+    axes = dict(data=t, model=1) if strategy == "fsdp" else dict(data=1, model=t)
+    return make_local_mesh(**axes, transport="host" if dev.type == "cuda" else None, device=dev)
+
+
+def _in_turn(fn):
+    """``fn()`` on each rank in turn (a barrier between turns), so that two
+    ranks sharing the card never hold its transients at once."""
+    import torch
+
+    out = None
+    for r in range(torch.distributed.get_world_size()):
+        if torch.distributed.get_rank() == r:
+            out = fn()
+        torch.distributed.barrier()
+    return out
+
+
+def _crcs(t):
+    """The crc32 of every leaf's bytes of the tree ``t``, in ``tree.leaves``
+    order (a device leaf copied to the host first)."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+
+    return [zlib.crc32(np.ascontiguousarray(leaf.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()))
+            for leaf in tree.leaves(t)]
+
+
+def _empty_state(cfg, opt, device):
+    """A whole-shaped train state on ``device`` (uninitialized parameters,
+    zero moments): the target of a one-rank restore."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.device import dtype_of
+    from repro_torch.models import transformer as tf_model
+
+    def build(t):
+        out = {}
+        for k, v in t.items():
+            if isinstance(v, dict):
+                out[k] = build(v)
+                continue
+            shape, dt, _, dip = v
+            data = torch.empty(shape, dtype=dtype_of(dt), device=device)
+            out[k] = data if dip is None else api.DipWeight(data, *dip)
+        return out
+
+    params = build(tf_model.param_template(cfg))
+    return {"params": params, "opt_state": opt.init(params), "step": 0}
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _profiled_step(step, state, batch, dev):
+    """One training step under the profiler: (new state, metrics, kernel
+    device ms, copy device ms)."""
+    import torch
+
+    if dev.type != "cuda":
+        state, m = step(state, batch)
+        return state, m, 0.0, 0.0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        torch.cuda.synchronize(dev)
+    kernel = copy = 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            ms = (us if us is not None else e.self_cuda_time_total) / 1e3
+            if "memcpy" in e.key.lower() or "memset" in e.key.lower():
+                copy += ms
+            else:
+                kernel += ms
+    return state, m, kernel, copy
+
+
+def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False, batch=TRAIN10_BATCH):
+    """10a / 10b on this rank: ``cfg`` (the single-rank configuration at
+    full width, cut in depth) trained under ``plan_cfg``'s strategy over the
+    2 ranks sharing the card.  The first step's loss, global norm and every
+    leaf's gradient slice against the single-rank step on the same whole
+    weights and batch (each rank runs it in turn and keeps its slices;
+    ``replay``: the single-rank run routes with the ranks' expert ids, their
+    layers' ids all-gathered); steps 2 and 3; a checkpoint at step 2 (every
+    rank gathers, rank 0 writes); that checkpoint restored on one rank (on
+    the host, no plan), cut to this rank's slices, bit-equal to its live
+    step-2 slices; restored on the same mesh, giving step 3 bit for bit.
+    Each step's collectives and launches, walls, a profiled step's kernel
+    and copy device ms, peak memory.  The checkpoint drill runs with
+    ``checkpoint`` only (``tools/torch_sharded_ckpt.py`` at full width, 10c
+    on the reduced models: phase 10's full-width states are 18 GB, PERF.md
+    §4); ``batch`` is (rows, tokens)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_plan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lm_head_ce as ce
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.optim import AdamW
+
+    def reset_launches():
+        comm.reset()
+        dip_matmul.launches = dip_matmul.launches_f32 = ce.lm_head_ce.launches = fa.flash_attention.launches = 0
+
+    def launches():
+        return {"counts": comm.counts(), "dip_launches": dip_matmul.launches, "dip_f32_x": dip_matmul.launches_f32,
+                "lm_head_ce": ce.lm_head_ce.launches, "flash": fa.flash_attention.launches}
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 recompute backward: IEEE products
+    mesh = _train_mesh(plan_cfg.sharding, dev)
+    plan = make_plan(mesh, plan_cfg, "train")
+    rows, seq = batch
+    data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows, seed=SEED)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in data.batch(i).items()} for i in range(TRAIN10_STEPS)]
+    out = {"layers": cfg.n_layers}
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    opt = AdamW(lr=TRAIN10_LR)
+    step = tf_model.train_step_fn(plan_cfg, opt, plan=plan)
+
+    def sharded_first(params):
+        trace = {} if cfg.is_moe else None
+        reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        loss, grads, gnorm = step.loss_and_grads(params, batches[0], moe_trace=trace)
+        _sync(dev)
+        rec = dict(launches(), wall_ms=1e3 * (time.perf_counter() - t0), loss=float(loss), grad_norm=float(gnorm))
+        if trace is not None:
+            rec["dropped"] = [int(d) for d in trace["dropped"]]
+        return loss, grads, gnorm, trace, rec
+
+    def single(ids=None):
+        """The single-rank step's loss, global norm and this rank's slices of
+        its gradients (unfused loss, as the plan's), in turn on each rank."""
+        def run():
+            whole = tf_model.init_params(cfg, make_generator(SEED, dev), dev)
+            trace = None if ids is None else {"replay_ids": ids}
+            leaves = [t.requires_grad_(True) for t in tree.leaves(whole)]
+            loss = tf_model.loss_fn(whole, cfg, batches[0], fused_ce=False, moe_trace=trace)
+            grads = torch.autograd.grad(loss, leaves)
+            gn = float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads)))
+            mine = [t.detach().clone() for t in tree.leaves(plan.shard_params(tree.unflatten(whole, list(grads))))]
+            dropped = None if trace is None else [int(d) for d in trace["dropped"]]
+            del whole, leaves, grads
+            if cuda:
+                torch.cuda.empty_cache()
+            return float(loss), gn, mine, dropped
+        return _in_turn(run)
+
+    t_phase = time.perf_counter()
+    if not replay:
+        want = single()
+    params = tf_model.init_params(plan_cfg, make_generator(SEED, dev), dev, plan=plan)
+    state = {"params": params, "opt_state": opt.init(params), "step": 0}
+    loss, grads, gnorm, trace, first = sharded_first(params)
+    if replay:  # every layer's ids of the whole batch: the ranks' rows in order (ep's batch split)
+        ids = [comm.all_gather(i, mesh, plan.tp, dim=0) for i in trace["ids"]]
+        want = single(ids)
+    paths = [p for p, _ in tree.paths(params)]
+    rel = {p: rel_l2(g, w) for p, g, w in zip(paths, tree.leaves(grads), want[2])}
+    first.update(single_loss=want[0], single_grad_norm=want[1], single_dropped=want[3],
+                 worst_leaf=max((v, k) for k, v in rel.items()))
+    del want
+    opt.update(grads, state["opt_state"], params, gnorm=gnorm)
+    state["step"] = 1
+    del grads, loss
+    steps = [first]
+    ckpt = CheckpointManager(ckpt_dir, keep=1)
+    for i in (1, 2):
+        reset_launches()
+        _sync(dev)
+        t0 = time.perf_counter()
+        if i == 1:
+            state, m, kms, cms = _profiled_step(step, state, batches[i], dev)
+        else:
+            state, m = step(state, batches[i])
+            _sync(dev)
+        rec = dict(launches(), wall_ms=1e3 * (time.perf_counter() - t0), loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]))
+        if i == 1:
+            rec.update(profiled=True, kernel_device_ms=kms, copy_device_ms=cms)
+        if i == 1 and checkpoint:
+            # the checkpoint at step 2: gathered on every rank, written by rank 0
+            t0 = time.perf_counter()
+            ckpt.save(2, state, plan=plan, blocking=True)
+            torch.distributed.barrier()
+            out["save_s"] = time.perf_counter() - t0
+            # restored on one rank (rank 0: the whole state on the host, no
+            # plan), each leaf cut to every rank's slice: the slices' crc32
+            # against each rank's live step-2 slices' (compared on the main side)
+            out["live_crc"] = _crcs({"params": state["params"], "mu": state["opt_state"]["mu"],
+                                     "nu": state["opt_state"]["nu"]})
+            if torch.distributed.get_rank() == 0:
+                host = CheckpointManager(ckpt_dir, keep=1).restore(_empty_state(cfg, opt, "cpu"), step=2)[0]
+                out["one_rank_crc"] = []
+                for coord in range(mesh.size):
+                    cut = make_plan(comm.Mesh(dict(mesh.shape), rank=coord), plan_cfg, "train")
+                    out["one_rank_crc"].append(_crcs({k: cut.shard_params(v) for k, v in (
+                        ("params", host["params"]), ("mu", host["opt_state"]["mu"]),
+                        ("nu", host["opt_state"]["nu"]))}))
+                del host
+            torch.distributed.barrier()
+            out["one_rank_s"] = time.perf_counter() - t0
+        steps.append(rec)
+    if cuda:
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["peak_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
+    if checkpoint:
+        after = [t.detach().clone() for t in tree.leaves(state["params"])]
+        # the same mesh resumes from the step-2 checkpoint: step 3 bit for bit
+        t0 = time.perf_counter()
+        state, meta = ckpt.restore(state, step=2, plan=plan)
+        out["restore_s"] = time.perf_counter() - t0
+        state, m = step(state, batches[2])
+        out["resumed"] = {"step": int(meta["step"]), "loss": float(m["loss"]),
+                          "loss_equal": float(m["loss"]) == steps[2]["loss"],
+                          "params_equal": all(torch.equal(a, b) for a, b in zip(after, tree.leaves(state["params"])))}
+        del after
+    out["steps"] = steps
+    out["phase_s"] = time.perf_counter() - t_phase
+    del state, params, step, opt
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if torch.distributed.get_rank() == 0:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def _phase10c(dev):
+    """10c on this rank: one ``train_step_fn(plan=)`` step of every
+    (strategy, family) pair of ``TRAIN10_PAIRS`` on the reduced f32 models
+    (each rank draws its slice of the seeded weights on the card), against
+    the single-rank step on the card through the same kernels: the loss,
+    and every parameter leaf after the step gathered whole; the step's
+    collectives and launches.  Returns, a pair, the largest errors and the
+    counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_plan
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.optim import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes, out = {}, {}
+    lr = 1e-3
+    b2, eps = AdamW().b2, AdamW().eps
+    for (strategy, fam), want_counts in TRAIN10_PAIRS.items():
+        base = train10_reduced_config(fam)
+        cfg = dataclasses.replace(base, sharding=strategy, matmul_backend=f"dip_{strategy}")
+        mesh = meshes.setdefault(strategy == "fsdp", _train_mesh(strategy, dev))
+        plan = make_plan(mesh, cfg, "train")
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32,
+                                                                        global_batch=2).batch(1).items()}
+        whole = tf_model.init_params(base, make_generator(SEED, dev), dev)
+        opt = AdamW(lr=lr)
+        ref = {"params": whole, "opt_state": opt.init(whole), "step": 0}
+        ref, rm = tf_model.train_step_fn(base, opt, fused_ce=False)(ref, batch)
+        params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+        state = {"params": params, "opt_state": opt.init(params), "step": 0}
+        comm.reset()
+        dip_matmul.launches = dip_matmul.launches_f32 = 0
+        state, m = tf_model.train_step_fn(cfg, opt, plan=plan)(state, batch)
+        counts, launches, f32_x = comm.counts(), dip_matmul.launches, dip_matmul.launches_f32
+        got = tree.leaves(plan.gather_params(state["params"]))
+        worst_clear = worst = 0.0
+        for g, w, nu in zip(got, tree.leaves(ref["params"]), tree.leaves(ref["opt_state"]["nu"])):
+            err = (g - w).abs()
+            clear = torch.sqrt(nu / (1 - b2)) > 1000 * eps
+            scale = max(1.0, float(w.abs().max()))
+            worst_clear = max(worst_clear, float(err[clear].max()) / scale if clear.any() else 0.0)
+            worst = max(worst, float(err.max()))
+        out[f"{strategy}/{fam}"] = {"loss": (float(m["loss"]), float(rm["loss"])),
+                                   "grad_norm": (float(m["grad_norm"]), float(rm["grad_norm"])),
+                                   "param_err_clear": worst_clear, "param_err": worst, "counts": counts,
+                                   "want_counts": want_counts, "dip_launches": launches, "f32_x_launches": f32_x,
+                                   "lr": lr}
+        del whole, ref, params, state, got
+    return out
+
+
+def check_train10(tag, ranks_out, what, gpu, want=None, want_dip=None, dtype="bfloat16"):
+    """10a / 10b on the main side (``gpu``: the card's nvidia-smi line;
+    ``want`` / ``want_dip``: a step's collectives and launches, and its
+    dip_matmul launches, by default ``TRAIN10_COUNTS`` / ``TRAIN10_DIP``):
+    the first step against the single-rank step (``FIRST_STEP_TOL[dtype]``),
+    each step's collectives and launches exactly (bf16: every launch on the
+    tensor cores; f32: every one on the f32-x route), no lm_head_ce and no
+    flash, finite losses, the ranks alike; where the checkpoint drill ran,
+    the resume bit for bit and the one-rank restore bit-equal (crc32 of
+    every leaf); the walls, device ms and peak memory printed."""
+    import numpy as np
+
+    want = TRAIN10_COUNTS[tag] if want is None else want
+    want_dip = TRAIN10_DIP[tag] if want_dip is None else want_dip
+    tl, tn, tg = FIRST_STEP_TOL[dtype]
+    log(f"phase {tag}: {what}, {ranks_out[0]['layers']} layers, over 2 ranks sharing the card (host transport); "
+        f"the rank's wall {[round(o['world_phase_s'], 1) for o in ranks_out]} s")
+    per_rank = []
+    for r, o in enumerate(ranks_out):
+        first = o["steps"][0]
+        lk, lp, nk, npl = first["loss"], first["single_loss"], first["grad_norm"], first["single_grad_norm"]
+        err, path = first["worst_leaf"]
+        ok = (abs(lk - lp) <= tl * max(1.0, abs(lp)), abs(nk - npl) <= tn * max(1.0, npl), err <= tg)
+        log(f"  rank {r} first step, sharded / single-rank: loss {lk:.6f} / {lp:.6f}, gradient norm {nk:.5f} / "
+            f"{npl:.5f}, worst gradient slice relative L2 {err:.2e} ({path}); limits {tl:g}, {tn:g}, {tg:g}: "
+            f"{'within' if all(ok) else 'FAIL'}")
+        if not all(ok):
+            raise AssertionError(f"phase {tag} rank {r}: the first sharded step differs from the single-rank one")
+        if "dropped" in first:
+            log(f"  rank {r} dropped (token, slot) pairs by layer, sharded / single-rank replaying its ids: "
+                f"{first['dropped']} / {first['single_dropped']}")
+            if first["dropped"] != first["single_dropped"]:
+                raise AssertionError(f"phase {tag}: the replayed single-rank step dropped other pairs")
+        for i, st in enumerate(o["steps"]):
+            route_ok = st["dip_f32_x"] == (st["dip_launches"] if dtype == "float32" else 0)
+            bad = (st["counts"] != want or st["dip_launches"] != want_dip or not route_ok
+                   or st["lm_head_ce"] or st["flash"] or not np.isfinite(st["loss"]))
+            if bad:
+                raise AssertionError(f"phase {tag} rank {r} step {i + 1}: {st} (want {want}, {want_dip} "
+                                     f"dip_matmul launches, each {dtype} x, no lm_head_ce, no flash, a finite loss)")
+        rec = {"rank": r, "losses": [st["loss"] for st in o["steps"]],
+               "grad_norms": [st["grad_norm"] for st in o["steps"]],
+               "step_wall_ms": [st["wall_ms"] for st in o["steps"]],
+               "step2_kernel_device_ms": o["steps"][1]["kernel_device_ms"],
+               "step2_copy_device_ms": o["steps"][1]["copy_device_ms"],
+               "peak_gib": o["peak_gib"], "peak_reserved_gib": o["peak_reserved_gib"],
+               "collectives_and_launches_per_step": want, "dip_matmul_per_step": want_dip, "phase_s": o["phase_s"]}
+        if "resumed" in o:
+            o["one_rank_equal"] = o["live_crc"] == ranks_out[0]["one_rank_crc"][r]
+            res_ = o["resumed"]
+            log(f"  rank {r}: checkpoint at step 2 saved in {o['save_s']:.1f} s (gathered on both ranks, written by "
+                f"rank 0); restored on rank 0 alone (host, no plan) and cut to this rank's slices in "
+                f"{o['one_rank_s']:.1f} s, crc32 of every leaf against the live ones: "
+                f"{'bit-equal' if o['one_rank_equal'] else 'DIFFERENT'}; restored on the same mesh in "
+                f"{o['restore_s']:.1f} s (warm page cache), step 3 loss {res_['loss']:.7f} against "
+                f"{o['steps'][2]['loss']:.7f}: "
+                f"{'bit for bit' if res_['loss_equal'] and res_['params_equal'] else 'DIFFERENT'}")
+            if not (o["one_rank_equal"] and res_["loss_equal"] and res_["params_equal"] and res_["step"] == 2):
+                raise AssertionError(f"phase {tag} rank {r}: the checkpoint did not restore bit for bit")
+            rec.update(save_s=o["save_s"], one_rank_s=o["one_rank_s"], restore_s=o["restore_s"])
+        log(f"  rank {r}: {json.dumps(rec)} ({gpu})")
+        per_rank.append(dict(rec, first_step=first))
+    if any(o["steps"][i]["loss"] != ranks_out[0]["steps"][i]["loss"] for o in ranks_out for i in range(3)):
+        raise AssertionError(f"phase {tag}: the ranks report different losses")
+    log(f"  per step and rank: {want} (forward, block remat's reruns, the backward's transposes, the whole "
+        f"leaves' psum and the norm's psum), {want_dip} dip_matmul launches")
+    return {"ranks": per_rank, "counts_per_step": want}
+
+
+def check_train10c(ranks_out):
+    """10c on the main side: every pair's loss and parameters against the
+    single-rank step on the card within 1e-4 (two steps of lr where a
+    gradient sits within 1000 eps of 0), the CPU tests' counts, every
+    launch on the f32-x route."""
+    log(f"phase 10c: one step of every (strategy, family) pair on the reduced models in f32 over 2 ranks against "
+        f"the single-rank step on the card; the rank's wall {[round(o['phase_s'], 1) for o in ranks_out]} s")
+    rows = {}
+    for name in ranks_out[0]["pairs"]:
+        got = [o["pairs"][name] for o in ranks_out]
+        for g in got:
+            (lk, lp), lr = g["loss"], g["lr"]
+            ok = (abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and g["param_err_clear"] <= 1e-4
+                  and g["param_err"] <= 1e-4 + 2 * lr and g["counts"] == g["want_counts"]
+                  and g["dip_launches"] == g["f32_x_launches"] >= g["counts"]["launch"])
+            if not ok:
+                raise AssertionError(f"phase 10c {name}: {g}")
+        g = got[0]
+        rows[name] = {k: g[k] for k in ("loss", "grad_norm", "param_err_clear", "param_err", "counts")}
+        log(f"  {name}: loss {g['loss'][0]:.7f} / single {g['loss'][1]:.7f}, parameters after the step max|err| "
+            f"{g['param_err_clear']:.2e} of max(1, |leaf|) where clear of eps ({g['param_err']:.2e} anywhere), "
+            f"{g['counts']} a step and rank, {g['dip_launches']} dip_matmul launches (the shards' and the "
+            f"replicated weights'), every one f32 x")
+    return {"pairs": rows, "f32_x_launches": sum(o["pairs"][n]["f32_x_launches"] for o in ranks_out
+                                                 for n in o["pairs"])}
 
 
 def main():
@@ -3134,7 +3650,7 @@ def main():
         t0 = time.perf_counter()
         # phase 5's first two requests (the time budget, PERF.md §4)
         outs = run_world(phase9_rank, 2, [r.prompt.tolist() for r in reqs[:SHARDED_REQUESTS]], prompts,
-                         timeout=900.0)
+                         timeout=1100.0)
         world_s = time.perf_counter() - t0
         res = {"world_s": world_s}
         log(f"phase 9a: dip_tp / dip_fsdp / dip_sp at llama3-8b's gate+up and down, M = 4 and 256, bf16, and "
@@ -3298,7 +3814,25 @@ def main():
                                         "dip_matmul_f32_x": 0, "flash_attention": 0},
                            "serve_tp_reduced": {"dip_matmul": sum(o["9d"]["dip_launches"] for o in outs),
                                                 "dip_matmul_f32_x": sum(f32_x)}}
-        log(f"  phase 9 wall: the 2-rank world {world_s:.1f} s")
+        res["10a"] = check_train10("10a", [o["10a"] for o in outs], "llama3-8b tensor-parallel training at full width cut to "
+                                   f"{TRAIN10_LAYERS} layers (f32 parameters, bf16 compute, block remat, "
+                                   f"{TRAIN10_STEPS} AdamW steps at batch {TRAIN10_BATCH[0]} x {TRAIN10_BATCH[1]})",
+                                   gpu)
+        res["10c"] = check_train10c([o["10c"] for o in outs])
+        for strategy, fam in TRAIN10_DRILLS:
+            name = f"{strategy}/{fam}"
+            res["10c"][f"drill {name}"] = check_train10(
+                "10c", [o["10c"]["drills"][name] for o in outs],
+                f"{name}, the checkpoint drill on the reduced model in f32 (3 AdamW steps at batch 2 x 32)", gpu,
+                want=TRAIN10_PAIRS[(strategy, fam)], want_dip=outs[0]["10c"]["pairs"][name]["dip_launches"],
+                dtype="float32")
+        res["launches"]["train_tp_llama3"] = {
+            "dip_matmul": sum(st["dip_launches"] for o in outs for st in o["10a"]["steps"]), "dip_matmul_f32_x": 0,
+            "lm_head_ce": 0, "flash_attention": 0}
+        res["launches"]["train_reduced_pairs"] = {
+            "dip_matmul": sum(p["dip_launches"] for o in outs for p in o["10c"]["pairs"].values()),
+            "dip_matmul_f32_x": res["10c"]["f32_x_launches"]}
+        log(f"  phase 9 wall: the 2-rank world {world_s:.1f} s (9a-9d, 10a, 10c)")
         return res
 
     # ------------------------- 9e. expert parallelism at full width --------
@@ -3351,7 +3885,7 @@ def main():
                 del e1, p1, trace
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        outs = run_world(phase9e_rank, 2, rec, prompts, rec_9k, timeout=1000.0)
+        outs = run_world(phase9e_rank, 2, rec, prompts, rec_9k, timeout=1100.0)
         world_s = time.perf_counter() - t0
         n_layers = 27
         want_step = {"psum": 2 * n_layers + 1, "all_gather": 2 * n_layers + 1, "reduce_scatter": 0, "ppermute": 0,
@@ -3478,7 +4012,13 @@ def main():
             "serve_ep_reduced": {"dip_matmul": sum(o["f"][nm]["dip_launches"] for o in outs for nm, *_ in DS_REDUCED),
                                  "dip_matmul_f32_x": sum(o["f"][nm]["dip_f32_x_launches"] for o in outs
                                                          for nm, *_ in DS_REDUCED)}}
-        log(f"  phase 9e wall: the 2-rank world {world_s:.1f} s")
+        res["10b"] = check_train10("10b", [o["10b"] for o in outs], "DeepSeek-V2-Lite expert-parallel training at "
+                                   f"full width cut to {TRAIN10_LAYERS} layers (as 10a; the single-rank step "
+                                   "replaying the ranks' expert ids)", gpu)
+        res["launches"]["train_ep_deepseek"] = {
+            "dip_matmul": sum(st["dip_launches"] for o in outs for st in o["10b"]["steps"]), "dip_matmul_f32_x": 0,
+            "lm_head_ce": 0, "flash_attention": 0}
+        log(f"  phase 9e wall: the 2-rank world {world_s:.1f} s (9e, 9k, 10b)")
         return res
 
     def check_9k(outs, rec_9k, first_9k, tokens_9k):

@@ -30,6 +30,15 @@ manifest naming the real dtype, as the reference stores them.
   restore.
 * **In place** — a restore writes into the target tree's tensors, so a
   trainer resuming at full width holds one state on the card, not two.
+* **Mesh-independent** (the reference's elastic re-mesh restore) —
+  ``save(..., plan=)`` under a ``ShardingPlan`` writes whole leaves: every
+  rank gathers the parameters and moments synchronously, leaf by leaf
+  (``plan.gather_leaf``: the collectives are issued here, never on the
+  writer thread), and one rank (rank 0 of the mesh) copies each to the
+  host as it comes and writes them.  ``restore(like, plan=)`` reads each whole leaf and places this
+  rank's slice of it into ``like`` (``plan.shard_leaf``), so a checkpoint
+  restores into the same mesh, another strategy's plan or one rank alike;
+  the plan-compatibility check of each ``DipWeight`` keeps its errors.
 * **Fail-points** — ``checkpoint.save.mid_write`` trips in a leaf write
   other than the first (on the writer threads: the exception leaves
   ``pool.map`` before the manifest is written) and
@@ -65,11 +74,12 @@ _NUMPY_DTYPES = {torch.float32: "float32", torch.int32: "int32", torch.int64: "i
 _TORCH_DTYPES = {name: dt for dt, name in _NUMPY_DTYPES.items()}
 
 
-def _to_numpy(leaf) -> np.ndarray:
-    """A host copy of one leaf; Python ints become int32 0-d arrays, as the
-    reference's step counters are."""
+def _to_numpy(leaf, copy: bool = True) -> np.ndarray:
+    """A host copy of one leaf (``copy=False``: a host tensor's own memory,
+    for a leaf that already is a fresh host copy); Python ints become int32
+    0-d arrays, as the reference's step counters are."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu", copy=True)
+        t = leaf.detach().to("cpu", copy=copy)
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16)
         return t.numpy()
@@ -135,6 +145,29 @@ def _snapshot(state: Any):
     return out
 
 
+def _snapshot_gathered(state: Any, plan, prefix: str = "") -> Optional[List]:
+    """:func:`_snapshot` of the whole leaves of a state that every rank
+    holds its slices of: each leaf gathered into host memory
+    (``plan.gather_leaf(to_host=True)``, on every rank, in one order) and
+    kept by the mesh's rank 0 (the others return None)."""
+    out: List = []
+    writer = plan.mesh.rank == 0
+
+    def walk(t, prefix, name):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{prefix}/[{k!r}]" if prefix else f"[{k!r}]", k)
+            return
+        whole = plan.gather_leaf(name, t, to_host=True)
+        for p, leaf in tree.paths(whole, prefix):
+            if writer:
+                arr = _to_numpy(leaf, copy=False)  # gathered into fresh host memory
+                out.append((p, arr, _dtype_name(leaf, arr)))
+
+    walk(state, prefix, None)
+    return out if writer else None
+
+
 def _write(path: str, snapshot, dip_index: Dict, meta: Optional[Dict]) -> None:
     tmp = f"{path}.tmp-{secrets.token_hex(4)}"
     os.makedirs(tmp, exist_ok=True)
@@ -164,9 +197,18 @@ def save_pytree(path: str, state: Any, *, meta: Optional[Dict] = None) -> None:
     _write(path, _snapshot(state), _dip_index(state), meta)
 
 
-def _from_numpy(arr: np.ndarray, dtype_name: str, like):
+def _as_torch(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A freshly loaded leaf as a torch tensor over the same memory."""
     if dtype_name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.dtype(dtype_name)))
+
+
+def _from_numpy(arr, dtype_name: str, like):
+    if isinstance(arr, torch.Tensor):  # already cut to this rank's slice (a restore under a plan)
+        t = arr
+    elif dtype_name == "bfloat16":
+        t = _as_torch(arr, dtype_name)
     else:
         t = torch.from_numpy(np.array(arr, dtype=np.dtype(dtype_name)))
     if isinstance(like, torch.Tensor):
@@ -196,15 +238,36 @@ def _place_checksums(t: Any, by_path: Dict[str, Dict], prefix: str = "") -> Any:
     return t
 
 
-def restore_pytree(path: str, like: Any) -> Any:
+def _placer(plan, live_dip: Dict[str, Dict]):
+    """``place(path, whole)``: this rank's slice under ``plan`` of the whole
+    leaf at ``path`` (a host tensor), cut as ``plan.shard_leaf`` cuts the
+    leaf it names (a ``DipWeight``'s storage wrapped with the live
+    weight's metadata first)."""
+    def place(path: str, whole: torch.Tensor) -> torch.Tensor:
+        parts = path.split("/")
+        if parts[-1] == ".data":
+            meta = live_dip["/".join(parts[:-1])]
+            name = parts[-2][2:-2]
+            w = DipWeight(whole, meta["d_in"], meta["d_out"], meta["perm_tile"])
+            return plan.shard_leaf(name, w).data
+        name = parts[-1][2:-2] if parts[-1].startswith("['") else parts[-1]
+        return plan.shard_leaf(name, whole)
+
+    return place
+
+
+def restore_pytree(path: str, like: Any, *, plan=None) -> Any:
     """Restore into the structure of ``like``: each tensor leaf is
     overwritten in place (it must have the saved dtype and shape), so a
     full-width state is never held twice on the card; Python-number leaves
     come back as numbers.  A leaf that fails its check raises, and the
-    leaves before it are already overwritten."""
+    leaves before it are already overwritten.  ``plan``: ``like`` holds this
+    rank's slices under it, and each whole saved leaf is cut to its slice
+    (``plan.shard_leaf``) before the copy."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     live_dip = _dip_index(like)
+    place = None if plan is None else _placer(plan, live_dip)
     for p, saved in manifest.get("dip_weights", {}).items():
         live = live_dip.get(p)
         if live is not None:
@@ -221,7 +284,10 @@ def restore_pytree(path: str, like: Any) -> Any:
         entry = by_path[p]
         arr = np.load(os.path.join(path, entry["file"]))
         want = entry.get("crc32")
-        return arr, want is None or zlib.crc32(np.ascontiguousarray(arr)) == want
+        intact = want is None or zlib.crc32(np.ascontiguousarray(arr)) == want
+        if place is not None and intact and arr.ndim:
+            arr = place(p, _as_torch(arr, entry["dtype"]))  # the rank's slice, one copy
+        return arr, intact
 
     def nbytes(p):
         entry = by_path[p]
@@ -292,10 +358,19 @@ class CheckpointManager:
                 shutil.rmtree(os.path.join(self.dir, name), ignore_errors=True)
 
     def save(self, step: int, state: Any, *, meta: Optional[Dict] = None,
-             blocking: bool = True) -> None:
+             blocking: bool = True, plan=None) -> None:
+        """Write ``state`` as step ``step`` (module doc); under ``plan``
+        every rank calls it: the whole leaves are gathered on every rank
+        (collective, synchronous) and written by the mesh's rank 0 alone."""
         self.wait()  # back-pressure: one in-flight save at most
         meta = dict(meta or {}, step=step)
-        snap, dips = _snapshot(state), _dip_index(state)  # copy now: params change in place
+        dips = _dip_index(state)
+        if plan is None:
+            snap = _snapshot(state)  # copy now: params change in place
+        else:
+            snap = _snapshot_gathered(state, plan)
+            if snap is None:  # not the writing rank
+                return
 
         def work():
             try:
@@ -324,14 +399,15 @@ class CheckpointManager:
         for s in steps[: -self.keep] if self.keep else []:
             shutil.rmtree(self._step_path(s), ignore_errors=True)
 
-    def restore(self, like: Any, *, step: Optional[int] = None):
+    def restore(self, like: Any, *, step: Optional[int] = None, plan=None):
         """``(tree, meta)`` of ``step`` (default: the latest), or
         ``(None, None)`` when there is none.  ``like`` is consumed: its
         tensors are overwritten in place and the returned tree holds them;
         if a leaf fails its crc32, the leaves before it are already
-        overwritten."""
+        overwritten.  ``plan``: ``like`` holds this rank's slices under it
+        (module doc)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             return None, None
         path = self._step_path(step)
-        return restore_pytree(path, like), checkpoint_meta(path)
+        return restore_pytree(path, like, plan=plan), checkpoint_meta(path)

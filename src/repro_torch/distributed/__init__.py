@@ -8,9 +8,10 @@ builds the plan, ``plan.shard_params`` cuts whole parameters to the rank's
 slice with the plans attached, and the ``dip_tp`` / ``dip_fsdp`` /
 ``dip_sp`` / ``dip_ep`` matmul backends (``kernels/dip_matmul_sharded.py``)
 dispatch on them; under ``ep`` the MoE layer exchanges tokens with
-``comm.all_to_all`` (``models/moe.py``).  Not ported yet (ROADMAP.md Queue
-1 "Distributed"): the pipeline stage axis, gradient compression and the
-production mesh.
+``comm.all_to_all`` (``models/moe.py``).  The collectives are
+differentiable, so every path also trains (``train_step_fn(plan=)``,
+``Trainer(plan=)``).  Not ported yet (ROADMAP.md Queue 1 "Distributed"):
+the pipeline stage axis, gradient compression and the production mesh.
 """
 
 from repro_torch.distributed import comm

@@ -33,6 +33,23 @@ makes it gather rows (:func:`replicated`).  After
 ``dip_sp`` issues each ring hop before the launch it overlaps, and the
 expert-parallel MoE layer its dispatch all-to-all before the shared-expert
 launches (``models/moe.py``).
+
+**Gradients.**  Every collective is differentiable, and its backward is its
+transpose, issued on the same group and logged under its own name:
+``psum`` <-> ``psum``, ``all_gather`` <-> ``psum_scatter`` (logged
+``reduce_scatter``), ``all_to_all`` <-> the inverse ``all_to_all``, a ring
+hop <-> the hop the other way round (:func:`hop_grad`).  The convention
+that makes these transposes the right backward: a rank's cotangent of a
+value that every rank holds alike (a replicated activation, the replicated
+loss) is its *share*, and the ranks' shares sum to the single-rank
+cotangent; a rank's cotangent of its own slice is that slice's whole
+cotangent.  So a replicated loss is differentiated as ``loss / ranks``
+(each rank seeds its share), a replicated value that enters rank-specific
+work (its heads, its experts, its tokens) needs no collective, and a
+parameter that every rank holds whole takes the psum of the ranks' shares
+once, after the backward (``models/transformer.py::train_step_fn``).  The
+backward's collectives run in the autograd engine's order, which is the
+same on every rank for the same graph.
 """
 
 from __future__ import annotations
@@ -44,8 +61,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["TRANSPORTS", "Mesh", "abstract_mesh", "build_mesh", "psum", "all_gather", "psum_scatter",
-           "all_to_all", "ppermute_start", "note_launch", "note_replicated", "replicated", "reset", "counts",
-           "schedule", "COUNTS", "SCHEDULE"]
+           "all_to_all", "ppermute_start", "hop_grad", "differentiated", "note_launch", "note_replicated",
+           "replicated", "reset", "counts", "schedule", "COUNTS", "SCHEDULE"]
 
 TRANSPORTS = ("gloo", "nccl", "host")
 COLLECTIVES = ("psum", "all_gather", "reduce_scatter", "ppermute", "all_to_all")
@@ -228,9 +245,12 @@ def _send_form(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return t.contiguous()
 
 
-def _back(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def _back(t: torch.Tensor, like: torch.Tensor, to_host: bool = False) -> torch.Tensor:
+    """The received payload as ``like``'s dtype, on ``like``'s device (or,
+    ``to_host``, in host memory)."""
     t = t.view(like.dtype) if t.dtype != like.dtype else t
-    return t.to(like.device) if t.device != like.device else t
+    where = torch.device("cpu") if to_host else like.device
+    return t.to(where) if t.device != where else t
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -247,8 +267,8 @@ def _single(name: str, old: str):
     return getattr(dist, name, None) or getattr(dist, old)
 
 
-def psum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """The sum over ``axis`` (``jax.lax.psum``); one ``all_reduce``."""
+def _psum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """One ``all_reduce`` of ``t`` over ``axis``, logged ``psum``."""
     _log("psum")
     w = _send_form(t, mesh)
     if w is t:
@@ -257,21 +277,18 @@ def psum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     return _back(w, t)
 
 
-def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
-    """The ranks' tensors concatenated along ``dim`` in axis order
-    (``jax.lax.all_gather(..., tiled=True)``); one ``all_gather``."""
+def _all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0, to_host: bool = False) -> torch.Tensor:
+    """One ``all_gather`` of ``t`` along ``dim``, logged."""
     _log("all_gather")
     n = mesh.shape[axis]
     w = _bytes(_send_form(t.movedim(dim, 0), mesh).contiguous())
     out = torch.empty((n * w.shape[0],) + tuple(w.shape[1:]), dtype=w.dtype, device=w.device)
     _single("all_gather_single", "all_gather_into_tensor")(out, w, group=mesh.group(axis))
-    return _back(out, t.movedim(dim, 0)).movedim(0, dim)
+    return _back(out, t.movedim(dim, 0), to_host).movedim(0, dim)
 
 
-def psum_scatter(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
-    """The sum over ``axis``, of which this rank keeps its block of ``dim``
-    (``jax.lax.psum_scatter(..., tiled=True)``); one ``reduce_scatter``.
-    ``t.shape[dim]`` must divide by the axis size."""
+def _psum_scatter(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """One ``reduce_scatter`` of ``t`` along ``dim``, logged."""
     _log("reduce_scatter")
     n = mesh.shape[axis]
     if t.shape[dim] % n:
@@ -283,12 +300,9 @@ def psum_scatter(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.
     return _back(out, t).movedim(0, dim)
 
 
-def all_to_all(t: torch.Tensor, mesh: Mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
-    """Block ``j`` of ``split_dim`` to rank ``j`` of ``axis``, and the
-    blocks received concatenated along ``concat_dim`` in axis order
-    (``jax.lax.all_to_all(..., tiled=True)``); one ``all_to_all``.
-    ``t.shape[split_dim]`` must divide by the axis size.  The payload moves
-    as its bytes (an exchange changes no value; gloo carries no float8)."""
+def _all_to_all(t: torch.Tensor, mesh: Mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """One ``all_to_all`` of ``t``, logged; the payload moves as its bytes
+    (an exchange changes no value; gloo carries no float8)."""
     _log("all_to_all")
     n = mesh.shape[axis]
     if t.shape[split_dim] % n:
@@ -314,17 +328,128 @@ class _Hop:
         return _back(self._recv, self._like)
 
 
-def ppermute_start(t: torch.Tensor, mesh: Mesh, axis: str) -> _Hop:
+def ppermute_start(t: torch.Tensor, mesh: Mesh, axis: str, shift: int = 1) -> _Hop:
     """Start sending ``t`` to the next rank on ``axis``'s ring and receiving
     the previous rank's block (``jax.lax.ppermute`` with ``perm = [(j, j +
-    1)]``); returns at once, the transfer in flight.  One ``ppermute``."""
+    1)]``; ``shift=-1`` the other way round); returns at once, the transfer
+    in flight.  One ``ppermute``.  The hop carries no gradient by itself:
+    :func:`hop_grad` attaches the received block to the sent one."""
     _log("ppermute")
     g = mesh.group(axis)
     ring = mesh.members[axis]
     n = len(ring)
     me = ring.index(mesh.rank)
-    w = _bytes(_send_form(t, mesh))
+    w = _bytes(_send_form(t.detach(), mesh))
     recv = torch.empty_like(w)
-    ops = [dist.P2POp(dist.isend, w, ring[(me + 1) % n], g),
-           dist.P2POp(dist.irecv, recv, ring[(me - 1) % n], g)]
+    ops = [dist.P2POp(dist.isend, w, ring[(me + shift) % n], g),
+           dist.P2POp(dist.irecv, recv, ring[(me - shift) % n], g)]
     return _Hop(dist.batch_isend_irecv(ops), recv, t)
+
+
+# ------------------------------------------------------------ gradients ---
+def differentiated(t: torch.Tensor) -> bool:
+    """Whether autograd records work on ``t`` (grad mode on and ``t``
+    requiring grad): a training forward, not a serving one."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.args = (mesh, axis)
+        return _psum(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, *ctx.args), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _all_gather(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_scatter(g, *ctx.args), None, None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _psum_scatter(t, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, split_dim, concat_dim):
+        ctx.args = (mesh, axis, split_dim, concat_dim)
+        return _all_to_all(t, mesh, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, split_dim, concat_dim = ctx.args
+        return _all_to_all(g, mesh, axis, concat_dim, split_dim), None, None, None, None
+
+
+class _HopGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, sent, received, mesh, axis):
+        ctx.args = (mesh, axis)
+        return received.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        # the received block's cotangent goes back to the rank it came from,
+        # and the sent block's comes from the rank it went to
+        return ppermute_start(g, *ctx.args, shift=-1).wait(), None, None, None
+
+
+def psum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` (``jax.lax.psum``); one ``all_reduce``.  Its
+    backward is a ``psum`` of the cotangents (module doc)."""
+    return _Psum.apply(t, mesh, axis) if differentiated(t) else _psum(t, mesh, axis)
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0, *, to_host: bool = False) -> torch.Tensor:
+    """The ranks' tensors concatenated along ``dim`` in axis order
+    (``jax.lax.all_gather(..., tiled=True)``); one ``all_gather``.  Its
+    backward reduce-scatters the cotangent back to this rank's block.
+    ``to_host`` (no gradient): the result in host memory, where the
+    ``host`` transport receives it anyway (a checkpoint's whole leaves)."""
+    if to_host:
+        return _all_gather(t.detach(), mesh, axis, dim, to_host=True)
+    return _AllGather.apply(t, mesh, axis, dim) if differentiated(t) else _all_gather(t, mesh, axis, dim)
+
+
+def psum_scatter(t: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:
+    """The sum over ``axis``, of which this rank keeps its block of ``dim``
+    (``jax.lax.psum_scatter(..., tiled=True)``); one ``reduce_scatter``.
+    ``t.shape[dim]`` must divide by the axis size.  Its backward
+    all-gathers the cotangent."""
+    return _PsumScatter.apply(t, mesh, axis, dim) if differentiated(t) else _psum_scatter(t, mesh, axis, dim)
+
+
+def all_to_all(t: torch.Tensor, mesh: Mesh, axis: str, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """Block ``j`` of ``split_dim`` to rank ``j`` of ``axis``, and the
+    blocks received concatenated along ``concat_dim`` in axis order
+    (``jax.lax.all_to_all(..., tiled=True)``); one ``all_to_all``.
+    ``t.shape[split_dim]`` must divide by the axis size.  Its backward is
+    the inverse exchange (``split_dim`` and ``concat_dim`` swapped)."""
+    if differentiated(t):
+        return _AllToAll.apply(t, mesh, axis, split_dim, concat_dim)
+    return _all_to_all(t, mesh, axis, split_dim, concat_dim)
+
+
+def hop_grad(sent: torch.Tensor, received: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``received`` (a finished :func:`ppermute_start` of ``sent``) joined
+    to the graph: its backward sends the cotangent the other way round the
+    ring (one ``ppermute``) as ``sent``'s.  The identity without grad."""
+    return _HopGrad.apply(sent, received, mesh, axis) if differentiated(sent) else received

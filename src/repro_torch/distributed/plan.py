@@ -43,6 +43,11 @@ them.
   :meth:`ShardingPlan.param_pspec` still returns the reference's specs
   (its global-view contract); the conv history and state pools follow the
   leaves (:meth:`ShardingPlan.paged_cache_pspec`).
+* :meth:`ShardingPlan.gather_leaf` / :meth:`ShardingPlan.gather_params`
+  are the inverse of ``shard_leaf`` / ``shard_params``: every rank's slice
+  of a leaf all-gathered whole (a collective), so that a checkpoint saved
+  under a plan holds whole, mesh-independent leaves
+  (``checkpoint.manager``).
 * :attr:`ShardingPlan.expert_plan` is the ``WeightPlan(kind="expert")``
   that the MoE layer dispatches on under ``ep`` (None otherwise).
 * ``with_sharding_constraint`` has no counterpart: the explicit strategies
@@ -505,6 +510,75 @@ class ShardingPlan:
         if name in _SSM_BY_HEAD and self.cfg.ssm_state and self.strategy in _HEAD_SPLIT:
             return self._ssm_local(name, t)
         return t
+
+    # ------------------------------------------------------- whole leaves --
+    def _whole_shape(self, name: str, t: torch.Tensor) -> Tuple[int, ...]:
+        """The whole leaf's shape of this rank's slice ``t`` of the non-DiP
+        leaf ``name`` (:meth:`shard_leaf`'s cuts)."""
+        cfg, shape = self.cfg, list(t.shape)
+        rule = _rule_for(name, tuple(t.shape))
+        fsdp = self.strategy == "fsdp"
+        if rule == "expert_bank":
+            shape[1] = cfg.n_experts
+            if fsdp:
+                shape[2] = self.fsdp_whole(name)
+        elif rule == "router" and fsdp:
+            shape[1] = cfg.d_model
+        elif name == "embed":
+            shape[1 if fsdp else 0] = cfg.d_model if fsdp else cfg.padded_vocab
+        elif name in _SSM_BY_HEAD and cfg.ssm_state and self.strategy in _HEAD_SPLIT:
+            shape[-1] = {"dt_bias": cfg.n_ssm_heads, "A_log": cfg.n_ssm_heads, "D": cfg.n_ssm_heads,
+                         "norm": cfg.d_inner}.get(name, cfg.d_inner + 2 * cfg.ssm_state)
+        return tuple(shape)
+
+    def gather_leaf(self, name: str, t: Any, *, to_host: bool = False) -> Any:
+        """The whole leaf from every rank's slice ``t`` of the leaf ``name``:
+        the inverse of :meth:`shard_leaf` (a ``DipWeight`` keeps its plan).
+        One ``comm.all_gather`` along the cut dim for a cut leaf; the Mamba2
+        conv leaves under a head split gather their x channels and keep the
+        whole B and C.  Every rank calls it alike (it is collective).
+        ``to_host``: the whole leaf in host memory (a leaf held whole is
+        copied there)."""
+        from repro_torch.distributed import comm
+
+        if self.strategy not in _MODEL_PATHS:
+            raise NotImplementedError(f"the {self.strategy!r} strategy's model path is not ported yet ({_DIST})")
+        axis = self.fsdp if self.strategy == "fsdp" else self.tp
+        parts = self.mesh.shape[axis] if axis else 1
+        if isinstance(t, (DipWeight, QuantizedDipWeight)):
+            if isinstance(t, QuantizedDipWeight):
+                raise NotImplementedError(f"{name}: gathering quantized storage is not ported yet ({_DIST})")
+            whole = tuple(t.data.shape[:-2]) + DipWeight.storage_dims(t.d_in, t.d_out, t.perm_tile)
+            return t.with_data(self._gathered(name, t.data, whole, comm, axis, parts, to_host))
+        if not isinstance(t, torch.Tensor):
+            return t
+        whole = self._whole_shape(name, t)
+        if name in ("conv_w", "conv_b") and tuple(t.shape) != whole:
+            bc = whole[-1] - self.cfg.d_inner  # the whole B and C, held by every rank
+            x = comm.all_gather(t[..., :t.shape[-1] - bc].contiguous(), self.mesh, axis, dim=t.dim() - 1,
+                                to_host=to_host)
+            return torch.cat([x, t[..., t.shape[-1] - bc:].to(x.device)], dim=-1)
+        return self._gathered(name, t, whole, comm, axis, parts, to_host)
+
+    def _gathered(self, name, t, whole, comm, axis, parts, to_host):
+        if tuple(t.shape) == tuple(whole):
+            return t.detach().to("cpu", copy=True) if to_host else t
+        dims = [i for i, (a, b) in enumerate(zip(t.shape, whole)) if a != b]
+        if len(dims) != 1 or t.shape[dims[0]] * parts != whole[dims[0]]:
+            raise ValueError(f"{name}: {tuple(t.shape)} is not one rank's slice of {tuple(whole)} over "
+                             f"{axis}={parts}")
+        return comm.all_gather(t.contiguous(), self.mesh, axis, dim=dims[0], to_host=to_host)
+
+    def gather_params(self, tree: Any) -> Any:
+        """Every leaf of ``tree`` (parameters, or a state holding them and
+        their moments) whole on every rank (:meth:`gather_leaf`, leaf by
+        leaf in sorted-key order, the same on every rank)."""
+        def walk(t, name=None):
+            if isinstance(t, dict):
+                return {k: walk(t[k], k) for k in sorted(t)}
+            return self.gather_leaf(name, t)
+
+        return walk(tree)
 
     # ------------------------------------------------------------- cache ---
     def paged_cache_pspec(self, name: str, shape: Tuple[int, ...]) -> Spec:

@@ -41,8 +41,18 @@ shard's columns); the rmsnorm gain is the whole (d_in,) row.  Each
 per-shard product dispatch is logged (``comm.note_launch``) beside the
 collectives, so ``comm.counts()`` / ``comm.schedule()`` give the
 reference's ``count_collectives`` / ``collective_schedule`` contract.
-Forward only: gradients under a plan come with the training half of the
-slice (ROADMAP.md Queue 1 "Distributed").
+Gradients: every collective here is differentiable (``distributed.comm``:
+each one's backward is its transpose), every fused per-shard launch goes
+through the registry's ``FusedDispatch`` (``api.matmul``), and so does each
+row partial (:func:`_partial`: the kernel's f32 store forward, the f32
+recompute backward), so the backward of each path is the chain of those:
+``dip_tp`` column the shard's f32 recompute; ``dip_tp`` row the psum's
+transpose, the partials' recompute and the prologue's psum of sums of
+squares; ``dip_fsdp`` the gathered storage's gradient reduce-scattered back
+to the rank's K shard; ``dip_sp`` the ring's hops the other way round
+(``comm.hop_grad``) and the reduce-scatter's all-gather.  The padding of a
+shard's storage takes an exactly zero gradient (zero x columns, cropped
+output columns).  Quantized storage takes none (``_require_trainable``).
 """
 
 from __future__ import annotations
@@ -179,14 +189,25 @@ def _fused_launch(x2, wl, spec, epilogue, eops, prologue, pops, eps):
                       prologue_eps=eps)
 
 
+def _f32_store(x2, p, **_):
+    """The row partial's launch (no prologue, no epilogue): bf16 x stores
+    its f32 sums unrounded."""
+    return dip_matmul(x2, p, out_dtype=torch.float32 if x2.dtype == torch.bfloat16 else None)
+
+
 def _partial(x2, w, data, scale) -> torch.Tensor:
     """One row-parallel partial product, no epilogue, logged as a launch: f32
-    sums for float x (bf16 x stores them unrounded), int32 for int8 x."""
+    sums for float x (bf16 x stores them unrounded), int32 for int8 x.
+    Float storage goes through the registry's ``FusedDispatch``: the kernel
+    forward with grad off, the f32 recompute backward."""
+    from repro_torch.api.registry import FusedDispatch
+
     comm.note_launch()
-    f32 = torch.float32 if x2.dtype == torch.bfloat16 else None
     if _quantized(w):
+        f32 = torch.float32 if x2.dtype == torch.bfloat16 else None
         return dip_matmul_q(x2, data, scale, out_dtype=f32)
-    return dip_matmul(x2, data, out_dtype=f32)
+    return FusedDispatch.apply(_f32_store, "dip", ("none", "none", x2.shape[1], prologue_lib.DEFAULT_EPS), 1, 0,
+                               x2, data)
 
 
 def _epilogue_after(spec, epilogue, zs, eops, x_dtype, partial_dtype):
@@ -327,7 +348,7 @@ def dip_sp_matmul(x: torch.Tensor, weights: Sequence, operands: Sequence[torch.T
         cur = _pad_last(x.reshape(-1, x.shape[-1]), kp).contiguous()
         m_loc = cur.shape[0]
         wl = tuple(_local_weight(w, d, s, kp, n_loc) for w, d, s in zip(weights, datas, scales))
-        out = None
+        blocks = [None] * tp
         for s in range(tp):
             # the forward of the held block to the next rank goes first: the
             # launch below overlaps it
@@ -336,12 +357,9 @@ def dip_sp_matmul(x: torch.Tensor, weights: Sequence, operands: Sequence[torch.T
             rows = slice(src * m_loc, (src + 1) * m_loc)
             eops = _column_operands(spec, operands, w0.d_out, np_, me * n_loc, n_loc,
                                     rows=rows if spec.residual else None)
-            y = _fused_launch(cur, wl, spec, epilogue, eops, prologue, pops, prologue_eps)
-            if out is None:
-                out = torch.empty((tp * m_loc, n_loc), dtype=y.dtype, device=y.device)
-            out[rows] = y
-            cur = hop.wait() if hop is not None else None
-        return out[:, :local_width(w0.d_out, me, n_loc)]
+            blocks[src] = _fused_launch(cur, wl, spec, epilogue, eops, prologue, pops, prologue_eps)
+            cur = comm.hop_grad(cur, hop.wait(), mesh, ax) if hop is not None else None
+        return torch.cat(blocks, dim=0)[:, :local_width(w0.d_out, me, n_loc)]
 
     # ---- row: K sliced, one reduce_scatter per weight, rows this rank's ----
     k_loc = kp // tp

@@ -19,8 +19,21 @@ forward and the fused lm_head + cross-entropy kernel computes the loss.
 ``--layers`` cuts the depth (full-width training on one card takes 16 bytes
 per parameter: f32 parameters, gradients and two AdamW moments); a
 hybrid's cut must be a multiple of its ``attn_every``.  ``--device cpu``
-runs the plain PyTorch versions.  Meshes, sharding strategies and gradient
-compression come with ROADMAP.md Queue 1 "Distributed".
+runs the plain PyTorch versions.
+
+``--mesh local --sharding {tp,fsdp,sp,ep}`` trains under a sharding plan,
+as the reference's flags do: one rank per local card over ``nccl`` (two
+ranks on the CPU over gloo with ``--device cpu``), the mesh's model axis
+over the ranks under ``tp`` / ``sp`` / ``ep`` and its data axis under
+``fsdp``, each rank drawing its slice of the seeded weights, every
+projection through the strategy's sharded backend, the checkpoints whole
+(``runtime/trainer.py``)::
+
+    python -m repro_torch.launch.train --arch llama3-8b --reduced --device cpu --mesh local --sharding tp
+
+``--sharding pp``, ``--stages``, ``--compress-grads``, the production
+meshes (``--mesh single`` / ``multi``) and ``gspmd`` over more than one
+rank raise (ROADMAP.md Queue 1 "Distributed").
 """
 
 from __future__ import annotations
@@ -28,13 +41,20 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
+
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.runtime import Trainer, TrainerConfig
 
 
-def main(argv=None):
+_DIST = 'ROADMAP.md Queue 1 "Distributed"'
+_EXPLICIT = {"tp": "dip_tp", "fsdp": "dip_fsdp", "sp": "dip_sp", "ep": "dip_ep"}
+
+
+def _parse(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", required=True)
     size = ap.add_mutually_exclusive_group()
@@ -52,8 +72,26 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default="none", choices=["none", "local", "single", "multi"])
+    ap.add_argument("--sharding", default=None, choices=["gspmd", "tp", "fsdp", "sp", "ep", "pp"],
+                    help="with --mesh local: the explicit strategy (its sharded backend) over the local ranks")
+    ap.add_argument("--stages", type=int, default=1)
+    ap.add_argument("--strict-sharding", action="store_true",
+                    help="raise (instead of warn-once + replicate) when a weight dim does not divide its axis")
+    ap.add_argument("--compress-grads", action="store_true")
     args = ap.parse_args(argv)
+    if args.mesh in ("single", "multi"):
+        raise NotImplementedError(f"--mesh {args.mesh} (the production pod mesh) is not ported yet ({_DIST})")
+    if args.stages > 1 or args.sharding == "pp":
+        raise NotImplementedError(f"pipeline stages (--sharding pp, --stages) are not ported yet ({_DIST})")
+    if args.compress_grads:
+        raise NotImplementedError(f"gradient compression (--compress-grads) is not ported yet ({_DIST})")
+    if args.sharding not in (None, "gspmd") and args.mesh != "local":
+        raise ValueError(f"--sharding {args.sharding} trains over ranks: pass --mesh local")
+    return args
 
+
+def _config(args):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -63,17 +101,67 @@ def main(argv=None):
             raise ValueError(f"--layers {args.layers}: a {cfg.name} cut must be a multiple of its "
                              f"attn_every = {cfg.attn_every} (each shared-block site closes a group)")
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.sharding in _EXPLICIT:
+        cfg = dataclasses.replace(cfg, sharding=args.sharding, matmul_backend=_EXPLICIT[args.sharding])
+    return cfg
+
+
+def _train(args, plan=None):
+    cfg = _config(args)
     print(f"[train] {cfg.name} {'reduced' if args.reduced else 'full width'}: {cfg.n_layers} layers "
           f"(published {get_config(args.arch).n_layers}), d_model {cfg.d_model}, vocab {cfg.vocab_size}, "
           f"params {cfg.param_dtype}, compute {cfg.compute_dtype}, batch {args.batch} x seq {args.seq}, "
-          f"device {args.device}", flush=True)
+          f"device {args.device}" + ("" if plan is None else f", {plan.strategy} over {dict(plan.mesh.shape)} "
+                                     f"rank {plan.mesh.rank}"), flush=True)
     trainer = Trainer(
         cfg,
         TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, log_every=1),
         optimizer=AdamW(lr=cosine_schedule(args.lr, 10, args.steps)),
-        seq_len=args.seq, global_batch=args.batch, device=args.device,
+        seq_len=args.seq, global_batch=args.batch, device=args.device, plan=plan,
     )
-    out = trainer.run(seed=args.seed)
+    return trainer.run(seed=args.seed)
+
+
+def _train_rank(rank: int, argv):
+    """One rank of ``--mesh local``: its card (or the CPU), the mesh over
+    the world (the model axis under ``tp`` / ``sp`` / ``ep``, the data axis
+    under ``fsdp``), the plan, the trainer; returns its metrics."""
+    from repro_torch.distributed import make_local_mesh, make_plan
+
+    args = _parse(argv)
+    world = torch.distributed.get_world_size()
+    axes = dict(data=world, model=1) if args.sharding == "fsdp" else dict(data=1, model=world)
+    if args.device == "cpu":
+        mesh = make_local_mesh(**axes)
+    else:
+        args.device = f"cuda:{rank}"
+        mesh = make_local_mesh(**axes, transport="nccl", device=args.device)
+    cfg = _config(args)
+    plan = make_plan(mesh, cfg, "train", strict=args.strict_sharding)
+    out = _train(args, None if plan.strategy == "gspmd" else plan)  # gspmd: one rank, nothing split
+    return {"metrics": out["metrics"], "wall_s": out["wall_s"]}
+
+
+def main(argv=None):
+    """Parse ``argv``, train, print the summary line and return the run
+    (under ``--mesh local`` rank 0's metrics and wall)."""
+    args = _parse(argv)
+    if args.mesh == "local":
+        from repro_torch.distributed import run_world
+        from repro_torch.models import transformer as tf_model
+
+        if args.device != "cpu" and not torch.cuda.is_available():
+            raise RuntimeError("--mesh local on device='cuda' but torch.cuda.is_available() is False; pass "
+                               "--device cpu to train over gloo ranks on the CPU")
+        cfg = _config(args)
+        tf_model._require_trainable(cfg)  # the families the strategy trains, checked before any rank starts
+        ranks = 2 if args.device == "cpu" else torch.cuda.device_count()
+        if cfg.sharding == "gspmd" and ranks > 1:
+            raise NotImplementedError(f"implicit gspmd partitioning over more than one rank is not ported yet "
+                                      f"({_DIST})")
+        out = run_world(_train_rank, ranks, list(argv if argv is not None else sys.argv[1:]), timeout=3600.0)[0]
+    else:
+        out = _train(args)
     print(json.dumps({"train": {"steps": len(out["metrics"]), "wall_s": out["wall_s"],
                                 "final_loss": out["metrics"][-1]["loss"] if out["metrics"] else None}}))
     return out

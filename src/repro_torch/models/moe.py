@@ -24,8 +24,9 @@ gave them all) and its slice of the banks, E / T consecutive experts
   ``all_to_all`` (experts split over the axis, the ranks' tokens
   concatenated) BEFORE the shared-expert launches it overlaps, runs the
   shared experts plan-free on its tokens, its experts over every rank's
-  tokens, the combine ``all_to_all``, ONE psum of the (aux, dropped) pair
-  (aux averaged over the ranks, drops summed) and ONE ``all_gather`` of the
+  tokens, the combine ``all_to_all``, ONE psum of the routing stats (drops
+  summed; aux the single-rank layer's under the batch split, the ranks'
+  mean under the sequence split) and ONE ``all_gather`` of the
   tokens back (in the reference GSPMD's implicit reshard of the
   shard_map's output).  Each rank holds the shared experts whole (their
   storage keeps its column / row plan, unused: ``ShardingPlan.shard_leaf``),
@@ -58,7 +59,13 @@ Each plan-free shared-expert launch is logged (``comm.note_launch``), so
   through ``dense_ffn`` on ``dip_fsdp`` (one all-gather of storage a
   weight).  ``aux``, ``dropped`` and the ids are the rank's rows' (no
   collective sums them: the ranks' drops add up to the single-rank
-  layer's).
+  layer's), except in training (x differentiated), where one psum of the
+  routing sums makes ``aux`` the whole batch's, as the loss needs it.
+
+In training every collective above is differentiable (``distributed.comm``)
+and the router, the banks and the shared experts take their gradients
+through them; under ``ep``'s batch split ``aux`` is the single-rank layer's
+(the sums behind its means psummed), so the loss is too.
 """
 
 from __future__ import annotations
@@ -129,7 +136,11 @@ def _route(x: torch.Tensor, router: torch.Tensor, cfg, cap: int,
     load = top1.float().mean((0, 1))
     importance = probs.mean((0, 1))
     aux = cfg.router_aux_loss * e * torch.sum(load * importance)
-    aux = aux + 1e-4 * torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    z = torch.square(torch.logsumexp(logits, dim=-1))
+    aux = aux + 1e-4 * torch.mean(z)
+    # the sums behind aux's means (and the token count), so that ranks
+    # holding different tokens can add theirs and take the aux of them all
+    stats = torch.cat([top1.float().sum((0, 1)), probs.sum((0, 1)), z.sum()[None], torch.ones_like(z).sum()[None]])
 
     flat_ids = ids.reshape(g, sl * k)                                      # slot-major
     gates_flat = gates.reshape(g, sl * k).to(x.dtype)
@@ -146,7 +157,17 @@ def _route(x: torch.Tensor, router: torch.Tensor, cfg, cap: int,
     counts = end - start                                                   # (G, E)
     dropped = torch.clamp(counts - cap, min=0).sum().to(torch.int32)
     return dict(gates_flat=gates_flat, order=order, inv_order=inv_order, sorted_ids=sorted_ids,
-                sorted_src=sorted_src, start=start, counts=counts, aux=aux, dropped=dropped, ids=ids)
+                sorted_src=sorted_src, start=start, counts=counts, aux=aux, dropped=dropped, ids=ids, stats=stats)
+
+
+def _aux_of(cfg, stats: torch.Tensor) -> torch.Tensor:
+    """The aux loss of :func:`_route`'s ``stats`` (summed over ranks): the
+    Switch load-balance term of the tokens' mean load and importance, and
+    the z-loss's mean, over every token the sums hold."""
+    e = cfg.n_experts
+    n = stats[2 * e + 1]
+    load, importance = stats[:e] / n, stats[e:2 * e] / n
+    return (cfg.router_aux_loss * e * torch.sum(load * importance) + 1e-4 * (stats[2 * e] / n)).float()
 
 
 def _fill_buffer(r: Dict[str, torch.Tensor], cap: int) -> torch.Tensor:
@@ -251,9 +272,13 @@ def _moe_ffn_ep(x, p, cfg, plan, dim, route_ids, on_route):
     out = _combine(comb.reshape(e, g, cap, d).transpose(0, 1), r, cap, k)
     if shared_out is not None:
         out = out + shared_out
-    # ONE psum for the stats pair: aux averages over the ranks, drops sum
-    stats = comm.psum(torch.stack([r["aux"].double(), r["dropped"].double()]), mesh, ax)
-    aux, dropped = (stats[0] / t).float(), stats[1].round().to(torch.int32)
+    # ONE psum for the stats: drops summed; under the batch split aux is the
+    # single-rank layer's (the sums behind its means added, _aux_of), under
+    # the sequence split the mean of the ranks' (each half routed alone)
+    stats = comm.psum(torch.cat([r["stats"].double(), r["aux"].double()[None], r["dropped"].double()[None]]),
+                      mesh, ax)
+    aux = _aux_of(cfg, stats[:-2]) if dim == 0 else (stats[-2] / t).float()
+    dropped = stats[-1].round().to(torch.int32)
     return comm.all_gather(out, mesh, ax, dim=dim), aux, dropped, r["ids"]
 
 
@@ -283,7 +308,13 @@ def _moe_ffn_fsdp(x, p, cfg, plan, route_ids, on_route):
     shared = _shared_params(p)
     if cfg.n_shared_experts and shared is not None:
         out = out + dense_ffn(x, shared, cfg)
-    return out, r["aux"], r["dropped"], r["ids"]
+    aux = r["aux"]
+    if comm.differentiated(x):
+        # training: the loss's aux is the whole batch's, as the single-rank
+        # layer's (one psum of the routing sums; ranks running the same rows
+        # add the same sums and counts alike)
+        aux = _aux_of(cfg, comm.psum(r["stats"], plan.mesh, plan.fsdp))
+    return out, aux, r["dropped"], r["ids"]
 
 
 def moe_ffn(x: torch.Tensor, p: Dict, cfg, *, plan=None, return_routing: bool = False,

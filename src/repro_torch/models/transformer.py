@@ -86,7 +86,15 @@ before the logits leave: every rank returns the whole (B, S) logits.
 llama3-8b on 2 ranks: 32 x (4 + 2) + 1 + 2 = 195 collectives and 32 x 10
 + 2 = 322 launches a step; Zamba2-2.7B: 54 x 4 + 9 x 6 + 3 = 273 and 54 x
 3 + 9 x 10 + 2 = 254.  The moe family under ``sp`` raises (ROADMAP.md
-Queue 1 "Distributed"); so does training under a plan.
+Queue 1 "Distributed").
+
+Every model path that serves under a plan also trains under it
+(``loss_fn(plan=)``, ``train_step_fn(plan=)``): the collectives are
+differentiable (``distributed.comm``: each one's backward is its
+transpose), every rank computes the global loss from the whole logits and
+differentiates its share of it, and the gradient shares of the leaves the
+ranks hold alike are summed once after the backward.  Training refuses a
+(data, model) mesh with both axes above 1 and the pipeline's stages.
 """
 
 from __future__ import annotations
@@ -181,7 +189,9 @@ def _require_plan(cfg, plan) -> None:
         _require_ssm_plan(cfg, plan)
         if not cfg.is_hybrid:
             return
-    if not plan.heads_on_tp:
+    # a prefill or train plan's heads_on_tp reads only the query heads; the
+    # model path runs the rank's share of the KV heads too
+    if not plan.heads_on_tp or (not cfg.use_mla and cfg.n_kv_heads % plan.tp_size):
         raise NotImplementedError(f"{cfg.name}: heads that do not divide the TP axis (sequence-parallel "
                                   f"attention) are not ported yet ({_DISTRIBUTED})")
     hd, d, h = cfg.resolved_head_dim, cfg.d_model, cfg.n_heads
@@ -229,9 +239,54 @@ def _require_trainable(cfg) -> None:
                          "train in float and quantize the checkpoint for serving")
 
 
-def _no_plan(plan) -> None:
-    if plan is not None:
-        raise NotImplementedError(f"training under a sharding plan is not ported yet ({_DISTRIBUTED})")
+def _require_train_plan(cfg, plan) -> None:
+    """What training under a plan adds to :func:`_require_plan`: one axis
+    of the mesh above 1 (a (data, model) mesh with both above 1 would need
+    the whole leaves' gradients summed over each axis apart).  Pipeline
+    stages never reach a plan: ``make_local_mesh(stage=)`` raises."""
+    if plan is None:
+        return
+    _require_plan(cfg, plan)
+    if plan.tp_size > 1 and plan.fsdp_size > 1:
+        raise NotImplementedError(f"{cfg.name}: training over a (data, model) mesh {dict(plan.mesh.shape)} with both "
+                                  f"axes above 1 is not ported yet ({_DISTRIBUTED})")
+
+
+def _rank_axis(plan) -> str:
+    """The mesh axis a plan's ranks differ along in training: ``data``
+    under ``fsdp``, ``model`` otherwise."""
+    return plan.fsdp if plan.strategy == "fsdp" else plan.tp
+
+
+def _whole_shapes(cfg) -> List[tuple]:
+    """``(name, whole storage shape)`` of every parameter leaf, in
+    ``tree.leaves`` order."""
+    def walk(t):
+        return [x for k in sorted(t) for x in (walk(t[k]) if isinstance(t[k], dict) else [(k, tuple(t[k][0]))])]
+
+    return walk(param_template(cfg))
+
+
+def replicated_parts(params, cfg) -> List[Optional[slice]]:
+    """For every parameter leaf (``tree.leaves`` order), the part of it
+    that this rank holds as every other rank does, as a slice of its last
+    dim: ``slice(None)`` for a leaf held whole, None for a slice of the leaf
+    (its shape is not the whole leaf's), and for the Mamba2 conv leaves
+    under a head split (``ShardingPlan`` module doc: the rank's heads' x
+    channels, then the whole B and C) the B and C channels."""
+    got = [tuple(t.shape) for t in tree.leaves(params)]
+    whole = _whole_shapes(cfg)
+    if len(got) != len(whole):
+        raise ValueError(f"{cfg.name}: {len(got)} parameter leaves, the template has {len(whole)}")
+    out: List[Optional[slice]] = []
+    for g, (name, w) in zip(got, whole):
+        if g == w:
+            out.append(slice(None))
+        elif name in ("conv_w", "conv_b") and cfg.ssm_state:
+            out.append(slice(g[-1] - (w[-1] - cfg.d_inner), None))
+        else:
+            out.append(None)
+    return out
 
 
 # ------------------------------------------------------------ param layout --
@@ -976,19 +1031,31 @@ def loss_fn(params, cfg, batch, *, kv_chunk: int = 0, fused_ce: Optional[bool] =
     tokens from the mean and the gradient.
 
     ``fused_ce=None`` selects the fused lm_head + cross-entropy kernel, as
-    the reference does when no constrain hook needs the logits: the (B, S,
-    V) logits are then never formed; with a ``constrain`` hook (called as
-    in :func:`forward`) it takes the unfused path.  ``False`` forces the
-    unfused path through the lm_head projection.  ``moe_trace`` as in
-    :func:`forward`; a sharding ``plan`` raises (training under a plan is
-    not ported yet)."""
-    _no_plan(plan)
+    the reference does when no plan or constrain hook needs the logits: the
+    (B, S, V) logits are then never formed; with a ``constrain`` hook
+    (called as in :func:`forward`) or a ``plan`` it takes the unfused path.
+    ``False`` forces the unfused path through the lm_head projection.
+    ``moe_trace`` as in :func:`forward`.
+
+    Under a sharding ``plan`` (this rank's parameters, ``plan.shard_params``
+    or ``init_params(plan=)``; every rank passes the same whole batch) the
+    forward returns the whole (B, S, V) logits on every rank (the vocab's
+    or the rows' all-gather, module doc), so the next-token shift (under
+    ``sp`` across the ranks' row blocks), the mask and the mean over the
+    batch's trained tokens are the single-rank ones, and the MoE aux is the
+    whole batch's: every rank returns the same global loss.  The fused
+    kernel does not run under a plan (``fused_ce=True`` raises): the
+    reference takes the unfused loss there."""
     _require_served(cfg)
+    _require_plan(cfg, plan)
     mask = batch.get("loss_mask")
     shift_mask = None if mask is None else mask[:, 1:]
     inputs = dict(tokens=batch.get("tokens"), embeddings=batch.get("embeddings"), kv_chunk=kv_chunk,
-                  moe_trace=moe_trace, return_aux=True, constrain=constrain)
-    if fused_ce is None and constrain is not None:
+                  moe_trace=moe_trace, return_aux=True, constrain=constrain, plan=plan)
+    if plan is not None and fused_ce:
+        raise NotImplementedError(f"the fused lm_head + cross-entropy kernel under a sharding plan is not ported "
+                                  f"({_DISTRIBUTED}); the reference takes the unfused loss under a plan")
+    if fused_ce is None and (constrain is not None or plan is not None):
         fused_ce = False
     if fused_ce is None or fused_ce:
         hidden, _, aux = forward(params, cfg, return_hidden=True, **inputs)
@@ -1015,7 +1082,10 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
     state holds the same tensors.  ``microbatch > 1`` splits the batch into
     that many slices, sums their losses and gradients and scales both by
     1/microbatch, as the reference's scan does.  Metrics: ``loss``,
-    ``grad_norm`` (pre-clip) and ``step``, as 0-d tensors / int.
+    ``grad_norm`` (pre-clip) and ``step``, as 0-d tensors / int.  The
+    returned step's ``loss_and_grads(params, batch, moe_trace=None)`` is
+    its first half alone (loss, gradient tree, and under a plan the global
+    norm), for a caller that holds the gradients against another run's.
 
     ``guard=True`` puts the step behind the reliability guard
     (``reliability.guard``); the state then carries its side-car keys
@@ -1030,21 +1100,57 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
     were and freezes the fingerprint reference; ``step`` advances either
     way.  Metrics gain ``skipped`` / ``weight_fault`` (0 or 1) and
     ``skipped_total`` / ``weight_faults_total``.  ``constrain`` as in
-    :func:`loss_fn`; a sharding ``plan`` raises."""
-    _no_plan(plan)
-    _require_trainable(cfg)
+    :func:`loss_fn`.
 
-    def grad_of(leaves, params, batch):
-        loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce, constrain=constrain)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    Under a sharding ``plan`` (``make_plan(mesh, cfg, "train")``; the state
+    holds this rank's parameters and moments, and every rank passes the
+    same whole batch) every rank computes the global loss
+    (:func:`loss_fn`) and differentiates ``loss / ranks``: its share of the
+    replicated loss, under the collectives' transpose convention
+    (``distributed.comm``).  A leaf this rank holds a slice of then has that
+    slice's whole gradient; the shares of every leaf it holds whole (the
+    norm gains, the router, the small SSM leaves, biases, projections the
+    plan replicates, under ``fsdp`` whatever the plan keeps whole) are
+    summed over the ranks by ONE psum after the backward
+    (:func:`replicated_parts` tells them apart).  The global norm counts each
+    slice once and each whole leaf once (``optim.adamw.global_norm``), so
+    clipping and ``grad_norm`` are the single-rank run's on every rank;
+    the reported ``loss`` is the global one.  Under ``guard=True`` the
+    ranks' verdicts meet in one psum of their flags, so that no rank
+    updates where another skips.  A (data, model) mesh with both axes above
+    1 and pipeline stages raise (ROADMAP.md Queue 1 "Distributed")."""
+    _require_trainable(cfg)
+    _require_train_plan(cfg, plan)
+    if plan is not None:
+        mesh, axis, ranks = plan.mesh, _rank_axis(plan), plan.mesh.size
+
+    def grad_of(leaves, params, batch, moe_trace=None):
+        loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce, constrain=constrain, plan=plan,
+                       moe_trace=moe_trace)
+        seed = loss if plan is None else loss / ranks
+        grads = torch.autograd.grad(seed, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
-    def loss_and_grads(params, batch):
+    def whole_leaves_summed(params, flat):
+        """ONE psum of the ranks' shares of every part of a leaf that each
+        rank holds alike (:func:`replicated_parts`)."""
+        parts = replicated_parts(params, cfg)
+        held = [i for i, rep in enumerate(parts) if rep is not None]
+        if held:
+            pieces = [flat[i][..., parts[i]] for i in held]
+            summed = comm.psum(torch.cat([p.float().reshape(-1) for p in pieces]), mesh, axis)
+            for i, piece, got in zip(held, pieces, summed.split([p.numel() for p in pieces])):
+                g = flat[i].clone()
+                g[..., parts[i]] = got.view(piece.shape).to(g.dtype)
+                flat[i] = g
+        return flat, parts
+
+    def loss_and_grads(params, batch, moe_trace=None):
         leaves = tree.leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
         if microbatch <= 1:
-            loss, flat = grad_of(leaves, params, batch)
+            loss, flat = grad_of(leaves, params, batch, moe_trace)
         else:
             loss, flat = 0.0, None
             for i in range(microbatch):
@@ -1055,27 +1161,39 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
             inv = 1.0 / microbatch
             loss = loss * inv
             flat = [g * inv for g in flat]
-        return loss, tree.unflatten(params, flat)
+        if plan is None:
+            return loss, tree.unflatten(params, flat), None
+        flat, parts = whole_leaves_summed(params, flat)
+        return loss, tree.unflatten(params, flat), global_norm(flat, replicated=parts,
+                                                               psum=lambda t: comm.psum(t, mesh, axis))
 
     def step(state, batch):
         params = state["params"]
-        loss, grads = loss_and_grads(params, batch)
-        params, opt_state = optimizer.update(grads, state["opt_state"], params)
+        loss, grads, gnorm = loss_and_grads(params, batch)
+        params, opt_state = optimizer.update(grads, state["opt_state"], params, gnorm=gnorm)
         new_state = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": optimizer.last_grad_norm(opt_state),
                            "step": new_state["step"]}
 
+    # the step's first half, for a caller that holds the gradients to
+    # another run's: (loss, gradient tree, global norm or None without a
+    # plan), with the step's collectives; ``moe_trace`` as in ``loss_fn``
+    step.loss_and_grads = loss_and_grads
     if not guard:
         return step
 
     def guarded_step(state, batch):
         params = state["params"]
         weights_ok = guard_lib.fingerprint_ok(guard_lib.fingerprint(params), state["fingerprint"])
-        loss, grads = loss_and_grads(params, batch)
-        gnorm = global_norm(grads)
-        w_ok, ok = torch.stack([weights_ok, weights_ok & torch.isfinite(loss) & torch.isfinite(gnorm)]).tolist()
+        loss, grads, gnorm = loss_and_grads(params, batch)
+        if gnorm is None:
+            gnorm = global_norm(grads)
+        flags = torch.stack([weights_ok, weights_ok & torch.isfinite(loss) & torch.isfinite(gnorm)])
+        if plan is not None:  # the joint verdict: a step every rank passes, a fault any rank sees
+            flags = comm.psum((~flags).to(torch.float32), mesh, axis) == 0
+        w_ok, ok = flags.tolist()
         if ok:
-            optimizer.update(grads, state["opt_state"], params)
+            optimizer.update(grads, state["opt_state"], params, gnorm=gnorm)
         skipped, wfault = int(not ok), int(not w_ok)
         new_state = dict(state, step=state["step"] + 1,
                          fingerprint=guard_lib.fingerprint(params) if ok else state["fingerprint"],

@@ -23,7 +23,7 @@ leaf is 5.8 GB); elementwise, the result is the same bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -39,10 +39,30 @@ def _global_norm(leaves) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
 
 
-def global_norm(grads) -> torch.Tensor:
-    """The f32 global norm of a gradient tree, as :meth:`AdamW.update`
-    computes it."""
-    return _global_norm(tree.leaves(grads))
+def global_norm(grads, *, replicated: Optional[Sequence[Optional[slice]]] = None,
+                psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
+    """The f32 global norm of a gradient tree (or a list of its leaves), as
+    :meth:`AdamW.update` computes it.  Under a sharding plan
+    (``replicated``: per leaf, the part of its last dim that every rank
+    holds alike, ``slice(None)`` for a whole leaf, None for a rank's
+    slice; ``psum``: the sum over the ranks) the ranks' own parts count
+    once each (ONE psum of their squared sums) and the parts held alike
+    once, so that every rank gets the single-rank norm."""
+    flat = grads if isinstance(grads, list) else tree.leaves(grads)
+    if replicated is None:
+        return _global_norm(flat)
+    own = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    alike = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    for g, rep in zip(flat, replicated):
+        g = g.float()
+        if rep is None:
+            own = own + torch.sum(torch.square(g))
+        elif rep == slice(None):
+            alike = alike + torch.sum(torch.square(g))
+        else:
+            own = own + torch.sum(torch.square(g[..., :rep.start]))
+            alike = alike + torch.sum(torch.square(g[..., rep]))
+    return torch.sqrt(psum(own) + alike)
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -101,10 +121,14 @@ class AdamW:
         return float(self.lr(count)) if callable(self.lr) else float(np.float32(self.lr))
 
     @torch.no_grad()
-    def update(self, grads, state: Dict[str, Any], params):
-        """One step, in place on ``params``, ``state["mu"]`` and ``state["nu"]``."""
+    def update(self, grads, state: Dict[str, Any], params, *, gnorm: Optional[torch.Tensor] = None):
+        """One step, in place on ``params``, ``state["mu"]`` and ``state["nu"]``;
+        ``gnorm`` is the global norm when the caller has it (under a
+        sharding plan, :func:`global_norm` over the ranks), else it is
+        computed over ``grads``."""
         flat = tree.leaves(grads)
-        gnorm = _global_norm(flat)
+        if gnorm is None:
+            gnorm = _global_norm(flat)
         scale = _clip_scale(gnorm, self.clip_norm)
         count = int(state["count"]) + 1
         f32 = np.float32

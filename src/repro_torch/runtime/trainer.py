@@ -26,8 +26,23 @@ clock around the step, which ends by reading the loss back, so the card's
 work is inside it) and ``stragglers``.  The run happens on ``device``
 (default ``"cuda"``; pass ``"cpu"`` for the plain versions of the kernels).
 
-Not ported yet: sharding plans, meshes and pipeline stages (ROADMAP.md
-Queue 1 "Distributed").
+**Under a sharding plan** (``Trainer(cfg, tcfg, mesh=, plan=)``, or
+``policy=``, the reference's deprecated alias of ``plan``; a mesh alone
+takes ``distributed.make_plan(mesh, cfg, "train")``; ``cfg.matmul_backend``
+the plan's sharded backend) each rank of an initialized world runs one
+``Trainer`` on its own device: ``init_state`` draws the rank's slice of the
+seeded parameters (``init_params(plan=)``; given ``params``, whole ones
+are cut by ``plan.shard_params``), every rank reads the same global batch
+and cursor from the pipeline and the step takes its rows (the batch's rows
+over ``data`` under ``fsdp``, ``layers.SeqRows`` under ``sp``, every row
+under ``tp`` and ``ep``: ``transformer.forward``), and
+``train_step_fn(plan=)`` does the rest.  Checkpoints are mesh-independent
+(``checkpoint.manager``): whole leaves, gathered on every rank and written
+by rank 0; a restore cuts each rank's slice, so a run resumes on the same
+mesh, under another strategy or on one rank.  After a restore the guard's
+fingerprint is recomputed on the rank's own slices.  Pipeline stages
+(``pipeline_microbatches``, a ``stage`` axis) raise (ROADMAP.md Queue 1
+"Distributed").
 """
 
 from __future__ import annotations
@@ -77,9 +92,20 @@ class Trainer:
                  seq_len: int = 512, global_batch: int = 8,
                  step_hook: Optional[Callable[[int, Dict[str, Any]], Dict[str, Any]]] = None,
                  device="cuda"):
-        if mesh is not None or plan is not None or policy is not None or tcfg.pipeline_microbatches:
-            raise NotImplementedError(f"meshes, sharding plans and pipeline stages are not ported yet ({_DIST})")
-        api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
+        if tcfg.pipeline_microbatches:
+            raise NotImplementedError(f"pipeline stages (pipeline_microbatches) are not ported yet ({_DIST})")
+        plan = plan if plan is not None else policy
+        if plan is None and mesh is not None:
+            from repro_torch.distributed import make_plan
+
+            plan = make_plan(mesh, cfg, "train")
+        if plan is not None and mesh is not None and plan.mesh != mesh:
+            raise ValueError(f"the plan was made for {plan.mesh}, the trainer was given {mesh}")
+        be = api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
+        if (be.layout == "sharded") != (plan is not None):
+            raise ValueError(f"cfg.matmul_backend={cfg.matmul_backend!r} and plan={plan!r}: a sharded backend "
+                             "dispatches on the WeightPlan metadata, so it trains under a plan "
+                             "(distributed.make_plan), and a plan trains through its sharded backend")
         if cfg.quantization != "none":
             # quantized storage is a frozen inference artifact: its payload
             # has no usable cotangent, so training would freeze every projection
@@ -87,12 +113,15 @@ class Trainer:
                              "train in float and quantize the checkpoint for serving")
         self.cfg = cfg
         self.tcfg = tcfg
+        self.plan = plan
+        self.mesh = None if plan is None else plan.mesh
+        self.policy = plan  # the reference's deprecated alias
         self.device = resolve_device(device)
         self.opt = optimizer or AdamW(lr=3e-4)
         self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
                                         emit_embeddings=cfg.d_model if cfg.frontend != "none" else None)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
-        self._step_fn = tf_model.train_step_fn(cfg, self.opt, guard=tcfg.guard)
+        self._step_fn = tf_model.train_step_fn(cfg, self.opt, guard=tcfg.guard, plan=plan)
         self.metrics_log: list = []
         # called as state = step_hook(step_no, state) before each step: how
         # the chaos tests corrupt a parameter between steps
@@ -102,9 +131,11 @@ class Trainer:
     def init_state(self, seed: int = 0, params: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Fresh parameters drawn from ``seed`` on the trainer's device (or
         the given ``params``, e.g. weights converted from the reference),
-        zero moments, step 0."""
+        zero moments, step 0; under a plan this rank's slice of them."""
         if params is None:
-            params = tf_model.init_params(self.cfg, make_generator(seed, self.device), self.device)
+            params = tf_model.init_params(self.cfg, make_generator(seed, self.device), self.device, plan=self.plan)
+        elif self.plan is not None:
+            params = self.plan.shard_params(params)
         state = {"params": params, "opt_state": self.opt.init(params), "step": 0}
         return reliability.init_guard_state(state) if self.tcfg.guard else state
 
@@ -114,7 +145,7 @@ class Trainer:
         ``recoveries``."""
         state = self.init_state(seed, params)
         data_state = DataState(step=0)
-        restored, meta = self.ckpt.restore(state)
+        restored, meta = self._restore(state)
         if restored is not None:
             state = restored
             data_state = DataState.from_dict(meta["data"])
@@ -152,10 +183,11 @@ class Trainer:
                     print(f"[trainer] step {step} loss {metrics['loss']:.4f} ({dt * 1e3:.0f} ms)")
                 if step % self.tcfg.ckpt_every == 0:
                     self.ckpt.save(step, state, meta={"data": DataState(step=step_no + 1).to_dict()},
-                                   blocking=not self.tcfg.async_ckpt)
+                                   blocking=not self.tcfg.async_ckpt, plan=self.plan)
         finally:
             self.data.stop()
             self.ckpt.wait()
+            self._barrier()  # rank 0's files are complete before any rank goes on
         out = {"state": state, "wall_s": time.monotonic() - t_loop, "metrics": self.metrics_log}
         if self.tcfg.guard:
             out.update(skipped=sum(int(m["skipped"]) for m in self.metrics_log),
@@ -173,7 +205,8 @@ class Trainer:
         restored = None
         if self.tcfg.recover_on_fault:
             self.ckpt.wait()
-            restored, meta = self.ckpt.restore(state)
+            self._barrier()
+            restored, meta = self._restore(state)
         if restored is None:
             raise reliability.ReliabilityError(
                 f"weight corruption detected in [{leaves}] and no recovery path "
@@ -182,3 +215,15 @@ class Trainer:
         print(f"[trainer] weight fault in [{leaves}]; restored checkpoint step {meta['step']}")
         return restored
 
+    def _restore(self, state: Dict[str, Any]):
+        """The latest checkpoint into ``state`` in place (each rank's slice
+        under a plan), with the guard's fingerprint recomputed on the rank's
+        own parameters under a plan (the file holds rank 0's)."""
+        restored, meta = self.ckpt.restore(state, plan=self.plan)
+        if restored is not None and self.plan is not None and self.tcfg.guard:
+            restored["fingerprint"] = reliability.guard.fingerprint(restored["params"])
+        return restored, meta
+
+    def _barrier(self) -> None:
+        if self.plan is not None:
+            torch.distributed.barrier(group=self.plan.mesh.group(tf_model._rank_axis(self.plan)))

@@ -542,3 +542,340 @@ def cuda_moe_fsdp_rank(rank, layers, tokens, seed):
     return {"got": _np(got), "want": _np(want[rank:rank + 1]), "ids_equal": bool(torch.equal(ids, want_ids[rank:rank + 1])),
             "dropped": int(dropped), "want_dropped": int(want_dropped), "counts": comm.counts(),
             "banks": {k: tuple(local[k].shape) for k in ("router", "w_gate", "w_up", "w_down")}}
+
+
+# ------------------------------------------------------------- training ---
+def _seeded(shape, seed):
+    return torch.from_numpy(np.random.default_rng(seed).normal(0, 1, shape).astype(np.float32))
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_(True)
+
+
+def _collective_case(name, mesh, dev="cpu"):
+    """One differentiable collective as a rank uses it, and the single-rank
+    function it computes on the whole inputs: the rank's gradients (the
+    shares of a replicated input psummed) and the single-rank ones, as
+    ``(got, want, counts of the backward)``."""
+    from repro_torch.distributed import comm
+
+    t, me, ax = mesh.shape["model"], mesh.coord("model"), "model"
+    X = _seeded((t, 6, 4), 1).to(dev)
+    R = _seeded((t, 6, 4), 2).to(dev)
+
+    def single(fn):
+        xw = X.clone().requires_grad_(True)
+        return torch.autograd.grad(fn(xw), xw)[0][me]
+
+    x = _leaf(X[me])
+    if name == "psum":  # partial sums reduced, the result used whole by every rank
+        loss = torch.sum(torch.sin(comm.psum(2 * x, mesh, ax)) * R[0])
+        want = single(lambda xw: torch.sum(torch.sin((2 * xw).sum(0)) * R[0]))
+    elif name == "psum_of_replicated":  # a replicated input into rank-specific work, then summed
+        xr = _leaf(X[0])
+        loss = torch.sum(torch.sin(comm.psum(xr * R[me], mesh, ax)))
+        comm.reset()
+        g = torch.autograd.grad(loss / t, xr)[0]
+        counts = comm.counts()
+        got = comm.psum(g, mesh, ax)  # a whole leaf's shares, summed after the backward
+        xw = X[0].clone().requires_grad_(True)
+        want = torch.autograd.grad(torch.sum(torch.sin((xw[None] * R).sum(0))), xw)[0]
+        return _np(got), _np(want), counts
+    elif name in ("all_gather_0", "all_gather_1"):  # the rank's block, the gathered whole used by every rank
+        dim = int(name[-1])
+        loss = torch.sum(torch.sin(comm.all_gather(x, mesh, ax, dim=dim)) * torch.cat(list(R), dim=dim))
+        want = single(lambda xw: torch.sum(torch.sin(torch.cat(list(xw), dim=dim)) * torch.cat(list(R), dim=dim)))
+    elif name == "psum_scatter":  # partial sums, each rank keeps its rows of the sum
+        y = comm.psum_scatter(x, mesh, ax, dim=0)
+        m = y.shape[0]
+        loss = comm.psum(torch.sum(torch.sin(y) * R[0][me * m:(me + 1) * m]), mesh, ax)
+        want = single(lambda xw: torch.sum(torch.sin(xw.sum(0)) * R[0]))
+    elif name == "all_to_all":  # block j of dim 0 to rank j, concatenated on dim 1
+        y = comm.all_to_all(x, mesh, ax, split_dim=0, concat_dim=1)
+
+        def whole(xw):
+            m = xw.shape[1] // t
+            ys = [torch.cat([xw[j][r * m:(r + 1) * m] for j in range(t)], dim=1) for r in range(t)]
+            return sum(torch.sum(torch.sin(ys[r]) * R[r][:m, :ys[r].shape[1]]) for r in range(t))
+
+        R = torch.stack([_seeded((6 // t, 4 * t), 3 + r) for r in range(t)]).to(dev)
+        loss = comm.psum(torch.sum(torch.sin(y) * R[me]), mesh, ax)
+        want = single(whole)
+    elif name == "hop":  # the previous rank's block, received over the ring
+        y = comm.hop_grad(x, comm.ppermute_start(x, mesh, ax).wait(), mesh, ax)
+        loss = comm.psum(torch.sum(torch.sin(y) * R[me]), mesh, ax)
+        want = single(lambda xw: sum(torch.sum(torch.sin(xw[(r - 1) % t]) * R[r]) for r in range(t)))
+    else:
+        raise ValueError(name)
+    comm.reset()
+    got = torch.autograd.grad(loss / t, x)[0]
+    return _np(got), _np(want), comm.counts()
+
+
+def _backend_case(case, meshes, dev="cpu"):
+    """One sharded dispatch's gradients (x, each weight's storage, the gain,
+    the bias or residual) against the single-rank ``api.matmul``'s on the
+    whole operands: the loss ``sum(out * R)`` over the whole output, every
+    rank's share of a whole operand psummed."""
+    from repro_torch import api
+    from repro_torch.distributed import WeightPlan, comm, shard_weight
+
+    path, epilogue, rms = case["path"], case["epilogue"], case["rmsnorm"]
+    backend, kind = BACKENDS[path]
+    mesh = meshes["f2" if path == "fsdp" else "m2"]
+    axis = "data" if path == "fsdp" else "model"
+    t = mesh.size
+    m, k, n = 8, 128, 128
+    x, R = _seeded((m, k), 10).to(dev), _seeded((m, n), 11).to(dev)
+    ws = [_seeded((k, n), 12).to(dev) * 0.1] + ([_seeded((k, n), 13).to(dev) * 0.1] if epilogue == "swiglu" else [])
+    gain, bias, resid = 1 + 0.1 * _seeded((k,), 14).to(dev), _seeded((n,), 15).to(dev), _seeded((m, n), 16).to(dev)
+    full = [api.DipWeight.from_natural(w) for w in ws]
+    nw = len(full)
+
+    def run(ops, wts, be):
+        """``ops``: [x, *storages, (gain), (bias or residual)] leaves."""
+        w = [wi.with_data(d) for wi, d in zip(wts, ops[1:1 + nw])]
+        rest = ops[1 + nw:]
+        pro = dict(prologue="rmsnorm", prologue_operands=(rest[0],)) if rms else {}
+        eops = (rest[-1],) if epilogue in ("bias", "residual") else ()
+        return api.matmul(ops[0], tuple(w) if nw == 2 else w[0], backend=be, epilogue=epilogue,
+                          epilogue_operands=eops, **pro)
+
+    def operands(xa, wts, extra):
+        return [_leaf(xa)] + [_leaf(w.data) for w in wts] + ([_leaf(gain)] if rms else []) + \
+            ([_leaf(extra)] if epilogue in ("bias", "residual") else [])
+
+    # single rank, whole operands
+    whole = operands(x, full, bias if epilogue == "bias" else resid)
+    want = list(torch.autograd.grad(torch.sum(run(whole, full, "dip") * R), whole))
+    # this rank's slice
+    plan = WeightPlan(kind, axis="model", fsdp="data", mesh=mesh)
+    along = "fsdp" if backend == "dip_fsdp" else "tp"
+    loc = [shard_weight(w, plan, along=along) for w in full]
+    xl, rl = local_inputs(path, mesh, x, resid)
+    mine = operands(xl, loc, bias if epilogue == "bias" else rl)
+    comm.reset()
+    y = run(mine, loc, backend)
+    me, dme = mesh.coord("model"), mesh.coord("data")
+    if path in ("tp_col", "sp_col"):  # this rank's columns, every row
+        n_loc = y.shape[1]
+        loss = comm.psum(torch.sum(y * R[:, me * n_loc:(me + 1) * n_loc]), mesh, axis)
+    elif path == "tp_row":  # every row and column, alike on every rank
+        loss = torch.sum(y * R)
+    else:  # this rank's rows, every column
+        rows, idx = y.shape[0], dme if path == "fsdp" else me
+        loss = comm.psum(torch.sum(y * R[idx * rows:(idx + 1) * rows]), mesh, axis)
+    fwd = comm.counts()
+    comm.reset()
+    got = list(torch.autograd.grad(loss / t, mine))
+    bwd = comm.counts()
+    # the shares of what every rank holds whole, summed: the gain, the bias,
+    # x under tp column, the residual where it is whole
+    shared = list(range(1 + nw, len(mine))) if epilogue == "bias" or (
+        epilogue == "residual" and path in ("tp_col", "tp_row", "sp_col")) else ([1 + nw] if rms else [])
+    if path == "tp_col":
+        shared.append(0)
+    for i in shared:
+        got[i] = comm.psum(got[i], mesh, axis)
+    # the single-rank gradients cut as the rank's operands are
+    xs, rs = local_inputs(path, mesh, want[0], want[-1] if epilogue == "residual" else None)
+    cut = [xs] + [shard_weight(w.with_data(g), plan, along=along).data for w, g in zip(full, want[1:1 + nw])]
+    cut += [want[1 + nw]] if rms else []
+    cut += [want[-1] if epilogue == "bias" else rs] if epilogue in ("bias", "residual") else []
+    return [(_np(g), _np(w)) for g, w in zip(got, cut)], fwd, bwd
+
+
+def train_grad_rank(rank, collective_names, backend_cases):
+    """The differentiable collectives (``_collective_case``) and the sharded
+    backends' backward (``_backend_case``) on a 2-rank world: meshes ``m2``
+    (data 1, model 2) and ``f2`` (data 2, model 1)."""
+    from repro_torch.distributed import make_local_mesh
+
+    meshes = {"m2": make_local_mesh(data=1, model=2), "f2": make_local_mesh(data=2, model=1)}
+    coll = {name: _collective_case(name, meshes["m2"]) for name in collective_names}
+    back = [_backend_case(c, meshes) for c in backend_cases]
+    return coll, back
+
+
+def cuda_train_grad_rank(rank, collective_names, backend_cases):
+    """``train_grad_rank`` on the card: 2 ranks sharing card 0 over the
+    ``host`` transport, every operand on the card, each shard launch the
+    kernel (f32 x: the IEEE route), each backward the f32 recompute."""
+    from repro_torch.distributed import make_local_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    meshes = {"m2": make_local_mesh(data=1, model=2, transport="host", device=dev),
+              "f2": make_local_mesh(data=2, model=1, transport="host", device=dev)}
+    coll = {name: _collective_case(name, meshes["m2"], dev) for name in collective_names}
+    back = [_backend_case(c, meshes, dev) for c in backend_cases]
+    return coll, back
+
+
+def _train_mesh(strategy):
+    from repro_torch.distributed import make_local_mesh
+
+    return make_local_mesh(data=2, model=1) if strategy == "fsdp" else make_local_mesh(data=1, model=2)
+
+
+def _padding_max(t) -> float:
+    """The largest |value| in the padding of every DiP storage of ``t``
+    (rows past d_in, columns past d_out, read in natural layout)."""
+    from repro_torch import api
+    from repro_torch.core import permute
+
+    if isinstance(t, dict):
+        return max([_padding_max(v) for v in t.values()] + [0.0])
+    if not isinstance(t, api.DipWeight):
+        return 0.0
+    nat = permute.unpermute_tiled(t.data.reshape((-1,) + tuple(t.data.shape[-2:])), t.perm_tile)
+    pads = [nat[:, t.d_in:], nat[:, :, t.d_out:]]
+    return max([float(p.abs().max()) for p in pads if p.numel()] + [0.0])
+
+
+def train_pairs_rank(rank, cases):
+    """One ``train_step_fn(plan=)`` AdamW step, then a second, for every
+    (strategy, family) case on the converted reference parameters: the
+    losses, global norms and collective / launch counts of each step, and
+    the whole parameters after the first step (``plan.gather_params``),
+    leaf by leaf in ``tree.leaves`` order."""
+    import warnings
+
+    from repro_torch import tree
+    from repro_torch.convert import params_from_jax
+    from repro_torch.distributed import comm, make_plan
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.optim import AdamW
+
+    warnings.simplefilter("ignore", UserWarning)  # the reduced widths replicate (announced once)
+    meshes, out = {}, {}
+    for case in cases:
+        strategy = case["cfg"]["sharding"]
+        mesh = meshes.setdefault(strategy == "fsdp", _train_mesh(strategy))
+        cfg = _serving_cfg(case["cfg"])
+        plan = make_plan(mesh, cfg, "train")
+        params = plan.shard_params(params_from_jax(case["params"], cfg, device="cpu"))
+        opt = AdamW(lr=case["lr"])
+        state = {"params": params, "opt_state": opt.init(params), "step": 0}
+        step = tf_model.train_step_fn(cfg, opt, plan=plan)
+        rec = {"loss": [], "grad_norm": [], "counts": []}
+        for i, batch in enumerate(case["batches"]):
+            comm.reset()
+            state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+            rec["counts"].append(comm.counts())
+            rec["loss"].append(float(m["loss"]))
+            rec["grad_norm"].append(float(m["grad_norm"]))
+            if i == 0:
+                whole = plan.gather_params(state["params"])
+                moments = plan.gather_params({k: state["opt_state"][k] for k in ("mu", "nu")})
+                rec["padding"] = max(_padding_max(whole), _padding_max(moments))
+                # copies: a whole leaf is the rank's own tensor, which step 2 updates in place
+                rec["params"] = [_np(t).copy() for t in tree.leaves(whole)] if rank == 0 else None
+        out[case["name"]] = rec
+    return out
+
+
+def train_trainer_rank(rank, ckpt_dir, steps):
+    """``Trainer(plan=)`` on the reduced llama3-8b (4 KV heads, so that the
+    ``tp`` and ``fsdp`` plans split the same leaves): ``steps`` steps with a
+    checkpoint at step 2 under ``tp``; a second trainer on the same mesh
+    resuming from it; the step-2 checkpoint restored under ``tp``, under
+    ``fsdp`` and whole on one rank; the guard's joint skip."""
+    import dataclasses as dc
+    import warnings
+
+    from repro_torch import reliability, tree
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import make_plan
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    warnings.simplefilter("ignore", UserWarning)
+    base = dc.replace(get_config("llama3-8b").reduced(), n_kv_heads=4, compute_dtype="float32",
+                      param_dtype="float32", matmul_backend="dip")
+    cfgs = {s: dc.replace(base, sharding=s, matmul_backend=f"dip_{s}") for s in ("tp", "fsdp")}
+    plans = {s: make_plan(_train_mesh(s), cfgs[s], "train") for s in ("tp", "fsdp")}
+
+    def trainer(strategy, guard=False, hook=None):
+        tcfg = TrainerConfig(steps=steps, ckpt_every=2, ckpt_dir=ckpt_dir, log_every=100, guard=guard,
+                             recover_on_fault=False)
+        return Trainer(cfgs[strategy], tcfg, optimizer=AdamW(lr=1e-3), plan=plans[strategy], seq_len=16,
+                       global_batch=2, device="cpu", step_hook=hook)
+
+    def whole_np(plan, state):
+        return [np.array(_np(t)) if isinstance(t, torch.Tensor) else np.asarray(t)
+                for t in tree.leaves(plan.gather_params(state))]
+
+    out = {}
+    first = trainer("tp").run(seed=0)
+    out["losses"] = [m["loss"] for m in first["metrics"]]
+    out["final"] = whole_np(plans["tp"], first["state"]["params"])
+    again = trainer("tp").run(seed=0)  # resumes from the step-2 checkpoint
+    out["resumed_losses"] = [m["loss"] for m in again["metrics"]]
+    out["resumed_final"] = whole_np(plans["tp"], again["state"]["params"])
+    ckpt = CheckpointManager(ckpt_dir, keep=2)
+    restored = {}
+    for s in ("tp", "fsdp"):
+        like = trainer(s).init_state(seed=1)  # other values: every leaf must come from the file
+        state, meta = ckpt.restore(like, step=2, plan=plans[s])
+        restored[s] = whole_np(plans[s], state)
+        out[f"{s}_slices"] = {p: tuple(t.shape) for p, t in tree.paths(state) if isinstance(t, torch.Tensor)}
+    out["restored"] = restored
+    opt = AdamW(lr=1e-3)
+    one = tf_model.init_params(base, make_generator(1, "cpu"), "cpu")
+    one_state, _ = ckpt.restore({"params": one, "opt_state": opt.init(one), "step": 0}, step=2)
+    out["one_rank"] = [np.array(_np(t)) if isinstance(t, torch.Tensor) else np.asarray(t)
+                       for t in tree.leaves(one_state)]
+    # the guard: rank 1's fingerprint reference is off, so its screen fails;
+    # the joint verdict makes both ranks skip
+    plan = plans["tp"]
+    params = tf_model.init_params(cfgs["tp"], make_generator(0, "cpu"), "cpu", plan=plan)
+    gopt = AdamW(lr=1e-3)
+    gstate = reliability.init_guard_state({"params": params, "opt_state": gopt.init(params), "step": 0})
+    if rank == 1:
+        gstate["fingerprint"] = gstate["fingerprint"] * 2
+    before = [t.clone() for t in tree.leaves(params)]
+    step = tf_model.train_step_fn(cfgs["tp"], gopt, guard=True, plan=plan)
+    from repro_torch.data import SyntheticLM
+
+    batch = {k: torch.as_tensor(v) for k, v in SyntheticLM(vocab_size=base.vocab_size, seq_len=16,
+                                                           global_batch=2).batch(0).items()}
+    gstate, gm = step(gstate, batch)
+    out["guard_poisoned"] = {k: int(gm[k]) for k in ("skipped", "weight_fault")}
+    out["guard_unchanged"] = all(torch.equal(a, b) for a, b in zip(before, tree.leaves(gstate["params"])))
+    gstate["fingerprint"] = reliability.guard.fingerprint(gstate["params"])
+    gstate, gm = step(gstate, batch)
+    out["guard_clean"] = {k: int(gm[k]) for k in ("skipped", "weight_fault")}
+    return out
+
+
+def train_counts_rank(rank, cases):
+    """One ``train_step_fn(plan=)`` step's collectives and launches a rank
+    for each case (a configuration drawn from a seed, batch 2 x 64)."""
+    import warnings
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import comm, make_plan
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.optim import AdamW
+
+    warnings.simplefilter("ignore", UserWarning)
+    out = {}
+    for name, fields in cases.items():
+        cfg = _serving_cfg({k: v for k, v in fields.items() if k != "strict"})
+        # strict: every projection must split (the full widths' layout), none replicates
+        plan = make_plan(_train_mesh(cfg.sharding), cfg, "train", strict=fields.get("strict", False))
+        params = tf_model.init_params(cfg, make_generator(0, "cpu"), "cpu", plan=plan)
+        opt = AdamW()
+        state = {"params": params, "opt_state": opt.init(params), "step": 0}
+        batch = {k: torch.as_tensor(v) for k, v in
+                 SyntheticLM(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2).batch(0).items()}
+        comm.reset()
+        tf_model.train_step_fn(cfg, opt, plan=plan)(state, batch)
+        out[name] = comm.counts()
+    return out

@@ -286,3 +286,37 @@ def test_deepseek_fsdp_moe_layer_on_gathered_banks_against_the_whole_banks(deeps
         c = out["counts"]  # router + 3 banks + the shared experts' 3 storages; gate+up and down launches
         assert (c["all_gather"], c["launch"], c["psum"]) == (7, 2, 0), c
     assert sum(o["dropped"] for o in deepseek_fsdp_world) == deepseek_fsdp_world[0]["want_dropped"]
+
+
+# ---------------------------------------------------------- the backward ---
+# the collectives' and the backends' backward on the card (the CPU cases of
+# test_torch_sharded_train.py, every operand on card 0, 2 ranks over the
+# host transport): the shard launches are the kernel's (f32 x, the IEEE
+# route) and each backward the f32 recompute, against the single-rank
+# dispatch's gradients on the same card within f32 TOL of the largest
+from test_torch_sharded_train import CASES as TRAIN_CASES  # noqa: E402
+from test_torch_sharded_train import COLLECTIVES, _backward_counts  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def train_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    return run_world(ranks.cuda_train_grad_rank, 2, list(COLLECTIVES), TRAIN_CASES, timeout=600)
+
+
+def test_collective_backward_on_the_card(train_world):
+    for coll, _ in train_world:
+        for name, (got, want, counts) in coll.items():
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+            assert {k: v for k, v in counts.items() if v} == COLLECTIVES[name], (name, counts)
+
+
+def test_backend_backward_on_the_card(train_world):
+    for _, back in train_world:
+        for case, (pairs, _, bwd) in zip(TRAIN_CASES, back):
+            for got, want in pairs:
+                assert got.shape == want.shape
+                err = float(np.abs(got - want).max())
+                assert err <= TOL["float32"] * max(1.0, float(np.abs(want).max())), (case, err)
+            assert {k: v for k, v in bwd.items() if v} == _backward_counts(**case), (case, bwd)

@@ -17,8 +17,8 @@ order of the sums differs), the exact collective and launch counts, the
 pools whole on every rank, the rank's draw (``init_params(plan=)``)
 against its slice of the whole draw; with no world, the ``fsdp`` plan
 through ``params_from_jax``, ``tree`` and a checkpoint; what stays
-refused (a model axis under ``fsdp``, the MoE family under ``sp``,
-training under a plan); ``launch.serve --sharded fsdp`` serving the
+refused (a model axis under ``fsdp``, serving or training; the MoE
+family under ``sp``); ``launch.serve --sharded fsdp`` serving the
 unsharded launcher's tokens, with llama3-8b and with DeepSeek-V2-Lite
 (the MoE family under ``fsdp``: ``test_torch_sharded_moe_fsdp.py``).
 """
@@ -183,8 +183,8 @@ def test_moe_under_fsdp_and_the_sp_model_path_raise(capsys):
     with pytest.raises(NotImplementedError, match="Distributed"):  # the plan refuses the family too
         tf_model.paged_decode_step_fn(moe, plan=make_plan(abstract_mesh(data=1, model=2), moe_sp, "decode"))
     moe_fsdp = dataclasses.replace(moe, sharding="fsdp", matmul_backend="dip_fsdp")
-    with pytest.raises(NotImplementedError, match="training under a sharding plan"):
-        tf_model.train_step_fn(moe_fsdp, None, plan=make_plan(abstract_mesh(data=2, model=1), moe_fsdp, "train"))
+    with pytest.raises(NotImplementedError, match="Distributed"):  # a model axis under fsdp; the moe family trains now
+        tf_model.train_step_fn(moe_fsdp, None, plan=make_plan(abstract_mesh(data=2, model=2), moe_fsdp, "train"))
     from repro_torch.launch import serve
 
     argv = ["--arch", "deepseek-v2-lite-16b", "--reduced", "--dtype", "float32", "--requests", "2", "--max-new",

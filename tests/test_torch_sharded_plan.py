@@ -379,8 +379,8 @@ def test_refusals_outside_the_slice():
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 tf_model.paged_decode_step_fn(fam, plan=fam_plan)
     from repro_torch.optim import AdamW
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf_model.train_step_fn(tp, AdamW(), plan=plan)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # training over both axes of a 2 x 2 mesh
+        tf_model.train_step_fn(tp, AdamW(), plan=make_plan(abstract_mesh(data=2, model=2), tp, "train"))
     # the moe family under fsdp serves now (test_torch_sharded_moe_fsdp.py); under sp it does not
     moe_sp = dataclasses.replace(moe, sharding="sp", matmul_backend="dip_sp")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

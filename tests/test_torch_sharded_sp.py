@@ -149,6 +149,6 @@ def test_what_sp_leaves_unported_still_raises():
     with pytest.raises(NotImplementedError, match="do not divide the TP axis"):
         tf_model.decode_step_fn(odd, plan=make_plan(mesh, odd, "decode"))
     dense = _sp_cfg()
-    with pytest.raises(NotImplementedError, match="training under a sharding plan"):
-        tf_model.loss_fn({}, dense, {"tokens": torch.zeros((1, 4), dtype=torch.long)},
+    with pytest.raises(NotImplementedError, match="fused lm_head"):  # sp trains through the unfused loss only
+        tf_model.loss_fn({}, dense, {"tokens": torch.zeros((1, 4), dtype=torch.long)}, fused_ce=True,
                          plan=make_plan(mesh, dense, "train"))

@@ -334,7 +334,9 @@ def test_block_remat_reruns_each_forward_and_keeps_the_gradients(monkeypatch):
 
 @pytest.mark.parametrize("what", ["guard", "plan", "grad_transform", "tied"])
 def test_training_branches_outside_the_slice_raise(what):
-    """Sharding plans and gradient transforms still raise; a tied head
+    """A plan over a (data, model) mesh with both axes above 1 and gradient
+    transforms still raise (training under a plan over one axis:
+    test_torch_sharded_train_*.py); a tied head
     trains now: the fused loss's head is the embedding's transpose, a view
     of its storage (test_torch_train_families.py holds its gradient); so
     does the guard: a guarded step's loss and norm are the unguarded step's
@@ -365,6 +367,9 @@ def test_training_branches_outside_the_slice_raise(what):
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "plan":
-            tf_model.train_step_fn(cfg, AdamW(), plan=object())
+            from repro_torch.distributed import abstract_mesh, make_plan
+
+            tp = dataclasses.replace(cfg, sharding="tp", matmul_backend="dip_tp")
+            tf_model.train_step_fn(tp, AdamW(), plan=make_plan(abstract_mesh(data=2, model=2), tp, "train"))
         else:
             AdamW(grad_transform=object())

@@ -347,10 +347,16 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     # the guard is ported (test_torch_reliability_guard.py): its state carries the side-car keys
     guarded = Trainer(cfg, TrainerConfig(guard=True, ckpt_dir=str(tmp_path)), device="cpu").init_state()
     assert {"fingerprint", "skipped", "weight_faults"} <= set(guarded)
-    for tcfg, kw in ((TrainerConfig(ckpt_dir=str(tmp_path)), {"plan": object()}),
-                     (TrainerConfig(pipeline_microbatches=4, ckpt_dir=str(tmp_path)), {})):
+    # training under a plan runs (test_torch_sharded_train_*.py) but over one
+    # axis only: a (data, model) mesh with both above 1 raises, as stages do
+    from repro_torch.distributed import abstract_mesh, make_plan
+
+    tp = dataclasses.replace(cfg, sharding="tp", matmul_backend="dip_tp")
+    for c, tcfg, kw in ((tp, TrainerConfig(ckpt_dir=str(tmp_path)),
+                         {"plan": make_plan(abstract_mesh(data=2, model=2), tp, "train")}),
+                        (cfg, TrainerConfig(pipeline_microbatches=4, ckpt_dir=str(tmp_path)), {})):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(cfg, tcfg, device="cpu", **kw)
+            Trainer(c, tcfg, device="cpu", **kw)
     with pytest.raises(ValueError, match="inference-only"):
         Trainer(dataclasses.replace(cfg, quantization="int8"), TrainerConfig(ckpt_dir=str(tmp_path)),
                 device="cpu")
