@@ -290,12 +290,22 @@ Phases (each one raises, and the script exits non-zero, if it fails):
    launches exactly, finite losses, the step walls, a profiled step's
    kernel and copy device ms and the peak memory a rank.  10b, in 9e's
    world after 9k: DeepSeek-V2-Lite under ``ep``, the same, the
-   single-rank step replaying the ranks' expert ids.  10c, after 10a:
-   every (strategy, family) pair on the reduced f32 models, one step
-   against the single-rank step on the card (1e-4), and the checkpoint
-   drill (save under the plan, the one-rank restore bit-equal, the same
-   mesh's bit-equal resume) on four of them.  The full-width drill runs
-   in ``tools/torch_sharded_ckpt.py`` (its ~18 GB states take minutes).
+   single-rank step replaying the ranks' expert ids.  10d, after 10a:
+   llama3-8b over 2 pipeline stages (``pp``) at full width cut to 2
+   layers (1 a stage), batch 4 x 256 in 4 microbatches, held as 10a is, and the
+   embedding, final norm and lm_head bit-equal on the ranks after every
+   step.  10e: 10d's first-step gradients compressed under the plan
+   against the single-rank step's compressed whole (codes one apart at a
+   rounding boundary excused and counted) and steps 2-3 with
+   ``--compress-grads``; one compressed step of the reduced f32 dense
+   model under ``pp`` and ``tp`` against the single-rank compressed step;
+   ``compressed_psum`` against its numpy formula.  10c, after 10e:
+   every (strategy, family) pair on the reduced f32 models (``pp`` dense
+   included), one step against the single-rank step on the card (1e-4),
+   and the checkpoint drill (save under the plan, the one-rank restore
+   bit-equal, the same mesh's bit-equal resume) on five of them (``pp``
+   with the compression's buffers).  The full-width drill runs in
+   ``tools/torch_sharded_ckpt.py`` (its ~18 GB states take minutes).
 
 Each phase's wall seconds are printed on a line of their own when the next
 phase opens, and all of them together before the ``kernels`` line.
@@ -1060,11 +1070,16 @@ def _phase9_reduced(prompts):
 def phase9_rank(rank, serve_prompts, reduced_prompts):
     """One rank of the 2-rank world sharing the card (host transport): 9a,
     then 9c on phase 5's weights and requests, 9i on 9c's rank parameters,
-    then 9d, then training under a plan: 10a (llama3-8b ``tp``) and 10c
-    (the reduced pairs and their checkpoint drills).  Returns numpy and
-    numbers only."""
+    then 9d, then training under a plan: 10a (llama3-8b ``tp``), 10d
+    (llama3-8b over 2 pipeline stages, with 10e's compressed steps), 10e
+    (the reduced compressed pairs, ``compressed_psum``) and 10c (the
+    reduced pairs and their checkpoint drills).  Returns numpy and numbers
+    only."""
     import warnings
 
+    # before this rank's first CUDA allocation: freed blocks are given back to
+    # the card for the other rank, which 10d's two full-width stages need (PERF.md §4)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     warnings.simplefilter("ignore", UserWarning)  # the reduced model's K/V replicate (announced once)
@@ -1085,12 +1100,22 @@ def phase9_rank(rank, serve_prompts, reduced_prompts):
                                 os.path.join(ROOT, "build", "chip_smoke_ckpt", "10a"), dev)
     out["10a"]["world_phase_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    out["10d"] = _phase10_model(train10_config("llama3-8b", layers=TRAIN10D_LAYERS),
+                                train10_config("llama3-8b", "pp", layers=TRAIN10D_LAYERS),
+                                os.path.join(ROOT, "build", "chip_smoke_ckpt", "10d"), dev, batch=TRAIN10D_BATCH,
+                                compress=True)
+    out["10d"]["world_phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["10e"] = _phase10e(dev)
+    out["10e"]["phase_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out["10c"] = {"pairs": _phase10c(dev), "drills": {}}
     for strategy, fam in TRAIN10_DRILLS:  # the checkpoint drill on the reduced models (PERF.md §4)
         base = train10_reduced_config(fam)
-        drill = _phase10_model(base, dataclasses.replace(base, sharding=strategy, matmul_backend=f"dip_{strategy}"),
+        drill = _phase10_model(base, _plan_config(base, strategy),
                                os.path.join(ROOT, "build", "chip_smoke_ckpt", f"10c_{strategy}_{fam}"), dev,
-                               replay=base.is_moe, checkpoint=True, batch=(2, 32))
+                               replay=base.is_moe, checkpoint=True, batch=(TRAIN10_ROWS.get(strategy, 2), 32),
+                               compress=strategy == "pp")
         out["10c"]["drills"][f"{strategy}/{fam}"] = dict(drill, world_phase_s=drill["phase_s"])
     out["10c"]["phase_s"] = time.perf_counter() - t0
     return out
@@ -1819,12 +1844,39 @@ TRAIN10_PAIRS = {
     ("tp", "hybrid"): dict(psum=28, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=13),
     ("fsdp", "hybrid"): dict(psum=2, all_gather=25, reduce_scatter=25, ppermute=0, all_to_all=0, launch=21),
     ("sp", "hybrid"): dict(psum=10, all_gather=18, reduce_scatter=18, ppermute=10, all_to_all=0, launch=18),
+    ("pp", "dense"): dict(psum=4, all_gather=0, reduce_scatter=0, ppermute=10, all_to_all=0, launch=0),
 }
 
 
 # 10c: the checkpoint drill (save at step 2 under the plan, the one-rank
 # restore, the same mesh's resume) on these pairs' reduced models, batch 2 x 32
-TRAIN10_DRILLS = (("tp", "dense"), ("ep", "moe"), ("fsdp", "hybrid"), ("sp", "ssm"))
+# (pp: 4 x 32, and from step 2 the compressing AdamW, so that the checkpoint
+# holds the transform's error-feedback buffers)
+TRAIN10_DRILLS = (("tp", "dense"), ("ep", "moe"), ("fsdp", "hybrid"), ("sp", "ssm"), ("pp", "dense"))
+# 10c's pp pair runs 4 rows in the default 4 microbatches (2 x stages)
+TRAIN10_ROWS = {"pp": 4}
+# 10d: llama3-8b over 2 pipeline stages at full width, cut to 2 layers (1 a
+# stage) and batch 4 x 256 in 4 microbatches (4 layers at 4 x 1024, then 2
+# layers at 4 x 1024 and at 4 x 512, ran out of the card's memory with both
+# ranks on it: the untied embedding and head with their moments and buffers
+# on each rank, the replicated head's f32 logits and their backward, PERF.md
+# §4); a step's collectives a rank: 6
+# ticks' ppermutes forward and 4 reverse hops, 4 psums (the outputs'
+# broadcast, its transpose, the whole leaves' shares, the norm), as
+# tests/test_torch_pipeline_train.py pins them on pp_t; from step 2 (10e) a
+# pmax of the compressed leaves' maxima (tests/test_torch_compression.py);
+# DiP launches: 6 ticks x the stage's layers x 6 + the head
+TRAIN10D_LAYERS = 2
+TRAIN10D_BATCH = (4, 256)
+TRAIN10_COUNTS["10d"] = dict(psum=4, all_gather=0, reduce_scatter=0, ppermute=10, all_to_all=0, launch=0)
+TRAIN10_DIP["10d"] = 6 * (TRAIN10D_LAYERS // 2) * 6 + 1
+# 10e: one compressed step of the reduced f32 pp and tp pairs against the
+# single-rank compressed step on the card, batch 4 x 32 (pp: 2 microbatches),
+# the counts tests/test_torch_compression.py pins
+TRAIN10E_PAIRS = {
+    "pp": dict(psum=4, all_gather=0, reduce_scatter=0, ppermute=6, all_to_all=0, launch=0, pmax=1),
+    "tp": dict(psum=12, all_gather=1, reduce_scatter=1, ppermute=0, all_to_all=0, launch=9, pmax=1),
+}
 
 
 def train10_reduced_config(fam):
@@ -1836,27 +1888,42 @@ def train10_reduced_config(fam):
                                compute_dtype="float32", param_dtype="float32")
 
 
-def train10_config(arch, strategy=None):
-    """10a / 10b's configuration: ``arch`` at full width cut to
-    ``TRAIN10_LAYERS`` layers, phase 6's settings (f32 parameters, bf16
-    compute, block remat) on ``dip``, or under ``strategy`` its plan's."""
+def train10_config(arch, strategy=None, layers=TRAIN10_LAYERS):
+    """10a / 10b / 10d's configuration: ``arch`` at full width cut to
+    ``layers`` layers, phase 6's settings (f32 parameters, bf16 compute,
+    block remat) on ``dip``, or under ``strategy`` its plan's (``pp``'s
+    stages keep ``dip``)."""
     from repro_torch.configs import get_config
 
-    cfg = dataclasses.replace(get_config(arch), matmul_backend="dip", n_layers=TRAIN10_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), matmul_backend="dip", n_layers=layers)
     assert (cfg.param_dtype, cfg.compute_dtype, cfg.remat) == ("float32", "bfloat16", "block")
-    return cfg if strategy is None else dataclasses.replace(cfg, sharding=strategy, matmul_backend=f"dip_{strategy}")
+    return cfg if strategy is None else _plan_config(cfg, strategy)
+
+
+def _plan_config(cfg, strategy):
+    """``cfg`` under ``strategy``: its sharded backend, or under ``pp`` the
+    config's own (a stage axis, not a backend)."""
+    backend = cfg.matmul_backend if strategy == "pp" else f"dip_{strategy}"
+    return dataclasses.replace(cfg, sharding=strategy, matmul_backend=backend)
 
 
 def _train_mesh(strategy, dev):
     """The 2-rank training mesh of ``strategy`` on the card (host
-    transport): the data axis under ``fsdp``, the model axis otherwise."""
+    transport): the data axis under ``fsdp``, the stage axis under ``pp``,
+    the model axis otherwise."""
     import torch
 
     from repro_torch.distributed import make_local_mesh
 
+    return make_local_mesh(**_mesh_axes(strategy), transport="host" if dev.type == "cuda" else None, device=dev)
+
+
+def _mesh_axes(strategy):
+    """The axes of ``strategy``'s training mesh over the world's ranks."""
+    import torch
+
     t = torch.distributed.get_world_size()
-    axes = dict(data=t, model=1) if strategy == "fsdp" else dict(data=1, model=t)
-    return make_local_mesh(**axes, transport="host" if dev.type == "cuda" else None, device=dev)
+    return {"fsdp": dict(data=t, model=1), "pp": dict(data=1, model=1, stage=t)}.get(strategy, dict(data=1, model=t))
 
 
 def _in_turn(fn):
@@ -1941,22 +2008,33 @@ def _profiled_step(step, state, batch, dev):
     return state, m, kernel, copy
 
 
-def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False, batch=TRAIN10_BATCH):
-    """10a / 10b on this rank: ``cfg`` (the single-rank configuration at
-    full width, cut in depth) trained under ``plan_cfg``'s strategy over the
-    2 ranks sharing the card.  The first step's loss, global norm and every
-    leaf's gradient slice against the single-rank step on the same whole
-    weights and batch (each rank runs it in turn and keeps its slices;
-    ``replay``: the single-rank run routes with the ranks' expert ids, their
-    layers' ids all-gathered); steps 2 and 3; a checkpoint at step 2 (every
-    rank gathers, rank 0 writes); that checkpoint restored on one rank (on
-    the host, no plan), cut to this rank's slices, bit-equal to its live
-    step-2 slices; restored on the same mesh, giving step 3 bit for bit.
-    Each step's collectives and launches, walls, a profiled step's kernel
-    and copy device ms, peak memory.  The checkpoint drill runs with
-    ``checkpoint`` only (``tools/torch_sharded_ckpt.py`` at full width, 10c
-    on the reduced models: phase 10's full-width states are 18 GB, PERF.md
-    §4); ``batch`` is (rows, tokens)."""
+def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False, batch=TRAIN10_BATCH,
+                   compress=False):
+    """10a / 10b / 10d on this rank: ``cfg`` (the single-rank configuration
+    at full width, cut in depth) trained under ``plan_cfg``'s strategy over
+    the 2 ranks sharing the card.  The first step's loss, global norm and
+    every leaf's gradient slice against the single-rank step on the same
+    whole weights and batch (each rank runs it in turn and keeps its slices
+    in host memory; ``replay``: the single-rank run routes with the ranks'
+    expert ids, their layers' ids all-gathered); steps 2 and 3; a
+    checkpoint at step 2 (every rank gathers, rank 0 writes); that
+    checkpoint restored on one rank (on the host, no plan), cut to this
+    rank's slices, bit-equal to its live step-2 slices; restored on the
+    same mesh, giving step 3 bit for bit.  Each step's collectives and
+    launches, walls, a profiled step's kernel and copy device ms, peak
+    memory.  The checkpoint drill runs with ``checkpoint`` only
+    (``tools/torch_sharded_ckpt.py`` at full width, 10c on the reduced
+    models: phase 10's full-width states are 18 GB, PERF.md §4); ``batch``
+    is (rows, tokens).
+
+    ``compress`` (10e): the first step's gradients also go through the
+    compression transform with a fresh error-feedback buffer and the
+    whole leaves' scales (``comm.pmax``), held against the single-rank
+    step's gradients compressed whole: each leaf's scale, the slices'
+    relative L2, the codes one apart (excused, counted) and further apart
+    (counted), the compressed norm; steps 2 and 3 then take the
+    compressing AdamW (``--compress-grads``; its buffers join the state,
+    and the step-2 checkpoint)."""
     import numpy as np
     import torch
 
@@ -1964,12 +2042,14 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.data import SyntheticLM
     from repro_torch.device import make_generator
-    from repro_torch.distributed import comm, make_plan
+    from repro_torch.distributed import comm, compression_transform, make_plan
+    from repro_torch.distributed.compression import dequantize_int8, quantize_int8
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lm_head_ce as ce
     from repro_torch.kernels.dip_matmul import dip_matmul
     from repro_torch.models import transformer as tf_model
     from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import global_norm
 
     def reset_launches():
         comm.reset()
@@ -1982,10 +2062,11 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
     torch.backends.cuda.matmul.allow_tf32 = False  # the f32 recompute backward: IEEE products
     mesh = _train_mesh(plan_cfg.sharding, dev)
     plan = make_plan(mesh, plan_cfg, "train")
+    axis = tf_model._rank_axis(plan)
     rows, seq = batch
     data = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=rows, seed=SEED)
     batches = [{k: torch.as_tensor(v).to(dev) for k, v in data.batch(i).items()} for i in range(TRAIN10_STEPS)]
-    out = {"layers": cfg.n_layers}
+    out = {"layers": cfg.n_layers, "compressed_from_step": 2 if compress else None}
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.empty_cache()
@@ -2007,20 +2088,35 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
 
     def single(ids=None):
         """The single-rank step's loss, global norm and this rank's slices of
-        its gradients (unfused loss, as the plan's), in turn on each rank."""
+        its gradients (unfused loss, as the plan's), in host memory, in
+        turn on each rank; with ``compress`` also its gradients compressed
+        whole (a zero buffer: each leaf's own quantization), their norm,
+        this rank's slices of them and each leaf's scale."""
         def run():
             whole = tf_model.init_params(cfg, make_generator(SEED, dev), dev)
             trace = None if ids is None else {"replay_ids": ids}
             leaves = [t.requires_grad_(True) for t in tree.leaves(whole)]
             loss = tf_model.loss_fn(whole, cfg, batches[0], fused_ce=False, moe_trace=trace)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = list(torch.autograd.grad(loss, leaves))
             gn = float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads)))
-            mine = [t.detach().clone() for t in tree.leaves(plan.shard_params(tree.unflatten(whole, list(grads))))]
-            dropped = None if trace is None else [int(d) for d in trace["dropped"]]
+
+            def mine(flat):
+                return [t.detach().to("cpu") for t in tree.leaves(plan.shard_params(tree.unflatten(whole, flat)))]
+
+            got = {"loss": float(loss), "grad_norm": gn, "grads": mine(grads),
+                   "dropped": None if trace is None else [int(d) for d in trace["dropped"]]}
+            if compress:
+                scales = []
+                for k, g in enumerate(grads):  # leaf by leaf: one leaf's transients at a time
+                    q, sc = quantize_int8(g.detach())
+                    grads[k] = dequantize_int8(q, sc).to(g.dtype)
+                    scales.append(float(sc))
+                got.update(scales=scales, compressed=mine(grads),
+                           compressed_norm=float(torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))))
             del whole, leaves, grads
             if cuda:
                 torch.cuda.empty_cache()
-            return float(loss), gn, mine, dropped
+            return got
         return _in_turn(run)
 
     t_phase = time.perf_counter()
@@ -2033,13 +2129,58 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
         ids = [comm.all_gather(i, mesh, plan.tp, dim=0) for i in trace["ids"]]
         want = single(ids)
     paths = [p for p, _ in tree.paths(params)]
-    rel = {p: rel_l2(g, w) for p, g, w in zip(paths, tree.leaves(grads), want[2])}
-    first.update(single_loss=want[0], single_grad_norm=want[1], single_dropped=want[3],
+    rel = {p: rel_l2(g, w.to(g.device)) for p, g, w in zip(paths, tree.leaves(grads), want["grads"])}
+    first.update(single_loss=want["loss"], single_grad_norm=want["grad_norm"], single_dropped=want["dropped"],
                  worst_leaf=max((v, k) for k, v in rel.items()))
-    del want
     opt.update(grads, state["opt_state"], params, gnorm=gnorm)
     state["step"] = 1
-    del grads, loss
+    if compress:
+        # the step-1 gradients compressed as a compressing step would (the
+        # update above read them already), against the single-rank step's
+        gt = compression_transform()
+        flat = tree.leaves(grads)
+        local = torch.stack([g.detach().float().abs().amax() for g in flat])
+        amax = comm.pmax(local, mesh, axis)  # the whole leaves' maxima, to read each leaf's scale back
+        err = gt.init(grads)
+        grads, err = gt.fn(grads, err, reduce_max=lambda t: comm.pmax(t, mesh, axis))
+        del err  # the step's buffers come fresh below
+        flat = tree.leaves(grads)
+        cnorm = global_norm(flat, replicated=tf_model.replicated_parts(params, plan_cfg),
+                            psum=lambda t: comm.psum(t, mesh, axis))
+        if cuda:
+            torch.cuda.empty_cache()
+        scale_err, codes = 0.0, {"elements": 0, "one_apart": 0, "further": 0}
+        crel = {}
+        for p, g, w, s_ref, m in zip(paths, flat, want["compressed"], want["scales"], amax.tolist()):
+            s_got = m / 127.0 + 1e-12
+            scale_err = max(scale_err, abs(s_got - s_ref) / s_ref)
+            sg = torch.full((), s_got, dtype=torch.float32, device=g.device)
+            sr = torch.full((), s_ref, dtype=torch.float32, device=g.device)
+            num = den = 0.0
+            rows_at = max(1, 2**24 // max(1, g[0].numel())) if g.dim() else 1
+            # in blocks of rows: a full-width embedding's transients are a block's
+            for gb, wb in zip(g.detach().reshape(-1, *g.shape[1:]).split(rows_at),
+                              w.reshape(-1, *w.shape[1:]).split(rows_at)):
+                gb, wb = gb.float(), wb.to(g.device).float()
+                apart = (torch.round(gb / sg) - torch.round(wb / sr)).abs()
+                codes["elements"] += apart.numel()
+                codes["one_apart"] += int((apart == 1).sum())
+                codes["further"] += int((apart > 1).sum())
+                same = apart == 0  # the excused elements, codes apart, left out of the slice's error
+                num += float(torch.square(gb[same] - wb[same]).sum())
+                den += float(torch.square(wb[same]).sum())
+            crel[p] = (num ** 0.5) / max(den ** 0.5, 1e-30)
+        first["compressed"] = dict(codes, scale_rel_err=scale_err, worst_leaf=max((v, k) for k, v in crel.items()),
+                                   grad_norm=float(cnorm), single_grad_norm=want["compressed_norm"])
+        del flat
+        grads = None
+        if cuda:
+            torch.cuda.empty_cache()
+        # from step 2 the compressing AdamW: the same moments, its buffers added
+        opt = AdamW(lr=TRAIN10_LR, grad_transform=gt)
+        state["opt_state"]["transform"] = gt.init(params)
+        step = tf_model.train_step_fn(plan_cfg, opt, plan=plan)
+    del want, grads, loss
     steps = [first]
     ckpt = CheckpointManager(ckpt_dir, keep=1)
     for i in (1, 2):
@@ -2055,6 +2196,9 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
                    grad_norm=float(m["grad_norm"]))
         if i == 1:
             rec.update(profiled=True, kernel_device_ms=kms, copy_device_ms=cms)
+        if plan.strategy == "pp":  # the leaves every stage holds whole: alike on the ranks
+            rec["whole_crc"] = _crcs({k: state["params"][k] for k in ("embed", "final_norm", "lm_head")
+                                      if k in state["params"]})
         if i == 1 and checkpoint:
             # the checkpoint at step 2: gathered on every rank, written by rank 0
             t0 = time.perf_counter()
@@ -2064,16 +2208,15 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
             # restored on one rank (rank 0: the whole state on the host, no
             # plan), each leaf cut to every rank's slice: the slices' crc32
             # against each rank's live step-2 slices' (compared on the main side)
-            out["live_crc"] = _crcs({"params": state["params"], "mu": state["opt_state"]["mu"],
-                                     "nu": state["opt_state"]["nu"]})
+            kept = ("mu", "nu", "transform") if compress else ("mu", "nu")
+            out["live_crc"] = _crcs({"params": state["params"], **{k: state["opt_state"][k] for k in kept}})
             if torch.distributed.get_rank() == 0:
                 host = CheckpointManager(ckpt_dir, keep=1).restore(_empty_state(cfg, opt, "cpu"), step=2)[0]
                 out["one_rank_crc"] = []
                 for coord in range(mesh.size):
                     cut = make_plan(comm.Mesh(dict(mesh.shape), rank=coord), plan_cfg, "train")
-                    out["one_rank_crc"].append(_crcs({k: cut.shard_params(v) for k, v in (
-                        ("params", host["params"]), ("mu", host["opt_state"]["mu"]),
-                        ("nu", host["opt_state"]["nu"]))}))
+                    out["one_rank_crc"].append(_crcs({"params": cut.shard_params(host["params"]),
+                                                      **{k: cut.shard_params(host["opt_state"][k]) for k in kept}}))
                 del host
             torch.distributed.barrier()
             out["one_rank_s"] = time.perf_counter() - t0
@@ -2082,7 +2225,7 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         out["peak_reserved_gib"] = torch.cuda.max_memory_reserved(dev) / 2**30
     if checkpoint:
-        after = [t.detach().clone() for t in tree.leaves(state["params"])]
+        after = [t.detach().cpu() for t in tree.leaves(state["params"])]  # in host memory: 10d's are 5 GB
         # the same mesh resumes from the step-2 checkpoint: step 3 bit for bit
         t0 = time.perf_counter()
         state, meta = ckpt.restore(state, step=2, plan=plan)
@@ -2090,7 +2233,8 @@ def _phase10_model(cfg, plan_cfg, ckpt_dir, dev, replay=False, checkpoint=False,
         state, m = step(state, batches[2])
         out["resumed"] = {"step": int(meta["step"]), "loss": float(m["loss"]),
                           "loss_equal": float(m["loss"]) == steps[2]["loss"],
-                          "params_equal": all(torch.equal(a, b) for a, b in zip(after, tree.leaves(state["params"])))}
+                          "params_equal": all(torch.equal(a, b.detach().cpu())
+                                              for a, b in zip(after, tree.leaves(state["params"])))}
         del after
     out["steps"] = steps
     out["phase_s"] = time.perf_counter() - t_phase
@@ -2129,11 +2273,12 @@ def _phase10c(dev):
     b2, eps = AdamW().b2, AdamW().eps
     for (strategy, fam), want_counts in TRAIN10_PAIRS.items():
         base = train10_reduced_config(fam)
-        cfg = dataclasses.replace(base, sharding=strategy, matmul_backend=f"dip_{strategy}")
-        mesh = meshes.setdefault(strategy == "fsdp", _train_mesh(strategy, dev))
+        cfg = _plan_config(base, strategy)
+        mesh = meshes.setdefault(tuple(_mesh_axes(strategy).items()), _train_mesh(strategy, dev))
         plan = make_plan(mesh, cfg, "train")
+        rows = TRAIN10_ROWS.get(strategy, 2)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in SyntheticLM(vocab_size=cfg.vocab_size, seq_len=32,
-                                                                        global_batch=2).batch(1).items()}
+                                                                        global_batch=rows).batch(1).items()}
         whole = tf_model.init_params(base, make_generator(SEED, dev), dev)
         opt = AdamW(lr=lr)
         ref = {"params": whole, "opt_state": opt.init(whole), "step": 0}
@@ -2161,6 +2306,113 @@ def _phase10c(dev):
     return out
 
 
+def _phase10e(dev):
+    """10e on this rank: one compressed step (``AdamW(grad_transform=
+    compression_transform())``) of the reduced f32 dense model under ``pp``
+    (2 microbatches) and under ``tp``, against the single-rank compressed
+    step on the card through the same kernels: the loss, the compressed
+    gradients' norm, every parameter after the step gathered whole (the
+    elements a code at a rounding boundary moved by up to 2 lr counted),
+    the counts; and ``compressed_psum`` of this rank's row of
+    ``arange(16).reshape(2, 8) / 7``."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.device import make_generator
+    from repro_torch.distributed import (comm, compressed_psum, compression_transform, make_plan,
+                                         pipeline_train_step_fn)
+    from repro_torch.kernels.dip_matmul import dip_matmul
+    from repro_torch.models import transformer as tf_model
+    from repro_torch.optim import AdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lr, out = 1e-3, {}
+    base = train10_reduced_config("dense")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in SyntheticLM(vocab_size=base.vocab_size, seq_len=32,
+                                                                    global_batch=4).batch(1).items()}
+    for strategy, want_counts in TRAIN10E_PAIRS.items():
+        cfg = _plan_config(base, strategy)
+        plan = make_plan(_train_mesh(strategy, dev), cfg, "train")
+        whole = tf_model.init_params(base, make_generator(SEED, dev), dev)
+        opt = AdamW(lr=lr, grad_transform=compression_transform())
+        ref, rm = tf_model.train_step_fn(base, opt, fused_ce=False)(
+            {"params": whole, "opt_state": opt.init(whole), "step": 0}, batch)
+        params = tf_model.init_params(cfg, make_generator(SEED, dev), dev, plan=plan)
+        opt = AdamW(lr=lr, grad_transform=compression_transform())
+        step = (pipeline_train_step_fn(cfg, opt, plan, n_micro=2) if strategy == "pp"
+                else tf_model.train_step_fn(cfg, opt, plan=plan))
+        comm.reset()
+        dip_matmul.launches = dip_matmul.launches_f32 = 0
+        state, m = step({"params": params, "opt_state": opt.init(params), "step": 0}, batch)
+        rec = {"loss": (float(m["loss"]), float(rm["loss"])), "grad_norm": (float(m["grad_norm"]),
+               float(rm["grad_norm"])), "counts": comm.counts(), "want_counts": want_counts,
+               "dip_launches": dip_matmul.launches, "f32_x_launches": dip_matmul.launches_f32, "lr": lr}
+        worst = worst_clear = 0.0
+        excused = total = 0
+        for g, w in zip(tree.leaves(plan.gather_params(state["params"])), tree.leaves(ref["params"])):
+            err = (g - w).detach().abs()
+            base_tol = 1e-4 * max(1.0, float(w.detach().abs().max()))
+            over = err > base_tol
+            excused += int(over.sum())
+            total += err.numel()
+            worst = max(worst, float(err.max()))
+            worst_clear = max(worst_clear, float(err[~over].max()) / (base_tol / 1e-4) if (~over).any() else 0.0)
+        rec.update(param_err=worst, param_err_clear=worst_clear, excused=excused, elements=total)
+        out[strategy] = rec
+        del whole, ref, params, state
+    # made on the host: CUDA divides by a Python scalar through its rounded reciprocal
+    x = (torch.arange(16, dtype=torch.float32).reshape(2, 8) / 7.0).to(dev)
+    mesh = _train_mesh("tp", dev)
+    comm.reset()
+    out["compressed_psum"] = {"got": compressed_psum(x[mesh.coord("model")], mesh, "model").cpu().numpy(),
+                              "counts": comm.counts()}
+    return out
+
+
+def check_train10e(ranks_out, gpu):
+    """10e on the main side: each compressed pair's loss and compressed
+    norm within 1e-4 of the single-rank compressed step's, every parameter
+    within 1e-4 of max(1, |leaf|) but the excused elements (at most 2 lr
+    off, at most 1 in 1000), the CPU tests' counts, every launch f32 x;
+    ``compressed_psum`` equal to its numpy formula."""
+    import numpy as np
+
+    log(f"phase 10e: one compressed step (int8 gradients with error feedback) of the reduced f32 dense model under "
+        f"pp and tp over 2 ranks against the single-rank compressed step on the card; the rank's wall "
+        f"{[round(o['phase_s'], 1) for o in ranks_out]} s")
+    rows = {}
+    for strategy in TRAIN10E_PAIRS:
+        for r, o in enumerate(ranks_out):
+            g = o[strategy]
+            (lk, lp), (nk, npl) = g["loss"], g["grad_norm"]
+            ok = (abs(lk - lp) <= 1e-4 * max(1.0, abs(lp)) and abs(nk - npl) <= 1e-4 * max(1.0, npl)
+                  and g["param_err"] <= 1e-4 + 2 * g["lr"] and g["excused"] <= g["elements"] // 1000
+                  and g["counts"] == g["want_counts"] and g["dip_launches"] == g["f32_x_launches"] > 0)
+            if not ok:
+                raise AssertionError(f"phase 10e {strategy} rank {r}: {g}")
+        g = ranks_out[0][strategy]
+        rows[strategy] = {k: g[k] for k in ("loss", "grad_norm", "param_err_clear", "param_err", "excused",
+                                            "elements", "counts", "dip_launches")}
+        log(f"  {strategy}: loss {g['loss'][0]:.7f} / single {g['loss'][1]:.7f}, compressed norm "
+            f"{g['grad_norm'][0]:.6f} / {g['grad_norm'][1]:.6f}, parameters after the step max|err| "
+            f"{g['param_err_clear']:.2e} of max(1, |leaf|) but {g['excused']} of {g['elements']} elements excused "
+            f"(a code at a rounding boundary; {g['param_err']:.2e} anywhere, bound {1e-4 + 2 * g['lr']:.1e}), "
+            f"{g['counts']} a step and rank, {g['dip_launches']} dip_matmul launches, every one f32 x ({gpu})")
+    x = np.arange(16, dtype=np.float32).reshape(2, 8) / np.float32(7.0)
+    scale = np.float32(max(np.float32(np.abs(row).max()) / np.float32(127.0) + np.float32(1e-12) for row in x))
+    q = np.clip(np.rint(x / scale), -127, 127).astype(np.int32)
+    want = (q.sum(0).astype(np.float32) * scale / np.float32(2.0)).astype(np.float32)
+    for r, o in enumerate(ranks_out):
+        c = o["compressed_psum"]
+        if c["got"].tobytes() != want.tobytes() or c["counts"].get("pmax") != 1 or c["counts"]["psum"] != 1:
+            raise AssertionError(f"phase 10e rank {r}: compressed_psum {c} against the numpy formula {want}")
+    log(f"  compressed_psum over the 2 ranks: {want.tolist()}, bit-equal to the numpy formula on both ranks "
+        f"(one pmax, one psum)")
+    return {"pairs": rows, "compressed_psum": want.tolist(),
+            "dip_matmul": sum(o[s]["dip_launches"] for o in ranks_out for s in TRAIN10E_PAIRS)}
+
+
 def check_train10(tag, ranks_out, what, gpu, want=None, want_dip=None, dtype="bfloat16"):
     """10a / 10b on the main side (``gpu``: the card's nvidia-smi line;
     ``want`` / ``want_dip``: a step's collectives and launches, and its
@@ -2176,6 +2428,7 @@ def check_train10(tag, ranks_out, what, gpu, want=None, want_dip=None, dtype="bf
     want = TRAIN10_COUNTS[tag] if want is None else want
     want_dip = TRAIN10_DIP[tag] if want_dip is None else want_dip
     tl, tn, tg = FIRST_STEP_TOL[dtype]
+    compressed_from = ranks_out[0].get("compressed_from_step")
     log(f"phase {tag}: {what}, {ranks_out[0]['layers']} layers, over 2 ranks sharing the card (host transport); "
         f"the rank's wall {[round(o['world_phase_s'], 1) for o in ranks_out]} s")
     per_rank = []
@@ -2194,13 +2447,35 @@ def check_train10(tag, ranks_out, what, gpu, want=None, want_dip=None, dtype="bf
                 f"{first['dropped']} / {first['single_dropped']}")
             if first["dropped"] != first["single_dropped"]:
                 raise AssertionError(f"phase {tag}: the replayed single-rank step dropped other pairs")
+        if "compressed" in first:
+            # the first step's gradients compressed under the plan against the
+            # single-rank step's compressed whole: the slices within the
+            # gradient bound, each leaf's scale within the norm's, a code one
+            # apart excused and counted (bf16 moves a value across a rounding
+            # boundary), codes further apart at most 1 in 10^4
+            c = first["compressed"]
+            ok = (c["worst_leaf"][0] <= tg and c["scale_rel_err"] <= tn and c["further"] <= c["elements"] // 10**4
+                  and abs(c["grad_norm"] - c["single_grad_norm"]) <= tn * max(1.0, c["single_grad_norm"]))
+            log(f"  rank {r} first step's gradients compressed (int8, the whole leaves' scales by pmax) / the "
+                f"single-rank step's compressed whole: norm {c['grad_norm']:.5f} / {c['single_grad_norm']:.5f}, "
+                f"worst slice relative L2 {c['worst_leaf'][0]:.2e} ({c['worst_leaf'][1]}), scales within "
+                f"{c['scale_rel_err']:.2e}; codes one apart (excused) {c['one_apart']} and further apart "
+                f"{c['further']} of {c['elements']}; limits {tg:g}, {tn:g}, 1e-4 of the elements: "
+                f"{'within' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"phase {tag} rank {r}: the compressed first step differs from the "
+                                     "single-rank one")
         for i, st in enumerate(o["steps"]):
+            want_i = dict(want, pmax=1) if compressed_from and i + 1 >= compressed_from else want
             route_ok = st["dip_f32_x"] == (st["dip_launches"] if dtype == "float32" else 0)
-            bad = (st["counts"] != want or st["dip_launches"] != want_dip or not route_ok
+            bad = (st["counts"] != want_i or st["dip_launches"] != want_dip or not route_ok
                    or st["lm_head_ce"] or st["flash"] or not np.isfinite(st["loss"]))
             if bad:
-                raise AssertionError(f"phase {tag} rank {r} step {i + 1}: {st} (want {want}, {want_dip} "
+                raise AssertionError(f"phase {tag} rank {r} step {i + 1}: {st} (want {want_i}, {want_dip} "
                                      f"dip_matmul launches, each {dtype} x, no lm_head_ce, no flash, a finite loss)")
+            if "whole_crc" in st and st["whole_crc"] != ranks_out[0]["steps"][i]["whole_crc"]:
+                raise AssertionError(f"phase {tag} rank {r} step {i + 1}: embed / final_norm / lm_head differ "
+                                     "between the ranks")
         rec = {"rank": r, "losses": [st["loss"] for st in o["steps"]],
                "grad_norms": [st["grad_norm"] for st in o["steps"]],
                "step_wall_ms": [st["wall_ms"] for st in o["steps"]],
@@ -2225,9 +2500,12 @@ def check_train10(tag, ranks_out, what, gpu, want=None, want_dip=None, dtype="bf
         per_rank.append(dict(rec, first_step=first))
     if any(o["steps"][i]["loss"] != ranks_out[0]["steps"][i]["loss"] for o in ranks_out for i in range(3)):
         raise AssertionError(f"phase {tag}: the ranks report different losses")
+    if "whole_crc" in ranks_out[0]["steps"][1]:
+        log("  after steps 2 and 3 the embedding, the final norm and the lm_head are bit-equal on the ranks (crc32)")
     log(f"  per step and rank: {want} (forward, block remat's reruns, the backward's transposes, the whole "
-        f"leaves' psum and the norm's psum), {want_dip} dip_matmul launches")
-    return {"ranks": per_rank, "counts_per_step": want}
+        f"leaves' psum and the norm's psum){f', and from step {compressed_from} a pmax' if compressed_from else ''}, "
+        f"{want_dip} dip_matmul launches")
+    return {"ranks": per_rank, "counts_per_step": want, "compressed_from_step": compressed_from}
 
 
 def check_train10c(ranks_out):
@@ -2435,7 +2713,8 @@ def main():
         del scratch
         replay_kernels[what] = prof_r["by_kernel"]
         key = tuple(tuple(t.shape) for t in inputs)
-        by_graph = graphs.kernels_by_group(captured.kernel_nodes(key))
+        graph_nodes[what] = captured.kernel_nodes(key)
+        by_graph = graphs.kernels_by_group(graph_nodes[what])
         by_trace = kernels_by_name(prof_r["by_kernel"])
         trace_short = sum(by_graph.values()) - sum(by_trace.values())
         trace_checks.append((what, trace_short))
@@ -2465,6 +2744,7 @@ def main():
         return out
 
     replay_kernels = {}  # graph_check's profiled replay: device ms by kernel, by what it checked
+    graph_nodes = {}  # graph_check's captured graph: its kernel nodes by function name, by what it checked
     trace_checks = []  # graph_check: (what, the graph's counted kernels missing from the profiled trace)
 
     def graph_pool_gib(*steps):
@@ -3647,6 +3927,8 @@ def main():
                 eng1.add_request(p, SamplingParams(max_new_tokens=8), rid=rid)
             want_reduced = eng1.run()
             del eng1
+        gc.collect()
+        torch.cuda.empty_cache()  # the ranks share the card with this process
         t0 = time.perf_counter()
         # phase 5's first two requests (the time budget, PERF.md §4)
         outs = run_world(phase9_rank, 2, [r.prompt.tolist() for r in reqs[:SHARDED_REQUESTS]], prompts,
@@ -3818,12 +4100,19 @@ def main():
                                    f"{TRAIN10_LAYERS} layers (f32 parameters, bf16 compute, block remat, "
                                    f"{TRAIN10_STEPS} AdamW steps at batch {TRAIN10_BATCH[0]} x {TRAIN10_BATCH[1]})",
                                    gpu)
+        res["10d"] = check_train10("10d", [o["10d"] for o in outs], "llama3-8b over 2 pipeline stages at full width "
+                                   f"cut to {TRAIN10D_LAYERS} layers (f32 parameters, bf16 compute, {TRAIN10_STEPS} "
+                                   f"AdamW steps at batch {TRAIN10D_BATCH[0]} x {TRAIN10D_BATCH[1]} in 4 "
+                                   "microbatches; 10e: the first step's gradients compressed, steps 2-3 with "
+                                   "--compress-grads)", gpu)
+        res["10e"] = check_train10e([o["10e"] for o in outs], gpu)
         res["10c"] = check_train10c([o["10c"] for o in outs])
         for strategy, fam in TRAIN10_DRILLS:
             name = f"{strategy}/{fam}"
             res["10c"][f"drill {name}"] = check_train10(
                 "10c", [o["10c"]["drills"][name] for o in outs],
-                f"{name}, the checkpoint drill on the reduced model in f32 (3 AdamW steps at batch 2 x 32)", gpu,
+                f"{name}, the checkpoint drill on the reduced model in f32 (3 AdamW steps at batch "
+                f"{TRAIN10_ROWS.get(strategy, 2)} x 32)", gpu,
                 want=TRAIN10_PAIRS[(strategy, fam)], want_dip=outs[0]["10c"]["pairs"][name]["dip_launches"],
                 dtype="float32")
         res["launches"]["train_tp_llama3"] = {
@@ -3832,7 +4121,12 @@ def main():
         res["launches"]["train_reduced_pairs"] = {
             "dip_matmul": sum(p["dip_launches"] for o in outs for p in o["10c"]["pairs"].values()),
             "dip_matmul_f32_x": res["10c"]["f32_x_launches"]}
-        log(f"  phase 9 wall: the 2-rank world {world_s:.1f} s (9a-9d, 10a, 10c)")
+        res["launches"]["train_pp_llama3"] = {
+            "dip_matmul": sum(st["dip_launches"] for o in outs for st in o["10d"]["steps"]), "dip_matmul_f32_x": 0,
+            "lm_head_ce": 0, "flash_attention": 0}
+        res["launches"]["train_reduced_compressed"] = {"dip_matmul": res["10e"]["dip_matmul"],
+                                                       "dip_matmul_f32_x": res["10e"]["dip_matmul"]}
+        log(f"  phase 9 wall: the 2-rank world {world_s:.1f} s (9a-9d, 10a, 10d, 10e, 10c)")
         return res
 
     # ------------------------- 9e. expert parallelism at full width --------
@@ -4921,7 +5215,9 @@ def main():
         step_ms, step_launches = sum(v[1] for v in by_kernel.values()), sum(v[0] for v in by_kernel.values())
         # the decode step's dip_matmul_q kernels by name: per projection one
         # product (and for int8 one quantizing pass), plus a split-K reduce
-        # wherever the plan at the step's M splits K
+        # wherever the plan at the step's M splits K; counted in the captured
+        # graph's kernel nodes (what every replay launches), since the
+        # profiler's trace of a replay may lack a record (``trace_checks``)
         m_dec = st["held"]["_decode"][0][2].numel()
         per_layer = [(d, d, False), (d, kv, False), (d, kv, False), (d, d, False), (d, d_ff, True), (d_ff, d, False)]
         projections = per_layer * cfg.n_layers + [(d, vocab, False)]
@@ -4930,14 +5226,14 @@ def main():
                   "reduce": ("splitk_reduce_s8_kernel",)} if scheme == "int8" else
                  {"product": ("dip_mma_kernel", "dip_wgmma_kernel"), "quantize": ("quantize_int8_kernel",),
                   "reduce": ("splitk_reduce_kernel",)})
-        split_by = {role: sum(c for key, (c, _) in by_kernel.items() if any(nm + "<" in key for nm in nms))
-                    for role, nms in names.items()}
+        nodes = graph_nodes[f"{scheme} decode step"]
+        split_by = {role: sum(nodes.get(nm, 0) for nm in nms) for role, nms in names.items()}
         q_ms = sum(ms for key, (_, ms) in by_kernel.items()
                    if any(nm + "<" in key for nms in names.values() for nm in nms))
         want_split = {"product": len(projections), "quantize": len(projections) if scheme == "int8" else 0,
                       "reduce": split}
-        log(f"  decode step replayed, M={m_dec}: dip_matmul_q kernels {split_by} (expected {want_split}), "
-            f"{q_ms:.3f} ms of device time")
+        log(f"  decode step replayed, M={m_dec}: dip_matmul_q kernel nodes of its graph {split_by} (expected "
+            f"{want_split}), {q_ms:.3f} ms of device time")
         if split_by != want_split:
             raise AssertionError(f"quantized full width ({scheme}): the decode step's launch split differs")
         qserve[scheme].update(decode_step_device_ms=step_ms, decode_step_launches=step_launches,

@@ -24,8 +24,9 @@ quantized tree of any family the same, its layer-stacked int8 or fp8
 projections as ``QuantizedDipWeight`` with their stacked scales.
 
 ``opt_state_from_jax(np_opt_state, device)`` converts the reference's AdamW
-state the same way (moments leaf by leaf, ``count`` as an int), so that one
-optimizer step can be compared leaf by leaf.
+state the same way (moments leaf by leaf, ``count`` as an int, a gradient
+transform's state, the compression's error-feedback buffers, leaf by
+leaf), so that one optimizer step can be compared leaf by leaf.
 """
 
 from __future__ import annotations
@@ -102,10 +103,12 @@ def _holds_dip(t) -> bool:
 
 def opt_state_from_jax(np_opt_state: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The reference's AdamW state (``mu``, ``nu``, ``count``, ``grad_norm``
-    as numpy) as the port's ``AdamW`` state on ``device``."""
+    and, with a gradient transform, ``transform``, as numpy) as the port's
+    ``AdamW`` state on ``device``."""
     dev = resolve_device(device)
+    state = {"mu": _convert(np_opt_state["mu"], dev), "nu": _convert(np_opt_state["nu"], dev),
+             "count": int(np_opt_state["count"]),
+             "grad_norm": tensor_from_numpy(np.asarray(np_opt_state["grad_norm"], np.float32), dev)}
     if "transform" in np_opt_state:
-        raise NotImplementedError('gradient transforms are not ported yet (ROADMAP.md Queue 1 "Distributed")')
-    return {"mu": _convert(np_opt_state["mu"], dev), "nu": _convert(np_opt_state["nu"], dev),
-            "count": int(np_opt_state["count"]),
-            "grad_norm": tensor_from_numpy(np.asarray(np_opt_state["grad_norm"], np.float32), dev)}
+        state["transform"] = _convert(np_opt_state["transform"], dev)
+    return state

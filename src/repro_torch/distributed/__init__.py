@@ -10,12 +10,19 @@ slice with the plans attached, and the ``dip_tp`` / ``dip_fsdp`` /
 dispatch on them; under ``ep`` the MoE layer exchanges tokens with
 ``comm.all_to_all`` (``models/moe.py``).  The collectives are
 differentiable, so every path also trains (``train_step_fn(plan=)``,
-``Trainer(plan=)``).  Not ported yet (ROADMAP.md Queue 1 "Distributed"):
-the pipeline stage axis, gradient compression and the production mesh.
+``Trainer(plan=)``).  ``pipeline`` runs the dense family's layer stack
+over a ``stage`` axis (the overlapped GPipe schedule,
+``pipeline_train_step_fn``), and ``compression`` quantizes gradients to
+int8 with error feedback (``compression_transform`` for
+``AdamW(grad_transform=)``, ``compressed_psum``).  Not ported yet
+(ROADMAP.md Queue 1 "Distributed"): the production mesh and the plans that
+section lists.
 """
 
 from repro_torch.distributed import comm
 from repro_torch.distributed.comm import Mesh, abstract_mesh
+from repro_torch.distributed.compression import compressed_psum, compression_transform
+from repro_torch.distributed.pipeline import pipeline_apply, pipeline_train_step_fn
 from repro_torch.distributed.plan import (
     LAYER_RULES,
     STRATEGIES,
@@ -39,4 +46,8 @@ __all__ = [
     "make_plan",
     "shard_weight",
     "run_world",
+    "pipeline_apply",
+    "pipeline_train_step_fn",
+    "compression_transform",
+    "compressed_psum",
 ]

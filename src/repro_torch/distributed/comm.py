@@ -23,7 +23,7 @@ it raises.
 
 **The log.**  Every collective counts itself by the reference's primitive
 name (``psum``, ``all_gather``, ``reduce_scatter``, ``ppermute``,
-``all_to_all``) in
+``all_to_all``, ``pmax``) in
 :data:`COUNTS`; the sharded backends call :func:`note_launch` where they
 dispatch a per-shard product, counted as ``launch``, and the ``sp`` model
 path :func:`note_replicated` where a weight the plan leaves replicated
@@ -60,7 +60,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["TRANSPORTS", "Mesh", "abstract_mesh", "build_mesh", "psum", "all_gather", "psum_scatter",
+__all__ = ["TRANSPORTS", "Mesh", "abstract_mesh", "build_mesh", "psum", "pmax", "all_gather", "psum_scatter",
            "all_to_all", "ppermute_start", "hop_grad", "differentiated", "note_launch", "note_replicated",
            "replicated", "reset", "counts", "schedule", "COUNTS", "SCHEDULE"]
 
@@ -80,8 +80,14 @@ def reset(schedule: bool = False) -> None:
 
 
 def counts() -> Dict[str, int]:
-    """Collectives and launches since :func:`reset`, by name (0 for none)."""
-    return {name: COUNTS.get(name, 0) for name in COLLECTIVES + ("launch",)}
+    """Collectives and launches since :func:`reset`, by name (0 for none):
+    the reference's ``count_collectives`` names and ``launch`` always, and
+    ``pmax`` (gradient compression's shared scale, which that count has no
+    name for) when one ran."""
+    out = {name: COUNTS.get(name, 0) for name in COLLECTIVES + ("launch",)}
+    if COUNTS.get("pmax"):
+        out["pmax"] = COUNTS["pmax"]
+    return out
 
 
 def schedule() -> List[str]:
@@ -274,6 +280,19 @@ def _psum(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     if w is t:
         w = t.clone()
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    return _back(w, t)
+
+
+def pmax(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The elementwise maximum over ``axis`` (``jax.lax.pmax``); one
+    ``all_reduce(MAX)``, logged ``pmax``.  No backward: it is taken of
+    values that are not differentiated (a quantization scale)."""
+    _log("pmax")
+    t = t.detach()
+    w = _send_form(t, mesh)
+    if w is t:
+        w = t.clone()
+    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=mesh.group(axis))
     return _back(w, t)
 
 

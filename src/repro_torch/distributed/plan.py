@@ -54,10 +54,19 @@ them.
   place every collective by hand, so :meth:`ShardingPlan.constrain` is the
   identity.
 
+* **Pipeline stages** (``pp``, over the ``("stage", "data", "model")``
+  mesh that ``make_local_mesh(stage=)`` builds): rank s of S holds the
+  contiguous layers ``[s L / S, (s + 1) L / S)`` of every layer-stacked
+  leaf (:meth:`ShardingPlan.stage_layers`, cut along the leading axis) and
+  the embedding, the final norm and the lm_head whole; the stages run the
+  config's own backend (``explicit_backend`` is None) through
+  ``distributed.pipeline``.
+
 Strategies this slice runs: ``tp``, ``sp``, ``ep`` and ``fsdp`` (the
-model path and the matmul backends) and ``gspmd`` over a one-rank mesh.
-``pp`` and ``gspmd`` over more than one rank raise, citing ROADMAP.md
-Queue 1 "Distributed"; so does a ``stage`` axis (:func:`make_local_mesh`).
+model path and the matmul backends), ``pp`` over a stage axis alone (data
+and model 1) and ``gspmd`` over a one-rank mesh.  ``gspmd`` over more than
+one rank, ``pp`` beside a data or model axis above 1 and a stage axis under
+another strategy raise, citing ROADMAP.md Queue 1 "Distributed".
 ``make_production_mesh`` (a 256/512-chip TPU pod layout) waits with the
 dry-run.
 """
@@ -79,9 +88,10 @@ __all__ = ["WeightPlan", "LAYER_RULES", "ShardingPlan", "make_plan", "make_local
 
 _DIST = 'ROADMAP.md Queue 1 "Distributed"'
 STRATEGIES = ("gspmd", "tp", "fsdp", "sp", "ep", "pp")
-_RUNS = ("gspmd", "tp", "fsdp", "sp", "ep")
+_RUNS = ("gspmd", "tp", "fsdp", "sp", "ep", "pp")
 _MODEL_PATHS = ("tp", "sp", "ep", "fsdp")
 _HEAD_SPLIT = ("tp", "sp")  # the strategies whose ranks run H / T SSM heads
+_STAGE_WHOLE = ("embed", "final_norm", "lm_head")  # the leaves every stage holds whole
 
 Spec = Tuple[Optional[str], ...]
 
@@ -89,12 +99,15 @@ Spec = Tuple[Optional[str], ...]
 def make_local_mesh(data: int = 1, model: int = 1, stage: int = 1, *, transport: Optional[str] = None,
                     device=None) -> Mesh:
     """The ("data", "model") mesh over the initialized world (every rank
-    calls it alike); ``device`` is this rank's device (default the CPU, over
-    gloo) and ``transport`` how the ranks talk (see ``distributed.comm``: a
-    CUDA mesh must say ``"nccl"`` or ``"host"``)."""
+    calls it alike), or with ``stage > 1`` the reference's ("stage",
+    "data", "model") mesh of pipeline stages; ``device`` is this rank's
+    device (default the CPU, over gloo) and ``transport`` how the ranks
+    talk (see ``distributed.comm``: a CUDA mesh must say ``"nccl"`` or
+    ``"host"``)."""
+    shape = {"data": data, "model": model}
     if stage > 1:
-        raise NotImplementedError(f"pipeline stages are not ported yet ({_DIST})")
-    return build_mesh({"data": data, "model": model}, transport=transport, device=device)
+        shape = {"stage": stage, **shape}
+    return build_mesh(shape, transport=transport, device=device)
 
 
 # --------------------------------------------------------------------------
@@ -231,18 +244,31 @@ class ShardingPlan:
     strict: bool = False
     fsdp: Optional[str] = None
     tp: Optional[str] = None
+    stage: Optional[str] = None   # pipeline stage axis
+    stages: int = 1               # pipeline depth (1 = no pipelining)
+    _stacked: Optional[frozenset] = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         names = self.mesh.axis_names
         self.fsdp = "data" if "data" in names else None
         self.tp = "model" if "model" in names else None
+        self.stage = "stage" if "stage" in names else None
+        self.stages = int(self.mesh.shape[self.stage]) if self.stage else 1
         strategy = self.strategy
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown sharding strategy {strategy!r} (cfg.sharding); supported: {STRATEGIES}")
+        if strategy == "pp" and self.stages < 2:
+            raise ValueError("sharding='pp' needs a mesh with a 'stage' axis of size >= 2 "
+                             "(make_local_mesh(stage=...))")
         if strategy not in _RUNS or (strategy == "gspmd" and self.mesh.size > 1):
             what = "implicit gspmd partitioning over more than one rank" if strategy == "gspmd" else \
                 f"sharding strategy {strategy!r}"
             raise NotImplementedError(f"{what} is not ported yet ({_DIST})")
+        if (strategy == "pp") != (self.stages > 1) or (strategy == "pp" and self.mesh.size != self.stages):
+            what = f"pipeline stages beside {dict(self.mesh.shape)}'s data / model axes" if strategy == "pp" \
+                else f"a stage axis under the {strategy!r} strategy"
+            raise NotImplementedError(f"{what} is not ported yet ({_DIST}); the reference replicates the batch "
+                                      "over data there")
 
     # ---------------------------------------------------------- strategy ---
     @property
@@ -278,6 +304,53 @@ class ShardingPlan:
     @property
     def fsdp_rank(self) -> int:
         return self.mesh.coord(self.fsdp) if self.fsdp else 0
+
+    @property
+    def stage_rank(self) -> int:
+        return self.mesh.coord(self.stage) if self.stage else 0
+
+    def stage_layers(self) -> Tuple[int, int]:
+        """(first layer, layers) of this rank's stage: the contiguous
+        ``n_layers / stages`` layers of stage s under ``pp``, every layer
+        otherwise."""
+        n = self.cfg.n_layers
+        if self.strategy != "pp":
+            return 0, n
+        if n % self.stages:
+            raise ValueError(f"n_layers={n} does not divide into {self.stages} stages")
+        return self.stage_rank * (n // self.stages), n // self.stages
+
+    def stage_stacked(self, name: Optional[str]) -> bool:
+        """Whether ``pp`` cuts the leaf ``name`` along its leading (layer)
+        axis: a parameter of the template's layer stack (the embedding, the
+        final norm and the lm_head stay whole, as do the state's other
+        leaves)."""
+        if self.strategy != "pp" or name in _STAGE_WHOLE:
+            return False
+        if self._stacked is None:
+            from repro_torch.models.transformer import param_template  # lazy: the model imports this package
+
+            self._stacked = frozenset(param_template(self.cfg).get("layers", {}))
+        return name in self._stacked
+
+    def _stage_cut(self, name: str, t: Any) -> Any:
+        """This rank's layers of a layer-stacked leaf (a copy) under
+        ``pp``; a leaf that already holds them, or is not stacked, passes
+        through."""
+        if not self.stage_stacked(name) or not isinstance(t, (torch.Tensor, DipWeight, QuantizedDipWeight)):
+            return t
+        data = t.data if isinstance(t, (DipWeight, QuantizedDipWeight)) else t
+        first, n = self.stage_layers()
+        if data.shape[0] == n:
+            return t
+        if data.shape[0] != self.cfg.n_layers:
+            raise ValueError(f"{name} holds {data.shape[0]} layers: neither the whole {self.cfg.n_layers} nor this "
+                             f"stage's {n}")
+        if isinstance(t, QuantizedDipWeight):
+            return t.with_data(data.narrow(0, first, n).clone(), t.scale.narrow(0, first, n).clone())
+        if isinstance(t, DipWeight):
+            return t.with_data(data.narrow(0, first, n).clone())
+        return data.narrow(0, first, n).clone()
 
     def ssm_heads(self) -> Tuple[int, int]:
         """(first head, heads) of this rank's SSM heads: H / T consecutive
@@ -462,7 +535,11 @@ class ShardingPlan:
         ``tp`` and ``sp`` by head (:meth:`ssm_heads`), every other leaf
         whole (the biases too: the backend takes its columns).  A slice is
         a copy, so the whole leaf can be freed; a leaf that already is this
-        rank's slice (its shape and plan say so) passes through."""
+        rank's slice (its shape and plan say so) passes through.  Under
+        ``pp`` a layer-stacked leaf is cut to the stage's layers and every
+        other leaf kept whole (module doc)."""
+        if self.strategy == "pp":
+            return self._stage_cut(name, t)
         if self.strategy not in _MODEL_PATHS:
             raise NotImplementedError(f"the {self.strategy!r} strategy's model path is not ported yet ({_DIST}); "
                                       f"the model runs under {_MODEL_PATHS}")
@@ -518,7 +595,10 @@ class ShardingPlan:
         cfg, shape = self.cfg, list(t.shape)
         rule = _rule_for(name, tuple(t.shape))
         fsdp = self.strategy == "fsdp"
-        if rule == "expert_bank":
+        if self.strategy == "pp":
+            if self.stage_stacked(name):
+                shape[0] = cfg.n_layers
+        elif rule == "expert_bank":
             shape[1] = cfg.n_experts
             if fsdp:
                 shape[2] = self.fsdp_whole(name)
@@ -536,19 +616,21 @@ class ShardingPlan:
         the inverse of :meth:`shard_leaf` (a ``DipWeight`` keeps its plan).
         One ``comm.all_gather`` along the cut dim for a cut leaf; the Mamba2
         conv leaves under a head split gather their x channels and keep the
-        whole B and C.  Every rank calls it alike (it is collective).
+        whole B and C; under ``pp`` a layer-stacked leaf gathers its
+        stages' layers.  Every rank calls it alike (it is collective).
         ``to_host``: the whole leaf in host memory (a leaf held whole is
         copied there)."""
         from repro_torch.distributed import comm
 
-        if self.strategy not in _MODEL_PATHS:
+        if self.strategy not in _MODEL_PATHS + ("pp",):
             raise NotImplementedError(f"the {self.strategy!r} strategy's model path is not ported yet ({_DIST})")
-        axis = self.fsdp if self.strategy == "fsdp" else self.tp
+        axis = {"fsdp": self.fsdp, "pp": self.stage}.get(self.strategy, self.tp)
         parts = self.mesh.shape[axis] if axis else 1
         if isinstance(t, (DipWeight, QuantizedDipWeight)):
             if isinstance(t, QuantizedDipWeight):
                 raise NotImplementedError(f"{name}: gathering quantized storage is not ported yet ({_DIST})")
-            whole = tuple(t.data.shape[:-2]) + DipWeight.storage_dims(t.d_in, t.d_out, t.perm_tile)
+            lead = (self.cfg.n_layers,) if self.stage_stacked(name) else tuple(t.data.shape[:-2])
+            whole = lead + DipWeight.storage_dims(t.d_in, t.d_out, t.perm_tile)
             return t.with_data(self._gathered(name, t.data, whole, comm, axis, parts, to_host))
         if not isinstance(t, torch.Tensor):
             return t

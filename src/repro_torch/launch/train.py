@@ -31,9 +31,20 @@ projection through the strategy's sharded backend, the checkpoints whole
 
     python -m repro_torch.launch.train --arch llama3-8b --reduced --device cpu --mesh local --sharding tp
 
-``--sharding pp``, ``--stages``, ``--compress-grads``, the production
-meshes (``--mesh single`` / ``multi``) and ``gspmd`` over more than one
-rank raise (ROADMAP.md Queue 1 "Distributed").
+``--mesh local --sharding pp --stages S`` trains the dense family through
+pipeline stages (the reference's ``("stage", "data", "model")`` mesh, data
+and model 1: S ranks, S gloo ranks on the CPU), each rank drawing its
+stage's layers, every projection on the config's own backend,
+``--microbatches`` GPipe microbatches a step (0: 2 x S).
+``--compress-grads`` trains with int8 gradient compression and error
+feedback (``AdamW(grad_transform=compression_transform())``), with or
+without a plan::
+
+    python -m repro_torch.launch.train --arch llama3-8b --reduced --device cpu --mesh local --sharding pp \
+        --stages 2 --compress-grads
+
+The production meshes (``--mesh single`` / ``multi``) and ``gspmd`` over
+more than one rank raise (ROADMAP.md Queue 1 "Distributed").
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import sys
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.distributed.compression import compression_transform
 from repro_torch.optim import AdamW, cosine_schedule
 from repro_torch.runtime import Trainer, TrainerConfig
 
@@ -75,17 +87,22 @@ def _parse(argv):
     ap.add_argument("--mesh", default="none", choices=["none", "local", "single", "multi"])
     ap.add_argument("--sharding", default=None, choices=["gspmd", "tp", "fsdp", "sp", "ep", "pp"],
                     help="with --mesh local: the explicit strategy (its sharded backend) over the local ranks")
-    ap.add_argument("--stages", type=int, default=1)
+    ap.add_argument("--stages", type=int, default=1,
+                    help="pipeline stages for --sharding pp: the local mesh gets a leading 'stage' axis of this size")
+    ap.add_argument("--microbatches", type=int, default=0,
+                    help="GPipe microbatches per step for --sharding pp (0 = auto: 2x stages)")
     ap.add_argument("--strict-sharding", action="store_true",
                     help="raise (instead of warn-once + replicate) when a weight dim does not divide its axis")
-    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--compress-grads", action="store_true",
+                    help="int8 gradient compression with error feedback")
     args = ap.parse_args(argv)
     if args.mesh in ("single", "multi"):
         raise NotImplementedError(f"--mesh {args.mesh} (the production pod mesh) is not ported yet ({_DIST})")
-    if args.stages > 1 or args.sharding == "pp":
-        raise NotImplementedError(f"pipeline stages (--sharding pp, --stages) are not ported yet ({_DIST})")
-    if args.compress_grads:
-        raise NotImplementedError(f"gradient compression (--compress-grads) is not ported yet ({_DIST})")
+    if args.stages > 1 and args.sharding != "pp":
+        raise NotImplementedError(f"--stages beside --sharding {args.sharding}: a stage axis under another strategy "
+                                  f"is not ported yet ({_DIST})")
+    if args.sharding == "pp" and args.stages < 2:
+        raise ValueError("--sharding pp needs --stages >= 2 (the mesh's 'stage' axis)")
     if args.sharding not in (None, "gspmd") and args.mesh != "local":
         raise ValueError(f"--sharding {args.sharding} trains over ranks: pass --mesh local")
     return args
@@ -103,6 +120,8 @@ def _config(args):
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
     if args.sharding in _EXPLICIT:
         cfg = dataclasses.replace(cfg, sharding=args.sharding, matmul_backend=_EXPLICIT[args.sharding])
+    elif args.sharding == "pp":  # a stage axis, not a backend: the stages keep the config's
+        cfg = dataclasses.replace(cfg, sharding="pp")
     return cfg
 
 
@@ -113,10 +132,12 @@ def _train(args, plan=None):
           f"params {cfg.param_dtype}, compute {cfg.compute_dtype}, batch {args.batch} x seq {args.seq}, "
           f"device {args.device}" + ("" if plan is None else f", {plan.strategy} over {dict(plan.mesh.shape)} "
                                      f"rank {plan.mesh.rank}"), flush=True)
+    gt = compression_transform() if args.compress_grads else None
     trainer = Trainer(
         cfg,
-        TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, log_every=1),
-        optimizer=AdamW(lr=cosine_schedule(args.lr, 10, args.steps)),
+        TrainerConfig(steps=args.steps, ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, log_every=1,
+                      pipeline_microbatches=args.microbatches),
+        optimizer=AdamW(lr=cosine_schedule(args.lr, 10, args.steps), grad_transform=gt),
         seq_len=args.seq, global_batch=args.batch, device=args.device, plan=plan,
     )
     return trainer.run(seed=args.seed)
@@ -125,12 +146,19 @@ def _train(args, plan=None):
 def _train_rank(rank: int, argv):
     """One rank of ``--mesh local``: its card (or the CPU), the mesh over
     the world (the model axis under ``tp`` / ``sp`` / ``ep``, the data axis
-    under ``fsdp``), the plan, the trainer; returns its metrics."""
+    under ``fsdp``, with ``--stages`` the stage axis and the data axis over
+    the rest, as the reference's), the plan, the trainer; returns its
+    metrics."""
     from repro_torch.distributed import make_local_mesh, make_plan
 
     args = _parse(argv)
     world = torch.distributed.get_world_size()
-    axes = dict(data=world, model=1) if args.sharding == "fsdp" else dict(data=1, model=world)
+    if args.stages > 1:
+        axes = dict(data=world // args.stages, model=1, stage=args.stages)
+    elif args.sharding == "fsdp":
+        axes = dict(data=world, model=1)
+    else:
+        axes = dict(data=1, model=world)
     if args.device == "cpu":
         mesh = make_local_mesh(**axes)
     else:
@@ -155,7 +183,9 @@ def main(argv=None):
                                "--device cpu to train over gloo ranks on the CPU")
         cfg = _config(args)
         tf_model._require_trainable(cfg)  # the families the strategy trains, checked before any rank starts
-        ranks = 2 if args.device == "cpu" else torch.cuda.device_count()
+        ranks = (max(2, args.stages) if args.device == "cpu" else torch.cuda.device_count())
+        if ranks % args.stages:
+            raise SystemExit(f"--stages {args.stages} does not divide {ranks} devices")
         if cfg.sharding == "gspmd" and ranks > 1:
             raise NotImplementedError(f"implicit gspmd partitioning over more than one rank is not ported yet "
                                       f"({_DIST})")

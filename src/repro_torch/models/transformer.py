@@ -94,11 +94,14 @@ differentiable (``distributed.comm``: each one's backward is its
 transpose), every rank computes the global loss from the whole logits and
 differentiates its share of it, and the gradient shares of the leaves the
 ranks hold alike are summed once after the backward.  Training refuses a
-(data, model) mesh with both axes above 1 and the pipeline's stages.
+(data, model) mesh with both axes above 1.  Under ``pp`` (the dense family,
+over a stage axis) the step is ``distributed.pipeline``'s: the layer stack
+runs through the overlapped GPipe schedule, each rank its stage's layers.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -138,9 +141,12 @@ def _require_served(cfg) -> None:
     every family of the reference (the stub frontends from tokens), with
     GQA or MLA attention and tied or separate heads, in float or with
     quantized weights and an int8 KV pool; under a plan the families
-    :func:`_plannable` names."""
+    :func:`_plannable` names (``pp``: :func:`_require_staged`'s)."""
     if cfg.family not in _KNOWN_FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r} (one of {_KNOWN_FAMILIES})")
+    if cfg.sharding == "pp":
+        _require_staged(cfg)
+        return
     if cfg.sharding not in ("gspmd",) + _PLANNED or (cfg.sharding in _PLANNED and not _plannable(cfg, cfg.sharding)):
         raise NotImplementedError(f"{cfg.name}: not ported yet: sharding {cfg.sharding!r} for the "
                                   f"{cfg.family} family ({_DISTRIBUTED})")
@@ -150,10 +156,13 @@ def _plannable(cfg, strategy: str) -> bool:
     """The families a strategy's model path runs, tied or separate heads:
     under ``tp`` and ``fsdp`` dense with GQA, moe (GQA or MLA, with or
     without shared experts), ssm and hybrid; under ``sp`` dense with GQA,
-    ssm and hybrid; under ``ep`` dense with GQA and moe."""
+    ssm and hybrid; under ``ep`` dense with GQA and moe; under ``pp`` (the
+    pipeline's stages, a training path) dense with GQA."""
     dense = cfg.family == "dense" and not cfg.use_mla
     moe_fam = cfg.family == "moe"
     ssm_fams = cfg.family in ("ssm", "hybrid")
+    if strategy == "pp":
+        return dense
     if strategy == "sp":
         return dense or ssm_fams
     if strategy == "ep":
@@ -242,9 +251,13 @@ def _require_trainable(cfg) -> None:
 def _require_train_plan(cfg, plan) -> None:
     """What training under a plan adds to :func:`_require_plan`: one axis
     of the mesh above 1 (a (data, model) mesh with both above 1 would need
-    the whole leaves' gradients summed over each axis apart).  Pipeline
-    stages never reach a plan: ``make_local_mesh(stage=)`` raises."""
+    the whole leaves' gradients summed over each axis apart).  ``pp`` (its
+    mesh a stage axis alone, ``ShardingPlan``) trains the families
+    :func:`_require_staged` names."""
     if plan is None:
+        return
+    if plan.strategy == "pp":
+        _require_staged(cfg)
         return
     _require_plan(cfg, plan)
     if plan.tp_size > 1 and plan.fsdp_size > 1:
@@ -252,10 +265,23 @@ def _require_train_plan(cfg, plan) -> None:
                                   f"axes above 1 is not ported yet ({_DISTRIBUTED})")
 
 
+def _require_staged(cfg) -> None:
+    """The families pipeline stages train (``pp``): dense with GQA.  SSM
+    state and MoE dispatch raise the reference's ``ValueError``; the vlm
+    and audio families and dense MLA, which the reference would run, are
+    not ported."""
+    if cfg.ssm_state or cfg.is_moe:
+        raise ValueError(f"{cfg.name}: pipeline stages cover the dense attention+FFN scan families (SSM state / "
+                         "MoE dispatch do not thread the stage ring)")
+    if not _plannable(cfg, "pp"):
+        raise NotImplementedError(f"{cfg.name}: pipeline stages for the {cfg.family} family"
+                                  f"{' with MLA' if cfg.use_mla else ''} are not ported yet ({_DISTRIBUTED})")
+
+
 def _rank_axis(plan) -> str:
     """The mesh axis a plan's ranks differ along in training: ``data``
-    under ``fsdp``, ``model`` otherwise."""
-    return plan.fsdp if plan.strategy == "fsdp" else plan.tp
+    under ``fsdp``, ``stage`` under ``pp``, ``model`` otherwise."""
+    return {"fsdp": plan.fsdp, "pp": plan.stage}.get(plan.strategy, plan.tp)
 
 
 def _whole_shapes(cfg) -> List[tuple]:
@@ -405,14 +431,25 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
     single-rank draw, or under ``fsdp`` its block of each bank's
     contraction dim), while the rank never holds more than its slice and
     one whole matrix or layer's bank.  The SSM's per-head and per-channel
-    leaves (a few vectors a layer) are drawn whole and then cut."""
+    leaves (a few vectors a layer) are drawn whole and then cut.  Under
+    ``pp`` every layer is drawn, in order, and the rank keeps its stage's
+    (``plan.stage_layers()``): the same layers of the single-rank draw."""
     dev = resolve_device(device)
     scheme = cfg.quant_scheme
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, parameters go to {dev}")
+    staged = plan is not None and plan.strategy == "pp"
 
     def kept(name, t):
-        return t if plan is None else plan.shard_leaf(name, t)
+        return t if plan is None or staged else plan.shard_leaf(name, t)
+
+    def own_layers(name, lead):
+        """The layers of a stacked leaf this rank keeps: its stage's under
+        ``pp``, all of them otherwise."""
+        if staged and plan.stage_stacked(name):
+            first, n = plan.stage_layers()
+            return range(first, first + n)
+        return range(lead)
 
     def normal(shape, scale, dt):
         t = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -423,16 +460,20 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
         dt = dtype_of(dt)
         if fan is None:
             init = torch.zeros if name in ("bq", "bk", "bv") else torch.ones
-            return init(shape, dtype=dt, device=dev)
+            return init((len(own_layers(name, shape[0])),) + tuple(shape[1:]) if staged else shape, dtype=dt,
+                        device=dev)
         scale = (1.0 / max(1, fan)) ** 0.5
         if dip is None and len(shape) > 2:
             def layer():  # one layer's whole draw, of which this rank keeps its slice
                 return kept(name, normal(shape[1:], scale, dt)[None])[0]
 
-            first = layer()
-            data = torch.empty((shape[0],) + tuple(first.shape), dtype=dt, device=dev)
-            for i, lyr in enumerate(data):
-                lyr.copy_(first if i == 0 else layer())
+            keep, data = own_layers(name, shape[0]), None
+            for i in range(shape[0]):
+                lyr = layer()
+                if i in keep:
+                    if data is None:
+                        data = torch.empty((len(keep),) + tuple(lyr.shape), dtype=dt, device=dev)
+                    data[i - keep.start].copy_(lyr)
             return data
         if dip is None:
             return kept(name, normal(shape, scale, dt))
@@ -447,21 +488,25 @@ def init_params(cfg, generator: torch.Generator, device="cuda", plan=None) -> Di
             return kept(name, w)
 
         lead = tuple(shape[:-2])
-        first = matrix()
         if not lead:
-            return first
-        data = torch.empty(lead + tuple(first.data.shape), dtype=first.data.dtype, device=dev)
-        mats = data.view((-1,) + tuple(first.data.shape))
-        if scheme is None:
-            for i, mat in enumerate(mats):
-                mat.copy_((first if i == 0 else matrix()).data)
-            return first.with_data(data)
-        scales = torch.empty(lead + tuple(first.scale.shape), dtype=torch.float32, device=dev)
-        for i, (mat, sc) in enumerate(zip(mats, scales.view((-1,) + tuple(first.scale.shape)))):
-            w = first if i == 0 else matrix()
-            mat.copy_(w.data)
-            sc.copy_(w.scale)
-        return first.with_data(data, scales)
+            return matrix()
+        # every matrix drawn in order; those of the layers this rank keeps stored
+        keep, per_layer = own_layers(name, lead[0]), math.prod(lead[1:])
+        first = data = scales = None
+        for i in range(math.prod(lead)):
+            w = matrix()
+            if i // per_layer not in keep:
+                continue
+            if first is None:
+                first, kept_lead = w, (len(keep),) + lead[1:]
+                data = torch.empty(kept_lead + tuple(w.data.shape), dtype=w.data.dtype, device=dev)
+                if scheme is not None:
+                    scales = torch.empty(kept_lead + tuple(w.scale.shape), dtype=torch.float32, device=dev)
+            j = i - keep.start * per_layer
+            data.view((-1,) + tuple(w.data.shape))[j].copy_(w.data)
+            if scheme is not None:
+                scales.view((-1,) + tuple(w.scale.shape))[j].copy_(w.scale)
+        return first.with_data(data) if scheme is None else first.with_data(data, scales)
 
     def build(t):
         return {k: build(v) if isinstance(v, dict) else make(k, *v) for k, v in t.items()}
@@ -1118,34 +1163,84 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
     the reported ``loss`` is the global one.  Under ``guard=True`` the
     ranks' verdicts meet in one psum of their flags, so that no rank
     updates where another skips.  A (data, model) mesh with both axes above
-    1 and pipeline stages raise (ROADMAP.md Queue 1 "Distributed")."""
+    1 raises (ROADMAP.md Queue 1 "Distributed").  A ``pp`` plan returns
+    ``distributed.pipeline.pipeline_train_step_fn``'s step with
+    ``n_micro = 2 * plan.stages`` (the reference ``Trainer``'s default);
+    the options that step lacks (``kv_chunk``, ``microbatch``, the fused
+    loss, ``constrain``) raise there.
+
+    The optimizer's ``grad_transform`` (gradient compression) runs after
+    the backward and the whole leaves' psum, before the norm is taken: the
+    norm and the clipping are the transformed gradients', as in the
+    reference's ``AdamW.update``; under a plan its per-leaf scales are the
+    whole leaves' (one ``comm.pmax`` over the ranks).  Under the guard a
+    skipped step also keeps the transform's state."""
     _require_trainable(cfg)
     _require_train_plan(cfg, plan)
+    if plan is not None and plan.strategy == "pp":
+        if kv_chunk or microbatch > 1 or fused_ce or constrain is not None:
+            raise ValueError("the pipelined step takes no kv_chunk, microbatch, fused loss or constrain hook")
+        from repro_torch.distributed import pipeline  # lazy: the pipeline imports this module
+
+        return pipeline.pipeline_train_step_fn(cfg, optimizer, plan, n_micro=2 * plan.stages, guard=guard)
+
+    def loss_of(params, batch, moe_trace=None):
+        return loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce, constrain=constrain, plan=plan,
+                       moe_trace=moe_trace)
+
+    return _step_fn(cfg, optimizer, loss_of, plan=plan, microbatch=microbatch, guard=guard)
+
+
+def _step_fn(cfg, optimizer, loss_of, *, plan=None, microbatch: int = 1, guard: bool = False):
+    """:func:`train_step_fn`'s step around ``loss_of(params, batch,
+    moe_trace) -> global loss`` (its own or the pipeline's): the
+    gradients (``loss / ranks`` under a plan, the whole leaves' shares
+    psummed once), the optimizer's transform, the global norm, the update,
+    and under ``guard`` the joint verdict first."""
     if plan is not None:
         mesh, axis, ranks = plan.mesh, _rank_axis(plan), plan.mesh.size
+    compress = optimizer.grad_transform is not None
 
     def grad_of(leaves, params, batch, moe_trace=None):
-        loss = loss_fn(params, cfg, batch, kv_chunk=kv_chunk, fused_ce=fused_ce, constrain=constrain, plan=plan,
-                       moe_trace=moe_trace)
+        loss = loss_of(params, batch, moe_trace)
         seed = loss if plan is None else loss / ranks
         grads = torch.autograd.grad(seed, leaves, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
 
     def whole_leaves_summed(params, flat):
         """ONE psum of the ranks' shares of every part of a leaf that each
-        rank holds alike (:func:`replicated_parts`)."""
+        rank holds alike (:func:`replicated_parts`); a leaf held whole
+        becomes its part of the sum (no copy: under ``pp`` the embedding
+        and the head are whole on every rank)."""
         parts = replicated_parts(params, cfg)
         held = [i for i, rep in enumerate(parts) if rep is not None]
         if held:
-            pieces = [flat[i][..., parts[i]] for i in held]
-            summed = comm.psum(torch.cat([p.float().reshape(-1) for p in pieces]), mesh, axis)
-            for i, piece, got in zip(held, pieces, summed.split([p.numel() for p in pieces])):
-                g = flat[i].clone()
-                g[..., parts[i]] = got.view(piece.shape).to(g.dtype)
-                flat[i] = g
+            shapes = [flat[i][..., parts[i]].shape for i in held]
+            dtypes = [flat[i].dtype for i in held]
+            shares = torch.cat([flat[i][..., parts[i]].float().reshape(-1) for i in held])
+            for i in held:  # a whole leaf's share now lives in ``shares``: free it before the sum comes back
+                if parts[i] == slice(None):
+                    flat[i] = None
+            summed = comm.psum(shares, mesh, axis)
+            del shares
+            for i, shape, dt, got in zip(held, shapes, dtypes, summed.split([math.prod(sh) for sh in shapes])):
+                got = got.view(shape).to(dt)
+                if parts[i] == slice(None):
+                    flat[i] = got
+                else:
+                    g = flat[i].clone()
+                    g[..., parts[i]] = got
+                    flat[i] = g
         return flat, parts
 
-    def loss_and_grads(params, batch, moe_trace=None):
+    def norm_of(params, flat):
+        """The global norm of the gradient leaves ``flat``: over the ranks
+        under a plan (each slice once, each whole leaf once)."""
+        if plan is None:
+            return global_norm(flat)
+        return global_norm(flat, replicated=replicated_parts(params, cfg), psum=lambda t: comm.psum(t, mesh, axis))
+
+    def loss_and_grads(params, batch, moe_trace=None, norm=True):
         leaves = tree.leaves(params)
         for leaf in leaves:
             leaf.requires_grad_(True)
@@ -1163,14 +1258,24 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
             flat = [g * inv for g in flat]
         if plan is None:
             return loss, tree.unflatten(params, flat), None
-        flat, parts = whole_leaves_summed(params, flat)
-        return loss, tree.unflatten(params, flat), global_norm(flat, replicated=parts,
-                                                               psum=lambda t: comm.psum(t, mesh, axis))
+        flat, _ = whole_leaves_summed(params, flat)
+        return loss, tree.unflatten(params, flat), norm_of(params, flat) if norm else None
+
+    def clipped(params, batch, opt_state):
+        """(loss, the gradients as the optimizer clips them, their global
+        norm or None without a plan and a transform): after the transform,
+        its state advanced in ``opt_state``, the norm taken anew."""
+        loss, grads, gnorm = loss_and_grads(params, batch, norm=not compress)
+        if compress:
+            rmax = None if plan is None else (lambda t: comm.pmax(t, mesh, axis))
+            grads = optimizer.transform(grads, opt_state, reduce_max=rmax)
+            gnorm = norm_of(params, tree.leaves(grads))
+        return loss, grads, gnorm
 
     def step(state, batch):
         params = state["params"]
-        loss, grads, gnorm = loss_and_grads(params, batch)
-        params, opt_state = optimizer.update(grads, state["opt_state"], params, gnorm=gnorm)
+        loss, grads, gnorm = clipped(params, batch, state["opt_state"])
+        params, opt_state = optimizer.update(grads, state["opt_state"], params, gnorm=gnorm, transformed=True)
         new_state = {"params": params, "opt_state": opt_state, "step": state["step"] + 1}
         return new_state, {"loss": loss, "grad_norm": optimizer.last_grad_norm(opt_state),
                            "step": new_state["step"]}
@@ -1183,9 +1288,10 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
         return step
 
     def guarded_step(state, batch):
-        params = state["params"]
+        params, opt_state = state["params"], state["opt_state"]
         weights_ok = guard_lib.fingerprint_ok(guard_lib.fingerprint(params), state["fingerprint"])
-        loss, grads, gnorm = loss_and_grads(params, batch)
+        kept = [t.clone() for t in tree.leaves(opt_state["transform"])] if compress else None
+        loss, grads, gnorm = clipped(params, batch, opt_state)
         if gnorm is None:
             gnorm = global_norm(grads)
         flags = torch.stack([weights_ok, weights_ok & torch.isfinite(loss) & torch.isfinite(gnorm)])
@@ -1193,7 +1299,10 @@ def train_step_fn(cfg, optimizer, *, kv_chunk: int = 0, microbatch: int = 1,
             flags = comm.psum((~flags).to(torch.float32), mesh, axis) == 0
         w_ok, ok = flags.tolist()
         if ok:
-            optimizer.update(grads, state["opt_state"], params, gnorm=gnorm)
+            optimizer.update(grads, opt_state, params, gnorm=gnorm, transformed=True)
+        elif compress:  # a skipped step keeps the transform's state too
+            for t, was in zip(tree.leaves(opt_state["transform"]), kept):
+                t.copy_(was)
         skipped, wfault = int(not ok), int(not w_ok)
         new_state = dict(state, step=state["step"] + 1,
                          fingerprint=guard_lib.fingerprint(params) if ok else state["fingerprint"],

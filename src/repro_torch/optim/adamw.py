@@ -14,6 +14,10 @@ of each, and returns ``(params, state)``::
 
 The arithmetic follows the reference step by step (f32 moments, bias
 corrections from ``b ** count`` in f32, decay on leaves with ndim >= 2).
+A ``grad_transform`` (``distributed.compression.compression_transform``)
+runs first, before clipping, as the reference's ``update`` does: its state
+is ``state["transform"]``, and ``grad_norm`` is the transformed gradients'
+norm.
 The update walks each leaf in slabs of its leading axis (at most
 :data:`SLAB` elements), clipping each slab of the gradient as it goes, so
 its transients are a slab's and not a leaf's (a full-width Zamba2 in_proj
@@ -30,7 +34,7 @@ import torch
 
 from repro_torch import tree
 
-__all__ = ["AdamW", "clip_by_global_norm", "global_norm"]
+__all__ = ["AdamW", "GradientTransform", "clip_by_global_norm", "global_norm"]
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -93,6 +97,17 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @dataclasses.dataclass(frozen=True)
+class GradientTransform:
+    """A hook applied to the gradients before the optimizer (the reference's
+    ``GradientTransform``).  ``fn(grads, state, reduce_max=None) -> (grads,
+    state)``; ``reduce_max``, under a sharding plan, maxes a vector of
+    per-leaf values over the ranks that share the leaves."""
+
+    fn: Callable[..., tuple]
+    init: Callable[[Any], Any]  # params -> transform state
+
+
+@dataclasses.dataclass(frozen=True)
 class AdamW:
     lr: Schedule = 3e-4
     b1: float = 0.9
@@ -100,32 +115,53 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.1
     clip_norm: float = 1.0
-    grad_transform: Optional[Any] = None
-
-    def __post_init__(self):
-        if self.grad_transform is not None:
-            raise NotImplementedError(
-                'gradient transforms (compression) are not ported yet (ROADMAP.md Queue 1 "Distributed")')
+    grad_transform: Optional[GradientTransform] = None
 
     def init(self, params) -> Dict[str, Any]:
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
         first = tree.leaves(params)[0]
-        return {
+        state = {
             "mu": tree.map_tree(zeros, params),
             "nu": tree.map_tree(zeros, params),
             "count": 0,
             "grad_norm": torch.zeros((), dtype=torch.float32, device=first.device),
         }
+        if self.grad_transform is not None:
+            state["transform"] = self.grad_transform.init(params)
+        return state
+
+    def transform(self, grads, state: Dict[str, Any], *,
+                  reduce_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+        """``grads`` after ``grad_transform`` (the identity without one),
+        its state ``state["transform"]`` advanced (in place for the
+        compression transform); ``reduce_max`` under a sharding plan (see
+        :class:`GradientTransform`).  A caller that must read the
+        transformed gradients' norm before it decides to update (the guard,
+        a plan's norm over the ranks) runs it and passes
+        ``update(..., transformed=True)``."""
+        if self.grad_transform is None:
+            return grads
+        grads, state["transform"] = self.grad_transform.fn(grads, state["transform"], reduce_max=reduce_max)
+        return grads
 
     def _lr_at(self, count: int) -> float:
         return float(self.lr(count)) if callable(self.lr) else float(np.float32(self.lr))
 
     @torch.no_grad()
-    def update(self, grads, state: Dict[str, Any], params, *, gnorm: Optional[torch.Tensor] = None):
-        """One step, in place on ``params``, ``state["mu"]`` and ``state["nu"]``;
-        ``gnorm`` is the global norm when the caller has it (under a
-        sharding plan, :func:`global_norm` over the ranks), else it is
-        computed over ``grads``."""
+    def update(self, grads, state: Dict[str, Any], params, *, gnorm: Optional[torch.Tensor] = None,
+               transformed: bool = False):
+        """One step, in place on ``params``, ``state["mu"]`` and ``state["nu"]``
+        (and, with a ``grad_transform``, on ``grads`` and
+        ``state["transform"]``).  The transform runs first (:meth:`transform`)
+        unless ``transformed`` says that the caller ran it; ``gnorm`` is
+        the global norm of the gradients as clipped when the caller has it
+        (under a sharding plan, :func:`global_norm` over the ranks), else
+        it is computed over them."""
+        if self.grad_transform is not None and not transformed:
+            if gnorm is not None:
+                raise ValueError("gnorm must be the transformed gradients' norm: run transform() first and "
+                                 "pass transformed=True")
+            grads = self.transform(grads, state)
         flat = tree.leaves(grads)
         if gnorm is None:
             gnorm = _global_norm(flat)

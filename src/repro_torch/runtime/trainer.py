@@ -40,9 +40,12 @@ under ``tp`` and ``ep``: ``transformer.forward``), and
 (``checkpoint.manager``): whole leaves, gathered on every rank and written
 by rank 0; a restore cuts each rank's slice, so a run resumes on the same
 mesh, under another strategy or on one rank.  After a restore the guard's
-fingerprint is recomputed on the rank's own slices.  Pipeline stages
-(``pipeline_microbatches``, a ``stage`` axis) raise (ROADMAP.md Queue 1
-"Distributed").
+fingerprint is recomputed on the rank's own slices.  A plan with a stage
+axis (``pp``, ``plan.stages > 1``) takes the pipelined step
+(``distributed.pipeline_train_step_fn``, ``pipeline_microbatches`` a step,
+0 for ``2 * stages``, as in the reference): each rank holds its stage's
+layers and the embedding and head whole, feeds the whole global batch, and
+runs the config's own backend (not a sharded one).
 """
 
 from __future__ import annotations
@@ -65,8 +68,6 @@ from repro_torch.optim import AdamW
 
 __all__ = ["Trainer", "TrainerConfig"]
 
-_DIST = 'ROADMAP.md Queue 1 "Distributed"'
-
 
 @dataclasses.dataclass
 class TrainerConfig:
@@ -83,7 +84,7 @@ class TrainerConfig:
     guard: bool = False
     # on a weight fault: restore the latest checkpoint (True) or raise
     recover_on_fault: bool = True
-    pipeline_microbatches: int = 0         # not ported (Queue 1 "Distributed")
+    pipeline_microbatches: int = 0         # GPipe microbatches a step under pp (0 = 2 x stages)
 
 
 class Trainer:
@@ -92,8 +93,6 @@ class Trainer:
                  seq_len: int = 512, global_batch: int = 8,
                  step_hook: Optional[Callable[[int, Dict[str, Any]], Dict[str, Any]]] = None,
                  device="cuda"):
-        if tcfg.pipeline_microbatches:
-            raise NotImplementedError(f"pipeline stages (pipeline_microbatches) are not ported yet ({_DIST})")
         plan = plan if plan is not None else policy
         if plan is None and mesh is not None:
             from repro_torch.distributed import make_plan
@@ -102,10 +101,12 @@ class Trainer:
         if plan is not None and mesh is not None and plan.mesh != mesh:
             raise ValueError(f"the plan was made for {plan.mesh}, the trainer was given {mesh}")
         be = api.get_backend(cfg.matmul_backend)  # fail fast on unknown backends
-        if (be.layout == "sharded") != (plan is not None):
+        staged = plan is not None and plan.stages > 1
+        if (be.layout == "sharded") != (plan is not None and not staged):
             raise ValueError(f"cfg.matmul_backend={cfg.matmul_backend!r} and plan={plan!r}: a sharded backend "
                              "dispatches on the WeightPlan metadata, so it trains under a plan "
-                             "(distributed.make_plan), and a plan trains through its sharded backend")
+                             "(distributed.make_plan), and a plan trains through its sharded backend (the "
+                             "pipeline's stages through the config's own)")
         if cfg.quantization != "none":
             # quantized storage is a frozen inference artifact: its payload
             # has no usable cotangent, so training would freeze every projection
@@ -121,7 +122,14 @@ class Trainer:
         self.data = data or SyntheticLM(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch,
                                         emit_embeddings=cfg.d_model if cfg.frontend != "none" else None)
         self.ckpt = CheckpointManager(tcfg.ckpt_dir, keep=tcfg.keep)
-        self._step_fn = tf_model.train_step_fn(cfg, self.opt, guard=tcfg.guard, plan=plan)
+        if staged:  # the layer stack through the overlapped GPipe schedule
+            from repro_torch.distributed import pipeline_train_step_fn
+
+            self._step_fn = pipeline_train_step_fn(cfg, self.opt, plan,
+                                                   n_micro=tcfg.pipeline_microbatches or 2 * plan.stages,
+                                                   guard=tcfg.guard)
+        else:
+            self._step_fn = tf_model.train_step_fn(cfg, self.opt, guard=tcfg.guard, plan=plan)
         self.metrics_log: list = []
         # called as state = step_hook(step_no, state) before each step: how
         # the chaos tests corrupt a parameter between steps

@@ -320,3 +320,32 @@ def test_backend_backward_on_the_card(train_world):
                 err = float(np.abs(got - want).max())
                 assert err <= TOL["float32"] * max(1.0, float(np.abs(want).max())), (case, err)
             assert {k: v for k, v in bwd.items() if v} == _backward_counts(**case), (case, bwd)
+
+
+@pytest.fixture(scope="module")
+def pp_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU mode")
+    import _torch_pipeline_ranks as pp_ranks
+
+    return run_world(pp_ranks.cuda_pp_rank, 2, timeout=600)
+
+
+def test_pipeline_stages_and_pmax_on_the_card(pp_world):
+    """``train_step_fn(plan=pp)`` (the pipelined step, 4 microbatches of
+    the reduced llama3-8b in f32 over 2 stages) against the single-rank
+    step on the card: the loss and norm within 1e-5, every parameter within
+    1e-4 of max(1, max|leaf|) (plain AdamW) and within 2 lr where a
+    compressed gradient took the neighbouring code; the counts of the CPU
+    tests (6 ticks and 4 reverse hops, 4 psums, a pmax when compressing),
+    each tick's DiP launches; ``comm.pmax`` of the ranks' values."""
+    for r in pp_world:
+        np.testing.assert_array_equal(r["pmax"], [1.0, 0.0])
+        for name in ("plain", "compressed"):
+            g = r[name]
+            (lk, lp), (nk, npl) = g["loss"], g["grad_norm"]
+            assert abs(lk - lp) <= 1e-5 * max(1.0, abs(lp)) and abs(nk - npl) <= 1e-5 * max(1.0, npl), g
+            want = dict(psum=4, all_gather=0, reduce_scatter=0, ppermute=10, all_to_all=0, launch=0)
+            assert g["counts"] == (dict(want, pmax=1) if name == "compressed" else want), g["counts"]
+            assert g["dip_launches"] == 6 * 1 * 6 + 1  # 6 ticks x 1 layer a stage x 6 launches, the head
+            assert max(g["param_err"]) <= (1e-4 if name == "plain" else 1e-4 + 2e-3), g["param_err"]

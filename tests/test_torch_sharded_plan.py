@@ -352,14 +352,18 @@ def test_refusals_outside_the_slice():
     with pytest.raises(ValueError, match="ShardingPlan"):  # the reference's test_engine_sharded_backend_requires_plan
         Engine(cfg, params, engine_cfg=EngineConfig(slots=1, max_seq=16), device="cpu")
     mesh = abstract_mesh(data=1, model=2)
-    # ep and the moe family under tp run now (test_torch_sharded_moe.py); pp does not
+    # ep and the moe family under tp run now (test_torch_sharded_moe.py); pp runs over a stage axis
+    # alone (test_torch_pipeline_train.py), not beside a model axis, and a stage axis only under pp
     assert make_plan(mesh, dataclasses.replace(cfg, sharding="ep"), "decode").expert_plan.kind == "expert"
+    pp = dataclasses.replace(cfg, sharding="pp", matmul_backend="dip")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_plan(mesh, dataclasses.replace(cfg, sharding="pp"), "decode")
+        make_plan(abstract_mesh(stage=2, data=1, model=2), pp, "decode")
+    with pytest.raises(ValueError, match="'stage' axis"):
+        make_plan(mesh, pp, "decode")
     with pytest.raises(NotImplementedError, match="gspmd"):
         make_plan(mesh, cfg, "decode")
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        make_local_mesh(stage=2)
+    with pytest.raises(NotImplementedError, match="stage axis under the 'tp' strategy"):
+        make_plan(abstract_mesh(stage=2, data=1, model=1), dataclasses.replace(cfg, sharding="tp"), "decode")
     with pytest.raises(ValueError, match="must state how its ranks map to cards"):
         make_local_mesh(model=1, device="cuda")
     tp = dataclasses.replace(cfg, sharding="tp")

@@ -334,9 +334,12 @@ def test_block_remat_reruns_each_forward_and_keeps_the_gradients(monkeypatch):
 
 @pytest.mark.parametrize("what", ["guard", "plan", "grad_transform", "tied"])
 def test_training_branches_outside_the_slice_raise(what):
-    """A plan over a (data, model) mesh with both axes above 1 and gradient
-    transforms still raise (training under a plan over one axis:
-    test_torch_sharded_train_*.py); a tied head
+    """A plan over a (data, model) mesh with both axes above 1 still raises
+    (training under a plan over one axis: test_torch_sharded_train_*.py);
+    a gradient transform trains now (test_torch_compression.py holds it
+    against the reference): the compressing step's loss is the plain
+    step's, its buffers are shaped like the parameters and carry the
+    residual, and a guarded step that skips keeps them; a tied head
     trains now: the fused loss's head is the embedding's transpose, a view
     of its storage (test_torch_train_families.py holds its gradient); so
     does the guard: a guarded step's loss and norm are the unguarded step's
@@ -358,6 +361,33 @@ def test_training_branches_outside_the_slice_raise(what):
         assert torch.equal(metrics[0]["grad_norm"], metrics[1]["grad_norm"])
         assert (metrics[1]["skipped"], metrics[1]["weight_fault"], state["step"]) == (0, 0, 1)
         return
+    if what == "grad_transform":
+        from repro_torch import reliability, tree
+        from repro_torch.data import SyntheticLM
+        from repro_torch.distributed import compression_transform
+        batch = {k: torch.as_tensor(v) for k, v in
+                 SyntheticLM(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2).batch(0).items()}
+        losses = []
+        for gt in (None, compression_transform()):
+            params = tf_model.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+            opt = AdamW(grad_transform=gt)
+            state = {"params": params, "opt_state": opt.init(params), "step": 0}
+            state, m = tf_model.train_step_fn(cfg, opt)(state, batch)
+            losses.append(m["loss"])
+        assert torch.equal(losses[0], losses[1])
+        err = tree.leaves(state["opt_state"]["transform"])
+        assert [e.shape for e in err] == [p.shape for p in tree.leaves(state["params"])]
+        assert all(e.dtype == torch.float32 for e in err) and any(bool(e.any()) for e in err)
+        # a weight fault between steps: the guarded step skips and keeps the buffers
+        state = reliability.init_guard_state(state)
+        kept = [e.clone() for e in err]
+        with torch.no_grad():
+            state["params"]["final_norm"].add_(1.0)
+        state, m = tf_model.train_step_fn(cfg, opt, guard=True)(state, batch)
+        assert (m["skipped"], m["weight_fault"]) == (1, 1)
+        for a, b in zip(tree.leaves(state["opt_state"]["transform"]), kept):
+            assert torch.equal(a, b)
+        return
     if what == "tied":
         tied = dataclasses.replace(cfg, tie_embeddings=True)
         params = {"embed": torch.randn(tied.padded_vocab, tied.d_model)}
@@ -365,11 +395,8 @@ def test_training_branches_outside_the_slice_raise(what):
         assert head.shape == (tied.d_model, tied.padded_vocab)
         assert torch.equal(head, params["embed"].t()) and head.data_ptr() == params["embed"].data_ptr()
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "plan":
-            from repro_torch.distributed import abstract_mesh, make_plan
+    from repro_torch.distributed import abstract_mesh, make_plan
 
-            tp = dataclasses.replace(cfg, sharding="tp", matmul_backend="dip_tp")
-            tf_model.train_step_fn(tp, AdamW(), plan=make_plan(abstract_mesh(data=2, model=2), tp, "train"))
-        else:
-            AdamW(grad_transform=object())
+    tp = dataclasses.replace(cfg, sharding="tp", matmul_backend="dip_tp")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf_model.train_step_fn(tp, AdamW(), plan=make_plan(abstract_mesh(data=2, model=2), tp, "train"))

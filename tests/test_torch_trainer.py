@@ -348,15 +348,17 @@ def test_trainer_refuses_what_is_not_ported(tmp_path):
     guarded = Trainer(cfg, TrainerConfig(guard=True, ckpt_dir=str(tmp_path)), device="cpu").init_state()
     assert {"fingerprint", "skipped", "weight_faults"} <= set(guarded)
     # training under a plan runs (test_torch_sharded_train_*.py) but over one
-    # axis only: a (data, model) mesh with both above 1 raises, as stages do
+    # axis only: a (data, model) mesh with both above 1 raises, as stages
+    # beside a data axis do (test_torch_pipeline_train.py: a stage axis alone)
     from repro_torch.distributed import abstract_mesh, make_plan
 
     tp = dataclasses.replace(cfg, sharding="tp", matmul_backend="dip_tp")
-    for c, tcfg, kw in ((tp, TrainerConfig(ckpt_dir=str(tmp_path)),
-                         {"plan": make_plan(abstract_mesh(data=2, model=2), tp, "train")}),
-                        (cfg, TrainerConfig(pipeline_microbatches=4, ckpt_dir=str(tmp_path)), {})):
+    pp = dataclasses.replace(cfg, sharding="pp")
+    for c, tcfg, mesh in ((tp, TrainerConfig(ckpt_dir=str(tmp_path)), abstract_mesh(data=2, model=2)),
+                          (pp, TrainerConfig(pipeline_microbatches=4, ckpt_dir=str(tmp_path)),
+                           abstract_mesh(stage=2, data=2, model=1))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(c, tcfg, device="cpu", **kw)
+            Trainer(c, tcfg, device="cpu", plan=make_plan(mesh, c, "train"))
     with pytest.raises(ValueError, match="inference-only"):
         Trainer(dataclasses.replace(cfg, quantization="int8"), TrainerConfig(ckpt_dir=str(tmp_path)),
                 device="cpu")
